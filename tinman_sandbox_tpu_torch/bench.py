@@ -1,7 +1,8 @@
-"""Raw-kernel CAAR benchmark on the card (counterpart of the raw mode of the
-repository's ``bench.py``).
+"""CAAR benchmarks on the card (counterpart of the raw and the assembled
+modes of the repository's ``bench.py``).
 
     python -m tinman_sandbox_tpu_torch.bench [--nelem 1024] [--nlev 72]
+    python -m tinman_sandbox_tpu_torch.bench --ne 30 [--nlev 72]
 
 The reference's methodology (kokkos_init.cpp:108-134): random init from a
 numpy seed, f32, fixed time levels, one kernel launch per step with the
@@ -12,6 +13,17 @@ by each launch, read by the next), a warm-up excluded, and
 8 writes, meta ignored); ``fraction_of_triad`` divides by the port's own
 saxpby kernel, measured in the same process. A measurement of the card:
 raises without one.
+
+``--ne N`` is the assembled mode: the CAAR step plus the structured DSS on
+the ne x ne x 6 cubed sphere (``dist.caar_dss_structured_packed_t4``, the
+CAAR kernel with its fix-lane slab, then the DSS fixup and sweep kernels),
+random state on the real geometry, two-float rspheremp. It CHAINS, as the
+root bench's ``rotate`` does: each step's assembled s1 becomes the next
+step's n0 and the old n0 its nm1, the accumulators run on, and the chain
+continues from the warm-up through every timed run. ``bytes_per_step`` adds
+to the 21 CAAR rows the DSS's 8 (the stacked s1 read and written), the two
+rspheremp rows and twice the slab (written by the CAAR kernel, read by the
+fixup).
 """
 from __future__ import annotations
 
@@ -23,7 +35,8 @@ import time
 import torch
 
 __all__ = ["card_name_and_power", "bytes_per_step", "make_problem",
-           "run_steps", "main"]
+           "run_steps", "assembled_bytes_per_step", "make_assembled_problem",
+           "run_assembled", "main"]
 
 
 def card_name_and_power():
@@ -80,6 +93,107 @@ def run_steps(const, acc, nsteps: int):
     return out
 
 
+def assembled_bytes_per_step(ne: int, nlev: int, nfix: int,
+                             itemsize: int = 4) -> int:
+    """Device-memory traffic of one assembled step, meta ignored: 21 CAAR
+    rows and 8 DSS rows of nlev levels, 2 rspheremp rows, over E16 lanes,
+    plus the [nfix, 4*nlev] slab written once and read once."""
+    e16 = 6 * ne * ne * 16
+    return (((21 + 8) * nlev + 2) * e16 + 2 * nfix * 4 * nlev) * itemsize
+
+
+def make_assembled_problem(ne: int, nlev: int, device, seed: int = 7):
+    """The assembled bench problem at ne: random state (``seed``) and zero
+    accumulators on the cubed sphere's geometry, analytic hvcoord, dt2 = 0.1,
+    eta_ave_w = 1 and the two-float rspheremp, as in the root bench's --ne
+    mode. Returns (const, levels, acc, plan, rsp): const = (scal, meta, qdp,
+    pecnd, dvv), levels = (s0, sm1) stacked [4*nlev, E16]."""
+    from . import Config, analytic_hvcoord, random_state, zero_derived
+    from .dist import build_cubed_sphere, make_structured_plan, rsp_lanes_2f
+    from .kernels.caar_t import _scalars, pack_problem_t
+
+    kw = dict(dtype=torch.float32, device=device)
+    cs = build_cubed_sphere(ne, **kw)
+    cfg = Config(nelem=cs.nelem, nlev=nlev)
+    hv = analytic_hvcoord(cfg, **kw)
+    p = pack_problem_t(random_state(cfg, seed=seed, **kw),
+                       zero_derived(cfg, **kw), cs.geometry, hv, cfg)
+    levels = (torch.cat([p["u0"], p["v0"], p["t0"], p["dp0"]]),
+              torch.cat([p["um1"], p["vm1"], p["tm1"], p["dpm1"]]))
+    const = (_scalars(0.1, 1.0, hv, torch.float32, device), p["meta"],
+             p["qdp"], p["pecnd"], p["dvv"])
+    rsp = torch.from_numpy(rsp_lanes_2f(cs.geometry.spheremp, cs.gdof,
+                                        cs.ndof)).to(device)
+    return (const, levels, (p["vn0u"], p["vn0v"], p["omg"]),
+            make_structured_plan(cs.gdof, ne), rsp)
+
+
+def run_assembled(const, levels, acc, plan, rsp, nsteps: int, step=None):
+    """``nsteps`` chained assembled steps (``step`` defaults to
+    ``caar_dss_structured_packed_t4``): the assembled s1 becomes n0 and the
+    old n0 becomes nm1. Returns ((n0, nm1), acc, phi) after the last."""
+    from .dist.step_t import caar_dss_structured_packed_t4
+
+    step = step or caar_dss_structured_packed_t4
+    scal, meta, qdp, pecnd, dvv = const
+    s0, sm1 = levels
+    phi = None
+    for _ in range(nsteps):
+        s1, phi, *acc = step(scal, meta, s0, sm1, qdp, pecnd, *acc, dvv,
+                             plan, rsp)
+        s0, sm1 = s1, s0
+    return (s0, sm1), tuple(acc), phi
+
+
+def _main_assembled(args, dev) -> dict:
+    from .kernels.caar_t import caar_t4_cuda
+    from .kernels.dss import (
+        dss_extract_cuda, dss_fixup_cuda, dss_sweep_cuda, fix_tables)
+    from .kernels.saxpby import saxpby_bandwidth_gbs
+
+    const, levels, acc, plan, rsp = make_assembled_problem(
+        args.ne, args.nlev, dev)
+    wrappers = (caar_t4_cuda, dss_extract_cuda, dss_fixup_cuda,
+                dss_sweep_cuda)
+    launches0 = [w.launches for w in wrappers]
+    # warm-up (first build), excluded; the chain runs on from it
+    levels, acc, _ = run_assembled(const, levels, acc, plan, rsp, 2)
+    torch.cuda.synchronize(dev)
+    best = float("inf")
+    for _ in range(args.reps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        levels, acc, phi = run_assembled(const, levels, acc, plan, rsp,
+                                         args.nexec)
+        torch.cuda.synchronize(dev)
+        best = min(best, time.perf_counter() - t0)
+    if not all(bool(torch.isfinite(x).all()) for x in (*levels, *acc, phi)):
+        raise RuntimeError("bench: non-finite assembled state")
+    launches = {w.__name__: w.launches - n0
+                for w, n0 in zip(wrappers, launches0)}
+    triad = saxpby_bandwidth_gbs(device=dev)
+    nelem = 6 * args.ne * args.ne
+    nbytes = assembled_bytes_per_step(args.ne, args.nlev,
+                                      fix_tables(plan, dev).nfix)
+    gbs = nbytes * args.nexec / best / 1e9
+    return {
+        "metric": "caar_dss_gridpoint_updates_per_s",
+        "config": f"ne{args.ne} ({nelem} elements) x{args.nlev}x16 float32 "
+                  f"nexec={args.nexec} reps={args.reps} chained "
+                  "step=caar_dss_structured_packed_t4",
+        "seconds": best,
+        "us_per_step": best / args.nexec * 1e6,
+        "gridpoints_per_s": nelem * args.nlev * 16 * args.nexec / best,
+        "bytes_per_step": nbytes,
+        "achieved_gb_per_s": gbs,
+        "triad_gb_per_s": triad,
+        "fraction_of_triad": gbs / triad,
+        "kernel_launches": launches,
+        "device": torch.cuda.get_device_name(dev),
+        "card": card_name_and_power(),
+    }
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(prog="tinman_sandbox_tpu_torch.bench")
     ap.add_argument("--nelem", type=int, default=1024)
@@ -87,6 +201,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--nexec", type=int, default=1000,
                     help="steps per timed run")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--ne", type=int, default=None,
+                    help="assembled mode on the ne x ne x 6 cubed sphere "
+                         "(sets the element count; --nelem is ignored)")
     args = ap.parse_args(argv)
 
     from .device import resolve_device
@@ -94,6 +211,10 @@ def main(argv=None) -> dict:
     from .kernels.saxpby import saxpby_bandwidth_gbs
 
     dev = resolve_device("cuda")
+    if args.ne is not None:
+        result = _main_assembled(args, dev)
+        print(json.dumps(result))
+        return result
     const, acc = make_problem(args.nelem, args.nlev, dev)
     launches0 = caar_t4_cuda.launches
     run_steps(const, acc, 2)                  # warm-up (first build), excluded

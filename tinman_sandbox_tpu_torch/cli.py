@@ -1,13 +1,22 @@
-"""Command-line driver for the raw CAAR benchmark (counterpart of the raw
-path of ``tinman_sandbox_tpu/cli.py``).
+"""Command-line driver for the CAAR step, raw or assembled on the cubed
+sphere (counterpart of the raw and ``--ne N --dss`` paths of
+``tinman_sandbox_tpu/cli.py``).
 
     python -m tinman_sandbox_tpu_torch --num-elems 1024 --num-exec 100
     python -m tinman_sandbox_tpu_torch --device cpu --kernel plain \\
         --num-elems 3 --num-exec 2 --golden-check
+    python -m tinman_sandbox_tpu_torch --ne 30 --dss --leapfrog --num-exec 20
 
 ``--kernel cuda`` (default) runs the packed-layout step through the CUDA
 kernel wrapper; on ``--device cpu`` that wrapper runs its plain version.
 ``--kernel plain`` runs the array-form step and is allowed only on the CPU.
+``--ne N`` puts the elements on the ne x ne x 6 cubed sphere (6*N*N of them,
+its geometry in place of the analytic or random one); ``--dss`` then
+assembles the updated fields every step: ``dist.caar_dss_t`` (the CAAR
+kernel, then the DSS extract, fixup and sweep kernels per field) with
+``--kernel cuda``, the array form ``dist.caar_dss_step`` with
+``--kernel plain``. An assembled run reports how far the aliases of a shared
+dof disagree at the end, which is exactly 0.
 The CUDA kernel is float32 only; ``--dtype`` defaults to float32 on the card
 and float64 (the oracle path) on the CPU.
 """
@@ -19,7 +28,7 @@ import sys
 import time
 
 # flags of the JAX CLI whose paths are not ported yet
-_NOT_PORTED = ("dss", "rk", "prim", "ne", "checkpoint", "restore")
+_NOT_PORTED = ("rk", "prim", "checkpoint", "restore")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -33,6 +42,10 @@ def build_parser() -> argparse.ArgumentParser:
                     dest="num_exec")
     ap.add_argument("--dump-res", "--tinman-dump-res", default="no",
                     choices=("yes", "no"), dest="dump_res")
+    ap.add_argument("--ne", type=int, default=None,
+                    help="cubed-sphere resolution (overrides --num-elems)")
+    ap.add_argument("--dss", action="store_true",
+                    help="assemble shared dofs each step (needs --ne)")
     ap.add_argument("--nlev", type=int, default=72)
     ap.add_argument("--dtype", default=None, choices=("float32", "float64"),
                     help="float32 on the card (default there); float64 "
@@ -52,10 +65,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="compare element 1 vs test_mod.F90 golden arrays")
     ap.add_argument("--dt", type=float, default=600.0)
     # accepted so that they fail with a clear message, not an argparse error
-    ap.add_argument("--dss", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--rk", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--prim", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--ne", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--checkpoint", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--restore", default=None, help=argparse.SUPPRESS)
     return ap
@@ -72,7 +83,10 @@ def main(argv=None) -> int:
         if getattr(args, flag) not in (None, False):
             return _usage_error(
                 f"--{flag} is not yet ported to tinman_sandbox_tpu_torch "
-                f"(the raw CAAR path is); use python -m tinman_sandbox_tpu")
+                f"(the raw and the assembled CAAR paths are); use python -m "
+                f"tinman_sandbox_tpu")
+    if args.dss and args.ne is None:
+        return _usage_error("--dss requires --ne")
     if args.kernel == "plain" and args.device != "cpu":
         return _usage_error("--kernel plain runs only with --device cpu")
     dtype_name = args.dtype or ("float32" if args.device == "cuda"
@@ -96,19 +110,33 @@ def main(argv=None) -> int:
 
     dev = resolve_device(args.device)
     dtype = getattr(torch, dtype_name)
-    nelem = args.num_elems
-    cfg = Config(nelem=nelem, nlev=args.nlev, dt=args.dt)
     kw = dict(dtype=dtype, device=dev)
+    cs = None
+    if args.ne is not None:
+        from .dist import build_cubed_sphere
+
+        cs = build_cubed_sphere(args.ne, **kw)
+    nelem = args.num_elems if cs is None else cs.nelem
+    cfg = Config(nelem=nelem, nlev=args.nlev, dt=args.dt)
     if args.init == "analytic":
         state, derived = analytic_state(cfg, **kw), analytic_derived(cfg, **kw)
-        geom = analytic_geometry(cfg, **kw)
     else:
         state, derived = random_state(cfg, seed=7, **kw), zero_derived(cfg, **kw)
+    if cs is not None:
+        geom = cs.geometry
+    elif args.init == "analytic":
+        geom = analytic_geometry(cfg, **kw)
+    else:
         geom = random_geometry(cfg, seed=8, **kw)
     hv = analytic_hvcoord(cfg, **kw)
     timers = Timers(dev)
 
     mode = "cuda" if args.kernel == "cuda" else "plain array-form"
+    if args.dss:
+        mode += " + structured DSS" if args.kernel == "cuda" \
+            else " + segment-sum DSS"
+    if cs is not None:
+        mode += f", cubed sphere ne{cs.ne}"
     print(f" --- {args.num_exec} executions on {nelem} elements x {cfg.nlev} "
           f"levels ({mode} kernel, {dtype_name}, {dev.type})")
     if args.kernel == "cuda" and dev.type == "cpu":
@@ -117,10 +145,24 @@ def main(argv=None) -> int:
 
     dt2 = 1.0 if args.init == "analytic" else args.dt
     eta = 1.0
-    step = caar_t if args.kernel == "cuda" else caar_array
+    if args.dss and args.kernel == "cuda":
+        from .dist import caar_dss_t, make_structured_plan
 
-    def one_step(s, d, c):
-        return step(s, d, geom, hv, c, dt2, eta, device=dev)
+        plan = make_structured_plan(cs.gdof, cs.ne)
+
+        def one_step(s, d, c):
+            return caar_dss_t(s, d, geom, hv, plan, c, dt2, eta, device=dev)
+    elif args.dss:
+        from .dist import caar_dss_step
+
+        def one_step(s, d, c):
+            return caar_dss_step(s, d, geom, hv, cs.gdof, cs.ndof, c, dt2,
+                                 eta, device=dev)
+    else:
+        step = caar_t if args.kernel == "cuda" else caar_array
+
+        def one_step(s, d, c):
+            return step(s, d, geom, hv, c, dt2, eta, device=dev)
 
     one_step(state, derived, cfg)       # warm-up (first build), excluded
     if dev.type == "cuda":
@@ -143,6 +185,17 @@ def main(argv=None) -> int:
     ok, mn = check_dp3d(state, c_chk)
     if not ok:
         print(f" --- WARNING: dp3d positivity violated (min {mn:.3e})")
+    fresh = [getattr(state, n)[c_chk.np1] for n in ("u", "v", "t", "dp3d")]
+    if not all(bool(torch.isfinite(x).all()) for x in fresh):
+        print(" --- WARNING: non-finite prognostic state")
+    if args.dss:
+        from .dist import continuity_error_t
+        from .kernels.layout import pack_field_t
+
+        spread = max(continuity_error_t(pack_field_t(x), cs.gdof)
+                     for x in fresh)
+        print(f" --- continuity: max |alias - first alias| over u, v, T, dp "
+              f"{spread:.3e}")
 
     if args.golden_check and args.init == "analytic" and not args.leapfrog:
         from .golden import golden_caar

@@ -29,6 +29,12 @@
 // place of 13). The dxbt/dybt block-diagonal operators and triangular scan
 // matrices of the TPU kernel fed its matrix unit; here the contractions are
 // 4-term FP32 FMAs on the 4x4 Dvv and the scans are running sums. No TF32.
+// Optional fix-lane slab (replaces the sf/cq slab modes of
+// caar_pallas_packed_t4_lg :552-630 and caar_pallas_packed_t4_ext :652):
+// the thread owning a column with fix_rank[col] = r >= 0 also writes its
+// four outputs u1/v1/t1/dp1 at every level to row r of the slab,
+// slab[r*slab_ld + f*nlev + k] for field f, the pre-DSS values that the
+// DSS fixup (csrc/dss.cu) reads; without a slab fix_rank is null.
 // Known limit of this simple form: one thread per column gives E16 threads
 // in all (16,384 at 1024 elements, ~6% of the card's thread slots), so the
 // kernel is latency-bound well above its memory bound; splitting levels
@@ -55,7 +61,9 @@ struct CaarArgs {
   const float* qdp; const float* pecnd;
   float* vn0u; float* vn0v; float* omg;      // accumulators, in place
   float* u1; float* v1; float* t1; float* dp1; float* phi;
-  int nlev, ncol, ld, moist;
+  const int* fix_rank;                       // [ncol] slab row or -1; or null
+  float* slab;                               // [nfix, slab_ld]
+  int nlev, ncol, ld, moist, slab_ld;
   float rgas, kappa, rv_factor, rrearth;
 };
 
@@ -95,6 +103,8 @@ __global__ void __launch_bounds__(kBlock) caar_kernel(CaarArgs a) {
   for (int r = 0; r < 13; ++r) m[r] = live ? a.meta[r * ld + col] : 1.f;
   const float dt2 = a.scal[0], eta = a.scal[1], h = a.scal[2];
   const float rr = a.rrearth;
+  const int srow = (live && a.fix_rank) ? a.fix_rank[col] : -1;
+  float* const slab = srow >= 0 ? a.slab + (size_t)srow * a.slab_ld : nullptr;
   __syncthreads();
 
   // pass 1: p and q, top-down
@@ -187,10 +197,20 @@ __global__ void __launch_bounds__(kBlock) caar_kernel(CaarArgs a) {
 
     if (live) {
       const float sph = m[kSpheremp];
-      a.u1[o] = sph * (um1 + dt2 * vtens1);
-      a.v1[o] = sph * (vm1 + dt2 * vtens2);
-      a.t1[o] = sph * (tm1 + dt2 * ttens);
-      a.dp1[o] = sph * (dpm1 - dt2 * divdp);
+      const float u1 = sph * (um1 + dt2 * vtens1);
+      const float v1 = sph * (vm1 + dt2 * vtens2);
+      const float t1 = sph * (tm1 + dt2 * ttens);
+      const float dp1 = sph * (dpm1 - dt2 * divdp);
+      a.u1[o] = u1;
+      a.v1[o] = v1;
+      a.t1[o] = t1;
+      a.dp1[o] = dp1;
+      if (slab) {
+        slab[k] = u1;
+        slab[a.nlev + k] = v1;
+        slab[2 * a.nlev + k] = t1;
+        slab[3 * a.nlev + k] = dp1;
+      }
       a.phi[o] = phi;
       a.vn0u[o] = an + eta * vdp1;
       a.vn0v[o] = av + eta * vdp2;
@@ -208,13 +228,15 @@ const char* caar_error_string(int err) {
 }
 
 // Enqueues one CAAR step on `stream`. Returns the cudaError_t of the launch.
+// fix_rank and slab may be null (no slab output).
 int caar_launch(const void* scal, const void* meta, const void* dvv,
                 const void* u0, const void* v0, const void* t0,
                 const void* dp0, const void* um1, const void* vm1,
                 const void* tm1, const void* dpm1, const void* qdp,
                 const void* pecnd, void* vn0u, void* vn0v, void* omg,
                 void* u1, void* v1, void* t1, void* dp1, void* phi,
-                int nlev, int ncol, int ld, int moist, float rgas,
+                const void* fix_rank, void* slab, int nlev, int ncol,
+                int ld, int moist, int slab_ld, float rgas,
                 float kappa, float rv_factor, float rrearth, void* stream,
                 int device) {
   cudaError_t err = cudaSetDevice(device);
@@ -241,6 +263,9 @@ int caar_launch(const void* scal, const void* meta, const void* dvv,
   a.t1 = static_cast<float*>(t1);
   a.dp1 = static_cast<float*>(dp1);
   a.phi = static_cast<float*>(phi);
+  a.fix_rank = static_cast<const int*>(fix_rank);
+  a.slab = static_cast<float*>(slab);
+  a.slab_ld = slab_ld;
   a.nlev = nlev;
   a.ncol = ncol;
   a.ld = ld;

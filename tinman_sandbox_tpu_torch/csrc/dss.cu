@@ -1,0 +1,187 @@
+// Structured DSS (direct stiffness summation) on the transposed [k, E16]
+// layout of the ne x ne x 6 cubed sphere: three kernels.
+//
+// Replaces the Pallas kernels of tinman_sandbox_tpu/kernels/dss_pallas.py:
+//   dss_extract  <- extract_tiles_t (:721) and extract_tiles_ct (:759);
+//   dss_fixup    <- vals_to_vd_pallas (:1306) together with the XLA line
+//                   math _fixup_from_rows (:890-929) that feeds it;
+//   dss_sweep    <- dss_sweeps_pallas_t (:617) and dss_sweeps_pallas_ct
+//                   (:1227), without their mix= epilogue.
+// The TPU forms cut the lane axis into 128-lane tiles, padded the fix lanes
+// to whole tiles or to per-tile slots, and placed them with one-hot matrix
+// products. None of that is needed here: a thread reads the lane it wants.
+//
+// The algebra (lane = ((face*ne + ej)*ne + ei)*16 + i*4 + j):
+//   y(l) = x(l) + x(l+4)   if i == 3 and ei < ne-1   (alpha sweep)
+//        = x(l) + x(l-4)   if i == 0 and ei > 0
+//   z(l) = y(l) + y(l+db)  if j == 3 and ej < ne-1   (beta sweep,
+//        = y(l) + y(l-db)  if j == 0 and ej > 0       db = 16*ne - 3)
+//   w(l) = z*hi + z*lo (two-float rspheremp) or z*rsp
+// except at the 2,856 fix lanes of ne30 (cube-edge line interiors and cube
+// corners), whose value is computed from the PRE-sweep field by the fixup:
+//   v = (g[s0] + g[s1]) + (g[s2] + g[s3]),  then v*hi + v*lo,
+// with s0/s1 the lane and its in-face junction partner on its own line,
+// s2/s3 the same on the paired line of the neighbouring face (read in
+// reverse on a flipped edge), and for a cube corner (c0 + c1) + c2. An
+// absent s1 or s3 (-1) adds nothing. Every add and product is rounded on
+// its own (__fadd_rn / __fmul_rn, no FMA contraction) in the order of the
+// JAX package, so each kernel equals its plain PyTorch version bit for bit
+// and every alias of a shared dof ends with the same bits.
+//
+// What bounds them on the H100: device-memory traffic. The sweep reads and
+// writes the whole field once (199 MB at ne30 x 288 rows, ~0.06 ms at
+// 3.35 TB/s); the fixup and the extraction move a ~3.3 MB slab each and
+// are bound by launch latency. Design: one thread per output element;
+// the sweep's threads run along lanes, so loads and stores coalesce, and
+// the partner reads (4 and 16*ne-3 lanes away) hit lines already in cache;
+// the extraction transposes 32x32 tiles through shared memory. Offsets are
+// size_t: 4*nlev*E16 exceeds 2^31 from ne ~ 160 on.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kSweepThreads = 256;
+constexpr int kFixupThreads = 256;
+constexpr int kTile = 32;
+constexpr int kTileRows = 8;
+
+// x(l) plus its alpha partner, where there is one (y of the header)
+__device__ __forceinline__ float alpha_sum(const float* __restrict__ xr,
+                                           int l, int ne) {
+  const int i = (l >> 2) & 3, ei = (l >> 4) % ne;
+  float v = xr[l];
+  if (i == 3 && ei < ne - 1) v = __fadd_rn(v, xr[l + 4]);
+  else if (i == 0 && ei > 0) v = __fadd_rn(v, xr[l - 4]);
+  return v;
+}
+
+__device__ __forceinline__ float scale(float v, const float* __restrict__ rsp,
+                                       int nrsp, int e16, int l) {
+  if (nrsp == 2)
+    return __fadd_rn(__fmul_rn(v, rsp[l]), __fmul_rn(v, rsp[e16 + l]));
+  return __fmul_rn(v, rsp[l]);
+}
+
+// out[row, l]: the swept, scaled value, or the fix value vd[row, fix_col[l]]
+__global__ void __launch_bounds__(kSweepThreads)
+dss_sweep_kernel(const float* __restrict__ x, const float* __restrict__ rsp,
+                 int nrsp, const float* __restrict__ vd, int nfix,
+                 const int* __restrict__ fix_col, float* __restrict__ out,
+                 int e16, int ne) {
+  const int l = blockIdx.x * kSweepThreads + threadIdx.x;
+  if (l >= e16) return;
+  const size_t row = blockIdx.y;
+  const int c = fix_col[l];
+  float res;
+  if (c >= 0) {
+    res = vd[row * nfix + c];
+  } else {
+    const float* xr = x + row * e16;
+    const int j = l & 3, ej = (l / (16 * ne)) % ne, db = 16 * ne - 3;
+    float z = alpha_sum(xr, l, ne);
+    if (j == 3 && ej < ne - 1) z = __fadd_rn(z, alpha_sum(xr, l + db, ne));
+    else if (j == 0 && ej > 0) z = __fadd_rn(z, alpha_sum(xr, l - db, ne));
+    res = scale(z, rsp, nrsp, e16, l);
+  }
+  out[row * e16 + l] = res;
+}
+
+// vd[row, u] for fix lane u = fix_lanes[u]: the line / corner sum of the
+// slab rows src[u] = (s0, s1, s2, s3), scaled by the lane's rspheremp
+__global__ void __launch_bounds__(kFixupThreads)
+dss_fixup_kernel(const float* __restrict__ slab, const int4* __restrict__ src,
+                 const int* __restrict__ fix_lanes,
+                 const float* __restrict__ rsp, int nrsp, int e16,
+                 float* __restrict__ vd, int nfix, int k) {
+  const size_t idx = static_cast<size_t>(blockIdx.x) * kFixupThreads +
+                     threadIdx.x;
+  if (idx >= static_cast<size_t>(nfix) * k) return;
+  const int u = static_cast<int>(idx % nfix);
+  const size_t row = idx / nfix;
+  const int4 s = src[u];
+  float za = slab[static_cast<size_t>(s.x) * k + row];
+  if (s.y >= 0) za = __fadd_rn(za, slab[static_cast<size_t>(s.y) * k + row]);
+  float zb = slab[static_cast<size_t>(s.z) * k + row];
+  if (s.w >= 0) zb = __fadd_rn(zb, slab[static_cast<size_t>(s.w) * k + row]);
+  vd[idx] = scale(__fadd_rn(za, zb), rsp, nrsp, e16, fix_lanes[u]);
+}
+
+// slab[r, row] = x[row, lanes[r]], through a 32x32 shared-memory tile
+__global__ void dss_extract_kernel(const float* __restrict__ x,
+                                   const int* __restrict__ lanes,
+                                   float* __restrict__ slab, int n, int k,
+                                   int e16) {
+  __shared__ float tile[kTile][kTile + 1];
+  const int r0 = blockIdx.x * kTile, row0 = blockIdx.y * kTile;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int r = r0 + tx;
+  const int lane = r < n ? lanes[r] : 0;
+  for (int dy = ty; dy < kTile; dy += kTileRows) {
+    const int row = row0 + dy;
+    if (r < n && row < k)
+      tile[dy][tx] = x[static_cast<size_t>(row) * e16 + lane];
+  }
+  __syncthreads();
+  for (int dy = ty; dy < kTile; dy += kTileRows) {
+    const int rr = r0 + dy, row = row0 + tx;
+    if (rr < n && row < k) slab[static_cast<size_t>(rr) * k + row] = tile[tx][dy];
+  }
+}
+
+cudaError_t prepare(int device) { return cudaSetDevice(device); }
+
+}  // namespace
+
+extern "C" {
+
+const char* dss_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Each launch enqueues one kernel on `stream` and returns the cudaError_t of
+// the launch. Pointers are device pointers of contiguous float32 / int32
+// tensors; rsp holds nrsp (1 or 2) rows of e16 lanes.
+
+int dss_sweep_launch(const void* x, const void* rsp, int nrsp, const void* vd,
+                     int nfix, const void* fix_col, void* out, int k, int e16,
+                     int ne, void* stream, int device) {
+  cudaError_t err = prepare(device);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((e16 + kSweepThreads - 1) / kSweepThreads, k);
+  dss_sweep_kernel<<<grid, kSweepThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(rsp), nrsp,
+      static_cast<const float*>(vd), nfix, static_cast<const int*>(fix_col),
+      static_cast<float*>(out), e16, ne);
+  return cudaGetLastError();
+}
+
+int dss_fixup_launch(const void* slab, const void* src, const void* fix_lanes,
+                     const void* rsp, int nrsp, int e16, void* vd, int nfix,
+                     int k, void* stream, int device) {
+  cudaError_t err = prepare(device);
+  if (err != cudaSuccess) return err;
+  const size_t total = static_cast<size_t>(nfix) * k;
+  const unsigned grid =
+      static_cast<unsigned>((total + kFixupThreads - 1) / kFixupThreads);
+  dss_fixup_kernel<<<grid, kFixupThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(slab), static_cast<const int4*>(src),
+      static_cast<const int*>(fix_lanes), static_cast<const float*>(rsp),
+      nrsp, e16, static_cast<float*>(vd), nfix, k);
+  return cudaGetLastError();
+}
+
+int dss_extract_launch(const void* x, const void* lanes, void* slab, int n,
+                       int k, int e16, void* stream, int device) {
+  cudaError_t err = prepare(device);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kTile - 1) / kTile, (k + kTile - 1) / kTile);
+  const dim3 block(kTile, kTileRows);
+  dss_extract_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const int*>(lanes),
+      static_cast<float*>(slab), n, k, e16);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

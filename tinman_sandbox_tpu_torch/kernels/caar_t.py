@@ -16,8 +16,14 @@ triangular scan matrices to feed its matrix unit, this one takes the 4x4
   * ``caar_t4_cuda`` is the stacked-state entry (rows 1 and 3 of the kernel
     table) and ``caar_packed_t`` the unstacked one (row 2). Both check their
     operands, run the plain version for CPU tensors and launch the kernel
-    for CUDA tensors, counted in ``caar_t4_cuda.launches``. Both write the
+    for CUDA tensors, counted in ``caar_t4_cuda.launches`` (and those with
+    a slab output also in ``caar_t4_cuda.slab_launches``). Both write the
     vn0u/vn0v/omg accumulators IN PLACE.
+  * With ``fix=`` (the fix-lane tables of ``kernels/dss.py``) both entries
+    and ``caar_t4_plain`` also return the pre-DSS s1 at the fix lanes,
+    transposed: the slab [nfix, 4*nlev] with ``slab[r] = s1[:, lanes[r]]``
+    (rows 1 and 4 of the kernel table in their slab modes; the TPU kernels
+    laid it out by 128-lane tiles, here it is one row per fix lane).
   * ``caar_t`` is the full-state wrapper (``caar_pallas_t``) and
     ``run_leapfrog_t`` the production leapfrog loop
     (``run_leapfrog_pallas_t``): pack once, rotate packed buffers, unpack
@@ -117,16 +123,23 @@ def _physics_plain(scal, meta, dvv, u, v, t, dp, um1, vm1, tm1, dpm1,
             phi, vdp1, vdp2, omega_p)
 
 
+def _slab_plain(s1: torch.Tensor, fix) -> torch.Tensor:
+    """The fix-lane slab of a [4*nlev, E16] state: s1[:, lanes].T."""
+    return s1[:, fix.read_lanes.long()].T.contiguous()
+
+
 def caar_t4_plain(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv,
-                  moist: bool = True):
+                  moist: bool = True, fix=None):
     """Plain PyTorch CAAR step on stacked [4*nlev, E16] states. Pure:
-    returns new (s1, phi, vn0u', vn0v', omg') and modifies nothing."""
+    returns new (s1, phi, vn0u', vn0v', omg') and modifies nothing; with
+    ``fix`` also the fix-lane slab of s1."""
     k = qdp.shape[0]
     u1, v1, t1, dp1, phi, vdp1, vdp2, omega_p = _physics_plain(
         scal, meta, dvv, *s0.split(k), *sm1.split(k), qdp, pecnd, moist)
     eta = scal[0, 1]
-    return (torch.cat([u1, v1, t1, dp1]), phi, vn0u + eta * vdp1,
-            vn0v + eta * vdp2, omg + eta * omega_p)
+    s1 = torch.cat([u1, v1, t1, dp1])
+    out = (s1, phi, vn0u + eta * vdp1, vn0v + eta * vdp2, omg + eta * omega_p)
+    return out if fix is None else (*out, _slab_plain(s1, fix))
 
 
 def _check(scal, meta, dvv, fields, nlev):
@@ -160,9 +173,25 @@ def _check(scal, meta, dvv, fields, nlev):
     return dev
 
 
-def _caar_step(scal, meta, dvv, s0, sm1, qdp, pecnd, acc, out, phi, moist):
+def _new_slab(fix, ref: torch.Tensor, nlev: int):
+    """The slab buffer [nfix, 4*nlev] for ``fix``, checked against ``ref``."""
+    if fix is None:
+        return None
+    rank, lanes = fix.fix_rank, fix.read_lanes
+    if rank.device != ref.device or rank.dtype != torch.int32 \
+            or tuple(rank.shape) != (ref.shape[1],):
+        raise ValueError(f"caar: fix_rank must be int32 [{ref.shape[1]}] on "
+                         f"{ref.device}, got {rank.dtype} "
+                         f"{tuple(rank.shape)} on {rank.device}")
+    return torch.empty(lanes.shape[0], 4 * nlev, dtype=ref.dtype,
+                       device=ref.device)
+
+
+def _caar_step(scal, meta, dvv, s0, sm1, qdp, pecnd, acc, out, phi, moist,
+               fix=None, slab=None):
     """One step on [nlev, E16] views: s0/sm1/out are 4-tuples (u, v, t, dp),
-    acc the 3 accumulators (updated in place), phi the output buffer."""
+    acc the 3 accumulators (updated in place), phi the output buffer; with
+    ``fix``, ``slab`` [nfix, 4*nlev] receives the fix-lane rows of out."""
     nlev = qdp.shape[0]
     dev = _check(scal, meta, dvv,
                  (*s0, *sm1, qdp, pecnd, *acc, *out, phi), nlev)
@@ -174,50 +203,64 @@ def _caar_step(scal, meta, dvv, s0, sm1, qdp, pecnd, acc, out, phi, moist):
         eta = scal[0, 1]
         for a, r in zip(acc, (vdp1, vdp2, omega_p)):
             a.add_(eta * r)
+        if slab is not None:
+            slab.copy_(_slab_plain(torch.cat(out), fix))
         return
-    ptr = lambda x: x.data_ptr()
+    ptr = lambda x: 0 if x is None else x.data_ptr()
     c = CONSTANTS
     err = _build.library("caar").caar_launch(
         ptr(scal), ptr(meta), ptr(dvv), *map(ptr, s0), *map(ptr, sm1),
         ptr(qdp), ptr(pecnd), *map(ptr, acc), *map(ptr, out), ptr(phi),
-        nlev, qdp.shape[1], qdp.stride(0), int(bool(moist)),
+        ptr(None if fix is None else fix.fix_rank), ptr(slab),
+        nlev, qdp.shape[1], qdp.stride(0), int(bool(moist)), 4 * nlev,
         c.Rgas, c.kappa, c.rgas_over_rvap_m1, c.rrearth,
         torch.cuda.current_stream(dev).cuda_stream, dev.index)
     _build.check_launch("caar", err)
     caar_t4_cuda.launches += 1
+    if slab is not None:
+        caar_t4_cuda.slab_launches += 1
 
 
 def caar_t4_cuda(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv,
-                 moist: bool = True):
-    """Stacked-state CAAR step (counterpart of ``caar_pallas_packed_t4_lg``
-    and ``caar_pallas_packed_t4``). scal [1,4] = (dt2, eta_ave_w, hyai0*ps0,
-    0); meta [16, E16]; s0, sm1 [4*nlev, E16] (u/v/t/dp row blocks); qdp,
-    pecnd, vn0u, vn0v, omg [nlev, E16]; dvv [4, 4]. The accumulators are
-    updated IN PLACE. Returns (s1, phi, vn0u, vn0v, omg)."""
+                 moist: bool = True, fix=None):
+    """Stacked-state CAAR step (counterpart of ``caar_pallas_packed_t4_lg``,
+    ``caar_pallas_packed_t4`` and, with ``fix``, their slab-emitting forms
+    ``caar_pallas_packed_t4_lg(sf=, cq=)`` and ``caar_pallas_packed_t4_ext``).
+    scal [1,4] = (dt2, eta_ave_w, hyai0*ps0, 0); meta [16, E16]; s0, sm1
+    [4*nlev, E16] (u/v/t/dp row blocks); qdp, pecnd, vn0u, vn0v, omg
+    [nlev, E16]; dvv [4, 4]. The accumulators are updated IN PLACE. Returns
+    (s1, phi, vn0u, vn0v, omg), and the fix-lane slab last with ``fix``."""
     k = qdp.shape[0]
     if s0.shape[0] != 4 * k or sm1.shape[0] != 4 * k:
         raise ValueError(f"caar: s0/sm1 need {4 * k} rows, got "
                          f"{s0.shape[0]}/{sm1.shape[0]}")
     s1 = torch.empty_like(s0)
     phi = torch.empty_like(qdp)
+    slab = _new_slab(fix, qdp, k)
     _caar_step(scal, meta, dvv, s0.split(k), sm1.split(k), qdp, pecnd,
-               (vn0u, vn0v, omg), s1.split(k), phi, moist)
-    return s1, phi, vn0u, vn0v, omg
+               (vn0u, vn0v, omg), s1.split(k), phi, moist, fix, slab)
+    out = (s1, phi, vn0u, vn0v, omg)
+    return out if fix is None else (*out, slab)
 
 
 caar_t4_cuda.launches = 0
+caar_t4_cuda.slab_launches = 0     # the launches among them with a slab
 
 
 def caar_packed_t(scal, meta, u0, v0, t0, dp0, um1, vm1, tm1, dpm1,
-                  qdp, pecnd, vn0u, vn0v, omg, dvv, moist: bool = True):
+                  qdp, pecnd, vn0u, vn0v, omg, dvv, moist: bool = True,
+                  fix=None):
     """Unstacked CAAR step (counterpart of ``caar_pallas_packed_t``): one
     [nlev, E16] buffer per field, the same kernel. Accumulators in place.
-    Returns (u1, v1, t1, dp1, phi, vn0u, vn0v, omg)."""
+    Returns (u1, v1, t1, dp1, phi, vn0u, vn0v, omg), and with ``fix`` the
+    fix-lane slab [nfix, 4*nlev] (u/v/t/dp column blocks) last."""
     out = tuple(torch.empty_like(x) for x in (u0, v0, t0, dp0))
     phi = torch.empty_like(qdp)
+    slab = _new_slab(fix, qdp, qdp.shape[0])
     _caar_step(scal, meta, dvv, (u0, v0, t0, dp0), (um1, vm1, tm1, dpm1),
-               qdp, pecnd, (vn0u, vn0v, omg), out, phi, moist)
-    return (*out, phi, vn0u, vn0v, omg)
+               qdp, pecnd, (vn0u, vn0v, omg), out, phi, moist, fix, slab)
+    res = (*out, phi, vn0u, vn0v, omg)
+    return res if fix is None else (*res, slab)
 
 
 def pack_problem_t(state: State, derived: Derived, geom: Geometry,

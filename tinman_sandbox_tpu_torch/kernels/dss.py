@@ -1,0 +1,323 @@
+"""Structured DSS on the transposed [k, E16] layout as three CUDA kernels
+(counterpart of ``tinman_sandbox_tpu/kernels/dss_pallas.py``, the parts on
+the assembled step's path).
+
+The kernels are ``csrc/dss.cu`` (its note gives the algebra and the design):
+
+  * ``dss_extract_cuda``: the fix-lane slab ``slab[r, row] = x[row,
+    read_lanes[r]]`` (replaces ``extract_tiles_t`` / ``extract_tiles_ct``);
+  * ``dss_fixup_cuda``: the cube-edge junction and pair sums with the flip,
+    the cube-corner triple sums and the rspheremp scale, computed from the
+    slab and stored transposed into the vals buffer ``vd[row, u]`` (replaces
+    the XLA line math ``_fixup_from_rows`` and ``vals_to_vd_pallas``);
+  * ``dss_sweep_cuda``: the alpha and beta in-face sweeps and the scale,
+    with the fix lanes taking their value from ``vd`` (replaces
+    ``dss_sweeps_pallas_t`` / ``dss_sweeps_pallas_ct``).
+
+Each has a plain PyTorch version (``dss_extract_plain`` etc.) that computes
+the same f32 adds and products in the same order, so kernel and plain
+version agree bit for bit. The wrappers check their operands, run the plain
+version for CPU tensors (any float dtype) and launch the kernel for CUDA
+tensors (float32), counting launches in ``<wrapper>.launches``.
+
+``fix_tables(plan, device)`` builds the static tables once per plan and
+device: the ascending ``read_lanes`` the slab holds, ``fix_rank`` [E16]
+(slab row or -1, which the CAAR kernel's slab output also takes),
+``fix_lanes`` (the fix lanes in vals-column order: the line interiors of the
+24 face sides, then each cube corner's three aliases), ``fix_col`` [E16]
+(vals column or -1) and ``fix_src`` [nfix, 4] (the slab rows each fix value
+sums). rspheremp must be constant over the aliases of a dof, as the
+assembled inverse mass and ``rsp_lanes_2f`` are; the fixup scales each fix
+lane by its own rspheremp.
+
+``dss_structured_t_cuda`` is the whole DSS (extract, fixup, sweep) and
+``dss_structured_t_cuda_pre`` the same with the slab already in hand, as the
+CAAR kernel emits it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from ..config import NP, NPSQ
+from . import _build
+
+__all__ = ["FixTables", "fix_tables", "dss_extract_plain", "dss_fixup_plain",
+           "dss_sweep_plain", "dss_extract_cuda", "dss_fixup_cuda",
+           "dss_sweep_cuda", "dss_structured_t_cuda",
+           "dss_structured_t_cuda_pre"]
+
+# the sweep grid puts rows on its y axis
+_MAX_ROWS = 65535
+
+
+@dataclasses.dataclass(frozen=True)
+class FixTables:
+    """Static fix-lane tables of one plan on one device (int32 tensors)."""
+
+    ne: int
+    e16: int
+    read_lanes: torch.Tensor     # [nfix] ascending lanes of the slab rows
+    fix_rank: torch.Tensor       # [E16] slab row of a lane, or -1
+    fix_lanes: torch.Tensor      # [nfix] lane of each vals column
+    fix_col: torch.Tensor        # [E16] vals column of a lane, or -1
+    fix_src: torch.Tensor        # [nfix, 4] slab rows summed, -1 = none
+
+    @property
+    def nfix(self) -> int:
+        return int(self.read_lanes.shape[0])
+
+
+def _fixup_arrays(plan):
+    """(fix_lanes, read_lanes, fix_src) as numpy, derived from the line
+    lanes of each cube edge's two face sides (``_side_line_idx`` order) and
+    the cube corners' aliases (counterpart of ``_fixup_arrays`` of the
+    JAX package's ``dss_pallas.py``)."""
+    from ..dist.structured_dss import _side_line_idx
+
+    ne = plan.ne
+    lines = []
+    for fa, sa, fb, sb, _ in plan.edges:
+        lines.append(_side_line_idx(ne, fa, sa))
+        lines.append(_side_line_idx(ne, fb, sb))
+    idx_lines = np.stack(lines).astype(np.int64)            # [24, nl]
+    corner = np.asarray(plan.corner_rows, np.int64)         # [8, 3]
+    nl = idx_lines.shape[1]
+    fix_lanes = np.concatenate([idx_lines[:, 1:-1].reshape(-1),
+                                corner.reshape(-1)])
+    read_lanes = np.unique(fix_lanes)
+    if len(read_lanes) != len(fix_lanes):
+        raise AssertionError("fix lanes are not unique")
+    rank = {int(l): r for r, l in enumerate(read_lanes)}
+
+    def junction(t):
+        """Position on the same line sharing a dof with position t."""
+        if t % NP == NP - 1 and t < nl - 1:
+            return t + 1
+        if t % NP == 0 and t > 0:
+            return t - 1
+        return None
+
+    def rows(line, t):
+        tj = junction(t)
+        return (rank[int(idx_lines[line, t])],
+                -1 if tj is None else rank[int(idx_lines[line, tj])])
+
+    src = []
+    for line in range(len(lines)):
+        flip = plan.edges[line // 2][4]
+        for t in range(1, nl - 1):
+            src.append(rows(line, t) + rows(line ^ 1, nl - 1 - t if flip
+                                            else t))
+    for c in corner:
+        src += [(rank[int(c[0])], rank[int(c[1])], rank[int(c[2])], -1)] * 3
+    return fix_lanes, read_lanes, np.asarray(src, np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _fix_tables_cached(plan, device: str) -> FixTables:
+    fix_lanes, read_lanes, src = _fixup_arrays(plan)
+    e16 = 6 * plan.ne * plan.ne * NPSQ
+    fix_rank = np.full(e16, -1, np.int32)
+    fix_rank[read_lanes] = np.arange(len(read_lanes), dtype=np.int32)
+    fix_col = np.full(e16, -1, np.int32)
+    fix_col[fix_lanes] = np.arange(len(fix_lanes), dtype=np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+    return FixTables(ne=plan.ne, e16=e16, read_lanes=t(read_lanes),
+                     fix_rank=t(fix_rank), fix_lanes=t(fix_lanes),
+                     fix_col=t(fix_col), fix_src=t(src))
+
+
+def fix_tables(plan, device) -> FixTables:
+    """The fix-lane tables of ``plan`` on ``device``, built once each."""
+    return _fix_tables_cached(plan, str(torch.device(device)))
+
+
+# -- plain versions ----------------------------------------------------------
+
+def dss_extract_plain(x: torch.Tensor, tables: FixTables) -> torch.Tensor:
+    """[k, E16] -> slab [nfix, k]: slab[r] = x[:, read_lanes[r]]."""
+    return x[:, tables.read_lanes.long()].T.contiguous()
+
+
+def _scale(v: torch.Tensor, rsp_rows: torch.Tensor) -> torch.Tensor:
+    """v * rspheremp with rsp_rows [nr, ...] broadcast on v: v*hi + v*lo
+    for two rows, each product and the sum rounded on its own."""
+    if rsp_rows.shape[0] == 2:
+        return v * rsp_rows[0] + v * rsp_rows[1]
+    return v * rsp_rows[0]
+
+
+def dss_fixup_plain(slab: torch.Tensor, tables: FixTables,
+                    rsp: torch.Tensor) -> torch.Tensor:
+    """slab [nfix, k] -> vals buffer vd [k, nfix]: the fix value of each
+    fix lane, (g[s0] + g[s1]) + (g[s2] + g[s3]) scaled by its rspheremp."""
+    src = tables.fix_src.long()
+    zero = slab.new_zeros(())
+
+    def row(c):
+        s = src[:, c]
+        return torch.where((s >= 0)[:, None], slab[s.clamp(min=0)], zero)
+
+    v = (slab[src[:, 0]] + row(1)) + (slab[src[:, 2]] + row(3))
+    r = rsp[:, tables.fix_lanes.long()][:, :, None]          # [nr, nfix, 1]
+    return _scale(v, r).T.contiguous()
+
+
+def _sweep_masks(ne: int, e16: int, device):
+    lane = torch.arange(e16, device=device)
+    i, j = (lane // NP) % NP, lane % NP
+    ei, ej = (lane // NPSQ) % ne, (lane // (NPSQ * ne)) % ne
+    return ((i == NP - 1) & (ei < ne - 1), (i == 0) & (ei > 0),
+            (j == NP - 1) & (ej < ne - 1), (j == 0) & (ej > 0))
+
+
+def dss_sweep_plain(x: torch.Tensor, rsp: torch.Tensor, vd: torch.Tensor,
+                    tables: FixTables) -> torch.Tensor:
+    """rspheremp * (alpha then beta in-face sweep of x), the fix lanes
+    taking vd[:, fix_col]. x [k, E16]; rsp [1 or 2, E16]; vd [k, nfix]."""
+    ne = tables.ne
+    a_hi, a_lo, b_hi, b_lo = _sweep_masks(ne, x.shape[1], x.device)
+    db = NPSQ * ne - (NP - 1)
+    zero = x.new_zeros(())
+    part = lambda m, y, s: torch.where(m, torch.roll(y, s, 1), zero)
+    y = x + part(a_hi, x, -NP) + part(a_lo, x, NP)
+    z = y + part(b_hi, y, -db) + part(b_lo, y, db)
+    w = _scale(z, rsp[:, None, :])
+    col = tables.fix_col.long()
+    return torch.where(col >= 0, vd[:, col.clamp(min=0)], w)
+
+
+# -- kernels -----------------------------------------------------------------
+
+def _check(name, tensors: dict, dtype=None):
+    """Common operand checks; returns the device. ``tensors`` maps operand
+    names to (tensor, shape)."""
+    first = next(iter(tensors.values()))[0]
+    dev = first.device
+    dtype = dtype or first.dtype
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: needs float fields, got {dtype}")
+    if dev.type == "cuda" and dtype != torch.float32:
+        raise TypeError(f"{name}: the CUDA kernel takes float32 only")
+    for op, (t, shape) in tensors.items():
+        want = torch.int32 if op in ("fix_src", "read_lanes", "fix_lanes",
+                                     "fix_col") else dtype
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {op} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if t.device != dev or t.dtype != want:
+            raise ValueError(f"{name}: {op} is {t.dtype} on {t.device}, "
+                             f"expected {want} on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {op} must be contiguous")
+    return dev
+
+
+def _check_rsp(name, rsp, e16):
+    if rsp.ndim != 2 or rsp.shape[0] not in (1, 2) or rsp.shape[1] != e16:
+        raise ValueError(f"{name}: rsp must be [1 or 2, {e16}], got "
+                         f"{tuple(rsp.shape)}")
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def dss_extract_cuda(x: torch.Tensor, tables: FixTables) -> torch.Tensor:
+    """slab [nfix, k] of x [k, E16] (kernel ``dss_extract``)."""
+    k, n = x.shape[0], tables.nfix
+    dev = _check("dss_extract", {"x": (x, (k, tables.e16)),
+                                 "read_lanes": (tables.read_lanes, (n,))},
+                 dtype=x.dtype)
+    if dev.type == "cpu":
+        return dss_extract_plain(x, tables)
+    slab = torch.empty(n, k, dtype=x.dtype, device=dev)
+    err = _build.library("dss").dss_extract_launch(
+        x.data_ptr(), tables.read_lanes.data_ptr(), slab.data_ptr(), n, k,
+        tables.e16, _stream(dev), dev.index)
+    _build.check_launch("dss", err)
+    dss_extract_cuda.launches += 1
+    return slab
+
+
+dss_extract_cuda.launches = 0
+
+
+def dss_fixup_cuda(slab: torch.Tensor, tables: FixTables,
+                   rsp: torch.Tensor) -> torch.Tensor:
+    """vd [k, nfix] from slab [nfix, k] (kernel ``dss_fixup``)."""
+    n, k = tables.nfix, slab.shape[1]
+    _check_rsp("dss_fixup", rsp, tables.e16)
+    dev = _check("dss_fixup", {"slab": (slab, (n, k)),
+                               "rsp": (rsp, tuple(rsp.shape)),
+                               "fix_src": (tables.fix_src, (n, 4)),
+                               "fix_lanes": (tables.fix_lanes, (n,))},
+                 dtype=slab.dtype)
+    if dev.type == "cpu":
+        return dss_fixup_plain(slab, tables, rsp)
+    if tables.fix_src.data_ptr() % 16:
+        raise ValueError("dss_fixup: fix_src must be 16-byte aligned")
+    vd = torch.empty(k, n, dtype=slab.dtype, device=dev)
+    err = _build.library("dss").dss_fixup_launch(
+        slab.data_ptr(), tables.fix_src.data_ptr(),
+        tables.fix_lanes.data_ptr(), rsp.data_ptr(), rsp.shape[0],
+        tables.e16, vd.data_ptr(), n, k, _stream(dev), dev.index)
+    _build.check_launch("dss", err)
+    dss_fixup_cuda.launches += 1
+    return vd
+
+
+dss_fixup_cuda.launches = 0
+
+
+def dss_sweep_cuda(x: torch.Tensor, rsp: torch.Tensor, vd: torch.Tensor,
+                   tables: FixTables) -> torch.Tensor:
+    """The assembled field [k, E16] from x, rsp and the vals buffer vd
+    [k, nfix] (kernel ``dss_sweep``). Writes a new tensor: the fix values
+    come from the pre-sweep x, so the output never aliases x."""
+    k, e16, n = x.shape[0], tables.e16, tables.nfix
+    _check_rsp("dss_sweep", rsp, e16)
+    dev = _check("dss_sweep", {"x": (x, (k, e16)),
+                               "rsp": (rsp, tuple(rsp.shape)),
+                               "vd": (vd, (k, n)),
+                               "fix_col": (tables.fix_col, (e16,))},
+                 dtype=x.dtype)
+    if dev.type == "cpu":
+        return dss_sweep_plain(x, rsp, vd, tables)
+    if k > _MAX_ROWS:
+        raise ValueError(f"dss_sweep: {k} rows exceed the grid's {_MAX_ROWS}")
+    out = torch.empty_like(x)
+    err = _build.library("dss").dss_sweep_launch(
+        x.data_ptr(), rsp.data_ptr(), rsp.shape[0], vd.data_ptr(), n,
+        tables.fix_col.data_ptr(), out.data_ptr(), k, e16, tables.ne,
+        _stream(dev), dev.index)
+    _build.check_launch("dss", err)
+    dss_sweep_cuda.launches += 1
+    return out
+
+
+dss_sweep_cuda.launches = 0
+
+
+def dss_structured_t_cuda(x: torch.Tensor, plan, rsp: torch.Tensor):
+    """rspheremp * DSS(x) for a transposed [k, E16] field: extract, fixup,
+    sweep (counterpart of ``dss_structured_t_pallas``). rsp is [1, E16] or
+    the two-float [2, E16]."""
+    tables = fix_tables(plan, x.device)
+    return dss_structured_t_cuda_pre(x, dss_extract_cuda(x, tables), plan,
+                                     rsp)
+
+
+def dss_structured_t_cuda_pre(x: torch.Tensor, slab: torch.Tensor, plan,
+                              rsp: torch.Tensor):
+    """``dss_structured_t_cuda`` with the fix-lane slab of x already in hand
+    (the CAAR kernel's slab output; counterpart of
+    ``dss_structured_t_pallas_pre`` / ``_cpre``)."""
+    tables = fix_tables(plan, x.device)
+    return dss_sweep_cuda(x, rsp, dss_fixup_cuda(slab, tables, rsp), tables)
