@@ -34,7 +34,24 @@ NVIDIA card and check it, phase by phase:
      field, finite, continuity exactly 0), the CLI ``--ne 30 --dss
      --leapfrog --num-exec 20 --init random --dt 0.05`` (no warning,
      continuity exactly 0) and ``bench --ne 30``;
-  9. one JSON line of kernels (launches on the main paths, errors, times,
+  9. the dynamics kernels at ne30 x 72: the CAAR kernel's single-state
+     stage mode (with and without phi, with the slab) against
+     ``caar_t4_plain(s, s, ...)`` in the three cases of phase 3 at 5e-5 per
+     field; the sweep with its affine ``mix`` output bit for bit against
+     ``dss_sweep_plain(mix=)``, into a new tensor and in place into a
+     [4*nlev] buffer whose dp rows stay bit for bit (and the [3*nlev] sweep
+     without mix timed beside them); the weak-Laplacian
+     kernel against ``vlap_plain`` at 5e-5 per output block, its slab bit
+     for bit the output at the fix lanes; each timed against its bound;
+ 10. the dynamics main path at ne30 x 72, its launch counts set to 0 just
+     before it and read just after: 10 chained SSPRK3 + hyperviscosity steps
+     from a continuous random state on the kernels against the same chain on
+     the plain versions (1e-5 scaled per field, finite, continuity exactly 0
+     after each step), the CLI ``--ne 30 --rk --hypervis-nu 1e15 --leapfrog
+     --init random`` (no warning, continuity exactly 0) and ``bench --ne 30
+     --rk --hypervis-nu 1e15``; per step 3 CAAR launches in stage mode, 2
+     Laplacians, 5 fixups and 5 sweeps;
+ 11. one JSON line of kernels (launches on the main paths, errors, times,
      bounds), the card line, and last the result line.
 
 Any failure raises and exits non-zero before the result line is printed.
@@ -44,6 +61,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import os
 import sys
@@ -54,11 +72,22 @@ FP32_FLOPS_PER_S = 67e12       # H100 SXM, non-tensor FP32
 # FP32 operations per grid point of one CAAR step, counted from
 # csrc/caar.cu (derivative contractions, scans, tendencies, apply)
 CAAR_OPS_PER_POINT = 190
+# FP32 operations per grid point of the weak Laplacians, counted from
+# csrc/hypervis.cu (9 contractions of 7, the metric products, the rigid term)
+VLAP_OPS_PER_POINT = 140
 CAAR_TOL = 5e-5                # the repo's on-chip equivalence gate
 LEAPFROG_TOL = 1e-4
+# 10 dynamics steps, kernels against plain: the chain moves the state by a
+# few 1e-4 of its size, so the looser leapfrog limit would pass a chain that
+# stood still
+DYN_TOL = 1e-5
 PROJECTION_TOL = 2e-6          # f32 rounding of a 4-term mass-weighted mean
 NE = 30                        # E3SM's standard grid: 5,400 elements
 NLEV = 72
+# the dynamics runs: E3SM's ne30 hyperviscosity coefficient, and a step far
+# inside the stability limit of the random (unbalanced) initial state
+DYN_NU = 1e15
+DYN_DT = 0.1
 
 
 def card_line() -> str:
@@ -249,10 +278,12 @@ def phase_dss(dev, cs):
            "dss_sweep_cuda": (dss_sweep_cuda(x, rsp, vd_p, t), out_p)}
     full = dss_structured_t_cuda(x, plan, rsp)
     torch.cuda.synchronize()
+    abs_errs = {name: float((a - b).abs().max())
+                for name, (a, b) in got.items()}
     for name, (a, b) in got.items():
         if not torch.equal(a, b):
             raise AssertionError(f"{name} differs from its plain version: "
-                                 f"{float((a - b).abs().max())}")
+                                 f"{abs_errs[name]}")
     if not torch.equal(full, out_p):
         raise AssertionError("dss: extract + fixup + sweep differ from plain")
     cont = continuity_error_t(full, cs.gdof)
@@ -298,7 +329,7 @@ def phase_dss(dev, cs):
     out = {}
     for name, (k_ms, p_ms, l_ms) in times.items():
         out[name] = dict(route="cuda", source=src, replaces=replaces[name],
-                         max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
+                         max_abs_err=abs_errs[name], ms=k_ms, plain_ms=p_ms,
                          bound_ms=bounds[name][0], bound_by=bounds[name][1],
                          library_ms=l_ms)
         print(f"phase 4 {name} ne{cs.ne} [{k}, {e16}] (nfix {n}): bitwise "
@@ -514,6 +545,264 @@ def phase_assembled_path(dev, cs):
     return res
 
 
+def phase_dynamics_kernels(dev, cs):
+    """The three pieces of kernel work of the dynamics step at ne30 x 72.
+    Returns {name: extra keys or row}: the stage-mode numbers for the CAAR
+    row, the mix numbers for the sweep row, and the vlap row."""
+    import numpy as np
+    import torch
+
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.kernels.caar_t import caar_t4_cuda, caar_t4_plain
+    from tinman_sandbox_tpu_torch.kernels.dss import (
+        dss_extract_plain, dss_fixup_plain, dss_sweep_cuda, dss_sweep_plain,
+        fix_tables)
+    from tinman_sandbox_tpu_torch.kernels.hypervis_t import vlap_cuda, vlap_plain
+
+    (scal, meta, qdp, pecnd, dvv), (s0, sm1), acc, plan, rsp = \
+        bench.make_assembled_problem(cs.ne, NLEV, dev)
+    const = (scal, meta, s0, sm1, qdp, pecnd, dvv)
+    fix = fix_tables(plan, dev)
+    lanes = fix.read_lanes.long()
+    e16, n, k = cs.nelem * 16, fix.nfix, NLEV
+    out = {}
+
+    # -- CAAR, stage mode: base state = evaluation state, never fetched
+    # twice. s1 = spheremp*(s0 + dt2*tendency): at the bench's dt2 = 0.1 the
+    # base state carries s1, which holds the dropped fetch; at dt2 = 1e6 the
+    # tendency does (the formula is linear in dt2), which holds every term
+    # of it in this mode as the cases of phase 3 do in the pair mode
+    worst = 0.0
+    for dt2, (case, args) in itertools.product(
+            (float(scal[0, 0]), 1e6), caar_cases(const, acc)):
+        if case == "tend":          # differs from bench only in the unread sm1
+            continue
+        case = f"{case} dt2={dt2:g}"
+        sc, mt, s, _, q, pec = args[:6]
+        sc = sc.clone()
+        sc[0, 0] = dt2
+        want = caar_t4_plain(sc, mt, s, s, q, pec, *args[6:9], args[9],
+                             fix=fix)
+        for emit_phi in (True, False):
+            kacc = [x.clone() for x in args[6:9]]
+            got = caar_t4_cuda(sc, mt, s, None, q, pec, *kacc, args[9],
+                               fix=fix, single=True, emit_phi=emit_phi)
+            torch.cuda.synchronize()
+            if (got[1] is None) == emit_phi:
+                raise AssertionError(f"caar single {case}: phi output wrong")
+            if not emit_phi:        # hold the other seven fields all the same
+                got = (got[0], want[1], *got[2:])
+            for g in got:
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"caar single {case}: non-finite")
+            errs = caar_field_errs(got[:5], want[:5], k)
+            print(f"phase 9 caar single ne{cs.ne}x{k} {case} "
+                  f"phi={'yes' if emit_phi else 'no'}: scaled errors "
+                  + " ".join(f"{a} {b:.2e}" for a, b in errs.items()))
+            if max(errs.values()) > CAAR_TOL:
+                raise AssertionError(f"caar single {case}: {errs} > {CAAR_TOL}")
+            if not torch.equal(got[5], got[0][:, lanes].T):
+                raise AssertionError(f"caar single {case}: slab is not s1 at "
+                                     "the fix lanes")
+            worst = max(worst, *errs.values())
+    kacc = [x.clone() for x in acc]
+    times = {}
+    for emit_phi in (True, False):
+        times[emit_phi] = cuda_ms(lambda: caar_t4_cuda(
+            scal, meta, s0, None, qdp, pecnd, *kacc, dvv, fix=fix,
+            single=True, emit_phi=emit_phi), 20)
+    pair_ms = cuda_ms(lambda: caar_t4_cuda(scal, meta, s0, sm1, qdp, pecnd,
+                                           *kacc, dvv, fix=fix), 20)
+    p_ms = cuda_ms(lambda: caar_t4_plain(scal, meta, s0, None, qdp, pecnd,
+                                         *acc, dvv, fix=fix, single=True), 5)
+    # 17 fields (16 without phi), the 13 meta rows, dvv, 3 scalars, fix_rank
+    # and the slab
+    nb = lambda rows: (rows * k + 13) * e16 * 4 + 16 * 4 + 3 * 4 + e16 * 4 \
+        + n * 4 * k * 4
+    ops = CAAR_OPS_PER_POINT * e16 * k
+    (b_phi, by), (b_nophi, _) = bound_ms(nb(17), ops), bound_ms(nb(16), ops)
+    print(f"phase 9 caar single ne{cs.ne}x{k}: kernel {times[True]:.4f} ms "
+          f"with phi (bound {b_phi:.4f} ms), {times[False]:.4f} ms without "
+          f"(bound {b_nophi:.4f} ms, {by}); the pair form in the same run "
+          f"{pair_ms:.4f} ms; plain {p_ms:.4f} ms")
+    out["caar_t4_cuda"] = dict(
+        single_max_scaled_err=worst, single_ms=times[True],
+        single_nophi_ms=times[False], single_pair_ms=pair_ms,
+        single_plain_ms=p_ms, single_bound_ms=b_phi,
+        single_nophi_bound_ms=b_nophi)
+
+    # -- sweep with mix: a new tensor, and in place into a taller buffer
+    nr = rsp.shape[0]
+    rng = np.random.default_rng(12)
+    rnd = lambda rows: torch.from_numpy(rng.standard_normal(
+        (rows, e16)).astype(np.float32)).to(dev)
+    x4, mx4 = rnd(4 * k), rnd(4 * k)
+    x3 = x4[:3 * k].contiguous()
+    ca, cb = float(np.float32(1.0 / 3.0)), float(np.float32(2.0 / 3.0))
+    vd4 = dss_fixup_plain(dss_extract_plain(x4, fix), fix, rsp)
+    vd3 = dss_fixup_plain(dss_extract_plain(x3, fix), fix, rsp)
+    want = dss_sweep_plain(x4, rsp, vd4, fix, mix=(mx4, ca, cb))
+    got = dss_sweep_cuda(x4, rsp, vd4, fix, mix=(mx4, ca, cb))
+    torch.cuda.synchronize()
+    mix_err = float((got - want).abs().max())
+    if got is mx4 or not torch.equal(got, want):
+        raise AssertionError("dss_sweep mix (new tensor) differs from plain: "
+                             f"{mix_err}")
+    # in place, as the hyperviscosity update x - step*lap: x is a [3k]
+    # field, mx the [4k] state, ca = 1 and a negative cb
+    cb3 = -1e-3
+    buf = mx4.clone()
+    want = dss_sweep_plain(x3, rsp, vd3, fix, mix=(mx4, 1.0, cb3))
+    got = dss_sweep_cuda(x3, rsp, vd3, fix, mix=(buf, 1.0, cb3))
+    torch.cuda.synchronize()
+    mix_err = max(mix_err, float((got - want).abs().max()))
+    if got is not buf or not torch.equal(got, want):
+        raise AssertionError("dss_sweep mix (in place) differs from plain: "
+                             f"{mix_err}")
+    if not torch.equal(buf[3 * k:], mx4[3 * k:]):
+        raise AssertionError("dss_sweep mix (in place) touched the dp rows")
+    if torch.equal(buf[:3 * k], mx4[:3 * k]):
+        raise AssertionError("dss_sweep mix (in place) changed nothing")
+    new_ms = cuda_ms(lambda: dss_sweep_cuda(x4, rsp, vd4, fix,
+                                            mix=(mx4, ca, cb)), 50)
+    inp_ms = cuda_ms(lambda: dss_sweep_cuda(x3, rsp, vd3, fix,
+                                            mix=(buf, 1.0, cb3)), 50)
+    pn_ms = cuda_ms(lambda: dss_sweep_plain(x4, rsp, vd4, fix,
+                                            mix=(mx4, ca, cb)), 10)
+    # the hyperviscosity's first sweep: [3k] rows, no mix
+    s3_ms = cuda_ms(lambda: dss_sweep_cuda(x3, rsp, vd3, fix), 50)
+    # x and mx read, the output written, rsp rows, vd, fix_col
+    sweep_bytes = lambda rows: 3 * rows * e16 * 4 + nr * e16 * 4 \
+        + rows * n * 4 + e16 * 4
+    b_new, by = bound_ms(sweep_bytes(4 * k), 9 * 4 * k * e16)
+    b_inp, _ = bound_ms(sweep_bytes(3 * k), 9 * 3 * k * e16)
+    b_s3, _ = bound_ms(sweep_bytes(3 * k) - 3 * k * e16 * 4, 6 * 3 * k * e16)
+    print(f"phase 9 dss_sweep mix ne{cs.ne}: bitwise equal; [{4 * k}] rows "
+          f"into a new tensor {new_ms:.4f} ms (bound {b_new:.4f} ms, {by}), "
+          f"[{3 * k}] rows in place into [{4 * k}] {inp_ms:.4f} ms (bound "
+          f"{b_inp:.4f} ms), [{3 * k}] rows without mix {s3_ms:.4f} ms "
+          f"(bound {b_s3:.4f} ms); plain {pn_ms:.4f} ms")
+    out["dss_sweep_cuda"] = dict(
+        mix_max_abs_err=mix_err, mix_ms=new_ms, mix_bound_ms=b_new,
+        mix_plain_ms=pn_ms, mix_inplace_ms=inp_ms, mix_inplace_bound_ms=b_inp,
+        rows3k_ms=s3_ms, rows3k_bound_ms=b_s3)
+
+    # -- weak Laplacians, on the taller [4k] state (no slice copy)
+    max_abs = 0.0
+    for nu_ratio, x in ((1.0, s0), (2.5, x4)):
+        want, wslab = vlap_plain(meta, x, dvv, k, nu_ratio, fix=fix)
+        got, slab = vlap_cuda(meta, x, dvv, k, nu_ratio, fix=fix)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError("vlap: non-finite")
+        errs = {name: scaled_err(a, b) for name, a, b in zip(
+            ("lap_u", "lap_v", "lap_t"), got.split(k), want.split(k))}
+        print(f"phase 9 vlap ne{cs.ne}x{k} nu_ratio {nu_ratio}: scaled errors "
+              + " ".join(f"{a} {b:.2e}" for a, b in errs.items()))
+        if max(errs.values()) > CAAR_TOL:
+            raise AssertionError(f"vlap: {errs} > {CAAR_TOL}")
+        if not torch.equal(slab, got[:, lanes].T):
+            raise AssertionError("vlap: slab is not the output at the fix "
+                                 "lanes")
+        if not torch.equal(got, vlap_cuda(meta, x, dvv, k, nu_ratio)):
+            raise AssertionError("vlap: the slab changes the output")
+        max_abs = max(max_abs, float((got - want).abs().max()))
+    k_ms = cuda_ms(lambda: vlap_cuda(meta, s0, dvv, k, 1.0, fix=fix), 50)
+    p_ms = cuda_ms(lambda: vlap_plain(meta, s0, dvv, k, 1.0, fix=fix), 5)
+    # 3 row blocks read, 3 written, 12 meta rows, dvv, fix_rank, the slab
+    nbytes = (6 * k + 12) * e16 * 4 + 16 * 4 + e16 * 4 + n * 3 * k * 4
+    bnd, by = bound_ms(nbytes, VLAP_OPS_PER_POINT * e16 * k)
+    print(f"phase 9 vlap ne{cs.ne}x{k}: slab bitwise the output at the {n} "
+          f"fix lanes; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+          f"{bnd:.4f} ms ({by}, {nbytes} B)")
+    out["vlap_cuda"] = dict(
+        route="cuda", source="tinman_sandbox_tpu_torch/csrc/hypervis.cu",
+        replaces="tinman_sandbox_tpu/kernels/hypervis_pallas_t.py:144",
+        max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms, bound_ms=bnd,
+        bound_by=by, library_ms=None)
+    return out
+
+
+def phase_dynamics_path(dev, cs):
+    import torch
+
+    from tinman_sandbox_tpu_torch import bench, cli
+    from tinman_sandbox_tpu_torch.dist import (
+        apply_hypervis_packed_t, apply_hypervis_packed_t_plain,
+        continuity_error_t, ssprk3_packed_t4, ssprk3_packed_t4_plain)
+
+    # 10 chained SSPRK3 + hyperviscosity steps at ne30 x 72 from a continuous
+    # random state, kernels against plain, continuity after every step
+    const, s0, acc, plan, rsp = bench.make_dynamics_problem(
+        cs.ne, NLEV, dev, DYN_DT)
+    scal, meta, qdp, pecnd, dvv = const
+    if continuity_error_t(s0, cs.gdof) != 0.0:
+        raise AssertionError("dynamics: the projected start is not continuous")
+    ks, kacc = s0, [a.clone() for a in acc]
+    ps, pacc = s0, list(acc)
+    k_s = 0.0
+    for i in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ks, kphi, *kacc = ssprk3_packed_t4(scal, meta, ks, qdp, pecnd, *kacc,
+                                           dvv, plan, rsp)
+        ks = apply_hypervis_packed_t(dvv, meta, ks, plan, rsp, DYN_NU,
+                                     DYN_DT, NLEV)
+        torch.cuda.synchronize()
+        k_s += time.perf_counter() - t0
+        cont = continuity_error_t(ks, cs.gdof)
+        if cont != 0.0:
+            raise AssertionError(f"dynamics chain: continuity {cont} after "
+                                 f"step {i + 1}")
+        ps, pphi, *pacc = ssprk3_packed_t4_plain(scal, meta, ps, qdp, pecnd,
+                                                 *pacc, dvv, plan, rsp)
+        ps = apply_hypervis_packed_t_plain(dvv, meta, ps, plan, rsp, DYN_NU,
+                                           DYN_DT, NLEV)
+    errs = {name: scaled_err(a, b) for name, a, b in zip(
+        ("u", "v", "t", "dp"), ks.split(NLEV), ps.split(NLEV))}
+    for name, a, b in zip(("phi", "vn0u", "vn0v", "omg"), (kphi, *kacc),
+                          (pphi, *pacc)):
+        errs[name] = scaled_err(a, b)
+    for x in (ks, kphi, *kacc):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError("dynamics chain: non-finite output")
+    dp_min = float(ks[3 * NLEV:].min())
+    if max(errs.values()) > DYN_TOL or not dp_min > 0.0:
+        raise AssertionError(f"dynamics chain: {errs} > {DYN_TOL} or "
+                             f"min dp {dp_min}")
+    moved = scaled_err(ks[:3 * NLEV], s0[:3 * NLEV])
+    print(f"phase 10 dynamics chain ne{cs.ne}x{NLEV} x10 (kernels {k_s:.3f} "
+          f"s): continuity 0 after every step; min dp {dp_min:.3f}; state "
+          f"moved {moved:.2e}; scaled errors vs plain "
+          + " ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--ne", str(cs.ne), "--rk", "--hypervis-nu",
+                       str(DYN_NU), "--leapfrog", "--num-exec", "10",
+                       "--init", "random", "--dt", str(DYN_DT)])
+    out = buf.getvalue()
+    if rc != 0 or "WARNING" in out:
+        raise AssertionError(f"cli --ne {cs.ne} --rk exited {rc}:\n{out}")
+    spread = [ln for ln in out.splitlines() if "continuity:" in ln]
+    if float(spread[0].split()[-1]) != 0.0:
+        raise AssertionError(f"cli --rk: {spread[0]}")
+    speed = [ln for ln in out.splitlines() if "Mgridpoints/s" in ln]
+    print(f"phase 10 cli --ne {cs.ne} --rk --hypervis-nu {DYN_NU:g} "
+          f"--leapfrog --init random --dt {DYN_DT} x10:"
+          + speed[0].split(":", 1)[1] + ";" + spread[0].split("---", 1)[1])
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = bench.main(["--ne", str(cs.ne), "--nlev", str(NLEV), "--rk",
+                          "--hypervis-nu", str(DYN_NU), "--dt", str(DYN_DT),
+                          "--nexec", "300", "--reps", "3"])
+    print("phase 10 bench " + buf.getvalue().strip())
+    if not res["min_dp3d"] > 0.0:
+        raise AssertionError(f"bench --rk: min dp3d {res['min_dp3d']}")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -530,6 +819,7 @@ def main() -> int:
         from tinman_sandbox_tpu_torch.kernels.caar_t import caar_t4_cuda
         from tinman_sandbox_tpu_torch.kernels.dss import (
             dss_extract_cuda, dss_fixup_cuda, dss_sweep_cuda)
+        from tinman_sandbox_tpu_torch.kernels.hypervis_t import vlap_cuda
         from tinman_sandbox_tpu_torch.kernels.saxpby import saxpby_cuda
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
@@ -564,12 +854,13 @@ def main() -> int:
 
     wrappers = {w.__name__: w for w in (caar_t4_cuda, saxpby_cuda,
                                         dss_extract_cuda, dss_fixup_cuda,
-                                        dss_sweep_cuda)}
+                                        dss_sweep_cuda, vlap_cuda)}
 
     def reset():
         for w in wrappers.values():
             w.launches = 0
         caar_t4_cuda.slab_launches = 0
+        caar_t4_cuda.single_launches = 0
 
     def counts():
         return {name: w.launches for name, w in wrappers.items()}
@@ -581,25 +872,48 @@ def main() -> int:
     asm_res = phase_assembled_path(dev, cs)
     asm = counts()
     slab_launches = caar_t4_cuda.slab_launches
+    for name, extra in phase_dynamics_kernels(dev, cs).items():
+        rows.setdefault(name, {}).update(extra)
+    reset()
+    dyn_res = phase_dynamics_path(dev, cs)
+    dyn = counts()
+    single_launches = caar_t4_cuda.single_launches
     for label, res, got in (("raw", raw_res, raw), ("assembled", asm_res,
-                                                     asm)):
-        print(f"phase 9 {label} main-path launches: {json.dumps(got)}; bench "
+                                                     asm),
+                            ("dynamics", dyn_res, dyn)):
+        print(f"phase 11 {label} main-path launches: {json.dumps(got)}; bench "
               f"{res['us_per_step']:.2f} us/step, "
               f"{res['achieved_gb_per_s']:.1f} GB/s, "
               f"fraction_of_triad {res['fraction_of_triad']:.3f}")
-    print(f"phase 9 assembled main-path CAAR launches with the slab: "
-          f"{slab_launches}")
+    print(f"phase 11 assembled main-path CAAR launches with the slab: "
+          f"{slab_launches}; dynamics main-path CAAR launches in stage mode: "
+          f"{single_launches} of {dyn['caar_t4_cuda']}; per bench step "
+          f"{json.dumps(dyn_res['kernel_launches_per_step'])}")
     for name in ("caar_t4_cuda", "saxpby_cuda"):
         if raw[name] <= 0:
             raise AssertionError(f"{name} was not launched on the raw path")
     for name, n in asm.items():
-        if n <= 0:
+        if n <= 0 and name != "vlap_cuda":
             raise AssertionError(f"{name} was not launched on the assembled "
                                  "path")
+    for name in ("caar_t4_cuda", "vlap_cuda", "dss_fixup_cuda",
+                 "dss_sweep_cuda"):
+        if dyn[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the dynamics "
+                                 "path")
+    want = {"caar_t4_cuda": 3.0, "vlap_cuda": 2.0, "dss_fixup_cuda": 5.0,
+            "dss_sweep_cuda": 5.0}
+    if dyn_res["kernel_launches_per_step"] != want:
+        raise AssertionError("dynamics bench: launches per step "
+                             f"{dyn_res['kernel_launches_per_step']} != {want}")
+    if single_launches <= 0:
+        raise AssertionError("the CAAR stage mode was not launched on the "
+                             "dynamics path")
     if slab_launches <= 0:
         raise AssertionError("the CAAR slab mode was not launched on the "
                              "assembled path")
     rows["caar_t4_cuda"]["slab_launches"] = slab_launches
+    rows["caar_t4_cuda"]["single_launches"] = single_launches
     kernels = []
     for name in wrappers:
         r = dict(rows[name])
@@ -607,7 +921,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": r.pop("route"), "source": r.pop("source"),
             "replaces": r.pop("replaces"),
-            "launches": raw[name] + asm[name],
+            "launches": raw[name] + asm[name] + dyn[name],
             "max_abs_err": r.pop("max_abs_err"), "ms": r.pop("ms"),
             "plain_ms": r.pop("plain_ms"), "bound_ms": r.pop("bound_ms"),
             "bound_by": r.pop("bound_by"), "library_ms": r.pop("library_ms"),

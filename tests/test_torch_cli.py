@@ -45,8 +45,10 @@ def test_torch_cli_leapfrog_random_dump(capsys, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--rk"], "not yet ported"),
+    (["--rk"], "--rk requires --ne"),
     (["--ne", "4", "--prim"], "not yet ported"),
+    (["--hypervis-nu", "1e15"], "--hypervis-nu requires --ne"),
+    (["--ne", "2", "--checkpoint", "x.npz"], "not yet ported"),
     (["--kernel", "plain"], "only with --device cpu"),
     (["--dtype", "float64"], "float32 only"),
     (["--dss"], "requires --ne"),
@@ -57,11 +59,11 @@ def test_torch_cli_rejects_unported_and_invalid(capsys, argv, msg):
 
 
 def test_torch_cli_module_entry_reports_unported_dss():
-    """The module entry reports a flag whose path is not ported (--dss is
-    ported now; --rk, the SSPRK3 path, is not)."""
+    """The module entry reports a flag whose path is not ported (--dss and
+    --rk are ported now; --prim, the full cadence, is not)."""
     r = subprocess.run([sys.executable, "-m", "tinman_sandbox_tpu_torch",
-                        "--rk"], capture_output=True, text=True, cwd=ROOT,
-                       timeout=120)
+                        "--ne", "2", "--prim"], capture_output=True,
+                       text=True, cwd=ROOT, timeout=120)
     assert r.returncode == 2
     assert "not yet ported" in r.stderr
 
@@ -81,6 +83,69 @@ def test_torch_cli_assembled_on_the_cubed_sphere(capsys, leapfrog):
     assert "nan" not in out.lower()
     spread = float(out.split("over u, v, T, dp")[1].split()[0])
     assert spread == 0.0
+
+
+def _continuity(out):
+    return float(out.split("over u, v, T, dp")[1].split()[0])
+
+
+@pytest.mark.parametrize("kernel,extra", [
+    ("cuda", []), ("cuda", ["--leapfrog", "--hypervis-nu", "1e20"]),
+    ("plain", ["--leapfrog", "--hypervis-nu", "1e20"])])
+def test_torch_cli_rk_on_the_cubed_sphere(capsys, kernel, extra):
+    """--ne 2 --rk on the CPU: the packed SSPRK3 step through the kernel
+    wrappers' plain versions (cuda) and the field form (plain), with and
+    without hyperviscosity; finite, positive dp3d, and every alias of every
+    dof holds the same bits at the end."""
+    argv = ["--device", "cpu", "--kernel", kernel, "--ne", "2", "--rk",
+            "--num-exec", "2", "--nlev", "6", "--init", "random", "--dt",
+            "0.05"] + extra
+    assert main(argv) == 0
+    out = capsys.readouterr().out
+    assert "on 24 elements x 6 levels" in out and "SSPRK3" in out
+    assert ("hyperviscosity" in out) == bool(extra)
+    assert ("projected onto the continuous space" in out) == (kernel == "cuda")
+    assert "WARNING" not in out and "nan" not in out.lower()
+    assert _continuity(out) == 0.0
+
+
+def test_torch_cli_dss_with_hyperviscosity(capsys):
+    """--ne 2 --dss --hypervis-nu on the CPU: the assembled step, then the
+    damping of the fresh level; finite and continuity exactly 0."""
+    assert main(["--device", "cpu", "--ne", "2", "--dss", "--num-exec", "2",
+                 "--nlev", "8", "--hypervis-nu", "1e20", "--leapfrog"]) == 0
+    out = capsys.readouterr().out
+    assert "structured DSS + hyperviscosity" in out
+    assert "WARNING" not in out and "nan" not in out.lower()
+    assert _continuity(out) == 0.0
+
+
+def test_torch_bench_rk_rotation():
+    """The bench's --rk mode: s_np1 becomes the next s0, hyperviscosity runs
+    in place on it, accumulators run on; equal bit for bit to explicit
+    steps."""
+    from tinman_sandbox_tpu_torch.dist import (
+        apply_hypervis_packed_t_plain, ssprk3_packed_t4_plain)
+
+    const, s0, acc, plan, rsp = bench.make_dynamics_problem(2, 4, "cpu", 0.05)
+    scal, meta, qdp, pecnd, dvv = const
+    nu = 1e20
+    s, a = s0, acc
+    for _ in range(2):
+        s, phi, *a = ssprk3_packed_t4_plain(scal, meta, s, qdp, pecnd, *a,
+                                            dvv, plan, rsp)
+        s = apply_hypervis_packed_t_plain(dvv, meta, s, plan, rsp, nu, 0.05, 4)
+    keep = s0.clone()
+    s2, acc2, phi2 = bench.run_dynamics(const, s0, [x.clone() for x in acc],
+                                        plan, rsp, 2, nu, 0.05)
+    assert torch.equal(s0, keep)              # the first s0 is not modified
+    assert torch.equal(s2, s) and torch.equal(phi2, phi)
+    for x, y in zip(acc2, a):
+        assert torch.equal(x, y)
+    with pytest.raises(SystemExit):
+        bench.main(["--rk"])
+    with pytest.raises(SystemExit):
+        bench.main(["--ne", "2", "--hypervis-nu", "1e15"])
 
 
 def test_torch_bench_chains_accumulators():

@@ -67,6 +67,97 @@ def test_torch_sphere_ops_match_jax(op):
                                     TG["rmetdet"], RR))
 
 
+def test_torch_adjoint_contractions_match_jax():
+    """_ax and _ay, the transposes of _dx and _dy, against JAX's."""
+    from tinman_sandbox_tpu.ops import sphere as jsphere
+    from tinman_sandbox_tpu_torch.ops import sphere as tsphere
+
+    (x,) = _fields(1, seed=9)
+    tx = torch.from_numpy(x)
+    _pair(jsphere._ax(G["dvv"], x), tsphere._ax(TG["dvv"], tx))
+    _pair(jsphere._ay(G["dvv"], x), tsphere._ay(TG["dvv"], tx))
+    # adjoint identity: <_dx s, x> == <s, _ax x> with the index pairing
+    # _dx[l, j] = sum_i Dvv[i, l] s[i, j], _ax[m, n] = sum_s Dvv[m, s] x[s, n]
+    (s,) = _fields(1, seed=10)
+    ts = torch.from_numpy(s)
+    lhs = (tsphere._dx(TG["dvv"], ts) * tx).sum()
+    rhs = (ts * tsphere._ax(TG["dvv"], tx)).sum()
+    assert abs(float(lhs - rhs)) < 1e-10 * abs(float(lhs))
+
+
+_WEAK_OPS = ["gradient_update", "divergence_update", "divergence_wk",
+             "vorticity_vector", "laplace_simple", "laplace_tensor",
+             "laplace_tensor_replace", "curl_wk_testcov", "grad_wk_testcov",
+             "vlaplace_cartesian", "vlaplace_cartesian_reduced",
+             "vlaplace_contra"]
+
+
+@pytest.mark.parametrize("op", _WEAK_OPS)
+def test_torch_weak_and_laplacian_ops_match_jax(op):
+    """The weak-form operators and the Laplacian family in f64 against
+    JAX's on the same random fields and geometry."""
+    s, v1, v2, a1, a2 = _fields(5, seed=21)
+    T = torch.from_numpy
+    tv = np.random.default_rng(5).uniform(0.5, 1.5, (CFG.nelem, 1, 2, 2, 4, 4))
+    g, tg = G, TG
+    if op == "gradient_update":
+        _pair(jops.gradient_sphere_update(s, g["dvv"], g["dinv"], RR, a1, a2),
+              tops.gradient_sphere_update(T(s), tg["dvv"], tg["dinv"], RR,
+                                          T(a1), T(a2)))
+    elif op == "divergence_update":
+        _pair(jops.divergence_sphere_update(
+                  v1, v2, 0.3, -1.7, a1, g["dvv"], g["dinv"], g["metdet"],
+                  g["rmetdet"], RR),
+              tops.divergence_sphere_update(
+                  T(v1), T(v2), 0.3, -1.7, T(a1), tg["dvv"], tg["dinv"],
+                  tg["metdet"], tg["rmetdet"], RR))
+    elif op == "divergence_wk":
+        _pair(jops.divergence_sphere_wk(v1, v2, g["dvv"], g["dinv"],
+                                        g["spheremp"], RR),
+              tops.divergence_sphere_wk(T(v1), T(v2), tg["dvv"], tg["dinv"],
+                                        tg["spheremp"], RR))
+    elif op == "vorticity_vector":
+        v = np.stack([v1, v2], axis=-3)
+        _pair(jops.vorticity_sphere_vector(v, g["dvv"], g["d"], g["rmetdet"],
+                                           RR),
+              tops.vorticity_sphere_vector(T(v), tg["dvv"], tg["d"],
+                                           tg["rmetdet"], RR))
+    elif op == "laplace_simple":
+        _pair(jops.laplace_simple(s, g["dvv"], g["dinv"], g["spheremp"], RR),
+              tops.laplace_simple(T(s), tg["dvv"], tg["dinv"],
+                                  tg["spheremp"], RR))
+    elif op in ("laplace_tensor", "laplace_tensor_replace"):
+        name = op
+        _pair(getattr(jops, name)(s, g["dvv"], g["dinv"], g["spheremp"], tv,
+                                  RR),
+              getattr(tops, name)(T(s), tg["dvv"], tg["dinv"],
+                                  tg["spheremp"], T(tv), RR))
+    elif op == "curl_wk_testcov":
+        _pair(jops.curl_sphere_wk_testcov(s, g["dvv"], g["d"], g["mp"], RR),
+              tops.curl_sphere_wk_testcov(T(s), tg["dvv"], tg["d"], tg["mp"],
+                                          RR))
+    elif op == "grad_wk_testcov":
+        _pair(jops.grad_sphere_wk_testcov(s, g["dvv"], g["d"], g["mp"],
+                                          g["metinv"], g["metdet"], RR),
+              tops.grad_sphere_wk_testcov(T(s), tg["dvv"], tg["d"], tg["mp"],
+                                          tg["metinv"], tg["metdet"], RR))
+    elif op in ("vlaplace_cartesian", "vlaplace_cartesian_reduced"):
+        name = op.replace("vlaplace", "vlaplace_sphere_wk")
+        _pair(getattr(jops, name)(v1, v2, g["dvv"], g["dinv"], g["spheremp"],
+                                  tv, g["vec_sph2cart"], RR),
+              getattr(tops, name)(T(v1), T(v2), tg["dvv"], tg["dinv"],
+                                  tg["spheremp"], T(tv), tg["vec_sph2cart"],
+                                  RR))
+    else:
+        _pair(jops.vlaplace_sphere_wk_contra(
+                  v1, v2, g["dvv"], g["d"], g["dinv"], g["mp"], g["spheremp"],
+                  g["metinv"], g["metdet"], g["rmetdet"], RR, 2.5),
+              tops.vlaplace_sphere_wk_contra(
+                  T(v1), T(v2), tg["dvv"], tg["d"], tg["dinv"], tg["mp"],
+                  tg["spheremp"], tg["metinv"], tg["metdet"], tg["rmetdet"],
+                  RR, 2.5))
+
+
 @pytest.mark.parametrize("op", ["midpoint", "hydrostatic", "omega",
                                 "virtual_temperature"])
 def test_torch_scans_and_thermo_match_jax(op):

@@ -1,8 +1,9 @@
 """tinman_sandbox_tpu_torch — the PyTorch / CUDA port of ``tinman_sandbox_tpu``.
 
 The HOMME compute_and_apply_rhs (CAAR) sandbox on an NVIDIA H100: the f64
-oracle, the batched operators and the array-form CAAR step in PyTorch, and
-the packed-layout CAAR step and the saxpby triad as hand-written CUDA
+oracle, the batched operators, the array-form CAAR step, SSPRK3 and
+hyperviscosity in PyTorch, and the packed-layout CAAR step, the structured
+DSS, the hyperviscosity Laplacians and the saxpby triad as hand-written CUDA
 kernels (``csrc/``). Module names mirror the JAX package's. Entry points run
 on the card unless the caller passes ``device="cpu"``, where each kernel
 wrapper runs its plain PyTorch version.

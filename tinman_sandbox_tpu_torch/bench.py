@@ -3,6 +3,7 @@ modes of the repository's ``bench.py``).
 
     python -m tinman_sandbox_tpu_torch.bench [--nelem 1024] [--nlev 72]
     python -m tinman_sandbox_tpu_torch.bench --ne 30 [--nlev 72]
+    python -m tinman_sandbox_tpu_torch.bench --ne 30 --rk [--hypervis-nu 1e15]
 
 The reference's methodology (kokkos_init.cpp:108-134): random init from a
 numpy seed, f32, fixed time levels, one kernel launch per step with the
@@ -24,6 +25,15 @@ continues from the warm-up through every timed run. ``bytes_per_step`` adds
 to the 21 CAAR rows the DSS's 8 (the stacked s1 read and written), the two
 rspheremp rows and twice the slab (written by the CAAR kernel, read by the
 fixup).
+
+``--ne N --rk [--hypervis-nu NU]`` is the dynamics mode: one SSPRK3 step
+(``dist.ssprk3_packed_t4``: three single-state CAAR launches with the slab,
+each followed by a fixup and a sweep that carries the Shu-Osher combination)
+and, with a nonzero NU, one hyperviscosity subcycle in place on the new
+state (``dist.apply_hypervis_packed_t``: two weak-Laplacian launches, each
+with a fixup and a sweep). It starts from the random state projected onto
+the continuous space and CHAINS: each step's s_np1 is the next step's s0,
+the accumulators run on. ``bytes_per_step`` is ``dynamics_bytes_per_step``.
 """
 from __future__ import annotations
 
@@ -36,7 +46,8 @@ import torch
 
 __all__ = ["card_name_and_power", "bytes_per_step", "make_problem",
            "run_steps", "assembled_bytes_per_step", "make_assembled_problem",
-           "run_assembled", "main"]
+           "run_assembled", "dynamics_bytes_per_step",
+           "make_dynamics_problem", "run_dynamics", "main"]
 
 
 def card_name_and_power():
@@ -145,6 +156,118 @@ def run_assembled(const, levels, acc, plan, rsp, nsteps: int, step=None):
     return (s0, sm1), tuple(acc), phi
 
 
+def dynamics_bytes_per_step(ne: int, nlev: int, nfix: int,
+                            hypervis: bool = False, itemsize: int = 4) -> int:
+    """Device-memory traffic of one dynamics step, meta ignored, each
+    kernel's inputs read once and its outputs written once. SSPRK3: per
+    stage the CAAR kernel reads 9 [nlev, E16] rows (state, qdp, pecnd, three
+    accumulators) and writes 7 (8 with phi, last stage), the sweep reads 4
+    and writes 4 and reads the 4 of s0 on stages 2 and 3: 81 rows, plus two
+    rspheremp rows per sweep and the [nfix, 4*nlev] slab written and read
+    per stage. One hyperviscosity subcycle: two Laplacians (3 read, 3
+    written), a sweep (3 + 3) and the mixing sweep (3 + 3 + 3): 27 rows,
+    four rspheremp rows and the [nfix, 3*nlev] slab twice written and
+    read."""
+    e16 = 6 * ne * ne * 16
+    n = (81 * nlev + 6) * e16 + 3 * 2 * nfix * 4 * nlev
+    if hypervis:
+        n += (27 * nlev + 4) * e16 + 2 * 2 * nfix * 3 * nlev
+    return n * itemsize
+
+
+def make_dynamics_problem(ne: int, nlev: int, device, dt: float = 0.1,
+                          seed: int = 7):
+    """The dynamics bench problem at ne: ``make_assembled_problem`` with dt
+    in scal's dt2 slot and the n0 state projected onto the continuous space
+    (rspheremp * DSS(spheremp * s0), the whole structured DSS), which
+    ``ssprk3_packed_t4`` needs. Returns (const, s0, acc, plan, rsp): const =
+    (scal, meta, qdp, pecnd, dvv)."""
+    from .kernels.dss import dss_structured_t_cuda
+    from .kernels.layout import META_COLS
+
+    (scal, meta, qdp, pecnd, dvv), (s0, _), acc, plan, rsp = \
+        make_assembled_problem(ne, nlev, device, seed)
+    scal = scal.clone()
+    scal[0, 0] = dt
+    sph = meta[META_COLS.index("spheremp")]
+    s0 = dss_structured_t_cuda((sph * s0).contiguous(), plan, rsp)
+    return (scal, meta, qdp, pecnd, dvv), s0, acc, plan, rsp
+
+
+def run_dynamics(const, s0, acc, plan, rsp, nsteps: int, nu: float = 0.0,
+                 dt: float = 0.1):
+    """``nsteps`` chained dynamics steps: ``ssprk3_packed_t4``, then with a
+    nonzero ``nu`` ``apply_hypervis_packed_t`` on the whole new
+    [4*nlev, E16] state; the result is the next step's s0. Returns
+    (s0, acc, phi) after the last."""
+    from .dist.step_t import apply_hypervis_packed_t, ssprk3_packed_t4
+
+    scal, meta, qdp, pecnd, dvv = const
+    nlev = qdp.shape[0]
+    phi = None
+    for _ in range(nsteps):
+        s0, phi, *acc = ssprk3_packed_t4(scal, meta, s0, qdp, pecnd, *acc,
+                                         dvv, plan, rsp)
+        if nu:
+            s0 = apply_hypervis_packed_t(dvv, meta, s0, plan, rsp, nu, dt,
+                                         nlev)
+    return s0, tuple(acc), phi
+
+
+def _main_dynamics(args, dev) -> dict:
+    from .kernels.caar_t import caar_t4_cuda
+    from .kernels.dss import dss_fixup_cuda, dss_sweep_cuda, fix_tables
+    from .kernels.hypervis_t import vlap_cuda
+    from .kernels.saxpby import saxpby_bandwidth_gbs
+
+    const, s0, acc, plan, rsp = make_dynamics_problem(
+        args.ne, args.nlev, dev, args.dt)
+    wrappers = (caar_t4_cuda, vlap_cuda, dss_fixup_cuda, dss_sweep_cuda)
+    run = lambda s, a, n: run_dynamics(const, s, a, plan, rsp, n,
+                                       args.hypervis_nu, args.dt)
+    # warm-up (first build), excluded; the chain runs on from it
+    s0, acc, _ = run(s0, acc, 2)
+    torch.cuda.synchronize(dev)
+    launches0 = [w.launches for w in wrappers]
+    best = float("inf")
+    for _ in range(args.reps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        s0, acc, phi = run(s0, acc, args.nexec)
+        torch.cuda.synchronize(dev)
+        best = min(best, time.perf_counter() - t0)
+    if not all(bool(torch.isfinite(x).all()) for x in (s0, *acc, phi)):
+        raise RuntimeError("bench: non-finite dynamics state")
+    dp_min = float(s0[3 * args.nlev:].min())
+    per_step = {w.__name__: (w.launches - n0) / (args.reps * args.nexec)
+                for w, n0 in zip(wrappers, launches0)}
+    triad = saxpby_bandwidth_gbs(device=dev)
+    nelem = 6 * args.ne * args.ne
+    nbytes = dynamics_bytes_per_step(args.ne, args.nlev,
+                                     fix_tables(plan, dev).nfix,
+                                     bool(args.hypervis_nu))
+    gbs = nbytes * args.nexec / best / 1e9
+    return {
+        "metric": "dynamics_gridpoint_updates_per_s",
+        "config": f"ne{args.ne} ({nelem} elements) x{args.nlev}x16 float32 "
+                  f"nexec={args.nexec} reps={args.reps} chained "
+                  f"step=ssprk3_packed_t4 dt={args.dt}"
+                  + (f" + apply_hypervis_packed_t nu={args.hypervis_nu}"
+                     if args.hypervis_nu else ""),
+        "seconds": best,
+        "us_per_step": best / args.nexec * 1e6,
+        "gridpoints_per_s": nelem * args.nlev * 16 * args.nexec / best,
+        "bytes_per_step": nbytes,
+        "achieved_gb_per_s": gbs,
+        "triad_gb_per_s": triad,
+        "fraction_of_triad": gbs / triad,
+        "kernel_launches_per_step": per_step,
+        "min_dp3d": dp_min,
+        "device": torch.cuda.get_device_name(dev),
+        "card": card_name_and_power(),
+    }
+
+
 def _main_assembled(args, dev) -> dict:
     from .kernels.caar_t import caar_t4_cuda
     from .kernels.dss import (
@@ -204,7 +327,17 @@ def main(argv=None) -> dict:
     ap.add_argument("--ne", type=int, default=None,
                     help="assembled mode on the ne x ne x 6 cubed sphere "
                          "(sets the element count; --nelem is ignored)")
+    ap.add_argument("--rk", action="store_true",
+                    help="with --ne: the chained SSPRK3 dynamics step")
+    ap.add_argument("--hypervis-nu", type=float, default=0.0,
+                    help="with --rk: hyperviscosity after each step (0 = off)")
+    ap.add_argument("--dt", type=float, default=0.1,
+                    help="with --rk: the time step")
     args = ap.parse_args(argv)
+    if (args.rk or args.hypervis_nu) and args.ne is None:
+        ap.error("--rk and --hypervis-nu need --ne")
+    if args.hypervis_nu and not args.rk:
+        ap.error("--hypervis-nu needs --rk")
 
     from .device import resolve_device
     from .kernels.caar_t import caar_t4_cuda
@@ -212,7 +345,7 @@ def main(argv=None) -> dict:
 
     dev = resolve_device("cuda")
     if args.ne is not None:
-        result = _main_assembled(args, dev)
+        result = (_main_dynamics if args.rk else _main_assembled)(args, dev)
         print(json.dumps(result))
         return result
     const, acc = make_problem(args.nelem, args.nlev, dev)

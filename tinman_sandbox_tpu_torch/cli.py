@@ -1,11 +1,14 @@
 """Command-line driver for the CAAR step, raw or assembled on the cubed
-sphere (counterpart of the raw and ``--ne N --dss`` paths of
+sphere, SSPRK3 dynamics and hyperviscosity (counterpart of the raw,
+``--ne N --dss``, ``--rk`` and ``--hypervis-nu`` paths of
 ``tinman_sandbox_tpu/cli.py``).
 
     python -m tinman_sandbox_tpu_torch --num-elems 1024 --num-exec 100
     python -m tinman_sandbox_tpu_torch --device cpu --kernel plain \\
         --num-elems 3 --num-exec 2 --golden-check
     python -m tinman_sandbox_tpu_torch --ne 30 --dss --leapfrog --num-exec 20
+    python -m tinman_sandbox_tpu_torch --ne 30 --rk --hypervis-nu 1e15 \\
+        --init random --dt 0.1 --leapfrog --num-exec 20
 
 ``--kernel cuda`` (default) runs the packed-layout step through the CUDA
 kernel wrapper; on ``--device cpu`` that wrapper runs its plain version.
@@ -17,6 +20,15 @@ kernel, then the DSS extract, fixup and sweep kernels per field) with
 ``--kernel cuda``, the array form ``dist.caar_dss_step`` with
 ``--kernel plain``. An assembled run reports how far the aliases of a shared
 dof disagree at the end, which is exactly 0.
+``--rk`` (needs ``--ne``, honours ``--dt``) takes one SSPRK3 step per
+execution: ``dist.ssprk3_t`` (three single-state CAAR launches, each with a
+fixup and a sweep that carries the Shu-Osher combination) with ``--kernel
+cuda``, the field form ``timeloop.ssprk3_step`` with ``--kernel plain``. The
+packed step needs a continuous state, so with ``--kernel cuda`` the initial
+n0 level is projected first. ``--hypervis-nu NU`` (needs ``--ne``) applies
+biharmonic hyperviscosity to the fresh level after every step:
+``dist.apply_hypervis_t`` (the weak-Laplacian kernel and the DSS kernels) or
+the field form ``timeloop.apply_hyperviscosity``.
 The CUDA kernel is float32 only; ``--dtype`` defaults to float32 on the card
 and float64 (the oracle path) on the CPU.
 """
@@ -28,7 +40,7 @@ import sys
 import time
 
 # flags of the JAX CLI whose paths are not ported yet
-_NOT_PORTED = ("rk", "prim", "checkpoint", "restore")
+_NOT_PORTED = ("prim", "checkpoint", "restore")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -64,8 +76,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--golden-check", action="store_true",
                     help="compare element 1 vs test_mod.F90 golden arrays")
     ap.add_argument("--dt", type=float, default=600.0)
+    ap.add_argument("--rk", action="store_true",
+                    help="SSPRK3 step with a DSS projection per stage "
+                         "(needs --ne; --dt is the step)")
+    ap.add_argument("--hypervis-nu", type=float, default=0.0,
+                    help="biharmonic hyperviscosity coefficient applied "
+                         "after each step (0 = off; needs --ne)")
     # accepted so that they fail with a clear message, not an argparse error
-    ap.add_argument("--rk", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--prim", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--checkpoint", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--restore", default=None, help=argparse.SUPPRESS)
@@ -83,10 +100,12 @@ def main(argv=None) -> int:
         if getattr(args, flag) not in (None, False):
             return _usage_error(
                 f"--{flag} is not yet ported to tinman_sandbox_tpu_torch "
-                f"(the raw and the assembled CAAR paths are); use python -m "
-                f"tinman_sandbox_tpu")
-    if args.dss and args.ne is None:
-        return _usage_error("--dss requires --ne")
+                f"(the raw and assembled CAAR, SSPRK3 and hyperviscosity "
+                f"paths are); use python -m tinman_sandbox_tpu")
+    for flag, on in (("--dss", args.dss), ("--rk", args.rk),
+                     ("--hypervis-nu", args.hypervis_nu)):
+        if on and args.ne is None:
+            return _usage_error(f"{flag} requires --ne")
     if args.kernel == "plain" and args.device != "cpu":
         return _usage_error("--kernel plain runs only with --device cpu")
     dtype_name = args.dtype or ("float32" if args.device == "cuda"
@@ -132,9 +151,13 @@ def main(argv=None) -> int:
     timers = Timers(dev)
 
     mode = "cuda" if args.kernel == "cuda" else "plain array-form"
-    if args.dss:
+    if args.rk:
+        mode += " SSPRK3"
+    if args.dss or args.rk:
         mode += " + structured DSS" if args.kernel == "cuda" \
             else " + segment-sum DSS"
+    if args.hypervis_nu:
+        mode += " + hyperviscosity"
     if cs is not None:
         mode += f", cubed sphere ne{cs.ne}"
     print(f" --- {args.num_exec} executions on {nelem} elements x {cfg.nlev} "
@@ -145,10 +168,38 @@ def main(argv=None) -> int:
 
     dt2 = 1.0 if args.init == "analytic" else args.dt
     eta = 1.0
-    if args.dss and args.kernel == "cuda":
-        from .dist import caar_dss_t, make_structured_plan
+    if cs is not None and args.kernel == "cuda":
+        from .dist import make_structured_plan
 
         plan = make_structured_plan(cs.gdof, cs.ne)
+    if args.rk and args.kernel == "cuda":
+        import dataclasses as _dc
+
+        from .dist import dss_project, ssprk3_t
+
+        # the packed step pulls the projection inside the Shu-Osher
+        # combinations, exact only for a continuous n0
+        def proj(x):
+            out = x.clone()
+            out[cfg.n0] = dss_project(x[cfg.n0], cs.gdof, cs.ndof,
+                                      geom.spheremp, geom.rspheremp)
+            return out
+
+        state = _dc.replace(state, u=proj(state.u), v=proj(state.v),
+                            t=proj(state.t), dp3d=proj(state.dp3d))
+        print(" --- initial n0 level projected onto the continuous space")
+
+        # RK is a real integration: it always honours --dt
+        def one_step(s, d, c):
+            return ssprk3_t(s, d, geom, hv, plan, c, args.dt, device=dev)
+    elif args.rk:
+        from .timeloop import ssprk3_step
+
+        def one_step(s, d, c):
+            return ssprk3_step(s, d, geom, hv, c, args.dt, gdof=cs.gdof,
+                               ndof=cs.ndof, device=dev)
+    elif args.dss and args.kernel == "cuda":
+        from .dist import caar_dss_t
 
         def one_step(s, d, c):
             return caar_dss_t(s, d, geom, hv, plan, c, dt2, eta, device=dev)
@@ -164,7 +215,23 @@ def main(argv=None) -> int:
         def one_step(s, d, c):
             return step(s, d, geom, hv, c, dt2, eta, device=dev)
 
-    one_step(state, derived, cfg)       # warm-up (first build), excluded
+    if args.hypervis_nu and args.kernel == "cuda":
+        from .dist import apply_hypervis_t
+
+        def damp(s, c):
+            return apply_hypervis_t(s, geom, plan, c, args.hypervis_nu,
+                                    dt=args.dt, device=dev)
+    elif args.hypervis_nu:
+        from .timeloop import apply_hyperviscosity
+
+        def damp(s, c):
+            return apply_hyperviscosity(s, geom, cs.gdof, cs.ndof, c,
+                                        args.hypervis_nu, dt=args.dt,
+                                        device=dev)
+
+    warm = one_step(state, derived, cfg)    # warm-up (first build), excluded
+    if args.hypervis_nu:
+        damp(warm[0], cfg)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
@@ -174,6 +241,9 @@ def main(argv=None) -> int:
     for _ in range(args.num_exec):
         with timers.region("caar compute"):
             state, derived = one_step(state, derived, c)
+        if args.hypervis_nu:
+            with timers.region("hyperviscosity"):
+                state = damp(state, c)
         if args.leapfrog:
             c = rotated(c)
     timers.stop("main loop")
@@ -188,7 +258,7 @@ def main(argv=None) -> int:
     fresh = [getattr(state, n)[c_chk.np1] for n in ("u", "v", "t", "dp3d")]
     if not all(bool(torch.isfinite(x).all()) for x in fresh):
         print(" --- WARNING: non-finite prognostic state")
-    if args.dss:
+    if args.dss or args.rk:
         from .dist import continuity_error_t
         from .kernels.layout import pack_field_t
 

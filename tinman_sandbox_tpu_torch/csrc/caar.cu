@@ -1,8 +1,9 @@
 // CAAR (compute_and_apply_rhs, rsplit>0) on the packed [nlev, E16] layout.
 //
 // Replaces the Pallas kernels of tinman_sandbox_tpu/kernels/caar_pallas_t.py:
-// caar_pallas_packed_t4_lg (the bench headline), caar_pallas_packed_t and
-// caar_pallas_packed_t4. All three run _caar_physics plus the accumulator
+// caar_pallas_packed_t4_lg (the bench headline), caar_pallas_packed_t,
+// caar_pallas_packed_t4 and the single-state Runge-Kutta stage kernel
+// caar_pallas_packed_t4_rk. All run _caar_physics plus the accumulator
 // update; they differ only in how the buffers are cut, so this one kernel
 // takes one pointer per field row block and covers the stacked and the
 // unstacked forms.
@@ -35,6 +36,15 @@
 // four outputs u1/v1/t1/dp1 at every level to row r of the slab,
 // slab[r*slab_ld + f*nlev + k] for field f, the pre-DSS values that the
 // DSS fixup (csrc/dss.cu) reads; without a slab fix_rank is null.
+// Runge-Kutta stage mode (caar_pallas_packed_t4_rk :740 and the single=True
+// mode of caar_pallas_packed_t4_lg): with a null um1 the base state of the
+// update IS the evaluation state, s1 = spheremp*(s0 + dt2*tendency), and the
+// four nm1 row blocks are never fetched (17 row blocks of traffic in place of
+// 21). With a null phi the geopotential is not stored (16 row blocks): only
+// the last stage of a step needs it. Both modes are template parameters, not
+// branches: a test of the pointers inside the level loop kept the compiler
+// from issuing the 13 loads of a level together and cost the pair form 8%
+// at 5,400 x 72 and 20% at 1024 x 72 on the H100.
 // Known limit of this simple form: one thread per column gives E16 threads
 // in all (16,384 at 1024 elements, ~6% of the card's thread slots), so the
 // kernel is latency-bound well above its memory bound; splitting levels
@@ -57,10 +67,12 @@ struct CaarArgs {
   const float* meta;   // [16, ld]
   const float* dvv;    // [4, 4] row-major, dvv[i*4+l] = Dvv[i, l]
   const float* u0; const float* v0; const float* t0; const float* dp0;
+  // the base state of the update; all four null = the evaluation state
   const float* um1; const float* vm1; const float* tm1; const float* dpm1;
   const float* qdp; const float* pecnd;
   float* vn0u; float* vn0v; float* omg;      // accumulators, in place
-  float* u1; float* v1; float* t1; float* dp1; float* phi;
+  float* u1; float* v1; float* t1; float* dp1;
+  float* phi;                                // null = not stored
   const int* fix_rank;                       // [ncol] slab row or -1; or null
   float* slab;                               // [nfix, slab_ld]
   int nlev, ncol, ld, moist, slab_ld;
@@ -85,6 +97,9 @@ __device__ __forceinline__ float dy(const float* dvv, const float* s, int li,
   return fmaf(dvv[3 * 4 + lj], s[li * 4 + 3], acc);
 }
 
+// kSingle: the base state is the evaluation state (um1..dpm1 not read);
+// kPhi: store the geopotential (always, unless kSingle)
+template <bool kSingle, bool kPhi>
 __global__ void __launch_bounds__(kBlock) caar_kernel(CaarArgs a) {
   extern __shared__ float col_sm[];             // [nlev][kBlock]: q, then phi
   __shared__ float xch[2][kRows][kBlock];
@@ -141,7 +156,11 @@ __global__ void __launch_bounds__(kBlock) caar_kernel(CaarArgs a) {
       u = a.u0[o]; v = a.v0[o]; t = a.t0[o]; dp = a.dp0[o];
       if (a.moist) qd = a.qdp[o];
       pec = a.pecnd[o];
-      um1 = a.um1[o]; vm1 = a.vm1[o]; tm1 = a.tm1[o]; dpm1 = a.dpm1[o];
+      if constexpr (kSingle) {
+        um1 = u; vm1 = v; tm1 = t; dpm1 = dp;
+      } else {
+        um1 = a.um1[o]; vm1 = a.vm1[o]; tm1 = a.tm1[o]; dpm1 = a.dpm1[o];
+      }
       an = a.vn0u[o]; av = a.vn0v[o]; ao = a.omg[o];
     }
     s += dp;
@@ -211,12 +230,23 @@ __global__ void __launch_bounds__(kBlock) caar_kernel(CaarArgs a) {
         slab[2 * a.nlev + k] = t1;
         slab[3 * a.nlev + k] = dp1;
       }
-      a.phi[o] = phi;
+      if constexpr (kPhi) a.phi[o] = phi;
       a.vn0u[o] = an + eta * vdp1;
       a.vn0v[o] = av + eta * vdp2;
       a.omg[o] = ao + eta * omega_p;
     }
   }
+}
+
+template <bool kSingle, bool kPhi>
+cudaError_t launch(const CaarArgs& a, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      caar_kernel<kSingle, kPhi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int grid = (a.ncol + kBlock - 1) / kBlock;
+  caar_kernel<kSingle, kPhi><<<grid, kBlock, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -228,7 +258,9 @@ const char* caar_error_string(int err) {
 }
 
 // Enqueues one CAAR step on `stream`. Returns the cudaError_t of the launch.
-// fix_rank and slab may be null (no slab output).
+// fix_rank and slab may be null (no slab output); um1, vm1, tm1 and dpm1
+// may all be null (the stage mode: base state = u0..dp0); phi may be null
+// in the stage mode only.
 int caar_launch(const void* scal, const void* meta, const void* dvv,
                 const void* u0, const void* v0, const void* t0,
                 const void* dp0, const void* um1, const void* vm1,
@@ -241,6 +273,12 @@ int caar_launch(const void* scal, const void* meta, const void* dvv,
                 int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  if ((um1 == nullptr) != (vm1 == nullptr) ||
+      (um1 == nullptr) != (tm1 == nullptr) ||
+      (um1 == nullptr) != (dpm1 == nullptr))
+    return cudaErrorInvalidValue;
+  if (phi == nullptr && um1 != nullptr)   // only a stage may drop phi
+    return cudaErrorInvalidValue;
   CaarArgs a;
   a.scal = static_cast<const float*>(scal);
   a.meta = static_cast<const float*>(meta);
@@ -276,13 +314,11 @@ int caar_launch(const void* scal, const void* meta, const void* dvv,
   a.rrearth = rrearth;
 
   const size_t smem = static_cast<size_t>(nlev) * kBlock * sizeof(float);
-  err = cudaFuncSetAttribute(caar_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int grid = (ncol + kBlock - 1) / kBlock;
-  caar_kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (um1 == nullptr)
+    return phi ? launch<true, true>(a, smem, st)
+               : launch<true, false>(a, smem, st);
+  return launch<false, true>(a, smem, st);
 }
 
 }  // extern "C"

@@ -6,7 +6,7 @@
 //   dss_fixup    <- vals_to_vd_pallas (:1306) together with the XLA line
 //                   math _fixup_from_rows (:890-929) that feeds it;
 //   dss_sweep    <- dss_sweeps_pallas_t (:617) and dss_sweeps_pallas_ct
-//                   (:1227), without their mix= epilogue.
+//                   (:1227), with their affine mix= epilogue.
 // The TPU forms cut the lane axis into 128-lane tiles, padded the fix lanes
 // to whole tiles or to per-tile slots, and placed them with one-hot matrix
 // products. None of that is needed here: a thread reads the lane it wants.
@@ -23,10 +23,18 @@
 // with s0/s1 the lane and its in-face junction partner on its own line,
 // s2/s3 the same on the paired line of the neighbouring face (read in
 // reverse on a flipped edge), and for a cube corner (c0 + c1) + c2. An
-// absent s1 or s3 (-1) adds nothing. Every add and product is rounded on
-// its own (__fadd_rn / __fmul_rn, no FMA contraction) in the order of the
-// JAX package, so each kernel equals its plain PyTorch version bit for bit
-// and every alias of a shared dof ends with the same bits.
+// absent s1 or s3 (-1) adds nothing.
+// With mix = (mx, ca, cb) the sweep stores ca*mx + cb*w (ca*mx + cb*v at a
+// fix lane): two products, then their sum. That folds the Shu-Osher
+// combinations of SSPRK3 and the hyperviscosity update x - step*lap into the
+// sweep. mx may have more rows than x and the output may BE mx (in place):
+// each thread reads and writes only its own element of mx, its partner reads
+// go to x, and the grid covers x's rows only, so further rows of mx ride
+// through untouched. The output must never alias x.
+// Every add and product is rounded on its own (__fadd_rn / __fmul_rn, no FMA
+// contraction) in the order of the JAX package, so each kernel equals its
+// plain PyTorch version bit for bit and every alias of a shared dof ends
+// with the same bits.
 //
 // What bounds them on the H100: device-memory traffic. The sweep reads and
 // writes the whole field once (199 MB at ne30 x 288 rows, ~0.06 ms at
@@ -62,12 +70,14 @@ __device__ __forceinline__ float scale(float v, const float* __restrict__ rsp,
   return __fmul_rn(v, rsp[l]);
 }
 
-// out[row, l]: the swept, scaled value, or the fix value vd[row, fix_col[l]]
+// out[row, l]: the swept, scaled value, or the fix value vd[row, fix_col[l]];
+// with kMix ca*mx[row, l] + cb*that. out may be mx, never x.
+template <bool kMix>
 __global__ void __launch_bounds__(kSweepThreads)
 dss_sweep_kernel(const float* __restrict__ x, const float* __restrict__ rsp,
                  int nrsp, const float* __restrict__ vd, int nfix,
-                 const int* __restrict__ fix_col, float* __restrict__ out,
-                 int e16, int ne) {
+                 const int* __restrict__ fix_col, const float* mx, float ca,
+                 float cb, float* out, int e16, int ne) {
   const int l = blockIdx.x * kSweepThreads + threadIdx.x;
   if (l >= e16) return;
   const size_t row = blockIdx.y;
@@ -83,7 +93,10 @@ dss_sweep_kernel(const float* __restrict__ x, const float* __restrict__ rsp,
     else if (j == 0 && ej > 0) z = __fadd_rn(z, alpha_sum(xr, l - db, ne));
     res = scale(z, rsp, nrsp, e16, l);
   }
-  out[row * e16 + l] = res;
+  const size_t o = row * e16 + l;
+  if constexpr (kMix)
+    res = __fadd_rn(__fmul_rn(ca, mx[o]), __fmul_rn(cb, res));
+  out[o] = res;
 }
 
 // vd[row, u] for fix lane u = fix_lanes[u]: the line / corner sum of the
@@ -140,19 +153,22 @@ const char* dss_error_string(int err) {
 
 // Each launch enqueues one kernel on `stream` and returns the cudaError_t of
 // the launch. Pointers are device pointers of contiguous float32 / int32
-// tensors; rsp holds nrsp (1 or 2) rows of e16 lanes.
+// tensors; rsp holds nrsp (1 or 2) rows of e16 lanes. The sweep's mx is
+// null (no mix) or a field of at least k rows; out may be mx.
 
 int dss_sweep_launch(const void* x, const void* rsp, int nrsp, const void* vd,
-                     int nfix, const void* fix_col, void* out, int k, int e16,
-                     int ne, void* stream, int device) {
+                     int nfix, const void* fix_col, const void* mx, float ca,
+                     float cb, void* out, int k, int e16, int ne,
+                     void* stream, int device) {
   cudaError_t err = prepare(device);
   if (err != cudaSuccess) return err;
   const dim3 grid((e16 + kSweepThreads - 1) / kSweepThreads, k);
-  dss_sweep_kernel<<<grid, kSweepThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+  auto* kernel = mx ? dss_sweep_kernel<true> : dss_sweep_kernel<false>;
+  kernel<<<grid, kSweepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(rsp), nrsp,
       static_cast<const float*>(vd), nfix, static_cast<const int*>(fix_col),
-      static_cast<float*>(out), e16, ne);
+      static_cast<const float*>(mx), ca, cb, static_cast<float*>(out), e16,
+      ne);
   return cudaGetLastError();
 }
 

@@ -1,14 +1,21 @@
 """The cubed sphere and the assembled step (counterpart of
 ``tinman_sandbox_tpu/dist``; the single-card parts ported so far: the grid,
-the segment-sum and structured DSS, and the CAAR + DSS steps)."""
+the segment-sum and structured DSS, and the CAAR + DSS, SSPRK3 and
+hyperviscosity steps)."""
 from .cubed_sphere import CubedSphere, build_cubed_sphere
 from .dss import continuity_error_t, dss_project, dss_scaled, dss_sum, rsp_2f
 from .step import caar_dss_step
 from .step_t import (
+    apply_hypervis_packed_t,
+    apply_hypervis_packed_t_plain,
+    apply_hypervis_t,
     caar_dss_structured_packed_t,
     caar_dss_structured_packed_t4,
     caar_dss_structured_packed_t4_plain,
     caar_dss_t,
+    ssprk3_packed_t4,
+    ssprk3_packed_t4_plain,
+    ssprk3_t,
 )
 from .structured_dss import (
     StructuredDssPlan,
@@ -32,6 +39,12 @@ __all__ = [
     "caar_dss_structured_packed_t4",
     "caar_dss_structured_packed_t4_plain",
     "caar_dss_t",
+    "ssprk3_packed_t4",
+    "ssprk3_packed_t4_plain",
+    "ssprk3_t",
+    "apply_hypervis_packed_t",
+    "apply_hypervis_packed_t_plain",
+    "apply_hypervis_t",
     "StructuredDssPlan",
     "apply_rsp_t",
     "dss_structured_scaled_t",

@@ -1,5 +1,6 @@
-"""The assembled step on the packed transposed layout: the CAAR kernel and
-the structured DSS kernels (counterpart of the assembled-step parts of
+"""The assembled steps on the packed transposed layout: the CAAR kernel,
+the weak-Laplacian kernel and the structured DSS kernels (counterpart of
+the assembled-step, SSPRK3 and hyperviscosity parts of
 ``tinman_sandbox_tpu/dist/step_pallas.py``).
 
   * ``caar_dss_structured_packed_t4``: stacked state, one [4*nlev, E16]
@@ -16,14 +17,26 @@ the structured DSS kernels (counterpart of the assembled-step parts of
     fixup and sweep for each field.
   * ``caar_dss_t``: the full-state wrapper (pack, unstacked step, unpack;
     counterpart of ``caar_dss_pallas(dss="structured_t")``).
+  * ``ssprk3_packed_t4``: SSPRK3 dynamics, three stages of (CAAR kernel in
+    its single-state stage mode with the slab, fixup, sweep), the Shu-Osher
+    combinations folded into the sweep's affine output; needs a CONTINUOUS
+    s0. ``ssprk3_packed_t4_plain`` is its twin from the plain versions and
+    ``ssprk3_t`` the full-state wrapper.
+  * ``apply_hypervis_packed_t``: biharmonic hyperviscosity, per subcycle two
+    (weak-Laplacian kernel with the slab, fixup, sweep) passes, the update
+    x - step*grad^4(x) being the second sweep's affine output. On the full
+    [4*nlev, E16] buffer it updates the (u, v, T) rows IN PLACE and the dp
+    rows ride through. ``apply_hypervis_packed_t_plain`` is its twin (pure)
+    and ``apply_hypervis_t`` the full-state wrapper.
 
 The accumulators vn0u / vn0v / omg are updated IN PLACE, as by the CAAR
-kernel (the plain stacked step is pure and returns new ones).
+kernel (the plain twins are pure and return new ones).
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..config import Config
@@ -33,14 +46,18 @@ from ..kernels.caar_t import (
 from ..kernels.dss import (
     dss_fixup_plain, dss_structured_t_cuda, dss_structured_t_cuda_pre,
     dss_sweep_plain, fix_tables)
-from ..kernels.layout import unpack_field_t
+from ..kernels.hypervis_t import vlap_cuda, vlap_plain
+from ..kernels.layout import pack_field_t, pack_meta_t, unpack_field_t
 from ..state import Derived, State
+from ..timeloop.rk import B_WEIGHTS
 from .structured_dss import StructuredDssPlan
 
 __all__ = ["caar_dss_structured_packed_t4",
            "caar_dss_structured_packed_t4_plain",
-           "caar_dss_structured_packed_t", "caar_dss_t"]
-
+           "caar_dss_structured_packed_t", "caar_dss_t",
+           "ssprk3_packed_t4", "ssprk3_packed_t4_plain", "ssprk3_t",
+           "apply_hypervis_packed_t", "apply_hypervis_packed_t_plain",
+           "apply_hypervis_t"]
 
 def caar_dss_structured_packed_t4(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v,
                                   omg, dvv, plan: StructuredDssPlan,
@@ -97,8 +114,7 @@ def caar_dss_t(state: State, derived: Derived, geom: Geometry,
     dtype = state.u.dtype
     p = pack_problem_t(state, derived, geom, hv, cfg, dtype)
     scal = _scalars(dt2, eta_ave_w, hv, dtype, dev)
-    # packed lane order is e*16 + i*4 + j == rspheremp[e, i, j] flattened
-    rsp = geom.rspheremp.to(dtype).reshape(1, -1).contiguous()
+    rsp = _rsp_row(geom, dtype)
     u1, v1, t1, dp1, phi, vn0u, vn0v, omg = caar_dss_structured_packed_t(
         scal, p["meta"], p["u0"], p["v0"], p["t0"], p["dp0"],
         p["um1"], p["vm1"], p["tm1"], p["dpm1"], p["qdp"], p["pecnd"],
@@ -118,3 +134,183 @@ def caar_dss_t(state: State, derived: Derived, geom: Geometry,
         vn0_v=unpack_field_t(vn0v, nelem), phi=unpack_field_t(phi, nelem),
         omega_p=unpack_field_t(omg, nelem))
     return new_state, new_derived
+
+
+def _plain_dss_pre(x, slab, fix, rsp, mix=None):
+    """Fixup and sweep from the plain versions alone."""
+    return dss_sweep_plain(x, rsp, dss_fixup_plain(slab, fix, rsp), fix, mix)
+
+
+def _ssprk3(caar, dss_pre, scal, meta, s0, qdp, pecnd, acc, dvv, plan, rsp,
+            moist):
+    """The three stages of ``ssprk3_packed_t4`` on the given CAAR step and
+    fixup + sweep. The stage weight scales eta_ave_w on the device (a copy
+    of scal and one in-place product with a number: no host sync), rounded
+    to the state's dtype as the JAX package's ``f.type(b)``. The mix
+    coefficients are formed in the state's dtype."""
+    fix = fix_tables(plan, s0.device)
+    f = np.float32 if s0.dtype == torch.float32 else np.float64
+
+    def stage(u, b, acc, emit_phi=False, mix=None):
+        sc = scal.clone()
+        sc[0, 1].mul_(b)
+        s1, phi, *acc, slab = caar(sc, meta, u, None, qdp, pecnd, *acc, dvv,
+                                   moist=moist, fix=fix, single=True,
+                                   emit_phi=emit_phi)
+        return dss_pre(s1, slab, fix, rsp, mix), phi, acc
+
+    u1, _, acc = stage(s0, B_WEIGHTS[0], acc)
+    u2, _, acc = stage(u1, B_WEIGHTS[1], acc, mix=(s0, f(0.75), f(0.25)))
+    u3, phi, acc = stage(u2, B_WEIGHTS[2], acc, emit_phi=True,
+                         mix=(s0, f(1.0 / 3.0), f(2.0 / 3.0)))
+    return (u3, phi, *acc)
+
+
+def ssprk3_packed_t4(scal, meta, s0, qdp, pecnd, vn0u, vn0v, omg, dvv,
+                     plan: StructuredDssPlan, rsp: torch.Tensor,
+                     moist: bool = True):
+    """SSPRK3 dynamics on the stacked [4*nlev, E16] state (counterpart of
+    ``ssprk3_packed_t4`` of the JAX package):
+
+        U1 = P(U0 + dt L(U0))
+        U2 = 3/4 U0 + 1/4 P(U1 + dt L(U1))
+        U3 = 1/3 U0 + 2/3 P(U2 + dt L(U2))
+
+    The projection P is pulled inside the convex combinations, which is
+    exact when ``s0`` is CONTINUOUS (P U0 = U0), true of any state an
+    assembled step produced. Each stage is one single-state CAAR launch
+    with the slab, one fixup and one sweep whose affine output carries the
+    combination: no standalone combination pass. ``scal`` carries dt (not
+    the leapfrog 2*dt) in its dt2 slot; the accumulators advance with the
+    weights (1/6, 1/6, 2/3) composed onto scal's eta_ave_w, IN PLACE; phi
+    is the last stage's; s0 is not modified. Returns (s_np1, phi, vn0u,
+    vn0v, omg)."""
+    return _ssprk3(
+        caar_t4_cuda,
+        lambda x, slab, fix, r, mix: dss_structured_t_cuda_pre(
+            x, slab, plan, r, mix),
+        scal, meta, s0, qdp, pecnd, (vn0u, vn0v, omg), dvv, plan, rsp, moist)
+
+
+def ssprk3_packed_t4_plain(scal, meta, s0, qdp, pecnd, vn0u, vn0v, omg, dvv,
+                           plan: StructuredDssPlan, rsp: torch.Tensor,
+                           moist: bool = True):
+    """``ssprk3_packed_t4`` from the plain versions on any device; pure.
+    Returns (s_np1, phi, vn0u', vn0v', omg')."""
+    return _ssprk3(caar_t4_plain, _plain_dss_pre, scal, meta, s0, qdp, pecnd,
+                   (vn0u, vn0v, omg), dvv, plan, rsp, moist)
+
+
+def _hypervis(vlap, dss_pre, dvv, meta, uvt, plan, rsp, nu, dt, nlev,
+              nu_ratio, subcycle):
+    """The subcycles of ``apply_hypervis_packed_t`` on the given Laplacian
+    and fixup + sweep. step = dt/subcycle * nu is formed in the field's
+    dtype, as the JAX package forms it; the Laplacians and step stay
+    separate factors, so real scales (nu ~ 1e15) do not overflow."""
+    if uvt.shape[0] not in (3 * nlev, 4 * nlev):
+        raise ValueError(f"hypervis: the field needs {3 * nlev} or "
+                         f"{4 * nlev} rows, got {uvt.shape[0]}")
+    fix = fix_tables(plan, uvt.device)
+    f = np.float32 if uvt.dtype == torch.float32 else np.float64
+    step = f(dt) / f(subcycle) * f(nu)
+
+    def lap_dss(x, mix=None):
+        lap, slab = vlap(meta, x, dvv, nlev, nu_ratio, fix=fix)
+        return dss_pre(lap, slab, fix, rsp, mix)
+
+    x = uvt
+    for _ in range(subcycle):
+        x = lap_dss(lap_dss(x), mix=(x, f(1.0), -step))
+    return x
+
+
+def apply_hypervis_packed_t(dvv, meta, uvt, plan: StructuredDssPlan,
+                            rsp: torch.Tensor, nu, dt, nlev: int,
+                            nu_ratio=1.0, subcycle: int = 1):
+    """Biharmonic hyperviscosity on the (u, v, T) rows of ``uvt``
+    (counterpart of ``apply_hypervis_packed_t`` of the JAX package): per
+    subcycle two (weak-Laplacian kernel -> fixup -> sweep) passes, then
+    X -= (dt/subcycle)*nu*grad^4(X) as the second sweep's affine output.
+    ``uvt`` is the [3*nlev, E16] (u, v, T) stack, left as it is and a new
+    stack returned, or the FULL [4*nlev, E16] prognostic buffer, updated IN
+    PLACE and returned, its dp rows untouched (no slice or concat pass).
+    ``nu``, ``dt`` and ``nu_ratio`` are numbers."""
+    return _hypervis(
+        vlap_cuda,
+        lambda x, slab, fix, r, mix: dss_structured_t_cuda_pre(
+            x, slab, plan, r, mix),
+        dvv, meta, uvt, plan, rsp, nu, dt, nlev, nu_ratio, subcycle)
+
+
+def apply_hypervis_packed_t_plain(dvv, meta, uvt, plan: StructuredDssPlan,
+                                  rsp: torch.Tensor, nu, dt, nlev: int,
+                                  nu_ratio=1.0, subcycle: int = 1):
+    """``apply_hypervis_packed_t`` from the plain versions on any device;
+    pure: a [4*nlev] buffer comes back as a new tensor too."""
+    return _hypervis(vlap_plain, _plain_dss_pre, dvv, meta, uvt, plan, rsp,
+                     nu, dt, nlev, nu_ratio, subcycle)
+
+
+def _rsp_row(geom: Geometry, dtype) -> torch.Tensor:
+    # packed lane order is e*16 + i*4 + j == rspheremp[e, i, j] flattened
+    return geom.rspheremp.to(dtype).reshape(1, -1).contiguous()
+
+
+def ssprk3_t(state: State, derived: Derived, geom: Geometry,
+             hv: HybridVCoord, plan: StructuredDssPlan, cfg: Config, dt,
+             moist: bool = True, device="cuda"):
+    """Full-state SSPRK3 step with the contract of ``timeloop.rk.
+    ssprk3_step`` on the packed layout: pack, ``ssprk3_packed_t4``, unpack
+    into time level np1. The n0 level must be continuous. rspheremp is the
+    geometry's, one row. Returns (new_state, new_derived) on ``device``."""
+    if cfg.rsplit <= 0:
+        raise NotImplementedError("ssprk3_t ports the rsplit>0 path only")
+    dev, (state, derived, geom, hv) = _on(device, state, derived, geom, hv)
+    dtype = state.u.dtype
+    p = pack_problem_t(state, derived, geom, hv, cfg, dtype)
+    s0 = torch.cat([p["u0"], p["v0"], p["t0"], p["dp0"]])
+    s1, phi, vn0u, vn0v, omg = ssprk3_packed_t4(
+        _scalars(dt, 1.0, hv, dtype, dev), p["meta"], s0, p["qdp"],
+        p["pecnd"], p["vn0u"], p["vn0v"], p["omg"], p["dvv"], plan,
+        _rsp_row(geom, dtype), moist=moist)
+    nelem, np1, k = cfg.nelem, cfg.np1, cfg.nlev
+
+    def put(x, i):
+        out = x.clone()
+        out[np1] = unpack_field_t(s1[i * k:(i + 1) * k], nelem)
+        return out
+
+    new_state = dataclasses.replace(
+        state, u=put(state.u, 0), v=put(state.v, 1), t=put(state.t, 2),
+        dp3d=put(state.dp3d, 3))
+    new_derived = dataclasses.replace(
+        derived, vn0_u=unpack_field_t(vn0u, nelem),
+        vn0_v=unpack_field_t(vn0v, nelem), phi=unpack_field_t(phi, nelem),
+        omega_p=unpack_field_t(omg, nelem))
+    return new_state, new_derived
+
+
+def apply_hypervis_t(state: State, geom: Geometry, plan: StructuredDssPlan,
+                     cfg: Config, nu, nu_div_ratio=1.0, dt=None,
+                     subcycle: int = 1, device="cuda"):
+    """Full-state hyperviscosity with the contract of ``timeloop.
+    hyperviscosity.apply_hyperviscosity`` on the packed layout: pack u, v, T
+    of time level np1, ``apply_hypervis_packed_t``, unpack. Returns the new
+    state on ``device``."""
+    dev, (state, geom) = _on(device, state, geom)
+    dtype = state.u.dtype
+    np1, k, nelem = cfg.np1, cfg.nlev, cfg.nelem
+    uvt = torch.cat([pack_field_t(x[np1].to(dtype))
+                     for x in (state.u, state.v, state.t)])
+    out = apply_hypervis_packed_t(
+        geom.dvv.to(dtype).contiguous(), pack_meta_t(geom, state.phis, dtype),
+        uvt, plan, _rsp_row(geom, dtype), nu, cfg.dt if dt is None else dt,
+        k, nu_ratio=nu_div_ratio, subcycle=subcycle)
+
+    def put(x, i):
+        new = x.clone()
+        new[np1] = unpack_field_t(out[i * k:(i + 1) * k], nelem)
+        return new
+
+    return dataclasses.replace(state, u=put(state.u, 0), v=put(state.v, 1),
+                               t=put(state.t, 2))

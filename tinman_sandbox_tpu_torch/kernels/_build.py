@@ -24,7 +24,8 @@ __all__ = ["BUILD_DIR", "SOURCES", "build_kernels", "library", "ptxas_log"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-SOURCES = {"caar": "caar.cu", "dss": "dss.cu", "saxpby": "saxpby.cu"}
+SOURCES = {"caar": "caar.cu", "dss": "dss.cu", "hypervis": "hypervis.cu",
+           "saxpby": "saxpby.cu"}
 _FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -95,10 +96,16 @@ _SIGNATURES = {
         "caar_error_string": [_I],
     },
     "dss": {
-        "dss_sweep_launch": [_P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _I],
+        "dss_sweep_launch": [_P, _P, _I, _P, _I, _P, _P, _F, _F, _P, _I, _I,
+                             _I, _P, _I],
         "dss_fixup_launch": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _I],
         "dss_extract_launch": [_P, _P, _P, _I, _I, _I, _P, _I],
         "dss_error_string": [_I],
+    },
+    "hypervis": {
+        "hypervis_vlap_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                                 _P, _I],
+        "hypervis_error_string": [_I],
     },
     "saxpby": {
         "saxpby_f32_launch": [_F, _F, _P, _P, ctypes.c_longlong, _P, _I],

@@ -3,8 +3,9 @@
 
 The kernel is ``csrc/caar.cu``. It replaces the Pallas kernels
 ``caar_pallas_packed_t4_lg`` (caar_pallas_t.py:542, the bench headline),
-``caar_pallas_packed_t`` (:349) and ``caar_pallas_packed_t4`` (:405), which
-all run ``_caar_physics`` (:59-133) plus the accumulator update (:525-527).
+``caar_pallas_packed_t`` (:349), ``caar_pallas_packed_t4`` (:405) and the
+Runge-Kutta stage kernel ``caar_pallas_packed_t4_rk`` (:740), which all run
+``_caar_physics`` (:59-133) plus the accumulator update (:525-527).
 It is bound by device-memory traffic; the source's note gives its design.
 Where the TPU kernel took 128x128 block-diagonal derivative operators and
 triangular scan matrices to feed its matrix unit, this one takes the 4x4
@@ -24,6 +25,13 @@ triangular scan matrices to feed its matrix unit, this one takes the 4x4
     transposed: the slab [nfix, 4*nlev] with ``slab[r] = s1[:, lanes[r]]``
     (rows 1 and 4 of the kernel table in their slab modes; the TPU kernels
     laid it out by 128-lane tiles, here it is one row per fix lane).
+  * With ``single=True`` the stacked entry and ``caar_t4_plain`` run the
+    Runge-Kutta stage (rows 1 in its ``single`` mode and 5 of the kernel
+    table): the base state of the update is the evaluation state s0,
+    ``sm1`` is ignored (pass None) and the kernel never fetches it; with
+    ``emit_phi=False`` (accepted with ``single`` only) phi is neither
+    stored nor returned (None in its place). Such launches are also counted in
+    ``caar_t4_cuda.single_launches``.
   * ``caar_t`` is the full-state wrapper (``caar_pallas_t``) and
     ``run_leapfrog_t`` the production leapfrog loop
     (``run_leapfrog_pallas_t``): pack once, rotate packed buffers, unpack
@@ -129,16 +137,23 @@ def _slab_plain(s1: torch.Tensor, fix) -> torch.Tensor:
 
 
 def caar_t4_plain(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv,
-                  moist: bool = True, fix=None):
+                  moist: bool = True, fix=None, single: bool = False,
+                  emit_phi: bool = True):
     """Plain PyTorch CAAR step on stacked [4*nlev, E16] states. Pure:
     returns new (s1, phi, vn0u', vn0v', omg') and modifies nothing; with
-    ``fix`` also the fix-lane slab of s1."""
+    ``fix`` also the fix-lane slab of s1. ``single`` takes s0 as the base
+    state too (``sm1`` ignored); without ``emit_phi`` (a stage only) phi is
+    None."""
     k = qdp.shape[0]
+    if not single and not emit_phi:
+        raise ValueError("caar: emit_phi=False needs single=True")
+    base = s0 if single else sm1
     u1, v1, t1, dp1, phi, vdp1, vdp2, omega_p = _physics_plain(
-        scal, meta, dvv, *s0.split(k), *sm1.split(k), qdp, pecnd, moist)
+        scal, meta, dvv, *s0.split(k), *base.split(k), qdp, pecnd, moist)
     eta = scal[0, 1]
     s1 = torch.cat([u1, v1, t1, dp1])
-    out = (s1, phi, vn0u + eta * vdp1, vn0v + eta * vdp2, omg + eta * omega_p)
+    out = (s1, phi if emit_phi else None, vn0u + eta * vdp1,
+           vn0v + eta * vdp2, omg + eta * omega_p)
     return out if fix is None else (*out, _slab_plain(s1, fix))
 
 
@@ -191,15 +206,21 @@ def _caar_step(scal, meta, dvv, s0, sm1, qdp, pecnd, acc, out, phi, moist,
                fix=None, slab=None):
     """One step on [nlev, E16] views: s0/sm1/out are 4-tuples (u, v, t, dp),
     acc the 3 accumulators (updated in place), phi the output buffer; with
-    ``fix``, ``slab`` [nfix, 4*nlev] receives the fix-lane rows of out."""
+    ``fix``, ``slab`` [nfix, 4*nlev] receives the fix-lane rows of out.
+    ``sm1=None`` is the Runge-Kutta stage (base state = s0, not fetched
+    again); ``phi=None`` stores no geopotential."""
     nlev = qdp.shape[0]
+    single = sm1 is None
     dev = _check(scal, meta, dvv,
-                 (*s0, *sm1, qdp, pecnd, *acc, *out, phi), nlev)
+                 (*s0, *(() if single else sm1), qdp, pecnd, *acc, *out,
+                  *(() if phi is None else (phi,))), nlev)
     if dev.type == "cpu":
         u1, v1, t1, dp1, ph, vdp1, vdp2, omega_p = _physics_plain(
-            scal, meta, dvv, *s0, *sm1, qdp, pecnd, moist)
-        for o, r in zip((*out, phi), (u1, v1, t1, dp1, ph)):
+            scal, meta, dvv, *s0, *(s0 if single else sm1), qdp, pecnd, moist)
+        for o, r in zip(out, (u1, v1, t1, dp1)):
             o.copy_(r)
+        if phi is not None:
+            phi.copy_(ph)
         eta = scal[0, 1]
         for a, r in zip(acc, (vdp1, vdp2, omega_p)):
             a.add_(eta * r)
@@ -209,7 +230,8 @@ def _caar_step(scal, meta, dvv, s0, sm1, qdp, pecnd, acc, out, phi, moist,
     ptr = lambda x: 0 if x is None else x.data_ptr()
     c = CONSTANTS
     err = _build.library("caar").caar_launch(
-        ptr(scal), ptr(meta), ptr(dvv), *map(ptr, s0), *map(ptr, sm1),
+        ptr(scal), ptr(meta), ptr(dvv), *map(ptr, s0),
+        *map(ptr, (None,) * 4 if single else sm1),
         ptr(qdp), ptr(pecnd), *map(ptr, acc), *map(ptr, out), ptr(phi),
         ptr(None if fix is None else fix.fix_rank), ptr(slab),
         nlev, qdp.shape[1], qdp.stride(0), int(bool(moist)), 4 * nlev,
@@ -219,32 +241,47 @@ def _caar_step(scal, meta, dvv, s0, sm1, qdp, pecnd, acc, out, phi, moist,
     caar_t4_cuda.launches += 1
     if slab is not None:
         caar_t4_cuda.slab_launches += 1
+    if single:
+        caar_t4_cuda.single_launches += 1
 
 
 def caar_t4_cuda(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv,
-                 moist: bool = True, fix=None):
+                 moist: bool = True, fix=None, single: bool = False,
+                 emit_phi: bool = True):
     """Stacked-state CAAR step (counterpart of ``caar_pallas_packed_t4_lg``,
     ``caar_pallas_packed_t4`` and, with ``fix``, their slab-emitting forms
-    ``caar_pallas_packed_t4_lg(sf=, cq=)`` and ``caar_pallas_packed_t4_ext``).
+    ``caar_pallas_packed_t4_lg(sf=, cq=)`` and ``caar_pallas_packed_t4_ext``;
+    with ``single=True`` of ``caar_pallas_packed_t4_rk`` and
+    ``caar_pallas_packed_t4_lg(single=True)``).
     scal [1,4] = (dt2, eta_ave_w, hyai0*ps0, 0); meta [16, E16]; s0, sm1
     [4*nlev, E16] (u/v/t/dp row blocks); qdp, pecnd, vn0u, vn0v, omg
-    [nlev, E16]; dvv [4, 4]. The accumulators are updated IN PLACE. Returns
-    (s1, phi, vn0u, vn0v, omg), and the fix-lane slab last with ``fix``."""
+    [nlev, E16]; dvv [4, 4]. The accumulators are updated IN PLACE.
+    ``single`` is the Runge-Kutta stage: s1 = spheremp*(s0 + dt2*tendency),
+    ``sm1`` is ignored (pass None) and never fetched. Without ``emit_phi``
+    (a stage only: the pair form always stores phi) the geopotential is not
+    stored and None stands in its place. Returns (s1, phi, vn0u, vn0v,
+    omg), and the fix-lane slab last with ``fix``."""
     k = qdp.shape[0]
-    if s0.shape[0] != 4 * k or sm1.shape[0] != 4 * k:
-        raise ValueError(f"caar: s0/sm1 need {4 * k} rows, got "
-                         f"{s0.shape[0]}/{sm1.shape[0]}")
+    if not single and sm1 is None:
+        raise ValueError("caar: sm1 is required unless single=True")
+    if not single and not emit_phi:
+        raise ValueError("caar: emit_phi=False needs single=True")
+    if s0.shape[0] != 4 * k or (not single and sm1.shape[0] != 4 * k):
+        raise ValueError(f"caar: s0/sm1 need {4 * k} rows, got {s0.shape[0]}"
+                         + ("" if single else f"/{sm1.shape[0]}"))
     s1 = torch.empty_like(s0)
-    phi = torch.empty_like(qdp)
+    phi = torch.empty_like(qdp) if emit_phi else None
     slab = _new_slab(fix, qdp, k)
-    _caar_step(scal, meta, dvv, s0.split(k), sm1.split(k), qdp, pecnd,
-               (vn0u, vn0v, omg), s1.split(k), phi, moist, fix, slab)
+    _caar_step(scal, meta, dvv, s0.split(k), None if single else sm1.split(k),
+               qdp, pecnd, (vn0u, vn0v, omg), s1.split(k), phi, moist, fix,
+               slab)
     out = (s1, phi, vn0u, vn0v, omg)
     return out if fix is None else (*out, slab)
 
 
 caar_t4_cuda.launches = 0
 caar_t4_cuda.slab_launches = 0     # the launches among them with a slab
+caar_t4_cuda.single_launches = 0   # the launches among them in stage mode
 
 
 def caar_packed_t(scal, meta, u0, v0, t0, dp0, um1, vm1, tm1, dpm1,

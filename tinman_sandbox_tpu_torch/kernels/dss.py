@@ -12,7 +12,11 @@ The kernels are ``csrc/dss.cu`` (its note gives the algebra and the design):
     the XLA line math ``_fixup_from_rows`` and ``vals_to_vd_pallas``);
   * ``dss_sweep_cuda``: the alpha and beta in-face sweeps and the scale,
     with the fix lanes taking their value from ``vd`` (replaces
-    ``dss_sweeps_pallas_t`` / ``dss_sweeps_pallas_ct``).
+    ``dss_sweeps_pallas_t`` / ``dss_sweeps_pallas_ct``), and their affine
+    epilogue: with ``mix=(mx, ca, cb)`` the output is ``ca*mx + cb*w`` for
+    the assembled w, two products and then their sum. ``mx`` may have more
+    rows than x: the result is then written IN PLACE into ``mx``'s first
+    rows, the rest ride through untouched, and ``mx`` is returned.
 
 Each has a plain PyTorch version (``dss_extract_plain`` etc.) that computes
 the same f32 adds and products in the same order, so kernel and plain
@@ -175,10 +179,22 @@ def _sweep_masks(ne: int, e16: int, device):
             (j == NP - 1) & (ej < ne - 1), (j == 0) & (ej > 0))
 
 
+def _check_mix(name, x, mix):
+    """Validate ``mix=(mx, ca, cb)`` against x; returns (mx, ca, cb) with
+    the coefficients as Python floats (a float32 value converts exactly)."""
+    mx, ca, cb = mix
+    if mx.ndim != 2 or mx.shape[1] != x.shape[1] or mx.shape[0] < x.shape[0]:
+        raise ValueError(f"{name}: mix field must be [>= {x.shape[0]}, "
+                         f"{x.shape[1]}], got {tuple(mx.shape)}")
+    return mx, float(ca), float(cb)
+
+
 def dss_sweep_plain(x: torch.Tensor, rsp: torch.Tensor, vd: torch.Tensor,
-                    tables: FixTables) -> torch.Tensor:
+                    tables: FixTables, mix=None) -> torch.Tensor:
     """rspheremp * (alpha then beta in-face sweep of x), the fix lanes
-    taking vd[:, fix_col]. x [k, E16]; rsp [1 or 2, E16]; vd [k, nfix]."""
+    taking vd[:, fix_col]. x [k, E16]; rsp [1 or 2, E16]; vd [k, nfix].
+    With ``mix=(mx, ca, cb)`` returns ca*mx + cb*that; rows of a taller mx
+    beyond x's come back unchanged. Pure: always a new tensor."""
     ne = tables.ne
     a_hi, a_lo, b_hi, b_lo = _sweep_masks(ne, x.shape[1], x.device)
     db = NPSQ * ne - (NP - 1)
@@ -188,7 +204,12 @@ def dss_sweep_plain(x: torch.Tensor, rsp: torch.Tensor, vd: torch.Tensor,
     z = y + part(b_hi, y, -db) + part(b_lo, y, db)
     w = _scale(z, rsp[:, None, :])
     col = tables.fix_col.long()
-    return torch.where(col >= 0, vd[:, col.clamp(min=0)], w)
+    w = torch.where(col >= 0, vd[:, col.clamp(min=0)], w)
+    if mix is None:
+        return w
+    mx, ca, cb = _check_mix("dss_sweep", x, mix)
+    k = x.shape[0]
+    return torch.cat([ca * mx[:k] + cb * w, mx[k:]])
 
 
 # -- kernels -----------------------------------------------------------------
@@ -276,27 +297,45 @@ def dss_fixup_cuda(slab: torch.Tensor, tables: FixTables,
 dss_fixup_cuda.launches = 0
 
 
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two contiguous tensors share any byte."""
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return a0 < b0 + b.numel() * b.element_size() and \
+        b0 < a0 + a.numel() * a.element_size()
+
+
 def dss_sweep_cuda(x: torch.Tensor, rsp: torch.Tensor, vd: torch.Tensor,
-                   tables: FixTables) -> torch.Tensor:
+                   tables: FixTables, mix=None) -> torch.Tensor:
     """The assembled field [k, E16] from x, rsp and the vals buffer vd
-    [k, nfix] (kernel ``dss_sweep``). Writes a new tensor: the fix values
-    come from the pre-sweep x, so the output never aliases x."""
+    [k, nfix] (kernel ``dss_sweep``). The partner reads need the pre-sweep
+    x, so the output never aliases x: it is a new tensor, also with
+    ``mix=(mx, ca, cb)`` (ca*mx + cb*assembled) when mx has x's height. A
+    TALLER mx (the [4*nlev] state around a [3*nlev] x) is updated IN PLACE
+    in its first k rows and returned; it must not overlap x."""
     k, e16, n = x.shape[0], tables.e16, tables.nfix
     _check_rsp("dss_sweep", rsp, e16)
-    dev = _check("dss_sweep", {"x": (x, (k, e16)),
-                               "rsp": (rsp, tuple(rsp.shape)),
-                               "vd": (vd, (k, n)),
-                               "fix_col": (tables.fix_col, (e16,))},
-                 dtype=x.dtype)
+    ops = {"x": (x, (k, e16)), "rsp": (rsp, tuple(rsp.shape)),
+           "vd": (vd, (k, n)), "fix_col": (tables.fix_col, (e16,))}
+    mx, ca, cb = (None, 0.0, 0.0) if mix is None else \
+        _check_mix("dss_sweep", x, mix)
+    if mx is not None:
+        ops["mix field"] = (mx, tuple(mx.shape))
+    dev = _check("dss_sweep", ops, dtype=x.dtype)
+    in_place = mx is not None and mx.shape[0] > k
+    if in_place and _overlap(mx, x):
+        raise ValueError("dss_sweep: the in-place mix field overlaps x")
     if dev.type == "cpu":
-        return dss_sweep_plain(x, rsp, vd, tables)
+        if not in_place:
+            return dss_sweep_plain(x, rsp, vd, tables, mix)
+        mx[:k] = dss_sweep_plain(x, rsp, vd, tables, (mx[:k], ca, cb))
+        return mx
     if k > _MAX_ROWS:
         raise ValueError(f"dss_sweep: {k} rows exceed the grid's {_MAX_ROWS}")
-    out = torch.empty_like(x)
+    out = mx if in_place else torch.empty_like(x)
     err = _build.library("dss").dss_sweep_launch(
         x.data_ptr(), rsp.data_ptr(), rsp.shape[0], vd.data_ptr(), n,
-        tables.fix_col.data_ptr(), out.data_ptr(), k, e16, tables.ne,
-        _stream(dev), dev.index)
+        tables.fix_col.data_ptr(), 0 if mx is None else mx.data_ptr(), ca,
+        cb, out.data_ptr(), k, e16, tables.ne, _stream(dev), dev.index)
     _build.check_launch("dss", err)
     dss_sweep_cuda.launches += 1
     return out
@@ -305,19 +344,21 @@ def dss_sweep_cuda(x: torch.Tensor, rsp: torch.Tensor, vd: torch.Tensor,
 dss_sweep_cuda.launches = 0
 
 
-def dss_structured_t_cuda(x: torch.Tensor, plan, rsp: torch.Tensor):
+def dss_structured_t_cuda(x: torch.Tensor, plan, rsp: torch.Tensor,
+                          mix=None):
     """rspheremp * DSS(x) for a transposed [k, E16] field: extract, fixup,
     sweep (counterpart of ``dss_structured_t_pallas``). rsp is [1, E16] or
-    the two-float [2, E16]."""
+    the two-float [2, E16]; ``mix`` as in ``dss_sweep_cuda``."""
     tables = fix_tables(plan, x.device)
     return dss_structured_t_cuda_pre(x, dss_extract_cuda(x, tables), plan,
-                                     rsp)
+                                     rsp, mix)
 
 
 def dss_structured_t_cuda_pre(x: torch.Tensor, slab: torch.Tensor, plan,
-                              rsp: torch.Tensor):
+                              rsp: torch.Tensor, mix=None):
     """``dss_structured_t_cuda`` with the fix-lane slab of x already in hand
-    (the CAAR kernel's slab output; counterpart of
-    ``dss_structured_t_pallas_pre`` / ``_cpre``)."""
+    (the slab output of the CAAR or the weak-Laplacian kernel; counterpart
+    of ``dss_structured_t_pallas_pre`` / ``_cpre``)."""
     tables = fix_tables(plan, x.device)
-    return dss_sweep_cuda(x, rsp, dss_fixup_cuda(slab, tables, rsp), tables)
+    return dss_sweep_cuda(x, rsp, dss_fixup_cuda(slab, tables, rsp), tables,
+                          mix)

@@ -1,14 +1,42 @@
 """Batched operators (counterpart of ``tinman_sandbox_tpu/ops``)."""
 from .scans import midpoint_pressure, preq_hydrostatic, preq_omega_ps
-from .sphere import divergence_sphere, gradient_sphere, vorticity_sphere
+from .sphere import (
+    curl_sphere_wk_testcov,
+    divergence_sphere,
+    divergence_sphere_update,
+    divergence_sphere_wk,
+    grad_sphere_wk_testcov,
+    gradient_sphere,
+    gradient_sphere_update,
+    laplace_simple,
+    laplace_tensor,
+    laplace_tensor_replace,
+    vlaplace_sphere_wk_cartesian,
+    vlaplace_sphere_wk_cartesian_reduced,
+    vlaplace_sphere_wk_contra,
+    vorticity_sphere,
+    vorticity_sphere_vector,
+)
 from .thermo import virtual_temperature
 
 __all__ = [
+    "curl_sphere_wk_testcov",
     "divergence_sphere",
+    "divergence_sphere_update",
+    "divergence_sphere_wk",
+    "grad_sphere_wk_testcov",
     "gradient_sphere",
+    "gradient_sphere_update",
+    "laplace_simple",
+    "laplace_tensor",
+    "laplace_tensor_replace",
     "midpoint_pressure",
     "preq_hydrostatic",
     "preq_omega_ps",
     "virtual_temperature",
+    "vlaplace_sphere_wk_cartesian",
+    "vlaplace_sphere_wk_cartesian_reduced",
+    "vlaplace_sphere_wk_contra",
     "vorticity_sphere",
+    "vorticity_sphere_vector",
 ]

@@ -1,5 +1,5 @@
-"""Time-integration drivers (counterpart of ``tinman_sandbox_tpu/timeloop``;
-only the leapfrog driver is ported so far)."""
+"""Time integration (counterpart of ``tinman_sandbox_tpu/timeloop``): the
+leapfrog loop, the SSPRK3 step and biharmonic hyperviscosity."""
 from .driver import (
     benchmark_loop,
     check_dp3d,
@@ -7,6 +7,9 @@ from .driver import (
     rotated,
     run_leapfrog,
 )
+from .hyperviscosity import apply_hyperviscosity, biharmonic_wk
+from .rk import ssprk3_step
 
-__all__ = ["benchmark_loop", "check_dp3d", "leapfrog_step", "rotated",
-           "run_leapfrog"]
+__all__ = ["apply_hyperviscosity", "benchmark_loop", "biharmonic_wk",
+           "check_dp3d", "leapfrog_step", "rotated", "run_leapfrog",
+           "ssprk3_step"]
