@@ -51,7 +51,27 @@ NVIDIA card and check it, phase by phase:
      --init random`` (no warning, continuity exactly 0) and ``bench --ne 30
      --rk --hypervis-nu 1e15``; per step 3 CAAR launches in stage mode, 2
      Laplacians, 5 fixups and 5 sweeps;
- 11. one JSON line of kernels (launches on the main paths, errors, times,
+ 11. the tracer kernels at ne30 x 72, at qsize 1 and 35 (the stack
+     [2520, 86400]), winds read out of the [4*nlev] state, with the slab:
+     ``tracer_euler_cuda`` against ``tracer_euler_plain`` within 5e-5 per
+     tracer block, at the run's dt and at a dt long enough for the
+     divergence to carry the output, the slab bit for bit the output at the
+     fix lanes; ``tracer_limit_cuda`` against ``tracer_limit_plain`` within
+     5e-5 per tracer block without and with the Shu-Osher combination, on a
+     uniform field and on a field with a tenth of its nodes pushed outside
+     the bounds, with each element's mass kept to 4e-6 and the result inside
+     the bounds wherever they are feasible; each timed against its bound;
+ 12. the full model step at ne30 x 72, qsize 1, its launch counts set to 0
+     just before it and read just after: 10 chained ``prim_step_packed_t4``
+     steps (dynamics, hyperviscosity, tracers) on the kernels against the
+     same chain on the plain versions (1e-5 scaled per field and for the
+     tracers, continuity exactly 0 after each step for the state and the
+     tracers), without and with the limiter; the CLI ``--ne 30 --prim
+     --hypervis-nu 1e15 --init random``; ``bench --ne 30 --prim
+     --hypervis-nu 1e15``, again with ``--limit`` and again with ``--qsize
+     35``; per step 3 CAAR launches, 2 Laplacians, 3 tracer launches, 8
+     fixups and 8 sweeps;
+ 13. one JSON line of kernels (launches on the main paths, errors, times,
      bounds), the card line, and last the result line.
 
 Any failure raises and exits non-zero before the result line is printed.
@@ -75,7 +95,15 @@ CAAR_OPS_PER_POINT = 190
 # FP32 operations per grid point of the weak Laplacians, counted from
 # csrc/hypervis.cu (9 contractions of 7, the metric products, the rigid term)
 VLAP_OPS_PER_POINT = 140
+# FP32 operations per grid point and tracer of the two tracer kernels,
+# counted from csrc/tracer.cu: the flux products and two contractions of 7,
+# and for the limited stage 8 half-warp reductions of 4 and two passes
+TRACER_OPS_PER_POINT = 36
+LIMIT_OPS_PER_POINT = 110
 CAAR_TOL = 5e-5                # the repo's on-chip equivalence gate
+CONSERVE_TOL = 4e-6            # limiter: an element's mass, of its sum|w*y|
+BOUNDS_TOL = 1e-6              # limiter: outside the bounds, of max|q|
+QSIZE_TALL = 35                # E3SM's tracer count: the [2520, E16] stack
 LEAPFROG_TOL = 1e-4
 # 10 dynamics steps, kernels against plain: the chain moves the state by a
 # few 1e-4 of its size, so the looser leapfrog limit would pass a chain that
@@ -803,6 +831,329 @@ def phase_dynamics_path(dev, cs):
     return res
 
 
+def limiter_properties(out, y_in, q, w):
+    """What the limited stage must keep, in f64 on the card: the largest
+    change of an element's mass sum(w*y) relative to its sum|w*y|, and the
+    largest excursion outside the bounds (the extrema of q over the
+    element) among the elements whose bounds can hold their mass. Returns
+    (conservation error, bounds violation, number of feasible elements)."""
+    grp = lambda x: x.reshape(x.shape[0], -1, 16)
+    wd = w.double()
+    y = out.double() / wd
+    m_in = grp(wd * y_in.double()).sum(2)
+    cons = float(((grp(wd * y).sum(2) - m_in).abs()
+                  / grp((wd * y_in.double()).abs()).sum(2)).max())
+    qmin, qmax = grp(q).amin(2).double(), grp(q).amax(2).double()
+    wsum = grp(wd[None]).sum(2)
+    feasible = (m_in >= wsum * qmin) & (m_in <= wsum * qmax)
+    viol = ((grp(y) - qmax[..., None]).clamp(min=0)
+            + (qmin[..., None] - grp(y)).clamp(min=0)).amax(2)
+    nfeas = int(feasible.sum())
+    return cons, float(viol[feasible].max()) if nfeas else 0.0, nfeas
+
+
+def phase_tracer_kernels(dev, cs):
+    """The two tracer kernels at ne30 x 72, qsize 1 and QSIZE_TALL. Returns
+    their two rows."""
+    import numpy as np
+    import torch
+
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.kernels.dss import (
+        dss_fixup_cuda, dss_sweep_cuda, fix_tables)
+    from tinman_sandbox_tpu_torch.kernels.tracer_t import (
+        tracer_euler_cuda, tracer_euler_plain, tracer_limit_cuda,
+        tracer_limit_plain)
+
+    (scal, meta, pecnd, dvv), s0, _, _, plan, rsp = bench.make_prim_problem(
+        cs.ne, NLEV, dev, DYN_DT, 1)
+    fix = fix_tables(plan, dev)
+    lanes = fix.read_lanes.long()
+    e16, n, k = cs.nelem * 16, fix.nfix, NLEV
+    w = meta[11]                                    # spheremp
+    kw = dict(wind_rows=(0, 1), fix=fix)
+    ca, cb = np.float32(1.0 / 3.0), np.float32(2.0 / 3.0)
+    rows = {}
+
+    def block_errs(got, want):
+        return max(scaled_err(a, b) for a, b in zip(got.split(k),
+                                                    want.split(k)))
+
+    for qsize in (1, QSIZE_TALL):
+        tag = f"ne{cs.ne}x{k} qsize {qsize}"
+        q = bench.make_prim_problem(cs.ne, k, dev, DYN_DT, qsize)[2]
+        gen = torch.Generator(device=dev).manual_seed(5)
+        mx = torch.rand(q.shape, generator=gen, device=dev)
+        # a step long enough for dt*div to be ~ half of q: at the run's dt
+        # the divergence sits below f32 resolution of q
+        div = (q - tracer_euler_plain(meta, s0, s0, q, dvv, 1.0, k,
+                                      fold_sph=False, wind_rows=(0, 1)))
+        dt_long = 0.5 * float(q.abs().max()) / float(div.abs().max())
+        del div
+
+        # -- tracer_euler
+        worst_abs = worst = 0.0
+        for dt, fold in ((DYN_DT, True), (dt_long, True), (dt_long, False)):
+            want, _ = tracer_euler_plain(meta, s0, s0, q, dvv, dt, k,
+                                         fold_sph=fold, **kw)
+            got, slab = tracer_euler_cuda(meta, s0, s0, q, dvv, dt, k,
+                                          fold_sph=fold, **kw)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"tracer_euler {tag}: non-finite")
+            err = block_errs(got, want)
+            print(f"phase 11 tracer_euler {tag} dt {dt:.4g} fold_sph "
+                  f"{fold}: worst scaled error of a tracer block {err:.2e}")
+            if err > CAAR_TOL:
+                raise AssertionError(f"tracer_euler {tag}: {err} > {CAAR_TOL}")
+            if tuple(slab.shape) != (n, qsize * k) \
+                    or not torch.equal(slab, got[:, lanes].T):
+                raise AssertionError(f"tracer_euler {tag}: slab is not the "
+                                     "output at the fix lanes")
+            worst = max(worst, err)
+            worst_abs = max(worst_abs, float((got - want).abs().max()))
+            del want, got, slab
+        reps = 50 if qsize == 1 else 10
+        k_ms = cuda_ms(lambda: tracer_euler_cuda(meta, s0, s0, q, dvv, DYN_DT,
+                                                 k, **kw), reps)
+        p_ms = cuda_ms(lambda: tracer_euler_plain(meta, s0, s0, q, dvv,
+                                                  DYN_DT, k, **kw), 3)
+        # 2 wind blocks, q read, out written, 7 meta rows, dvv, fix_rank, slab
+        nb = lambda blocks: (blocks * k + 7) * e16 * 4 + 16 * 4 + e16 * 4 \
+            + n * qsize * k * 4
+        bnd, by = bound_ms(nb(2 + 2 * qsize),
+                           TRACER_OPS_PER_POINT * qsize * k * e16)
+        print(f"phase 11 tracer_euler {tag}: slab bitwise the output at the "
+              f"{n} fix lanes; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"library none, bound {bnd:.4f} ms ({by}, {nb(2 + 2 * qsize)} B)")
+        if qsize == 1:
+            rows["tracer_euler_cuda"] = dict(
+                route="cuda", source="tinman_sandbox_tpu_torch/csrc/tracer.cu",
+                replaces="tinman_sandbox_tpu/kernels/tracer_pallas_t.py:404",
+                max_abs_err=worst_abs, max_scaled_err=worst, ms=k_ms,
+                plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=None)
+        else:
+            rows["tracer_euler_cuda"].update(
+                tall_qsize=qsize, tall_max_scaled_err=worst, tall_ms=k_ms,
+                tall_plain_ms=p_ms, tall_bound_ms=bnd)
+
+        # -- what closes a tracer stage: the fixup and the sweep on qsize*k
+        # rows (held bit for bit in phases 4 and 9), timed at this height
+        e, slab = tracer_euler_cuda(meta, s0, s0, q, dvv, DYN_DT, k, **kw)
+        vd = dss_fixup_cuda(slab, fix, rsp)
+        fx_ms = cuda_ms(lambda: dss_fixup_cuda(slab, fix, rsp), reps)
+        sw_ms = cuda_ms(lambda: dss_sweep_cuda(e, rsp, vd, fix), reps)
+        swm_ms = cuda_ms(lambda: dss_sweep_cuda(e, rsp, vd, fix,
+                                                mix=(q, ca, cb)), reps)
+        nr, qk = rsp.shape[0], qsize * k
+        sweep_bytes = lambda blocks: blocks * qk * e16 * 4 + nr * e16 * 4 \
+            + qk * n * 4 + e16 * 4
+        b_sw, _ = bound_ms(sweep_bytes(2), 6 * qk * e16)
+        b_swm, _ = bound_ms(sweep_bytes(3), 9 * qk * e16)
+        b_fx, _ = bound_ms(2 * n * qk * 4 + n * 20 + nr * n * 4, 6 * n * qk)
+        print(f"phase 11 stage closure {tag} [{qk}, {e16}]: fixup "
+              f"{fx_ms:.4f} ms (bound {b_fx:.4f} ms), sweep {sw_ms:.4f} ms "
+              f"(bound {b_sw:.4f} ms), sweep with mix {swm_ms:.4f} ms "
+              f"(bound {b_swm:.4f} ms)")
+        sfx = f"rows{qk}"
+        rows.setdefault("dss_sweep_cuda", {}).update({
+            f"{sfx}_ms": sw_ms, f"{sfx}_bound_ms": b_sw,
+            f"{sfx}_mix_ms": swm_ms, f"{sfx}_mix_bound_ms": b_swm})
+        rows.setdefault("dss_fixup_cuda", {}).update({
+            f"{sfx}_ms": fx_ms, f"{sfx}_bound_ms": b_fx})
+        del e, slab, vd
+
+        # -- tracer_limit: (case, q, mix, dt); y_in is the value handed to
+        # the limiter, from the unlimited kernel
+        rng = torch.Generator(device=dev).manual_seed(6)
+        bump = (torch.rand(q.shape, generator=rng, device=dev) < 0.1).float() \
+            * (torch.rand(q.shape, generator=rng, device=dev) < 0.5).float() \
+            .mul_(2).sub_(1)
+        cases = [("free", q, None, dt_long),
+                 ("mix", q, (mx, ca, cb), DYN_DT),
+                 ("mix long", q, (mx, ca, cb), dt_long),
+                 ("uniform", torch.full_like(q, 0.5), None, dt_long),
+                 ("pushed", q, (q + bump, 1.0, 0.0), 0.0)]
+        del bump
+        worst_abs = worst = worst_cons = worst_viol = 0.0
+        for case, qc, mix, dt in cases:
+            want, _ = tracer_limit_plain(meta, s0, s0, qc, dvv, dt, k,
+                                         mix=mix, **kw)
+            got, slab = tracer_limit_cuda(meta, s0, s0, qc, dvv, dt, k,
+                                          mix=mix, **kw)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"tracer_limit {tag} {case}: non-finite")
+            err = block_errs(got, want)
+            if not torch.equal(slab, got[:, lanes].T):
+                raise AssertionError(f"tracer_limit {tag} {case}: slab is "
+                                     "not the output at the fix lanes")
+            worst_abs = max(worst_abs, float((got - want).abs().max()))
+            del want, slab
+            y_in = tracer_euler_cuda(meta, s0, s0, qc, dvv, dt, k,
+                                     fold_sph=False, wind_rows=(0, 1))
+            if mix is not None:
+                y_in = float(mix[1]) * mix[0] + float(mix[2]) * y_in
+            cons, viol, nfeas = limiter_properties(got, y_in, qc, w)
+            clipped = float((got / w - y_in).abs().max())
+            del got, y_in
+            print(f"phase 11 tracer_limit {tag} {case} dt {dt:.4g}: worst "
+                  f"scaled error of a tracer block {err:.2e}; mass of an "
+                  f"element kept to {cons:.2e}; outside the bounds "
+                  f"{viol:.2e} over {nfeas} feasible elements; the limiter "
+                  f"moved a node by up to {clipped:.2e}")
+            if err > CAAR_TOL:
+                raise AssertionError(f"tracer_limit {tag} {case}: {err} > "
+                                     f"{CAAR_TOL}")
+            if cons > CONSERVE_TOL:
+                raise AssertionError(f"tracer_limit {tag} {case}: mass "
+                                     f"{cons} > {CONSERVE_TOL}")
+            if viol > BOUNDS_TOL * float(qc.abs().max()):
+                raise AssertionError(f"tracer_limit {tag} {case}: bounds "
+                                     f"{viol}")
+            if case == "pushed" and not clipped > 0.5:
+                raise AssertionError(f"tracer_limit {tag}: the pushed nodes "
+                                     "were not clipped")
+            if case != "uniform" and nfeas == 0:
+                raise AssertionError(f"tracer_limit {tag} {case}: no "
+                                     "feasible element")
+            worst = max(worst, err)
+            worst_cons, worst_viol = max(worst_cons, cons), max(worst_viol,
+                                                                viol)
+        del cases
+        mix = (mx, ca, cb)
+        k_ms = cuda_ms(lambda: tracer_limit_cuda(meta, s0, s0, q, dvv, DYN_DT,
+                                                 k, mix=mix, **kw), reps)
+        k0_ms = cuda_ms(lambda: tracer_limit_cuda(meta, s0, s0, q, dvv,
+                                                  DYN_DT, k, **kw), reps)
+        p_ms = cuda_ms(lambda: tracer_limit_plain(meta, s0, s0, q, dvv,
+                                                  DYN_DT, k, mix=mix, **kw), 3)
+        ops = LIMIT_OPS_PER_POINT * qsize * k * e16
+        bnd, by = bound_ms(nb(2 + 3 * qsize), ops)
+        bnd0, _ = bound_ms(nb(2 + 2 * qsize), ops)
+        print(f"phase 11 tracer_limit {tag}: slab bitwise; kernel "
+              f"{k_ms:.4f} ms with the combination (bound {bnd:.4f} ms, "
+              f"{by}, {nb(2 + 3 * qsize)} B), {k0_ms:.4f} ms without (bound "
+              f"{bnd0:.4f} ms); plain {p_ms:.4f} ms, library none")
+        if qsize == 1:
+            rows["tracer_limit_cuda"] = dict(
+                route="cuda", source="tinman_sandbox_tpu_torch/csrc/tracer.cu",
+                replaces="tinman_sandbox_tpu/kernels/tracer_pallas_t.py:322",
+                max_abs_err=worst_abs, max_scaled_err=worst,
+                max_conservation_err=worst_cons, max_bounds_violation=worst_viol,
+                ms=k_ms, plain_ms=p_ms, bound_ms=bnd, bound_by=by,
+                library_ms=None, nomix_ms=k0_ms, nomix_bound_ms=bnd0)
+        else:
+            rows["tracer_limit_cuda"].update(
+                tall_qsize=qsize, tall_max_scaled_err=worst,
+                tall_max_conservation_err=worst_cons, tall_ms=k_ms,
+                tall_nomix_ms=k0_ms, tall_plain_ms=p_ms, tall_bound_ms=bnd,
+                tall_nomix_bound_ms=bnd0)
+        del q, mx, mix
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_prim_path(dev, cs):
+    """The full model step at ne30 x 72, qsize 1: the chain against its plain
+    twin without and with the limiter, the CLI and the benches. Returns the
+    three bench results (plain, limited, tall)."""
+    import torch
+
+    from tinman_sandbox_tpu_torch import bench, cli
+    from tinman_sandbox_tpu_torch.dist import (
+        continuity_error_t, prim_step_packed_t4_plain)
+
+    const, s0, qdp, acc, plan, rsp = bench.make_prim_problem(
+        cs.ne, NLEV, dev, DYN_DT, 1)
+    if continuity_error_t(qdp, cs.gdof) != 0.0 or float(qdp.min()) < 0.0:
+        raise AssertionError("prim: the projected tracer is not continuous "
+                             "and non-negative")
+    sph = const[1][11].double()
+    mass0 = float((sph * qdp.double()).sum())
+    for limit in (False, True):
+        tag = f"prim chain ne{cs.ne}x{NLEV} x10 limit {limit}"
+        kstate = (s0, qdp, tuple(a.clone() for a in acc))
+        pstate = (s0, qdp, acc)
+        k_s = 0.0
+        for i in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            *kstate, kphi = bench.run_prim(const, *kstate, plan, rsp, 1,
+                                           DYN_NU, DYN_DT, 1, limit)
+            torch.cuda.synchronize()
+            k_s += time.perf_counter() - t0
+            for name, x in (("state", kstate[0]), ("tracer", kstate[1])):
+                cont = continuity_error_t(x, cs.gdof)
+                if cont != 0.0:
+                    raise AssertionError(f"{tag}: {name} continuity {cont} "
+                                         f"after step {i + 1}")
+            *pstate, pphi = bench.run_prim(const, *pstate, plan, rsp, 1,
+                                           DYN_NU, DYN_DT, 1, limit,
+                                           step=prim_step_packed_t4_plain)
+        (ks, kq, kacc), (ps, pq, pacc) = kstate, pstate
+        errs = {name: scaled_err(a, b) for name, a, b in zip(
+            ("u", "v", "t", "dp"), ks.split(NLEV), ps.split(NLEV))}
+        errs["qdp"] = scaled_err(kq, pq)
+        for name, a, b in zip(("phi", "vn0u", "vn0v", "omg"), (kphi, *kacc),
+                              (pphi, *pacc)):
+            errs[name] = scaled_err(a, b)
+        for x in (ks, kq, kphi, *kacc):
+            if not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"{tag}: non-finite output")
+        dp_min, q_min = float(ks[3 * NLEV:].min()), float(kq.min())
+        drift = float((sph * kq.double()).sum()) / mass0 - 1.0
+        print(f"phase 12 {tag} (kernels {k_s:.3f} s): continuity 0 after "
+              f"every step for the state and the tracer; min dp {dp_min:.3f}; "
+              f"min qdp {q_min:.3e}; tracer mass drift {drift:.2e}; tracer "
+              f"moved {scaled_err(kq, qdp):.2e}; scaled errors vs plain "
+              + " ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        if max(errs.values()) > DYN_TOL or not dp_min > 0.0:
+            raise AssertionError(f"{tag}: {errs} > {DYN_TOL} or min dp "
+                                 f"{dp_min}")
+        if limit and q_min < 0.0:
+            raise AssertionError(f"{tag}: min qdp {q_min} < 0")
+    del kstate, pstate, ks, kq, kacc, ps, pq, pacc
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--ne", str(cs.ne), "--prim", "--hypervis-nu",
+                       str(DYN_NU), "--num-exec", "10", "--init", "random",
+                       "--dt", str(DYN_DT)])
+    out = buf.getvalue()
+    if rc != 0 or "WARNING" in out:
+        raise AssertionError(f"cli --ne {cs.ne} --prim exited {rc}:\n{out}")
+    spread = [ln for ln in out.splitlines() if "continuity:" in ln]
+    tracers = [ln for ln in out.splitlines() if "--- tracers:" in ln]
+    if float(spread[0].split()[-1]) != 0.0 \
+            or float(tracers[0].split("continuity")[1].split(",")[0]) != 0.0:
+        raise AssertionError(f"cli --prim: {spread[0]} {tracers[0]}")
+    speed = [ln for ln in out.splitlines() if "Mgridpoints/s" in ln]
+    print(f"phase 12 cli --ne {cs.ne} --prim --hypervis-nu {DYN_NU:g} --init "
+          f"random --dt {DYN_DT} x10:" + speed[0].split(":", 1)[1] + ";"
+          + spread[0].split("---", 1)[1] + ";" + tracers[0].split("---", 1)[1])
+
+    results = []
+    for extra in (["--nexec", "300", "--reps", "3"],
+                  ["--nexec", "300", "--reps", "3", "--limit"],
+                  ["--nexec", "20", "--reps", "2", "--qsize",
+                   str(QSIZE_TALL)]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = bench.main(["--ne", str(cs.ne), "--nlev", str(NLEV),
+                              "--prim", "--hypervis-nu", str(DYN_NU), "--dt",
+                              str(DYN_DT)] + extra)
+        print("phase 12 bench " + buf.getvalue().strip())
+        if not res["min_dp3d"] > 0.0:
+            raise AssertionError(f"bench --prim: min dp3d {res['min_dp3d']}")
+        if "--limit" in extra and res["min_qdp"] < 0.0:
+            raise AssertionError(f"bench --prim --limit: min qdp "
+                                 f"{res['min_qdp']}")
+        results.append(res)
+        torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     try:
         import torch
@@ -821,6 +1172,8 @@ def main() -> int:
             dss_extract_cuda, dss_fixup_cuda, dss_sweep_cuda)
         from tinman_sandbox_tpu_torch.kernels.hypervis_t import vlap_cuda
         from tinman_sandbox_tpu_torch.kernels.saxpby import saxpby_cuda
+        from tinman_sandbox_tpu_torch.kernels.tracer_t import (
+            tracer_euler_cuda, tracer_limit_cuda)
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -854,13 +1207,17 @@ def main() -> int:
 
     wrappers = {w.__name__: w for w in (caar_t4_cuda, saxpby_cuda,
                                         dss_extract_cuda, dss_fixup_cuda,
-                                        dss_sweep_cuda, vlap_cuda)}
+                                        dss_sweep_cuda, vlap_cuda,
+                                        tracer_euler_cuda,
+                                        tracer_limit_cuda)}
 
     def reset():
         for w in wrappers.values():
             w.launches = 0
         caar_t4_cuda.slab_launches = 0
         caar_t4_cuda.single_launches = 0
+        tracer_euler_cuda.slab_launches = 0
+        tracer_limit_cuda.slab_launches = 0
 
     def counts():
         return {name: w.launches for name, w in wrappers.items()}
@@ -878,22 +1235,40 @@ def main() -> int:
     dyn_res = phase_dynamics_path(dev, cs)
     dyn = counts()
     single_launches = caar_t4_cuda.single_launches
+    for name, extra in phase_tracer_kernels(dev, cs).items():
+        rows.setdefault(name, {}).update(extra)
+    reset()
+    prim_res, lim_res, tall_res = phase_prim_path(dev, cs)
+    prim = counts()
+    tracer_slabs = (tracer_euler_cuda.slab_launches,
+                    tracer_limit_cuda.slab_launches)
     for label, res, got in (("raw", raw_res, raw), ("assembled", asm_res,
                                                      asm),
-                            ("dynamics", dyn_res, dyn)):
-        print(f"phase 11 {label} main-path launches: {json.dumps(got)}; bench "
+                            ("dynamics", dyn_res, dyn),
+                            ("prim", prim_res, prim)):
+        print(f"phase 13 {label} main-path launches: {json.dumps(got)}; bench "
               f"{res['us_per_step']:.2f} us/step, "
               f"{res['achieved_gb_per_s']:.1f} GB/s, "
               f"fraction_of_triad {res['fraction_of_triad']:.3f}")
-    print(f"phase 11 assembled main-path CAAR launches with the slab: "
+    for label, res in (("--limit", lim_res),
+                       (f"--qsize {QSIZE_TALL}", tall_res)):
+        print(f"phase 13 prim bench {label}: {res['us_per_step']:.2f} "
+              f"us/step, {res['achieved_gb_per_s']:.1f} GB/s, "
+              f"fraction_of_triad {res['fraction_of_triad']:.3f}, min qdp "
+              f"{res['min_qdp']:.3e}")
+    print(f"phase 13 assembled main-path CAAR launches with the slab: "
           f"{slab_launches}; dynamics main-path CAAR launches in stage mode: "
           f"{single_launches} of {dyn['caar_t4_cuda']}; per bench step "
-          f"{json.dumps(dyn_res['kernel_launches_per_step'])}")
+          f"{json.dumps(dyn_res['kernel_launches_per_step'])}; prim "
+          f"main-path tracer launches with the slab: {tracer_slabs[0]} Euler, "
+          f"{tracer_slabs[1]} limited; per prim bench step "
+          f"{json.dumps(prim_res['kernel_launches_per_step'])}")
     for name in ("caar_t4_cuda", "saxpby_cuda"):
         if raw[name] <= 0:
             raise AssertionError(f"{name} was not launched on the raw path")
     for name, n in asm.items():
-        if n <= 0 and name != "vlap_cuda":
+        if n <= 0 and name not in ("vlap_cuda", "tracer_euler_cuda",
+                                   "tracer_limit_cuda"):
             raise AssertionError(f"{name} was not launched on the assembled "
                                  "path")
     for name in ("caar_t4_cuda", "vlap_cuda", "dss_fixup_cuda",
@@ -906,6 +1281,24 @@ def main() -> int:
     if dyn_res["kernel_launches_per_step"] != want:
         raise AssertionError("dynamics bench: launches per step "
                              f"{dyn_res['kernel_launches_per_step']} != {want}")
+    for name in ("caar_t4_cuda", "vlap_cuda", "dss_fixup_cuda",
+                 "dss_sweep_cuda", "tracer_euler_cuda", "tracer_limit_cuda"):
+        if prim[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the prim path")
+    want = {"caar_t4_cuda": 3.0, "vlap_cuda": 2.0, "tracer_euler_cuda": 3.0,
+            "tracer_limit_cuda": 0.0, "dss_fixup_cuda": 8.0,
+            "dss_sweep_cuda": 8.0}
+    for label, res, w in (
+            ("", prim_res, want), (f" --qsize {QSIZE_TALL}", tall_res, want),
+            (" --limit", lim_res, dict(want, tracer_euler_cuda=0.0,
+                                       tracer_limit_cuda=3.0))):
+        if res["kernel_launches_per_step"] != w:
+            raise AssertionError(
+                f"prim bench{label}: launches per step "
+                f"{res['kernel_launches_per_step']} != {w}")
+    if tracer_slabs != (prim["tracer_euler_cuda"], prim["tracer_limit_cuda"]):
+        raise AssertionError("a tracer launch of the prim path left out the "
+                             f"slab: {tracer_slabs} of {prim}")
     if single_launches <= 0:
         raise AssertionError("the CAAR stage mode was not launched on the "
                              "dynamics path")
@@ -921,7 +1314,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": r.pop("route"), "source": r.pop("source"),
             "replaces": r.pop("replaces"),
-            "launches": raw[name] + asm[name] + dyn[name],
+            "launches": raw[name] + asm[name] + dyn[name] + prim[name],
             "max_abs_err": r.pop("max_abs_err"), "ms": r.pop("ms"),
             "plain_ms": r.pop("plain_ms"), "bound_ms": r.pop("bound_ms"),
             "bound_by": r.pop("bound_by"), "library_ms": r.pop("library_ms"),

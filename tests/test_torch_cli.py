@@ -46,7 +46,11 @@ def test_torch_cli_leapfrog_random_dump(capsys, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv,msg", [
     (["--rk"], "--rk requires --ne"),
-    (["--ne", "4", "--prim"], "not yet ported"),
+    (["--ne", "4", "--restore", "x.npz"], "not yet ported"),
+    (["--prim"], "--prim requires --ne"),
+    (["--ne", "2", "--prim", "--leapfrog"],
+     "--prim manages its own time-level cadence; drop --leapfrog"),
+    (["--ne", "2", "--prim", "--qsize", "0"], "--qsize must be at least 1"),
     (["--hypervis-nu", "1e15"], "--hypervis-nu requires --ne"),
     (["--ne", "2", "--checkpoint", "x.npz"], "not yet ported"),
     (["--kernel", "plain"], "only with --device cpu"),
@@ -59,11 +63,11 @@ def test_torch_cli_rejects_unported_and_invalid(capsys, argv, msg):
 
 
 def test_torch_cli_module_entry_reports_unported_dss():
-    """The module entry reports a flag whose path is not ported (--dss and
-    --rk are ported now; --prim, the full cadence, is not)."""
+    """The module entry reports a flag whose path is not ported (--dss,
+    --rk and --prim are ported now; --checkpoint is not)."""
     r = subprocess.run([sys.executable, "-m", "tinman_sandbox_tpu_torch",
-                        "--ne", "2", "--prim"], capture_output=True,
-                       text=True, cwd=ROOT, timeout=120)
+                        "--ne", "2", "--checkpoint", "x.npz"],
+                       capture_output=True, text=True, cwd=ROOT, timeout=120)
     assert r.returncode == 2
     assert "not yet ported" in r.stderr
 
@@ -118,6 +122,86 @@ def test_torch_cli_dss_with_hyperviscosity(capsys):
     assert "structured DSS + hyperviscosity" in out
     assert "WARNING" not in out and "nan" not in out.lower()
     assert _continuity(out) == 0.0
+
+
+@pytest.mark.parametrize("kernel,extra", [
+    ("cuda", []), ("cuda", ["--hypervis-nu", "1e20"]),
+    ("plain", ["--hypervis-nu", "1e20"]), ("plain", [])])
+def test_torch_cli_prim_on_the_cubed_sphere(capsys, kernel, extra):
+    """--ne 2 --prim --qsize 2 on the CPU: the packed full model step
+    through the kernel wrappers' plain versions, chained in the packed
+    layout and unpacked once (cuda), and the field form (plain), with and
+    without hyperviscosity inside the cadence; finite, positive dp3d, every
+    alias of every dof of the state and of the tracers holds the same bits
+    at the end, and the tracers moved."""
+    argv = ["--device", "cpu", "--kernel", kernel, "--ne", "2", "--prim",
+            "--qsize", "2", "--num-exec", "3", "--nlev", "6", "--init",
+            "random", "--dt", "0.05"] + extra
+    assert main(argv) == 0
+    out = capsys.readouterr().out
+    assert "on 24 elements x 6 levels" in out and "prim (SSPRK3" in out
+    assert ("hyperviscosity" in out) == bool(extra)
+    assert ("projected onto the continuous space (tracers too)" in out) \
+        == (kernel == "cuda")
+    assert "WARNING" not in out and "nan" not in out.lower()
+    assert _continuity(out) == 0.0
+    tracers = out.split("--- tracers: 2 x qdp, continuity")[1].split()
+    assert float(tracers[0].rstrip(",")) == 0.0
+    assert float(tracers[2]) > 0.0                      # min qdp
+
+
+def test_torch_cli_prim_packed_matches_explicit_steps(capsys, tmp_path,
+                                                      monkeypatch):
+    """The CLI's packed --prim chain equals explicit prim_t steps from the
+    same projected start: the warm-up does not advance the chain, and the
+    final unpack lands in np1 and qdp[1 - qn0]."""
+    import dataclasses
+
+    import numpy as np
+
+    from tinman_sandbox_tpu_torch import (
+        Config, analytic_hvcoord, random_state, zero_derived)
+    from tinman_sandbox_tpu_torch.dist import (
+        build_cubed_sphere, dss_project, make_structured_plan, prim_t)
+
+    monkeypatch.chdir(tmp_path)
+    assert main(["--device", "cpu", "--ne", "2", "--prim", "--qsize", "2",
+                 "--num-exec", "2", "--nlev", "4", "--init", "random", "--dt",
+                 "0.05", "--hypervis-nu", "1e20", "--dump-res", "yes"]) == 0
+    capsys.readouterr()
+    kw = dict(dtype=torch.float64, device="cpu")
+    cs = build_cubed_sphere(2, **kw)
+    cfg = Config(nelem=cs.nelem, nlev=4, qsize=2, dt=0.05)
+    state, derived = random_state(cfg, seed=7, **kw), zero_derived(cfg, **kw)
+    geom, hv = cs.geometry, analytic_hvcoord(cfg, **kw)
+
+    def proj(x, level):
+        out = x.clone()
+        out[level] = dss_project(x[level], cs.gdof, cs.ndof, geom.spheremp,
+                                 geom.rspheremp)
+        return out
+
+    state = dataclasses.replace(
+        state, u=proj(state.u, 0), v=proj(state.v, 0), t=proj(state.t, 0),
+        dp3d=proj(state.dp3d, 0), qdp=proj(state.qdp, 0))
+    plan = make_structured_plan(cs.gdof, 2)
+    c = cfg
+    for _ in range(2):
+        state, derived, c = prim_t(state, derived, geom, hv, plan, c,
+                                   nu=1e20, device="cpu")
+    # the CLI keeps the time levels fixed and writes the last step into np1;
+    # the explicit chain rotates, so its freshest level is c.n0
+    def dumped(name, tl):
+        with open(tmp_path / f"elem_state_{name}.txt") as f:
+            rows = [ln.split(":")[1].split() for ln in f
+                    if ln.startswith(f"tl={tl} ")]
+        return np.array(rows, np.float64).ravel()
+
+    for name, field in (("t", state.t), ("vx", state.u), ("dp3d", state.dp3d)):
+        np.testing.assert_allclose(dumped(name, cfg.np1),
+                                   field[c.n0].numpy().ravel(), rtol=1e-13)
+        np.testing.assert_allclose(dumped(name, cfg.n0),
+                                   field[cfg.n0].numpy().ravel(), rtol=1e-13)
 
 
 def test_torch_bench_rk_rotation():

@@ -42,6 +42,11 @@ def test_torch_package_imports_no_jax():
     for d, _, names in os.walk(os.path.join(ROOT, "tinman_sandbox_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
+    held = {os.path.relpath(f, ROOT) for f in files}
+    for name in ("ops/limiter.py", "ops/remap.py", "timeloop/tracer.py",
+                 "timeloop/prim.py", "kernels/tracer_t.py", "dist/step_t.py",
+                 "cli.py", "bench.py"):
+        assert os.path.join("tinman_sandbox_tpu_torch", name) in held
     for path in files:
         with open(path) as f:
             for ln, line in enumerate(f, 1):

@@ -4,6 +4,8 @@ modes of the repository's ``bench.py``).
     python -m tinman_sandbox_tpu_torch.bench [--nelem 1024] [--nlev 72]
     python -m tinman_sandbox_tpu_torch.bench --ne 30 [--nlev 72]
     python -m tinman_sandbox_tpu_torch.bench --ne 30 --rk [--hypervis-nu 1e15]
+    python -m tinman_sandbox_tpu_torch.bench --ne 30 --prim \
+        [--hypervis-nu 1e15] [--qsize Q] [--limit] [--qsplit S]
 
 The reference's methodology (kokkos_init.cpp:108-134): random init from a
 numpy seed, f32, fixed time levels, one kernel launch per step with the
@@ -34,6 +36,16 @@ state (``dist.apply_hypervis_packed_t``: two weak-Laplacian launches, each
 with a fixup and a sweep). It starts from the random state projected onto
 the continuous space and CHAINS: each step's s_np1 is the next step's s0,
 the accumulators run on. ``bytes_per_step`` is ``dynamics_bytes_per_step``.
+
+``--ne N --prim`` is the full model step (``dist.prim_step_packed_t4``): the
+dynamics step above, then ``--qsplit`` SSPRK3 tracer substeps on the
+``--qsize`` tracers stacked [qsize*nlev, E16], riding the new winds (per
+substep three tracer launches, Euler or with ``--limit`` the fused limited
+stage, each with a fixup and a sweep). It starts from the projected state
+and projected tracers in [0, 1] and CHAINS: s_np1 becomes s0, qdp' becomes
+qdp, the accumulators run on. ``bytes_per_step`` is ``prim_bytes_per_step``;
+``min_qdp`` is the least tracer value at the end (with ``--limit`` it stays
+>= 0 up to the rounding of the projection).
 """
 from __future__ import annotations
 
@@ -47,7 +59,8 @@ import torch
 __all__ = ["card_name_and_power", "bytes_per_step", "make_problem",
            "run_steps", "assembled_bytes_per_step", "make_assembled_problem",
            "run_assembled", "dynamics_bytes_per_step",
-           "make_dynamics_problem", "run_dynamics", "main"]
+           "make_dynamics_problem", "run_dynamics", "prim_bytes_per_step",
+           "make_prim_problem", "run_prim", "main"]
 
 
 def card_name_and_power():
@@ -214,6 +227,125 @@ def run_dynamics(const, s0, acc, plan, rsp, nsteps: int, nu: float = 0.0,
     return s0, tuple(acc), phi
 
 
+def prim_bytes_per_step(ne: int, nlev: int, nfix: int, qsize: int = 1,
+                        qsplit: int = 1, hypervis: bool = False,
+                        itemsize: int = 4) -> int:
+    """Device-memory traffic of one full model step, each kernel's inputs
+    read once and its outputs written once: ``dynamics_bytes_per_step`` plus,
+    per tracer stage (3 a substep), the tracer kernel's 2 wind blocks and
+    qsize tracer blocks read and qsize written, the 7 meta rows it reads,
+    the [nfix, qsize*nlev] slab written and read, and the sweep's qsize
+    blocks read and written with its two rspheremp rows; stages 2 and 3
+    also read the qsize blocks of the substep's input for the Shu-Osher
+    combination (in the sweep, or with the limiter in the kernel)."""
+    e16 = 6 * ne * ne * 16
+    blocks = 3 * (2 + 4 * qsize) + 2 * qsize
+    n = (blocks * nlev + 3 * (7 + 2)) * e16 + 3 * 2 * nfix * qsize * nlev
+    return dynamics_bytes_per_step(ne, nlev, nfix, hypervis, itemsize) \
+        + max(qsplit, 1) * n * itemsize
+
+
+def make_prim_problem(ne: int, nlev: int, device, dt: float = 0.1,
+                      qsize: int = 1, seed: int = 7):
+    """The full-step bench problem at ne: ``make_dynamics_problem`` plus the
+    stacked tracers [qsize*nlev, E16] in [0, 1], projected onto the
+    continuous space (a weighted mean: it keeps the range) as
+    ``ssprk3_tracer_packed_t`` needs. Tracer 0 is the dynamics problem's
+    moisture tracer; the others are drawn on the device from ``seed``.
+    Returns (const, s0, qdp, acc, plan, rsp): const = (scal, meta, pecnd,
+    dvv)."""
+    from .kernels.dss import dss_structured_t_cuda
+    from .kernels.layout import META_COLS
+
+    (scal, meta, q0, pecnd, dvv), s0, acc, plan, rsp = make_dynamics_problem(
+        ne, nlev, device, dt, seed)
+    if qsize > 1:
+        gen = torch.Generator(device=q0.device).manual_seed(seed)
+        more = torch.rand((qsize - 1) * nlev, q0.shape[1], generator=gen,
+                          dtype=q0.dtype, device=q0.device)
+        q0 = torch.cat([q0, more])
+    sph = meta[META_COLS.index("spheremp")]
+    qdp = dss_structured_t_cuda(q0 * sph, plan, rsp)
+    return (scal, meta, pecnd, dvv), s0, qdp, acc, plan, rsp
+
+
+def run_prim(const, s0, qdp, acc, plan, rsp, nsteps: int, nu: float = 0.0,
+             dt: float = 0.1, qsplit: int = 1, limit: bool = False,
+             step=None):
+    """``nsteps`` chained full model steps (``step`` defaults to
+    ``prim_step_packed_t4``): s_np1 becomes the next s0 and qdp' the next
+    qdp, the accumulators run on. Returns (s0, qdp, acc, phi) after the
+    last."""
+    from .dist.step_t import prim_step_packed_t4
+
+    step = step or prim_step_packed_t4
+    scal, meta, pecnd, dvv = const
+    nlev = s0.shape[0] // 4
+    phi = None
+    for _ in range(nsteps):
+        s0, qdp, phi, *acc = step(scal, meta, s0, qdp, pecnd, *acc, dvv, plan,
+                                  rsp, nu, nlev, qsplit=qsplit,
+                                  limit_tracers=limit, dt=dt)
+    return s0, qdp, tuple(acc), phi
+
+
+def _main_prim(args, dev) -> dict:
+    from .kernels.caar_t import caar_t4_cuda
+    from .kernels.dss import dss_fixup_cuda, dss_sweep_cuda, fix_tables
+    from .kernels.hypervis_t import vlap_cuda
+    from .kernels.saxpby import saxpby_bandwidth_gbs
+    from .kernels.tracer_t import tracer_euler_cuda, tracer_limit_cuda
+
+    const, s0, qdp, acc, plan, rsp = make_prim_problem(
+        args.ne, args.nlev, dev, args.dt, args.qsize)
+    wrappers = (caar_t4_cuda, vlap_cuda, tracer_euler_cuda, tracer_limit_cuda,
+                dss_fixup_cuda, dss_sweep_cuda)
+    run = lambda s, q, a, n: run_prim(const, s, q, a, plan, rsp, n,
+                                      args.hypervis_nu, args.dt, args.qsplit,
+                                      args.limit)
+    # warm-up (first build), excluded; the chain runs on from it
+    s0, qdp, acc, _ = run(s0, qdp, acc, 2)
+    torch.cuda.synchronize(dev)
+    launches0 = [w.launches for w in wrappers]
+    best = float("inf")
+    for _ in range(args.reps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        s0, qdp, acc, phi = run(s0, qdp, acc, args.nexec)
+        torch.cuda.synchronize(dev)
+        best = min(best, time.perf_counter() - t0)
+    if not all(bool(torch.isfinite(x).all()) for x in (s0, qdp, *acc, phi)):
+        raise RuntimeError("bench: non-finite model state")
+    per_step = {w.__name__: (w.launches - n0) / (args.reps * args.nexec)
+                for w, n0 in zip(wrappers, launches0)}
+    triad = saxpby_bandwidth_gbs(device=dev)
+    nelem = 6 * args.ne * args.ne
+    nbytes = prim_bytes_per_step(args.ne, args.nlev,
+                                 fix_tables(plan, dev).nfix, args.qsize,
+                                 args.qsplit, bool(args.hypervis_nu))
+    gbs = nbytes * args.nexec / best / 1e9
+    return {
+        "metric": "prim_gridpoint_updates_per_s",
+        "config": f"ne{args.ne} ({nelem} elements) x{args.nlev}x16 float32 "
+                  f"qsize={args.qsize} qsplit={args.qsplit} "
+                  f"limit={'yes' if args.limit else 'no'} nexec={args.nexec} "
+                  f"reps={args.reps} chained step=prim_step_packed_t4 "
+                  f"dt={args.dt} nu={args.hypervis_nu}",
+        "seconds": best,
+        "us_per_step": best / args.nexec * 1e6,
+        "gridpoints_per_s": nelem * args.nlev * 16 * args.nexec / best,
+        "bytes_per_step": nbytes,
+        "achieved_gb_per_s": gbs,
+        "triad_gb_per_s": triad,
+        "fraction_of_triad": gbs / triad,
+        "kernel_launches_per_step": per_step,
+        "min_dp3d": float(s0[3 * args.nlev:].min()),
+        "min_qdp": float(qdp.min()),
+        "device": torch.cuda.get_device_name(dev),
+        "card": card_name_and_power(),
+    }
+
+
 def _main_dynamics(args, dev) -> dict:
     from .kernels.caar_t import caar_t4_cuda
     from .kernels.dss import dss_fixup_cuda, dss_sweep_cuda, fix_tables
@@ -332,12 +464,28 @@ def main(argv=None) -> dict:
     ap.add_argument("--hypervis-nu", type=float, default=0.0,
                     help="with --rk: hyperviscosity after each step (0 = off)")
     ap.add_argument("--dt", type=float, default=0.1,
-                    help="with --rk: the time step")
+                    help="with --rk or --prim: the time step")
+    ap.add_argument("--prim", action="store_true",
+                    help="with --ne: the chained full model step (dynamics, "
+                         "hyperviscosity, tracers)")
+    ap.add_argument("--qsize", type=int, default=1,
+                    help="with --prim: the number of tracers")
+    ap.add_argument("--qsplit", type=int, default=1,
+                    help="with --prim: tracer substeps per step")
+    ap.add_argument("--limit", action="store_true",
+                    help="with --prim: the monotone limiter in every tracer "
+                         "stage")
     args = ap.parse_args(argv)
-    if (args.rk or args.hypervis_nu) and args.ne is None:
-        ap.error("--rk and --hypervis-nu need --ne")
-    if args.hypervis_nu and not args.rk:
-        ap.error("--hypervis-nu needs --rk")
+    if (args.rk or args.prim or args.hypervis_nu) and args.ne is None:
+        ap.error("--rk, --prim and --hypervis-nu need --ne")
+    if args.hypervis_nu and not (args.rk or args.prim):
+        ap.error("--hypervis-nu needs --rk or --prim")
+    if args.rk and args.prim:
+        ap.error("--prim holds the SSPRK3 dynamics already; drop --rk")
+    if (args.limit or args.qsize != 1 or args.qsplit != 1) and not args.prim:
+        ap.error("--qsize, --qsplit and --limit need --prim")
+    if args.qsize < 1 or args.qsplit < 1:
+        ap.error("--qsize and --qsplit must be at least 1")
 
     from .device import resolve_device
     from .kernels.caar_t import caar_t4_cuda
@@ -345,7 +493,8 @@ def main(argv=None) -> dict:
 
     dev = resolve_device("cuda")
     if args.ne is not None:
-        result = (_main_dynamics if args.rk else _main_assembled)(args, dev)
+        result = (_main_prim if args.prim else _main_dynamics if args.rk
+                  else _main_assembled)(args, dev)
         print(json.dumps(result))
         return result
     const, acc = make_problem(args.nelem, args.nlev, dev)

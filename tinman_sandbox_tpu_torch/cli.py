@@ -1,7 +1,7 @@
 """Command-line driver for the CAAR step, raw or assembled on the cubed
-sphere, SSPRK3 dynamics and hyperviscosity (counterpart of the raw,
-``--ne N --dss``, ``--rk`` and ``--hypervis-nu`` paths of
-``tinman_sandbox_tpu/cli.py``).
+sphere, SSPRK3 dynamics, hyperviscosity and the full model step (counterpart
+of the raw, ``--ne N --dss``, ``--rk``, ``--hypervis-nu`` and ``--prim``
+paths of ``tinman_sandbox_tpu/cli.py``).
 
     python -m tinman_sandbox_tpu_torch --num-elems 1024 --num-exec 100
     python -m tinman_sandbox_tpu_torch --device cpu --kernel plain \\
@@ -9,6 +9,8 @@ sphere, SSPRK3 dynamics and hyperviscosity (counterpart of the raw,
     python -m tinman_sandbox_tpu_torch --ne 30 --dss --leapfrog --num-exec 20
     python -m tinman_sandbox_tpu_torch --ne 30 --rk --hypervis-nu 1e15 \\
         --init random --dt 0.1 --leapfrog --num-exec 20
+    python -m tinman_sandbox_tpu_torch --ne 30 --prim --hypervis-nu 1e15 \\
+        --init random --dt 0.1 --num-exec 10 [--qsize 4]
 
 ``--kernel cuda`` (default) runs the packed-layout step through the CUDA
 kernel wrapper; on ``--device cpu`` that wrapper runs its plain version.
@@ -29,6 +31,14 @@ n0 level is projected first. ``--hypervis-nu NU`` (needs ``--ne``) applies
 biharmonic hyperviscosity to the fresh level after every step:
 ``dist.apply_hypervis_t`` (the weak-Laplacian kernel and the DSS kernels) or
 the field form ``timeloop.apply_hyperviscosity``.
+``--prim`` (needs ``--ne``, honours ``--dt``, manages its own time levels:
+no ``--leapfrog``) takes one full model step per execution: SSPRK3 dynamics,
+hyperviscosity with ``--hypervis-nu`` inside the cadence, then SSPRK3
+transport of the ``--qsize`` tracers on the new winds. With ``--kernel
+cuda`` the n0 level and the tracers are projected first, the state is packed
+once, ``dist.prim_step_packed_t4`` chains in the packed layout and the
+result is unpacked once at the end; with ``--kernel plain`` the field form
+``timeloop.prim_run_step`` runs.
 The CUDA kernel is float32 only; ``--dtype`` defaults to float32 on the card
 and float64 (the oracle path) on the CPU.
 """
@@ -40,7 +50,7 @@ import sys
 import time
 
 # flags of the JAX CLI whose paths are not ported yet
-_NOT_PORTED = ("prim", "checkpoint", "restore")
+_NOT_PORTED = ("checkpoint", "restore")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -82,8 +92,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--hypervis-nu", type=float, default=0.0,
                     help="biharmonic hyperviscosity coefficient applied "
                          "after each step (0 = off; needs --ne)")
+    ap.add_argument("--prim", action="store_true",
+                    help="full model step: SSPRK3 dynamics + hyperviscosity "
+                         "+ tracer transport (needs --ne; --dt is the step)")
+    ap.add_argument("--qsize", type=int, default=1,
+                    help="number of tracers")
     # accepted so that they fail with a clear message, not an argparse error
-    ap.add_argument("--prim", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--checkpoint", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--restore", default=None, help=argparse.SUPPRESS)
     return ap
@@ -100,12 +114,19 @@ def main(argv=None) -> int:
         if getattr(args, flag) not in (None, False):
             return _usage_error(
                 f"--{flag} is not yet ported to tinman_sandbox_tpu_torch "
-                f"(the raw and assembled CAAR, SSPRK3 and hyperviscosity "
-                f"paths are); use python -m tinman_sandbox_tpu")
+                f"(the raw and assembled CAAR, SSPRK3, hyperviscosity and "
+                f"full model step paths are); use python -m "
+                f"tinman_sandbox_tpu")
     for flag, on in (("--dss", args.dss), ("--rk", args.rk),
-                     ("--hypervis-nu", args.hypervis_nu)):
+                     ("--hypervis-nu", args.hypervis_nu),
+                     ("--prim", args.prim)):
         if on and args.ne is None:
             return _usage_error(f"{flag} requires --ne")
+    if args.prim and args.leapfrog:
+        return _usage_error("--prim manages its own time-level cadence; drop "
+                            "--leapfrog")
+    if args.qsize < 1:
+        return _usage_error("--qsize must be at least 1")
     if args.kernel == "plain" and args.device != "cpu":
         return _usage_error("--kernel plain runs only with --device cpu")
     dtype_name = args.dtype or ("float32" if args.device == "cuda"
@@ -136,7 +157,7 @@ def main(argv=None) -> int:
 
         cs = build_cubed_sphere(args.ne, **kw)
     nelem = args.num_elems if cs is None else cs.nelem
-    cfg = Config(nelem=nelem, nlev=args.nlev, dt=args.dt)
+    cfg = Config(nelem=nelem, nlev=args.nlev, qsize=args.qsize, dt=args.dt)
     if args.init == "analytic":
         state, derived = analytic_state(cfg, **kw), analytic_derived(cfg, **kw)
     else:
@@ -151,9 +172,11 @@ def main(argv=None) -> int:
     timers = Timers(dev)
 
     mode = "cuda" if args.kernel == "cuda" else "plain array-form"
-    if args.rk:
+    if args.prim:
+        mode += " prim (SSPRK3 + tracers)"
+    elif args.rk:
         mode += " SSPRK3"
-    if args.dss or args.rk:
+    if args.dss or args.rk or args.prim:
         mode += " + structured DSS" if args.kernel == "cuda" \
             else " + segment-sum DSS"
     if args.hypervis_nu:
@@ -172,22 +195,57 @@ def main(argv=None) -> int:
         from .dist import make_structured_plan
 
         plan = make_structured_plan(cs.gdof, cs.ne)
-    if args.rk and args.kernel == "cuda":
-        import dataclasses as _dc
+    finalize = None
+    if (args.rk or args.prim) and args.kernel == "cuda":
+        from .dist import dss_project
 
-        from .dist import dss_project, ssprk3_t
-
-        # the packed step pulls the projection inside the Shu-Osher
-        # combinations, exact only for a continuous n0
-        def proj(x):
+        # the packed steps pull the projection inside the Shu-Osher
+        # combinations, exact only for a continuous start
+        def proj(x, level):
             out = x.clone()
-            out[cfg.n0] = dss_project(x[cfg.n0], cs.gdof, cs.ndof,
-                                      geom.spheremp, geom.rspheremp)
+            out[level] = dss_project(x[level], cs.gdof, cs.ndof,
+                                     geom.spheremp, geom.rspheremp)
             return out
 
-        state = _dc.replace(state, u=proj(state.u), v=proj(state.v),
-                            t=proj(state.t), dp3d=proj(state.dp3d))
-        print(" --- initial n0 level projected onto the continuous space")
+        state = dataclasses.replace(
+            state, u=proj(state.u, cfg.n0), v=proj(state.v, cfg.n0),
+            t=proj(state.t, cfg.n0), dp3d=proj(state.dp3d, cfg.n0),
+            qdp=proj(state.qdp, cfg.qn0) if args.prim else state.qdp)
+        print(" --- initial n0 level projected onto the continuous space"
+              + (" (tracers too)" if args.prim else ""))
+    if args.prim and args.kernel == "cuda":
+        from .dist import prim_pack_t, prim_step_packed_t4, prim_unpack_t
+
+        pk = prim_pack_t(state, derived, geom, hv, cfg, args.dt)
+        chain = dict(s=pk["s0"], q=pk["qdp"], acc=pk["acc"], phi=None)
+
+        def one_step(s, d, c):
+            # chained in the packed layout; unpacked once at the end
+            s1, q1, phi, *acc = prim_step_packed_t4(
+                pk["scal"], pk["meta"], chain["s"], chain["q"], pk["pecnd"],
+                *chain["acc"], pk["dvv"], plan, pk["rsp"], args.hypervis_nu,
+                cfg.nlev, dt=args.dt)
+            chain.update(s=s1, q=q1, acc=tuple(acc), phi=phi)
+            return s, d
+
+        def finalize(s, d):
+            return prim_unpack_t(s, d, cfg, chain["s"], chain["q"],
+                                 chain["phi"], chain["acc"])
+    elif args.prim:
+        from .timeloop import prim_run_step
+
+        # prim_run_step returns the rotated cfg; the freshest level after
+        # the loop is the np1 of the cfg the LAST step used
+        prim_cfg = {"c": cfg, "used": cfg}
+
+        def one_step(s, d, c):
+            prim_cfg["used"] = prim_cfg["c"]
+            s, d, prim_cfg["c"] = prim_run_step(
+                s, d, geom, hv, prim_cfg["c"], cs.gdof, cs.ndof,
+                nu=args.hypervis_nu, device=dev)
+            return s, d
+    elif args.rk and args.kernel == "cuda":
+        from .dist import ssprk3_t
 
         # RK is a real integration: it always honours --dt
         def one_step(s, d, c):
@@ -215,13 +273,15 @@ def main(argv=None) -> int:
         def one_step(s, d, c):
             return step(s, d, geom, hv, c, dt2, eta, device=dev)
 
-    if args.hypervis_nu and args.kernel == "cuda":
+    # --prim applies hyperviscosity inside its cadence
+    damp_on = bool(args.hypervis_nu) and not args.prim
+    if damp_on and args.kernel == "cuda":
         from .dist import apply_hypervis_t
 
         def damp(s, c):
             return apply_hypervis_t(s, geom, plan, c, args.hypervis_nu,
                                     dt=args.dt, device=dev)
-    elif args.hypervis_nu:
+    elif damp_on:
         from .timeloop import apply_hyperviscosity
 
         def damp(s, c):
@@ -229,9 +289,17 @@ def main(argv=None) -> int:
                                         args.hypervis_nu, dt=args.dt,
                                         device=dev)
 
+    if finalize is not None:
+        # the warm-up must not advance the chain (the kernel updates the
+        # accumulators in place)
+        chain0 = dict(chain, acc=tuple(a.clone() for a in chain["acc"]))
     warm = one_step(state, derived, cfg)    # warm-up (first build), excluded
-    if args.hypervis_nu:
+    if damp_on:
         damp(warm[0], cfg)
+    if finalize is not None:
+        chain.update(chain0)
+    elif args.prim:
+        prim_cfg["c"] = prim_cfg["used"] = cfg
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
@@ -241,11 +309,15 @@ def main(argv=None) -> int:
     for _ in range(args.num_exec):
         with timers.region("caar compute"):
             state, derived = one_step(state, derived, c)
-        if args.hypervis_nu:
+        if damp_on:
             with timers.region("hyperviscosity"):
                 state = damp(state, c)
         if args.leapfrog:
             c = rotated(c)
+    if finalize is not None:
+        state, derived = finalize(state, derived)
+    elif args.prim:
+        c = prim_cfg["used"]
     timers.stop("main loop")
     wall = time.perf_counter() - t0
 
@@ -258,7 +330,7 @@ def main(argv=None) -> int:
     fresh = [getattr(state, n)[c_chk.np1] for n in ("u", "v", "t", "dp3d")]
     if not all(bool(torch.isfinite(x).all()) for x in fresh):
         print(" --- WARNING: non-finite prognostic state")
-    if args.dss or args.rk:
+    if args.dss or args.rk or args.prim:
         from .dist import continuity_error_t
         from .kernels.layout import pack_field_t
 
@@ -266,6 +338,15 @@ def main(argv=None) -> int:
                      for x in fresh)
         print(f" --- continuity: max |alias - first alias| over u, v, T, dp "
               f"{spread:.3e}")
+    if args.prim:
+        from .convert import pack_qdp_t
+
+        # the last step wrote the tracers into qdp level 1 - qn0
+        q = pack_qdp_t(state, dataclasses.replace(c, qn0=1 - c.qn0))
+        if not bool(torch.isfinite(q).all()):
+            print(" --- WARNING: non-finite tracers")
+        print(f" --- tracers: {cfg.qsize} x qdp, continuity "
+              f"{continuity_error_t(q, cs.gdof):.3e}, min {float(q.min()):.6e}")
 
     if args.golden_check and args.init == "analytic" and not args.leapfrog:
         from .golden import golden_caar

@@ -8,6 +8,8 @@ packages compute on the same numbers. ``cubed_sphere_from_numpy`` and
 ``plan_from_fields`` do the same for a cubed sphere and its structured DSS
 plan, so both packages assemble on the very same geometry, dof map and edge
 orientations. This package never touches a JAX object itself.
+``pack_qdp_t`` / ``unpack_qdp_t`` carry a state's tracers to and from the
+stacked tracer-major [qsize*nlev, E16] layout of the packed steps.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ from .device import from_arrays
 from .grid import Geometry, HybridVCoord
 from .state import Derived, State
 
-__all__ = ["from_numpy", "cubed_sphere_from_numpy", "plan_from_fields"]
+__all__ = ["from_numpy", "cubed_sphere_from_numpy", "plan_from_fields",
+           "pack_qdp_t", "unpack_qdp_t"]
 
 
 def from_numpy(state: Mapping, derived: Mapping, geom: Mapping, hv: Mapping,
@@ -59,3 +62,22 @@ def plan_from_fields(ne, edges, corner_rows):
         edges=tuple((int(fa), str(sa), int(fb), str(sb), bool(fl))
                     for fa, sa, fb, sb, fl in edges),
         corner_rows=tuple(tuple(int(r) for r in c) for c in corner_rows))
+
+
+def pack_qdp_t(state: State, cfg, dtype=None):
+    """The tracers of time level qn0, [nelem, qsize, nlev, np, np], stacked
+    tracer-major into [qsize*nlev, E16] (row = tracer*nlev + level)."""
+    from .kernels.layout import pack_field_t
+
+    q = state.qdp[cfg.qn0]
+    q = q if dtype is None else q.to(dtype)
+    packed = pack_field_t(q.movedim(1, 0))           # [qsize, nlev, E16]
+    return packed.reshape(-1, packed.shape[-1])
+
+
+def unpack_qdp_t(qdp, nelem: int, nlev: int):
+    """[qsize*nlev, E16] stacked tracers -> [nelem, qsize, nlev, np, np]."""
+    from .kernels.layout import unpack_field_t
+
+    q = unpack_field_t(qdp.reshape(-1, nlev, qdp.shape[-1]), nelem)
+    return q.movedim(0, 1).contiguous()

@@ -29,6 +29,24 @@ the assembled-step, SSPRK3 and hyperviscosity parts of
     rows ride through. ``apply_hypervis_packed_t_plain`` is its twin (pure)
     and ``apply_hypervis_t`` the full-state wrapper.
 
+  * ``ssprk3_tracer_packed_t``: SSPRK3 tracer transport on the stacked
+    [qsize*nlev, E16] tracers. Without the limiter each stage is (Euler
+    kernel with the slab, fixup, sweep), the Shu-Osher combinations folded
+    into the sweep's affine output; needs a CONTINUOUS qdp. With the limiter
+    each stage is (fused limit kernel with the slab, fixup, sweep): the
+    combination sits inside the kernel, ahead of the nonlinear limiter, and
+    the sweep carries none. ``ssprk3_tracer_packed_t_plain`` is its twin.
+    The JAX function's ``eb``, ``lg``, ``qc``, ``fuse_extract``,
+    ``compact`` and ``limit_strategy`` options and its unfused field-limiter
+    fallback choose between TPU VMEM budgets and 128-lane layouts and have
+    no counterpart: one path serves every ne, odd ne included.
+  * ``prim_step_packed_t4``: the full model step (SSPRK3 dynamics,
+    hyperviscosity in place on the new state, ``qsplit`` tracer substeps
+    that read the new winds out of that state by row block), everything in
+    the packed layout. ``prim_step_packed_t4_plain`` is its twin and
+    ``prim_t`` the full-state wrapper, from ``prim_pack_t`` and
+    ``prim_unpack_t``, which a caller that chains steps calls once each.
+
 The accumulators vn0u / vn0v / omg are updated IN PLACE, as by the CAAR
 kernel (the plain twins are pure and return new ones).
 """
@@ -48,7 +66,11 @@ from ..kernels.dss import (
     dss_sweep_plain, fix_tables)
 from ..kernels.hypervis_t import vlap_cuda, vlap_plain
 from ..kernels.layout import pack_field_t, pack_meta_t, unpack_field_t
+from ..kernels.tracer_t import (
+    tracer_euler_cuda, tracer_euler_plain, tracer_limit_cuda,
+    tracer_limit_plain)
 from ..state import Derived, State
+from ..timeloop.driver import rotated
 from ..timeloop.rk import B_WEIGHTS
 from .structured_dss import StructuredDssPlan
 
@@ -57,7 +79,10 @@ __all__ = ["caar_dss_structured_packed_t4",
            "caar_dss_structured_packed_t", "caar_dss_t",
            "ssprk3_packed_t4", "ssprk3_packed_t4_plain", "ssprk3_t",
            "apply_hypervis_packed_t", "apply_hypervis_packed_t_plain",
-           "apply_hypervis_t"]
+           "apply_hypervis_t",
+           "ssprk3_tracer_packed_t", "ssprk3_tracer_packed_t_plain",
+           "prim_step_packed_t4", "prim_step_packed_t4_plain",
+           "prim_pack_t", "prim_unpack_t", "prim_t"]
 
 def caar_dss_structured_packed_t4(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v,
                                   omg, dvv, plan: StructuredDssPlan,
@@ -185,11 +210,8 @@ def ssprk3_packed_t4(scal, meta, s0, qdp, pecnd, vn0u, vn0v, omg, dvv,
     weights (1/6, 1/6, 2/3) composed onto scal's eta_ave_w, IN PLACE; phi
     is the last stage's; s0 is not modified. Returns (s_np1, phi, vn0u,
     vn0v, omg)."""
-    return _ssprk3(
-        caar_t4_cuda,
-        lambda x, slab, fix, r, mix: dss_structured_t_cuda_pre(
-            x, slab, plan, r, mix),
-        scal, meta, s0, qdp, pecnd, (vn0u, vn0v, omg), dvv, plan, rsp, moist)
+    return _ssprk3(caar_t4_cuda, _cuda_dss_pre(plan), scal, meta, s0, qdp,
+                   pecnd, (vn0u, vn0v, omg), dvv, plan, rsp, moist)
 
 
 def ssprk3_packed_t4_plain(scal, meta, s0, qdp, pecnd, vn0u, vn0v, omg, dvv,
@@ -235,11 +257,8 @@ def apply_hypervis_packed_t(dvv, meta, uvt, plan: StructuredDssPlan,
     stack returned, or the FULL [4*nlev, E16] prognostic buffer, updated IN
     PLACE and returned, its dp rows untouched (no slice or concat pass).
     ``nu``, ``dt`` and ``nu_ratio`` are numbers."""
-    return _hypervis(
-        vlap_cuda,
-        lambda x, slab, fix, r, mix: dss_structured_t_cuda_pre(
-            x, slab, plan, r, mix),
-        dvv, meta, uvt, plan, rsp, nu, dt, nlev, nu_ratio, subcycle)
+    return _hypervis(vlap_cuda, _cuda_dss_pre(plan), dvv, meta, uvt, plan,
+                     rsp, nu, dt, nlev, nu_ratio, subcycle)
 
 
 def apply_hypervis_packed_t_plain(dvv, meta, uvt, plan: StructuredDssPlan,
@@ -249,6 +268,148 @@ def apply_hypervis_packed_t_plain(dvv, meta, uvt, plan: StructuredDssPlan,
     pure: a [4*nlev] buffer comes back as a new tensor too."""
     return _hypervis(vlap_plain, _plain_dss_pre, dvv, meta, uvt, plan, rsp,
                      nu, dt, nlev, nu_ratio, subcycle)
+
+
+def _cuda_dss_pre(plan):
+    """Fixup and sweep on the kernels, in the call form of
+    ``_plain_dss_pre``."""
+    return lambda x, slab, fix, rsp, mix=None: dss_structured_t_cuda_pre(
+        x, slab, plan, rsp, mix)
+
+
+def _np_float(dtype):
+    return np.float32 if dtype == torch.float32 else np.float64
+
+
+def _ssprk3_tracer(euler, limiter, dss_pre, dvv, meta, vu, vv, qdp, plan, rsp,
+                   dt, nlev, limit, wind_rows, limit_iters):
+    """The three stages of ``ssprk3_tracer_packed_t`` on the given Euler and
+    limit kernels and fixup + sweep. The Shu-Osher coefficients are formed
+    in the tracers' dtype."""
+    fix = fix_tables(plan, qdp.device)
+    f = _np_float(qdp.dtype)
+    mixes = (None, (qdp, f(0.75), f(0.25)),
+             (qdp, f(1.0 / 3.0), f(2.0 / 3.0)))
+    q = qdp
+    for mix in mixes:
+        if limit:
+            # the limiter is nonlinear: P(L(combination, bounds(q))), the
+            # combination inside the kernel and none in the sweep
+            e, slab = limiter(meta, vu, vv, q, dvv, dt, nlev, mix=mix,
+                              wind_rows=wind_rows, iters=limit_iters, fix=fix)
+            q = dss_pre(e, slab, fix, rsp)
+        else:
+            # P is linear and P(qdp) = qdp: the combination rides the sweep
+            e, slab = euler(meta, vu, vv, q, dvv, dt, nlev,
+                            wind_rows=wind_rows, fix=fix)
+            q = dss_pre(e, slab, fix, rsp, mix)
+    return q
+
+
+def ssprk3_tracer_packed_t(dvv, meta, vu, vv, qdp, plan: StructuredDssPlan,
+                           rsp: torch.Tensor, dt, nlev: int,
+                           limit: bool = False, wind_rows=(0, 0),
+                           limit_iters: int = 2):
+    """SSPRK3 tracer transport on the stacked [qsize*nlev, E16] tracers
+    (counterpart of ``ssprk3_tracer_packed_t`` of the JAX package): each
+    stage is the Euler kernel (spheremp folded in, the slab emitted) closed
+    by fixup and sweep, together the continuous projection
+    P = rsp*DSS(sph*.) of ``timeloop.tracer.ssprk3_tracer_step``. The convex
+    combinations assume a CONTINUOUS qdp (P q = q, true after any projected
+    step). ``limit`` applies the monotone mass-conserving limiter per stage
+    in the fused limit kernel, in the field path's order P(L(combination,
+    bounds(q_in))). The winds are the row blocks ``wind_rows`` of vu / vv
+    (the [4*nlev] state as both with (0, 1): no slice copy); ``dt`` is a
+    number. qdp is not modified. Returns the new qdp."""
+    return _ssprk3_tracer(tracer_euler_cuda, tracer_limit_cuda,
+                          _cuda_dss_pre(plan), dvv, meta, vu, vv, qdp, plan,
+                          rsp, dt, nlev, limit, wind_rows, limit_iters)
+
+
+def ssprk3_tracer_packed_t_plain(dvv, meta, vu, vv, qdp,
+                                 plan: StructuredDssPlan, rsp: torch.Tensor,
+                                 dt, nlev: int, limit: bool = False,
+                                 wind_rows=(0, 0), limit_iters: int = 2):
+    """``ssprk3_tracer_packed_t`` from the plain versions on any device;
+    pure."""
+    return _ssprk3_tracer(tracer_euler_plain, tracer_limit_plain,
+                          _plain_dss_pre, dvv, meta, vu, vv, qdp, plan, rsp,
+                          dt, nlev, limit, wind_rows, limit_iters)
+
+
+def _prim_step(dynamics, hypervis, tracers, scal, meta, s0, qdp, pecnd, acc,
+               dvv, plan, rsp, nu, nlev, qsplit, nu_ratio, moist, subcycle,
+               limit_tracers, limit_iters, dt):
+    """The cadence of ``prim_step_packed_t4`` on the given three steps."""
+    if qdp.shape[0] % nlev or s0.shape[0] != 4 * nlev:
+        raise ValueError(f"prim step: s0 needs {4 * nlev} rows and qdp a "
+                         f"multiple of {nlev}, got {s0.shape[0]} and "
+                         f"{qdp.shape[0]}")
+    if dt is None:
+        dt = float(scal[0, 0])                   # waits for the device
+    # the dynamics reads the moisture tracer: the first nlev rows, a view
+    s1, phi, *acc = dynamics(scal, meta, s0, qdp[:nlev], pecnd, *acc, dvv,
+                             plan, rsp, moist=moist)
+    if nu:
+        # the whole [4*nlev] buffer: the update lands in its (u, v, T) rows
+        s1 = hypervis(dvv, meta, s1, plan, rsp, nu, dt, nlev,
+                      nu_ratio=nu_ratio, subcycle=subcycle)
+    # the tracers ride the new winds, row blocks 0 (u) and 1 (v) of s1
+    nsub = max(qsplit, 1)
+    f = _np_float(s0.dtype)
+    dt_q = f(dt) / f(nsub)
+    for _ in range(nsub):
+        qdp = tracers(dvv, meta, s1, s1, qdp, plan, rsp, dt_q, nlev,
+                      limit=limit_tracers, wind_rows=(0, 1),
+                      limit_iters=limit_iters)
+    return (s1, qdp, phi, *acc)
+
+
+def prim_step_packed_t4(scal, meta, s0, qdp, pecnd, vn0u, vn0v, omg, dvv,
+                        plan: StructuredDssPlan, rsp: torch.Tensor, nu,
+                        nlev: int, qsplit: int = 1, nu_ratio=1.0,
+                        moist: bool = True, subcycle: int = 1,
+                        limit_tracers: bool = False, limit_iters: int = 2,
+                        dt=None):
+    """The full model step on the packed layout (counterpart of
+    ``prim_step_packed_t4`` of the JAX package, the packed analog of
+    ``timeloop.prim.prim_run_step``):
+
+      1. SSPRK3 dynamics (``ssprk3_packed_t4``) on the stacked prognostics;
+      2. with a nonzero ``nu`` biharmonic hyperviscosity, in place on the
+         new state (``apply_hypervis_packed_t``);
+      3. ``qsplit`` SSPRK3 tracer substeps of dt/qsplit riding the new
+         winds (``ssprk3_tracer_packed_t``), tracers stacked
+         [qsize*nlev, E16].
+
+    ``scal`` carries dt in its dt2 slot; ``dt`` is the same step as a
+    number, which hyperviscosity and the tracers take by value: pass it, or
+    it is read back from ``scal``, which waits for the device once a step.
+    Rows [0:nlev] of ``qdp`` are the moisture tracer the dynamics reads (a
+    view, no slice copy). s0 and qdp must be CONTINUOUS and are not
+    modified; the accumulators advance IN PLACE. Chain s_np1 -> s0, qdp' ->
+    qdp. Returns (s_np1, qdp', phi, vn0u, vn0v, omg)."""
+    return _prim_step(ssprk3_packed_t4, apply_hypervis_packed_t,
+                      ssprk3_tracer_packed_t, scal, meta, s0, qdp, pecnd,
+                      (vn0u, vn0v, omg), dvv, plan, rsp, nu, nlev, qsplit,
+                      nu_ratio, moist, subcycle, limit_tracers, limit_iters,
+                      dt)
+
+
+def prim_step_packed_t4_plain(scal, meta, s0, qdp, pecnd, vn0u, vn0v, omg,
+                              dvv, plan: StructuredDssPlan,
+                              rsp: torch.Tensor, nu, nlev: int,
+                              qsplit: int = 1, nu_ratio=1.0,
+                              moist: bool = True, subcycle: int = 1,
+                              limit_tracers: bool = False,
+                              limit_iters: int = 2, dt=None):
+    """``prim_step_packed_t4`` from the plain versions on any device; pure.
+    Returns (s_np1, qdp', phi, vn0u', vn0v', omg')."""
+    return _prim_step(ssprk3_packed_t4_plain, apply_hypervis_packed_t_plain,
+                      ssprk3_tracer_packed_t_plain, scal, meta, s0, qdp,
+                      pecnd, (vn0u, vn0v, omg), dvv, plan, rsp, nu, nlev,
+                      qsplit, nu_ratio, moist, subcycle, limit_tracers,
+                      limit_iters, dt)
 
 
 def _rsp_row(geom: Geometry, dtype) -> torch.Tensor:
@@ -314,3 +475,71 @@ def apply_hypervis_t(state: State, geom: Geometry, plan: StructuredDssPlan,
 
     return dataclasses.replace(state, u=put(state.u, 0), v=put(state.v, 1),
                                t=put(state.t, 2))
+
+
+def prim_pack_t(state: State, derived: Derived, geom: Geometry,
+                hv: HybridVCoord, cfg: Config, dt, dtype=None):
+    """The operands of ``prim_step_packed_t4`` from a full state, on the
+    state's device: dict of scal (dt in the dt2 slot, eta_ave_w = 1), meta,
+    s0 (the n0 level, stacked), qdp (the qn0 level, all tracers stacked),
+    pecnd, acc = (vn0u, vn0v, omg), dvv and rsp (the geometry's rspheremp,
+    one row)."""
+    from ..convert import pack_qdp_t
+
+    dtype = dtype or state.u.dtype
+    p = pack_problem_t(state, derived, geom, hv, cfg, dtype)
+    return dict(
+        scal=_scalars(dt, 1.0, hv, dtype, state.u.device), meta=p["meta"],
+        s0=torch.cat([p["u0"], p["v0"], p["t0"], p["dp0"]]),
+        qdp=pack_qdp_t(state, cfg, dtype), pecnd=p["pecnd"],
+        acc=(p["vn0u"], p["vn0v"], p["omg"]), dvv=p["dvv"],
+        rsp=_rsp_row(geom, dtype))
+
+
+def prim_unpack_t(state: State, derived: Derived, cfg: Config, s1, qdp, phi,
+                  acc):
+    """Write a packed step's outputs into a full state: s1 into time level
+    np1, the tracers into qdp level 1 - qn0, phi and the accumulators into
+    the derived state. Returns new (state, derived); the inputs are not
+    modified."""
+    from ..convert import unpack_qdp_t
+
+    nelem, np1, k = cfg.nelem, cfg.np1, cfg.nlev
+
+    def put(x, i):
+        out = x.clone()
+        out[np1] = unpack_field_t(s1[i * k:(i + 1) * k], nelem)
+        return out
+
+    new_q = state.qdp.clone()
+    new_q[1 - cfg.qn0] = unpack_qdp_t(qdp, nelem, k)
+    new_state = dataclasses.replace(
+        state, u=put(state.u, 0), v=put(state.v, 1), t=put(state.t, 2),
+        dp3d=put(state.dp3d, 3), qdp=new_q)
+    new_derived = dataclasses.replace(
+        derived, vn0_u=unpack_field_t(acc[0], nelem),
+        vn0_v=unpack_field_t(acc[1], nelem), phi=unpack_field_t(phi, nelem),
+        omega_p=unpack_field_t(acc[2], nelem))
+    return new_state, new_derived
+
+
+def prim_t(state: State, derived: Derived, geom: Geometry, hv: HybridVCoord,
+           plan: StructuredDssPlan, cfg: Config, nu=0.0, qsplit: int = 1,
+           moist: bool = True, limit_tracers: bool = False,
+           limit_iters: int = 2, device="cuda"):
+    """Full-state model step of length cfg.dt with the contract of
+    ``timeloop.prim.prim_run_step`` on the packed layout: pack,
+    ``prim_step_packed_t4``, unpack into time level np1 and qdp level
+    1 - qn0. The n0 level and qdp[qn0] must be continuous. Returns (state,
+    derived, cfg) on ``device``, cfg carrying the rotated time levels with
+    qn0 flipped."""
+    if cfg.rsplit <= 0:
+        raise NotImplementedError("prim_t ports the rsplit>0 path only")
+    dev, (state, derived, geom, hv) = _on(device, state, derived, geom, hv)
+    p = prim_pack_t(state, derived, geom, hv, cfg, cfg.dt)
+    s1, qdp, phi, *acc = prim_step_packed_t4(
+        p["scal"], p["meta"], p["s0"], p["qdp"], p["pecnd"], *p["acc"],
+        p["dvv"], plan, p["rsp"], nu, cfg.nlev, qsplit=qsplit, moist=moist,
+        limit_tracers=limit_tracers, limit_iters=limit_iters, dt=cfg.dt)
+    state, derived = prim_unpack_t(state, derived, cfg, s1, qdp, phi, acc)
+    return state, derived, dataclasses.replace(rotated(cfg), qn0=1 - cfg.qn0)

@@ -25,7 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 SOURCES = {"caar": "caar.cu", "dss": "dss.cu", "hypervis": "hypervis.cu",
-           "saxpby": "saxpby.cu"}
+           "saxpby": "saxpby.cu", "tracer": "tracer.cu"}
 _FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -112,6 +112,11 @@ _SIGNATURES = {
         "saxpby_f64_launch": [ctypes.c_double, ctypes.c_double, _P, _P,
                               ctypes.c_longlong, _P, _I],
         "saxpby_error_string": [_I],
+    },
+    "tracer": {
+        "tracer_euler_launch": [_P] * 8 + [_I] * 7 + [_F, _F, _P, _I],
+        "tracer_limit_launch": [_P] * 9 + [_I] * 7 + [_F] * 4 + [_P, _I],
+        "tracer_error_string": [_I],
     },
 }
 

@@ -1,0 +1,287 @@
+"""Tracer advection on the packed [qsize*nlev, E16] layout (counterpart of
+``tinman_sandbox_tpu/kernels/tracer_pallas_t.py``).
+
+All tracers ride the row axis, tracer-major (row = q*nlev + level), and one
+launch advects every tracer: per row
+
+    e = q - dt * div(v * q),   div = (D_x(gv1) + D_y(gv2)) * rmetdet * rrearth,
+    gv1 = metdet*(dinv00*vu*q + dinv01*vv*q), gv2 alike,
+
+with spheremp folded into the output, so that the structured DSS
+(``kernels/dss.py``) completes the continuous projection
+rspheremp * DSS(spheremp * x) without another pass.
+
+The two kernels are ``csrc/tracer.cu`` (its note gives the design):
+
+  * ``tracer_euler_cuda``: ``sph * e`` (or ``e`` with ``fold_sph=False``).
+    It replaces ``tracer_euler_pallas_packed_t`` (tracer_pallas_t.py:404),
+    ``tracer_euler_pallas_packed_t_lg`` (:507) and
+    ``tracer_euler_pallas_packed_t_ext`` (:674), which share the body
+    ``_tracer_kernel_t`` (:195-251) and differ in how the TPU's grid cuts
+    the lanes and rows and lays out the fix-lane slab.
+  * ``tracer_limit_cuda``: the fused limited stage ``sph * L(y, bounds(q))``
+    with ``y = e`` or, with ``mix=(mx, ca, cb)``, the Shu-Osher combination
+    ``ca*mx + cb*e``. It replaces ``tracer_limit_pallas_packed_t_ext``
+    (:322), body ``_tracer_limit_kernel_t`` (:254-317). L is the monotone
+    mass-conserving limiter in the kernel form ``_limit_lanes`` (:145-192):
+    bounds from the extrema of the stage INPUT q over each element's 16
+    lanes, weights spheremp, the deficit as the sum of the clipped-off
+    amounts (never a difference of two masses), redistribution into the room
+    toward the bound the deficit's sign selects, and a final uniform
+    residual pass. It is another formulation than the field form
+    ``ops.limiter.limit_tracer`` and agrees with it to ~2e-4 in f32.
+
+Each has a plain PyTorch version (``tracer_euler_plain``,
+``tracer_limit_plain``). The wrappers check their operands, run the plain
+version for CPU tensors (any float dtype) and launch the kernel for CUDA
+tensors (float32), counted in ``<wrapper>.launches`` (and those with a slab
+output also in ``<wrapper>.slab_launches``).
+
+The winds are read out of ``vu`` / ``vv`` at the nlev-row BLOCK indices
+``wind_rows``: pass the stacked [4*nlev, E16] prognostic state as both with
+``wind_rows=(0, 1)`` to read them in place, with no slice copy. With
+``fix=`` (the fix-lane tables of ``kernels/dss.py``) both also return the
+slab [nfix, qsize*nlev] with ``slab[r] = out[:, read_lanes[r]]``.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..config import NPSQ
+from ..constants import CONSTANTS
+from ..ops.sphere import full_precision_matmuls
+from . import _build
+from .layout import META_COLS
+
+__all__ = ["tracer_euler_plain", "tracer_euler_cuda", "tracer_limit_plain",
+           "tracer_limit_cuda"]
+
+_MC = {name: i for i, name in enumerate(META_COLS)}
+
+
+def _advect_plain(meta, vu, vv, q, dvv, dt, nlev, wind_rows):
+    """e = q - dt*div(v*q) on [qsize*nlev, E16] rows, and spheremp [E16]."""
+    full_precision_matmuls()
+    dt = float(dt)                    # a numpy scalar would take over the op
+    k = nlev
+    qk, e16 = q.shape
+    nq, ne = qk // k, e16 // NPSQ
+    wu, wv = wind_rows
+    u, v = vu[wu * k:(wu + 1) * k], vv[wv * k:(wv + 1) * k]
+
+    def row(name):
+        return meta[_MC[name]]                       # [E16], broadcast on rows
+
+    def dx(s):
+        return torch.einsum("il,keij->kelj", dvv,
+                            s.reshape(qk, ne, 4, 4)).reshape(qk, e16)
+
+    def dy(s):
+        return torch.einsum("keji,il->kejl", s.reshape(qk, ne, 4, 4),
+                            dvv).reshape(qk, e16)
+
+    # the winds broadcast over the tracer axis
+    q3 = q.reshape(nq, k, e16)
+    vq1, vq2 = (q3 * u).reshape(qk, e16), (q3 * v).reshape(qk, e16)
+    metdet = row("metdet")
+    gv1 = metdet * (row("dinv00") * vq1 + row("dinv01") * vq2)
+    gv2 = metdet * (row("dinv10") * vq1 + row("dinv11") * vq2)
+    div = (dx(gv1) + dy(gv2)) * (row("rmetdet") * CONSTANTS.rrearth)
+    return q - dt * div, row("spheremp")
+
+
+def _with_slab(out, fix):
+    if fix is None:
+        return out
+    return out, out[:, fix.read_lanes.long()].T.contiguous()
+
+
+def tracer_euler_plain(meta, vu, vv, q, dvv, dt, nlev: int,
+                       fold_sph: bool = True, wind_rows=(0, 0), fix=None):
+    """Plain PyTorch ``tracer_euler_cuda``: spheremp * (q - dt*div(v*q)),
+    or without the spheremp factor; with ``fix`` also the slab. Pure."""
+    adv, sph = _advect_plain(meta, vu, vv, q, dvv, dt, nlev, wind_rows)
+    return _with_slab(sph * adv if fold_sph else adv, fix)
+
+
+def _limit_lanes_plain(y, q_in, w, iters: int):
+    """``_limit_lanes`` of the JAX package as its interpret mode computes
+    it: y, q_in [rows, E16]; w [E16]. Group = the 16 lanes of an element."""
+    rows, e16 = y.shape
+    nel = e16 // NPSQ
+    tiny = torch.finfo(y.dtype).tiny
+
+    def gsum(x):
+        return x.reshape(-1, nel, NPSQ).sum(2)
+
+    def lanes(s):
+        return s.repeat_interleave(NPSQ, dim=1)
+
+    q3 = q_in.reshape(rows, nel, NPSQ)
+    qminb, qmaxb = lanes(q3.amin(2)), lanes(q3.amax(2))
+    mass = gsum(w * y)
+    wsum = gsum(w[None])
+    carry = torch.zeros_like(mass)
+    for _ in range(iters):
+        yc = torch.minimum(torch.maximum(y, qminb), qmaxb)
+        d = gsum(w * (y - yc)) + carry
+        pos = d > 0
+        posb = lanes(pos)
+        room = torch.where(posb, qmaxb - yc, yc - qminb)
+        tot = gsum(w * room)
+        give = torch.where(pos, torch.minimum(d, tot), torch.maximum(d, -tot))
+        carry = d - give
+        c = give / tot.clamp(min=tiny)               # signed coefficient
+        bsel = torch.where(posb, qmaxb, qminb)
+        y = yc + lanes(c.abs()) * (bsel - yc)
+    # exact-conservation fallback: spread the residual uniformly by weight
+    return y + lanes((mass - gsum(w * y)) / wsum)
+
+
+def _mix_of(name, q, mix):
+    """Validate ``mix=(mx, ca, cb)`` against q; (mx, ca, cb) with the
+    coefficients as Python floats (a float32 value converts exactly)."""
+    if mix is None:
+        return None, 0.0, 0.0
+    mx, ca, cb = mix
+    if tuple(mx.shape) != tuple(q.shape):
+        raise ValueError(f"{name}: mix field must be {tuple(q.shape)}, got "
+                         f"{tuple(mx.shape)}")
+    return mx, float(ca), float(cb)
+
+
+def tracer_limit_plain(meta, vu, vv, q, dvv, dt, nlev: int, mix=None,
+                       wind_rows=(0, 0), iters: int = 2, fix=None):
+    """Plain PyTorch ``tracer_limit_cuda``: sph * L(y, bounds(q)) with
+    y = q - dt*div(v*q), or ca*mx + cb*that with ``mix=(mx, ca, cb)``; with
+    ``fix`` also the slab. Pure."""
+    mx, ca, cb = _mix_of("tracer_limit", q, mix)
+    y, sph = _advect_plain(meta, vu, vv, q, dvv, dt, nlev, wind_rows)
+    if mx is not None:
+        y = ca * mx + cb * y
+    return _with_slab(sph * _limit_lanes_plain(y, q, sph, iters), fix)
+
+
+def _check(name, meta, vu, vv, q, dvv, nlev, wind_rows, mx=None):
+    """Validate the operands of one tracer launch; returns the device."""
+    dev, dtype = q.device, q.dtype
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: needs float fields, got {dtype}")
+    if dev.type == "cuda" and dtype != torch.float32:
+        raise TypeError(f"{name}: the CUDA kernel takes float32 only")
+    if q.ndim != 2 or nlev < 1 or q.shape[0] < nlev or q.shape[0] % nlev \
+            or q.shape[1] % NPSQ:
+        raise ValueError(f"{name}: q must be [qsize*{nlev}, multiple of "
+                         f"{NPSQ}], got {tuple(q.shape)}")
+    e16 = q.shape[1]
+    wu, wv = wind_rows
+    for wname, w, blk in (("vu", vu, wu), ("vv", vv, wv)):
+        if w.ndim != 2 or blk < 0 or w.shape[0] < (blk + 1) * nlev \
+                or w.shape[1] != e16:
+            raise ValueError(f"{name}: {wname} must be [>= {(blk + 1) * nlev}"
+                             f", {e16}] for wind row block {blk}, got "
+                             f"{tuple(w.shape)}")
+    ops = [("meta", meta, (len(META_COLS), e16)), ("dvv", dvv, (4, 4)),
+           ("vu", vu, tuple(vu.shape)), ("vv", vv, tuple(vv.shape)),
+           ("q", q, tuple(q.shape))]
+    if mx is not None:
+        ops.append(("mix field", mx, tuple(q.shape)))
+    for op, t, shape in ops:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {op} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{name}: {op} is {t.dtype} on {t.device}, "
+                             f"expected {dtype} on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {op} must be contiguous")
+    return dev
+
+
+def _new_slab(name, fix, q):
+    """(fix_rank pointer, slab) for ``fix``, the slab [nfix, rows of q]."""
+    if fix is None:
+        return 0, None
+    rank = fix.fix_rank
+    if rank.device != q.device or rank.dtype != torch.int32 \
+            or tuple(rank.shape) != (q.shape[1],):
+        raise ValueError(f"{name}: fix_rank must be int32 [{q.shape[1]}] on "
+                         f"{q.device}, got {rank.dtype} {tuple(rank.shape)} "
+                         f"on {rank.device}")
+    return rank.data_ptr(), torch.empty(fix.nfix, q.shape[0], dtype=q.dtype,
+                                        device=q.device)
+
+
+def tracer_euler_cuda(meta, vu, vv, q, dvv, dt, nlev: int,
+                      fold_sph: bool = True, wind_rows=(0, 0), fix=None):
+    """spheremp * (q - dt*div(v*q)) for the stacked [qsize*nlev, E16] tracer
+    block (counterpart of ``tracer_euler_pallas_packed_t`` and, with
+    ``fix``, of its slab-emitting forms ``_lg`` and ``_ext``). meta
+    [16, E16]; vu, vv [>= (block+1)*nlev, E16] holding the winds at the row
+    blocks ``wind_rows``; dvv [4, 4]; ``dt`` a number. ``fold_sph=False``
+    returns the plain advected value. Returns out [qsize*nlev, E16], and
+    with ``fix`` also the fix-lane slab [nfix, qsize*nlev]."""
+    dev = _check("tracer_euler", meta, vu, vv, q, dvv, nlev, wind_rows)
+    if dev.type == "cpu":
+        return tracer_euler_plain(meta, vu, vv, q, dvv, dt, nlev, fold_sph,
+                                  wind_rows, fix)
+    rank, slab = _new_slab("tracer_euler", fix, q)
+    out = torch.empty_like(q)
+    e16 = q.shape[1]
+    err = _build.library("tracer").tracer_euler_launch(
+        meta.data_ptr(), dvv.data_ptr(), vu.data_ptr(), vv.data_ptr(),
+        q.data_ptr(), out.data_ptr(), rank,
+        0 if slab is None else slab.data_ptr(), nlev, q.shape[0] // nlev,
+        e16, e16, wind_rows[0], wind_rows[1], int(bool(fold_sph)), float(dt),
+        CONSTANTS.rrearth, torch.cuda.current_stream(dev).cuda_stream,
+        dev.index)
+    _build.check_launch("tracer", err)
+    tracer_euler_cuda.launches += 1
+    if slab is None:
+        return out
+    tracer_euler_cuda.slab_launches += 1
+    return out, slab
+
+
+tracer_euler_cuda.launches = 0
+tracer_euler_cuda.slab_launches = 0   # the launches among them with a slab
+
+
+def tracer_limit_cuda(meta, vu, vv, q, dvv, dt, nlev: int, mix=None,
+                      wind_rows=(0, 0), iters: int = 2, fix=None):
+    """One fused LIMITED tracer stage (counterpart of
+    ``tracer_limit_pallas_packed_t_ext``): e = q - dt*div(v*q); y = e, or
+    ca*mx + cb*e with ``mix=(mx, ca, cb)`` (mx of q's shape, ca and cb
+    numbers); y = L(y, bounds(q)) element by element; out = spheremp * y.
+    Operands as ``tracer_euler_cuda``; ``iters`` clip-and-redistribute
+    passes (1 conserves but may leave the bounds). Returns out
+    [qsize*nlev, E16], and with ``fix`` also the slab [nfix, qsize*nlev]."""
+    mx, ca, cb = _mix_of("tracer_limit", q, mix)
+    if iters < 1:
+        raise ValueError(f"tracer_limit: iters must be >= 1, got {iters}")
+    dev = _check("tracer_limit", meta, vu, vv, q, dvv, nlev, wind_rows, mx)
+    if dev.type == "cpu":
+        return tracer_limit_plain(meta, vu, vv, q, dvv, dt, nlev, mix,
+                                  wind_rows, iters, fix)
+    rank, slab = _new_slab("tracer_limit", fix, q)
+    out = torch.empty_like(q)
+    e16 = q.shape[1]
+    err = _build.library("tracer").tracer_limit_launch(
+        meta.data_ptr(), dvv.data_ptr(), vu.data_ptr(), vv.data_ptr(),
+        q.data_ptr(), 0 if mx is None else mx.data_ptr(), out.data_ptr(),
+        rank, 0 if slab is None else slab.data_ptr(), nlev,
+        q.shape[0] // nlev, e16, e16, wind_rows[0], wind_rows[1], int(iters),
+        float(dt), ca, cb, CONSTANTS.rrearth,
+        torch.cuda.current_stream(dev).cuda_stream, dev.index)
+    _build.check_launch("tracer", err)
+    tracer_limit_cuda.launches += 1
+    if slab is None:
+        return out
+    tracer_limit_cuda.slab_launches += 1
+    return out, slab
+
+
+tracer_limit_cuda.launches = 0
+tracer_limit_cuda.slab_launches = 0   # the launches among them with a slab

@@ -1,4 +1,6 @@
 """Batched operators (counterpart of ``tinman_sandbox_tpu/ops``)."""
+from .limiter import element_bounds, limit_tracer
+from .remap import comp_sum
 from .scans import midpoint_pressure, preq_hydrostatic, preq_omega_ps
 from .sphere import (
     curl_sphere_wk_testcov,
@@ -20,16 +22,19 @@ from .sphere import (
 from .thermo import virtual_temperature
 
 __all__ = [
+    "comp_sum",
     "curl_sphere_wk_testcov",
     "divergence_sphere",
     "divergence_sphere_update",
     "divergence_sphere_wk",
+    "element_bounds",
     "grad_sphere_wk_testcov",
     "gradient_sphere",
     "gradient_sphere_update",
     "laplace_simple",
     "laplace_tensor",
     "laplace_tensor_replace",
+    "limit_tracer",
     "midpoint_pressure",
     "preq_hydrostatic",
     "preq_omega_ps",
