@@ -71,7 +71,30 @@ NVIDIA card and check it, phase by phase:
      --hypervis-nu 1e15``, again with ``--limit`` and again with ``--qsize
      35``; per step 3 CAAR launches, 2 Laplacians, 3 tracer launches, 8
      fixups and 8 sweeps;
- 13. one JSON line of kernels (launches on the main paths, errors, times,
+ 13. the rsplit=0 and row-layout kernels at 1024 x 72 and 5,400 x 72 (the
+     ne30 geometry), with a hybi ramp (linspace(0, 1, nlev+1)) and a random
+     eta accumulator: the rsplit=0 mode on the t layout
+     (``caar_packed_rsplit0_t``) and on the row layout
+     (``caar_packed_rsplit0``) and the row rsplit>0 mode (``caar_packed``),
+     each against its plain version, each output field on its own within
+     5e-5 scaled, in the three cases of phase 3 and a ``wind`` case (sm1 =
+     0, winds x30, where the vertical advection of u and v carries ~2e-3 of
+     the output); the row tracer kernel (``euler_packed``) against its plain
+     version within 5e-5 per tracer block at qsize 1 and 35 on ne30, at the
+     run's dt and at a dt long enough for the divergence to carry the
+     output; each timed against its bound, its plain version and the t form
+     at the same shape;
+ 14. the rsplit=0 and row-layout main paths, their launch counts set to 0
+     just before and read just after: the CLI ``--layout row`` at 1024
+     elements x 100 steps (golden-checked) and ``--layout row --ne 30 --dss
+     --leapfrog --init random --dt 0.05`` (no warning, continuity exactly
+     0); 10 chained rsplit=0 leapfrog steps through ``caar_t`` and through
+     ``kernels.caar.caar`` at 5,400 x 72 (hybi ramp) against the same chains
+     on the plain versions (1e-4 scaled, all finite); 10 chained tracer
+     steps through ``euler_step_fast`` at ne30 against the field form
+     ``timeloop.tracer.euler_step`` on the card (1e-5 scaled); ``bench
+     --layout row`` and ``bench --layout row --ne 30``;
+ 15. one JSON line of kernels (launches on the main paths, errors, times,
      bounds), the card line, and last the result line.
 
 Any failure raises and exits non-zero before the result line is printed.
@@ -100,6 +123,14 @@ VLAP_OPS_PER_POINT = 140
 # and for the limited stage 8 half-warp reductions of 4 and two passes
 TRACER_OPS_PER_POINT = 36
 LIMIT_OPS_PER_POINT = 110
+# the rsplit=0 mode adds per grid point the divergence of pass 1, the two
+# interface fluxes, 1/dp, the vertical advection of u, v, T and the dp
+# stencil, counted from csrc/caar.cu
+RSPLIT0_OPS_PER_POINT = 250
+# the row tracer kernel: two flux products, the metric products and two
+# contractions of 7 per point and tracer (csrc/tracer.cu)
+TRACER_ROW_OPS_PER_POINT = 32
+WIND = 30.0                    # m/s: the wind case's winds, U(-1, 1) x this
 CAAR_TOL = 5e-5                # the repo's on-chip equivalence gate
 CONSERVE_TOL = 4e-6            # limiter: an element's mass, of its sum|w*y|
 BOUNDS_TOL = 1e-6              # limiter: outside the bounds, of max|q|
@@ -1154,6 +1185,367 @@ def phase_prim_path(dev, cs):
     return results
 
 
+def r0_cases(const, acc):
+    """The rsplit=0 gate's cases as (name, args), args the operands of
+    ``caar_packed_rsplit0_t``: (scal, hyb, meta, u0, v0, t0, dp0, um1, vm1,
+    tm1, dpm1, qdp, pecnd, vn0u, vn0v, omg, etaacc, dvv), with a hybi ramp
+    (the analytic hvcoord's hybi = 0 would hide the hybi*sdot term) and a
+    random eta accumulator. The cases of ``caar_cases`` and ``wind``: sm1 =
+    0 and the winds x WIND. The vertical advection of u and v grows as the
+    wind squared, the pressure-gradient term beside it does not: in the
+    other cases it is ~1e-5 of u1 and v1, below the gate, here ~2e-3."""
+    import numpy as np
+    import torch
+
+    scal, meta, s0, sm1, qdp, pecnd, dvv = const
+    k, e16 = qdp.shape
+    hybi = torch.linspace(0.0, 1.0, k + 1, device=qdp.device)
+    hyb = torch.stack([hybi[:k], hybi[1:]], dim=1).contiguous()
+    eta = torch.from_numpy(np.random.default_rng(4).uniform(
+        -1, 1, (k, e16)).astype(np.float32)).to(qdp.device)
+    windy = s0.clone()
+    windy[:2 * k] *= WIND
+    cases = caar_cases(const, acc) + [
+        ("wind", (scal, meta, windy, torch.zeros_like(sm1), qdp, pecnd, *acc,
+                  dvv))]
+    return [(name, (a[0], hyb, a[1], *a[2].split(k), *a[3].split(k), *a[4:9],
+                    eta, a[9])) for name, a in cases]
+
+
+def row_args(args, hyb=True):
+    """Operands of the t-layout rsplit=0 step on the row layout: each
+    [nlev, E16] field, the meta and hyb transposed (contiguous); without
+    ``hyb`` the operands of ``caar_packed`` (no hyb, no etaacc)."""
+    t = lambda x: x.T.contiguous()
+    scal, h, meta, *fields, eta, dvv = args
+    if hyb:
+        return (scal, t(h), t(meta), *map(t, fields), t(eta), dvv)
+    return (scal, t(meta), *map(t, fields), dvv)
+
+
+R0_NAMES = ("u1", "v1", "t1", "dp1", "phi", "vn0u", "vn0v", "omg", "eta")
+
+
+def phase_row_kernels(dev, cs):
+    """The rsplit=0 modes on both layouts, the row rsplit>0 mode and the row
+    tracer kernel. Returns their four kernel rows."""
+    import torch
+
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.kernels.caar import (
+        caar_packed, caar_packed_plain, caar_packed_rsplit0,
+        caar_packed_rsplit0_plain)
+    from tinman_sandbox_tpu_torch.kernels.caar_t import (
+        caar_packed_rsplit0_t, caar_packed_rsplit0_t_plain, caar_packed_t)
+    from tinman_sandbox_tpu_torch.kernels.tracer import (
+        euler_packed, euler_packed_plain)
+    from tinman_sandbox_tpu_torch.kernels.tracer_t import tracer_euler_cuda
+
+    rows = {}
+    modes = {
+        "caar_packed_rsplit0_t": (caar_packed_rsplit0_t,
+                                  caar_packed_rsplit0_t_plain,
+                                  lambda a: a, R0_NAMES),
+        "caar_packed_rsplit0": (caar_packed_rsplit0,
+                                caar_packed_rsplit0_plain, row_args,
+                                R0_NAMES),
+        "caar_packed": (caar_packed, caar_packed_plain,
+                        lambda a: row_args(a, hyb=False), R0_NAMES[:8]),
+    }
+    for nelem in (1024, 5400):
+        if nelem == 1024:
+            const, acc = bench.make_problem(nelem, NLEV, dev, seed=7)
+            tag = f"{nelem}x{NLEV}"
+        else:
+            (scal, meta, qdp, pecnd, dvv), (s0, sm1), acc, _, _ = \
+                bench.make_assembled_problem(cs.ne, NLEV, dev)
+            const = (scal, meta, s0, sm1, qdp, pecnd, dvv)
+            tag = f"ne{cs.ne}x{NLEV}"
+        e16 = nelem * 16
+        worst = {name: [0.0, 0.0] for name in modes}
+        bench_args = None
+        for case, targs in r0_cases(const, acc):
+            if case == "bench":
+                bench_args = targs
+            for name, (kern, plain, conv, names) in modes.items():
+                args = conv(targs)
+                nacc = 4 if len(names) == 9 else 3
+                want = plain(*args)
+                kacc = [x.clone() for x in args[-1 - nacc:-1]]
+                got = kern(*args[:-1 - nacc], *kacc, args[-1])
+                torch.cuda.synchronize()
+                for g in got:
+                    if not bool(torch.isfinite(g).all()):
+                        raise AssertionError(f"{name} {tag} {case}: "
+                                             "non-finite")
+                errs = {n: scaled_err(g, w)
+                        for n, g, w in zip(names, got, want)}
+                print(f"phase 13 {name} {tag} {case}: scaled errors "
+                      + " ".join(f"{a} {b:.2e}" for a, b in errs.items()))
+                if max(errs.values()) > CAAR_TOL:
+                    raise AssertionError(f"{name} {tag} {case}: {errs} > "
+                                         f"{CAAR_TOL}")
+                worst[name][0] = max(worst[name][0], *errs.values())
+                worst[name][1] = max(worst[name][1], *(
+                    float((g - w).abs().max()) for g, w in zip(got, want)))
+                del want, got, kacc
+        # times on the bench case; the t form's pair step at the same shape
+        times = {}
+        for name, (kern, plain, conv, names) in modes.items():
+            args = conv(bench_args)
+            nacc = 4 if len(names) == 9 else 3
+            kacc = [x.clone() for x in args[-1 - nacc:-1]]
+            times[name] = (
+                cuda_ms(lambda: kern(*args[:-1 - nacc], *kacc, args[-1]), 20),
+                cuda_ms(lambda: plain(*args), 5))
+        targs = bench_args
+        tacc = [x.clone() for x in targs[13:16]]
+        t_ms = cuda_ms(lambda: caar_packed_t(targs[0], *targs[2:13], *tacc,
+                                             targs[17]), 20)
+        # fields read once and written once, the 13 meta rows, dvv, scal;
+        # rsplit=0 also the eta accumulator (read, written) and hyb
+        nb_pair = (21 * NLEV + 13) * e16 * 4 + 16 * 4 + 3 * 4
+        nb_r0 = nb_pair + 2 * NLEV * e16 * 4 + 2 * NLEV * 4
+        bounds = {
+            "caar_packed_rsplit0_t": bound_ms(
+                nb_r0, RSPLIT0_OPS_PER_POINT * e16 * NLEV),
+            "caar_packed_rsplit0": bound_ms(
+                nb_r0, RSPLIT0_OPS_PER_POINT * e16 * NLEV),
+            "caar_packed": bound_ms(nb_pair, CAAR_OPS_PER_POINT * e16 * NLEV),
+        }
+        for name, (k_ms, p_ms) in times.items():
+            print(f"phase 13 {name} {tag}: kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms, library none, bound {bounds[name][0]:.4f} "
+                  f"ms ({bounds[name][1]}); the t-layout pair step "
+                  f"caar_packed_t {t_ms:.4f} ms (kernel / t pair "
+                  f"{k_ms / t_ms:.2f})")
+        print(f"phase 13 {tag}: row / t at the same shape: rsplit>0 "
+              f"{times['caar_packed'][0] / t_ms:.2f}, rsplit=0 "
+              f"{times['caar_packed_rsplit0'][0] / times['caar_packed_rsplit0_t'][0]:.2f}")
+        for name in modes:
+            sfx = "" if nelem == 1024 else "ne30_"
+            r = rows.setdefault(name, dict(
+                route="cuda", source="tinman_sandbox_tpu_torch/csrc/caar.cu",
+                replaces={
+                    "caar_packed_rsplit0_t":
+                        "tinman_sandbox_tpu/kernels/caar_pallas_t.py:856",
+                    "caar_packed_rsplit0":
+                        "tinman_sandbox_tpu/kernels/caar_pallas.py:365",
+                    "caar_packed":
+                        "tinman_sandbox_tpu/kernels/caar_pallas.py:307"}[name],
+                library_ms=None))
+            r.update({f"{sfx}max_scaled_err": worst[name][0],
+                      f"{sfx}ms": times[name][0],
+                      f"{sfx}plain_ms": times[name][1],
+                      f"{sfx}bound_ms": bounds[name][0],
+                      f"{sfx}bound_by": bounds[name][1],
+                      f"{sfx}t_pair_ms": t_ms})
+            r["max_abs_err"] = max(r.get("max_abs_err", 0.0), worst[name][1])
+        del const, acc, bench_args, targs
+        torch.cuda.empty_cache()
+
+    # -- the row tracer kernel at ne30, qsize 1 and QSIZE_TALL
+    (scal, meta_t, _, dvv), s0, _, _, _, _ = bench.make_prim_problem(
+        cs.ne, NLEV, dev, DYN_DT, 1)
+    k, e16 = NLEV, cs.nelem * 16
+    meta = meta_t.T.contiguous()
+    vu, vv = s0[:k].T.contiguous(), s0[k:2 * k].T.contiguous()
+    for qsize in (1, QSIZE_TALL):
+        tag = f"ne{cs.ne}x{k} qsize {qsize}"
+        qt = bench.make_prim_problem(cs.ne, k, dev, DYN_DT, qsize)[2]
+        q = qt.T.contiguous()                       # [E16, qsize*nlev]
+        div = q - euler_packed_plain(meta, vu, vv, q, dvv, 1.0, k)
+        dt_long = 0.5 * float(q.abs().max()) / float(div.abs().max())
+        del div
+        worst = worst_abs = 0.0
+        for dt in (DYN_DT, dt_long):
+            want = euler_packed_plain(meta, vu, vv, q, dvv, dt, k)
+            got = euler_packed(meta, vu, vv, q, dvv, dt, k)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"euler_packed {tag}: non-finite")
+            err = max(scaled_err(a, b) for a, b in zip(got.split(k, 1),
+                                                       want.split(k, 1)))
+            print(f"phase 13 euler_packed {tag} dt {dt:.4g}: worst scaled "
+                  f"error of a tracer block {err:.2e}")
+            if err > CAAR_TOL:
+                raise AssertionError(f"euler_packed {tag}: {err} > {CAAR_TOL}")
+            worst = max(worst, err)
+            worst_abs = max(worst_abs, float((got - want).abs().max()))
+            del want, got
+        reps = 50 if qsize == 1 else 10
+        k_ms = cuda_ms(lambda: euler_packed(meta, vu, vv, q, dvv, DYN_DT, k),
+                       reps)
+        p_ms = cuda_ms(lambda: euler_packed_plain(meta, vu, vv, q, dvv,
+                                                  DYN_DT, k), 3)
+        # the t form at the same shape: no spheremp, no slab
+        t_ms = cuda_ms(lambda: tracer_euler_cuda(meta_t, s0, s0, qt, dvv,
+                                                 DYN_DT, k, fold_sph=False,
+                                                 wind_rows=(0, 1)), reps)
+        # q read, out written, the two wind blocks, 6 meta values, dvv
+        nbytes = (2 * qsize * k + 2 * k + 6) * e16 * 4 + 16 * 4
+        bnd, by = bound_ms(nbytes, TRACER_ROW_OPS_PER_POINT * qsize * k * e16)
+        print(f"phase 13 euler_packed {tag}: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, library none, bound {bnd:.4f} ms ({by}, "
+              f"{nbytes} B); the t form tracer_euler_cuda {t_ms:.4f} ms "
+              f"(row / t {k_ms / t_ms:.2f})")
+        if qsize == 1:
+            rows["euler_packed"] = dict(
+                route="cuda", source="tinman_sandbox_tpu_torch/csrc/tracer.cu",
+                replaces="tinman_sandbox_tpu/kernels/tracer_pallas.py:61",
+                max_abs_err=worst_abs, max_scaled_err=worst, ms=k_ms,
+                plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=None,
+                t_form_ms=t_ms)
+        else:
+            rows["euler_packed"].update(
+                tall_qsize=qsize, tall_max_scaled_err=worst, tall_ms=k_ms,
+                tall_plain_ms=p_ms, tall_bound_ms=bnd, tall_t_form_ms=t_ms)
+            rows["euler_packed"]["max_abs_err"] = max(
+                rows["euler_packed"]["max_abs_err"], worst_abs)
+        del q, qt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_row_path(dev, cs):
+    """The rsplit=0 and row-layout main paths. Returns the two bench
+    results (raw, assembled)."""
+    import dataclasses
+
+    import torch
+
+    import tinman_sandbox_tpu_torch as tt
+    from tinman_sandbox_tpu_torch import bench, cli
+    from tinman_sandbox_tpu_torch.golden import golden_caar
+    from tinman_sandbox_tpu_torch.kernels.caar import (
+        ROW_PACKING, caar, caar_packed_rsplit0_plain)
+    from tinman_sandbox_tpu_torch.kernels.caar_t import (
+        T_PACKING, caar_packed_rsplit0_t_plain, caar_t, full_step)
+    from tinman_sandbox_tpu_torch.kernels.tracer import euler_step_fast
+    from tinman_sandbox_tpu_torch.timeloop import rotated
+    from tinman_sandbox_tpu_torch.timeloop.tracer import euler_step
+
+    # the CLI's raw row path at 1024 elements, golden-checked
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--layout", "row", "--num-elems", "1024",
+                       "--num-exec", "100", "--golden-check"])
+    out = buf.getvalue()
+    if rc != 0 or "row-layout" not in out:
+        raise AssertionError(f"cli --layout row exited {rc}:\n{out}")
+    speed = [ln for ln in out.splitlines() if "Mgridpoints/s" in ln]
+    gold = [ln for ln in out.splitlines() if "golden diffs" in ln]
+    diffs = gold[0].split("golden diffs: T")[1].split()
+    ref = golden_caar()
+    for key, diff in (("T", diffs[0]), ("v1", diffs[2]), ("v2", diffs[4])):
+        lim = CAAR_TOL * float(abs(ref[key]).max())
+        if not float(diff) < lim:
+            raise AssertionError(f"cli --layout row golden {key}: {diff} >= "
+                                 f"{lim:.3e}")
+    print("phase 14 cli --layout row 1024x72 x100:" + speed[0].split(":", 1)[1]
+          + ";" + gold[0].split("---", 1)[1])
+
+    # the CLI's row assembled path at ne30
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--layout", "row", "--ne", str(cs.ne), "--dss",
+                       "--leapfrog", "--num-exec", "20", "--init", "random",
+                       "--dt", "0.05"])
+    out = buf.getvalue()
+    if rc != 0 or "WARNING" in out:
+        raise AssertionError(f"cli --layout row --ne {cs.ne} --dss exited "
+                             f"{rc}:\n{out}")
+    spread = [ln for ln in out.splitlines() if "continuity:" in ln]
+    if float(spread[0].split()[-1]) != 0.0:
+        raise AssertionError(f"cli --layout row --dss: {spread[0]}")
+    speed = [ln for ln in out.splitlines() if "Mgridpoints/s" in ln]
+    print(f"phase 14 cli --layout row --ne {cs.ne} --dss --leapfrog --init "
+          "random x20:" + speed[0].split(":", 1)[1] + ";"
+          + spread[0].split("---", 1)[1])
+
+    # 10 chained rsplit=0 leapfrog steps at 5,400 x 72, hybi ramp, through
+    # both full-state wrappers, each against the same chain on its plain
+    # version
+    cfg = tt.Config(nelem=5400, nlev=NLEV, dt=0.05, rsplit=0)
+    kw = dict(dtype=torch.float32, device=dev)
+    hv = tt.analytic_hvcoord(cfg, **kw)
+    hv = dataclasses.replace(hv, hybi=torch.linspace(0.0, 1.0, NLEV + 1,
+                                                     **kw))
+    prob = (tt.random_state(cfg, seed=7, **kw), tt.zero_derived(cfg, **kw),
+            tt.random_geometry(cfg, seed=8, **kw), hv)
+    for label, wrapper, plain, packing in (
+            ("caar_t", caar_t, caar_packed_rsplit0_t_plain, T_PACKING),
+            ("kernels.caar.caar", caar, caar_packed_rsplit0_plain,
+             ROW_PACKING)):
+        (ks, kd), (ps, pd), c = prob[:2], prob[:2], cfg
+        k_s = 0.0
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ks, kd = wrapper(ks, kd, *prob[2:], c, 2 * cfg.dt, 0.1,
+                             device=dev)
+            torch.cuda.synchronize()
+            k_s += time.perf_counter() - t0
+            ps, pd = full_step(plain, packing, ps, pd, *prob[2:], c,
+                               2 * cfg.dt, 0.1, device=dev)
+            c = rotated(c)
+        errs = {n: scaled_err(getattr(ks, n), getattr(ps, n))
+                for n in ("u", "v", "t", "dp3d")}
+        errs.update({n: scaled_err(getattr(kd, n), getattr(pd, n)) for n in
+                     ("vn0_u", "vn0_v", "omega_p", "phi", "eta_dot_dpdn")})
+        for n in ("u", "v", "t", "dp3d"):
+            if not bool(torch.isfinite(getattr(ks, n)).all()):
+                raise AssertionError(f"rsplit=0 chain {label}: non-finite {n}")
+        if max(errs.values()) > LEAPFROG_TOL:
+            raise AssertionError(f"rsplit=0 chain {label}: {errs} > "
+                                 f"{LEAPFROG_TOL}")
+        moved = scaled_err(kd.eta_dot_dpdn, prob[1].eta_dot_dpdn)
+        print(f"phase 14 rsplit=0 chain {label} 5400x{NLEV} x10 (kernels "
+              f"{k_s:.3f} s incl. pack): eta_dot_dpdn moved {moved:.2e}; "
+              "scaled errors vs plain "
+              + " ".join(f"{a} {b:.2e}" for a, b in errs.items()))
+    del prob, ks, kd, ps, pd
+
+    # 10 chained tracer steps through the full-state row wrapper at ne30,
+    # against the field form, at a step where they move the tracer
+    tcfg = tt.Config(nelem=cs.nelem, nlev=NLEV, qsize=1)
+    st = tt.random_state(tcfg, seed=7, **kw)
+    q0, u, v = st.qdp[0], st.u[0], st.v[0]
+    div = q0 - euler_step(q0, u, v, cs.geometry, tcfg, 1.0)
+    dt = 0.05 * float(q0.abs().max()) / float(div.abs().max())
+    del div
+    kq = fq = q0
+    k_s = 0.0
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kq = euler_step_fast(kq, u, v, cs.geometry, tcfg, dt, device=dev)
+        torch.cuda.synchronize()
+        k_s += time.perf_counter() - t0
+        fq = euler_step(fq, u, v, cs.geometry, tcfg, dt)
+    err = scaled_err(kq, fq)
+    if not bool(torch.isfinite(kq).all()) or err > DYN_TOL:
+        raise AssertionError(f"euler_step_fast chain: {err} > {DYN_TOL}")
+    print(f"phase 14 euler_step_fast chain ne{cs.ne}x{NLEV} x10 dt {dt:.4g} "
+          f"(kernels {k_s:.3f} s incl. pack): tracer moved "
+          f"{scaled_err(kq, q0):.2e}; scaled error vs the field form "
+          f"{err:.2e}")
+    del st, q0, u, v, kq, fq
+
+    results = []
+    for extra in (["--nelem", "1024", "--nexec", "500"],
+                  ["--ne", str(cs.ne), "--nexec", "100"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = bench.main(["--layout", "row", "--nlev", str(NLEV),
+                              "--reps", "3"] + extra)
+        print("phase 14 bench " + buf.getvalue().strip())
+        if res["layout"] != "row":
+            raise AssertionError(f"bench --layout row: {res}")
+        results.append(res)
+    return results
+
+
 def main() -> int:
     try:
         import torch
@@ -1167,11 +1559,15 @@ def main() -> int:
     try:
         from tinman_sandbox_tpu_torch.dist import build_cubed_sphere
         from tinman_sandbox_tpu_torch.kernels import _build
-        from tinman_sandbox_tpu_torch.kernels.caar_t import caar_t4_cuda
+        from tinman_sandbox_tpu_torch.kernels.caar import (
+            caar_packed, caar_packed_rsplit0)
+        from tinman_sandbox_tpu_torch.kernels.caar_t import (
+            caar_packed_rsplit0_t, caar_t4_cuda)
         from tinman_sandbox_tpu_torch.kernels.dss import (
             dss_extract_cuda, dss_fixup_cuda, dss_sweep_cuda)
         from tinman_sandbox_tpu_torch.kernels.hypervis_t import vlap_cuda
         from tinman_sandbox_tpu_torch.kernels.saxpby import saxpby_cuda
+        from tinman_sandbox_tpu_torch.kernels.tracer import euler_packed
         from tinman_sandbox_tpu_torch.kernels.tracer_t import (
             tracer_euler_cuda, tracer_limit_cuda)
     except ImportError as e:
@@ -1209,7 +1605,9 @@ def main() -> int:
                                         dss_extract_cuda, dss_fixup_cuda,
                                         dss_sweep_cuda, vlap_cuda,
                                         tracer_euler_cuda,
-                                        tracer_limit_cuda)}
+                                        tracer_limit_cuda,
+                                        caar_packed_rsplit0_t, caar_packed,
+                                        caar_packed_rsplit0, euler_packed)}
 
     def reset():
         for w in wrappers.values():
@@ -1242,21 +1640,35 @@ def main() -> int:
     prim = counts()
     tracer_slabs = (tracer_euler_cuda.slab_launches,
                     tracer_limit_cuda.slab_launches)
+    t0 = time.perf_counter()
+    for name, extra in phase_row_kernels(dev, cs).items():
+        rows.setdefault(name, {}).update(extra)
+    print(f"phase 13 seconds: {time.perf_counter() - t0:.1f}")
+    reset()
+    t0 = time.perf_counter()
+    row_res, row_asm_res = phase_row_path(dev, cs)
+    row = counts()
+    print(f"phase 14 seconds: {time.perf_counter() - t0:.1f}")
     for label, res, got in (("raw", raw_res, raw), ("assembled", asm_res,
                                                      asm),
                             ("dynamics", dyn_res, dyn),
-                            ("prim", prim_res, prim)):
-        print(f"phase 13 {label} main-path launches: {json.dumps(got)}; bench "
+                            ("prim", prim_res, prim),
+                            ("row/rsplit=0", row_res, row)):
+        print(f"phase 15 {label} main-path launches: {json.dumps(got)}; bench "
               f"{res['us_per_step']:.2f} us/step, "
               f"{res['achieved_gb_per_s']:.1f} GB/s, "
               f"fraction_of_triad {res['fraction_of_triad']:.3f}")
     for label, res in (("--limit", lim_res),
                        (f"--qsize {QSIZE_TALL}", tall_res)):
-        print(f"phase 13 prim bench {label}: {res['us_per_step']:.2f} "
+        print(f"phase 15 prim bench {label}: {res['us_per_step']:.2f} "
               f"us/step, {res['achieved_gb_per_s']:.1f} GB/s, "
               f"fraction_of_triad {res['fraction_of_triad']:.3f}, min qdp "
               f"{res['min_qdp']:.3e}")
-    print(f"phase 13 assembled main-path CAAR launches with the slab: "
+    print(f"phase 15 row assembled bench: {row_asm_res['us_per_step']:.2f} "
+          f"us/step, {row_asm_res['achieved_gb_per_s']:.1f} GB/s, "
+          f"fraction_of_triad {row_asm_res['fraction_of_triad']:.3f}, "
+          f"launches {json.dumps(row_asm_res['kernel_launches'])}")
+    print(f"phase 15 assembled main-path CAAR launches with the slab: "
           f"{slab_launches}; dynamics main-path CAAR launches in stage mode: "
           f"{single_launches} of {dyn['caar_t4_cuda']}; per bench step "
           f"{json.dumps(dyn_res['kernel_launches_per_step'])}; prim "
@@ -1268,7 +1680,9 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on the raw path")
     for name, n in asm.items():
         if n <= 0 and name not in ("vlap_cuda", "tracer_euler_cuda",
-                                   "tracer_limit_cuda"):
+                                   "tracer_limit_cuda",
+                                   "caar_packed_rsplit0_t", "caar_packed",
+                                   "caar_packed_rsplit0", "euler_packed"):
             raise AssertionError(f"{name} was not launched on the assembled "
                                  "path")
     for name in ("caar_t4_cuda", "vlap_cuda", "dss_fixup_cuda",
@@ -1299,6 +1713,13 @@ def main() -> int:
     if tracer_slabs != (prim["tracer_euler_cuda"], prim["tracer_limit_cuda"]):
         raise AssertionError("a tracer launch of the prim path left out the "
                              f"slab: {tracer_slabs} of {prim}")
+    for name in ("caar_packed_rsplit0_t", "caar_packed",
+                 "caar_packed_rsplit0", "euler_packed", "saxpby_cuda"):
+        if row[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the row / "
+                                 "rsplit=0 path")
+    if row_asm_res["kernel_launches"]["caar_packed"] <= 0:
+        raise AssertionError("bench --layout row --ne: no row CAAR launch")
     if single_launches <= 0:
         raise AssertionError("the CAAR stage mode was not launched on the "
                              "dynamics path")
@@ -1314,7 +1735,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": r.pop("route"), "source": r.pop("source"),
             "replaces": r.pop("replaces"),
-            "launches": raw[name] + asm[name] + dyn[name] + prim[name],
+            "launches": raw[name] + asm[name] + dyn[name] + prim[name]
+            + row[name],
             "max_abs_err": r.pop("max_abs_err"), "ms": r.pop("ms"),
             "plain_ms": r.pop("plain_ms"), "bound_ms": r.pop("bound_ms"),
             "bound_by": r.pop("bound_by"), "library_ms": r.pop("library_ms"),

@@ -3,6 +3,7 @@ modes of the repository's ``bench.py``).
 
     python -m tinman_sandbox_tpu_torch.bench [--nelem 1024] [--nlev 72]
     python -m tinman_sandbox_tpu_torch.bench --ne 30 [--nlev 72]
+    python -m tinman_sandbox_tpu_torch.bench --layout row [--ne 30]
     python -m tinman_sandbox_tpu_torch.bench --ne 30 --rk [--hypervis-nu 1e15]
     python -m tinman_sandbox_tpu_torch.bench --ne 30 --prim \
         [--hypervis-nu 1e15] [--qsize Q] [--limit] [--qsplit S]
@@ -27,6 +28,15 @@ continues from the warm-up through every timed run. ``bytes_per_step`` adds
 to the 21 CAAR rows the DSS's 8 (the stacked s1 read and written), the two
 rspheremp rows and twice the slab (written by the CAAR kernel, read by the
 fixup).
+
+``--layout row`` runs the raw and the assembled modes on the row layout
+[E16, nlev] (``kernels.caar.caar_packed``, unstacked buffers, meta
+[E16, 16]); assembled it is ``dist.caar_dss_structured_packed``: the row
+kernel, then the structured DSS over the four fields stacked [E16, 4*nlev]
+in plain PyTorch (as the JAX package runs it in XLA), single-f32 rspheremp
+as the root bench's row mode. It chains as the t layout does, and its
+``bytes_per_step`` counts 21 + 8 rows and one rspheremp column. Every JSON
+line names its ``layout``.
 
 ``--ne N --rk [--hypervis-nu NU]`` is the dynamics mode: one SSPRK3 step
 (``dist.ssprk3_packed_t4``: three single-state CAAR launches with the slab,
@@ -82,13 +92,22 @@ def bytes_per_step(nelem: int, nlev: int, itemsize: int = 4) -> int:
     return 21 * itemsize * nelem * 16 * nlev
 
 
-def make_problem(nelem: int, nlev: int, device, seed: int = 7):
-    """The bench problem packed for ``caar_t4_cuda``: random state
-    (``seed``), zero accumulators, random geometry (``seed + 1``), analytic
-    hvcoord, dt2 = 0.1, eta_ave_w = 1 (the root bench's raw mode). Returns
-    (const, acc): const = (scal, meta, s0, sm1, qdp, pecnd, dvv)."""
+_N0 = ("u0", "v0", "t0", "dp0")
+_NM1 = ("um1", "vm1", "tm1", "dpm1")
+
+
+def make_problem(nelem: int, nlev: int, device, seed: int = 7,
+                 layout: str = "t"):
+    """The bench problem packed for ``caar_t4_cuda`` (``layout`` "t") or
+    ``caar_packed`` ("row"): random state (``seed``), zero accumulators,
+    random geometry (``seed + 1``), analytic hvcoord, dt2 = 0.1,
+    eta_ave_w = 1 (the root bench's raw mode). Returns (const, acc): const =
+    (scal, meta, s0, sm1, qdp, pecnd, dvv) with s0 and sm1 stacked
+    [4*nlev, E16] on "t", and (scal, meta, u0, v0, t0, dp0, um1, vm1, tm1,
+    dpm1, qdp, pecnd, dvv) of [E16, nlev] fields on "row"."""
     from . import (Config, analytic_hvcoord, random_geometry, random_state,
                    zero_derived)
+    from .kernels.caar import pack_problem
     from .kernels.caar_t import _scalars, pack_problem_t
 
     cfg = Config(nelem=nelem, nlev=nlev)
@@ -96,75 +115,105 @@ def make_problem(nelem: int, nlev: int, device, seed: int = 7):
     state, derived = random_state(cfg, seed=seed, **kw), zero_derived(cfg, **kw)
     geom = random_geometry(cfg, seed=seed + 1, **kw)
     hv = analytic_hvcoord(cfg, **kw)
+    scal = _scalars(0.1, 1.0, hv, torch.float32, device)
+    acc_names = ("vn0u", "vn0v", "omg")
+    if layout == "row":
+        p = pack_problem(state, derived, geom, hv, cfg)
+        const = (scal, p["meta"], *(p[n] for n in _N0 + _NM1), p["qdp"],
+                 p["pecnd"], p["dvv"])
+        return const, tuple(p[n] for n in acc_names)
     p = pack_problem_t(state, derived, geom, hv, cfg)
-    s0 = torch.cat([p["u0"], p["v0"], p["t0"], p["dp0"]])
-    sm1 = torch.cat([p["um1"], p["vm1"], p["tm1"], p["dpm1"]])
-    const = (_scalars(0.1, 1.0, hv, torch.float32, device), p["meta"], s0,
-             sm1, p["qdp"], p["pecnd"], p["dvv"])
-    return const, (p["vn0u"], p["vn0v"], p["omg"])
+    s0 = torch.cat([p[n] for n in _N0])
+    sm1 = torch.cat([p[n] for n in _NM1])
+    const = (scal, p["meta"], s0, sm1, p["qdp"], p["pecnd"], p["dvv"])
+    return const, tuple(p[n] for n in acc_names)
 
 
-def run_steps(const, acc, nsteps: int):
-    """``nsteps`` chained ``caar_t4_cuda`` steps at fixed time levels;
-    returns the last step's outputs (s1, phi, vn0u, vn0v, omg)."""
+def run_steps(const, acc, nsteps: int, layout: str = "t"):
+    """``nsteps`` chained steps at fixed time levels of ``caar_t4_cuda``
+    (``layout`` "t") or ``caar_packed`` ("row") on ``make_problem``'s
+    operands; returns the last step's outputs, the accumulators last."""
+    from .kernels.caar import caar_packed
     from .kernels.caar_t import caar_t4_cuda
 
-    scal, meta, s0, sm1, qdp, pecnd, dvv = const
+    step = caar_packed if layout == "row" else caar_t4_cuda
     out = None
     for _ in range(nsteps):
-        out = caar_t4_cuda(scal, meta, s0, sm1, qdp, pecnd, *acc, dvv)
-        acc = out[2:5]
+        out = step(*const[:-1], *acc, const[-1])
+        acc = out[-3:]
     return out
 
 
 def assembled_bytes_per_step(ne: int, nlev: int, nfix: int,
-                             itemsize: int = 4) -> int:
+                             itemsize: int = 4, layout: str = "t") -> int:
     """Device-memory traffic of one assembled step, meta ignored: 21 CAAR
-    rows and 8 DSS rows of nlev levels, 2 rspheremp rows, over E16 lanes,
-    plus the [nfix, 4*nlev] slab written once and read once."""
+    rows and 8 DSS rows of nlev levels over E16 lanes, and on the t layout
+    2 rspheremp rows and the [nfix, 4*nlev] slab written once and read once;
+    on the row layout 1 rspheremp column and no slab."""
     e16 = 6 * ne * ne * 16
+    if layout == "row":
+        return ((21 + 8) * nlev + 1) * e16 * itemsize
     return (((21 + 8) * nlev + 2) * e16 + 2 * nfix * 4 * nlev) * itemsize
 
 
-def make_assembled_problem(ne: int, nlev: int, device, seed: int = 7):
+def make_assembled_problem(ne: int, nlev: int, device, seed: int = 7,
+                           layout: str = "t"):
     """The assembled bench problem at ne: random state (``seed``) and zero
     accumulators on the cubed sphere's geometry, analytic hvcoord, dt2 = 0.1,
-    eta_ave_w = 1 and the two-float rspheremp, as in the root bench's --ne
-    mode. Returns (const, levels, acc, plan, rsp): const = (scal, meta, qdp,
-    pecnd, dvv), levels = (s0, sm1) stacked [4*nlev, E16]."""
+    eta_ave_w = 1, as in the root bench's --ne mode. Returns (const, levels,
+    acc, plan, rsp): const = (scal, meta, qdp, pecnd, dvv). On the t layout
+    levels = (s0, sm1) stacked [4*nlev, E16] and rsp the two-float
+    rspheremp [2, E16]; on the row layout levels = ((u0, v0, t0, dp0),
+    (um1, vm1, tm1, dpm1)) of [E16, nlev] and rsp the f32 rspheremp column
+    [E16, 1] (the root bench's row mode)."""
     from . import Config, analytic_hvcoord, random_state, zero_derived
     from .dist import build_cubed_sphere, make_structured_plan, rsp_lanes_2f
+    from .kernels.caar import pack_problem
     from .kernels.caar_t import _scalars, pack_problem_t
 
     kw = dict(dtype=torch.float32, device=device)
     cs = build_cubed_sphere(ne, **kw)
     cfg = Config(nelem=cs.nelem, nlev=nlev)
     hv = analytic_hvcoord(cfg, **kw)
-    p = pack_problem_t(random_state(cfg, seed=seed, **kw),
-                       zero_derived(cfg, **kw), cs.geometry, hv, cfg)
-    levels = (torch.cat([p["u0"], p["v0"], p["t0"], p["dp0"]]),
-              torch.cat([p["um1"], p["vm1"], p["tm1"], p["dpm1"]]))
+    pack = pack_problem if layout == "row" else pack_problem_t
+    p = pack(random_state(cfg, seed=seed, **kw), zero_derived(cfg, **kw),
+             cs.geometry, hv, cfg)
     const = (_scalars(0.1, 1.0, hv, torch.float32, device), p["meta"],
              p["qdp"], p["pecnd"], p["dvv"])
-    rsp = torch.from_numpy(rsp_lanes_2f(cs.geometry.spheremp, cs.gdof,
-                                        cs.ndof)).to(device)
+    if layout == "row":
+        levels = (tuple(p[n] for n in _N0), tuple(p[n] for n in _NM1))
+        rsp = cs.geometry.rspheremp.reshape(-1, 1).contiguous()
+    else:
+        levels = (torch.cat([p[n] for n in _N0]),
+                  torch.cat([p[n] for n in _NM1]))
+        rsp = torch.from_numpy(rsp_lanes_2f(cs.geometry.spheremp, cs.gdof,
+                                            cs.ndof)).to(device)
     return (const, levels, (p["vn0u"], p["vn0v"], p["omg"]),
             make_structured_plan(cs.gdof, ne), rsp)
 
 
-def run_assembled(const, levels, acc, plan, rsp, nsteps: int, step=None):
+def run_assembled(const, levels, acc, plan, rsp, nsteps: int, step=None,
+                  layout: str = "t"):
     """``nsteps`` chained assembled steps (``step`` defaults to
-    ``caar_dss_structured_packed_t4``): the assembled s1 becomes n0 and the
+    ``caar_dss_structured_packed_t4``, on the row layout to
+    ``caar_dss_structured_packed``): the assembled s1 becomes n0 and the
     old n0 becomes nm1. Returns ((n0, nm1), acc, phi) after the last."""
-    from .dist.step_t import caar_dss_structured_packed_t4
+    from .dist.step_t import (
+        caar_dss_structured_packed, caar_dss_structured_packed_t4)
 
-    step = step or caar_dss_structured_packed_t4
+    row = layout == "row"
+    step = step or (caar_dss_structured_packed if row
+                    else caar_dss_structured_packed_t4)
     scal, meta, qdp, pecnd, dvv = const
     s0, sm1 = levels
     phi = None
     for _ in range(nsteps):
-        s1, phi, *acc = step(scal, meta, s0, sm1, qdp, pecnd, *acc, dvv,
-                             plan, rsp)
+        if row:
+            o = step(scal, meta, *s0, *sm1, qdp, pecnd, *acc, dvv, plan, rsp)
+            s1, phi, acc = tuple(o[:4]), o[4], o[5:]
+        else:
+            s1, phi, *acc = step(scal, meta, s0, sm1, qdp, pecnd, *acc, dvv,
+                                 plan, rsp)
         s0, sm1 = s1, s0
     return (s0, sm1), tuple(acc), phi
 
@@ -401,41 +450,47 @@ def _main_dynamics(args, dev) -> dict:
 
 
 def _main_assembled(args, dev) -> dict:
+    from .kernels.caar import caar_packed
     from .kernels.caar_t import caar_t4_cuda
     from .kernels.dss import (
         dss_extract_cuda, dss_fixup_cuda, dss_sweep_cuda, fix_tables)
     from .kernels.saxpby import saxpby_bandwidth_gbs
 
+    row = args.layout == "row"
     const, levels, acc, plan, rsp = make_assembled_problem(
-        args.ne, args.nlev, dev)
-    wrappers = (caar_t4_cuda, dss_extract_cuda, dss_fixup_cuda,
-                dss_sweep_cuda)
+        args.ne, args.nlev, dev, layout=args.layout)
+    wrappers = (caar_packed,) if row else (
+        caar_t4_cuda, dss_extract_cuda, dss_fixup_cuda, dss_sweep_cuda)
     launches0 = [w.launches for w in wrappers]
+    run = lambda lv, a, n: run_assembled(const, lv, a, plan, rsp, n,
+                                         layout=args.layout)
     # warm-up (first build), excluded; the chain runs on from it
-    levels, acc, _ = run_assembled(const, levels, acc, plan, rsp, 2)
+    levels, acc, _ = run(levels, acc, 2)
     torch.cuda.synchronize(dev)
     best = float("inf")
     for _ in range(args.reps):
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        levels, acc, phi = run_assembled(const, levels, acc, plan, rsp,
-                                         args.nexec)
+        levels, acc, phi = run(levels, acc, args.nexec)
         torch.cuda.synchronize(dev)
         best = min(best, time.perf_counter() - t0)
-    if not all(bool(torch.isfinite(x).all()) for x in (*levels, *acc, phi)):
+    flat = (*levels[0], *levels[1]) if row else levels
+    if not all(bool(torch.isfinite(x).all()) for x in (*flat, *acc, phi)):
         raise RuntimeError("bench: non-finite assembled state")
     launches = {w.__name__: w.launches - n0
                 for w, n0 in zip(wrappers, launches0)}
     triad = saxpby_bandwidth_gbs(device=dev)
     nelem = 6 * args.ne * args.ne
     nbytes = assembled_bytes_per_step(args.ne, args.nlev,
-                                      fix_tables(plan, dev).nfix)
+                                      fix_tables(plan, dev).nfix,
+                                      layout=args.layout)
     gbs = nbytes * args.nexec / best / 1e9
     return {
         "metric": "caar_dss_gridpoint_updates_per_s",
         "config": f"ne{args.ne} ({nelem} elements) x{args.nlev}x16 float32 "
-                  f"nexec={args.nexec} reps={args.reps} chained "
-                  "step=caar_dss_structured_packed_t4",
+                  f"nexec={args.nexec} reps={args.reps} chained step="
+                  + ("caar_dss_structured_packed" if row
+                     else "caar_dss_structured_packed_t4"),
         "seconds": best,
         "us_per_step": best / args.nexec * 1e6,
         "gridpoints_per_s": nelem * args.nlev * 16 * args.nexec / best,
@@ -475,6 +530,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--limit", action="store_true",
                     help="with --prim: the monotone limiter in every tracer "
                          "stage")
+    ap.add_argument("--layout", default="t", choices=("t", "row"),
+                    help="packed layout: t = [nlev, E16] (default), row = "
+                         "[E16, nlev] (raw and assembled modes only)")
     args = ap.parse_args(argv)
     if (args.rk or args.prim or args.hypervis_nu) and args.ne is None:
         ap.error("--rk, --prim and --hypervis-nu need --ne")
@@ -486,8 +544,11 @@ def main(argv=None) -> dict:
         ap.error("--qsize, --qsplit and --limit need --prim")
     if args.qsize < 1 or args.qsplit < 1:
         ap.error("--qsize and --qsplit must be at least 1")
+    if args.layout == "row" and (args.rk or args.prim):
+        ap.error("--layout row has the raw and the assembled modes only")
 
     from .device import resolve_device
+    from .kernels.caar import caar_packed
     from .kernels.caar_t import caar_t4_cuda
     from .kernels.saxpby import saxpby_bandwidth_gbs
 
@@ -495,29 +556,32 @@ def main(argv=None) -> dict:
     if args.ne is not None:
         result = (_main_prim if args.prim else _main_dynamics if args.rk
                   else _main_assembled)(args, dev)
+        result["layout"] = args.layout
         print(json.dumps(result))
         return result
-    const, acc = make_problem(args.nelem, args.nlev, dev)
-    launches0 = caar_t4_cuda.launches
-    run_steps(const, acc, 2)                  # warm-up (first build), excluded
+    kernel = caar_packed if args.layout == "row" else caar_t4_cuda
+    const, acc = make_problem(args.nelem, args.nlev, dev, layout=args.layout)
+    launches0 = kernel.launches
+    # warm-up (first build), excluded
+    run_steps(const, acc, 2, args.layout)
     torch.cuda.synchronize(dev)
     best = float("inf")
     for _ in range(args.reps):
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        out = run_steps(const, acc, args.nexec)
+        out = run_steps(const, acc, args.nexec, args.layout)
         torch.cuda.synchronize(dev)
         best = min(best, time.perf_counter() - t0)
     if not all(bool(torch.isfinite(x).all()) for x in out):
         raise RuntimeError("bench: non-finite CAAR output")
-    launches = caar_t4_cuda.launches - launches0
+    launches = kernel.launches - launches0
     triad = saxpby_bandwidth_gbs(device=dev)
     nbytes = bytes_per_step(args.nelem, args.nlev)
     gbs = nbytes * args.nexec / best / 1e9
     result = {
         "metric": "caar_gridpoint_updates_per_s",
         "config": f"{args.nelem}x{args.nlev}x16 float32 nexec={args.nexec} "
-                  f"reps={args.reps} kernel=caar_t4_cuda",
+                  f"reps={args.reps} kernel={kernel.__name__}",
         "seconds": best,
         "us_per_step": best / args.nexec * 1e6,
         "gridpoints_per_s": args.nelem * args.nlev * 16 * args.nexec / best,
@@ -528,6 +592,7 @@ def main(argv=None) -> dict:
         "kernel_launches": launches,
         "device": torch.cuda.get_device_name(dev),
         "card": card_name_and_power(),
+        "layout": args.layout,
     }
     print(json.dumps(result))
     return result

@@ -1,9 +1,10 @@
 """Command-line driver for the CAAR step, raw or assembled on the cubed
 sphere, SSPRK3 dynamics, hyperviscosity and the full model step (counterpart
-of the raw, ``--ne N --dss``, ``--rk``, ``--hypervis-nu`` and ``--prim``
-paths of ``tinman_sandbox_tpu/cli.py``).
+of the raw, ``--ne N --dss``, ``--rk``, ``--hypervis-nu``, ``--prim`` and
+``--layout`` paths of ``tinman_sandbox_tpu/cli.py``).
 
     python -m tinman_sandbox_tpu_torch --num-elems 1024 --num-exec 100
+    python -m tinman_sandbox_tpu_torch --layout row --num-elems 1024
     python -m tinman_sandbox_tpu_torch --device cpu --kernel plain \\
         --num-elems 3 --num-exec 2 --golden-check
     python -m tinman_sandbox_tpu_torch --ne 30 --dss --leapfrog --num-exec 20
@@ -15,6 +16,14 @@ paths of ``tinman_sandbox_tpu/cli.py``).
 ``--kernel cuda`` (default) runs the packed-layout step through the CUDA
 kernel wrapper; on ``--device cpu`` that wrapper runs its plain version.
 ``--kernel plain`` runs the array-form step and is allowed only on the CPU.
+``--layout`` picks the packed layout of ``--kernel cuda``: ``t`` (default,
+[nlev, E16]: ``kernels.caar_t``) or ``row`` ([E16, nlev]: ``kernels.caar.
+caar``, and with ``--ne N --dss`` the row assembled step ``dist.caar_dss``,
+the row kernel then the structured DSS over the stacked fields). The row
+layout has no SSPRK3, hyperviscosity or full-step form: ``--layout row``
+with ``--rk``, ``--prim`` or ``--hypervis-nu`` is a usage error (the JAX
+CLI runs those through the field form or the ``t`` layout). The array form
+of ``--kernel plain`` has no layout.
 ``--ne N`` puts the elements on the ne x ne x 6 cubed sphere (6*N*N of them,
 its geometry in place of the analytic or random one); ``--dss`` then
 assembles the updated fields every step: ``dist.caar_dss_t`` (the CAAR
@@ -76,6 +85,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kernel", default="cuda", choices=("cuda", "plain"),
                     help="cuda = packed CUDA kernel (its plain version on "
                          "CPU tensors); plain = array form, CPU only")
+    ap.add_argument("--layout", default="t", choices=("t", "row"),
+                    help="packed layout of --kernel cuda: t = [nlev, E16] "
+                         "(default), row = [E16, nlev] (raw and --dss only)")
     ap.add_argument("--init", default="analytic",
                     choices=("analytic", "random"),
                     help="analytic = golden-comparable init (main.F90:103-154)")
@@ -122,6 +134,11 @@ def main(argv=None) -> int:
                      ("--prim", args.prim)):
         if on and args.ne is None:
             return _usage_error(f"{flag} requires --ne")
+    for flag, on in (("--rk", args.rk), ("--prim", args.prim),
+                     ("--hypervis-nu", args.hypervis_nu)):
+        if on and args.layout == "row":
+            return _usage_error(f"--layout row has no {flag} form (the raw "
+                                "and --dss paths); use --layout t")
     if args.prim and args.leapfrog:
         return _usage_error("--prim manages its own time-level cadence; drop "
                             "--leapfrog")
@@ -143,7 +160,7 @@ def main(argv=None) -> int:
         analytic_state, random_geometry, random_state, zero_derived,
     )
     from .device import resolve_device
-    from .kernels import caar_array, caar_t
+    from .kernels import caar, caar_array, caar_t
     from .ops.norms import dump_results, print_results_2norm
     from .profiling import Timers
     from .timeloop import check_dp3d, rotated
@@ -172,6 +189,8 @@ def main(argv=None) -> int:
     timers = Timers(dev)
 
     mode = "cuda" if args.kernel == "cuda" else "plain array-form"
+    if args.kernel == "cuda" and args.layout == "row":
+        mode += " row-layout"
     if args.prim:
         mode += " prim (SSPRK3 + tracers)"
     elif args.rk:
@@ -257,10 +276,12 @@ def main(argv=None) -> int:
             return ssprk3_step(s, d, geom, hv, c, args.dt, gdof=cs.gdof,
                                ndof=cs.ndof, device=dev)
     elif args.dss and args.kernel == "cuda":
-        from .dist import caar_dss_t
+        from .dist import caar_dss, caar_dss_t
+
+        assemble = caar_dss if args.layout == "row" else caar_dss_t
 
         def one_step(s, d, c):
-            return caar_dss_t(s, d, geom, hv, plan, c, dt2, eta, device=dev)
+            return assemble(s, d, geom, hv, plan, c, dt2, eta, device=dev)
     elif args.dss:
         from .dist import caar_dss_step
 
@@ -268,7 +289,8 @@ def main(argv=None) -> int:
             return caar_dss_step(s, d, geom, hv, cs.gdof, cs.ndof, c, dt2,
                                  eta, device=dev)
     else:
-        step = caar_t if args.kernel == "cuda" else caar_array
+        step = caar_array if args.kernel == "plain" else \
+            caar if args.layout == "row" else caar_t
 
         def one_step(s, d, c):
             return step(s, d, geom, hv, c, dt2, eta, device=dev)

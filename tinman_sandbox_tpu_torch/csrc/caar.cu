@@ -1,4 +1,5 @@
-// CAAR (compute_and_apply_rhs, rsplit>0) on the packed [nlev, E16] layout.
+// CAAR (compute_and_apply_rhs) on the packed layouts: [nlev, E16] ("t") and
+// [E16, nlev] ("row"), rsplit>0 and rsplit=0.
 //
 // Replaces the Pallas kernels of tinman_sandbox_tpu/kernels/caar_pallas_t.py:
 // caar_pallas_packed_t4_lg (the bench headline), caar_pallas_packed_t,
@@ -6,22 +7,26 @@
 // caar_pallas_packed_t4_rk. All run _caar_physics plus the accumulator
 // update; they differ only in how the buffers are cut, so this one kernel
 // takes one pointer per field row block and covers the stacked and the
-// unstacked forms.
+// unstacked forms. Its rsplit=0 mode replaces caar_pallas_packed_rsplit0_t
+// (caar_pallas_t.py:856); its row mode replaces caar_pallas_packed and
+// caar_pallas_packed_rsplit0 of tinman_sandbox_tpu/kernels/caar_pallas.py
+// (:307, :365). The modes are template parameters (see below).
 //
 // What bounds it on the H100: device-memory traffic. Per step it must read
 // 13 fields (n0 and nm1 prognostics, qdp, pecnd, three accumulators) and the
 // meta rows, and write 8 fields: about 99 MB at 1024 x 72, some 30 us at
-// 3.35 TB/s, against ~0.2 GFLOP of FP32 work (~3 us at 67 TFLOP/s).
+// 3.35 TB/s, against ~0.2 GFLOP of FP32 work (~3 us at 67 TFLOP/s). The
+// rsplit=0 mode adds the eta accumulator, read and written: 23 fields.
 //
 // Design: one thread per column of E16 (one GLL point of one element), so
-// neighbouring threads read neighbouring addresses of each level's row; 16
-// consecutive columns are one element and a 128-thread block holds 8
-// elements. Each thread walks the levels carrying the vertical scans in
-// registers. The 4-point Dvv contractions (grad, div, vort) read the
-// element's 16 values of the current level from a shared-memory exchange
-// row, double-buffered by level parity so one __syncthreads per level
-// suffices. The geopotential is a REVERSE strict scan, which every level's
-// tendencies need, so the kernel takes three passes over the levels:
+// on the t layout neighbouring threads read neighbouring addresses of each
+// level's row; 16 consecutive columns are one element and a 128-thread
+// block holds 8 elements. Each thread walks the levels carrying the vertical
+// scans in registers. The 4-point Dvv contractions (grad, div, vort) read
+// the element's 16 values of the current level from a shared-memory
+// exchange row, double-buffered by level parity so one __syncthreads per
+// level suffices. The geopotential is a REVERSE strict scan, which every
+// level's tendencies need, so the kernel takes three passes over the levels:
 //   1. top-down: midpoint pressure p and q = Rgas*T_v*dp/p, q kept in shared
 //      memory ([nlev][128] floats, 36 KB at nlev = 72);
 //   2. bottom-up over shared memory only: q becomes phi in place;
@@ -45,6 +50,30 @@
 // branches: a test of the pointers inside the level loop kept the compiler
 // from issuing the 13 loads of a level together and cost the pair form 8%
 // at 5,400 x 72 and 20% at 1024 x 72 on the H100.
+// rsplit=0 mode (kR0, a non-null etaacc): the interface mass flux
+//   eta_lo(k) = hybi(k)*sdot - sum_{l<k} divdp(l),   0 at k = 0,
+//   eta_hi(k) = hybi(k+1)*sdot - sum_{l<=k} divdp(l), 0 at k = nlev-1,
+// with sdot = sum_k divdp(k) the column total, then the vertical advection
+// of u, v and T, dp1 = sph*(dpm1 - dt2*(divdp + eta_hi - eta_lo)) and
+// etaacc += eta_ave_w*eta_hi in place (interfaces 1..nlev). Every level's
+// flux needs the column total first, so pass 1 also builds the mass-flux
+// exchange rows and sums divdp: one more __syncthreads per level and u, v
+// read twice. The boundary zeros are forced by the level test, not
+// computed (hybi(nlev)*sdot - sdot is not 0 in f32). The advection reads one
+// level ahead: pass 3 carries a register window of u, v, T at k-1, k, k+1,
+// so each is still read once there. Pass 3 forms rmetdet*rrearth inside its
+// loop as before: hoisted above pass 1 it slowed the stage mode without phi
+// by 11% (0.364 to 0.404 ms at ne30 x 72) with the same 64 registers.
+// hybi comes as two strided vectors
+// (hyb_lo[k*hs] = hybi(k), hyb_hi[k*hs] = hybi(k+1)), so the [nlev, 2] hyb
+// of the t kernel and the [2, nlev] of the row kernel go in without a copy.
+// Row mode (kRow): the same thread per column on [E16, nlev] fields (and
+// the [E16, 16] meta), element (col, k) at col*nlev + k. The 32 threads of a
+// warp then read addresses nlev*4 = 288 bytes apart: every access is
+// uncoalesced and each 32-byte sector is reused over 8 levels through L1.
+// Accepted for now; a shared-memory transpose of the tile is later work.
+// The row mode takes neither a slab nor the stage mode, and the rsplit=0
+// mode no slab: no caller needs them.
 // Known limit of this simple form: one thread per column gives E16 threads
 // in all (16,384 at 1024 elements, ~6% of the card's thread slots), so the
 // kernel is latency-bound well above its memory bound; splitting levels
@@ -75,7 +104,11 @@ struct CaarArgs {
   float* phi;                                // null = not stored
   const int* fix_rank;                       // [ncol] slab row or -1; or null
   float* slab;                               // [nfix, slab_ld]
-  int nlev, ncol, ld, moist, slab_ld;
+  // rsplit=0: hybi(k) = hyb_lo[k*hyb_stride], hybi(k+1) = hyb_hi[...];
+  // etaacc (interfaces 1..nlev, a field) is updated in place
+  const float* hyb_lo; const float* hyb_hi;
+  float* etaacc;
+  int nlev, ncol, ld, moist, slab_ld, hyb_stride;
   float rgas, kappa, rv_factor, rrearth;
 };
 
@@ -97,9 +130,19 @@ __device__ __forceinline__ float dy(const float* dvv, const float* s, int li,
   return fmaf(dvv[3 * 4 + lj], s[li * 4 + 3], acc);
 }
 
+// offset of level k of column col: ld is the level stride on the t layout
+// and the column stride on the row layout
+template <bool kRow>
+__device__ __forceinline__ size_t at(int k, int col, size_t ld) {
+  return kRow ? static_cast<size_t>(col) * ld + k
+              : static_cast<size_t>(k) * ld + col;
+}
+
 // kSingle: the base state is the evaluation state (um1..dpm1 not read);
-// kPhi: store the geopotential (always, unless kSingle)
-template <bool kSingle, bool kPhi>
+// kPhi: store the geopotential (always, unless kSingle);
+// kR0: rsplit=0 (interface flux, vertical advection, eta accumulator);
+// kRow: [E16, nlev] fields and [E16, 16] meta
+template <bool kSingle, bool kPhi, bool kR0, bool kRow>
 __global__ void __launch_bounds__(kBlock) caar_kernel(CaarArgs a) {
   extern __shared__ float col_sm[];             // [nlev][kBlock]: q, then phi
   __shared__ float xch[2][kRows][kBlock];
@@ -115,27 +158,45 @@ __global__ void __launch_bounds__(kBlock) caar_kernel(CaarArgs a) {
   if (tid < 16) dvv[tid] = a.dvv[tid];
   float m[13];
 #pragma unroll
-  for (int r = 0; r < 13; ++r) m[r] = live ? a.meta[r * ld + col] : 1.f;
+  for (int r = 0; r < 13; ++r)
+    m[r] = live ? a.meta[kRow ? static_cast<size_t>(col) * 16 + r
+                              : r * ld + col]
+                : 1.f;
   const float dt2 = a.scal[0], eta = a.scal[1], h = a.scal[2];
   const float rr = a.rrearth;
   const int srow = (live && a.fix_rank) ? a.fix_rank[col] : -1;
   float* const slab = srow >= 0 ? a.slab + (size_t)srow * a.slab_ld : nullptr;
   __syncthreads();
 
-  // pass 1: p and q, top-down
-  float s = 0.f;
+  // pass 1: p and q, top-down; with kR0 also the column total of divdp
+  float s = 0.f, sdot = 0.f;
   for (int k = 0; k < a.nlev; ++k) {
-    float q = 0.f;
+    float q = 0.f, gv1 = 0.f, gv2 = 0.f;
     if (live) {
-      const size_t o = k * ld + col;
+      const size_t o = at<kRow>(k, col, ld);
       const float dp = a.dp0[o], t = a.t0[o];
       s += dp;
       const float p = (h + s) - 0.5f * dp;
       const float tv = a.moist ? t * (1.f + a.rv_factor * (a.qdp[o] / dp)) : t;
       q = a.rgas * tv * (dp / p);
+      if constexpr (kR0) {
+        const float vdp1 = a.u0[o] * dp, vdp2 = a.v0[o] * dp;
+        gv1 = m[kMetdet] * (m[kDinv00] * vdp1 + m[kDinv01] * vdp2);
+        gv2 = m[kMetdet] * (m[kDinv10] * vdp1 + m[kDinv11] * vdp2);
+      }
     }
     col_sm[k * kBlock + tid] = q;
+    if constexpr (kR0) {
+      float* x = &xch[k & 1][0][0];
+      x[1 * kBlock + tid] = gv1;
+      x[2 * kBlock + tid] = gv2;
+      __syncthreads();
+      sdot += (dx(dvv, x + 1 * kBlock + eb, li, lj) +
+               dy(dvv, x + 2 * kBlock + eb, li, lj)) * (m[kRmetdet] * rr);
+    }
   }
+  // pass 3's first exchange must not overtake pass 1's last reads
+  if constexpr (kR0) __syncthreads();
   // pass 2: phi = phis + sum_{l>k} q(l) + q(k)/2, bottom-up, in place
   float rsum = 0.f;
   for (int k = a.nlev - 1; k >= 0; --k) {
@@ -147,13 +208,33 @@ __global__ void __launch_bounds__(kBlock) caar_kernel(CaarArgs a) {
   // pass 3: tendencies and apply, top-down
   s = 0.f;
   float cum = 0.f;                              // sum_{l<k} divdp(l)
+  // kR0: u, v, T at the next level, and at the previous one (equal to the
+  // current one at the top and the bottom, so the missing difference is 0)
+  float un = 0.f, vn = 0.f, tn = 0.f;
+  if constexpr (kR0) {
+    if (live) {
+      const size_t o = at<kRow>(0, col, ld);
+      un = a.u0[o]; vn = a.v0[o]; tn = a.t0[o];
+    }
+  }
+  float up = un, vp = vn, tp = tn;
   for (int k = 0; k < a.nlev; ++k) {
-    const size_t o = k * ld + col;
+    const size_t o = at<kRow>(k, col, ld);
     float u = 0.f, v = 0.f, t = 0.f, dp = 1.f, qd = 0.f, pec = 0.f;
     float um1 = 0.f, vm1 = 0.f, tm1 = 0.f, dpm1 = 0.f;
-    float an = 0.f, av = 0.f, ao = 0.f;
+    float an = 0.f, av = 0.f, ao = 0.f, ae = 0.f;
     if (live) {
-      u = a.u0[o]; v = a.v0[o]; t = a.t0[o]; dp = a.dp0[o];
+      if constexpr (kR0) {
+        u = un; v = vn; t = tn;
+        if (k + 1 < a.nlev) {
+          const size_t o1 = at<kRow>(k + 1, col, ld);
+          un = a.u0[o1]; vn = a.v0[o1]; tn = a.t0[o1];
+        }
+        ae = a.etaacc[o];
+      } else {
+        u = a.u0[o]; v = a.v0[o]; t = a.t0[o];
+      }
+      dp = a.dp0[o];
       if (a.moist) qd = a.qdp[o];
       pec = a.pecnd[o];
       if constexpr (kSingle) {
@@ -197,6 +278,24 @@ __global__ void __launch_bounds__(kBlock) caar_kernel(CaarArgs a) {
     // virtual temperature, omega/p
     const float tv = a.moist ? t * (1.f + a.rv_factor * (qd / dp)) : t;
     const float omega_p = (vgrad_p - cum - 0.5f * divdp) / p;
+    // kR0: interface fluxes above and below level k, vertical advection
+    float eta_lo = 0.f, eta_hi = 0.f, u_vadv = 0.f, v_vadv = 0.f,
+          t_vadv = 0.f;
+    if constexpr (kR0) {
+      const float cum_inc = cum + divdp;
+      if (k > 0)
+        eta_lo = a.hyb_lo[static_cast<size_t>(k) * a.hyb_stride] * sdot - cum;
+      if (k < a.nlev - 1)
+        eta_hi = a.hyb_hi[static_cast<size_t>(k) * a.hyb_stride] * sdot
+                 - cum_inc;
+      const float rpdel = 1.f / dp;
+      const float facp = 0.5f * rpdel * eta_hi;
+      const float facm = 0.5f * rpdel * eta_lo;
+      u_vadv = facp * (un - u) + facm * (u - up);
+      v_vadv = facp * (vn - v) + facm * (v - vp);
+      t_vadv = facp * (tn - t) + facm * (t - tp);
+      up = u; vp = v; tp = t;
+    }
     cum += divdp;
     // grad T, grad(E + phi)
     g1 = dx(dvv, xt, li, lj) * rr;
@@ -210,16 +309,25 @@ __global__ void __launch_bounds__(kBlock) caar_kernel(CaarArgs a) {
     // tendencies
     const float gpterm = a.rgas * (tv / p);
     const float fcor_vort = m[kFcor] + vort;
-    const float vtens1 = v * fcor_vort - ge1 - gpterm * gp1;
-    const float vtens2 = -(u * fcor_vort) - ge2 - gpterm * gp2;
-    const float ttens = -(u * gt1 + v * gt2) + a.kappa * tv * omega_p;
+    float vtens1, vtens2, ttens, dptens;
+    if constexpr (kR0) {
+      vtens1 = -u_vadv + v * fcor_vort - ge1 - gpterm * gp1;
+      vtens2 = -v_vadv - (u * fcor_vort) - ge2 - gpterm * gp2;
+      ttens = -t_vadv - (u * gt1 + v * gt2) + a.kappa * tv * omega_p;
+      dptens = divdp + (eta_hi - eta_lo);
+    } else {
+      vtens1 = v * fcor_vort - ge1 - gpterm * gp1;
+      vtens2 = -(u * fcor_vort) - ge2 - gpterm * gp2;
+      ttens = -(u * gt1 + v * gt2) + a.kappa * tv * omega_p;
+      dptens = divdp;
+    }
 
     if (live) {
       const float sph = m[kSpheremp];
       const float u1 = sph * (um1 + dt2 * vtens1);
       const float v1 = sph * (vm1 + dt2 * vtens2);
       const float t1 = sph * (tm1 + dt2 * ttens);
-      const float dp1 = sph * (dpm1 - dt2 * divdp);
+      const float dp1 = sph * (dpm1 - dt2 * dptens);
       a.u1[o] = u1;
       a.v1[o] = v1;
       a.t1[o] = t1;
@@ -234,18 +342,20 @@ __global__ void __launch_bounds__(kBlock) caar_kernel(CaarArgs a) {
       a.vn0u[o] = an + eta * vdp1;
       a.vn0v[o] = av + eta * vdp2;
       a.omg[o] = ao + eta * omega_p;
+      if constexpr (kR0) a.etaacc[o] = ae + eta * eta_hi;
     }
   }
 }
 
-template <bool kSingle, bool kPhi>
+template <bool kSingle, bool kPhi, bool kR0, bool kRow>
 cudaError_t launch(const CaarArgs& a, size_t smem, cudaStream_t stream) {
+  auto* kernel = caar_kernel<kSingle, kPhi, kR0, kRow>;
   cudaError_t err = cudaFuncSetAttribute(
-      caar_kernel<kSingle, kPhi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int grid = (a.ncol + kBlock - 1) / kBlock;
-  caar_kernel<kSingle, kPhi><<<grid, kBlock, smem, stream>>>(a);
+  kernel<<<grid, kBlock, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -260,17 +370,21 @@ const char* caar_error_string(int err) {
 // Enqueues one CAAR step on `stream`. Returns the cudaError_t of the launch.
 // fix_rank and slab may be null (no slab output); um1, vm1, tm1 and dpm1
 // may all be null (the stage mode: base state = u0..dp0); phi may be null
-// in the stage mode only.
+// in the stage mode only. A non-null etaacc selects rsplit=0 and needs
+// hyb_lo and hyb_hi; row = 1 selects the [E16, nlev] layout (ld = nlev,
+// meta [E16, 16]). The stage mode and the slab take the t layout and
+// rsplit>0 only.
 int caar_launch(const void* scal, const void* meta, const void* dvv,
                 const void* u0, const void* v0, const void* t0,
                 const void* dp0, const void* um1, const void* vm1,
                 const void* tm1, const void* dpm1, const void* qdp,
                 const void* pecnd, void* vn0u, void* vn0v, void* omg,
                 void* u1, void* v1, void* t1, void* dp1, void* phi,
-                const void* fix_rank, void* slab, int nlev, int ncol,
-                int ld, int moist, int slab_ld, float rgas,
-                float kappa, float rv_factor, float rrearth, void* stream,
-                int device) {
+                const void* fix_rank, void* slab, const void* hyb_lo,
+                const void* hyb_hi, void* etaacc, int nlev, int ncol,
+                int ld, int moist, int slab_ld, int hyb_stride, int row,
+                float rgas, float kappa, float rv_factor, float rrearth,
+                void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if ((um1 == nullptr) != (vm1 == nullptr) ||
@@ -278,6 +392,11 @@ int caar_launch(const void* scal, const void* meta, const void* dvv,
       (um1 == nullptr) != (dpm1 == nullptr))
     return cudaErrorInvalidValue;
   if (phi == nullptr && um1 != nullptr)   // only a stage may drop phi
+    return cudaErrorInvalidValue;
+  const bool r0 = etaacc != nullptr;
+  if (r0 && (hyb_lo == nullptr || hyb_hi == nullptr))
+    return cudaErrorInvalidValue;
+  if ((r0 || row) && (um1 == nullptr || fix_rank != nullptr))
     return cudaErrorInvalidValue;
   CaarArgs a;
   a.scal = static_cast<const float*>(scal);
@@ -304,6 +423,10 @@ int caar_launch(const void* scal, const void* meta, const void* dvv,
   a.fix_rank = static_cast<const int*>(fix_rank);
   a.slab = static_cast<float*>(slab);
   a.slab_ld = slab_ld;
+  a.hyb_lo = static_cast<const float*>(hyb_lo);
+  a.hyb_hi = static_cast<const float*>(hyb_hi);
+  a.hyb_stride = hyb_stride;
+  a.etaacc = static_cast<float*>(etaacc);
   a.nlev = nlev;
   a.ncol = ncol;
   a.ld = ld;
@@ -315,10 +438,14 @@ int caar_launch(const void* scal, const void* meta, const void* dvv,
 
   const size_t smem = static_cast<size_t>(nlev) * kBlock * sizeof(float);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (row)
+    return r0 ? launch<false, true, true, true>(a, smem, st)
+              : launch<false, true, false, true>(a, smem, st);
+  if (r0) return launch<false, true, true, false>(a, smem, st);
   if (um1 == nullptr)
-    return phi ? launch<true, true>(a, smem, st)
-               : launch<true, false>(a, smem, st);
-  return launch<false, true>(a, smem, st);
+    return phi ? launch<true, true, false, false>(a, smem, st)
+               : launch<true, false, false, false>(a, smem, st);
+  return launch<false, true, false, false>(a, smem, st);
 }
 
 }  // extern "C"

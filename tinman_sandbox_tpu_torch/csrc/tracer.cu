@@ -1,5 +1,5 @@
-// Tracer advection on the packed [qsize*nlev, E16] layout, all tracers on
-// the row axis (row = tracer*nlev + level). Two kernels:
+// Tracer advection on the packed layouts. On [qsize*nlev, E16], all tracers
+// on the row axis (row = tracer*nlev + level), two kernels:
 //
 //   tracer_euler_kernel:  out = sph * (q - dt * div(v q))      (or without sph)
 //   tracer_limit_kernel:  e = q - dt * div(v q);  y = e  or  ca*mx + cb*e;
@@ -49,6 +49,25 @@
 // Optional fix-lane slab, as the CAAR kernel's: the thread owning a lane
 // with fix_rank[lane] = r >= 0 also writes its output at every row to
 // slab[r*nq*nlev + row].
+//
+// On the row layout [E16, qsize*nlev] (tracer-major on the contiguous axis,
+// column j = tracer*nlev + level) a third kernel:
+//
+//   tracer_row_kernel:    out = q - dt * div(v q)
+//
+// replaces euler_step_pallas_packed of tinman_sandbox_tpu/kernels/
+// tracer_pallas.py (:61, body _tracer_kernel :30-57), whose 128x128
+// block-diagonal operators fed the matrix unit with a qsize-times wider
+// right-hand side. Bound by bytes as the others: q read, out written, the
+// two [E16, nlev] wind blocks and 6 metric values a point, against ~30 FP32
+// operations a point. Design: a block holds ONE element and a chunk of the
+// q*nlev columns, one thread per column, so each of the element's 16 rows
+// is read and written by neighbouring threads at neighbouring addresses
+// (coalesced). The Dvv exchange is per element and a thread holds all 16
+// GLL points of its column, so the contractions run in registers with no
+// shared-memory exchange and no barrier after the metric load. The winds at
+// level j mod nlev broadcast over the tracers (neighbouring columns of one
+// tracer read neighbouring wind addresses; other tracers hit the cache).
 #include <cfloat>
 #include <cuda_runtime.h>
 
@@ -245,6 +264,52 @@ tracer_limit_kernel(const float* __restrict__ meta,
   }
 }
 
+constexpr int kRowThreads = 128;   // most columns a row-kernel block holds
+
+__global__ void __launch_bounds__(kRowThreads)
+tracer_row_kernel(const float* __restrict__ meta,
+                  const float* __restrict__ dvv_g,
+                  const float* __restrict__ vu, const float* __restrict__ vv,
+                  const float* __restrict__ q, float* __restrict__ out,
+                  int nlev, int qk, float dt, float rr) {
+  // the element's metric values by GLL point: dinv00, dinv01, dinv10,
+  // dinv11, metdet, rmetdet*rrearth
+  __shared__ float mt[6][16];
+  __shared__ float dvv[16];
+  const int tid = threadIdx.x;
+  const size_t base = static_cast<size_t>(blockIdx.x) * 16;  // element row
+  if (tid < 16) {
+    const float* mrow = meta + (base + tid) * 16;
+    dvv[tid] = dvv_g[tid];
+    mt[0][tid] = mrow[kDinv00];
+    mt[1][tid] = mrow[kDinv01];
+    mt[2][tid] = mrow[kDinv10];
+    mt[3][tid] = mrow[kDinv11];
+    mt[4][tid] = mrow[kMetdet];
+    mt[5][tid] = mrow[kRmetdet] * rr;
+  }
+  __syncthreads();
+  const int j = blockIdx.y * blockDim.x + tid;
+  if (j >= qk) return;
+  const int k = j % nlev;
+  float qv[16], g1[16], g2[16];
+#pragma unroll
+  for (int p = 0; p < 16; ++p) {
+    const size_t r = base + p;
+    const float x = q[r * qk + j];
+    const float vq1 = vu[r * nlev + k] * x, vq2 = vv[r * nlev + k] * x;
+    qv[p] = x;
+    g1[p] = mt[4][p] * (mt[0][p] * vq1 + mt[1][p] * vq2);
+    g2[p] = mt[4][p] * (mt[2][p] * vq1 + mt[3][p] * vq2);
+  }
+#pragma unroll
+  for (int p = 0; p < 16; ++p) {
+    const float div =
+        (dx(dvv, g1, p >> 2, p & 3) + dy(dvv, g2, p >> 2, p & 3)) * mt[5][p];
+    out[(base + p) * qk + j] = qv[p] - dt * div;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -276,6 +341,25 @@ int tracer_euler_launch(const void* meta, const void* dvv, const void* vu,
       static_cast<const float*>(vv) + wv * blk, static_cast<const float*>(q),
       static_cast<float*>(out), static_cast<const int*>(fix_rank),
       static_cast<float*>(slab), nlev, nq, ncol, ld, fold_sph, dt, rrearth);
+  return cudaGetLastError();
+}
+
+// The row kernel: meta [ncol, 16], vu and vv [ncol, nlev], q and out
+// [ncol, qk] with qk = nq*nlev, all contiguous.
+int tracer_row_launch(const void* meta, const void* dvv, const void* vu,
+                      const void* vv, const void* q, void* out, int nlev,
+                      int qk, int ncol, float dt, float rrearth, void* stream,
+                      int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const int warps32 = (qk + 31) / 32 * 32;
+  const int threads = warps32 < kRowThreads ? warps32 : kRowThreads;
+  const dim3 grid(ncol / 16, (qk + threads - 1) / threads);
+  tracer_row_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(meta), static_cast<const float*>(dvv),
+      static_cast<const float*>(vu), static_cast<const float*>(vv),
+      static_cast<const float*>(q), static_cast<float*>(out), nlev, qk, dt,
+      rrearth);
   return cudaGetLastError();
 }
 

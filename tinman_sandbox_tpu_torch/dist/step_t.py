@@ -17,6 +17,15 @@ the assembled-step, SSPRK3 and hyperviscosity parts of
     fixup and sweep for each field.
   * ``caar_dss_t``: the full-state wrapper (pack, unstacked step, unpack;
     counterpart of ``caar_dss_pallas(dss="structured_t")``).
+  * ``caar_dss_structured_packed``: the assembled step on the ROW layout
+    [E16, nlev] (counterpart of ``caar_dss_structured_packed`` of the JAX
+    package): the row CAAR kernel (``kernels.caar.caar_packed``), then one
+    structured DSS over the four fields stacked [E16, 4*nlev], scaled by
+    ``rsp_rows`` [E16, 1]; that DSS is plain PyTorch, as the JAX package
+    computes it in XLA array code. ``caar_dss`` is its full-state wrapper
+    (``caar_dss_pallas(dss="structured")``). The JAX function's ``chunks``
+    and ``stack_dss=False`` are TPU pipeline workarounds with no
+    counterpart.
   * ``ssprk3_packed_t4``: SSPRK3 dynamics, three stages of (CAAR kernel in
     its single-state stage mode with the slab, fixup, sweep), the Shu-Osher
     combinations folded into the sweep's affine output; needs a CONTINUOUS
@@ -59,24 +68,27 @@ import torch
 
 from ..config import Config
 from ..grid import Geometry, HybridVCoord
+from ..kernels.caar import caar_packed, pack_problem
 from ..kernels.caar_t import (
     _on, _scalars, caar_packed_t, caar_t4_cuda, caar_t4_plain, pack_problem_t)
 from ..kernels.dss import (
     dss_fixup_plain, dss_structured_t_cuda, dss_structured_t_cuda_pre,
     dss_sweep_plain, fix_tables)
 from ..kernels.hypervis_t import vlap_cuda, vlap_plain
-from ..kernels.layout import pack_field_t, pack_meta_t, unpack_field_t
+from ..kernels.layout import (
+    pack_field_t, pack_meta_t, unpack_field, unpack_field_t)
 from ..kernels.tracer_t import (
     tracer_euler_cuda, tracer_euler_plain, tracer_limit_cuda,
     tracer_limit_plain)
 from ..state import Derived, State
 from ..timeloop.driver import rotated
 from ..timeloop.rk import B_WEIGHTS
-from .structured_dss import StructuredDssPlan
+from .structured_dss import StructuredDssPlan, dss_structured_scaled
 
 __all__ = ["caar_dss_structured_packed_t4",
            "caar_dss_structured_packed_t4_plain",
            "caar_dss_structured_packed_t", "caar_dss_t",
+           "caar_dss_structured_packed", "caar_dss",
            "ssprk3_packed_t4", "ssprk3_packed_t4_plain", "ssprk3_t",
            "apply_hypervis_packed_t", "apply_hypervis_packed_t_plain",
            "apply_hypervis_t",
@@ -158,6 +170,56 @@ def caar_dss_t(state: State, derived: Derived, geom: Geometry,
         derived, vn0_u=unpack_field_t(vn0u, nelem),
         vn0_v=unpack_field_t(vn0v, nelem), phi=unpack_field_t(phi, nelem),
         omega_p=unpack_field_t(omg, nelem))
+    return new_state, new_derived
+
+
+def caar_dss_structured_packed(scal, meta, u0, v0, t0, dp0, um1, vm1, tm1,
+                               dpm1, qdp, pecnd, vn0u, vn0v, omg, dvv,
+                               plan: StructuredDssPlan, rsp_rows: torch.Tensor,
+                               moist: bool = True):
+    """One assembled step on the row layout: the row CAAR kernel on
+    [E16, nlev] buffers (meta [E16, 16]), then rsp_rows * DSS over the four
+    new fields stacked [E16, 4*nlev]; rsp_rows is [E16, 1]. Accumulators IN
+    PLACE. Returns (u1, v1, t1, dp1, phi, vn0u, vn0v, omg), the first four
+    assembled."""
+    o = caar_packed(scal, meta, u0, v0, t0, dp0, um1, vm1, tm1, dpm1, qdp,
+                    pecnd, vn0u, vn0v, omg, dvv, moist=moist)
+    nlev = qdp.shape[1]
+    assembled = dss_structured_scaled(torch.cat(o[:4], dim=1), plan, rsp_rows)
+    return tuple(assembled[:, i * nlev:(i + 1) * nlev].contiguous()
+                 for i in range(4)) + o[4:]
+
+
+def caar_dss(state: State, derived: Derived, geom: Geometry,
+             hv: HybridVCoord, plan: StructuredDssPlan, cfg: Config, dt2,
+             eta_ave_w, moist: bool = True, device="cuda"):
+    """Full-state assembled step on the row layout, the contract of
+    ``caar_dss_t``: pack, ``caar_dss_structured_packed``, unpack.
+    rspheremp is the geometry's, one f32 (or the state's dtype on the CPU)
+    column. Returns (new_state, new_derived) on ``device``."""
+    if cfg.rsplit <= 0:
+        raise NotImplementedError("caar_dss ports the rsplit>0 path only")
+    dev, (state, derived, geom, hv) = _on(device, state, derived, geom, hv)
+    dtype = state.u.dtype
+    p = pack_problem(state, derived, geom, hv, cfg, dtype)
+    u1, v1, t1, dp1, phi, vn0u, vn0v, omg = caar_dss_structured_packed(
+        _scalars(dt2, eta_ave_w, hv, dtype, dev), p["meta"], p["u0"],
+        p["v0"], p["t0"], p["dp0"], p["um1"], p["vm1"], p["tm1"], p["dpm1"],
+        p["qdp"], p["pecnd"], p["vn0u"], p["vn0v"], p["omg"], p["dvv"], plan,
+        _rsp_row(geom, dtype).T.contiguous(), moist=moist)
+    un = lambda x: unpack_field(x, cfg.nelem)
+
+    def put(x, packed):
+        out = x.clone()
+        out[cfg.np1] = un(packed)
+        return out
+
+    new_state = dataclasses.replace(
+        state, u=put(state.u, u1), v=put(state.v, v1), t=put(state.t, t1),
+        dp3d=put(state.dp3d, dp1))
+    new_derived = dataclasses.replace(
+        derived, vn0_u=un(vn0u), vn0_v=un(vn0v), phi=un(phi),
+        omega_p=un(omg))
     return new_state, new_derived
 
 

@@ -1,5 +1,5 @@
 """Structured (gather-free) DSS on the contiguous cubed-sphere ordering
-(counterpart of the transposed-layout parts of
+(counterpart of the row- and transposed-layout parts of
 ``tinman_sandbox_tpu/dist/structured_dss.py``).
 
 With elements ordered face-major / row-major and GLL points packed as
@@ -17,6 +17,10 @@ to ``x[k, face, ej, ei, i, j]`` and DSS decomposes into
 
 ``dss_structured_t`` is the plain version of this algebra in PyTorch; the
 CUDA kernels of ``kernels/dss.py`` compute the same function.
+``dss_structured`` and ``dss_structured_scaled`` are the same sums on the
+row layout [e16, k] (one row per lane): the JAX package computes them as XLA
+array code, and so do these, with the same additions in the same order
+(bit for bit its results).
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ import torch
 
 from ..config import NP, NPSQ
 
-__all__ = ["StructuredDssPlan", "make_structured_plan", "dss_structured_t",
+__all__ = ["StructuredDssPlan", "make_structured_plan", "dss_structured",
+           "dss_structured_scaled", "dss_structured_t",
            "dss_structured_scaled_t", "apply_rsp_t", "rsp_lanes_2f"]
 
 _SIDES = ("W", "E", "S", "N")
@@ -157,6 +162,18 @@ def dss_structured_t(x: torch.Tensor, plan: StructuredDssPlan) -> torch.Tensor:
     for c in range(3):
         flat[:, rows[:, c]] = vals
     return flat
+
+
+def dss_structured(x: torch.Tensor, plan: StructuredDssPlan) -> torch.Tensor:
+    """DSS (unscaled shared-dof sum) of a row-layout [e16, k] field."""
+    return dss_structured_t(x.T, plan).T.contiguous()
+
+
+def dss_structured_scaled(x: torch.Tensor, plan: StructuredDssPlan,
+                          rsp_rows: torch.Tensor) -> torch.Tensor:
+    """rspheremp * DSS(x) for row-layout [e16, k] fields; ``rsp_rows`` is
+    [e16, 1]."""
+    return rsp_rows * dss_structured(x, plan)
 
 
 def apply_rsp_t(rsp_lanes: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

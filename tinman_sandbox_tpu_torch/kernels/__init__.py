@@ -1,12 +1,20 @@
-"""CAAR in array form and on the packed layout, the hyperviscosity
-Laplacians, the tracer stages and the saxpby triad (the DSS kernels are in
-``dss.py``).
+"""CAAR in array form and on the two packed layouts, the hyperviscosity
+Laplacians, the tracer stages on both layouts and the saxpby triad (the DSS
+kernels are in ``dss.py``).
 
 The CUDA kernels live in ``../csrc`` and are built at first launch
 (``_build.py``); importing these modules builds nothing.
 """
+from .caar import caar, caar_packed, caar_packed_rsplit0, run_leapfrog
 from .caar_array import caar_array
-from .caar_t import caar_packed_t, caar_t, caar_t4_cuda, caar_t4_plain, run_leapfrog_t
+from .caar_t import (
+    caar_packed_rsplit0_t,
+    caar_packed_t,
+    caar_t,
+    caar_t4_cuda,
+    caar_t4_plain,
+    run_leapfrog_t,
+)
 from .hypervis_t import vlap_cuda, vlap_plain
 from .tracer_t import (
     tracer_euler_cuda,
@@ -15,13 +23,21 @@ from .tracer_t import (
     tracer_limit_plain,
 )
 from .saxpby import saxpby_bandwidth_gbs, saxpby_cuda, saxpby_plain
+from .tracer import euler_packed, euler_step_fast
 
 __all__ = [
+    "caar",
     "caar_array",
+    "caar_packed",
+    "caar_packed_rsplit0",
+    "caar_packed_rsplit0_t",
     "caar_packed_t",
     "caar_t",
     "caar_t4_cuda",
     "caar_t4_plain",
+    "euler_packed",
+    "euler_step_fast",
+    "run_leapfrog",
     "run_leapfrog_t",
     "saxpby_bandwidth_gbs",
     "saxpby_cuda",

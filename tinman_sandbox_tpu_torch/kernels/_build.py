@@ -92,7 +92,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "caar": {
-        "caar_launch": [_P] * 23 + [_I] * 5 + [_F] * 4 + [_P, _I],
+        "caar_launch": [_P] * 26 + [_I] * 7 + [_F] * 4 + [_P, _I],
         "caar_error_string": [_I],
     },
     "dss": {
@@ -116,6 +116,7 @@ _SIGNATURES = {
     "tracer": {
         "tracer_euler_launch": [_P] * 8 + [_I] * 7 + [_F, _F, _P, _I],
         "tracer_limit_launch": [_P] * 9 + [_I] * 7 + [_F] * 4 + [_P, _I],
+        "tracer_row_launch": [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P, _I],
         "tracer_error_string": [_I],
     },
 }

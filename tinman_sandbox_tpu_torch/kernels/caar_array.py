@@ -1,5 +1,6 @@
 """compute_and_apply_rhs in array form (counterpart of
-``tinman_sandbox_tpu/kernels/caar_xla.py``, rsplit>0 only).
+``tinman_sandbox_tpu/kernels/caar_xla.py``): the vertically Lagrangian
+rsplit>0 step and the full eta-coordinate rsplit=0 step.
 
 Batched over the field layout [nelem, nlev, np, np] and built from the ops/
 layer. Works in any float dtype (f64 for the oracle gate, f32 for the fast
@@ -9,16 +10,20 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from ..config import Config
 from ..constants import CONSTANTS
 from ..device import resolve_device
 from ..grid import Geometry, HybridVCoord
 from ..ops import (
     divergence_sphere,
+    eta_dot_dpdn_rsplit0,
     gradient_sphere,
     midpoint_pressure,
     preq_hydrostatic,
     preq_omega_ps,
+    preq_vertadv,
     virtual_temperature,
     vorticity_sphere,
 )
@@ -28,10 +33,11 @@ __all__ = ["caar_rhs", "caar_array"]
 
 
 def caar_rhs(u, v, t, dp, qdp_q, phis, pecnd, geom: Geometry,
-             hv: HybridVCoord, moist: bool = True):
-    """CAAR tendencies at one time level, rsplit>0 (routine_mod.F90:7-177).
-    Returns (vtens1, vtens2, ttens, dptens, diags) with dptens = -divdp and
-    diags carrying phi / omega_p / vdp1 / vdp2."""
+             hv: HybridVCoord, cfg: Config, moist: bool = True):
+    """CAAR tendencies at one time level (routine_mod.F90:7-177). Returns
+    (vtens1, vtens2, ttens, dptens, diags) with dptens = -(divdp + delta_k
+    eta_dot_dpdn) and diags carrying phi / omega_p / vdp1 / vdp2 /
+    eta_dot_dpdn (zero for rsplit>0)."""
     c = CONSTANTS
     dvv = geom.dvv
     dinv = geom.dinv[:, None]
@@ -55,31 +61,43 @@ def caar_rhs(u, v, t, dp, qdp_q, phis, pecnd, geom: Geometry,
     phi = preq_hydrostatic(phis, t_v, p, dp, c.Rgas)
     omega_p = preq_omega_ps(p, vgrad_p, divdp)
 
-    # rsplit>0 is vertically Lagrangian: no vertical advection terms
+    # rsplit>0 is vertically Lagrangian (eta_dot_dpdn = vertical advection
+    # = 0, routine_mod.F90:121-124); rsplit=0 is the full eta-coordinate
+    # path (routine_extracted.F90:224-260)
+    nelem, nlev = t.shape[0], t.shape[1]
+    if cfg.rsplit > 0:
+        t_vadv = u_vadv = v_vadv = torch.zeros_like(t)
+        eta_dot = torch.zeros((nelem, nlev + 1) + tuple(t.shape[2:]),
+                              dtype=t.dtype, device=t.device)
+        d_eta_int = 0.0
+    else:
+        eta_dot, _ = eta_dot_dpdn_rsplit0(divdp, hv.hybi)
+        t_vadv, u_vadv, v_vadv = preq_vertadv(t, u, v, eta_dot, 1.0 / dp)
+        d_eta_int = eta_dot[:, 1:] - eta_dot[:, :-1]
+
     ephi = 0.5 * (u * u + v * v) + phi + pecnd
     grad_t1, grad_t2 = gradient_sphere(t, dvv, dinv, rr)
     vgrad_t = u * grad_t1 + v * grad_t2
     gephi1, gephi2 = gradient_sphere(ephi, dvv, dinv, rr)
     gpterm = c.Rgas * (t_v / p)
     fcor_vort = fcor + vort
-    vtens1 = v * fcor_vort - gephi1 - gpterm * grad_p1
-    vtens2 = -(u * fcor_vort) - gephi2 - gpterm * grad_p2
-    ttens = -vgrad_t + c.kappa * t_v * omega_p
-    dptens = -divdp
+    vtens1 = -u_vadv + v * fcor_vort - gephi1 - gpterm * grad_p1
+    vtens2 = -v_vadv - (u * fcor_vort) - gephi2 - gpterm * grad_p2
+    ttens = -t_vadv - vgrad_t + c.kappa * t_v * omega_p
+    dptens = -(divdp + d_eta_int)
 
-    diags = dict(phi=phi, omega_p=omega_p, vdp1=vdp1, vdp2=vdp2)
+    diags = dict(phi=phi, omega_p=omega_p, vdp1=vdp1, vdp2=vdp2,
+                 eta_dot_dpdn=eta_dot)
     return vtens1, vtens2, ttens, dptens, diags
 
 
 def caar_array(state: State, derived: Derived, geom: Geometry,
                hv: HybridVCoord, cfg: Config, dt2, eta_ave_w,
                moist: bool = True, device="cuda"):
-    """One CAAR evaluation + leapfrog update on ``device``. Returns
-    (new_state, new_derived); the inputs are not modified."""
-    if cfg.rsplit <= 0:
-        raise NotImplementedError(
-            "caar_array ports the rsplit>0 path only; rsplit=0 is not yet "
-            "ported")
+    """One CAAR evaluation + leapfrog update on ``device``, rsplit>0 or
+    rsplit=0 (dp3d with the interface-flux stencil, routine_extracted.F90:
+    517, and the eta_dot_dpdn accumulator). Returns (new_state,
+    new_derived); the inputs are not modified."""
     dev = resolve_device(device)
     state, derived = state.to(dev), derived.to(dev)
     geom, hv = geom.to(dev), hv.to(dev)
@@ -90,7 +108,7 @@ def caar_array(state: State, derived: Derived, geom: Geometry,
     vtens1, vtens2, ttens, dptens, diags = caar_rhs(
         state.u[n0], state.v[n0], state.t[n0], state.dp3d[n0],
         state.qdp[qn0, :, 0] if moist else None,
-        state.phis, derived.pecnd, geom, hv, moist=moist,
+        state.phis, derived.pecnd, geom, hv, cfg, moist=moist,
     )
 
     def put(x, new):
@@ -111,6 +129,6 @@ def caar_array(state: State, derived: Derived, geom: Geometry,
         vn0_v=derived.vn0_v + eta_ave_w * diags["vdp2"],
         phi=diags["phi"],
         omega_p=derived.omega_p + eta_ave_w * diags["omega_p"],
-        eta_dot_dpdn=derived.eta_dot_dpdn.clone(),
+        eta_dot_dpdn=derived.eta_dot_dpdn + eta_ave_w * diags["eta_dot_dpdn"],
     )
     return new_state, new_derived

@@ -1,11 +1,14 @@
 """The CAAR step on the packed [nlev, E16] layout (counterpart of
-``tinman_sandbox_tpu/kernels/caar_pallas_t.py``, rsplit>0, f32 storage).
+``tinman_sandbox_tpu/kernels/caar_pallas_t.py``, f32 storage).
 
 The kernel is ``csrc/caar.cu``. It replaces the Pallas kernels
 ``caar_pallas_packed_t4_lg`` (caar_pallas_t.py:542, the bench headline),
 ``caar_pallas_packed_t`` (:349), ``caar_pallas_packed_t4`` (:405) and the
 Runge-Kutta stage kernel ``caar_pallas_packed_t4_rk`` (:740), which all run
-``_caar_physics`` (:59-133) plus the accumulator update (:525-527).
+``_caar_physics`` (:59-133) plus the accumulator update (:525-527), and in
+its rsplit=0 mode ``caar_pallas_packed_rsplit0_t`` (:856), which adds the
+interface mass flux, the vertical advection of u, v and T, the dp3d
+interface stencil and the eta_dot_dpdn accumulator (:265-290, :307, :344).
 It is bound by device-memory traffic; the source's note gives its design.
 Where the TPU kernel took 128x128 block-diagonal derivative operators and
 triangular scan matrices to feed its matrix unit, this one takes the 4x4
@@ -32,10 +35,15 @@ triangular scan matrices to feed its matrix unit, this one takes the 4x4
     ``emit_phi=False`` (accepted with ``single`` only) phi is neither
     stored nor returned (None in its place). Such launches are also counted in
     ``caar_t4_cuda.single_launches``.
-  * ``caar_t`` is the full-state wrapper (``caar_pallas_t``) and
-    ``run_leapfrog_t`` the production leapfrog loop
-    (``run_leapfrog_pallas_t``): pack once, rotate packed buffers, unpack
-    once.
+  * ``caar_packed_rsplit0_t`` is the rsplit=0 step on unstacked buffers
+    (row 6 of the kernel table), ``caar_packed_rsplit0_t_plain`` its plain
+    version: ``hyb`` [nlev, 2] holds hybi(k) and hybi(k+1), ``etaacc`` the
+    eta_dot_dpdn accumulator at interfaces 1..nlev, updated IN PLACE with
+    the other three. Its launches count in ``caar_packed_rsplit0_t.launches``.
+  * ``caar_t`` is the full-state wrapper (``caar_pallas_t``), dispatching on
+    ``cfg.rsplit``, and ``run_leapfrog_t`` the production leapfrog loop
+    (``run_leapfrog_pallas_t``, rsplit>0 only, as the JAX loop): pack once,
+    rotate packed buffers, unpack once.
 """
 from __future__ import annotations
 
@@ -56,6 +64,8 @@ __all__ = [
     "caar_t4_plain",
     "caar_t4_cuda",
     "caar_packed_t",
+    "caar_packed_rsplit0_t",
+    "caar_packed_rsplit0_t_plain",
     "pack_problem_t",
     "caar_t",
     "run_leapfrog_t",
@@ -67,9 +77,11 @@ _MAX_NLEV = 400
 
 
 def _physics_plain(scal, meta, dvv, u, v, t, dp, um1, vm1, tm1, dpm1,
-                   qdp, pecnd, moist):
-    """``_caar_physics`` on [k, E16] tensors: returns
-    (u1, v1, t1, dp1, phi, vdp1, vdp2, omega_p)."""
+                   qdp, pecnd, moist, hyb=None):
+    """``_caar_physics`` on [k, E16] tensors: returns (u1, v1, t1, dp1, phi,
+    vdp1, vdp2, omega_p, eta_hi). With ``hyb`` ([k, 2]: hybi(k), hybi(k+1))
+    it is the rsplit=0 step of ``_caar_kernel_t`` (caar_pallas_t.py:265-290)
+    and eta_hi the flux at interfaces 1..k; else eta_hi is None."""
     full_precision_matmuls()
     c = CONSTANTS
     k, e16 = u.shape
@@ -117,18 +129,39 @@ def _physics_plain(scal, meta, dvv, u, v, t, dp, um1, vm1, tm1, dpm1,
     phi = row("phis") + rev_strict + 0.5 * q
     cum_strict = torch.cat([zero, torch.cumsum(divdp, 0)[:-1]])
     omega_p = (vgrad_p - cum_strict - 0.5 * divdp) / p
+    eta_hi = None
+    if hyb is None:
+        t_vadv = u_vadv = v_vadv = 0.0
+        dptens = divdp
+    else:
+        # interface mass flux: the boundary zeros by mask, not computed
+        cum_inc = cum_strict + divdp
+        sdot = cum_inc[k - 1:k]                      # column total [1, E16]
+        lev = torch.arange(k, device=u.device)[:, None]
+        eta_lo = torch.where(lev > 0, hyb[:, 0:1] * sdot - cum_strict, 0.0)
+        eta_hi = torch.where(lev < k - 1, hyb[:, 1:2] * sdot - cum_inc, 0.0)
+        rpdel = 1.0 / dp
+        facp = 0.5 * rpdel * eta_hi
+        facm = 0.5 * rpdel * eta_lo
+
+        def vadv(x):
+            dxp = x[1:] - x[:-1]                     # x(k+1) - x(k)
+            return facp * torch.cat([dxp, zero]) + facm * torch.cat([zero, dxp])
+
+        t_vadv, u_vadv, v_vadv = vadv(t), vadv(u), vadv(v)
+        dptens = divdp + (eta_hi - eta_lo)
     ephi = 0.5 * (u * u + v * v) + phi + pecnd
     gt1, gt2 = grad(t)
     ge1, ge2 = grad(ephi)
     gpterm = c.Rgas * (t_v / p)
     fcor_vort = row("fcor") + vort
-    vtens1 = v * fcor_vort - ge1 - gpterm * gp1
-    vtens2 = -(u * fcor_vort) - ge2 - gpterm * gp2
-    ttens = -(u * gt1 + v * gt2) + c.kappa * t_v * omega_p
+    vtens1 = -u_vadv + v * fcor_vort - ge1 - gpterm * gp1
+    vtens2 = -v_vadv - (u * fcor_vort) - ge2 - gpterm * gp2
+    ttens = -t_vadv - (u * gt1 + v * gt2) + c.kappa * t_v * omega_p
     sph = row("spheremp")
     return (sph * (um1 + dt2 * vtens1), sph * (vm1 + dt2 * vtens2),
-            sph * (tm1 + dt2 * ttens), sph * (dpm1 - dt2 * divdp),
-            phi, vdp1, vdp2, omega_p)
+            sph * (tm1 + dt2 * ttens), sph * (dpm1 - dt2 * dptens),
+            phi, vdp1, vdp2, omega_p, eta_hi)
 
 
 def _slab_plain(s1: torch.Tensor, fix) -> torch.Tensor:
@@ -148,7 +181,7 @@ def caar_t4_plain(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv,
     if not single and not emit_phi:
         raise ValueError("caar: emit_phi=False needs single=True")
     base = s0 if single else sm1
-    u1, v1, t1, dp1, phi, vdp1, vdp2, omega_p = _physics_plain(
+    u1, v1, t1, dp1, phi, vdp1, vdp2, omega_p, _ = _physics_plain(
         scal, meta, dvv, *s0.split(k), *base.split(k), qdp, pecnd, moist)
     eta = scal[0, 1]
     s1 = torch.cat([u1, v1, t1, dp1])
@@ -157,8 +190,10 @@ def caar_t4_plain(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv,
     return out if fix is None else (*out, _slab_plain(s1, fix))
 
 
-def _check(scal, meta, dvv, fields, nlev):
-    """Validate the operands of one CAAR step; returns the device."""
+def _check(scal, meta, dvv, fields, nlev, hyb=None, row=False):
+    """Validate the operands of one CAAR step on the t ([nlev, E16] fields,
+    [16, E16] meta, [nlev, 2] hyb) or the row ([E16, nlev], [E16, 16],
+    [2, nlev]) layout; returns the device."""
     ref = fields[0]
     dev, dtype = ref.device, ref.dtype
     if dtype not in (torch.float32, torch.float64):
@@ -167,12 +202,16 @@ def _check(scal, meta, dvv, fields, nlev):
         raise TypeError("caar: the CUDA kernel takes float32 only")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"caar: unsupported device {dev}")
-    e16 = ref.shape[-1]
+    e16 = ref.shape[0 if row else -1]
     if e16 % NPSQ:
         raise ValueError(f"caar: E16={e16} is not a multiple of {NPSQ}")
-    want = {"meta": (meta, (len(META_COLS), e16)), "dvv": (dvv, (4, 4)),
+    lay = (lambda a, b: (b, a)) if row else (lambda a, b: (a, b))
+    want = {"meta": (meta, lay(len(META_COLS), e16)), "dvv": (dvv, (4, 4)),
             "scal": (scal, (1, 4))}
-    want.update({f"field{i}": (f, (nlev, e16)) for i, f in enumerate(fields)})
+    if hyb is not None:
+        want["hyb"] = (hyb, lay(nlev, 2))
+    want.update({f"field{i}": (f, lay(nlev, e16))
+                 for i, f in enumerate(fields)})
     for name, (x, shape) in want.items():
         if tuple(x.shape) != shape:
             raise ValueError(f"caar: {name} has shape {tuple(x.shape)}, "
@@ -203,41 +242,59 @@ def _new_slab(fix, ref: torch.Tensor, nlev: int):
 
 
 def _caar_step(scal, meta, dvv, s0, sm1, qdp, pecnd, acc, out, phi, moist,
-               fix=None, slab=None):
-    """One step on [nlev, E16] views: s0/sm1/out are 4-tuples (u, v, t, dp),
+               fix=None, slab=None, hyb=None, etaacc=None, row=False) -> bool:
+    """One step on [nlev, E16] views (with ``row``, [E16, nlev] views and
+    the row layout's meta and hyb): s0/sm1/out are 4-tuples (u, v, t, dp),
     acc the 3 accumulators (updated in place), phi the output buffer; with
     ``fix``, ``slab`` [nfix, 4*nlev] receives the fix-lane rows of out.
     ``sm1=None`` is the Runge-Kutta stage (base state = s0, not fetched
-    again); ``phi=None`` stores no geopotential."""
-    nlev = qdp.shape[0]
+    again); ``phi=None`` stores no geopotential. With ``hyb`` and
+    ``etaacc`` it is the rsplit=0 step, etaacc updated in place. Returns
+    True where it launched the kernel (CUDA tensors), False where the plain
+    version ran (CPU tensors)."""
+    nlev = qdp.shape[1 if row else 0]
     single = sm1 is None
+    r0 = etaacc is not None
     dev = _check(scal, meta, dvv,
                  (*s0, *(() if single else sm1), qdp, pecnd, *acc, *out,
-                  *(() if phi is None else (phi,))), nlev)
+                  *(() if phi is None else (phi,)),
+                  *(() if etaacc is None else (etaacc,))), nlev, hyb, row)
     if dev.type == "cpu":
-        u1, v1, t1, dp1, ph, vdp1, vdp2, omega_p = _physics_plain(
-            scal, meta, dvv, *s0, *(s0 if single else sm1), qdp, pecnd, moist)
+        tr = (lambda x: x.T) if row else (lambda x: x)
+        u1, v1, t1, dp1, ph, vdp1, vdp2, omega_p, eta_hi = _physics_plain(
+            scal, tr(meta), dvv, *map(tr, s0), *map(tr, s0 if single else sm1),
+            tr(qdp), tr(pecnd), moist, None if hyb is None else tr(hyb))
         for o, r in zip(out, (u1, v1, t1, dp1)):
-            o.copy_(r)
+            o.copy_(tr(r))
         if phi is not None:
-            phi.copy_(ph)
+            phi.copy_(tr(ph))
         eta = scal[0, 1]
         for a, r in zip(acc, (vdp1, vdp2, omega_p)):
-            a.add_(eta * r)
+            a.add_(eta * tr(r))
+        if r0:
+            etaacc.add_(eta * tr(eta_hi))
         if slab is not None:
             slab.copy_(_slab_plain(torch.cat(out), fix))
-        return
+        return False
     ptr = lambda x: 0 if x is None else x.data_ptr()
     c = CONSTANTS
+    # hybi(k) and hybi(k+1) as two strided vectors of hyb, whichever layout
+    hs = 1 if row else 2
     err = _build.library("caar").caar_launch(
         ptr(scal), ptr(meta), ptr(dvv), *map(ptr, s0),
         *map(ptr, (None,) * 4 if single else sm1),
         ptr(qdp), ptr(pecnd), *map(ptr, acc), *map(ptr, out), ptr(phi),
         ptr(None if fix is None else fix.fix_rank), ptr(slab),
-        nlev, qdp.shape[1], qdp.stride(0), int(bool(moist)), 4 * nlev,
-        c.Rgas, c.kappa, c.rgas_over_rvap_m1, c.rrearth,
-        torch.cuda.current_stream(dev).cuda_stream, dev.index)
+        ptr(hyb), 0 if hyb is None else hyb.data_ptr() + (
+            nlev if row else 1) * hyb.element_size(), ptr(etaacc),
+        nlev, qdp.shape[0 if row else 1], qdp.stride(0), int(bool(moist)),
+        4 * nlev, hs, int(row), c.Rgas, c.kappa, c.rgas_over_rvap_m1,
+        c.rrearth, torch.cuda.current_stream(dev).cuda_stream, dev.index)
     _build.check_launch("caar", err)
+    return True
+
+
+def _count_t4(slab, single):
     caar_t4_cuda.launches += 1
     if slab is not None:
         caar_t4_cuda.slab_launches += 1
@@ -272,9 +329,10 @@ def caar_t4_cuda(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv,
     s1 = torch.empty_like(s0)
     phi = torch.empty_like(qdp) if emit_phi else None
     slab = _new_slab(fix, qdp, k)
-    _caar_step(scal, meta, dvv, s0.split(k), None if single else sm1.split(k),
-               qdp, pecnd, (vn0u, vn0v, omg), s1.split(k), phi, moist, fix,
-               slab)
+    if _caar_step(scal, meta, dvv, s0.split(k),
+                  None if single else sm1.split(k), qdp, pecnd,
+                  (vn0u, vn0v, omg), s1.split(k), phi, moist, fix, slab):
+        _count_t4(slab, single)
     out = (s1, phi, vn0u, vn0v, omg)
     return out if fix is None else (*out, slab)
 
@@ -294,10 +352,46 @@ def caar_packed_t(scal, meta, u0, v0, t0, dp0, um1, vm1, tm1, dpm1,
     out = tuple(torch.empty_like(x) for x in (u0, v0, t0, dp0))
     phi = torch.empty_like(qdp)
     slab = _new_slab(fix, qdp, qdp.shape[0])
-    _caar_step(scal, meta, dvv, (u0, v0, t0, dp0), (um1, vm1, tm1, dpm1),
-               qdp, pecnd, (vn0u, vn0v, omg), out, phi, moist, fix, slab)
+    if _caar_step(scal, meta, dvv, (u0, v0, t0, dp0), (um1, vm1, tm1, dpm1),
+                  qdp, pecnd, (vn0u, vn0v, omg), out, phi, moist, fix, slab):
+        _count_t4(slab, False)
     res = (*out, phi, vn0u, vn0v, omg)
     return res if fix is None else (*res, slab)
+
+
+def caar_packed_rsplit0_t_plain(scal, hyb, meta, u0, v0, t0, dp0, um1, vm1,
+                                tm1, dpm1, qdp, pecnd, vn0u, vn0v, omg, etaacc,
+                                dvv, moist: bool = True):
+    """Plain PyTorch ``caar_packed_rsplit0_t``. Pure: returns new (u1, v1,
+    t1, dp1, phi, vn0u', vn0v', omg', etaacc') and modifies nothing."""
+    u1, v1, t1, dp1, phi, vdp1, vdp2, omega_p, eta_hi = _physics_plain(
+        scal, meta, dvv, u0, v0, t0, dp0, um1, vm1, tm1, dpm1, qdp, pecnd,
+        moist, hyb)
+    eta = scal[0, 1]
+    return (u1, v1, t1, dp1, phi, vn0u + eta * vdp1, vn0v + eta * vdp2,
+            omg + eta * omega_p, etaacc + eta * eta_hi)
+
+
+def caar_packed_rsplit0_t(scal, hyb, meta, u0, v0, t0, dp0, um1, vm1, tm1,
+                          dpm1, qdp, pecnd, vn0u, vn0v, omg, etaacc, dvv,
+                          moist: bool = True):
+    """The rsplit=0 (full eta-coordinate) step on unstacked [nlev, E16]
+    buffers (counterpart of ``caar_pallas_packed_rsplit0_t``): the CAAR step
+    plus the interface mass flux, the vertical advection of u, v and T and
+    the dp3d interface stencil. ``hyb`` [nlev, 2] holds hybi(k) in column 0
+    and hybi(k+1) in column 1; ``etaacc`` is the eta_dot_dpdn accumulator at
+    interfaces 1..nlev. The four accumulators are updated IN PLACE. Returns
+    (u1, v1, t1, dp1, phi, vn0u, vn0v, omg, etaacc)."""
+    out = tuple(torch.empty_like(x) for x in (u0, v0, t0, dp0))
+    phi = torch.empty_like(qdp)
+    if _caar_step(scal, meta, dvv, (u0, v0, t0, dp0), (um1, vm1, tm1, dpm1),
+                  qdp, pecnd, (vn0u, vn0v, omg), out, phi, moist, hyb=hyb,
+                  etaacc=etaacc):
+        caar_packed_rsplit0_t.launches += 1
+    return (*out, phi, vn0u, vn0v, omg, etaacc)
+
+
+caar_packed_rsplit0_t.launches = 0
 
 
 def pack_problem_t(state: State, derived: Derived, geom: Geometry,
@@ -335,33 +429,74 @@ def caar_t(state: State, derived: Derived, geom: Geometry, hv: HybridVCoord,
            cfg: Config, dt2, eta_ave_w, moist: bool = True, device="cuda"):
     """Full-state wrapper with the contract of ``caar_array`` on the packed
     layout (counterpart of ``caar_pallas_t``): pack, one kernel step, unpack.
-    Returns (new_state, new_derived) on ``device``."""
-    if cfg.rsplit <= 0:
-        raise NotImplementedError("caar_t ports the rsplit>0 path only; "
-                                  "rsplit=0 is not yet ported")
+    ``cfg.rsplit`` = 0 runs ``caar_packed_rsplit0_t`` and advances
+    eta_dot_dpdn at interfaces 1..nlev (interface 0 keeps the old value);
+    rsplit>0 ``caar_packed_t``, eta_dot_dpdn unchanged. Returns (new_state,
+    new_derived) on ``device``."""
+    step = caar_packed_t if cfg.rsplit > 0 else caar_packed_rsplit0_t
+    return full_step(step, T_PACKING, state, derived, geom, hv, cfg, dt2,
+                     eta_ave_w, moist, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class Packing:
+    """How one packed layout packs a problem: ``problem`` (the operand dict
+    of ``pack_problem_t``'s contract), ``field`` and ``unfield`` (one
+    field), ``hyb`` (hybi to the layout's [nlev, 2] or [2, nlev])."""
+
+    problem: object
+    field: object
+    unfield: object
+    hyb: object
+
+
+def _hyb_t(hybi, nlev):
+    return torch.stack([hybi[:nlev], hybi[1:nlev + 1]], dim=1).contiguous()
+
+
+T_PACKING = Packing(problem=pack_problem_t, field=pack_field_t,
+                   unfield=unpack_field_t, hyb=_hyb_t)
+
+
+def full_step(step, packing: Packing, state: State, derived: Derived,
+              geom: Geometry, hv: HybridVCoord, cfg: Config, dt2, eta_ave_w,
+              moist: bool = True, device="cuda"):
+    """One full-state step through the packed ``step`` (a pair step, or with
+    ``cfg.rsplit`` = 0 an rsplit=0 step) on ``packing``'s layout: pack,
+    step, unpack into time level np1 and the derived state. Any step of the
+    wrapper's call form serves, its plain version included."""
     dev, (state, derived, geom, hv) = _on(device, state, derived, geom, hv)
     dtype = state.u.dtype
-    p = pack_problem_t(state, derived, geom, hv, cfg, dtype)
+    p = packing.problem(state, derived, geom, hv, cfg, dtype)
     scal = _scalars(dt2, eta_ave_w, hv, dtype, dev)
-    u1, v1, t1, dp1, phi, vn0u, vn0v, omg = caar_packed_t(
-        scal, p["meta"], p["u0"], p["v0"], p["t0"], p["dp0"],
-        p["um1"], p["vm1"], p["tm1"], p["dpm1"],
-        p["qdp"], p["pecnd"], p["vn0u"], p["vn0v"], p["omg"], p["dvv"],
-        moist=moist)
+    args = (p["u0"], p["v0"], p["t0"], p["dp0"], p["um1"], p["vm1"],
+            p["tm1"], p["dpm1"], p["qdp"], p["pecnd"], p["vn0u"], p["vn0v"],
+            p["omg"])
     ne, np1 = cfg.nelem, cfg.np1
+    if cfg.rsplit > 0:
+        u1, v1, t1, dp1, phi, vn0u, vn0v, omg = step(
+            scal, p["meta"], *args, p["dvv"], moist=moist)
+        eta_dot = derived.eta_dot_dpdn
+    else:
+        etaacc = packing.field(derived.eta_dot_dpdn[:, 1:].to(dtype))
+        (u1, v1, t1, dp1, phi, vn0u, vn0v, omg, eta_new) = step(
+            scal, packing.hyb(hv.hybi.to(dtype), cfg.nlev), p["meta"], *args,
+            etaacc, p["dvv"], moist=moist)
+        eta_dot = torch.cat([derived.eta_dot_dpdn[:, :1].to(dtype),
+                             packing.unfield(eta_new, ne)], dim=1)
+    un = lambda x: packing.unfield(x, ne)
 
     def put(x, packed):
         out = x.clone()
-        out[np1] = unpack_field_t(packed, ne)
+        out[np1] = un(packed)
         return out
 
     new_state = dataclasses.replace(
         state, u=put(state.u, u1), v=put(state.v, v1), t=put(state.t, t1),
         dp3d=put(state.dp3d, dp1))
     new_derived = dataclasses.replace(
-        derived, vn0_u=unpack_field_t(vn0u, ne),
-        vn0_v=unpack_field_t(vn0v, ne), phi=unpack_field_t(phi, ne),
-        omega_p=unpack_field_t(omg, ne))
+        derived, vn0_u=un(vn0u), vn0_v=un(vn0v), phi=un(phi),
+        omega_p=un(omg), eta_dot_dpdn=eta_dot)
     return new_state, new_derived
 
 

@@ -1,7 +1,13 @@
 """Batched operators (counterpart of ``tinman_sandbox_tpu/ops``)."""
 from .limiter import element_bounds, limit_tracer
 from .remap import comp_sum
-from .scans import midpoint_pressure, preq_hydrostatic, preq_omega_ps
+from .scans import (
+    eta_dot_dpdn_rsplit0,
+    midpoint_pressure,
+    preq_hydrostatic,
+    preq_omega_ps,
+    preq_vertadv,
+)
 from .sphere import (
     curl_sphere_wk_testcov,
     divergence_sphere,
@@ -28,6 +34,7 @@ __all__ = [
     "divergence_sphere_update",
     "divergence_sphere_wk",
     "element_bounds",
+    "eta_dot_dpdn_rsplit0",
     "grad_sphere_wk_testcov",
     "gradient_sphere",
     "gradient_sphere_update",
@@ -38,6 +45,7 @@ __all__ = [
     "midpoint_pressure",
     "preq_hydrostatic",
     "preq_omega_ps",
+    "preq_vertadv",
     "virtual_temperature",
     "vlaplace_sphere_wk_cartesian",
     "vlaplace_sphere_wk_cartesian_reduced",

@@ -59,7 +59,7 @@ def ssprk3_step(state: State, derived: Derived, geom: Geometry,
 
     def rhs(fields):
         return caar_rhs(*fields, qdp_q, state.phis, derived.pecnd, geom, hv,
-                        moist=moist)
+                        cfg, moist=moist)
 
     def axpy(a, x, b, y):
         return tuple(a * xi + b * yi for xi, yi in zip(x, y))
