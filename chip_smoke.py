@@ -94,7 +94,27 @@ NVIDIA card and check it, phase by phase:
      steps through ``euler_step_fast`` at ne30 against the field form
      ``timeloop.tracer.euler_step`` on the card (1e-5 scaled); ``bench
      --layout row`` and ``bench --layout row --ne 30``;
- 15. one JSON line of kernels (launches on the main paths, errors, times,
+ 15. the four kernels of the ring path at ne30 x 72: the ring-fused CAAR
+     kernel (``caar_ring_packed_t4``) in pair and stage modes, with and
+     without phi and mix, in the three cases of phase 3, every output block
+     (the swept w at every lane, phi, the accumulators, the slab) within
+     5e-5 scaled of ``caar_ring_plain`` and bit for bit the two launches it
+     fuses (the CAAR kernel, the merge-free sweep); the ring-fused tracer
+     kernel (``tracer_ring_packed_t``) at qsize 1 and 35, at the run's dt and
+     a long dt, with and without mix, likewise; the merge-free sweep at 288,
+     72 and 2,520 rows (new, mix, in place) and the patch (with and without
+     mix), each bit for bit its plain version, and the split DSS bit for bit
+     the merged one; each timed against its bound, its plain version, the
+     two launches it fuses and (the patch) ``index_copy_``; blocks per SM
+     and waves of the ring kernels and of the CAAR and Euler kernels;
+ 16. the ring paths at ne30 x 72, launch counts set to 0 just before and
+     read just after: 10 chained ``caar_dss_ring_t4`` and 10
+     ``ssprk3_ring_t4`` steps and 3 ``ssprk3_tracer_ring_t`` steps at qsize 1
+     and 35, each step bit for bit the same chain on the two-launch kernels,
+     continuity exactly 0, per step 1 (3) ring, fixup and patch launches and
+     no sweep; the split DSS of the tracer stacks; ring against two-launch
+     step times; ``bench --ne 30 --ring`` beside ``bench --ne 30``;
+ 17. one JSON line of kernels (launches on the main paths, errors, times,
      bounds), the card line, and last the result line.
 
 Any failure raises and exits non-zero before the result line is printed.
@@ -130,6 +150,10 @@ RSPLIT0_OPS_PER_POINT = 250
 # the row tracer kernel: two flux products, the metric products and two
 # contractions of 7 per point and tracer (csrc/tracer.cu)
 TRACER_ROW_OPS_PER_POINT = 32
+# the merge-free sweep: per output element up to 3 adds and the two-float
+# scale (2 products, 1 add), and with mix 3 more (dss_sweep.cuh)
+SWEEP_OPS_PER_POINT = 6
+MIX_OPS_PER_POINT = 3
 WIND = 30.0                    # m/s: the wind case's winds, U(-1, 1) x this
 CAAR_TOL = 5e-5                # the repo's on-chip equivalence gate
 CONSERVE_TOL = 4e-6            # limiter: an element's mass, of its sum|w*y|
@@ -1546,6 +1570,537 @@ def phase_row_path(dev, cs):
     return results
 
 
+def ring_field_errs(got, want, nlev) -> dict:
+    """Scaled error of each output of a CAAR ring call on its own: the four
+    row blocks of the swept w (every lane), phi (where it is stored), the
+    three accumulators and the slab's four column blocks."""
+    names = ("w_u", "w_v", "w_t", "w_dp")
+    pairs = list(zip(names, got[0].split(nlev), want[0].split(nlev)))
+    if got[1] is not None:
+        pairs.append(("phi", got[1], want[1]))
+    pairs += zip(("vn0u", "vn0v", "omg"), got[2:5], want[2:5])
+    pairs += zip(("slab_u", "slab_v", "slab_t", "slab_dp"),
+                 got[5].split(nlev, 1), want[5].split(nlev, 1))
+    return {n: scaled_err(a, b) for n, a, b in pairs}
+
+
+def phase_ring_kernels(dev, cs):
+    """The four kernels of the ring path at ne30 x 72: the CAAR and tracer
+    ring kernels against their plain versions (5e-5 per output block) and
+    bit for bit against the two-launch kernels they fuse, the merge-free
+    sweep and the patch bit for bit their plain versions, the split DSS bit
+    for bit the merged one; each timed against its bound, its plain
+    version and (the patch) its library call. Returns the four rows."""
+    import numpy as np
+    import torch
+
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.kernels import _build
+    from tinman_sandbox_tpu_torch.kernels.caar_t import caar_t4_cuda
+    from tinman_sandbox_tpu_torch.kernels.dss import (
+        dss_extract_cuda, dss_fixup_cuda, dss_merge_patch_cuda,
+        dss_merge_patch_plain, dss_structured_t_cuda_pre,
+        dss_structured_t_cuda_patch, dss_sweep_nomerge_cuda,
+        dss_sweep_nomerge_plain, fix_tables)
+    from tinman_sandbox_tpu_torch.kernels.ring_fused import (
+        caar_ring_packed_t4, caar_ring_plain, ring_geometry,
+        tracer_ring_packed_t, tracer_ring_plain)
+    from tinman_sandbox_tpu_torch.kernels.tracer_t import (
+        tracer_euler_cuda, tracer_euler_plain)
+
+    (scal, meta, qdp, pecnd, dvv), (s0, sm1), acc, plan, rsp = \
+        bench.make_assembled_problem(cs.ne, NLEV, dev)
+    const = (scal, meta, s0, sm1, qdp, pecnd, dvv)
+    fix = fix_tables(plan, dev)
+    e16, n, k, nr = cs.nelem * 16, fix.nfix, NLEV, rsp.shape[0]
+    geo = ring_geometry(cs.ne)
+    nb = -(-e16 // geo.tile)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    rnd = lambda rows: torch.randn(rows, e16, generator=gen, device=dev)
+    ca, cb = float(np.float32(1.0 / 3.0)), float(np.float32(2.0 / 3.0))
+    rows = {}
+
+    # -- occupancy: blocks an SM holds, and the waves of each launch
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+    caar_lib, tr_lib = _build.library("caar"), _build.library("tracer")
+    occ = {"caar_kernel": (caar_lib.caar_blocks_per_sm(0, k, dev.index), nb),
+           "caar_ring_kernel": (caar_lib.caar_blocks_per_sm(1, k, dev.index),
+                                nb + geo.halo),
+           "tracer_euler_kernel": (tr_lib.tracer_blocks_per_sm(0, dev.index),
+                                   nb * -(-k // 8)),
+           "tracer_ring_kernel": (tr_lib.tracer_blocks_per_sm(1, dev.index),
+                                  (nb + geo.halo) * -(-k // 8))}
+    for name, (bps, blocks) in occ.items():
+        if bps <= 0:
+            raise AssertionError(f"occupancy of {name}: error {-bps}")
+        print(f"phase 15 occupancy ne{cs.ne}x{k}: {name} {bps} blocks per SM "
+              f"x {nsm} SMs = {bps * nsm} resident; {blocks} blocks = "
+              f"{blocks / (bps * nsm):.3f} waves")
+
+    # -- the CAAR ring kernel: pair, stage with and without phi, with and
+    # without mix, in the three cases of phase 3
+    mx4 = rnd(4 * k)
+    worst = worst_abs = 0.0
+    for (case, args), (single, emit_phi), mixed in itertools.product(
+            caar_cases(const, acc), ((False, True), (True, True),
+                                     (True, False)), (False, True)):
+        tag = (f"{case} {'stage' if single else 'pair'} phi="
+               f"{'yes' if emit_phi else 'no'} mix={'yes' if mixed else 'no'}")
+        sc, mt, s, sm, q, pec = args[:6]
+        sm = None if single else sm
+        mix = (mx4, ca, cb) if mixed else None
+        kw = dict(single=single, emit_phi=emit_phi)
+        want = caar_ring_plain(sc, mt, s, sm, q, pec, *args[6:9], args[9], rsp,
+                               fix, mix=mix, **kw)
+        kacc = [x.clone() for x in args[6:9]]
+        got = caar_ring_packed_t4(sc, mt, s, sm, q, pec, *kacc, args[9], rsp,
+                                  fix, mix=mix, **kw)
+        # the two launches it fuses: the CAAR kernel, the merge-free sweep
+        tacc = [x.clone() for x in args[6:9]]
+        two = caar_t4_cuda(sc, mt, s, sm, q, pec, *tacc, args[9], fix=fix,
+                           **kw)
+        tw = dss_sweep_nomerge_cuda(two[0], rsp, fix, mix)
+        torch.cuda.synchronize()
+        if (got[1] is None) == emit_phi or any(
+                a is not b for a, b in zip(got[2:5], kacc)):
+            raise AssertionError(f"caar_ring {tag}: outputs misplaced")
+        for g in got:
+            if g is not None and not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"caar_ring {tag}: non-finite")
+        errs = ring_field_errs(got, want, k)
+        same = torch.equal(got[0], tw) and torch.equal(got[5], two[5]) and \
+            all(torch.equal(a, b) for a, b in zip(got[2:5], tacc)) and \
+            (not emit_phi or torch.equal(got[1], two[1]))
+        print(f"phase 15 caar_ring ne{cs.ne}x{k} {tag}: bit for bit the two "
+              f"launches: {same}; scaled errors vs plain "
+              + " ".join(f"{a} {b:.2e}" for a, b in errs.items()))
+        if max(errs.values()) > CAAR_TOL or not same:
+            raise AssertionError(f"caar_ring {tag}: {errs} > {CAAR_TOL} or "
+                                 "not the two launches' bits")
+        worst = max(worst, *errs.values())
+        worst_abs = max(worst_abs, *(float((a - b).abs().max()) for a, b in
+                                     zip(got, want) if a is not None))
+        del want, got, two, tw
+    kacc = [x.clone() for x in acc]
+    ring_ms = cuda_ms(lambda: caar_ring_packed_t4(
+        scal, meta, s0, sm1, qdp, pecnd, *kacc, dvv, rsp, fix), 20)
+    ring_mix_ms = cuda_ms(lambda: caar_ring_packed_t4(
+        scal, meta, s0, None, qdp, pecnd, *kacc, dvv, rsp, fix, single=True,
+        emit_phi=False, mix=(mx4, ca, cb)), 20)
+
+    def two_launch():
+        s1, *_, slab = caar_t4_cuda(scal, meta, s0, sm1, qdp, pecnd, *kacc,
+                                    dvv, fix=fix)
+        return dss_sweep_nomerge_cuda(s1, rsp, fix)
+
+    two_ms = cuda_ms(two_launch, 20)
+    p_ms = cuda_ms(lambda: caar_ring_plain(scal, meta, s0, sm1, qdp, pecnd,
+                                           *acc, dvv, rsp, fix), 5)
+    # the CAAR step's 21 rows with w in place of s1, the 13 meta rows, dvv,
+    # 3 scalars, fix_rank, the slab and the rspheremp rows; with mix 16 rows
+    # (the stage without phi) plus the 4 of mx
+    nb_ring = lambda rows: (rows * k + 13 + nr) * e16 * 4 + 16 * 4 + 3 * 4 \
+        + e16 * 4 + n * 4 * k * 4
+    ops = (CAAR_OPS_PER_POINT + 4 * SWEEP_OPS_PER_POINT) * e16 * k
+    bnd, by = bound_ms(nb_ring(21), ops)
+    bnd_mix, _ = bound_ms(nb_ring(20), ops + 4 * MIX_OPS_PER_POINT * e16 * k)
+    print(f"phase 15 caar_ring ne{cs.ne}x{k} pair: kernel {ring_ms:.4f} ms "
+          f"(bound {bnd:.4f} ms, {by}); the two launches it fuses "
+          f"{two_ms:.4f} ms; stage without phi with mix {ring_mix_ms:.4f} ms "
+          f"(bound {bnd_mix:.4f} ms); plain {p_ms:.4f} ms, library none")
+    # the same at ne28, whose 588 + 4 blocks fit one wave of the 660 that
+    # 5 blocks per SM x 132 SMs hold (ne30: 679 blocks, 1.03 waves)
+    (sc28, mt28, q28, pec28, _), (a28, b28), acc28, plan28, rsp28 = \
+        bench.make_assembled_problem(28, k, dev)
+    fix28 = fix_tables(plan28, dev)
+    acc28 = list(acc28)
+    ne28 = dict(
+        caar_ms=cuda_ms(lambda: caar_t4_cuda(sc28, mt28, a28, b28, q28, pec28,
+                                             *acc28, dvv, fix=fix28), 20),
+        two_launch_ms=cuda_ms(lambda: dss_sweep_nomerge_cuda(caar_t4_cuda(
+            sc28, mt28, a28, b28, q28, pec28, *acc28, dvv, fix=fix28)[0],
+            rsp28, fix28), 20),
+        ring_ms=cuda_ms(lambda: caar_ring_packed_t4(
+            sc28, mt28, a28, b28, q28, pec28, *acc28, dvv, rsp28, fix28), 20))
+    print(f"phase 15 caar_ring ne28x{k} (one wave, {-(-a28.shape[1] // 128)} "
+          f"+ {ring_geometry(28).halo} blocks): kernel {ne28['ring_ms']:.4f} "
+          f"ms, the two launches {ne28['two_launch_ms']:.4f} ms, the CAAR "
+          f"kernel alone {ne28['caar_ms']:.4f} ms")
+    del sc28, mt28, q28, pec28, a28, b28, acc28, plan28, rsp28, fix28
+    rows["caar_ring_packed_t4"] = dict(
+        route="cuda", source="tinman_sandbox_tpu_torch/csrc/caar.cu",
+        replaces="tinman_sandbox_tpu/kernels/ring_fused.py:189",
+        max_abs_err=worst_abs, max_scaled_err=worst, ms=ring_ms,
+        plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=None,
+        two_launch_ms=two_ms, stage_mix_ms=ring_mix_ms,
+        stage_mix_bound_ms=bnd_mix, blocks_per_sm=occ["caar_ring_kernel"][0],
+        caar_kernel_blocks_per_sm=occ["caar_kernel"][0],
+        **{f"ne28_{key}": v for key, v in ne28.items()})
+    del kacc, mx4
+
+    # -- the tracer ring kernel at qsize 1 and QSIZE_TALL, the run's dt and a
+    # long one, with and without mix (qsize 1: the first tracer of the stack)
+    _, ps0, q_tall, _, _, _ = bench.make_prim_problem(cs.ne, k, dev, DYN_DT,
+                                                      QSIZE_TALL)
+    kw = dict(wind_rows=(0, 1))
+    for qsize in (1, QSIZE_TALL):
+        tag0 = f"ne{cs.ne}x{k} qsize {qsize}"
+        q = q_tall[:qsize * k].contiguous()
+        mx = torch.rand(q.shape, generator=torch.Generator(
+            device=dev).manual_seed(5), device=dev)
+        div = (q - tracer_euler_plain(meta, ps0, ps0, q, dvv, 1.0, k,
+                                      fold_sph=False, wind_rows=(0, 1)))
+        dt_long = 0.5 * float(q.abs().max()) / float(div.abs().max())
+        del div
+        worst = worst_abs = 0.0
+        for dt, mixed in ((DYN_DT, False), (dt_long, False), (dt_long, True)):
+            tag = f"{tag0} dt {dt:.4g} mix={'yes' if mixed else 'no'}"
+            mix = (mx, ca, cb) if mixed else None
+            want, wslab = tracer_ring_plain(meta, ps0, ps0, q, dvv, dt, k, rsp,
+                                            fix, mix=mix, **kw)
+            got, slab = tracer_ring_packed_t(meta, ps0, ps0, q, dvv, dt, k,
+                                             rsp, fix, mix=mix, **kw)
+            e, eslab = tracer_euler_cuda(meta, ps0, ps0, q, dvv, dt, k,
+                                         fix=fix, **kw)
+            same = torch.equal(got, dss_sweep_nomerge_cuda(e, rsp, fix, mix)) \
+                and torch.equal(slab, eslab)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"tracer_ring {tag}: non-finite")
+            err = max(max(scaled_err(a, b) for a, b in zip(got.split(k),
+                                                            want.split(k))),
+                      max(scaled_err(a, b) for a, b in zip(
+                          slab.split(k, 1), wslab.split(k, 1))))
+            print(f"phase 15 tracer_ring {tag}: bit for bit the two launches: "
+                  f"{same}; worst scaled error of a tracer block {err:.2e}")
+            if err > CAAR_TOL or not same:
+                raise AssertionError(f"tracer_ring {tag}: {err} > {CAAR_TOL} "
+                                     "or not the two launches' bits")
+            worst = max(worst, err)
+            worst_abs = max(worst_abs, float((got - want).abs().max()))
+            del want, wslab, got, slab, e, eslab
+        reps = 50 if qsize == 1 else 10
+        t_ms = cuda_ms(lambda: tracer_ring_packed_t(
+            meta, ps0, ps0, q, dvv, DYN_DT, k, rsp, fix, **kw), reps)
+        tm_ms = cuda_ms(lambda: tracer_ring_packed_t(
+            meta, ps0, ps0, q, dvv, DYN_DT, k, rsp, fix, mix=(mx, ca, cb),
+            **kw), reps)
+        two_ms = cuda_ms(lambda: dss_sweep_nomerge_cuda(tracer_euler_cuda(
+            meta, ps0, ps0, q, dvv, DYN_DT, k, fix=fix, **kw)[0], rsp, fix),
+            reps)
+        p_ms = cuda_ms(lambda: tracer_ring_plain(
+            meta, ps0, ps0, q, dvv, DYN_DT, k, rsp, fix, **kw), 3)
+        qk = qsize * k
+        # the 2 wind blocks, q read, w written (and mx read), 7 meta rows,
+        # the rspheremp rows, dvv, fix_rank and the slab
+        nbt = lambda blocks: (blocks * k + 7 + nr) * e16 * 4 + 16 * 4 \
+            + e16 * 4 + n * qk * 4
+        ops = (TRACER_OPS_PER_POINT + SWEEP_OPS_PER_POINT) * qk * e16
+        bnd, by = bound_ms(nbt(2 + 2 * qsize), ops)
+        bnd_m, _ = bound_ms(nbt(2 + 3 * qsize), ops + MIX_OPS_PER_POINT * qk
+                            * e16)
+        print(f"phase 15 tracer_ring {tag0}: kernel {t_ms:.4f} ms (bound "
+              f"{bnd:.4f} ms, {by}), with mix {tm_ms:.4f} ms (bound "
+              f"{bnd_m:.4f} ms); the two launches it fuses {two_ms:.4f} ms; "
+              f"plain {p_ms:.4f} ms, library none")
+        if qsize == 1:
+            rows["tracer_ring_packed_t"] = dict(
+                route="cuda", source="tinman_sandbox_tpu_torch/csrc/tracer.cu",
+                replaces="tinman_sandbox_tpu/kernels/ring_fused.py:369",
+                max_abs_err=worst_abs, max_scaled_err=worst, ms=t_ms,
+                plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=None,
+                mix_ms=tm_ms, mix_bound_ms=bnd_m, two_launch_ms=two_ms,
+                blocks_per_sm=occ["tracer_ring_kernel"][0])
+        else:
+            r = rows["tracer_ring_packed_t"]
+            r.update(tall_qsize=qsize, tall_max_scaled_err=worst,
+                     tall_ms=t_ms, tall_mix_ms=tm_ms, tall_plain_ms=p_ms,
+                     tall_bound_ms=bnd, tall_mix_bound_ms=bnd_m,
+                     tall_two_launch_ms=two_ms)
+            r["max_abs_err"] = max(r["max_abs_err"], worst_abs)
+        del q, mx
+        torch.cuda.empty_cache()
+    del q_tall
+
+    # -- the merge-free sweep and the patch at 288, 72 and 2,520 rows
+    abs_sw = abs_pt = 0.0
+    for rows_k in (4 * k, k, QSIZE_TALL * k):
+        x, mx = rnd(rows_k), rnd(rows_k)
+        slab = dss_extract_cuda(x, fix)
+        vd = dss_fixup_cuda(slab, fix, rsp)
+        tall = rnd(rows_k + k)
+        for label, mix in (("", None), (" mix", (mx, ca, cb)),
+                           (" in place", (tall, 1.0, -1e-3))):
+            ref = tall.clone() if label == " in place" else None
+            want = dss_sweep_nomerge_plain(
+                x, rsp, fix, mix if ref is None else (ref, 1.0, -1e-3))
+            got = dss_sweep_nomerge_cuda(x, rsp, fix, mix)
+            torch.cuda.synchronize()
+            abs_sw = max(abs_sw, float((got - want).abs().max()))
+            if not torch.equal(got, want) or (ref is not None and (
+                    got is not tall or not torch.equal(tall[rows_k:],
+                                                       ref[rows_k:]))):
+                raise AssertionError(f"dss_sweep_nomerge [{rows_k}]{label} "
+                                     "differs from its plain version")
+            del want, got
+        for label, mix in (("", None), (" mix", (mx, ca, cb))):
+            w0 = dss_sweep_nomerge_cuda(x, rsp, fix, mix)
+            want = dss_merge_patch_plain(w0.clone(), vd, fix, mix)
+            got = dss_merge_patch_cuda(w0, vd, fix, mix)
+            split = dss_structured_t_cuda_patch(x, slab, plan, rsp, mix)
+            merged = dss_structured_t_cuda_pre(x, slab, plan, rsp, mix)
+            torch.cuda.synchronize()
+            abs_pt = max(abs_pt, float((got - want).abs().max()))
+            if got is not w0 or not torch.equal(got, want):
+                raise AssertionError(f"dss_merge_patch [{rows_k}]{label} "
+                                     "differs from its plain version")
+            if not torch.equal(split, merged):
+                raise AssertionError(f"split DSS [{rows_k}]{label} differs "
+                                     "from the merged DSS")
+            del w0, want, got, split, merged
+        reps = 50 if rows_k < 1000 else 10
+        sw_ms = cuda_ms(lambda: dss_sweep_nomerge_cuda(x, rsp, fix), reps)
+        swm_ms = cuda_ms(lambda: dss_sweep_nomerge_cuda(x, rsp, fix,
+                                                        (mx, ca, cb)), reps)
+        swp_ms = cuda_ms(lambda: dss_sweep_nomerge_plain(x, rsp, fix), 3)
+        w0 = dss_sweep_nomerge_cuda(x, rsp, fix)
+        lanes = fix.fix_lanes.long()
+        pt_ms = cuda_ms(lambda: dss_merge_patch_cuda(w0, vd, fix), reps)
+        ptm_ms = cuda_ms(lambda: dss_merge_patch_cuda(w0, vd, fix,
+                                                      (mx, ca, cb)), reps)
+        ptp_ms = cuda_ms(lambda: dss_merge_patch_plain(w0, vd, fix), reps)
+        lib_ms = cuda_ms(lambda: w0.index_copy_(1, lanes, vd), reps)
+        if not torch.equal(w0, dss_merge_patch_plain(w0.clone(), vd, fix)):
+            raise AssertionError("index_copy_ is not the patch")
+        # x read, w written (and mx read), the rspheremp rows
+        sw_b, sw_by = bound_ms(2 * rows_k * e16 * 4 + nr * e16 * 4,
+                               SWEEP_OPS_PER_POINT * rows_k * e16)
+        swm_b, _ = bound_ms(3 * rows_k * e16 * 4 + nr * e16 * 4,
+                            (SWEEP_OPS_PER_POINT + MIX_OPS_PER_POINT)
+                            * rows_k * e16)
+        # vd read, the fix lanes written, fix_lanes (and mx at them)
+        pt_b, pt_by = bound_ms(2 * rows_k * n * 4 + n * 4, 0)
+        ptm_b, _ = bound_ms(3 * rows_k * n * 4 + n * 4,
+                            MIX_OPS_PER_POINT * rows_k * n)
+        print(f"phase 15 dss_sweep_nomerge ne{cs.ne} [{rows_k}, {e16}]: "
+              f"bitwise (new, mix, in place); kernel {sw_ms:.4f} ms (bound "
+              f"{sw_b:.4f} ms, {sw_by}), with mix {swm_ms:.4f} (bound "
+              f"{swm_b:.4f}); plain {swp_ms:.4f} ms")
+        print(f"phase 15 dss_merge_patch ne{cs.ne} [{rows_k}, {n} fix lanes]: "
+              f"bitwise; the split DSS bitwise the merged one; kernel "
+              f"{pt_ms:.4f} ms (bound {pt_b:.4f} ms, {pt_by}), with mix "
+              f"{ptm_ms:.4f} (bound {ptm_b:.4f}); plain {ptp_ms:.4f} ms; "
+              f"library index_copy_ {lib_ms:.4f} ms")
+        sfx = "" if rows_k == 4 * k else f"rows{rows_k}_"
+        rows.setdefault("dss_sweep_nomerge_cuda", dict(
+            route="cuda", source="tinman_sandbox_tpu_torch/csrc/dss.cu",
+            replaces="tinman_sandbox_tpu/kernels/dss_pallas.py:335",
+            library_ms=None)).update({
+                f"{sfx}ms": sw_ms, f"{sfx}plain_ms": swp_ms,
+                f"{sfx}bound_ms": sw_b, f"{sfx}bound_by": sw_by,
+                f"{sfx}mix_ms": swm_ms, f"{sfx}mix_bound_ms": swm_b})
+        rows.setdefault("dss_merge_patch_cuda", dict(
+            route="cuda", source="tinman_sandbox_tpu_torch/csrc/dss.cu",
+            replaces="tinman_sandbox_tpu/kernels/dss_pallas.py:1477")).update({
+                f"{sfx}ms": pt_ms, f"{sfx}plain_ms": ptp_ms,
+                f"{sfx}bound_ms": pt_b, f"{sfx}bound_by": pt_by,
+                f"{sfx}library_ms": lib_ms, f"{sfx}mix_ms": ptm_ms,
+                f"{sfx}mix_bound_ms": ptm_b})
+        del x, mx, slab, vd, tall, w0
+        torch.cuda.empty_cache()
+    rows["dss_sweep_nomerge_cuda"]["max_abs_err"] = abs_sw
+    rows["dss_merge_patch_cuda"]["max_abs_err"] = abs_pt
+    return rows
+
+
+def phase_ring_path(dev, cs):
+    """The ring paths at ne30 x 72, each step bit for bit the same chain on
+    the two-launch kernels: 10 assembled steps, 10 SSPRK3 steps, 3 tracer
+    steps at qsize 1 and QSIZE_TALL, the split DSS; the launches of each
+    ring step; ring against two-launch times; ``bench --ne 30 --ring``
+    beside ``bench --ne 30``. Returns the two bench results (ring,
+    two-launch)."""
+    import torch
+
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.dist import (
+        caar_dss_ring_t4, caar_dss_structured_packed_t4, continuity_error_t,
+        ssprk3_packed_t4, ssprk3_ring_t4, ssprk3_tracer_packed_t,
+        ssprk3_tracer_ring_t)
+    from tinman_sandbox_tpu_torch.kernels.caar_t import caar_t4_cuda
+    from tinman_sandbox_tpu_torch.kernels.dss import (
+        dss_fixup_cuda, dss_merge_patch_cuda, dss_structured_t_cuda,
+        dss_structured_t_cuda_patch, dss_sweep_cuda, dss_sweep_nomerge_cuda,
+        dss_extract_cuda, fix_tables)
+    from tinman_sandbox_tpu_torch.kernels.layout import META_COLS
+    from tinman_sandbox_tpu_torch.kernels.ring_fused import (
+        caar_ring_packed_t4, tracer_ring_packed_t)
+    from tinman_sandbox_tpu_torch.kernels.tracer_t import tracer_euler_cuda
+
+    watched = (caar_ring_packed_t4, tracer_ring_packed_t, dss_fixup_cuda,
+               dss_merge_patch_cuda, dss_sweep_cuda, caar_t4_cuda,
+               tracer_euler_cuda)
+
+    def ring_step(fn):
+        """fn() and the launches it made, by wrapper."""
+        before = [w.launches for w in watched]
+        out = fn()
+        return out, {w.__name__: w.launches - b
+                     for w, b in zip(watched, before) if w.launches - b}
+
+    def check_launches(label, got, ring, per):
+        want = {ring.__name__: per, "dss_fixup_cuda": per,
+                "dss_merge_patch_cuda": per}
+        if got != want:
+            raise AssertionError(f"{label}: launches {got} != {want}")
+
+    def cont(label, x, i):
+        c = continuity_error_t(x, cs.gdof)
+        if c != 0.0:
+            raise AssertionError(f"{label}: continuity {c} after step {i}")
+
+    # -- 10 chained assembled steps
+    const, levels, acc, plan, rsp = bench.make_assembled_problem(
+        cs.ne, NLEV, dev)
+    scal, meta, qdp, pecnd, dvv = const
+    (r0, rm1), ra = levels, [a.clone() for a in acc]
+    (t0, tm1), ta = levels, [a.clone() for a in acc]
+    for i in range(10):
+        (r1, rphi, *ra), got = ring_step(lambda: caar_dss_ring_t4(
+            scal, meta, r0, rm1, qdp, pecnd, *ra, dvv, plan, rsp))
+        check_launches("assembled ring step", got, caar_ring_packed_t4, 1)
+        t1, tphi, *ta = caar_dss_structured_packed_t4(
+            scal, meta, t0, tm1, qdp, pecnd, *ta, dvv, plan, rsp)
+        if not (torch.equal(r1, t1) and torch.equal(rphi, tphi)
+                and all(torch.equal(a, b) for a, b in zip(ra, ta))):
+            raise AssertionError(f"assembled ring chain differs from the "
+                                 f"two-launch chain at step {i + 1}")
+        cont("assembled ring chain", r1, i + 1)
+        r0, rm1, t0, tm1 = r1, r0, t1, t0
+    if not all(bool(torch.isfinite(x).all()) for x in (r0, rphi, *ra)):
+        raise AssertionError("assembled ring chain: non-finite")
+    moved = scaled_err(r0, levels[0])
+    print(f"phase 16 assembled ring chain ne{cs.ne}x{NLEV} x10: bit for bit "
+          f"the two-launch chain after every step, continuity 0; state moved "
+          f"{moved:.2e}; launches per step {json.dumps(got)}")
+    kacc = [a.clone() for a in acc]
+    s0, sm1 = levels
+    asm_ring = cuda_ms(lambda: caar_dss_ring_t4(scal, meta, s0, sm1, qdp,
+                                                pecnd, *kacc, dvv, plan, rsp),
+                       20)
+    asm_two = cuda_ms(lambda: caar_dss_structured_packed_t4(
+        scal, meta, s0, sm1, qdp, pecnd, *kacc, dvv, plan, rsp), 20)
+    del r0, rm1, t0, tm1, r1, t1, rphi, tphi, ra, ta, kacc, levels
+
+    # -- 10 chained SSPRK3 steps from a continuous state: the prim problem's
+    # (the dynamics problem with QSIZE_TALL projected tracers, the first of
+    # them its moisture)
+    (scal, meta, pecnd, dvv), s0, q_tall, acc, plan, rsp = \
+        bench.make_prim_problem(cs.ne, NLEV, dev, DYN_DT, QSIZE_TALL)
+    qdp = q_tall[:NLEV]
+    rs, ra = s0, [a.clone() for a in acc]
+    ts, ta = s0, [a.clone() for a in acc]
+    for i in range(10):
+        (rs, rphi, *ra), got = ring_step(lambda: ssprk3_ring_t4(
+            scal, meta, rs, qdp, pecnd, *ra, dvv, plan, rsp))
+        check_launches("SSPRK3 ring step", got, caar_ring_packed_t4, 3)
+        ts, tphi, *ta = ssprk3_packed_t4(scal, meta, ts, qdp, pecnd, *ta, dvv,
+                                         plan, rsp)
+        if not (torch.equal(rs, ts) and torch.equal(rphi, tphi)
+                and all(torch.equal(a, b) for a, b in zip(ra, ta))):
+            raise AssertionError(f"SSPRK3 ring chain differs from the "
+                                 f"two-launch chain at step {i + 1}")
+        cont("SSPRK3 ring chain", rs, i + 1)
+    if not all(bool(torch.isfinite(x).all()) for x in (rs, rphi, *ra)):
+        raise AssertionError("SSPRK3 ring chain: non-finite")
+    print(f"phase 16 SSPRK3 ring chain ne{cs.ne}x{NLEV} x10: bit for bit the "
+          f"two-launch chain after every step, continuity 0; state moved "
+          f"{scaled_err(rs, s0):.2e}; launches per step {json.dumps(got)}")
+    kacc = [a.clone() for a in acc]
+    rk_ring = cuda_ms(lambda: ssprk3_ring_t4(scal, meta, s0, qdp, pecnd,
+                                             *kacc, dvv, plan, rsp), 10)
+    rk_two = cuda_ms(lambda: ssprk3_packed_t4(scal, meta, s0, qdp, pecnd,
+                                              *kacc, dvv, plan, rsp), 10)
+    del rs, ts, rphi, tphi, ra, ta, kacc
+
+    # -- 3 chained tracer steps at qsize 1 and QSIZE_TALL, and the split DSS
+    # on the same stack
+    times = {}
+    fix = fix_tables(plan, dev)
+    sph = meta[META_COLS.index("spheremp")]
+    ps0 = s0
+    for qsize in (1, QSIZE_TALL):
+        q0 = q_tall[:qsize * NLEV].contiguous()
+        rq = tq = q0
+        for i in range(3):
+            rq, got = ring_step(lambda: ssprk3_tracer_ring_t(
+                dvv, meta, ps0, ps0, rq, plan, rsp, DYN_DT, NLEV,
+                wind_rows=(0, 1)))
+            check_launches("tracer ring step", got, tracer_ring_packed_t, 3)
+            tq = ssprk3_tracer_packed_t(dvv, meta, ps0, ps0, tq, plan, rsp,
+                                        DYN_DT, NLEV, wind_rows=(0, 1))
+            if not torch.equal(rq, tq):
+                raise AssertionError(f"tracer ring chain qsize {qsize} "
+                                     f"differs at step {i + 1}")
+            cont(f"tracer ring chain qsize {qsize}", rq, i + 1)
+        if not bool(torch.isfinite(rq).all()):
+            raise AssertionError("tracer ring chain: non-finite")
+        print(f"phase 16 tracer ring chain ne{cs.ne}x{NLEV} qsize {qsize} x3: "
+              f"bit for bit the two-launch chain after every step, continuity"
+              f" 0; tracer moved {scaled_err(rq, q0):.2e}; launches per step "
+              f"{json.dumps(got)}")
+        reps = 10 if qsize == 1 else 2
+        times[qsize] = (
+            cuda_ms(lambda: ssprk3_tracer_ring_t(
+                dvv, meta, ps0, ps0, q0, plan, rsp, DYN_DT, NLEV,
+                wind_rows=(0, 1)), reps),
+            cuda_ms(lambda: ssprk3_tracer_packed_t(
+                dvv, meta, ps0, ps0, q0, plan, rsp, DYN_DT, NLEV,
+                wind_rows=(0, 1)), reps))
+        # the split DSS of the stack, as it projects the tracers
+        x = (q0 * sph).contiguous()
+        split = dss_structured_t_cuda_patch(x, dss_extract_cuda(x, fix), plan,
+                                            rsp)
+        if not torch.equal(split, dss_structured_t_cuda(x, plan, rsp)):
+            raise AssertionError(f"split DSS qsize {qsize} differs from the "
+                                 "merged DSS")
+        print(f"phase 16 split DSS ne{cs.ne} [{qsize * NLEV}, "
+              f"{cs.nelem * 16}]: bit for bit the merged DSS")
+        del q0, rq, tq, x, split
+        torch.cuda.empty_cache()
+    del q_tall
+    if dss_sweep_nomerge_cuda.launches <= 0:
+        raise AssertionError("the split DSS launched no merge-free sweep")
+    print(f"phase 16 ring vs two-launch step (events, ms): assembled "
+          f"{asm_ring:.4f} / {asm_two:.4f}; SSPRK3 {rk_ring:.4f} / "
+          f"{rk_two:.4f}; tracer qsize 1 {times[1][0]:.4f} / "
+          f"{times[1][1]:.4f}; tracer qsize {QSIZE_TALL} "
+          f"{times[QSIZE_TALL][0]:.4f} / {times[QSIZE_TALL][1]:.4f}")
+
+    results = []
+    for extra in (["--ring"], []):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = bench.main(["--ne", str(cs.ne), "--nlev", str(NLEV),
+                              "--nexec", "300", "--reps", "3"] + extra)
+        print("phase 16 bench " + buf.getvalue().strip())
+        if res["ring"] != bool(extra):
+            raise AssertionError(f"bench {extra}: {res}")
+        results.append(res)
+    launches = results[0]["kernel_launches"]
+    if launches["dss_sweep_cuda"] or launches["caar_t4_cuda"] or \
+            not launches["caar_ring_packed_t4"] == \
+            launches["dss_merge_patch_cuda"] == launches["dss_fixup_cuda"] > 0:
+        raise AssertionError(f"bench --ring launches: {launches}")
+    return results, dict(assembled_ring_ms=asm_ring,
+                         assembled_two_launch_ms=asm_two,
+                         ssprk3_ring_ms=rk_ring, ssprk3_two_launch_ms=rk_two,
+                         tracer_ring_ms=times[1][0],
+                         tracer_two_launch_ms=times[1][1],
+                         tall_tracer_ring_ms=times[QSIZE_TALL][0],
+                         tall_tracer_two_launch_ms=times[QSIZE_TALL][1])
+
+
 def main() -> int:
     try:
         import torch
@@ -1564,8 +2119,11 @@ def main() -> int:
         from tinman_sandbox_tpu_torch.kernels.caar_t import (
             caar_packed_rsplit0_t, caar_t4_cuda)
         from tinman_sandbox_tpu_torch.kernels.dss import (
-            dss_extract_cuda, dss_fixup_cuda, dss_sweep_cuda)
+            dss_extract_cuda, dss_fixup_cuda, dss_merge_patch_cuda,
+            dss_sweep_cuda, dss_sweep_nomerge_cuda)
         from tinman_sandbox_tpu_torch.kernels.hypervis_t import vlap_cuda
+        from tinman_sandbox_tpu_torch.kernels.ring_fused import (
+            caar_ring_packed_t4, tracer_ring_packed_t)
         from tinman_sandbox_tpu_torch.kernels.saxpby import saxpby_cuda
         from tinman_sandbox_tpu_torch.kernels.tracer import euler_packed
         from tinman_sandbox_tpu_torch.kernels.tracer_t import (
@@ -1607,7 +2165,11 @@ def main() -> int:
                                         tracer_euler_cuda,
                                         tracer_limit_cuda,
                                         caar_packed_rsplit0_t, caar_packed,
-                                        caar_packed_rsplit0, euler_packed)}
+                                        caar_packed_rsplit0, euler_packed,
+                                        caar_ring_packed_t4,
+                                        tracer_ring_packed_t,
+                                        dss_merge_patch_cuda,
+                                        dss_sweep_nomerge_cuda)}
 
     def reset():
         for w in wrappers.values():
@@ -1649,26 +2211,41 @@ def main() -> int:
     row_res, row_asm_res = phase_row_path(dev, cs)
     row = counts()
     print(f"phase 14 seconds: {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    for name, extra in phase_ring_kernels(dev, cs).items():
+        rows.setdefault(name, {}).update(extra)
+    print(f"phase 15 seconds: {time.perf_counter() - t0:.1f}")
+    reset()
+    t0 = time.perf_counter()
+    (ring_res, ring_two_res), ring_times = phase_ring_path(dev, cs)
+    ring = counts()
+    print(f"phase 16 seconds: {time.perf_counter() - t0:.1f}")
+    rows["caar_ring_packed_t4"].update(ring_times)
     for label, res, got in (("raw", raw_res, raw), ("assembled", asm_res,
                                                      asm),
                             ("dynamics", dyn_res, dyn),
                             ("prim", prim_res, prim),
-                            ("row/rsplit=0", row_res, row)):
-        print(f"phase 15 {label} main-path launches: {json.dumps(got)}; bench "
+                            ("row/rsplit=0", row_res, row),
+                            ("ring", ring_res, ring)):
+        print(f"phase 17 {label} main-path launches: {json.dumps(got)}; bench "
               f"{res['us_per_step']:.2f} us/step, "
               f"{res['achieved_gb_per_s']:.1f} GB/s, "
               f"fraction_of_triad {res['fraction_of_triad']:.3f}")
     for label, res in (("--limit", lim_res),
                        (f"--qsize {QSIZE_TALL}", tall_res)):
-        print(f"phase 15 prim bench {label}: {res['us_per_step']:.2f} "
+        print(f"phase 17 prim bench {label}: {res['us_per_step']:.2f} "
               f"us/step, {res['achieved_gb_per_s']:.1f} GB/s, "
               f"fraction_of_triad {res['fraction_of_triad']:.3f}, min qdp "
               f"{res['min_qdp']:.3e}")
-    print(f"phase 15 row assembled bench: {row_asm_res['us_per_step']:.2f} "
+    print(f"phase 17 ring bench {ring_res['us_per_step']:.2f} us/step "
+          f"against the two-launch bench {ring_two_res['us_per_step']:.2f} "
+          f"in the same run; launches "
+          f"{json.dumps(ring_res['kernel_launches'])}")
+    print(f"phase 17 row assembled bench: {row_asm_res['us_per_step']:.2f} "
           f"us/step, {row_asm_res['achieved_gb_per_s']:.1f} GB/s, "
           f"fraction_of_triad {row_asm_res['fraction_of_triad']:.3f}, "
           f"launches {json.dumps(row_asm_res['kernel_launches'])}")
-    print(f"phase 15 assembled main-path CAAR launches with the slab: "
+    print(f"phase 17 assembled main-path CAAR launches with the slab: "
           f"{slab_launches}; dynamics main-path CAAR launches in stage mode: "
           f"{single_launches} of {dyn['caar_t4_cuda']}; per bench step "
           f"{json.dumps(dyn_res['kernel_launches_per_step'])}; prim "
@@ -1682,7 +2259,11 @@ def main() -> int:
         if n <= 0 and name not in ("vlap_cuda", "tracer_euler_cuda",
                                    "tracer_limit_cuda",
                                    "caar_packed_rsplit0_t", "caar_packed",
-                                   "caar_packed_rsplit0", "euler_packed"):
+                                   "caar_packed_rsplit0", "euler_packed",
+                                   "caar_ring_packed_t4",
+                                   "tracer_ring_packed_t",
+                                   "dss_merge_patch_cuda",
+                                   "dss_sweep_nomerge_cuda"):
             raise AssertionError(f"{name} was not launched on the assembled "
                                  "path")
     for name in ("caar_t4_cuda", "vlap_cuda", "dss_fixup_cuda",
@@ -1718,6 +2299,11 @@ def main() -> int:
         if row[name] <= 0:
             raise AssertionError(f"{name} was not launched on the row / "
                                  "rsplit=0 path")
+    for name in ("caar_ring_packed_t4", "tracer_ring_packed_t",
+                 "dss_merge_patch_cuda", "dss_sweep_nomerge_cuda",
+                 "dss_fixup_cuda"):
+        if ring[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the ring path")
     if row_asm_res["kernel_launches"]["caar_packed"] <= 0:
         raise AssertionError("bench --layout row --ne: no row CAAR launch")
     if single_launches <= 0:
@@ -1736,7 +2322,7 @@ def main() -> int:
             "name": name, "route": r.pop("route"), "source": r.pop("source"),
             "replaces": r.pop("replaces"),
             "launches": raw[name] + asm[name] + dyn[name] + prim[name]
-            + row[name],
+            + row[name] + ring[name],
             "max_abs_err": r.pop("max_abs_err"), "ms": r.pop("ms"),
             "plain_ms": r.pop("plain_ms"), "bound_ms": r.pop("bound_ms"),
             "bound_by": r.pop("bound_by"), "library_ms": r.pop("library_ms"),

@@ -45,7 +45,8 @@ def test_torch_package_imports_no_jax():
     held = {os.path.relpath(f, ROOT) for f in files}
     for name in ("ops/limiter.py", "ops/remap.py", "timeloop/tracer.py",
                  "timeloop/prim.py", "kernels/tracer_t.py", "dist/step_t.py",
-                 "kernels/caar.py", "kernels/tracer.py", "cli.py", "bench.py"):
+                 "kernels/caar.py", "kernels/tracer.py", "kernels/ring_fused.py",
+                 "cli.py", "bench.py"):
         assert os.path.join("tinman_sandbox_tpu_torch", name) in held
     for path in files:
         with open(path) as f:

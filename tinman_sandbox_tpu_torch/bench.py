@@ -2,7 +2,7 @@
 modes of the repository's ``bench.py``).
 
     python -m tinman_sandbox_tpu_torch.bench [--nelem 1024] [--nlev 72]
-    python -m tinman_sandbox_tpu_torch.bench --ne 30 [--nlev 72]
+    python -m tinman_sandbox_tpu_torch.bench --ne 30 [--nlev 72] [--ring]
     python -m tinman_sandbox_tpu_torch.bench --layout row [--ne 30]
     python -m tinman_sandbox_tpu_torch.bench --ne 30 --rk [--hypervis-nu 1e15]
     python -m tinman_sandbox_tpu_torch.bench --ne 30 --prim \
@@ -28,6 +28,14 @@ continues from the warm-up through every timed run. ``bytes_per_step`` adds
 to the 21 CAAR rows the DSS's 8 (the stacked s1 read and written), the two
 rspheremp rows and twice the slab (written by the CAAR kernel, read by the
 fixup).
+
+``--ne N --ring`` runs the assembled mode on the ring-fused step
+(``dist.caar_dss_ring_t4``: one ring launch that computes the CAAR step and
+the merge-free sweep of its s1, then the fixup and the patch of the fix
+lanes), bit for bit the same chain. Its ``bytes_per_step`` is
+``ring_bytes_per_step``: s1 is no kernel's input or output, so the 8 rows of
+its round trip leave the count and the patch's read of the fix values and
+write of the fix lanes join it. Every ``--ne`` JSON line says ``ring``.
 
 ``--layout row`` runs the raw and the assembled modes on the row layout
 [E16, nlev] (``kernels.caar.caar_packed``, unstacked buffers, meta
@@ -68,7 +76,7 @@ import torch
 
 __all__ = ["card_name_and_power", "bytes_per_step", "make_problem",
            "run_steps", "assembled_bytes_per_step", "make_assembled_problem",
-           "run_assembled", "dynamics_bytes_per_step",
+           "run_assembled", "ring_bytes_per_step", "dynamics_bytes_per_step",
            "make_dynamics_problem", "run_dynamics", "prim_bytes_per_step",
            "make_prim_problem", "run_prim", "main"]
 
@@ -154,6 +162,18 @@ def assembled_bytes_per_step(ne: int, nlev: int, nfix: int,
     if layout == "row":
         return ((21 + 8) * nlev + 1) * e16 * itemsize
     return (((21 + 8) * nlev + 2) * e16 + 2 * nfix * 4 * nlev) * itemsize
+
+
+def ring_bytes_per_step(ne: int, nlev: int, nfix: int,
+                        itemsize: int = 4) -> int:
+    """Device-memory traffic of one ring-fused assembled step, meta
+    ignored, each kernel's inputs read once and outputs written once: the
+    ring kernel reads the 13 CAAR rows and two rspheremp rows and writes
+    the swept 4 rows, phi and the 3 accumulators (21 rows) and the
+    [nfix, 4*nlev] slab, which the fixup reads; the patch reads the
+    [4*nlev, nfix] fix values and writes as many fix lanes."""
+    e16 = 6 * ne * ne * 16
+    return ((21 * nlev + 2) * e16 + 4 * nfix * 4 * nlev) * itemsize
 
 
 def make_assembled_problem(ne: int, nlev: int, device, seed: int = 7,
@@ -450,20 +470,30 @@ def _main_dynamics(args, dev) -> dict:
 
 
 def _main_assembled(args, dev) -> dict:
+    from .dist.step_t import caar_dss_ring_t4
     from .kernels.caar import caar_packed
     from .kernels.caar_t import caar_t4_cuda
     from .kernels.dss import (
-        dss_extract_cuda, dss_fixup_cuda, dss_sweep_cuda, fix_tables)
+        dss_extract_cuda, dss_fixup_cuda, dss_merge_patch_cuda,
+        dss_sweep_cuda, fix_tables)
+    from .kernels.ring_fused import caar_ring_packed_t4
     from .kernels.saxpby import saxpby_bandwidth_gbs
 
     row = args.layout == "row"
     const, levels, acc, plan, rsp = make_assembled_problem(
         args.ne, args.nlev, dev, layout=args.layout)
-    wrappers = (caar_packed,) if row else (
-        caar_t4_cuda, dss_extract_cuda, dss_fixup_cuda, dss_sweep_cuda)
+    if row:
+        wrappers = (caar_packed,)
+    elif args.ring:
+        wrappers = (caar_ring_packed_t4, dss_fixup_cuda, dss_merge_patch_cuda,
+                    caar_t4_cuda, dss_sweep_cuda)
+    else:
+        wrappers = (caar_t4_cuda, dss_extract_cuda, dss_fixup_cuda,
+                    dss_sweep_cuda)
     launches0 = [w.launches for w in wrappers]
+    step = caar_dss_ring_t4 if args.ring else None
     run = lambda lv, a, n: run_assembled(const, lv, a, plan, rsp, n,
-                                         layout=args.layout)
+                                         step=step, layout=args.layout)
     # warm-up (first build), excluded; the chain runs on from it
     levels, acc, _ = run(levels, acc, 2)
     torch.cuda.synchronize(dev)
@@ -481,15 +511,17 @@ def _main_assembled(args, dev) -> dict:
                 for w, n0 in zip(wrappers, launches0)}
     triad = saxpby_bandwidth_gbs(device=dev)
     nelem = 6 * args.ne * args.ne
-    nbytes = assembled_bytes_per_step(args.ne, args.nlev,
-                                      fix_tables(plan, dev).nfix,
-                                      layout=args.layout)
+    nfix = fix_tables(plan, dev).nfix
+    nbytes = (ring_bytes_per_step(args.ne, args.nlev, nfix) if args.ring
+              else assembled_bytes_per_step(args.ne, args.nlev, nfix,
+                                            layout=args.layout))
     gbs = nbytes * args.nexec / best / 1e9
     return {
         "metric": "caar_dss_gridpoint_updates_per_s",
         "config": f"ne{args.ne} ({nelem} elements) x{args.nlev}x16 float32 "
                   f"nexec={args.nexec} reps={args.reps} chained step="
                   + ("caar_dss_structured_packed" if row
+                     else "caar_dss_ring_t4" if args.ring
                      else "caar_dss_structured_packed_t4"),
         "seconds": best,
         "us_per_step": best / args.nexec * 1e6,
@@ -530,6 +562,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--limit", action="store_true",
                     help="with --prim: the monotone limiter in every tracer "
                          "stage")
+    ap.add_argument("--ring", action="store_true",
+                    help="with --ne: the assembled step on the ring-fused "
+                         "path (one ring launch, fixup, patch)")
     ap.add_argument("--layout", default="t", choices=("t", "row"),
                     help="packed layout: t = [nlev, E16] (default), row = "
                          "[E16, nlev] (raw and assembled modes only)")
@@ -546,6 +581,10 @@ def main(argv=None) -> dict:
         ap.error("--qsize and --qsplit must be at least 1")
     if args.layout == "row" and (args.rk or args.prim):
         ap.error("--layout row has the raw and the assembled modes only")
+    if args.ring and (args.ne is None or args.rk or args.prim
+                      or args.layout == "row"):
+        ap.error("--ring is a mode of the assembled step: it needs --ne and "
+                 "takes neither --rk, --prim nor --layout row")
 
     from .device import resolve_device
     from .kernels.caar import caar_packed
@@ -557,6 +596,7 @@ def main(argv=None) -> dict:
         result = (_main_prim if args.prim else _main_dynamics if args.rk
                   else _main_assembled)(args, dev)
         result["layout"] = args.layout
+        result["ring"] = args.ring
         print(json.dumps(result))
         return result
     kernel = caar_packed if args.layout == "row" else caar_t4_cuda

@@ -78,7 +78,23 @@
 // in all (16,384 at 1024 elements, ~6% of the card's thread slots), so the
 // kernel is latency-bound well above its memory bound; splitting levels
 // across warps with a cross-chunk scan is the next step.
+//
+// Ring-fused mode (caar_ring_kernel): replaces caar_ring_packed_t4 of
+// tinman_sandbox_tpu/kernels/ring_fused.py (:189, body _caar_ring_kernel
+// :106), the CAAR step and the rspheremp-scaled alpha/beta sweep of its s1
+// in one launch, optionally with the sweep's mix epilogue. A block runs
+// caar_tile (the same code as caar_kernel, so the same bits) for one tile
+// into a scratch s1, flags it, and then sweeps the tile `halo` tiles behind
+// it (dss_sweep.cuh, the sweep kernel's expressions), waiting for the tiles
+// that sweep reads (ring.cuh). The fix lanes keep their in-face partial
+// sums; the fixup and the patch (dss.cu) complete the DSS. Bound: the CAAR
+// step's bytes and the swept output; s1 goes to the scratch and is read
+// back from L2 while it is recent (the TPU kernel kept it in VMEM only;
+// keeping it out of device memory here is later work). The stage and phi
+// modes carry over; the ring takes neither rsplit=0 nor the row layout.
 #include <cuda_runtime.h>
+
+#include "ring.cuh"
 
 namespace {
 
@@ -142,14 +158,17 @@ __device__ __forceinline__ size_t at(int k, int col, size_t ld) {
 // kPhi: store the geopotential (always, unless kSingle);
 // kR0: rsplit=0 (interface flux, vertical advection, eta accumulator);
 // kRow: [E16, nlev] fields and [E16, 16] meta
+// One step for the 128 columns of tile `tile`, by the calling block. The
+// block's shared memory comes in: col_sm [nlev][kBlock] (q, then phi), the
+// exchange rows xch and dvv. The CAAR kernel and the ring kernel both call
+// it, so both produce the same bits.
 template <bool kSingle, bool kPhi, bool kR0, bool kRow>
-__global__ void __launch_bounds__(kBlock) caar_kernel(CaarArgs a) {
-  extern __shared__ float col_sm[];             // [nlev][kBlock]: q, then phi
-  __shared__ float xch[2][kRows][kBlock];
-  __shared__ float dvv[16];
-
+__device__ __forceinline__ void caar_tile(const CaarArgs& a, int tile,
+                                          float* col_sm,
+                                          float (*xch)[kRows][kBlock],
+                                          float* dvv) {
   const int tid = threadIdx.x;
-  const int col = blockIdx.x * kBlock + tid;
+  const int col = tile * kBlock + tid;
   const bool live = col < a.ncol;               // ncol % 16 == 0: whole elements
   const int eb = tid & ~15;                     // element's first lane in block
   const int li = (tid & 15) >> 2, lj = tid & 3; // lane = li*4 + lj
@@ -348,6 +367,38 @@ __global__ void __launch_bounds__(kBlock) caar_kernel(CaarArgs a) {
 }
 
 template <bool kSingle, bool kPhi, bool kR0, bool kRow>
+__global__ void __launch_bounds__(kBlock) caar_kernel(CaarArgs a) {
+  extern __shared__ float col_sm[];             // [nlev][kBlock]: q, then phi
+  __shared__ float xch[2][kRows][kBlock];
+  __shared__ float dvv[16];
+  caar_tile<kSingle, kPhi, kR0, kRow>(a, blockIdx.x, col_sm, xch, dvv);
+}
+
+// The ring-fused step (t layout, rsplit>0): tile t of the CAAR step into the
+// scratch s1 (a.u1..a.dp1 are its four row blocks), with phi, the
+// accumulators and the slab as caar_kernel writes them; then the sweep of
+// tile t - halo over all 4*nlev rows into r.w (see ring.cuh). nb + halo
+// blocks; the fix lanes of r.w hold in-face partial sums.
+template <bool kSingle, bool kPhi, bool kMix>
+__global__ void __launch_bounds__(kBlock)
+caar_ring_kernel(CaarArgs a, ring::Args r) {
+  extern __shared__ float col_sm[];
+  __shared__ float xch[2][kRows][kBlock];
+  __shared__ float dvv[16];
+  const int t = ring::ticket(r.counter);
+  if (t < r.nb) {
+    caar_tile<kSingle, kPhi, false, false>(a, t, col_sm, xch, dvv);
+    ring::publish(r.flags + t, r.epoch);
+  }
+  const int j = t - r.halo;
+  if (j < 0) return;
+  const int after = ring::wait(r.flags, max(j - r.halo, 0),
+                               min(j + r.halo, r.nb - 1), r.epoch);
+  const int l = j * kBlock + threadIdx.x;
+  if (l < a.ncol) ring::emit<kMix>(r, after, 0, 4 * a.nlev, l, a.ncol);
+}
+
+template <bool kSingle, bool kPhi, bool kR0, bool kRow>
 cudaError_t launch(const CaarArgs& a, size_t smem, cudaStream_t stream) {
   auto* kernel = caar_kernel<kSingle, kPhi, kR0, kRow>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -446,6 +497,129 @@ int caar_launch(const void* scal, const void* meta, const void* dvv,
     return phi ? launch<true, true, false, false>(a, smem, st)
                : launch<true, false, false, false>(a, smem, st);
   return launch<false, true, false, false>(a, smem, st);
+}
+
+// Enqueues one ring-fused step (t layout, rsplit>0, with the slab) on
+// `stream`: a 4-byte memset of the ticket counter, then one kernel of
+// nb + halo blocks; flags holds nflags >= nb entries. s1 is the
+// [4*nlev, ncol] scratch, w the swept output, mx null (no mix) or a
+// [4*nlev, ncol] field; um1..dpm1 all null = the stage mode, phi null only
+// there. Returns the cudaError_t.
+int caar_ring_launch(const void* scal, const void* meta, const void* dvv,
+                     const void* u0, const void* v0, const void* t0,
+                     const void* dp0, const void* um1, const void* vm1,
+                     const void* tm1, const void* dpm1, const void* qdp,
+                     const void* pecnd, void* vn0u, void* vn0v, void* omg,
+                     void* s1, void* phi, const void* fix_rank, void* slab,
+                     const void* rsp, const void* mx, void* w, void* flags,
+                     void* counter, unsigned epoch, int nflags, int nlev,
+                     int ncol, int moist, int nrsp, int ne, int halo,
+                     float rgas,
+                     float kappa, float rv_factor, float rrearth, float ca,
+                     float cb, void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const bool single = um1 == nullptr;
+  if (single != (vm1 == nullptr) || single != (tm1 == nullptr) ||
+      single != (dpm1 == nullptr) || (phi == nullptr && !single) ||
+      fix_rank == nullptr || epoch == 0 ||
+      !ring::fits((ncol + kBlock - 1) / kBlock, nflags, ne, halo, kBlock))
+    return cudaErrorInvalidValue;
+  CaarArgs a = {};
+  a.scal = static_cast<const float*>(scal);
+  a.meta = static_cast<const float*>(meta);
+  a.dvv = static_cast<const float*>(dvv);
+  a.u0 = static_cast<const float*>(u0);
+  a.v0 = static_cast<const float*>(v0);
+  a.t0 = static_cast<const float*>(t0);
+  a.dp0 = static_cast<const float*>(dp0);
+  a.um1 = static_cast<const float*>(um1);
+  a.vm1 = static_cast<const float*>(vm1);
+  a.tm1 = static_cast<const float*>(tm1);
+  a.dpm1 = static_cast<const float*>(dpm1);
+  a.qdp = static_cast<const float*>(qdp);
+  a.pecnd = static_cast<const float*>(pecnd);
+  a.vn0u = static_cast<float*>(vn0u);
+  a.vn0v = static_cast<float*>(vn0v);
+  a.omg = static_cast<float*>(omg);
+  const size_t blk = static_cast<size_t>(nlev) * ncol;
+  float* s1f = static_cast<float*>(s1);
+  a.u1 = s1f;
+  a.v1 = s1f + blk;
+  a.t1 = s1f + 2 * blk;
+  a.dp1 = s1f + 3 * blk;
+  a.phi = static_cast<float*>(phi);
+  a.fix_rank = static_cast<const int*>(fix_rank);
+  a.slab = static_cast<float*>(slab);
+  a.slab_ld = 4 * nlev;
+  a.nlev = nlev;
+  a.ncol = ncol;
+  a.ld = ncol;
+  a.moist = moist;
+  a.rgas = rgas;
+  a.kappa = kappa;
+  a.rv_factor = rv_factor;
+  a.rrearth = rrearth;
+  ring::Args r = {};
+  r.s1 = s1f;
+  r.rsp = static_cast<const float*>(rsp);
+  r.mx = static_cast<const float*>(mx);
+  r.w = static_cast<float*>(w);
+  r.flags = static_cast<unsigned*>(flags);
+  r.counter = static_cast<int*>(counter);
+  r.epoch = epoch;
+  r.nrsp = nrsp;
+  r.ne = ne;
+  r.nb = (ncol + kBlock - 1) / kBlock;
+  r.halo = halo;
+  r.ca = ca;
+  r.cb = cb;
+
+  auto* kernel =
+      single ? (phi ? (mx ? caar_ring_kernel<true, true, true>
+                          : caar_ring_kernel<true, true, false>)
+                    : (mx ? caar_ring_kernel<true, false, true>
+                          : caar_ring_kernel<true, false, false>))
+             : (mx ? caar_ring_kernel<false, true, true>
+                   : caar_ring_kernel<false, true, false>);
+  const size_t smem = static_cast<size_t>(nlev) * kBlock * sizeof(float);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(counter, 0, sizeof(int), st);
+  if (err != cudaSuccess) return err;
+  kernel<<<r.nb + halo, kBlock, smem, st>>>(a, r);
+  return cudaGetLastError();
+}
+
+// Blocks of the pair-mode kernel (fused = 0: caar_kernel, fused = 1:
+// caar_ring_kernel) that one SM holds at nlev levels, from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative: a CUDA error.
+int caar_blocks_per_sm(int fused, int nlev, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  const size_t smem = static_cast<size_t>(nlev) * kBlock * sizeof(float);
+  int n = 0;
+  if (fused) {
+    auto* kernel = caar_ring_kernel<false, true, false>;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kBlock,
+                                                          smem);
+  } else {
+    auto* kernel = caar_kernel<false, true, false, false>;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kBlock,
+                                                          smem);
+  }
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 }  // extern "C"

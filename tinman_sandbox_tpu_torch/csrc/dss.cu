@@ -1,23 +1,25 @@
 // Structured DSS (direct stiffness summation) on the transposed [k, E16]
-// layout of the ne x ne x 6 cubed sphere: three kernels.
+// layout of the ne x ne x 6 cubed sphere: four kernels.
 //
 // Replaces the Pallas kernels of tinman_sandbox_tpu/kernels/dss_pallas.py:
 //   dss_extract  <- extract_tiles_t (:721) and extract_tiles_ct (:759);
 //   dss_fixup    <- vals_to_vd_pallas (:1306) together with the XLA line
 //                   math _fixup_from_rows (:890-929) that feeds it;
 //   dss_sweep    <- dss_sweeps_pallas_t (:617) and dss_sweeps_pallas_ct
-//                   (:1227), with their affine mix= epilogue.
+//                   (:1227), with their affine mix= epilogue; with the
+//                   merge turned off (kMerge = false: no vd, no fix_col) it
+//                   replaces the merge-free sweep dss_sweeps_pallas_nomerge
+//                   (:335), whose fix lanes keep the in-face partial sums;
+//   dss_patch    <- merge_patch_pallas (:1477): in place, each fix lane of
+//                   a merge-free sweep's output w gets its fixup value
+//                   (or ca*mx + cb*value), every other lane stays as it is.
 // The TPU forms cut the lane axis into 128-lane tiles, padded the fix lanes
 // to whole tiles or to per-tile slots, and placed them with one-hot matrix
 // products. None of that is needed here: a thread reads the lane it wants.
 //
-// The algebra (lane = ((face*ne + ej)*ne + ei)*16 + i*4 + j):
-//   y(l) = x(l) + x(l+4)   if i == 3 and ei < ne-1   (alpha sweep)
-//        = x(l) + x(l-4)   if i == 0 and ei > 0
-//   z(l) = y(l) + y(l+db)  if j == 3 and ej < ne-1   (beta sweep,
-//        = y(l) + y(l-db)  if j == 0 and ej > 0       db = 16*ne - 3)
-//   w(l) = z*hi + z*lo (two-float rspheremp) or z*rsp
-// except at the 2,856 fix lanes of ne30 (cube-edge line interiors and cube
+// The sweep's algebra is in dss_sweep.cuh (shared with the ring-fused
+// producers of caar.cu and tracer.cu). The merged sweep takes it at every
+// lane except the 2,856 fix lanes of ne30 (cube-edge line interiors and cube
 // corners), whose value is computed from the PRE-sweep field by the fixup:
 //   v = (g[s0] + g[s1]) + (g[s2] + g[s3]),  then v*hi + v*lo,
 // with s0/s1 the lane and its in-face junction partner on its own line,
@@ -34,45 +36,37 @@
 // Every add and product is rounded on its own (__fadd_rn / __fmul_rn, no FMA
 // contraction) in the order of the JAX package, so each kernel equals its
 // plain PyTorch version bit for bit and every alias of a shared dof ends
-// with the same bits.
+// with the same bits. The patch's value at a fix lane is the sweep's own
+// fix-lane expression, so merge-free sweep + patch equals the merged sweep
+// bit for bit.
 //
 // What bounds them on the H100: device-memory traffic. The sweep reads and
 // writes the whole field once (199 MB at ne30 x 288 rows, ~0.06 ms at
-// 3.35 TB/s); the fixup and the extraction move a ~3.3 MB slab each and
-// are bound by launch latency. Design: one thread per output element;
-// the sweep's threads run along lanes, so loads and stores coalesce, and
-// the partner reads (4 and 16*ne-3 lanes away) hit lines already in cache;
-// the extraction transposes 32x32 tiles through shared memory. Offsets are
-// size_t: 4*nlev*E16 exceeds 2^31 from ne ~ 160 on.
+// 3.35 TB/s); the fixup, the extraction and the patch move a ~3.3 MB slab
+// each and are bound by launch latency. Design: one thread per output
+// element; the sweep's threads run along lanes, so loads and stores
+// coalesce, and the partner reads (4 and 16*ne-3 lanes away) hit lines
+// already in cache;
+// the extraction transposes 32x32 tiles through shared memory; the patch
+// is one thread per (row, fix lane), reading vd coalesced and writing the
+// scattered fix lanes of w. Offsets are size_t: 4*nlev*E16 exceeds 2^31
+// from ne ~ 160 on.
 #include <cuda_runtime.h>
+
+#include "dss_sweep.cuh"
 
 namespace {
 
 constexpr int kSweepThreads = 256;
 constexpr int kFixupThreads = 256;
+constexpr int kPatchThreads = 256;
 constexpr int kTile = 32;
 constexpr int kTileRows = 8;
 
-// x(l) plus its alpha partner, where there is one (y of the header)
-__device__ __forceinline__ float alpha_sum(const float* __restrict__ xr,
-                                           int l, int ne) {
-  const int i = (l >> 2) & 3, ei = (l >> 4) % ne;
-  float v = xr[l];
-  if (i == 3 && ei < ne - 1) v = __fadd_rn(v, xr[l + 4]);
-  else if (i == 0 && ei > 0) v = __fadd_rn(v, xr[l - 4]);
-  return v;
-}
-
-__device__ __forceinline__ float scale(float v, const float* __restrict__ rsp,
-                                       int nrsp, int e16, int l) {
-  if (nrsp == 2)
-    return __fadd_rn(__fmul_rn(v, rsp[l]), __fmul_rn(v, rsp[e16 + l]));
-  return __fmul_rn(v, rsp[l]);
-}
-
-// out[row, l]: the swept, scaled value, or the fix value vd[row, fix_col[l]];
-// with kMix ca*mx[row, l] + cb*that. out may be mx, never x.
-template <bool kMix>
+// out[row, l]: the swept, scaled value, or with kMerge at a fix lane the fix
+// value vd[row, fix_col[l]]; with kMix ca*mx[row, l] + cb*that. out may be
+// mx, never x. Without kMerge vd and fix_col are not read.
+template <bool kMix, bool kMerge>
 __global__ void __launch_bounds__(kSweepThreads)
 dss_sweep_kernel(const float* __restrict__ x, const float* __restrict__ rsp,
                  int nrsp, const float* __restrict__ vd, int nfix,
@@ -81,22 +75,39 @@ dss_sweep_kernel(const float* __restrict__ x, const float* __restrict__ rsp,
   const int l = blockIdx.x * kSweepThreads + threadIdx.x;
   if (l >= e16) return;
   const size_t row = blockIdx.y;
-  const int c = fix_col[l];
+  const float* xr = x + row * e16;
   float res;
+  int c = -1;
+  if constexpr (kMerge) c = fix_col[l];
   if (c >= 0) {
     res = vd[row * nfix + c];
   } else {
-    const float* xr = x + row * e16;
-    const int j = l & 3, ej = (l / (16 * ne)) % ne, db = 16 * ne - 3;
-    float z = alpha_sum(xr, l, ne);
-    if (j == 3 && ej < ne - 1) z = __fadd_rn(z, alpha_sum(xr, l + db, ne));
-    else if (j == 0 && ej > 0) z = __fadd_rn(z, alpha_sum(xr, l - db, ne));
-    res = scale(z, rsp, nrsp, e16, l);
+    // plain loads: forcing the read-only path (__ldg) slowed the sweep
+    const auto load = [xr](int i) { return xr[i]; };
+    res = dss_sweep::swept(load, l, ne, rsp, nrsp, e16);
   }
   const size_t o = row * e16 + l;
-  if constexpr (kMix)
-    res = __fadd_rn(__fmul_rn(ca, mx[o]), __fmul_rn(cb, res));
+  if constexpr (kMix) res = dss_sweep::mix(ca, mx[o], cb, res);
   out[o] = res;
+}
+
+// in place: w[row, fix_lanes[u]] = vd[row, u], or with kMix ca*mx + cb*that
+// at the same element; every other element of w is left as it is
+template <bool kMix>
+__global__ void __launch_bounds__(kPatchThreads)
+dss_patch_kernel(float* __restrict__ w, const float* __restrict__ vd,
+                 const int* __restrict__ fix_lanes, int nfix,
+                 const float* __restrict__ mx, float ca, float cb, int k,
+                 int e16) {
+  const size_t idx = static_cast<size_t>(blockIdx.x) * kPatchThreads +
+                     threadIdx.x;
+  if (idx >= static_cast<size_t>(nfix) * k) return;
+  const int u = static_cast<int>(idx % nfix);
+  const size_t row = idx / nfix;
+  const size_t o = row * e16 + fix_lanes[u];
+  float res = vd[idx];
+  if constexpr (kMix) res = dss_sweep::mix(ca, mx[o], cb, res);
+  w[o] = res;
 }
 
 // vd[row, u] for fix lane u = fix_lanes[u]: the line / corner sum of the
@@ -116,7 +127,8 @@ dss_fixup_kernel(const float* __restrict__ slab, const int4* __restrict__ src,
   if (s.y >= 0) za = __fadd_rn(za, slab[static_cast<size_t>(s.y) * k + row]);
   float zb = slab[static_cast<size_t>(s.z) * k + row];
   if (s.w >= 0) zb = __fadd_rn(zb, slab[static_cast<size_t>(s.w) * k + row]);
-  vd[idx] = scale(__fadd_rn(za, zb), rsp, nrsp, e16, fix_lanes[u]);
+  vd[idx] = dss_sweep::scale(__fadd_rn(za, zb), rsp, nrsp, e16,
+                             fix_lanes[u]);
 }
 
 // slab[r, row] = x[row, lanes[r]], through a 32x32 shared-memory tile
@@ -154,7 +166,9 @@ const char* dss_error_string(int err) {
 // Each launch enqueues one kernel on `stream` and returns the cudaError_t of
 // the launch. Pointers are device pointers of contiguous float32 / int32
 // tensors; rsp holds nrsp (1 or 2) rows of e16 lanes. The sweep's mx is
-// null (no mix) or a field of at least k rows; out may be mx.
+// null (no mix) or a field of at least k rows; out may be mx; a null vd is
+// the merge-free sweep (fix_col not read). The patch's mx is null or a
+// field of w's [k, e16] that w does not overlap.
 
 int dss_sweep_launch(const void* x, const void* rsp, int nrsp, const void* vd,
                      int nfix, const void* fix_col, const void* mx, float ca,
@@ -163,7 +177,10 @@ int dss_sweep_launch(const void* x, const void* rsp, int nrsp, const void* vd,
   cudaError_t err = prepare(device);
   if (err != cudaSuccess) return err;
   const dim3 grid((e16 + kSweepThreads - 1) / kSweepThreads, k);
-  auto* kernel = mx ? dss_sweep_kernel<true> : dss_sweep_kernel<false>;
+  auto* kernel = vd ? (mx ? dss_sweep_kernel<true, true>
+                          : dss_sweep_kernel<false, true>)
+                    : (mx ? dss_sweep_kernel<true, false>
+                          : dss_sweep_kernel<false, false>);
   kernel<<<grid, kSweepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(rsp), nrsp,
       static_cast<const float*>(vd), nfix, static_cast<const int*>(fix_col),
@@ -185,6 +202,22 @@ int dss_fixup_launch(const void* slab, const void* src, const void* fix_lanes,
       static_cast<const float*>(slab), static_cast<const int4*>(src),
       static_cast<const int*>(fix_lanes), static_cast<const float*>(rsp),
       nrsp, e16, static_cast<float*>(vd), nfix, k);
+  return cudaGetLastError();
+}
+
+int dss_patch_launch(void* w, const void* vd, const void* fix_lanes,
+                     int nfix, const void* mx, float ca, float cb, int k,
+                     int e16, void* stream, int device) {
+  cudaError_t err = prepare(device);
+  if (err != cudaSuccess) return err;
+  const size_t total = static_cast<size_t>(nfix) * k;
+  const unsigned grid =
+      static_cast<unsigned>((total + kPatchThreads - 1) / kPatchThreads);
+  auto* kernel = mx ? dss_patch_kernel<true> : dss_patch_kernel<false>;
+  kernel<<<grid, kPatchThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(w), static_cast<const float*>(vd),
+      static_cast<const int*>(fix_lanes), nfix,
+      static_cast<const float*>(mx), ca, cb, k, e16);
   return cudaGetLastError();
 }
 

@@ -49,6 +49,16 @@
 // Optional fix-lane slab, as the CAAR kernel's: the thread owning a lane
 // with fix_rank[lane] = r >= 0 also writes its output at every row to
 // slab[r*nq*nlev + row].
+// Ring-fused mode (tracer_ring_kernel): replaces tracer_ring_packed_t of
+// tinman_sandbox_tpu/kernels/ring_fused.py (:369, body _tracer_ring_kernel
+// :303), the folded Euler stage and the rspheremp-scaled sweep of its output
+// in one launch, with the sweep's mix epilogue. A block runs euler_tile (the
+// Euler kernel's code, so the same bits) for one tile of 128 lanes and one
+// chunk of kLevels levels into a scratch, flags it and sweeps the tile
+// `halo` tiles behind it in the same chunk (ring.cuh, dss_sweep.cuh). At
+// qsize 35 the stack is [2520, 86400]: 9 chunks x (675 + 4) blocks keep the
+// card busy where one chunk a block would not. The fix lanes keep their
+// in-face partial sums for the fixup and the patch (dss.cu).
 //
 // On the row layout [E16, qsize*nlev] (tracer-major on the contiguous axis,
 // column j = tracer*nlev + level) a third kernel:
@@ -70,6 +80,8 @@
 // tracer read neighbouring wind addresses; other tracers hit the cache).
 #include <cfloat>
 #include <cuda_runtime.h>
+
+#include "ring.cuh"
 
 namespace {
 
@@ -136,10 +148,11 @@ struct Lane {
 __device__ __forceinline__ Lane load_lane(const float* __restrict__ meta,
                                           const int* __restrict__ fix_rank,
                                           float* __restrict__ slab, int ncol,
-                                          size_t ldz, int nrows, float rr) {
+                                          size_t ldz, int nrows, float rr,
+                                          int tile) {
   Lane t;
   t.tid = threadIdx.x;
-  t.col = blockIdx.x * kBlock + t.tid;
+  t.col = tile * kBlock + t.tid;
   t.live = t.col < ncol;                  // ncol % 16 == 0: whole elements
   t.eb = t.tid & ~15;                     // element's first lane in block
   t.li = (t.tid & 15) >> 2;               // lane = li*4 + lj
@@ -169,23 +182,25 @@ __device__ __forceinline__ float advect(const Lane& t, const float* dvv,
   return q - dt * div;
 }
 
-__global__ void __launch_bounds__(kBlock)
-tracer_euler_kernel(const float* __restrict__ meta,
-                    const float* __restrict__ dvv_g,
-                    const float* __restrict__ vu, const float* __restrict__ vv,
-                    const float* __restrict__ q, float* __restrict__ out,
-                    const int* __restrict__ fix_rank, float* __restrict__ slab,
-                    int nlev, int nq, int ncol, int ld, int fold_sph, float dt,
-                    float rr) {
-  __shared__ float xs[2][2][kBlock];      // alternating exchange buffers
-  __shared__ float dvv[16];
+// The Euler stage for the 128 lanes of tile `tile` and the levels of row
+// chunk `chunk`, by the calling block, with the block's shared exchange
+// buffers xs and dvv. The Euler kernel and the ring kernel both call it, so
+// both produce the same bits.
+__device__ __forceinline__ void euler_tile(
+    const float* __restrict__ meta, const float* __restrict__ dvv_g,
+    const float* __restrict__ vu, const float* __restrict__ vv,
+    const float* __restrict__ q, float* __restrict__ out,
+    const int* __restrict__ fix_rank, float* __restrict__ slab, int nlev,
+    int nq, int ncol, int ld, int fold_sph, float dt, float rr, int tile,
+    int chunk, float (*xs)[2][kBlock], float* dvv) {
   const size_t ldz = static_cast<size_t>(ld);
   if (threadIdx.x < 16) dvv[threadIdx.x] = dvv_g[threadIdx.x];
-  const Lane t = load_lane(meta, fix_rank, slab, ncol, ldz, nq * nlev, rr);
+  const Lane t = load_lane(meta, fix_rank, slab, ncol, ldz, nq * nlev, rr,
+                           tile);
   const float wout = fold_sph ? t.sph : 1.f;
   __syncthreads();
 
-  const int k0 = blockIdx.y * kLevels;
+  const int k0 = chunk * kLevels;
   const int k1 = min(k0 + kLevels, nlev);
   int it = 0;
   for (int k = k0; k < k1; ++k) {
@@ -204,6 +219,58 @@ tracer_euler_kernel(const float* __restrict__ meta,
   }
 }
 
+__global__ void __launch_bounds__(kBlock)
+tracer_euler_kernel(const float* __restrict__ meta,
+                    const float* __restrict__ dvv_g,
+                    const float* __restrict__ vu, const float* __restrict__ vv,
+                    const float* __restrict__ q, float* __restrict__ out,
+                    const int* __restrict__ fix_rank, float* __restrict__ slab,
+                    int nlev, int nq, int ncol, int ld, int fold_sph, float dt,
+                    float rr) {
+  __shared__ float xs[2][2][kBlock];      // alternating exchange buffers
+  __shared__ float dvv[16];
+  euler_tile(meta, dvv_g, vu, vv, q, out, fix_rank, slab, nlev, nq, ncol, ld,
+             fold_sph, dt, rr, blockIdx.x, blockIdx.y, xs, dvv);
+}
+
+// The ring-fused Euler stage: per row chunk of kLevels levels (all tracers
+// of those levels), the tile schedule of ring.cuh. Ticket t is chunk
+// t / (nb + halo) and place p = t % (nb + halo) in it: p < nb produces tile
+// p of the chunk into the scratch r.s1 (and the slab), then the block
+// sweeps tile p - halo of the chunk, waiting on its own chunk's flags only.
+// nchunk * (nb + halo) blocks.
+template <bool kMix>
+__global__ void __launch_bounds__(kBlock)
+tracer_ring_kernel(const float* __restrict__ meta,
+                   const float* __restrict__ dvv_g,
+                   const float* __restrict__ vu, const float* __restrict__ vv,
+                   const float* __restrict__ q, const int* __restrict__ fix_rank,
+                   float* __restrict__ slab, int nlev, int nq, int ncol,
+                   float dt, float rr, ring::Args r) {
+  __shared__ float xs[2][2][kBlock];
+  __shared__ float dvv[16];
+  const int t = ring::ticket(r.counter);
+  const int per = r.nb + r.halo;
+  const int chunk = t / per, p = t % per;
+  unsigned* flags = r.flags + static_cast<size_t>(chunk) * r.nb;
+  if (p < r.nb) {
+    euler_tile(meta, dvv_g, vu, vv, q, const_cast<float*>(r.s1), fix_rank,
+               slab, nlev, nq, ncol, ncol, 1, dt, rr, p, chunk, xs, dvv);
+    ring::publish(flags + p, r.epoch);
+  }
+  const int j = p - r.halo;
+  if (j < 0) return;
+  const int after = ring::wait(flags, max(j - r.halo, 0),
+                               min(j + r.halo, r.nb - 1), r.epoch);
+  const int l = j * kBlock + threadIdx.x;
+  if (l >= ncol) return;
+  const int k0 = chunk * kLevels;
+  const int k1 = min(k0 + kLevels, nlev);
+  for (int n = 0; n < nq; ++n)
+    ring::emit<kMix>(r, after, static_cast<size_t>(n) * nlev + k0, k1 - k0, l,
+                     ncol);
+}
+
 template <bool kMix>
 __global__ void __launch_bounds__(kBlock)
 tracer_limit_kernel(const float* __restrict__ meta,
@@ -218,7 +285,8 @@ tracer_limit_kernel(const float* __restrict__ meta,
   __shared__ float dvv[16];
   const size_t ldz = static_cast<size_t>(ld);
   if (threadIdx.x < 16) dvv[threadIdx.x] = dvv_g[threadIdx.x];
-  const Lane t = load_lane(meta, fix_rank, slab, ncol, ldz, nq * nlev, rr);
+  const Lane t = load_lane(meta, fix_rank, slab, ncol, ldz, nq * nlev, rr,
+                           blockIdx.x);
   const float w = t.sph;
   const float wsum = gsum(w);
   __syncthreads();
@@ -383,6 +451,68 @@ int tracer_limit_launch(const void* meta, const void* dvv, const void* vu,
       static_cast<const int*>(fix_rank), static_cast<float*>(slab), nlev, nq,
       ncol, ld, iters, dt, ca, cb, rrearth);
   return cudaGetLastError();
+}
+
+// The ring-fused Euler stage (sph folded in, with the slab) on `stream`: a
+// 4-byte memset of the ticket counter, then one kernel of
+// ceil(nlev / kLevels) * (nb + halo) blocks. s1 is the [nq*nlev, ncol]
+// scratch, w the swept output, mx null (no mix) or of w's shape; flags hold
+// nflags >= ceil(nlev / kLevels) * nb entries.
+int tracer_ring_launch(const void* meta, const void* dvv, const void* vu,
+                       const void* vv, const void* q, void* s1,
+                       const void* fix_rank, void* slab, const void* rsp,
+                       const void* mx, void* w, void* flags, void* counter,
+                       unsigned epoch, int nflags, int nlev, int nq, int ncol,
+                       int wu, int wv, int nrsp, int ne, int halo, float dt,
+                       float rrearth, float ca, float cb, void* stream,
+                       int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const int nb = (ncol + kBlock - 1) / kBlock;
+  const int nchunk = (nlev + kLevels - 1) / kLevels;
+  if (fix_rank == nullptr || epoch == 0 ||
+      !ring::fits(nchunk * nb, nflags, ne, halo, kBlock))
+    return cudaErrorInvalidValue;
+  const size_t blk = static_cast<size_t>(nlev) * ncol;
+  ring::Args r = {};
+  r.s1 = static_cast<const float*>(s1);
+  r.rsp = static_cast<const float*>(rsp);
+  r.mx = static_cast<const float*>(mx);
+  r.w = static_cast<float*>(w);
+  r.flags = static_cast<unsigned*>(flags);
+  r.counter = static_cast<int*>(counter);
+  r.epoch = epoch;
+  r.nrsp = nrsp;
+  r.ne = ne;
+  r.nb = nb;
+  r.halo = halo;
+  r.ca = ca;
+  r.cb = cb;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(counter, 0, sizeof(int), st);
+  if (err != cudaSuccess) return err;
+  auto* kernel = mx ? tracer_ring_kernel<true> : tracer_ring_kernel<false>;
+  kernel<<<nchunk * (r.nb + halo), kBlock, 0, st>>>(
+      static_cast<const float*>(meta), static_cast<const float*>(dvv),
+      static_cast<const float*>(vu) + wu * blk,
+      static_cast<const float*>(vv) + wv * blk, static_cast<const float*>(q),
+      static_cast<const int*>(fix_rank), static_cast<float*>(slab), nlev, nq,
+      ncol, dt, rrearth, r);
+  return cudaGetLastError();
+}
+
+// Blocks of the Euler kernel (fused = 0) or of the ring kernel without mix
+// (fused = 1) that one SM holds, from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative: a CUDA error.
+int tracer_blocks_per_sm(int fused, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  int n = 0;
+  err = fused ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &n, tracer_ring_kernel<false>, kBlock, 0)
+             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &n, tracer_euler_kernel, kBlock, 0);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -56,6 +56,16 @@ the assembled-step, SSPRK3 and hyperviscosity parts of
     ``prim_t`` the full-state wrapper, from ``prim_pack_t`` and
     ``prim_unpack_t``, which a caller that chains steps calls once each.
 
+  * The ring-fused path (counterpart of ``caar_dss_ring_t4``,
+    ``ssprk3_ring_t4`` and ``ssprk3_tracer_ring_t`` of the JAX package):
+    each stage is ONE ring launch (``kernels/ring_fused.py``: the CAAR or
+    Euler update and its merge-free sweep, the Shu-Osher combination in the
+    emission) closed by the fixup and the in-place patch of the fix lanes,
+    in place of the producer, the fixup and the sweep. Each is bit for bit
+    the two-launch step it replaces; each has a ``_plain`` twin. The JAX
+    ring's even-ne and 128-lane limits have no counterpart: odd ne serves.
+    ``_ring_tables`` maps to ``fix_tables``: no new table.
+
 The accumulators vn0u / vn0v / omg are updated IN PLACE, as by the CAAR
 kernel (the plain twins are pure and return new ones).
 """
@@ -72,11 +82,15 @@ from ..kernels.caar import caar_packed, pack_problem
 from ..kernels.caar_t import (
     _on, _scalars, caar_packed_t, caar_t4_cuda, caar_t4_plain, pack_problem_t)
 from ..kernels.dss import (
-    dss_fixup_plain, dss_structured_t_cuda, dss_structured_t_cuda_pre,
+    dss_fixup_cuda, dss_fixup_plain, dss_merge_patch_cuda,
+    dss_merge_patch_plain, dss_structured_t_cuda, dss_structured_t_cuda_pre,
     dss_sweep_plain, fix_tables)
 from ..kernels.hypervis_t import vlap_cuda, vlap_plain
 from ..kernels.layout import (
     pack_field_t, pack_meta_t, unpack_field, unpack_field_t)
+from ..kernels.ring_fused import (
+    caar_ring_packed_t4, caar_ring_plain, tracer_ring_packed_t,
+    tracer_ring_plain)
 from ..kernels.tracer_t import (
     tracer_euler_cuda, tracer_euler_plain, tracer_limit_cuda,
     tracer_limit_plain)
@@ -94,7 +108,10 @@ __all__ = ["caar_dss_structured_packed_t4",
            "apply_hypervis_t",
            "ssprk3_tracer_packed_t", "ssprk3_tracer_packed_t_plain",
            "prim_step_packed_t4", "prim_step_packed_t4_plain",
-           "prim_pack_t", "prim_unpack_t", "prim_t"]
+           "prim_pack_t", "prim_unpack_t", "prim_t",
+           "caar_dss_ring_t4", "caar_dss_ring_t4_plain", "ssprk3_ring_t4",
+           "ssprk3_ring_t4_plain", "ssprk3_tracer_ring_t",
+           "ssprk3_tracer_ring_t_plain"]
 
 def caar_dss_structured_packed_t4(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v,
                                   omg, dvv, plan: StructuredDssPlan,
@@ -228,23 +245,44 @@ def _plain_dss_pre(x, slab, fix, rsp, mix=None):
     return dss_sweep_plain(x, rsp, dss_fixup_plain(slab, fix, rsp), fix, mix)
 
 
-def _ssprk3(caar, dss_pre, scal, meta, s0, qdp, pecnd, acc, dvv, plan, rsp,
+def _cuda_patch(w, slab, fix, rsp, mix=None):
+    """The ring's closer on the kernels: fixup, then the patch of w's fix
+    lanes, in place."""
+    return dss_merge_patch_cuda(w, dss_fixup_cuda(slab, fix, rsp), fix, mix)
+
+
+def _plain_patch(w, slab, fix, rsp, mix=None):
+    """The ring's closer from the plain versions alone (in place on w)."""
+    return dss_merge_patch_plain(w, dss_fixup_plain(slab, fix, rsp), fix,
+                                 mix)
+
+
+def _mix_in_closer(step):
+    """A two-launch producer (a CAAR or Euler step with the slab) in the
+    ring producers' call form: rsp and the combination are the closer's."""
+    return lambda *args, rsp, mix, **kw: step(*args, **kw)
+
+
+def _ssprk3(produce, close, scal, meta, s0, qdp, pecnd, acc, dvv, plan, rsp,
             moist):
-    """The three stages of ``ssprk3_packed_t4`` on the given CAAR step and
-    fixup + sweep. The stage weight scales eta_ave_w on the device (a copy
-    of scal and one in-place product with a number: no host sync), rounded
-    to the state's dtype as the JAX package's ``f.type(b)``. The mix
-    coefficients are formed in the state's dtype."""
+    """The three stages of ``ssprk3_packed_t4``, each a producer and its
+    closer: ``produce`` is a CAAR stage in the call form of
+    ``caar_ring_packed_t4`` (the ring itself, or a two-launch step through
+    ``_mix_in_closer``), ``close(x, slab, fix, rsp, mix)`` completes the DSS
+    (fixup + sweep, or fixup + patch). The stage weight scales eta_ave_w on
+    the device (a copy of scal and one in-place product with a number: no
+    host sync), rounded to the state's dtype as the JAX package's
+    ``f.type(b)``. The mix coefficients are formed in the state's dtype."""
     fix = fix_tables(plan, s0.device)
     f = np.float32 if s0.dtype == torch.float32 else np.float64
 
     def stage(u, b, acc, emit_phi=False, mix=None):
         sc = scal.clone()
         sc[0, 1].mul_(b)
-        s1, phi, *acc, slab = caar(sc, meta, u, None, qdp, pecnd, *acc, dvv,
-                                   moist=moist, fix=fix, single=True,
-                                   emit_phi=emit_phi)
-        return dss_pre(s1, slab, fix, rsp, mix), phi, acc
+        x, phi, *acc, slab = produce(
+            sc, meta, u, None, qdp, pecnd, *acc, dvv, rsp=rsp, fix=fix,
+            moist=moist, single=True, emit_phi=emit_phi, mix=mix)
+        return close(x, slab, fix, rsp, mix), phi, acc
 
     u1, _, acc = stage(s0, B_WEIGHTS[0], acc)
     u2, _, acc = stage(u1, B_WEIGHTS[1], acc, mix=(s0, f(0.75), f(0.25)))
@@ -272,8 +310,9 @@ def ssprk3_packed_t4(scal, meta, s0, qdp, pecnd, vn0u, vn0v, omg, dvv,
     weights (1/6, 1/6, 2/3) composed onto scal's eta_ave_w, IN PLACE; phi
     is the last stage's; s0 is not modified. Returns (s_np1, phi, vn0u,
     vn0v, omg)."""
-    return _ssprk3(caar_t4_cuda, _cuda_dss_pre(plan), scal, meta, s0, qdp,
-                   pecnd, (vn0u, vn0v, omg), dvv, plan, rsp, moist)
+    return _ssprk3(_mix_in_closer(caar_t4_cuda), _cuda_dss_pre(plan), scal,
+                   meta, s0, qdp, pecnd, (vn0u, vn0v, omg), dvv, plan, rsp,
+                   moist)
 
 
 def ssprk3_packed_t4_plain(scal, meta, s0, qdp, pecnd, vn0u, vn0v, omg, dvv,
@@ -281,8 +320,8 @@ def ssprk3_packed_t4_plain(scal, meta, s0, qdp, pecnd, vn0u, vn0v, omg, dvv,
                            moist: bool = True):
     """``ssprk3_packed_t4`` from the plain versions on any device; pure.
     Returns (s_np1, phi, vn0u', vn0v', omg')."""
-    return _ssprk3(caar_t4_plain, _plain_dss_pre, scal, meta, s0, qdp, pecnd,
-                   (vn0u, vn0v, omg), dvv, plan, rsp, moist)
+    return _ssprk3(_mix_in_closer(caar_t4_plain), _plain_dss_pre, scal, meta,
+                   s0, qdp, pecnd, (vn0u, vn0v, omg), dvv, plan, rsp, moist)
 
 
 def _hypervis(vlap, dss_pre, dvv, meta, uvt, plan, rsp, nu, dt, nlev,
@@ -343,11 +382,14 @@ def _np_float(dtype):
     return np.float32 if dtype == torch.float32 else np.float64
 
 
-def _ssprk3_tracer(euler, limiter, dss_pre, dvv, meta, vu, vv, qdp, plan, rsp,
+def _ssprk3_tracer(euler, limiter, close, dvv, meta, vu, vv, qdp, plan, rsp,
                    dt, nlev, limit, wind_rows, limit_iters):
-    """The three stages of ``ssprk3_tracer_packed_t`` on the given Euler and
-    limit kernels and fixup + sweep. The Shu-Osher coefficients are formed
-    in the tracers' dtype."""
+    """The three stages of ``ssprk3_tracer_packed_t``: without the limiter
+    ``euler`` in the call form of ``tracer_ring_packed_t`` (the ring, or a
+    two-launch Euler step through ``_mix_in_closer``) and its closer
+    ``close(x, slab, fix, rsp, mix)``; with it the limit kernel, closed with
+    no combination. The Shu-Osher coefficients are formed in the tracers'
+    dtype."""
     fix = fix_tables(plan, qdp.device)
     f = _np_float(qdp.dtype)
     mixes = (None, (qdp, f(0.75), f(0.25)),
@@ -359,12 +401,12 @@ def _ssprk3_tracer(euler, limiter, dss_pre, dvv, meta, vu, vv, qdp, plan, rsp,
             # combination inside the kernel and none in the sweep
             e, slab = limiter(meta, vu, vv, q, dvv, dt, nlev, mix=mix,
                               wind_rows=wind_rows, iters=limit_iters, fix=fix)
-            q = dss_pre(e, slab, fix, rsp)
+            q = close(e, slab, fix, rsp)
         else:
             # P is linear and P(qdp) = qdp: the combination rides the sweep
-            e, slab = euler(meta, vu, vv, q, dvv, dt, nlev,
-                            wind_rows=wind_rows, fix=fix)
-            q = dss_pre(e, slab, fix, rsp, mix)
+            e, slab = euler(meta, vu, vv, q, dvv, dt, nlev, rsp=rsp, fix=fix,
+                            wind_rows=wind_rows, mix=mix)
+            q = close(e, slab, fix, rsp, mix)
     return q
 
 
@@ -383,7 +425,7 @@ def ssprk3_tracer_packed_t(dvv, meta, vu, vv, qdp, plan: StructuredDssPlan,
     bounds(q_in))). The winds are the row blocks ``wind_rows`` of vu / vv
     (the [4*nlev] state as both with (0, 1): no slice copy); ``dt`` is a
     number. qdp is not modified. Returns the new qdp."""
-    return _ssprk3_tracer(tracer_euler_cuda, tracer_limit_cuda,
+    return _ssprk3_tracer(_mix_in_closer(tracer_euler_cuda), tracer_limit_cuda,
                           _cuda_dss_pre(plan), dvv, meta, vu, vv, qdp, plan,
                           rsp, dt, nlev, limit, wind_rows, limit_iters)
 
@@ -394,9 +436,78 @@ def ssprk3_tracer_packed_t_plain(dvv, meta, vu, vv, qdp,
                                  wind_rows=(0, 0), limit_iters: int = 2):
     """``ssprk3_tracer_packed_t`` from the plain versions on any device;
     pure."""
-    return _ssprk3_tracer(tracer_euler_plain, tracer_limit_plain,
-                          _plain_dss_pre, dvv, meta, vu, vv, qdp, plan, rsp,
-                          dt, nlev, limit, wind_rows, limit_iters)
+    return _ssprk3_tracer(_mix_in_closer(tracer_euler_plain),
+                          tracer_limit_plain, _plain_dss_pre, dvv, meta, vu,
+                          vv, qdp, plan, rsp, dt, nlev, limit, wind_rows,
+                          limit_iters)
+
+
+def caar_dss_ring_t4(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv,
+                     plan: StructuredDssPlan, rsp: torch.Tensor,
+                     moist: bool = True):
+    """The ring-fused assembled step (counterpart of ``caar_dss_ring_t4`` of
+    the JAX package): ONE ring launch (the CAAR step and the merge-free
+    sweep of its s1, with the slab), then the fixup and the in-place patch
+    of the fix lanes. Operands and result as
+    ``caar_dss_structured_packed_t4``, bit for bit the same."""
+    fix = fix_tables(plan, s0.device)
+    w, phi, vn0u, vn0v, omg, slab = caar_ring_packed_t4(
+        scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv, rsp, fix,
+        moist=moist)
+    return _cuda_patch(w, slab, fix, rsp), phi, vn0u, vn0v, omg
+
+
+def caar_dss_ring_t4_plain(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg,
+                           dvv, plan: StructuredDssPlan, rsp: torch.Tensor,
+                           moist: bool = True):
+    """``caar_dss_ring_t4`` from the plain versions on any device; pure."""
+    fix = fix_tables(plan, s0.device)
+    w, phi, vn0u, vn0v, omg, slab = caar_ring_plain(
+        scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv, rsp, fix,
+        moist=moist)
+    return _plain_patch(w, slab, fix, rsp), phi, vn0u, vn0v, omg
+
+
+def ssprk3_ring_t4(scal, meta, s0, qdp, pecnd, vn0u, vn0v, omg, dvv,
+                   plan: StructuredDssPlan, rsp: torch.Tensor,
+                   moist: bool = True):
+    """``ssprk3_packed_t4`` on the ring-fused path (counterpart of
+    ``ssprk3_ring_t4`` of the JAX package): each stage is one ring launch in
+    stage mode, the Shu-Osher combination in its emission, then the fixup
+    and the patch. Operands and result as ``ssprk3_packed_t4``, bit for bit
+    the same; s0 must be CONTINUOUS."""
+    return _ssprk3(caar_ring_packed_t4, _cuda_patch, scal, meta, s0, qdp,
+                   pecnd, (vn0u, vn0v, omg), dvv, plan, rsp, moist)
+
+
+def ssprk3_ring_t4_plain(scal, meta, s0, qdp, pecnd, vn0u, vn0v, omg, dvv,
+                         plan: StructuredDssPlan, rsp: torch.Tensor,
+                         moist: bool = True):
+    """``ssprk3_ring_t4`` from the plain versions on any device; pure."""
+    return _ssprk3(caar_ring_plain, _plain_patch, scal, meta, s0, qdp, pecnd,
+                   (vn0u, vn0v, omg), dvv, plan, rsp, moist)
+
+
+def ssprk3_tracer_ring_t(dvv, meta, vu, vv, qdp, plan: StructuredDssPlan,
+                         rsp: torch.Tensor, dt, nlev: int, wind_rows=(0, 0)):
+    """``ssprk3_tracer_packed_t`` without the limiter on the ring-fused
+    path (counterpart of ``ssprk3_tracer_ring_t`` of the JAX package): each
+    stage one ring Euler launch, the combination in its emission, then the
+    fixup and the patch. Operands and result as ``ssprk3_tracer_packed_t``
+    (``limit=False``), bit for bit the same; qdp must be CONTINUOUS."""
+    return _ssprk3_tracer(tracer_ring_packed_t, None, _cuda_patch, dvv, meta,
+                          vu, vv, qdp, plan, rsp, dt, nlev, False, wind_rows,
+                          2)
+
+
+def ssprk3_tracer_ring_t_plain(dvv, meta, vu, vv, qdp,
+                               plan: StructuredDssPlan, rsp: torch.Tensor, dt,
+                               nlev: int, wind_rows=(0, 0)):
+    """``ssprk3_tracer_ring_t`` from the plain versions on any device;
+    pure."""
+    return _ssprk3_tracer(tracer_ring_plain, None, _plain_patch, dvv, meta,
+                          vu, vv, qdp, plan, rsp, dt, nlev, False, wind_rows,
+                          2)
 
 
 def _prim_step(dynamics, hypervis, tracers, scal, meta, s0, qdp, pecnd, acc,

@@ -1,6 +1,6 @@
 """CAAR in array form and on the two packed layouts, the hyperviscosity
-Laplacians, the tracer stages on both layouts and the saxpby triad (the DSS
-kernels are in ``dss.py``).
+Laplacians, the tracer stages on both layouts, the ring-fused producers and
+the saxpby triad (the DSS kernels are in ``dss.py``).
 
 The CUDA kernels live in ``../csrc`` and are built at first launch
 (``_build.py``); importing these modules builds nothing.
@@ -16,6 +16,13 @@ from .caar_t import (
     run_leapfrog_t,
 )
 from .hypervis_t import vlap_cuda, vlap_plain
+from .ring_fused import (
+    caar_ring_packed_t4,
+    caar_ring_plain,
+    ring_geometry,
+    tracer_ring_packed_t,
+    tracer_ring_plain,
+)
 from .tracer_t import (
     tracer_euler_cuda,
     tracer_euler_plain,
@@ -32,11 +39,14 @@ __all__ = [
     "caar_packed_rsplit0",
     "caar_packed_rsplit0_t",
     "caar_packed_t",
+    "caar_ring_packed_t4",
+    "caar_ring_plain",
     "caar_t",
     "caar_t4_cuda",
     "caar_t4_plain",
     "euler_packed",
     "euler_step_fast",
+    "ring_geometry",
     "run_leapfrog",
     "run_leapfrog_t",
     "saxpby_bandwidth_gbs",
@@ -46,6 +56,8 @@ __all__ = [
     "tracer_euler_plain",
     "tracer_limit_cuda",
     "tracer_limit_plain",
+    "tracer_ring_packed_t",
+    "tracer_ring_plain",
     "vlap_cuda",
     "vlap_plain",
 ]

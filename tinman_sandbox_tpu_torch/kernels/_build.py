@@ -6,7 +6,8 @@ in as ``data_ptr()`` integers and the stream as PyTorch's current stream.
 The sources include no PyTorch header, so a build takes seconds, and all
 sources compile in parallel (one ``nvcc`` each). Libraries land in
 ``build/torch_kernels/`` at the repository root, named by a hash of their
-source and flags, so an unchanged source is not rebuilt.
+source, of every shared header ``csrc/*.cuh`` and of the flags, so an
+unchanged source is not rebuilt and an edited header rebuilds every source.
 
 Nothing here runs at import time: the first launch builds.
 """
@@ -42,9 +43,15 @@ def _nvcc() -> str:
     return cand
 
 
-def _lib_path(name: str) -> str:
-    with open(os.path.join(_CSRC, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode())
+def _lib_path(name: str, csrc: str = _CSRC) -> str:
+    """The library path of source ``name``: a hash of the source, of every
+    header ``*.cuh`` in ``csrc`` (by name, in sorted order) and of the
+    flags."""
+    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(csrc) if f.endswith(".cuh"))
+    for fname in [SOURCES[name], *headers]:
+        with open(os.path.join(csrc, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 
@@ -90,14 +97,19 @@ def build_kernels(names=None) -> dict:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 _SIGNATURES = {
     "caar": {
         "caar_launch": [_P] * 26 + [_I] * 7 + [_F] * 4 + [_P, _I],
+        "caar_ring_launch": [_P] * 25 + [_U] + [_I] * 7 + [_F] * 6
+        + [_P, _I],
+        "caar_blocks_per_sm": [_I, _I, _I],
         "caar_error_string": [_I],
     },
     "dss": {
         "dss_sweep_launch": [_P, _P, _I, _P, _I, _P, _P, _F, _F, _P, _I, _I,
                              _I, _P, _I],
+        "dss_patch_launch": [_P, _P, _P, _I, _P, _F, _F, _I, _I, _P, _I],
         "dss_fixup_launch": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _I],
         "dss_extract_launch": [_P, _P, _P, _I, _I, _I, _P, _I],
         "dss_error_string": [_I],
@@ -117,6 +129,9 @@ _SIGNATURES = {
         "tracer_euler_launch": [_P] * 8 + [_I] * 7 + [_F, _F, _P, _I],
         "tracer_limit_launch": [_P] * 9 + [_I] * 7 + [_F] * 4 + [_P, _I],
         "tracer_row_launch": [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P, _I],
+        "tracer_ring_launch": [_P] * 13 + [_U] + [_I] * 9 + [_F] * 4
+        + [_P, _I],
+        "tracer_blocks_per_sm": [_I, _I],
         "tracer_error_string": [_I],
     },
 }

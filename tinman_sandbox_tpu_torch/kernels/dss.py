@@ -37,6 +37,24 @@ lane by its own rspheremp.
 ``dss_structured_t_cuda`` is the whole DSS (extract, fixup, sweep) and
 ``dss_structured_t_cuda_pre`` the same with the slab already in hand, as the
 CAAR kernel emits it.
+
+The sweep/patch split (the ring-fused steps' closer, counterpart of
+``dss_structured_t_pallas_patch``, ``dss_pallas.py:1432``):
+
+  * ``dss_sweep_nomerge_cuda``: the sweep kernel with its merge turned off
+    (replaces ``dss_sweeps_pallas_nomerge``, :335): every lane, fix lanes
+    included, gets rspheremp times its in-face alpha-then-beta sum, and the
+    fix lanes keep those partial sums; ``mix`` as ``dss_sweep_cuda``;
+  * ``dss_merge_patch_cuda``: IN PLACE on a merge-free output w, each fix
+    lane gets its fixup value vd[row, col], or with ``mix=(mx, ca, cb)``
+    ``ca*mx + cb*vd``, the sweep's own fix-lane expression; every other
+    lane keeps its bits (replaces ``merge_patch_pallas``, :1477);
+  * ``dss_structured_t_cuda_patch``: fixup, merge-free sweep, patch; bit for
+    bit ``dss_structured_t_cuda_pre``.
+
+``fix_vals3`` (:1412) and its per-tile [nt, M, k] value blocks are a
+128-lane-tile layout with no counterpart here: ``dss_fixup_cuda`` already
+gives one value per fix lane (vd [k, nfix]), which the patch places.
 """
 from __future__ import annotations
 
@@ -50,9 +68,11 @@ from ..config import NP, NPSQ
 from . import _build
 
 __all__ = ["FixTables", "fix_tables", "dss_extract_plain", "dss_fixup_plain",
-           "dss_sweep_plain", "dss_extract_cuda", "dss_fixup_cuda",
-           "dss_sweep_cuda", "dss_structured_t_cuda",
-           "dss_structured_t_cuda_pre"]
+           "dss_sweep_plain", "dss_sweep_nomerge_plain",
+           "dss_merge_patch_plain", "dss_extract_cuda", "dss_fixup_cuda",
+           "dss_sweep_cuda", "dss_sweep_nomerge_cuda", "dss_merge_patch_cuda",
+           "dss_structured_t_cuda", "dss_structured_t_cuda_pre",
+           "dss_structured_t_cuda_patch"]
 
 # the sweep grid puts rows on its y axis
 _MAX_ROWS = 65535
@@ -189,27 +209,65 @@ def _check_mix(name, x, mix):
     return mx, float(ca), float(cb)
 
 
-def dss_sweep_plain(x: torch.Tensor, rsp: torch.Tensor, vd: torch.Tensor,
-                    tables: FixTables, mix=None) -> torch.Tensor:
-    """rspheremp * (alpha then beta in-face sweep of x), the fix lanes
-    taking vd[:, fix_col]. x [k, E16]; rsp [1 or 2, E16]; vd [k, nfix].
-    With ``mix=(mx, ca, cb)`` returns ca*mx + cb*that; rows of a taller mx
-    beyond x's come back unchanged. Pure: always a new tensor."""
-    ne = tables.ne
+def _swept_plain(x: torch.Tensor, rsp: torch.Tensor, ne: int):
+    """rspheremp * (alpha then beta in-face sweep of x) at every lane."""
     a_hi, a_lo, b_hi, b_lo = _sweep_masks(ne, x.shape[1], x.device)
     db = NPSQ * ne - (NP - 1)
     zero = x.new_zeros(())
     part = lambda m, y, s: torch.where(m, torch.roll(y, s, 1), zero)
     y = x + part(a_hi, x, -NP) + part(a_lo, x, NP)
     z = y + part(b_hi, y, -db) + part(b_lo, y, db)
-    w = _scale(z, rsp[:, None, :])
-    col = tables.fix_col.long()
-    w = torch.where(col >= 0, vd[:, col.clamp(min=0)], w)
+    return _scale(z, rsp[:, None, :])
+
+
+def _mix_plain(name, x, w, mix):
+    """ca*mx + cb*w for the first rows of mx, its further rows unchanged."""
     if mix is None:
         return w
-    mx, ca, cb = _check_mix("dss_sweep", x, mix)
+    mx, ca, cb = _check_mix(name, x, mix)
     k = x.shape[0]
     return torch.cat([ca * mx[:k] + cb * w, mx[k:]])
+
+
+def dss_sweep_plain(x: torch.Tensor, rsp: torch.Tensor, vd: torch.Tensor,
+                    tables: FixTables, mix=None) -> torch.Tensor:
+    """rspheremp * (alpha then beta in-face sweep of x), the fix lanes
+    taking vd[:, fix_col]. x [k, E16]; rsp [1 or 2, E16]; vd [k, nfix].
+    With ``mix=(mx, ca, cb)`` returns ca*mx + cb*that; rows of a taller mx
+    beyond x's come back unchanged. Pure: always a new tensor."""
+    w = _swept_plain(x, rsp, tables.ne)
+    col = tables.fix_col.long()
+    w = torch.where(col >= 0, vd[:, col.clamp(min=0)], w)
+    return _mix_plain("dss_sweep", x, w, mix)
+
+
+def dss_sweep_nomerge_plain(x: torch.Tensor, rsp: torch.Tensor,
+                            tables: FixTables, mix=None) -> torch.Tensor:
+    """``dss_sweep_plain`` without the merge: every lane, fix lanes
+    included, gets rspheremp * (its alpha then beta in-face sum); ``mix``
+    as there. Pure."""
+    return _mix_plain("dss_sweep_nomerge", x,
+                      _swept_plain(x, rsp, tables.ne), mix)
+
+
+def _check_patch_mix(w, mix):
+    if mix is None:
+        return None, 0.0, 0.0
+    mx, ca, cb = mix
+    if tuple(mx.shape) != tuple(w.shape):
+        raise ValueError(f"dss_merge_patch: mix field must be "
+                         f"{tuple(w.shape)}, got {tuple(mx.shape)}")
+    return mx, float(ca), float(cb)
+
+
+def dss_merge_patch_plain(w: torch.Tensor, vd: torch.Tensor,
+                          tables: FixTables, mix=None) -> torch.Tensor:
+    """IN PLACE: w[:, fix_lanes] = vd, or with ``mix=(mx, ca, cb)`` (mx of
+    w's shape) ca*mx[:, fix_lanes] + cb*vd. Returns w."""
+    mx, ca, cb = _check_patch_mix(w, mix)
+    lanes = tables.fix_lanes.long()
+    w[:, lanes] = vd if mx is None else ca * mx[:, lanes] + cb * vd
+    return w
 
 
 # -- kernels -----------------------------------------------------------------
@@ -304,6 +362,41 @@ def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
         b0 < a0 + a.numel() * a.element_size()
 
 
+def _sweep(name, x, rsp, vd, tables, mix):
+    """Check and run one sweep (vd None: merge-free); True where it
+    launched the kernel. Returns (out, launched)."""
+    k, e16, n = x.shape[0], tables.e16, tables.nfix
+    _check_rsp(name, rsp, e16)
+    ops = {"x": (x, (k, e16)), "rsp": (rsp, tuple(rsp.shape))}
+    if vd is not None:
+        ops.update({"vd": (vd, (k, n)), "fix_col": (tables.fix_col, (e16,))})
+    mx, ca, cb = (None, 0.0, 0.0) if mix is None else _check_mix(name, x, mix)
+    if mx is not None:
+        ops["mix field"] = (mx, tuple(mx.shape))
+    dev = _check(name, ops, dtype=x.dtype)
+    in_place = mx is not None and mx.shape[0] > k
+    if in_place and _overlap(mx, x):
+        raise ValueError(f"{name}: the in-place mix field overlaps x")
+    if dev.type == "cpu":
+        plain = lambda m: (dss_sweep_nomerge_plain(x, rsp, tables, m)
+                           if vd is None else
+                           dss_sweep_plain(x, rsp, vd, tables, m))
+        if not in_place:
+            return plain(mix), False
+        mx[:k] = plain((mx[:k], ca, cb))
+        return mx, False
+    if k > _MAX_ROWS:
+        raise ValueError(f"{name}: {k} rows exceed the grid's {_MAX_ROWS}")
+    out = mx if in_place else torch.empty_like(x)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    err = _build.library("dss").dss_sweep_launch(
+        x.data_ptr(), rsp.data_ptr(), rsp.shape[0], ptr(vd), n,
+        0 if vd is None else tables.fix_col.data_ptr(), ptr(mx), ca, cb,
+        out.data_ptr(), k, e16, tables.ne, _stream(dev), dev.index)
+    _build.check_launch("dss", err)
+    return out, True
+
+
 def dss_sweep_cuda(x: torch.Tensor, rsp: torch.Tensor, vd: torch.Tensor,
                    tables: FixTables, mix=None) -> torch.Tensor:
     """The assembled field [k, E16] from x, rsp and the vals buffer vd
@@ -312,36 +405,57 @@ def dss_sweep_cuda(x: torch.Tensor, rsp: torch.Tensor, vd: torch.Tensor,
     ``mix=(mx, ca, cb)`` (ca*mx + cb*assembled) when mx has x's height. A
     TALLER mx (the [4*nlev] state around a [3*nlev] x) is updated IN PLACE
     in its first k rows and returned; it must not overlap x."""
-    k, e16, n = x.shape[0], tables.e16, tables.nfix
-    _check_rsp("dss_sweep", rsp, e16)
-    ops = {"x": (x, (k, e16)), "rsp": (rsp, tuple(rsp.shape)),
-           "vd": (vd, (k, n)), "fix_col": (tables.fix_col, (e16,))}
-    mx, ca, cb = (None, 0.0, 0.0) if mix is None else \
-        _check_mix("dss_sweep", x, mix)
-    if mx is not None:
-        ops["mix field"] = (mx, tuple(mx.shape))
-    dev = _check("dss_sweep", ops, dtype=x.dtype)
-    in_place = mx is not None and mx.shape[0] > k
-    if in_place and _overlap(mx, x):
-        raise ValueError("dss_sweep: the in-place mix field overlaps x")
-    if dev.type == "cpu":
-        if not in_place:
-            return dss_sweep_plain(x, rsp, vd, tables, mix)
-        mx[:k] = dss_sweep_plain(x, rsp, vd, tables, (mx[:k], ca, cb))
-        return mx
-    if k > _MAX_ROWS:
-        raise ValueError(f"dss_sweep: {k} rows exceed the grid's {_MAX_ROWS}")
-    out = mx if in_place else torch.empty_like(x)
-    err = _build.library("dss").dss_sweep_launch(
-        x.data_ptr(), rsp.data_ptr(), rsp.shape[0], vd.data_ptr(), n,
-        tables.fix_col.data_ptr(), 0 if mx is None else mx.data_ptr(), ca,
-        cb, out.data_ptr(), k, e16, tables.ne, _stream(dev), dev.index)
-    _build.check_launch("dss", err)
-    dss_sweep_cuda.launches += 1
+    out, launched = _sweep("dss_sweep", x, rsp, vd, tables, mix)
+    dss_sweep_cuda.launches += launched
     return out
 
 
 dss_sweep_cuda.launches = 0
+
+
+def dss_sweep_nomerge_cuda(x: torch.Tensor, rsp: torch.Tensor,
+                           tables: FixTables, mix=None) -> torch.Tensor:
+    """The merge-free sweep (kernel ``dss_sweep`` with the merge off,
+    counterpart of ``dss_sweeps_pallas_nomerge``): rspheremp * the in-face
+    sum at every lane, the fix lanes keeping their partial sums for
+    ``dss_merge_patch_cuda``. Output and ``mix`` forms as
+    ``dss_sweep_cuda``."""
+    out, launched = _sweep("dss_sweep_nomerge", x, rsp, None, tables, mix)
+    dss_sweep_nomerge_cuda.launches += launched
+    return out
+
+
+dss_sweep_nomerge_cuda.launches = 0
+
+
+def dss_merge_patch_cuda(w: torch.Tensor, vd: torch.Tensor,
+                         tables: FixTables, mix=None) -> torch.Tensor:
+    """IN PLACE on w [k, E16]: each fix lane takes its fixup value from vd
+    [k, nfix], or with ``mix=(mx, ca, cb)`` (mx of w's shape) ca*mx + cb*vd;
+    every other lane keeps its bits (kernel ``dss_patch``, counterpart of
+    ``merge_patch_pallas``). w must not overlap vd or mx. Returns w."""
+    k, e16, n = w.shape[0], tables.e16, tables.nfix
+    mx, ca, cb = _check_patch_mix(w, mix)
+    ops = {"w": (w, (k, e16)), "vd": (vd, (k, n)),
+           "fix_lanes": (tables.fix_lanes, (n,))}
+    if mx is not None:
+        ops["mix field"] = (mx, (k, e16))
+    dev = _check("dss_merge_patch", ops, dtype=w.dtype)
+    for other, t in (("vd", vd), ("the mix field", mx)):
+        if t is not None and _overlap(w, t):
+            raise ValueError(f"dss_merge_patch: w overlaps {other}")
+    if dev.type == "cpu":
+        return dss_merge_patch_plain(w, vd, tables, mix)
+    err = _build.library("dss").dss_patch_launch(
+        w.data_ptr(), vd.data_ptr(), tables.fix_lanes.data_ptr(), n,
+        0 if mx is None else mx.data_ptr(), ca, cb, k, e16, _stream(dev),
+        dev.index)
+    _build.check_launch("dss", err)
+    dss_merge_patch_cuda.launches += 1
+    return w
+
+
+dss_merge_patch_cuda.launches = 0
 
 
 def dss_structured_t_cuda(x: torch.Tensor, plan, rsp: torch.Tensor,
@@ -362,3 +476,20 @@ def dss_structured_t_cuda_pre(x: torch.Tensor, slab: torch.Tensor, plan,
     tables = fix_tables(plan, x.device)
     return dss_sweep_cuda(x, rsp, dss_fixup_cuda(slab, tables, rsp), tables,
                           mix)
+
+
+def dss_structured_t_cuda_patch(x: torch.Tensor, slab: torch.Tensor, plan,
+                                rsp: torch.Tensor, mix=None):
+    """``dss_structured_t_cuda_pre`` as the sweep/patch split (counterpart
+    of ``dss_structured_t_pallas_patch``): fixup, merge-free sweep, then the
+    patch of the fix lanes; bit for bit the merged form. ``mix`` takes an mx
+    of x's height only (as the JAX function, whose patch asserts it): in
+    place into a taller mx the sweep would overwrite mx's fix lanes before
+    the patch reads them."""
+    if mix is not None and tuple(mix[0].shape) != tuple(x.shape):
+        raise ValueError(f"dss_structured_t_cuda_patch: mix field must be "
+                         f"{tuple(x.shape)}, got {tuple(mix[0].shape)}")
+    tables = fix_tables(plan, x.device)
+    vd = dss_fixup_cuda(slab, tables, rsp)
+    w = dss_sweep_nomerge_cuda(x, rsp, tables, mix)
+    return dss_merge_patch_cuda(w, vd, tables, mix)

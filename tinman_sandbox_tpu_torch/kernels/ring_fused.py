@@ -1,0 +1,247 @@
+"""Ring-fused producer + DSS sweep: one launch computes a step's update and
+the rspheremp-scaled alpha/beta sweep of it (counterpart of
+``tinman_sandbox_tpu/kernels/ring_fused.py``).
+
+The two-launch path writes the update s1 to device memory and the sweep
+kernel reads it back. Here one kernel does both: each block produces one
+128-lane tile of s1 into a scratch field and flags it, then sweeps the tile
+``halo`` tiles behind it once the tiles that sweep reads are flagged (the
+schedule is in ``csrc/ring.cuh``). The sweep's expressions are the sweep
+kernel's (``csrc/dss_sweep.cuh``), and the producers run the CAAR and Euler
+kernels' own code, so every non-fix lane of the output equals the two-launch
+path's bit for bit. The cube-edge and corner lanes hold in-face partial
+sums: the fixup and the patch (``kernels/dss.py``) complete the DSS.
+
+  * ``caar_ring_packed_t4`` (kernel ``caar_ring_kernel`` in ``csrc/caar.cu``,
+    replaces ``caar_ring_packed_t4``, ring_fused.py:189): the CAAR step on
+    stacked [4*nlev, E16] states, pair or stage mode (``single``,
+    ``emit_phi``), the sweep's ``mix`` epilogue, the accumulators IN PLACE
+    and the fix-lane slab [nfix, 4*nlev]. ``caar_ring_plain`` is
+    ``caar_t4_plain(fix=)`` followed by ``dss_sweep_nomerge_plain(mix=)``.
+  * ``tracer_ring_packed_t`` (``tracer_ring_kernel`` in ``csrc/tracer.cu``,
+    replaces ``tracer_ring_packed_t``, :369): sph*(q - dt*div(v q)) on the
+    stacked [qsize*nlev, E16] tracers, swept, with ``mix`` and the slab.
+    ``tracer_ring_plain`` is ``tracer_euler_plain(fold_sph=True, fix=)``
+    followed by the merge-free sweep.
+
+Each wrapper checks its operands, runs the plain version for CPU tensors
+(the accumulators then updated in place too) and launches its kernel for
+CUDA float32 tensors, one kernel a call with no host sync, counted in
+``<wrapper>.launches``. The scratch s1 is a full-size field from PyTorch's
+allocator; keeping it in L2 is later work. The flags and the ticket counter
+are one small buffer per device, so two ring calls must not run at once on
+two streams of one device.
+
+``ring_geometry(ne, tile)`` is the GPU analog of the JAX function: the beta
+shift db = 16*ne - 3 and the halo, the tiles one tile's sweep reads on each
+side (an output lane reads x up to db + 4 lanes away: 4 tiles of 128 lanes
+at ne30). The JAX kernel's grouped emission window (``_emit_group``,
+:72-103) works around the TPU's vector unit and has no counterpart; nor do
+its limits: the port takes odd ne and any E16.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..config import NP, NPSQ
+from ..constants import CONSTANTS
+from . import _build
+from .caar_t import _check as _caar_check
+from .caar_t import _new_slab as _caar_slab
+from .caar_t import caar_t4_cuda, caar_t4_plain
+from .dss import (FixTables, _check_rsp, _overlap, _stream,
+                  dss_sweep_nomerge_plain)
+from .tracer_t import _check as _tracer_check
+from .tracer_t import _new_slab as _tracer_slab
+from .tracer_t import tracer_euler_cuda, tracer_euler_plain
+
+__all__ = ["RingGeometry", "ring_geometry", "caar_ring_plain",
+           "caar_ring_packed_t4", "tracer_ring_plain", "tracer_ring_packed_t"]
+
+TILE = 128          # lanes a block produces and sweeps (csrc kBlock)
+_LEVELS = 8         # levels of one tracer row chunk (csrc/tracer.cu kLevels)
+
+
+@dataclasses.dataclass(frozen=True)
+class RingGeometry:
+    """The sweep's reach on the lane axis at one ne: the beta shift ``db``,
+    the farthest lane an output lane reads (``reach`` = db + NP) and the
+    ``halo`` of tiles of ``tile`` lanes it spans on each side."""
+
+    db: int
+    reach: int
+    halo: int
+    tile: int
+
+
+def ring_geometry(ne: int, tile: int = TILE) -> RingGeometry:
+    """The ring's geometry at cubed-sphere ne for tiles of ``tile`` lanes."""
+    db = NPSQ * ne - (NP - 1)
+    reach = db + NP
+    return RingGeometry(db=db, reach=reach, halo=-(-reach // tile), tile=tile)
+
+
+class _RingState:
+    """Per device: the tile flags (grown on demand, never cleared: each
+    call flags with its own epoch), the ticket counter and the epoch."""
+
+    def __init__(self):
+        self.flags = {}
+        self.counter = {}
+        self.epoch = {}
+
+    def take(self, dev, nflags: int):
+        key = str(dev)
+        flags = self.flags.get(key)
+        if flags is None or flags.numel() < nflags:
+            flags = torch.zeros(max(nflags, 1024), dtype=torch.int32,
+                                device=dev)
+            self.flags[key] = flags
+            self.counter[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+        epoch = self.epoch.get(key, 0) % 0xFFFFFFFF + 1
+        self.epoch[key] = epoch
+        return flags, self.counter[key], epoch
+
+
+_STATE = _RingState()
+
+
+def _check_ring(name, x, rsp, fix: FixTables, mix):
+    """The ring operands beside the producer's: rsp, the tables and the mix
+    field (of x's shape, never an output). Returns (mx, ca, cb)."""
+    e16 = x.shape[1]
+    _check_rsp(name, rsp, e16)
+    if fix.e16 != e16:
+        raise ValueError(f"{name}: the tables are for E16 = {fix.e16}, the "
+                         f"field has {e16}")
+    if 2 * ring_geometry(fix.ne).halo + 1 > TILE:
+        raise ValueError(f"{name}: ne = {fix.ne} reaches beyond "
+                         f"{TILE // 2} tiles")
+    for op, t in (("rsp", rsp),) + (() if mix is None else
+                                    (("mix field", mix[0]),)):
+        if t.device != x.device or t.dtype != x.dtype or \
+                not t.is_contiguous():
+            raise ValueError(f"{name}: {op} must be a contiguous {x.dtype} "
+                             f"tensor on {x.device}")
+    if mix is None:
+        return None, 0.0, 0.0
+    mx, ca, cb = mix
+    if tuple(mx.shape) != tuple(x.shape):
+        raise ValueError(f"{name}: mix field must be {tuple(x.shape)}, got "
+                         f"{tuple(mx.shape)}")
+    return mx, float(ca), float(cb)
+
+
+def caar_ring_plain(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv,
+                    rsp, fix: FixTables, moist: bool = True,
+                    single: bool = False, emit_phi: bool = True, mix=None):
+    """Plain PyTorch ``caar_ring_packed_t4``: ``caar_t4_plain`` with the
+    slab, then the merge-free sweep of s1 (with ``mix``). Pure: returns new
+    (w, phi, vn0u', vn0v', omg', slab)."""
+    s1, phi, *acc, slab = caar_t4_plain(
+        scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv, moist=moist,
+        fix=fix, single=single, emit_phi=emit_phi)
+    return (dss_sweep_nomerge_plain(s1, rsp, fix, mix), phi, *acc, slab)
+
+
+def caar_ring_packed_t4(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg,
+                        dvv, rsp, fix: FixTables, moist: bool = True,
+                        single: bool = False, emit_phi: bool = True,
+                        mix=None):
+    """The ring-fused CAAR step (counterpart of ``caar_ring_packed_t4``):
+    operands and modes as ``caar_t4_cuda`` with ``fix`` (required: the slab
+    feeds the fixup), plus rsp [1 or 2, E16] and ``mix=(mx, ca, cb)`` with
+    mx of s0's shape. The accumulators are updated IN PLACE. Returns (w,
+    phi, vn0u, vn0v, omg, slab): w = rspheremp * the in-face sweep of s1 (or
+    ca*mx + cb*that), its fix lanes partial; phi None without
+    ``emit_phi``."""
+    k = qdp.shape[0]
+    if not single and sm1 is None:
+        raise ValueError("caar_ring: sm1 is required unless single=True")
+    if not single and not emit_phi:
+        raise ValueError("caar_ring: emit_phi=False needs single=True")
+    if s0.shape[0] != 4 * k or (not single and sm1.shape[0] != 4 * k):
+        raise ValueError(f"caar_ring: s0/sm1 need {4 * k} rows")
+    mx, ca, cb = _check_ring("caar_ring", s0, rsp, fix, mix)
+    dev = _caar_check(scal, meta, dvv,
+                      (*s0.split(k), *(() if single else sm1.split(k)), qdp,
+                       pecnd, vn0u, vn0v, omg), k)
+    if dev.type == "cpu":
+        s1, phi, *acc, slab = caar_t4_cuda(
+            scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv,
+            moist=moist, fix=fix, single=single, emit_phi=emit_phi)
+        return (dss_sweep_nomerge_plain(s1, rsp, fix, mix), phi, *acc, slab)
+    for name, acc in (("vn0u", vn0u), ("vn0v", vn0v), ("omg", omg)):
+        if mx is not None and _overlap(mx, acc):
+            raise ValueError(f"caar_ring: the mix field overlaps {name}")
+    scratch = torch.empty_like(s0)
+    w = torch.empty_like(s0)
+    phi = torch.empty_like(qdp) if emit_phi else None
+    slab = _caar_slab(fix, qdp, k)
+    flags, counter, epoch = _STATE.take(dev, -(-s0.shape[1] // TILE))
+    ptr = lambda x: 0 if x is None else x.data_ptr()
+    c = CONSTANTS
+    base = (None,) * 4 if single else sm1.split(k)
+    err = _build.library("caar").caar_ring_launch(
+        ptr(scal), ptr(meta), ptr(dvv), *map(ptr, s0.split(k)),
+        *map(ptr, base), ptr(qdp), ptr(pecnd), ptr(vn0u), ptr(vn0v),
+        ptr(omg), ptr(scratch), ptr(phi), ptr(fix.fix_rank), ptr(slab),
+        ptr(rsp), ptr(mx), ptr(w), ptr(flags), ptr(counter), epoch,
+        flags.numel(), k, s0.shape[1], int(bool(moist)), rsp.shape[0],
+        fix.ne, ring_geometry(fix.ne).halo, c.Rgas, c.kappa,
+        c.rgas_over_rvap_m1, c.rrearth, ca, cb, _stream(dev), dev.index)
+    _build.check_launch("caar", err)
+    caar_ring_packed_t4.launches += 1
+    return w, phi, vn0u, vn0v, omg, slab
+
+
+caar_ring_packed_t4.launches = 0
+
+
+def tracer_ring_plain(meta, vu, vv, q, dvv, dt, nlev: int, rsp,
+                      fix: FixTables, wind_rows=(0, 0), mix=None):
+    """Plain PyTorch ``tracer_ring_packed_t``: ``tracer_euler_plain`` with
+    spheremp folded in and the slab, then the merge-free sweep. Pure:
+    returns (w, slab)."""
+    e, slab = tracer_euler_plain(meta, vu, vv, q, dvv, dt, nlev,
+                                 fold_sph=True, wind_rows=wind_rows, fix=fix)
+    return dss_sweep_nomerge_plain(e, rsp, fix, mix), slab
+
+
+def tracer_ring_packed_t(meta, vu, vv, q, dvv, dt, nlev: int, rsp,
+                         fix: FixTables, wind_rows=(0, 0), mix=None):
+    """The ring-fused Euler stage (counterpart of ``tracer_ring_packed_t``):
+    operands as ``tracer_euler_cuda`` (winds at the row blocks
+    ``wind_rows``), plus rsp [1 or 2, E16], the tables ``fix`` and
+    ``mix=(mx, ca, cb)`` with mx of q's shape. Returns (w, slab): w =
+    rspheremp * the in-face sweep of sph*(q - dt*div(v q)) (or ca*mx +
+    cb*that), its fix lanes partial; slab [nfix, qsize*nlev]."""
+    dev = _tracer_check("tracer_ring", meta, vu, vv, q, dvv, nlev, wind_rows)
+    mx, ca, cb = _check_ring("tracer_ring", q, rsp, fix, mix)
+    if dev.type == "cpu":
+        e, slab = tracer_euler_cuda(meta, vu, vv, q, dvv, dt, nlev,
+                                    fold_sph=True, wind_rows=wind_rows,
+                                    fix=fix)
+        return dss_sweep_nomerge_plain(e, rsp, fix, mix), slab
+    rank, slab = _tracer_slab("tracer_ring", fix, q)
+    scratch = torch.empty_like(q)
+    w = torch.empty_like(q)
+    e16 = q.shape[1]
+    nchunk = -(-nlev // _LEVELS)
+    flags, counter, epoch = _STATE.take(dev, nchunk * -(-e16 // TILE))
+    err = _build.library("tracer").tracer_ring_launch(
+        meta.data_ptr(), dvv.data_ptr(), vu.data_ptr(), vv.data_ptr(),
+        q.data_ptr(), scratch.data_ptr(), rank, slab.data_ptr(),
+        rsp.data_ptr(), 0 if mx is None else mx.data_ptr(), w.data_ptr(),
+        flags.data_ptr(), counter.data_ptr(), epoch, flags.numel(), nlev,
+        q.shape[0] // nlev, e16, wind_rows[0], wind_rows[1], rsp.shape[0],
+        fix.ne, ring_geometry(fix.ne).halo, float(dt), CONSTANTS.rrearth, ca,
+        cb, _stream(dev), dev.index)
+    _build.check_launch("tracer", err)
+    tracer_ring_packed_t.launches += 1
+    return w, slab
+
+
+tracer_ring_packed_t.launches = 0
