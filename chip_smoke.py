@@ -115,7 +115,31 @@ NVIDIA card and check it, phase by phase:
      no sweep; the split DSS of the tracer stacks; ring against two-launch
      step times; ``bench --ne 30 --ring`` beside ``bench --ne 30``;
  17. one JSON line of kernels (launches on the main paths, errors, times,
-     bounds), the card line, and last the result line.
+     bounds), the card line, and last the result line;
+ 18. the multi-device DSS kernels (run before the line of phase 17): the
+     banded sweep (``dss_sweep_banded_cuda``, merged; with and without mix;
+     216 rows in place into a 288-row state), its merge-free form
+     (``dss_sweep_banded_nomerge_cuda``) and the shard-local patch
+     (``dss_patch_tiles_cuda``, with and without mix, a taller w), each bit
+     for bit its plain version on every shard of ne30 x 72 with m = 2 bands
+     a face over 12 shards (first and last bands) at 288, 216, 72 and 2,520
+     rows, and of ne32 with m = 4 over 6 shards (four chunks a shard:
+     first, middle and last bands) at 288 rows; each timed over the whole
+     sphere's shards by CUDA events (the sweep also replayed from a CUDA
+     graph, the device's time alone) against its bound, its plain version,
+     ``dss_sweep_cuda`` on the same sphere in one launch and (the patch)
+     ``index_copy_``;
+ 19. the multi-device paths at ne30 x 72, launch counts set to 0 just
+     before and read just after, each step bit for bit the single-device
+     step and continuity exactly 0: 10 chained ``caar_dss_banded_t4`` steps
+     over ``LocalMesh(12)`` (m = 2, two-float rspheremp, random projected
+     state), overlap off and on; ``caar_dss_sharded_t4`` on 6, 3 and 2
+     shards, overlap off and on; 3 chained ``prim_step_banded_t4`` steps
+     (nu 1e15, qsize 1), one step with overlap and one at qsize 35;
+     ``multichip.dryrun_multichip(8)``; the multi-device step times beside
+     the single-device ones, by events and from CUDA graphs. ``LocalMesh``
+     emulates the shards on one card, one launch a shard: these times are
+     no scaling result.
 
 Any failure raises and exits non-zero before the result line is printed.
 Run from the repository root: ``python3 chip_smoke.py``.
@@ -198,6 +222,23 @@ def cuda_ms(fn, n: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def graph_ms(fn, n: int) -> float:
+    """Mean milliseconds of ``fn()`` replayed from a CUDA graph over ``n``
+    replays, by CUDA events: the device's time for its launches without the
+    host's cost of issuing them."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, n)
 
 
 def scaled_err(a, b) -> float:
@@ -2101,6 +2142,367 @@ def phase_ring_path(dev, cs):
                          tall_tracer_two_launch_ms=times[QSIZE_TALL][1])
 
 
+def phase_banded_kernels(dev, cs):
+    """The multi-device DSS kernels, each bit for bit its plain version:
+    the banded sweep (merged and merge-free, with and without mix, 216
+    rows in place into a 288-row state) and the shard-local patch (with
+    and without mix, a taller w) on every shard of ne30 x 72 with m = 2
+    bands over N = 12 shards at 288, 216, 72 and 2,520 rows, and of the
+    multi-chunk ne32 with m = 4 over N = 6 (four chunks a shard: first,
+    middle, middle, last bands) at 288 rows; each timed over the whole
+    sphere's shards against its bound, its plain version, ``dss_sweep_cuda``
+    on the same sphere in one launch and (the patch) ``index_copy_``.
+    Returns the three rows."""
+    import numpy as np
+    import torch
+
+    from tinman_sandbox_tpu_torch.dist import (
+        LocalMesh, build_cubed_sphere, make_structured_plan, rsp_lanes_2f,
+        shard_packed_t4)
+    from tinman_sandbox_tpu_torch.dist.banded_t4 import (
+        _band_shard, _banded_tables, band_extend)
+    from tinman_sandbox_tpu_torch.dist.sharded_t4 import PLAIN
+    from tinman_sandbox_tpu_torch.kernels.dss import (
+        dss_extract_cuda, dss_fixup_cuda, dss_patch_tiles_cuda,
+        dss_sweep_banded_cuda, dss_sweep_banded_nomerge_cuda, dss_sweep_cuda,
+        fix_tables)
+
+    k = NLEV
+    gen = torch.Generator(device=dev).manual_seed(18)
+    ca, cb = float(np.float32(1.0 / 3.0)), float(np.float32(2.0 / 3.0))
+    rows = {}
+    worst = {"sweep": 0.0, "nomerge": 0.0, "patch": 0.0}
+
+    def same(label, got, want, what):
+        worst[what] = max(worst[what], float((got - want).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label} differs from its plain version")
+
+    ne32 = build_cubed_sphere(32, dtype=torch.float32, device=dev)
+    for grid, m, N, heights in ((cs, 2, 12, (4 * k, 3 * k, k, QSIZE_TALL * k)),
+                                (ne32, 4, 6, (4 * k,))):
+        ne, e16 = grid.ne, grid.nelem * 16
+        plan = make_structured_plan(grid.gdof, ne)
+        rsp = torch.from_numpy(rsp_lanes_2f(grid.geometry.spheremp, grid.gdof,
+                                            grid.ndof)).to(dev)
+        mesh = LocalMesh(N, dev)
+        T = _banded_tables(plan, m, N)
+        bts = [_band_shard(plan, m, N, s, str(dev)).band for s in range(N)]
+        (rsps,) = shard_packed_t4(mesh, rsp)
+        lanes = T["cps"] * T["bl"]
+        nr = rsp.shape[0]
+        tag0 = (f"ne{ne} m={m} N={N} (cps {T['cps']}, bl {T['bl']}, "
+                f"variants {sorted(set(T['first_last']))})")
+        for rk in heights:
+            x = torch.randn(rk, e16, generator=gen, device=dev)
+            xe = band_extend(mesh, plan, m, shard_packed_t4(mesh, x)[0])
+            mxs = shard_packed_t4(mesh, torch.randn(
+                rk, e16, generator=gen, device=dev))[0]
+            vds = [torch.randn(rk, bt.fix.nfix, generator=gen, device=dev)
+                   for bt in bts]
+            for s, bt in enumerate(bts):
+                tag = f"{tag0} shard {s} [{rk}]"
+                x_ext, r, vd, mx = xe[s], rsps[s], vds[s], mxs[s]
+                for mix in (None, (mx, ca, cb)):
+                    mt = " mix" if mix else ""
+                    same(f"dss_sweep_banded {tag}{mt}",
+                         dss_sweep_banded_cuda(x_ext, r, vd, bt, mix),
+                         PLAIN.banded(x_ext, r, vd, bt, mix), "sweep")
+                    w0 = dss_sweep_banded_nomerge_cuda(x_ext, r, bt, mix)
+                    same(f"dss_sweep_banded_nomerge {tag}{mt}", w0,
+                         PLAIN.banded_nomerge(x_ext, r, bt, mix), "nomerge")
+                    want = PLAIN.patch(w0.clone(), vd, bt.fix, mix)
+                    got = dss_patch_tiles_cuda(w0, vd, bt.fix, mix)
+                    same(f"dss_patch_tiles {tag}{mt}", got, want, "patch")
+                if rk != 3 * k:
+                    continue
+                # in place into the 288-row state, its further rows kept
+                tall = torch.randn(4 * k, lanes, generator=gen, device=dev)
+                ref = tall.clone()
+                for fn, args, what in (
+                        (dss_sweep_banded_cuda, (vd,), "sweep"),
+                        (dss_sweep_banded_nomerge_cuda, (), "nomerge")):
+                    t = tall.clone()
+                    got = fn(x_ext, r, *args, bt, (t, 1.0, -1e-3))
+                    want = (PLAIN.banded(x_ext, r, vd, bt, (ref, 1.0, -1e-3))
+                            if args else PLAIN.banded_nomerge(
+                                x_ext, r, bt, (ref, 1.0, -1e-3)))
+                    if got is not t:
+                        raise AssertionError(f"{fn.__name__} {tag}: not in "
+                                             "place")
+                    same(f"{fn.__name__} {tag} in place", got, want, what)
+                for mix in (None, (mx, ca, cb)):
+                    tw, mt = tall.clone(), " mix" if mix else ""
+                    mix_t = mix and (torch.cat([mx, mx[:k]]), ca, cb)
+                    want = PLAIN.patch(tw.clone(), vd, bt.fix, mix_t)
+                    got = dss_patch_tiles_cuda(tw, vd, bt.fix, mix_t)
+                    same(f"dss_patch_tiles {tag} taller w{mt}", got, want,
+                         "patch")
+                del tall, ref, t, tw
+            print(f"phase 18 {tag0} [{rk}]: the banded sweep (merged, "
+                  f"merge-free; with and without mix"
+                  + ("; in place into 288 rows" if rk == 3 * k else "")
+                  + ") and the patch (with and without mix"
+                  + ("; a taller w" if rk == 3 * k else "")
+                  + ") bit for bit their plain versions on every shard")
+            # the whole sphere: one launch a shard
+            reps = 3 if rk > 1000 else 20
+            sw = lambda: [dss_sweep_banded_cuda(a, b, c, d)
+                          for a, b, c, d in zip(xe, rsps, vds, bts)]
+            swm = lambda: [dss_sweep_banded_cuda(a, b, c, d, (e, ca, cb))
+                           for a, b, c, d, e in zip(xe, rsps, vds, bts, mxs)]
+            nm = lambda: [dss_sweep_banded_nomerge_cuda(a, b, d)
+                          for a, b, d in zip(xe, rsps, bts)]
+            w0s = nm()
+            pt = lambda: [dss_patch_tiles_cuda(w, c, d.fix)
+                          for w, c, d in zip(w0s, vds, bts)]
+            lib = lambda: [w.index_copy_(1, d.fix.fix_lanes.long(), c)
+                           for w, c, d in zip(w0s, vds, bts)]
+            t = dict(sweep=cuda_ms(sw, reps), sweep_mix=cuda_ms(swm, reps),
+                     nomerge=cuda_ms(nm, reps), patch=cuda_ms(pt, reps),
+                     patch_library=cuda_ms(lib, reps),
+                     sweep_plain=cuda_ms(lambda: [
+                         PLAIN.banded(a, b, c, d) for a, b, c, d in zip(
+                             xe, rsps, vds, bts)], 2),
+                     nomerge_plain=cuda_ms(lambda: [
+                         PLAIN.banded_nomerge(a, b, d) for a, b, d in zip(
+                             xe, rsps, bts)], 2),
+                     patch_plain=cuda_ms(lambda: [
+                         PLAIN.patch(w, c, d.fix) for w, c, d in zip(
+                             w0s, vds, bts)], reps))
+            # one shard's launch alone, and the single-device merged sweep
+            # of the same sphere in one launch
+            t["sweep_one_shard"] = cuda_ms(
+                lambda: dss_sweep_banded_cuda(xe[0], rsps[0], vds[0], bts[0]),
+                reps)
+            fix = fix_tables(plan, dev)
+            vd1 = dss_fixup_cuda(dss_extract_cuda(x, fix), fix, rsp)
+            t["single_device_sweep"] = cuda_ms(
+                lambda: dss_sweep_cuda(x, rsp, vd1, fix), reps)
+            # the same launches replayed from CUDA graphs: device time alone
+            t["sweep_graph"] = graph_ms(sw, reps)
+            t["single_device_sweep_graph"] = graph_ms(
+                lambda: dss_sweep_cuda(x, rsp, vd1, fix), reps)
+            nfix = sum(bt.fix.nfix for bt in bts)
+            ext_b = rk * N * T["cps"] * T["ext"] * 4
+            # x_ext read, the bands written (and mx read), the rspheremp
+            # rows, vd and fix_col
+            sb = lambda extra: bound_ms(
+                ext_b + (1 + extra) * rk * e16 * 4 + nr * e16 * 4
+                + rk * nfix * 4 + e16 * 4,
+                (SWEEP_OPS_PER_POINT + extra * MIX_OPS_PER_POINT) * rk * e16)
+            (bs, by), (bsm, _) = sb(0), sb(1)
+            bn, _ = bound_ms(ext_b + rk * e16 * 4 + nr * e16 * 4,
+                             SWEEP_OPS_PER_POINT * rk * e16)
+            bp, bpy = bound_ms(2 * rk * nfix * 4 + nfix * 4, 0)
+            print(f"phase 18 {tag0} [{rk}] times over the {N} shards (events,"
+                  f" ms): sweep {t['sweep']:.4f} (bound {bs:.4f}, {by}; one "
+                  f"shard {t['sweep_one_shard']:.4f}), with mix "
+                  f"{t['sweep_mix']:.4f} (bound {bsm:.4f}), merge-free "
+                  f"{t['nomerge']:.4f} (bound {bn:.4f}), patch "
+                  f"{t['patch']:.4f} (bound {bp:.4f}; index_copy_ "
+                  f"{t['patch_library']:.4f}); plain sweep "
+                  f"{t['sweep_plain']:.4f}, merge-free {t['nomerge_plain']:.4f}"
+                  f", patch {t['patch_plain']:.4f}; dss_sweep_cuda on the same "
+                  f"sphere in one launch {t['single_device_sweep']:.4f}; from "
+                  f"CUDA graphs (device time): the {N} sweeps "
+                  f"{t['sweep_graph']:.4f}, dss_sweep_cuda "
+                  f"{t['single_device_sweep_graph']:.4f}")
+            sfx = "" if (ne, rk) == (cs.ne, 4 * k) else f"ne{ne}_rows{rk}_"
+            rows.setdefault("dss_sweep_banded_cuda", dict(
+                route="cuda", source="tinman_sandbox_tpu_torch/csrc/dss.cu",
+                replaces="tinman_sandbox_tpu/kernels/dss_pallas.py:428",
+                also_replaces="tinman_sandbox_tpu/kernels/dss_pallas.py:544",
+                library_ms=None)).update({
+                    f"{sfx}ms": t["sweep"], f"{sfx}plain_ms": t["sweep_plain"],
+                    f"{sfx}bound_ms": bs, f"{sfx}bound_by": by,
+                    f"{sfx}mix_ms": t["sweep_mix"], f"{sfx}mix_bound_ms": bsm,
+                    f"{sfx}one_shard_ms": t["sweep_one_shard"],
+                    f"{sfx}single_device_sweep_ms":
+                        t["single_device_sweep"],
+                    f"{sfx}graph_ms": t["sweep_graph"],
+                    f"{sfx}single_device_sweep_graph_ms":
+                        t["single_device_sweep_graph"]})
+            rows.setdefault("dss_sweep_banded_nomerge_cuda", dict(
+                route="cuda", source="tinman_sandbox_tpu_torch/csrc/dss.cu",
+                replaces="tinman_sandbox_tpu/kernels/dss_pallas.py:190",
+                library_ms=None)).update({
+                    f"{sfx}ms": t["nomerge"],
+                    f"{sfx}plain_ms": t["nomerge_plain"],
+                    f"{sfx}bound_ms": bn, f"{sfx}bound_by": "bytes"})
+            rows.setdefault("dss_patch_tiles_cuda", dict(
+                route="cuda", source="tinman_sandbox_tpu_torch/csrc/dss.cu",
+                replaces="tinman_sandbox_tpu/kernels/dss_pallas.py:251"
+                )).update({
+                    f"{sfx}ms": t["patch"], f"{sfx}plain_ms": t["patch_plain"],
+                    f"{sfx}bound_ms": bp, f"{sfx}bound_by": bpy,
+                    f"{sfx}library_ms": t["patch_library"]})
+            del x, xe, mxs, vds, w0s, vd1
+            torch.cuda.empty_cache()
+    for name, what in (("dss_sweep_banded_cuda", "sweep"),
+                       ("dss_sweep_banded_nomerge_cuda", "nomerge"),
+                       ("dss_patch_tiles_cuda", "patch")):
+        rows[name]["max_abs_err"] = worst[what]
+    return rows
+
+
+def phase_multidevice_path(dev, cs):
+    """The multi-device paths at ne30 x 72 on one card, each step bit for
+    bit the single-device port's and continuity exactly 0: 10 chained
+    ``caar_dss_banded_t4`` steps over LocalMesh(12), m = 2, overlap off
+    and on, from a random projected state; ``caar_dss_sharded_t4`` on
+    LocalMesh(6), (3) and (2), overlap off and on; 3 chained
+    ``prim_step_banded_t4`` steps (nu 1e15, qsize 1), one with overlap and
+    one at qsize 35; ``multichip.dryrun_multichip(8)``; step times by
+    events beside the single-device steps. Returns the times."""
+    import torch
+
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.dist import (
+        LocalMesh, caar_dss_banded_t4, caar_dss_sharded_t4,
+        caar_dss_structured_packed_t4, continuity_error_t, make_face_mesh,
+        prim_step_banded_t4, prim_step_packed_t4, shard_packed_t4,
+        unshard_packed_t4)
+    from tinman_sandbox_tpu_torch.kernels.dss import dss_structured_t_cuda
+    from tinman_sandbox_tpu_torch.kernels.layout import META_COLS
+    from tinman_sandbox_tpu_torch.multichip import dryrun_multichip
+
+    m, N = 2, 12
+    mesh = LocalMesh(N, dev)
+
+    def check(label, on, got, want, conts):
+        for i, (g, w) in enumerate(zip(got, want)):
+            g = unshard_packed_t4(on, g)
+            if not torch.equal(g, w):
+                raise AssertionError(f"{label}: output {i} differs from the "
+                                     f"single-device step by "
+                                     f"{float((g - w).abs().max())}")
+            if i in conts:
+                c = continuity_error_t(g, cs.gdof)
+                if c != 0.0:
+                    raise AssertionError(f"{label}: continuity {c}")
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"{label}: non-finite")
+
+    # -- 10 chained assembled steps from a random projected state
+    const, levels, acc, plan, rsp = bench.make_assembled_problem(
+        cs.ne, NLEV, dev)
+    scal, meta, qdp, pecnd, dvv = const
+    sph = meta[META_COLS.index("spheremp")]
+    levels = [dss_structured_t_cuda((sph * x).contiguous(), plan, rsp)
+              for x in levels]
+    sh = shard_packed_t4(mesh, meta, qdp, pecnd, rsp)
+    for overlap in (False, True):
+        (t0, tm1), ta = levels, [a.clone() for a in acc]
+        b0, bm1 = shard_packed_t4(mesh, *levels)
+        ba = shard_packed_t4(mesh, *acc)
+        for i in range(10):
+            b1, bphi, *ba = caar_dss_banded_t4(
+                scal, sh[0], b0, bm1, sh[1], sh[2], *ba, dvv, plan, sh[3],
+                mesh, m, overlap=overlap)
+            t1, tphi, *ta = caar_dss_structured_packed_t4(
+                scal, meta, t0, tm1, qdp, pecnd, *ta, dvv, plan, rsp)
+            check(f"banded assembled chain overlap={overlap} step {i + 1}",
+                  mesh, (b1, bphi, *ba), (t1, tphi, *ta), (0,))
+            b0, bm1, t0, tm1 = b1, b0, t1, t0
+        print(f"phase 19 banded assembled chain ne{cs.ne}x{NLEV} m={m} N={N} "
+              f"overlap={overlap} x10: bit for bit the single-device chain "
+              f"after every step, continuity 0; state moved "
+              f"{scaled_err(t0, levels[0]):.2e}")
+    del b0, bm1, b1, t0, tm1, t1, bphi, tphi, ba, ta
+    times = {}
+    s0s, sm1s = shard_packed_t4(mesh, *levels)
+    bacc = shard_packed_t4(mesh, *[a.clone() for a in acc])
+    kacc = [a.clone() for a in acc]
+    for overlap in (False, True):
+        times[f"banded_assembled{'_overlap' if overlap else ''}_ms"] = \
+            cuda_ms(lambda: caar_dss_banded_t4(
+                scal, sh[0], s0s, sm1s, sh[1], sh[2], *bacc, dvv, plan, sh[3],
+                mesh, m, overlap=overlap), 10)
+    times["single_device_assembled_ms"] = cuda_ms(
+        lambda: caar_dss_structured_packed_t4(scal, meta, *levels, qdp, pecnd,
+                                              *kacc, dvv, plan, rsp), 10)
+    # replayed from CUDA graphs: the steps' device time alone
+    times["banded_assembled_graph_ms"] = graph_ms(
+        lambda: caar_dss_banded_t4(scal, sh[0], s0s, sm1s, sh[1], sh[2],
+                                   *bacc, dvv, plan, sh[3], mesh, m), 10)
+    times["single_device_assembled_graph_ms"] = graph_ms(
+        lambda: caar_dss_structured_packed_t4(scal, meta, *levels, qdp, pecnd,
+                                              *kacc, dvv, plan, rsp), 10)
+
+    # -- the face-sharded step on 6, 3 and 2 shards
+    want = caar_dss_structured_packed_t4(scal, meta, *levels, qdp, pecnd,
+                                         *[a.clone() for a in acc], dvv, plan,
+                                         rsp)
+    for nf in (6, 3, 2):
+        fmesh = make_face_mesh(nf, dev)
+        fs = shard_packed_t4(fmesh, meta, *levels, qdp, pecnd, *acc, rsp)
+        for overlap in (False, True):
+            got = caar_dss_sharded_t4(scal, *fs[:5],
+                                      *[[a.clone() for a in x]
+                                        for x in fs[5:8]],
+                                      dvv, plan, fs[8], fmesh,
+                                      overlap=overlap)
+            check(f"face-sharded N={nf} overlap={overlap}", fmesh, got, want,
+                  (0,))
+        if nf == 6:
+            fa = [[a.clone() for a in x] for x in fs[5:8]]
+            times["face_sharded6_ms"] = cuda_ms(
+                lambda: caar_dss_sharded_t4(scal, *fs[:5], *fa, dvv, plan,
+                                            fs[8], fmesh), 10)
+    print(f"phase 19 face-sharded ne{cs.ne}x{NLEV} on 6, 3 and 2 shards, "
+          f"overlap off and on: bit for bit the single-device step, "
+          f"continuity 0")
+    del want, fs, got, sh, s0s, sm1s, bacc, kacc, levels
+    torch.cuda.empty_cache()
+
+    # -- 3 chained full model steps (qsize 1), one with overlap, one at
+    # qsize QSIZE_TALL
+    (scal, meta, pecnd, dvv), s0, q_tall, acc, plan, rsp = \
+        bench.make_prim_problem(cs.ne, NLEV, dev, DYN_DT, QSIZE_TALL)
+    sh = shard_packed_t4(mesh, meta, pecnd, rsp)
+    kw = dict(nu=DYN_NU, nlev=NLEV, dt=DYN_DT)
+    for qsize, nsteps, overlap in ((1, 3, False), (1, 1, True),
+                                   (QSIZE_TALL, 1, False)):
+        q = q_tall[:qsize * NLEV].contiguous()
+        ts, tq, ta = s0, q, [a.clone() for a in acc]
+        bs, bq = shard_packed_t4(mesh, s0, q)
+        ba = shard_packed_t4(mesh, *acc)
+        for i in range(nsteps):
+            bs, bq, bphi, *ba = prim_step_banded_t4(
+                scal, sh[0], bs, bq, sh[1], *ba, dvv, plan, sh[2], mesh, m,
+                overlap=overlap, **kw)
+            ts, tq, tphi, *ta = prim_step_packed_t4(
+                scal, meta, ts, tq, pecnd, *ta, dvv, plan, rsp, **kw)
+            check(f"banded prim qsize {qsize} overlap={overlap} step "
+                  f"{i + 1}", mesh, (bs, bq, bphi, *ba), (ts, tq, tphi, *ta),
+                  (0, 1))
+        print(f"phase 19 banded prim ne{cs.ne}x{NLEV} qsize {qsize} m={m} "
+              f"N={N} overlap={overlap} x{nsteps}: bit for bit the "
+              f"single-device chain after every step, continuity 0 (state "
+              f"and tracers); state moved {scaled_err(ts, s0):.2e}, tracers "
+              f"{scaled_err(tq, q):.2e}")
+        if qsize == 1 and not overlap:
+            bs, bq = shard_packed_t4(mesh, s0, q)
+            ba = shard_packed_t4(mesh, *[a.clone() for a in acc])
+            kacc = [a.clone() for a in acc]
+            times["banded_prim_ms"] = cuda_ms(lambda: prim_step_banded_t4(
+                scal, sh[0], bs, bq, sh[1], *ba, dvv, plan, sh[2], mesh, m,
+                **kw), 5)
+            times["single_device_prim_ms"] = cuda_ms(
+                lambda: prim_step_packed_t4(scal, meta, s0, q, pecnd, *kacc,
+                                            dvv, plan, rsp, **kw), 5)
+        del bs, bq, ba, ts, tq, ta, q
+        torch.cuda.empty_cache()
+    del q_tall, sh
+    ran = dryrun_multichip(8, device=dev)
+    print(f"phase 19 dryrun_multichip(8): {json.dumps(ran)}")
+    print("phase 19 step times (events, ms; LocalMesh emulates the shards "
+          "on one card, one launch a shard: not a scaling result): "
+          + ", ".join(f"{a} {b:.4f}" for a, b in times.items()))
+    return times
+
+
 def main() -> int:
     try:
         import torch
@@ -2120,7 +2522,9 @@ def main() -> int:
             caar_packed_rsplit0_t, caar_t4_cuda)
         from tinman_sandbox_tpu_torch.kernels.dss import (
             dss_extract_cuda, dss_fixup_cuda, dss_merge_patch_cuda,
-            dss_sweep_cuda, dss_sweep_nomerge_cuda)
+            dss_patch_tiles_cuda, dss_sweep_banded_cuda,
+            dss_sweep_banded_nomerge_cuda, dss_sweep_cuda,
+            dss_sweep_nomerge_cuda)
         from tinman_sandbox_tpu_torch.kernels.hypervis_t import vlap_cuda
         from tinman_sandbox_tpu_torch.kernels.ring_fused import (
             caar_ring_packed_t4, tracer_ring_packed_t)
@@ -2169,7 +2573,10 @@ def main() -> int:
                                         caar_ring_packed_t4,
                                         tracer_ring_packed_t,
                                         dss_merge_patch_cuda,
-                                        dss_sweep_nomerge_cuda)}
+                                        dss_sweep_nomerge_cuda,
+                                        dss_sweep_banded_cuda,
+                                        dss_sweep_banded_nomerge_cuda,
+                                        dss_patch_tiles_cuda)}
 
     def reset():
         for w in wrappers.values():
@@ -2221,6 +2628,15 @@ def main() -> int:
     ring = counts()
     print(f"phase 16 seconds: {time.perf_counter() - t0:.1f}")
     rows["caar_ring_packed_t4"].update(ring_times)
+    t0 = time.perf_counter()
+    rows.update(phase_banded_kernels(dev, cs))
+    print(f"phase 18 seconds: {time.perf_counter() - t0:.1f}")
+    reset()
+    t0 = time.perf_counter()
+    multi_times = phase_multidevice_path(dev, cs)
+    multi = counts()
+    print(f"phase 19 seconds: {time.perf_counter() - t0:.1f}")
+    rows["dss_sweep_banded_cuda"].update(multi_times)
     for label, res, got in (("raw", raw_res, raw), ("assembled", asm_res,
                                                      asm),
                             ("dynamics", dyn_res, dyn),
@@ -2263,7 +2679,10 @@ def main() -> int:
                                    "caar_ring_packed_t4",
                                    "tracer_ring_packed_t",
                                    "dss_merge_patch_cuda",
-                                   "dss_sweep_nomerge_cuda"):
+                                   "dss_sweep_nomerge_cuda",
+                                   "dss_sweep_banded_cuda",
+                                   "dss_sweep_banded_nomerge_cuda",
+                                   "dss_patch_tiles_cuda"):
             raise AssertionError(f"{name} was not launched on the assembled "
                                  "path")
     for name in ("caar_t4_cuda", "vlap_cuda", "dss_fixup_cuda",
@@ -2304,6 +2723,14 @@ def main() -> int:
                  "dss_fixup_cuda"):
         if ring[name] <= 0:
             raise AssertionError(f"{name} was not launched on the ring path")
+    print(f"phase 17 multi-device main-path launches: {json.dumps(multi)}")
+    for name in ("caar_t4_cuda", "vlap_cuda", "tracer_euler_cuda",
+                 "dss_fixup_cuda", "dss_sweep_cuda", "dss_sweep_nomerge_cuda",
+                 "dss_sweep_banded_cuda", "dss_sweep_banded_nomerge_cuda",
+                 "dss_patch_tiles_cuda"):
+        if multi[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the "
+                                 "multi-device path")
     if row_asm_res["kernel_launches"]["caar_packed"] <= 0:
         raise AssertionError("bench --layout row --ne: no row CAAR launch")
     if single_launches <= 0:
@@ -2322,7 +2749,7 @@ def main() -> int:
             "name": name, "route": r.pop("route"), "source": r.pop("source"),
             "replaces": r.pop("replaces"),
             "launches": raw[name] + asm[name] + dyn[name] + prim[name]
-            + row[name] + ring[name],
+            + row[name] + ring[name] + multi[name],
             "max_abs_err": r.pop("max_abs_err"), "ms": r.pop("ms"),
             "plain_ms": r.pop("plain_ms"), "bound_ms": r.pop("bound_ms"),
             "bound_by": r.pop("bound_by"), "library_ms": r.pop("library_ms"),

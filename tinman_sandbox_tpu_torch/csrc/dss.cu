@@ -12,7 +12,18 @@
 //                   (:335), whose fix lanes keep the in-face partial sums;
 //   dss_patch    <- merge_patch_pallas (:1477): in place, each fix lane of
 //                   a merge-free sweep's output w gets its fixup value
-//                   (or ca*mx + cb*value), every other lane stays as it is.
+//                   (or ca*mx + cb*value), every other lane stays as it is;
+//                   with shard-local fix lanes and a w (and mx) that may be
+//                   taller than vd, whose further rows it never touches, it
+//                   also replaces merge_patch_tiles (:251);
+//   dss_sweep_banded <- dss_sweeps_banded_t (:428) and dss_sweeps_banded_ct
+//                   (:544), and with the merge off dss_sweeps_banded_nomerge
+//                   (:190): the sweep of the band-sharded multi-device DSS
+//                   on one shard's chunks, each extended with its two
+//                   neighbouring element rows [band | next | prev]
+//                   (dss_sweep.cuh, swept_banded), the chunk's place in its
+//                   face given by a flag (first / last band) in place of the
+//                   TPU's four precomputed lane masks.
 // The TPU forms cut the lane axis into 128-lane tiles, padded the fix lanes
 // to whole tiles or to per-tile slots, and placed them with one-hot matrix
 // products. None of that is needed here: a thread reads the lane it wants.
@@ -43,7 +54,10 @@
 // What bounds them on the H100: device-memory traffic. The sweep reads and
 // writes the whole field once (199 MB at ne30 x 288 rows, ~0.06 ms at
 // 3.35 TB/s); the fixup, the extraction and the patch move a ~3.3 MB slab
-// each and are bound by launch latency. Design: one thread per output
+// each and are bound by launch latency. The banded sweep reads its x_ext
+// once, the bands and their halo rows (112.8 MB over the 12 shards of
+// ne30 x 288 rows with 2 bands a face), and writes the bands (99.5 MB):
+// ~0.064 ms. Design: one thread per output
 // element; the sweep's threads run along lanes, so loads and stores
 // coalesce, and the partner reads (4 and 16*ne-3 lanes away) hit lines
 // already in cache;
@@ -87,6 +101,42 @@ dss_sweep_kernel(const float* __restrict__ x, const float* __restrict__ rsp,
     res = dss_sweep::swept(load, l, ne, rsp, nrsp, e16);
   }
   const size_t o = row * e16 + l;
+  if constexpr (kMix) res = dss_sweep::mix(ca, mx[o], cb, res);
+  out[o] = res;
+}
+
+// The banded sweep: out[row, lo] for the shard lane lo = c*bl + L of chunk c,
+// read from x_ext [k, nchunks*(bl + 2*rl)]; merge and mix as dss_sweep. A
+// chunk's fix lanes are the fix lanes of the whole sphere that lie in it
+// (W and E, and S in a face's first band, N in its last), whose vd column
+// fix_col gives; the banded sweep of every other lane equals the whole
+// sphere's sweep there bit for bit.
+template <bool kMix, bool kMerge>
+__global__ void __launch_bounds__(kSweepThreads)
+dss_sweep_banded_kernel(const float* __restrict__ x_ext,
+                        const float* __restrict__ rsp, int nrsp,
+                        const float* __restrict__ vd, int nfix,
+                        const int* __restrict__ fix_col,
+                        const int* __restrict__ flags, const float* mx,
+                        float ca, float cb, float* out, int lanes, int bl,
+                        int nchunks, int ne) {
+  const int lo = blockIdx.x * kSweepThreads + threadIdx.x;
+  if (lo >= lanes) return;
+  const size_t row = blockIdx.y;
+  float res;
+  int col = -1;
+  if constexpr (kMerge) col = fix_col[lo];
+  if (col >= 0) {
+    res = vd[row * nfix + col];
+  } else {
+    const int c = lo / bl, ext = bl + 32 * ne;
+    const float* xr = x_ext + (row * nchunks + c) * ext;
+    const auto load = [xr](int i) { return xr[i]; };
+    const int f = flags[c];
+    res = dss_sweep::swept_banded(load, lo - c * bl, ne, bl, f & 1, f & 2,
+                                  rsp, nrsp, lanes, lo);
+  }
+  const size_t o = row * lanes + lo;
   if constexpr (kMix) res = dss_sweep::mix(ca, mx[o], cb, res);
   out[o] = res;
 }
@@ -186,6 +236,29 @@ int dss_sweep_launch(const void* x, const void* rsp, int nrsp, const void* vd,
       static_cast<const float*>(vd), nfix, static_cast<const int*>(fix_col),
       static_cast<const float*>(mx), ca, cb, static_cast<float*>(out), e16,
       ne);
+  return cudaGetLastError();
+}
+
+// The banded sweep: x_ext holds k rows of nchunks*(bl + 32*ne) lanes, out
+// and mx rows of lanes = nchunks*bl; flags[c] bit 0 / bit 1: chunk c is the
+// first / last band of its face; a null vd is the merge-free sweep.
+int dss_sweep_banded_launch(const void* x_ext, const void* rsp, int nrsp,
+                            const void* vd, int nfix, const void* fix_col,
+                            const void* flags, const void* mx, float ca,
+                            float cb, void* out, int k, int lanes, int bl,
+                            int nchunks, int ne, void* stream, int device) {
+  cudaError_t err = prepare(device);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((lanes + kSweepThreads - 1) / kSweepThreads, k);
+  auto* kernel = vd ? (mx ? dss_sweep_banded_kernel<true, true>
+                          : dss_sweep_banded_kernel<false, true>)
+                    : (mx ? dss_sweep_banded_kernel<true, false>
+                          : dss_sweep_banded_kernel<false, false>);
+  kernel<<<grid, kSweepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x_ext), static_cast<const float*>(rsp), nrsp,
+      static_cast<const float*>(vd), nfix, static_cast<const int*>(fix_col),
+      static_cast<const int*>(flags), static_cast<const float*>(mx), ca, cb,
+      static_cast<float*>(out), lanes, bl, nchunks, ne);
   return cudaGetLastError();
 }
 

@@ -14,7 +14,9 @@
 // db + 4 = 16*ne + 1 lanes away.
 //
 // `load(l)` returns the row's value at lane l: a plain load in the sweep
-// kernel, an L2 load (__ldcg) of another block's output in the ring kernels.
+// kernels, an L2 load (__ldcg) of another block's output in the ring kernels.
+// swept_banded() is the same sum on one band chunk of the banded DSS, where
+// a lane's neighbouring element rows may be halo rows.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,6 +52,32 @@ __device__ __forceinline__ float swept(const Load& load, int l, int ne,
   if (j == 3 && ej < ne - 1) z = __fadd_rn(z, alpha_sum(load, l + db, ne));
   else if (j == 0 && ej > 0) z = __fadd_rn(z, alpha_sum(load, l - db, ne));
   return scale(z, rsp, nrsp, e16, l);
+}
+
+// w at lane L of one band chunk of the banded (multi-device) DSS: the chunk
+// is laid out [band | next row | prev row], each row rl = 16*ne lanes, the
+// band bl = br*rl lanes (br element rows); L < bl. The in-face sums are
+// those of swept(), in the same order: the alpha partners lie in the lane's
+// own element row (in a halo row too), and the beta partner of a j == 3
+// lane is db = rl - 3 lanes on, which for the band's last row is the
+// next-row halo; the partner of a j == 0 lane is db lanes back, taken
+// cyclically inside the chunk (L - db + ext), which for the band's first
+// row is the prev-row halo. `first` / `last`: the band is the first / last
+// of its face, so its first row has no partner below / its last row none
+// above. The scale is at lane `lr` of rsp (e16 lanes a row).
+template <class Load>
+__device__ __forceinline__ float swept_banded(const Load& load, int L, int ne,
+                                              int bl, bool first, bool last,
+                                              const float* __restrict__ rsp,
+                                              int nrsp, int e16, int lr) {
+  const int rl = 16 * ne, db = rl - 3, j = L & 3;
+  float z = alpha_sum(load, L, ne);
+  if (j == 3 && !(last && L >= bl - rl))
+    z = __fadd_rn(z, alpha_sum(load, L + db, ne));
+  else if (j == 0 && !(first && L < rl))
+    z = __fadd_rn(z, alpha_sum(load, L >= db ? L - db : L - db + bl + 2 * rl,
+                               ne));
+  return scale(z, rsp, nrsp, e16, lr);
 }
 
 // the affine epilogue ca*mx + cb*w: two rounded products, then their sum

@@ -1,6 +1,6 @@
 """CAAR in array form and on the two packed layouts, the hyperviscosity
 Laplacians, the tracer stages on both layouts, the ring-fused producers and
-the saxpby triad (the DSS kernels are in ``dss.py``).
+the saxpby triad; of the DSS kernels (``dss.py``) the multi-device ones.
 
 The CUDA kernels live in ``../csrc`` and are built at first launch
 (``_build.py``); importing these modules builds nothing.
@@ -14,6 +14,14 @@ from .caar_t import (
     caar_t4_cuda,
     caar_t4_plain,
     run_leapfrog_t,
+)
+from .dss import (
+    dss_patch_tiles_cuda,
+    dss_patch_tiles_plain,
+    dss_sweep_banded_cuda,
+    dss_sweep_banded_nomerge_cuda,
+    dss_sweep_banded_nomerge_plain,
+    dss_sweep_banded_plain,
 )
 from .hypervis_t import vlap_cuda, vlap_plain
 from .ring_fused import (
@@ -44,6 +52,12 @@ __all__ = [
     "caar_t",
     "caar_t4_cuda",
     "caar_t4_plain",
+    "dss_patch_tiles_cuda",
+    "dss_patch_tiles_plain",
+    "dss_sweep_banded_cuda",
+    "dss_sweep_banded_nomerge_cuda",
+    "dss_sweep_banded_nomerge_plain",
+    "dss_sweep_banded_plain",
     "euler_packed",
     "euler_step_fast",
     "ring_geometry",

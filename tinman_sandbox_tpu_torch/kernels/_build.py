@@ -109,6 +109,8 @@ _SIGNATURES = {
     "dss": {
         "dss_sweep_launch": [_P, _P, _I, _P, _I, _P, _P, _F, _F, _P, _I, _I,
                              _I, _P, _I],
+        "dss_sweep_banded_launch": [_P, _P, _I, _P, _I, _P, _P, _P, _F, _F,
+                                    _P, _I, _I, _I, _I, _I, _P, _I],
         "dss_patch_launch": [_P, _P, _P, _I, _P, _F, _F, _I, _I, _P, _I],
         "dss_fixup_launch": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _I],
         "dss_extract_launch": [_P, _P, _P, _I, _I, _I, _P, _I],

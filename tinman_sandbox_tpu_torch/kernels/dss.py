@@ -52,6 +52,27 @@ The sweep/patch split (the ring-fused steps' closer, counterpart of
   * ``dss_structured_t_cuda_patch``: fixup, merge-free sweep, patch; bit for
     bit ``dss_structured_t_cuda_pre``.
 
+The multi-device DSS (counterpart of the banded sweeps and the shard-local
+patch of ``dss_pallas.py``; the steps are in ``dist/banded_t4.py`` and
+``dist/sharded_t4.py``):
+
+  * ``dss_sweep_banded_cuda``: the sweep of one shard's band chunks, each
+    extended with its two neighbouring element rows ([band | next | prev],
+    ``x_ext``), the fix lanes taking vd (replaces ``dss_sweeps_banded_t``,
+    :428, and ``dss_sweeps_banded_ct``, :544); ``dss_sweep_banded_nomerge_
+    cuda`` the same with the merge off (replaces
+    ``dss_sweeps_banded_nomerge``, :190); ``mix`` as ``dss_sweep_cuda``;
+  * ``dss_patch_tiles_cuda``: the patch kernel on a shard's own fix lanes,
+    w and mx possibly taller than vd (replaces ``merge_patch_tiles``, :251).
+
+They take ``BandTables`` (``band_tables``): the shard's ``FixTables`` and
+one first / last flag a chunk in place of the TPU's bf16 lane masks and
+tile-dense or compact value buffers. ``dss_sweep_banded_plain``,
+``dss_sweep_banded_nomerge_plain`` and ``dss_patch_tiles_plain`` are the
+plain versions at the JAX functions' signatures (masked rolls, 128-lane
+tiles, one-hot placement tables), sharing their arithmetic with the
+wrappers' CPU path.
+
 ``fix_vals3`` (:1412) and its per-tile [nt, M, k] value blocks are a
 128-lane-tile layout with no counterpart here: ``dss_fixup_cuda`` already
 gives one value per fix lane (vd [k, nfix]), which the patch places.
@@ -67,12 +88,16 @@ import torch
 from ..config import NP, NPSQ
 from . import _build
 
-__all__ = ["FixTables", "fix_tables", "dss_extract_plain", "dss_fixup_plain",
-           "dss_sweep_plain", "dss_sweep_nomerge_plain",
+__all__ = ["FixTables", "fix_tables", "make_fix_tables", "dss_extract_plain",
+           "dss_fixup_plain", "dss_sweep_plain", "dss_sweep_nomerge_plain",
            "dss_merge_patch_plain", "dss_extract_cuda", "dss_fixup_cuda",
            "dss_sweep_cuda", "dss_sweep_nomerge_cuda", "dss_merge_patch_cuda",
            "dss_structured_t_cuda", "dss_structured_t_cuda_pre",
-           "dss_structured_t_cuda_patch"]
+           "dss_structured_t_cuda_patch", "BandTables", "band_tables",
+           "band_masks", "dss_sweep_banded_plain",
+           "dss_sweep_banded_nomerge_plain", "dss_patch_tiles_plain",
+           "dss_sweep_banded_cuda", "dss_sweep_banded_nomerge_cuda",
+           "dss_patch_tiles_cuda"]
 
 # the sweep grid puts rows on its y axis
 _MAX_ROWS = 65535
@@ -89,10 +114,17 @@ class FixTables:
     fix_lanes: torch.Tensor      # [nfix] lane of each vals column
     fix_col: torch.Tensor        # [E16] vals column of a lane, or -1
     fix_src: torch.Tensor        # [nfix, 4] slab rows summed, -1 = none
+    # rows of the slab that fix_src indexes, where it is not the extracted
+    # slab of nfix rows (0): a shard's fixup reads the gathered side lines
+    src_rows: int = 0
 
     @property
     def nfix(self) -> int:
         return int(self.read_lanes.shape[0])
+
+    @property
+    def nsrc(self) -> int:
+        return self.src_rows or self.nfix
 
 
 def _fixup_arrays(plan):
@@ -141,18 +173,27 @@ def _fixup_arrays(plan):
     return fix_lanes, read_lanes, np.asarray(src, np.int32)
 
 
-@functools.lru_cache(maxsize=None)
-def _fix_tables_cached(plan, device: str) -> FixTables:
-    fix_lanes, read_lanes, src = _fixup_arrays(plan)
-    e16 = 6 * plan.ne * plan.ne * NPSQ
+def make_fix_tables(ne: int, e16: int, fix_lanes, read_lanes, fix_src,
+                    device, src_rows: int = 0) -> FixTables:
+    """FixTables on ``device`` from numpy: the fix lanes in vals-column
+    order, the ascending lanes of the slab rows, the [nfix, 4] rows each fix
+    value sums (of a slab of ``src_rows`` rows, 0 = the extracted slab)."""
     fix_rank = np.full(e16, -1, np.int32)
     fix_rank[read_lanes] = np.arange(len(read_lanes), dtype=np.int32)
     fix_col = np.full(e16, -1, np.int32)
     fix_col[fix_lanes] = np.arange(len(fix_lanes), dtype=np.int32)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
-    return FixTables(ne=plan.ne, e16=e16, read_lanes=t(read_lanes),
+    return FixTables(ne=ne, e16=e16, read_lanes=t(read_lanes),
                      fix_rank=t(fix_rank), fix_lanes=t(fix_lanes),
-                     fix_col=t(fix_col), fix_src=t(src))
+                     fix_col=t(fix_col), fix_src=t(fix_src),
+                     src_rows=src_rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _fix_tables_cached(plan, device: str) -> FixTables:
+    fix_lanes, read_lanes, src = _fixup_arrays(plan)
+    return make_fix_tables(plan.ne, 6 * plan.ne * plan.ne * NPSQ, fix_lanes,
+                           read_lanes, src, device)
 
 
 def fix_tables(plan, device) -> FixTables:
@@ -177,7 +218,7 @@ def _scale(v: torch.Tensor, rsp_rows: torch.Tensor) -> torch.Tensor:
 
 def dss_fixup_plain(slab: torch.Tensor, tables: FixTables,
                     rsp: torch.Tensor) -> torch.Tensor:
-    """slab [nfix, k] -> vals buffer vd [k, nfix]: the fix value of each
+    """slab [nsrc, k] -> vals buffer vd [k, nfix]: the fix value of each
     fix lane, (g[s0] + g[s1]) + (g[s2] + g[s3]) scaled by its rspheremp."""
     src = tables.fix_src.long()
     zero = slab.new_zeros(())
@@ -250,24 +291,14 @@ def dss_sweep_nomerge_plain(x: torch.Tensor, rsp: torch.Tensor,
                       _swept_plain(x, rsp, tables.ne), mix)
 
 
-def _check_patch_mix(w, mix):
-    if mix is None:
-        return None, 0.0, 0.0
-    mx, ca, cb = mix
-    if tuple(mx.shape) != tuple(w.shape):
-        raise ValueError(f"dss_merge_patch: mix field must be "
-                         f"{tuple(w.shape)}, got {tuple(mx.shape)}")
-    return mx, float(ca), float(cb)
-
-
 def dss_merge_patch_plain(w: torch.Tensor, vd: torch.Tensor,
                           tables: FixTables, mix=None) -> torch.Tensor:
     """IN PLACE: w[:, fix_lanes] = vd, or with ``mix=(mx, ca, cb)`` (mx of
     w's shape) ca*mx[:, fix_lanes] + cb*vd. Returns w."""
-    mx, ca, cb = _check_patch_mix(w, mix)
-    lanes = tables.fix_lanes.long()
-    w[:, lanes] = vd if mx is None else ca * mx[:, lanes] + cb * vd
-    return w
+    if mix is not None and tuple(mix[0].shape) != tuple(w.shape):
+        raise ValueError(f"dss_merge_patch: mix field must be "
+                         f"{tuple(w.shape)}, got {tuple(mix[0].shape)}")
+    return _patch_plain(w, vd, tables.fix_lanes, mix)
 
 
 # -- kernels -----------------------------------------------------------------
@@ -330,10 +361,11 @@ dss_extract_cuda.launches = 0
 
 def dss_fixup_cuda(slab: torch.Tensor, tables: FixTables,
                    rsp: torch.Tensor) -> torch.Tensor:
-    """vd [k, nfix] from slab [nfix, k] (kernel ``dss_fixup``)."""
+    """vd [k, nfix] from slab [nsrc, k] (kernel ``dss_fixup``): the
+    extracted slab, or a shard's gathered side lines."""
     n, k = tables.nfix, slab.shape[1]
     _check_rsp("dss_fixup", rsp, tables.e16)
-    dev = _check("dss_fixup", {"slab": (slab, (n, k)),
+    dev = _check("dss_fixup", {"slab": (slab, (tables.nsrc, k)),
                                "rsp": (rsp, tuple(rsp.shape)),
                                "fix_src": (tables.fix_src, (n, 4)),
                                "fix_lanes": (tables.fix_lanes, (n,))},
@@ -428,30 +460,46 @@ def dss_sweep_nomerge_cuda(x: torch.Tensor, rsp: torch.Tensor,
 dss_sweep_nomerge_cuda.launches = 0
 
 
+def _patch(name, w, vd, tables: FixTables, mix, taller: bool) -> bool:
+    """Check and run one patch of the first k = vd.shape[0] rows of w (w and
+    a mix field of exactly k rows unless ``taller``); True where it launched
+    the kernel."""
+    k, e16, n = vd.shape[0], tables.e16, tables.nfix
+    mx, ca, cb = (None, 0.0, 0.0) if mix is None else \
+        (mix[0], float(mix[1]), float(mix[2]))
+    for op, t in (("w", w), ("the mix field", mx)):
+        if t is not None and (t.ndim != 2 or t.shape[1] != e16
+                              or t.shape[0] < k
+                              or (t.shape[0] != k and not taller)):
+            raise ValueError(f"{name}: {op} must be [{'>= ' * taller}{k}, "
+                             f"{e16}], got {tuple(t.shape)}")
+    ops = {"w": (w, tuple(w.shape)), "vd": (vd, (k, n)),
+           "fix_lanes": (tables.fix_lanes, (n,))}
+    if mx is not None:
+        ops["mix field"] = (mx, tuple(mx.shape))
+    dev = _check(name, ops, dtype=w.dtype)
+    for other, t in (("vd", vd), ("the mix field", mx)):
+        if t is not None and _overlap(w, t):
+            raise ValueError(f"{name}: w overlaps {other}")
+    if dev.type == "cpu":
+        _patch_plain(w, vd, tables.fix_lanes, mix)
+        return False
+    err = _build.library("dss").dss_patch_launch(
+        w.data_ptr(), vd.data_ptr(), tables.fix_lanes.data_ptr(), n,
+        0 if mx is None else mx.data_ptr(), ca, cb, k, e16, _stream(dev),
+        dev.index)
+    _build.check_launch("dss", err)
+    return True
+
+
 def dss_merge_patch_cuda(w: torch.Tensor, vd: torch.Tensor,
                          tables: FixTables, mix=None) -> torch.Tensor:
     """IN PLACE on w [k, E16]: each fix lane takes its fixup value from vd
     [k, nfix], or with ``mix=(mx, ca, cb)`` (mx of w's shape) ca*mx + cb*vd;
     every other lane keeps its bits (kernel ``dss_patch``, counterpart of
     ``merge_patch_pallas``). w must not overlap vd or mx. Returns w."""
-    k, e16, n = w.shape[0], tables.e16, tables.nfix
-    mx, ca, cb = _check_patch_mix(w, mix)
-    ops = {"w": (w, (k, e16)), "vd": (vd, (k, n)),
-           "fix_lanes": (tables.fix_lanes, (n,))}
-    if mx is not None:
-        ops["mix field"] = (mx, (k, e16))
-    dev = _check("dss_merge_patch", ops, dtype=w.dtype)
-    for other, t in (("vd", vd), ("the mix field", mx)):
-        if t is not None and _overlap(w, t):
-            raise ValueError(f"dss_merge_patch: w overlaps {other}")
-    if dev.type == "cpu":
-        return dss_merge_patch_plain(w, vd, tables, mix)
-    err = _build.library("dss").dss_patch_launch(
-        w.data_ptr(), vd.data_ptr(), tables.fix_lanes.data_ptr(), n,
-        0 if mx is None else mx.data_ptr(), ca, cb, k, e16, _stream(dev),
-        dev.index)
-    _build.check_launch("dss", err)
-    dss_merge_patch_cuda.launches += 1
+    dss_merge_patch_cuda.launches += _patch("dss_merge_patch", w, vd, tables,
+                                            mix, taller=False)
     return w
 
 
@@ -493,3 +541,280 @@ def dss_structured_t_cuda_patch(x: torch.Tensor, slab: torch.Tensor, plan,
     vd = dss_fixup_cuda(slab, tables, rsp)
     w = dss_sweep_nomerge_cuda(x, rsp, tables, mix)
     return dss_merge_patch_cuda(w, vd, tables, mix)
+
+
+# -- the multi-device DSS: the banded sweep and the shard-local patch --------
+
+@dataclasses.dataclass(frozen=True)
+class BandTables:
+    """Static tables of one shard of the band-sharded DSS: ``nchunks`` band
+    chunks of ``bl`` lanes (whole element rows of ``rl`` = 16*ne lanes), the
+    shard's own fix-lane tables ``fix`` (shard-local lanes, e16 =
+    nchunks*bl) and per chunk ``flags`` (int32: bit 0 the first band of its
+    face, bit 1 the last), in place of the JAX package's bf16 lane masks."""
+
+    fix: FixTables
+    nchunks: int
+    bl: int
+    flags: torch.Tensor          # [nchunks] int32
+    first_last: tuple            # the flags as ((first, last), ...)
+
+    @property
+    def rl(self) -> int:
+        return self.fix.ne * NPSQ
+
+    @property
+    def ext(self) -> int:
+        return self.bl + 2 * self.rl
+
+
+def band_tables(fix: FixTables, bl: int, first_last) -> BandTables:
+    """BandTables of a shard's chunks, ``first_last`` one (first, last) pair
+    a chunk."""
+    first_last = tuple((bool(a), bool(b)) for a, b in first_last)
+    flags = torch.tensor([a + 2 * b for a, b in first_last], dtype=torch.int32,
+                         device=fix.fix_col.device)
+    return BandTables(fix=fix, nchunks=len(first_last), bl=bl, flags=flags,
+                      first_last=first_last)
+
+
+def band_masks(ne: int, bl: int, first_last) -> np.ndarray:
+    """The JAX package's four sweep masks (alpha hi / lo, beta hi / lo) of
+    the chunks [band | next | prev], [4, nchunks*ext] bool: the counterpart
+    of ``maskv`` of ``dist/banded_t4.py``."""
+    rl = ne * NPSQ
+    lane = np.arange(bl + 2 * rl)
+    i, j = (lane // NP) % NP, lane % NP
+    ei, lrow = (lane // NPSQ) % ne, lane // rl
+    in_band, br = lrow < bl // rl, bl // rl
+    out = []
+    for first, last in first_last:
+        out.append(np.stack([
+            (i == NP - 1) & (ei < ne - 1), (i == 0) & (ei > 0),
+            (j == NP - 1) & in_band & ~((lrow == br - 1) & last),
+            (j == 0) & in_band & ~((lrow == 0) & first)]))
+    return np.concatenate(out, axis=1)
+
+
+def _banded_plain(x_ext, rsp, masks, nchunks, bl, rl, vd=None, col=None,
+                  mix=None):
+    """The banded sweep as masked rolls inside each chunk (the JAX kernels'
+    form): rspheremp * (alpha then beta sum) of each band lane, merged lanes
+    (col >= 0) taking vd[:, col]; ``mix`` as ``dss_sweep_plain``. Pure."""
+    k, ext = x_ext.shape[0], bl + 2 * rl
+    if x_ext.shape[1] != nchunks * ext:
+        raise ValueError(f"banded sweep: x_ext must be [k, {nchunks * ext}], "
+                         f"got {tuple(x_ext.shape)}")
+    x = x_ext.reshape(k, nchunks, ext)
+    m = torch.as_tensor(masks, device=x.device).reshape(4, nchunks, ext) != 0
+    db = rl - (NP - 1)
+    zero = x.new_zeros(())
+    part = lambda mk, y, s: torch.where(mk, torch.roll(y, s, 2), zero)
+    y = x + part(m[0], x, -NP) + part(m[1], x, NP)
+    z = y + part(m[2], y, -db) + part(m[3], y, db)
+    w = _scale(z[:, :, :bl].reshape(k, nchunks * bl), rsp[:, None, :])
+    if vd is not None:
+        col = torch.as_tensor(col, device=x.device).long()
+        w = torch.where(col >= 0, vd[:, col.clamp(min=0)], w)
+    return _mix_plain("banded sweep", w, w, mix)
+
+
+def _band_sweep_plain(x_ext, rsp, vd, bt: BandTables, mix=None):
+    """The banded sweep in the wrappers' operand form (vd None: merge-free)
+    from ``_banded_plain``, the masks built from the chunk flags. Pure."""
+    return _banded_plain(x_ext, rsp, band_masks(bt.fix.ne, bt.bl,
+                                                bt.first_last),
+                         bt.nchunks, bt.bl, bt.rl, vd,
+                         None if vd is None else bt.fix.fix_col, mix)
+
+
+def _patch_plain(w, vd, lanes, mix=None):
+    """IN PLACE on the first rows of w: w[:k, lanes] = vd, or with
+    ``mix=(mx, ca, cb)`` ca*mx[:k, lanes] + cb*vd. Returns w."""
+    k = vd.shape[0]
+    lanes = torch.as_tensor(lanes, device=w.device).long()
+    if mix is None:
+        w[:k, lanes] = vd
+    else:
+        mx, ca, cb = mix
+        w[:k, lanes] = float(ca) * mx[:k, lanes] + float(cb) * vd
+    return w
+
+
+def _tile_lanes(gtiles, width, dmask, pick=None):
+    """(lanes, columns) of the merged lanes of 128-lane tiles: tile n of
+    ``gtiles`` covers lanes gtiles[n]*128 + c (c < 128, inside ``width``),
+    merged where dmask[n*128 + c] is set; its value is column n*128 + c, or
+    with ``pick(n, c)`` that column (a one-hot placement), else -1."""
+    lanes, cols = [], []
+    for n, t in enumerate(gtiles):
+        for c in range(min(128, width - t * 128)):
+            if dmask[n * 128 + c]:
+                lanes.append(t * 128 + c)
+                cols.append(n * 128 + c if pick is None else pick(n, c))
+    return np.asarray(lanes, np.int64), np.asarray(cols, np.int64)
+
+
+def _one_hot_rows(p_tbl, ntb, m_rows):
+    """pick(n, c): the row r of tile n's placement block with a one at
+    column c, as the vals column n*m_rows + r."""
+    p = np.asarray(torch.as_tensor(p_tbl).float().cpu()) != 0
+    rows = np.full((ntb, 128), -1, np.int64)
+    for s in range(ntb):
+        r, c = np.nonzero(p[s * m_rows:(s + 1) * m_rows])
+        rows[s, c] = r
+
+    def pick(n, c):
+        if rows[n % ntb, c] < 0:
+            raise ValueError(f"placement table: tile {n} merges lane {c}, "
+                             "which no row places")
+        return n * m_rows + rows[n % ntb, c]
+
+    return pick
+
+
+def dss_sweep_banded_plain(x_ext, rsp, vals, dense_mask, masks, tiles,
+                           nchunks: int, bl: int, rl: int, mix=None,
+                           p_tbl=None, m_rows: int = 0):
+    """Plain PyTorch ``dss_sweeps_banded_t`` (``p_tbl`` None: tile-dense
+    ``vals`` [k, nchunks*len(tiles)*128]) and ``dss_sweeps_banded_ct``
+    (compact ``vals`` [k, nchunks*wr] placed by the one-hot [ntb*m_rows,
+    128] ``p_tbl``), at the JAX signature: x_ext [k, nchunks*(bl + 2*rl)];
+    rsp [1 or 2, nchunks*bl]; dense_mask [1, nchunks*len(tiles)*128]; masks
+    [4, nchunks*ext]. Each merged lane reads its value from its column of
+    vals (the one-hot product of the compact form selects one column).
+    ``mix=(mx, ca, cb)``: ca*mx + cb*that, a taller mx's further rows kept.
+    Pure."""
+    ntb, dm = len(tiles), np.asarray(torch.as_tensor(dense_mask).cpu())[0]
+    width = vals.shape[1] // nchunks
+    pick = None if p_tbl is None else _one_hot_rows(p_tbl, ntb, m_rows)
+    col = np.full(nchunks * bl, -1, np.int64)
+    for c in range(nchunks):
+        lanes, cols = _tile_lanes(tiles, bl, dm[c * ntb * 128:], pick)
+        col[c * bl + lanes] = c * width + cols
+    return _banded_plain(x_ext, rsp, masks, nchunks, bl, rl, vals, col, mix)
+
+
+def dss_sweep_banded_nomerge_plain(x_ext, rsp, masks, nchunks: int, bl: int,
+                                   rl: int, mix=None):
+    """Plain PyTorch ``dss_sweeps_banded_nomerge`` at the JAX signature:
+    ``dss_sweep_banded_plain`` without the merge. Pure."""
+    return _banded_plain(x_ext, rsp, masks, nchunks, bl, rl, mix=mix)
+
+
+def dss_patch_tiles_plain(w, vals3, p_tbl, dm_lanes, gtiles, ntb: int,
+                          m_rows: int, mix=None):
+    """Plain PyTorch ``merge_patch_tiles`` at the JAX signature: the merged
+    lanes (``dm_lanes``) of the 128-lane tiles ``gtiles`` of w's first
+    k = vals3.shape[2] rows take their value from vals3 [nt, m_rows, k] by
+    the one-hot ``p_tbl``, or with ``mix=(mx, ca, cb)`` ca*mx + cb*value.
+    Pure: returns a new tensor of w's shape."""
+    dm = np.asarray(torch.as_tensor(dm_lanes).cpu())[0]
+    lanes, cols = _tile_lanes(gtiles, w.shape[1], dm,
+                              _one_hot_rows(p_tbl, ntb, m_rows))
+    vd = vals3.reshape(-1, vals3.shape[2]).T
+    return _patch_plain(w.clone(), vd[:, torch.from_numpy(cols)], lanes, mix)
+
+
+def _check_band(name, x_ext, rsp, vd, bt: BandTables, mix):
+    """Operand checks of the banded sweep; returns (device, mx, ca, cb,
+    in_place)."""
+    k, lanes = x_ext.shape[0], bt.nchunks * bt.bl
+    _check_rsp(name, rsp, lanes)
+    ops = {"x_ext": (x_ext, (k, bt.nchunks * bt.ext)),
+           "rsp": (rsp, tuple(rsp.shape))}
+    if vd is not None:
+        ops.update({"vd": (vd, (k, bt.fix.nfix)),
+                    "fix_col": (bt.fix.fix_col, (lanes,))})
+    mx, ca, cb = None, 0.0, 0.0
+    if mix is not None:
+        mx, ca, cb = mix
+        if mx.ndim != 2 or mx.shape[1] != lanes or mx.shape[0] < k:
+            raise ValueError(f"{name}: mix field must be [>= {k}, {lanes}], "
+                             f"got {tuple(mx.shape)}")
+        ops["mix field"] = (mx, tuple(mx.shape))
+        ca, cb = float(ca), float(cb)
+    dev = _check(name, ops, dtype=x_ext.dtype)
+    if bt.flags.device != dev or bt.flags.dtype != torch.int32 \
+            or tuple(bt.flags.shape) != (bt.nchunks,):
+        raise ValueError(f"{name}: flags must be int32 [{bt.nchunks}] on "
+                         f"{dev}")
+    in_place = mx is not None and mx.shape[0] > k
+    if in_place and _overlap(mx, x_ext):
+        raise ValueError(f"{name}: the in-place mix field overlaps x_ext")
+    return dev, mx, ca, cb, in_place
+
+
+def _sweep_banded(name, x_ext, rsp, vd, bt: BandTables, mix):
+    """Check and run one banded sweep (vd None: merge-free). Returns (out,
+    launched)."""
+    dev, mx, ca, cb, in_place = _check_band(name, x_ext, rsp, vd, bt, mix)
+    k, lanes = x_ext.shape[0], bt.nchunks * bt.bl
+    if dev.type == "cpu":
+        if not in_place:
+            return _band_sweep_plain(x_ext, rsp, vd, bt, mix), False
+        mx[:k] = _band_sweep_plain(x_ext, rsp, vd, bt, (mx[:k], ca, cb))
+        return mx, False
+    if k > _MAX_ROWS:
+        raise ValueError(f"{name}: {k} rows exceed the grid's {_MAX_ROWS}")
+    out = mx if in_place else x_ext.new_empty(k, lanes)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    err = _build.library("dss").dss_sweep_banded_launch(
+        x_ext.data_ptr(), rsp.data_ptr(), rsp.shape[0], ptr(vd),
+        bt.fix.nfix, 0 if vd is None else bt.fix.fix_col.data_ptr(),
+        bt.flags.data_ptr(), ptr(mx), ca, cb, out.data_ptr(), k, lanes,
+        bt.bl, bt.nchunks, bt.fix.ne, _stream(dev), dev.index)
+    _build.check_launch("dss", err)
+    return out, True
+
+
+def dss_sweep_banded_cuda(x_ext: torch.Tensor, rsp: torch.Tensor,
+                          vd: torch.Tensor, tables: BandTables,
+                          mix=None) -> torch.Tensor:
+    """The banded sweep of one shard (kernel ``dss_sweep_banded``,
+    counterpart of ``dss_sweeps_banded_t`` / ``_ct``): x_ext [k,
+    nchunks*ext] the shard's chunks each followed by its next and previous
+    element rows; rsp [1 or 2, nchunks*bl]; vd [k, nfix] the values of the
+    shard's fix lanes (``tables.fix.fix_col``). Returns the assembled
+    [k, nchunks*bl], a new tensor, or with ``mix=(mx, ca, cb)`` ca*mx +
+    cb*assembled; a TALLER mx is updated IN PLACE in its first k rows and
+    returned (it must not overlap x_ext)."""
+    out, launched = _sweep_banded("dss_sweep_banded", x_ext, rsp, vd, tables,
+                                  mix)
+    dss_sweep_banded_cuda.launches += launched
+    return out
+
+
+dss_sweep_banded_cuda.launches = 0
+
+
+def dss_sweep_banded_nomerge_cuda(x_ext: torch.Tensor, rsp: torch.Tensor,
+                                  tables: BandTables,
+                                  mix=None) -> torch.Tensor:
+    """The banded sweep with the merge off (kernel ``dss_sweep_banded``,
+    counterpart of ``dss_sweeps_banded_nomerge``): every band lane, fix
+    lanes included, gets rspheremp times its in-face sum, for
+    ``dss_patch_tiles_cuda`` to complete; output and ``mix`` as
+    ``dss_sweep_banded_cuda``."""
+    out, launched = _sweep_banded("dss_sweep_banded_nomerge", x_ext, rsp,
+                                  None, tables, mix)
+    dss_sweep_banded_nomerge_cuda.launches += launched
+    return out
+
+
+dss_sweep_banded_nomerge_cuda.launches = 0
+
+
+def dss_patch_tiles_cuda(w: torch.Tensor, vd: torch.Tensor, tables: FixTables,
+                         mix=None) -> torch.Tensor:
+    """IN PLACE on the first k rows of w [>= k, e16]: each fix lane of the
+    shard (``tables.fix_lanes``) takes its value from vd [k, nfix], or with
+    ``mix=(mx, ca, cb)`` (mx [>= k, e16]) ca*mx + cb*that; every other
+    element of w keeps its bits (kernel ``dss_patch``, counterpart of
+    ``merge_patch_tiles``). w must not overlap vd or mx. Returns w."""
+    dss_patch_tiles_cuda.launches += _patch("dss_patch_tiles", w, vd, tables,
+                                            mix, taller=True)
+    return w
+
+
+dss_patch_tiles_cuda.launches = 0
