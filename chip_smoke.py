@@ -139,7 +139,32 @@ NVIDIA card and check it, phase by phase:
      ``multichip.dryrun_multichip(8)``; the multi-device step times beside
      the single-device ones, by events and from CUDA graphs. ``LocalMesh``
      emulates the shards on one card, one launch a shard: these times are
-     no scaling result.
+     no scaling result;
+ 20. the probe's chained FP32 product (``probe_mm_cuda``, PERF.md row 31)
+     against ``probe_mm_plain`` within 2e-6 of max|o| at the probe tool's
+     five shapes, each timed against its bound (a time under the FLOP bound
+     fails: the twenty products were folded), its plain version and the
+     same twenty products by cuBLAS (``torch.addmm``, the yardstick); then,
+     launch counts set to 0 just before and read just after, the probe tool
+     itself (``tools.probe_kernel``: triad, the five products, the row CAAR
+     kernel);
+ 21. the rsplit cadence at ne30 x 72, qsize 1, launch counts set to 0 just
+     before and read just after: 6 steps of ``examples.packed_cadence``'s
+     loop (``prim_step_packed_t4`` with limited tracers and qsplit 2, then
+     ``remap_packed_t4`` with the mass fixer every 3 steps) from its random
+     projected init, on the kernels against the same loop on the plain
+     step (1e-4 scaled per block; each step against the plain step from
+     the same input at 1e-5), continuity exactly 0 after every step's
+     DSS, the air mass within 1e-6 of its target after each remap (the
+     remap's own continuity reported); the remap's own f32 rounding
+     against the same remap in f64, by PLM and by PCM; the remap's time,
+     peak memory and share of the cadence; the example as a user runs it,
+     and from one checkpoint of its start 6 steps at once against 3 steps,
+     a ``--checkpoint`` restart and 3 more, bit for bit equal;
+     ``tools.energy_drift``; the CLI ``--ne 30 --prim --diag`` from one
+     checkpoint run
+     3 steps at once and as 2 steps, ``--checkpoint``, ``--restore`` and 1
+     step, bit for bit equal.
 
 Any failure raises and exits non-zero before the result line is printed.
 Run from the repository root: ``python3 chip_smoke.py``.
@@ -151,6 +176,7 @@ import io
 import itertools
 import json
 import os
+import shutil
 import sys
 import time
 
@@ -180,6 +206,20 @@ SWEEP_OPS_PER_POINT = 6
 MIX_OPS_PER_POINT = 3
 WIND = 30.0                    # m/s: the wind case's winds, U(-1, 1) x this
 CAAR_TOL = 5e-5                # the repo's on-chip equivalence gate
+# the probe kernel against twenty cuBLAS products in full f32: dots of up to
+# 1024 terms in another order, of max|o|
+PROBE_TOL = 2e-6
+# the remap cadence's kernel chain against its plain chain: the remap takes
+# differences of cumulative column integrals, so its own f32 error against
+# the same remap in f64 is 7e-5 to 1.6e-4 of max|x| at ne30 x 72 (H100,
+# phase 21 prints it), by PCM as by PLM, so no limiter switch; the chains,
+# whose inputs differ by ~6.5e-7, part by at most 1.7e-5 in 6 steps with
+# two remaps; each step alone is held against the plain step from the same
+# input at DYN_TOL
+CADENCE_TOL = 1e-4
+# the fixer's air mass against its target: f32 sums of 6.2M terms before and
+# after one rescale (a few ulps)
+REMAP_MASS_TOL = 1e-6
 CONSERVE_TOL = 4e-6            # limiter: an element's mass, of its sum|w*y|
 BOUNDS_TOL = 1e-6              # limiter: outside the bounds, of max|q|
 QSIZE_TALL = 35                # E3SM's tracer count: the [2520, E16] stack
@@ -2503,6 +2543,326 @@ def phase_multidevice_path(dev, cs):
     return times
 
 
+def phase_probe_kernels(dev):
+    """Phase 20, row 31: the probe kernel against its plain version at the
+    probe tool's five shapes, each timed beside its bound, its plain version
+    and the same twenty products by cuBLAS. Returns the kernel's row."""
+    import numpy as np
+    import torch
+
+    from tinman_sandbox_tpu_torch.kernels.probe import (
+        PROBE_REPS, PROBE_SHAPES, probe_bytes, probe_flops, probe_mm_cuda,
+        probe_mm_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def cublas(a, b):
+        acc = torch.zeros(a.shape[0], b.shape[1], device=a.device)
+        for _ in range(PROBE_REPS):
+            acc = torch.addmm(acc, a, b)
+        return acc
+
+    shapes, max_abs = [], 0.0
+    for m, k, n in PROBE_SHAPES:
+        a = torch.from_numpy(np.random.default_rng(0).normal(size=(m, k))
+                             .astype(np.float32)).to(dev)
+        b = torch.from_numpy(np.random.default_rng(1).normal(size=(k, n))
+                             .astype(np.float32)).to(dev)
+        got = probe_mm_cuda(a, b)
+        torch.cuda.synchronize()
+        want = probe_mm_plain(a, b)
+        err = scaled_err(got, want)
+        max_abs = max(max_abs, float((got - want).abs().max()))
+        if not bool(torch.isfinite(got).all()) or not err <= PROBE_TOL:
+            raise AssertionError(f"probe [{m},{k}]@[{k},{n}]: scaled error "
+                                 f"{err} > {PROBE_TOL}")
+        iters = 50 if m < 1024 else 20
+        k_ms = cuda_ms(lambda: probe_mm_cuda(a, b), iters)
+        p_ms = cuda_ms(lambda: probe_mm_plain(a, b), iters)
+        l_ms = cuda_ms(lambda: cublas(a, b), iters)
+        flops = probe_flops(m, k, n)
+        bnd, by = bound_ms(probe_bytes(m, k, n), flops)
+        # a time below the operations bound would mean the twenty products
+        # were folded into fewer
+        if k_ms < flops / FP32_FLOPS_PER_S * 1e3:
+            raise AssertionError(f"probe [{m},{k}]@[{k},{n}]: {k_ms} ms is "
+                                 f"below the FLOP bound {bnd} ms")
+        print(f"phase 20 probe_mm [{m},{k}]@[{k},{n}] x{PROBE_REPS}: scaled "
+              f"error {err:.2e}; kernel {k_ms:.4f} ms "
+              f"({flops / k_ms / 1e9:.2f} TFLOP/s, {bnd / k_ms:.3f} of the "
+              f"bound {bnd:.4f} ms by {by}), plain {p_ms:.4f} ms, cuBLAS "
+              f"{l_ms:.4f} ms ({flops / l_ms / 1e9:.2f} TFLOP/s)")
+        shapes.append(dict(m=m, k=k, n=n, ms=k_ms, plain_ms=p_ms,
+                           library_ms=l_ms, bound_ms=bnd, bound_by=by,
+                           scaled_err=err))
+    big = shapes[-1]
+    return dict(name="probe_mm_cuda", route="cuda",
+                source="tinman_sandbox_tpu_torch/csrc/probe.cu",
+                replaces="tools/probe_kernel.py:47", max_abs_err=max_abs,
+                ms=big["ms"], plain_ms=big["plain_ms"],
+                bound_ms=big["bound_ms"], bound_by=big["bound_by"],
+                library_ms=big["library_ms"], shape="1024x1024x1024",
+                shapes=shapes)
+
+
+def phase_probe_path(dev):
+    """Phase 20, the probe tool's main path: ``python -m
+    tinman_sandbox_tpu_torch.tools.probe_kernel`` in process (triad, the
+    five products, the row CAAR kernel). Returns its result."""
+    from tinman_sandbox_tpu_torch.tools import probe_kernel
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = probe_kernel.main([])
+    for ln in buf.getvalue().splitlines():
+        print("phase 20 tool " + ln)
+    if len(out["matmul"]) != 5 or not out["triad_gb_per_s"] > 0:
+        raise AssertionError(f"probe tool: {out}")
+    return out
+
+
+def phase_remap_cadence(dev, cs):
+    """Phase 21: the packed remap cadence at ne30 x 72, qsize 1 (the
+    ``examples.packed_cadence`` problem and loop), kernels against plain,
+    the remap's time, memory and share; the example and the energy-drift
+    tool on the card; the CLI's --diag with a --checkpoint / --restore
+    pair. Returns the remap's measurements."""
+    import json as _json
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tinman_sandbox_tpu_torch import cli
+    from tinman_sandbox_tpu_torch.dist import (
+        continuity_error_t, packed_air_mass, prim_step_packed_t4,
+        prim_step_packed_t4_plain, remap_packed_t4)
+    from tinman_sandbox_tpu_torch.examples import packed_cadence
+    from tinman_sandbox_tpu_torch.ops.diagnostics import (
+        energy_diagnostics_packed_t)
+    from tinman_sandbox_tpu_torch.tools import energy_drift
+
+    steps, rsplit, qsplit = 6, 3, 2
+    prob = packed_cadence.make_cadence_problem(cs.ne, NLEV, 1, DYN_DT,
+                                               "random", dev)
+    cfg, sph = prob["cfg"], prob["sph_lanes"]
+    s0, q0 = prob["s"], prob["qdp"]
+    mass0 = packed_air_mass(s0, sph, NLEV)
+
+    def diag(s):
+        return " ".join(f"{k}={float(v):.6e}" for k, v in
+                        energy_diagnostics_packed_t(s, prob["meta"],
+                                                    NLEV).items())
+
+    print(f"phase 21 cadence ne{cs.ne}x{NLEV} qsize 1 start: {diag(s0)}")
+    args = (prob["dvv"], prob["plan"], prob["rsp"], DYN_NU, NLEV)
+    kw = dict(qsplit=qsplit, limit_tracers=True, dt=DYN_DT)
+
+    def step(fn, s, q, acc):
+        s1, q1, _, *acc1 = fn(prob["scal"], prob["meta"], s, q,
+                              prob["pecnd"], *acc, *args, **kw)
+        return s1, q1, tuple(acc1)
+
+    def remap(s, q):
+        return remap_packed_t4(s, q, prob["hv"], cfg.nelem, NLEV, 1,
+                               sph_lanes=sph, mass_target=mass0)
+
+    # the example's loop, on the kernels and on the plain step
+    ks, kq, kacc = s0, q0, tuple(a.clone() for a in prob["acc"])
+    ps, pq, pacc = s0, q0, prob["acc"]
+    masses, remap_conts, step_errs = [], [], []
+    pre = None
+    for i in range(1, steps + 1):
+        # each step alone against the plain step from the same input
+        os_, oq, _ = step(prim_step_packed_t4_plain, ks, kq, kacc)
+        ks, kq, kacc = step(prim_step_packed_t4, ks, kq, kacc)
+        one = {name: scaled_err(a, b) for name, a, b in zip(
+            ("u", "v", "t", "dp"), ks.split(NLEV), os_.split(NLEV))}
+        one["qdp"] = scaled_err(kq, oq)
+        step_errs.append(max(one.values()))
+        if max(one.values()) > DYN_TOL:
+            raise AssertionError(f"cadence step {i} from the same input: "
+                                 f"{one} > {DYN_TOL}")
+        for name, x in (("state", ks), ("tracer", kq)):
+            cont = continuity_error_t(x, cs.gdof)
+            if cont != 0.0:
+                raise AssertionError(f"cadence step {i}: {name} continuity "
+                                     f"{cont}")
+        ps, pq, pacc = step(prim_step_packed_t4_plain, ps, pq, pacc)
+        if i % rsplit == 0:
+            pre = (ks, kq)
+            ks, kq = remap(ks, kq)
+            ps, pq = remap(ps, pq)
+            rel = abs(float(packed_air_mass(ks, sph, NLEV)) / float(mass0)
+                      - 1.0)
+            masses.append(rel)
+            if not rel < REMAP_MASS_TOL:
+                raise AssertionError(f"cadence step {i}: relative mass {rel} "
+                                     f"after the remap")
+            remap_conts.append(max(continuity_error_t(ks, cs.gdof),
+                                   continuity_error_t(kq, cs.gdof)))
+        errs = {name: scaled_err(a, b) for name, a, b in zip(
+            ("u", "v", "t", "dp"), ks.split(NLEV), ps.split(NLEV))}
+        errs["qdp"] = scaled_err(kq, pq)
+        if max(errs.values()) > CADENCE_TOL \
+                or not bool(torch.isfinite(ks).all()):
+            raise AssertionError(f"cadence chain step {i}: {errs} > "
+                                 f"{CADENCE_TOL}")
+    print(f"phase 21 cadence ne{cs.ne}x{NLEV} qsize 1 x{steps} (dt {DYN_DT}, "
+          f"nu {DYN_NU:g}, qsplit {qsplit}, limited tracers, remap + fixer "
+          f"every {rsplit}): each step within "
+          f"{' '.join(f'{e:.2e}' for e in step_errs)} of the plain step from "
+          f"the same input; the chains after {steps} steps, scaled errors "
+          + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; continuity 0 after every step's DSS; after each remap "
+          f"relative mass {' '.join(f'{m:.2e}' for m in masses)}, the "
+          f"remap's own continuity {' '.join(f'{c:.1e}' for c in remap_conts)}"
+          f"; min dp {float(ks[3 * NLEV:].min()):.3f}, min qdp "
+          f"{float(kq.min()):.3e}; end: {diag(ks)}")
+    del ps, pq, pacc, os_, oq
+
+    # the remap's own f32 rounding: the last remap's input through the same
+    # remap in f32 and in f64, by PLM and by PCM (whose reconstruction has
+    # no slope to switch); two inputs that differ at all draw different
+    # roundings, so the chains part after a remap by about this much
+    rounding = {}
+    for scheme in ("plm", "pcm"):
+        r32 = remap_packed_t4(*pre, prob["hv"], cfg.nelem, NLEV, 1,
+                              scheme=scheme)
+        r64 = remap_packed_t4(pre[0].double(), pre[1].double(), prob["hv"],
+                              cfg.nelem, NLEV, 1, scheme=scheme)
+        one = {name: scaled_err(a, b) for name, a, b in zip(
+            ("u", "v", "t", "dp"), r32[0].split(NLEV), r64[0].split(NLEV))}
+        one["qdp"] = scaled_err(r32[1], r64[1])
+        rounding[scheme] = one
+        del r32, r64
+    del pre
+    print(f"phase 21 remap_packed_t4 f32 against f64 on the last remap's "
+          f"input, scaled errors: " + "; ".join(
+              f"{sch} " + " ".join(f"{k} {v:.2e}" for k, v in e.items())
+              for sch, e in rounding.items()))
+
+    # the remap's time, memory, and share of the cadence
+    remap(ks, kq)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    remap(ks, kq)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    r_ms = cuda_ms(lambda: remap(ks, kq), 5)
+    acc = tuple(a.clone() for a in kacc)
+    step_ms = cuda_ms(lambda: step(prim_step_packed_t4, ks, kq, acc), 10)
+    share = r_ms / (rsplit * step_ms + r_ms)
+    print(f"phase 21 remap_packed_t4 ne{cs.ne}x{NLEV} qsize 1: {r_ms:.3f} ms "
+          f"a call, peak {peak / 2 ** 20:.1f} MiB above its inputs; the "
+          f"cadence step {step_ms:.3f} ms; the remap {share:.3f} of the "
+          f"cadence's time (one remap per {rsplit} steps)")
+    times = dict(remap_ms=r_ms, remap_peak_mib=peak / 2 ** 20,
+                 cadence_step_ms=step_ms, remap_share=share,
+                 remap_mass_rel=masses, remap_f32_rounding=rounding)
+    del ks, kq, kacc, acc
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the example as a user runs it, with its --checkpoint restart: from
+        # one checkpoint z of the start (two runs from the init differ in the
+        # last bits on the card: the seeded start's projection adds by
+        # atomics), 6 steps at once, and 3 steps, a restart, 3 more, equal
+        # bit for bit; the fixer's target travels in the checkpoint
+        def example(*extra):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = packed_cadence.main([
+                    "--ne", str(cs.ne), "--nlev", str(NLEV), "--qsize", "1",
+                    "--dt", str(DYN_DT), *extra])
+            last = buf.getvalue().strip().splitlines()[-1]
+            if rc != 0:
+                raise AssertionError(f"packed_cadence {extra} exited {rc}: "
+                                     f"{last}")
+            return buf.getvalue(), last
+
+        drift = os.path.join(tmp, "drift.json")
+        z, whole, split = (os.path.join(tmp, f"{n}.npz")
+                           for n in ("z", "whole", "split"))
+        example("--steps", "0", "--checkpoint", z)
+        shutil.copy(z, whole)
+        shutil.copy(z, split)
+        _, last = example("--steps", str(steps), "--checkpoint", whole,
+                          "--drift-out", drift)
+        print(f"phase 21 examples.packed_cadence --ne {cs.ne} --nlev {NLEV} "
+              f"--qsize 1 --steps {steps} --dt {DYN_DT}:{last}")
+        example("--steps", str(steps // 2), "--checkpoint", split)
+        out, _ = example("--steps", str(steps // 2), "--checkpoint", split)
+        if f"restarted packed chain at step {steps // 2}" not in out:
+            raise AssertionError(f"packed_cadence did not restart:\n{out}")
+        with np.load(whole) as zw, np.load(split) as zs:
+            mw, ms = (_json.loads(bytes(x["meta"]).decode())
+                      for x in (zw, zs))
+            same = {key: np.array_equal(zw[key], zs[key]) for key in (
+                "packed.s", "packed.qdp", "packed.vn0u", "packed.vn0v",
+                "packed.omg")}
+        if not all(same.values()) or mw != ms or mw["step"] != steps:
+            raise AssertionError(f"packed_cadence restart differs from the "
+                                 f"uninterrupted run: {same}, {mw}, {ms}")
+        print(f"phase 21 examples.packed_cadence: {steps // 2} steps, "
+              f"--checkpoint, restart, {steps // 2} steps equal {steps} "
+              f"steps at once bit for bit (state, tracers, accumulators; "
+              f"fixer target {mw['mass_target']!r} from the checkpoint)")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rep = energy_drift.main(["--ne", "4", "--nlev", "8", "--steps",
+                                     "6", "--every", "3", "--out",
+                                     os.path.join(tmp, "ed.json")])
+        print(f"phase 21 tools.energy_drift --ne 4 --nlev 8 --steps 6 "
+              f"({rep['device']}, f64): mass drift "
+              f"{rep['mass_drift_rel']:.3e}, IE drift "
+              f"{rep['ie_drift_rel']:.3e}")
+        if not rep["mass_drift_rel"] < 1e-10:
+            raise AssertionError(f"energy_drift: {rep['mass_drift_rel']}")
+
+        # the CLI's --diag, and from one checkpoint z: 2 steps +
+        # --checkpoint, then --restore + 1, equal to 3 steps at once bit for
+        # bit (each run from the init would project it anew, and the
+        # segment-sum projection adds by atomics on the card: its bits
+        # differ from run to run)
+        base = ["--ne", str(cs.ne), "--prim", "--hypervis-nu", str(DYN_NU),
+                "--init", "random", "--dt", str(DYN_DT), "--diag"]
+        z, a, b, c = (os.path.join(tmp, f"{n}.npz") for n in "zabc")
+        paths = (a, c)
+        runs = (["--num-exec", "1", "--checkpoint", z],
+                ["--num-exec", "3", "--restore", z, "--checkpoint", a],
+                ["--num-exec", "2", "--restore", z, "--checkpoint", b],
+                ["--num-exec", "1", "--restore", b, "--checkpoint", c])
+        for extra in runs:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(base + extra)
+            out = buf.getvalue()
+            if rc != 0 or "WARNING" in out:
+                raise AssertionError(f"cli {extra} exited {rc}:\n{out}")
+        d = [ln for ln in out.splitlines() if "diagnostics:" in ln]
+        print(f"phase 21 cli --ne {cs.ne} --prim --diag --restore: "
+              + "; ".join(ln.split("---", 1)[1].strip() for ln in d))
+        za, zc = np.load(paths[0]), np.load(paths[1])
+        ma, mc = (_json.loads(bytes(z["meta"]).decode()) for z in (za, zc))
+        same = [np.array_equal(za[f"state.{f}"][ma["n0"]],
+                               zc[f"state.{f}"][mc["n0"]])
+                for f in ("u", "v", "t", "dp3d")]
+        same.append(np.array_equal(za["state.qdp"][ma["qn0"]],
+                                   zc["state.qdp"][mc["qn0"]]))
+        same += [np.array_equal(za[f"derived.{f}"], zc[f"derived.{f}"])
+                 for f in ("vn0_u", "vn0_v", "phi", "omega_p")]
+        if not all(same) or ma["step"] != 4 or mc["step"] != 4:
+            raise AssertionError(f"cli --restore: resumed run differs from "
+                                 f"the uninterrupted one: {same}")
+        print(f"phase 21 cli --ne {cs.ne} --prim: from one checkpoint, 2 "
+              f"steps, --checkpoint, --restore, 1 step equal 3 steps at once "
+              f"bit for bit (state, tracers, derived)")
+        del za, zc
+    return times
+
+
 def main() -> int:
     try:
         import torch
@@ -2526,6 +2886,7 @@ def main() -> int:
             dss_sweep_banded_nomerge_cuda, dss_sweep_cuda,
             dss_sweep_nomerge_cuda)
         from tinman_sandbox_tpu_torch.kernels.hypervis_t import vlap_cuda
+        from tinman_sandbox_tpu_torch.kernels.probe import probe_mm_cuda
         from tinman_sandbox_tpu_torch.kernels.ring_fused import (
             caar_ring_packed_t4, tracer_ring_packed_t)
         from tinman_sandbox_tpu_torch.kernels.saxpby import saxpby_cuda
@@ -2576,7 +2937,7 @@ def main() -> int:
                                         dss_sweep_nomerge_cuda,
                                         dss_sweep_banded_cuda,
                                         dss_sweep_banded_nomerge_cuda,
-                                        dss_patch_tiles_cuda)}
+                                        dss_patch_tiles_cuda, probe_mm_cuda)}
 
     def reset():
         for w in wrappers.values():
@@ -2637,6 +2998,17 @@ def main() -> int:
     multi = counts()
     print(f"phase 19 seconds: {time.perf_counter() - t0:.1f}")
     rows["dss_sweep_banded_cuda"].update(multi_times)
+    t0 = time.perf_counter()
+    rows["probe_mm_cuda"] = phase_probe_kernels(dev)
+    reset()
+    phase_probe_path(dev)
+    probe = counts()
+    print(f"phase 20 seconds: {time.perf_counter() - t0:.1f}")
+    reset()
+    t0 = time.perf_counter()
+    remap_times = phase_remap_cadence(dev, cs)
+    cadence = counts()
+    print(f"phase 21 seconds: {time.perf_counter() - t0:.1f}")
     for label, res, got in (("raw", raw_res, raw), ("assembled", asm_res,
                                                      asm),
                             ("dynamics", dyn_res, dyn),
@@ -2682,7 +3054,7 @@ def main() -> int:
                                    "dss_sweep_nomerge_cuda",
                                    "dss_sweep_banded_cuda",
                                    "dss_sweep_banded_nomerge_cuda",
-                                   "dss_patch_tiles_cuda"):
+                                   "dss_patch_tiles_cuda", "probe_mm_cuda"):
             raise AssertionError(f"{name} was not launched on the assembled "
                                  "path")
     for name in ("caar_t4_cuda", "vlap_cuda", "dss_fixup_cuda",
@@ -2723,7 +3095,7 @@ def main() -> int:
                  "dss_fixup_cuda"):
         if ring[name] <= 0:
             raise AssertionError(f"{name} was not launched on the ring path")
-    print(f"phase 17 multi-device main-path launches: {json.dumps(multi)}")
+    print(f"phase 19 multi-device main-path launches: {json.dumps(multi)}")
     for name in ("caar_t4_cuda", "vlap_cuda", "tracer_euler_cuda",
                  "dss_fixup_cuda", "dss_sweep_cuda", "dss_sweep_nomerge_cuda",
                  "dss_sweep_banded_cuda", "dss_sweep_banded_nomerge_cuda",
@@ -2731,6 +3103,19 @@ def main() -> int:
         if multi[name] <= 0:
             raise AssertionError(f"{name} was not launched on the "
                                  "multi-device path")
+    print(f"phase 20 probe tool main-path launches: {json.dumps(probe)}")
+    for name in ("probe_mm_cuda", "saxpby_cuda", "caar_packed"):
+        if probe[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the probe "
+                                 "tool's path")
+    print(f"phase 21 remap cadence main-path launches: {json.dumps(cadence)}"
+          f"; remap {remap_times['remap_ms']:.3f} ms a call, "
+          f"{remap_times['remap_share']:.3f} of the cadence")
+    for name in ("caar_t4_cuda", "vlap_cuda", "tracer_limit_cuda",
+                 "tracer_euler_cuda", "dss_fixup_cuda", "dss_sweep_cuda"):
+        if cadence[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the remap "
+                                 "cadence's path")
     if row_asm_res["kernel_launches"]["caar_packed"] <= 0:
         raise AssertionError("bench --layout row --ne: no row CAAR launch")
     if single_launches <= 0:
@@ -2749,7 +3134,8 @@ def main() -> int:
             "name": name, "route": r.pop("route"), "source": r.pop("source"),
             "replaces": r.pop("replaces"),
             "launches": raw[name] + asm[name] + dyn[name] + prim[name]
-            + row[name] + ring[name] + multi[name],
+            + row[name] + ring[name] + multi[name] + probe[name]
+            + cadence[name],
             "max_abs_err": r.pop("max_abs_err"), "ms": r.pop("ms"),
             "plain_ms": r.pop("plain_ms"), "bound_ms": r.pop("bound_ms"),
             "bound_by": r.pop("bound_by"), "library_ms": r.pop("library_ms"),

@@ -1,8 +1,10 @@
 """The port's CLI and bench helpers on the CPU."""
+import json
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -46,13 +48,13 @@ def test_torch_cli_leapfrog_random_dump(capsys, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv,msg", [
     (["--rk"], "--rk requires --ne"),
-    (["--ne", "4", "--restore", "x.npz"], "not yet ported"),
+    (["--ne", "4", "--restore", "ckdir"], "orbax directory checkpoints"),
     (["--prim"], "--prim requires --ne"),
     (["--ne", "2", "--prim", "--leapfrog"],
      "--prim manages its own time-level cadence; drop --leapfrog"),
     (["--ne", "2", "--prim", "--qsize", "0"], "--qsize must be at least 1"),
     (["--hypervis-nu", "1e15"], "--hypervis-nu requires --ne"),
-    (["--ne", "2", "--checkpoint", "x.npz"], "not yet ported"),
+    (["--ne", "2", "--checkpoint", "x"], "orbax directory checkpoints"),
     (["--kernel", "plain"], "only with --device cpu"),
     (["--dtype", "float64"], "float32 only"),
     (["--dss"], "requires --ne"),
@@ -63,13 +65,14 @@ def test_torch_cli_rejects_unported_and_invalid(capsys, argv, msg):
 
 
 def test_torch_cli_module_entry_reports_unported_dss():
-    """The module entry reports a flag whose path is not ported (--dss,
-    --rk and --prim are ported now; --checkpoint is not)."""
+    """The module entry reports a path that has no counterpart (every flag
+    is ported now; an orbax directory checkpoint, a path not ending in
+    .npz, is not)."""
     r = subprocess.run([sys.executable, "-m", "tinman_sandbox_tpu_torch",
-                        "--ne", "2", "--checkpoint", "x.npz"],
+                        "--ne", "2", "--checkpoint", "x"],
                        capture_output=True, text=True, cwd=ROOT, timeout=120)
     assert r.returncode == 2
-    assert "not yet ported" in r.stderr
+    assert "orbax directory checkpoints have no counterpart" in r.stderr
 
 
 @pytest.mark.parametrize("leapfrog", [False, True])
@@ -242,3 +245,69 @@ def test_torch_bench_chains_accumulators():
     for a, b in zip(three[2:], one[2:]):
         torch.testing.assert_close(a, 3 * b, rtol=1e-5, atol=1e-6)
     assert bench.bytes_per_step(1024, 72) == 21 * 4 * 1024 * 16 * 72
+
+
+def _diag(out, label):
+    line = out.split(f"{label} diagnostics:")[1].splitlines()[0]
+    return {kv.split("=")[0]: float(kv.split("=")[1]) for kv in line.split()}
+
+
+def test_torch_cli_diag(capsys):
+    """--diag prints the initial and final energy and mass diagnostics; the
+    initial ones are ops.energy_diagnostics of the init, and the assembled
+    step keeps the mass."""
+    from tinman_sandbox_tpu_torch import Config, random_state
+    from tinman_sandbox_tpu_torch.dist import build_cubed_sphere
+    from tinman_sandbox_tpu_torch.ops.diagnostics import energy_diagnostics
+
+    assert main(["--device", "cpu", "--ne", "2", "--dss", "--num-exec", "2",
+                 "--nlev", "6", "--init", "random", "--dt", "0.05",
+                 "--leapfrog", "--diag"]) == 0
+    out = capsys.readouterr().out
+    d0, d1 = _diag(out, "initial"), _diag(out, "final")
+    assert sorted(d0) == sorted(d1) == ["IE", "KE", "M", "PE"]
+    cs = build_cubed_sphere(2, device="cpu")
+    cfg = Config(nelem=cs.nelem, nlev=6)
+    want = energy_diagnostics(random_state(cfg, seed=7, device="cpu"),
+                              cs.geometry.spheremp, cfg)
+    for k, v in want.items():
+        assert abs(d0[k] / float(v) - 1.0) < 1e-6, k     # printed to 7 digits
+    assert abs(d1["M"] / d0["M"] - 1.0) < 1e-3
+    assert all(np.isfinite(v) for v in d1.values())
+
+
+_RESUME = {
+    "leapfrog": ["--num-elems", "2", "--nlev", "6", "--init", "random",
+                 "--dt", "0.05", "--leapfrog"],
+    "prim": ["--ne", "2", "--prim", "--qsize", "2", "--hypervis-nu", "1e20",
+             "--init", "random", "--dt", "0.05", "--nlev", "6"],
+    "prim-plain": ["--kernel", "plain", "--ne", "2", "--prim", "--init",
+                   "random", "--dt", "0.05", "--nlev", "4"],
+}
+
+
+@pytest.mark.parametrize("mode", sorted(_RESUME))
+def test_torch_cli_checkpoint_restore_equals_uninterrupted(tmp_path, capsys,
+                                                           mode):
+    """3 steps at once equal 2 steps, --checkpoint, then --restore and 1
+    step, bit for bit at the freshest level (the state, the tracers and the
+    derived fields), with the step count carried."""
+    base = ["--device", "cpu"] + _RESUME[mode]
+    a, b, c = (str(tmp_path / f"{n}.npz") for n in "abc")
+    assert main(base + ["--num-exec", "3", "--checkpoint", a]) == 0
+    assert main(base + ["--num-exec", "2", "--checkpoint", b]) == 0
+    assert main(base + ["--num-exec", "1", "--restore", b, "--checkpoint",
+                        c]) == 0
+    assert "restored step 2 from" in capsys.readouterr().out
+    za, zc = np.load(a), np.load(c)
+    ma, mc = (json.loads(bytes(z["meta"]).decode()) for z in (za, zc))
+    assert ma["step"] == mc["step"] == 3
+    # the levels may differ (the packed --prim chain rotates once a run);
+    # each file's n0 and qn0 hold the freshest state
+    for f in ("u", "v", "t", "dp3d"):
+        assert np.array_equal(za[f"state.{f}"][ma["n0"]],
+                              zc[f"state.{f}"][mc["n0"]]), f
+    assert np.array_equal(za["state.qdp"][ma["qn0"]],
+                          zc["state.qdp"][mc["qn0"]])
+    for f in ("vn0_u", "vn0_v", "phi", "omega_p"):
+        assert np.array_equal(za[f"derived.{f}"], zc[f"derived.{f}"]), f

@@ -46,7 +46,10 @@ def test_torch_package_imports_no_jax():
     for name in ("ops/limiter.py", "ops/remap.py", "timeloop/tracer.py",
                  "timeloop/prim.py", "kernels/tracer_t.py", "dist/step_t.py",
                  "kernels/caar.py", "kernels/tracer.py", "kernels/ring_fused.py",
-                 "cli.py", "bench.py"):
+                 "kernels/probe.py", "ops/diagnostics.py",
+                 "timeloop/checkpoint.py", "tools/probe_kernel.py",
+                 "tools/energy_drift.py", "examples/packed_cadence.py",
+                 "examples/simulated_day.py", "cli.py", "bench.py"):
         assert os.path.join("tinman_sandbox_tpu_torch", name) in held
     for path in files:
         with open(path) as f:

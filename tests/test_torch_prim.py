@@ -162,11 +162,41 @@ def test_torch_prim_run_step_f64_matches_jax(nu, qsplit, limit):
 
 
 def test_torch_prim_run_step_remap_not_ported():
-    jcs, cfg, st, dv, g, hv = _problem(0.05, np.float64, continuous=False)
-    ts, td, tg, th, tcfg = _torch_side(cfg, st, dv, g, hv)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        prim_run_step(ts, td, tg, th, tcfg, jcs.gdof, jcs.ndof, remap=True,
-                      device="cpu")
+    """remap=True (once not ported, now the vertical remap and the mass
+    fixer) against JAX's prim_run_step in f64 on physically monotone eta
+    levels, without and with a mass target: every level, the tracers, and
+    the fixed air mass equal to the target."""
+    from tinman_sandbox_tpu.grid import HybridVCoord as JHybridVCoord
+    from tinman_sandbox_tpu_torch.device import from_arrays
+    from tinman_sandbox_tpu_torch.grid import HybridVCoord
+
+    jcs, cfg, st, dv, g, _ = _problem(20.0, np.float64, continuous=False)
+    eta = np.linspace(0.0, 1.0, NLEV + 1)
+    hva = dict(ps0=1000.0, hyai=0.1 * (1 - eta), hybi=eta,
+               hyam=0.05 * ((1 - eta[:-1]) + (1 - eta[1:])),
+               hybm=0.5 * (eta[:-1] + eta[1:]))
+    hv = JHybridVCoord(**hva)
+    ts, td, tg, _, tcfg = _torch_side(cfg, st, dv, g, hv)
+    th = from_arrays(HybridVCoord, hva, device="cpu")
+    jtarget = j_air_mass(st, jnp.asarray(g.spheremp),
+                         dataclasses.replace(cfg, np1=cfg.n0))
+    for target in (None, jtarget):
+        js, jd, jcfg = j_prim_run_step(st, dv, g, hv, cfg,
+                                       jnp.asarray(jcs.gdof), jcs.ndof,
+                                       nu=NU, limit_tracers=True, remap=True,
+                                       mass_target=target)
+        tt = None if target is None else float(target)
+        s, d, c = prim_run_step(ts, td, tg, th, tcfg, jcs.gdof, jcs.ndof,
+                                nu=NU, limit_tracers=True, remap=True,
+                                mass_target=tt, device="cpu")
+        assert (c.n0, c.np1, c.nm1, c.qn0) == (jcfg.n0, jcfg.np1, jcfg.nm1,
+                                               jcfg.qn0)
+        for name in ("u", "v", "t", "dp3d", "qdp"):
+            e = _err(getattr(s, name), getattr(js, name))
+            assert e < F64_TOL, (name, target is None, e)
+        if target is not None:
+            m = float(air_mass(s, tg.spheremp, tcfg))
+            assert abs(m / tt - 1.0) < F64_TOL
 
 
 # -- the packed step ----------------------------------------------------------

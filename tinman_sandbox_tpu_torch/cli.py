@@ -48,6 +48,18 @@ cuda`` the n0 level and the tracers are projected first, the state is packed
 once, ``dist.prim_step_packed_t4`` chains in the packed layout and the
 result is unpacked once at the end; with ``--kernel plain`` the field form
 ``timeloop.prim_run_step`` runs.
+``--diag`` prints the global energy and mass diagnostics
+(``ops.energy_diagnostics``) of the initial and the final state.
+``--checkpoint PATH.npz`` writes the final state, the derived fields, the
+time levels and the step count there (``timeloop.save_checkpoint``, the JAX
+package's npz format); ``--restore PATH.npz`` starts from such a file, so a
+run of N steps, saved, then restored for M more equals a run of N + M steps
+bit for bit. The saved time levels are those the NEXT step needs: with
+``--prim`` the rotated levels (the JAX CLI saves the last step's own, from
+which a resumed ``--prim`` run would start over at the stale level). A
+restored state is not projected again (a step's output is continuous, and
+the projection is not exact in f32). The JAX CLI's orbax directory
+checkpoints have no counterpart: any path not ending in ``.npz`` exits 2.
 The CUDA kernel is float32 only; ``--dtype`` defaults to float32 on the card
 and float64 (the oracle path) on the CPU.
 """
@@ -57,9 +69,6 @@ import argparse
 import dataclasses
 import sys
 import time
-
-# flags of the JAX CLI whose paths are not ported yet
-_NOT_PORTED = ("checkpoint", "restore")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -109,9 +118,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "+ tracer transport (needs --ne; --dt is the step)")
     ap.add_argument("--qsize", type=int, default=1,
                     help="number of tracers")
-    # accepted so that they fail with a clear message, not an argparse error
-    ap.add_argument("--checkpoint", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--restore", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--diag", action="store_true",
+                    help="print global energy/mass diagnostics")
+    ap.add_argument("--checkpoint", default=None,
+                    help="write a checkpoint here at the end (*.npz)")
+    ap.add_argument("--restore", default=None,
+                    help="resume from this checkpoint (*.npz)")
     return ap
 
 
@@ -122,13 +134,13 @@ def _usage_error(msg: str) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag in _NOT_PORTED:
-        if getattr(args, flag) not in (None, False):
+    for flag in ("checkpoint", "restore"):
+        path = getattr(args, flag)
+        if path is not None and not path.endswith(".npz"):
             return _usage_error(
-                f"--{flag} is not yet ported to tinman_sandbox_tpu_torch "
-                f"(the raw and assembled CAAR, SSPRK3, hyperviscosity and "
-                f"full model step paths are); use python -m "
-                f"tinman_sandbox_tpu")
+                f"--{flag} {path}: only .npz checkpoints are ported; the "
+                f"JAX CLI's orbax directory checkpoints have no counterpart "
+                f"in tinman_sandbox_tpu_torch")
     for flag, on in (("--dss", args.dss), ("--rk", args.rk),
                      ("--hypervis-nu", args.hypervis_nu),
                      ("--prim", args.prim)):
@@ -188,6 +200,15 @@ def main(argv=None) -> int:
     hv = analytic_hvcoord(cfg, **kw)
     timers = Timers(dev)
 
+    steps_done = 0
+    if args.restore:
+        from .timeloop import load_checkpoint
+
+        state, derived, cfg, steps_done = load_checkpoint(args.restore, cfg,
+                                                          device=dev)
+        state, derived = state.to(dtype=dtype), derived.to(dtype=dtype)
+        print(f" --- restored step {steps_done} from {args.restore}")
+
     mode = "cuda" if args.kernel == "cuda" else "plain array-form"
     if args.kernel == "cuda" and args.layout == "row":
         mode += " row-layout"
@@ -215,7 +236,7 @@ def main(argv=None) -> int:
 
         plan = make_structured_plan(cs.gdof, cs.ne)
     finalize = None
-    if (args.rk or args.prim) and args.kernel == "cuda":
+    if (args.rk or args.prim) and args.kernel == "cuda" and not args.restore:
         from .dist import dss_project
 
         # the packed steps pull the projection inside the Shu-Osher
@@ -311,6 +332,13 @@ def main(argv=None) -> int:
                                         args.hypervis_nu, dt=args.dt,
                                         device=dev)
 
+    if args.diag:
+        from .ops.diagnostics import energy_diagnostics
+
+        d0 = energy_diagnostics(state, geom.spheremp, cfg)
+        print(" --- initial diagnostics: " + "  ".join(
+            f"{k}={float(v):.6e}" for k, v in d0.items()))
+
     if finalize is not None:
         # the warm-up must not advance the chain (the kernel updates the
         # accumulators in place)
@@ -342,6 +370,13 @@ def main(argv=None) -> int:
         c = prim_cfg["used"]
     timers.stop("main loop")
     wall = time.perf_counter() - t0
+    steps_done += args.num_exec
+
+    if args.diag:
+        d1 = energy_diagnostics(state, geom.spheremp, cfg,
+                                tl=c.n0 if args.leapfrog else c.np1)
+        print(" --- final diagnostics:   " + "  ".join(
+            f"{k}={float(v):.6e}" for k, v in d1.items()))
 
     print_results_2norm(state, "Final")
     # after the final rotation the freshest level is c.n0, not c.np1
@@ -387,6 +422,15 @@ def main(argv=None) -> int:
     if args.dump_res == "yes":
         for p in dump_results(state, c):
             print(f" --- dumped {p}")
+    if args.checkpoint:
+        from .timeloop import save_checkpoint
+
+        # the levels the next step reads: --prim's last step wrote np1 and
+        # tracer level 1 - qn0
+        c_next = dataclasses.replace(rotated(c), qn0=1 - c.qn0) \
+            if args.prim else c
+        save_checkpoint(args.checkpoint, state, derived, c_next, steps_done)
+        print(f" --- checkpoint written to {args.checkpoint}")
     if args.timing_file:
         timers.summary(args.timing_file)
         print(f" --- timing summary written to {args.timing_file}")

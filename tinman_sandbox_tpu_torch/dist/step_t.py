@@ -55,6 +55,12 @@ the assembled-step, SSPRK3 and hyperviscosity parts of
     the packed layout. ``prim_step_packed_t4_plain`` is its twin and
     ``prim_t`` the full-state wrapper, from ``prim_pack_t`` and
     ``prim_unpack_t``, which a caller that chains steps calls once each.
+  * ``remap_packed_t4``: the conservative vertical remap of the stacked
+    state and tracers back to the reference hybrid levels, with the global
+    dry-mass fixer (``packed_air_mass``), run every rsplit-th step of the
+    packed cadence. Array code in the JAX package too (no Pallas kernel):
+    plain PyTorch on the packed rows, levels on axis 0, in place of JAX's
+    unpack / repack (the same columns, the same arithmetic).
 
   * The ring-fused path (counterpart of ``caar_dss_ring_t4``,
     ``ssprk3_ring_t4`` and ``ssprk3_tracer_ring_t`` of the JAX package):
@@ -94,6 +100,8 @@ from ..kernels.ring_fused import (
 from ..kernels.tracer_t import (
     tracer_euler_cuda, tracer_euler_plain, tracer_limit_cuda,
     tracer_limit_plain)
+from ..ops.remap import (
+    _match_column_total, comp_sum, reference_dp, remap_levels)
 from ..state import Derived, State
 from ..timeloop.driver import rotated
 from ..timeloop.rk import B_WEIGHTS
@@ -109,6 +117,7 @@ __all__ = ["caar_dss_structured_packed_t4",
            "ssprk3_tracer_packed_t", "ssprk3_tracer_packed_t_plain",
            "prim_step_packed_t4", "prim_step_packed_t4_plain",
            "prim_pack_t", "prim_unpack_t", "prim_t",
+           "remap_packed_t4", "packed_air_mass",
            "caar_dss_ring_t4", "caar_dss_ring_t4_plain", "ssprk3_ring_t4",
            "ssprk3_ring_t4_plain", "ssprk3_tracer_ring_t",
            "ssprk3_tracer_ring_t_plain"]
@@ -583,6 +592,55 @@ def prim_step_packed_t4_plain(scal, meta, s0, qdp, pecnd, vn0u, vn0v, omg,
                       pecnd, (vn0u, vn0v, omg), dvv, plan, rsp, nu, nlev,
                       qsplit, nu_ratio, moist, subcycle, limit_tracers,
                       limit_iters, dt)
+
+
+def packed_air_mass(s: torch.Tensor, sph_lanes: torch.Tensor, nlev: int):
+    """spheremp-weighted air mass of the stacked state's dp rows, in the
+    state's dtype and a fixed summation order: the mass fixer's functional
+    (measure the target and the current mass with it, so its bias cancels in
+    the ratio). ``sph_lanes`` is [1, E16]."""
+    return (sph_lanes * s[3 * nlev:4 * nlev]).sum()
+
+
+def remap_packed_t4(s: torch.Tensor, qdp: torch.Tensor, hv: HybridVCoord,
+                    nelem: int, nlev: int, qsize: int, scheme: str = "plm",
+                    sph_lanes=None, mass_target=None):
+    """Conservative vertical remap of the stacked state s [4*nlev, E16] and
+    tracers qdp [qsize*nlev, E16] from the Lagrangian dp rows back to the
+    reference hybrid levels (``ops.remap.vertical_remap`` on the packed
+    layout; call it every rsplit-th step). Returns new (s', qdp').
+
+    With ``sph_lanes`` [1, E16] and ``mass_target`` the global dry-mass
+    fixer runs last: dp and qdp are rescaled by mass_target / the air mass
+    of s', both measured by ``packed_air_mass`` so the f32 measurement bias
+    cancels in the ratio (the f32 flux-form dynamics otherwise leaks about
+    2e-8 of the relative mass a step)."""
+    k = nlev
+    if s.shape[0] != 4 * k or qdp.shape[0] != qsize * k \
+            or s.shape[1] != nelem * 16 or qdp.shape[1] != s.shape[1]:
+        raise ValueError(f"remap_packed_t4: s needs [{4 * k}, {nelem * 16}] "
+                         f"and qdp [{qsize * k}, {nelem * 16}], got "
+                         f"{tuple(s.shape)} and {tuple(qdp.shape)}")
+    dp_src, hv = s[3 * k:4 * k], hv.to(s.device)
+    # compensated level sum and column-total renormalisation: the f32
+    # hybrid reconstruction's bias would drift the air mass linearly
+    ps = hv.hyai[0] * hv.ps0 + comp_sum(dp_src, 0)
+    # ps [E16] read as one [1, E16] "element": reference_dp gives [k, 1, E16]
+    dp_ref = reference_dp(hv, ps[None]).reshape(k, -1)
+    dp_tgt = _match_column_total(dp_ref, dp_src, axis=0).to(s.dtype)
+
+    def rmp(x):
+        return remap_levels(x, dp_src, dp_tgt, scheme).to(s.dtype)
+
+    s_new = torch.cat([rmp(s[i * k:(i + 1) * k]) for i in range(3)]
+                      + [dp_tgt])
+    q_new = torch.cat([(rmp(qdp[i * k:(i + 1) * k] / dp_src) * dp_tgt)
+                       .to(s.dtype) for i in range(qsize)])
+    if sph_lanes is not None and mass_target is not None:
+        r = mass_target / packed_air_mass(s_new, sph_lanes, nlev)
+        s_new[3 * k:] *= r
+        q_new *= r
+    return s_new, q_new
 
 
 def _rsp_row(geom: Geometry, dtype) -> torch.Tensor:

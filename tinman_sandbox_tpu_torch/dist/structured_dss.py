@@ -17,6 +17,9 @@ to ``x[k, face, ej, ei, i, j]`` and DSS decomposes into
 
 ``dss_structured_t`` is the plain version of this algebra in PyTorch; the
 CUDA kernels of ``kernels/dss.py`` compute the same function.
+``dss_structured_t_roll`` does the two sweeps as masked lane rolls, and
+``dss_scaled_structured_field`` / ``dss_project_structured_field`` run the
+row-layout DSS on [nelem, *mid, np, np] fields.
 ``dss_structured`` and ``dss_structured_scaled`` are the same sums on the
 row layout [e16, k] (one row per lane): the JAX package computes them as XLA
 array code, and so do these, with the same additions in the same order
@@ -34,7 +37,9 @@ from ..config import NP, NPSQ
 
 __all__ = ["StructuredDssPlan", "make_structured_plan", "dss_structured",
            "dss_structured_scaled", "dss_structured_t",
-           "dss_structured_scaled_t", "apply_rsp_t", "rsp_lanes_2f"]
+           "dss_structured_t_roll", "dss_structured_scaled_t",
+           "dss_scaled_structured_field", "dss_project_structured_field",
+           "apply_rsp_t", "rsp_lanes_2f"]
 
 _SIDES = ("W", "E", "S", "N")
 
@@ -125,23 +130,17 @@ def _line_view(x6: torch.Tensor, ne: int, face: int, side: str):
     return x6[:, face, ne - 1, :, :, NP - 1]
 
 
-def dss_structured_t(x: torch.Tensor, plan: StructuredDssPlan) -> torch.Tensor:
-    """DSS (unscaled shared-dof sum) of a transposed [k, e16] field."""
+def _check_lanes(x: torch.Tensor, plan: StructuredDssPlan):
+    if x.shape[1] != 6 * plan.ne * plan.ne * NPSQ:
+        raise ValueError(f"dss: e16={x.shape[1]} does not match ne={plan.ne}")
+
+
+def _edges_and_corners(x: torch.Tensor, x6: torch.Tensor,
+                       plan: StructuredDssPlan) -> torch.Tensor:
+    """Steps 3 and 4 of the DSS on the swept [k, 6, ne, ne, np, np] field
+    ``x6`` (updated in place); ``x`` is the field before the sweeps."""
     ne = plan.ne
     k, e16 = x.shape
-    if e16 != 6 * ne * ne * NPSQ:
-        raise ValueError(f"dss: e16={e16} does not match ne={ne}")
-    x6 = x.reshape(k, 6, ne, ne, NP, NP).clone()
-
-    # 1. alpha sweep (ei-neighbours share the i=3 / i=0 GLL columns)
-    t = x6[:, :, :, :-1, NP - 1, :] + x6[:, :, :, 1:, 0, :]
-    x6[:, :, :, :-1, NP - 1, :] = t
-    x6[:, :, :, 1:, 0, :] = t
-
-    # 2. beta sweep on the result
-    t = x6[:, :, :-1, :, :, NP - 1] + x6[:, :, 1:, :, :, 0]
-    x6[:, :, :-1, :, :, NP - 1] = t
-    x6[:, :, 1:, :, :, 0] = t
 
     # 3. cube-edge line exchanges (interiors; endpoints are cube corners)
     for fa, sa, fb, sb, flip in plan.edges:
@@ -164,6 +163,56 @@ def dss_structured_t(x: torch.Tensor, plan: StructuredDssPlan) -> torch.Tensor:
     return flat
 
 
+def dss_structured_t(x: torch.Tensor, plan: StructuredDssPlan) -> torch.Tensor:
+    """DSS (unscaled shared-dof sum) of a transposed [k, e16] field."""
+    _check_lanes(x, plan)
+    ne = plan.ne
+    x6 = x.reshape(x.shape[0], 6, ne, ne, NP, NP).clone()
+
+    # 1. alpha sweep (ei-neighbours share the i=3 / i=0 GLL columns)
+    t = x6[:, :, :, :-1, NP - 1, :] + x6[:, :, :, 1:, 0, :]
+    x6[:, :, :, :-1, NP - 1, :] = t
+    x6[:, :, :, 1:, 0, :] = t
+
+    # 2. beta sweep on the result
+    t = x6[:, :, :-1, :, :, NP - 1] + x6[:, :, 1:, :, :, 0]
+    x6[:, :, :-1, :, :, NP - 1] = t
+    x6[:, :, 1:, :, :, 0] = t
+    return _edges_and_corners(x, x6, plan)
+
+
+def _sweep_masks_t(ne: int, e16: int, device):
+    """0/1 lane masks of the in-face shared GLL columns, for the roll
+    sweeps (lane = ((f*ne + ej)*ne + ei)*16 + i*4 + j), in float32 as the
+    JAX package's."""
+    lane = torch.arange(e16, device=device)[None, :]
+    i = (lane // NP) % NP
+    j = lane % NP
+    ei = (lane // NPSQ) % ne
+    ej = (lane // (NPSQ * ne)) % ne
+    f32 = torch.float32
+    return (((i == NP - 1) & (ei < ne - 1)).to(f32),    # partner +4 lanes
+            ((i == 0) & (ei > 0)).to(f32),              # partner -4 lanes
+            ((j == NP - 1) & (ej < ne - 1)).to(f32),    # +(16*ne - 3)
+            ((j == 0) & (ej > 0)).to(f32))              # -(16*ne - 3)
+
+
+def dss_structured_t_roll(x: torch.Tensor,
+                          plan: StructuredDssPlan) -> torch.Tensor:
+    """``dss_structured_t`` with the alpha and beta sweeps as masked cyclic
+    lane shifts (the in-face alpha partner of a lane is 4 lanes away, the
+    beta partner 16*ne - 3), then the same edge lines and cube corners
+    (counterpart of ``dss_structured_t_roll``; bit for bit its results)."""
+    _check_lanes(x, plan)
+    ne = plan.ne
+    k, e16 = x.shape
+    m_a_hi, m_a_lo, m_b_hi, m_b_lo = _sweep_masks_t(ne, e16, x.device)
+    y = (x + m_a_hi * torch.roll(x, -NP, 1)) + m_a_lo * torch.roll(x, NP, 1)
+    db = NPSQ * ne - (NP - 1)
+    z = (y + m_b_hi * torch.roll(y, -db, 1)) + m_b_lo * torch.roll(y, db, 1)
+    return _edges_and_corners(x, z.reshape(k, 6, ne, ne, NP, NP), plan)
+
+
 def dss_structured(x: torch.Tensor, plan: StructuredDssPlan) -> torch.Tensor:
     """DSS (unscaled shared-dof sum) of a row-layout [e16, k] field."""
     return dss_structured_t(x.T, plan).T.contiguous()
@@ -174,6 +223,44 @@ def dss_structured_scaled(x: torch.Tensor, plan: StructuredDssPlan,
     """rspheremp * DSS(x) for row-layout [e16, k] fields; ``rsp_rows`` is
     [e16, 1]."""
     return rsp_rows * dss_structured(x, plan)
+
+
+def _to_packed_cols(x: torch.Tensor):
+    """[nelem, *mid, np, np] -> ([nelem*16, M], mid) in packed row order."""
+    ne, mid = x.shape[0], x.shape[1:-2]
+    cols = torch.movedim(x.reshape(ne, -1, NP, NP), 1, 3)   # [ne, np, np, M]
+    return cols.reshape(ne * NPSQ, -1), mid
+
+
+def _from_packed_cols(cols: torch.Tensor, ne: int, mid) -> torch.Tensor:
+    x = torch.movedim(cols.reshape(ne, NP, NP, -1), 3, 1)
+    return x.reshape(ne, *mid, NP, NP).contiguous()
+
+
+def _rows(per_elem: torch.Tensor) -> torch.Tensor:
+    """[nelem, np, np] -> [nelem*16, 1]."""
+    return per_elem.reshape(-1, 1)
+
+
+def dss_scaled_structured_field(x: torch.Tensor, plan: StructuredDssPlan,
+                                rspheremp: torch.Tensor) -> torch.Tensor:
+    """rspheremp * DSS(x) on [nelem, *mid, np, np] fields: the gather-free
+    drop-in for ``dist.dss.dss_scaled`` on the whole sphere (counterpart of
+    ``dss_scaled_structured_field``)."""
+    cols, mid = _to_packed_cols(x)
+    out = _rows(rspheremp).to(cols.dtype) * dss_structured(cols, plan)
+    return _from_packed_cols(out, x.shape[0], mid)
+
+
+def dss_project_structured_field(x: torch.Tensor, plan: StructuredDssPlan,
+                                 spheremp: torch.Tensor,
+                                 rspheremp: torch.Tensor) -> torch.Tensor:
+    """rspheremp * DSS(spheremp * x): the ``dist.dss.dss_project`` drop-in
+    (counterpart of ``dss_project_structured_field``)."""
+    cols, mid = _to_packed_cols(x)
+    cols = _rows(spheremp).to(cols.dtype) * cols
+    out = _rows(rspheremp).to(cols.dtype) * dss_structured(cols, plan)
+    return _from_packed_cols(out, x.shape[0], mid)
 
 
 def apply_rsp_t(rsp_lanes: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

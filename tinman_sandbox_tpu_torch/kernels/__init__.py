@@ -1,6 +1,7 @@
 """CAAR in array form and on the two packed layouts, the hyperviscosity
-Laplacians, the tracer stages on both layouts, the ring-fused producers and
-the saxpby triad; of the DSS kernels (``dss.py``) the multi-device ones.
+Laplacians, the tracer stages on both layouts, the ring-fused producers,
+the saxpby triad and the probe's chained FP32 product; of the DSS kernels
+(``dss.py``) the multi-device ones.
 
 The CUDA kernels live in ``../csrc`` and are built at first launch
 (``_build.py``); importing these modules builds nothing.
@@ -24,6 +25,7 @@ from .dss import (
     dss_sweep_banded_plain,
 )
 from .hypervis_t import vlap_cuda, vlap_plain
+from .probe import probe_mm_cuda, probe_mm_plain
 from .ring_fused import (
     caar_ring_packed_t4,
     caar_ring_plain,
@@ -60,6 +62,8 @@ __all__ = [
     "dss_sweep_banded_plain",
     "euler_packed",
     "euler_step_fast",
+    "probe_mm_cuda",
+    "probe_mm_plain",
     "ring_geometry",
     "run_leapfrog",
     "run_leapfrog_t",

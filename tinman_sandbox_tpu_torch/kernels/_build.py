@@ -26,7 +26,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 SOURCES = {"caar": "caar.cu", "dss": "dss.cu", "hypervis": "hypervis.cu",
-           "saxpby": "saxpby.cu", "tracer": "tracer.cu"}
+           "probe": "probe.cu", "saxpby": "saxpby.cu", "tracer": "tracer.cu"}
 _FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -120,6 +120,10 @@ _SIGNATURES = {
         "hypervis_vlap_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                                  _P, _I],
         "hypervis_error_string": [_I],
+    },
+    "probe": {
+        "probe_mm_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _I],
+        "probe_error_string": [_I],
     },
     "saxpby": {
         "saxpby_f32_launch": [_F, _F, _P, _P, ctypes.c_longlong, _P, _I],
