@@ -17,7 +17,8 @@ NVIDIA card and check it, phase by phase:
      f32 field: the extract, fixup and sweep kernels each bit for bit equal
      to their plain versions, every alias of every dof equal after the whole
      DSS, and a field that is a function of the dof projected onto itself
-     within 2e-6;
+     within 2e-6; the extract and fixup kernels (and the gather) also
+     replayed from CUDA graphs, the device's time alone;
   5. CAAR with the fix-lane slab on the ne30 geometry, in the three cases of
      phase 3: fields within 5e-5, the slab bit for bit s1 at the fix lanes;
   6. golden: analytic init at 3 elements through ``caar_t`` on the card,
@@ -61,6 +62,7 @@ NVIDIA card and check it, phase by phase:
      uniform field and on a field with a tenth of its nodes pushed outside
      the bounds, with each element's mass kept to 4e-6 and the result inside
      the bounds wherever they are feasible; each timed against its bound;
+     the fixup of the 72- and 2,520-row stacks also from a CUDA graph;
  12. the full model step at ne30 x 72, qsize 1, its launch counts set to 0
      just before it and read just after: 10 chained ``prim_step_packed_t4``
      steps (dynamics, hyperviscosity, tracers) on the kernels against the
@@ -105,8 +107,13 @@ NVIDIA card and check it, phase by phase:
      72 and 2,520 rows (new, mix, in place) and the patch (with and without
      mix), each bit for bit its plain version, and the split DSS bit for bit
      the merged one; each timed against its bound, its plain version, the
-     two launches it fuses and (the patch) ``index_copy_``; blocks per SM
-     and waves of the ring kernels and of the CAAR and Euler kernels;
+     two launches it fuses and (the patch) ``index_copy_``; the patch and
+     ``index_copy_`` by events (host included) and from CUDA graphs (the
+     device alone), with and without mix, and the host's time per call,
+     beside the patch's sector floor (``patch_floor_ms``), and at 2,520
+     rows the patch on contiguous lanes;
+     blocks per SM and waves of the ring kernels and of the CAAR and Euler
+     kernels;
  16. the ring paths at ne30 x 72, launch counts set to 0 just before and
      read just after: 10 chained ``caar_dss_ring_t4`` and 10
      ``ssprk3_ring_t4`` steps and 3 ``ssprk3_tracer_ring_t`` steps at qsize 1
@@ -125,10 +132,11 @@ NVIDIA card and check it, phase by phase:
      a face over 12 shards (first and last bands) at 288, 216, 72 and 2,520
      rows, and of ne32 with m = 4 over 6 shards (four chunks a shard:
      first, middle and last bands) at 288 rows; each timed over the whole
-     sphere's shards by CUDA events (the sweep also replayed from a CUDA
-     graph, the device's time alone) against its bound, its plain version,
-     ``dss_sweep_cuda`` on the same sphere in one launch and (the patch)
-     ``index_copy_``;
+     sphere's shards by CUDA events (the sweep and the patch, with and
+     without mix, also replayed from CUDA graphs, the device's time alone)
+     against its bound, its plain version, ``dss_sweep_cuda`` on the same
+     sphere in one launch and (the patch) ``index_copy_`` and the sector
+     floor;
  19. the multi-device paths at ne30 x 72, launch counts set to 0 just
      before and read just after, each step bit for bit the single-device
      step and continuity exactly 0: 10 chained ``caar_dss_banded_t4`` steps
@@ -142,9 +150,14 @@ NVIDIA card and check it, phase by phase:
      no scaling result;
  20. the probe's chained FP32 product (``probe_mm_cuda``, PERF.md row 31)
      against ``probe_mm_plain`` within 2e-6 of max|o| at the probe tool's
-     five shapes, each timed against its bound (a time under the FLOP bound
+     five shapes, the same bits on a second run, with the launch plan of
+     ``probe_plan`` (tile, cluster and k ranges, resident or pipelined,
+     shared memory, nvcc's registers, CTAs, blocks a SM, clusters at once
+     and waves), each timed against its bound (a time under the FLOP bound
      fails: the twenty products were folded), its plain version and the
-     same twenty products by cuBLAS (``torch.addmm``, the yardstick); then,
+     same twenty products by cuBLAS (``torch.addmm``, the yardstick); the
+     pipelined mode at two longer-k shapes (``PROBE_PIPELINED_SHAPES``),
+     bit for bit plain on integer operands, whose sums are exact; then,
      launch counts set to 0 just before and read just after, the probe tool
      itself (``tools.probe_kernel``: triad, the five products, the row CAAR
      kernel);
@@ -168,6 +181,13 @@ NVIDIA card and check it, phase by phase:
 
 Any failure raises and exits non-zero before the result line is printed.
 Run from the repository root: ``python3 chip_smoke.py``.
+
+``kernel_times()`` times the merge patch (and ``index_copy_``) and the
+probe product through entry points that older trees share, so the same
+measurement runs against a parent checkout: from that checkout's root,
+``python3 -c "import importlib.util as u; s = u.spec_from_file_location(
+'cs', '<this file>'); m = u.module_from_spec(s); s.loader.exec_module(m);
+m.kernel_times()"`` prints one JSON line for its kernels.
 """
 from __future__ import annotations
 
@@ -209,6 +229,9 @@ CAAR_TOL = 5e-5                # the repo's on-chip equivalence gate
 # the probe kernel against twenty cuBLAS products in full f32: dots of up to
 # 1024 terms in another order, of max|o|
 PROBE_TOL = 2e-6
+# shapes where probe_plan takes the pipelined mode (a rank's k range too long
+# to stay resident), one on each tile, the second ragged in m, n and k
+PROBE_PIPELINED_SHAPES = ((512, 4096, 512), (250, 2000, 250))
 # the remap cadence's kernel chain against its plain chain: the remap takes
 # differences of cumulative column integrals, so its own f32 error against
 # the same remap in f64 is 7e-5 to 1.6e-4 of max|x| at ne30 x 72 (H100,
@@ -332,6 +355,110 @@ def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def patch_floor_ms(lanes, rows: int, e16: int, mix: bool) -> float:
+    """The patch's sector floor: each 32-byte sector of w that a fix lane
+    falls in written whole (and with mix the same sectors of mx read), vd
+    and the lane table read once; rows of e16 lanes start on a sector."""
+    import torch
+
+    if e16 % 8:
+        raise ValueError(f"patch_floor_ms: rows of {e16} lanes straddle "
+                         "sectors")
+    sectors = torch.unique(lanes.long() // 8).numel()
+    n = lanes.numel()
+    nbytes = rows * (sectors * 32 * (2 if mix else 1) + n * 4) + n * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def host_ms(fn, n: int) -> float:
+    """The host's milliseconds per ``fn()`` call: the least over five
+    loops of ``n`` calls, the host clock stopped before the device is waited
+    for (n well under the launch queue's depth)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / n * 1e3)
+        torch.cuda.synchronize()
+    return best
+
+
+def patch_times(w, vd, fix, mx, ca, cb, reps: int) -> dict:
+    """The merge patch (without and with mix) and ``index_copy_`` on the
+    same operands, each by CUDA events over ``reps`` back-to-back calls
+    (what a caller sees, host included), replayed from a CUDA graph (the
+    device's time alone) and, without mix, the host's time per call
+    (``host_ms``). w is patched in place by every call."""
+    from tinman_sandbox_tpu_torch.kernels.dss import dss_merge_patch_cuda
+
+    lanes = fix.fix_lanes.long()
+    run = lambda: dss_merge_patch_cuda(w, vd, fix)
+    run_mix = lambda: dss_merge_patch_cuda(w, vd, fix, (mx, ca, cb))
+    lib = lambda: w.index_copy_(1, lanes, vd)
+    return dict(ms=cuda_ms(run, reps), mix_ms=cuda_ms(run_mix, reps),
+                library_ms=cuda_ms(lib, reps), graph_ms=graph_ms(run, reps),
+                mix_graph_ms=graph_ms(run_mix, reps),
+                library_graph_ms=graph_ms(lib, reps),
+                host_ms=host_ms(run, reps),
+                library_host_ms=host_ms(lib, reps))
+
+
+def kernel_times() -> dict:
+    """The two kernels this tree redesigned, timed through the entry points
+    that every tree since the patch and the probe were ported has: the merge
+    patch and ``index_copy_`` at 72, 288 and 2,520 rows of ne30
+    (``patch_times``), and the probe product at the probe tool's five shapes
+    by CUDA events beside twenty cuBLAS products. Run against another tree
+    by importing this file with that tree first on ``sys.path``; prints and
+    returns one JSON object."""
+    import numpy as np
+    import torch
+
+    from tinman_sandbox_tpu_torch.dist import (build_cubed_sphere,
+                                               make_structured_plan)
+    from tinman_sandbox_tpu_torch.kernels.dss import fix_tables
+    from tinman_sandbox_tpu_torch.kernels.probe import (
+        PROBE_REPS, PROBE_SHAPES, probe_mm_cuda)
+
+    dev = torch.device("cuda", 0)
+    cs = build_cubed_sphere(NE, dtype=torch.float32, device=dev)
+    fix = fix_tables(make_structured_plan(cs.gdof, cs.ne), dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    ca, cb = np.float32(1.0 / 3.0), np.float32(2.0 / 3.0)
+    out = {"card": card_line(), "patch": {}, "probe": {}}
+    for rows in (NLEV, 4 * NLEV, QSIZE_TALL * NLEV):
+        w = torch.randn(rows, fix.e16, generator=gen, device=dev)
+        mx = torch.randn(rows, fix.e16, generator=gen, device=dev)
+        vd = torch.randn(rows, fix.nfix, generator=gen, device=dev)
+        out["patch"][rows] = patch_times(w, vd, fix, mx, ca, cb,
+                                         50 if rows < 1000 else 10)
+        del w, mx, vd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for m, k, n in PROBE_SHAPES:
+        a = torch.from_numpy(np.random.default_rng(0).normal(size=(m, k))
+                             .astype(np.float32)).to(dev)
+        b = torch.from_numpy(np.random.default_rng(1).normal(size=(k, n))
+                             .astype(np.float32)).to(dev)
+
+        def cublas():
+            acc = torch.zeros(m, n, device=dev)
+            for _ in range(PROBE_REPS):
+                acc = torch.addmm(acc, a, b)
+            return acc
+
+        iters = 50 if m < 1024 else 20
+        out["probe"][f"{m}x{k}x{n}"] = dict(
+            ms=cuda_ms(lambda: probe_mm_cuda(a, b), iters),
+            library_ms=cuda_ms(cublas, iters))
+    print(json.dumps(out))
+    return out
 
 
 def phase_saxpby(dev):
@@ -475,6 +602,14 @@ def phase_dss(dev, cs):
                            cuda_ms(lambda: dss_sweep_plain(x, rsp, vd_p, t), 20),
                            None),
     }
+    # the extraction and the fixup (and the gather) replayed from CUDA
+    # graphs: the device's time without the host's
+    graphs = {
+        "dss_extract_cuda": (graph_ms(lambda: dss_extract_cuda(x, t), 50),
+                             graph_ms(lambda: x[:, lanes].T.contiguous(), 50)),
+        "dss_fixup_cuda": (graph_ms(lambda: dss_fixup_cuda(slab_p, t, rsp),
+                                    50), None),
+    }
     # bytes each function must move (the gathered elements, the slab, the
     # tables and rspheremp rows it reads, its output) and its f32 operations
     bounds = {
@@ -496,10 +631,16 @@ def phase_dss(dev, cs):
                          max_abs_err=abs_errs[name], ms=k_ms, plain_ms=p_ms,
                          bound_ms=bounds[name][0], bound_by=bounds[name][1],
                          library_ms=l_ms)
+        g_ms, gl_ms = graphs.get(name, (None, None))
+        graph = ""
+        if g_ms is not None:
+            out[name].update(graph_ms=g_ms, library_graph_ms=gl_ms)
+            graph = (f"; from a graph kernel {g_ms:.4f} ms" + (
+                "" if gl_ms is None else f", library {gl_ms:.4f} ms"))
         print(f"phase 4 {name} ne{cs.ne} [{k}, {e16}] (nfix {n}): bitwise "
               f"equal; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
               f"{'none' if l_ms is None else f'{l_ms:.4f} ms'}, bound "
-              f"{bounds[name][0]:.4f} ms ({bounds[name][1]})")
+              f"{bounds[name][0]:.4f} ms ({bounds[name][1]}){graph}")
     print(f"phase 4 dss ne{cs.ne}: continuity error {cont:.1e}, projection "
           f"identity {proj_err:.2e} (limit {PROJECTION_TOL})")
     return out
@@ -1078,6 +1219,7 @@ def phase_tracer_kernels(dev, cs):
         e, slab = tracer_euler_cuda(meta, s0, s0, q, dvv, DYN_DT, k, **kw)
         vd = dss_fixup_cuda(slab, fix, rsp)
         fx_ms = cuda_ms(lambda: dss_fixup_cuda(slab, fix, rsp), reps)
+        fxg_ms = graph_ms(lambda: dss_fixup_cuda(slab, fix, rsp), reps)
         sw_ms = cuda_ms(lambda: dss_sweep_cuda(e, rsp, vd, fix), reps)
         swm_ms = cuda_ms(lambda: dss_sweep_cuda(e, rsp, vd, fix,
                                                 mix=(q, ca, cb)), reps)
@@ -1088,7 +1230,8 @@ def phase_tracer_kernels(dev, cs):
         b_swm, _ = bound_ms(sweep_bytes(3), 9 * qk * e16)
         b_fx, _ = bound_ms(2 * n * qk * 4 + n * 20 + nr * n * 4, 6 * n * qk)
         print(f"phase 11 stage closure {tag} [{qk}, {e16}]: fixup "
-              f"{fx_ms:.4f} ms (bound {b_fx:.4f} ms), sweep {sw_ms:.4f} ms "
+              f"{fx_ms:.4f} ms (from a graph {fxg_ms:.4f}; bound "
+              f"{b_fx:.4f} ms), sweep {sw_ms:.4f} ms "
               f"(bound {b_sw:.4f} ms), sweep with mix {swm_ms:.4f} ms "
               f"(bound {b_swm:.4f} ms)")
         sfx = f"rows{qk}"
@@ -1096,7 +1239,8 @@ def phase_tracer_kernels(dev, cs):
             f"{sfx}_ms": sw_ms, f"{sfx}_bound_ms": b_sw,
             f"{sfx}_mix_ms": swm_ms, f"{sfx}_mix_bound_ms": b_swm})
         rows.setdefault("dss_fixup_cuda", {}).update({
-            f"{sfx}_ms": fx_ms, f"{sfx}_bound_ms": b_fx})
+            f"{sfx}_ms": fx_ms, f"{sfx}_graph_ms": fxg_ms,
+            f"{sfx}_bound_ms": b_fx})
         del e, slab, vd
 
         # -- tracer_limit: (case, q, mix, dt); y_in is the value handed to
@@ -1682,7 +1826,7 @@ def phase_ring_kernels(dev, cs):
         dss_extract_cuda, dss_fixup_cuda, dss_merge_patch_cuda,
         dss_merge_patch_plain, dss_structured_t_cuda_pre,
         dss_structured_t_cuda_patch, dss_sweep_nomerge_cuda,
-        dss_sweep_nomerge_plain, fix_tables)
+        dss_sweep_nomerge_plain, fix_tables, make_fix_tables)
     from tinman_sandbox_tpu_torch.kernels.ring_fused import (
         caar_ring_packed_t4, caar_ring_plain, ring_geometry,
         tracer_ring_packed_t, tracer_ring_plain)
@@ -1945,12 +2089,8 @@ def phase_ring_kernels(dev, cs):
                                                         (mx, ca, cb)), reps)
         swp_ms = cuda_ms(lambda: dss_sweep_nomerge_plain(x, rsp, fix), 3)
         w0 = dss_sweep_nomerge_cuda(x, rsp, fix)
-        lanes = fix.fix_lanes.long()
-        pt_ms = cuda_ms(lambda: dss_merge_patch_cuda(w0, vd, fix), reps)
-        ptm_ms = cuda_ms(lambda: dss_merge_patch_cuda(w0, vd, fix,
-                                                      (mx, ca, cb)), reps)
+        pt = patch_times(w0, vd, fix, mx, ca, cb, reps)
         ptp_ms = cuda_ms(lambda: dss_merge_patch_plain(w0, vd, fix), reps)
-        lib_ms = cuda_ms(lambda: w0.index_copy_(1, lanes, vd), reps)
         if not torch.equal(w0, dss_merge_patch_plain(w0.clone(), vd, fix)):
             raise AssertionError("index_copy_ is not the patch")
         # x read, w written (and mx read), the rspheremp rows
@@ -1963,15 +2103,32 @@ def phase_ring_kernels(dev, cs):
         pt_b, pt_by = bound_ms(2 * rows_k * n * 4 + n * 4, 0)
         ptm_b, _ = bound_ms(3 * rows_k * n * 4 + n * 4,
                             MIX_OPS_PER_POINT * rows_k * n)
+        floor = patch_floor_ms(fix.fix_lanes, rows_k, e16, False)
+        floor_m = patch_floor_ms(fix.fix_lanes, rows_k, e16, True)
+        dense = ""
+        if rows_k == QSIZE_TALL * k:
+            # the same kernel and counts on the first nfix lanes of a row:
+            # what the scattered sectors cost
+            ar = np.arange(n)
+            dt = make_fix_tables(cs.ne, e16, ar, ar, np.zeros((n, 4)), dev)
+            pt["dense_lanes_graph_ms"] = graph_ms(
+                lambda: dss_merge_patch_cuda(w0, vd, dt), reps)
+            dense = (f"; the same kernel on {n} contiguous lanes from a "
+                     f"graph {pt['dense_lanes_graph_ms']:.4f} ms")
         print(f"phase 15 dss_sweep_nomerge ne{cs.ne} [{rows_k}, {e16}]: "
               f"bitwise (new, mix, in place); kernel {sw_ms:.4f} ms (bound "
               f"{sw_b:.4f} ms, {sw_by}), with mix {swm_ms:.4f} (bound "
               f"{swm_b:.4f}); plain {swp_ms:.4f} ms")
         print(f"phase 15 dss_merge_patch ne{cs.ne} [{rows_k}, {n} fix lanes]: "
-              f"bitwise; the split DSS bitwise the merged one; kernel "
-              f"{pt_ms:.4f} ms (bound {pt_b:.4f} ms, {pt_by}), with mix "
-              f"{ptm_ms:.4f} (bound {ptm_b:.4f}); plain {ptp_ms:.4f} ms; "
-              f"library index_copy_ {lib_ms:.4f} ms")
+              f"bitwise; the split DSS bitwise the merged one; kernel by "
+              f"events {pt['ms']:.4f} ms, from a graph {pt['graph_ms']:.4f} "
+              f"(bound {pt_b:.4f} ms, {pt_by}; sector floor {floor:.4f}); "
+              f"with mix {pt['mix_ms']:.4f}, graph {pt['mix_graph_ms']:.4f} "
+              f"(bound {ptm_b:.4f}, sector floor {floor_m:.4f}); plain "
+              f"{ptp_ms:.4f} ms; library index_copy_ {pt['library_ms']:.4f} "
+              f"ms, graph {pt['library_graph_ms']:.4f}{dense}; the host's "
+              f"time per call: kernel {pt['host_ms']:.4f} ms, "
+              f"index_copy_ {pt['library_host_ms']:.4f}")
         sfx = "" if rows_k == 4 * k else f"rows{rows_k}_"
         rows.setdefault("dss_sweep_nomerge_cuda", dict(
             route="cuda", source="tinman_sandbox_tpu_torch/csrc/dss.cu",
@@ -1983,10 +2140,11 @@ def phase_ring_kernels(dev, cs):
         rows.setdefault("dss_merge_patch_cuda", dict(
             route="cuda", source="tinman_sandbox_tpu_torch/csrc/dss.cu",
             replaces="tinman_sandbox_tpu/kernels/dss_pallas.py:1477")).update({
-                f"{sfx}ms": pt_ms, f"{sfx}plain_ms": ptp_ms,
-                f"{sfx}bound_ms": pt_b, f"{sfx}bound_by": pt_by,
-                f"{sfx}library_ms": lib_ms, f"{sfx}mix_ms": ptm_ms,
-                f"{sfx}mix_bound_ms": ptm_b})
+                f"{sfx}plain_ms": ptp_ms, f"{sfx}bound_ms": pt_b,
+                f"{sfx}bound_by": pt_by, f"{sfx}mix_bound_ms": ptm_b,
+                f"{sfx}sector_floor_ms": floor,
+                f"{sfx}mix_sector_floor_ms": floor_m,
+                **{f"{sfx}{key}": v for key, v in pt.items()}})
         del x, mx, slab, vd, tall, w0
         torch.cuda.empty_cache()
     rows["dss_sweep_nomerge_cuda"]["max_abs_err"] = abs_sw
@@ -2323,6 +2481,12 @@ def phase_banded_kernels(dev, cs):
             t["sweep_graph"] = graph_ms(sw, reps)
             t["single_device_sweep_graph"] = graph_ms(
                 lambda: dss_sweep_cuda(x, rsp, vd1, fix), reps)
+            ptm = lambda: [dss_patch_tiles_cuda(w, c, d.fix, (e, ca, cb))
+                           for w, c, d, e in zip(w0s, vds, bts, mxs)]
+            t.update(patch_graph=graph_ms(pt, reps),
+                     patch_mix=cuda_ms(ptm, reps),
+                     patch_mix_graph=graph_ms(ptm, reps),
+                     patch_library_graph=graph_ms(lib, reps))
             nfix = sum(bt.fix.nfix for bt in bts)
             ext_b = rk * N * T["cps"] * T["ext"] * 4
             # x_ext read, the bands written (and mx read), the rspheremp
@@ -2335,19 +2499,25 @@ def phase_banded_kernels(dev, cs):
             bn, _ = bound_ms(ext_b + rk * e16 * 4 + nr * e16 * 4,
                              SWEEP_OPS_PER_POINT * rk * e16)
             bp, bpy = bound_ms(2 * rk * nfix * 4 + nfix * 4, 0)
+            floor = sum(patch_floor_ms(bt.fix.fix_lanes, rk, lanes, False)
+                        for bt in bts)
             print(f"phase 18 {tag0} [{rk}] times over the {N} shards (events,"
                   f" ms): sweep {t['sweep']:.4f} (bound {bs:.4f}, {by}; one "
                   f"shard {t['sweep_one_shard']:.4f}), with mix "
                   f"{t['sweep_mix']:.4f} (bound {bsm:.4f}), merge-free "
                   f"{t['nomerge']:.4f} (bound {bn:.4f}), patch "
-                  f"{t['patch']:.4f} (bound {bp:.4f}; index_copy_ "
-                  f"{t['patch_library']:.4f}); plain sweep "
+                  f"{t['patch']:.4f} (bound {bp:.4f}, sector floor "
+                  f"{floor:.4f}; index_copy_ {t['patch_library']:.4f}), with "
+                  f"mix {t['patch_mix']:.4f}; plain sweep "
                   f"{t['sweep_plain']:.4f}, merge-free {t['nomerge_plain']:.4f}"
                   f", patch {t['patch_plain']:.4f}; dss_sweep_cuda on the same "
                   f"sphere in one launch {t['single_device_sweep']:.4f}; from "
                   f"CUDA graphs (device time): the {N} sweeps "
                   f"{t['sweep_graph']:.4f}, dss_sweep_cuda "
-                  f"{t['single_device_sweep_graph']:.4f}")
+                  f"{t['single_device_sweep_graph']:.4f}, the {N} patches "
+                  f"{t['patch_graph']:.4f} (with mix "
+                  f"{t['patch_mix_graph']:.4f}), index_copy_ "
+                  f"{t['patch_library_graph']:.4f}")
             sfx = "" if (ne, rk) == (cs.ne, 4 * k) else f"ne{ne}_rows{rk}_"
             rows.setdefault("dss_sweep_banded_cuda", dict(
                 route="cuda", source="tinman_sandbox_tpu_torch/csrc/dss.cu",
@@ -2376,7 +2546,12 @@ def phase_banded_kernels(dev, cs):
                 )).update({
                     f"{sfx}ms": t["patch"], f"{sfx}plain_ms": t["patch_plain"],
                     f"{sfx}bound_ms": bp, f"{sfx}bound_by": bpy,
-                    f"{sfx}library_ms": t["patch_library"]})
+                    f"{sfx}library_ms": t["patch_library"],
+                    f"{sfx}sector_floor_ms": floor,
+                    f"{sfx}graph_ms": t["patch_graph"],
+                    f"{sfx}mix_ms": t["patch_mix"],
+                    f"{sfx}mix_graph_ms": t["patch_mix_graph"],
+                    f"{sfx}library_graph_ms": t["patch_library_graph"]})
             del x, xe, mxs, vds, w0s, vd1
             torch.cuda.empty_cache()
     for name, what in (("dss_sweep_banded_cuda", "sweep"),
@@ -2543,16 +2718,40 @@ def phase_multidevice_path(dev, cs):
     return times
 
 
+def probe_ptxas(plan) -> str:
+    """Registers, spills and static shared memory of the plan's instance of
+    the probe kernel, from nvcc's report of the build."""
+    from tinman_sandbox_tpu_torch.kernels import _build
+
+    tag = (f"probe_mm_kernelILi{plan.tm}ELi{plan.tn}ELb{int(plan.resident)}"
+           "E")
+    with open(_build.ptxas_log("probe")) as f:
+        lines = f.read().splitlines()
+    mine, found = False, []
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            mine = tag in ln
+        elif mine and ("registers" in ln or "spill" in ln):
+            found.append(ln.split(":", 1)[-1].strip())
+    if not found:
+        raise AssertionError(f"no ptxas report for {tag}")
+    return "; ".join(found)
+
+
 def phase_probe_kernels(dev):
     """Phase 20, row 31: the probe kernel against its plain version at the
-    probe tool's five shapes, each timed beside its bound, its plain version
-    and the same twenty products by cuBLAS. Returns the kernel's row."""
+    probe tool's five shapes with the launch plan of ``probe_plan`` (its
+    tile, cluster, k ranges, registers, shared memory, CTAs and waves
+    printed), the same bits on a second run, each timed beside its bound,
+    its plain version and the same twenty products by cuBLAS; then the
+    pipelined mode at ``PROBE_PIPELINED_SHAPES`` on integer operands, bit
+    for bit plain. Returns the kernel's row."""
     import numpy as np
     import torch
 
     from tinman_sandbox_tpu_torch.kernels.probe import (
-        PROBE_REPS, PROBE_SHAPES, probe_bytes, probe_flops, probe_mm_cuda,
-        probe_mm_plain)
+        PROBE_REPS, PROBE_SHAPES, TILES, probe_bytes, probe_flops,
+        probe_mm_cuda, probe_mm_plain, probe_occupancy, probe_plan)
 
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -2562,13 +2761,27 @@ def phase_probe_kernels(dev):
             acc = torch.addmm(acc, a, b)
         return acc
 
+    def describe(plan):
+        blocks, clusters = probe_occupancy(plan, dev)
+        if clusters < 1:
+            raise AssertionError(f"probe plan {plan}: no cluster fits")
+        waves = plan.ctas / (clusters * plan.ksplit)
+        return (f"tile {plan.tm}x{plan.tn} ({plan.threads} threads), "
+                f"cluster {plan.ksplit} (k ranges of {plan.kc}), "
+                f"{'resident' if plan.resident else 'pipelined'} "
+                f"({plan.stages} k-steps), {plan.smem} B shared; "
+                f"{probe_ptxas(plan)}; {plan.ctas} CTAs, {blocks} a SM, "
+                f"{clusters} clusters at once: {waves:.2f} waves"), waves
+
     shapes, max_abs = [], 0.0
     for m, k, n in PROBE_SHAPES:
         a = torch.from_numpy(np.random.default_rng(0).normal(size=(m, k))
                              .astype(np.float32)).to(dev)
         b = torch.from_numpy(np.random.default_rng(1).normal(size=(k, n))
                              .astype(np.float32)).to(dev)
+        plan = probe_plan(m, k, n)
         got = probe_mm_cuda(a, b)
+        again = probe_mm_cuda(a, b)
         torch.cuda.synchronize()
         want = probe_mm_plain(a, b)
         err = scaled_err(got, want)
@@ -2576,25 +2789,69 @@ def phase_probe_kernels(dev):
         if not bool(torch.isfinite(got).all()) or not err <= PROBE_TOL:
             raise AssertionError(f"probe [{m},{k}]@[{k},{n}]: scaled error "
                                  f"{err} > {PROBE_TOL}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"probe [{m},{k}]@[{k},{n}]: two runs "
+                                 "differ")
         iters = 50 if m < 1024 else 20
-        k_ms = cuda_ms(lambda: probe_mm_cuda(a, b), iters)
-        p_ms = cuda_ms(lambda: probe_mm_plain(a, b), iters)
-        l_ms = cuda_ms(lambda: cublas(a, b), iters)
         flops = probe_flops(m, k, n)
+        op_ms = flops / FP32_FLOPS_PER_S * 1e3
         bnd, by = bound_ms(probe_bytes(m, k, n), flops)
+
+        text, waves = describe(plan)
+        k_ms = cuda_ms(lambda: probe_mm_cuda(a, b), iters)
         # a time below the operations bound would mean the twenty products
         # were folded into fewer
-        if k_ms < flops / FP32_FLOPS_PER_S * 1e3:
+        if k_ms < op_ms:
             raise AssertionError(f"probe [{m},{k}]@[{k},{n}]: {k_ms} ms is "
-                                 f"below the FLOP bound {bnd} ms")
+                                 f"below the FLOP bound {op_ms} ms")
+        p_ms = cuda_ms(lambda: probe_mm_plain(a, b), iters)
+        l_ms = cuda_ms(lambda: cublas(a, b), iters)
+        print(f"phase 20 probe_mm [{m},{k}]@[{k},{n}] x{PROBE_REPS}: plan "
+              f"{text}")
         print(f"phase 20 probe_mm [{m},{k}]@[{k},{n}] x{PROBE_REPS}: scaled "
-              f"error {err:.2e}; kernel {k_ms:.4f} ms "
+              f"error {err:.2e}, the same bits twice; kernel {k_ms:.4f} ms "
               f"({flops / k_ms / 1e9:.2f} TFLOP/s, {bnd / k_ms:.3f} of the "
               f"bound {bnd:.4f} ms by {by}), plain {p_ms:.4f} ms, cuBLAS "
               f"{l_ms:.4f} ms ({flops / l_ms / 1e9:.2f} TFLOP/s)")
         shapes.append(dict(m=m, k=k, n=n, ms=k_ms, plain_ms=p_ms,
                            library_ms=l_ms, bound_ms=bnd, bound_by=by,
-                           scaled_err=err))
+                           scaled_err=err, tm=plan.tm, tn=plan.tn,
+                           ksplit=plan.ksplit, resident=plan.resident,
+                           ctas=plan.ctas, waves=waves))
+    # the pipelined mode, which the plan takes where a rank's k range does
+    # not fit resident: integer operands in [-4, 4] make every product and
+    # partial sum exact in f32 (|o| <= 20 * 16 * k < 2^24), so any order of
+    # summation gives the same bits and the kernel must equal plain exactly
+    pipelined = []
+    for m, k, n in PROBE_PIPELINED_SHAPES:
+        plan = probe_plan(m, k, n)
+        if plan.resident:
+            raise AssertionError(f"probe [{m},{k}]@[{k},{n}]: the plan "
+                                 f"{plan} is not pipelined")
+        a = torch.from_numpy(np.random.default_rng(2).integers(
+            -4, 5, size=(m, k)).astype(np.float32)).to(dev)
+        b = torch.from_numpy(np.random.default_rng(3).integers(
+            -4, 5, size=(k, n)).astype(np.float32)).to(dev)
+        got = probe_mm_cuda(a, b)
+        want = probe_mm_plain(a, b)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"probe [{m},{k}]@[{k},{n}] pipelined: differs from plain by "
+                f"{float((got - want).abs().max())} on exact operands")
+        k_ms = cuda_ms(lambda: probe_mm_cuda(a, b), 10)
+        op_ms = probe_flops(m, k, n) / FP32_FLOPS_PER_S * 1e3
+        if k_ms < op_ms:
+            raise AssertionError(f"probe [{m},{k}]@[{k},{n}] pipelined: "
+                                 f"{k_ms} ms is below the FLOP bound {op_ms}")
+        text, waves = describe(plan)
+        print(f"phase 20 probe_mm [{m},{k}]@[{k},{n}] x{PROBE_REPS} "
+              f"pipelined: plan {text}; equal to plain bit for bit on "
+              f"integer operands; kernel {k_ms:.4f} ms "
+              f"({probe_flops(m, k, n) / k_ms / 1e9:.2f} TFLOP/s)")
+        pipelined.append(dict(m=m, k=k, n=n, ms=k_ms, tm=plan.tm, tn=plan.tn,
+                              ksplit=plan.ksplit, waves=waves))
+    if {(p["tm"], p["tn"]) for p in pipelined} != set(TILES):
+        raise AssertionError("probe: the pipelined shapes miss a tile")
     big = shapes[-1]
     return dict(name="probe_mm_cuda", route="cuda",
                 source="tinman_sandbox_tpu_torch/csrc/probe.cu",
@@ -2602,7 +2859,7 @@ def phase_probe_kernels(dev):
                 ms=big["ms"], plain_ms=big["plain_ms"],
                 bound_ms=big["bound_ms"], bound_by=big["bound_by"],
                 library_ms=big["library_ms"], shape="1024x1024x1024",
-                shapes=shapes)
+                shapes=shapes, pipelined=pipelined)
 
 
 def phase_probe_path(dev):

@@ -12,6 +12,13 @@ max|o| (twenty f32 products of length k <= 256 each, summed in two orders);
 both against 20*(a@b) in f64 within 2e-6 of max|o| (the f32 rounding of a
 length-k dot and of twenty adds); the wrapper on CPU tensors bit for bit the
 plain version.
+
+The kernel's launch plan (``probe_plan``) and its summation order: each
+cluster rank's k range adds its partial product into its own accumulator
+twenty times, then the ranks' accumulators are summed in rank order. A torch
+emulation of that order is held against the JAX kernel at the three small
+shapes and against the f64 product at 512^3 and 1024^3, within the same 2e-6
+of max|o| that gates the kernel on the card.
 """
 import ast
 import os
@@ -28,10 +35,13 @@ from jax.experimental.pallas import tpu as pltpu
 from tinman_sandbox_tpu_torch.kernels.probe import (
     PROBE_REPS,
     PROBE_SHAPES,
+    SMEM_MAX,
+    SMS,
     probe_bytes,
     probe_flops,
     probe_mm_cuda,
     probe_mm_plain,
+    probe_plan,
 )
 from tinman_sandbox_tpu_torch.tools import probe_kernel
 
@@ -40,6 +50,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOL = os.path.join(ROOT, "tools", "probe_kernel.py")
 TOL = 2e-6
 SMALL = [(128, 128, 72), (256, 256, 72), (256, 256, 128)]
+# the shapes at which chip_smoke.py checks the kernel's pipelined mode
+PIPELINED = [(512, 4096, 512), (250, 2000, 250)]
 
 
 def _tool_main():
@@ -166,3 +178,74 @@ def test_torch_probe_tool_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         probe_kernel.main([])
+
+
+def _split_order(a, b, plan, reps=PROBE_REPS):
+    """The kernel's summation order in torch f32: each cluster rank's partial
+    product over its k range (computed once: every repetition adds the same
+    partial), added into the rank's accumulator ``reps`` times from zero,
+    then the ranks' accumulators summed in rank order."""
+    o = None
+    for lo, hi in plan.k_ranges():
+        part = a[:, lo:hi] @ b[lo:hi]
+        acc = torch.zeros_like(part)
+        for _ in range(reps):
+            acc = acc + part
+        o = acc if o is None else o + acc
+    return o
+
+
+@pytest.mark.parametrize("m,k,n", list(PROBE_SHAPES) + PIPELINED)
+def test_torch_probe_plan_fits_the_card(m, k, n):
+    """Per shape: the cluster's k ranges partition [0, k) in rank order, the
+    cluster is at most 8 CTAs, shared memory at most 227 KB and enough for
+    the resident steps or the stages and for the cluster's sum, and the
+    large shapes launch at least one CTA an SM."""
+    p = probe_plan(m, k, n)
+    ranges = p.k_ranges()
+    assert len(ranges) == p.ksplit and 1 <= p.ksplit <= 8
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert p.smem <= SMEM_MAX == 227 * 1024
+    steps = -(-p.kc // 16)
+    assert p.stages == (steps if p.resident else 3)
+    assert p.smem >= 4 * p.stages * 16 * (p.tm + 4 + p.tn)
+    if p.ksplit > 1:
+        assert p.smem >= 4 * p.tm * p.tn
+    assert p.tm % p.ksplit == 0 and p.threads == p.tm * p.tn // 64
+    assert p.ctas == -(-m // p.tm) * -(-n // p.tn) * p.ksplit
+    if m >= 512:
+        assert p.ctas >= SMS
+
+
+def test_torch_probe_plan_modes_and_refusals():
+    """The five shapes hold their k ranges resident; the PIPELINED shapes
+    take the pipeline, one on each tile; a short k is not split; a size of
+    0 is refused."""
+    assert all(probe_plan(*s).resident for s in PROBE_SHAPES)
+    plans = [probe_plan(*s) for s in PIPELINED]
+    assert not any(p.resident for p in plans)
+    assert {(p.tm, p.tn) for p in plans} == {(128, 64), (64, 64)}
+    assert probe_plan(7, 9, 5).ksplit == 1          # k too short to split
+    with pytest.raises(ValueError):
+        probe_plan(0, 4, 4)
+
+
+@pytest.mark.parametrize("m,k,n", SMALL)
+def test_torch_probe_split_order_matches_jax_kernel(m, k, n):
+    a, b = _operands(m, k, n)
+    plan = probe_plan(m, k, n)
+    assert plan.ksplit > 1
+    got = _split_order(torch.from_numpy(a), torch.from_numpy(b), plan)
+    assert _err(got.numpy(), _jax_probe(a, b)) < TOL
+
+
+@pytest.mark.parametrize("m,k,n", [s for s in PROBE_SHAPES if s[0] >= 512])
+def test_torch_probe_split_order_matches_f64(m, k, n):
+    a, b = _operands(m, k, n)
+    plan = probe_plan(m, k, n)
+    assert plan.ksplit > 1
+    got = _split_order(torch.from_numpy(a), torch.from_numpy(b), plan)
+    exact = PROBE_REPS * (a.astype(np.float64) @ b.astype(np.float64))
+    assert _err(got.numpy(), exact) < TOL

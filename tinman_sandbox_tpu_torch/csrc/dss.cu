@@ -60,11 +60,19 @@
 // ~0.064 ms. Design: one thread per output
 // element; the sweep's threads run along lanes, so loads and stores
 // coalesce, and the partner reads (4 and 16*ne-3 lanes away) hit lines
-// already in cache;
-// the extraction transposes 32x32 tiles through shared memory; the patch
-// is one thread per (row, fix lane), reading vd coalesced and writing the
-// scattered fix lanes of w. Offsets are size_t: 4*nlev*E16 exceeds 2^31
-// from ne ~ 160 on.
+// already in cache; the extraction transposes 32x32 tiles through shared
+// memory. The patch reads vd and writes the scattered fix lanes of w: at
+// ne30 the 2,856 4-byte stores of a row touch 1,056 32-byte sectors (33.8
+// KB for 11.4 KB of values), each a partial sector write, so its floor
+// counts sectors, not bytes. Its grid is 2-D: fix lanes along x in
+// ascending lane order (the slab's read_lanes, with their vd columns
+// read_col), so a warp's stores fall on neighbouring sectors and the blocks
+// in flight on a few neighbouring rows, and rows along y. A thread reads its
+// lane and column once; its offsets are made by 64-bit multiplication (a
+// flat element index would cost a 64-bit division and modulo an element,
+// tens of instructions each). On the H100 ascending lanes and one row a
+// thread measured faster than vals-column order and than several rows a
+// thread. Offsets are size_t: 4*nlev*E16 exceeds 2^31 from ne ~ 160 on.
 #include <cuda_runtime.h>
 
 #include "dss_sweep.cuh"
@@ -73,7 +81,8 @@ namespace {
 
 constexpr int kSweepThreads = 256;
 constexpr int kFixupThreads = 256;
-constexpr int kPatchThreads = 256;
+constexpr int kPatchLanes = 128;   // fix lanes of a patch block
+constexpr int kMaxGridY = 65535;     // patch grid rows; further rows loop
 constexpr int kTile = 32;
 constexpr int kTileRows = 8;
 
@@ -141,23 +150,26 @@ dss_sweep_banded_kernel(const float* __restrict__ x_ext,
   out[o] = res;
 }
 
-// in place: w[row, fix_lanes[u]] = vd[row, u], or with kMix ca*mx + cb*that
-// at the same element; every other element of w is left as it is
+// in place: w[row, lanes[p]] = vd[row, cols[p]] for each fix lane p, or with
+// kMix ca*mx + cb*that at the same element, for the first k rows; every
+// other element of w is left as it is. Thread (p, y) takes the p-th fix lane
+// (ascending) in rows y, y + gridDim.y, ...
 template <bool kMix>
-__global__ void __launch_bounds__(kPatchThreads)
+__global__ void __launch_bounds__(kPatchLanes)
 dss_patch_kernel(float* __restrict__ w, const float* __restrict__ vd,
-                 const int* __restrict__ fix_lanes, int nfix,
+                 const int* __restrict__ lanes,
+                 const int* __restrict__ cols, int nfix,
                  const float* __restrict__ mx, float ca, float cb, int k,
                  int e16) {
-  const size_t idx = static_cast<size_t>(blockIdx.x) * kPatchThreads +
-                     threadIdx.x;
-  if (idx >= static_cast<size_t>(nfix) * k) return;
-  const int u = static_cast<int>(idx % nfix);
-  const size_t row = idx / nfix;
-  const size_t o = row * e16 + fix_lanes[u];
-  float res = vd[idx];
-  if constexpr (kMix) res = dss_sweep::mix(ca, mx[o], cb, res);
-  w[o] = res;
+  const int p = blockIdx.x * kPatchLanes + threadIdx.x;
+  if (p >= nfix) return;
+  const int lane = lanes[p], u = cols[p];
+  for (int row = blockIdx.y; row < k; row += gridDim.y) {
+    float v = vd[static_cast<size_t>(row) * nfix + u];
+    const size_t o = static_cast<size_t>(row) * e16 + lane;
+    if constexpr (kMix) v = dss_sweep::mix(ca, mx[o], cb, v);
+    w[o] = v;
+  }
 }
 
 // vd[row, u] for fix lane u = fix_lanes[u]: the line / corner sum of the
@@ -217,8 +229,9 @@ const char* dss_error_string(int err) {
 // the launch. Pointers are device pointers of contiguous float32 / int32
 // tensors; rsp holds nrsp (1 or 2) rows of e16 lanes. The sweep's mx is
 // null (no mix) or a field of at least k rows; out may be mx; a null vd is
-// the merge-free sweep (fix_col not read). The patch's mx is null or a
-// field of w's [k, e16] that w does not overlap.
+// the merge-free sweep (fix_col not read). The patch's lanes are the nfix
+// fix lanes ascending, cols the vd column of each, and its mx null or a
+// field of at least k rows of e16 lanes that w does not overlap.
 
 int dss_sweep_launch(const void* x, const void* rsp, int nrsp, const void* vd,
                      int nfix, const void* fix_col, const void* mx, float ca,
@@ -278,18 +291,17 @@ int dss_fixup_launch(const void* slab, const void* src, const void* fix_lanes,
   return cudaGetLastError();
 }
 
-int dss_patch_launch(void* w, const void* vd, const void* fix_lanes,
-                     int nfix, const void* mx, float ca, float cb, int k,
-                     int e16, void* stream, int device) {
+int dss_patch_launch(void* w, const void* vd, const void* lanes,
+                     const void* cols, int nfix, const void* mx, float ca,
+                     float cb, int k, int e16, void* stream, int device) {
   cudaError_t err = prepare(device);
   if (err != cudaSuccess) return err;
-  const size_t total = static_cast<size_t>(nfix) * k;
-  const unsigned grid =
-      static_cast<unsigned>((total + kPatchThreads - 1) / kPatchThreads);
+  const dim3 grid((nfix + kPatchLanes - 1) / kPatchLanes,
+                  k < kMaxGridY ? k : kMaxGridY);
   auto* kernel = mx ? dss_patch_kernel<true> : dss_patch_kernel<false>;
-  kernel<<<grid, kPatchThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kPatchLanes, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(w), static_cast<const float*>(vd),
-      static_cast<const int*>(fix_lanes), nfix,
+      static_cast<const int*>(lanes), static_cast<const int*>(cols), nfix,
       static_cast<const float*>(mx), ca, cb, k, e16);
   return cudaGetLastError();
 }

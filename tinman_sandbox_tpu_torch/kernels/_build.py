@@ -111,7 +111,7 @@ _SIGNATURES = {
                              _I, _P, _I],
         "dss_sweep_banded_launch": [_P, _P, _I, _P, _I, _P, _P, _P, _F, _F,
                                     _P, _I, _I, _I, _I, _I, _P, _I],
-        "dss_patch_launch": [_P, _P, _P, _I, _P, _F, _F, _I, _I, _P, _I],
+        "dss_patch_launch": [_P, _P, _P, _P, _I, _P, _F, _F, _I, _I, _P, _I],
         "dss_fixup_launch": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _I],
         "dss_extract_launch": [_P, _P, _P, _I, _I, _I, _P, _I],
         "dss_error_string": [_I],
@@ -122,7 +122,8 @@ _SIGNATURES = {
         "hypervis_error_string": [_I],
     },
     "probe": {
-        "probe_mm_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _I],
+        "probe_mm_launch": [_P, _P, _P] + [_I] * 9 + [_P, _I],
+        "probe_occupancy": [_I] * 9 + [ctypes.POINTER(_I)] * 2,
         "probe_error_string": [_I],
     },
     "saxpby": {

@@ -114,6 +114,7 @@ class FixTables:
     fix_lanes: torch.Tensor      # [nfix] lane of each vals column
     fix_col: torch.Tensor        # [E16] vals column of a lane, or -1
     fix_src: torch.Tensor        # [nfix, 4] slab rows summed, -1 = none
+    read_col: torch.Tensor       # [nfix] vals column of each read lane
     # rows of the slab that fix_src indexes, where it is not the extracted
     # slab of nfix rows (0): a shard's fixup reads the gathered side lines
     src_rows: int = 0
@@ -186,7 +187,7 @@ def make_fix_tables(ne: int, e16: int, fix_lanes, read_lanes, fix_src,
     return FixTables(ne=ne, e16=e16, read_lanes=t(read_lanes),
                      fix_rank=t(fix_rank), fix_lanes=t(fix_lanes),
                      fix_col=t(fix_col), fix_src=t(fix_src),
-                     src_rows=src_rows)
+                     read_col=t(fix_col[read_lanes]), src_rows=src_rows)
 
 
 @functools.lru_cache(maxsize=None)
@@ -460,35 +461,103 @@ def dss_sweep_nomerge_cuda(x: torch.Tensor, rsp: torch.Tensor,
 dss_sweep_nomerge_cuda.launches = 0
 
 
+def _patch_tables(name, tables: FixTables, dev) -> tuple:
+    """Check the tables a patch reads on ``dev`` (fix_lanes, read_lanes and
+    read_col [nfix], int32, contiguous, on dev) and return (tables, dev,
+    nfix, read_lanes' and read_col's addresses). A FixTables and its tensors
+    never change, so each tables object is checked once a device
+    (``_patch_tables_ok`` keeps what passed)."""
+    n = tables.nfix
+    for op, t, shape in (("fix_lanes", tables.fix_lanes, (n,)),
+                         ("read_lanes", tables.read_lanes, (n,)),
+                         ("read_col", tables.read_col, (n,))):
+        if t.shape != shape:
+            raise ValueError(f"{name}: {op} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if t.device != dev or t.dtype != torch.int32:
+            raise ValueError(f"{name}: {op} is {t.dtype} on {t.device}, "
+                             f"expected {torch.int32} on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {op} must be contiguous")
+    hit = (tables, dev, n, tables.read_lanes.data_ptr(),
+           tables.read_col.data_ptr())
+    _patch_tables_ok[id(tables)] = hit
+    return hit
+
+
+_patch_tables_ok = {}     # id(FixTables) -> what _patch_tables returned
+_patch_launch = None      # the ctypes dss_patch_launch, found at first use
+
+
 def _patch(name, w, vd, tables: FixTables, mix, taller: bool) -> bool:
     """Check and run one patch of the first k = vd.shape[0] rows of w (w and
     a mix field of exactly k rows unless ``taller``); True where it launched
-    the kernel."""
-    k, e16, n = vd.shape[0], tables.e16, tables.nfix
-    mx, ca, cb = (None, 0.0, 0.0) if mix is None else \
-        (mix[0], float(mix[1]), float(mix[2]))
-    for op, t in (("w", w), ("the mix field", mx)):
-        if t is not None and (t.ndim != 2 or t.shape[1] != e16
-                              or t.shape[0] < k
-                              or (t.shape[0] != k and not taller)):
-            raise ValueError(f"{name}: {op} must be [{'>= ' * taller}{k}, "
-                             f"{e16}], got {tuple(t.shape)}")
-    ops = {"w": (w, tuple(w.shape)), "vd": (vd, (k, n)),
-           "fix_lanes": (tables.fix_lanes, (n,))}
+    the kernel. The patch moves ~3 MB a few times a ring step, so its host
+    time is what a caller sees: the operand checks are straight-line
+    comparisons and the tables' are made once a tables object and device
+    (``_patch_tables``)."""
+    global _patch_launch
+    if mix is None:
+        mx, ca, cb = None, 0.0, 0.0
+    else:
+        mx, ca, cb = mix
+        if isinstance(ca, torch.Tensor) or isinstance(cb, torch.Tensor):
+            raise TypeError(f"{name}: the mix coefficients must be numbers, "
+                            "not tensors")
+    e16, ws, vs = tables.e16, w.shape, vd.shape
+    k = vs[0]
+    if len(ws) != 2 or ws[1] != e16 or ws[0] < k or (ws[0] != k
+                                                     and not taller):
+        raise ValueError(f"{name}: w must be [{'>= ' * taller}{k}, {e16}], "
+                         f"got {tuple(ws)}")
     if mx is not None:
-        ops["mix field"] = (mx, tuple(mx.shape))
-    dev = _check(name, ops, dtype=w.dtype)
-    for other, t in (("vd", vd), ("the mix field", mx)):
-        if t is not None and _overlap(w, t):
-            raise ValueError(f"{name}: w overlaps {other}")
-    if dev.type == "cpu":
+        ms = mx.shape
+        if len(ms) != 2 or ms[1] != e16 or ms[0] < k or (ms[0] != k
+                                                         and not taller):
+            raise ValueError(f"{name}: the mix field must be "
+                             f"[{'>= ' * taller}{k}, {e16}], got {tuple(ms)}")
+    cuda, dtype, dev = w.is_cuda, w.dtype, w.device
+    if not cuda and not w.is_cpu:
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if dtype is not torch.float32 and dtype is not torch.float64:
+        raise TypeError(f"{name}: needs float fields, got {dtype}")
+    if cuda and dtype is not torch.float32:
+        raise TypeError(f"{name}: the CUDA kernel takes float32 only")
+    hit = _patch_tables_ok.get(id(tables))
+    if hit is None or hit[0] is not tables or hit[1] != dev:
+        hit = _patch_tables(name, tables, dev)
+    n = hit[2]
+    if len(vs) != 2 or vs[1] != n:
+        raise ValueError(f"{name}: vd has shape {tuple(vs)}, expected "
+                         f"{(k, n)}")
+    if vd.device != dev or vd.dtype is not dtype:
+        raise ValueError(f"{name}: vd is {vd.dtype} on {vd.device}, expected "
+                         f"{dtype} on {dev}")
+    if mx is not None and (mx.device != dev or mx.dtype is not dtype):
+        raise ValueError(f"{name}: the mix field is {mx.dtype} on "
+                         f"{mx.device}, expected {dtype} on {dev}")
+    if not (w.is_contiguous() and vd.is_contiguous()
+            and (mx is None or mx.is_contiguous())):
+        op = ("w" if not w.is_contiguous() else
+              "vd" if not vd.is_contiguous() else "the mix field")
+        raise ValueError(f"{name}: {op} must be contiguous")
+    wp, vp = w.data_ptr(), vd.data_ptr()
+    wend = wp + w.nbytes
+    if wp < vp + vd.nbytes and vp < wend:
+        raise ValueError(f"{name}: w overlaps vd")
+    mp = 0 if mx is None else mx.data_ptr()
+    if mp and wp < mp + mx.nbytes and mp < wend:
+        raise ValueError(f"{name}: w overlaps the mix field")
+    if not cuda:
         _patch_plain(w, vd, tables.fix_lanes, mix)
         return False
-    err = _build.library("dss").dss_patch_launch(
-        w.data_ptr(), vd.data_ptr(), tables.fix_lanes.data_ptr(), n,
-        0 if mx is None else mx.data_ptr(), ca, cb, k, e16, _stream(dev),
-        dev.index)
-    _build.check_launch("dss", err)
+    if _patch_launch is None:
+        _patch_launch = _build.library("dss").dss_patch_launch
+    index = dev.index
+    err = _patch_launch(wp, vp, hit[3], hit[4], n, mp, ca, cb, k, e16,
+                        torch._C._cuda_getCurrentRawStream(index), index)
+    if err:
+        _build.check_launch("dss", err)
     return True
 
 
