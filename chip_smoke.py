@@ -4,21 +4,35 @@ NVIDIA card and check it, phase by phase:
 
   1. the card's name and power limit; build every CUDA kernel from
      ``tinman_sandbox_tpu_torch/csrc`` (nvcc, sm_90a, one process per
-     source, all at once) and time the build;
+     source, all at once) and time the build; nvcc's registers and spills,
+     and those of each instance of the sweep, the chunked CAAR kernel and
+     the ring CAAR kernel by name;
   2. saxpby: the kernel against its plain version (bitwise, f32) at
      8192 x 4096, with kernel / plain / library times and GB/s;
-  3. CAAR: the kernel against its plain version on the card at 1024 x 72 and
-     5,400 x 72 (random init from a numpy seed, f32), each output field on
-     its own (u1, v1, t1, dp1, phi and the in-place accumulators) within
-     5e-5 scaled max-abs error, in three cases (``caar_cases``): the bench
-     problem, and two probes that zero what would hide a tendency term
-     below f32 resolution;
+  3. CAAR: the level-chunked kernel against its plain version on the card
+     at 1024 x 72, 5,400 x 72 and 1,001 x 72 (a half-live last warp;
+     random init from a numpy seed, f32), each output field on its own (u1,
+     v1, t1, dp1, phi and the in-place accumulators) within 5e-5 scaled
+     max-abs error, in three cases (``caar_cases``): the bench problem, and
+     two probes that zero what would hide a tendency term below f32
+     resolution; timed by events and from a CUDA graph, with its plan
+     (``caar_plan``: tile, chunks, levels, stash, threads, shared memory,
+     the blocks an SM it reckons with and cudaOccupancy's, waves); then at
+     ne30 x 26 (7 level chunks, the last short) and ne30 x 150 (no stash),
+     the pair form and the stage mode with the slab, in the three cases,
+     each field within 5e-5 scaled, the slab bit for bit s1 at the fix
+     lanes, and the ring kernel bit for bit the two launches it fuses;
   4. DSS on the ne30 cubed sphere (5,400 elements) on a random [288, 86400]
      f32 field: the extract, fixup and sweep kernels each bit for bit equal
      to their plain versions, every alias of every dof equal after the whole
      DSS, and a field that is a function of the dof projected onto itself
-     within 2e-6; the extract and fixup kernels (and the gather) also
-     replayed from CUDA graphs, the device's time alone;
+     within 2e-6; the extract, fixup and sweep kernels (and the gather)
+     also replayed from CUDA graphs, the device's time alone; the sweep's
+     plan (``sweep_plan``: groups of 4 lanes a block, one row a thread, grid,
+     blocks an SM reckoned and by cudaOccupancy, waves), every sweep form
+     (merged, merge-free, mix, in place) bit for bit at ragged shapes (75
+     rows of ne30; 1, 5 and 7 rows of ne3, one and two rspheremp rows), and
+     a misaligned field refused;
   5. CAAR with the fix-lane slab on the ne30 geometry, in the three cases of
      phase 3: fields within 5e-5, the slab bit for bit s1 at the fix lanes;
   6. golden: analytic init at 3 elements through ``caar_t`` on the card,
@@ -35,13 +49,15 @@ NVIDIA card and check it, phase by phase:
      field, finite, continuity exactly 0), the CLI ``--ne 30 --dss
      --leapfrog --num-exec 20 --init random --dt 0.05`` (no warning,
      continuity exactly 0) and ``bench --ne 30``;
-  9. the dynamics kernels at ne30 x 72: the CAAR kernel's single-state
-     stage mode (with and without phi, with the slab) against
+  9. the dynamics kernels at ne30 x 72: the chunked CAAR kernel's
+     single-state stage mode (with and without phi, with the slab) against
      ``caar_t4_plain(s, s, ...)`` in the three cases of phase 3 at 5e-5 per
-     field; the sweep with its affine ``mix`` output bit for bit against
+     field, timed by events and from CUDA graphs beside the pair form with
+     the slab; the sweep with its affine ``mix`` output bit for bit against
      ``dss_sweep_plain(mix=)``, into a new tensor and in place into a
-     [4*nlev] buffer whose dp rows stay bit for bit (and the [3*nlev] sweep
-     without mix timed beside them); the weak-Laplacian
+     [4*nlev] buffer whose dp rows stay bit for bit, both also from CUDA
+     graphs (and the [3*nlev] sweep without mix timed beside them); the
+     weak-Laplacian
      kernel against ``vlap_plain`` at 5e-5 per output block, its slab bit
      for bit the output at the fix lanes; each timed against its bound;
  10. the dynamics main path at ne30 x 72, its launch counts set to 0 just
@@ -112,8 +128,9 @@ NVIDIA card and check it, phase by phase:
      device alone), with and without mix, and the host's time per call,
      beside the patch's sector floor (``patch_floor_ms``), and at 2,520
      rows the patch on contiguous lanes;
-     blocks per SM and waves of the ring kernels and of the CAAR and Euler
-     kernels;
+     blocks per SM and waves of the ring kernels (the CAAR ring: blocks of
+     128 columns in the chunked kernel's chunks, so the same bits) and of
+     the chunked CAAR and Euler kernels;
  16. the ring paths at ne30 x 72, launch counts set to 0 just before and
      read just after: 10 chained ``caar_dss_ring_t4`` and 10
      ``ssprk3_ring_t4`` steps and 3 ``ssprk3_tracer_ring_t`` steps at qsize 1
@@ -182,9 +199,9 @@ NVIDIA card and check it, phase by phase:
 Any failure raises and exits non-zero before the result line is printed.
 Run from the repository root: ``python3 chip_smoke.py``.
 
-``kernel_times()`` times the merge patch (and ``index_copy_``) and the
-probe product through entry points that older trees share, so the same
-measurement runs against a parent checkout: from that checkout's root,
+``kernel_times()`` times the sweep and the t-layout CAAR kernel through
+entry points that older trees share, so the same measurement runs against a
+parent checkout: from that checkout's root,
 ``python3 -c "import importlib.util as u; s = u.spec_from_file_location(
 'cs', '<this file>'); m = u.module_from_spec(s); s.loader.exec_module(m);
 m.kernel_times()"`` prints one JSON line for its kernels.
@@ -196,6 +213,7 @@ import io
 import itertools
 import json
 import os
+import re
 import shutil
 import sys
 import time
@@ -226,6 +244,9 @@ SWEEP_OPS_PER_POINT = 6
 MIX_OPS_PER_POINT = 3
 WIND = 30.0                    # m/s: the wind case's winds, U(-1, 1) x this
 CAAR_TOL = 5e-5                # the repo's on-chip equivalence gate
+# nlev off the main path that phase 3 also checks: 26 (7 level chunks of 4,
+# the last of 2) and 150 (8 of 19, the last of 17, and no stash)
+CAAR_OTHER_NLEV = (26, 150)
 # the probe kernel against twenty cuBLAS products in full f32: dots of up to
 # 1024 terms in another order, of max|o|
 PROBE_TOL = 2e-6
@@ -411,52 +432,67 @@ def patch_times(w, vd, fix, mx, ca, cb, reps: int) -> dict:
 
 
 def kernel_times() -> dict:
-    """The two kernels this tree redesigned, timed through the entry points
-    that every tree since the patch and the probe were ported has: the merge
-    patch and ``index_copy_`` at 72, 288 and 2,520 rows of ne30
-    (``patch_times``), and the probe product at the probe tool's five shapes
-    by CUDA events beside twenty cuBLAS products. Run against another tree
-    by importing this file with that tree first on ``sys.path``; prints and
-    returns one JSON object."""
+    """The two kernels this tree redesigned, timed through entry points that
+    every tree since the dynamics step was ported has, by CUDA events over
+    back-to-back calls (``ms``), replayed from a CUDA graph (``graph_ms``,
+    the device alone) and by the host's clock per call (``host_ms``, the
+    wrapper's checks and the launch): ``dss_sweep_cuda`` on ne30 at 72, 288
+    and 2,520 rows, without and with mix (a new output), and at 216 rows
+    with mix in place into a 288-row field (the dynamics step's form);
+    ``caar_t4_cuda`` in the pair form at 1024 x 72, the pair form with the
+    slab at ne30 x 72, and the stage mode with the slab, with and without
+    phi, at ne30 x 72. Run against another tree by importing this file with
+    that tree first on ``sys.path``; prints and returns one JSON object."""
     import numpy as np
     import torch
 
-    from tinman_sandbox_tpu_torch.dist import (build_cubed_sphere,
-                                               make_structured_plan)
-    from tinman_sandbox_tpu_torch.kernels.dss import fix_tables
-    from tinman_sandbox_tpu_torch.kernels.probe import (
-        PROBE_REPS, PROBE_SHAPES, probe_mm_cuda)
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.kernels.caar_t import caar_t4_cuda
+    from tinman_sandbox_tpu_torch.kernels.dss import (dss_sweep_cuda,
+                                                      fix_tables)
 
     dev = torch.device("cuda", 0)
-    cs = build_cubed_sphere(NE, dtype=torch.float32, device=dev)
-    fix = fix_tables(make_structured_plan(cs.gdof, cs.ne), dev)
+    (scal, meta, qdp, pecnd, dvv), (s0, sm1), acc, plan, rsp = \
+        bench.make_assembled_problem(NE, NLEV, dev)
+    fix = fix_tables(plan, dev)
     gen = torch.Generator(device=dev).manual_seed(9)
-    ca, cb = np.float32(1.0 / 3.0), np.float32(2.0 / 3.0)
-    out = {"card": card_line(), "patch": {}, "probe": {}}
+    ca, cb = float(np.float32(1.0 / 3.0)), float(np.float32(2.0 / 3.0))
+    out = {"card": card_line(), "sweep": {}, "caar": {}}
+
+    def both(fn, reps):
+        return dict(ms=cuda_ms(fn, reps), graph_ms=graph_ms(fn, reps),
+                    host_ms=host_ms(fn, reps))
+
     for rows in (NLEV, 4 * NLEV, QSIZE_TALL * NLEV):
-        w = torch.randn(rows, fix.e16, generator=gen, device=dev)
+        x = torch.randn(rows, fix.e16, generator=gen, device=dev)
         mx = torch.randn(rows, fix.e16, generator=gen, device=dev)
         vd = torch.randn(rows, fix.nfix, generator=gen, device=dev)
-        out["patch"][rows] = patch_times(w, vd, fix, mx, ca, cb,
-                                         50 if rows < 1000 else 10)
-        del w, mx, vd
-    torch.backends.cuda.matmul.allow_tf32 = False
-    for m, k, n in PROBE_SHAPES:
-        a = torch.from_numpy(np.random.default_rng(0).normal(size=(m, k))
-                             .astype(np.float32)).to(dev)
-        b = torch.from_numpy(np.random.default_rng(1).normal(size=(k, n))
-                             .astype(np.float32)).to(dev)
+        reps = 50 if rows < 1000 else 10
+        out["sweep"][rows] = dict(
+            plain=both(lambda: dss_sweep_cuda(x, rsp, vd, fix), reps),
+            mix=both(lambda: dss_sweep_cuda(x, rsp, vd, fix, (mx, ca, cb)),
+                     reps))
+        del x, mx, vd
+    k3 = 3 * NLEV
+    x3 = torch.randn(k3, fix.e16, generator=gen, device=dev)
+    buf = torch.randn(4 * NLEV, fix.e16, generator=gen, device=dev)
+    vd3 = torch.randn(k3, fix.nfix, generator=gen, device=dev)
+    out["sweep"]["216_in_place"] = both(
+        lambda: dss_sweep_cuda(x3, rsp, vd3, fix, (buf, 1.0, cb)), 50)
+    del x3, buf, vd3
 
-        def cublas():
-            acc = torch.zeros(m, n, device=dev)
-            for _ in range(PROBE_REPS):
-                acc = torch.addmm(acc, a, b)
-            return acc
-
-        iters = 50 if m < 1024 else 20
-        out["probe"][f"{m}x{k}x{n}"] = dict(
-            ms=cuda_ms(lambda: probe_mm_cuda(a, b), iters),
-            library_ms=cuda_ms(cublas, iters))
+    const, racc = bench.make_problem(1024, NLEV, dev, seed=7)
+    r_scal, r_meta, r_s0, r_sm1, r_qdp, r_pecnd, r_dvv = const
+    racc = [a.clone() for a in racc]
+    out["caar"]["pair_1024"] = both(lambda: caar_t4_cuda(
+        r_scal, r_meta, r_s0, r_sm1, r_qdp, r_pecnd, *racc, r_dvv), 50)
+    acc = [a.clone() for a in acc]
+    out["caar"]["pair_slab_ne30"] = both(lambda: caar_t4_cuda(
+        scal, meta, s0, sm1, qdp, pecnd, *acc, dvv, fix=fix), 20)
+    for emit_phi in (True, False):
+        out["caar"][f"stage_slab_ne30_phi{int(emit_phi)}"] = both(
+            lambda: caar_t4_cuda(scal, meta, s0, None, qdp, pecnd, *acc, dvv,
+                                 fix=fix, single=True, emit_phi=emit_phi), 20)
     print(json.dumps(out))
     return out
 
@@ -494,14 +530,37 @@ def phase_saxpby(dev):
                 plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=l_ms)
 
 
+def caar_plan_line(plan, dev) -> str:
+    """The chunked CAAR kernel's plan: tile, chunks, stash, threads, shared
+    memory, the blocks an SM it reckons with and cudaOccupancy's, waves."""
+    import torch
+
+    from tinman_sandbox_tpu_torch.kernels import _build
+
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+    occ = _build.library("caar").caar_blocks_per_sm(
+        0, plan.nlev, plan.chunks, int(plan.stash), dev.index)
+    if occ <= 0:
+        raise AssertionError(f"caar occupancy: error {-occ}")
+    return (f"tile {plan.tile}, {plan.chunks} chunks of {plan.levels} levels,"
+            f" stash {'on' if plan.stash else 'off'}, {plan.threads} threads, "
+            f"{plan.smem} B shared; {plan.blocks} blocks, "
+            f"{plan.blocks_per_sm} a SM reckoned, {occ} by cudaOccupancy x "
+            f"{nsm} SMs = "
+            f"{plan.blocks / (occ * nsm):.3f} waves")
+
+
 def phase_caar(dev):
     import torch
 
     from tinman_sandbox_tpu_torch import bench
-    from tinman_sandbox_tpu_torch.kernels.caar_t import caar_t4_cuda, caar_t4_plain
+    from tinman_sandbox_tpu_torch.kernels.caar_t import (caar_plan,
+                                                         caar_t4_cuda,
+                                                         caar_t4_plain)
 
     row = None
-    for nelem in (1024, 5400):
+    # 1001 elements: the last warp of the last tile half live
+    for nelem in (1024, 5400, 1001):
         nlev = 72
         const, acc = bench.make_problem(nelem, nlev, dev, seed=7)
         max_abs = 0.0
@@ -521,25 +580,91 @@ def phase_caar(dev):
                     f"caar {nelem}x{nlev} {case}: {errs} > {CAAR_TOL}")
             max_abs = max(max_abs, *(float((g - w).abs().max())
                                      for g, w in zip(got, want)))
+        if nelem == 1001:
+            continue
         scal, meta, s0, sm1, qdp, pecnd, dvv = const
         kacc = [x.clone() for x in acc]
-        k_ms = cuda_ms(lambda: caar_t4_cuda(scal, meta, s0, sm1, qdp, pecnd,
-                                            *kacc, dvv), 20)
+        run = lambda: caar_t4_cuda(scal, meta, s0, sm1, qdp, pecnd, *kacc,
+                                   dvv)
+        k_ms, g_ms = cuda_ms(run, 20), graph_ms(run, 20)
         p_ms = cuda_ms(lambda: caar_t4_plain(scal, meta, s0, sm1, qdp, pecnd,
                                              *acc, dvv), 5)
         e16 = nelem * 16
         # 21 fields, the 13 meta rows the kernel reads, dvv and 3 scalars
         nbytes = (21 * nlev + 13) * e16 * 4 + 16 * 4 + 3 * 4
         bnd, by = bound_ms(nbytes, CAAR_OPS_PER_POINT * e16 * nlev)
-        print(f"phase 3 caar {nelem}x{nlev}: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, bound {bnd:.4f} ms ({by}, {nbytes} B)")
+        print(f"phase 3 caar {nelem}x{nlev}: kernel {k_ms:.4f} ms (from a "
+              f"graph {g_ms:.4f} ms), plain {p_ms:.4f} ms, bound {bnd:.4f} ms "
+              f"({by}, {nbytes} B); plan: "
+              + caar_plan_line(caar_plan(e16, nlev), dev))
         if nelem == 1024:
             row = dict(name="caar_t4_cuda", route="cuda",
                        source="tinman_sandbox_tpu_torch/csrc/caar.cu",
                        replaces="tinman_sandbox_tpu/kernels/caar_pallas_t.py:542",
                        max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms,
-                       bound_ms=bnd, bound_by=by, library_ms=None)
+                       bound_ms=bnd, bound_by=by, library_ms=None,
+                       graph_ms=g_ms)
+    for nlev in CAAR_OTHER_NLEV:
+        caar_other_nlev(dev, nlev)
     return row
+
+
+def caar_other_nlev(dev, nlev: int):
+    """Phase 3 off the main path's nlev: at ne30 x ``nlev`` the chunked
+    kernel in the pair form and the stage mode, with the slab, in the three
+    cases of ``caar_cases``, each field within 5e-5 scaled of
+    ``caar_t4_plain`` and the slab bit for bit s1 at the fix lanes; the ring
+    kernel bit for bit the two launches it fuses (this kernel, the
+    merge-free sweep)."""
+    import torch
+
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.kernels.caar_t import (caar_plan,
+                                                         caar_t4_cuda,
+                                                         caar_t4_plain)
+    from tinman_sandbox_tpu_torch.kernels.dss import (dss_sweep_nomerge_cuda,
+                                                      fix_tables)
+    from tinman_sandbox_tpu_torch.kernels.ring_fused import \
+        caar_ring_packed_t4
+
+    (scal, meta, qdp, pecnd, dvv), (s0, sm1), acc, plan, rsp = \
+        bench.make_assembled_problem(NE, nlev, dev)
+    fix = fix_tables(plan, dev)
+    lanes = fix.read_lanes.long()
+    p = caar_plan(fix.e16, nlev)
+    print(f"phase 3 caar ne{NE}x{nlev} plan: " + caar_plan_line(p, dev))
+    const = (scal, meta, s0, sm1, qdp, pecnd, dvv)
+    for (case, args), single in itertools.product(caar_cases(const, acc),
+                                                  (False, True)):
+        tag = f"ne{NE}x{nlev} {case} {'stage' if single else 'pair'}"
+        sc, mt, s, sm, q, pec = args[:6]
+        sm = None if single else sm
+        want = caar_t4_plain(sc, mt, s, sm, q, pec, *args[6:9], args[9],
+                             fix=fix, single=single)
+        kacc = [x.clone() for x in args[6:9]]
+        got = caar_t4_cuda(sc, mt, s, sm, q, pec, *kacc, args[9], fix=fix,
+                           single=single)
+        racc = [x.clone() for x in args[6:9]]
+        ring = caar_ring_packed_t4(sc, mt, s, sm, q, pec, *racc, args[9], rsp,
+                                   fix, single=single)
+        tw = dss_sweep_nomerge_cuda(got[0], rsp, fix)
+        torch.cuda.synchronize()
+        for g in got:
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"caar {tag}: non-finite")
+        errs = caar_field_errs(got[:5], want[:5], nlev)
+        slab_ok = torch.equal(got[5], got[0][:, lanes].T)
+        same = torch.equal(ring[0], tw) and torch.equal(ring[1], got[1]) \
+            and torch.equal(ring[5], got[5]) and \
+            all(torch.equal(a, b) for a, b in zip(racc, kacc))
+        print(f"phase 3 caar {tag}: scaled errors "
+              + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f"; slab bitwise {slab_ok}; ring bit for bit the two "
+              f"launches: {same}")
+        if max(errs.values()) > CAAR_TOL or not slab_ok or not same:
+            raise AssertionError(f"caar {tag}: {errs} > {CAAR_TOL}, or the "
+                                 "slab or the ring's bits differ")
+        del want, got, ring, tw
 
 
 def phase_dss(dev, cs):
@@ -550,7 +675,8 @@ def phase_dss(dev, cs):
         continuity_error_t, make_structured_plan, rsp_lanes_2f)
     from tinman_sandbox_tpu_torch.kernels.dss import (
         dss_extract_cuda, dss_extract_plain, dss_fixup_cuda, dss_fixup_plain,
-        dss_structured_t_cuda, dss_sweep_cuda, dss_sweep_plain, fix_tables)
+        dss_structured_t_cuda, dss_sweep_cuda, dss_sweep_plain, fix_tables,
+        sweep_plan)
 
     plan = make_structured_plan(cs.gdof, cs.ne)
     rsp = torch.from_numpy(rsp_lanes_2f(cs.geometry.spheremp, cs.gdof,
@@ -602,12 +728,14 @@ def phase_dss(dev, cs):
                            cuda_ms(lambda: dss_sweep_plain(x, rsp, vd_p, t), 20),
                            None),
     }
-    # the extraction and the fixup (and the gather) replayed from CUDA
-    # graphs: the device's time without the host's
+    # the extraction, the fixup (and the gather) and the sweep replayed
+    # from CUDA graphs: the device's time without the host's
     graphs = {
         "dss_extract_cuda": (graph_ms(lambda: dss_extract_cuda(x, t), 50),
                              graph_ms(lambda: x[:, lanes].T.contiguous(), 50)),
         "dss_fixup_cuda": (graph_ms(lambda: dss_fixup_cuda(slab_p, t, rsp),
+                                    50), None),
+        "dss_sweep_cuda": (graph_ms(lambda: dss_sweep_cuda(x, rsp, vd_p, t),
                                     50), None),
     }
     # bytes each function must move (the gathered elements, the slab, the
@@ -643,7 +771,82 @@ def phase_dss(dev, cs):
               f"{bounds[name][0]:.4f} ms ({bounds[name][1]}){graph}")
     print(f"phase 4 dss ne{cs.ne}: continuity error {cont:.1e}, projection "
           f"identity {proj_err:.2e} (limit {PROJECTION_TOL})")
+    print(f"phase 4 dss_sweep plan [{k}, {e16}]: " + sweep_plan_line(
+        sweep_plan(k, e16), dev))
+    sweep_edges(dev, x, rsp, t)
     return out
+
+
+def sweep_plan_line(plan, dev) -> str:
+    """The sweep kernel's plan: threads, grid (one row a thread), the
+    blocks an SM it reckons with and cudaOccupancy's (merged, without mix),
+    waves."""
+    import torch
+
+    from tinman_sandbox_tpu_torch.kernels import _build
+
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+    occ = _build.library("dss").dss_sweep_blocks_per_sm(1, 0, dev.index)
+    if occ <= 0:
+        raise AssertionError(f"sweep occupancy: error {-occ}")
+    return (f"{plan.threads} groups of 4 lanes a block, one row a thread, "
+            f"grid {plan.grid}, {plan.blocks} blocks, "
+            f"{plan.blocks_per_sm} a SM reckoned, {occ} by cudaOccupancy x "
+            f"{nsm} SMs = {plan.blocks / (occ * nsm):.3f} waves")
+
+
+def sweep_edges(dev, x, rsp, tables):
+    """The sweep where its groups and rows are ragged or its partners near:
+    every form bit for bit its plain version at 75 rows of ne30 and at 1, 5
+    and 7 rows of ne3 (beta partners one element row away), with both
+    rspheremp forms; a misaligned field raises."""
+    import numpy as np
+    import torch
+
+    from tinman_sandbox_tpu_torch.dist import (build_cubed_sphere,
+                                               make_structured_plan)
+    from tinman_sandbox_tpu_torch.kernels.dss import (
+        dss_sweep_cuda, dss_sweep_nomerge_cuda, dss_sweep_nomerge_plain,
+        dss_sweep_plain, fix_tables)
+
+    ca, cb = float(np.float32(1.0 / 3.0)), float(np.float32(2.0 / 3.0))
+    cs3 = build_cubed_sphere(3, dtype=torch.float32, device=dev)
+    t3 = fix_tables(make_structured_plan(cs3.gdof, cs3.ne), dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    cases = [(x[:75].contiguous(), rsp, tables)]
+    for rows in (1, 5, 7):
+        x3 = torch.randn(rows, t3.e16, generator=gen, device=dev)
+        r3 = torch.rand(2, t3.e16, generator=gen, device=dev)
+        cases += [(x3, r3, t3), (x3, r3[:1].contiguous(), t3)]
+    for xx, rr, tt in cases:
+        vd = torch.randn(xx.shape[0], tt.nfix, generator=gen, device=dev)
+        mx = torch.randn(xx.shape[0] + 2, tt.e16, generator=gen, device=dev)
+        pairs = [
+            (dss_sweep_cuda(xx, rr, vd, tt), dss_sweep_plain(xx, rr, vd, tt)),
+            (dss_sweep_cuda(xx, rr, vd, tt, (mx[:-2], ca, cb)),
+             dss_sweep_plain(xx, rr, vd, tt, (mx[:-2], ca, cb))),
+            (dss_sweep_nomerge_cuda(xx, rr, tt),
+             dss_sweep_nomerge_plain(xx, rr, tt)),
+            (dss_sweep_nomerge_cuda(xx, rr, tt, (mx[:-2], ca, cb)),
+             dss_sweep_nomerge_plain(xx, rr, tt, (mx[:-2], ca, cb)))]
+        want = dss_sweep_plain(xx, rr, vd, tt, (mx, ca, cb))
+        pairs.append((dss_sweep_cuda(xx, rr, vd, tt, (mx, ca, cb)), want))
+        torch.cuda.synchronize()
+        for i, (got, ref) in enumerate(pairs):
+            if not torch.equal(got, ref):
+                raise AssertionError(
+                    f"dss_sweep form {i} at {tuple(xx.shape)}, nrsp "
+                    f"{rr.shape[0]}: {float((got - ref).abs().max())}")
+    flat = torch.zeros(4 * tables.e16 + 1, device=dev)
+    try:
+        dss_sweep_nomerge_cuda(flat[1:].view(4, tables.e16), rsp, tables)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("dss_sweep took a misaligned field")
+    print(f"phase 4 dss_sweep edges: {len(cases)} fields (75 rows of ne30; "
+          "1, 5, 7 rows of ne3, both rspheremp forms), every form bitwise "
+          "equal; a misaligned field raised")
 
 
 def phase_caar_slab(dev, cs):
@@ -911,13 +1114,15 @@ def phase_dynamics_kernels(dev, cs):
                                      "the fix lanes")
             worst = max(worst, *errs.values())
     kacc = [x.clone() for x in acc]
-    times = {}
+    times, graphs = {}, {}
     for emit_phi in (True, False):
-        times[emit_phi] = cuda_ms(lambda: caar_t4_cuda(
-            scal, meta, s0, None, qdp, pecnd, *kacc, dvv, fix=fix,
-            single=True, emit_phi=emit_phi), 20)
-    pair_ms = cuda_ms(lambda: caar_t4_cuda(scal, meta, s0, sm1, qdp, pecnd,
-                                           *kacc, dvv, fix=fix), 20)
+        run = lambda: caar_t4_cuda(scal, meta, s0, None, qdp, pecnd, *kacc,
+                                   dvv, fix=fix, single=True,
+                                   emit_phi=emit_phi)
+        times[emit_phi], graphs[emit_phi] = cuda_ms(run, 20), graph_ms(run, 20)
+    pair = lambda: caar_t4_cuda(scal, meta, s0, sm1, qdp, pecnd, *kacc, dvv,
+                                fix=fix)
+    pair_ms, pair_graph_ms = cuda_ms(pair, 20), graph_ms(pair, 20)
     p_ms = cuda_ms(lambda: caar_t4_plain(scal, meta, s0, None, qdp, pecnd,
                                          *acc, dvv, fix=fix, single=True), 5)
     # 17 fields (16 without phi), the 13 meta rows, dvv, 3 scalars, fix_rank
@@ -927,14 +1132,17 @@ def phase_dynamics_kernels(dev, cs):
     ops = CAAR_OPS_PER_POINT * e16 * k
     (b_phi, by), (b_nophi, _) = bound_ms(nb(17), ops), bound_ms(nb(16), ops)
     print(f"phase 9 caar single ne{cs.ne}x{k}: kernel {times[True]:.4f} ms "
-          f"with phi (bound {b_phi:.4f} ms), {times[False]:.4f} ms without "
-          f"(bound {b_nophi:.4f} ms, {by}); the pair form in the same run "
-          f"{pair_ms:.4f} ms; plain {p_ms:.4f} ms")
+          f"with phi (from a graph {graphs[True]:.4f}; bound {b_phi:.4f} ms), "
+          f"{times[False]:.4f} ms without (graph {graphs[False]:.4f}; bound "
+          f"{b_nophi:.4f} ms, {by}); the pair form with the slab in the same "
+          f"run {pair_ms:.4f} ms (graph {pair_graph_ms:.4f}); plain "
+          f"{p_ms:.4f} ms")
     out["caar_t4_cuda"] = dict(
         single_max_scaled_err=worst, single_ms=times[True],
-        single_nophi_ms=times[False], single_pair_ms=pair_ms,
-        single_plain_ms=p_ms, single_bound_ms=b_phi,
-        single_nophi_bound_ms=b_nophi)
+        single_graph_ms=graphs[True], single_nophi_ms=times[False],
+        single_nophi_graph_ms=graphs[False], single_pair_ms=pair_ms,
+        single_pair_graph_ms=pair_graph_ms, single_plain_ms=p_ms,
+        single_bound_ms=b_phi, single_nophi_bound_ms=b_nophi)
 
     # -- sweep with mix: a new tensor, and in place into a taller buffer
     nr = rsp.shape[0]
@@ -968,10 +1176,10 @@ def phase_dynamics_kernels(dev, cs):
         raise AssertionError("dss_sweep mix (in place) touched the dp rows")
     if torch.equal(buf[:3 * k], mx4[:3 * k]):
         raise AssertionError("dss_sweep mix (in place) changed nothing")
-    new_ms = cuda_ms(lambda: dss_sweep_cuda(x4, rsp, vd4, fix,
-                                            mix=(mx4, ca, cb)), 50)
-    inp_ms = cuda_ms(lambda: dss_sweep_cuda(x3, rsp, vd3, fix,
-                                            mix=(buf, 1.0, cb3)), 50)
+    new_run = lambda: dss_sweep_cuda(x4, rsp, vd4, fix, mix=(mx4, ca, cb))
+    inp_run = lambda: dss_sweep_cuda(x3, rsp, vd3, fix, mix=(buf, 1.0, cb3))
+    new_ms, new_graph_ms = cuda_ms(new_run, 50), graph_ms(new_run, 50)
+    inp_ms, inp_graph_ms = cuda_ms(inp_run, 50), graph_ms(inp_run, 50)
     pn_ms = cuda_ms(lambda: dss_sweep_plain(x4, rsp, vd4, fix,
                                             mix=(mx4, ca, cb)), 10)
     # the hyperviscosity's first sweep: [3k] rows, no mix
@@ -983,13 +1191,15 @@ def phase_dynamics_kernels(dev, cs):
     b_inp, _ = bound_ms(sweep_bytes(3 * k), 9 * 3 * k * e16)
     b_s3, _ = bound_ms(sweep_bytes(3 * k) - 3 * k * e16 * 4, 6 * 3 * k * e16)
     print(f"phase 9 dss_sweep mix ne{cs.ne}: bitwise equal; [{4 * k}] rows "
-          f"into a new tensor {new_ms:.4f} ms (bound {b_new:.4f} ms, {by}), "
-          f"[{3 * k}] rows in place into [{4 * k}] {inp_ms:.4f} ms (bound "
-          f"{b_inp:.4f} ms), [{3 * k}] rows without mix {s3_ms:.4f} ms "
-          f"(bound {b_s3:.4f} ms); plain {pn_ms:.4f} ms")
+          f"into a new tensor {new_ms:.4f} ms (graph {new_graph_ms:.4f}; bound"
+          f" {b_new:.4f} ms, {by}), [{3 * k}] rows in place into [{4 * k}] "
+          f"{inp_ms:.4f} ms (graph {inp_graph_ms:.4f}; bound {b_inp:.4f} ms),"
+          f" [{3 * k}] rows without mix {s3_ms:.4f} ms (bound {b_s3:.4f} ms);"
+          f" plain {pn_ms:.4f} ms")
     out["dss_sweep_cuda"] = dict(
-        mix_max_abs_err=mix_err, mix_ms=new_ms, mix_bound_ms=b_new,
-        mix_plain_ms=pn_ms, mix_inplace_ms=inp_ms, mix_inplace_bound_ms=b_inp,
+        mix_max_abs_err=mix_err, mix_ms=new_ms, mix_graph_ms=new_graph_ms,
+        mix_bound_ms=b_new, mix_plain_ms=pn_ms, mix_inplace_ms=inp_ms,
+        mix_inplace_graph_ms=inp_graph_ms, mix_inplace_bound_ms=b_inp,
         rows3k_ms=s3_ms, rows3k_bound_ms=b_s3)
 
     # -- weak Laplacians, on the taller [4k] state (no slice copy)
@@ -1220,9 +1430,10 @@ def phase_tracer_kernels(dev, cs):
         vd = dss_fixup_cuda(slab, fix, rsp)
         fx_ms = cuda_ms(lambda: dss_fixup_cuda(slab, fix, rsp), reps)
         fxg_ms = graph_ms(lambda: dss_fixup_cuda(slab, fix, rsp), reps)
-        sw_ms = cuda_ms(lambda: dss_sweep_cuda(e, rsp, vd, fix), reps)
-        swm_ms = cuda_ms(lambda: dss_sweep_cuda(e, rsp, vd, fix,
-                                                mix=(q, ca, cb)), reps)
+        sw = lambda: dss_sweep_cuda(e, rsp, vd, fix)
+        swm = lambda: dss_sweep_cuda(e, rsp, vd, fix, mix=(q, ca, cb))
+        sw_ms, swg_ms = cuda_ms(sw, reps), graph_ms(sw, reps)
+        swm_ms, swmg_ms = cuda_ms(swm, reps), graph_ms(swm, reps)
         nr, qk = rsp.shape[0], qsize * k
         sweep_bytes = lambda blocks: blocks * qk * e16 * 4 + nr * e16 * 4 \
             + qk * n * 4 + e16 * 4
@@ -1231,13 +1442,14 @@ def phase_tracer_kernels(dev, cs):
         b_fx, _ = bound_ms(2 * n * qk * 4 + n * 20 + nr * n * 4, 6 * n * qk)
         print(f"phase 11 stage closure {tag} [{qk}, {e16}]: fixup "
               f"{fx_ms:.4f} ms (from a graph {fxg_ms:.4f}; bound "
-              f"{b_fx:.4f} ms), sweep {sw_ms:.4f} ms "
-              f"(bound {b_sw:.4f} ms), sweep with mix {swm_ms:.4f} ms "
-              f"(bound {b_swm:.4f} ms)")
+              f"{b_fx:.4f} ms), sweep {sw_ms:.4f} ms (graph {swg_ms:.4f}; "
+              f"bound {b_sw:.4f} ms), sweep with mix {swm_ms:.4f} ms (graph "
+              f"{swmg_ms:.4f}; bound {b_swm:.4f} ms)")
         sfx = f"rows{qk}"
         rows.setdefault("dss_sweep_cuda", {}).update({
-            f"{sfx}_ms": sw_ms, f"{sfx}_bound_ms": b_sw,
-            f"{sfx}_mix_ms": swm_ms, f"{sfx}_mix_bound_ms": b_swm})
+            f"{sfx}_ms": sw_ms, f"{sfx}_graph_ms": swg_ms,
+            f"{sfx}_bound_ms": b_sw, f"{sfx}_mix_ms": swm_ms,
+            f"{sfx}_mix_graph_ms": swmg_ms, f"{sfx}_mix_bound_ms": b_swm})
         rows.setdefault("dss_fixup_cuda", {}).update({
             f"{sfx}_ms": fx_ms, f"{sfx}_graph_ms": fxg_ms,
             f"{sfx}_bound_ms": b_fx})
@@ -1821,7 +2033,8 @@ def phase_ring_kernels(dev, cs):
 
     from tinman_sandbox_tpu_torch import bench
     from tinman_sandbox_tpu_torch.kernels import _build
-    from tinman_sandbox_tpu_torch.kernels.caar_t import caar_t4_cuda
+    from tinman_sandbox_tpu_torch.kernels.caar_t import (caar_plan,
+                                                         caar_t4_cuda)
     from tinman_sandbox_tpu_torch.kernels.dss import (
         dss_extract_cuda, dss_fixup_cuda, dss_merge_patch_cuda,
         dss_merge_patch_plain, dss_structured_t_cuda_pre,
@@ -1848,9 +2061,12 @@ def phase_ring_kernels(dev, cs):
     # -- occupancy: blocks an SM holds, and the waves of each launch
     nsm = torch.cuda.get_device_properties(dev).multi_processor_count
     caar_lib, tr_lib = _build.library("caar"), _build.library("tracer")
-    occ = {"caar_kernel": (caar_lib.caar_blocks_per_sm(0, k, dev.index), nb),
-           "caar_ring_kernel": (caar_lib.caar_blocks_per_sm(1, k, dev.index),
-                                nb + geo.halo),
+    cplan = caar_plan(e16, k)
+    occ = {"caar_chunk_kernel": (caar_lib.caar_blocks_per_sm(
+               0, k, cplan.chunks, int(cplan.stash), dev.index),
+               cplan.blocks),
+           "caar_ring_kernel": (caar_lib.caar_blocks_per_sm(
+               1, k, cplan.chunks, 0, dev.index), nb + geo.halo),
            "tracer_euler_kernel": (tr_lib.tracer_blocks_per_sm(0, dev.index),
                                    nb * -(-k // 8)),
            "tracer_ring_kernel": (tr_lib.tracer_blocks_per_sm(1, dev.index),
@@ -1933,8 +2149,7 @@ def phase_ring_kernels(dev, cs):
           f"(bound {bnd:.4f} ms, {by}); the two launches it fuses "
           f"{two_ms:.4f} ms; stage without phi with mix {ring_mix_ms:.4f} ms "
           f"(bound {bnd_mix:.4f} ms); plain {p_ms:.4f} ms, library none")
-    # the same at ne28, whose 588 + 4 blocks fit one wave of the 660 that
-    # 5 blocks per SM x 132 SMs hold (ne30: 679 blocks, 1.03 waves)
+    # the same at ne28 (588 + 4 tiles against ne30's 675 + 4)
     (sc28, mt28, q28, pec28, _), (a28, b28), acc28, plan28, rsp28 = \
         bench.make_assembled_problem(28, k, dev)
     fix28 = fix_tables(plan28, dev)
@@ -1947,7 +2162,7 @@ def phase_ring_kernels(dev, cs):
             rsp28, fix28), 20),
         ring_ms=cuda_ms(lambda: caar_ring_packed_t4(
             sc28, mt28, a28, b28, q28, pec28, *acc28, dvv, rsp28, fix28), 20))
-    print(f"phase 15 caar_ring ne28x{k} (one wave, {-(-a28.shape[1] // 128)} "
+    print(f"phase 15 caar_ring ne28x{k} ({-(-a28.shape[1] // 128)} "
           f"+ {ring_geometry(28).halo} blocks): kernel {ne28['ring_ms']:.4f} "
           f"ms, the two launches {ne28['two_launch_ms']:.4f} ms, the CAAR "
           f"kernel alone {ne28['caar_ms']:.4f} ms")
@@ -1959,7 +2174,7 @@ def phase_ring_kernels(dev, cs):
         plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=None,
         two_launch_ms=two_ms, stage_mix_ms=ring_mix_ms,
         stage_mix_bound_ms=bnd_mix, blocks_per_sm=occ["caar_ring_kernel"][0],
-        caar_kernel_blocks_per_sm=occ["caar_kernel"][0],
+        caar_kernel_blocks_per_sm=occ["caar_chunk_kernel"][0],
         **{f"ne28_{key}": v for key, v in ne28.items()})
     del kacc, mx4
 
@@ -2718,24 +2933,37 @@ def phase_multidevice_path(dev, cs):
     return times
 
 
+def ptxas_report(source: str, tag: str) -> list:
+    """[(template arguments, registers and spills)] of each instance of the
+    kernel ``tag`` in nvcc's report of the build of ``source``; the
+    arguments as mangled (ILb1ELb0EE = <true, false>)."""
+    from tinman_sandbox_tpu_torch.kernels import _build
+
+    with open(_build.ptxas_log(source)) as f:
+        lines = f.read().splitlines()
+    found, inst = {}, None
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            inst = None
+            if tag in name:
+                m = re.match(r"I(?:L[^E]+E)+E", name.split(tag, 1)[1])
+                inst = m.group(0) if m else ""
+        elif inst is not None and ("registers" in ln or "spill" in ln):
+            found.setdefault(inst, []).append(ln.split(":", 1)[-1].strip())
+    if not found:
+        raise AssertionError(f"no ptxas report for {tag}")
+    return [(i, "; ".join(r)) for i, r in found.items()]
+
+
 def probe_ptxas(plan) -> str:
     """Registers, spills and static shared memory of the plan's instance of
     the probe kernel, from nvcc's report of the build."""
-    from tinman_sandbox_tpu_torch.kernels import _build
-
-    tag = (f"probe_mm_kernelILi{plan.tm}ELi{plan.tn}ELb{int(plan.resident)}"
-           "E")
-    with open(_build.ptxas_log("probe")) as f:
-        lines = f.read().splitlines()
-    mine, found = False, []
-    for ln in lines:
-        if "Compiling entry function" in ln:
-            mine = tag in ln
-        elif mine and ("registers" in ln or "spill" in ln):
-            found.append(ln.split(":", 1)[-1].strip())
-    if not found:
-        raise AssertionError(f"no ptxas report for {tag}")
-    return "; ".join(found)
+    inst = f"ILi{plan.tm}ELi{plan.tn}ELb{int(plan.resident)}EE"
+    found = dict(ptxas_report("probe", "probe_mm_kernel"))
+    if inst not in found:
+        raise AssertionError(f"no ptxas report for probe_mm_kernel{inst}")
+    return found[inst]
 
 
 def phase_probe_kernels(dev):
@@ -3171,6 +3399,12 @@ def main() -> int:
             for ln in f:
                 if "registers" in ln or "spill" in ln or "error" in ln.lower():
                     print(f"phase 1 ptxas {name}: " + ln.strip())
+    # the redesigned kernels, instance by instance
+    for source, tag in (("dss", "dss_sweep_kernel"),
+                        ("caar", "caar_chunk_kernel"),
+                        ("caar", "caar_ring_kernel")):
+        for inst, report in ptxas_report(source, tag):
+            print(f"phase 1 ptxas {tag}{inst}: {report}")
 
     rows = {"saxpby_cuda": phase_saxpby(dev), "caar_t4_cuda": phase_caar(dev)}
     t0 = time.perf_counter()

@@ -1,0 +1,236 @@
+#!/usr/bin/env python3
+"""Time other launch plans of the two kernels redesigned for the H100 (the
+structured DSS sweep and the level-chunked CAAR kernel) beside the plans the
+port uses, at the main path's shapes. An experiment, not part of the port:
+the port keeps one plan per kernel, and this script is how the hypotheses
+about them were tested.
+
+    python3 experiments/kernel_variants.py        # from the repository root
+
+  1. the sweep: the port's kernel (``dss_sweep_cuda``: one row a thread, 40
+     registers, 6 blocks an SM) and the variants of ``sweep_variants.cu``
+     (built here into ``build/experiments/``), each with 1, 2 or 4 rows a
+     thread, with the tables and the partner offsets read once a thread or
+     once a row ("reread"), all at 80 registers and pinned to 3 blocks an
+     SM by their dynamic shared memory. At fixed warps an SM, the reread
+     variants do the one-row kernel's work per element with 1, 2 or 4 rows
+     of loads in flight a thread (H3: bytes in flight), and each pair at 2
+     or 4 rows differs only in reading the tables and decoding once or per
+     row (H1 with H2). Each is checked bit for bit against
+     ``dss_sweep_plain`` (with and without mix) at 288 rows and timed from
+     CUDA graphs on ne30 at 72, 288 and 2,520 rows, without and with mix;
+  2. the CAAR kernel under other (chunks, stash) plans of 32-column tiles
+     (``caar_plan`` replaced for the run), each held per field within 5e-5
+     of ``caar_t4_plain`` at 1024 x 72 and timed from CUDA graphs in the
+     pair form at 1024 x 72, the pair form with the slab and the stage mode
+     with the slab, with and without phi, at ne30 x 72.
+
+Every line is one JSON object and names the card and its power limit.
+Without a card the script raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import re
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from chip_smoke import (CAAR_TOL, caar_cases, caar_field_errs,  # noqa: E402
+                        card_line, graph_ms)
+
+# (rows a thread, reread) of the variants; the dynamic shared memory that
+# pins every variant to 3 blocks an SM (4 x (64 KiB + the 1 KiB reserved
+# a block) exceed the SM's 228 KiB, 3 fit)
+SWEEP_VARIANTS = ((1, False), (2, True), (4, True), (2, False), (4, False))
+SWEEP_SMEM = 65536
+SWEEP_PINNED_BLOCKS = 3
+# (chunks, stash) of the CAAR kernel, the port's plan first
+CAAR_VARIANTS = ((8, True), (8, False), (6, True), (6, False), (4, True))
+
+
+def _sweep_library():
+    """Build sweep_variants.cu (nvcc, sm_90a) and return the library and
+    the registers and spill bytes of each instance that ptxas reports."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(ROOT, "build", "experiments")
+    os.makedirs(out, exist_ok=True)
+    lib = os.path.join(out, "sweep_variants.so")
+    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    done = subprocess.run(
+        [nvcc, "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-I",
+         os.path.join(ROOT, "tinman_sandbox_tpu_torch", "csrc"), "-o", lib,
+         os.path.join(here, "sweep_variants.cu")],
+        capture_output=True, text=True, check=True)
+    regs, name = {}, None
+    for line in done.stderr.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores.*?(\d+) bytes spill loads",
+                      line)
+        if m and name:
+            regs.setdefault(name, {})["spills"] = int(m.group(1)) + int(
+                m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs.setdefault(name, {})["registers"] = int(m.group(1))
+    so = ctypes.CDLL(lib)
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    so.sweep_variant_launch.argtypes = [I, I, P, P, I, P, I, P, P, F, F, P,
+                                        I, I, I, I, P]
+    so.sweep_variant_blocks_per_sm.argtypes = [I, I, I, I]
+    return so, regs
+
+
+def _instance_regs(regs, rows, reread, mix):
+    """ptxas's registers and spills of the instance sweep_variant<rows,
+    reread, mix> (its mangled name carries the three template values)."""
+    want = f"ILi{rows}ELb{int(reread)}ELb{int(mix)}E"
+    hits = [v for k, v in regs.items() if want in k]
+    return hits[0] if hits else None
+
+
+def sweeps(dev, card, fix, rsp):
+    from tinman_sandbox_tpu_torch.kernels.dss import (dss_sweep_cuda,
+                                                      dss_sweep_plain)
+
+    so, regs = _sweep_library()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    fields = {rows: (rnd(rows, fix.e16), rnd(rows, fix.nfix),
+                     rnd(rows, fix.e16)) for rows in (72, 288, 2520)}
+    ca, cb = float(np.float32(1 / 3)), float(np.float32(2 / 3))
+
+    def launcher(rows_a_thread, reread):
+        def run(x, vd, out, mx):
+            err = so.sweep_variant_launch(
+                rows_a_thread, int(reread), x.data_ptr(), rsp.data_ptr(),
+                rsp.shape[0], vd.data_ptr(), fix.nfix,
+                fix.fix_col.data_ptr(), 0 if mx is None else mx.data_ptr(),
+                ca, cb, out.data_ptr(), x.shape[0], fix.e16, fix.ne,
+                SWEEP_SMEM, torch.cuda.current_stream(dev).cuda_stream)
+            if err:
+                raise RuntimeError(f"sweep variant launch failed: {err}")
+            return out
+        return run
+
+    def port(x, vd, out, mx):
+        return dss_sweep_cuda(x, rsp, vd, fix,
+                              None if mx is None else (mx, ca, cb))
+
+    plans = [("port", None, None)] + [
+        ("variant", r, rr) for r, rr in SWEEP_VARIANTS]
+    for kind, rows_a_thread, reread in plans:
+        line = dict(card=card, kernel="dss_sweep", kind=kind)
+        if kind == "port":
+            run = port
+            line.update(rows_a_thread=1, blocks_per_sm=6, registers_cap=40)
+        else:
+            run = launcher(rows_a_thread, reread)
+            occ = [so.sweep_variant_blocks_per_sm(rows_a_thread, int(reread),
+                                                  mix, SWEEP_SMEM)
+                   for mix in (0, 1)]
+            if occ != [SWEEP_PINNED_BLOCKS] * 2:
+                raise AssertionError(f"sweep variant {rows_a_thread} rows, "
+                                     f"reread {reread}: {occ} blocks an SM")
+            line.update(rows_a_thread=rows_a_thread, reread=reread,
+                        blocks_per_sm=occ[0], registers_cap=80,
+                        ptxas={name: _instance_regs(regs, rows_a_thread,
+                                                    reread, mix)
+                               for name, mix in (("plain", False),
+                                                 ("mix", True))})
+        x, vd, mx = fields[288]
+        for mixed in (False, True):
+            got = run(x, vd, torch.zeros_like(x), mx if mixed else None)
+            want = dss_sweep_plain(x, rsp, vd, fix,
+                                   (mx, ca, cb) if mixed else None)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"sweep {line}: not bit for bit "
+                                     f"(mix {mixed})")
+        line["bitwise_288"] = True
+        for rows, (x, vd, mx) in fields.items():
+            out = torch.empty_like(x)
+            reps = 30 if rows < 1000 else 10
+            line[f"graph_ms_{rows}"] = graph_ms(
+                lambda: run(x, vd, out, None), reps)
+            line[f"mix_graph_ms_{rows}"] = graph_ms(
+                lambda: run(x, vd, out, mx), reps)
+        print(json.dumps(line), flush=True)
+
+
+def caars(dev, card, fix, assembled, raw):
+    import importlib
+
+    caar_t = importlib.import_module("tinman_sandbox_tpu_torch.kernels.caar_t")
+    (scal, meta, qdp, pecnd, dvv), (s0, sm1), acc = assembled
+    const, racc = raw
+    r_scal, r_meta, r_s0, r_sm1, r_qdp, r_pecnd, r_dvv = const
+    nlev = qdp.shape[0]
+    port_plan = caar_t.caar_plan
+    try:
+        for chunks, stash in CAAR_VARIANTS:
+            levels = -(-nlev // chunks)
+            caar_t.caar_plan = lambda ncol, nl: caar_t.CaarPlan(
+                ncol, nl, caar_t.TILE, -(-nl // levels), levels, stash)
+            p = caar_t.caar_plan(qdp.shape[1], nlev)
+            line = dict(card=card, kernel="caar_chunk", chunks=p.chunks,
+                        levels=levels, stash=stash, tile=p.tile,
+                        blocks_per_sm=p.blocks_per_sm)
+            errs = 0.0
+            for _, args in caar_cases(const, racc):
+                want = caar_t.caar_t4_plain(*args)
+                kacc = [a.clone() for a in args[6:9]]
+                got = caar_t.caar_t4_cuda(*args[:6], *kacc, args[9])
+                torch.cuda.synchronize()
+                errs = max(errs, *caar_field_errs(got, want, nlev).values())
+            if errs > CAAR_TOL:
+                raise AssertionError(f"caar {line}: {errs} > {CAAR_TOL}")
+            line["max_scaled_err"] = errs
+            ra = [a.clone() for a in racc]
+            line["pair_1024_graph_ms"] = graph_ms(
+                lambda: caar_t.caar_t4_cuda(r_scal, r_meta, r_s0, r_sm1,
+                                            r_qdp, r_pecnd, *ra, r_dvv), 30)
+            ka = [a.clone() for a in acc]
+            line["pair_slab_ne30_graph_ms"] = graph_ms(
+                lambda: caar_t.caar_t4_cuda(scal, meta, s0, sm1, qdp, pecnd,
+                                            *ka, dvv, fix=fix), 20)
+            for emit_phi in (True, False):
+                line[f"stage_slab_ne30_phi{int(emit_phi)}_graph_ms"] = \
+                    graph_ms(lambda: caar_t.caar_t4_cuda(
+                        scal, meta, s0, None, qdp, pecnd, *ka, dvv, fix=fix,
+                        single=True, emit_phi=emit_phi), 20)
+            print(json.dumps(line), flush=True)
+    finally:
+        caar_t.caar_plan = port_plan
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_variants: needs a CUDA card")
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.kernels.dss import fix_tables
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    (scal, meta, qdp, pecnd, dvv), (s0, sm1), acc, plan, rsp = \
+        bench.make_assembled_problem(30, 72, dev)
+    fix = fix_tables(plan, dev)
+    sweeps(dev, card, fix, rsp)
+    caars(dev, card, fix, ((scal, meta, qdp, pecnd, dvv), (s0, sm1), acc),
+          bench.make_problem(1024, 72, dev, seed=7))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

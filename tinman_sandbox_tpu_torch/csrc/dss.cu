@@ -57,10 +57,26 @@
 // each and are bound by launch latency. The banded sweep reads its x_ext
 // once, the bands and their halo rows (112.8 MB over the 12 shards of
 // ne30 x 288 rows with 2 bands a face), and writes the bands (99.5 MB):
-// ~0.064 ms. Design: one thread per output
-// element; the sweep's threads run along lanes, so loads and stores
-// coalesce, and the partner reads (4 and 16*ne-3 lanes away) hit lines
-// already in cache; the extraction transposes 32x32 tiles through shared
+// ~0.064 ms.
+// The sweep: a thread owns an aligned group of 4 lanes (j = 0..3 of
+// one i-row of an element) in one row and moves it as float4s. Every lane
+// of a group shares i, ei and ej, so the thread decodes the group's
+// partner offsets once (two divisions by ne for 4 outputs), reads its
+// rspheremp rows and fix_col as float4 / int4, and issues all its loads
+// before its sums: the group, its alpha partner group (the neighbouring
+// float4), the beta partner of j = 3 (component 0 of the group 16*ne lanes
+// on) and of j = 0 (component 3 of the group 16*ne lanes back) with their
+// alpha partners, and with mix the mx group. The column-a-thread sweep it
+// replaced ran at 3.7-3.9x its bound at every height: with 4 bytes a
+// thread and three divisions an element it kept too few bytes in flight.
+// What bounds this one is still the bytes in flight: registers are capped
+// at 40 (__launch_bounds__(256, 6)) so that an SM holds 48 warps. On the
+// H100, at a fixed 24 warps an SM, two rows a thread ran 15% faster than
+// one, and reading the tables and decoding once for both rows bought
+// nothing over doing it per row; one row at 48 warps beat every variant
+// at 24 (experiments/kernel_variants.py). The beta partner reads hit L2:
+// they are other blocks' groups. The other kernels: one thread per output element;
+// the extraction transposes 32x32 tiles through shared
 // memory. The patch reads vd and writes the scattered fix lanes of w: at
 // ne30 the 2,856 4-byte stores of a row touch 1,056 32-byte sectors (33.8
 // KB for 11.4 KB of values), each a partial sector write, so its floor
@@ -79,39 +95,80 @@
 
 namespace {
 
+// the sweep's plan (kernels/dss.py::sweep_plan mirrors it): 256 lane groups
+// of 4 lanes a block, one row a thread, registers capped (40) so that an SM
+// holds kSweepBlocks blocks (48 warps)
 constexpr int kSweepThreads = 256;
+constexpr int kSweepBlocks = 6;
+constexpr int kBandedThreads = 256;
 constexpr int kFixupThreads = 256;
 constexpr int kPatchLanes = 128;   // fix lanes of a patch block
-constexpr int kMaxGridY = 65535;     // patch grid rows; further rows loop
+constexpr int kMaxGridY = 65535;   // grid rows: the sweep's rows at most;
+                                   // the patch loops over further rows
 constexpr int kTile = 32;
 constexpr int kTileRows = 8;
 
 // out[row, l]: the swept, scaled value, or with kMerge at a fix lane the fix
 // value vd[row, fix_col[l]]; with kMix ca*mx[row, l] + cb*that. out may be
 // mx, never x. Without kMerge vd and fix_col are not read.
+// Thread g owns the aligned lane group l0 = 4g (j = 0..3 of one i-row of an
+// element) in row blockIdx.y: it decodes the group's partner offsets, reads
+// its rspheremp and fix_col, issues all its loads, then sums and stores
+// (dss_sweep::swept4).
 template <bool kMix, bool kMerge>
-__global__ void __launch_bounds__(kSweepThreads)
+__global__ void __launch_bounds__(kSweepThreads, kSweepBlocks)
 dss_sweep_kernel(const float* __restrict__ x, const float* __restrict__ rsp,
                  int nrsp, const float* __restrict__ vd, int nfix,
                  const int* __restrict__ fix_col, const float* mx, float ca,
                  float cb, float* out, int e16, int ne) {
-  const int l = blockIdx.x * kSweepThreads + threadIdx.x;
-  if (l >= e16) return;
+  const int g = blockIdx.x * kSweepThreads + threadIdx.x;
+  const int l0 = 4 * g;
+  if (l0 >= e16) return;
+  const int e = g >> 2, i = g & 3, ei = e % ne, ej = (e / ne) % ne;
+  const int rl = 16 * ne;
+  const int da = (i == 3 && ei < ne - 1) ? 4 : (i == 0 && ei > 0) ? -4 : 0;
+  const bool alpha = da != 0, up = ej < ne - 1, dn = ej > 0;
+  const float4 hi = *reinterpret_cast<const float4*>(rsp + l0);
+  const float4 lo = nrsp == 2
+                        ? *reinterpret_cast<const float4*>(rsp + e16 + l0)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+  int4 fc = make_int4(-1, -1, -1, -1);
+  if constexpr (kMerge) fc = *reinterpret_cast<const int4*>(fix_col + l0);
   const size_t row = blockIdx.y;
-  const float* xr = x + row * e16;
-  float res;
-  int c = -1;
-  if constexpr (kMerge) c = fix_col[l];
-  if (c >= 0) {
-    res = vd[row * nfix + c];
-  } else {
-    // plain loads: forcing the read-only path (__ldg) slowed the sweep
-    const auto load = [xr](int i) { return xr[i]; };
-    res = dss_sweep::swept(load, l, ne, rsp, nrsp, e16);
+  const size_t o = row * e16 + l0;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  // plain loads: forcing the read-only path (__ldg) slowed the
+  // column-a-thread sweep
+  const float* xr = x + o;
+  const float4 c = *reinterpret_cast<const float4*>(xr);
+  const float4 a = alpha ? *reinterpret_cast<const float4*>(xr + da) : zero4;
+  float bu = 0.f, bua = 0.f, bd = 0.f, bda = 0.f;
+  if (up) {
+    bu = xr[rl];
+    if (alpha) bua = xr[rl + da];
   }
-  const size_t o = row * e16 + l;
-  if constexpr (kMix) res = dss_sweep::mix(ca, mx[o], cb, res);
-  out[o] = res;
+  if (dn) {
+    bd = xr[3 - rl];
+    if (alpha) bda = xr[3 - rl + da];
+  }
+  float4 m = zero4;
+  if constexpr (kMix) m = *reinterpret_cast<const float4*>(mx + o);
+  float4 w = dss_sweep::swept4(c, a, alpha, bu, bua, up, bd, bda, dn, hi, lo,
+                               nrsp);
+  if constexpr (kMerge) {
+    const float* vr = vd + row * nfix;
+    if (fc.x >= 0) w.x = vr[fc.x];
+    if (fc.y >= 0) w.y = vr[fc.y];
+    if (fc.z >= 0) w.z = vr[fc.z];
+    if (fc.w >= 0) w.w = vr[fc.w];
+  }
+  if constexpr (kMix) {
+    w.x = dss_sweep::mix(ca, m.x, cb, w.x);
+    w.y = dss_sweep::mix(ca, m.y, cb, w.y);
+    w.z = dss_sweep::mix(ca, m.z, cb, w.z);
+    w.w = dss_sweep::mix(ca, m.w, cb, w.w);
+  }
+  *reinterpret_cast<float4*>(out + o) = w;
 }
 
 // The banded sweep: out[row, lo] for the shard lane lo = c*bl + L of chunk c,
@@ -121,7 +178,7 @@ dss_sweep_kernel(const float* __restrict__ x, const float* __restrict__ rsp,
 // fix_col gives; the banded sweep of every other lane equals the whole
 // sphere's sweep there bit for bit.
 template <bool kMix, bool kMerge>
-__global__ void __launch_bounds__(kSweepThreads)
+__global__ void __launch_bounds__(kBandedThreads)
 dss_sweep_banded_kernel(const float* __restrict__ x_ext,
                         const float* __restrict__ rsp, int nrsp,
                         const float* __restrict__ vd, int nfix,
@@ -129,7 +186,7 @@ dss_sweep_banded_kernel(const float* __restrict__ x_ext,
                         const int* __restrict__ flags, const float* mx,
                         float ca, float cb, float* out, int lanes, int bl,
                         int nchunks, int ne) {
-  const int lo = blockIdx.x * kSweepThreads + threadIdx.x;
+  const int lo = blockIdx.x * kBandedThreads + threadIdx.x;
   if (lo >= lanes) return;
   const size_t row = blockIdx.y;
   float res;
@@ -235,11 +292,13 @@ const char* dss_error_string(int err) {
 
 int dss_sweep_launch(const void* x, const void* rsp, int nrsp, const void* vd,
                      int nfix, const void* fix_col, const void* mx, float ca,
-                     float cb, void* out, int k, int e16, int ne,
-                     void* stream, int device) {
+                     float cb, void* out, int k, int e16, int ne, void* stream,
+                     int device) {
   cudaError_t err = prepare(device);
   if (err != cudaSuccess) return err;
-  const dim3 grid((e16 + kSweepThreads - 1) / kSweepThreads, k);
+  // float4 access needs whole groups and 16-byte aligned rows
+  if (e16 % 16 || k < 1 || k > kMaxGridY) return cudaErrorInvalidValue;
+  const dim3 grid((e16 / 4 + kSweepThreads - 1) / kSweepThreads, k);
   auto* kernel = vd ? (mx ? dss_sweep_kernel<true, true>
                           : dss_sweep_kernel<false, true>)
                     : (mx ? dss_sweep_kernel<true, false>
@@ -252,6 +311,22 @@ int dss_sweep_launch(const void* x, const void* rsp, int nrsp, const void* vd,
   return cudaGetLastError();
 }
 
+// Blocks of the sweep kernel (merged or not, with or without mix) that one
+// SM holds, from cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative: a
+// CUDA error.
+int dss_sweep_blocks_per_sm(int merge, int mix, int device) {
+  cudaError_t err = prepare(device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  auto* kernel = merge ? (mix ? dss_sweep_kernel<true, true>
+                              : dss_sweep_kernel<false, true>)
+                       : (mix ? dss_sweep_kernel<true, false>
+                              : dss_sweep_kernel<false, false>);
+  int n = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel,
+                                                      kSweepThreads, 0);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
 // The banded sweep: x_ext holds k rows of nchunks*(bl + 32*ne) lanes, out
 // and mx rows of lanes = nchunks*bl; flags[c] bit 0 / bit 1: chunk c is the
 // first / last band of its face; a null vd is the merge-free sweep.
@@ -262,12 +337,12 @@ int dss_sweep_banded_launch(const void* x_ext, const void* rsp, int nrsp,
                             int nchunks, int ne, void* stream, int device) {
   cudaError_t err = prepare(device);
   if (err != cudaSuccess) return err;
-  const dim3 grid((lanes + kSweepThreads - 1) / kSweepThreads, k);
+  const dim3 grid((lanes + kBandedThreads - 1) / kBandedThreads, k);
   auto* kernel = vd ? (mx ? dss_sweep_banded_kernel<true, true>
                           : dss_sweep_banded_kernel<false, true>)
                     : (mx ? dss_sweep_banded_kernel<true, false>
                           : dss_sweep_banded_kernel<false, false>);
-  kernel<<<grid, kSweepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kBandedThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x_ext), static_cast<const float*>(rsp), nrsp,
       static_cast<const float*>(vd), nfix, static_cast<const int*>(fix_col),
       static_cast<const int*>(flags), static_cast<const float*>(mx), ca, cb,

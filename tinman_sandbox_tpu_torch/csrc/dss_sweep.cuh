@@ -1,7 +1,9 @@
 // The in-face alpha / beta sweep of the structured DSS at one lane of one
 // row, and its affine mix epilogue: the one expression sequence that the
-// sweep kernel (dss.cu) and the ring-fused producers (caar.cu, tracer.cu)
-// share, so that their outputs agree bit for bit.
+// sweep kernels (dss.cu) and the ring-fused producers (caar.cu, tracer.cu)
+// share, so that their outputs agree bit for bit. swept() takes one lane,
+// swept4() an aligned group of four lanes from values already loaded (the
+// sweep kernel's form); both add the same terms in the same order.
 //
 // Lane = ((face*ne + ej)*ne + ei)*16 + i*4 + j:
 //   y(l) = x(l) + x(l+4)   if i == 3 and ei < ne-1   (alpha sweep)
@@ -33,12 +35,18 @@ __device__ __forceinline__ float alpha_sum(const Load& load, int l, int ne) {
   return v;
 }
 
+// v * rspheremp, given the lane's rspheremp rows: v*hi + v*lo with two
+// rows (nrsp = 2), else v*hi
+__device__ __forceinline__ float scale_by(float v, float hi, float lo,
+                                          int nrsp) {
+  if (nrsp == 2) return __fadd_rn(__fmul_rn(v, hi), __fmul_rn(v, lo));
+  return __fmul_rn(v, hi);
+}
+
 // v * rspheremp at lane l: nrsp = 2 rows (hi, lo) or 1
 __device__ __forceinline__ float scale(float v, const float* __restrict__ rsp,
                                        int nrsp, int e16, int l) {
-  if (nrsp == 2)
-    return __fadd_rn(__fmul_rn(v, rsp[l]), __fmul_rn(v, rsp[e16 + l]));
-  return __fmul_rn(v, rsp[l]);
+  return scale_by(v, rsp[l], nrsp == 2 ? rsp[e16 + l] : 0.f, nrsp);
 }
 
 // w(l): the scaled alpha-then-beta sum at lane l, fix lanes included (there
@@ -52,6 +60,35 @@ __device__ __forceinline__ float swept(const Load& load, int l, int ne,
   if (j == 3 && ej < ne - 1) z = __fadd_rn(z, alpha_sum(load, l + db, ne));
   else if (j == 0 && ej > 0) z = __fadd_rn(z, alpha_sum(load, l - db, ne));
   return scale(z, rsp, nrsp, e16, l);
+}
+
+// w at the four lanes l0 .. l0+3 of one aligned group (l0 % 4 == 0: j = 0..3
+// of one i-row of an element), the sums of swept() at each lane in the same
+// order, from values the caller has loaded: c = x(l0 .. l0+3); a = the
+// alpha partners x(l0+da .. l0+da+3) where `alpha` (da = +-4: every lane of
+// a group shares i and ei, so they share the partner offset); bu, bua =
+// x(l0 + 16*ne) and its alpha partner, the beta partner of j = 3, where
+// `up` (ej < ne-1); bd, bda = x(l0 + 3 - 16*ne) and its alpha partner, the
+// beta partner of j = 0, where `dn` (ej > 0); hi, lo = the group's
+// rspheremp rows.
+__device__ __forceinline__ float4 swept4(float4 c, float4 a, bool alpha,
+                                         float bu, float bua, bool up,
+                                         float bd, float bda, bool dn,
+                                         float4 hi, float4 lo, int nrsp) {
+  if (alpha) {
+    c.x = __fadd_rn(c.x, a.x);
+    c.y = __fadd_rn(c.y, a.y);
+    c.z = __fadd_rn(c.z, a.z);
+    c.w = __fadd_rn(c.w, a.w);
+    bu = __fadd_rn(bu, bua);
+    bd = __fadd_rn(bd, bda);
+  }
+  if (dn) c.x = __fadd_rn(c.x, bd);
+  if (up) c.w = __fadd_rn(c.w, bu);
+  return make_float4(scale_by(c.x, hi.x, lo.x, nrsp),
+                     scale_by(c.y, hi.y, lo.y, nrsp),
+                     scale_by(c.z, hi.z, lo.z, nrsp),
+                     scale_by(c.w, hi.w, lo.w, nrsp));
 }
 
 // w at lane L of one band chunk of the banded (multi-device) DSS: the chunk

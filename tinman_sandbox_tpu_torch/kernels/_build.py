@@ -20,7 +20,8 @@ import os
 import shutil
 import subprocess
 
-__all__ = ["BUILD_DIR", "SOURCES", "build_kernels", "library", "ptxas_log"]
+__all__ = ["BUILD_DIR", "SOURCES", "SOURCE_FLAGS", "build_kernels",
+           "library", "ptxas_log"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -29,6 +30,15 @@ SOURCES = {"caar": "caar.cu", "dss": "dss.cu", "hypervis": "hypervis.cu",
            "probe": "probe.cu", "saxpby": "saxpby.cu", "tracer": "tracer.cu"}
 _FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+# flags of one source on top of _FLAGS: caar.cu is built without FMA
+# contraction, so every FMA in it is an explicit fmaf and the bits of a
+# column do not depend on which kernel inlines the chunked body (the
+# chunked kernel with or without its stash, the ring kernel)
+SOURCE_FLAGS = {"caar": ["-fmad=false"]}
+
+
+def _flags(name: str) -> list:
+    return _FLAGS + SOURCE_FLAGS.get(name, [])
 
 
 def _nvcc() -> str:
@@ -47,7 +57,7 @@ def _lib_path(name: str, csrc: str = _CSRC) -> str:
     """The library path of source ``name``: a hash of the source, of every
     header ``*.cuh`` in ``csrc`` (by name, in sorted order) and of the
     flags."""
-    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(_flags(name)).encode())
     headers = sorted(f for f in os.listdir(csrc) if f.endswith(".cuh"))
     for fname in [SOURCES[name], *headers]:
         with open(os.path.join(csrc, fname), "rb") as f:
@@ -76,7 +86,7 @@ def build_kernels(names=None) -> dict:
     for n, p in todo.items():
         tmp = f"{p}.{os.getpid()}.tmp"
         procs[n] = (tmp, subprocess.Popen(
-            [nvcc, *_FLAGS, "-o", tmp, os.path.join(_CSRC, SOURCES[n])],
+            [nvcc, *_flags(n), "-o", tmp, os.path.join(_CSRC, SOURCES[n])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs, failed = [], []
     for n, (tmp, proc) in procs.items():
@@ -100,15 +110,16 @@ _F = ctypes.c_float
 _U = ctypes.c_uint
 _SIGNATURES = {
     "caar": {
-        "caar_launch": [_P] * 26 + [_I] * 7 + [_F] * 4 + [_P, _I],
-        "caar_ring_launch": [_P] * 25 + [_U] + [_I] * 7 + [_F] * 6
+        "caar_launch": [_P] * 26 + [_I] * 10 + [_F] * 4 + [_P, _I],
+        "caar_ring_launch": [_P] * 25 + [_U] + [_I] * 9 + [_F] * 6
         + [_P, _I],
-        "caar_blocks_per_sm": [_I, _I, _I],
+        "caar_blocks_per_sm": [_I] * 5,
         "caar_error_string": [_I],
     },
     "dss": {
         "dss_sweep_launch": [_P, _P, _I, _P, _I, _P, _P, _F, _F, _P, _I, _I,
                              _I, _P, _I],
+        "dss_sweep_blocks_per_sm": [_I, _I, _I],
         "dss_sweep_banded_launch": [_P, _P, _I, _P, _I, _P, _P, _P, _F, _F,
                                     _P, _I, _I, _I, _I, _I, _P, _I],
         "dss_patch_launch": [_P, _P, _P, _P, _I, _P, _F, _F, _I, _I, _P, _I],

@@ -12,7 +12,12 @@ interface stencil and the eta_dot_dpdn accumulator (:265-290, :307, :344).
 It is bound by device-memory traffic; the source's note gives its design.
 Where the TPU kernel took 128x128 block-diagonal derivative operators and
 triangular scan matrices to feed its matrix unit, this one takes the 4x4
-``dvv`` and runs the scans as running sums.
+``dvv`` and runs the scans as running sums. At rsplit>0 on this layout it
+splits the level axis into chunks summed chunk by chunk: ``caar_plan(ncol,
+nlev)`` (``CaarPlan``) is its launch, a pure function of the shape whose
+chunks depend on nlev alone, ``caar_ring_plan`` the ring kernel's; both
+refuse the shapes the kernel does not take (on CPU tensors the plain
+version takes any).
 
   * ``caar_t4_plain`` is the same function in plain PyTorch (cumsum and an
     einsum over ``dvv``). The CPU tests use it; on a card only the checks of
@@ -48,6 +53,7 @@ triangular scan matrices to feed its matrix unit, this one takes the 4x4
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -61,6 +67,10 @@ from . import _build
 from .layout import META_COLS, pack_field_t, pack_meta_t, unpack_field_t
 
 __all__ = [
+    "CaarPlan",
+    "caar_chunks",
+    "caar_plan",
+    "caar_ring_plan",
     "caar_t4_plain",
     "caar_t4_cuda",
     "caar_packed_t",
@@ -72,8 +82,126 @@ __all__ = [
 ]
 
 _MC = {name: i for i, name in enumerate(META_COLS)}
-# the largest nlev whose per-column scan buffer fits one block's shared memory
+# the largest nlev whose phi buffer fits one block's shared memory in the
+# ring kernel (tiles of 128 columns) and the column-a-thread body
 _MAX_NLEV = 400
+
+# the card and the chunked kernels the plans are for (csrc/caar.cu): the
+# H100's SMs, an SM's threads, registers and shared memory, a block's shared
+# memory and the 1 KB the system reserves with each block; the chunked
+# kernel's largest block and register cap (__launch_bounds__(256, 3)), the
+# ring kernel's (__launch_bounds__(1024))
+SMS = 132
+SM_THREADS = 2048
+SM_REGS = 65536
+SM_SMEM = 233472
+SMEM_MAX = 232448
+SMEM_RESERVED = 1024
+CHUNK_THREADS = 256
+CHUNK_REGS = 80
+RING_THREADS = 1024
+RING_REGS = 64
+# the level chunks a column is cut into (the last may be shorter), the
+# chunked kernel's tile, and the tile of the ring kernel
+# (kernels/ring_fused.py TILE, csrc kBlock)
+CHUNKS = 8
+TILE = 32
+RING_TILE = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class CaarPlan:
+    """The launch of the chunked CAAR kernel at (ncol, nlev): blocks of
+    ``tile`` columns in ``chunks`` level chunks of ``levels`` levels
+    (``threads`` = tile*chunks), with or without the ``stash`` (the input
+    fields that passes 2 and 3 read again, kept in shared memory);
+    ``smem`` bytes of dynamic shared memory a block (phi [nlev][tile], the
+    chunk totals [3][chunks][tile], the stash [5][nlev][tile]), the
+    ``blocks_per_sm`` the plan reckons with at the register cap and the
+    ``waves`` of its ``blocks``."""
+
+    ncol: int
+    nlev: int
+    tile: int
+    chunks: int
+    levels: int
+    stash: bool = False
+
+    @property
+    def threads(self) -> int:
+        return self.tile * self.chunks
+
+    @property
+    def smem(self) -> int:
+        planes = 6 if self.stash else 1
+        return 4 * (planes * self.nlev + 3 * self.chunks) * self.tile
+
+    @property
+    def blocks(self) -> int:
+        return -(-self.ncol // self.tile)
+
+    @property
+    def regs(self) -> int:
+        """The register cap of the kernel that runs the plan."""
+        return CHUNK_REGS if self.threads <= CHUNK_THREADS else RING_REGS
+
+    @property
+    def blocks_per_sm(self) -> int:
+        return min(SM_THREADS // self.threads,
+                   SM_REGS // (self.threads * self.regs),
+                   SM_SMEM // (self.smem + SMEM_RESERVED))
+
+    @property
+    def waves(self) -> float:
+        return self.blocks / (SMS * self.blocks_per_sm)
+
+    def level_ranges(self) -> list:
+        """[k0, k1) of each chunk, in chunk order."""
+        return [(c * self.levels, min(self.nlev, (c + 1) * self.levels))
+                for c in range(self.chunks)]
+
+
+def caar_chunks(nlev: int) -> tuple:
+    """(chunks, levels): ``levels`` = ceil(nlev / CHUNKS) levels a chunk and
+    as many chunks as that takes (no empty chunk). A function of nlev alone,
+    so every launch at one nlev (a shard's, the ring's) sums a column in the
+    same order."""
+    if not 1 <= nlev <= _MAX_NLEV:
+        raise ValueError(f"caar: nlev={nlev} outside the kernel's 1.."
+                         f"{_MAX_NLEV} levels")
+    levels = -(-nlev // CHUNKS)
+    return -(-nlev // levels), levels
+
+
+@functools.lru_cache(maxsize=None)
+def caar_plan(ncol: int, nlev: int) -> CaarPlan:
+    """The launch plan of the chunked CAAR kernel at (ncol, nlev), a pure
+    function of the shape: ``caar_chunks(nlev)``, tiles of TILE = 32
+    columns (a warp of two elements a chunk), and the stash wherever it
+    leaves at least two blocks an SM (nlev up to 146). Raises on shapes the
+    kernel refuses."""
+    if ncol < 1 or ncol % NPSQ:
+        raise ValueError(f"caar: ncol={ncol} is not a positive multiple of "
+                         f"{NPSQ}")
+    plan = CaarPlan(ncol, nlev, TILE, *caar_chunks(nlev), stash=True)
+    if plan.blocks_per_sm < 2:
+        plan = dataclasses.replace(plan, stash=False)
+    if plan.smem > SMEM_MAX:
+        raise ValueError(f"caar: nlev={nlev} needs {plan.smem} bytes of "
+                         f"shared memory a block, over {SMEM_MAX}")
+    return plan
+
+
+def caar_ring_plan(ncol: int, nlev: int) -> CaarPlan:
+    """The ring kernel's plan: ``caar_plan``'s chunks on the ring's tiles of
+    RING_TILE columns (kernels/ring_fused.py), without the stash, so that
+    its CAAR part sums every column as the chunked kernel does."""
+    plan = dataclasses.replace(caar_plan(ncol, nlev), tile=RING_TILE,
+                               stash=False)
+    if plan.smem > SMEM_MAX:
+        raise ValueError(f"caar_ring: nlev={nlev} needs {plan.smem} bytes "
+                         f"of shared memory a block, over {SMEM_MAX}")
+    return plan
 
 
 def _physics_plain(scal, meta, dvv, u, v, t, dp, um1, vm1, tm1, dpm1,
@@ -190,10 +318,13 @@ def caar_t4_plain(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv,
     return out if fix is None else (*out, _slab_plain(s1, fix))
 
 
-def _check(scal, meta, dvv, fields, nlev, hyb=None, row=False):
+def _check(scal, meta, dvv, fields, nlev, hyb=None, row=False, states=()):
     """Validate the operands of one CAAR step on the t ([nlev, E16] fields,
     [16, E16] meta, [nlev, 2] hyb) or the row ([E16, nlev], [E16, 16],
-    [2, nlev]) layout; returns the device."""
+    [2, nlev]) layout. ``fields`` are single fields; ``states`` are states
+    of four fields (u, v, t, dp), each a 4-tuple of fields or, on the t
+    layout, one stacked [4*nlev, E16] tensor. Returns the device. One pass
+    of cheap tests; the message is made only where one fails."""
     ref = fields[0]
     dev, dtype = ref.device, ref.dtype
     if dtype not in (torch.float32, torch.float64):
@@ -205,25 +336,27 @@ def _check(scal, meta, dvv, fields, nlev, hyb=None, row=False):
     e16 = ref.shape[0 if row else -1]
     if e16 % NPSQ:
         raise ValueError(f"caar: E16={e16} is not a multiple of {NPSQ}")
-    lay = (lambda a, b: (b, a)) if row else (lambda a, b: (a, b))
-    want = {"meta": (meta, lay(len(META_COLS), e16)), "dvv": (dvv, (4, 4)),
-            "scal": (scal, (1, 4))}
+    one = (e16, nlev) if row else (nlev, e16)
+    want = [(meta, (e16, len(META_COLS)) if row else (len(META_COLS), e16),
+             "meta"), (dvv, (4, 4), "dvv"), (scal, (1, 4), "scal")]
     if hyb is not None:
-        want["hyb"] = (hyb, lay(nlev, 2))
-    want.update({f"field{i}": (f, lay(nlev, e16))
-                 for i, f in enumerate(fields)})
-    for name, (x, shape) in want.items():
-        if tuple(x.shape) != shape:
-            raise ValueError(f"caar: {name} has shape {tuple(x.shape)}, "
-                             f"expected {shape}")
-        if x.device != dev or x.dtype != dtype:
-            raise ValueError(f"caar: {name} is {x.dtype} on {x.device}, "
-                             f"expected {dtype} on {dev}")
-        if not x.is_contiguous():
+        want.append((hyb, (2, nlev) if row else (nlev, 2), "hyb"))
+    for st in states:
+        if isinstance(st, torch.Tensor):
+            want.append((st, (4 * nlev, e16), "a stacked state"))
+        else:
+            want += [(x, one, "a state's field") for x in st]
+    want += [(x, one, "a field") for x in fields]
+    for x, shape, name in want:
+        if x.shape != shape or x.dtype is not dtype or x.device != dev or \
+                not x.is_contiguous():
+            if tuple(x.shape) != shape:
+                raise ValueError(f"caar: {name} has shape {tuple(x.shape)},"
+                                 f" expected {shape}")
+            if x.device != dev or x.dtype != dtype:
+                raise ValueError(f"caar: {name} is {x.dtype} on {x.device}, "
+                                 f"expected {dtype} on {dev}")
             raise ValueError(f"caar: {name} must be contiguous")
-    if dev.type == "cuda" and nlev > _MAX_NLEV:
-        raise ValueError(f"caar: nlev={nlev} exceeds the kernel's "
-                         f"{_MAX_NLEV}-level shared-memory buffer")
     return dev
 
 
@@ -241,29 +374,46 @@ def _new_slab(fix, ref: torch.Tensor, nlev: int):
                        device=ref.device)
 
 
+def _blocks(state, nlev: int):
+    """The four [nlev, E16] fields of a state: a 4-tuple, or views of a
+    stacked [4*nlev, E16] tensor."""
+    return state.split(nlev) if isinstance(state, torch.Tensor) else state
+
+
+def _addresses(state, nlev: int) -> list:
+    """The device addresses of a state's four fields (float32)."""
+    if isinstance(state, torch.Tensor):
+        base, step = state.data_ptr(), nlev * state.shape[1] * 4
+        return [base + i * step for i in range(4)]
+    return [x.data_ptr() for x in state]
+
+
 def _caar_step(scal, meta, dvv, s0, sm1, qdp, pecnd, acc, out, phi, moist,
                fix=None, slab=None, hyb=None, etaacc=None, row=False) -> bool:
-    """One step on [nlev, E16] views (with ``row``, [E16, nlev] views and
-    the row layout's meta and hyb): s0/sm1/out are 4-tuples (u, v, t, dp),
-    acc the 3 accumulators (updated in place), phi the output buffer; with
-    ``fix``, ``slab`` [nfix, 4*nlev] receives the fix-lane rows of out.
-    ``sm1=None`` is the Runge-Kutta stage (base state = s0, not fetched
-    again); ``phi=None`` stores no geopotential. With ``hyb`` and
-    ``etaacc`` it is the rsplit=0 step, etaacc updated in place. Returns
-    True where it launched the kernel (CUDA tensors), False where the plain
-    version ran (CPU tensors)."""
+    """One step, the one path of every entry: s0/sm1/out are states (a
+    4-tuple (u, v, t, dp) of [nlev, E16] fields, with ``row`` [E16, nlev]
+    fields and the row layout's meta and hyb, or on the t layout one stacked
+    [4*nlev, E16] tensor), acc the 3 accumulators (updated in place), phi
+    the output buffer; with ``fix``, ``slab`` [nfix, 4*nlev] receives the
+    fix-lane rows of out. ``sm1=None`` is the Runge-Kutta stage (base state
+    = s0, not fetched again); ``phi=None`` stores no geopotential. With
+    ``hyb`` and ``etaacc`` it is the rsplit=0 step, etaacc updated in place.
+    Returns True where it launched the kernel (CUDA tensors), False where
+    the plain version ran (CPU tensors)."""
     nlev = qdp.shape[1 if row else 0]
     single = sm1 is None
     r0 = etaacc is not None
     dev = _check(scal, meta, dvv,
-                 (*s0, *(() if single else sm1), qdp, pecnd, *acc, *out,
-                  *(() if phi is None else (phi,)),
-                  *(() if etaacc is None else (etaacc,))), nlev, hyb, row)
+                 (qdp, pecnd, *acc, *(() if phi is None else (phi,)),
+                  *(() if etaacc is None else (etaacc,))), nlev, hyb, row,
+                 (s0, out) if single else (s0, sm1, out))
     if dev.type == "cpu":
         tr = (lambda x: x.T) if row else (lambda x: x)
+        s0, out = _blocks(s0, nlev), _blocks(out, nlev)
+        base = s0 if single else _blocks(sm1, nlev)
         u1, v1, t1, dp1, ph, vdp1, vdp2, omega_p, eta_hi = _physics_plain(
-            scal, tr(meta), dvv, *map(tr, s0), *map(tr, s0 if single else sm1),
-            tr(qdp), tr(pecnd), moist, None if hyb is None else tr(hyb))
+            scal, tr(meta), dvv, *map(tr, s0), *map(tr, base), tr(qdp),
+            tr(pecnd), moist, None if hyb is None else tr(hyb))
         for o, r in zip(out, (u1, v1, t1, dp1)):
             o.copy_(tr(r))
         if phi is not None:
@@ -276,19 +426,29 @@ def _caar_step(scal, meta, dvv, s0, sm1, qdp, pecnd, acc, out, phi, moist,
         if slab is not None:
             slab.copy_(_slab_plain(torch.cat(out), fix))
         return False
+    # the kernels' refusals: the chunked kernel's plan (t layout, rsplit>0),
+    # else the column-a-thread body's level buffer
+    if r0 or row:
+        plan = (0, 0, 0)
+        if nlev > _MAX_NLEV:
+            raise ValueError(f"caar: nlev={nlev} exceeds the kernel's "
+                             f"{_MAX_NLEV}-level shared-memory buffer")
+    else:
+        p = caar_plan(qdp.shape[1], nlev)
+        plan = (p.chunks, p.levels, int(p.stash))
     ptr = lambda x: 0 if x is None else x.data_ptr()
     c = CONSTANTS
     # hybi(k) and hybi(k+1) as two strided vectors of hyb, whichever layout
     hs = 1 if row else 2
     err = _build.library("caar").caar_launch(
-        ptr(scal), ptr(meta), ptr(dvv), *map(ptr, s0),
-        *map(ptr, (None,) * 4 if single else sm1),
-        ptr(qdp), ptr(pecnd), *map(ptr, acc), *map(ptr, out), ptr(phi),
-        ptr(None if fix is None else fix.fix_rank), ptr(slab),
+        ptr(scal), ptr(meta), ptr(dvv), *_addresses(s0, nlev),
+        *((0,) * 4 if single else _addresses(sm1, nlev)),
+        ptr(qdp), ptr(pecnd), *map(ptr, acc), *_addresses(out, nlev),
+        ptr(phi), ptr(None if fix is None else fix.fix_rank), ptr(slab),
         ptr(hyb), 0 if hyb is None else hyb.data_ptr() + (
             nlev if row else 1) * hyb.element_size(), ptr(etaacc),
         nlev, qdp.shape[0 if row else 1], qdp.stride(0), int(bool(moist)),
-        4 * nlev, hs, int(row), c.Rgas, c.kappa, c.rgas_over_rvap_m1,
+        4 * nlev, hs, int(row), *plan, c.Rgas, c.kappa, c.rgas_over_rvap_m1,
         c.rrearth, torch.cuda.current_stream(dev).cuda_stream, dev.index)
     _build.check_launch("caar", err)
     return True
@@ -329,9 +489,8 @@ def caar_t4_cuda(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv,
     s1 = torch.empty_like(s0)
     phi = torch.empty_like(qdp) if emit_phi else None
     slab = _new_slab(fix, qdp, k)
-    if _caar_step(scal, meta, dvv, s0.split(k),
-                  None if single else sm1.split(k), qdp, pecnd,
-                  (vn0u, vn0v, omg), s1.split(k), phi, moist, fix, slab):
+    if _caar_step(scal, meta, dvv, s0, None if single else sm1, qdp, pecnd,
+                  (vn0u, vn0v, omg), s1, phi, moist, fix, slab):
         _count_t4(slab, single)
     out = (s1, phi, vn0u, vn0v, omg)
     return out if fix is None else (*out, slab)

@@ -16,7 +16,11 @@ The kernels are ``csrc/dss.cu`` (its note gives the algebra and the design):
     epilogue: with ``mix=(mx, ca, cb)`` the output is ``ca*mx + cb*w`` for
     the assembled w, two products and then their sum. ``mx`` may have more
     rows than x: the result is then written IN PLACE into ``mx``'s first
-    rows, the rest ride through untouched, and ``mx`` is returned.
+    rows, the rest ride through untouched, and ``mx`` is returned. The
+    kernel moves aligned groups of 4 lanes (16-byte aligned fields), its
+    launch from ``sweep_plan(rows, e16)``, a pure function of the shape
+    that refuses the shapes the kernel does not take (the plain version on
+    CPU tensors takes any).
 
 Each has a plain PyTorch version (``dss_extract_plain`` etc.) that computes
 the same f32 adds and products in the same order, so kernel and plain
@@ -97,10 +101,57 @@ __all__ = ["FixTables", "fix_tables", "make_fix_tables", "dss_extract_plain",
            "band_masks", "dss_sweep_banded_plain",
            "dss_sweep_banded_nomerge_plain", "dss_patch_tiles_plain",
            "dss_sweep_banded_cuda", "dss_sweep_banded_nomerge_cuda",
-           "dss_patch_tiles_cuda"]
+           "dss_patch_tiles_cuda", "SweepPlan", "sweep_plan"]
 
-# the sweep grid puts rows on its y axis
+# the sweeps' grids put rows on their y axis
 _MAX_ROWS = 65535
+
+# the sweep kernel's plan (csrc/dss.cu kSweepThreads, kSweepBlocks) on the
+# H100's SMs: 256 groups of 4 lanes a block, one row a thread, registers
+# capped so that an SM holds 6 blocks
+SWEEP_THREADS = 256
+SWEEP_BLOCKS_PER_SM = 6
+SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepPlan:
+    """The launch of the sweep kernel on [rows, e16]: ``threads`` lane
+    groups of 4 a block along x, one row a thread along y; ``blocks_per_sm``
+    is the kernel's register cap's guarantee."""
+
+    rows: int
+    e16: int
+    threads = SWEEP_THREADS
+    blocks_per_sm = SWEEP_BLOCKS_PER_SM
+
+    @property
+    def grid(self) -> tuple:
+        return -(-self.e16 // (4 * self.threads)), self.rows
+
+    @property
+    def blocks(self) -> int:
+        gx, gy = self.grid
+        return gx * gy
+
+    @property
+    def waves(self) -> float:
+        return self.blocks / (SMS * self.blocks_per_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def sweep_plan(rows: int, e16: int) -> SweepPlan:
+    """The sweep kernel's launch plan at [rows, e16], a pure function of the
+    shape (one plan, no switch). Raises on shapes the kernel refuses: rows
+    outside the grid's y axis (1..65535) or an E16 that is not a positive
+    multiple of 16."""
+    if e16 < 1 or e16 % NPSQ:
+        raise ValueError(f"sweep: E16={e16} is not a positive multiple of "
+                         f"{NPSQ}")
+    if not 1 <= rows <= _MAX_ROWS:
+        raise ValueError(f"sweep: {rows} rows outside the grid's 1.."
+                         f"{_MAX_ROWS}")
+    return SweepPlan(rows, e16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -418,9 +469,13 @@ def _sweep(name, x, rsp, vd, tables, mix):
             return plain(mix), False
         mx[:k] = plain((mx[:k], ca, cb))
         return mx, False
-    if k > _MAX_ROWS:
-        raise ValueError(f"{name}: {k} rows exceed the grid's {_MAX_ROWS}")
+    sweep_plan(k, e16)          # raises on the shapes the kernel refuses
     out = mx if in_place else torch.empty_like(x)
+    # the kernel reads and writes 16-byte groups of lanes
+    for op, t in (("x", x), ("rsp", rsp), ("mix field", mx), ("out", out),
+                  ("fix_col", None if vd is None else tables.fix_col)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {op} must be 16-byte aligned")
     ptr = lambda t: 0 if t is None else t.data_ptr()
     err = _build.library("dss").dss_sweep_launch(
         x.data_ptr(), rsp.data_ptr(), rsp.shape[0], ptr(vd), n,

@@ -48,9 +48,10 @@ import torch
 from ..config import NP, NPSQ
 from ..constants import CONSTANTS
 from . import _build
+from .caar_t import RING_TILE
 from .caar_t import _check as _caar_check
 from .caar_t import _new_slab as _caar_slab
-from .caar_t import caar_t4_cuda, caar_t4_plain
+from .caar_t import caar_ring_plan, caar_t4_cuda, caar_t4_plain
 from .dss import (FixTables, _check_rsp, _overlap, _stream,
                   dss_sweep_nomerge_plain)
 from .tracer_t import _check as _tracer_check
@@ -60,7 +61,7 @@ from .tracer_t import tracer_euler_cuda, tracer_euler_plain
 __all__ = ["RingGeometry", "ring_geometry", "caar_ring_plain",
            "caar_ring_packed_t4", "tracer_ring_plain", "tracer_ring_packed_t"]
 
-TILE = 128          # lanes a block produces and sweeps (csrc kBlock)
+TILE = RING_TILE    # lanes a block produces and sweeps (csrc kBlock)
 _LEVELS = 8         # levels of one tracer row chunk (csrc/tracer.cu kLevels)
 
 
@@ -165,14 +166,14 @@ def caar_ring_packed_t4(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg,
     if s0.shape[0] != 4 * k or (not single and sm1.shape[0] != 4 * k):
         raise ValueError(f"caar_ring: s0/sm1 need {4 * k} rows")
     mx, ca, cb = _check_ring("caar_ring", s0, rsp, fix, mix)
-    dev = _caar_check(scal, meta, dvv,
-                      (*s0.split(k), *(() if single else sm1.split(k)), qdp,
-                       pecnd, vn0u, vn0v, omg), k)
+    dev = _caar_check(scal, meta, dvv, (qdp, pecnd, vn0u, vn0v, omg), k,
+                      states=(s0,) if single else (s0, sm1))
     if dev.type == "cpu":
         s1, phi, *acc, slab = caar_t4_cuda(
             scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv,
             moist=moist, fix=fix, single=single, emit_phi=emit_phi)
         return (dss_sweep_nomerge_plain(s1, rsp, fix, mix), phi, *acc, slab)
+    plan = caar_ring_plan(s0.shape[1], k)   # raises where the kernel refuses
     for name, acc in (("vn0u", vn0u), ("vn0v", vn0v), ("omg", omg)):
         if mx is not None and _overlap(mx, acc):
             raise ValueError(f"caar_ring: the mix field overlaps {name}")
@@ -190,8 +191,9 @@ def caar_ring_packed_t4(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg,
         ptr(omg), ptr(scratch), ptr(phi), ptr(fix.fix_rank), ptr(slab),
         ptr(rsp), ptr(mx), ptr(w), ptr(flags), ptr(counter), epoch,
         flags.numel(), k, s0.shape[1], int(bool(moist)), rsp.shape[0],
-        fix.ne, ring_geometry(fix.ne).halo, c.Rgas, c.kappa,
-        c.rgas_over_rvap_m1, c.rrearth, ca, cb, _stream(dev), dev.index)
+        fix.ne, ring_geometry(fix.ne).halo, plan.chunks, plan.levels, c.Rgas,
+        c.kappa, c.rgas_over_rvap_m1, c.rrearth, ca, cb, _stream(dev),
+        dev.index)
     _build.check_launch("caar", err)
     caar_ring_packed_t4.launches += 1
     return w, phi, vn0u, vn0v, omg, slab
