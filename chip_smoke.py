@@ -5,8 +5,8 @@ NVIDIA card and check it, phase by phase:
   1. the card's name and power limit; build every CUDA kernel from
      ``tinman_sandbox_tpu_torch/csrc`` (nvcc, sm_90a, one process per
      source, all at once) and time the build; nvcc's registers and spills,
-     and those of each instance of the sweep, the chunked CAAR kernel and
-     the ring CAAR kernel by name;
+     and those of each instance of the sweep, the chunked CAAR kernel, the
+     ring CAAR kernel and the remap kernel by name;
   2. saxpby: the kernel against its plain version (bitwise, f32) at
      8192 x 4096, with kernel / plain / library times and GB/s;
   3. CAAR: the level-chunked kernel against its plain version on the card
@@ -19,9 +19,10 @@ NVIDIA card and check it, phase by phase:
      (``caar_plan``: tile, chunks, levels, stash, threads, shared memory,
      the blocks an SM it reckons with and cudaOccupancy's, waves); then at
      ne30 x 26 (7 level chunks, the last short) and ne30 x 150 (no stash),
-     the pair form and the stage mode with the slab, in the three cases,
-     each field within 5e-5 scaled, the slab bit for bit s1 at the fix
-     lanes, and the ring kernel bit for bit the two launches it fuses;
+     ne30 x 400 (``caar_plan``'s largest nlev, 8 chunks of 50), the pair
+     form and the stage mode with the slab, in the three cases, each field
+     within 5e-5 scaled, the slab bit for bit s1 at the fix lanes, and the
+     ring kernel bit for bit the two launches it fuses;
   4. DSS on the ne30 cubed sphere (5,400 elements) on a random [288, 86400]
      f32 field: the extract, fixup and sweep kernels each bit for bit equal
      to their plain versions, every alias of every dof equal after the whole
@@ -57,7 +58,8 @@ NVIDIA card and check it, phase by phase:
      ``dss_sweep_plain(mix=)``, into a new tensor and in place into a
      [4*nlev] buffer whose dp rows stay bit for bit, both also from CUDA
      graphs (and the [3*nlev] sweep without mix timed beside them); the
-     weak-Laplacian
+     fixup of the [3*nlev] and [4*nlev] slabs bit for bit
+     ``dss_fixup_plain``, also from CUDA graphs; the weak-Laplacian
      kernel against ``vlap_plain`` at 5e-5 per output block, its slab bit
      for bit the output at the fix lanes; each timed against its bound;
  10. the dynamics main path at ne30 x 72, its launch counts set to 0 just
@@ -78,7 +80,8 @@ NVIDIA card and check it, phase by phase:
      uniform field and on a field with a tenth of its nodes pushed outside
      the bounds, with each element's mass kept to 4e-6 and the result inside
      the bounds wherever they are feasible; each timed against its bound;
-     the fixup of the 72- and 2,520-row stacks also from a CUDA graph;
+     the fixup of the 72- and 2,520-row stacks bit for bit
+     ``dss_fixup_plain``, also from a CUDA graph;
  12. the full model step at ne30 x 72, qsize 1, its launch counts set to 0
      just before it and read just after: 10 chained ``prim_step_packed_t4``
      steps (dynamics, hyperviscosity, tracers) on the kernels against the
@@ -182,26 +185,37 @@ NVIDIA card and check it, phase by phase:
      before and read just after: 6 steps of ``examples.packed_cadence``'s
      loop (``prim_step_packed_t4`` with limited tracers and qsplit 2, then
      ``remap_packed_t4`` with the mass fixer every 3 steps) from its random
-     projected init, on the kernels against the same loop on the plain
-     step (1e-4 scaled per block; each step against the plain step from
+     projected init, on the kernels (the remap kernel included) against
+     the same loop on the plain step whose remap is
+     ``remap_packed_t4_plain`` in float64 on its float32 state, rounded to
+     float32 (1e-4 scaled per block; each step against the plain step from
      the same input at 1e-5), continuity exactly 0 after every step's
      DSS, the air mass within 1e-6 of its target after each remap (the
-     remap's own continuity reported); the remap's own f32 rounding
-     against the same remap in f64, by PLM and by PCM; the remap's time,
-     peak memory and share of the cadence; the example as a user runs it,
-     and from one checkpoint of its start 6 steps at once against 3 steps,
-     a ``--checkpoint`` restart and 3 more, bit for bit equal;
-     ``tools.energy_drift``; the CLI ``--ne 30 --prim --diag`` from one
-     checkpoint run
-     3 steps at once and as 2 steps, ``--checkpoint``, ``--restore`` and 1
-     step, bit for bit equal.
+     remap's own continuity reported); then the remap kernel's gates on
+     the last remap's input, for pcm, plm and ppm: its dp rows bit for bit
+     ``remap_packed_t4_plain``'s (without and with the fixer), u, v, T and
+     qdp against ``remap_packed_t4_plain`` in float64 no further off than
+     the plain float32 code (both printed), every column's totals of x*dp
+     and of qdp within 1e-6 of its sum |x|*dp (the plain code's figure
+     beside it), and the float64 instances (packed and level form) within
+     1e-12 scaled of the plain float64 code; the remap's time by events
+     and from a CUDA graph beside the dense plain code's, its plan (shared
+     memory a block against ``remap_plan``, blocks an SM), its peak memory,
+     its launches a call (``torch.profiler``) and share of the cadence;
+     the example as a user runs it, and from one checkpoint of its start 6
+     steps at once against 3 steps, a ``--checkpoint`` restart and 3 more,
+     bit for bit equal; ``tools.energy_drift`` (float64, the field form:
+     the level-form remap kernel); the CLI ``--ne 30 --prim --diag`` from
+     one checkpoint run 3 steps at once and as 2 steps, ``--checkpoint``,
+     ``--restore`` and 1 step, bit for bit equal; the remap kernel launched
+     in float32 and in float64 on the path.
 
 Any failure raises and exits non-zero before the result line is printed.
 Run from the repository root: ``python3 chip_smoke.py``.
 
-``kernel_times()`` times the sweep and the t-layout CAAR kernel through
-entry points that older trees share, so the same measurement runs against a
-parent checkout: from that checkout's root,
+``kernel_times()`` times the sweep, the t-layout CAAR kernel, the fixup and
+the packed remap through entry points that older trees share, so the same
+measurement runs against a parent checkout: from that checkout's root,
 ``python3 -c "import importlib.util as u; s = u.spec_from_file_location(
 'cs', '<this file>'); m = u.module_from_spec(s); s.loader.exec_module(m);
 m.kernel_times()"`` prints one JSON line for its kernels.
@@ -245,25 +259,37 @@ MIX_OPS_PER_POINT = 3
 WIND = 30.0                    # m/s: the wind case's winds, U(-1, 1) x this
 CAAR_TOL = 5e-5                # the repo's on-chip equivalence gate
 # nlev off the main path that phase 3 also checks: 26 (7 level chunks of 4,
-# the last of 2) and 150 (8 of 19, the last of 17, and no stash)
-CAAR_OTHER_NLEV = (26, 150)
+# the last of 2), 150 (8 of 19, the last of 17, and no stash) and 400, the
+# most caar_plan admits (8 of 50)
+CAAR_OTHER_NLEV = (26, 150, 400)
 # the probe kernel against twenty cuBLAS products in full f32: dots of up to
 # 1024 terms in another order, of max|o|
 PROBE_TOL = 2e-6
 # shapes where probe_plan takes the pipelined mode (a rank's k range too long
 # to stay resident), one on each tile, the second ragged in m, n and k
 PROBE_PIPELINED_SHAPES = ((512, 4096, 512), (250, 2000, 250))
-# the remap cadence's kernel chain against its plain chain: the remap takes
-# differences of cumulative column integrals, so its own f32 error against
-# the same remap in f64 is 7e-5 to 1.6e-4 of max|x| at ne30 x 72 (H100,
-# phase 21 prints it), by PCM as by PLM, so no limiter switch; the chains,
-# whose inputs differ by ~6.5e-7, part by at most 1.7e-5 in 6 steps with
-# two remaps; each step alone is held against the plain step from the same
-# input at DYN_TOL
+# the remap cadence's kernel chain against its plain chain, whose remap is
+# the plain code in float64 (the plain float32 remap is itself 7e-5 to
+# 1.6e-4 of max|x| off the float64 remap at ne30 x 72 on the H100, and a
+# chain limit would then hold the reference's error, not the kernel's);
+# each step alone is held against the plain step from the same input at
+# DYN_TOL
 CADENCE_TOL = 1e-4
 # the fixer's air mass against its target: f32 sums of 6.2M terms before and
 # after one rescale (a few ulps)
 REMAP_MASS_TOL = 1e-6
+# the remap kernel's column totals of x*dp (and of qdp) against the input's,
+# of the column's sum |x|*dp: its pieces partition every source cell, so
+# only the rounding of ~2K pieces and of x' * dp_tgt is left
+REMAP_TOTAL_TOL = 1e-6
+# the float64 remap kernel against the plain float64 remap, scaled: the
+# plain code's prefix differences lose ~K ulps
+REMAP_F64_TOL = 1e-12
+# f32 operations per level, column and field of the remap kernel, counted
+# from csrc/remap.cu: about two pieces a target cell (PLM: 8 each, with the
+# clips and the interface sums), a cell's slope (5), the target thickness
+# and the mean (6)
+REMAP_OPS_PER_POINT = 30
 CONSERVE_TOL = 4e-6            # limiter: an element's mass, of its sum|w*y|
 BOUNDS_TOL = 1e-6              # limiter: outside the bounds, of max|q|
 QSIZE_TALL = 35                # E3SM's tracer count: the [2520, E16] stack
@@ -432,8 +458,8 @@ def patch_times(w, vd, fix, mx, ca, cb, reps: int) -> dict:
 
 
 def kernel_times() -> dict:
-    """The two kernels this tree redesigned, timed through entry points that
-    every tree since the dynamics step was ported has, by CUDA events over
+    """The kernels the last trees redesigned, timed through entry points that
+    every tree since the remap cadence was ported has, by CUDA events over
     back-to-back calls (``ms``), replayed from a CUDA graph (``graph_ms``,
     the device alone) and by the host's clock per call (``host_ms``, the
     wrapper's checks and the launch): ``dss_sweep_cuda`` on ne30 at 72, 288
@@ -441,14 +467,20 @@ def kernel_times() -> dict:
     with mix in place into a 288-row field (the dynamics step's form);
     ``caar_t4_cuda`` in the pair form at 1024 x 72, the pair form with the
     slab at ne30 x 72, and the stage mode with the slab, with and without
-    phi, at ne30 x 72. Run against another tree by importing this file with
-    that tree first on ``sys.path``; prints and returns one JSON object."""
+    phi, at ne30 x 72; ``dss_fixup_cuda`` on ne30 at 72, 288 and 2,520
+    rows; ``dist.remap_packed_t4`` (no fixer) at ne30 x 72, qsize 1, on the
+    packed cadence's start (``ms`` and ``graph_ms``). Run against another
+    tree by importing this file with that tree first on ``sys.path``;
+    prints and returns one JSON object."""
     import numpy as np
     import torch
 
     from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.dist import remap_packed_t4
+    from tinman_sandbox_tpu_torch.examples import packed_cadence
     from tinman_sandbox_tpu_torch.kernels.caar_t import caar_t4_cuda
-    from tinman_sandbox_tpu_torch.kernels.dss import (dss_sweep_cuda,
+    from tinman_sandbox_tpu_torch.kernels.dss import (dss_fixup_cuda,
+                                                      dss_sweep_cuda,
                                                       fix_tables)
 
     dev = torch.device("cuda", 0)
@@ -457,7 +489,7 @@ def kernel_times() -> dict:
     fix = fix_tables(plan, dev)
     gen = torch.Generator(device=dev).manual_seed(9)
     ca, cb = float(np.float32(1.0 / 3.0)), float(np.float32(2.0 / 3.0))
-    out = {"card": card_line(), "sweep": {}, "caar": {}}
+    out = {"card": card_line(), "sweep": {}, "caar": {}, "fixup": {}}
 
     def both(fn, reps):
         return dict(ms=cuda_ms(fn, reps), graph_ms=graph_ms(fn, reps),
@@ -493,6 +525,16 @@ def kernel_times() -> dict:
         out["caar"][f"stage_slab_ne30_phi{int(emit_phi)}"] = both(
             lambda: caar_t4_cuda(scal, meta, s0, None, qdp, pecnd, *acc, dvv,
                                  fix=fix, single=True, emit_phi=emit_phi), 20)
+    for rows in (NLEV, 4 * NLEV, QSIZE_TALL * NLEV):
+        slab = torch.randn(fix.nsrc, rows, generator=gen, device=dev)
+        out["fixup"][rows] = both(lambda: dss_fixup_cuda(slab, fix, rsp),
+                                  50 if rows < 1000 else 20)
+        del slab
+    prob = packed_cadence.make_cadence_problem(NE, NLEV, 1, DYN_DT, "random",
+                                               dev)
+    remap = lambda: remap_packed_t4(prob["s"], prob["qdp"], prob["hv"],
+                                    prob["cfg"].nelem, NLEV, 1)
+    out["remap"] = dict(ms=cuda_ms(remap, 5), graph_ms=graph_ms(remap, 5))
     print(json.dumps(out))
     return out
 
@@ -1063,7 +1105,8 @@ def phase_dynamics_kernels(dev, cs):
     from tinman_sandbox_tpu_torch import bench
     from tinman_sandbox_tpu_torch.kernels.caar_t import caar_t4_cuda, caar_t4_plain
     from tinman_sandbox_tpu_torch.kernels.dss import (
-        dss_extract_plain, dss_fixup_plain, dss_sweep_cuda, dss_sweep_plain,
+        dss_extract_plain, dss_fixup_cuda, dss_fixup_plain, dss_sweep_cuda,
+        dss_sweep_plain,
         fix_tables)
     from tinman_sandbox_tpu_torch.kernels.hypervis_t import vlap_cuda, vlap_plain
 
@@ -1154,6 +1197,20 @@ def phase_dynamics_kernels(dev, cs):
     ca, cb = float(np.float32(1.0 / 3.0)), float(np.float32(2.0 / 3.0))
     vd4 = dss_fixup_plain(dss_extract_plain(x4, fix), fix, rsp)
     vd3 = dss_fixup_plain(dss_extract_plain(x3, fix), fix, rsp)
+    # the fixup at the hyperviscosity's [3k] and the state's [4k] rows
+    fixup_graph = {}
+    for x, vd_p in ((x3, vd3), (x4, vd4)):
+        slab = dss_extract_plain(x, fix)
+        got = dss_fixup_cuda(slab, fix, rsp)
+        torch.cuda.synchronize()
+        if not torch.equal(got, vd_p):
+            raise AssertionError(f"dss_fixup at {x.shape[0]} rows differs "
+                                 "from plain")
+        fixup_graph[x.shape[0]] = graph_ms(
+            lambda: dss_fixup_cuda(slab, fix, rsp), 50)
+    print(f"phase 9 dss_fixup ne{cs.ne}: bitwise equal at {3 * k} and "
+          f"{4 * k} rows; from a graph " + ", ".join(
+              f"{r} rows {v:.4f} ms" for r, v in fixup_graph.items()))
     want = dss_sweep_plain(x4, rsp, vd4, fix, mix=(mx4, ca, cb))
     got = dss_sweep_cuda(x4, rsp, vd4, fix, mix=(mx4, ca, cb))
     torch.cuda.synchronize()
@@ -1196,6 +1253,8 @@ def phase_dynamics_kernels(dev, cs):
           f"{inp_ms:.4f} ms (graph {inp_graph_ms:.4f}; bound {b_inp:.4f} ms),"
           f" [{3 * k}] rows without mix {s3_ms:.4f} ms (bound {b_s3:.4f} ms);"
           f" plain {pn_ms:.4f} ms")
+    out["dss_fixup_cuda"] = {f"rows{r}_graph_ms": v
+                             for r, v in fixup_graph.items()}
     out["dss_sweep_cuda"] = dict(
         mix_max_abs_err=mix_err, mix_ms=new_ms, mix_graph_ms=new_graph_ms,
         mix_bound_ms=b_new, mix_plain_ms=pn_ms, mix_inplace_ms=inp_ms,
@@ -1347,7 +1406,7 @@ def phase_tracer_kernels(dev, cs):
 
     from tinman_sandbox_tpu_torch import bench
     from tinman_sandbox_tpu_torch.kernels.dss import (
-        dss_fixup_cuda, dss_sweep_cuda, fix_tables)
+        dss_fixup_cuda, dss_fixup_plain, dss_sweep_cuda, fix_tables)
     from tinman_sandbox_tpu_torch.kernels.tracer_t import (
         tracer_euler_cuda, tracer_euler_plain, tracer_limit_cuda,
         tracer_limit_plain)
@@ -1424,10 +1483,13 @@ def phase_tracer_kernels(dev, cs):
                 tall_qsize=qsize, tall_max_scaled_err=worst, tall_ms=k_ms,
                 tall_plain_ms=p_ms, tall_bound_ms=bnd)
 
-        # -- what closes a tracer stage: the fixup and the sweep on qsize*k
-        # rows (held bit for bit in phases 4 and 9), timed at this height
+        # -- what closes a tracer stage: the fixup (bit for bit plain) and
+        # the sweep (held bit for bit in phases 4 and 9) on qsize*k rows,
+        # timed at this height
         e, slab = tracer_euler_cuda(meta, s0, s0, q, dvv, DYN_DT, k, **kw)
         vd = dss_fixup_cuda(slab, fix, rsp)
+        if not torch.equal(vd, dss_fixup_plain(slab, fix, rsp)):
+            raise AssertionError(f"dss_fixup {tag} differs from plain")
         fx_ms = cuda_ms(lambda: dss_fixup_cuda(slab, fix, rsp), reps)
         fxg_ms = graph_ms(lambda: dss_fixup_cuda(slab, fix, rsp), reps)
         sw = lambda: dss_sweep_cuda(e, rsp, vd, fix)
@@ -3106,12 +3168,150 @@ def phase_probe_path(dev):
     return out
 
 
+@contextlib.contextmanager
+def uncounted(*wrappers):
+    """Launches of ``wrappers`` inside the block are not counted: a kernel
+    held against its plain version or timed is not the main path's run."""
+    saved = [(w.launches, w.f64_launches) for w in wrappers]
+    try:
+        yield
+    finally:
+        for w, (n, n64) in zip(wrappers, saved):
+            w.launches, w.f64_launches = n, n64
+
+
+def kernel_launches(fn):
+    """Kernels one call of ``fn`` launches on the card, by
+    ``torch.profiler``'s CUDA events (memory copies and sets left out);
+    None where the profiler records no CUDA event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    except RuntimeError as e:
+        print(f"kernel_launches: the profiler failed: {e}")
+        return None
+    kernels = [n for n in names if not n.lower().startswith(("memcpy",
+                                                             "memset"))]
+    return len(kernels) if names else None
+
+
+def column_total_err(x_in, dp_in, x_out, dp_out, mass: bool) -> float:
+    """The largest column's |sum x_out*dp_out - sum x_in*dp_in| over its
+    sum |x_in|*dp_in (with ``mass`` x is already a mass: sum x_out against
+    sum x_in over sum |x_in|), in float64. Arguments [K, C]."""
+    if mass:
+        tin, tout = x_in.double().sum(0), x_out.double().sum(0)
+        scale = x_in.double().abs().sum(0)
+    else:
+        tin = (x_in.double() * dp_in.double()).sum(0)
+        tout = (x_out.double() * dp_out.double()).sum(0)
+        scale = (x_in.double().abs() * dp_in.double()).sum(0)
+    return float(((tout - tin).abs() / scale).max())
+
+
+def remap_gates(dev, prob, pre, mass0):
+    """Phase 21's gates of the remap kernel on the last remap's input
+    ``pre`` = (s, qdp), for pcm, plm and ppm; raises on a failure. Returns
+    the measurements of the kernel's row in the kernels line."""
+    import torch
+
+    from tinman_sandbox_tpu_torch.dist import (
+        remap_packed_t4, remap_packed_t4_plain)
+    from tinman_sandbox_tpu_torch.kernels.remap import (
+        remap_levels_cuda, remap_packed_cuda)
+    from tinman_sandbox_tpu_torch.ops.remap import (remap_levels,
+                                                    remap_levels_plain)
+
+    k, nelem = NLEV, prob["cfg"].nelem
+    s, q = pre
+    hv, sph = prob["hv"], prob["sph_lanes"]
+    dp = s[3 * k:]
+    names = ("u", "v", "t", "qdp")
+    blocks = lambda x, y: list(x[:3 * k].split(k)) + [y]
+    worst = {}
+    for scheme in ("pcm", "plm", "ppm"):
+        ks, kq = remap_packed_cuda(s, q, hv, k, 1, scheme)
+        ps, pq = remap_packed_t4_plain(s, q, hv, nelem, k, 1, scheme)
+        rs, rq = remap_packed_t4_plain(s.double(), q.double(), hv, nelem, k,
+                                       1, scheme)
+        kf = remap_packed_t4(s, q, hv, nelem, k, 1, scheme, sph, mass0)
+        pf = remap_packed_t4_plain(s, q, hv, nelem, k, 1, scheme, sph, mass0)
+        torch.cuda.synchronize()
+        dp_same = torch.equal(ks[3 * k:], ps[3 * k:]) \
+            and torch.equal(kf[0][3 * k:], pf[0][3 * k:])
+        ref = blocks(rs, rq)
+        kern = {n: scaled_err(a, b) for n, a, b in zip(names, blocks(ks, kq),
+                                                       ref)}
+        kern_abs = max(float((a.double() - b).abs().max())
+                       for a, b in zip(blocks(ks, kq), ref))
+        plain = {n: scaled_err(a, b) for n, a, b in zip(names, blocks(ps, pq),
+                                                        ref)}
+        tot_k = {n: column_total_err(a, dp, b, ks[3 * k:], n == "qdp")
+                 for n, a, b in zip(names, blocks(s, q), blocks(ks, kq))}
+        tot_p = {n: column_total_err(a, dp, b, ps[3 * k:], n == "qdp")
+                 for n, a, b in zip(names, blocks(s, q), blocks(ps, pq))}
+        finite = bool(torch.isfinite(ks).all() and torch.isfinite(kq).all())
+        print(f"phase 21 remap kernel {scheme}: dp rows bit for bit the plain "
+              f"code's (without and with the fixer) {dp_same}; scaled errors "
+              f"against the plain float64 remap, kernel / plain float32: "
+              + " ".join(f"{n} {kern[n]:.2e} / {plain[n]:.2e}" for n in names)
+              + "; column totals of sum|x|*dp, kernel / plain float32: "
+              + " ".join(f"{n} {tot_k[n]:.2e} / {tot_p[n]:.2e}"
+                         for n in names))
+        if not dp_same or not finite:
+            raise AssertionError(f"remap kernel {scheme}: dp rows differ from "
+                                 f"the plain code's, or non-finite")
+        for n in names:
+            if kern[n] > plain[n]:
+                raise AssertionError(f"remap kernel {scheme} {n}: {kern[n]} "
+                                     f"off the float64 remap, the plain "
+                                     f"float32 code {plain[n]}")
+            if tot_k[n] > REMAP_TOTAL_TOL:
+                raise AssertionError(f"remap kernel {scheme} {n}: column "
+                                     f"totals {tot_k[n]} > {REMAP_TOTAL_TOL}")
+        worst[scheme] = dict(kernel=kern, kernel_abs=kern_abs,
+                             plain_f32=plain, totals=tot_k,
+                             plain_totals=tot_p)
+        del ks, kq, ps, pq, rs, rq, kf, pf
+    # the float64 instances against the plain float64 code
+    s64, q64, hv64 = s.double(), q.double(), hv.to(dtype=torch.float64)
+    ks, kq = remap_packed_t4(s64, q64, hv64, nelem, k, 1)
+    rs, rq = remap_packed_t4_plain(s64, q64, hv64, nelem, k, 1)
+    f64_packed = max(scaled_err(a, b) for a, b in zip(
+        blocks(ks, kq) + [ks[3 * k:]], blocks(rs, rq) + [rs[3 * k:]]))
+    dp64, dpt64 = s64[3 * k:], rs[3 * k:]
+    lev = remap_levels(s64[:k], dp64, dpt64)
+    three = remap_levels_cuda(s64[:3 * k], dp64, dpt64, "ppm")
+    f64_levels = max(
+        scaled_err(lev, remap_levels_plain(s64[:k], dp64, dpt64)),
+        max(scaled_err(a, remap_levels_plain(b, dp64, dpt64, "ppm"))
+            for a, b in zip(three.split(k), s64[:3 * k].split(k))))
+    print(f"phase 21 remap kernel float64 against the plain float64 code, "
+          f"scaled: packed {f64_packed:.2e}, level form (plm; three fields "
+          f"in one launch, ppm) {f64_levels:.2e} (limit {REMAP_F64_TOL})")
+    if max(f64_packed, f64_levels) > REMAP_F64_TOL:
+        raise AssertionError(f"remap kernel float64: {f64_packed}, "
+                             f"{f64_levels} > {REMAP_F64_TOL}")
+    del s64, q64, ks, kq, rs, rq, lev, three
+    return dict(gates=worst, f64_packed_scaled_err=f64_packed,
+                f64_levels_scaled_err=f64_levels)
+
+
 def phase_remap_cadence(dev, cs):
     """Phase 21: the packed remap cadence at ne30 x 72, qsize 1 (the
     ``examples.packed_cadence`` problem and loop), kernels against plain,
-    the remap's time, memory and share; the example and the energy-drift
-    tool on the card; the CLI's --diag with a --checkpoint / --restore
-    pair. Returns the remap's measurements."""
+    the remap kernel's gates, time, memory, launches and share; the example
+    and the energy-drift tool on the card; the CLI's --diag with a
+    --checkpoint / --restore pair. Returns the kernels' rows of the
+    kernels line and the remap's measurements."""
     import json as _json
     import tempfile
 
@@ -3121,8 +3321,13 @@ def phase_remap_cadence(dev, cs):
     from tinman_sandbox_tpu_torch import cli
     from tinman_sandbox_tpu_torch.dist import (
         continuity_error_t, packed_air_mass, prim_step_packed_t4,
-        prim_step_packed_t4_plain, remap_packed_t4)
+        prim_step_packed_t4_plain, remap_packed_t4, remap_packed_t4_plain)
     from tinman_sandbox_tpu_torch.examples import packed_cadence
+    from tinman_sandbox_tpu_torch.kernels import _build
+    from tinman_sandbox_tpu_torch.kernels.remap import (
+        SCHEMES, remap_levels_cuda, remap_packed_cuda, remap_packed_plain,
+        remap_plan)
+    from tinman_sandbox_tpu_torch.ops.remap import remap_levels_plain
     from tinman_sandbox_tpu_torch.ops.diagnostics import (
         energy_diagnostics_packed_t)
     from tinman_sandbox_tpu_torch.tools import energy_drift
@@ -3152,6 +3357,15 @@ def phase_remap_cadence(dev, cs):
         return remap_packed_t4(s, q, prob["hv"], cfg.nelem, NLEV, 1,
                                sph_lanes=sph, mass_target=mass0)
 
+    def remap_ref(s, q):
+        # the plain chain's remap: the plain code in float64 on the float32
+        # state, rounded to float32
+        rs, rq = remap_packed_t4_plain(s.double(), q.double(), prob["hv"],
+                                       cfg.nelem, NLEV, 1,
+                                       sph_lanes=sph.double(),
+                                       mass_target=mass0.double())
+        return rs.float(), rq.float()
+
     # the example's loop, on the kernels and on the plain step
     ks, kq, kacc = s0, q0, tuple(a.clone() for a in prob["acc"])
     ps, pq, pacc = s0, q0, prob["acc"]
@@ -3177,7 +3391,7 @@ def phase_remap_cadence(dev, cs):
         if i % rsplit == 0:
             pre = (ks, kq)
             ks, kq = remap(ks, kq)
-            ps, pq = remap(ps, pq)
+            ps, pq = remap_ref(ps, pq)
             rel = abs(float(packed_air_mass(ks, sph, NLEV)) / float(mass0)
                       - 1.0)
             masses.append(rel)
@@ -3206,47 +3420,131 @@ def phase_remap_cadence(dev, cs):
           f"{float(kq.min()):.3e}; end: {diag(ks)}")
     del ps, pq, pacc, os_, oq
 
-    # the remap's own f32 rounding: the last remap's input through the same
-    # remap in f32 and in f64, by PLM and by PCM (whose reconstruction has
-    # no slope to switch); two inputs that differ at all draw different
-    # roundings, so the chains part after a remap by about this much
-    rounding = {}
-    for scheme in ("plm", "pcm"):
-        r32 = remap_packed_t4(*pre, prob["hv"], cfg.nelem, NLEV, 1,
-                              scheme=scheme)
-        r64 = remap_packed_t4(pre[0].double(), pre[1].double(), prob["hv"],
-                              cfg.nelem, NLEV, 1, scheme=scheme)
-        one = {name: scaled_err(a, b) for name, a, b in zip(
-            ("u", "v", "t", "dp"), r32[0].split(NLEV), r64[0].split(NLEV))}
-        one["qdp"] = scaled_err(r32[1], r64[1])
-        rounding[scheme] = one
-        del r32, r64
-    del pre
-    print(f"phase 21 remap_packed_t4 f32 against f64 on the last remap's "
-          f"input, scaled errors: " + "; ".join(
-              f"{sch} " + " ".join(f"{k} {v:.2e}" for k, v in e.items())
-              for sch, e in rounding.items()))
-
-    # the remap's time, memory, and share of the cadence
-    remap(ks, kq)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    remap(ks, kq)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - base
-    r_ms = cuda_ms(lambda: remap(ks, kq), 5)
-    acc = tuple(a.clone() for a in kacc)
-    step_ms = cuda_ms(lambda: step(prim_step_packed_t4, ks, kq, acc), 10)
-    share = r_ms / (rsplit * step_ms + r_ms)
-    print(f"phase 21 remap_packed_t4 ne{cs.ne}x{NLEV} qsize 1: {r_ms:.3f} ms "
-          f"a call, peak {peak / 2 ** 20:.1f} MiB above its inputs; the "
-          f"cadence step {step_ms:.3f} ms; the remap {share:.3f} of the "
-          f"cadence's time (one remap per {rsplit} steps)")
-    times = dict(remap_ms=r_ms, remap_peak_mib=peak / 2 ** 20,
+    # the remap kernel's gates on the last remap's input, its times against
+    # the dense plain code's, its peak memory and launches a call, and its
+    # share of the cadence; none of these launches is the main path's
+    wrappers = (remap_packed_cuda, remap_levels_cuda)
+    with uncounted(*wrappers):
+        gates = remap_gates(dev, prob, pre, mass0)
+        ks_, kq_ = pre
+        hv, nelem, k = prob["hv"], cfg.nelem, NLEV
+        kernel = lambda: remap_packed_cuda(ks_, kq_, hv, k, 1)
+        plain = lambda: remap_packed_plain(ks_, kq_, hv, k, 1)
+        user = lambda: remap(ks_, kq_)
+        user_plain = lambda: remap_packed_t4_plain(
+            ks_, kq_, hv, nelem, k, 1, sph_lanes=sph, mass_target=mass0)
+        k_ms, k_graph = cuda_ms(kernel, 50), graph_ms(kernel, 50)
+        u_ms, u_graph = cuda_ms(user, 50), graph_ms(user, 50)
+        p_ms, up_ms = cuda_ms(plain, 3), cuda_ms(user_plain, 3)
+        peaks = {}
+        for name, fn in (("remap_packed_t4", user),
+                         ("remap_packed_t4_plain", user_plain)):
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn()
+            torch.cuda.synchronize()
+            peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        launches = {name: kernel_launches(fn) for name, fn in (
+            ("remap_packed_cuda", kernel), ("remap_packed_t4", user),
+            ("remap_packed_t4_plain", user_plain))}
+        acc = tuple(a.clone() for a in kacc)
+        step_ms = cuda_ms(lambda: step(prim_step_packed_t4, ks, kq, acc), 10)
+        share = u_ms / (rsplit * step_ms + u_ms)
+        share_plain = up_ms / (rsplit * step_ms + up_ms)
+        # the level form at the field-form cadence's shape on the card (the
+        # drift tool's ne4 x 8, float64, one field a launch) and at ne30 x
+        # 72 (float64, one field)
+        lv = {}
+        for tag, ncol, nl in (("ne4x8", 96 * 16, 8), ("ne30x72", ks_.shape[1],
+                                                     NLEV)):
+            gen = torch.Generator(device=dev).manual_seed(13)
+            dps = torch.rand(nl, ncol, generator=gen, device=dev,
+                             dtype=torch.float64) + 0.5
+            w = torch.rand(nl, ncol, generator=gen, device=dev,
+                           dtype=torch.float64) + 0.5
+            dpt = w / w.sum(0) * dps.sum(0)
+            x = torch.randn(nl, ncol, generator=gen, device=dev,
+                            dtype=torch.float64)
+            got, want = (remap_levels_cuda(x, dps, dpt),
+                         remap_levels_plain(x, dps, dpt))
+            err = scaled_err(got, want)
+            b, by = bound_ms(4 * nl * ncol * 8, 0)
+            lv[tag] = dict(
+                ms=cuda_ms(lambda: remap_levels_cuda(x, dps, dpt), 50),
+                graph_ms=graph_ms(lambda: remap_levels_cuda(x, dps, dpt), 50),
+                plain_ms=cuda_ms(lambda: remap_levels_plain(x, dps, dpt), 3),
+                bound_ms=b, bound_by=by, scaled_err=err,
+                abs_err=float((got - want).abs().max()))
+            if err > REMAP_F64_TOL:
+                raise AssertionError(f"remap_levels_cuda {tag}: {err}")
+            del dps, w, dpt, x, got, want
+    # the plan: csrc/remap.cu's shared memory a block against remap_plan's,
+    # and the blocks an SM by cudaOccupancy
+    lib = _build.library("remap")
+    for itemsize, scheme in itertools.product((4, 8), SCHEMES):
+        smem = lib.remap_smem_bytes(NLEV, itemsize, SCHEMES.index(scheme))
+        if remap_plan(NLEV, itemsize, scheme) != smem:
+            raise AssertionError(f"remap_plan({NLEV}, {itemsize}, {scheme}) "
+                                 f"!= the kernel's {smem} B")
+    plans = {scheme: (remap_plan(NLEV, 4, scheme), lib.remap_blocks_per_sm(
+        0, SCHEMES.index(scheme), 1, NLEV, dev.index)) for scheme in SCHEMES}
+    print(f"phase 21 remap kernel plan ne{cs.ne}x{NLEV} f32, 32 columns a "
+          f"block: " + ", ".join(f"{sch} {b} B shared, {n} blocks an SM"
+                                 for sch, (b, n) in plans.items()))
+    ncol = ks_.shape[1]
+    nbytes = 2 * 5 * NLEV * ncol * 4 + 2 * (NLEV + 1) * 4
+    bnd, by = bound_ms(nbytes, REMAP_OPS_PER_POINT * 4 * NLEV * ncol)
+    # the fixer: packed_air_mass reads the dp rows and spheremp, the two
+    # scales read and write the dp and tracer rows
+    fix_bytes = (NLEV + 1) * ncol * 4 + 2 * 2 * NLEV * ncol * 4
+    bnd_user = bnd + fix_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"phase 21 remap kernel ne{cs.ne}x{NLEV} qsize 1 f32 plm "
+          f"(remap_packed_cuda, {nbytes} B): {k_ms:.4f} ms (graph "
+          f"{k_graph:.4f}), bound {bnd:.4f} ms ({by}); dense plain "
+          f"(remap_packed_plain) {p_ms:.3f} ms, {p_ms / k_ms:.0f}x; "
+          f"remap_packed_t4 with the fixer {u_ms:.4f} ms (graph "
+          f"{u_graph:.4f}; bound {bnd_user:.4f}) against the plain "
+          f"{up_ms:.3f} ms; peak above the inputs "
+          + ", ".join(f"{n} {v:.1f} MiB" for n, v in peaks.items())
+          + "; launches a call " + ", ".join(
+              f"{n} {'not measured' if v is None else v}"
+              for n, v in launches.items())
+          + f"; the cadence step {step_ms:.3f} ms, the remap {share:.4f} of "
+          f"the cadence (the plain remap's {share_plain:.3f}; one remap per "
+          f"{rsplit} steps)")
+    print(f"phase 21 remap_levels_cuda float64 (one field): " + "; ".join(
+        f"{t} {v['ms']:.4f} ms (graph {v['graph_ms']:.4f}, bound "
+        f"{v['bound_ms']:.4f}), plain {v['plain_ms']:.3f} ms, scaled error "
+        f"{v['scaled_err']:.1e}" for t, v in lv.items()))
+    rows = {
+        "remap_packed_cuda": dict(
+            route="cuda", source="tinman_sandbox_tpu_torch/csrc/remap.cu",
+            replaces="tinman_sandbox_tpu/dist/step_pallas.py:693 "
+                     "remap_packed_t4 (XLA, no pallas_call)",
+            max_abs_err=gates["gates"]["plm"]["kernel_abs"],
+            max_abs_err_against="remap_packed_t4_plain in float64 (plm)",
+            ms=k_ms, graph_ms=k_graph, plain_ms=p_ms, bound_ms=bnd,
+            bound_by=by, library_ms=None, with_fixer_ms=u_ms,
+            with_fixer_graph_ms=u_graph, with_fixer_bound_ms=bnd_user,
+            with_fixer_plain_ms=up_ms, peak_mib=peaks,
+            launches_a_call=launches, cadence_share=share,
+            plain_cadence_share=share_plain, plan=plans, **gates),
+        "remap_levels_cuda": dict(
+            route="cuda", source="tinman_sandbox_tpu_torch/csrc/remap.cu",
+            replaces="tinman_sandbox_tpu/ops/remap.py:68 remap_column (XLA, "
+                     "no pallas_call)",
+            max_abs_err=lv["ne4x8"]["abs_err"],
+            ms=lv["ne4x8"]["ms"], plain_ms=lv["ne4x8"]["plain_ms"],
+            bound_ms=lv["ne4x8"]["bound_ms"],
+            bound_by=lv["ne4x8"]["bound_by"], library_ms=None,
+            shape="ne4 x 8 float64, the drift tool's", ne30x72=lv["ne30x72"]),
+    }
+    times = dict(remap_ms=u_ms, remap_peak_mib=peaks["remap_packed_t4"],
                  cadence_step_ms=step_ms, remap_share=share,
-                 remap_mass_rel=masses, remap_f32_rounding=rounding)
-    del ks, kq, kacc, acc
+                 remap_mass_rel=masses)
+    del ks, kq, kacc, acc, pre, ks_, kq_
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -3345,7 +3643,7 @@ def phase_remap_cadence(dev, cs):
               f"steps, --checkpoint, --restore, 1 step equal 3 steps at once "
               f"bit for bit (state, tracers, derived)")
         del za, zc
-    return times
+    return rows, times
 
 
 def main() -> int:
@@ -3372,6 +3670,8 @@ def main() -> int:
             dss_sweep_nomerge_cuda)
         from tinman_sandbox_tpu_torch.kernels.hypervis_t import vlap_cuda
         from tinman_sandbox_tpu_torch.kernels.probe import probe_mm_cuda
+        from tinman_sandbox_tpu_torch.kernels.remap import (
+            remap_levels_cuda, remap_packed_cuda)
         from tinman_sandbox_tpu_torch.kernels.ring_fused import (
             caar_ring_packed_t4, tracer_ring_packed_t)
         from tinman_sandbox_tpu_torch.kernels.saxpby import saxpby_cuda
@@ -3402,7 +3702,8 @@ def main() -> int:
     # the redesigned kernels, instance by instance
     for source, tag in (("dss", "dss_sweep_kernel"),
                         ("caar", "caar_chunk_kernel"),
-                        ("caar", "caar_ring_kernel")):
+                        ("caar", "caar_ring_kernel"),
+                        ("remap", "remap_kernel")):
         for inst, report in ptxas_report(source, tag):
             print(f"phase 1 ptxas {tag}{inst}: {report}")
 
@@ -3428,11 +3729,13 @@ def main() -> int:
                                         dss_sweep_nomerge_cuda,
                                         dss_sweep_banded_cuda,
                                         dss_sweep_banded_nomerge_cuda,
-                                        dss_patch_tiles_cuda, probe_mm_cuda)}
+                                        dss_patch_tiles_cuda, probe_mm_cuda,
+                                        remap_packed_cuda, remap_levels_cuda)}
 
     def reset():
         for w in wrappers.values():
             w.launches = 0
+        remap_packed_cuda.f64_launches = remap_levels_cuda.f64_launches = 0
         caar_t4_cuda.slab_launches = 0
         caar_t4_cuda.single_launches = 0
         tracer_euler_cuda.slab_launches = 0
@@ -3497,8 +3800,11 @@ def main() -> int:
     print(f"phase 20 seconds: {time.perf_counter() - t0:.1f}")
     reset()
     t0 = time.perf_counter()
-    remap_times = phase_remap_cadence(dev, cs)
+    remap_rows, remap_times = phase_remap_cadence(dev, cs)
     cadence = counts()
+    cadence_f64 = {w.__name__: w.f64_launches
+                   for w in (remap_packed_cuda, remap_levels_cuda)}
+    rows.update(remap_rows)
     print(f"phase 21 seconds: {time.perf_counter() - t0:.1f}")
     for label, res, got in (("raw", raw_res, raw), ("assembled", asm_res,
                                                      asm),
@@ -3545,7 +3851,8 @@ def main() -> int:
                                    "dss_sweep_nomerge_cuda",
                                    "dss_sweep_banded_cuda",
                                    "dss_sweep_banded_nomerge_cuda",
-                                   "dss_patch_tiles_cuda", "probe_mm_cuda"):
+                                   "dss_patch_tiles_cuda", "probe_mm_cuda",
+                                   "remap_packed_cuda", "remap_levels_cuda"):
             raise AssertionError(f"{name} was not launched on the assembled "
                                  "path")
     for name in ("caar_t4_cuda", "vlap_cuda", "dss_fixup_cuda",
@@ -3600,13 +3907,20 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on the probe "
                                  "tool's path")
     print(f"phase 21 remap cadence main-path launches: {json.dumps(cadence)}"
-          f"; remap {remap_times['remap_ms']:.3f} ms a call, "
-          f"{remap_times['remap_share']:.3f} of the cadence")
+          f" (float64: {json.dumps(cadence_f64)}); remap "
+          f"{remap_times['remap_ms']:.4f} ms a call, "
+          f"{remap_times['remap_share']:.4f} of the cadence")
     for name in ("caar_t4_cuda", "vlap_cuda", "tracer_limit_cuda",
-                 "tracer_euler_cuda", "dss_fixup_cuda", "dss_sweep_cuda"):
+                 "tracer_euler_cuda", "dss_fixup_cuda", "dss_sweep_cuda",
+                 "remap_packed_cuda", "remap_levels_cuda"):
         if cadence[name] <= 0:
             raise AssertionError(f"{name} was not launched on the remap "
                                  "cadence's path")
+    if cadence["remap_packed_cuda"] - cadence_f64["remap_packed_cuda"] <= 0 \
+            or cadence_f64["remap_levels_cuda"] <= 0:
+        raise AssertionError("the remap kernel was not launched in float32 "
+                             "and in float64 on the remap cadence's path: "
+                             f"{cadence}, float64 {cadence_f64}")
     if row_asm_res["kernel_launches"]["caar_packed"] <= 0:
         raise AssertionError("bench --layout row --ne: no row CAAR launch")
     if single_launches <= 0:

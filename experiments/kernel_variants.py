@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Time other launch plans of the two kernels redesigned for the H100 (the
-structured DSS sweep and the level-chunked CAAR kernel) beside the plans the
-port uses, at the main path's shapes. An experiment, not part of the port:
-the port keeps one plan per kernel, and this script is how the hypotheses
-about them were tested.
+"""Time other launch plans of the kernels redesigned for the H100 (the
+structured DSS sweep, the level-chunked CAAR kernel and the DSS fixup)
+beside the plans the port uses, at the main path's shapes. An experiment,
+not part of the port: the port keeps one plan per kernel, and this script is
+how the hypotheses about them were tested.
 
-    python3 experiments/kernel_variants.py        # from the repository root
+    python3 experiments/kernel_variants.py [sweep] [caar] [fixup] [remap]
+
+from the repository root: the named groups (default all four), in that
+order.
 
   1. the sweep: the port's kernel (``dss_sweep_cuda``: one row a thread, 40
      registers, 6 blocks an SM) and the variants of ``sweep_variants.cu``
@@ -23,7 +26,16 @@ about them were tested.
      (``caar_plan`` replaced for the run), each held per field within 5e-5
      of ``caar_t4_plain`` at 1024 x 72 and timed from CUDA graphs in the
      pair form at 1024 x 72, the pair form with the slab and the stage mode
-     with the slab, with and without phi, at ne30 x 72.
+     with the slab, with and without phi, at ne30 x 72;
+  3. the fixup: the port's kernel (``dss_fixup_cuda``) and the variants of
+     ``fixup_variants.cu`` (flat with u fastest, the kernel before the tile;
+     flat with the row fastest; tiles of 32 fix lanes x 32 or 64 rows), each
+     checked bit for bit against ``dss_fixup_plain`` and timed from CUDA
+     graphs on ne30 at 72, 288 and 2,520 rows;
+  4. the remap kernel (``csrc/remap.cu``) built with other warps a block
+     (``REMAP_WARPS``), each bit for bit the port's ``remap_packed_cuda``
+     and timed from CUDA graphs at ne30 x 72, qsize 1, for pcm, plm and
+     ppm, on the packed cadence's start with its dp rows drawn 5% off.
 
 Every line is one JSON object and names the card and its power limit.
 Without a card the script raises.
@@ -56,23 +68,33 @@ SWEEP_PINNED_BLOCKS = 3
 CAAR_VARIANTS = ((8, True), (8, False), (6, True), (6, False), (4, True))
 
 
-def _sweep_library():
-    """Build sweep_variants.cu (nvcc, sm_90a) and return the library and
-    the registers and spill bytes of each instance that ptxas reports."""
+CSRC = os.path.join(ROOT, "tinman_sandbox_tpu_torch", "csrc")
+
+
+def _compile(name, source=None, flags=()):
+    """Build experiments/<name>.cu, or ``source`` with extra nvcc
+    ``flags``, (nvcc, sm_90a) into build/experiments/<name>.so; returns (its
+    path, ptxas's report)."""
     here = os.path.dirname(os.path.abspath(__file__))
     out = os.path.join(ROOT, "build", "experiments")
     os.makedirs(out, exist_ok=True)
-    lib = os.path.join(out, "sweep_variants.so")
+    lib = os.path.join(out, f"{name}.so")
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "nvcc")
     done = subprocess.run(
         [nvcc, "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-I",
-         os.path.join(ROOT, "tinman_sandbox_tpu_torch", "csrc"), "-o", lib,
-         os.path.join(here, "sweep_variants.cu")],
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", *flags, "-I", CSRC,
+         "-o", lib, source or os.path.join(here, f"{name}.cu")],
         capture_output=True, text=True, check=True)
+    return lib, done.stderr
+
+
+def _sweep_library():
+    """Build sweep_variants.cu and return the library and the registers and
+    spill bytes of each instance that ptxas reports."""
+    lib, report = _compile("sweep_variants")
     regs, name = {}, None
-    for line in done.stderr.splitlines():
+    for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
@@ -215,7 +237,108 @@ def caars(dev, card, fix, assembled, raw):
         caar_t.caar_plan = port_plan
 
 
-def main() -> int:
+# the fixup's variants in fixup_variants.cu: (index, name)
+FIXUP_VARIANTS = ((0, "flat_u_fastest"), (1, "flat_row_fastest"),
+                  (2, "tiled_32x32"), (3, "tiled_32x64"))
+
+
+def fixups(dev, card, fix, rsp):
+    from tinman_sandbox_tpu_torch.kernels.dss import (dss_fixup_cuda,
+                                                      dss_fixup_plain)
+
+    lib, _ = _compile("fixup_variants")
+    so = ctypes.CDLL(lib)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    so.fixup_variant_launch.argtypes = [I, P, P, P, P, I, I, P, I, I, P]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    slabs = {rows: torch.randn(fix.nsrc, rows, generator=gen, device=dev)
+             for rows in (72, 288, 2520)}
+
+    def launcher(variant):
+        def run(slab, vd):
+            err = so.fixup_variant_launch(
+                variant, slab.data_ptr(), fix.fix_src.data_ptr(),
+                fix.fix_lanes.data_ptr(), rsp.data_ptr(), rsp.shape[0],
+                fix.e16, vd.data_ptr(), fix.nfix, slab.shape[1],
+                torch.cuda.current_stream(dev).cuda_stream)
+            if err:
+                raise RuntimeError(f"fixup variant launch failed: {err}")
+            return vd
+        return run
+
+    port = lambda slab, vd: dss_fixup_cuda(slab, fix, rsp)
+    for kind, run in [("port", port)] + [
+            (name, launcher(v)) for v, name in FIXUP_VARIANTS]:
+        line = dict(card=card, kernel="dss_fixup", kind=kind)
+        for rows, slab in slabs.items():
+            vd = torch.empty(rows, fix.nfix, device=dev)
+            got = run(slab, vd)
+            torch.cuda.synchronize()
+            if not torch.equal(got, dss_fixup_plain(slab, fix, rsp)):
+                raise AssertionError(f"fixup {kind} at {rows} rows: not bit "
+                                     "for bit")
+            line[f"graph_ms_{rows}"] = graph_ms(lambda: run(slab, vd),
+                                                100 if rows < 1000 else 30)
+        line["bitwise"] = True
+        print(json.dumps(line), flush=True)
+
+
+# warps a block of the remap kernel, the port's value first
+REMAP_WARPS = (8, 4, 16)
+
+
+def remaps(dev, card):
+    from tinman_sandbox_tpu_torch.examples import packed_cadence
+    from tinman_sandbox_tpu_torch.kernels import _build
+    from tinman_sandbox_tpu_torch.kernels.remap import (SCHEMES,
+                                                        remap_packed_cuda)
+
+    prob = packed_cadence.make_cadence_problem(30, 72, 1, 0.1, "random", dev)
+    s, q, hv = prob["s"].clone(), prob["qdp"], prob["hv"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    s[216:] *= 1 + 0.1 * (torch.rand(s[216:].shape, generator=gen,
+                                     device=dev) - 0.5)
+    k, ncol = 72, s.shape[1]
+    for warps in REMAP_WARPS:
+        lib, report = _compile(f"remap_w{warps}", os.path.join(CSRC,
+                                                               "remap.cu"),
+                               _build.SOURCE_FLAGS["remap"]
+                               + [f"-DREMAP_WARPS={warps}"])
+        so = ctypes.CDLL(lib)
+        so.remap_packed_launch.argtypes = _build._SIGNATURES["remap"][
+            "remap_packed_launch"]
+        regs = sorted({int(m) for m in re.findall(r"Used (\d+) registers",
+                                                  report)})
+        line = dict(card=card, kernel="remap_packed", warps=warps,
+                    registers=regs)
+        for scheme in SCHEMES:
+            s_out, q_out = torch.empty_like(s), torch.empty_like(q)
+
+            def run():
+                err = so.remap_packed_launch(
+                    0, SCHEMES.index(scheme), s.data_ptr(), q.data_ptr(),
+                    hv.hyai.data_ptr(), hv.hybi.data_ptr(), float(hv.ps0),
+                    s_out.data_ptr(), q_out.data_ptr(), k, 1, ncol,
+                    torch.cuda.current_stream(dev).cuda_stream, dev.index)
+                if err:
+                    raise RuntimeError(f"remap variant launch failed: {err}")
+
+            run()
+            want = remap_packed_cuda(s, q, hv, k, 1, scheme)
+            torch.cuda.synchronize()
+            if not (torch.equal(s_out, want[0]) and torch.equal(q_out,
+                                                                want[1])):
+                raise AssertionError(f"remap with {warps} warps, {scheme}: "
+                                     "not bit for bit the port's")
+            line[f"graph_ms_{scheme}"] = graph_ms(run, 20)
+        print(json.dumps(line), flush=True)
+
+
+def main(argv=None) -> int:
+    groups = (argv if argv is not None else sys.argv[1:]) or [
+        "sweep", "caar", "fixup", "remap"]
+    if set(groups) - {"sweep", "caar", "fixup", "remap"}:
+        raise SystemExit(f"kernel_variants: unknown group in {groups}")
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_variants: needs a CUDA card")
     from tinman_sandbox_tpu_torch import bench
@@ -226,9 +349,16 @@ def main() -> int:
     (scal, meta, qdp, pecnd, dvv), (s0, sm1), acc, plan, rsp = \
         bench.make_assembled_problem(30, 72, dev)
     fix = fix_tables(plan, dev)
-    sweeps(dev, card, fix, rsp)
-    caars(dev, card, fix, ((scal, meta, qdp, pecnd, dvv), (s0, sm1), acc),
-          bench.make_problem(1024, 72, dev, seed=7))
+    if "sweep" in groups:
+        sweeps(dev, card, fix, rsp)
+    if "caar" in groups:
+        caars(dev, card, fix,
+              ((scal, meta, qdp, pecnd, dvv), (s0, sm1), acc),
+              bench.make_problem(1024, 72, dev, seed=7))
+    if "fixup" in groups:
+        fixups(dev, card, fix, rsp)
+    if "remap" in groups:
+        remaps(dev, card)
     return 0
 
 

@@ -75,9 +75,12 @@
 // one, and reading the tables and decoding once for both rows bought
 // nothing over doing it per row; one row at 48 warps beat every variant
 // at 24 (experiments/kernel_variants.py). The beta partner reads hit L2:
-// they are other blocks' groups. The other kernels: one thread per output element;
-// the extraction transposes 32x32 tiles through shared
-// memory. The patch reads vd and writes the scattered fix lanes of w: at
+// they are other blocks' groups. The extraction and the fixup turn 32x32
+// tiles in shared memory, so that their slab accesses run along the level
+// axis and their x or vd accesses along the lanes: the fixup with one
+// thread an element of vd (u fastest) read each summand k floats apart, a
+// 32-byte sector for every 4-byte load, and ran at 8x its bound (PERF.md
+// row 21). The patch reads vd and writes the scattered fix lanes of w: at
 // ne30 the 2,856 4-byte stores of a row touch 1,056 32-byte sectors (33.8
 // KB for 11.4 KB of values), each a partial sector write, so its floor
 // counts sectors, not bytes. Its grid is 2-D: fix lanes along x in
@@ -101,12 +104,11 @@ namespace {
 constexpr int kSweepThreads = 256;
 constexpr int kSweepBlocks = 6;
 constexpr int kBandedThreads = 256;
-constexpr int kFixupThreads = 256;
 constexpr int kPatchLanes = 128;   // fix lanes of a patch block
 constexpr int kMaxGridY = 65535;   // grid rows: the sweep's rows at most;
                                    // the patch loops over further rows
-constexpr int kTile = 32;
-constexpr int kTileRows = 8;
+constexpr int kTile = 32;       // the extraction's and the fixup's tiles:
+constexpr int kTileRows = 8;    // kTile x kTile, kTileRows thread rows
 
 // out[row, l]: the swept, scaled value, or with kMerge at a fix lane the fix
 // value vd[row, fix_col[l]]; with kMix ca*mx[row, l] + cb*that. out may be
@@ -230,24 +232,39 @@ dss_patch_kernel(float* __restrict__ w, const float* __restrict__ vd,
 }
 
 // vd[row, u] for fix lane u = fix_lanes[u]: the line / corner sum of the
-// slab rows src[u] = (s0, s1, s2, s3), scaled by the lane's rspheremp
-__global__ void __launch_bounds__(kFixupThreads)
+// slab rows src[u] = (s0, s1, s2, s3), scaled by the lane's rspheremp.
+// A block takes a tile of kTile fix lanes x kTile rows: a warp sums one fix
+// lane over 32 consecutive rows (each summand's slab row read along the
+// level axis, 128 bytes a warp), the tile is turned in shared memory, and
+// a warp stores one row of 32 consecutive vd columns.
+__global__ void __launch_bounds__(kTile * kTileRows)
 dss_fixup_kernel(const float* __restrict__ slab, const int4* __restrict__ src,
                  const int* __restrict__ fix_lanes,
                  const float* __restrict__ rsp, int nrsp, int e16,
                  float* __restrict__ vd, int nfix, int k) {
-  const size_t idx = static_cast<size_t>(blockIdx.x) * kFixupThreads +
-                     threadIdx.x;
-  if (idx >= static_cast<size_t>(nfix) * k) return;
-  const int u = static_cast<int>(idx % nfix);
-  const size_t row = idx / nfix;
-  const int4 s = src[u];
-  float za = slab[static_cast<size_t>(s.x) * k + row];
-  if (s.y >= 0) za = __fadd_rn(za, slab[static_cast<size_t>(s.y) * k + row]);
-  float zb = slab[static_cast<size_t>(s.z) * k + row];
-  if (s.w >= 0) zb = __fadd_rn(zb, slab[static_cast<size_t>(s.w) * k + row]);
-  vd[idx] = dss_sweep::scale(__fadd_rn(za, zb), rsp, nrsp, e16,
-                             fix_lanes[u]);
+  __shared__ float tile[kTile][kTile + 1];
+  const int u0 = blockIdx.x * kTile, row0 = blockIdx.y * kTile;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int row = row0 + tx;
+  if (row < k) {
+    for (int du = ty; du < kTile && u0 + du < nfix; du += kTileRows) {
+      const int u = u0 + du;
+      const int4 s = src[u];
+      float za = slab[static_cast<size_t>(s.x) * k + row];
+      if (s.y >= 0)
+        za = __fadd_rn(za, slab[static_cast<size_t>(s.y) * k + row]);
+      float zb = slab[static_cast<size_t>(s.z) * k + row];
+      if (s.w >= 0)
+        zb = __fadd_rn(zb, slab[static_cast<size_t>(s.w) * k + row]);
+      tile[du][tx] = dss_sweep::scale(__fadd_rn(za, zb), rsp, nrsp, e16,
+                                      fix_lanes[u]);
+    }
+  }
+  __syncthreads();
+  const int u = u0 + tx;
+  if (u < nfix)
+    for (int dr = ty; dr < kTile && row0 + dr < k; dr += kTileRows)
+      vd[static_cast<size_t>(row0 + dr) * nfix + u] = tile[tx][dr];
 }
 
 // slab[r, row] = x[row, lanes[r]], through a 32x32 shared-memory tile
@@ -355,11 +372,10 @@ int dss_fixup_launch(const void* slab, const void* src, const void* fix_lanes,
                      int k, void* stream, int device) {
   cudaError_t err = prepare(device);
   if (err != cudaSuccess) return err;
-  const size_t total = static_cast<size_t>(nfix) * k;
-  const unsigned grid =
-      static_cast<unsigned>((total + kFixupThreads - 1) / kFixupThreads);
-  dss_fixup_kernel<<<grid, kFixupThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+  if (k < 1 || (k + kTile - 1) / kTile > kMaxGridY) return cudaErrorInvalidValue;
+  const dim3 grid((nfix + kTile - 1) / kTile, (k + kTile - 1) / kTile);
+  const dim3 block(kTile, kTileRows);
+  dss_fixup_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(slab), static_cast<const int4*>(src),
       static_cast<const int*>(fix_lanes), static_cast<const float*>(rsp),
       nrsp, e16, static_cast<float*>(vd), nfix, k);

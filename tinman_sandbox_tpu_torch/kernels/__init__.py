@@ -1,7 +1,7 @@
 """CAAR in array form and on the two packed layouts, the hyperviscosity
 Laplacians, the tracer stages on both layouts, the ring-fused producers,
-the saxpby triad and the probe's chained FP32 product; of the DSS kernels
-(``dss.py``) the multi-device ones.
+the saxpby triad, the probe's chained FP32 product and the column remap;
+of the DSS kernels (``dss.py``) the multi-device ones.
 
 The CUDA kernels live in ``../csrc`` and are built at first launch
 (``_build.py``); importing these modules builds nothing.
@@ -26,6 +26,7 @@ from .dss import (
 )
 from .hypervis_t import vlap_cuda, vlap_plain
 from .probe import probe_mm_cuda, probe_mm_plain
+from .remap import remap_levels_cuda, remap_packed_cuda, remap_packed_plain
 from .ring_fused import (
     caar_ring_packed_t4,
     caar_ring_plain,
@@ -64,6 +65,9 @@ __all__ = [
     "euler_step_fast",
     "probe_mm_cuda",
     "probe_mm_plain",
+    "remap_levels_cuda",
+    "remap_packed_cuda",
+    "remap_packed_plain",
     "ring_geometry",
     "run_leapfrog",
     "run_leapfrog_t",

@@ -27,14 +27,17 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 SOURCES = {"caar": "caar.cu", "dss": "dss.cu", "hypervis": "hypervis.cu",
-           "probe": "probe.cu", "saxpby": "saxpby.cu", "tracer": "tracer.cu"}
+           "probe": "probe.cu", "remap": "remap.cu", "saxpby": "saxpby.cu",
+           "tracer": "tracer.cu"}
 _FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 # flags of one source on top of _FLAGS: caar.cu is built without FMA
 # contraction, so every FMA in it is an explicit fmaf and the bits of a
 # column do not depend on which kernel inlines the chunked body (the
-# chunked kernel with or without its stash, the ring kernel)
-SOURCE_FLAGS = {"caar": ["-fmad=false"]}
+# chunked kernel with or without its stash, the ring kernel); remap.cu so
+# that its dp rows round every product and sum on its own, as the plain
+# PyTorch code does
+SOURCE_FLAGS = {"caar": ["-fmad=false"], "remap": ["-fmad=false"]}
 
 
 def _flags(name: str) -> list:
@@ -136,6 +139,14 @@ _SIGNATURES = {
         "probe_mm_launch": [_P, _P, _P] + [_I] * 9 + [_P, _I],
         "probe_occupancy": [_I] * 9 + [ctypes.POINTER(_I)] * 2,
         "probe_error_string": [_I],
+    },
+    "remap": {
+        "remap_packed_launch": [_I, _I, _P, _P, _P, _P, ctypes.c_double, _P,
+                                _P, _I, _I, _I, _P, _I],
+        "remap_levels_launch": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I],
+        "remap_smem_bytes": [_I, _I, _I],
+        "remap_blocks_per_sm": [_I] * 5,
+        "remap_error_string": [_I],
     },
     "saxpby": {
         "saxpby_f32_launch": [_F, _F, _P, _P, ctypes.c_longlong, _P, _I],

@@ -284,6 +284,46 @@ def dss_fixup_plain(slab: torch.Tensor, tables: FixTables,
     return _scale(v, r).T.contiguous()
 
 
+def dss_fixup_emulated(slab: torch.Tensor, tables: FixTables,
+                       rsp: torch.Tensor):
+    """csrc/dss.cu's tiled fixup kernel in torch, for the tests: each block
+    (bx, by) of the grid, each thread (tx, ty) of its 32 x 8, in its summing
+    pass (row by*32 + tx, fix lane bx*32 + ty + 8*i, into tile[du][tx]) and
+    its storing pass (vd[by*32 + ty + 8*i, bx*32 + tx] = tile[tx][dr]), with
+    the kernel's bounds tests. Returns (vd, writes), writes[row, u] the
+    stores that element of vd took."""
+    tile_n, rows_a = 32, 8
+    n, k = tables.nfix, slab.shape[1]
+    gx, gy = -(-n // tile_n), -(-k // tile_n)
+    grid = torch.meshgrid(torch.arange(gx), torch.arange(gy),
+                          torch.arange(rows_a), torch.arange(tile_n),
+                          torch.arange(tile_n // rows_a), indexing="ij")
+    bx, by, ty, tx, it = (x.reshape(-1) for x in grid)
+    tile = torch.full((gx, gy, tile_n, tile_n + 1), float("nan"),
+                      dtype=slab.dtype)
+    # summing pass: a warp (fixed ty, it) sums fix lane u over 32 rows
+    row, du = by * tile_n + tx, ty + rows_a * it
+    u = bx * tile_n + du
+    ok = (row < k) & (u < n)
+    row, du, u, b, c, t = (x[ok] for x in (row, du, u, bx, by, tx))
+    src = tables.fix_src.long()[u]
+    at = lambda col: slab[src[:, col].clamp(min=0), row]
+    za = torch.where(src[:, 1] >= 0, at(0) + at(1), at(0))
+    zb = torch.where(src[:, 3] >= 0, at(2) + at(3), at(2))
+    lanes = tables.fix_lanes.long()[u]
+    tile[b, c, du, t] = _scale(za + zb, rsp[:, lanes])
+    # storing pass: a warp (fixed ty, it) stores 32 fix lanes of one row
+    u, dr = bx * tile_n + tx, ty + rows_a * it
+    row = by * tile_n + dr
+    ok = (u < n) & (row < k)
+    vd = torch.full((k, n), float("nan"), dtype=slab.dtype)
+    writes = torch.zeros((k, n), dtype=torch.long)
+    vd[row[ok], u[ok]] = tile[bx[ok], by[ok], tx[ok], dr[ok]]
+    writes.index_put_((row[ok], u[ok]), torch.ones_like(row[ok]),
+                      accumulate=True)
+    return vd, writes
+
+
 def _sweep_masks(ne: int, e16: int, device):
     lane = torch.arange(e16, device=device)
     i, j = (lane // NP) % NP, lane % NP

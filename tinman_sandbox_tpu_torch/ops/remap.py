@@ -10,12 +10,15 @@ Reconstruction: piecewise constant (``pcm``), piecewise linear with minmod
 limiting (``plm``) or piecewise parabolic with Colella-Woodward
 monotonisation (``ppm``).
 
-The overlap is a [K+1, K, columns] temporary for every field (1.8 GB at
-ne30 x 72 in f32), so the columns go through in chunks whose temporaries
-stay under ``MAX_TEMP_BYTES``. Every sum runs over the levels of one column,
-and the sum over source cells is a fixed pairwise tree of elementwise adds
+That dense form is the plain version, ``remap_levels_plain``. Its overlap
+is a [K+1, K, columns] temporary for every field (1.8 GB at ne30 x 72 in
+f32), so the columns go through in chunks whose temporaries stay under
+``MAX_TEMP_BYTES``. Every sum runs over the levels of one column, and the
+sum over source cells is a fixed pairwise tree of elementwise adds
 (``_level_tree_sum``), so a chunk changes no bit of the result on any
-device.
+device. ``remap_levels`` runs it for CPU tensors and launches the remap
+kernel (``kernels.remap.remap_levels_cuda``: a merge walk over the
+overlapped pieces, one thread a column) for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import dataclasses
 import torch
 
 __all__ = ["MAX_TEMP_BYTES", "comp_sum", "remap_column", "remap_levels",
-           "reference_dp", "vertical_remap"]
+           "remap_levels_plain", "reference_dp", "vertical_remap"]
 
 # the largest [K+1, K, columns] temporary a chunk may make
 MAX_TEMP_BYTES = 256 * 2 ** 20
@@ -149,9 +152,27 @@ def remap_levels(q: torch.Tensor, dp_src: torch.Tensor, dp_tgt: torch.Tensor,
                  ) -> torch.Tensor:
     """Conservatively remap cell averages ``q`` from layers ``dp_src`` to
     ``dp_tgt`` (equal column totals), levels on axis 0: [K, C] each, C
-    columns (the packed [nlev, E16] rows are this shape). ``chunk`` columns
-    go through at a time (default: as many as keep the [K+1, K, chunk]
-    temporary under ``MAX_TEMP_BYTES``); the result does not depend on it."""
+    columns (the packed [nlev, E16] rows are this shape). CPU tensors take
+    ``remap_levels_plain`` (``chunk`` as there); CUDA tensors launch the
+    remap kernel, which needs one dtype and contiguous operands."""
+    if any(x.device.type == "cuda" for x in (q, dp_src, dp_tgt)):
+        from ..kernels.remap import remap_levels_cuda
+
+        if q.shape != dp_src.shape:
+            raise ValueError(f"remap: q, dp_src, dp_tgt must be equal [K, C],"
+                             f" got {tuple(q.shape)}, {tuple(dp_src.shape)}, "
+                             f"{tuple(dp_tgt.shape)}")
+        return remap_levels_cuda(q, dp_src, dp_tgt, scheme)
+    return remap_levels_plain(q, dp_src, dp_tgt, scheme, chunk)
+
+
+def remap_levels_plain(q: torch.Tensor, dp_src: torch.Tensor,
+                       dp_tgt: torch.Tensor, scheme: str = "plm",
+                       chunk: int | None = None) -> torch.Tensor:
+    """``remap_levels`` by the dense overlap on any device. ``chunk``
+    columns go through at a time (default: as many as keep the [K+1, K,
+    chunk] temporary under ``MAX_TEMP_BYTES``); the result does not depend
+    on it."""
     if scheme not in ("pcm", "plm", "ppm"):
         raise ValueError(f"unknown remap scheme {scheme!r}")
     if not (q.shape == dp_src.shape == dp_tgt.shape) or q.dim() != 2:
