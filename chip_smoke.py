@@ -71,7 +71,10 @@ NVIDIA card and check it, phase by phase:
      --rk --hypervis-nu 1e15``; per step 3 CAAR launches in stage mode, 2
      Laplacians, 5 fixups and 5 sweeps;
  11. the tracer kernels at ne30 x 72, at qsize 1 and 35 (the stack
-     [2520, 86400]), winds read out of the [4*nlev] state, with the slab:
+     [2520, 86400]), winds read out of the [4*nlev] state, with the slab;
+     first the design (4 lanes a thread, the warps, lanes and levels of a
+     block, cudaOccupancy's blocks an SM and ptxas's registers of the Euler
+     and the two limited instances); then
      ``tracer_euler_cuda`` against ``tracer_euler_plain`` within 5e-5 per
      tracer block, at the run's dt and at a dt long enough for the
      divergence to carry the output, the slab bit for bit the output at the
@@ -79,8 +82,9 @@ NVIDIA card and check it, phase by phase:
      5e-5 per tracer block without and with the Shu-Osher combination, on a
      uniform field and on a field with a tenth of its nodes pushed outside
      the bounds, with each element's mass kept to 4e-6 and the result inside
-     the bounds wherever they are feasible; each timed against its bound;
-     the fixup of the 72- and 2,520-row stacks bit for bit
+     the bounds wherever they are feasible; each timed by events and from
+     a CUDA graph against its bound; the fixup of the 72- and 2,520-row
+     stacks bit for bit
      ``dss_fixup_plain``, also from a CUDA graph;
  12. the full model step at ne30 x 72, qsize 1, its launch counts set to 0
      just before it and read just after: 10 chained ``prim_step_packed_t4``
@@ -89,9 +93,12 @@ NVIDIA card and check it, phase by phase:
      tracers, continuity exactly 0 after each step for the state and the
      tracers), without and with the limiter; the CLI ``--ne 30 --prim
      --hypervis-nu 1e15 --init random``; ``bench --ne 30 --prim
-     --hypervis-nu 1e15``, again with ``--limit`` and again with ``--qsize
-     35``; per step 3 CAAR launches, 2 Laplacians, 3 tracer launches, 8
-     fixups and 8 sweeps;
+     --hypervis-nu 1e15``, again with ``--limit``, with ``--qsize 35`` and
+     with ``--qsize 35 --limit`` (the production configuration); with the
+     limiter min qdp >= 0 at qsize 1 and >= -1e-6 (the limiter's bounds
+     gate: its residual pass leaves a node on a zero bound a few ulps
+     below) at qsize 35; per step 3 CAAR launches, 2 Laplacians, 3 tracer
+     launches, 8 fixups and 8 sweeps;
  13. the rsplit=0 and row-layout kernels at 1024 x 72 and 5,400 x 72 (the
      ne30 geometry), with a hybi ramp (linspace(0, 1, nlev+1)) and a random
      eta accumulator: the rsplit=0 mode on the t layout
@@ -213,8 +220,9 @@ NVIDIA card and check it, phase by phase:
 Any failure raises and exits non-zero before the result line is printed.
 Run from the repository root: ``python3 chip_smoke.py``.
 
-``kernel_times()`` times the sweep, the t-layout CAAR kernel, the fixup and
-the packed remap through entry points that older trees share, so the same
+``kernel_times()`` times the sweep, the t-layout CAAR kernel, the fixup, the
+packed remap and the two tracer stages through entry points that older
+trees share, so the same
 measurement runs against a parent checkout: from that checkout's root,
 ``python3 -c "import importlib.util as u; s = u.spec_from_file_location(
 'cs', '<this file>'); m = u.module_from_spec(s); s.loader.exec_module(m);
@@ -240,9 +248,10 @@ CAAR_OPS_PER_POINT = 190
 # FP32 operations per grid point of the weak Laplacians, counted from
 # csrc/hypervis.cu (9 contractions of 7, the metric products, the rigid term)
 VLAP_OPS_PER_POINT = 140
-# FP32 operations per grid point and tracer of the two tracer kernels,
-# counted from csrc/tracer.cu: the flux products and two contractions of 7,
-# and for the limited stage 8 half-warp reductions of 4 and two passes
+# FP32 operations per grid point and tracer of the two tracer stages: the
+# flux and metric products and two contractions of 7, and for the limited
+# stage the limiter's 8 group reductions and two passes (an upper count:
+# csrc/tracer.cu forms the metric products once a level, not a tracer)
 TRACER_OPS_PER_POINT = 36
 LIMIT_OPS_PER_POINT = 110
 # the rsplit=0 mode adds per grid point the divergence of pass 1, the two
@@ -469,7 +478,10 @@ def kernel_times() -> dict:
     slab at ne30 x 72, and the stage mode with the slab, with and without
     phi, at ne30 x 72; ``dss_fixup_cuda`` on ne30 at 72, 288 and 2,520
     rows; ``dist.remap_packed_t4`` (no fixer) at ne30 x 72, qsize 1, on the
-    packed cadence's start (``ms`` and ``graph_ms``). Run against another
+    packed cadence's start (``ms`` and ``graph_ms``); ``tracer_euler_cuda``
+    and ``tracer_limit_cuda`` without and with mix at ne30 x 72, qsize 1
+    and 35, on the prim bench's tracers with the winds read out of its
+    state and the slab, as the prim step calls them. Run against another
     tree by importing this file with that tree first on ``sys.path``;
     prints and returns one JSON object."""
     import numpy as np
@@ -482,6 +494,8 @@ def kernel_times() -> dict:
     from tinman_sandbox_tpu_torch.kernels.dss import (dss_fixup_cuda,
                                                       dss_sweep_cuda,
                                                       fix_tables)
+    from tinman_sandbox_tpu_torch.kernels.tracer_t import (tracer_euler_cuda,
+                                                           tracer_limit_cuda)
 
     dev = torch.device("cuda", 0)
     (scal, meta, qdp, pecnd, dvv), (s0, sm1), acc, plan, rsp = \
@@ -535,6 +549,25 @@ def kernel_times() -> dict:
     remap = lambda: remap_packed_t4(prob["s"], prob["qdp"], prob["hv"],
                                     prob["cfg"].nelem, NLEV, 1)
     out["remap"] = dict(ms=cuda_ms(remap, 5), graph_ms=graph_ms(remap, 5))
+    del prob
+    const, ps0, _, _, _, _ = bench.make_prim_problem(NE, NLEV, dev, DYN_DT, 1)
+    pmeta, pdvv = const[1], const[3]
+    kw = dict(wind_rows=(0, 1), fix=fix)
+    out["tracer"] = {}
+    for qsize in (1, QSIZE_TALL):
+        q = bench.make_prim_problem(NE, NLEV, dev, DYN_DT, qsize)[2]
+        mx = torch.rand(q.shape, generator=gen, device=dev)
+        reps = 50 if qsize == 1 else 10
+        out["tracer"][qsize] = dict(
+            euler=both(lambda: tracer_euler_cuda(
+                pmeta, ps0, ps0, q, pdvv, DYN_DT, NLEV, **kw), reps),
+            limit=both(lambda: tracer_limit_cuda(
+                pmeta, ps0, ps0, q, pdvv, DYN_DT, NLEV, **kw), reps),
+            limit_mix=both(lambda: tracer_limit_cuda(
+                pmeta, ps0, ps0, q, pdvv, DYN_DT, NLEV, mix=(mx, ca, cb),
+                **kw), reps))
+        del q, mx
+        torch.cuda.empty_cache()
     print(json.dumps(out))
     return out
 
@@ -1405,11 +1438,12 @@ def phase_tracer_kernels(dev, cs):
     import torch
 
     from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.kernels import _build
     from tinman_sandbox_tpu_torch.kernels.dss import (
         dss_fixup_cuda, dss_fixup_plain, dss_sweep_cuda, fix_tables)
     from tinman_sandbox_tpu_torch.kernels.tracer_t import (
-        tracer_euler_cuda, tracer_euler_plain, tracer_limit_cuda,
-        tracer_limit_plain)
+        TRACER_LEVELS, TRACER_TILE, TRACER_WARPS, tracer_euler_cuda,
+        tracer_euler_plain, tracer_limit_cuda, tracer_limit_plain)
 
     (scal, meta, pecnd, dvv), s0, _, _, plan, rsp = bench.make_prim_problem(
         cs.ne, NLEV, dev, DYN_DT, 1)
@@ -1420,6 +1454,27 @@ def phase_tracer_kernels(dev, cs):
     kw = dict(wind_rows=(0, 1), fix=fix)
     ca, cb = np.float32(1.0 / 3.0), np.float32(2.0 / 3.0)
     rows = {}
+
+    # the design: 4 lanes a thread, a block's warps splitting its levels;
+    # cudaOccupancy's blocks an SM and ptxas's registers of each instance
+    tr_lib = _build.library("tracer")
+    occ = {case: tr_lib.tracer_blocks_per_sm(kind, dev.index)
+           for case, kind in (("euler", 0), ("limit_mix", 2), ("limit", 3))}
+    regs = {{"ILb0ELb0EE": "euler", "ILb1ELb1EE": "limit_mix",
+             "ILb1ELb0EE": "limit"}.get(inst, inst): rep
+            for inst, rep in ptxas_report("tracer", "tracer_kernel")}
+    nblocks = -(-e16 // TRACER_TILE) * -(-k // TRACER_LEVELS)
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for case, bps in occ.items():
+        warps = TRACER_WARPS["euler" if case == "euler" else "limit"]
+        print(f"phase 11 tracer_kernel {case}: {warps} warps x {TRACER_TILE} "
+              f"lanes x {TRACER_LEVELS} levels a block, {nblocks} blocks at "
+              f"ne{cs.ne}x{k}; {bps} blocks per SM x {nsm} SMs = "
+              f"{nblocks / max(bps * nsm, 1):.3f} waves; ptxas "
+              f"{regs.get(case)}")
+        if bps <= 0:
+            raise AssertionError(f"occupancy of tracer_kernel {case}: error "
+                                 f"{-bps}")
 
     def block_errs(got, want):
         return max(scaled_err(a, b) for a, b in zip(got.split(k),
@@ -1462,6 +1517,8 @@ def phase_tracer_kernels(dev, cs):
         reps = 50 if qsize == 1 else 10
         k_ms = cuda_ms(lambda: tracer_euler_cuda(meta, s0, s0, q, dvv, DYN_DT,
                                                  k, **kw), reps)
+        kg_ms = graph_ms(lambda: tracer_euler_cuda(meta, s0, s0, q, dvv,
+                                                   DYN_DT, k, **kw), reps)
         p_ms = cuda_ms(lambda: tracer_euler_plain(meta, s0, s0, q, dvv,
                                                   DYN_DT, k, **kw), 3)
         # 2 wind blocks, q read, out written, 7 meta rows, dvv, fix_rank, slab
@@ -1470,18 +1527,21 @@ def phase_tracer_kernels(dev, cs):
         bnd, by = bound_ms(nb(2 + 2 * qsize),
                            TRACER_OPS_PER_POINT * qsize * k * e16)
         print(f"phase 11 tracer_euler {tag}: slab bitwise the output at the "
-              f"{n} fix lanes; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"library none, bound {bnd:.4f} ms ({by}, {nb(2 + 2 * qsize)} B)")
+              f"{n} fix lanes; kernel {k_ms:.4f} ms (from a graph "
+              f"{kg_ms:.4f}), plain {p_ms:.4f} ms, library none, bound "
+              f"{bnd:.4f} ms ({by}, {nb(2 + 2 * qsize)} B)")
         if qsize == 1:
             rows["tracer_euler_cuda"] = dict(
                 route="cuda", source="tinman_sandbox_tpu_torch/csrc/tracer.cu",
                 replaces="tinman_sandbox_tpu/kernels/tracer_pallas_t.py:404",
                 max_abs_err=worst_abs, max_scaled_err=worst, ms=k_ms,
-                plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=None)
+                plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=None,
+                graph_ms=kg_ms, blocks_per_sm=occ["euler"],
+                ptxas=regs.get("euler"))
         else:
             rows["tracer_euler_cuda"].update(
                 tall_qsize=qsize, tall_max_scaled_err=worst, tall_ms=k_ms,
-                tall_plain_ms=p_ms, tall_bound_ms=bnd)
+                tall_graph_ms=kg_ms, tall_plain_ms=p_ms, tall_bound_ms=bnd)
 
         # -- what closes a tracer stage: the fixup (bit for bit plain) and
         # the sweep (held bit for bit in phases 4 and 9) on qsize*k rows,
@@ -1580,14 +1640,19 @@ def phase_tracer_kernels(dev, cs):
                                                  k, mix=mix, **kw), reps)
         k0_ms = cuda_ms(lambda: tracer_limit_cuda(meta, s0, s0, q, dvv,
                                                   DYN_DT, k, **kw), reps)
+        kg_ms = graph_ms(lambda: tracer_limit_cuda(
+            meta, s0, s0, q, dvv, DYN_DT, k, mix=mix, **kw), reps)
+        k0g_ms = graph_ms(lambda: tracer_limit_cuda(
+            meta, s0, s0, q, dvv, DYN_DT, k, **kw), reps)
         p_ms = cuda_ms(lambda: tracer_limit_plain(meta, s0, s0, q, dvv,
                                                   DYN_DT, k, mix=mix, **kw), 3)
         ops = LIMIT_OPS_PER_POINT * qsize * k * e16
         bnd, by = bound_ms(nb(2 + 3 * qsize), ops)
         bnd0, _ = bound_ms(nb(2 + 2 * qsize), ops)
         print(f"phase 11 tracer_limit {tag}: slab bitwise; kernel "
-              f"{k_ms:.4f} ms with the combination (bound {bnd:.4f} ms, "
-              f"{by}, {nb(2 + 3 * qsize)} B), {k0_ms:.4f} ms without (bound "
+              f"{k_ms:.4f} ms with the combination (from a graph "
+              f"{kg_ms:.4f}; bound {bnd:.4f} ms, {by}, {nb(2 + 3 * qsize)} "
+              f"B), {k0_ms:.4f} ms without (from a graph {k0g_ms:.4f}; bound "
               f"{bnd0:.4f} ms); plain {p_ms:.4f} ms, library none")
         if qsize == 1:
             rows["tracer_limit_cuda"] = dict(
@@ -1596,13 +1661,18 @@ def phase_tracer_kernels(dev, cs):
                 max_abs_err=worst_abs, max_scaled_err=worst,
                 max_conservation_err=worst_cons, max_bounds_violation=worst_viol,
                 ms=k_ms, plain_ms=p_ms, bound_ms=bnd, bound_by=by,
-                library_ms=None, nomix_ms=k0_ms, nomix_bound_ms=bnd0)
+                library_ms=None, nomix_ms=k0_ms, nomix_bound_ms=bnd0,
+                graph_ms=kg_ms, nomix_graph_ms=k0g_ms,
+                blocks_per_sm=occ["limit_mix"],
+                nomix_blocks_per_sm=occ["limit"],
+                ptxas=regs.get("limit_mix"), nomix_ptxas=regs.get("limit"))
         else:
             rows["tracer_limit_cuda"].update(
                 tall_qsize=qsize, tall_max_scaled_err=worst,
                 tall_max_conservation_err=worst_cons, tall_ms=k_ms,
-                tall_nomix_ms=k0_ms, tall_plain_ms=p_ms, tall_bound_ms=bnd,
-                tall_nomix_bound_ms=bnd0)
+                tall_nomix_ms=k0_ms, tall_graph_ms=kg_ms,
+                tall_nomix_graph_ms=k0g_ms, tall_plain_ms=p_ms,
+                tall_bound_ms=bnd, tall_nomix_bound_ms=bnd0)
         del q, mx, mix
         torch.cuda.empty_cache()
     return rows
@@ -1611,7 +1681,7 @@ def phase_tracer_kernels(dev, cs):
 def phase_prim_path(dev, cs):
     """The full model step at ne30 x 72, qsize 1: the chain against its plain
     twin without and with the limiter, the CLI and the benches. Returns the
-    three bench results (plain, limited, tall)."""
+    four bench results (plain, limited, tall, tall limited)."""
     import torch
 
     from tinman_sandbox_tpu_torch import bench, cli
@@ -1691,7 +1761,9 @@ def phase_prim_path(dev, cs):
     for extra in (["--nexec", "300", "--reps", "3"],
                   ["--nexec", "300", "--reps", "3", "--limit"],
                   ["--nexec", "20", "--reps", "2", "--qsize",
-                   str(QSIZE_TALL)]):
+                   str(QSIZE_TALL)],
+                  ["--nexec", "20", "--reps", "2", "--qsize",
+                   str(QSIZE_TALL), "--limit"]):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             res = bench.main(["--ne", str(cs.ne), "--nlev", str(NLEV),
@@ -1700,9 +1772,16 @@ def phase_prim_path(dev, cs):
         print("phase 12 bench " + buf.getvalue().strip())
         if not res["min_dp3d"] > 0.0:
             raise AssertionError(f"bench --prim: min dp3d {res['min_dp3d']}")
-        if "--limit" in extra and res["min_qdp"] < 0.0:
-            raise AssertionError(f"bench --prim --limit: min qdp "
-                                 f"{res['min_qdp']}")
+        # with the limiter no tracer goes below its element's bounds; at
+        # qsize 1 the bench's min qdp stays >= 0. The limiter's uniform
+        # residual pass (exact conservation) can leave a node on a zero
+        # lower bound a few ulps below it, and with E3SM's 35 tracers in
+        # [0, 1] some do (with the kernels before the quad layout too):
+        # there the floor is the limiter's own bounds gate of phase 11
+        floor = -BOUNDS_TOL if "--qsize" in extra else 0.0
+        if "--limit" in extra and res["min_qdp"] < floor:
+            raise AssertionError(f"bench --prim {' '.join(extra)}: min qdp "
+                                 f"{res['min_qdp']} < {floor}")
         results.append(res)
         torch.cuda.empty_cache()
     return results
@@ -2106,7 +2185,7 @@ def phase_ring_kernels(dev, cs):
         caar_ring_packed_t4, caar_ring_plain, ring_geometry,
         tracer_ring_packed_t, tracer_ring_plain)
     from tinman_sandbox_tpu_torch.kernels.tracer_t import (
-        tracer_euler_cuda, tracer_euler_plain)
+        TRACER_LEVELS, TRACER_TILE, tracer_euler_cuda, tracer_euler_plain)
 
     (scal, meta, qdp, pecnd, dvv), (s0, sm1), acc, plan, rsp = \
         bench.make_assembled_problem(cs.ne, NLEV, dev)
@@ -2129,8 +2208,9 @@ def phase_ring_kernels(dev, cs):
                cplan.blocks),
            "caar_ring_kernel": (caar_lib.caar_blocks_per_sm(
                1, k, cplan.chunks, 0, dev.index), nb + geo.halo),
-           "tracer_euler_kernel": (tr_lib.tracer_blocks_per_sm(0, dev.index),
-                                   nb * -(-k // 8)),
+           "tracer_kernel (Euler)": (
+               tr_lib.tracer_blocks_per_sm(0, dev.index),
+               -(-e16 // TRACER_TILE) * -(-k // TRACER_LEVELS)),
            "tracer_ring_kernel": (tr_lib.tracer_blocks_per_sm(1, dev.index),
                                   (nb + geo.halo) * -(-k // 8))}
     for name, (bps, blocks) in occ.items():
@@ -3703,7 +3783,9 @@ def main() -> int:
     for source, tag in (("dss", "dss_sweep_kernel"),
                         ("caar", "caar_chunk_kernel"),
                         ("caar", "caar_ring_kernel"),
-                        ("remap", "remap_kernel")):
+                        ("remap", "remap_kernel"),
+                        ("tracer", "tracer_kernel"),
+                        ("tracer", "tracer_ring_kernel")):
         for inst, report in ptxas_report(source, tag):
             print(f"phase 1 ptxas {tag}{inst}: {report}")
 
@@ -3760,7 +3842,7 @@ def main() -> int:
     for name, extra in phase_tracer_kernels(dev, cs).items():
         rows.setdefault(name, {}).update(extra)
     reset()
-    prim_res, lim_res, tall_res = phase_prim_path(dev, cs)
+    prim_res, lim_res, tall_res, tall_lim_res = phase_prim_path(dev, cs)
     prim = counts()
     tracer_slabs = (tracer_euler_cuda.slab_launches,
                     tracer_limit_cuda.slab_launches)
@@ -3817,7 +3899,8 @@ def main() -> int:
               f"{res['achieved_gb_per_s']:.1f} GB/s, "
               f"fraction_of_triad {res['fraction_of_triad']:.3f}")
     for label, res in (("--limit", lim_res),
-                       (f"--qsize {QSIZE_TALL}", tall_res)):
+                       (f"--qsize {QSIZE_TALL}", tall_res),
+                       (f"--qsize {QSIZE_TALL} --limit", tall_lim_res)):
         print(f"phase 17 prim bench {label}: {res['us_per_step']:.2f} "
               f"us/step, {res['achieved_gb_per_s']:.1f} GB/s, "
               f"fraction_of_triad {res['fraction_of_triad']:.3f}, min qdp "
@@ -3872,10 +3955,11 @@ def main() -> int:
     want = {"caar_t4_cuda": 3.0, "vlap_cuda": 2.0, "tracer_euler_cuda": 3.0,
             "tracer_limit_cuda": 0.0, "dss_fixup_cuda": 8.0,
             "dss_sweep_cuda": 8.0}
+    want_lim = dict(want, tracer_euler_cuda=0.0, tracer_limit_cuda=3.0)
     for label, res, w in (
             ("", prim_res, want), (f" --qsize {QSIZE_TALL}", tall_res, want),
-            (" --limit", lim_res, dict(want, tracer_euler_cuda=0.0,
-                                       tracer_limit_cuda=3.0))):
+            (" --limit", lim_res, want_lim),
+            (f" --qsize {QSIZE_TALL} --limit", tall_lim_res, want_lim)):
         if res["kernel_launches_per_step"] != w:
             raise AssertionError(
                 f"prim bench{label}: launches per step "

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Time other launch plans of the kernels redesigned for the H100 (the
-structured DSS sweep, the level-chunked CAAR kernel and the DSS fixup)
+structured DSS sweep, the level-chunked CAAR kernel, the DSS fixup, the
+remap kernel and the tracer stages)
 beside the plans the port uses, at the main path's shapes. An experiment,
 not part of the port: the port keeps one plan per kernel, and this script is
 how the hypotheses about them were tested.
 
     python3 experiments/kernel_variants.py [sweep] [caar] [fixup] [remap]
+        [tracer]
 
-from the repository root: the named groups (default all four), in that
+from the repository root: the named groups (default all five), in that
 order.
 
   1. the sweep: the port's kernel (``dss_sweep_cuda``: one row a thread, 40
@@ -35,7 +37,23 @@ order.
   4. the remap kernel (``csrc/remap.cu``) built with other warps a block
      (``REMAP_WARPS``), each bit for bit the port's ``remap_packed_cuda``
      and timed from CUDA graphs at ne30 x 72, qsize 1, for pcm, plm and
-     ppm, on the packed cadence's start with its dp rows drawn 5% off.
+     ppm, on the packed cadence's start with its dp rows drawn 5% off;
+  5. the tracer stages (the Euler stage, the limited stage without and with
+     the Shu-Osher mix) at ne30 x 72, qsize 1 and 35: the port's quad
+     layout through its wrappers (with the slab, as the main path); its
+     kernel built from ``csrc/tracer.cu`` as the port builds it and with
+     both stages in blocks of 4 or 8 warps (``TRACER_WARPS``) holding 2 or
+     1 levels a warp at once (``TRACER_GROUP``), their registers uncapped
+     or capped (``TRACER_MIN_BLOCKS``), all with the slab, and as the port
+     without
+     it; the variants of ``tracer_variants.cu``: half-warp elements as
+     before the quad layout, the same with 2 rows in flight, the same with
+     the limiter's butterflies merged (no slab), an element a thread with
+     and without the slab, and capped for 3 blocks an SM. Each is checked
+     per tracer block against its plain version at 5e-5 at a long dt (the
+     slab bit for bit the output at the fix lanes) and timed from CUDA
+     graphs, with ptxas's registers and cudaOccupancy's blocks an SM of
+     every instance.
 
 Every line is one JSON object and names the card and its power limit.
 Without a card the script raises.
@@ -334,10 +352,213 @@ def remaps(dev, card):
         print(json.dumps(line), flush=True)
 
 
+# the tracer variants of tracer_variants.cu: (index, name)
+# the tracer variants of tracer_variants.cu: (index, name, with the slab)
+TRACER_VARIANTS = ((0, "half", False), (1, "half_ahead", False),
+                   (2, "half_once", False), (3, "element", True),
+                   (3, "element_noslab", False), (4, "element_3", True))
+# builds of the port's quad kernel (csrc/tracer.cu): (name, nvcc flags, with
+# the slab). The port's own build runs the Euler stage in blocks of 4 warps
+# holding 2 levels each at once, uncapped, and the limited stage in blocks
+# of 8 warps of 1 level with its registers capped for 4 blocks an SM; the
+# others give both stages w warps a block (TRACER_WARPS) holding g levels
+# at once (TRACER_GROUP), capped for b blocks an SM (TRACER_MIN_BLOCKS)
+TRACER_BUILDS = (("quad", [], True),) + tuple(
+    (f"quad_w{w}_g{g}_b{b}", [f"-DTRACER_WARPS={w}", f"-DTRACER_GROUP={g}",
+                              f"-DTRACER_MIN_BLOCKS={b}"], True)
+    for w, g, b in ((4, 2, 1), (4, 1, 8), (4, 2, 6), (8, 1, 4), (8, 1, 3))
+) + (("quad_noslab", [], False),)
+# the three instances timed: (name, limit, mix)
+TRACER_CASES = (("euler", 0, False), ("limit", 1, False),
+                ("limit_mix", 1, True))
+
+
+def _tracer_regs(report, tag):
+    """{instance: [registers, spill bytes]} of the kernel ``tag`` in
+    ptxas's report, the instance named by its mangled template arguments."""
+    regs, name, spill = {}, None, 0
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1) if tag in m.group(1) else None
+        m = re.search(r"(\d+) bytes spill stores.*?(\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            args = re.match(r"I(?:L[^E]+E)+E", name.split(tag, 1)[1])
+            regs[args.group(0) if args else name] = [int(m.group(1)), spill]
+    return regs
+
+
+def tracers(dev, card):
+    """The tracer stages at ne30 x 72, qsize 1 and 35: the port (the quad
+    layout, through its wrappers as the main path calls them, with the
+    slab), the port's kernel built with other TRACER_LEVELS (with it) and
+    the variants of tracer_variants.cu (the elements with the slab, the
+    half-warp ones without), each instance checked per tracer block against
+    its plain version at 5e-5 at a long dt (the slab bit for bit the output
+    at the fix lanes) and timed from CUDA graphs at the run's dt (0.1)."""
+    from chip_smoke import DYN_DT, scaled_err
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.constants import CONSTANTS
+    from tinman_sandbox_tpu_torch.kernels import _build
+    from tinman_sandbox_tpu_torch.kernels.dss import fix_tables
+    from tinman_sandbox_tpu_torch.kernels.tracer_t import (
+        tracer_euler_cuda, tracer_euler_plain, tracer_limit_cuda,
+        tracer_limit_plain)
+
+    lib, report = _compile("tracer_variants")
+    so = ctypes.CDLL(lib)
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    so.tracer_variant_launch.argtypes = [I, I] + [P] * 9 + [I] * 6 + [F] * 4 \
+        + [P]
+    so.tracer_variant_blocks_per_sm.argtypes = [I, I, I]
+    hregs = _tracer_regs(report, "half_kernel")
+    eregs = _tracer_regs(report, "element_kernel")
+    # the instances of each variant: <limit, mix, rows ahead, merged>
+    vregs = {0: {i: r for i, r in hregs.items() if "Li0ELb0E" in i},
+             1: {i: r for i, r in hregs.items() if "Li2ELb0E" in i},
+             2: {i: r for i, r in hregs.items() if "Li0ELb1E" in i},
+             3: {i: r for i, r in eregs.items() if i.endswith("Li1EE")},
+             4: {i: r for i, r in eregs.items() if i.endswith("Li3EE")}}
+    ports = {}
+    for name, flags, with_slab in TRACER_BUILDS:
+        plib, preport = _compile(
+            f"tracer_{name}", os.path.join(CSRC, "tracer.cu"),
+            _build.SOURCE_FLAGS["tracer"] + flags)
+        pso = ctypes.CDLL(plib)
+        for fn, argtypes in _build._SIGNATURES["tracer"].items():
+            getattr(pso, fn).argtypes = argtypes
+        ports[name] = (pso, _tracer_regs(preport, "tracer_kernel"),
+                       dict(flags=flags, slab=with_slab))
+
+    const, s0, _, _, plan, _ = bench.make_prim_problem(30, 72, dev, DYN_DT, 1)
+    meta, dvv = const[1], const[3]
+    fix = fix_tables(plan, dev)
+    lanes = fix.read_lanes.long()
+    k, e16 = 72, meta.shape[1]
+    ca, cb = float(np.float32(1 / 3)), float(np.float32(2 / 3))
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream
+    lines = {}
+
+    def record(name, **info):
+        lines.setdefault(name, dict(card=card, kernel="tracer", kind=name,
+                                    **info))
+        return lines[name]
+
+    for qsize in (1, 35):
+        q = bench.make_prim_problem(30, k, dev, DYN_DT, qsize)[2]
+        mx = torch.rand(q.shape, generator=torch.Generator(
+            device=dev).manual_seed(5), device=dev)
+        div = q - tracer_euler_plain(meta, s0, s0, q, dvv, 1.0, k,
+                                     fold_sph=False, wind_rows=(0, 1))
+        dt_long = 0.5 * float(q.abs().max()) / float(div.abs().max())
+        del div
+        out = torch.empty_like(q)
+        slab = torch.empty(fix.nfix, q.shape[0], device=dev)
+        rank = fix.fix_rank.data_ptr()
+        reps = 30 if qsize == 1 else 5
+
+        def variant(v, with_slab):
+            sl = (rank, slab.data_ptr()) if with_slab else (None, None)
+
+            def run(limit, mixed, dt):
+                err = so.tracer_variant_launch(
+                    v, limit, meta.data_ptr(), dvv.data_ptr(), s0.data_ptr(),
+                    s0.data_ptr(), q.data_ptr(),
+                    mx.data_ptr() if mixed else None, out.data_ptr(), *sl,
+                    k, qsize, e16, 0, 1, 2, dt, ca, cb, CONSTANTS.rrearth,
+                    stream())
+                if err:
+                    raise RuntimeError(f"tracer variant {v}: error {err}")
+                return out
+            return run
+
+        def port_build(name):
+            pso, _, info = ports[name]
+            sl = (rank, slab.data_ptr()) if info["slab"] else (None, None)
+
+            def run(limit, mixed, dt):
+                if limit:
+                    err = pso.tracer_limit_launch(
+                        meta.data_ptr(), dvv.data_ptr(), s0.data_ptr(),
+                        s0.data_ptr(), q.data_ptr(),
+                        mx.data_ptr() if mixed else None, out.data_ptr(),
+                        *sl, k, qsize, e16, e16, 0, 1, 2, dt, ca, cb,
+                        CONSTANTS.rrearth, stream(), dev.index)
+                else:
+                    err = pso.tracer_euler_launch(
+                        meta.data_ptr(), dvv.data_ptr(), s0.data_ptr(),
+                        s0.data_ptr(), q.data_ptr(), out.data_ptr(), *sl, k,
+                        qsize, e16, e16, 0, 1, 1, dt, CONSTANTS.rrearth,
+                        stream(), dev.index)
+                if err:
+                    raise RuntimeError(f"tracer {name}: error {err}")
+                return out
+            return run
+
+        def port(limit, mixed, dt):
+            kw = dict(wind_rows=(0, 1), fix=fix)
+            if limit:
+                return tracer_limit_cuda(meta, s0, s0, q, dvv, dt, k,
+                                         mix=(mx, ca, cb) if mixed else None,
+                                         **kw)[0]
+            return tracer_euler_cuda(meta, s0, s0, q, dvv, dt, k, **kw)[0]
+
+        wants = {}
+        for name, limit, mixed in TRACER_CASES:
+            kw = dict(wind_rows=(0, 1))
+            wants[name] = (tracer_limit_plain(
+                meta, s0, s0, q, dvv, dt_long, k,
+                mix=(mx, ca, cb) if mixed else None, **kw) if limit else
+                tracer_euler_plain(meta, s0, s0, q, dvv, dt_long, k, **kw))
+        runs = [("port", port, {})]
+        runs += [(name, port_build(name), dict(registers=regs, **info))
+                 for name, (_, regs, info) in ports.items()]
+        runs += [(name, variant(v, sl), dict(registers=vregs[v], slab=sl))
+                 for v, name, sl in TRACER_VARIANTS]
+        for name, run, info in runs:
+            line = record(name, **info)
+            for case, limit, mixed in TRACER_CASES:
+                if name == "half_once" and not limit:
+                    continue        # the variant changes the limiter only
+                got = run(limit, mixed, dt_long)
+                torch.cuda.synchronize()
+                err = max(scaled_err(a, b) for a, b in zip(
+                    got.split(k), wants[case].split(k)))
+                if not err <= 5e-5:
+                    raise AssertionError(f"tracer {name} {case} qsize "
+                                         f"{qsize}: {err} > 5e-5")
+                if info.get("slab") and not torch.equal(slab,
+                                                        got[:, lanes].T):
+                    raise AssertionError(f"tracer {name} {case} qsize "
+                                         f"{qsize}: the slab is not the "
+                                         "output at the fix lanes")
+                line.setdefault("max_scaled_err", {})[f"{case}_q{qsize}"] = \
+                    err
+                line.setdefault("graph_ms", {})[f"{case}_q{qsize}"] = \
+                    graph_ms(lambda: run(limit, mixed, DYN_DT), reps)
+        del q, mx, out, slab, wants
+        torch.cuda.empty_cache()
+    for v, name, _ in TRACER_VARIANTS:
+        lines[name]["blocks_per_sm"] = {
+            case: so.tracer_variant_blocks_per_sm(v, limit, int(mixed))
+            for case, limit, mixed in TRACER_CASES}
+    for name, (pso, _, _) in ports.items():
+        lines[name]["blocks_per_sm"] = {
+            case: pso.tracer_blocks_per_sm(kind, dev.index)
+            for case, kind in (("euler", 0), ("limit", 3),
+                               ("limit_mix", 2))}
+    for line in lines.values():
+        print(json.dumps(line), flush=True)
+
+
 def main(argv=None) -> int:
     groups = (argv if argv is not None else sys.argv[1:]) or [
-        "sweep", "caar", "fixup", "remap"]
-    if set(groups) - {"sweep", "caar", "fixup", "remap"}:
+        "sweep", "caar", "fixup", "remap", "tracer"]
+    if set(groups) - {"sweep", "caar", "fixup", "remap", "tracer"}:
         raise SystemExit(f"kernel_variants: unknown group in {groups}")
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_variants: needs a CUDA card")
@@ -359,6 +580,8 @@ def main(argv=None) -> int:
         fixups(dev, card, fix, rsp)
     if "remap" in groups:
         remaps(dev, card)
+    if "tracer" in groups:
+        tracers(dev, card)
     return 0
 
 

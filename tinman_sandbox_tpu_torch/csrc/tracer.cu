@@ -1,9 +1,11 @@
 // Tracer advection on the packed layouts. On [qsize*nlev, E16], all tracers
 // on the row axis (row = tracer*nlev + level), two kernels:
 //
-//   tracer_euler_kernel:  out = sph * (q - dt * div(v q))      (or without sph)
-//   tracer_limit_kernel:  e = q - dt * div(v q);  y = e  or  ca*mx + cb*e;
-//                         y = L(y, bounds(q));  out = sph * y
+//   tracer_kernel<false, false>:  out = sph * (q - dt * div(v q))  (or
+//                                 without sph): the Euler stage
+//   tracer_kernel<true, kMix>:    e = q - dt * div(v q);  y = e  or
+//                                 ca*mx + cb*e;  y = L(y, bounds(q));
+//                                 out = sph * y: the limited stage
 //
 // with div(v q) = (D_x(gv1) + D_y(gv2)) * rmetdet * rrearth,
 // gv1 = metdet*(dinv00*vu*q + dinv01*vv*q), gv2 alike (EulerStepFunctor.hpp:
@@ -15,46 +17,64 @@
 // Replaces the Pallas kernels of tinman_sandbox_tpu/kernels/tracer_pallas_t.py:
 // tracer_euler_pallas_packed_t (:404), tracer_euler_pallas_packed_t_lg (:507)
 // and tracer_euler_pallas_packed_t_ext (:674), body _tracer_kernel_t
-// (:195-251), by the first kernel; tracer_limit_pallas_packed_t_ext (:322),
+// (:195-251), by the Euler stage; tracer_limit_pallas_packed_t_ext (:322),
 // body _tracer_limit_kernel_t (:254-317) with the limiter _limit_lanes
-// (:145-192), by the second. The TPU forms differ in how the grid cuts lanes
-// and rows for VMEM and in the layout of the fix-lane slab; their 128x128
-// block-diagonal derivative operands, bf16 limb splits and one-hot group
-// tables fed a matrix unit. Here the 4x4 Dvv is contracted with FP32 FMAs
-// and the group reductions are shuffles.
+// (:145-192), by the limited stage. The TPU forms differ in how the grid
+// cuts lanes and rows for VMEM and in the layout of the fix-lane slab; their
+// 128x128 block-diagonal derivative operands, bf16 limb splits and one-hot
+// group tables fed a matrix unit. Here the 4x4 Dvv is contracted with FP32
+// FMAs and the group reductions run in registers and quad shuffles.
 //
-// What bounds them on the H100: device-memory traffic. A stage reads the
-// tracer block (and mx), two wind blocks and 7 meta rows and writes the
-// tracer block (plus the slab): at ne30 x 72 about 100 MB for one tracer and
-// 1.8-2.7 GB for 35, against ~40 (Euler) to ~150 (limited) FP32 operations
-// a point.
+// What bounds them on the H100: device-memory traffic, if the body runs
+// few enough instructions. A stage reads the tracer block (and mx), two wind
+// blocks and 7 meta rows and writes the tracer block (plus the slab): at
+// ne30 x 72 about 100 MB for one tracer and 1.8-2.7 GB for 35, some 0.55-0.80
+// ms at 3.35 TB/s at qsize 35. That leaves the card ~100 thread instructions
+// a node and row. The first design (one lane a thread, the 16 lanes of an
+// element in a half-warp, every group reduction a width-16 butterfly) spent
+// ~180 on the limited stage, 32 of them shuffles, and ran at 3.5x its bound.
 //
-// Design: no level and no tracer couples to another, so a thread owns one
-// lane of E16 and a chunk of kLevels levels, over which it keeps its 7
-// metric values in registers. The tracer loop is INSIDE the level loop, so
-// the two winds of a (level, lane) are read once and serve every tracer.
-// The 16 lanes of an element sit in one half-warp. Each (level, tracer)
-// takes one exchange among them through shared memory for the derivative
-// contractions, fenced by one __syncwarp (an element never spans two warps);
-// the exchange buffers alternate, so an iteration's write cannot overtake the
-// previous iteration's reads. The limiter's group minimum, maximum and sums
-// are __shfl_xor_sync butterflies of width 16: every lane of the element
-// gets the same bits, in a fixed order, with no atomics and no second pass
-// over memory. The deficit is summed from the clipped-off amounts
-// w*(y - clip(y)) themselves, never as a difference of two masses, which
-// would cancel. Divisions are __fdiv_rn; a uniform element has no room
-// (tot = 0): give = 0 and the coefficient is 0 / FLT_MIN = 0, no NaN.
+// Design (the quad layout): a thread owns one row li of an element, its 4
+// lanes li*4 .. li*4+3, as one float4, and four neighbouring threads (a quad)
+// make the element; a warp's load of a row is 512 contiguous bytes. A block
+// takes a tile of 128 lanes (8 elements, a warp's quads) and kLevels = 8
+// levels, split over its warps (the ring kernel's tiles and chunks; warp w
+// of 4 the levels w and w + 4). A thread forms the wind-metric products
+// c1 = metdet*(dinv00*u + dinv01*v) and c2 = metdet*(dinv10*u + dinv11*v)
+// of a level once, and every tracer takes gv1 = c1*q and gv2 = c2*q.
+// D_y contracts the thread's own row in registers with the rows of Dvv
+// read from shared memory; D_x takes the other three rows of gv1 by three
+// float4 xor shuffles inside the quad, summed in the order m = 0..3 of row
+// li ^ m. Each group reduction of the limiter is a tree over the thread's 4
+// lanes ((a0 + a1) + (a2 + a3)) and two xor shuffles (1, then 2), so every
+// thread of the quad gets the same bits; the divisions run once a thread, a
+// quarter of the element's lanes. The 8 levels of a tracer at a fix lane
+// (one 32-byte sector of the slab) are written by one block's warps close
+// together, so the sector fills in L2 before it goes to memory: the Euler
+// stage's 4 warps hold both of their levels at once and walk the tracers
+// outside them; the limited stage, whose body needs the registers, runs 8
+// warps of one level each at 64 registers for 4 blocks an SM. Each thread
+// starts the next tracer's loads (q and mx) before it computes its rows.
+// The deficit is summed from
+// the clipped-off amounts w*(y - clip(y)) themselves, never as a difference
+// of two masses, which would cancel. Divisions are __fdiv_rn; a uniform
+// element has no room (tot = 0): give = 0 and the coefficient is
+// 0 / FLT_MIN = 0, no NaN. Every FMA is an explicit fmaf and the source is
+// built with -fmad=false (kernels/_build.py), so the bits of a row do not
+// depend on which kernel inlines its body.
 // The winds are read out of taller tensors (the [4*nlev] prognostic state)
-// by row-block offset, with no slice copy.
-// Optional fix-lane slab, as the CAAR kernel's: the thread owning a lane
-// with fix_rank[lane] = r >= 0 also writes its output at every row to
+// by row-block offset, with no slice copy. Every tensor a thread reads or
+// writes by float4 must be 16-byte aligned with ld % 4 == 0 (the wrappers
+// check). Optional fix-lane slab, as the CAAR kernel's: the thread owning a
+// lane with fix_rank[lane] = r >= 0 also writes its output at every row to
 // slab[r*nq*nlev + row].
 // Ring-fused mode (tracer_ring_kernel): replaces tracer_ring_packed_t of
 // tinman_sandbox_tpu/kernels/ring_fused.py (:369, body _tracer_ring_kernel
 // :303), the folded Euler stage and the rspheremp-scaled sweep of its output
-// in one launch, with the sweep's mix epilogue. A block runs euler_tile (the
-// Euler kernel's code, so the same bits) for one tile of 128 lanes and one
-// chunk of kLevels levels into a scratch, flags it and sweeps the tile
+// in one launch, with the sweep's mix epilogue. A block produces one tile
+// of 128 lanes and one chunk of kLevels levels into a scratch through
+// stage_block (the Euler kernel's code and schedule, so the same bits),
+// flags it and sweeps the tile
 // `halo` tiles behind it in the same chunk (ring.cuh, dss_sweep.cuh). At
 // qsize 35 the stack is [2520, 86400]: 9 chunks x (675 + 4) blocks keep the
 // card busy where one chunk a block would not. The fix lanes keep their
@@ -85,8 +105,32 @@
 
 namespace {
 
-constexpr int kBlock = 128;   // 8 elements x 16 GLL points
-constexpr int kLevels = 8;    // levels walked by one block
+constexpr int kTile = 128;             // lanes of a block: one warp of quads
+constexpr int kLevels = 8;             // levels a block: one slab sector
+constexpr int kRingWarps = 4;          // warps of a ring block (ring.cuh)
+// Per stage, the warps of a block (the chunk's levels split over them), the
+// levels a warp holds at once (their wind products and rows in flight) and
+// the blocks an SM its registers are capped for, the best of
+// experiments/kernel_variants.py's builds on the H100 (which override them
+// with TRACER_WARPS, TRACER_GROUP and TRACER_MIN_BLOCKS): the Euler stage
+// runs 4 warps of 2 levels held at once, uncapped (96 registers, 5 blocks
+// an SM); the limited stage, whose body needs the registers, 8 warps of 1
+// level at 64 registers for 4 blocks an SM.
+#ifdef TRACER_WARPS
+constexpr int kWarpsEuler = TRACER_WARPS, kWarpsLimit = TRACER_WARPS;
+#else
+constexpr int kWarpsEuler = 4, kWarpsLimit = 8;
+#endif
+#ifdef TRACER_GROUP
+constexpr int kGroupEuler = TRACER_GROUP, kGroupLimit = TRACER_GROUP;
+#else
+constexpr int kGroupEuler = 2, kGroupLimit = 1;
+#endif
+#ifdef TRACER_MIN_BLOCKS
+constexpr int kMinEuler = TRACER_MIN_BLOCKS, kMinLimit = TRACER_MIN_BLOCKS;
+#else
+constexpr int kMinEuler = 1, kMinLimit = 4;
+#endif
 constexpr unsigned kFull = 0xffffffffu;
 
 // META_COLS row indices (kernels/layout.py)
@@ -94,6 +138,386 @@ enum Meta {
   kDinv00 = 0, kDinv01, kDinv10, kDinv11, kMetdet = 8, kRmetdet = 9,
   kSpheremp = 11
 };
+
+// four lanes of one row of an element, the thread's share
+struct V4 {
+  float v[4];
+};
+
+__device__ __forceinline__ V4 zero4() { return V4{{0.f, 0.f, 0.f, 0.f}}; }
+
+__device__ __forceinline__ V4 ld4(const float* __restrict__ p, size_t o) {
+  const float4 f = *reinterpret_cast<const float4*>(p + o);
+  return V4{{f.x, f.y, f.z, f.w}};
+}
+
+__device__ __forceinline__ void st4(float* __restrict__ p, size_t o,
+                                    const V4& a) {
+  *reinterpret_cast<float4*>(p + o) =
+      make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
+}
+
+__device__ __forceinline__ V4 shfl_xor4(const V4& a, int m) {
+  V4 r;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) r.v[j] = __shfl_xor_sync(kFull, a.v[j], m, 4);
+  return r;
+}
+
+// reductions over the element's 16 lanes: a tree over the thread's 4, then
+// the quad's partial results by xor 1 and xor 2; every thread of the quad
+// gets the same bits (each step adds the same two values)
+__device__ __forceinline__ float qsum(const V4& a) {
+  float s = (a.v[0] + a.v[1]) + (a.v[2] + a.v[3]);
+  s += __shfl_xor_sync(kFull, s, 1, 4);
+  return s + __shfl_xor_sync(kFull, s, 2, 4);
+}
+
+__device__ __forceinline__ float qmin(const V4& a) {
+  float s = fminf(fminf(a.v[0], a.v[1]), fminf(a.v[2], a.v[3]));
+  s = fminf(s, __shfl_xor_sync(kFull, s, 1, 4));
+  return fminf(s, __shfl_xor_sync(kFull, s, 2, 4));
+}
+
+__device__ __forceinline__ float qmax(const V4& a) {
+  float s = fmaxf(fmaxf(a.v[0], a.v[1]), fmaxf(a.v[2], a.v[3]));
+  s = fmaxf(s, __shfl_xor_sync(kFull, s, 1, 4));
+  return fmaxf(s, __shfl_xor_sync(kFull, s, 2, 4));
+}
+
+// What a block keeps in shared memory for its tile, read where it is used
+// so that it costs the threads no registers: the rows of Dvv (the D_y
+// weights), each row li's D_x weights, and its lanes' rmetdet*rrearth and
+// spheremp.
+struct Tile {
+  float4 dvv[4];                 // Dvv[m, 0..3]
+  float4 wx[4];                  // Dvv[li ^ m, li], m = 0..3, by li
+  float4 rmr[kTile / 4];         // by quad row (thread of a warp)
+  float4 sph[kTile / 4];
+};
+
+__device__ __forceinline__ V4 lds4(const float4* p) {
+  float4 f;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(f.x), "=f"(f.y), "=f"(f.z), "=f"(f.w)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+  return V4{{f.x, f.y, f.z, f.w}};
+}
+
+// The per-thread constants of one launch.
+struct Quad {
+  int li;                  // the thread's row of its element
+  int qi;                  // its 4 lanes' place in the tile, by 4
+  int col;                 // its first lane
+  bool live;
+  int fix;                 // bit j: lane col + j has a fix rank
+  float wsum;              // the element's sum of spheremp
+};
+
+// Fill the tile (behind a barrier: every thread of the block must call it)
+// and the thread's constants for the tile's lanes from lane0.
+__device__ __forceinline__ Quad load_tile(Tile& tl,
+                                          const float* __restrict__ meta,
+                                          const float* __restrict__ dvv,
+                                          const int* __restrict__ fix_rank,
+                                          size_t ldz, int ncol, int lane0,
+                                          float rr) {
+  Quad t;
+  t.li = threadIdx.x & 3;
+  t.qi = threadIdx.x & 31;
+  t.col = lane0 + 4 * t.qi;
+  t.live = t.col < ncol;     // ncol % 16 == 0: a quad is live or dead whole
+  if (threadIdx.x < 4) {
+    const int li = threadIdx.x;
+    tl.dvv[li] = *reinterpret_cast<const float4*>(dvv + 4 * li);
+    tl.wx[li] = make_float4(dvv[li * 4 + li], dvv[(li ^ 1) * 4 + li],
+                            dvv[(li ^ 2) * 4 + li], dvv[(li ^ 3) * 4 + li]);
+  }
+  if (threadIdx.x < 32) {
+    float4 r = make_float4(1.f, 1.f, 1.f, 1.f), w = r;
+    if (t.live) {
+      r = *reinterpret_cast<const float4*>(meta + kRmetdet * ldz + t.col);
+      r = make_float4(r.x * rr, r.y * rr, r.z * rr, r.w * rr);
+      w = *reinterpret_cast<const float4*>(meta + kSpheremp * ldz + t.col);
+    }
+    tl.rmr[t.qi] = r;
+    tl.sph[t.qi] = w;
+  }
+  t.fix = 0;
+  if (t.live && fix_rank) {
+    const int4 r = *reinterpret_cast<const int4*>(fix_rank + t.col);
+    t.fix = (r.x >= 0) | (r.y >= 0) << 1 | (r.z >= 0) << 2 | (r.w >= 0) << 3;
+  }
+  __syncthreads();
+  t.wsum = qsum(lds4(tl.sph + t.qi));
+  return t;
+}
+
+// The operands of one stage launch.
+struct Stage {
+  const float* __restrict__ meta;
+  const float* __restrict__ vu;      // the nlev wind rows
+  const float* __restrict__ vv;
+  const float* __restrict__ q;
+  const float* __restrict__ mx;      // the mix field, or null
+  float* __restrict__ out;
+  const int* __restrict__ fix_rank;  // null: no slab
+  float* __restrict__ slab;
+  size_t ld;                         // leading dimension of every field
+  int nlev, nq, fold, iters;         // fold: out = sph * e (Euler stage)
+  float dt, ca, cb;
+};
+
+// the wind-metric products of level k at the thread's lanes, which every
+// tracer of the level shares: gv1 = c1*q, gv2 = c2*q
+struct Wind {
+  V4 c1, c2;
+};
+
+__device__ __forceinline__ Wind wind_products(const Quad& t, const Stage& s,
+                                              int k) {
+  Wind w{zero4(), zero4()};
+  if (!t.live) return w;
+  const size_t ld = s.ld;
+  const V4 u = ld4(s.vu, k * ld + t.col), v = ld4(s.vv, k * ld + t.col);
+  const V4 d00 = ld4(s.meta, kDinv00 * ld + t.col);
+  const V4 d01 = ld4(s.meta, kDinv01 * ld + t.col);
+  const V4 d10 = ld4(s.meta, kDinv10 * ld + t.col);
+  const V4 d11 = ld4(s.meta, kDinv11 * ld + t.col);
+  const V4 md = ld4(s.meta, kMetdet * ld + t.col);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    w.c1.v[j] = md.v[j] * fmaf(d00.v[j], u.v[j], d01.v[j] * v.v[j]);
+    w.c2.v[j] = md.v[j] * fmaf(d10.v[j], u.v[j], d11.v[j] * v.v[j]);
+  }
+  return w;
+}
+
+// e = q - dt * div(v q) at the thread's 4 lanes. Every thread of the warp
+// must call it (the quad exchanges its rows of gv1).
+__device__ __forceinline__ V4 advect(const Quad& t, const Tile& tl,
+                                     const Wind& w, const V4& q, float dt) {
+  V4 g1, g2;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    g1.v[j] = w.c1.v[j] * q.v[j];
+    g2.v[j] = w.c2.v[j] * q.v[j];
+  }
+  // rows li ^ 1, li ^ 2, li ^ 3 of gv1
+  const V4 r1 = shfl_xor4(g1, 1), r2 = shfl_xor4(g1, 2),
+           r3 = shfl_xor4(g1, 3);
+  const V4 wx = lds4(tl.wx + t.li), rmr = lds4(tl.rmr + t.qi);
+  const V4 y0 = lds4(tl.dvv), y1 = lds4(tl.dvv + 1), y2 = lds4(tl.dvv + 2),
+           y3 = lds4(tl.dvv + 3);
+  V4 e;
+#pragma unroll
+  for (int lj = 0; lj < 4; ++lj) {
+    // strong d/dx at (li, lj): sum_i Dvv[i, li] * gv1[i, lj], i = li ^ m
+    float ax = wx.v[0] * g1.v[lj];
+    ax = fmaf(wx.v[1], r1.v[lj], ax);
+    ax = fmaf(wx.v[2], r2.v[lj], ax);
+    ax = fmaf(wx.v[3], r3.v[lj], ax);
+    // strong d/dy at (li, lj): sum_m Dvv[m, lj] * gv2[li, m]
+    float ay = y0.v[lj] * g2.v[0];
+    ay = fmaf(y1.v[lj], g2.v[1], ay);
+    ay = fmaf(y2.v[lj], g2.v[2], ay);
+    ay = fmaf(y3.v[lj], g2.v[3], ay);
+    e.v[lj] = fmaf(-dt, (ax + ay) * rmr.v[lj], q.v[lj]);
+  }
+  return e;
+}
+
+// The limiter on the thread's 4 lanes: bounds from the stage input q,
+// weights w = sph, `iters` clip-and-redistribute passes with the carry,
+// then the residual spread uniformly by weight. Every thread of the warp
+// must call it.
+__device__ __forceinline__ V4 limit(V4 y, const V4& q, const V4& w,
+                                    float wsum, int iters) {
+  const float lo = qmin(q), hi = qmax(q);
+  V4 a;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) a.v[j] = w.v[j] * y.v[j];
+  const float mass = qsum(a);
+  float carry = 0.f;
+  for (int i = 0; i < iters; ++i) {
+    V4 yc;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      yc.v[j] = fminf(fmaxf(y.v[j], lo), hi);
+      a.v[j] = w.v[j] * (y.v[j] - yc.v[j]);
+    }
+    // the deficit from the clipped-off amounts: no cancellation
+    const float d = qsum(a) + carry;
+    const bool pos = d > 0.f;
+    const float bsel = pos ? hi : lo;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      a.v[j] = w.v[j] * (pos ? hi - yc.v[j] : yc.v[j] - lo);
+    const float tot = qsum(a);
+    const float give = pos ? fminf(d, tot) : fmaxf(d, -tot);
+    carry = d - give;
+    const float c = fabsf(__fdiv_rn(give, fmaxf(tot, FLT_MIN)));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) y.v[j] = fmaf(c, bsel - yc.v[j], yc.v[j]);
+  }
+  // what the bounds could not take is spread uniformly by weight
+#pragma unroll
+  for (int j = 0; j < 4; ++j) a.v[j] = w.v[j] * y.v[j];
+  const float r = __fdiv_rn(mass - qsum(a), wsum);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) y.v[j] += r;
+  return y;
+}
+
+// One row (tracer n, level k) at the thread's 4 lanes: the stage's value
+// from q (and the mix field's mv), into out at o and the slab. The Euler
+// kernel and the ring kernel both run stage_row<false, false>, so both
+// write the same bits. Every thread of the warp must call it.
+template <bool kLimit, bool kMix>
+__device__ __forceinline__ void stage_row(const Quad& t, const Tile& tl,
+                                          const Stage& s, const Wind& w,
+                                          const V4& qv, const V4& mv,
+                                          size_t o, size_t row) {
+  V4 y = advect(t, tl, w, qv, s.dt);
+  if constexpr (kMix) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) y.v[j] = fmaf(s.ca, mv.v[j], s.cb * y.v[j]);
+  }
+  if (kLimit || s.fold) {
+    const V4 sph = lds4(tl.sph + t.qi);
+    if constexpr (kLimit) y = limit(y, qv, sph, t.wsum, s.iters);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) y.v[j] *= sph.v[j];
+  }
+  if (t.live) {
+    st4(s.out, o, y);
+    if (t.fix && s.slab) {
+      const size_t nrows = static_cast<size_t>(s.nq) * s.nlev;
+      const int4 r = *reinterpret_cast<const int4*>(s.fix_rank + t.col);
+      const int rank[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (t.fix >> j & 1) s.slab[rank[j] * nrows + row] = y.v[j];
+    }
+  }
+}
+
+// One block's share: the kTile lanes from lane0 (a warp's quads; every warp
+// takes the same lanes) at levels k0 .. k1 - 1, warp w of kWarps the levels
+// k0 + w + i*kWarps (i < kPer), every tracer, kGroup of its levels at a
+// time: the tracer loop outside the group's levels, so a tracer's levels
+// at a fix lane (a 32-byte sector of a slab row holds 8) are written by
+// the block's warps close together and the sector fills in L2 before it
+// goes to memory (on the H100 the Euler stage at qsize 35 took 0.94 ms with
+// 4 warps of one level at a time, 0.74 with two). The next tracer's loads
+// start before the current tracer's rows run. Every thread of the
+// block must call it.
+template <bool kLimit, bool kMix, int kWarps>
+__device__ __forceinline__ void stage_block(const Stage& s,
+                                            const float* __restrict__ dvv,
+                                            int ncol, float rr, int lane0,
+                                            int k0, int k1, Tile& tl) {
+  constexpr int kPer = kLevels / kWarps;         // levels a warp takes
+  constexpr int kGroup = (kLimit ? kGroupLimit : kGroupEuler) < kPer
+                             ? (kLimit ? kGroupLimit : kGroupEuler)
+                             : kPer;
+  static_assert(kLevels % kWarps == 0 && kPer % kGroup == 0,
+                "a chunk's levels split over the warps, a warp's in groups");
+  const Quad t = load_tile(tl, s.meta, dvv, s.fix_rank, s.ld, ncol, lane0,
+                           rr);
+  const int kw = k0 + static_cast<int>(threadIdx.x >> 5);
+  const size_t step = static_cast<size_t>(s.nlev) * s.ld;   // a tracer
+#pragma unroll 1
+  for (int g = 0; g < kPer; g += kGroup) {
+    bool on[kGroup];          // warp-uniform: the level is in the chunk
+    Wind w[kGroup];
+    size_t o[kGroup];
+    V4 qn[kGroup], mn[kGroup];
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+      const int k = kw + (g + i) * kWarps;
+      on[i] = k < k1;
+      w[i] = on[i] ? wind_products(t, s, k) : Wind{zero4(), zero4()};
+      o[i] = static_cast<size_t>(k) * s.ld + t.col;
+      qn[i] = mn[i] = zero4();
+      if (on[i] && t.live) {
+        qn[i] = ld4(s.q, o[i]);
+        if constexpr (kMix) mn[i] = ld4(s.mx, o[i]);
+      }
+    }
+    for (int n = 0; n < s.nq; ++n) {
+      V4 qv[kGroup], mv[kGroup];
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        qv[i] = qn[i];
+        mv[i] = mn[i];
+        if (on[i] && t.live && n + 1 < s.nq) {   // the next tracer's loads
+          qn[i] = ld4(s.q, o[i] + step);
+          if constexpr (kMix) mn[i] = ld4(s.mx, o[i] + step);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        if (on[i])
+          stage_row<kLimit, kMix>(t, tl, s, w[i], qv[i], mv[i], o[i],
+                                  static_cast<size_t>(n) * s.nlev + kw +
+                                      (g + i) * kWarps);
+        o[i] += step;
+      }
+    }
+  }
+}
+
+// The Euler (kLimit false) and limited stages: block (x, y) takes lanes
+// x*kTile .. +kTile and levels y*kLevels .. +kLevels, every tracer.
+template <bool kLimit, bool kMix>
+__global__ void __launch_bounds__(32 * (kLimit ? kWarpsLimit : kWarpsEuler),
+                                  kLimit ? kMinLimit : kMinEuler)
+tracer_kernel(Stage s, const float* __restrict__ dvv, int ncol, float rr) {
+  __shared__ Tile tl;
+  const int k0 = blockIdx.y * kLevels;
+  stage_block<kLimit, kMix, kLimit ? kWarpsLimit : kWarpsEuler>(
+      s, dvv, ncol, rr, blockIdx.x * kTile, k0, min(k0 + kLevels, s.nlev),
+      tl);
+}
+
+// threads of a block of tracer_kernel<kLimit, *>
+constexpr int stage_threads(bool limit) {
+  return 32 * (limit ? kWarpsLimit : kWarpsEuler);
+}
+
+// The ring-fused Euler stage: per row chunk of kLevels levels (all tracers
+// of those levels), the tile schedule of ring.cuh. Ticket t is chunk
+// t / (nb + halo) and place p = t % (nb + halo) in it: p < nb produces tile
+// p of the chunk into the scratch r.s1 (and the slab), then the block
+// sweeps tile p - halo of the chunk, waiting on its own chunk's flags only.
+// nchunk * (nb + halo) blocks.
+template <bool kMix>
+__global__ void __launch_bounds__(32 * kRingWarps)
+tracer_ring_kernel(Stage s, const float* __restrict__ dvv, int ncol,
+                   float rr, ring::Args r) {
+  __shared__ Tile tl;
+  const int t = ring::ticket(r.counter);
+  const int per = r.nb + r.halo;
+  const int chunk = t / per, p = t % per;
+  unsigned* flags = r.flags + static_cast<size_t>(chunk) * r.nb;
+  const int k0 = chunk * kLevels;
+  const int k1 = min(k0 + kLevels, s.nlev);
+  if (p < r.nb) {
+    stage_block<false, false, kRingWarps>(s, dvv, ncol, rr, p * kTile, k0,
+                                          k1, tl);
+    ring::publish(flags + p, r.epoch);
+  }
+  const int j = p - r.halo;
+  if (j < 0) return;
+  const int after = ring::wait(flags, max(j - r.halo, 0),
+                               min(j + r.halo, r.nb - 1), r.epoch);
+  const int l = j * kTile + threadIdx.x;
+  if (l >= ncol) return;
+  for (int n = 0; n < s.nq; ++n)
+    ring::emit<kMix>(r, after, static_cast<size_t>(n) * s.nlev + k0, k1 - k0,
+                     l, ncol);
+}
 
 // strong d/dx at lane (li, lj): sum_i Dvv[i, li] * s[i, lj]
 __device__ __forceinline__ float dx(const float* dvv, const float* s, int li,
@@ -111,225 +535,6 @@ __device__ __forceinline__ float dy(const float* dvv, const float* s, int li,
   acc = fmaf(dvv[1 * 4 + lj], s[li * 4 + 1], acc);
   acc = fmaf(dvv[2 * 4 + lj], s[li * 4 + 2], acc);
   return fmaf(dvv[3 * 4 + lj], s[li * 4 + 3], acc);
-}
-
-// reductions over the 16 lanes of an element (a half-warp): every lane gets
-// the same bits
-__device__ __forceinline__ float gsum(float v) {
-  v += __shfl_xor_sync(kFull, v, 8, 16);
-  v += __shfl_xor_sync(kFull, v, 4, 16);
-  v += __shfl_xor_sync(kFull, v, 2, 16);
-  return v + __shfl_xor_sync(kFull, v, 1, 16);
-}
-
-__device__ __forceinline__ float gmin(float v) {
-  v = fminf(v, __shfl_xor_sync(kFull, v, 8, 16));
-  v = fminf(v, __shfl_xor_sync(kFull, v, 4, 16));
-  v = fminf(v, __shfl_xor_sync(kFull, v, 2, 16));
-  return fminf(v, __shfl_xor_sync(kFull, v, 1, 16));
-}
-
-__device__ __forceinline__ float gmax(float v) {
-  v = fmaxf(v, __shfl_xor_sync(kFull, v, 8, 16));
-  v = fmaxf(v, __shfl_xor_sync(kFull, v, 4, 16));
-  v = fmaxf(v, __shfl_xor_sync(kFull, v, 2, 16));
-  return fmaxf(v, __shfl_xor_sync(kFull, v, 1, 16));
-}
-
-// The per-thread constants of one launch: the lane's metric values, its
-// place in its element and its slab row.
-struct Lane {
-  float dinv00, dinv01, dinv10, dinv11, metdet, rmr, sph;
-  int tid, col, eb, li, lj;
-  bool live;
-  float* slab_row;            // null: no slab row for this lane
-};
-
-__device__ __forceinline__ Lane load_lane(const float* __restrict__ meta,
-                                          const int* __restrict__ fix_rank,
-                                          float* __restrict__ slab, int ncol,
-                                          size_t ldz, int nrows, float rr,
-                                          int tile) {
-  Lane t;
-  t.tid = threadIdx.x;
-  t.col = tile * kBlock + t.tid;
-  t.live = t.col < ncol;                  // ncol % 16 == 0: whole elements
-  t.eb = t.tid & ~15;                     // element's first lane in block
-  t.li = (t.tid & 15) >> 2;               // lane = li*4 + lj
-  t.lj = t.tid & 3;
-  auto m = [&](int r) { return t.live ? meta[r * ldz + t.col] : 1.f; };
-  t.dinv00 = m(kDinv00); t.dinv01 = m(kDinv01);
-  t.dinv10 = m(kDinv10); t.dinv11 = m(kDinv11);
-  t.metdet = m(kMetdet);
-  t.rmr = m(kRmetdet) * rr;
-  t.sph = m(kSpheremp);
-  const int srow = (t.live && fix_rank) ? fix_rank[t.col] : -1;
-  t.slab_row = srow >= 0 ? slab + static_cast<size_t>(srow) * nrows : nullptr;
-  return t;
-}
-
-// e = q - dt * div(v q) at this lane; xs is the iteration's exchange buffer
-// [2][kBlock]. Every thread of the warp must call it (it fences the warp).
-__device__ __forceinline__ float advect(const Lane& t, const float* dvv,
-                                        float (*xs)[kBlock], float u, float v,
-                                        float q, float dt) {
-  const float vq1 = u * q, vq2 = v * q;
-  xs[0][t.tid] = t.metdet * (t.dinv00 * vq1 + t.dinv01 * vq2);
-  xs[1][t.tid] = t.metdet * (t.dinv10 * vq1 + t.dinv11 * vq2);
-  __syncwarp();
-  const float div = (dx(dvv, xs[0] + t.eb, t.li, t.lj) +
-                     dy(dvv, xs[1] + t.eb, t.li, t.lj)) * t.rmr;
-  return q - dt * div;
-}
-
-// The Euler stage for the 128 lanes of tile `tile` and the levels of row
-// chunk `chunk`, by the calling block, with the block's shared exchange
-// buffers xs and dvv. The Euler kernel and the ring kernel both call it, so
-// both produce the same bits.
-__device__ __forceinline__ void euler_tile(
-    const float* __restrict__ meta, const float* __restrict__ dvv_g,
-    const float* __restrict__ vu, const float* __restrict__ vv,
-    const float* __restrict__ q, float* __restrict__ out,
-    const int* __restrict__ fix_rank, float* __restrict__ slab, int nlev,
-    int nq, int ncol, int ld, int fold_sph, float dt, float rr, int tile,
-    int chunk, float (*xs)[2][kBlock], float* dvv) {
-  const size_t ldz = static_cast<size_t>(ld);
-  if (threadIdx.x < 16) dvv[threadIdx.x] = dvv_g[threadIdx.x];
-  const Lane t = load_lane(meta, fix_rank, slab, ncol, ldz, nq * nlev, rr,
-                           tile);
-  const float wout = fold_sph ? t.sph : 1.f;
-  __syncthreads();
-
-  const int k0 = chunk * kLevels;
-  const int k1 = min(k0 + kLevels, nlev);
-  int it = 0;
-  for (int k = k0; k < k1; ++k) {
-    float u = 0.f, v = 0.f;
-    if (t.live) { u = vu[k * ldz + t.col]; v = vv[k * ldz + t.col]; }
-    for (int n = 0; n < nq; ++n, ++it) {
-      const int row = n * nlev + k;
-      const size_t o = row * ldz + t.col;
-      const float qv = t.live ? q[o] : 0.f;
-      const float res = wout * advect(t, dvv, xs[it & 1], u, v, qv, dt);
-      if (t.live) {
-        out[o] = res;
-        if (t.slab_row) t.slab_row[row] = res;
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kBlock)
-tracer_euler_kernel(const float* __restrict__ meta,
-                    const float* __restrict__ dvv_g,
-                    const float* __restrict__ vu, const float* __restrict__ vv,
-                    const float* __restrict__ q, float* __restrict__ out,
-                    const int* __restrict__ fix_rank, float* __restrict__ slab,
-                    int nlev, int nq, int ncol, int ld, int fold_sph, float dt,
-                    float rr) {
-  __shared__ float xs[2][2][kBlock];      // alternating exchange buffers
-  __shared__ float dvv[16];
-  euler_tile(meta, dvv_g, vu, vv, q, out, fix_rank, slab, nlev, nq, ncol, ld,
-             fold_sph, dt, rr, blockIdx.x, blockIdx.y, xs, dvv);
-}
-
-// The ring-fused Euler stage: per row chunk of kLevels levels (all tracers
-// of those levels), the tile schedule of ring.cuh. Ticket t is chunk
-// t / (nb + halo) and place p = t % (nb + halo) in it: p < nb produces tile
-// p of the chunk into the scratch r.s1 (and the slab), then the block
-// sweeps tile p - halo of the chunk, waiting on its own chunk's flags only.
-// nchunk * (nb + halo) blocks.
-template <bool kMix>
-__global__ void __launch_bounds__(kBlock)
-tracer_ring_kernel(const float* __restrict__ meta,
-                   const float* __restrict__ dvv_g,
-                   const float* __restrict__ vu, const float* __restrict__ vv,
-                   const float* __restrict__ q, const int* __restrict__ fix_rank,
-                   float* __restrict__ slab, int nlev, int nq, int ncol,
-                   float dt, float rr, ring::Args r) {
-  __shared__ float xs[2][2][kBlock];
-  __shared__ float dvv[16];
-  const int t = ring::ticket(r.counter);
-  const int per = r.nb + r.halo;
-  const int chunk = t / per, p = t % per;
-  unsigned* flags = r.flags + static_cast<size_t>(chunk) * r.nb;
-  if (p < r.nb) {
-    euler_tile(meta, dvv_g, vu, vv, q, const_cast<float*>(r.s1), fix_rank,
-               slab, nlev, nq, ncol, ncol, 1, dt, rr, p, chunk, xs, dvv);
-    ring::publish(flags + p, r.epoch);
-  }
-  const int j = p - r.halo;
-  if (j < 0) return;
-  const int after = ring::wait(flags, max(j - r.halo, 0),
-                               min(j + r.halo, r.nb - 1), r.epoch);
-  const int l = j * kBlock + threadIdx.x;
-  if (l >= ncol) return;
-  const int k0 = chunk * kLevels;
-  const int k1 = min(k0 + kLevels, nlev);
-  for (int n = 0; n < nq; ++n)
-    ring::emit<kMix>(r, after, static_cast<size_t>(n) * nlev + k0, k1 - k0, l,
-                     ncol);
-}
-
-template <bool kMix>
-__global__ void __launch_bounds__(kBlock)
-tracer_limit_kernel(const float* __restrict__ meta,
-                    const float* __restrict__ dvv_g,
-                    const float* __restrict__ vu, const float* __restrict__ vv,
-                    const float* __restrict__ q, const float* __restrict__ mx,
-                    float* __restrict__ out, const int* __restrict__ fix_rank,
-                    float* __restrict__ slab, int nlev, int nq, int ncol,
-                    int ld, int iters, float dt, float ca, float cb,
-                    float rr) {
-  __shared__ float xs[2][2][kBlock];      // alternating exchange buffers
-  __shared__ float dvv[16];
-  const size_t ldz = static_cast<size_t>(ld);
-  if (threadIdx.x < 16) dvv[threadIdx.x] = dvv_g[threadIdx.x];
-  const Lane t = load_lane(meta, fix_rank, slab, ncol, ldz, nq * nlev, rr,
-                           blockIdx.x);
-  const float w = t.sph;
-  const float wsum = gsum(w);
-  __syncthreads();
-
-  const int k0 = blockIdx.y * kLevels;
-  const int k1 = min(k0 + kLevels, nlev);
-  int it = 0;
-  for (int k = k0; k < k1; ++k) {
-    float u = 0.f, v = 0.f;
-    if (t.live) { u = vu[k * ldz + t.col]; v = vv[k * ldz + t.col]; }
-    for (int n = 0; n < nq; ++n, ++it) {
-      const int row = n * nlev + k;
-      const size_t o = row * ldz + t.col;
-      const float qv = t.live ? q[o] : 0.f;
-      float y = advect(t, dvv, xs[it & 1], u, v, qv, dt);
-      if constexpr (kMix) y = ca * (t.live ? mx[o] : 0.f) + cb * y;
-
-      // the limiter: bounds from the stage input, weights sph
-      const float qmin = gmin(qv), qmax = gmax(qv);
-      const float mass = gsum(w * y);
-      float carry = 0.f;
-      for (int i = 0; i < iters; ++i) {
-        const float yc = fminf(fmaxf(y, qmin), qmax);
-        // the deficit from the clipped-off amounts: no cancellation
-        const float d = gsum(w * (y - yc)) + carry;
-        const bool pos = d > 0.f;
-        const float bsel = pos ? qmax : qmin;
-        const float tot = gsum(w * (pos ? qmax - yc : yc - qmin));
-        const float give = pos ? fminf(d, tot) : fmaxf(d, -tot);
-        carry = d - give;
-        const float c = __fdiv_rn(give, fmaxf(tot, FLT_MIN));
-        y = yc + fabsf(c) * (bsel - yc);
-      }
-      // what the bounds could not take is spread uniformly by weight
-      y += __fdiv_rn(mass - gsum(w * y), wsum);
-
-      const float res = w * y;
-      if (t.live) {
-        out[o] = res;
-        if (t.slab_row) t.slab_row[row] = res;
-      }
-    }
-  }
 }
 
 constexpr int kRowThreads = 128;   // most columns a row-kernel block holds
@@ -367,15 +572,45 @@ tracer_row_kernel(const float* __restrict__ meta,
     const float x = q[r * qk + j];
     const float vq1 = vu[r * nlev + k] * x, vq2 = vv[r * nlev + k] * x;
     qv[p] = x;
-    g1[p] = mt[4][p] * (mt[0][p] * vq1 + mt[1][p] * vq2);
-    g2[p] = mt[4][p] * (mt[2][p] * vq1 + mt[3][p] * vq2);
+    g1[p] = mt[4][p] * fmaf(mt[0][p], vq1, mt[1][p] * vq2);
+    g2[p] = mt[4][p] * fmaf(mt[2][p], vq1, mt[3][p] * vq2);
   }
 #pragma unroll
   for (int p = 0; p < 16; ++p) {
     const float div =
         (dx(dvv, g1, p >> 2, p & 3) + dy(dvv, g2, p >> 2, p & 3)) * mt[5][p];
-    out[(base + p) * qk + j] = qv[p] - dt * div;
+    out[(base + p) * qk + j] = fmaf(-dt, div, qv[p]);
   }
+}
+
+Stage make_stage(const void* meta, const void* vu, const void* vv,
+                 const void* q, const void* mx, void* out,
+                 const void* fix_rank, void* slab, int nlev, int nq, int ld,
+                 int wu, int wv, int fold, int iters, float dt, float ca,
+                 float cb) {
+  const size_t blk = static_cast<size_t>(nlev) * ld;
+  Stage s;
+  s.meta = static_cast<const float*>(meta);
+  s.vu = static_cast<const float*>(vu) + wu * blk;
+  s.vv = static_cast<const float*>(vv) + wv * blk;
+  s.q = static_cast<const float*>(q);
+  s.mx = static_cast<const float*>(mx);
+  s.out = static_cast<float*>(out);
+  s.fix_rank = static_cast<const int*>(fix_rank);
+  s.slab = fix_rank ? static_cast<float*>(slab) : nullptr;
+  s.ld = static_cast<size_t>(ld);
+  s.nlev = nlev;
+  s.nq = nq;
+  s.fold = fold;
+  s.iters = iters;
+  s.dt = dt;
+  s.ca = ca;
+  s.cb = cb;
+  return s;
+}
+
+dim3 stage_grid(int ncol, int nlev) {
+  return dim3((ncol + kTile - 1) / kTile, (nlev + kLevels - 1) / kLevels);
 }
 
 }  // namespace
@@ -391,7 +626,8 @@ const char* tracer_error_string(int err) {
 // tensors of leading dimension ld; q, mx and out hold nq*nlev rows; the winds
 // are the nlev rows of vu from row wu*nlev and of vv from row wv*nlev.
 // fix_rank and slab may be null (no slab output); mx may be null (no
-// combination: y = e).
+// combination: y = e). The Euler and limited stages and the ring read and
+// write float4s: every field 16-byte aligned and ld % 4 == 0.
 
 int tracer_euler_launch(const void* meta, const void* dvv, const void* vu,
                         const void* vv, const void* q, void* out,
@@ -400,15 +636,12 @@ int tracer_euler_launch(const void* meta, const void* dvv, const void* vu,
                         float dt, float rrearth, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const size_t blk = static_cast<size_t>(nlev) * ld;
-  const dim3 grid((ncol + kBlock - 1) / kBlock,
-                  (nlev + kLevels - 1) / kLevels);
-  tracer_euler_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(meta), static_cast<const float*>(dvv),
-      static_cast<const float*>(vu) + wu * blk,
-      static_cast<const float*>(vv) + wv * blk, static_cast<const float*>(q),
-      static_cast<float*>(out), static_cast<const int*>(fix_rank),
-      static_cast<float*>(slab), nlev, nq, ncol, ld, fold_sph, dt, rrearth);
+  if (ld % 4) return cudaErrorInvalidValue;
+  const Stage s = make_stage(meta, vu, vv, q, nullptr, out, fix_rank, slab,
+                             nlev, nq, ld, wu, wv, fold_sph, 0, dt, 0.f, 0.f);
+  tracer_kernel<false, false><<<stage_grid(ncol, nlev), stage_threads(false),
+                                0, static_cast<cudaStream_t>(stream)>>>(
+      s, static_cast<const float*>(dvv), ncol, rrearth);
   return cudaGetLastError();
 }
 
@@ -439,17 +672,13 @@ int tracer_limit_launch(const void* meta, const void* dvv, const void* vu,
                         void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const size_t blk = static_cast<size_t>(nlev) * ld;
-  const dim3 grid((ncol + kBlock - 1) / kBlock,
-                  (nlev + kLevels - 1) / kLevels);
-  auto* kernel = mx ? tracer_limit_kernel<true> : tracer_limit_kernel<false>;
-  kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(meta), static_cast<const float*>(dvv),
-      static_cast<const float*>(vu) + wu * blk,
-      static_cast<const float*>(vv) + wv * blk, static_cast<const float*>(q),
-      static_cast<const float*>(mx), static_cast<float*>(out),
-      static_cast<const int*>(fix_rank), static_cast<float*>(slab), nlev, nq,
-      ncol, ld, iters, dt, ca, cb, rrearth);
+  if (ld % 4) return cudaErrorInvalidValue;
+  const Stage s = make_stage(meta, vu, vv, q, mx, out, fix_rank, slab, nlev,
+                             nq, ld, wu, wv, 1, iters, dt, ca, cb);
+  auto* kernel = mx ? tracer_kernel<true, true> : tracer_kernel<true, false>;
+  kernel<<<stage_grid(ncol, nlev), stage_threads(true), 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      s, static_cast<const float*>(dvv), ncol, rrearth);
   return cudaGetLastError();
 }
 
@@ -468,12 +697,11 @@ int tracer_ring_launch(const void* meta, const void* dvv, const void* vu,
                        int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int nb = (ncol + kBlock - 1) / kBlock;
+  const int nb = (ncol + kTile - 1) / kTile;
   const int nchunk = (nlev + kLevels - 1) / kLevels;
-  if (fix_rank == nullptr || epoch == 0 ||
-      !ring::fits(nchunk * nb, nflags, ne, halo, kBlock))
+  if (fix_rank == nullptr || epoch == 0 || ncol % 4 ||
+      !ring::fits(nchunk * nb, nflags, ne, halo, kTile))
     return cudaErrorInvalidValue;
-  const size_t blk = static_cast<size_t>(nlev) * ncol;
   ring::Args r = {};
   r.s1 = static_cast<const float*>(s1);
   r.rsp = static_cast<const float*>(rsp);
@@ -488,30 +716,45 @@ int tracer_ring_launch(const void* meta, const void* dvv, const void* vu,
   r.halo = halo;
   r.ca = ca;
   r.cb = cb;
+  const Stage s = make_stage(meta, vu, vv, q, nullptr, s1, fix_rank, slab,
+                             nlev, nq, ncol, wu, wv, 1, 0, dt, 0.f, 0.f);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   err = cudaMemsetAsync(counter, 0, sizeof(int), st);
   if (err != cudaSuccess) return err;
   auto* kernel = mx ? tracer_ring_kernel<true> : tracer_ring_kernel<false>;
-  kernel<<<nchunk * (r.nb + halo), kBlock, 0, st>>>(
-      static_cast<const float*>(meta), static_cast<const float*>(dvv),
-      static_cast<const float*>(vu) + wu * blk,
-      static_cast<const float*>(vv) + wv * blk, static_cast<const float*>(q),
-      static_cast<const int*>(fix_rank), static_cast<float*>(slab), nlev, nq,
-      ncol, dt, rrearth, r);
+  kernel<<<nchunk * (r.nb + halo), 32 * kRingWarps, 0, st>>>(
+      s, static_cast<const float*>(dvv), ncol, rrearth, r);
   return cudaGetLastError();
 }
 
-// Blocks of the Euler kernel (fused = 0) or of the ring kernel without mix
-// (fused = 1) that one SM holds, from
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative: a CUDA error.
-int tracer_blocks_per_sm(int fused, int device) {
+// Blocks that one SM holds, from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor, of kernel `kind`: 0 the
+// Euler stage, 1 the ring kernel without mix, 2 the limited stage with mix,
+// 3 the limited stage without mix; negative: a CUDA error.
+int tracer_blocks_per_sm(int kind, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -static_cast<int>(err);
   int n = 0;
-  err = fused ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   &n, tracer_ring_kernel<false>, kBlock, 0)
-             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   &n, tracer_euler_kernel, kBlock, 0);
+  switch (kind) {
+    case 0:
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, tracer_kernel<false, false>, stage_threads(false), 0);
+      break;
+    case 1:
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, tracer_ring_kernel<false>, 32 * kRingWarps, 0);
+      break;
+    case 2:
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, tracer_kernel<true, true>, stage_threads(true), 0);
+      break;
+    case 3:
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, tracer_kernel<true, false>, stage_threads(true), 0);
+      break;
+    default:
+      return -static_cast<int>(cudaErrorInvalidValue);
+  }
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 

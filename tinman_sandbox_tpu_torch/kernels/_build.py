@@ -36,8 +36,10 @@ _FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # column do not depend on which kernel inlines the chunked body (the
 # chunked kernel with or without its stash, the ring kernel); remap.cu so
 # that its dp rows round every product and sum on its own, as the plain
-# PyTorch code does
-SOURCE_FLAGS = {"caar": ["-fmad=false"], "remap": ["-fmad=false"]}
+# PyTorch code does; tracer.cu so that the Euler kernel and the ring kernel,
+# which inline the same per-row body, write the same bits
+SOURCE_FLAGS = {"caar": ["-fmad=false"], "remap": ["-fmad=false"],
+                "tracer": ["-fmad=false"]}
 
 
 def _flags(name: str) -> list:

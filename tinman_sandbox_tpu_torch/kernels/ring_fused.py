@@ -55,6 +55,7 @@ from .caar_t import caar_ring_plan, caar_t4_cuda, caar_t4_plain
 from .dss import (FixTables, _check_rsp, _overlap, _stream,
                   dss_sweep_nomerge_plain)
 from .tracer_t import _check as _tracer_check
+from .tracer_t import _check_aligned as _tracer_aligned
 from .tracer_t import _new_slab as _tracer_slab
 from .tracer_t import tracer_euler_cuda, tracer_euler_plain
 
@@ -231,6 +232,11 @@ def tracer_ring_packed_t(meta, vu, vv, q, dvv, dt, nlev: int, rsp,
     scratch = torch.empty_like(q)
     w = torch.empty_like(q)
     e16 = q.shape[1]
+    # the producer reads and writes float4s (csrc/tracer.cu)
+    _tracer_aligned("tracer_ring", e16, meta=meta, dvv=dvv, q=q,
+                    scratch=scratch, vu=(vu, wind_rows[0] * nlev * e16),
+                    vv=(vv, wind_rows[1] * nlev * e16),
+                    fix_rank=fix.fix_rank)
     nchunk = -(-nlev // _LEVELS)
     flags, counter, epoch = _STATE.take(dev, nchunk * -(-e16 // TILE))
     err = _build.library("tracer").tracer_ring_launch(

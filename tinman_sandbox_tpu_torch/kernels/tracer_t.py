@@ -35,7 +35,19 @@ Each has a plain PyTorch version (``tracer_euler_plain``,
 ``tracer_limit_plain``). The wrappers check their operands, run the plain
 version for CPU tensors (any float dtype) and launch the kernel for CUDA
 tensors (float32), counted in ``<wrapper>.launches`` (and those with a slab
-output also in ``<wrapper>.slab_launches``).
+output also in ``<wrapper>.slab_launches``). The kernels read and write
+float4s: on the card every field must be 16-byte aligned (a misaligned
+view raises ValueError; nothing falls back).
+
+``tracer_euler_emulated`` and ``tracer_limit_emulated`` repeat on the CPU
+what the kernels compute and in which order (the quad layout of
+``csrc/tracer.cu``: a thread = one row of an element, 4 lanes; the shared
+wind-metric products c1, c2; D_x over rows li ^ m; each group sum a tree
+over a thread's 4 lanes and then over the quad; a division once a thread),
+with FMAs rounded once, and count the writes of the kernels' grid over
+(128-lane tiles, level chunks of ``TRACER_LEVELS`` split over 4 warps in
+the Euler stage and 8 in the limited stage, every tracer): the CPU tests
+hold them against the JAX kernels and the plain versions.
 
 The winds are read out of ``vu`` / ``vv`` at the nlev-row BLOCK indices
 ``wind_rows``: pass the stacked [4*nlev, E16] prognostic state as both with
@@ -45,6 +57,8 @@ slab [nfix, qsize*nlev] with ``slab[r] = out[:, read_lanes[r]]``.
 """
 from __future__ import annotations
 
+import itertools
+
 import torch
 
 from ..config import NPSQ
@@ -53,10 +67,18 @@ from ..ops.sphere import full_precision_matmuls
 from . import _build
 from .layout import META_COLS
 
-__all__ = ["tracer_euler_plain", "tracer_euler_cuda", "tracer_limit_plain",
-           "tracer_limit_cuda"]
+__all__ = ["TRACER_LEVELS", "TRACER_TILE", "TRACER_WARPS",
+           "tracer_euler_plain", "tracer_euler_cuda", "tracer_euler_emulated",
+           "tracer_limit_plain", "tracer_limit_cuda", "tracer_limit_emulated"]
 
 _MC = {name: i for i, name in enumerate(META_COLS)}
+# the grid of csrc/tracer.cu's Euler and limited kernels: a block takes
+# TRACER_TILE lanes (a warp's 32 quads of 4 lanes) and TRACER_LEVELS levels
+# of every tracer, split over its warps (4 in the Euler stage, 8 in the
+# limited stage): warp w of W the levels w, w + W, ... of the chunk
+TRACER_LEVELS = 8
+TRACER_TILE = 128
+TRACER_WARPS = {"euler": 4, "limit": 8}
 
 
 def _advect_plain(meta, vu, vv, q, dvv, dt, nlev, wind_rows):
@@ -200,6 +222,19 @@ def _check(name, meta, vu, vv, q, dvv, nlev, wind_rows, mx=None):
     return dev
 
 
+def _check_aligned(name, ld: int, **ops):
+    """The kernels move 16-byte groups of 4 lanes: every base pointer (the
+    winds' at their row block) 16-byte aligned and ld % 4 == 0, or
+    ValueError. ``ops``: name -> tensor or (tensor, element offset)."""
+    if ld % 4:
+        raise ValueError(f"{name}: the leading dimension {ld} is not a "
+                         "multiple of 4")
+    for op, t in ops.items():
+        t, off = t if isinstance(t, tuple) else (t, 0)
+        if t is not None and (t.data_ptr() + off * t.element_size()) % 16:
+            raise ValueError(f"{name}: {op} must be 16-byte aligned")
+
+
 def _new_slab(name, fix, q):
     """(fix_rank pointer, slab) for ``fix``, the slab [nfix, rows of q]."""
     if fix is None:
@@ -230,6 +265,10 @@ def tracer_euler_cuda(meta, vu, vv, q, dvv, dt, nlev: int,
     rank, slab = _new_slab("tracer_euler", fix, q)
     out = torch.empty_like(q)
     e16 = q.shape[1]
+    _check_aligned("tracer_euler", e16, meta=meta, dvv=dvv, q=q, out=out,
+                   vu=(vu, wind_rows[0] * nlev * e16),
+                   vv=(vv, wind_rows[1] * nlev * e16),
+                   fix_rank=None if fix is None else fix.fix_rank)
     err = _build.library("tracer").tracer_euler_launch(
         meta.data_ptr(), dvv.data_ptr(), vu.data_ptr(), vv.data_ptr(),
         q.data_ptr(), out.data_ptr(), rank,
@@ -268,6 +307,10 @@ def tracer_limit_cuda(meta, vu, vv, q, dvv, dt, nlev: int, mix=None,
     rank, slab = _new_slab("tracer_limit", fix, q)
     out = torch.empty_like(q)
     e16 = q.shape[1]
+    _check_aligned("tracer_limit", e16, meta=meta, dvv=dvv, q=q, out=out,
+                   mx=mx, vu=(vu, wind_rows[0] * nlev * e16),
+                   vv=(vv, wind_rows[1] * nlev * e16),
+                   fix_rank=None if fix is None else fix.fix_rank)
     err = _build.library("tracer").tracer_limit_launch(
         meta.data_ptr(), dvv.data_ptr(), vu.data_ptr(), vv.data_ptr(),
         q.data_ptr(), 0 if mx is None else mx.data_ptr(), out.data_ptr(),
@@ -285,3 +328,134 @@ def tracer_limit_cuda(meta, vu, vv, q, dvv, dt, nlev: int, mix=None,
 
 tracer_limit_cuda.launches = 0
 tracer_limit_cuda.slab_launches = 0   # the launches among them with a slab
+
+
+# -- the kernels' walk and arithmetic on the CPU ------------------------------
+
+def _fma(a, b, c):
+    """a*b + c with one rounding to float32, as ``fmaf``: the product of two
+    float32 values is exact in float64 (a rare sum may round twice)."""
+    a = a.double() if torch.is_tensor(a) else float(a)
+    return (a * b.double() + c.double()).float()
+
+
+def _f32(x) -> float:
+    """A number as the kernel's float argument receives it."""
+    return float(torch.tensor(float(x), dtype=torch.float32))
+
+
+def _qsum(a):
+    """A group sum as the kernels take it, on [rows, nel, 4 (li), 4 (lj)]:
+    a tree over a thread's 4 lanes, then the quad's 4 partial sums by xor 1
+    and xor 2. Returns [rows, nel, 1, 1]."""
+    s = (a[..., 0] + a[..., 1]) + (a[..., 2] + a[..., 3])
+    return ((s[..., 0] + s[..., 1]) + (s[..., 2] + s[..., 3]))[..., None,
+                                                                 None]
+
+
+def _advect_emulated(meta, vu, vv, q, dvv, dt, nlev, wind_rows):
+    """e = q - dt*div(v*q) as the kernels compute it, [rows, nel, 4, 4]."""
+    rows, e16 = q.shape
+    nq, nel = rows // nlev, e16 // NPSQ
+    wu, wv = wind_rows
+    u, v = vu[wu * nlev:(wu + 1) * nlev], vv[wv * nlev:(wv + 1) * nlev]
+    m = lambda name: meta[_MC[name]]
+    # the wind-metric products of a (level, lane), shared by the tracers
+    c1 = m("metdet") * _fma(m("dinv00"), u, m("dinv01") * v)
+    c2 = m("metdet") * _fma(m("dinv10"), u, m("dinv11") * v)
+    quads = lambda x: x.reshape(rows, nel, 4, 4)
+    q3 = q.reshape(nq, nlev, e16)
+    g1, g2 = quads(c1 * q3), quads(c2 * q3)
+    li = torch.arange(4)
+    # D_x: rows li ^ m of gv1 (the quad's shuffles), m ascending
+    ax = dvv[li, li].view(1, 1, 4, 1) * g1
+    for s in (1, 2, 3):
+        ax = _fma(dvv[li ^ s, li].view(1, 1, 4, 1), g1[:, :, li ^ s, :], ax)
+    # D_y: the thread's own row
+    ay = dvv[0].view(1, 1, 1, 4) * g2[..., 0:1]
+    for s in (1, 2, 3):
+        ay = _fma(dvv[s].view(1, 1, 1, 4), g2[..., s:s + 1], ay)
+    rmr = (m("rmetdet") * _f32(CONSTANTS.rrearth)).view(1, nel, 4, 4)
+    return _fma(-_f32(dt), (ax + ay) * rmr, quads(q))
+
+
+def _limit_emulated(y, q, w, iters):
+    """The kernels' limiter on [rows, nel, 4, 4]; w [1, nel, 4, 4]."""
+    lo, hi = q.amin((2, 3), keepdim=True), q.amax((2, 3), keepdim=True)
+    tiny = torch.finfo(torch.float32).tiny
+    mass = _qsum(w * y)
+    carry = torch.zeros_like(mass)
+    for _ in range(iters):
+        yc = torch.minimum(torch.maximum(y, lo), hi)
+        d = _qsum(w * (y - yc)) + carry
+        pos = d > 0
+        tot = _qsum(w * torch.where(pos, hi - yc, yc - lo))
+        give = torch.where(pos, torch.minimum(d, tot), torch.maximum(d, -tot))
+        carry = d - give
+        c = (give / tot.clamp(min=tiny)).abs()      # once a thread
+        y = _fma(c, torch.where(pos, hi, lo) - yc, yc)
+    return y + (mass - _qsum(w * y)) / _qsum(w)
+
+
+def _walk(result, nlev, fix, warps):
+    """Write ``result`` [rows, E16] out as the kernels' grid does: block
+    (x, y) takes lanes x*TRACER_TILE.. (32 quads of 4 lanes, the live ones)
+    and levels y*TRACER_LEVELS.. of every tracer, its warp w of ``warps``
+    the levels w, w + warps, ...; each thread writes its 4 lanes of a row
+    and, where a lane has a fix rank, the slab entry. Returns (out, slab or
+    None, writes, slab writes or None); entries never written stay NaN."""
+    rows, e16 = result.shape
+    nq = rows // nlev
+    out = torch.full_like(result, float("nan"))
+    writes = torch.zeros(rows, e16, dtype=torch.int64)
+    slab = swrites = rank = None
+    if fix is not None:
+        slab = torch.full((fix.nfix, rows), float("nan"), dtype=result.dtype)
+        swrites = torch.zeros(fix.nfix, rows, dtype=torch.int64)
+        rank = fix.fix_rank.long()
+    for bx in range(-(-e16 // TRACER_TILE)):
+        col = bx * TRACER_TILE + 4 * torch.arange(TRACER_TILE // 4)
+        lanes = (col[col < e16][:, None] + torch.arange(4)).reshape(-1)
+        for by, warp in itertools.product(range(-(-nlev // TRACER_LEVELS)),
+                                          range(warps)):
+            k0 = by * TRACER_LEVELS
+            k1 = max(min(k0 + TRACER_LEVELS, nlev), k0 + warp)
+            ks = torch.arange(k0 + warp, k1, warps)
+            rws = (torch.arange(nq)[:, None] * nlev + ks).reshape(-1)
+            idx = (rws[:, None], lanes[None])
+            out[idx] = result[idx]
+            writes[idx] += 1
+            if fix is not None:
+                fl = lanes[rank[lanes] >= 0]
+                sidx = (rank[fl][:, None], rws[None])
+                slab[sidx] = result[rws][:, fl].T
+                swrites[sidx] += 1
+    return out, slab, writes, swrites
+
+
+def tracer_euler_emulated(meta, vu, vv, q, dvv, dt, nlev: int,
+                          fold_sph: bool = True, wind_rows=(0, 0), fix=None):
+    """``tracer_euler_cuda`` as its kernel computes it, on float32 CPU
+    tensors: the quad layout's arithmetic and order, written out by the
+    kernel's grid. Returns (out, slab or None, writes, slab writes or None)
+    (``_walk``)."""
+    e = _advect_emulated(meta, vu, vv, q, dvv, dt, nlev, wind_rows)
+    if fold_sph:
+        e = e * meta[_MC["spheremp"]].view(1, -1, 4, 4)
+    return _walk(e.reshape(q.shape), nlev, fix, TRACER_WARPS["euler"])
+
+
+def tracer_limit_emulated(meta, vu, vv, q, dvv, dt, nlev: int, mix=None,
+                          wind_rows=(0, 0), iters: int = 2, fix=None):
+    """``tracer_limit_cuda`` as its kernel computes it, on float32 CPU
+    tensors (``tracer_euler_emulated``, then the Shu-Osher combination
+    ``fmaf(ca, mx, cb*e)`` and the kernel's limiter). Returns (out, slab or
+    None, writes, slab writes or None)."""
+    mx, ca, cb = _mix_of("tracer_limit", q, mix)
+    y = _advect_emulated(meta, vu, vv, q, dvv, dt, nlev, wind_rows)
+    quads = lambda x: x.reshape(q.shape[0], -1, 4, 4)
+    if mx is not None:
+        y = _fma(_f32(ca), quads(mx), _f32(cb) * y)
+    w = meta[_MC["spheremp"]].view(1, -1, 4, 4)
+    y = _limit_emulated(y, quads(q), w, iters)
+    return _walk((w * y).reshape(q.shape), nlev, fix, TRACER_WARPS["limit"])
