@@ -215,7 +215,33 @@ NVIDIA card and check it, phase by phase:
      the level-form remap kernel); the CLI ``--ne 30 --prim --diag`` from
      one checkpoint run 3 steps at once and as 2 steps, ``--checkpoint``,
      ``--restore`` and 1 step, bit for bit equal; the remap kernel launched
-     in float32 and in float64 on the path.
+     in float32 and in float64 on the path;
+ 22. the element-sharded tiers at ne30 x 72, f32, over LocalMesh(8) (675
+     elements a shard), launch counts set to 0 just before and read just
+     after: from one projected random start the psum halo, ppermute,
+     partitioned segment-sum and interior / boundary overlap steps (the
+     array-form CAAR and segment sums, no kernel of the table), u, v, T
+     and dp3d at np1 of each within 1e-5 of max|x| of the single-device
+     ``caar_dss_step``, continuity exactly 0 for the psum and segment-sum
+     tiers and at most 4 ulps of max|x| for the ppermute tiers, the
+     perimeter fraction, the rounds and each step's ms (an emulation);
+     then ``dryrun_multichip(8)`` with every tier, 1-8;
+ 23. the ne120-class path, 86,400 elements x 72, f32, launch counts set to
+     0 just before and read just after: the host build seconds of the cubed
+     sphere and the plans, the assembled problem drawn on the card and the
+     peak device memory after it, one CAAR launch with the slab against its
+     plain version on the last 8,192 elements' lanes (5e-5 per field, the
+     slab bit for bit), one assembled step with continuity exactly 0, and
+     ``bench --nelem 86400`` and ``bench --ne 120`` (20 chained steps a
+     timed run; their JSON lines carry the card's name and power limit);
+ 24. ``profiling.trace`` around 10 chained prim steps at ne30 x 72 (qsize
+     1) and 10 assembled steps at ne120, launch counts set to 0 just before
+     and read just after: the device's busy and idle shares of each window
+     and its five longest device operations; a native ``Timers`` region
+     around the same prim steps (``get_full``; the native timer must have
+     built).
+
+Phases 22-24 run after phase 21, before the lines of phase 17.
 
 Any failure raises and exits non-zero before the result line is printed.
 Run from the repository root: ``python3 chip_smoke.py``.
@@ -314,6 +340,21 @@ NLEV = 72
 # inside the stability limit of the random (unbalanced) initial state
 DYN_NU = 1e15
 DYN_DT = 0.1
+# phase 22: the element-sharded tiers' shards (675 elements a shard at ne30),
+# their gate against the single-device step (the same sums in another order),
+# and the ulps of max|x| that a ppermute tier's aliases may differ by
+TIER_SHARDS = 8
+TIER_TOL = 1e-5
+TIER_CONT_ULPS = 4
+TIER_FIELDS = ("u", "v", "t", "dp3d")
+# phase 23: the ne120-class grid (86,400 elements), the CAAR gate's block of
+# elements and the benches' chained steps a timed run
+NE120 = 120
+NE120_BLOCK = 8192
+NE120_STEPS = 20
+# phase 24: traces taken of one window at most, until one holds every CAAR
+# launch of it
+TRACE_TRIES = 3
 
 
 def card_line() -> str:
@@ -3067,7 +3108,7 @@ def phase_multidevice_path(dev, cs):
         del bs, bq, ba, ts, tq, ta, q
         torch.cuda.empty_cache()
     del q_tall, sh
-    ran = dryrun_multichip(8, device=dev)
+    ran = dryrun_multichip(8, device=dev, tiers=(5, 6, 7))
     print(f"phase 19 dryrun_multichip(8): {json.dumps(ran)}")
     print("phase 19 step times (events, ms; LocalMesh emulates the shards "
           "on one card, one launch a shard: not a scaling result): "
@@ -3725,6 +3766,263 @@ def phase_remap_cadence(dev, cs):
         del za, zc
     return rows, times
 
+def ulp32(x: float) -> float:
+    """The spacing of float32 numbers at |x| (x > 0)."""
+    import math
+
+    return 2.0 ** (math.floor(math.log2(x)) - 23)
+
+
+def phase_element_tiers(dev, cs):
+    """Phase 22: the element-sharded tiers at ne30 x 72, f32, over
+    LocalMesh(TIER_SHARDS) on the card, from one projected random start
+    (every time level of u, v, T and dp3d projected onto the continuous
+    space): the psum halo, ppermute, partitioned segment-sum and overlap
+    steps, each of u, v, T, dp3d at np1 within TIER_TOL of max|x| of the
+    single-device ``caar_dss_step``; continuity (``continuity_error_t`` on
+    the np1 fields in [nlev, E16] lane order) exactly 0 for the psum and
+    segment-sum tiers (every alias gathers one sum) and at most
+    TIER_CONT_ULPS ulps of max|x| for the ppermute tiers (a dof of three
+    shards adds its rounds in a shard-dependent order); the perimeter
+    fraction, the rounds and each step's ms by events (an emulation: the
+    shards run one after another); then ``dryrun_multichip(8)`` with every
+    tier."""
+    import dataclasses
+
+    import torch
+
+    from tinman_sandbox_tpu_torch import (
+        Config, analytic_hvcoord, random_state, zero_derived)
+    from tinman_sandbox_tpu_torch.dist import (
+        LocalMesh, caar_dss_sharded_step, caar_dss_step, caar_halo_step,
+        caar_ppermute_overlap_step, caar_ppermute_step, continuity_error_t,
+        dss_project, make_dss_plan, make_overlap_plan, make_ppermute_plan,
+        shard_problem, unshard)
+    from tinman_sandbox_tpu_torch.kernels.layout import pack_field_t
+    from tinman_sandbox_tpu_torch.multichip import TIERS, dryrun_multichip
+
+    n = TIER_SHARDS
+    kw = dict(dtype=torch.float32, device=dev)
+    cfg = Config(nelem=cs.nelem, nlev=NLEV)
+    g = cs.geometry
+    st, dv = random_state(cfg, seed=7, **kw), zero_derived(cfg, **kw)
+    hv = analytic_hvcoord(cfg, **kw)
+    proj = lambda x: torch.stack([
+        dss_project(x[i], cs.gdof, cs.ndof, g.spheremp, g.rspheremp)
+        for i in range(x.shape[0])])
+    st = dataclasses.replace(st, **{k: proj(getattr(st, k))
+                                    for k in TIER_FIELDS})
+    ref, _ = caar_dss_step(st, dv, g, hv, cs.gdof, cs.ndof, cfg, 0.1, 1.0,
+                           device=dev)
+    mesh = LocalMesh(n, dev)
+    t0 = time.perf_counter()
+    plan, pplan = make_dss_plan(cs.gdof, n), make_ppermute_plan(cs.gdof, n)
+    oplan = make_overlap_plan(cs.gdof, n)
+    plan_s = time.perf_counter() - t0
+    ss, sd, sg = shard_problem(mesh, st, dv, g)
+    steps = {
+        "halo": lambda: caar_halo_step(ss, sd, sg, hv, plan, mesh, cfg, 0.1,
+                                       1.0),
+        "ppermute": lambda: caar_ppermute_step(ss, sd, sg, hv, pplan, mesh,
+                                               cfg, 0.1, 1.0),
+        "segment sum": lambda: caar_dss_sharded_step(
+            ss, sd, sg, hv, cs.gdof, cs.ndof, mesh, cfg, 0.1, 1.0),
+        "overlap": lambda: caar_ppermute_overlap_step(
+            ss, sd, sg, hv, pplan, oplan, mesh, cfg, 0.1, 1.0),
+    }
+    exact = ("halo", "segment sum")
+    for name, step in steps.items():
+        out = unshard(mesh, step()[0])
+        errs, ulps = {}, {}
+        for k in TIER_FIELDS:
+            got, want = getattr(out, k)[cfg.np1], getattr(ref, k)[cfg.np1]
+            errs[k] = scaled_err(got, want)
+            cont = continuity_error_t(pack_field_t(got), cs.gdof)
+            ulps[k] = cont / ulp32(float(got.abs().max()))
+            if not errs[k] <= TIER_TOL:
+                raise AssertionError(f"phase 22 {name}: {k} at np1 "
+                                     f"{errs[k]:.3e} of max|x| from "
+                                     "caar_dss_step")
+            if (cont != 0.0) if name in exact else ulps[k] > TIER_CONT_ULPS:
+                raise AssertionError(f"phase 22 {name}: {k} continuity "
+                                     f"{cont:.3e} ({ulps[k]:.2f} ulps)")
+        ms = cuda_ms(step, 3)
+        print(f"phase 22 tier {name} ne{cs.ne}x{NLEV} on LocalMesh({n}): "
+              "scaled errors against caar_dss_step "
+              + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+              + "; continuity in ulps of max|x| "
+              + ", ".join(f"{k} {u:.2f}" for k, u in ulps.items())
+              + f"; {ms:.2f} ms a step (events, an emulation)")
+    print(f"phase 22 plans ne{cs.ne} on {n} shards ({plan_s:.2f} s): "
+          f"perimeter_fraction {plan.perimeter_fraction:.4f} "
+          f"({plan.n_gshared} of {cs.nelem * 16} dofs), {pplan.rounds} "
+          f"ppermute rounds of up to {pplan.pair_len} dofs, boundary / "
+          f"interior elements a shard {oplan.nb_max} / {oplan.ni_max}")
+    ran = dryrun_multichip(8, device=dev, tiers=TIERS)
+    if set(ran) != set(TIERS):
+        raise AssertionError(f"phase 22 dryrun_multichip(8) ran {ran}")
+    print(f"phase 22 dryrun_multichip(8): {json.dumps(ran)}")
+
+
+def phase_ne120(dev):
+    """Phase 23: the ne120-class path, 86,400 elements x 72, f32: the build
+    seconds of the cubed sphere and the plans, the assembled problem drawn
+    on the card and the peak device memory after it; one CAAR launch with
+    the slab held against its plain version on the last NE120_BLOCK
+    elements' lanes (columns are independent; the plain version at full
+    width would need ~30 GB of temporaries) at CAAR_TOL per field, the slab
+    bit for bit s1 at the fix lanes; one assembled step with continuity
+    exactly 0; the raw bench (``--nelem 86400``) and the assembled bench
+    (``--ne 120``), NE120_STEPS chained steps a timed run. Returns (the raw
+    and assembled bench results, the assembled problem) for phase 24."""
+    import torch
+
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.dist import (
+        build_cubed_sphere, caar_dss_structured_packed_t4, continuity_error_t,
+        make_structured_plan)
+    from tinman_sandbox_tpu_torch.kernels.caar_t import (
+        caar_t4_cuda, caar_t4_plain)
+    from tinman_sandbox_tpu_torch.kernels.dss import fix_tables
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cs = build_cubed_sphere(NE120, dtype=torch.float32, device=dev)
+    cs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fix = fix_tables(make_structured_plan(cs.gdof, NE120), dev)
+    plan_s = time.perf_counter() - t0
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    const, (s0, sm1), acc, plan, rsp = bench.make_assembled_problem(
+        NE120, NLEV, dev, cs=cs)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    e16 = s0.shape[1]
+    print(f"phase 23 ne{NE120}: {cs.nelem} elements, E16 {e16}; cubed sphere "
+          f"built in {cs_s:.1f} s, structured plan and fix tables "
+          f"({fix.nfix} fix lanes) in {plan_s:.1f} s, the assembled problem "
+          f"drawn on the card in {init_s:.1f} s; peak device memory after "
+          f"init {peak / 2**30:.2f} GiB")
+    scal, meta, qdp, pecnd, dvv = const
+    # the gate's launch is not the main path's: its counts are restored
+    n_launch, n_slab = caar_t4_cuda.launches, caar_t4_cuda.slab_launches
+    kacc = [a.clone() for a in acc]
+    got = caar_t4_cuda(scal, meta, s0, sm1, qdp, pecnd, *kacc, dvv, fix=fix)
+    torch.cuda.synchronize(dev)
+    caar_t4_cuda.launches, caar_t4_cuda.slab_launches = n_launch, n_slab
+    lanes = slice(e16 - NE120_BLOCK * 16, e16)
+    blk = lambda x: x[:, lanes].contiguous()
+    want = caar_t4_plain(scal, blk(meta), blk(s0), blk(sm1), blk(qdp),
+                         blk(pecnd), *(blk(a) for a in acc), dvv)
+    errs = caar_field_errs(tuple(blk(x) for x in got[:5]), want, NLEV)
+    if not all(e <= CAAR_TOL for e in errs.values()):
+        raise AssertionError(f"phase 23 caar ne{NE120}: {errs}")
+    if not torch.equal(got[5], got[0][:, fix.read_lanes.long()].T):
+        raise AssertionError(f"phase 23 caar ne{NE120}: the slab is not s1 "
+                             "at the fix lanes")
+    del got, kacc, want
+    print(f"phase 23 caar ne{NE120}x{NLEV} with the slab: the last "
+          f"{NE120_BLOCK} elements' lanes ({lanes.start}..{e16 - 1}) of the "
+          "full launch against caar_t4_plain on that block, scaled errors "
+          + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+          + f" (gate {CAAR_TOL:g}); slab bitwise s1 at the fix lanes")
+    out = caar_dss_structured_packed_t4(scal, meta, s0, sm1, qdp, pecnd,
+                                        *acc, dvv, plan, rsp)
+    cont = continuity_error_t(out[0], cs.gdof)
+    if cont != 0.0 or not bool(torch.isfinite(out[0]).all()):
+        raise AssertionError(f"phase 23 assembled step ne{NE120}: continuity "
+                             f"{cont}")
+    print(f"phase 23 assembled step ne{NE120}x{NLEV}: continuity error "
+          f"{cont:.1e}, finite")
+    problem = (const, (out[0], s0), tuple(out[2:]), plan, rsp)
+    del out, sm1
+    res = {}
+    for label, argv in (("raw", ["--nelem", str(cs.nelem)]),
+                        ("assembled", ["--ne", str(NE120)])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res[label] = bench.main(argv + ["--nexec", str(NE120_STEPS),
+                                            "--reps", "3"])
+        if res[label]["init"] != "device" or not res[label]["card"]:
+            raise AssertionError(f"phase 23 bench {label}: {res[label]}")
+        print(f"phase 23 bench {label} " + buf.getvalue().strip())
+    return res, problem
+
+
+def phase_trace(dev, cs, big):
+    """Phase 24: ``profiling.trace`` around 10 chained prim steps at ne30 x
+    72, qsize 1 (nu 1e15, dt 0.1), and 10 chained assembled steps at ne120
+    (phase 23's problem): the device's busy share and idle share of each
+    window and its five longest device operations, from a trace that holds
+    every CAAR launch of its window (taken again, up to TRACE_TRIES, where
+    the profiler lost some); one native ``Timers`` region around the same
+    10 prim steps (``get_full``)."""
+    import torch
+
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.kernels.caar_t import caar_t4_cuda
+    from tinman_sandbox_tpu_torch.profiling import (
+        Timers, busy_share, trace, trace_path)
+
+    logdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "traces")
+    const, s0, qdp, acc, plan, rsp = bench.make_prim_problem(
+        cs.ne, NLEV, dev, DYN_DT)
+    prim = lambda: bench.run_prim(const, s0, qdp, acc, plan, rsp, 10,
+                                  DYN_NU, DYN_DT)
+    prim()                                        # warm-up
+    torch.cuda.synchronize(dev)
+    bconst, blevels, bacc, bplan, brsp = big
+    runs = {f"prim ne{cs.ne}x{NLEV} qsize 1 x10": prim,
+            f"assembled ne{NE120}x{NLEV} x10": lambda: bench.run_assembled(
+                bconst, blevels, bacc, bplan, brsp, 10)}
+    shares = {}
+    for i, (label, run) in enumerate(runs.items()):
+        d = os.path.join(logdir, f"window{i}")
+        # a trace whose window lacks some of its CAAR launches would
+        # understate the busy share: it is taken again, up to TRACE_TRIES
+        for attempt in range(1, TRACE_TRIES + 1):
+            n0 = caar_t4_cuda.launches
+            with trace(d, device=dev):
+                run()
+            launched = caar_t4_cuda.launches - n0
+            r = busy_share(trace_path(d))
+            seen = sum(c for n, c in r["kernels"].items()
+                       if "caar_chunk_kernel" in n)
+            if seen == launched:
+                break
+            print(f"phase 24 trace {label}: attempt {attempt} holds {seen} "
+                  f"of {launched} CAAR launches")
+        else:
+            raise AssertionError(f"phase 24 {label}: no trace held every "
+                                 f"CAAR launch in {TRACE_TRIES} attempts")
+        if not (0.0 < r["busy_share"] <= 1.0 and r["top"]):
+            raise AssertionError(f"phase 24 {label}: no device time in the "
+                                 f"trace: {r}")
+        shares[label] = r["busy_share"]
+        print(f"phase 24 trace {label} (attempt {attempt}, {seen} of "
+              f"{launched} CAAR launches in the trace): busy "
+              f"{r['busy_s'] * 1e3:.3f} ms of a {r['window_s'] * 1e3:.3f} ms "
+              f"window, busy_share {r['busy_share']:.4f}, idle share "
+              f"{1 - r['busy_share']:.4f}; top device operations: "
+              + "; ".join(f"{n[:60]} {t * 1e3:.3f} ms x{c}"
+                          for n, t, c in r["top"]))
+    timers = Timers(dev)
+    if not timers.is_native:
+        raise AssertionError("phase 24: the native timer did not build")
+    timers.reset()
+    label = next(iter(runs))
+    with timers.region(label):
+        prim()
+    calls, total, mn, mx, usr, sys_ = timers.get_full(label)
+    print(f"phase 24 Timers (native) {label}: calls {calls}, total "
+          f"{total * 1e3:.3f} ms, min {mn * 1e3:.3f}, max {mx * 1e3:.3f}, usr "
+          f"{usr * 1e3:.3f} ms, sys {sys_ * 1e3:.3f} ms")
+    return shares
+
 
 def main() -> int:
     try:
@@ -3888,6 +4186,22 @@ def main() -> int:
                    for w in (remap_packed_cuda, remap_levels_cuda)}
     rows.update(remap_rows)
     print(f"phase 21 seconds: {time.perf_counter() - t0:.1f}")
+    reset()
+    t0 = time.perf_counter()
+    phase_element_tiers(dev, cs)
+    tiers = counts()
+    print(f"phase 22 seconds: {time.perf_counter() - t0:.1f}")
+    reset()
+    t0 = time.perf_counter()
+    big_res, big_problem = phase_ne120(dev)
+    big = counts()
+    print(f"phase 23 seconds: {time.perf_counter() - t0:.1f}")
+    reset()
+    t0 = time.perf_counter()
+    phase_trace(dev, cs, big_problem)
+    traced = counts()
+    del big_problem
+    print(f"phase 24 seconds: {time.perf_counter() - t0:.1f}")
     for label, res, got in (("raw", raw_res, raw), ("assembled", asm_res,
                                                      asm),
                             ("dynamics", dyn_res, dyn),
@@ -4005,6 +4319,30 @@ def main() -> int:
         raise AssertionError("the remap kernel was not launched in float32 "
                              "and in float64 on the remap cadence's path: "
                              f"{cadence}, float64 {cadence_f64}")
+    print(f"phase 22 element-sharded tiers and dry run main-path launches: "
+          f"{json.dumps(tiers)}")
+    for name in ("caar_t4_cuda", "dss_fixup_cuda", "dss_sweep_banded_cuda",
+                 "dss_patch_tiles_cuda"):
+        if tiers[name] <= 0:
+            raise AssertionError(f"{name} was not launched on phase 22's "
+                                 "path")
+    print(f"phase 23 ne{NE120} main-path launches: {json.dumps(big)}; raw "
+          f"{big_res['raw']['us_per_step']:.2f} us/step "
+          f"(fraction_of_triad {big_res['raw']['fraction_of_triad']:.3f}), "
+          f"assembled {big_res['assembled']['us_per_step']:.2f} us/step "
+          f"(fraction_of_triad "
+          f"{big_res['assembled']['fraction_of_triad']:.3f})")
+    for name in ("caar_t4_cuda", "dss_fixup_cuda", "dss_sweep_cuda",
+                 "saxpby_cuda"):
+        if big[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the ne{NE120} "
+                                 "path")
+    print(f"phase 24 traced main-path launches: {json.dumps(traced)}")
+    for name in ("caar_t4_cuda", "vlap_cuda", "tracer_euler_cuda",
+                 "dss_fixup_cuda", "dss_sweep_cuda"):
+        if traced[name] <= 0:
+            raise AssertionError(f"{name} was not launched on phase 24's "
+                                 "path")
     if row_asm_res["kernel_launches"]["caar_packed"] <= 0:
         raise AssertionError("bench --layout row --ne: no row CAAR launch")
     if single_launches <= 0:
@@ -4024,7 +4362,7 @@ def main() -> int:
             "replaces": r.pop("replaces"),
             "launches": raw[name] + asm[name] + dyn[name] + prim[name]
             + row[name] + ring[name] + multi[name] + probe[name]
-            + cadence[name],
+            + cadence[name] + tiers[name] + big[name] + traced[name],
             "max_abs_err": r.pop("max_abs_err"), "ms": r.pop("ms"),
             "plain_ms": r.pop("plain_ms"), "bound_ms": r.pop("bound_ms"),
             "bound_by": r.pop("bound_by"), "library_ms": r.pop("library_ms"),

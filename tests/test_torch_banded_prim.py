@@ -5,7 +5,7 @@ the multi-device dry run against the JAX package's on the same numpy inputs:
 (SSPRK3, hyperviscosity in place and not, tracers, the full step, overlap off
 and on) bit for bit the port's single-device step and its plain twin, at
 decompositions with one and several chunks a shard and with a middle band;
-``multichip.dryrun_multichip`` on the CPU.
+``multichip.dryrun_multichip`` on the CPU, every tier.
 
 Tolerances: 2e-5 scaled per field against JAX (the STEP_TOL of
 tests/test_torch_rk.py); the single-device step, bit for bit; continuity of
@@ -227,9 +227,11 @@ def test_torch_prim_banded_rejects_bad_rows():
 
 @pytest.mark.parametrize("n", [4, 8, 12])
 def test_torch_dryrun_multichip_on_cpu(n):
-    """The port's dry run on the CPU: tiers 5-7 bit for bit the
-    single-device steps; tiers 1-4 not ported."""
+    """The port's dry run on the CPU runs every tier: 1-4 (the
+    element-sharded psum, ppermute, segment-sum and overlap steps) within
+    1e-4 of the single-device step and of each other, 5-7 bit for bit the
+    single-device steps, 8 (banded at nlev 72) within 1e-4 of the
+    segment-sum step; a subset runs alone."""
     ran = dryrun_multichip(n, device="cpu")
-    assert set(ran) == {5, 6, 7}
-    with pytest.raises(NotImplementedError, match="A14b"):
-        dryrun_multichip(n, device="cpu", tiers=(1,))
+    assert set(ran) == {1, 2, 3, 4, 5, 6, 7, 8}
+    assert set(dryrun_multichip(n, device="cpu", tiers=(2, 8))) == {2, 8}

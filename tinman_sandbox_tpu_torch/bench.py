@@ -64,6 +64,16 @@ and projected tracers in [0, 1] and CHAINS: s_np1 becomes s0, qdp' becomes
 qdp, the accumulators run on. ``bytes_per_step`` is ``prim_bytes_per_step``;
 ``min_qdp`` is the least tracer value at the end (with ``--limit`` it stays
 >= 0 up to the rounding of the projection).
+
+From ``DIRECT_NELEM`` = 16,384 elements on (the ne120 class: ``--nelem
+86400``, ``--ne 120``) the raw and the assembled modes draw their packed
+problem on the card (``kernels.caar_t.random_packed_problem_t``, with the
+cubed sphere's metric rows in the assembled mode) in place of the host numpy
+state, which at ne120 would be ~2.4 GB of f64 a time-levelled field before
+packing; every JSON line says ``init`` ("device" or "host"). This direct
+path is the t layout in f32 only: ``--layout row`` there raises. ``--rk``
+and ``--prim`` start from the assembled problem, so they draw it on the card
+at those sizes too.
 """
 from __future__ import annotations
 
@@ -78,7 +88,25 @@ __all__ = ["card_name_and_power", "bytes_per_step", "make_problem",
            "run_steps", "assembled_bytes_per_step", "make_assembled_problem",
            "run_assembled", "ring_bytes_per_step", "dynamics_bytes_per_step",
            "make_dynamics_problem", "run_dynamics", "prim_bytes_per_step",
-           "make_prim_problem", "run_prim", "main"]
+           "make_prim_problem", "run_prim", "main", "DIRECT_NELEM",
+           "direct_init"]
+
+# from this element count on the raw and assembled problems are drawn on the
+# card (the JAX bench's direct-packed threshold)
+DIRECT_NELEM = 16384
+
+
+def direct_init(nelem: int, layout: str = "t") -> bool:
+    """Whether a problem of ``nelem`` elements is drawn on the card
+    (``random_packed_problem_t``); raises for the row layout there, which
+    the direct path does not have."""
+    if nelem < DIRECT_NELEM:
+        return False
+    if layout != "t":
+        raise ValueError(f"{nelem} elements >= {DIRECT_NELEM}: the "
+                         "direct-packed init is the t layout in f32; "
+                         f"--layout {layout} has none")
+    return True
 
 
 def card_name_and_power():
@@ -109,22 +137,31 @@ def make_problem(nelem: int, nlev: int, device, seed: int = 7,
     """The bench problem packed for ``caar_t4_cuda`` (``layout`` "t") or
     ``caar_packed`` ("row"): random state (``seed``), zero accumulators,
     random geometry (``seed + 1``), analytic hvcoord, dt2 = 0.1,
-    eta_ave_w = 1 (the root bench's raw mode). Returns (const, acc): const =
-    (scal, meta, s0, sm1, qdp, pecnd, dvv) with s0 and sm1 stacked
-    [4*nlev, E16] on "t", and (scal, meta, u0, v0, t0, dp0, um1, vm1, tm1,
-    dpm1, qdp, pecnd, dvv) of [E16, nlev] fields on "row"."""
+    eta_ave_w = 1 (the root bench's raw mode); from ``DIRECT_NELEM``
+    elements on, drawn on the card by ``random_packed_problem_t``. Returns
+    (const, acc): const = (scal, meta, s0, sm1, qdp, pecnd, dvv) with s0 and
+    sm1 stacked [4*nlev, E16] on "t", and (scal, meta, u0, v0, t0, dp0,
+    um1, vm1, tm1, dpm1, qdp, pecnd, dvv) of [E16, nlev] fields on
+    "row"."""
     from . import (Config, analytic_hvcoord, random_geometry, random_state,
                    zero_derived)
     from .kernels.caar import pack_problem
-    from .kernels.caar_t import _scalars, pack_problem_t
+    from .kernels.caar_t import (_scalars, pack_problem_t,
+                                 random_packed_problem_t)
 
     cfg = Config(nelem=nelem, nlev=nlev)
     kw = dict(dtype=torch.float32, device=device)
-    state, derived = random_state(cfg, seed=seed, **kw), zero_derived(cfg, **kw)
-    geom = random_geometry(cfg, seed=seed + 1, **kw)
     hv = analytic_hvcoord(cfg, **kw)
     scal = _scalars(0.1, 1.0, hv, torch.float32, device)
     acc_names = ("vn0u", "vn0v", "omg")
+    if direct_init(nelem, layout):
+        p = random_packed_problem_t(cfg, seed, device=device)
+        const = (scal, p["meta"], torch.cat([p.pop(n) for n in _N0]),
+                 torch.cat([p.pop(n) for n in _NM1]), p["qdp"], p["pecnd"],
+                 p["dvv"])
+        return const, tuple(p[n] for n in acc_names)
+    state, derived = random_state(cfg, seed=seed, **kw), zero_derived(cfg, **kw)
+    geom = random_geometry(cfg, seed=seed + 1, **kw)
     if layout == "row":
         p = pack_problem(state, derived, geom, hv, cfg)
         const = (scal, p["meta"], *(p[n] for n in _N0 + _NM1), p["qdp"],
@@ -177,35 +214,43 @@ def ring_bytes_per_step(ne: int, nlev: int, nfix: int,
 
 
 def make_assembled_problem(ne: int, nlev: int, device, seed: int = 7,
-                           layout: str = "t"):
+                           layout: str = "t", cs=None):
     """The assembled bench problem at ne: random state (``seed``) and zero
     accumulators on the cubed sphere's geometry, analytic hvcoord, dt2 = 0.1,
-    eta_ave_w = 1, as in the root bench's --ne mode. Returns (const, levels,
-    acc, plan, rsp): const = (scal, meta, qdp, pecnd, dvv). On the t layout
-    levels = (s0, sm1) stacked [4*nlev, E16] and rsp the two-float
-    rspheremp [2, E16]; on the row layout levels = ((u0, v0, t0, dp0),
-    (um1, vm1, tm1, dpm1)) of [E16, nlev] and rsp the f32 rspheremp column
-    [E16, 1] (the root bench's row mode)."""
+    eta_ave_w = 1, as in the root bench's --ne mode; from ``DIRECT_NELEM``
+    elements on the state is drawn on the card by
+    ``random_packed_problem_t`` with the sphere's metric rows. Returns
+    (const, levels, acc, plan, rsp): const = (scal, meta, qdp, pecnd, dvv).
+    On the t layout levels = (s0, sm1) stacked [4*nlev, E16] and rsp the
+    two-float rspheremp [2, E16]; on the row layout levels = ((u0, v0, t0,
+    dp0), (um1, vm1, tm1, dpm1)) of [E16, nlev] and rsp the f32 rspheremp
+    column [E16, 1] (the root bench's row mode). ``cs`` is the f32 cubed
+    sphere at ne on ``device`` where the caller has built it."""
     from . import Config, analytic_hvcoord, random_state, zero_derived
     from .dist import build_cubed_sphere, make_structured_plan, rsp_lanes_2f
     from .kernels.caar import pack_problem
-    from .kernels.caar_t import _scalars, pack_problem_t
+    from .kernels.caar_t import (_scalars, pack_problem_t,
+                                 random_packed_problem_t)
 
     kw = dict(dtype=torch.float32, device=device)
-    cs = build_cubed_sphere(ne, **kw)
+    cs = cs or build_cubed_sphere(ne, **kw)
     cfg = Config(nelem=cs.nelem, nlev=nlev)
     hv = analytic_hvcoord(cfg, **kw)
-    pack = pack_problem if layout == "row" else pack_problem_t
-    p = pack(random_state(cfg, seed=seed, **kw), zero_derived(cfg, **kw),
-             cs.geometry, hv, cfg)
+    if direct_init(cs.nelem, layout):
+        p = random_packed_problem_t(cfg, seed, geom=cs.geometry,
+                                    device=device)
+    else:
+        pack = pack_problem if layout == "row" else pack_problem_t
+        p = pack(random_state(cfg, seed=seed, **kw), zero_derived(cfg, **kw),
+                 cs.geometry, hv, cfg)
     const = (_scalars(0.1, 1.0, hv, torch.float32, device), p["meta"],
              p["qdp"], p["pecnd"], p["dvv"])
     if layout == "row":
         levels = (tuple(p[n] for n in _N0), tuple(p[n] for n in _NM1))
         rsp = cs.geometry.rspheremp.reshape(-1, 1).contiguous()
     else:
-        levels = (torch.cat([p[n] for n in _N0]),
-                  torch.cat([p[n] for n in _NM1]))
+        levels = (torch.cat([p.pop(n) for n in _N0]),
+                  torch.cat([p.pop(n) for n in _NM1]))
         rsp = torch.from_numpy(rsp_lanes_2f(cs.geometry.spheremp, cs.gdof,
                                             cs.ndof)).to(device)
     return (const, levels, (p["vn0u"], p["vn0v"], p["omg"]),
@@ -596,6 +641,8 @@ def main(argv=None) -> dict:
         result = (_main_prim if args.prim else _main_dynamics if args.rk
                   else _main_assembled)(args, dev)
         result["layout"] = args.layout
+        result["init"] = "device" if direct_init(6 * args.ne ** 2,
+                                                 args.layout) else "host"
         result["ring"] = args.ring
         print(json.dumps(result))
         return result
@@ -633,6 +680,7 @@ def main(argv=None) -> dict:
         "device": torch.cuda.get_device_name(dev),
         "card": card_name_and_power(),
         "layout": args.layout,
+        "init": "device" if direct_init(args.nelem, args.layout) else "host",
     }
     print(json.dumps(result))
     return result

@@ -199,6 +199,7 @@ def main(argv=None) -> int:
         geom = random_geometry(cfg, seed=8, **kw)
     hv = analytic_hvcoord(cfg, **kw)
     timers = Timers(dev)
+    timers.reset()          # the native table is the process's: this run's
 
     steps_done = 0
     if args.restore:

@@ -17,7 +17,7 @@ import torch
 from ..config import NPSQ
 
 __all__ = ["dss_sum", "dss_scaled", "dss_project", "rsp_2f",
-           "continuity_error_t"]
+           "continuity_error_t", "dss_scaled_sharded"]
 
 
 def _host(x) -> np.ndarray:
@@ -50,17 +50,27 @@ def _index(gdof, device) -> torch.Tensor:
         .to(device)
 
 
+def to_cols(x: torch.Tensor) -> torch.Tensor:
+    """[e, ..., np, np] -> dof-major columns [e*16, prod(mid)]."""
+    e = x.shape[0]
+    return x.reshape(e, -1, NPSQ).transpose(1, 2).reshape(e * NPSQ, -1)
+
+
+def from_cols(cols: torch.Tensor, shape) -> torch.Tensor:
+    """The inverse of ``to_cols``: [e*16, prod(mid)] -> ``shape``."""
+    e = shape[0]
+    return cols.reshape(e, NPSQ, -1).transpose(1, 2).reshape(shape) \
+        .contiguous()
+
+
 def dss_sum(x: torch.Tensor, gdof, ndof: int) -> torch.Tensor:
     """sum over the (e, i, j) aliasing each dof of x[e, ..., i, j], handed
     back to every alias. x: [nelem, ..., np, np]; gdof: [nelem, np, np]."""
-    e = x.shape[0]
-    mid = x.shape[1:-2]
-    cols = x.reshape(e, -1, NPSQ).transpose(1, 2).reshape(e * NPSQ, -1)
+    cols = to_cols(x)
     idx = _index(gdof, x.device)
     summed = torch.zeros(ndof, cols.shape[1], dtype=x.dtype, device=x.device)
     summed.index_add_(0, idx, cols)
-    out = summed[idx].reshape(e, NPSQ, -1).transpose(1, 2)
-    return out.reshape(e, *mid, 4, 4).contiguous()
+    return from_cols(summed[idx], x.shape)
 
 
 def _lift(r, ndim: int):
@@ -80,6 +90,24 @@ def dss_scaled(x: torch.Tensor, gdof, ndof: int, rspheremp) -> torch.Tensor:
                   for r in rspheremp)
         return y * hi + y * lo
     return _lift(rspheremp, x.ndim) * y
+
+
+def dss_scaled_sharded(xs, gdof, ndof: int, mesh, rsps) -> list:
+    """``dss_scaled`` of an element-sharded field (``xs``: this process's
+    contiguous shards) as SPMD partitions the segment sum: each shard adds
+    its elements' values into the whole [ndof, nmid] sum, one ``mesh.psum``,
+    each shard gathers its own aliases and scales by its ``rsps``."""
+    gd = _host(gdof).reshape(mesh.n, -1)
+    out, parts, idxs = [], [], []
+    for s, x in zip(mesh.shards, xs):
+        idx = _index(gd[s], x.device)
+        cols = to_cols(x)
+        part = torch.zeros(ndof, cols.shape[1], dtype=x.dtype, device=x.device)
+        parts.append(part.index_add_(0, idx, cols))
+        idxs.append(idx)
+    for x, r, total, idx in zip(xs, rsps, mesh.psum(parts), idxs):
+        out.append(_lift(r, x.ndim) * from_cols(total[idx], x.shape))
+    return out
 
 
 def dss_project(x: torch.Tensor, gdof, ndof: int, spheremp,

@@ -26,18 +26,35 @@ Two meshes serve them:
     ``all_gather`` and ``all_reduce`` ``psum``. NCCL refuses two ranks on one
     card, so on one H100 only ``LocalMesh`` runs the steps.
 
-The element-sharded tiers of the JAX package (``shard_problem``, the halo
-exchanges) are not ported yet.
+The element-sharded tiers (``dist/halo.py``, ``dist/halo_ppermute.py``,
+``dist/overlap.py``) split ``State`` / ``Derived`` / ``Geometry`` on the
+element axis into contiguous shards (``shard_problem``, back with
+``unshard``); hvcoord, ``dvv`` and the plans are the same on every shard
+(``replicate``).
 """
 from __future__ import annotations
 
+import dataclasses
 import warnings
 
 import torch
 
-from ..device import resolve_device
+from ..device import TensorFields, resolve_device
 
-__all__ = ["LocalMesh", "DistMesh", "make_mesh"]
+__all__ = ["LocalMesh", "DistMesh", "make_mesh", "shard_problem", "unshard",
+           "replicate"]
+
+# the element axis of each field (the time-levelled prognostics and qdp lead
+# with the time-level axis; dvv has none)
+_ELEM_AXIS = {
+    "u": 1, "v": 1, "t": 1, "dp3d": 1, "ps_v": 1, "qdp": 1,
+    "phis": 0,
+    "vn0_u": 0, "vn0_v": 0, "phi": 0, "omega_p": 0,
+    "eta_dot_dpdn": 0, "pecnd": 0,
+    "fcor": 0, "metdet": 0, "rmetdet": 0, "spheremp": 0, "rspheremp": 0,
+    "d": 0, "dinv": 0, "mp": 0, "metinv": 0, "vec_sph2cart": 0,
+    "dvv": None,
+}
 
 
 class LocalMesh:
@@ -109,6 +126,11 @@ class DistMesh:
         d = self._dist
         out, ops = None, []
         for src, dst in pairs:
+            if src == dst == self.rank:          # a self-send: a local copy
+                if out is not None:
+                    raise ValueError(f"ppermute: shard {dst} receives twice")
+                out = x.clone()
+                continue
             if src == self.rank:
                 ops.append(d.P2POp(d.isend, x, self._peer(dst), self.group))
             if dst == self.rank:
@@ -142,3 +164,63 @@ def make_mesh(n: int, device=None) -> LocalMesh:
     """An n-shard mesh on one device (counterpart of ``make_mesh`` of the
     JAX package's ``dist/sharding.py``, there over n devices)."""
     return LocalMesh(n, device)
+
+
+def _fields(tree):
+    return [(f.name, getattr(tree, f.name)) for f in dataclasses.fields(tree)
+            if isinstance(getattr(tree, f.name), torch.Tensor)]
+
+
+def shard_problem(mesh, *trees):
+    """Split dataclasses of tensors (``State``, ``Derived``, ``Geometry``)
+    on their element axis (``_ELEM_AXIS``, 0 for a field it does not name)
+    into ``mesh.n`` contiguous shards. Returns, for each tree, the list of
+    the shards this process holds (``mesh.shards``), on ``mesh.device``;
+    one list alone for one tree."""
+    out = []
+    for tree in trees:
+        per = [{} for _ in mesh.shards]
+        for name, x in _fields(tree):
+            ax = _ELEM_AXIS.get(name, 0)
+            x = x.to(mesh.device)
+            if ax is None:
+                for p in per:
+                    p[name] = x
+                continue
+            if x.shape[ax] % mesh.n:
+                raise ValueError(f"shard_problem: {name} has "
+                                 f"{x.shape[ax]} elements, not a multiple "
+                                 f"of {mesh.n} shards")
+            parts = x.chunk(mesh.n, dim=ax)
+            for p, s in zip(per, mesh.shards):
+                p[name] = parts[s].contiguous()
+        out.append([dataclasses.replace(tree, **p) for p in per])
+    return out[0] if len(out) == 1 else tuple(out)
+
+
+def unshard(mesh, *shard_lists):
+    """The inverse of ``shard_problem``: each list of shards (one tree a
+    shard this process holds) put back together on the element axis, the
+    whole tree on every process (a ``DistMesh`` gathers it)."""
+    out = []
+    for shards in shard_lists:
+        whole = {}
+        for name, _ in _fields(shards[0]):
+            ax = _ELEM_AXIS.get(name, 0)
+            xs = [getattr(s, name) for s in shards]
+            if ax is None:
+                whole[name] = xs[0]
+                continue
+            g = mesh.all_gather(xs)[0]               # [n, *shard shape]
+            whole[name] = torch.cat(list(g.unbind(0)), dim=ax)
+        out.append(dataclasses.replace(shards[0], **whole))
+    return out[0] if len(out) == 1 else tuple(out)
+
+
+def replicate(mesh, tree):
+    """The same ``tree`` for every shard this process holds: a dataclass of
+    tensors (hvcoord, a geometry's ``dvv``) or a tensor moved to
+    ``mesh.device``, anything else (a host plan) as it is."""
+    if isinstance(tree, (torch.Tensor, TensorFields)):
+        tree = tree.to(mesh.device)
+    return [tree] * len(mesh.shards)

@@ -60,9 +60,9 @@ import torch
 from ..config import NPSQ, Config
 from ..constants import CONSTANTS
 from ..device import resolve_device
-from ..grid import Geometry, HybridVCoord
+from ..grid import Geometry, HybridVCoord, dvv_matrix
 from ..ops.sphere import full_precision_matmuls
-from ..state import Derived, State
+from ..state import Derived, State, uniform
 from . import _build
 from .layout import META_COLS, pack_field_t, pack_meta_t, unpack_field_t
 
@@ -77,6 +77,7 @@ __all__ = [
     "caar_packed_rsplit0_t",
     "caar_packed_rsplit0_t_plain",
     "pack_problem_t",
+    "random_packed_problem_t",
     "caar_t",
     "run_leapfrog_t",
 ]
@@ -570,6 +571,42 @@ def pack_problem_t(state: State, derived: Derived, geom: Geometry,
         pecnd=f(derived.pecnd),
         vn0u=f(derived.vn0_u), vn0v=f(derived.vn0_v), omg=f(derived.omega_p),
     )
+
+
+def random_packed_problem_t(cfg: Config, seed: int = 1,
+                            geom: Geometry | None = None, device="cuda"):
+    """The packed f32 problem dict of ``pack_problem_t`` drawn directly on
+    the device at [nlev, E16] from a ``torch.Generator`` seeded with
+    ``seed``: the unpacked [tl, nelem, nlev, 4, 4] state is never made, which
+    is what lets the ne120-class grid (86,400 elements) build on one card.
+    The state's distributions are ``random_state``'s (positive dp), qdp and
+    pecnd U(0, 1), zero accumulators. With ``geom`` (a real cubed sphere's
+    geometry, as an assembled bench needs) meta is its packed metric rows
+    (phis 0) and dvv its operator; without, the metric rows are O(1)
+    random with rmetdet = 1/metdet and zero pads, and dvv ``dvv_matrix``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    e16, k = cfg.nelem * NPSQ, cfg.nlev
+    u = lambda lo, hi, shape=(k, e16): uniform(gen, shape, lo, hi)
+    if geom is not None:
+        geom = geom.to(dev)
+        meta = pack_meta_t(geom, torch.zeros(cfg.nelem, 4, 4, device=dev),
+                           torch.float32)
+        dvv = geom.dvv.to(torch.float32).contiguous()
+    else:
+        meta = u(0.5, 1.5, (len(META_COLS), e16))
+        meta[_MC["rmetdet"]] = 1.0 / meta[_MC["metdet"]]
+        meta[_MC["pad1"]:] = 0.0
+        dvv = torch.from_numpy(dvv_matrix()).to(dev, torch.float32)
+    p = dict(dvv=dvv, meta=meta)
+    for name, lo, hi in (("u0", -1, 1), ("v0", -1, 1), ("t0", 250, 300),
+                         ("dp0", 10, 20), ("um1", -1, 1), ("vm1", -1, 1),
+                         ("tm1", 250, 300), ("dpm1", 10, 20), ("qdp", 0, 1),
+                         ("pecnd", 0, 1)):
+        p[name] = u(lo, hi)
+    for name in ("vn0u", "vn0v", "omg"):
+        p[name] = torch.zeros(k, e16, dtype=torch.float32, device=dev)
+    return p
 
 
 def _scalars(dt2, eta_ave_w, hv: HybridVCoord, dtype, device):

@@ -13,10 +13,11 @@ import numpy as np
 import torch
 
 from .config import NP, NUM_TIME_LEVELS, QDP_TIME_LEVELS, Config
-from .device import TensorFields, from_arrays
+from .device import TensorFields, from_arrays, resolve_device
 
 __all__ = ["State", "Derived", "analytic_state", "analytic_derived",
-           "random_state", "zero_derived"]
+           "random_state", "random_state_device", "zero_derived",
+           "uniform"]
 
 
 @dataclasses.dataclass
@@ -108,6 +109,34 @@ def random_state(cfg: Config, seed: int = 1, dtype=torch.float64,
         phis=rng.uniform(0, 1, (nelem, NP, NP)),
         qdp=rng.uniform(0, 1, (QDP_TIME_LEVELS, nelem, qsize, nlev, NP, NP)),
     ), dtype, device)
+
+
+def uniform(gen: torch.Generator, shape, lo: float, hi: float,
+            dtype=torch.float32) -> torch.Tensor:
+    """U(lo, hi) of ``shape`` drawn from ``gen`` on its device."""
+    return torch.empty(shape, dtype=dtype, device=gen.device).uniform_(
+        lo, hi, generator=gen)
+
+
+def random_state_device(cfg: Config, seed: int = 1, dtype=torch.float32,
+                        device="cuda") -> State:
+    """``random_state`` drawn on the device from a ``torch.Generator``
+    seeded with ``seed``: nothing is staged through the host, which at
+    ne120-class grids would be ~10 GB of state. The same distributions as
+    ``random_state``, another stream (as in the JAX package)."""
+    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    nelem, nlev, qsize = cfg.nelem, cfg.nlev, cfg.qsize
+    s3 = (NUM_TIME_LEVELS, nelem, nlev, NP, NP)
+    u = lambda shape, lo, hi: uniform(gen, shape, lo, hi, dtype)
+    return State(
+        u=u(s3, -1, 1),
+        v=u(s3, -1, 1),
+        t=u(s3, 250, 300),
+        dp3d=u(s3, 10, 20),
+        ps_v=u((NUM_TIME_LEVELS, nelem, NP, NP), 9e4, 1.1e5),
+        phis=u((nelem, NP, NP), 0, 1),
+        qdp=u((QDP_TIME_LEVELS, nelem, qsize, nlev, NP, NP), 0, 1),
+    )
 
 
 def zero_derived(cfg: Config, dtype=torch.float64, device="cuda") -> Derived:
