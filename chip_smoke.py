@@ -101,13 +101,25 @@ NVIDIA card and check it, phase by phase:
      launches, 8 fixups and 8 sweeps;
  13. the rsplit=0 and row-layout kernels at 1024 x 72 and 5,400 x 72 (the
      ne30 geometry), with a hybi ramp (linspace(0, 1, nlev+1)) and a random
-     eta accumulator: the rsplit=0 mode on the t layout
+     eta accumulator: the row kernel's plans (``caar_row_plan``: chunks,
+     staged or windowed, shared memory, blocks an SM reckoned and by
+     cudaOccupancy) at nlev 72 and ``CAAR_OTHER_NLEV``; the rsplit=0 mode
+     on the t layout
      (``caar_packed_rsplit0_t``) and on the row layout
      (``caar_packed_rsplit0``) and the row rsplit>0 mode (``caar_packed``),
      each against its plain version, each output field on its own within
-     5e-5 scaled, in the three cases of phase 3 and a ``wind`` case (sm1 =
+     5e-5 scaled, in the three cases of phase 3, a ``wind`` case (sm1 =
      0, winds x30, where the vertical advection of u and v carries ~2e-3 of
-     the output); the row tracer kernel (``euler_packed``) against its plain
+     the output) and a ``long`` case (the bench problem at a dt2 where the
+     rsplit=0 dp update is half of dpm1); the two row kernels also within
+     5e-5 of their plain versions in f64 on the same inputs (with the plain
+     f32 dp1's own error beside it: the cancellation of the rsplit=0 dp
+     tendency), and the row rsplit>0 kernel bit for bit ``caar_t4_cuda`` on
+     the transposed problem; each timed by events and from a CUDA graph
+     beside its bound and the t pair form; at 1024 x 26, 150 and 400 the two
+     row kernels in the same cases against their plain versions in f64
+     (5e-5), the rsplit>0 one bit for bit the t kernel, timed from graphs;
+     the row tracer kernel (``euler_packed``) against its plain
      version within 5e-5 per tracer block at qsize 1 and 35 on ne30, at the
      run's dt and at a dt long enough for the divergence to carry the
      output; each timed against its bound, its plain version and the t form
@@ -239,16 +251,27 @@ NVIDIA card and check it, phase by phase:
      and read just after: the device's busy and idle shares of each window
      and its five longest device operations; a native ``Timers`` region
      around the same prim steps (``get_full``; the native timer must have
-     built).
+     built);
+ 25. the benchmark sweep ``tools.bench_all`` (the JAX tool's five entries at
+     its sizes: the row CAAR step at 1024 x 72 and 8 x 26, the row tracer
+     step at 128 x 72 x 35 tracers, the row CAAR step with the structured
+     DSS at ne30, the saxpby triad). First each wrapper it times, one step
+     on each entry's own inputs (``bench_all``'s problem builders and
+     seeds) against its plain version: ``caar_packed`` at 1024 x 72, 8 x 26
+     and on the ne30 entry's problem and ``euler_packed`` at 128 x 72 x 35,
+     every output within 5e-5 scaled, ``saxpby_cuda`` bit for bit. Then,
+     launch counts set to 0 just before and read just after, the sweep: its
+     report on one line, every entry's numbers finite and positive,
+     ``caar_packed``, ``euler_packed`` and ``saxpby_cuda`` launched.
 
-Phases 22-24 run after phase 21, before the lines of phase 17.
+Phases 22-25 run after phase 21, before the lines of phase 17.
 
 Any failure raises and exits non-zero before the result line is printed.
 Run from the repository root: ``python3 chip_smoke.py``.
 
 ``kernel_times()`` times the sweep, the t-layout CAAR kernel, the fixup, the
-packed remap and the two tracer stages through entry points that older
-trees share, so the same
+packed remap, the two tracer stages and the two row CAAR kernels through
+entry points that older trees share, so the same
 measurement runs against a parent checkout: from that checkout's root,
 ``python3 -c "import importlib.util as u; s = u.spec_from_file_location(
 'cs', '<this file>'); m = u.module_from_spec(s); s.loader.exec_module(m);
@@ -292,6 +315,8 @@ TRACER_ROW_OPS_PER_POINT = 32
 SWEEP_OPS_PER_POINT = 6
 MIX_OPS_PER_POINT = 3
 WIND = 30.0                    # m/s: the wind case's winds, U(-1, 1) x this
+# the rsplit=0 cases' long step: the dp update this share of max|dpm1|
+LONG_STEP = 0.5
 CAAR_TOL = 5e-5                # the repo's on-chip equivalence gate
 # nlev off the main path that phase 3 also checks: 26 (7 level chunks of 4,
 # the last of 2), 150 (8 of 19, the last of 17, and no stash) and 400, the
@@ -522,9 +547,14 @@ def kernel_times() -> dict:
     packed cadence's start (``ms`` and ``graph_ms``); ``tracer_euler_cuda``
     and ``tracer_limit_cuda`` without and with mix at ne30 x 72, qsize 1
     and 35, on the prim bench's tracers with the winds read out of its
-    state and the slab, as the prim step calls them. Run against another
-    tree by importing this file with that tree first on ``sys.path``;
-    prints and returns one JSON object."""
+    state and the slab, as the prim step calls them; the row-layout CAAR
+    step ``caar_packed`` and its rsplit=0 mode ``caar_packed_rsplit0``
+    (hybi ramp, random eta accumulator) at 1024 x 72 and ne30 x 72 on the
+    row benches' problems and at 1024 x 400; the row assembled step at ne30
+    (``dist.caar_dss_structured_packed``: by events, the host's time a
+    call and its kernels a call by ``torch.profiler``). Run against
+    another tree by importing this file with that tree first on
+    ``sys.path``; prints and returns one JSON object."""
     import numpy as np
     import torch
 
@@ -609,6 +639,41 @@ def kernel_times() -> dict:
                 **kw), reps))
         del q, mx
         torch.cuda.empty_cache()
+    from tinman_sandbox_tpu_torch.kernels.caar import (caar_packed,
+                                                       caar_packed_rsplit0)
+    out["row"] = {}
+    rc, racc = bench.make_problem(1024, NLEV, dev, seed=7, layout="row")
+    shapes = {"1024": (rc[:-1], racc, rc[-1])}
+    (scal, meta, qdp, pecnd, dvv), (s0, sm1), acc, *rest = \
+        bench.make_assembled_problem(NE, NLEV, dev, layout="row")
+    shapes["ne30"] = ((scal, meta, *s0, *sm1, qdp, pecnd), acc, dvv)
+    deep = CAAR_OTHER_NLEV[-1]
+    rc, racc = bench.make_problem(1024, deep, dev, seed=7, layout="row")
+    shapes[f"1024x{deep}"] = (rc[:-1], racc, rc[-1])
+    for tag, (head, acc, dvv) in shapes.items():
+        nlev = head[-1].shape[1]
+        hybi = torch.linspace(0.0, 1.0, nlev + 1, device=dev)
+        hyb = torch.stack([hybi[:nlev], hybi[1:]]).contiguous()
+        acc = [a.clone() for a in acc]
+        eta = torch.rand(acc[0].shape, generator=gen, device=dev)
+        reps = 50 if tag == "1024" else 10
+        out["row"][f"pair_{tag}"] = both(
+            lambda: caar_packed(*head, *acc, dvv), reps)
+        out["row"][f"rsplit0_{tag}"] = both(
+            lambda: caar_packed_rsplit0(head[0], hyb, *head[1:], *acc, eta,
+                                        dvv), reps)
+    # the row assembled step (the bench's ``--layout row --ne 30``): the row
+    # kernel, then the structured DSS in plain PyTorch
+    from tinman_sandbox_tpu_torch.dist.step_t import \
+        caar_dss_structured_packed
+    acc = [a.clone() for a in shapes["ne30"][1]]
+    plan, rsp = rest
+    step = lambda: caar_dss_structured_packed(*shapes["ne30"][0], *acc,
+                                              shapes["ne30"][2], plan, rsp)
+    out["row"]["assembled_ne30"] = dict(
+        ms=cuda_ms(step, 10), host_ms=host_ms(step, 10),
+        launches=kernel_launches(step))
+    del shapes, acc
     print(json.dumps(out))
     return out
 
@@ -1833,12 +1898,19 @@ def r0_cases(const, acc):
     ``caar_packed_rsplit0_t``: (scal, hyb, meta, u0, v0, t0, dp0, um1, vm1,
     tm1, dpm1, qdp, pecnd, vn0u, vn0v, omg, etaacc, dvv), with a hybi ramp
     (the analytic hvcoord's hybi = 0 would hide the hybi*sdot term) and a
-    random eta accumulator. The cases of ``caar_cases`` and ``wind``: sm1 =
-    0 and the winds x WIND. The vertical advection of u and v grows as the
+    random eta accumulator. The cases of ``caar_cases``, ``wind``: sm1 =
+    0 and the winds x WIND (the vertical advection of u and v grows as the
     wind squared, the pressure-gradient term beside it does not: in the
-    other cases it is ~1e-5 of u1 and v1, below the gate, here ~2e-3."""
+    other cases it is ~1e-5 of u1 and v1, below the gate, here ~2e-3), and
+    ``long``: the bench problem at a dt2 where the dp update is half of
+    dpm1 (``LONG_STEP``: the rsplit=0 dp tendency cancels in f32, so its
+    error shows at a long step and not at the bench's)."""
     import numpy as np
     import torch
+
+    from tinman_sandbox_tpu_torch.kernels.caar_t import \
+        caar_packed_rsplit0_t_plain
+    from tinman_sandbox_tpu_torch.kernels.layout import META_COLS
 
     scal, meta, s0, sm1, qdp, pecnd, dvv = const
     k, e16 = qdp.shape
@@ -1851,6 +1923,15 @@ def r0_cases(const, acc):
     cases = caar_cases(const, acc) + [
         ("wind", (scal, meta, windy, torch.zeros_like(sm1), qdp, pecnd, *acc,
                   dvv))]
+    # the dp tendency of the bench problem: dp1 of the tend case / dt2
+    tend = caar_packed_rsplit0_t_plain(scal, hyb, meta, *s0.split(k),
+                                       *torch.zeros_like(sm1).split(k), qdp,
+                                       pecnd, *acc, eta, dvv)[3]
+    sph = meta[META_COLS.index("spheremp")]
+    rate = float((tend / sph).abs().max()) / float(scal[0, 0])
+    long = scal.clone()
+    long[0, 0] = LONG_STEP * float(sm1[3 * k:].abs().max()) / rate
+    cases.append(("long", (long, meta, s0, sm1, qdp, pecnd, *acc, dvv)))
     return [(name, (a[0], hyb, a[1], *a[2].split(k), *a[3].split(k), *a[4:9],
                     eta, a[9])) for name, a in cases]
 
@@ -1869,23 +1950,39 @@ def row_args(args, hyb=True):
 R0_NAMES = ("u1", "v1", "t1", "dp1", "phi", "vn0u", "vn0v", "omg", "eta")
 
 
-def phase_row_kernels(dev, cs):
-    """The rsplit=0 modes on both layouts, the row rsplit>0 mode and the row
-    tracer kernel. Returns their four kernel rows."""
+def t_pair_of(targs):
+    """``caar_t4_cuda`` on the t problem of rsplit=0 operands ``targs``
+    (its own accumulators): the row rsplit>0 kernel's reference for bits."""
     import torch
 
-    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.kernels.caar_t import caar_t4_cuda
+
+    acc = [x.clone() for x in targs[13:16]]
+    return caar_t4_cuda(targs[0], targs[2], torch.cat(targs[3:7]),
+                        torch.cat(targs[7:11]), targs[11], targs[12], *acc,
+                        targs[17])
+
+
+def same_as_t(row_out, t_out) -> bool:
+    """Whether the row rsplit>0 outputs are the t pair form's transposed,
+    bit for bit."""
+    import torch
+
+    rows = [torch.cat([x.T for x in row_out[:4]]), row_out[4].T,
+            *(x.T for x in row_out[5:8])]
+    return all(torch.equal(a, b) for a, b in zip(rows, t_out))
+
+
+def row_modes():
+    """The CAAR modes of phase 13: name -> (kernel, plain, operands of the
+    rsplit=0 t arguments, output names)."""
     from tinman_sandbox_tpu_torch.kernels.caar import (
         caar_packed, caar_packed_plain, caar_packed_rsplit0,
         caar_packed_rsplit0_plain)
     from tinman_sandbox_tpu_torch.kernels.caar_t import (
-        caar_packed_rsplit0_t, caar_packed_rsplit0_t_plain, caar_packed_t)
-    from tinman_sandbox_tpu_torch.kernels.tracer import (
-        euler_packed, euler_packed_plain)
-    from tinman_sandbox_tpu_torch.kernels.tracer_t import tracer_euler_cuda
+        caar_packed_rsplit0_t, caar_packed_rsplit0_t_plain)
 
-    rows = {}
-    modes = {
+    return {
         "caar_packed_rsplit0_t": (caar_packed_rsplit0_t,
                                   caar_packed_rsplit0_t_plain,
                                   lambda a: a, R0_NAMES),
@@ -1895,6 +1992,52 @@ def phase_row_kernels(dev, cs):
         "caar_packed": (caar_packed, caar_packed_plain,
                         lambda a: row_args(a, hyb=False), R0_NAMES[:8]),
     }
+
+
+def run_mode(mode, targs):
+    """One mode on the rsplit=0 t arguments: (kernel outputs, plain outputs
+    in f32, plain outputs in f64 on the same f32 inputs)."""
+    import torch
+
+    kern, plain, conv, names = mode
+    args = conv(targs)
+    nacc = 4 if len(names) == 9 else 3
+    want = plain(*args)
+    want64 = plain(*(x.double() for x in args))
+    kacc = [x.clone() for x in args[-1 - nacc:-1]]
+    got = kern(*args[:-1 - nacc], *kacc, args[-1])
+    torch.cuda.synchronize()
+    return got, want, want64
+
+
+def phase_row_kernels(dev, cs):
+    """The rsplit=0 modes on both layouts, the row rsplit>0 mode and the row
+    tracer kernel. Returns their four kernel rows."""
+    import torch
+
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.kernels import _build
+    from tinman_sandbox_tpu_torch.kernels.caar_t import (caar_packed_t,
+                                                         caar_row_plan)
+    from tinman_sandbox_tpu_torch.kernels.tracer import (
+        euler_packed, euler_packed_plain)
+    from tinman_sandbox_tpu_torch.kernels.tracer_t import tracer_euler_cuda
+
+    rows = {}
+    modes = row_modes()
+    lib = _build.library("caar")
+    for r0 in (False, True):
+        for nlev in (NLEV, *CAAR_OTHER_NLEV):
+            p = caar_row_plan(NE * NE * 6 * 16, nlev, r0)
+            occ = lib.caar_blocks_per_sm(2 + int(r0), nlev, p.chunks,
+                                         int(p.stash), dev.index)
+            print(f"phase 13 row plan {'rsplit=0' if r0 else 'rsplit>0'} "
+                  f"nlev {nlev}: {p.chunks} chunks of {p.levels} levels, "
+                  f"{'staged' if p.stash else 'windowed'}, {p.smem} B "
+                  f"shared, {p.blocks_per_sm} blocks a SM reckoned, {occ} "
+                  "by cudaOccupancy")
+            if occ <= 0:
+                raise AssertionError(f"caar row occupancy: error {-occ}")
     for nelem in (1024, 5400):
         if nelem == 1024:
             const, acc = bench.make_problem(nelem, NLEV, dev, seed=7)
@@ -1910,41 +2053,56 @@ def phase_row_kernels(dev, cs):
         for case, targs in r0_cases(const, acc):
             if case == "bench":
                 bench_args = targs
-            for name, (kern, plain, conv, names) in modes.items():
-                args = conv(targs)
-                nacc = 4 if len(names) == 9 else 3
-                want = plain(*args)
-                kacc = [x.clone() for x in args[-1 - nacc:-1]]
-                got = kern(*args[:-1 - nacc], *kacc, args[-1])
-                torch.cuda.synchronize()
+            for name, mode in modes.items():
+                got, want, want64 = run_mode(mode, targs)
+                names = mode[3]
                 for g in got:
                     if not bool(torch.isfinite(g).all()):
                         raise AssertionError(f"{name} {tag} {case}: "
                                              "non-finite")
                 errs = {n: scaled_err(g, w)
                         for n, g, w in zip(names, got, want)}
+                e64 = {n: scaled_err(g, w)
+                       for n, g, w in zip(names, got, want64)}
+                own = scaled_err(want[3], want64[3])
+                same = ""
+                if name == "caar_packed":
+                    bits = same_as_t(got, t_pair_of(targs))
+                    same = f"; bit for bit caar_t4_cuda transposed: {bits}"
+                    if not bits:
+                        raise AssertionError(f"{name} {tag} {case}: not the "
+                                             "t kernel's bits")
                 print(f"phase 13 {name} {tag} {case}: scaled errors "
-                      + " ".join(f"{a} {b:.2e}" for a, b in errs.items()))
+                      + " ".join(f"{a} {b:.2e}" for a, b in errs.items())
+                      + "; against plain in f64: worst "
+                      f"{max(e64.values()):.2e}, dp1 {e64['dp1']:.2e} "
+                      "(plain f32's own dp1 "
+                      f"{own:.2e}){same}")
                 if max(errs.values()) > CAAR_TOL:
                     raise AssertionError(f"{name} {tag} {case}: {errs} > "
                                          f"{CAAR_TOL}")
+                if name != "caar_packed_rsplit0_t" and \
+                        max(e64.values()) > CAAR_TOL:
+                    raise AssertionError(f"{name} {tag} {case}: against "
+                                         f"plain in f64 {e64} > {CAAR_TOL}")
                 worst[name][0] = max(worst[name][0], *errs.values())
                 worst[name][1] = max(worst[name][1], *(
                     float((g - w).abs().max()) for g, w in zip(got, want)))
-                del want, got, kacc
+                del want, want64, got
         # times on the bench case; the t form's pair step at the same shape
         times = {}
         for name, (kern, plain, conv, names) in modes.items():
             args = conv(bench_args)
             nacc = 4 if len(names) == 9 else 3
             kacc = [x.clone() for x in args[-1 - nacc:-1]]
-            times[name] = (
-                cuda_ms(lambda: kern(*args[:-1 - nacc], *kacc, args[-1]), 20),
-                cuda_ms(lambda: plain(*args), 5))
+            run = lambda: kern(*args[:-1 - nacc], *kacc, args[-1])
+            times[name] = (cuda_ms(run, 20), cuda_ms(lambda: plain(*args), 5),
+                           graph_ms(run, 20))
         targs = bench_args
         tacc = [x.clone() for x in targs[13:16]]
-        t_ms = cuda_ms(lambda: caar_packed_t(targs[0], *targs[2:13], *tacc,
-                                             targs[17]), 20)
+        trun = lambda: caar_packed_t(targs[0], *targs[2:13], *tacc,
+                                     targs[17])
+        t_ms, t_graph = cuda_ms(trun, 20), graph_ms(trun, 20)
         # fields read once and written once, the 13 meta rows, dvv, scal;
         # rsplit=0 also the eta accumulator (read, written) and hyb
         nb_pair = (21 * NLEV + 13) * e16 * 4 + 16 * 4 + 3 * 4
@@ -1956,15 +2114,19 @@ def phase_row_kernels(dev, cs):
                 nb_r0, RSPLIT0_OPS_PER_POINT * e16 * NLEV),
             "caar_packed": bound_ms(nb_pair, CAAR_OPS_PER_POINT * e16 * NLEV),
         }
-        for name, (k_ms, p_ms) in times.items():
-            print(f"phase 13 {name} {tag}: kernel {k_ms:.4f} ms, plain "
-                  f"{p_ms:.4f} ms, library none, bound {bounds[name][0]:.4f} "
-                  f"ms ({bounds[name][1]}); the t-layout pair step "
-                  f"caar_packed_t {t_ms:.4f} ms (kernel / t pair "
-                  f"{k_ms / t_ms:.2f})")
-        print(f"phase 13 {tag}: row / t at the same shape: rsplit>0 "
-              f"{times['caar_packed'][0] / t_ms:.2f}, rsplit=0 "
-              f"{times['caar_packed_rsplit0'][0] / times['caar_packed_rsplit0_t'][0]:.2f}")
+        for name, (k_ms, p_ms, g_ms) in times.items():
+            print(f"phase 13 {name} {tag}: kernel {k_ms:.4f} ms (from a "
+                  f"graph {g_ms:.4f} ms), plain {p_ms:.4f} ms, library none, "
+                  f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}; graph"
+                  f" / bound {g_ms / bounds[name][0]:.2f}); the t-layout "
+                  f"pair step caar_packed_t {t_ms:.4f} ms (graph "
+                  f"{t_graph:.4f}; kernel / t pair {g_ms / t_graph:.2f} from "
+                  "graphs)")
+        r0_ratio = times["caar_packed_rsplit0"][2] / \
+            times["caar_packed_rsplit0_t"][2]
+        print(f"phase 13 {tag}: row / t at the same shape from graphs: "
+              f"rsplit>0 {times['caar_packed'][2] / t_graph:.2f}, rsplit=0 "
+              f"{r0_ratio:.2f}")
         for name in modes:
             sfx = "" if nelem == 1024 else "ne30_"
             r = rows.setdefault(name, dict(
@@ -1980,12 +2142,18 @@ def phase_row_kernels(dev, cs):
             r.update({f"{sfx}max_scaled_err": worst[name][0],
                       f"{sfx}ms": times[name][0],
                       f"{sfx}plain_ms": times[name][1],
+                      f"{sfx}graph_ms": times[name][2],
                       f"{sfx}bound_ms": bounds[name][0],
                       f"{sfx}bound_by": bounds[name][1],
-                      f"{sfx}t_pair_ms": t_ms})
+                      f"{sfx}t_pair_ms": t_ms,
+                      f"{sfx}t_pair_graph_ms": t_graph})
             r["max_abs_err"] = max(r.get("max_abs_err", 0.0), worst[name][1])
         del const, acc, bench_args, targs
         torch.cuda.empty_cache()
+    for nlev in CAAR_OTHER_NLEV:
+        for name, extra in row_other_nlev(dev, nlev).items():
+            rows[name].update(extra)
+
 
     # -- the row tracer kernel at ne30, qsize 1 and QSIZE_TALL
     (scal, meta_t, _, dvv), s0, _, _, _, _ = bench.make_prim_problem(
@@ -2048,6 +2216,76 @@ def phase_row_kernels(dev, cs):
         del q, qt
         torch.cuda.empty_cache()
     return rows
+
+
+def row_other_nlev(dev, nlev: int) -> dict:
+    """Phase 13 off the main path's nlev, at 1024 x ``nlev``: the row
+    kernels (``caar_packed``, ``caar_packed_rsplit0``) in the cases of
+    ``r0_cases``, each field within 5e-5 scaled of its plain version in f64
+    on the same f32 inputs (the plain version in f32 printed beside it: at
+    400 levels its own rsplit=0 dp1 is off the f64 one by the cancellation
+    of its running sums), the rsplit>0 kernel bit for bit ``caar_t4_cuda``
+    on the transposed problem; timed from graphs beside the t pair form.
+    Returns extra keys of their kernel rows."""
+    import torch
+
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.kernels.caar_t import (caar_row_plan,
+                                                         caar_t4_cuda)
+
+    modes = {n: m for n, m in row_modes().items()
+             if n != "caar_packed_rsplit0_t"}
+    const, acc = bench.make_problem(1024, nlev, dev, seed=7)
+    tag = f"1024x{nlev}"
+    out = {name: {} for name in modes}
+    bench_args = None
+    for case, targs in r0_cases(const, acc):
+        if case == "bench":
+            bench_args = targs
+        for name, mode in modes.items():
+            got, want, want64 = run_mode(mode, targs)
+            names = mode[3]
+            for g in got:
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"{name} {tag} {case}: non-finite")
+            errs = {n: scaled_err(g, w) for n, g, w in zip(names, got, want)}
+            e64 = {n: scaled_err(g, w) for n, g, w in zip(names, got, want64)}
+            own = scaled_err(want[3], want64[3])
+            same = ""
+            if name == "caar_packed":
+                bits = same_as_t(got, t_pair_of(targs))
+                same = f"; bit for bit caar_t4_cuda transposed: {bits}"
+                if not bits:
+                    raise AssertionError(f"{name} {tag} {case}: not the t "
+                                         "kernel's bits")
+            print(f"phase 13 {name} {tag} {case}: against plain in f64 "
+                  + " ".join(f"{a} {b:.2e}" for a, b in e64.items())
+                  + f"; against plain in f32 worst {max(errs.values()):.2e}"
+                  f" (plain f32's own dp1 {own:.2e}){same}")
+            if max(e64.values()) > CAAR_TOL:
+                raise AssertionError(f"{name} {tag} {case}: against plain in "
+                                     f"f64 {e64} > {CAAR_TOL}")
+            key = f"nlev{nlev}_max_scaled_err_f64"
+            out[name][key] = max(out[name].get(key, 0.0), *e64.values())
+            del got, want, want64
+    tacc = [x.clone() for x in bench_args[13:16]]
+    s0, sm1 = torch.cat(bench_args[3:7]), torch.cat(bench_args[7:11])
+    t_graph = graph_ms(lambda: caar_t4_cuda(
+        bench_args[0], bench_args[2], s0, sm1, bench_args[11], bench_args[12],
+        *tacc, bench_args[17]), 10)
+    for name, (kern, plain, conv, names) in modes.items():
+        args = conv(bench_args)
+        nacc = 4 if len(names) == 9 else 3
+        kacc = [x.clone() for x in args[-1 - nacc:-1]]
+        g_ms = graph_ms(lambda: kern(*args[:-1 - nacc], *kacc, args[-1]), 10)
+        plan = caar_row_plan(1024 * 16, nlev, name != "caar_packed")
+        print(f"phase 13 {name} {tag}: from a graph {g_ms:.4f} ms "
+              f"({'staged' if plan.stash else 'windowed'}); the t pair form "
+              f"{t_graph:.4f} ms")
+        out[name][f"nlev{nlev}_graph_ms"] = g_ms
+    del const, acc, bench_args
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_row_path(dev, cs):
@@ -4024,6 +4262,106 @@ def phase_trace(dev, cs, big):
     return shares
 
 
+def phase_bench_all_kernels(dev) -> None:
+    """Phase 25's gates: each wrapper that ``tools.bench_all`` times, one
+    step on the entry's own inputs (its problem builder, its seeds, at the
+    JAX tool's sizes) against its plain version on the same inputs: the
+    row CAAR at 1024 x 72, 8 x 26 and on the ne30 entry's problem, each
+    output at CAAR_TOL scaled; the row tracer at 128 x 72 x 35, each
+    tracer block at CAAR_TOL scaled; the triad bit for bit. Runs before the
+    launch counts are reset, so these launches are not the sweep's."""
+    import torch
+
+    from tinman_sandbox_tpu_torch.kernels.caar import (caar_packed,
+                                                       caar_packed_plain)
+    from tinman_sandbox_tpu_torch.kernels.saxpby import (saxpby_cuda,
+                                                         saxpby_plain)
+    from tinman_sandbox_tpu_torch.kernels.tracer import (euler_packed,
+                                                         euler_packed_plain)
+    from tinman_sandbox_tpu_torch.tools import bench_all
+
+    names = ("u1", "v1", "t1", "dp1", "phi", "vn0u", "vn0v", "omg")
+
+    def caar_gate(tag, fields, acc, dvv):
+        want = caar_packed_plain(*fields, *acc, dvv)
+        got = caar_packed(*fields, *(a.clone() for a in acc), dvv)
+        torch.cuda.synchronize()
+        errs = {n: scaled_err(g, w) for n, g, w in zip(names, got, want)}
+        if not all(bool(torch.isfinite(g).all()) for g in got):
+            raise AssertionError(f"bench_all {tag}: non-finite output")
+        print(f"phase 25 gate caar_packed {tag}: worst scaled error "
+              f"{max(errs.values()):.2e} ({max(errs, key=errs.get)}) against "
+              f"caar_packed_plain")
+        if max(errs.values()) > CAAR_TOL:
+            raise AssertionError(f"bench_all {tag}: {errs} > {CAAR_TOL}")
+
+    for nelem, nlev in ((1024, 72), (8, 26)):
+        const, acc = bench_all.caar_problem(nelem, nlev, dev)
+        caar_gate(f"{nelem}x{nlev}", const[:-1], acc, const[-1])
+    (scal, meta, qdp, pecnd, dvv), (s0, sm1), acc, _, _ = \
+        bench_all.ne30_problem(30, 72, dev)
+    caar_gate("ne30 x 72", (scal, meta, *s0, *sm1, qdp, pecnd), acc, dvv)
+
+    nelem, nlev, qsize, dt = 128, 72, 35, 1e-4
+    meta, vu, vv, q, dvv = bench_all.tracer_problem(nelem, nlev, qsize, dev)
+    want = euler_packed_plain(meta, vu, vv, q, dvv, dt, nlev)
+    got = euler_packed(meta, vu, vv, q, dvv, dt, nlev)
+    torch.cuda.synchronize()
+    err = max(scaled_err(a, b) for a, b in zip(got.split(nlev, 1),
+                                               want.split(nlev, 1)))
+    print(f"phase 25 gate euler_packed {nelem}x{nlev} qsize {qsize}: worst "
+          f"scaled error of a tracer block {err:.2e} against "
+          f"euler_packed_plain")
+    if not bool(torch.isfinite(got).all()) or err > CAAR_TOL:
+        raise AssertionError(f"bench_all tracer: {err} > {CAAR_TOL}")
+
+    x, y = bench_all.saxpby_problem(8192, 4096, dev)
+    want = saxpby_plain(0.999, 0.001, x, y)
+    got = saxpby_cuda(0.999, 0.001, x.clone(), y)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("bench_all saxpby: the kernel differs from its "
+                             "plain version")
+    print("phase 25 gate saxpby_cuda 8192x4096 (0.999, 0.001): bit for bit "
+          "saxpby_plain")
+
+
+def phase_bench_all(dev) -> dict:
+    """The port's benchmark sweep (``tools.bench_all``) in process at the
+    JAX tool's full sizes: every entry's numbers finite and positive, each
+    entry's kernel launched, the backend the card. Returns the report."""
+    import math
+
+    from tinman_sandbox_tpu_torch.tools import bench_all
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        report = bench_all.main([])
+    print("phase 25 bench_all " + json.dumps(report))
+    if report["backend"] != "cuda" or not report["card"]:
+        raise AssertionError(f"bench_all: backend {report['backend']}, card "
+                             f"{report['card']}")
+    keys = {"caar_1024x72": ("gridpoints_per_s", "us_per_step"),
+            "caar_single_element_26lev": ("gridpoints_per_s", "us_per_step"),
+            "tracer_128x72_q35": ("tracer_gridpoints_per_s", "us_per_step"),
+            "ne30_caar_dss_5400elem": ("gridpoints_per_s", "us_per_step"),
+            "saxpby_triad": ("gb_per_s", "us_per_step")}
+    for name, want in keys.items():
+        e = report[name]
+        for k in (*want, "bytes_per_step", "bound_us"):
+            if not (math.isfinite(e[k]) and e[k] > 0):
+                raise AssertionError(f"bench_all {name}: {k} = {e[k]}")
+        if min(e["kernel_launches"].values()) <= 0:
+            raise AssertionError(f"bench_all {name}: launches "
+                                 f"{e['kernel_launches']}")
+        first = want[0]
+        print(f"phase 25 {name}: {first} {e[first]:.6g}, us_per_step "
+              f"{e['us_per_step']:.4f} against the bound "
+              f"{e['bound_us']:.4f} us, launches "
+              f"{json.dumps(e['kernel_launches'])}")
+    return report
+
+
 def main() -> int:
     try:
         import torch
@@ -4202,6 +4540,13 @@ def main() -> int:
     traced = counts()
     del big_problem
     print(f"phase 24 seconds: {time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_bench_all_kernels(dev)
+    reset()
+    phase_bench_all(dev)
+    swept = counts()
+    print(f"phase 25 seconds: {time.perf_counter() - t0:.1f}")
     for label, res, got in (("raw", raw_res, raw), ("assembled", asm_res,
                                                      asm),
                             ("dynamics", dyn_res, dyn),
@@ -4343,6 +4688,11 @@ def main() -> int:
         if traced[name] <= 0:
             raise AssertionError(f"{name} was not launched on phase 24's "
                                  "path")
+    print(f"phase 25 bench_all main-path launches: {json.dumps(swept)}")
+    for name in ("caar_packed", "euler_packed", "saxpby_cuda"):
+        if swept[name] <= 0:
+            raise AssertionError(f"{name} was not launched on phase 25's "
+                                 "path")
     if row_asm_res["kernel_launches"]["caar_packed"] <= 0:
         raise AssertionError("bench --layout row --ne: no row CAAR launch")
     if single_launches <= 0:
@@ -4362,7 +4712,8 @@ def main() -> int:
             "replaces": r.pop("replaces"),
             "launches": raw[name] + asm[name] + dyn[name] + prim[name]
             + row[name] + ring[name] + multi[name] + probe[name]
-            + cadence[name] + tiers[name] + big[name] + traced[name],
+            + cadence[name] + tiers[name] + big[name] + traced[name]
+            + swept[name],
             "max_abs_err": r.pop("max_abs_err"), "ms": r.pop("ms"),
             "plain_ms": r.pop("plain_ms"), "bound_ms": r.pop("bound_ms"),
             "bound_by": r.pop("bound_by"), "library_ms": r.pop("library_ms"),

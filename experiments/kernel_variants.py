@@ -7,9 +7,9 @@ not part of the port: the port keeps one plan per kernel, and this script is
 how the hypotheses about them were tested.
 
     python3 experiments/kernel_variants.py [sweep] [caar] [fixup] [remap]
-        [tracer]
+        [tracer] [row]
 
-from the repository root: the named groups (default all five), in that
+from the repository root: the named groups (default all six), in that
 order.
 
   1. the sweep: the port's kernel (``dss_sweep_cuda``: one row a thread, 40
@@ -53,7 +53,20 @@ order.
      per tracer block against its plain version at 5e-5 at a long dt (the
      slab bit for bit the output at the fix lanes) and timed from CUDA
      graphs, with ptxas's registers and cudaOccupancy's blocks an SM of
-     every instance.
+     every instance;
+  6. the row-layout CAAR kernel beyond its shared-memory planes
+     (``caar_packed`` above 197 levels, ``caar_packed_rsplit0`` above 161):
+     ``csrc/caar.cu`` built as the port builds it (windows of 8 levels) and
+     with ``CAAR_ROW_WINDOW`` 0 (every field read and written in place, the
+     design the windows replaced) and 4, and the port's window and the
+     in-place kernel with ``CAAR_ROW_CARVEOUT`` 0 (the preferred carveout
+     that leaves the SM the most L1), all built in parallel. Each at 1024 x
+     400 and 1024 x 198, and at 1024 x 150 with the windowed plan in place
+     of the staged one (the port's build also staged), both rsplit modes on
+     the bench case of ``chip_smoke.r0_cases``: held per field within 5e-5
+     of the plain version in f64, compared bit for bit with the port's
+     build, timed from CUDA graphs, with ptxas's registers and spills of
+     the row kernel's instances.
 
 Every line is one JSON object and names the card and its power limit.
 Without a card the script raises.
@@ -352,7 +365,6 @@ def remaps(dev, card):
         print(json.dumps(line), flush=True)
 
 
-# the tracer variants of tracer_variants.cu: (index, name)
 # the tracer variants of tracer_variants.cu: (index, name, with the slab)
 TRACER_VARIANTS = ((0, "half", False), (1, "half_ahead", False),
                    (2, "half_once", False), (3, "element", True),
@@ -555,10 +567,126 @@ def tracers(dev, card):
         print(json.dumps(line), flush=True)
 
 
+# builds of csrc/caar.cu for the row kernel beyond its planes: (name, nvcc
+# flags), the port's first
+ROW_BUILDS = (("w8", []), ("inplace", ["-DCAAR_ROW_WINDOW=0"]),
+              ("w4", ["-DCAAR_ROW_WINDOW=4"]),
+              ("w8_maxl1", ["-DCAAR_ROW_CARVEOUT=0"]),
+              ("inplace_maxl1", ["-DCAAR_ROW_WINDOW=0",
+                                 "-DCAAR_ROW_CARVEOUT=0"]))
+# (nlev, the windowed plan forced where the port stages)
+ROW_SHAPES = ((400, False), (198, False), (150, False), (150, True))
+
+
+def _row_libraries():
+    """Build every ROW_BUILDS variant of caar.cu at once (one nvcc each);
+    returns {name: (the loaded library, {instance: registers, spills})}."""
+    from tinman_sandbox_tpu_torch.kernels import _build
+
+    out = os.path.join(ROOT, "build", "experiments")
+    os.makedirs(out, exist_ok=True)
+    procs = {}
+    for name, flags in ROW_BUILDS:
+        lib = os.path.join(out, f"caar_row_{name}.so")
+        procs[name] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build._flags("caar"), *flags, "-o", lib,
+             os.path.join(CSRC, "caar.cu")],
+            stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        report = proc.communicate()[1]
+        if proc.returncode:
+            raise RuntimeError(f"caar row build {name}: {report[-2000:]}")
+        so = ctypes.CDLL(lib)
+        for fn, argtypes in _build._SIGNATURES["caar"].items():
+            f = getattr(so, fn)
+            f.argtypes = argtypes
+            f.restype = (ctypes.c_char_p if fn.endswith("_error_string")
+                         else ctypes.c_int)
+        regs, inst = {}, None
+        for line in report.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                inst = m.group(1) if "caar_row_kernel" in m.group(1) else None
+            m = re.search(r"(\d+) bytes spill stores.*?(\d+) bytes spill "
+                          r"loads", line)
+            if m and inst:
+                regs.setdefault(inst, {})["spills"] = int(m.group(1)) + int(
+                    m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and inst:
+                regs.setdefault(inst, {})["registers"] = int(m.group(1))
+        libs[name] = (so, regs)
+    return libs
+
+
+def rows(dev, card):
+    import dataclasses
+    import importlib
+
+    from chip_smoke import r0_cases, row_modes, run_mode, scaled_err
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.kernels import _build
+
+    caar_t = importlib.import_module("tinman_sandbox_tpu_torch.kernels.caar_t")
+    libs = _row_libraries()
+    for name, (_, regs) in libs.items():
+        print(json.dumps(dict(card=card, kernel="caar_row", build=name,
+                              registers=regs)), flush=True)
+    modes = {n: m for n, m in row_modes().items()
+             if n != "caar_packed_rsplit0_t"}
+    port_library, port_plan = _build.library, caar_t.caar_row_plan
+    try:
+        for nlev, windowed in ROW_SHAPES:
+            const, acc = bench.make_problem(1024, nlev, dev, seed=7)
+            targs = dict(r0_cases(const, acc))["bench"]
+            for mode, (kern, plain, conv, names) in modes.items():
+                args = conv(targs)
+                nacc = 4 if len(names) == 9 else 3
+                want64 = plain(*(x.double() for x in args))
+                r0 = mode == "caar_packed_rsplit0"
+                if windowed:
+                    caar_t.caar_row_plan = lambda ncol, nl, r0=False: \
+                        dataclasses.replace(port_plan(ncol, nl, r0),
+                                            stash=False)
+                plan = caar_t.caar_row_plan(1024 * 16, nlev, r0)
+                first = None
+                for name, (so, _) in libs.items():
+                    _build.library = (lambda n, so=so: so if n == "caar"
+                                      else port_library(n))
+                    kacc = [x.clone() for x in args[-1 - nacc:-1]]
+                    got = kern(*args[:-1 - nacc], *kacc, args[-1])
+                    torch.cuda.synchronize()
+                    e64 = max(scaled_err(g, w) for g, w in zip(got, want64))
+                    if e64 > CAAR_TOL:
+                        raise AssertionError(f"caar row {name} {mode} {nlev}"
+                                             f": {e64} > {CAAR_TOL}")
+                    # the accumulators are updated in place: keep copies
+                    first = first or tuple(g.clone() for g in got)
+                    line = dict(card=card, kernel=mode, build=name,
+                                nlev=nlev, ncol=1024 * 16,
+                                plan="staged" if plan.stash else "windowed",
+                                max_scaled_err_f64=e64,
+                                bitwise_port_build=all(
+                                    torch.equal(g, f)
+                                    for g, f in zip(got, first)))
+                    del got
+                    line["graph_ms"] = graph_ms(
+                        lambda: kern(*args[:-1 - nacc], *kacc, args[-1]), 10)
+                    print(json.dumps(line), flush=True)
+                _build.library = port_library
+                caar_t.caar_row_plan = port_plan
+                del want64, first
+            del const, acc, targs
+            torch.cuda.empty_cache()
+    finally:
+        _build.library, caar_t.caar_row_plan = port_library, port_plan
+
+
 def main(argv=None) -> int:
     groups = (argv if argv is not None else sys.argv[1:]) or [
-        "sweep", "caar", "fixup", "remap", "tracer"]
-    if set(groups) - {"sweep", "caar", "fixup", "remap", "tracer"}:
+        "sweep", "caar", "fixup", "remap", "tracer", "row"]
+    if set(groups) - {"sweep", "caar", "fixup", "remap", "tracer", "row"}:
         raise SystemExit(f"kernel_variants: unknown group in {groups}")
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_variants: needs a CUDA card")
@@ -582,6 +710,8 @@ def main(argv=None) -> int:
         remaps(dev, card)
     if "tracer" in groups:
         tracers(dev, card)
+    if "row" in groups:
+        rows(dev, card)
     return 0
 
 

@@ -1,22 +1,32 @@
-"""The launch plans of the two kernels redesigned for the H100 (the sweep's
-``sweep_plan``, the chunked CAAR kernel's ``caar_plan`` and the ring's
-``caar_ring_plan``): pure functions of the shape that fit the card, the
-wrappers' refusals of shapes the kernels do not take, the ctypes
-signatures against the C sources, and the chunked CAAR kernel's summation
-order repeated on the CPU against the JAX package (Pallas in interpret
-mode, and caar_xla) within the on-card gate of 5e-5 scaled per field."""
+"""The launch plans of the kernels redesigned for the H100 (the sweep's
+``sweep_plan``, the chunked CAAR kernel's ``caar_plan``, the ring's
+``caar_ring_plan`` and the row kernel's ``caar_row_plan``): pure functions
+of the shape that fit the card, the wrappers' refusals of shapes the
+kernels do not take, the ctypes signatures against the C sources, and the
+chunked CAAR kernel's summation order repeated on the CPU against the JAX
+package (Pallas in interpret mode, and caar_xla) within the on-card gate of
+5e-5 scaled per field; the row kernel's staging (a permutation into
+swizzled planes: the t order bit for bit) and its rsplit=0 order against
+the row Pallas kernels and, in f64, the port's plain step."""
 import dataclasses
 import importlib
 import os
 import re
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import tinman_sandbox_tpu as jt
 from tinman_sandbox_tpu.kernels import caar_xla
+from tinman_sandbox_tpu.kernels.caar_pallas import (
+    _scalars as j_row_scalars,
+    caar_pallas_packed,
+    caar_pallas_packed_rsplit0,
+    pack_problem as j_row,
+)
 from tinman_sandbox_tpu.kernels.caar_pallas_t import (
     _scalars as j_scalars,
     caar_pallas_packed_t4_lg,
@@ -28,6 +38,8 @@ from tinman_sandbox_tpu_torch.convert import from_numpy
 from tinman_sandbox_tpu_torch.dist import (build_cubed_sphere,
                                            make_structured_plan)
 from tinman_sandbox_tpu_torch.kernels import _build, dss, ring_fused
+from tinman_sandbox_tpu.kernels.layout import pack_field as j_pack_field
+from tinman_sandbox_tpu_torch.kernels.caar import caar_packed_rsplit0_plain
 from tinman_sandbox_tpu_torch.kernels.dss import (
     dss_sweep_cuda, dss_sweep_nomerge_cuda, fix_tables, sweep_plan)
 from tinman_sandbox_tpu_torch.kernels.layout import META_COLS
@@ -209,12 +221,18 @@ def test_torch_ctypes_signatures_match_the_c_sources(name):
 
 # -- the chunked kernel's summation order on the CPU --------------------------
 
-def _chunked_physics(scal, meta, dvv, s0, sm1, qdp, pecnd, plan, moist=True):
+def _chunked_physics(scal, meta, dvv, s0, sm1, qdp, pecnd, plan, moist=True,
+                     hyb=None):
     """``caar_t4_plain``'s physics with the three vertical recurrences
     summed as csrc/caar.cu's chunked body sums them, in f32: each chunk's
     running sums start at the sum of the other chunks' totals, taken in
     chunk order (the dp prefix and the divdp prefix from the top, the q
-    suffix from the bottom). Returns (s1, phi, vdp1, vdp2, omega_p)."""
+    suffix from the bottom). Returns (s1, phi, vdp1, vdp2, omega_p). With
+    ``hyb`` ([nlev, 2]: hybi(k), hybi(k+1)) the body's rsplit=0 mode (kR0):
+    sdot the chunks' divdp totals summed in chunk order, the interface
+    fluxes with their forced zeros, the vertical advection of u, v and T,
+    the dp tendency as (H(k+1) - H(k))*sdot (H(0) = 0, H(nlev) = 1), and
+    eta_hi returned last."""
     c = CONSTANTS
     k, e16 = qdp.shape
     ne = e16 // 16
@@ -285,12 +303,35 @@ def _chunked_physics(scal, meta, dvv, s0, sm1, qdp, pecnd, plan, moist=True):
     gpterm = c.Rgas * (tv / p)
     fv = row("fcor") + vort
     sph = row("spheremp")
-    s1 = torch.cat([sph * (um1 + dt2 * (v * fv - ge1 - gpterm * gp1)),
-                    sph * (vm1 + dt2 * (-(u * fv) - ge2 - gpterm * gp2)),
-                    sph * (tm1 + dt2 * (-(u * gt1 + v * gt2)
-                                        + c.kappa * tv * omega_p)),
-                    sph * (dpm1 - dt2 * divdp)])
-    return s1, phi, u * dp, v * dp, omega_p
+    if hyb is None:
+        s1 = torch.cat([sph * (um1 + dt2 * (v * fv - ge1 - gpterm * gp1)),
+                        sph * (vm1 + dt2 * (-(u * fv) - ge2 - gpterm * gp2)),
+                        sph * (tm1 + dt2 * (-(u * gt1 + v * gt2)
+                                            + c.kappa * tv * omega_p)),
+                        sph * (dpm1 - dt2 * divdp)])
+        return s1, phi, u * dp, v * dp, omega_p
+    sdot = prefix(d_tot, len(ranges))
+    lev = torch.arange(k)[:, None]
+    top, bottom = lev > 0, lev < k - 1
+    eta_lo = torch.where(top, hyb[:, 0:1] * sdot - cum, 0.0)
+    eta_hi = torch.where(bottom, hyb[:, 1:2] * sdot - (cum + divdp), 0.0)
+    rpdel = 1.0 / dp
+    facp, facm = 0.5 * rpdel * eta_hi, 0.5 * rpdel * eta_lo
+
+    def vadv(x):                               # x(k+1) and x(k-1), or x(k)
+        nxt = torch.cat([x[1:], x[-1:]])
+        prv = torch.cat([x[:1], x[:-1]])
+        return facp * (nxt - x) + facm * (x - prv)
+
+    dptens = (torch.where(bottom, hyb[:, 1:2], 1.0)
+              - torch.where(top, hyb[:, 0:1], 0.0)) * sdot
+    s1 = torch.cat([
+        sph * (um1 + dt2 * (-vadv(u) + v * fv - ge1 - gpterm * gp1)),
+        sph * (vm1 + dt2 * (-vadv(v) - (u * fv) - ge2 - gpterm * gp2)),
+        sph * (tm1 + dt2 * (-vadv(t) - (u * gt1 + v * gt2)
+                            + c.kappa * tv * omega_p)),
+        sph * (dpm1 - dt2 * dptens)])
+    return s1, phi, u * dp, v * dp, omega_p, eta_hi
 
 
 def _err(a, b):
@@ -397,3 +438,267 @@ def test_torch_caar_chunked_order_matches_caar_xla():
     for name in ("vn0_u", "vn0_v", "phi", "omega_p"):
         e = _err(getattr(nd, name), getattr(jdv, name))
         assert e < CAAR_TOL, (name, e)
+
+
+# -- the row kernel: its staging and the rsplit=0 order ----------------------
+
+def _span_at(i, nlev):
+    """csrc/caar.cu's span_at: (column, level) of element i of a tile's span
+    by the f32 quotient (i + 0.5) * (1/nlev)."""
+    r = np.float32(1.0) / np.float32(nlev)
+    q = ((i.astype(np.float32) + np.float32(0.5)) * r).astype(np.float32)
+    cx = np.trunc(q).astype(np.int64)
+    return cx, i - cx * nlev
+
+
+def _swz(k, x):
+    """csrc/caar.cu's swz: a plane's cell of column x at level k."""
+    return k * caar_t.TILE + (x ^ (k & 31))
+
+
+def _stage(x_row, nlev):
+    """The row kernel's staging of one [E16, nlev] field: each tile's span
+    (32 columns of nlev contiguous floats; the last tile may hold 16)
+    copied element by element into a plane at swz(span_at(i)), and the
+    passes' reads plane[swz(k, x)] gathered into [nlev, E16]."""
+    e16 = x_row.shape[0]
+    out = torch.empty(nlev, e16, dtype=x_row.dtype)
+    for col0 in range(0, e16, caar_t.TILE):
+        span = x_row[col0:col0 + caar_t.TILE].reshape(-1)
+        i = np.arange(span.numel())
+        cx, k = _span_at(i, nlev)
+        plane = torch.full((caar_t.TILE * nlev,), float("nan"),
+                           dtype=x_row.dtype)
+        plane[torch.from_numpy(_swz(k, cx))] = span
+        live = span.numel() // nlev
+        kk, xx = np.meshgrid(np.arange(nlev), np.arange(live), indexing="ij")
+        out[:, col0:col0 + live] = plane[torch.from_numpy(_swz(kk, xx))]
+    return out
+
+
+def _unstage(x_t):
+    """The epilogue: element i of each tile's span written from the plane
+    cell swz(span_at(i)) of the [nlev, E16] result; returns [E16, nlev]."""
+    nlev, e16 = x_t.shape
+    out = torch.empty(e16, nlev, dtype=x_t.dtype)
+    for col0 in range(0, e16, caar_t.TILE):
+        live = min(caar_t.TILE, e16 - col0)
+        kk, xx = np.meshgrid(np.arange(nlev), np.arange(live), indexing="ij")
+        plane = torch.empty(caar_t.TILE * nlev, dtype=x_t.dtype)
+        plane[torch.from_numpy(_swz(kk, xx))] = x_t[:, col0:col0 + live]
+        cx, k = _span_at(np.arange(live * nlev), nlev)
+        out[col0:col0 + live] = plane[torch.from_numpy(_swz(k, cx))].reshape(
+            live, nlev)
+    return out
+
+
+@pytest.mark.parametrize("nlev", [1, 8, 26, 72, 150, 197, 400])
+def test_torch_row_staging_is_a_bank_free_permutation(nlev):
+    """span_at's f32 quotient is the exact division for every element of a
+    tile's span; swz maps a whole (32 columns) and a half-live (16) tile's
+    span one to one into its plane; a warp of the passes (one level, 32
+    columns) reads 32 banks, and a warp of the staging (32 consecutive
+    floats) meets a bank at most twice where nlev >= 32 (a column boundary
+    inside the warp)."""
+    for live in (16, caar_t.TILE):
+        i = np.arange(live * nlev)
+        cx, k = _span_at(i, nlev)
+        assert np.array_equal(cx, i // nlev) and np.array_equal(k, i % nlev)
+        pos = _swz(k, cx)
+        assert np.unique(pos).size == pos.size
+        assert pos.min() >= 0 and pos.max() < caar_t.TILE * nlev
+        if nlev >= 32:
+            for w in range(0, pos.size, 32):
+                assert np.bincount(pos[w:w + 32] % 32).max() <= 2
+    for kk in range(nlev):
+        banks = _swz(np.full(32, kk), np.arange(32)) % 32
+        assert np.unique(banks).size == 32
+
+
+def _wsw(w, x, window):
+    """csrc/caar.cu's wsw: a window slot's cell of column x at level w."""
+    return w * caar_t.TILE + (x ^ (w * (caar_t.TILE // window)))
+
+
+@pytest.mark.parametrize("window", [4, 8, 16, 32])
+@pytest.mark.parametrize("k0,k1", [(0, 50), (350, 400), (175, 198)])
+def test_torch_row_window_is_a_bank_free_permutation(window, k0, k1):
+    """The windowed row mode's copies: lane i of a warp's copy loop takes
+    column i // window at window level i % window. Over the windows of a
+    chunk [k0, k1) (the last one short) every (column, level) is copied
+    once, to the cell the passes read it back from (lane x at level k reads
+    wsw(k - win_lo, x)); a warp of copies (32 consecutive i) and a warp of
+    the passes (one level, 32 columns) each meet 32 banks."""
+    tile = caar_t.TILE
+    seen = {}
+    for kw in range(k0, k1, window):
+        n = min(window, k1 - kw)
+        i = np.arange(window * tile)
+        cx, w = i // window, i % window
+        cells = _wsw(w, cx, window)
+        for j in range(0, i.size, 32):
+            assert np.unique(cells[j:j + 32] % 32).size == 32
+        keep = w < n
+        assert np.unique(cells[keep]).size == keep.sum()
+        for c, lv, cell in zip(cx[keep], w[keep], cells[keep]):
+            seen[(int(c), kw + int(lv))] = int(cell)
+        for lv in range(n):
+            read = _wsw(np.full(tile, lv), np.arange(tile), window)
+            assert np.unique(read % 32).size == 32
+            for x in range(tile):
+                assert seen[(x, kw + lv)] == read[x]
+    assert len(seen) == tile * (k1 - k0)
+
+
+def test_torch_row_plan_stages_where_the_planes_fit():
+    """``caar_row_plan``: the t plan's chunks (so the t order), staged up to
+    197 levels (161 at rsplit=0) and two blocks an SM at nlev 72 in both
+    modes; windowed above (phi, the totals and each chunk's window slots
+    in shared memory); the kernel's refusals are caar_plan's."""
+    for r0, planes, top in ((False, 9, 197), (True, 11, 161)):
+        assert caar_t.ROW_PLANES[r0] == planes
+        for nlev in (26, 72, 150, 198, 400):
+            p = caar_t.caar_row_plan(16016, nlev, r0)
+            t = caar_t.caar_plan(16016, nlev)
+            assert (p.chunks, p.levels, p.tile) == (t.chunks, t.levels, t.tile)
+            assert p.row and p.r0 == r0 and p.stash == (nlev <= top)
+            if not p.stash:
+                slots = caar_t.ROW_WINDOW_SLOTS[r0] * caar_t.ROW_WINDOW
+                assert p.smem == 4 * p.tile * (nlev + 3 * p.chunks
+                                               + p.chunks * slots)
+            assert p.smem <= caar_t.SMEM_MAX and p.blocks_per_sm >= 1
+            assert p.blocks_per_sm * (p.smem + caar_t.SMEM_RESERVED) <= \
+                caar_t.SM_SMEM
+        assert caar_t.caar_row_plan(16, top, r0).stash
+        assert not caar_t.caar_row_plan(16, top + 1, r0).stash
+        assert caar_t.caar_row_plan(86400, 72, r0).blocks_per_sm == 2
+    for ncol, nlev in ((384, 0), (384, 401), (24, 8)):
+        with pytest.raises(ValueError):
+            caar_t.caar_row_plan(ncol, nlev)
+
+
+@pytest.mark.parametrize("nelem,nlev", [(8, 72), (7, 26)])
+def test_torch_row_staged_order_is_the_t_order(nelem, nlev):
+    """The row kernel's order on a row problem: its fields staged into the
+    planes (a permutation: bit for bit the transposed fields, a half-live
+    last tile at 7 elements), the chunked order, the epilogue back to
+    [E16, nlev]; bit for bit the chunked order on the transposed problem,
+    and within 5e-5 per field of caar_pallas_packed (the row Pallas kernel)
+    in interpret mode."""
+    cfg, st, dv, geom, hv = _problem(8, nlev, seed=6)
+    p = j_row(st, dv, geom, hv, cfg)
+    scal = np.asarray(j_row_scalars(np.float32(0.1), np.float32(0.7), hv))
+    names = ("u0", "v0", "t0", "dp0", "um1", "vm1", "tm1", "dpm1", "qdp",
+             "pecnd", "vn0u", "vn0v", "omg")
+    ref = caar_pallas_packed(scal, p["dxb"], p["dyb"], p["ainc"], p["astr"],
+                             p["bstr"], p["meta"], *(p[n] for n in names),
+                             eb=8, nlev=nlev, interpret=True)
+    e16 = 16 * nelem
+    T = lambda x: torch.from_numpy(np.array(x))[:e16]
+    rows = {n: T(p[n]) for n in names}
+    staged = {n: _stage(x, nlev) for n, x in rows.items()}
+    for n in names:
+        assert torch.equal(staged[n], rows[n].T)
+    meta = T(p["meta"]).T.contiguous()
+    dvv = torch.from_numpy(np.asarray(geom.dvv, np.float32))
+    plan = caar_t.caar_row_plan(e16, nlev)
+    s = staged
+    scal = torch.from_numpy(np.array(scal))
+    s1, phi, vdp1, vdp2, omega_p = _chunked_physics(
+        scal, meta, dvv,
+        torch.cat([s[n] for n in names[:4]]),
+        torch.cat([s[n] for n in names[4:8]]), s["qdp"], s["pecnd"], plan)
+    eta = float(scal[0, 1])
+    outs = [*s1.split(nlev), phi, s["vn0u"] + eta * vdp1,
+            s["vn0v"] + eta * vdp2, s["omg"] + eta * omega_p]
+    tplan = caar_t.caar_plan(e16, nlev)
+    ts1, tphi, tv1, tv2, tom = _chunked_physics(
+        scal, meta, dvv,
+        torch.cat([rows[n].T for n in names[:4]]),
+        torch.cat([rows[n].T for n in names[4:8]]), rows["qdp"].T,
+        rows["pecnd"].T, tplan)
+    touts = [*ts1.split(nlev), tphi, rows["vn0u"].T + eta * tv1,
+             rows["vn0v"].T + eta * tv2, rows["omg"].T + eta * tom]
+    for got, want, r in zip(outs, touts, ref):
+        back = _unstage(got)
+        assert torch.equal(back, want.T)
+        assert _err(back, np.asarray(r)[:e16]) < CAAR_TOL
+
+
+def _r0_problem(nelem, nlev, dtype):
+    """The rsplit=0 problem of tests/test_torch_rsplit0.py: random state
+    with a zero nm1 level and winds x 30 m/s, random accumulators, pecnd
+    and eta_dot_dpdn, random geometry and a hybi ramp."""
+    cfg = jt.Config(nelem=nelem, nlev=nlev, elem_block=8, rsplit=0)
+    cast = lambda tree: jax.tree.map(lambda x: np.asarray(x, dtype), tree)
+    st = cast(jt.random_state(cfg, seed=3))
+    new = {}
+    for name in ("u", "v", "t", "dp3d"):
+        x = np.array(getattr(st, name))
+        x[cfg.nm1] = 0
+        if name in ("u", "v"):
+            x *= 30.0
+        new[name] = x
+    st = dataclasses.replace(st, **new)
+    dv = cast(jt.zero_derived(cfg))
+    rng = np.random.default_rng(21)
+    dv = dataclasses.replace(dv, **{
+        n: rng.uniform(-1, 1, getattr(dv, n).shape).astype(dtype)
+        for n in ("vn0_u", "vn0_v", "omega_p", "pecnd", "eta_dot_dpdn")})
+    geom = cast(jt.random_geometry(cfg, seed=4))
+    hv = jt.analytic_hvcoord(cfg).astype(dtype)
+    hv = dataclasses.replace(hv, hybi=np.linspace(0.0, 1.0, nlev + 1).astype(
+        dtype))
+    return cfg, st, dv, geom, hv
+
+
+def _r0_chunked(p, scal, hyb, dvv, nlev, dtype):
+    """The row kernel's rsplit=0 order on the packed row problem ``p``
+    (staged: the t order on the transposed fields), as (u1, v1, t1, dp1,
+    phi, vn0u, vn0v, omg, etaacc) on [E16, nlev]."""
+    T = lambda x: torch.from_numpy(np.array(x, dtype))
+    names = ("u0", "v0", "t0", "dp0", "um1", "vm1", "tm1", "dpm1")
+    e16 = np.asarray(p["u0"]).shape[0]
+    plan = caar_t.caar_row_plan(e16, nlev, r0=True)
+    s1, phi, vdp1, vdp2, omega_p, eta_hi = _chunked_physics(
+        T(scal), T(p["meta"]).T, T(dvv), torch.cat([T(p[n]).T
+                                                    for n in names[:4]]),
+        torch.cat([T(p[n]).T for n in names[4:]]), T(p["qdp"]).T,
+        T(p["pecnd"]).T, plan, hyb=T(hyb).T)
+    eta = T(scal)[0, 1]
+    outs = (*s1.split(nlev), phi, T(p["vn0u"]).T + eta * vdp1,
+            T(p["vn0v"]).T + eta * vdp2, T(p["omg"]).T + eta * omega_p,
+            T(p["etaacc"]).T + eta * eta_hi)
+    return [x.T for x in outs]
+
+
+@pytest.mark.parametrize("nlev", [72, 26])
+def test_torch_row_rsplit0_order_matches_pallas_and_plain(nlev):
+    """The chunked body's rsplit=0 mode (kR0) on the row layout, hybi ramp
+    and 30 m/s winds: in f32 within 5e-5 per field of
+    caar_pallas_packed_rsplit0 in interpret mode; in f64 within 1e-12 of
+    the port's plain rsplit=0 step (``caar_packed_rsplit0_plain``)."""
+    names = ("u0", "v0", "t0", "dp0", "um1", "vm1", "tm1", "dpm1", "qdp",
+             "pecnd", "vn0u", "vn0v", "omg")
+    for dtype in (np.float32, np.float64):
+        cfg, st, dv, geom, hv = _r0_problem(8, nlev, dtype)
+        p = dict(j_row(st, dv, geom, hv, cfg, dtype=dtype))
+        p["etaacc"] = j_pack_field(jnp.asarray(dv.eta_dot_dpdn, dtype)[:, 1:])
+        hybi = np.asarray(hv.hybi, dtype)
+        hyb = np.stack([hybi[:nlev], hybi[1:]])
+        scal = np.asarray(j_row_scalars(dtype(0.1), dtype(0.7), hv, dtype))
+        got = _r0_chunked(p, scal, hyb, geom.dvv, nlev, dtype)
+        if dtype is np.float32:
+            ref = caar_pallas_packed_rsplit0(
+                scal, p["dxb"], p["dyb"], p["ainc"], p["astr"], p["bstr"],
+                hyb, p["meta"], *(p[n] for n in names), p["etaacc"], eb=8,
+                nlev=nlev, interpret=True)
+            tol = CAAR_TOL
+        else:
+            T = lambda x: torch.from_numpy(np.array(x))
+            ref = caar_packed_rsplit0_plain(
+                T(scal), T(hyb), T(p["meta"]), *(T(p[n]) for n in names),
+                T(p["etaacc"]), T(geom.dvv))
+            tol = 1e-12
+        for g, r in zip(got, ref):
+            assert _err(g, r) < tol, (dtype, _err(g, r))

@@ -48,7 +48,7 @@ def _exercise(t, tmp_path):
 
 @pytest.mark.parametrize("native", [True, False])
 def test_torch_timers(tmp_path, native):
-    t = Timers(native=native)
+    t = Timers("cpu", native=native)
     assert t.is_native == native, "the native timer did not build or load"
     t.reset()
     _exercise(t, tmp_path)
@@ -56,8 +56,19 @@ def test_torch_timers(tmp_path, native):
     assert t.get("inner") is None
 
 
+def test_torch_timers_default_to_the_card(monkeypatch):
+    """``Timers()`` names the card: where there is none it raises instead of
+    timing the CPU without a device synchronisation."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        Timers()
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        Timers(native=False)
+    assert Timers("cpu", native=False)._device.type == "cpu"
+
+
 def test_torch_native_timer_build_and_attribution(tmp_path):
-    t = Timers()
+    t = Timers("cpu")
     assert t.is_native
     lib = profiling._library_path()
     assert os.path.exists(lib) and \

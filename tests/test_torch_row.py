@@ -329,3 +329,56 @@ def test_torch_bench_row_modes():
     assert rsp.shape == (384, 1)
     assert bench.assembled_bytes_per_step(30, 72, 2856, layout="row") == \
         (29 * 72 + 1) * 86400 * 4
+
+
+@pytest.mark.parametrize("r0", [False, True], ids=["rsplit1", "rsplit0"])
+@pytest.mark.parametrize("nlev", [72, 400])
+def test_torch_row_wrappers_launch_the_row_plan(monkeypatch, r0, nlev):
+    """A CUDA call of the row wrappers (reached here by a check that reports
+    a card and a stand-in library) hands ``caar_launch`` the row kernel's
+    plan: row = 1, ``caar_row_plan``'s (chunks, levels, staged) (staged at
+    72 levels, in place at 400), ld = nlev, hyb as two vectors of stride 1
+    and etaacc at rsplit=0 only; each call counts one launch."""
+    import importlib
+
+    from tinman_sandbox_tpu_torch.kernels import _build
+    from tinman_sandbox_tpu_torch.kernels.caar import caar_packed_rsplit0
+    from tinman_sandbox_tpu_torch.kernels.layout import META_COLS
+
+    ct = importlib.import_module("tinman_sandbox_tpu_torch.kernels.caar_t")
+
+    e16 = 48                                     # a whole and a half tile
+    rng = np.random.default_rng(2)
+    z = lambda *shape: torch.from_numpy(
+        rng.uniform(1, 2, shape).astype(np.float32))
+    fields = [z(e16, nlev) for _ in range(13)]
+    meta, dvv, scal = z(e16, len(META_COLS)), z(4, 4), z(1, 4)
+    hyb, etaacc = z(2, nlev), z(e16, nlev)
+    calls = []
+
+    class Lib:
+        def caar_launch(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(ct, "_check", lambda *a, **kw: torch.device("cuda",
+                                                                     0))
+    monkeypatch.setattr(_build, "library", lambda name: Lib())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {"cuda_stream": 0}))
+    wrapper = caar_packed_rsplit0 if r0 else caar_packed
+    launches = wrapper.launches
+    if r0:
+        wrapper(scal, hyb, meta, *fields, etaacc, dvv)
+    else:
+        wrapper(scal, meta, *fields, dvv)
+    assert wrapper.launches == launches + 1
+    (args,) = calls
+    plan = ct.caar_row_plan(e16, nlev, r0)
+    assert plan.stash == (nlev == 72)
+    assert args[26:29] == (nlev, e16, nlev)
+    assert args[31:36] == (1, 1, plan.chunks, plan.levels, int(plan.stash))
+    assert args[21:23] == (0, 0)                  # no fix-lane slab
+    want = (hyb.data_ptr(), hyb.data_ptr() + 4 * nlev, etaacc.data_ptr()) \
+        if r0 else (0, 0, 0)
+    assert args[23:26] == want

@@ -19,8 +19,10 @@
 // rsplit=0 mode adds the eta accumulator, read and written: 23 fields.
 //
 // Two bodies. The t layout at rsplit>0 (pair and stage forms, the slab; the
-// bench, assembled, dynamics and prim steps and the ring) runs the level-
-// chunked body, caar_chunked. Why: the column-a-thread body it
+// bench, assembled, dynamics and prim steps and the ring) and the row
+// layout at both rsplits (below) run the level-chunked body, caar_chunked;
+// only the t layout's rsplit=0 mode keeps the column-a-thread body,
+// caar_tile. Why: the column-a-thread body it
 // replaced gave the card E16 threads in all (16,384 at 1024 x 72: 128
 // blocks of 4 warps, one a SM) and walked 72 levels three times with a
 // __syncthreads at each, so it was latency-bound at 2.5-4.8x its memory
@@ -52,10 +54,35 @@
 // has the whole sphere's bits. The dxbt/dybt block-diagonal operators and
 // triangular scan matrices of the TPU kernel fed its matrix unit; here the
 // scans are running sums. No TF32.
-// The rsplit=0 and row modes keep the column-a-thread body (caar_tile):
-// one thread per column, 128-column blocks, the element's values of a
-// level exchanged through a shared-memory row double-buffered by level
-// parity, and three passes over the levels:
+// The row layout at both rsplits (kRow, caar_row_kernel) runs the same
+// chunked body on [E16, nlev] fields, where a tile's 32 columns are one
+// contiguous span of 32*nlev floats a field (9,216 bytes at nlev 72): the
+// block copies each input's span into a shared-memory plane [nlev][32]
+// with 4-byte cp.async, a warp's 32 copies one whole 128-byte line, the
+// plane XOR-swizzled (column x of level k at k*32 + (x ^ (k & 31))) so that
+// neither the copies (consecutive levels of a column) nor the passes (one
+// level of 32 columns) meet a bank twice; pass 3 leaves the tendencies,
+// omega_p and eta_hi in planes, and an epilogue walks the span again,
+// reads the nm1 state and the accumulators a line at a time, applies the
+// update with the t form's expressions and writes every output a line at a
+// time. The arithmetic is the t form's line for line, so on the transposed
+// problem the row kernel gives caar_chunk_kernel's bits. Shared memory:
+// 9 planes (phi; dp, u, v, T, qdp, pecnd; two tendency planes; the others
+// over pecnd, qdp and T), 11 at rsplit=0 (ttens and eta_hi apart: the
+// vertical advection reads T at other chunks' levels), the chunk totals
+// and the meta: 86 KB and 104 KB at nlev 72, two blocks an SM; staged up to
+// 197 and 161 levels (one block). Above that it is windowed: phi's plane
+// stays, and each warp copies a window of kRowWindow levels of its chunk
+// for the tile's 32 columns (8 lanes a column: 32-byte sectors) into 13
+// slots of its own (14 at rsplit=0), pass by pass, and writes a window's
+// outputs back the same way: 165 KB at 400 levels, one block an SM
+// (kernels/caar_t.py::caar_row_plan). Reading and writing in place at
+// col*nlev + k instead thrashed L1 (32 lines a field a warp).
+// rsplit=0 runs only here on the chunked body (kR0); the t layout's
+// rsplit=0 mode (caar_packed_rsplit0_t) keeps the column-a-thread body
+// (caar_tile): one thread per column, 128-column blocks, the element's
+// values of a level exchanged through a shared-memory row double-buffered
+// by level parity, and three passes over the levels:
 //   1. top-down: midpoint pressure p and q = Rgas*T_v*dp/p, q kept in shared
 //      memory ([nlev][128] floats, 36 KB at nlev = 72);
 //   2. bottom-up over shared memory only: q becomes phi in place;
@@ -81,24 +108,20 @@
 //   eta_hi(k) = hybi(k+1)*sdot - sum_{l<=k} divdp(l), 0 at k = nlev-1,
 // with sdot = sum_k divdp(k) the column total, then the vertical advection
 // of u, v and T, dp1 = sph*(dpm1 - dt2*(divdp + eta_hi - eta_lo)) and
-// etaacc += eta_ave_w*eta_hi in place (interfaces 1..nlev). Every level's
-// flux needs the column total first, so pass 1 also builds the mass-flux
-// exchange rows and sums divdp: one more __syncthreads per level and u, v
-// read twice. The boundary zeros are forced by the level test, not
-// computed (hybi(nlev)*sdot - sdot is not 0 in f32). The advection reads one
-// level ahead: pass 3 carries a register window of u, v, T at k-1, k, k+1,
-// so each is still read once there. hybi comes as two strided vectors
-// (hyb_lo[k*hs] = hybi(k), hyb_hi[k*hs] = hybi(k+1)), so the [nlev, 2] hyb
-// of the t kernel and the [2, nlev] of the row kernel go in without a copy.
-// Row mode (kRow): the same thread per column on [E16, nlev] fields (and
-// the [E16, 16] meta), element (col, k) at col*nlev + k. The 32 threads of a
-// warp then read addresses nlev*4 = 288 bytes apart: every access is
-// uncoalesced and each 32-byte sector is reused over 8 levels through L1.
-// Accepted for now; a shared-memory transpose of the tile is later work.
-// The row mode takes neither a slab nor the stage mode, and the rsplit=0
-// mode no slab: no caller needs them. Both are latency-bound as the t form
-// was before its chunked body (one thread a column); moving them to it is
-// later work.
+// etaacc += eta_ave_w*eta_hi in place (interfaces 1..nlev). The boundary
+// zeros are forced by the level test, not computed (hybi(nlev)*sdot - sdot
+// is not 0 in f32). hybi comes as two strided vectors (hyb_lo[k*hs] =
+// hybi(k), hyb_hi[k*hs] = hybi(k+1)), so the [nlev, 2] hyb of the t kernel
+// and the [2, nlev] of the row kernel go in without a copy. In caar_tile
+// every level's flux needs the column total first, so pass 1 also builds
+// the mass-flux exchange rows and sums divdp: one more __syncthreads per
+// level and u, v read twice; pass 3 carries a register window of u, v, T
+// at k-1, k, k+1. In the chunked body sdot is the sum of pass 2's chunk
+// totals, the advection reads the neighbouring levels from the planes, and
+// the dp tendency is formed as the (hybi(k+1) - hybi(k))*sdot it equals,
+// without the f32 cancellation of divdp + eta_hi - eta_lo. The row mode
+// takes neither a slab nor the stage mode, and the rsplit=0 modes no slab:
+// no caller needs them.
 //
 // Ring-fused mode (caar_ring_kernel): replaces caar_ring_packed_t4 of
 // tinman_sandbox_tpu/kernels/ring_fused.py (:189, body _caar_ring_kernel
@@ -179,22 +202,13 @@ __device__ __forceinline__ float dy(const float* dvv, const float* s, int li,
   return fmaf(dvv[3 * 4 + lj], s[li * 4 + 3], acc);
 }
 
-// offset of level k of column col: ld is the level stride on the t layout
-// and the column stride on the row layout
-template <bool kRow>
-__device__ __forceinline__ size_t at(int k, int col, size_t ld) {
-  return kRow ? static_cast<size_t>(col) * ld + k
-              : static_cast<size_t>(k) * ld + col;
-}
-
-// The column-a-thread body of the rsplit=0 and row-layout modes:
-// kR0: rsplit=0 (interface flux, vertical advection, eta accumulator);
-// kRow: [E16, nlev] fields and [E16, 16] meta. One step for the 128
-// columns of tile `tile`, by the calling block of kBlock threads; the
-// block's shared memory comes in: col_sm [nlev][kBlock] (q, then phi), the
-// exchange rows xch and dvv. The pair form only: no stage mode, no fix-lane
-// output, phi always stored.
-template <bool kR0, bool kRow>
+// The column-a-thread body of the rsplit=0 mode on the t layout (row 6 of
+// the kernel table): the CAAR step plus the interface flux, the vertical
+// advection and the eta accumulator. One step for the 128 columns of tile
+// `tile`, by the calling block of kBlock threads; the block's shared memory
+// comes in: col_sm [nlev][kBlock] (q, then phi), the exchange rows xch and
+// dvv. The pair form only: no stage mode, no fix-lane output, phi always
+// stored.
 __device__ __forceinline__ void caar_tile(const CaarArgs& a, int tile,
                                           float* col_sm,
                                           float (*xch)[kRows][kBlock],
@@ -210,42 +224,36 @@ __device__ __forceinline__ void caar_tile(const CaarArgs& a, int tile,
   float m[13];
 #pragma unroll
   for (int r = 0; r < 13; ++r)
-    m[r] = live ? a.meta[kRow ? static_cast<size_t>(col) * 16 + r
-                              : r * ld + col]
-                : 1.f;
+    m[r] = live ? a.meta[r * ld + col] : 1.f;
   const float dt2 = a.scal[0], eta = a.scal[1], h = a.scal[2];
   const float rr = a.rrearth;
   __syncthreads();
 
-  // pass 1: p and q, top-down; with kR0 also the column total of divdp
+  // pass 1: p and q, top-down, and the column total of divdp
   float s = 0.f, sdot = 0.f;
   for (int k = 0; k < a.nlev; ++k) {
     float q = 0.f, gv1 = 0.f, gv2 = 0.f;
     if (live) {
-      const size_t o = at<kRow>(k, col, ld);
+      const size_t o = static_cast<size_t>(k) * ld + col;
       const float dp = a.dp0[o], t = a.t0[o];
       s += dp;
       const float p = (h + s) - 0.5f * dp;
       const float tv = a.moist ? t * (1.f + a.rv_factor * (a.qdp[o] / dp)) : t;
       q = a.rgas * tv * (dp / p);
-      if constexpr (kR0) {
-        const float vdp1 = a.u0[o] * dp, vdp2 = a.v0[o] * dp;
-        gv1 = m[kMetdet] * (m[kDinv00] * vdp1 + m[kDinv01] * vdp2);
-        gv2 = m[kMetdet] * (m[kDinv10] * vdp1 + m[kDinv11] * vdp2);
-      }
+      const float vdp1 = a.u0[o] * dp, vdp2 = a.v0[o] * dp;
+      gv1 = m[kMetdet] * (m[kDinv00] * vdp1 + m[kDinv01] * vdp2);
+      gv2 = m[kMetdet] * (m[kDinv10] * vdp1 + m[kDinv11] * vdp2);
     }
     col_sm[k * kBlock + tid] = q;
-    if constexpr (kR0) {
-      float* x = &xch[k & 1][0][0];
-      x[1 * kBlock + tid] = gv1;
-      x[2 * kBlock + tid] = gv2;
-      __syncthreads();
-      sdot += (dx(dvv, x + 1 * kBlock + eb, li, lj) +
-               dy(dvv, x + 2 * kBlock + eb, li, lj)) * (m[kRmetdet] * rr);
-    }
+    float* x = &xch[k & 1][0][0];
+    x[1 * kBlock + tid] = gv1;
+    x[2 * kBlock + tid] = gv2;
+    __syncthreads();
+    sdot += (dx(dvv, x + 1 * kBlock + eb, li, lj) +
+             dy(dvv, x + 2 * kBlock + eb, li, lj)) * (m[kRmetdet] * rr);
   }
   // pass 3's first exchange must not overtake pass 1's last reads
-  if constexpr (kR0) __syncthreads();
+  __syncthreads();
   // pass 2: phi = phis + sum_{l>k} q(l) + q(k)/2, bottom-up, in place
   float rsum = 0.f;
   for (int k = a.nlev - 1; k >= 0; --k) {
@@ -257,32 +265,25 @@ __device__ __forceinline__ void caar_tile(const CaarArgs& a, int tile,
   // pass 3: tendencies and apply, top-down
   s = 0.f;
   float cum = 0.f;                              // sum_{l<k} divdp(l)
-  // kR0: u, v, T at the next level, and at the previous one (equal to the
+  // u, v, T at the next level, and at the previous one (equal to the
   // current one at the top and the bottom, so the missing difference is 0)
   float un = 0.f, vn = 0.f, tn = 0.f;
-  if constexpr (kR0) {
-    if (live) {
-      const size_t o = at<kRow>(0, col, ld);
-      un = a.u0[o]; vn = a.v0[o]; tn = a.t0[o];
-    }
+  if (live) {
+    un = a.u0[col]; vn = a.v0[col]; tn = a.t0[col];
   }
   float up = un, vp = vn, tp = tn;
   for (int k = 0; k < a.nlev; ++k) {
-    const size_t o = at<kRow>(k, col, ld);
+    const size_t o = static_cast<size_t>(k) * ld + col;
     float u = 0.f, v = 0.f, t = 0.f, dp = 1.f, qd = 0.f, pec = 0.f;
     float um1 = 0.f, vm1 = 0.f, tm1 = 0.f, dpm1 = 0.f;
     float an = 0.f, av = 0.f, ao = 0.f, ae = 0.f;
     if (live) {
-      if constexpr (kR0) {
-        u = un; v = vn; t = tn;
-        if (k + 1 < a.nlev) {
-          const size_t o1 = at<kRow>(k + 1, col, ld);
-          un = a.u0[o1]; vn = a.v0[o1]; tn = a.t0[o1];
-        }
-        ae = a.etaacc[o];
-      } else {
-        u = a.u0[o]; v = a.v0[o]; t = a.t0[o];
+      u = un; v = vn; t = tn;
+      if (k + 1 < a.nlev) {
+        const size_t o1 = static_cast<size_t>(k + 1) * ld + col;
+        un = a.u0[o1]; vn = a.v0[o1]; tn = a.t0[o1];
       }
+      ae = a.etaacc[o];
       dp = a.dp0[o];
       if (a.moist) qd = a.qdp[o];
       pec = a.pecnd[o];
@@ -323,24 +324,21 @@ __device__ __forceinline__ void caar_tile(const CaarArgs& a, int tile,
     // virtual temperature, omega/p
     const float tv = a.moist ? t * (1.f + a.rv_factor * (qd / dp)) : t;
     const float omega_p = (vgrad_p - cum - 0.5f * divdp) / p;
-    // kR0: interface fluxes above and below level k, vertical advection
-    float eta_lo = 0.f, eta_hi = 0.f, u_vadv = 0.f, v_vadv = 0.f,
-          t_vadv = 0.f;
-    if constexpr (kR0) {
-      const float cum_inc = cum + divdp;
-      if (k > 0)
-        eta_lo = a.hyb_lo[static_cast<size_t>(k) * a.hyb_stride] * sdot - cum;
-      if (k < a.nlev - 1)
-        eta_hi = a.hyb_hi[static_cast<size_t>(k) * a.hyb_stride] * sdot
-                 - cum_inc;
-      const float rpdel = 1.f / dp;
-      const float facp = 0.5f * rpdel * eta_hi;
-      const float facm = 0.5f * rpdel * eta_lo;
-      u_vadv = facp * (un - u) + facm * (u - up);
-      v_vadv = facp * (vn - v) + facm * (v - vp);
-      t_vadv = facp * (tn - t) + facm * (t - tp);
-      up = u; vp = v; tp = t;
-    }
+    // interface fluxes above and below level k, vertical advection
+    float eta_lo = 0.f, eta_hi = 0.f;
+    const float cum_inc = cum + divdp;
+    if (k > 0)
+      eta_lo = a.hyb_lo[static_cast<size_t>(k) * a.hyb_stride] * sdot - cum;
+    if (k < a.nlev - 1)
+      eta_hi = a.hyb_hi[static_cast<size_t>(k) * a.hyb_stride] * sdot
+               - cum_inc;
+    const float rpdel = 1.f / dp;
+    const float facp = 0.5f * rpdel * eta_hi;
+    const float facm = 0.5f * rpdel * eta_lo;
+    const float u_vadv = facp * (un - u) + facm * (u - up);
+    const float v_vadv = facp * (vn - v) + facm * (v - vp);
+    const float t_vadv = facp * (tn - t) + facm * (t - tp);
+    up = u; vp = v; tp = t;
     cum += divdp;
     // grad T, grad(E + phi)
     g1 = dx(dvv, xt, li, lj) * rr;
@@ -354,18 +352,11 @@ __device__ __forceinline__ void caar_tile(const CaarArgs& a, int tile,
     // tendencies
     const float gpterm = a.rgas * (tv / p);
     const float fcor_vort = m[kFcor] + vort;
-    float vtens1, vtens2, ttens, dptens;
-    if constexpr (kR0) {
-      vtens1 = -u_vadv + v * fcor_vort - ge1 - gpterm * gp1;
-      vtens2 = -v_vadv - (u * fcor_vort) - ge2 - gpterm * gp2;
-      ttens = -t_vadv - (u * gt1 + v * gt2) + a.kappa * tv * omega_p;
-      dptens = divdp + (eta_hi - eta_lo);
-    } else {
-      vtens1 = v * fcor_vort - ge1 - gpterm * gp1;
-      vtens2 = -(u * fcor_vort) - ge2 - gpterm * gp2;
-      ttens = -(u * gt1 + v * gt2) + a.kappa * tv * omega_p;
-      dptens = divdp;
-    }
+    const float vtens1 = -u_vadv + v * fcor_vort - ge1 - gpterm * gp1;
+    const float vtens2 = -v_vadv - (u * fcor_vort) - ge2 - gpterm * gp2;
+    const float ttens =
+        -t_vadv - (u * gt1 + v * gt2) + a.kappa * tv * omega_p;
+    const float dptens = divdp + (eta_hi - eta_lo);
 
     if (live) {
       const float sph = m[kSpheremp];
@@ -381,17 +372,16 @@ __device__ __forceinline__ void caar_tile(const CaarArgs& a, int tile,
       a.vn0u[o] = an + eta * vdp1;
       a.vn0v[o] = av + eta * vdp2;
       a.omg[o] = ao + eta * omega_p;
-      if constexpr (kR0) a.etaacc[o] = ae + eta * eta_hi;
+      a.etaacc[o] = ae + eta * eta_hi;
     }
   }
 }
 
-template <bool kR0, bool kRow>
 __global__ void __launch_bounds__(kBlock) caar_kernel(CaarArgs a) {
   extern __shared__ float col_sm[];             // [nlev][kBlock]: q, then phi
   __shared__ float xch[2][kRows][kBlock];
   __shared__ float dvv[16];
-  caar_tile<kR0, kRow>(a, blockIdx.x, col_sm, xch, dvv);
+  caar_tile(a, blockIdx.x, col_sm, xch, dvv);
 }
 
 // d/dx at lane (li, lj) of the calling thread's element, the element's 16
@@ -427,8 +417,95 @@ __device__ __forceinline__ float divdp_w(const float* m, const float (&dxv)[4],
   return (dx_w(dxv, gv1, eb, lj) + dy_w(dyv, gv2, eb, li)) * rmr;
 }
 
-// The level-chunked body of the t layout, rsplit>0 (pair and stage forms,
-// the optional slab): one step for the kTile columns of tile `tile_idx` by
+// The row layout's staging (caar_chunked with kRow and kStash): planes of
+// [nlev][kChunkTile] floats, column x of level k at swz(k, x). The XOR
+// swizzle keeps both accesses free of bank conflicts: a warp of the passes
+// reads one level of 32 columns (x ^ (k & 31): a permutation of the banks),
+// and a warp of the staging copies 32 consecutive floats of the tile's span,
+// which are consecutive levels of one column (k & 31 takes every value) or,
+// where a column ends, of two.
+__device__ __forceinline__ int swz(int k, int x) {
+  return k * kChunkTile + (x ^ (k & 31));
+}
+
+// The row staging's planes, in this order: phi; the inputs dp, u, v, T,
+// qdp and pecnd, copied in before pass 1; the outputs of pass 3: vtens1
+// over pecnd, vtens2, dptens, omega_p over qdp, ttens over T (rsplit>0) or
+// in a plane of its own (rsplit=0, whose vertical advection reads T at the
+// neighbouring levels of other chunks), and eta_hi (rsplit=0).
+enum RowPlane {
+  kPPhi = 0, kPDp, kPU, kPV, kPT, kPQdp, kPPec, kPVt2, kPDpt, kPTt, kPEta
+};
+__host__ __device__ constexpr int row_planes(bool r0) { return r0 ? 11 : 9; }
+constexpr int kMetaPitch = 33;      // the staged meta [16][kMetaPitch]
+
+// The row kernel beyond the planes' budget (the windowed mode): each warp
+// copies a window of kRowWindow levels of its chunk for the tile's 32
+// columns into slots [win_slots][kRowWindow][32] of its own, 4-byte
+// cp.async, 8 lanes a column (32 bytes: one sector), and writes a window's
+// outputs back the same way (kernels/caar_t.py ROW_WINDOW,
+// ROW_WINDOW_SLOTS). experiments/kernel_variants.py (group row) builds
+// other windows with -DCAAR_ROW_WINDOW (0: every field read and written in
+// place at col*nlev + k, uncoalesced) and a shared-memory carveout hint in
+// percent with -DCAAR_ROW_CARVEOUT (none by default).
+#ifdef CAAR_ROW_WINDOW
+constexpr int kRowWindow = CAAR_ROW_WINDOW;
+#else
+constexpr int kRowWindow = 8;
+#endif
+#ifdef CAAR_ROW_CARVEOUT
+constexpr int kRowCarveout = CAAR_ROW_CARVEOUT;
+#else
+constexpr int kRowCarveout = -1;
+#endif
+static_assert(kRowWindow == 0 || (kRowWindow <= kChunkTile &&
+                                  kChunkTile % kRowWindow == 0),
+              "a window is a power of two of at most 32 levels");
+constexpr int kWinLen = kRowWindow > 0 ? kRowWindow : 1;
+
+// The window's slots: the inputs of pass 3 in this order; a level's
+// outputs overwrite its nm1 state (u1..dp1), pecnd (phi) and the
+// accumulators
+enum WinSlot {
+  kWDp = 0, kWU, kWV, kWT, kWQdp, kWPec, kWUm1, kWVm1, kWTm1, kWDpm1, kWAn,
+  kWAv, kWAo, kWAe
+};
+__host__ __device__ constexpr int win_slots(bool r0) { return r0 ? 14 : 13; }
+
+// column x of window level w: the XOR keeps the copies (kRowWindow
+// consecutive levels of 32 / kRowWindow columns a warp) and the passes (one
+// level of 32 columns) free of bank conflicts
+__device__ __forceinline__ int wsw(int w, int x) {
+  return w * kChunkTile + (x ^ (w * (kChunkTile / kWinLen)));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// (column, level) of element i of a tile's span (i < 32 * 400): the f32
+// quotient is exact there, its error ~3e-6 against a margin of 0.5/nlev
+__device__ __forceinline__ void span_at(int i, int nlev, float rnlev,
+                                        int& cx, int& k) {
+  cx = __float2int_rz((static_cast<float>(i) + 0.5f) * rnlev);
+  k = i - cx * nlev;
+}
+
+// The level-chunked body: the t layout at rsplit>0 (pair and stage forms,
+// the optional slab) and the row layout (kRow: [E16, nlev] fields, [E16, 16]
+// meta; pair form, no slab), there also at rsplit=0 (kR0). One step for the
+// kTile columns of tile `tile_idx` by
 // a block of kTile*chunks threads. Thread (c, x) = (tid / kTile, tid %
 // kTile) takes column tile_idx*kTile + x at levels [c*levels, min(nlev,
 // (c+1)*levels)); a warp is 32 consecutive columns (two elements) of one
@@ -452,12 +529,42 @@ __device__ __forceinline__ float divdp_w(const float* m, const float (&dxv)[4],
 // The bits of a column depend on nlev and (chunks, levels) only, never on
 // the tile or the column's place, so a shard's step equals the whole
 // sphere's and the ring kernel (tile 128) equals this one.
-template <int kTile, bool kSingle, bool kPhi, bool kStash>
+// Row layout, kStash (staged): the tile's columns are one contiguous span
+// of 32*nlev floats a field, so the block copies each input's span into a
+// swizzled plane (swz) with cp.async, a warp's 32 copies one 128-byte line:
+// meta and dp, then u, v, T and qdp, then pecnd, three groups waited for
+// before passes 1, 2 and 3. The passes run on the planes as the t form runs
+// on its stash; pass 3 leaves the tendencies, omega_p and (kR0) eta_hi in
+// planes, and an epilogue walks the span again, each thread 4 elements at
+// once: it reads um1..dpm1 and the accumulators, applies the update with
+// the same expressions as the t form and writes every output, a warp a
+// line. So the row kernel gives the t kernel's bits on the transposed
+// problem. Shared memory row_planes(kR0) planes, tot and the meta. Row
+// layout without kStash (nlev beyond the planes' budget), kWin: the passes
+// read this warp's window slots, filled (win_fill) at each window's first
+// level, and pass 3 writes a level's outputs over its slots, which the
+// window's last level copies out (win_flush); the vertical advection reads
+// the neighbouring levels from the slots inside the window, else from
+// device memory. The same arithmetic as the staged body: the same bits.
+// kR0: sdot = the sum of every chunk's divdp total, in chunk order; eta_lo
+// = hybi(k)*sdot - cum and eta_hi = hybi(k+1)*sdot - (cum + divdp), 0 at the
+// top and at the bottom by the level test; the vertical advection reads u,
+// v and T at k-1 and k+1 from the planes (without kStash from device
+// memory); dp1 = sph*(dpm1 - dt2*dptens) with dptens = divdp + eta_hi -
+// eta_lo formed as the (hybi(k+1) - hybi(k))*sdot it equals (see pass 3),
+// and etaacc += eta_ave_w*eta_hi.
+template <int kTile, bool kSingle, bool kPhi, bool kStash, bool kRow = false,
+          bool kR0 = false>
 __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
                                              int chunks, int levels,
                                              float* phi_sm) {
   static_assert(kTile % 32 == 0, "a tile is whole warps of columns");
+  static_assert(!kRow || (kTile == kChunkTile && !kSingle && kPhi),
+                "the row layout runs the pair form on tiles of 32 columns");
+  static_assert(kRow || !kR0, "rsplit=0 runs on the row layout only");
   constexpr int tile = kTile;
+  constexpr bool kStaged = kRow && kStash;
+  constexpr bool kWin = kRow && !kStash && kRowWindow > 0;
   const int tid = threadIdx.x;
   const int c = tid / tile, x = tid - c * tile;
   const int col = tile_idx * tile + x;
@@ -466,31 +573,151 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
   const int li = (lane >> 2) & 3, lj = lane & 3;
   const size_t ld = (size_t)a.ld;
   const int k0 = c * levels, k1 = min(a.nlev, k0 + levels);
+  // offset of level k of this thread's column, and its place in phi_sm
+  const auto off = [&](int k) -> size_t {
+    if constexpr (kRow) return static_cast<size_t>(col) * ld + k;
+    else return k * ld + col;
+  };
+  const auto ph = [&](int k) -> int {
+    if constexpr (kStaged) return swz(k, x);
+    else return k * tile + x;
+  };
   float dxv[4], dyv[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     dxv[i] = a.dvv[i * 4 + li];
     dyv[i] = a.dvv[i * 4 + lj];
   }
-  float m[13];
-#pragma unroll
-  for (int r = 0; r < 13; ++r) m[r] = live ? a.meta[r * ld + col] : 1.f;
-  const float dt2 = a.scal[0], eta = a.scal[1], h = a.scal[2];
-  const float rr = a.rrearth, rmr = m[kRmetdet] * rr;
   const size_t plane = static_cast<size_t>(a.nlev) * tile;
-  float* const tot_s = phi_sm + plane + x;      // tot[f][cc] at f*chunks + cc
+  float* const tot_s =
+      phi_sm + (kStaged ? row_planes(kR0) : 1) * plane + x;
   const int stride = tile;
   // the stash's five planes at this thread's column: dp, u, v, t, qdp
   float* const st = phi_sm + plane + 3 * chunks * tile + x;
+  // the row staging: plane p, the meta, the tile's span
+  const auto P = [&](int p) { return phi_sm + p * plane; };
+  float* const meta_sm =
+      phi_sm + row_planes(kR0) * plane + 3 * chunks * tile;
+  const int col0 = tile_idx * tile;
+  const int span = min(tile, a.ncol - col0) * a.nlev;
+  const size_t base = static_cast<size_t>(col0) * ld;
+  const float rnlev = 1.f / static_cast<float>(a.nlev);
+  // the windowed mode: this warp's slots, the window [win_lo, win_hi) they
+  // hold, and the copies in and out
+  constexpr int kWinPlane = kWinLen * kChunkTile;
+  float* const win =
+      phi_sm + plane + 3 * chunks * tile + c * win_slots(kR0) * kWinPlane;
+  const auto W = [&](int slot) { return win + slot * kWinPlane; };
+  int win_lo = 0, win_hi = 0;
+  // the window starting at level kw of this chunk: dp (pass 1); dp, u, v,
+  // T, qdp (pass 2); every input (pass 3)
+  const auto win_fill = [&](int kw, int pass) {
+    __syncwarp();
+    win_lo = kw;
+    win_hi = min(k1, kw + kWinLen);
+    for (int i = lane; i < kWinPlane; i += 32) {
+      const int cx = i / kWinLen, w = i - cx * kWinLen;
+      if (kw + w >= win_hi || col0 + cx >= a.ncol) continue;
+      const size_t o = static_cast<size_t>(col0 + cx) * ld + kw + w;
+      const int p = wsw(w, cx);
+      cp_async4(W(kWDp) + p, a.dp0 + o);
+      if (pass >= 2) {
+        cp_async4(W(kWU) + p, a.u0 + o);
+        cp_async4(W(kWV) + p, a.v0 + o);
+        cp_async4(W(kWT) + p, a.t0 + o);
+        if (a.moist) cp_async4(W(kWQdp) + p, a.qdp + o);
+      }
+      if (pass == 3) {
+        cp_async4(W(kWPec) + p, a.pecnd + o);
+        cp_async4(W(kWUm1) + p, a.um1 + o);
+        cp_async4(W(kWVm1) + p, a.vm1 + o);
+        cp_async4(W(kWTm1) + p, a.tm1 + o);
+        cp_async4(W(kWDpm1) + p, a.dpm1 + o);
+        cp_async4(W(kWAn) + p, a.vn0u + o);
+        cp_async4(W(kWAv) + p, a.vn0v + o);
+        cp_async4(W(kWAo) + p, a.omg + o);
+        if constexpr (kR0) cp_async4(W(kWAe) + p, a.etaacc + o);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncwarp();
+  };
+  // pass 3's outputs of the window, from the slots they overwrote
+  const auto win_flush = [&]() {
+    __syncwarp();
+    for (int i = lane; i < kWinPlane; i += 32) {
+      const int cx = i / kWinLen, w = i - cx * kWinLen;
+      if (win_lo + w >= win_hi || col0 + cx >= a.ncol) continue;
+      const size_t o = static_cast<size_t>(col0 + cx) * ld + win_lo + w;
+      const int p = wsw(w, cx);
+      a.u1[o] = W(kWUm1)[p];
+      a.v1[o] = W(kWVm1)[p];
+      a.t1[o] = W(kWTm1)[p];
+      a.dp1[o] = W(kWDpm1)[p];
+      a.phi[o] = W(kWPec)[p];
+      a.vn0u[o] = W(kWAn)[p];
+      a.vn0v[o] = W(kWAv)[p];
+      a.omg[o] = W(kWAo)[p];
+      if constexpr (kR0) a.etaacc[o] = W(kWAe)[p];
+    }
+  };
+  float m[13];
+  if constexpr (kStaged) {
+    const float* const mrow = a.meta + static_cast<size_t>(col0) * 16;
+    for (int i = tid; i < span / a.nlev * 16; i += blockDim.x)
+      cp_async4(meta_sm + (i & 15) * kMetaPitch + (i >> 4), mrow + i);
+    const auto stage = [&](auto&& copy) {
+      for (int i = tid; i < span; i += blockDim.x) {
+        int cx, k;
+        span_at(i, a.nlev, rnlev, cx, k);
+        copy(base + i, swz(k, cx));
+      }
+    };
+    stage([&](size_t o, int p) { cp_async4(P(kPDp) + p, a.dp0 + o); });
+    cp_async_commit();
+    stage([&](size_t o, int p) {
+      cp_async4(P(kPU) + p, a.u0 + o);
+      cp_async4(P(kPV) + p, a.v0 + o);
+      cp_async4(P(kPT) + p, a.t0 + o);
+      if (a.moist) cp_async4(P(kPQdp) + p, a.qdp + o);
+    });
+    cp_async_commit();
+    stage([&](size_t o, int p) { cp_async4(P(kPPec) + p, a.pecnd + o); });
+    cp_async_commit();
+    cp_async_wait<2>();
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < 13; ++r)
+      m[r] = live ? meta_sm[r * kMetaPitch + x] : 1.f;
+  } else if constexpr (kRow) {
+#pragma unroll
+    for (int r = 0; r < 13; ++r)
+      m[r] = live ? a.meta[static_cast<size_t>(col) * 16 + r] : 1.f;
+  } else {
+#pragma unroll
+    for (int r = 0; r < 13; ++r) m[r] = live ? a.meta[r * ld + col] : 1.f;
+  }
+  const float dt2 = a.scal[0], eta = a.scal[1], h = a.scal[2];
+  const float rr = a.rrearth, rmr = m[kRmetdet] * rr;
 
   // pass 1: the chunk's dp total
   float sum = 0.f;
   for (int k = k0; k < k1; ++k) {
-    const float dp = live ? a.dp0[k * ld + col] : 1.f;
-    if constexpr (kStash) st[k * tile] = dp;
+    float dp;
+    if constexpr (kWin) {
+      if (k == win_hi || k == k0) win_fill(k, 1);
+      dp = live ? W(kWDp)[wsw(k - win_lo, x)] : 1.f;
+    } else if constexpr (kStaged) {
+      dp = live ? P(kPDp)[swz(k, x)] : 1.f;
+    } else {
+      dp = live ? a.dp0[off(k)] : 1.f;
+    }
+    if constexpr (kStash && !kRow) st[k * tile] = dp;
     if (live) sum += dp;
   }
   tot_s[c * stride] = sum;
+  if constexpr (kStaged) cp_async_wait<1>();
   __syncthreads();
   float s0 = 0.f;
   for (int cc = 0; cc < c; ++cc) s0 += tot_s[cc * stride];
@@ -501,19 +728,35 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
   struct In2 { float dp = 1.f, t = 0.f, u = 0.f, v = 0.f, qd = 0.f; };
   const auto load2 = [&](int k) {
     In2 r;
-    const size_t o = k * ld + col;
-    if constexpr (!kStash) r.dp = a.dp0[o];
-    r.t = a.t0[o]; r.u = a.u0[o]; r.v = a.v0[o];
-    if (a.moist) r.qd = a.qdp[o];
+    if constexpr (kWin) {
+      const int p = wsw(k - win_lo, x);
+      r.dp = W(kWDp)[p]; r.t = W(kWT)[p]; r.u = W(kWU)[p]; r.v = W(kWV)[p];
+      if (a.moist) r.qd = W(kWQdp)[p];
+    } else if constexpr (kStaged) {
+      const int p = swz(k, x);
+      r.dp = P(kPDp)[p]; r.t = P(kPT)[p]; r.u = P(kPU)[p]; r.v = P(kPV)[p];
+      if (a.moist) r.qd = P(kPQdp)[p];
+    } else {
+      const size_t o = off(k);
+      if constexpr (!kStash) r.dp = a.dp0[o];
+      r.t = a.t0[o]; r.u = a.u0[o]; r.v = a.v0[o];
+      if (a.moist) r.qd = a.qdp[o];
+    }
     return r;
   };
   float s = s0, qsum = 0.f, dsum = 0.f;
   In2 nx;
-  if (live && k0 < k1) nx = load2(k0);
+  if constexpr (!kWin)
+    if (live && k0 < k1) nx = load2(k0);
   for (int k = k0; k < k1; ++k) {
     In2 in = nx;
-    if (live && k + 1 < k1) nx = load2(k + 1);
-    if constexpr (kStash) {
+    if constexpr (kWin) {
+      if (k == win_hi || k == k0) win_fill(k, 2);
+      if (live) in = load2(k);
+    } else if (live && k + 1 < k1) {
+      nx = load2(k + 1);
+    }
+    if constexpr (kStash && !kRow) {
       in.dp = st[k * tile];
       st[plane + k * tile] = in.u;
       st[2 * plane + k * tile] = in.v;
@@ -525,22 +768,28 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
     const float p = (h + s) - 0.5f * dp;
     const float tv = a.moist ? t * (1.f + a.rv_factor * (qd / dp)) : t;
     const float q = live ? a.rgas * tv * (dp / p) : 0.f;
-    phi_sm[k * tile + x] = q;
+    phi_sm[ph(k)] = q;
     qsum += q;
     dsum += divdp_w(m, dxv, dyv, in.u * dp, in.v * dp, rmr, eb, li, lj);
   }
   tot_s[(chunks + c) * stride] = qsum;
   tot_s[(2 * chunks + c) * stride] = dsum;
+  if constexpr (kStaged) cp_async_wait<0>();
   __syncthreads();
   float rsum = 0.f, cum = 0.f;
   for (int cc = chunks - 1; cc > c; --cc)
     rsum += tot_s[(chunks + cc) * stride];
   for (int cc = 0; cc < c; ++cc) cum += tot_s[(2 * chunks + cc) * stride];
+  // kR0: the column total of divdp, every chunk's in chunk order
+  float sdot = 0.f;
+  if constexpr (kR0)
+    for (int cc = 0; cc < chunks; ++cc)
+      sdot += tot_s[(2 * chunks + cc) * stride];
 
   // pass 2b: phi = phis + sum_{l>k} q(l) + q(k)/2, bottom-up, own cells
   for (int k = k1 - 1; k >= k0; --k) {
-    const float q = phi_sm[k * tile + x];
-    phi_sm[k * tile + x] = (m[kPhis] + rsum) + 0.5f * q;
+    const float q = phi_sm[ph(k)];
+    phi_sm[ph(k)] = (m[kPhis] + rsum) + 0.5f * q;
     rsum += q;
   }
 
@@ -551,32 +800,74 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
   struct In3 {
     float u = 0.f, v = 0.f, t = 0.f, dp = 1.f, qd = 0.f, pec = 0.f;
     float um1 = 0.f, vm1 = 0.f, tm1 = 0.f, dpm1 = 0.f;
-    float an = 0.f, av = 0.f, ao = 0.f;
+    float an = 0.f, av = 0.f, ao = 0.f, ae = 0.f;
   };
   const auto load3 = [&](int k) {
     In3 r;
-    const size_t o = k * ld + col;
-    if constexpr (!kStash) {
-      r.u = a.u0[o]; r.v = a.v0[o]; r.t = a.t0[o]; r.dp = a.dp0[o];
-      if (a.moist) r.qd = a.qdp[o];
+    if constexpr (kWin) {
+      const int p = wsw(k - win_lo, x);
+      r.u = W(kWU)[p]; r.v = W(kWV)[p]; r.t = W(kWT)[p]; r.dp = W(kWDp)[p];
+      if (a.moist) r.qd = W(kWQdp)[p];
+      r.pec = W(kWPec)[p];
+      r.um1 = W(kWUm1)[p]; r.vm1 = W(kWVm1)[p]; r.tm1 = W(kWTm1)[p];
+      r.dpm1 = W(kWDpm1)[p];
+      r.an = W(kWAn)[p]; r.av = W(kWAv)[p]; r.ao = W(kWAo)[p];
+      if constexpr (kR0) r.ae = W(kWAe)[p];
+      return r;
+    } else if constexpr (kStaged) {
+      const int p = swz(k, x);
+      r.u = P(kPU)[p]; r.v = P(kPV)[p]; r.t = P(kPT)[p]; r.dp = P(kPDp)[p];
+      if (a.moist) r.qd = P(kPQdp)[p];
+      r.pec = P(kPPec)[p];
+      return r;
+    } else {
+      const size_t o = off(k);
+      if constexpr (!kStash) {
+        r.u = a.u0[o]; r.v = a.v0[o]; r.t = a.t0[o]; r.dp = a.dp0[o];
+        if (a.moist) r.qd = a.qdp[o];
+      }
+      r.pec = a.pecnd[o];
+      if constexpr (!kSingle) {
+        r.um1 = a.um1[o]; r.vm1 = a.vm1[o]; r.tm1 = a.tm1[o];
+        r.dpm1 = a.dpm1[o];
+      }
+      r.an = a.vn0u[o]; r.av = a.vn0v[o]; r.ao = a.omg[o];
+      if constexpr (kR0) r.ae = a.etaacc[o];
+      return r;
     }
-    r.pec = a.pecnd[o];
-    if constexpr (!kSingle) {
-      r.um1 = a.um1[o]; r.vm1 = a.vm1[o]; r.tm1 = a.tm1[o];
-      r.dpm1 = a.dpm1[o];
+  };
+  // kR0: u, v and T of this column at level k (k inside the column)
+  const auto uvt = [&](int k, float& u, float& v, float& t) {
+    if constexpr (kStaged) {
+      const int p = swz(k, x);
+      u = P(kPU)[p]; v = P(kPV)[p]; t = P(kPT)[p];
+    } else {
+      if constexpr (kWin) {
+        if (k >= win_lo && k < win_hi) {
+          const int p = wsw(k - win_lo, x);
+          u = W(kWU)[p]; v = W(kWV)[p]; t = W(kWT)[p];
+          return;
+        }
+      }
+      const size_t o = off(k);
+      u = a.u0[o]; v = a.v0[o]; t = a.t0[o];
     }
-    r.an = a.vn0u[o]; r.av = a.vn0v[o]; r.ao = a.omg[o];
-    return r;
   };
   In3 nx3;
-  if (live && k0 < k1) nx3 = load3(k0);
+  if constexpr (!kWin)
+    if (live && k0 < k1) nx3 = load3(k0);
   s = s0;
   for (int k = k0; k < k1; ++k) {
-    const size_t o = k * ld + col;
+    const size_t o = off(k);
     In3 in = nx3;
-    if (live && k + 1 < k1) nx3 = load3(k + 1);
+    if constexpr (kWin) {
+      if (k == win_hi || k == k0) win_fill(k, 3);
+      if (live) in = load3(k);
+    } else if (live && k + 1 < k1) {
+      nx3 = load3(k + 1);
+    }
     if (live) {
-      if constexpr (kStash) {
+      if constexpr (kStash && !kRow) {
         in.dp = st[k * tile];
         in.u = st[plane + k * tile];
         in.v = st[2 * plane + k * tile];
@@ -593,7 +884,7 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
     s += dp;
     const float p = (h + s) - 0.5f * dp;
     const float vdp1 = u * dp, vdp2 = v * dp;
-    const float phi = phi_sm[k * tile + x];
+    const float phi = phi_sm[ph(k)];
 
     // grad p, v.grad p
     float g1 = dx_w(dxv, p, eb, lj) * rr, g2 = dy_w(dyv, p, eb, li) * rr;
@@ -609,6 +900,28 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
     // virtual temperature, omega/p
     const float tv = a.moist ? t * (1.f + a.rv_factor * (qd / dp)) : t;
     const float omega_p = (vgrad_p - cum - 0.5f * divdp) / p;
+    // kR0: interface fluxes above and below level k, vertical advection
+    float eta_lo = 0.f, eta_hi = 0.f, u_vadv = 0.f, v_vadv = 0.f,
+          t_vadv = 0.f;
+    if constexpr (kR0) {
+      const float cum_inc = cum + divdp;
+      if (k > 0)
+        eta_lo = a.hyb_lo[static_cast<size_t>(k) * a.hyb_stride] * sdot - cum;
+      if (k < a.nlev - 1)
+        eta_hi = a.hyb_hi[static_cast<size_t>(k) * a.hyb_stride] * sdot
+                 - cum_inc;
+      const float rpdel = 1.f / dp;
+      const float facp = 0.5f * rpdel * eta_hi;
+      const float facm = 0.5f * rpdel * eta_lo;
+      // the neighbours, equal to level k at the top and the bottom (the
+      // missing difference is 0)
+      float un = u, vn = v, tn = t, up = u, vp = v, tp = t;
+      if (live && k + 1 < a.nlev) uvt(k + 1, un, vn, tn);
+      if (live && k > 0) uvt(k - 1, up, vp, tp);
+      u_vadv = facp * (un - u) + facm * (u - up);
+      v_vadv = facp * (vn - v) + facm * (v - vp);
+      t_vadv = facp * (tn - t) + facm * (t - tp);
+    }
     cum += divdp;
     // grad T, grad(E + phi)
     g1 = dx_w(dxv, t, eb, lj) * rr;
@@ -623,16 +936,59 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
     // tendencies
     const float gpterm = a.rgas * (tv / p);
     const float fcor_vort = m[kFcor] + vort;
-    const float vtens1 = v * fcor_vort - ge1 - gpterm * gp1;
-    const float vtens2 = -(u * fcor_vort) - ge2 - gpterm * gp2;
-    const float ttens = -(u * gt1 + v * gt2) + a.kappa * tv * omega_p;
+    float vtens1, vtens2, ttens, dptens;
+    if constexpr (kR0) {
+      vtens1 = -u_vadv + v * fcor_vort - ge1 - gpterm * gp1;
+      vtens2 = -v_vadv - (u * fcor_vort) - ge2 - gpterm * gp2;
+      ttens = -t_vadv - (u * gt1 + v * gt2) + a.kappa * tv * omega_p;
+      // divdp + eta_hi - eta_lo is (H(k+1) - H(k))*sdot, H = hybi inside,
+      // H(0) = 0 and H(nlev) = 1 (the forced zeros); formed so, without the
+      // f32 cancellation of the running sums (~eps*|cum| over a tendency
+      // that is ~1/nlev of sdot)
+      const float hlo =
+          k > 0 ? a.hyb_lo[static_cast<size_t>(k) * a.hyb_stride] : 0.f;
+      const float hhi = k < a.nlev - 1
+          ? a.hyb_hi[static_cast<size_t>(k) * a.hyb_stride] : 1.f;
+      dptens = (hhi - hlo) * sdot;
+    } else {
+      vtens1 = v * fcor_vort - ge1 - gpterm * gp1;
+      vtens2 = -(u * fcor_vort) - ge2 - gpterm * gp2;
+      ttens = -(u * gt1 + v * gt2) + a.kappa * tv * omega_p;
+      dptens = divdp;
+    }
 
-    if (live) {
+    if constexpr (kStaged) {
+      // own cells only: the epilogue applies them
+      const int q = swz(k, x);
+      P(kPPec)[q] = vtens1;
+      P(kPVt2)[q] = vtens2;
+      P(kR0 ? kPTt : kPT)[q] = ttens;
+      P(kPDpt)[q] = dptens;
+      P(kPQdp)[q] = omega_p;
+      if constexpr (kR0) P(kPEta)[q] = eta_hi;
+    } else if constexpr (kWin) {
+      // the outputs over the level's nm1 state, pecnd and accumulators;
+      // the window's last level writes them all out
+      if (live) {
+        const float sph = m[kSpheremp];
+        const int q = wsw(k - win_lo, x);
+        W(kWUm1)[q] = sph * (um1 + dt2 * vtens1);
+        W(kWVm1)[q] = sph * (vm1 + dt2 * vtens2);
+        W(kWTm1)[q] = sph * (tm1 + dt2 * ttens);
+        W(kWDpm1)[q] = sph * (dpm1 - dt2 * dptens);
+        W(kWPec)[q] = phi;
+        W(kWAn)[q] = an + eta * vdp1;
+        W(kWAv)[q] = av + eta * vdp2;
+        W(kWAo)[q] = ao + eta * omega_p;
+        if constexpr (kR0) W(kWAe)[q] = in.ae + eta * eta_hi;
+      }
+      if (k + 1 == win_hi) win_flush();
+    } else if (live) {
       const float sph = m[kSpheremp];
       const float u1 = sph * (um1 + dt2 * vtens1);
       const float v1 = sph * (vm1 + dt2 * vtens2);
       const float t1 = sph * (tm1 + dt2 * ttens);
-      const float dp1 = sph * (dpm1 - dt2 * divdp);
+      const float dp1 = sph * (dpm1 - dt2 * dptens);
       a.u1[o] = u1;
       a.v1[o] = v1;
       a.t1[o] = t1;
@@ -647,6 +1003,55 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
       a.vn0u[o] = an + eta * vdp1;
       a.vn0v[o] = av + eta * vdp2;
       a.omg[o] = ao + eta * omega_p;
+      if constexpr (kR0) a.etaacc[o] = in.ae + eta * eta_hi;
+    }
+  }
+
+  if constexpr (kStaged) {
+    // the epilogue: the update applied over the span, kEpi elements a
+    // thread at once (their loads issued together), every output written a
+    // warp a line
+    constexpr int kEpi = 4;
+    __syncthreads();
+    const float* const sphv = meta_sm + kSpheremp * kMetaPitch;
+    for (int i0 = tid; i0 < span; i0 += kEpi * blockDim.x) {
+      struct Old { float um1, vm1, tm1, dpm1, an, av, ao, ae; };
+      Old old[kEpi];
+      int pos[kEpi], cxs[kEpi];
+#pragma unroll
+      for (int j = 0; j < kEpi; ++j) {
+        const int i = i0 + j * blockDim.x;
+        if (i < span) {
+          int k;
+          span_at(i, a.nlev, rnlev, cxs[j], k);
+          pos[j] = swz(k, cxs[j]);
+          const size_t o = base + i;
+          old[j].um1 = a.um1[o]; old[j].vm1 = a.vm1[o];
+          old[j].tm1 = a.tm1[o]; old[j].dpm1 = a.dpm1[o];
+          old[j].an = a.vn0u[o]; old[j].av = a.vn0v[o]; old[j].ao = a.omg[o];
+          if constexpr (kR0) old[j].ae = a.etaacc[o];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kEpi; ++j) {
+        const int i = i0 + j * blockDim.x;
+        if (i < span) {
+          const size_t o = base + i;
+          const int q = pos[j];
+          const float sph = sphv[cxs[j]];
+          const float dp = P(kPDp)[q];
+          const float vdp1 = P(kPU)[q] * dp, vdp2 = P(kPV)[q] * dp;
+          a.u1[o] = sph * (old[j].um1 + dt2 * P(kPPec)[q]);
+          a.v1[o] = sph * (old[j].vm1 + dt2 * P(kPVt2)[q]);
+          a.t1[o] = sph * (old[j].tm1 + dt2 * P(kR0 ? kPTt : kPT)[q]);
+          a.dp1[o] = sph * (old[j].dpm1 - dt2 * P(kPDpt)[q]);
+          a.phi[o] = P(kPPhi)[q];
+          a.vn0u[o] = old[j].an + eta * vdp1;
+          a.vn0v[o] = old[j].av + eta * vdp2;
+          a.omg[o] = old[j].ao + eta * P(kPQdp)[q];
+          if constexpr (kR0) a.etaacc[o] = old[j].ae + eta * P(kPEta)[q];
+        }
+      }
     }
   }
 }
@@ -669,12 +1074,36 @@ inline bool plan_ok(int nlev, int tile, int chunks, int levels,
          chunked_smem(nlev, tile, chunks, stash) <= kMaxSmem;
 }
 
+// shared memory of the row kernel: staged, row_planes(r0) planes
+// [nlev][kChunkTile], tot [3][chunks][kChunkTile] and the meta
+// [16][kMetaPitch]; else the chunked body's without the stash
+inline size_t row_smem(int nlev, int chunks, bool stage, bool r0) {
+  if (!stage)
+    return chunked_smem(nlev, kChunkTile, chunks, false) +
+           (kRowWindow > 0 ? static_cast<size_t>(chunks) * win_slots(r0) *
+                                 kRowWindow * kChunkTile * sizeof(float)
+                           : 0);
+  return ((row_planes(r0) * static_cast<size_t>(nlev) + 3 * chunks) *
+              kChunkTile + 16 * kMetaPitch) * sizeof(float);
+}
+
 template <bool kSingle, bool kPhi, bool kStash>
 __global__ void __launch_bounds__(kChunkThreads, kChunkBlocks)
 caar_chunk_kernel(CaarArgs a, int chunks, int levels) {
   extern __shared__ float sm[];
   caar_chunked<kChunkTile, kSingle, kPhi, kStash>(a, blockIdx.x, chunks,
                                                   levels, sm);
+}
+
+// The row layout's step (rows 7 and 8 of the kernel table): the chunked
+// body with kRow, staged through shared memory where kStage; two blocks an
+// SM at nlev 72 (row_smem: 86 KB, 104 KB at rsplit=0), so 128 registers.
+template <bool kR0, bool kStage>
+__global__ void __launch_bounds__(kChunkThreads, 2)
+caar_row_kernel(CaarArgs a, int chunks, int levels) {
+  extern __shared__ float sm[];
+  caar_chunked<kChunkTile, false, true, kStage, true, kR0>(
+      a, blockIdx.x, chunks, levels, sm);
 }
 
 // The ring-fused step (t layout, rsplit>0): tile t of the CAAR step into the
@@ -704,9 +1133,8 @@ caar_ring_kernel(CaarArgs a, ring::Args r, int chunks, int levels) {
   if (l < a.ncol) ring::emit<kMix>(r, after, row0, nrows, l, a.ncol);
 }
 
-template <bool kR0, bool kRow>
 cudaError_t launch_tile(const CaarArgs& a, cudaStream_t stream) {
-  auto* kernel = caar_kernel<kR0, kRow>;
+  auto* kernel = caar_kernel;
   const size_t smem = static_cast<size_t>(a.nlev) * kBlock * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -731,6 +1159,26 @@ cudaError_t launch_chunked(const CaarArgs& a, int chunks, int levels,
   return cudaGetLastError();
 }
 
+template <bool kR0, bool kStage>
+cudaError_t launch_row(const CaarArgs& a, int chunks, int levels,
+                       cudaStream_t stream) {
+  auto* kernel = caar_row_kernel<kR0, kStage>;
+  const size_t smem = row_smem(a.nlev, chunks, kStage, kR0);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  if (kRowCarveout >= 0) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               kRowCarveout);
+    if (err != cudaSuccess) return err;
+  }
+  const int grid = (a.ncol + kChunkTile - 1) / kChunkTile;
+  kernel<<<grid, kChunkTile * chunks, smem, stream>>>(a, chunks, levels);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -745,9 +1193,10 @@ const char* caar_error_string(int err) {
 // in the stage mode only. A non-null etaacc selects rsplit=0 and needs
 // hyb_lo and hyb_hi; row = 1 selects the [E16, nlev] layout (ld = nlev,
 // meta [E16, 16]). The stage mode and the slab take the t layout and
-// rsplit>0 only. (chunks, levels, stash) is the plan of the chunked body
-// (kernels/caar_t.py::caar_plan), which the t layout at rsplit>0 runs; the
-// rsplit=0 and row modes run the column-a-thread body and ignore it.
+// rsplit>0 only. (chunks, levels, stash) is the plan of the chunked body,
+// which the t layout at rsplit>0 (kernels/caar_t.py::caar_plan) and the row
+// layout (caar_row_plan; stash = staged) run; the t layout's rsplit=0 mode
+// runs the column-a-thread body and ignores it.
 int caar_launch(const void* scal, const void* meta, const void* dvv,
                 const void* u0, const void* v0, const void* t0,
                 const void* dp0, const void* um1, const void* vm1,
@@ -774,6 +1223,10 @@ int caar_launch(const void* scal, const void* meta, const void* dvv,
     return cudaErrorInvalidValue;
   if (!r0 && !row &&
       !plan_ok(nlev, kChunkTile, chunks, levels, stash, kChunkThreads))
+    return cudaErrorInvalidValue;
+  if (row && (!plan_ok(nlev, kChunkTile, chunks, levels, false,
+                       kChunkThreads) ||
+              row_smem(nlev, chunks, stash, r0) > kMaxSmem))
     return cudaErrorInvalidValue;
   CaarArgs a;
   a.scal = static_cast<const float*>(scal);
@@ -814,10 +1267,14 @@ int caar_launch(const void* scal, const void* meta, const void* dvv,
   a.rrearth = rrearth;
 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (row)
-    return r0 ? launch_tile<true, true>(a, st)
-              : launch_tile<false, true>(a, st);
-  if (r0) return launch_tile<true, false>(a, st);
+  if (row) {
+    if (r0)
+      return stash ? launch_row<true, true>(a, chunks, levels, st)
+                   : launch_row<true, false>(a, chunks, levels, st);
+    return stash ? launch_row<false, true>(a, chunks, levels, st)
+                 : launch_row<false, false>(a, chunks, levels, st);
+  }
+  if (r0) return launch_tile(a, st);
   if (stash) {
     if (um1 == nullptr)
       return phi ? launch_chunked<true, true, true>(a, chunks, levels, st)
@@ -929,16 +1386,19 @@ int caar_ring_launch(const void* scal, const void* meta, const void* dvv,
 
 // Blocks of the pair-form kernel (fused = 0: caar_chunk_kernel on tiles of
 // kChunkTile columns, with or without the stash; fused = 1:
-// caar_ring_kernel, tiles of kBlock, no stash) that one SM holds at nlev
-// levels in `chunks` chunks, from
+// caar_ring_kernel, tiles of kBlock, no stash; fused = 2 and 3:
+// caar_row_kernel at rsplit>0 and at rsplit=0, staged where stash) that one
+// SM holds at nlev levels in `chunks` chunks, from
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative: a CUDA error.
 int caar_blocks_per_sm(int fused, int nlev, int chunks, int stash,
                        int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  const int tile = fused ? kBlock : kChunkTile;
-  if (fused) stash = 0;
-  const size_t smem = chunked_smem(nlev, tile, chunks, stash);
+  const bool row = fused >= 2, r0 = fused == 3;
+  const int tile = fused == 1 ? kBlock : kChunkTile;
+  if (fused == 1) stash = 0;
+  const size_t smem = row ? row_smem(nlev, chunks, stash, r0)
+                          : chunked_smem(nlev, tile, chunks, stash);
   int n = 0;
   auto occupancy = [&](auto* kernel) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -949,9 +1409,15 @@ int caar_blocks_per_sm(int fused, int nlev, int chunks, int stash,
                                                         tile * chunks, smem);
     return e;
   };
-  err = fused ? occupancy(caar_ring_kernel<false, true, false>)
-        : stash ? occupancy(caar_chunk_kernel<false, true, true>)
-                : occupancy(caar_chunk_kernel<false, true, false>);
+  if (row)
+    err = r0 ? (stash ? occupancy(caar_row_kernel<true, true>)
+                      : occupancy(caar_row_kernel<true, false>))
+             : (stash ? occupancy(caar_row_kernel<false, true>)
+                      : occupancy(caar_row_kernel<false, false>));
+  else
+    err = fused ? occupancy(caar_ring_kernel<false, true, false>)
+          : stash ? occupancy(caar_chunk_kernel<false, true, true>)
+                  : occupancy(caar_chunk_kernel<false, true, false>);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 

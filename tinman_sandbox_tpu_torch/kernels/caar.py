@@ -1,14 +1,24 @@
 """The CAAR step on the packed row layout [E16, nlev] (counterpart of
 ``tinman_sandbox_tpu/kernels/caar_pallas.py``, f32 storage).
 
-The kernel is ``csrc/caar.cu`` in its row mode: the thread-per-column
-kernel of the [nlev, E16] layout (``kernels/caar_t.py``) with the level
-and column strides swapped, so a warp's reads are 4*nlev bytes apart
-(uncoalesced; the source's note gives the cost). It replaces
-``caar_pallas_packed`` (caar_pallas.py:307, rsplit>0) and
+The kernel is ``csrc/caar.cu``'s ``caar_row_kernel``: the level-chunked
+body of the [nlev, E16] layout (``kernels/caar_t.py``) on tiles of 32
+columns, each tile's fields staged through swizzled shared-memory planes:
+a tile's columns are one contiguous span a field, copied in and written
+back a 128-byte line a warp, and the passes run on the planes as the t
+kernel runs on its stash (the source's note gives the design and its
+shared-memory budget). Its plan is ``caar_t.caar_row_plan(ncol, nlev,
+r0)``: ``caar_plan``'s chunks, staged up to 197 levels (161 at rsplit=0),
+above that windowed (each warp copies 8 levels of its chunk at a time, 32
+bytes a column, through slots of its own). At rsplit>0 its arithmetic is
+the t kernel's line for
+line, so it gives ``caar_t4_cuda``'s bits on the transposed problem. It
+replaces ``caar_pallas_packed`` (caar_pallas.py:307, rsplit>0) and
 ``caar_pallas_packed_rsplit0`` (:365, rsplit=0: interface mass flux,
 vertical advection of u, v and T, dp3d interface stencil, eta_dot_dpdn
-accumulator), which run the same ``_caar_kernel`` body (:68-204).
+accumulator), which run the same ``_caar_kernel`` body (:68-204); its
+rsplit=0 dp tendency is formed as the (hybi(k+1) - hybi(k))*sdot that
+divdp + eta_hi - eta_lo equals, without that sum's f32 cancellation.
 
   * ``caar_packed`` / ``caar_packed_plain``: the rsplit>0 step on unstacked
     [E16, nlev] buffers, meta [E16, 16]; the wrapper updates vn0u / vn0v /

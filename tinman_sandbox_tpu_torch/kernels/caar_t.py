@@ -15,9 +15,10 @@ triangular scan matrices to feed its matrix unit, this one takes the 4x4
 ``dvv`` and runs the scans as running sums. At rsplit>0 on this layout it
 splits the level axis into chunks summed chunk by chunk: ``caar_plan(ncol,
 nlev)`` (``CaarPlan``) is its launch, a pure function of the shape whose
-chunks depend on nlev alone, ``caar_ring_plan`` the ring kernel's; both
-refuse the shapes the kernel does not take (on CPU tensors the plain
-version takes any).
+chunks depend on nlev alone, ``caar_ring_plan`` the ring kernel's and
+``caar_row_plan`` the row layout's (``kernels/caar.py``: the same chunks on
+tiles staged through shared memory); all refuse the shapes the kernel does
+not take (on CPU tensors the plain version takes any).
 
   * ``caar_t4_plain`` is the same function in plain PyTorch (cumsum and an
     einsum over ``dvv``). The CPU tests use it; on a card only the checks of
@@ -70,6 +71,7 @@ __all__ = [
     "CaarPlan",
     "caar_chunks",
     "caar_plan",
+    "caar_row_plan",
     "caar_ring_plan",
     "caar_t4_plain",
     "caar_t4_cuda",
@@ -108,6 +110,16 @@ RING_REGS = 64
 CHUNKS = 8
 TILE = 32
 RING_TILE = 128
+# the row kernel (csrc/caar.cu caar_row_kernel, __launch_bounds__(256, 2)):
+# its register cap, the shared-memory planes [nlev][TILE] it stages a tile
+# through (rsplit>0, rsplit=0) and the staged meta [16][ROW_META_PITCH];
+# beyond the planes, the levels of a warp's window and the slots
+# [ROW_WINDOW][TILE] a warp holds (rsplit>0, rsplit=0)
+ROW_REGS = 128
+ROW_PLANES = (9, 11)
+ROW_META_PITCH = 33
+ROW_WINDOW = 8
+ROW_WINDOW_SLOTS = (13, 14)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,7 +131,10 @@ class CaarPlan:
     ``smem`` bytes of dynamic shared memory a block (phi [nlev][tile], the
     chunk totals [3][chunks][tile], the stash [5][nlev][tile]), the
     ``blocks_per_sm`` the plan reckons with at the register cap and the
-    ``waves`` of its ``blocks``."""
+    ``waves`` of its ``blocks``. A ``row`` plan (``caar_row_plan``, the row
+    kernel; ``r0`` its rsplit=0 mode) reads ``stash`` as "staged": the
+    tile's fields copied through ROW_PLANES planes and the meta; unstaged,
+    phi, the totals and each chunk's window slots."""
 
     ncol: int
     nlev: int
@@ -127,6 +142,8 @@ class CaarPlan:
     chunks: int
     levels: int
     stash: bool = False
+    row: bool = False
+    r0: bool = False
 
     @property
     def threads(self) -> int:
@@ -134,8 +151,13 @@ class CaarPlan:
 
     @property
     def smem(self) -> int:
+        if self.row and self.stash:
+            return 4 * ((ROW_PLANES[self.r0] * self.nlev + 3 * self.chunks)
+                        * self.tile + 16 * ROW_META_PITCH)
         planes = 6 if self.stash else 1
-        return 4 * (planes * self.nlev + 3 * self.chunks) * self.tile
+        window = (self.chunks * ROW_WINDOW_SLOTS[self.r0] * ROW_WINDOW
+                  if self.row else 0)
+        return 4 * (planes * self.nlev + 3 * self.chunks + window) * self.tile
 
     @property
     def blocks(self) -> int:
@@ -144,6 +166,8 @@ class CaarPlan:
     @property
     def regs(self) -> int:
         """The register cap of the kernel that runs the plan."""
+        if self.row:
+            return ROW_REGS
         return CHUNK_REGS if self.threads <= CHUNK_THREADS else RING_REGS
 
     @property
@@ -179,7 +203,12 @@ def caar_plan(ncol: int, nlev: int) -> CaarPlan:
     """The launch plan of the chunked CAAR kernel at (ncol, nlev), a pure
     function of the shape: ``caar_chunks(nlev)``, tiles of TILE = 32
     columns (a warp of two elements a chunk), and the stash wherever it
-    leaves at least two blocks an SM (nlev up to 146). Raises on shapes the
+    leaves at least two blocks an SM (nlev up to 146; above, passes 2 and 3
+    re-read their rows from L2, coalesced). The row layout's plan,
+    ``caar_row_plan``, takes the same chunks; it has no such re-read (a row
+    column is not coalesced), so it stages its tiles through shared memory
+    wherever they fit one block (197 levels, 161 at rsplit=0) and above
+    that copies each warp's levels a window at a time. Raises on shapes the
     kernel refuses."""
     if ncol < 1 or ncol % NPSQ:
         raise ValueError(f"caar: ncol={ncol} is not a positive multiple of "
@@ -190,6 +219,28 @@ def caar_plan(ncol: int, nlev: int) -> CaarPlan:
     if plan.smem > SMEM_MAX:
         raise ValueError(f"caar: nlev={nlev} needs {plan.smem} bytes of "
                          f"shared memory a block, over {SMEM_MAX}")
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def caar_row_plan(ncol: int, nlev: int, r0: bool = False) -> CaarPlan:
+    """The row kernel's plan at (ncol, nlev) (rows 7 and 8 of the kernel
+    table; ``r0`` the rsplit=0 mode): ``caar_plan``'s chunks on tiles of
+    TILE columns, so its sums run in the t kernel's order, staged (the
+    tile's input spans copied whole into ROW_PLANES[r0] shared-memory
+    planes, the outputs written back a line at a time) wherever the planes
+    fit one block: up to 197 levels at rsplit>0 and 161 at rsplit=0, two
+    blocks an SM up to 95 and 78. Above that (the t form's no-stash plan
+    re-reads coalesced rows from L2; a row column is not coalesced) it is
+    windowed: phi's plane stays, and each warp copies ROW_WINDOW levels of
+    its chunk for the tile's columns at a time into ROW_WINDOW_SLOTS[r0]
+    slots of its own (32 bytes a column: one sector), pass by pass, and
+    writes a window's outputs back the same way; one block an SM up to
+    400 levels. Raises on shapes the kernel refuses."""
+    plan = dataclasses.replace(caar_plan(ncol, nlev), stash=True, row=True,
+                               r0=bool(r0))
+    if plan.smem > SMEM_MAX:
+        plan = dataclasses.replace(plan, stash=False)
     return plan
 
 
@@ -427,9 +478,13 @@ def _caar_step(scal, meta, dvv, s0, sm1, qdp, pecnd, acc, out, phi, moist,
         if slab is not None:
             slab.copy_(_slab_plain(torch.cat(out), fix))
         return False
-    # the kernels' refusals: the chunked kernel's plan (t layout, rsplit>0),
-    # else the column-a-thread body's level buffer
-    if r0 or row:
+    # the kernels' refusals: the chunked kernel's plan (the t layout at
+    # rsplit>0, the row layout), else the column-a-thread body's level
+    # buffer (the t layout at rsplit=0)
+    if row:
+        p = caar_row_plan(qdp.shape[0], nlev, r0)
+        plan = (p.chunks, p.levels, int(p.stash))
+    elif r0:
         plan = (0, 0, 0)
         if nlev > _MAX_NLEV:
             raise ValueError(f"caar: nlev={nlev} exceeds the kernel's "

@@ -95,10 +95,12 @@ def native_library() -> Optional[ctypes.CDLL]:
 class Timers:
     """Named nested wall-clock region timers (GPTL API shape). The native
     library keeps one table a thread for the whole process, so native
-    ``Timers`` share their regions; ``reset`` clears them."""
+    ``Timers`` share their regions; ``reset`` clears them. ``device`` is
+    the card by default, whose work each region stop waits for; where there
+    is no card that default raises, and CPU callers pass ``device="cpu"``."""
 
-    def __init__(self, device="cpu", native: bool = True):
-        self._device = torch.device(device)
+    def __init__(self, device="cuda", native: bool = True):
+        self._device = resolve_device(device)
         self._lib = native_library() if native else None
         # the pure-Python path's state
         self._stack = []
