@@ -5,8 +5,9 @@ NVIDIA card and check it, phase by phase:
   1. the card's name and power limit; build every CUDA kernel from
      ``tinman_sandbox_tpu_torch/csrc`` (nvcc, sm_90a, one process per
      source, all at once) and time the build; nvcc's registers and spills,
-     and those of each instance of the sweep, the chunked CAAR kernel, the
-     ring CAAR kernel and the remap kernel by name;
+     and those of each instance of the sweep, the banded sweep, the chunked
+     CAAR kernel, the ring CAAR kernel, the remap kernel and the tracer
+     kernels by name;
   2. saxpby: the kernel against its plain version (bitwise, f32) at
      8192 x 4096, with kernel / plain / library times and GB/s;
   3. CAAR: the level-chunked kernel against its plain version on the card
@@ -150,16 +151,20 @@ NVIDIA card and check it, phase by phase:
      device alone), with and without mix, and the host's time per call,
      beside the patch's sector floor (``patch_floor_ms``), and at 2,520
      rows the patch on contiguous lanes;
-     blocks per SM and waves of the ring kernels (the CAAR ring: blocks of
-     128 columns in the chunked kernel's chunks, so the same bits) and of
-     the chunked CAAR and Euler kernels;
+     blocks per SM and waves of the ring kernels (the CAAR ring: the
+     chunked kernel's own tile and plan, ``ring_plan``, so the same bits)
+     and of the chunked CAAR and Euler kernels; the CAAR ring and the two
+     launches it fuses also from CUDA graphs (the ring's launch clears its
+     flags, so its graph replays correctly), beside the recorded times of
+     its design before (``PARENT``);
  16. the ring paths at ne30 x 72, launch counts set to 0 just before and
      read just after: 10 chained ``caar_dss_ring_t4`` and 10
      ``ssprk3_ring_t4`` steps and 3 ``ssprk3_tracer_ring_t`` steps at qsize 1
      and 35, each step bit for bit the same chain on the two-launch kernels,
      continuity exactly 0, per step 1 (3) ring, fixup and patch launches and
      no sweep; the split DSS of the tracer stacks; ring against two-launch
-     step times; ``bench --ne 30 --ring`` beside ``bench --ne 30``;
+     step times; ``bench --ne 30 --ring`` beside ``bench --ne 30`` and the
+     recorded ring bench of the design before;
  17. one JSON line of kernels (launches on the main paths, errors, times,
      bounds), the card line, and last the result line;
  18. the multi-device DSS kernels (run before the line of phase 17): the
@@ -171,11 +176,12 @@ NVIDIA card and check it, phase by phase:
      a face over 12 shards (first and last bands) at 288, 216, 72 and 2,520
      rows, and of ne32 with m = 4 over 6 shards (four chunks a shard:
      first, middle and last bands) at 288 rows; each timed over the whole
-     sphere's shards by CUDA events (the sweep and the patch, with and
-     without mix, also replayed from CUDA graphs, the device's time alone)
-     against its bound, its plain version, ``dss_sweep_cuda`` on the same
-     sphere in one launch and (the patch) ``index_copy_`` and the sector
-     floor;
+     sphere's shards by CUDA events (the sweep, merged and merge-free, and
+     the patch, with and without mix, also replayed from CUDA graphs, the
+     device's time alone) against its bound, its plain version,
+     ``dss_sweep_cuda`` on the same sphere in one launch and (the patch)
+     ``index_copy_`` and the sector floor, beside the recorded times of the
+     banded sweep's design before;
  19. the multi-device paths at ne30 x 72, launch counts set to 0 just
      before and read just after, each step bit for bit the single-device
      step and continuity exactly 0: 10 chained ``caar_dss_banded_t4`` steps
@@ -186,7 +192,8 @@ NVIDIA card and check it, phase by phase:
      ``multichip.dryrun_multichip(8)``; the multi-device step times beside
      the single-device ones, by events and from CUDA graphs. ``LocalMesh``
      emulates the shards on one card, one launch a shard: these times are
-     no scaling result;
+     no scaling result; beside them the recorded step times with the
+     banded sweep's design before;
  20. the probe's chained FP32 product (``probe_mm_cuda``, PERF.md row 31)
      against ``probe_mm_plain`` within 2e-6 of max|o| at the probe tool's
      five shapes, the same bits on a second run, with the launch plan of
@@ -289,6 +296,24 @@ import shutil
 import sys
 import time
 
+# what the ring CAAR kernel's and the banded sweep's designs before their
+# redesign for the H100 took (NVIDIA H100 80GB HBM3, 700.00 W), as PERF.md
+# records them: printed beside this run's times of the new designs, never
+# compared with them by the script
+PARENT = {
+    "caar_ring": "PERF.md row 18 (128-column tiles, a lane a thread "
+                 "sweep): pair 0.7031 ms, stage with mix 0.6866 ms, the two "
+                 "launches 0.3115 ms (events)",
+    "ring_bench": "bench --ne 30 --ring ~721 us/step (PERF.md)",
+    "banded": "PERF.md rows 27-29 (a lane a thread): 12 shards of "
+              "ne30 x 288 rows graph 0.2706-0.2742 ms, 2,520 rows graph "
+              "2.0515-2.0568 ms, merge-free 2,520 rows 1.9180-1.9287 ms "
+              "(events)",
+    "banded_steps": "phase 19 before the redesign (PERF.md): banded "
+                    "assembled step graph 0.9395-0.9416 ms, events "
+                    "2.0454-3.2489 ms; banded prim step events "
+                    "16.7991-27.1150 ms",
+}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM, non-tensor FP32
 # FP32 operations per grid point of one CAAR step, counted from
@@ -674,7 +699,117 @@ def kernel_times() -> dict:
         ms=cuda_ms(step, 10), host_ms=host_ms(step, 10),
         launches=kernel_launches(step))
     del shapes, acc
+    torch.cuda.empty_cache()
+    out.update(ring_times(dev))
+    out["banded"] = banded_times(dev)
     print(json.dumps(out))
+    return out
+
+
+def ring_times(dev) -> dict:
+    """``kernel_times()``'s ring kernels at ne30 x 72: ``caar_ring_packed_t4``
+    in the pair form with the slab and the stage mode without phi with mix,
+    by events, and from CUDA graphs where the tree's ring launch clears its
+    flags (a tree with ``ring_fused.ring_plan``: an older ring flagged with
+    a per-call epoch, which a graph replays unchanged, so its graph would
+    not wait); the two launches it fuses by events and from graphs;
+    ``tracer_ring_packed_t`` at qsize 1 and 35 by events (its flags keep
+    epochs: no graph). Returns {"ring": ..., "tracer_ring": ...}."""
+    import numpy as np
+    import torch
+
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.kernels import ring_fused
+    from tinman_sandbox_tpu_torch.kernels.caar_t import caar_t4_cuda
+    from tinman_sandbox_tpu_torch.kernels.dss import (dss_sweep_nomerge_cuda,
+                                                      fix_tables)
+
+    (scal, meta, qdp, pecnd, dvv), (s0, sm1), acc, plan, rsp = \
+        bench.make_assembled_problem(NE, NLEV, dev)
+    fix = fix_tables(plan, dev)
+    mx = torch.randn(s0.shape, generator=torch.Generator(
+        device=dev).manual_seed(15), device=dev)
+    ca, cb = float(np.float32(1.0 / 3.0)), float(np.float32(2.0 / 3.0))
+    acc = [a.clone() for a in acc]
+    safe = hasattr(ring_fused, "ring_plan")
+    ring, tracer = {}, {}
+    for mode, sm, kw, mix in (
+            ("pair_slab", sm1, {}, None),
+            ("stage_mix", None, dict(single=True, emit_phi=False),
+             (mx, ca, cb))):
+        run = lambda: ring_fused.caar_ring_packed_t4(
+            scal, meta, s0, sm, qdp, pecnd, *acc, dvv, rsp, fix, mix=mix,
+            **kw)
+        two = lambda: dss_sweep_nomerge_cuda(caar_t4_cuda(
+            scal, meta, s0, sm, qdp, pecnd, *acc, dvv, fix=fix, **kw)[0],
+            rsp, fix, mix)
+        ring[mode] = dict(ms=cuda_ms(run, 20), two_launch_ms=cuda_ms(two, 20),
+                          two_launch_graph_ms=graph_ms(two, 20))
+        if safe:
+            ring[mode]["graph_ms"] = graph_ms(run, 20)
+    del s0, sm1, mx, acc
+    const, ps0, _, _, _, _ = bench.make_prim_problem(NE, NLEV, dev, DYN_DT, 1)
+    pmeta, pdvv = const[1], const[3]
+    for qsize in (1, QSIZE_TALL):
+        q = bench.make_prim_problem(NE, NLEV, dev, DYN_DT, qsize)[2]
+        run = lambda: ring_fused.tracer_ring_packed_t(
+            pmeta, ps0, ps0, q, pdvv, DYN_DT, NLEV, rsp, fix,
+            wind_rows=(0, 1))
+        tracer[qsize] = dict(ms=cuda_ms(run, 20 if qsize == 1 else 5))
+        del q
+        torch.cuda.empty_cache()
+    return {"ring": ring, "tracer_ring": tracer}
+
+
+def banded_times(dev) -> dict:
+    """``kernel_times()``'s banded sweep over the 12 shards of ne30 (m 2) at
+    288 and 2,520 rows, merged and merge-free, one launch a shard, by
+    events and from CUDA graphs; and the banded assembled step
+    (``caar_dss_banded_t4`` over ``LocalMesh(12)``) by events and from a
+    CUDA graph."""
+    import torch
+
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.dist import (
+        LocalMesh, build_cubed_sphere, caar_dss_banded_t4,
+        make_structured_plan, rsp_lanes_2f, shard_packed_t4)
+    from tinman_sandbox_tpu_torch.dist.banded_t4 import (_band_shard,
+                                                         band_extend)
+    from tinman_sandbox_tpu_torch.kernels.dss import (
+        dss_sweep_banded_cuda, dss_sweep_banded_nomerge_cuda)
+
+    m, N = 2, 12
+    cs = build_cubed_sphere(NE, dtype=torch.float32, device=dev)
+    plan = make_structured_plan(cs.gdof, NE)
+    rsp = torch.from_numpy(rsp_lanes_2f(cs.geometry.spheremp, cs.gdof,
+                                        cs.ndof)).to(dev)
+    mesh = LocalMesh(N, dev)
+    bts = [_band_shard(plan, m, N, s, str(dev)).band for s in range(N)]
+    (rsps,) = shard_packed_t4(mesh, rsp)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    out = {}
+    for rows in (4 * NLEV, QSIZE_TALL * NLEV):
+        x = torch.randn(rows, cs.nelem * 16, generator=gen, device=dev)
+        xe = band_extend(mesh, plan, m, shard_packed_t4(mesh, x)[0])
+        vds = [torch.randn(rows, bt.fix.nfix, generator=gen, device=dev)
+               for bt in bts]
+        sw = lambda: [dss_sweep_banded_cuda(a, b, c, d)
+                      for a, b, c, d in zip(xe, rsps, vds, bts)]
+        nm = lambda: [dss_sweep_banded_nomerge_cuda(a, b, d)
+                      for a, b, d in zip(xe, rsps, bts)]
+        reps = 20 if rows < 1000 else 5
+        out[rows] = dict(ms=cuda_ms(sw, reps), graph_ms=graph_ms(sw, reps),
+                         nomerge_ms=cuda_ms(nm, reps),
+                         nomerge_graph_ms=graph_ms(nm, reps))
+        del x, xe, vds
+        torch.cuda.empty_cache()
+    (scal, meta, qdp, pecnd, dvv), (s0, sm1), acc, splan, srsp = \
+        bench.make_assembled_problem(NE, NLEV, dev)
+    sh = shard_packed_t4(mesh, meta, s0, sm1, qdp, pecnd, srsp, *acc)
+    step = lambda: caar_dss_banded_t4(scal, sh[0], sh[1], sh[2], sh[3], sh[4],
+                                      *sh[6:9], dvv, splan, sh[5], mesh, m)
+    out["assembled_step"] = dict(ms=cuda_ms(step, 10),
+                                 graph_ms=graph_ms(step, 10))
     return out
 
 
@@ -2461,7 +2596,7 @@ def phase_ring_kernels(dev, cs):
         dss_structured_t_cuda_patch, dss_sweep_nomerge_cuda,
         dss_sweep_nomerge_plain, fix_tables, make_fix_tables)
     from tinman_sandbox_tpu_torch.kernels.ring_fused import (
-        caar_ring_packed_t4, caar_ring_plain, ring_geometry,
+        caar_ring_packed_t4, caar_ring_plain, ring_geometry, ring_plan,
         tracer_ring_packed_t, tracer_ring_plain)
     from tinman_sandbox_tpu_torch.kernels.tracer_t import (
         TRACER_LEVELS, TRACER_TILE, tracer_euler_cuda, tracer_euler_plain)
@@ -2471,8 +2606,9 @@ def phase_ring_kernels(dev, cs):
     const = (scal, meta, s0, sm1, qdp, pecnd, dvv)
     fix = fix_tables(plan, dev)
     e16, n, k, nr = cs.nelem * 16, fix.nfix, NLEV, rsp.shape[0]
-    geo = ring_geometry(cs.ne)
+    geo = ring_geometry(cs.ne)                 # the tracer ring's tiles
     nb = -(-e16 // geo.tile)
+    rplan = ring_plan(e16, k, cs.ne)           # the CAAR ring's
     gen = torch.Generator(device=dev).manual_seed(15)
     rnd = lambda rows: torch.randn(rows, e16, generator=gen, device=dev)
     ca, cb = float(np.float32(1.0 / 3.0)), float(np.float32(2.0 / 3.0))
@@ -2486,7 +2622,8 @@ def phase_ring_kernels(dev, cs):
                0, k, cplan.chunks, int(cplan.stash), dev.index),
                cplan.blocks),
            "caar_ring_kernel": (caar_lib.caar_blocks_per_sm(
-               1, k, cplan.chunks, 0, dev.index), nb + geo.halo),
+               1, k, rplan.caar.chunks, int(rplan.caar.stash), dev.index),
+               rplan.tickets),
            "tracer_kernel (Euler)": (
                tr_lib.tracer_blocks_per_sm(0, dev.index),
                -(-e16 // TRACER_TILE) * -(-k // TRACER_LEVELS)),
@@ -2544,18 +2681,24 @@ def phase_ring_kernels(dev, cs):
                                      zip(got, want) if a is not None))
         del want, got, two, tw
     kacc = [x.clone() for x in acc]
-    ring_ms = cuda_ms(lambda: caar_ring_packed_t4(
-        scal, meta, s0, sm1, qdp, pecnd, *kacc, dvv, rsp, fix), 20)
-    ring_mix_ms = cuda_ms(lambda: caar_ring_packed_t4(
+    ring_pair = lambda: caar_ring_packed_t4(
+        scal, meta, s0, sm1, qdp, pecnd, *kacc, dvv, rsp, fix)
+    ring_mix = lambda: caar_ring_packed_t4(
         scal, meta, s0, None, qdp, pecnd, *kacc, dvv, rsp, fix, single=True,
-        emit_phi=False, mix=(mx4, ca, cb)), 20)
+        emit_phi=False, mix=(mx4, ca, cb))
+    ring_ms, ring_mix_ms = cuda_ms(ring_pair, 20), cuda_ms(ring_mix, 20)
+    # the launch clears its flags, so a graph of it replays correctly
+    ring_graph, ring_mix_graph = graph_ms(ring_pair, 20), graph_ms(ring_mix,
+                                                                   20)
 
-    def two_launch():
-        s1, *_, slab = caar_t4_cuda(scal, meta, s0, sm1, qdp, pecnd, *kacc,
-                                    dvv, fix=fix)
-        return dss_sweep_nomerge_cuda(s1, rsp, fix)
+    def two_launch(mix=None, **kw):
+        s1, *_, slab = caar_t4_cuda(scal, meta, s0, None if kw else sm1,
+                                    qdp, pecnd, *kacc, dvv, fix=fix, **kw)
+        return dss_sweep_nomerge_cuda(s1, rsp, fix, mix)
 
-    two_ms = cuda_ms(two_launch, 20)
+    two_mix = lambda: two_launch((mx4, ca, cb), single=True, emit_phi=False)
+    two_ms, two_graph = cuda_ms(two_launch, 20), graph_ms(two_launch, 20)
+    two_mix_graph = graph_ms(two_mix, 20)
     p_ms = cuda_ms(lambda: caar_ring_plain(scal, meta, s0, sm1, qdp, pecnd,
                                            *acc, dvv, rsp, fix), 5)
     # the CAAR step's 21 rows with w in place of s1, the 13 meta rows, dvv,
@@ -2567,9 +2710,12 @@ def phase_ring_kernels(dev, cs):
     bnd, by = bound_ms(nb_ring(21), ops)
     bnd_mix, _ = bound_ms(nb_ring(20), ops + 4 * MIX_OPS_PER_POINT * e16 * k)
     print(f"phase 15 caar_ring ne{cs.ne}x{k} pair: kernel {ring_ms:.4f} ms "
-          f"(bound {bnd:.4f} ms, {by}); the two launches it fuses "
-          f"{two_ms:.4f} ms; stage without phi with mix {ring_mix_ms:.4f} ms "
-          f"(bound {bnd_mix:.4f} ms); plain {p_ms:.4f} ms, library none")
+          f"(bound {bnd:.4f} ms, {by}), from a graph {ring_graph:.4f}; the "
+          f"two launches it fuses {two_ms:.4f} ms, graph {two_graph:.4f}; "
+          f"stage without phi with mix {ring_mix_ms:.4f} ms, graph "
+          f"{ring_mix_graph:.4f} (bound {bnd_mix:.4f} ms; the two launches "
+          f"graph {two_mix_graph:.4f}); plain {p_ms:.4f} ms, library none. "
+          f"The design before: {PARENT['caar_ring']}")
     # the same at ne28 (588 + 4 tiles against ne30's 675 + 4)
     (sc28, mt28, q28, pec28, _), (a28, b28), acc28, plan28, rsp28 = \
         bench.make_assembled_problem(28, k, dev)
@@ -2583,8 +2729,9 @@ def phase_ring_kernels(dev, cs):
             rsp28, fix28), 20),
         ring_ms=cuda_ms(lambda: caar_ring_packed_t4(
             sc28, mt28, a28, b28, q28, pec28, *acc28, dvv, rsp28, fix28), 20))
-    print(f"phase 15 caar_ring ne28x{k} ({-(-a28.shape[1] // 128)} "
-          f"+ {ring_geometry(28).halo} blocks): kernel {ne28['ring_ms']:.4f} "
+    rp28 = ring_plan(a28.shape[1], k, 28)
+    print(f"phase 15 caar_ring ne28x{k} ({rp28.nb} + {rp28.geo.halo} "
+          f"blocks): kernel {ne28['ring_ms']:.4f} "
           f"ms, the two launches {ne28['two_launch_ms']:.4f} ms, the CAAR "
           f"kernel alone {ne28['caar_ms']:.4f} ms")
     del sc28, mt28, q28, pec28, a28, b28, acc28, plan28, rsp28, fix28
@@ -2594,7 +2741,10 @@ def phase_ring_kernels(dev, cs):
         max_abs_err=worst_abs, max_scaled_err=worst, ms=ring_ms,
         plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=None,
         two_launch_ms=two_ms, stage_mix_ms=ring_mix_ms,
-        stage_mix_bound_ms=bnd_mix, blocks_per_sm=occ["caar_ring_kernel"][0],
+        stage_mix_bound_ms=bnd_mix, graph_ms=ring_graph,
+        stage_mix_graph_ms=ring_mix_graph, two_launch_graph_ms=two_graph,
+        stage_mix_two_launch_graph_ms=two_mix_graph,
+        blocks_per_sm=occ["caar_ring_kernel"][0],
         caar_kernel_blocks_per_sm=occ["caar_chunk_kernel"][0],
         **{f"ne28_{key}": v for key, v in ne28.items()})
     del kacc, mx4
@@ -2950,7 +3100,9 @@ def phase_ring_path(dev, cs):
           f"{asm_ring:.4f} / {asm_two:.4f}; SSPRK3 {rk_ring:.4f} / "
           f"{rk_two:.4f}; tracer qsize 1 {times[1][0]:.4f} / "
           f"{times[1][1]:.4f}; tracer qsize {QSIZE_TALL} "
-          f"{times[QSIZE_TALL][0]:.4f} / {times[QSIZE_TALL][1]:.4f}")
+          f"{times[QSIZE_TALL][0]:.4f} / {times[QSIZE_TALL][1]:.4f}. The "
+          f"CAAR ring's design before: {PARENT['caar_ring']}; "
+          f"{PARENT['ring_bench']}")
 
     results = []
     for extra in (["--ring"], []):
@@ -3115,6 +3267,8 @@ def phase_banded_kernels(dev, cs):
                 lambda: dss_sweep_cuda(x, rsp, vd1, fix), reps)
             # the same launches replayed from CUDA graphs: device time alone
             t["sweep_graph"] = graph_ms(sw, reps)
+            t["sweep_mix_graph"] = graph_ms(swm, reps)
+            t["nomerge_graph"] = graph_ms(nm, reps)
             t["single_device_sweep_graph"] = graph_ms(
                 lambda: dss_sweep_cuda(x, rsp, vd1, fix), reps)
             ptm = lambda: [dss_patch_tiles_cuda(w, c, d.fix, (e, ca, cb))
@@ -3149,11 +3303,14 @@ def phase_banded_kernels(dev, cs):
                   f", patch {t['patch_plain']:.4f}; dss_sweep_cuda on the same "
                   f"sphere in one launch {t['single_device_sweep']:.4f}; from "
                   f"CUDA graphs (device time): the {N} sweeps "
-                  f"{t['sweep_graph']:.4f}, dss_sweep_cuda "
+                  f"{t['sweep_graph']:.4f} (with mix "
+                  f"{t['sweep_mix_graph']:.4f}, merge-free "
+                  f"{t['nomerge_graph']:.4f}), dss_sweep_cuda "
                   f"{t['single_device_sweep_graph']:.4f}, the {N} patches "
                   f"{t['patch_graph']:.4f} (with mix "
                   f"{t['patch_mix_graph']:.4f}), index_copy_ "
-                  f"{t['patch_library_graph']:.4f}")
+                  f"{t['patch_library_graph']:.4f}. The banded sweep's "
+                  f"design before: {PARENT['banded']}")
             sfx = "" if (ne, rk) == (cs.ne, 4 * k) else f"ne{ne}_rows{rk}_"
             rows.setdefault("dss_sweep_banded_cuda", dict(
                 route="cuda", source="tinman_sandbox_tpu_torch/csrc/dss.cu",
@@ -3163,6 +3320,7 @@ def phase_banded_kernels(dev, cs):
                     f"{sfx}ms": t["sweep"], f"{sfx}plain_ms": t["sweep_plain"],
                     f"{sfx}bound_ms": bs, f"{sfx}bound_by": by,
                     f"{sfx}mix_ms": t["sweep_mix"], f"{sfx}mix_bound_ms": bsm,
+                    f"{sfx}mix_graph_ms": t["sweep_mix_graph"],
                     f"{sfx}one_shard_ms": t["sweep_one_shard"],
                     f"{sfx}single_device_sweep_ms":
                         t["single_device_sweep"],
@@ -3175,6 +3333,7 @@ def phase_banded_kernels(dev, cs):
                 library_ms=None)).update({
                     f"{sfx}ms": t["nomerge"],
                     f"{sfx}plain_ms": t["nomerge_plain"],
+                    f"{sfx}graph_ms": t["nomerge_graph"],
                     f"{sfx}bound_ms": bn, f"{sfx}bound_by": "bytes"})
             rows.setdefault("dss_patch_tiles_cuda", dict(
                 route="cuda", source="tinman_sandbox_tpu_torch/csrc/dss.cu",
@@ -3350,7 +3509,9 @@ def phase_multidevice_path(dev, cs):
     print(f"phase 19 dryrun_multichip(8): {json.dumps(ran)}")
     print("phase 19 step times (events, ms; LocalMesh emulates the shards "
           "on one card, one launch a shard: not a scaling result): "
-          + ", ".join(f"{a} {b:.4f}" for a, b in times.items()))
+          + ", ".join(f"{a} {b:.4f}" for a, b in times.items())
+          + ". With the banded sweep's design before: "
+          + PARENT["banded_steps"])
     return times
 
 
@@ -4417,6 +4578,7 @@ def main() -> int:
                     print(f"phase 1 ptxas {name}: " + ln.strip())
     # the redesigned kernels, instance by instance
     for source, tag in (("dss", "dss_sweep_kernel"),
+                        ("dss", "dss_sweep_banded_kernel"),
                         ("caar", "caar_chunk_kernel"),
                         ("caar", "caar_ring_kernel"),
                         ("remap", "remap_kernel"),

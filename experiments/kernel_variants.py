@@ -7,9 +7,9 @@ not part of the port: the port keeps one plan per kernel, and this script is
 how the hypotheses about them were tested.
 
     python3 experiments/kernel_variants.py [sweep] [caar] [fixup] [remap]
-        [tracer] [row]
+        [tracer] [row] [ring] [banded]
 
-from the repository root: the named groups (default all six), in that
+from the repository root: the named groups (default all eight), in that
 order.
 
   1. the sweep: the port's kernel (``dss_sweep_cuda``: one row a thread, 40
@@ -68,6 +68,27 @@ order.
      build, timed from CUDA graphs, with ptxas's registers and spills of
      the row kernel's instances.
 
+  7. the CAAR ring kernel (``caar_ring_packed_t4``) at ne30 x 72, in the
+     pair form with the slab and the stage mode without phi with mix:
+     ``csrc/caar.cu`` built as the port builds it and with the parts of
+     its design changed one or two at a time (``RING_BUILDS``: the tile,
+     the sweep, the rows in flight, the L1 reads, the L2 hints, the
+     discard; the producer alone, with its wait, without s1 stores, and
+     discarding its own tile; the sweep's stores alone and with the
+     group's loads; the design before), all built in parallel, some at
+     each lag of ``RING_LAGS``. Each is held bit for bit against the two
+     launches it fuses (``caar_t4_cuda`` with the slab, then
+     ``dss_sweep_nomerge_cuda``; the builds without the whole sweep on
+     everything but w) and timed by events and from CUDA graphs, with its
+     plan, cudaOccupancy's blocks an SM and ptxas's registers; the two
+     launches and each alone are timed first;
+  8. the banded sweep over the shards of ne30 (m 2, N 12) at 288 and 2,520
+     rows and of ne32 (m 4, N 6) at 288: the port's float4 kernel against
+     the lane-a-thread kernel it replaced (``banded_variants.cu``), bit for
+     bit on every shard, merged and merge-free, both timed from CUDA graphs
+     over all the shards (one launch a shard) beside one shard alone and
+     the single-device sweep of the same sphere.
+
 Every line is one JSON object and names the card and its power limit.
 Without a card the script raises.
 """
@@ -87,7 +108,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from chip_smoke import (CAAR_TOL, caar_cases, caar_field_errs,  # noqa: E402
-                        card_line, graph_ms)
+                        card_line, cuda_ms, graph_ms)
 
 # (rows a thread, reread) of the variants; the dynamic shared memory that
 # pins every variant to 3 blocks an SM (4 x (64 KiB + the 1 KiB reserved
@@ -578,16 +599,18 @@ ROW_BUILDS = (("w8", []), ("inplace", ["-DCAAR_ROW_WINDOW=0"]),
 ROW_SHAPES = ((400, False), (198, False), (150, False), (150, True))
 
 
-def _row_libraries():
-    """Build every ROW_BUILDS variant of caar.cu at once (one nvcc each);
-    returns {name: (the loaded library, {instance: registers, spills})}."""
+def _caar_libraries(builds, tag, instance):
+    """Build every (name, nvcc flags) of ``builds`` from csrc/caar.cu at once
+    (one nvcc each) into build/experiments/caar_<tag>_<name>.so; returns
+    {name: (the loaded library, {instance: registers, spills})} for the
+    kernels whose names contain ``instance``."""
     from tinman_sandbox_tpu_torch.kernels import _build
 
     out = os.path.join(ROOT, "build", "experiments")
     os.makedirs(out, exist_ok=True)
     procs = {}
-    for name, flags in ROW_BUILDS:
-        lib = os.path.join(out, f"caar_row_{name}.so")
+    for name, flags in builds:
+        lib = os.path.join(out, f"caar_{tag}_{name}.so")
         procs[name] = (lib, subprocess.Popen(
             [_build._nvcc(), *_build._flags("caar"), *flags, "-o", lib,
              os.path.join(CSRC, "caar.cu")],
@@ -596,7 +619,7 @@ def _row_libraries():
     for name, (lib, proc) in procs.items():
         report = proc.communicate()[1]
         if proc.returncode:
-            raise RuntimeError(f"caar row build {name}: {report[-2000:]}")
+            raise RuntimeError(f"caar {tag} build {name}: {report[-2000:]}")
         so = ctypes.CDLL(lib)
         for fn, argtypes in _build._SIGNATURES["caar"].items():
             f = getattr(so, fn)
@@ -607,7 +630,7 @@ def _row_libraries():
         for line in report.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                inst = m.group(1) if "caar_row_kernel" in m.group(1) else None
+                inst = m.group(1) if instance in m.group(1) else None
             m = re.search(r"(\d+) bytes spill stores.*?(\d+) bytes spill "
                           r"loads", line)
             if m and inst:
@@ -618,6 +641,10 @@ def _row_libraries():
                 regs.setdefault(inst, {})["registers"] = int(m.group(1))
         libs[name] = (so, regs)
     return libs
+
+
+def _row_libraries():
+    return _caar_libraries(ROW_BUILDS, "row", "caar_row_kernel")
 
 
 def rows(dev, card):
@@ -683,10 +710,223 @@ def rows(dev, card):
         _build.library, caar_t.caar_row_plan = port_library, port_plan
 
 
+# builds of csrc/caar.cu for the CAAR ring kernel: (name, nvcc flags, tile),
+# the port's first (32-column tiles, the float4 sweep with 3 rows of loads
+# in flight reading s1 through L1, s1 stored evict-last and w evict-first
+# in L2, s1 discarded from L2 once read); then one or two of those
+# changed: the sweep's reads through L2 alone (CAAR_RING_L1), the L2 hints
+# (CAAR_RING_KEEP), the discard (CAAR_RING_DISCARD), the rows in flight
+# (CAAR_RING_UNROLL), the sweep (CAAR_RING_SWEEP: 0 none and no wait, the
+# producer alone; 3 the wait alone; 2 a lane a thread, as before), the tile
+# (CAAR_RING_TILE); "tile128_lane_keep" is the design before; the producer
+# alone without s1 stores (CAAR_RING_KEEP=2), and discarding its own tile
+# as soon as it is stored (CAAR_RING_SWEEP=4), plain or evict-last. The
+# port's and three other builds run at each lag of RING_LAGS, the others
+# at the port's; the builds that leave s1 evict-last in L2 undiscarded run
+# last.
+_PLAIN = ["-DCAAR_RING_KEEP=0", "-DCAAR_RING_DISCARD=0"]
+RING_BUILDS = (
+    ("port", [], 32),
+    ("l2_reads", ["-DCAAR_RING_L1=0"], 32),
+    ("no_hint", ["-DCAAR_RING_KEEP=0"], 32),
+    ("no_discard_no_hint", _PLAIN, 32),
+    ("l2_reads_no_discard_no_hint", ["-DCAAR_RING_L1=0", *_PLAIN], 32),
+    ("unroll3", ["-DCAAR_RING_UNROLL=3"], 32),
+    ("producer", ["-DCAAR_RING_SWEEP=0", *_PLAIN], 32),
+    ("producer_wait", ["-DCAAR_RING_SWEEP=3", *_PLAIN], 32),
+    ("lane_sweep", ["-DCAAR_RING_SWEEP=2", *_PLAIN], 32),
+    ("tile64", ["-DCAAR_RING_TILE=64", *_PLAIN], 64),
+    ("tile128", ["-DCAAR_RING_TILE=128", *_PLAIN], 128),
+    ("tile128_producer", ["-DCAAR_RING_TILE=128", "-DCAAR_RING_SWEEP=0",
+                          *_PLAIN], 128),
+    ("tile128_lane_keep", ["-DCAAR_RING_TILE=128", "-DCAAR_RING_SWEEP=2",
+                           *_PLAIN], 128),
+    ("producer_no_s1", ["-DCAAR_RING_SWEEP=0", "-DCAAR_RING_KEEP=2",
+                        "-DCAAR_RING_DISCARD=0"], 32),
+    ("producer_discards", ["-DCAAR_RING_SWEEP=4", "-DCAAR_RING_KEEP=0"], 32),
+    ("producer_hint_discards", ["-DCAAR_RING_SWEEP=4"], 32),
+    ("sweep_stores", ["-DCAAR_RING_SWEEP=5"], 32),
+    ("sweep_group_loads", ["-DCAAR_RING_SWEEP=6"], 32),
+    ("no_discard", ["-DCAAR_RING_DISCARD=0"], 32),
+    ("producer_hint", ["-DCAAR_RING_SWEEP=0", "-DCAAR_RING_DISCARD=0"], 32))
+RING_LAGS = (0, 16, 48, 128, 256)
+_LAGGED = ("port", "l2_reads", "no_hint", "producer_wait", "sweep_stores",
+           "sweep_group_loads")
+
+
+def ring(dev, card, fix, assembled, rsp):
+    from tinman_sandbox_tpu_torch.kernels import _build, ring_fused
+    from tinman_sandbox_tpu_torch.kernels.caar_t import caar_t4_cuda
+    from tinman_sandbox_tpu_torch.kernels.dss import dss_sweep_nomerge_cuda
+
+    (scal, meta, qdp, pecnd, dvv), (s0, sm1), acc = assembled
+    k = qdp.shape[0]
+    mx = torch.randn(s0.shape, generator=torch.Generator(
+        device=dev).manual_seed(15), device=dev)
+    ca, cb = float(np.float32(1 / 3)), float(np.float32(2 / 3))
+    modes = {"pair_slab": dict(sm1=sm1, kw={}),
+             "stage_mix": dict(sm1=None, kw=dict(
+                 single=True, emit_phi=False, mix=(mx, ca, cb)))}
+    # the two launches the ring fuses, and each alone, on the port's build
+    ref = {}
+    for mode, m in modes.items():
+        kw = dict(m["kw"])
+        mix = kw.pop("mix", None)
+        tacc = [a.clone() for a in acc]
+        two = caar_t4_cuda(scal, meta, s0, m["sm1"], qdp, pecnd, *tacc, dvv,
+                           fix=fix, **kw)
+        ref[mode] = (dss_sweep_nomerge_cuda(two[0], rsp, fix, mix), two[1],
+                     tacc, two[5])
+        ka = [a.clone() for a in acc]
+        caar = lambda: caar_t4_cuda(scal, meta, s0, m["sm1"], qdp, pecnd,
+                                    *ka, dvv, fix=fix, **kw)
+        s1 = caar()[0]
+        sweep = lambda: dss_sweep_nomerge_cuda(s1, rsp, fix, mix)
+        two = lambda: dss_sweep_nomerge_cuda(caar()[0], rsp, fix, mix)
+        print(json.dumps(dict(
+            card=card, kernel="caar_ring_reference", mode=mode,
+            two_launch_graph_ms=graph_ms(two, 20),
+            two_launch_ms=cuda_ms(two, 20), caar_graph_ms=graph_ms(caar, 20),
+            sweep_graph_ms=graph_ms(sweep, 20))), flush=True)
+        del s1
+    libs = _caar_libraries([(n, f) for n, f, _ in RING_BUILDS], "ring",
+                           "caar_ring_kernel")
+    port_library, port_plan = _build.library, ring_fused.ring_plan
+    runs = [(name, tile, lag) for name, _, tile in RING_BUILDS
+            for lag in (RING_LAGS if name in _LAGGED
+                        else (ring_fused.RING_LAG,))]
+    try:
+        for name, tile, lag in runs:
+            so, regs = libs[name]
+            _build.library = (lambda n, so=so: so if n == "caar"
+                              else port_library(n))
+            ring_fused.ring_plan = (lambda ncol, nl, ne, t=tile, g=lag:
+                                    port_plan(ncol, nl, ne, tile=t, lag=g))
+            plan = ring_fused.ring_plan(s0.shape[1], k, fix.ne)
+            line = dict(card=card, kernel="caar_ring", build=name,
+                        tile=tile, lag=lag, threads=plan.caar.threads,
+                        stash=plan.caar.stash, halo=plan.geo.halo,
+                        blocks=plan.tickets,
+                        blocks_per_sm=so.caar_blocks_per_sm(
+                            1, k, plan.caar.chunks, int(plan.caar.stash),
+                            dev.index),
+                        registers=regs)
+            for mode, m in modes.items():
+                kacc = [a.clone() for a in acc]
+                run = lambda: ring_fused.caar_ring_packed_t4(
+                    scal, meta, s0, m["sm1"], qdp, pecnd, *kacc, dvv, rsp,
+                    fix, **m["kw"])
+                got = run()
+                torch.cuda.synchronize()
+                w, phi, tacc, slab = ref[mode]
+                same = [torch.equal(got[5], slab)] + [
+                    torch.equal(a, b) for a, b in zip(kacc, tacc)]
+                if phi is not None:
+                    same.append(torch.equal(got[1], phi))
+                swept = "producer" not in name and "sweep_" not in name
+                if swept:
+                    same.append(torch.equal(got[0], w))
+                if not all(same):
+                    raise AssertionError(f"caar ring {name} {mode}: not the "
+                                         f"two launches' bits: {same}")
+                line[f"{mode}_bitwise"] = "all" if swept else "no sweep"
+                del got
+                line[f"{mode}_graph_ms"] = graph_ms(run, 20)
+                line[f"{mode}_ms"] = cuda_ms(run, 20)
+            print(json.dumps(line), flush=True)
+            _build.library, ring_fused.ring_plan = port_library, port_plan
+    finally:
+        _build.library, ring_fused.ring_plan = port_library, port_plan
+
+
+def banded(dev, card):
+    from tinman_sandbox_tpu_torch.dist import (
+        LocalMesh, build_cubed_sphere, make_structured_plan, rsp_lanes_2f,
+        shard_packed_t4)
+    from tinman_sandbox_tpu_torch.dist.banded_t4 import (_band_shard,
+                                                         _banded_tables,
+                                                         band_extend)
+    from tinman_sandbox_tpu_torch.dist.sharded_t4 import PLAIN
+    from tinman_sandbox_tpu_torch.kernels.dss import (
+        dss_extract_cuda, dss_fixup_cuda, dss_sweep_banded_cuda,
+        dss_sweep_banded_nomerge_cuda, dss_sweep_cuda, fix_tables)
+
+    lib, _ = _compile("banded_variants")
+    so = ctypes.CDLL(lib)
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    so.banded_lane_launch.argtypes = [P, P, I, P, I, P, P, P, F, F, P, I, I,
+                                      I, I, I, P]
+    gen = torch.Generator(device=dev).manual_seed(18)
+
+    def lane(x_ext, r, vd, bt):
+        out = x_ext.new_empty(x_ext.shape[0], bt.nchunks * bt.bl)
+        err = so.banded_lane_launch(
+            x_ext.data_ptr(), r.data_ptr(), r.shape[0],
+            0 if vd is None else vd.data_ptr(), bt.fix.nfix,
+            bt.fix.fix_col.data_ptr(), bt.flags.data_ptr(), None, 0.0, 0.0,
+            out.data_ptr(), x_ext.shape[0], bt.nchunks * bt.bl, bt.bl,
+            bt.nchunks, bt.fix.ne, torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"banded lane launch failed: {err}")
+        return out
+
+    for ne, m, N, heights in ((30, 2, 12, (288, 2520)), (32, 4, 6, (288,))):
+        grid = build_cubed_sphere(ne, dtype=torch.float32, device=dev)
+        e16 = grid.nelem * 16
+        plan = make_structured_plan(grid.gdof, ne)
+        rsp = torch.from_numpy(rsp_lanes_2f(grid.geometry.spheremp, grid.gdof,
+                                            grid.ndof)).to(dev)
+        mesh = LocalMesh(N, dev)
+        T = _banded_tables(plan, m, N)
+        bts = [_band_shard(plan, m, N, s, str(dev)).band for s in range(N)]
+        (rsps,) = shard_packed_t4(mesh, rsp)
+        fix = fix_tables(plan, dev)
+        for rk in heights:
+            x = torch.randn(rk, e16, generator=gen, device=dev)
+            xe = band_extend(mesh, plan, m, shard_packed_t4(mesh, x)[0])
+            vds = [torch.randn(rk, bt.fix.nfix, generator=gen, device=dev)
+                   for bt in bts]
+            for s, bt in enumerate(bts):
+                for vd in (vds[s], None):
+                    port = (dss_sweep_banded_cuda(xe[s], rsps[s], vd, bt)
+                            if vd is not None else
+                            dss_sweep_banded_nomerge_cuda(xe[s], rsps[s], bt))
+                    if not torch.equal(port, lane(xe[s], rsps[s], vd, bt)):
+                        raise AssertionError(f"banded ne{ne} shard {s}: the "
+                                             "two designs differ")
+            want = PLAIN.banded(xe[0], rsps[0], vds[0], bts[0])
+            if not torch.equal(dss_sweep_banded_cuda(xe[0], rsps[0], vds[0],
+                                                     bts[0]), want):
+                raise AssertionError(f"banded ne{ne}: port differs from plain")
+            vd1 = dss_fixup_cuda(dss_extract_cuda(x, fix), fix, rsp)
+            reps = 10 if rk > 1000 else 30
+            args = list(zip(xe, rsps, vds, bts))
+            line = dict(card=card, kernel="dss_sweep_banded", ne=ne, m=m,
+                        N=N, rows=rk, bitwise="port = lane design = plain",
+                        port_graph_ms=graph_ms(lambda: [
+                            dss_sweep_banded_cuda(*a) for a in args], reps),
+                        port_nomerge_graph_ms=graph_ms(lambda: [
+                            dss_sweep_banded_nomerge_cuda(a[0], a[1], a[3])
+                            for a in args], reps),
+                        lane_graph_ms=graph_ms(lambda: [
+                            lane(*a) for a in args], reps),
+                        lane_nomerge_graph_ms=graph_ms(lambda: [
+                            lane(a[0], a[1], None, a[3]) for a in args],
+                            reps),
+                        one_shard_port_graph_ms=graph_ms(
+                            lambda: dss_sweep_banded_cuda(*args[0]), reps),
+                        single_device_sweep_graph_ms=graph_ms(
+                            lambda: dss_sweep_cuda(x, rsp, vd1, fix), reps))
+            print(json.dumps(line), flush=True)
+            del x, xe, vds, vd1, args
+            torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
-    groups = (argv if argv is not None else sys.argv[1:]) or [
-        "sweep", "caar", "fixup", "remap", "tracer", "row"]
-    if set(groups) - {"sweep", "caar", "fixup", "remap", "tracer", "row"}:
+    every = ["sweep", "caar", "fixup", "remap", "tracer", "row", "ring",
+             "banded"]
+    groups = (argv if argv is not None else sys.argv[1:]) or every
+    if set(groups) - set(every):
         raise SystemExit(f"kernel_variants: unknown group in {groups}")
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_variants: needs a CUDA card")
@@ -712,6 +952,11 @@ def main(argv=None) -> int:
         tracers(dev, card)
     if "row" in groups:
         rows(dev, card)
+    if "ring" in groups:
+        ring(dev, card, fix, ((scal, meta, qdp, pecnd, dvv), (s0, sm1), acc),
+             rsp)
+    if "banded" in groups:
+        banded(dev, card)
     return 0
 
 

@@ -15,9 +15,9 @@ own kernels):
     imported with the other tree first on ``sys.path``, so both trees are
     timed by the same code through the entry points they share;
   * ``--benches``: the port's benches, ``python -m
-    tinman_sandbox_tpu_torch.bench`` raw, ``--ne 30``, ``--ne 30 --rk
-    --hypervis-nu 1e15``, ``--ne 30 --prim --hypervis-nu 1e15``,
-    ``--layout row`` and ``--layout row --ne 30``.
+    tinman_sandbox_tpu_torch.bench`` raw, ``--ne 30``, ``--ne 30 --ring``,
+    ``--ne 30 --rk --hypervis-nu 1e15``, ``--ne 30 --prim --hypervis-nu
+    1e15``, ``--layout row`` and ``--layout row --ne 30``.
 
 Prints the card's name and power limit first, then one JSON line a run:
 {"tree": "other" or "this", "turn": 0, 1, ... (four a round), "what": ...
@@ -36,6 +36,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCHES = {
     "raw": [],
     "assembled": ["--ne", "30"],
+    "ring": ["--ne", "30", "--ring"],
     "dynamics": ["--ne", "30", "--rk", "--hypervis-nu", "1e15"],
     "prim": ["--ne", "30", "--prim", "--hypervis-nu", "1e15"],
     "row_raw": ["--layout", "row"],

@@ -43,8 +43,7 @@ from tinman_sandbox_tpu_torch.kernels.caar import caar_packed_rsplit0_plain
 from tinman_sandbox_tpu_torch.kernels.dss import (
     dss_sweep_cuda, dss_sweep_nomerge_cuda, fix_tables, sweep_plan)
 from tinman_sandbox_tpu_torch.kernels.layout import META_COLS
-from tinman_sandbox_tpu_torch.kernels.ring_fused import (TILE,
-                                                         caar_ring_packed_t4)
+from tinman_sandbox_tpu_torch.kernels.ring_fused import caar_ring_packed_t4
 
 caar_t = importlib.import_module("tinman_sandbox_tpu_torch.kernels.caar_t")
 
@@ -67,9 +66,15 @@ def test_torch_caar_plan_is_pure_and_fits_the_card(ncol, nlev):
     for other in (16, 7200, ncol):
         p = caar_t.caar_plan(other, nlev)
         assert (p.chunks, p.levels) == (plan.chunks, plan.levels)
-    ring = caar_t.caar_ring_plan(ncol, nlev)
-    assert (ring.chunks, ring.levels, ring.tile, ring.stash) == (
-        plan.chunks, plan.levels, TILE, False)
+    # the ring runs the chunked kernel's own plan on its own tile (whole
+    # 128-byte lines of s1 a row: it refuses a ragged column count)
+    if ncol % caar_t.RING_TILE:
+        with pytest.raises(ValueError, match="multiple"):
+            caar_t.caar_ring_plan(ncol, nlev)
+        ring = plan
+    else:
+        ring = caar_t.caar_ring_plan(ncol, nlev)
+        assert ring == plan and ring.tile == caar_t.RING_TILE
     for p, cap in ((plan, caar_t.CHUNK_THREADS), (ring, caar_t.RING_THREADS)):
         assert p.tile % 32 == 0 and p.threads == p.tile * p.chunks <= cap
         assert p.smem <= caar_t.SMEM_MAX

@@ -126,18 +126,28 @@
 // Ring-fused mode (caar_ring_kernel): replaces caar_ring_packed_t4 of
 // tinman_sandbox_tpu/kernels/ring_fused.py (:189, body _caar_ring_kernel
 // :106), the CAAR step and the rspheremp-scaled alpha/beta sweep of its s1
-// in one launch, optionally with the sweep's mix epilogue. A block of
-// 128*chunks threads runs caar_chunked (the same code and chunks as
-// caar_chunk_kernel, so the same bits) for one 128-column tile into a
-// scratch s1, flags it, and then sweeps the tile `halo` tiles behind it,
-// its rows split over the chunks' threads (dss_sweep.cuh, the sweep's
-// expressions), waiting for the tiles that sweep reads (ring.cuh). The fix
-// lanes keep their in-face partial sums; the fixup and the patch (dss.cu)
-// complete the DSS. Bound: the CAAR
-// step's bytes and the swept output; s1 goes to the scratch and is read
-// back from L2 while it is recent (the TPU kernel kept it in VMEM only;
-// keeping it out of device memory here is later work). The stage and phi
-// modes carry over; the ring takes neither rsplit=0 nor the row layout.
+// in one launch, optionally with the sweep's mix epilogue. A block runs
+// caar_chunked on the chunked kernel's own tile and plan (32 columns in
+// caar_plan's chunks, its stash where it takes it: so the same bits, and
+// three blocks an SM) into a scratch s1, stored evict-last in L2, flags
+// the tile, then sweeps the tile halo + lag tickets behind it in float4
+// groups with the sweep kernel's sums (ring::emit4, dss_sweep.cuh; s1 read
+// through L1, w stored evict-first), waiting for the tiles that sweep
+// reads, and discards from L2 the s1 lines of the tiles whose last reader
+// it is (ring.cuh). The fix lanes keep their in-face partial sums; the
+// fixup and the patch (dss.cu) complete the DSS. Bound: the CAAR step's
+// bytes and the swept output. What the H100 showed
+// (experiments/kernel_variants.py ring, PERF.md): the design before
+// (128-column tiles of 1024 threads, one block an SM, a lane-a-thread
+// sweep through L2, s1 written back) lost ~0.09 ms to its 128-column
+// producer and ~0.31 to its sweep at ne30 x 72; here the producer costs
+// what the chunked kernel does, the lag leaves the waits little to spin
+// on, and the hints and the discard keep most of s1 out of device memory,
+// but the sweep's w stores and partner loads still add ~0.07 ms to a
+// producer that is not bound by bytes, so the ring stays slower than the
+// two launches it fuses.
+// The stage and phi modes carry over; the ring takes neither rsplit=0 nor
+// the row layout.
 #include <cuda_runtime.h>
 
 #include "ring.cuh"
@@ -145,9 +155,8 @@
 namespace {
 
 constexpr int kBlock = 128;   // 8 elements x 16 GLL points: the column-a-
-                              // thread body's block and the ring's tile
+                              // thread body's block
 constexpr int kRows = 7;      // exchange rows: p, gv1, gv2, vco1, vco2, t, ephi
-constexpr int kMaxThreads = 1024;          // the ring's largest block
 // the chunked kernel's tile (a warp of columns: two elements), its largest
 // block (at most 8 chunks) and the blocks an SM holds at its register cap
 // (80)
@@ -155,7 +164,59 @@ constexpr int kChunkTile = 32;
 constexpr int kChunkThreads = 256;
 constexpr int kChunkBlocks = 3;
 constexpr size_t kMaxSmem = 232448;        // a block's shared memory (227 KB)
+constexpr int kMaxNlev = 400;              // kernels/caar_t.py _MAX_NLEV
 constexpr unsigned kFull = 0xffffffffu;
+
+// The ring kernel's design, each part a constant that
+// experiments/kernel_variants.py (group ring) builds otherwise, the port's
+// value first:
+//   kRingTile    32 columns (kernels/caar_t.py RING_TILE: the chunked
+//                kernel's tile, one 128-byte line a row of s1); 64, 128;
+//   kRingSweep   1 the float4 sweep (ring::emit4); 2 a lane a thread
+//                (ring::emit, the design before); 0 none and no wait (the
+//                producer alone); 3 the wait without the sweep; 4 none,
+//                each producer discarding its own tile at once; 5 and 6
+//                the float4 sweep's stores alone, and with the group's
+//                loads but no partner's;
+//   kRingUnroll  1 row of loads in flight a thread (3 measured no faster);
+//   kRingDiscard s1 lines discarded from L2 by their last reader;
+//   kRingKeep    1 s1 stored evict-last and w evict-first in L2; 0 plain
+//                stores; 2 no s1 stores (with no sweep only);
+//   kRingL1      the sweep reads s1 through L1 (else through L2 alone).
+// kRingThreads is the largest block (8 chunks), kRingBlocks the blocks an
+// SM its register cap (80 at 32 columns) leaves.
+#ifdef CAAR_RING_TILE
+constexpr int kRingTile = CAAR_RING_TILE;
+#else
+constexpr int kRingTile = 32;
+#endif
+#ifdef CAAR_RING_SWEEP
+constexpr int kRingSweep = CAAR_RING_SWEEP;
+#else
+constexpr int kRingSweep = 1;
+#endif
+#ifdef CAAR_RING_UNROLL
+constexpr int kRingUnroll = CAAR_RING_UNROLL;
+#else
+constexpr int kRingUnroll = 1;
+#endif
+#ifdef CAAR_RING_DISCARD
+constexpr bool kRingDiscard = CAAR_RING_DISCARD;
+#else
+constexpr bool kRingDiscard = true;
+#endif
+#ifdef CAAR_RING_KEEP
+constexpr int kRingKeep = CAAR_RING_KEEP;
+#else
+constexpr int kRingKeep = 1;
+#endif
+#ifdef CAAR_RING_L1
+constexpr bool kRingL1 = CAAR_RING_L1;
+#else
+constexpr bool kRingL1 = true;
+#endif
+constexpr int kRingThreads = 8 * kRingTile;
+constexpr int kRingBlocks = kRingTile == 32 ? 3 : kRingTile == 64 ? 2 : 1;
 
 // META_COLS row indices (kernels/layout.py)
 enum Meta {
@@ -554,7 +615,7 @@ __device__ __forceinline__ void span_at(int i, int nlev, float rnlev,
 // eta_lo formed as the (hybi(k+1) - hybi(k))*sdot it equals (see pass 3),
 // and etaacc += eta_ave_w*eta_hi.
 template <int kTile, bool kSingle, bool kPhi, bool kStash, bool kRow = false,
-          bool kR0 = false>
+          bool kR0 = false, int kS1 = 0>
 __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
                                              int chunks, int levels,
                                              float* phi_sm) {
@@ -793,7 +854,11 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
     rsum += q;
   }
 
-  // pass 3: tendencies and apply, top-down
+  // pass 3: tendencies and apply, top-down; with kS1 = 1 (the ring) s1 is
+  // stored evict-last in L2, for the sweep to read back there (kS1 = 2, an
+  // experiment, does not store it)
+  [[maybe_unused]] const unsigned long long keep =
+      kS1 == 1 ? ring::evict_last() : 0ull;
   const int srow = (live && a.fix_rank) ? a.fix_rank[col] : -1;
   float* const slab = srow >= 0 ? a.slab + (size_t)srow * a.slab_ld : nullptr;
   // the device-memory loads of pass 3, one level ahead as in pass 2
@@ -989,10 +1054,17 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
       const float v1 = sph * (vm1 + dt2 * vtens2);
       const float t1 = sph * (tm1 + dt2 * ttens);
       const float dp1 = sph * (dpm1 - dt2 * dptens);
-      a.u1[o] = u1;
-      a.v1[o] = v1;
-      a.t1[o] = t1;
-      a.dp1[o] = dp1;
+      if constexpr (kS1 == 1) {
+        ring::store(a.u1 + o, u1, keep);
+        ring::store(a.v1 + o, v1, keep);
+        ring::store(a.t1 + o, t1, keep);
+        ring::store(a.dp1 + o, dp1, keep);
+      } else if constexpr (kS1 == 0) {
+        a.u1[o] = u1;
+        a.v1[o] = v1;
+        a.t1[o] = t1;
+        a.dp1[o] = dp1;
+      }
       if (slab) {
         slab[k] = u1;
         slab[a.nlev + k] = v1;
@@ -1108,29 +1180,49 @@ caar_row_kernel(CaarArgs a, int chunks, int levels) {
 
 // The ring-fused step (t layout, rsplit>0): tile t of the CAAR step into the
 // scratch s1 (a.u1..a.dp1 are its four row blocks), with phi, the
-// accumulators and the slab as caar_chunk_kernel writes them (the same body
-// on tiles of kBlock columns, kBlock*chunks threads); then the sweep of
-// tile t - halo over all 4*nlev rows into r.w (see ring.cuh), the rows
-// split over the block's chunks. nb + halo blocks; the fix lanes of r.w
-// hold in-face partial sums.
-template <bool kSingle, bool kPhi, bool kMix>
-__global__ void __launch_bounds__(kMaxThreads)
-caar_ring_kernel(CaarArgs a, ring::Args r, int chunks, int levels) {
+// accumulators and the slab as caar_chunk_kernel writes them (the same body,
+// tile and plan: caar_plan's chunks, its stash where it takes it); then the
+// sweep of tile t - halo - lag over all 4*nlev rows into r.w in float4
+// groups (ring::emit4), and the retirement of the tiles that sweep
+// completes (ring::retire). nb + halo + lag blocks; the fix lanes of r.w
+// hold in-face partial sums. The lag (ring_plan) lets the tiles a sweep
+// reads finish before it asks for them, so that its wait seldom spins.
+// The constants k* above select the design (the port's: float4 sweep,
+// hints, discard, L1 reads).
+template <bool kSingle, bool kPhi, bool kMix, bool kStash>
+__global__ void __launch_bounds__(kRingThreads, kRingBlocks)
+caar_ring_kernel(CaarArgs a, ring::Args r, int chunks, int levels, int lag) {
   extern __shared__ float sm[];
   const int t = ring::ticket(r.counter);
   if (t < r.nb) {
-    caar_chunked<kBlock, kSingle, kPhi, false>(a, t, chunks, levels, sm);
+    caar_chunked<kRingTile, kSingle, kPhi, kStash, false, false, kRingKeep>(
+        a, t, chunks, levels, sm);
     ring::publish(r.flags + t, r.epoch);
+    if constexpr (kRingSweep == 4)     // the producer discarding its own
+      ring::retire<kRingTile>(r, t, t, 4 * a.nlev, a.ncol, true);
   }
-  const int j = t - r.halo;
-  if (j < 0) return;
-  const int after = ring::wait(r.flags, max(j - r.halo, 0),
-                               min(j + r.halo, r.nb - 1), r.epoch);
-  const int g = threadIdx.x / kBlock;
-  const int l = j * kBlock + threadIdx.x - g * kBlock;
-  const int rows = 4 * a.nlev, per = (rows + chunks - 1) / chunks;
-  const int row0 = min(rows, g * per), nrows = min(rows, row0 + per) - row0;
-  if (l < a.ncol) ring::emit<kMix>(r, after, row0, nrows, l, a.ncol);
+  const int j = t - r.halo - lag;
+  if (kRingSweep == 0 || kRingSweep == 4 || j < 0) return;
+  const int lo = max(j - r.halo, 0), hi = min(j + r.halo, r.nb - 1);
+  const int after = ring::wait(r.flags, lo, hi, r.epoch);
+  const int rows = 4 * a.nlev;
+  if constexpr (kRingSweep == 1 || kRingSweep >= 5) {
+    // 5 and 6 (experiments): the sweep's stores alone, and with the group's
+    // loads but not the partners'
+    ring::emit4<kRingTile, kRingUnroll, kMix, kRingKeep == 1, kRingL1,
+                kRingSweep == 1 ? 2 : kRingSweep - 5>(r, after, j, rows,
+                                                      a.ncol);
+  } else if constexpr (kRingSweep == 2) {
+    // the column-a-thread sweep of the design before: a lane a thread, the
+    // rows split over the chunks
+    const int g = threadIdx.x / kRingTile;
+    const int l = j * kRingTile + threadIdx.x - g * kRingTile;
+    const int per = (rows + chunks - 1) / chunks;
+    const int row0 = min(rows, g * per), nrows = min(rows, row0 + per) - row0;
+    if (l < a.ncol) ring::emit<kMix>(r, after, row0, nrows, l, a.ncol);
+  }
+  if constexpr (kRingDiscard && kRingSweep != 3)
+    ring::retire<kRingTile>(r, lo, hi, rows, a.ncol);
 }
 
 cudaError_t launch_tile(const CaarArgs& a, cudaStream_t stream) {
@@ -1177,6 +1269,17 @@ cudaError_t launch_row(const CaarArgs& a, int chunks, int levels,
   const int grid = (a.ncol + kChunkTile - 1) / kChunkTile;
   kernel<<<grid, kChunkTile * chunks, smem, stream>>>(a, chunks, levels);
   return cudaGetLastError();
+}
+
+// the ring kernel's instance for a launch's modes
+template <bool kStash>
+auto* ring_kernel(bool single, bool phi, const void* mx) {
+  return single ? (phi ? (mx ? caar_ring_kernel<true, true, true, kStash>
+                             : caar_ring_kernel<true, true, false, kStash>)
+                       : (mx ? caar_ring_kernel<true, false, true, kStash>
+                             : caar_ring_kernel<true, false, false, kStash>))
+                : (mx ? caar_ring_kernel<false, true, true, kStash>
+                      : caar_ring_kernel<false, true, false, kStash>);
 }
 
 }  // namespace
@@ -1288,32 +1391,39 @@ int caar_launch(const void* scal, const void* meta, const void* dvv,
 }
 
 // Enqueues one ring-fused step (t layout, rsplit>0, with the slab) on
-// `stream`: a 4-byte memset of the ticket counter, then one kernel of
-// nb + halo blocks of kBlock*chunks threads; flags holds nflags >= nb
-// entries. s1 is the [4*nlev, ncol] scratch, w the swept output, mx null
-// (no mix) or a [4*nlev, ncol] field; um1..dpm1 all null = the stage mode,
-// phi null only there; (chunks, levels) as caar_launch's plan at nlev.
-// Returns the cudaError_t.
+// `stream`: a memset of the launch's state, then one kernel of nb + halo +
+// lag blocks of `tile`*chunks threads. state holds nstate >= 1 + 2*nb ints: the
+// ticket counter, the nb reader counts and the nb tile flags, all cleared
+// by the memset (so a CUDA graph of the launch replays correctly; the flags
+// take the value 1). s1 is the [4*nlev, ncol] scratch (128-byte aligned,
+// ncol a multiple of the tile: a tile's rows are whole L2 lines), w the
+// swept output, mx null (no mix) or a [4*nlev, ncol] field; um1..dpm1 all
+// null = the stage mode, phi null only there; (halo, lag, tile, chunks,
+// levels, stash) the plan of kernels/ring_fused.py::ring_plan, the tile the
+// built kRingTile. Returns the cudaError_t.
 int caar_ring_launch(const void* scal, const void* meta, const void* dvv,
                      const void* u0, const void* v0, const void* t0,
                      const void* dp0, const void* um1, const void* vm1,
                      const void* tm1, const void* dpm1, const void* qdp,
                      const void* pecnd, void* vn0u, void* vn0v, void* omg,
                      void* s1, void* phi, const void* fix_rank, void* slab,
-                     const void* rsp, const void* mx, void* w, void* flags,
-                     void* counter, unsigned epoch, int nflags, int nlev,
-                     int ncol, int moist, int nrsp, int ne, int halo,
-                     int chunks, int levels, float rgas,
-                     float kappa, float rv_factor, float rrearth, float ca,
-                     float cb, void* stream, int device) {
+                     const void* rsp, const void* mx, void* w, void* state,
+                     int nstate, int nlev, int ncol, int moist, int nrsp,
+                     int ne, int halo, int lag, int tile, int chunks,
+                     int levels, int stash, float rgas, float kappa,
+                     float rv_factor, float rrearth, float ca, float cb,
+                     void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const bool single = um1 == nullptr;
+  const int nb = ncol / kRingTile;
   if (single != (vm1 == nullptr) || single != (tm1 == nullptr) ||
       single != (dpm1 == nullptr) || (phi == nullptr && !single) ||
-      fix_rank == nullptr || epoch == 0 ||
-      !plan_ok(nlev, kBlock, chunks, levels, false, kMaxThreads) ||
-      !ring::fits((ncol + kBlock - 1) / kBlock, nflags, ne, halo, kBlock))
+      fix_rank == nullptr || tile != kRingTile || nlev > kMaxNlev ||
+      ncol < tile || ncol % tile || reinterpret_cast<size_t>(s1) % 128 ||
+      1 + 2 * static_cast<long long>(nb) > nstate || lag < 0 ||
+      !plan_ok(nlev, kRingTile, chunks, levels, stash, kRingThreads) ||
+      !ring::covers(nb, nb, ne, halo, kRingTile))
     return cudaErrorInvalidValue;
   CaarArgs a = {};
   a.scal = static_cast<const float*>(scal);
@@ -1355,38 +1465,37 @@ int caar_ring_launch(const void* scal, const void* meta, const void* dvv,
   r.rsp = static_cast<const float*>(rsp);
   r.mx = static_cast<const float*>(mx);
   r.w = static_cast<float*>(w);
-  r.flags = static_cast<unsigned*>(flags);
-  r.counter = static_cast<int*>(counter);
-  r.epoch = epoch;
+  r.counter = static_cast<int*>(state);
+  r.done = r.counter + 1;
+  r.flags = reinterpret_cast<unsigned*>(r.done + nb);
+  r.epoch = 1;
   r.nrsp = nrsp;
   r.ne = ne;
-  r.nb = (ncol + kBlock - 1) / kBlock;
+  r.nb = nb;
   r.halo = halo;
   r.ca = ca;
   r.cb = cb;
 
-  auto* kernel =
-      single ? (phi ? (mx ? caar_ring_kernel<true, true, true>
-                          : caar_ring_kernel<true, true, false>)
-                    : (mx ? caar_ring_kernel<true, false, true>
-                          : caar_ring_kernel<true, false, false>))
-             : (mx ? caar_ring_kernel<false, true, true>
-                   : caar_ring_kernel<false, true, false>);
-  const size_t smem = chunked_smem(nlev, kBlock, chunks, false);
+  auto* kernel = stash ? ring_kernel<true>(single, phi != nullptr, mx)
+                       : ring_kernel<false>(single, phi != nullptr, mx);
+  const size_t smem = chunked_smem(nlev, kRingTile, chunks, stash);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(counter, 0, sizeof(int), st);
+  err = cudaMemsetAsync(state, 0, (1 + 2 * static_cast<size_t>(nb)) *
+                        sizeof(int), st);
   if (err != cudaSuccess) return err;
-  kernel<<<r.nb + halo, kBlock * chunks, smem, st>>>(a, r, chunks, levels);
+  kernel<<<r.nb + halo + lag, kRingTile * chunks, smem, st>>>(
+      a, r, chunks, levels, lag);
   return cudaGetLastError();
 }
 
 // Blocks of the pair-form kernel (fused = 0: caar_chunk_kernel on tiles of
 // kChunkTile columns, with or without the stash; fused = 1:
-// caar_ring_kernel, tiles of kBlock, no stash; fused = 2 and 3:
+// caar_ring_kernel, tiles of kRingTile, with or without the stash; fused =
+// 2 and 3:
 // caar_row_kernel at rsplit>0 and at rsplit=0, staged where stash) that one
 // SM holds at nlev levels in `chunks` chunks, from
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative: a CUDA error.
@@ -1395,8 +1504,7 @@ int caar_blocks_per_sm(int fused, int nlev, int chunks, int stash,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -static_cast<int>(err);
   const bool row = fused >= 2, r0 = fused == 3;
-  const int tile = fused == 1 ? kBlock : kChunkTile;
-  if (fused == 1) stash = 0;
+  const int tile = fused == 1 ? kRingTile : kChunkTile;
   const size_t smem = row ? row_smem(nlev, chunks, stash, r0)
                           : chunked_smem(nlev, tile, chunks, stash);
   int n = 0;
@@ -1415,7 +1523,10 @@ int caar_blocks_per_sm(int fused, int nlev, int chunks, int stash,
              : (stash ? occupancy(caar_row_kernel<false, true>)
                       : occupancy(caar_row_kernel<false, false>));
   else
-    err = fused ? occupancy(caar_ring_kernel<false, true, false>)
+    err = fused ? (stash ? occupancy(caar_ring_kernel<false, true, false,
+                                                      true>)
+                         : occupancy(caar_ring_kernel<false, true, false,
+                                                      false>))
           : stash ? occupancy(caar_chunk_kernel<false, true, true>)
                   : occupancy(caar_chunk_kernel<false, true, false>);
   return err == cudaSuccess ? n : -static_cast<int>(err);

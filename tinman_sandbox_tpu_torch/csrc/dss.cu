@@ -21,7 +21,7 @@
 //                   (:190): the sweep of the band-sharded multi-device DSS
 //                   on one shard's chunks, each extended with its two
 //                   neighbouring element rows [band | next | prev]
-//                   (dss_sweep.cuh, swept_banded), the chunk's place in its
+//                   (dss_sweep.cuh, swept4_banded), the chunk's place in its
 //                   face given by a flag (first / last band) in place of the
 //                   TPU's four precomputed lane masks.
 // The TPU forms cut the lane axis into 128-lane tiles, padded the fix lanes
@@ -57,7 +57,9 @@
 // each and are bound by launch latency. The banded sweep reads its x_ext
 // once, the bands and their halo rows (112.8 MB over the 12 shards of
 // ne30 x 288 rows with 2 bands a face), and writes the bands (99.5 MB):
-// ~0.064 ms.
+// ~0.064 ms. It runs the sweep's design below on its chunks: the
+// column-a-thread banded kernel it replaced (one lane a thread, two integer
+// divisions a lane, scalar loads) ran at 3.6-4.2x its bound.
 // The sweep: a thread owns an aligned group of 4 lanes (j = 0..3 of
 // one i-row of an element) in one row and moves it as float4s. Every lane
 // of a group shares i, ei and ej, so the thread decodes the group's
@@ -98,12 +100,11 @@
 
 namespace {
 
-// the sweep's plan (kernels/dss.py::sweep_plan mirrors it): 256 lane groups
-// of 4 lanes a block, one row a thread, registers capped (40) so that an SM
-// holds kSweepBlocks blocks (48 warps)
+// the sweep's plan (kernels/dss.py::sweep_plan mirrors it), the banded
+// sweep's too: 256 lane groups of 4 lanes a block, one row a thread,
+// registers capped (40) so that an SM holds kSweepBlocks blocks (48 warps)
 constexpr int kSweepThreads = 256;
 constexpr int kSweepBlocks = 6;
-constexpr int kBandedThreads = 256;
 constexpr int kPatchLanes = 128;   // fix lanes of a patch block
 constexpr int kMaxGridY = 65535;   // grid rows: the sweep's rows at most;
                                    // the patch loops over further rows
@@ -174,13 +175,18 @@ dss_sweep_kernel(const float* __restrict__ x, const float* __restrict__ rsp,
 }
 
 // The banded sweep: out[row, lo] for the shard lane lo = c*bl + L of chunk c,
-// read from x_ext [k, nchunks*(bl + 2*rl)]; merge and mix as dss_sweep. A
-// chunk's fix lanes are the fix lanes of the whole sphere that lie in it
-// (W and E, and S in a face's first band, N in its last), whose vd column
-// fix_col gives; the banded sweep of every other lane equals the whole
-// sphere's sweep there bit for bit.
+// read from x_ext [k, nchunks*ext] (ext = bl + 32*ne); merge and mix as
+// dss_sweep. A chunk's fix lanes are the fix lanes of the whole sphere that
+// lie in it (W and E, and S in a face's first band, N in its last), whose
+// vd column fix_col gives; the banded sweep of every other lane equals the
+// whole sphere's sweep there bit for bit. The sweep's design: thread g owns
+// the aligned group lo0 = 4g in row blockIdx.y (bl is a multiple of 16, so
+// the group lies in one chunk, and ext a multiple of 4, so every x_ext row
+// starts 16-byte aligned), decodes its chunk and partner offsets once,
+// reads rspheremp, fix_col and the chunk flags once, issues all its loads
+// (dss_sweep::swept4_banded), then sums and stores a float4.
 template <bool kMix, bool kMerge>
-__global__ void __launch_bounds__(kBandedThreads)
+__global__ void __launch_bounds__(kSweepThreads, kSweepBlocks)
 dss_sweep_banded_kernel(const float* __restrict__ x_ext,
                         const float* __restrict__ rsp, int nrsp,
                         const float* __restrict__ vd, int nfix,
@@ -188,25 +194,42 @@ dss_sweep_banded_kernel(const float* __restrict__ x_ext,
                         const int* __restrict__ flags, const float* mx,
                         float ca, float cb, float* out, int lanes, int bl,
                         int nchunks, int ne) {
-  const int lo = blockIdx.x * kBandedThreads + threadIdx.x;
-  if (lo >= lanes) return;
+  const int g = blockIdx.x * kSweepThreads + threadIdx.x;
+  const int lo0 = 4 * g;
+  if (lo0 >= lanes) return;
+  const int c = lo0 / bl, ext = bl + 32 * ne;
+  const float4 hi = *reinterpret_cast<const float4*>(rsp + lo0);
+  const float4 lo = nrsp == 2
+                        ? *reinterpret_cast<const float4*>(rsp + lanes + lo0)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+  int4 fc = make_int4(-1, -1, -1, -1);
+  if constexpr (kMerge) fc = *reinterpret_cast<const int4*>(fix_col + lo0);
+  const int f = flags[c];
   const size_t row = blockIdx.y;
-  float res;
-  int col = -1;
-  if constexpr (kMerge) col = fix_col[lo];
-  if (col >= 0) {
-    res = vd[row * nfix + col];
-  } else {
-    const int c = lo / bl, ext = bl + 32 * ne;
-    const float* xr = x_ext + (row * nchunks + c) * ext;
-    const auto load = [xr](int i) { return xr[i]; };
-    const int f = flags[c];
-    res = dss_sweep::swept_banded(load, lo - c * bl, ne, bl, f & 1, f & 2,
-                                  rsp, nrsp, lanes, lo);
+  const size_t o = row * lanes + lo0;
+  const float* xr = x_ext + (row * nchunks + c) * ext;
+  const auto load4 = [xr](int l) {
+    return *reinterpret_cast<const float4*>(xr + l);
+  };
+  const auto load = [xr](int l) { return xr[l]; };
+  float4 m = make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (kMix) m = *reinterpret_cast<const float4*>(mx + o);
+  float4 w = dss_sweep::swept4_banded(load4, load, lo0 - c * bl, ne, bl,
+                                      f & 1, f & 2, hi, lo, nrsp);
+  if constexpr (kMerge) {
+    const float* vr = vd + row * nfix;
+    if (fc.x >= 0) w.x = vr[fc.x];
+    if (fc.y >= 0) w.y = vr[fc.y];
+    if (fc.z >= 0) w.z = vr[fc.z];
+    if (fc.w >= 0) w.w = vr[fc.w];
   }
-  const size_t o = row * lanes + lo;
-  if constexpr (kMix) res = dss_sweep::mix(ca, mx[o], cb, res);
-  out[o] = res;
+  if constexpr (kMix) {
+    w.x = dss_sweep::mix(ca, m.x, cb, w.x);
+    w.y = dss_sweep::mix(ca, m.y, cb, w.y);
+    w.z = dss_sweep::mix(ca, m.z, cb, w.z);
+    w.w = dss_sweep::mix(ca, m.w, cb, w.w);
+  }
+  *reinterpret_cast<float4*>(out + o) = w;
 }
 
 // in place: w[row, lanes[p]] = vd[row, cols[p]] for each fix lane p, or with
@@ -346,7 +369,9 @@ int dss_sweep_blocks_per_sm(int merge, int mix, int device) {
 
 // The banded sweep: x_ext holds k rows of nchunks*(bl + 32*ne) lanes, out
 // and mx rows of lanes = nchunks*bl; flags[c] bit 0 / bit 1: chunk c is the
-// first / last band of its face; a null vd is the merge-free sweep.
+// first / last band of its face; a null vd is the merge-free sweep. bl must
+// be a positive multiple of 16*ne (whole element rows), so its groups of 4
+// lanes never straddle a chunk and every x_ext row is 16-byte aligned.
 int dss_sweep_banded_launch(const void* x_ext, const void* rsp, int nrsp,
                             const void* vd, int nfix, const void* fix_col,
                             const void* flags, const void* mx, float ca,
@@ -354,12 +379,15 @@ int dss_sweep_banded_launch(const void* x_ext, const void* rsp, int nrsp,
                             int nchunks, int ne, void* stream, int device) {
   cudaError_t err = prepare(device);
   if (err != cudaSuccess) return err;
-  const dim3 grid((lanes + kBandedThreads - 1) / kBandedThreads, k);
+  if (ne < 1 || bl < 16 * ne || bl % (16 * ne) || nchunks < 1 ||
+      lanes != nchunks * bl || k < 1 || k > kMaxGridY)
+    return cudaErrorInvalidValue;
+  const dim3 grid((lanes / 4 + kSweepThreads - 1) / kSweepThreads, k);
   auto* kernel = vd ? (mx ? dss_sweep_banded_kernel<true, true>
                           : dss_sweep_banded_kernel<false, true>)
                     : (mx ? dss_sweep_banded_kernel<true, false>
                           : dss_sweep_banded_kernel<false, false>);
-  kernel<<<grid, kBandedThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kSweepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x_ext), static_cast<const float*>(rsp), nrsp,
       static_cast<const float*>(vd), nfix, static_cast<const int*>(fix_col),
       static_cast<const int*>(flags), static_cast<const float*>(mx), ca, cb,

@@ -17,8 +17,8 @@
 //
 // `load(l)` returns the row's value at lane l: a plain load in the sweep
 // kernels, an L2 load (__ldcg) of another block's output in the ring kernels.
-// swept_banded() is the same sum on one band chunk of the banded DSS, where
-// a lane's neighbouring element rows may be halo rows.
+// swept4_banded() is swept4() on a group of one band chunk of the banded
+// DSS, where the group's neighbouring element rows may be halo rows.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -91,30 +91,46 @@ __device__ __forceinline__ float4 swept4(float4 c, float4 a, bool alpha,
                      scale_by(c.w, hi.w, lo.w, nrsp));
 }
 
-// w at lane L of one band chunk of the banded (multi-device) DSS: the chunk
-// is laid out [band | next row | prev row], each row rl = 16*ne lanes, the
-// band bl = br*rl lanes (br element rows); L < bl. The in-face sums are
-// those of swept(), in the same order: the alpha partners lie in the lane's
-// own element row (in a halo row too), and the beta partner of a j == 3
-// lane is db = rl - 3 lanes on, which for the band's last row is the
-// next-row halo; the partner of a j == 0 lane is db lanes back, taken
-// cyclically inside the chunk (L - db + ext), which for the band's first
-// row is the prev-row halo. `first` / `last`: the band is the first / last
-// of its face, so its first row has no partner below / its last row none
-// above. The scale is at lane `lr` of rsp (e16 lanes a row).
-template <class Load>
-__device__ __forceinline__ float swept_banded(const Load& load, int L, int ne,
-                                              int bl, bool first, bool last,
-                                              const float* __restrict__ rsp,
-                                              int nrsp, int e16, int lr) {
-  const int rl = 16 * ne, db = rl - 3, j = L & 3;
-  float z = alpha_sum(load, L, ne);
-  if (j == 3 && !(last && L >= bl - rl))
-    z = __fadd_rn(z, alpha_sum(load, L + db, ne));
-  else if (j == 0 && !(first && L < rl))
-    z = __fadd_rn(z, alpha_sum(load, L >= db ? L - db : L - db + bl + 2 * rl,
-                               ne));
-  return scale(z, rsp, nrsp, e16, lr);
+// w at the four lanes L0 .. L0+3 of one aligned group of one band chunk of
+// the banded (multi-device) DSS (L0 % 4 == 0, L0 < bl), the sums of
+// swept4() in the same order. The chunk is laid out [band | next row | prev
+// row], each row rl = 16*ne lanes, the band bl = br*rl lanes (br element
+// rows); bl is a multiple of 16, so a group never straddles a chunk. The
+// alpha partners lie in the group's own element row (in a halo row too);
+// the beta partner of the j == 3 lane is rl lanes on (db = rl - 3 from lane
+// L0 + 3), which for the band's last row is the next-row halo; the partner
+// of the j == 0 lane is db lanes back, taken cyclically inside the chunk,
+// which for the band's first row is the prev-row halo (L0 + 3 - rl + ext).
+// `first` / `last`: the band is the first / last of its face, so its first
+// row has no partner below / its last row none above. A halo partner shares
+// the group's i and ei (rl and ext are multiples of 16*ne), so it shares
+// its alpha offset. load4(L) returns the chunk's float4 at lane L (L % 4 ==
+// 0), load(L) its float; every load is issued before the sums.
+template <class Load4, class Load>
+__device__ __forceinline__ float4 swept4_banded(const Load4& load4,
+                                                const Load& load, int L0,
+                                                int ne, int bl, bool first,
+                                                bool last, float4 hi,
+                                                float4 lo, int nrsp) {
+  const int rl = 16 * ne, i = (L0 >> 2) & 3, ei = (L0 >> 4) % ne;
+  const int da = (i == 3 && ei < ne - 1) ? 4 : (i == 0 && ei > 0) ? -4 : 0;
+  const bool alpha = da != 0;
+  const bool up = !(last && L0 >= bl - rl), dn = !(first && L0 < rl);
+  const int pu = L0 + rl;
+  const int pd = L0 + 3 - rl + (L0 < rl ? bl + 2 * rl : 0);
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 c = load4(L0);
+  const float4 a = alpha ? load4(L0 + da) : zero4;
+  float bu = 0.f, bua = 0.f, bd = 0.f, bda = 0.f;
+  if (up) {
+    bu = load(pu);
+    if (alpha) bua = load(pu + da);
+  }
+  if (dn) {
+    bd = load(pd);
+    if (alpha) bda = load(pd + da);
+  }
+  return swept4(c, a, alpha, bu, bua, up, bd, bda, dn, hi, lo, nrsp);
 }
 
 // the affine epilogue ca*mx + cb*w: two rounded products, then their sum

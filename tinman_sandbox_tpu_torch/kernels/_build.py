@@ -116,7 +116,7 @@ _U = ctypes.c_uint
 _SIGNATURES = {
     "caar": {
         "caar_launch": [_P] * 26 + [_I] * 10 + [_F] * 4 + [_P, _I],
-        "caar_ring_launch": [_P] * 25 + [_U] + [_I] * 9 + [_F] * 6
+        "caar_ring_launch": [_P] * 24 + [_I] * 12 + [_F] * 6
         + [_P, _I],
         "caar_blocks_per_sm": [_I] * 5,
         "caar_error_string": [_I],

@@ -93,7 +93,9 @@ _MAX_NLEV = 400
 # H100's SMs, an SM's threads, registers and shared memory, a block's shared
 # memory and the 1 KB the system reserves with each block; the chunked
 # kernel's largest block and register cap (__launch_bounds__(256, 3)), the
-# ring kernel's (__launch_bounds__(1024))
+# ring kernel's (8 chunks of RING_TILE columns: the chunked kernel's own at
+# 32 columns; 64 registers a thread on the wider tiles of
+# experiments/kernel_variants.py)
 SMS = 132
 SM_THREADS = 2048
 SM_REGS = 65536
@@ -102,14 +104,13 @@ SMEM_MAX = 232448
 SMEM_RESERVED = 1024
 CHUNK_THREADS = 256
 CHUNK_REGS = 80
-RING_THREADS = 1024
+RING_THREADS = 256
 RING_REGS = 64
 # the level chunks a column is cut into (the last may be shorter), the
-# chunked kernel's tile, and the tile of the ring kernel
-# (kernels/ring_fused.py TILE, csrc kBlock)
+# chunked kernel's tile, and the tile of the ring kernel (csrc kRingTile)
 CHUNKS = 8
 TILE = 32
-RING_TILE = 128
+RING_TILE = 32
 # the row kernel (csrc/caar.cu caar_row_kernel, __launch_bounds__(256, 2)):
 # its register cap, the shared-memory planes [nlev][TILE] it stages a tile
 # through (rsplit>0, rsplit=0) and the staged meta [16][ROW_META_PITCH];
@@ -244,12 +245,20 @@ def caar_row_plan(ncol: int, nlev: int, r0: bool = False) -> CaarPlan:
     return plan
 
 
-def caar_ring_plan(ncol: int, nlev: int) -> CaarPlan:
-    """The ring kernel's plan: ``caar_plan``'s chunks on the ring's tiles of
-    RING_TILE columns (kernels/ring_fused.py), without the stash, so that
-    its CAAR part sums every column as the chunked kernel does."""
-    plan = dataclasses.replace(caar_plan(ncol, nlev), tile=RING_TILE,
-                               stash=False)
+def caar_ring_plan(ncol: int, nlev: int, tile: int = RING_TILE) -> CaarPlan:
+    """The ring kernel's producer plan: ``caar_plan``'s chunks on the ring's
+    tiles of ``tile`` columns (RING_TILE, the chunked kernel's own 32), with
+    the stash wherever it leaves at least two blocks an SM, so at RING_TILE
+    it is ``caar_plan`` itself and the ring's CAAR part sums every column as
+    the chunked kernel does. Raises where the kernel refuses: a column count
+    that is not a positive multiple of the tile (a tile's rows of s1 are
+    whole 128-byte lines, which the kernel discards from L2 once read)."""
+    if ncol < tile or ncol % tile:
+        raise ValueError(f"caar_ring: ncol={ncol} is not a positive multiple"
+                         f" of the ring's {tile}-column tile")
+    plan = dataclasses.replace(caar_plan(ncol, nlev), tile=tile)
+    if plan.stash and (plan.blocks_per_sm < 2 or plan.smem > SMEM_MAX):
+        plan = dataclasses.replace(plan, stash=False)
     if plan.smem > SMEM_MAX:
         raise ValueError(f"caar_ring: nlev={nlev} needs {plan.smem} bytes "
                          f"of shared memory a block, over {SMEM_MAX}")

@@ -71,11 +71,12 @@ patch of ``dss_pallas.py``; the steps are in ``dist/banded_t4.py`` and
 
 They take ``BandTables`` (``band_tables``): the shard's ``FixTables`` and
 one first / last flag a chunk in place of the TPU's bf16 lane masks and
-tile-dense or compact value buffers. ``dss_sweep_banded_plain``,
-``dss_sweep_banded_nomerge_plain`` and ``dss_patch_tiles_plain`` are the
-plain versions at the JAX functions' signatures (masked rolls, 128-lane
-tiles, one-hot placement tables), sharing their arithmetic with the
-wrappers' CPU path.
+tile-dense or compact value buffers. The banded sweep kernel runs the sweep
+kernel's float4 groups; ``band_layout`` checks the layout they rely on.
+``dss_sweep_banded_plain``, ``dss_sweep_banded_nomerge_plain`` and
+``dss_patch_tiles_plain`` are the plain versions at the JAX functions'
+signatures (masked rolls, 128-lane tiles, one-hot placement tables),
+sharing their arithmetic with the wrappers' CPU path.
 
 ``fix_vals3`` (:1412) and its per-tile [nt, M, k] value blocks are a
 128-lane-tile layout with no counterpart here: ``dss_fixup_cuda`` already
@@ -101,7 +102,7 @@ __all__ = ["FixTables", "fix_tables", "make_fix_tables", "dss_extract_plain",
            "band_masks", "dss_sweep_banded_plain",
            "dss_sweep_banded_nomerge_plain", "dss_patch_tiles_plain",
            "dss_sweep_banded_cuda", "dss_sweep_banded_nomerge_cuda",
-           "dss_patch_tiles_cuda", "SweepPlan", "sweep_plan"]
+           "dss_patch_tiles_cuda", "SweepPlan", "sweep_plan", "band_layout"]
 
 # the sweeps' grids put rows on their y axis
 _MAX_ROWS = 65535
@@ -880,6 +881,23 @@ def dss_patch_tiles_plain(w, vals3, p_tbl, dm_lanes, gtiles, ntb: int,
     return _patch_plain(w.clone(), vd[:, torch.from_numpy(cols)], lanes, mix)
 
 
+def band_layout(ne: int, bl: int, nchunks: int) -> tuple:
+    """The layout facts the banded sweep kernel's float4 groups rely on,
+    checked: ``bl`` is whole element rows (a positive multiple of rl =
+    16*ne, hence of 16, so no aligned group of 4 lanes straddles a chunk)
+    and a chunk's x_ext span ext = bl + 2*rl is too (a multiple of 4 lanes,
+    so every x_ext row and every chunk in it starts 16-byte aligned).
+    Returns (lanes, ext); raises where a fact fails."""
+    rl = NPSQ * ne
+    if ne < 1 or nchunks < 1 or bl < rl or bl % rl:
+        raise ValueError(f"banded sweep: bl={bl} is not a positive multiple "
+                         f"of the element row's {rl} lanes (ne={ne}), or "
+                         f"{nchunks} chunks")
+    ext = bl + 2 * rl
+    assert bl % 16 == 0 and ext % 4 == 0
+    return nchunks * bl, ext
+
+
 def _check_band(name, x_ext, rsp, vd, bt: BandTables, mix):
     """Operand checks of the banded sweep; returns (device, mx, ca, cb,
     in_place)."""
@@ -919,9 +937,17 @@ def _sweep_banded(name, x_ext, rsp, vd, bt: BandTables, mix):
             return _band_sweep_plain(x_ext, rsp, vd, bt, mix), False
         mx[:k] = _band_sweep_plain(x_ext, rsp, vd, bt, (mx[:k], ca, cb))
         return mx, False
-    if k > _MAX_ROWS:
-        raise ValueError(f"{name}: {k} rows exceed the grid's {_MAX_ROWS}")
+    if not 1 <= k <= _MAX_ROWS:
+        raise ValueError(f"{name}: {k} rows outside the grid's 1.."
+                         f"{_MAX_ROWS}")
+    band_layout(bt.fix.ne, bt.bl, bt.nchunks)
     out = mx if in_place else x_ext.new_empty(k, lanes)
+    # the kernel reads and writes 16-byte groups of lanes
+    for op, t in (("x_ext", x_ext), ("rsp", rsp), ("mix field", mx),
+                  ("out", out),
+                  ("fix_col", None if vd is None else bt.fix.fix_col)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {op} must be 16-byte aligned")
     ptr = lambda t: 0 if t is None else t.data_ptr()
     err = _build.library("dss").dss_sweep_banded_launch(
         x_ext.data_ptr(), rsp.data_ptr(), rsp.shape[0], ptr(vd),

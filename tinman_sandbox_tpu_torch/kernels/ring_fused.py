@@ -4,20 +4,24 @@ the rspheremp-scaled alpha/beta sweep of it (counterpart of
 
 The two-launch path writes the update s1 to device memory and the sweep
 kernel reads it back. Here one kernel does both: each block produces one
-128-lane tile of s1 into a scratch field and flags it, then sweeps the tile
-``halo`` tiles behind it once the tiles that sweep reads are flagged (the
-schedule is in ``csrc/ring.cuh``). The sweep's expressions are the sweep
-kernel's (``csrc/dss_sweep.cuh``), and the producers run the CAAR and Euler
-kernels' own code, so every non-fix lane of the output equals the two-launch
-path's bit for bit. The cube-edge and corner lanes hold in-face partial
-sums: the fixup and the patch (``kernels/dss.py``) complete the DSS.
+tile of s1 into a scratch field and flags it, then sweeps the tile ``halo``
+tiles behind it once the tiles that sweep reads are flagged (the schedule is
+in ``csrc/ring.cuh``). The sweep's expressions are the sweep kernel's
+(``csrc/dss_sweep.cuh``), and the producers run the CAAR and Euler kernels'
+own code, so every non-fix lane of the output equals the two-launch path's
+bit for bit. The cube-edge and corner lanes hold in-face partial sums: the
+fixup and the patch (``kernels/dss.py``) complete the DSS.
 
   * ``caar_ring_packed_t4`` (kernel ``caar_ring_kernel`` in ``csrc/caar.cu``,
     replaces ``caar_ring_packed_t4``, ring_fused.py:189): the CAAR step on
     stacked [4*nlev, E16] states, pair or stage mode (``single``,
     ``emit_phi``), the sweep's ``mix`` epilogue, the accumulators IN PLACE
-    and the fix-lane slab [nfix, 4*nlev]. ``caar_ring_plain`` is
-    ``caar_t4_plain(fix=)`` followed by ``dss_sweep_nomerge_plain(mix=)``.
+    and the fix-lane slab [nfix, 4*nlev]. Its tiles are the chunked CAAR
+    kernel's 32 columns (``ring_plan``: the producer's plan, the halo and
+    the schedule), its sweep runs on float4 groups, and each tile's s1
+    lines are discarded from L2 once its last reader is done.
+    ``caar_ring_plain`` is ``caar_t4_plain(fix=)`` followed by
+    ``dss_sweep_nomerge_plain(mix=)``.
   * ``tracer_ring_packed_t`` (``tracer_ring_kernel`` in ``csrc/tracer.cu``,
     replaces ``tracer_ring_packed_t``, :369): sph*(q - dt*div(v q)) on the
     stacked [qsize*nlev, E16] tracers, swept, with ``mix`` and the slab.
@@ -28,16 +32,20 @@ Each wrapper checks its operands, runs the plain version for CPU tensors
 (the accumulators then updated in place too) and launches its kernel for
 CUDA float32 tensors, one kernel a call with no host sync, counted in
 ``<wrapper>.launches``. The scratch s1 is a full-size field from PyTorch's
-allocator; keeping it in L2 is later work. The flags and the ticket counter
-are one small buffer per device, so two ring calls must not run at once on
-two streams of one device.
+allocator (the CAAR ring's lines live in L2 between their store and their
+discard). The flags, the ticket counter and the CAAR ring's reader counts
+are small buffers per device, so two ring calls must not run at once on two
+streams of one device. The CAAR ring's launch clears its own (a CUDA graph
+of it replays correctly); the tracer ring flags with an epoch a call (a
+graph of it would replay one epoch: not graph-safe).
 
 ``ring_geometry(ne, tile)`` is the GPU analog of the JAX function: the beta
 shift db = 16*ne - 3 and the halo, the tiles one tile's sweep reads on each
 side (an output lane reads x up to db + 4 lanes away: 4 tiles of 128 lanes
-at ne30). The JAX kernel's grouped emission window (``_emit_group``,
-:72-103) works around the TPU's vector unit and has no counterpart; nor do
-its limits: the port takes odd ne and any E16.
+at ne30, 16 of the CAAR ring's 32). The JAX kernel's grouped emission
+window (``_emit_group``, :72-103) works around the TPU's vector unit and has
+no counterpart; nor do its limits: the port takes odd ne and any E16 (the
+CAAR ring a multiple of its tile, as every cubed sphere's 96*ne^2 is).
 """
 from __future__ import annotations
 
@@ -51,7 +59,7 @@ from . import _build
 from .caar_t import RING_TILE
 from .caar_t import _check as _caar_check
 from .caar_t import _new_slab as _caar_slab
-from .caar_t import caar_ring_plan, caar_t4_cuda, caar_t4_plain
+from .caar_t import CaarPlan, caar_ring_plan, caar_t4_cuda, caar_t4_plain
 from .dss import (FixTables, _check_rsp, _overlap, _stream,
                   dss_sweep_nomerge_plain)
 from .tracer_t import _check as _tracer_check
@@ -59,10 +67,16 @@ from .tracer_t import _check_aligned as _tracer_aligned
 from .tracer_t import _new_slab as _tracer_slab
 from .tracer_t import tracer_euler_cuda, tracer_euler_plain
 
-__all__ = ["RingGeometry", "ring_geometry", "caar_ring_plain",
-           "caar_ring_packed_t4", "tracer_ring_plain", "tracer_ring_packed_t"]
+__all__ = ["RingGeometry", "ring_geometry", "RingPlan", "ring_plan",
+           "caar_ring_plain", "caar_ring_packed_t4", "tracer_ring_plain",
+           "tracer_ring_packed_t"]
 
-TILE = RING_TILE    # lanes a block produces and sweeps (csrc kBlock)
+TILE = 128          # lanes a tracer ring block produces and sweeps
+                    # (csrc/tracer.cu kTile)
+# tickets between a tile's producer and its sweep beyond the halo: on the
+# H100 a lag of 128 left the sweeps' waits the least to spin on, and the
+# tiles they read still in L2 (experiments/kernel_variants.py ring)
+RING_LAG = 128
 _LEVELS = 8         # levels of one tracer row chunk (csrc/tracer.cu kLevels)
 
 
@@ -85,9 +99,69 @@ def ring_geometry(ne: int, tile: int = TILE) -> RingGeometry:
     return RingGeometry(db=db, reach=reach, halo=-(-reach // tile), tile=tile)
 
 
+@dataclasses.dataclass(frozen=True)
+class RingPlan:
+    """The CAAR ring kernel's launch at (ncol, nlev, ne) and its schedule
+    (``csrc/ring.cuh``): the producer's plan ``caar`` (``caar_ring_plan``:
+    tile, chunks, levels, stash), the sweep's geometry ``geo`` on that tile
+    and the ``lag``. The block with ticket t < ``nb`` produces tile t; every
+    block with t >= halo + lag sweeps tile t - halo - lag after waiting on
+    ``waits(t)`` (all tiles below its own ticket: the lag lets them finish
+    first), then counts itself a reader of those tiles; the count that
+    reaches ``readers(u)`` retires tile u (its s1 lines leave L2
+    unwritten)."""
+
+    caar: CaarPlan
+    geo: RingGeometry
+    lag: int = 0
+
+    @property
+    def nb(self) -> int:
+        return self.caar.ncol // self.caar.tile
+
+    @property
+    def tickets(self) -> int:
+        """Blocks of the launch."""
+        return self.nb + self.geo.halo + self.lag
+
+    def sweeps(self, t: int):
+        """The tile the block of ticket t sweeps, or None."""
+        j = t - self.geo.halo - self.lag
+        return j if j >= 0 else None
+
+    def waits(self, t: int) -> range:
+        """The tiles the block of ticket t waits on (and counts as read):
+        the swept tile's j - halo .. j + halo inside 0 .. nb-1."""
+        j = self.sweeps(t)
+        if j is None:
+            return range(0)
+        return range(max(j - self.geo.halo, 0),
+                     min(j + self.geo.halo, self.nb - 1) + 1)
+
+    def readers(self, u: int) -> int:
+        """The sweeps that count tile u as read."""
+        h = self.geo.halo
+        return min(u + h, self.nb - 1) - max(u - h, 0) + 1
+
+
+def ring_plan(ncol: int, nlev: int, ne: int, tile: int = RING_TILE,
+              lag: int = RING_LAG) -> RingPlan:
+    """The CAAR ring kernel's plan at (ncol, nlev) on cubed-sphere ne, the
+    one the wrapper launches. Raises on the shapes the launch refuses:
+    those ``caar_ring_plan`` refuses (nlev outside 1..400, a column count
+    that is not a positive multiple of the tile, shared memory), ne < 1 and
+    a negative lag. Its halo covers the sweep's reach by construction; its
+    wait takes any halo (a thread a flag, in turns of the block)."""
+    if ne < 1 or lag < 0:
+        raise ValueError(f"caar_ring: ne={ne} < 1 or lag={lag} < 0")
+    return RingPlan(caar=caar_ring_plan(ncol, nlev, tile),
+                    geo=ring_geometry(ne, tile), lag=lag)
+
+
 class _RingState:
-    """Per device: the tile flags (grown on demand, never cleared: each
-    call flags with its own epoch), the ticket counter and the epoch."""
+    """The tracer ring's, per device: the tile flags (grown on demand, never
+    cleared: each call flags with its own epoch), the ticket counter and
+    the epoch."""
 
     def __init__(self):
         self.flags = {}
@@ -108,6 +182,18 @@ class _RingState:
 
 
 _STATE = _RingState()
+# the CAAR ring's state a device, [ticket counter | nb reader counts | nb
+# flags], cleared by each launch (csrc/caar.cu caar_ring_launch)
+_CAAR_STATE = {}
+
+
+def _caar_state(dev, nb: int) -> torch.Tensor:
+    buf = _CAAR_STATE.get(str(dev))
+    if buf is None or buf.numel() < 1 + 2 * nb:
+        buf = torch.zeros(1 + 2 * max(nb, 1024), dtype=torch.int32,
+                          device=dev)
+        _CAAR_STATE[str(dev)] = buf
+    return buf
 
 
 def _check_ring(name, x, rsp, fix: FixTables, mix):
@@ -118,9 +204,6 @@ def _check_ring(name, x, rsp, fix: FixTables, mix):
     if fix.e16 != e16:
         raise ValueError(f"{name}: the tables are for E16 = {fix.e16}, the "
                          f"field has {e16}")
-    if 2 * ring_geometry(fix.ne).halo + 1 > TILE:
-        raise ValueError(f"{name}: ne = {fix.ne} reaches beyond "
-                         f"{TILE // 2} tiles")
     for op, t in (("rsp", rsp),) + (() if mix is None else
                                     (("mix field", mix[0]),)):
         if t.device != x.device or t.dtype != x.dtype or \
@@ -174,15 +257,21 @@ def caar_ring_packed_t4(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg,
             scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv,
             moist=moist, fix=fix, single=single, emit_phi=emit_phi)
         return (dss_sweep_nomerge_plain(s1, rsp, fix, mix), phi, *acc, slab)
-    plan = caar_ring_plan(s0.shape[1], k)   # raises where the kernel refuses
+    # raises where the kernel refuses
+    plan = ring_plan(s0.shape[1], k, fix.ne)
     for name, acc in (("vn0u", vn0u), ("vn0v", vn0v), ("omg", omg)):
         if mx is not None and _overlap(mx, acc):
             raise ValueError(f"caar_ring: the mix field overlaps {name}")
     scratch = torch.empty_like(s0)
     w = torch.empty_like(s0)
+    # the sweep moves 16-byte groups; the retirement whole 128-byte lines
+    for op, t, align in (("scratch", scratch, 128), ("rsp", rsp, 16),
+                         ("mix field", mx, 16), ("w", w, 16)):
+        if t is not None and t.data_ptr() % align:
+            raise ValueError(f"caar_ring: {op} must be {align}-byte aligned")
     phi = torch.empty_like(qdp) if emit_phi else None
     slab = _caar_slab(fix, qdp, k)
-    flags, counter, epoch = _STATE.take(dev, -(-s0.shape[1] // TILE))
+    state = _caar_state(dev, plan.nb)
     ptr = lambda x: 0 if x is None else x.data_ptr()
     c = CONSTANTS
     base = (None,) * 4 if single else sm1.split(k)
@@ -190,11 +279,11 @@ def caar_ring_packed_t4(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg,
         ptr(scal), ptr(meta), ptr(dvv), *map(ptr, s0.split(k)),
         *map(ptr, base), ptr(qdp), ptr(pecnd), ptr(vn0u), ptr(vn0v),
         ptr(omg), ptr(scratch), ptr(phi), ptr(fix.fix_rank), ptr(slab),
-        ptr(rsp), ptr(mx), ptr(w), ptr(flags), ptr(counter), epoch,
-        flags.numel(), k, s0.shape[1], int(bool(moist)), rsp.shape[0],
-        fix.ne, ring_geometry(fix.ne).halo, plan.chunks, plan.levels, c.Rgas,
-        c.kappa, c.rgas_over_rvap_m1, c.rrearth, ca, cb, _stream(dev),
-        dev.index)
+        ptr(rsp), ptr(mx), ptr(w), ptr(state), state.numel(), k, s0.shape[1],
+        int(bool(moist)), rsp.shape[0], fix.ne, plan.geo.halo, plan.lag,
+        plan.caar.tile, plan.caar.chunks, plan.caar.levels,
+        int(plan.caar.stash), c.Rgas, c.kappa, c.rgas_over_rvap_m1,
+        c.rrearth, ca, cb, _stream(dev), dev.index)
     _build.check_launch("caar", err)
     caar_ring_packed_t4.launches += 1
     return w, phi, vn0u, vn0v, omg, slab
@@ -223,6 +312,9 @@ def tracer_ring_packed_t(meta, vu, vv, q, dvv, dt, nlev: int, rsp,
     cb*that), its fix lanes partial; slab [nfix, qsize*nlev]."""
     dev = _tracer_check("tracer_ring", meta, vu, vv, q, dvv, nlev, wind_rows)
     mx, ca, cb = _check_ring("tracer_ring", q, rsp, fix, mix)
+    if 2 * ring_geometry(fix.ne).halo + 1 > TILE:
+        raise ValueError(f"tracer_ring: ne = {fix.ne} reaches beyond "
+                         f"{TILE // 2} tiles")
     if dev.type == "cpu":
         e, slab = tracer_euler_cuda(meta, vu, vv, q, dvv, dt, nlev,
                                     fold_sph=True, wind_rows=wind_rows,
