@@ -102,24 +102,26 @@ NVIDIA card and check it, phase by phase:
      launches, 8 fixups and 8 sweeps;
  13. the rsplit=0 and row-layout kernels at 1024 x 72 and 5,400 x 72 (the
      ne30 geometry), with a hybi ramp (linspace(0, 1, nlev+1)) and a random
-     eta accumulator: the row kernel's plans (``caar_row_plan``: chunks,
-     staged or windowed, shared memory, blocks an SM reckoned and by
-     cudaOccupancy) at nlev 72 and ``CAAR_OTHER_NLEV``; the rsplit=0 mode
-     on the t layout
-     (``caar_packed_rsplit0_t``) and on the row layout
+     eta accumulator: the plans of the t rsplit=0 kernel (``caar_plan(
+     r0=True)``: chunks, stash, shared memory, blocks an SM reckoned and by
+     cudaOccupancy) and of the row kernel (``caar_row_plan``: staged or
+     windowed) at nlev 72 and ``CAAR_OTHER_NLEV``; the rsplit=0 mode on the
+     t layout (``caar_packed_rsplit0_t``) and on the row layout
      (``caar_packed_rsplit0``) and the row rsplit>0 mode (``caar_packed``),
      each against its plain version, each output field on its own within
      5e-5 scaled, in the three cases of phase 3, a ``wind`` case (sm1 =
      0, winds x30, where the vertical advection of u and v carries ~2e-3 of
      the output) and a ``long`` case (the bench problem at a dt2 where the
-     rsplit=0 dp update is half of dpm1); the two row kernels also within
-     5e-5 of their plain versions in f64 on the same inputs (with the plain
-     f32 dp1's own error beside it: the cancellation of the rsplit=0 dp
-     tendency), and the row rsplit>0 kernel bit for bit ``caar_t4_cuda`` on
-     the transposed problem; each timed by events and from a CUDA graph
-     beside its bound and the t pair form; at 1024 x 26, 150 and 400 the two
-     row kernels in the same cases against their plain versions in f64
-     (5e-5), the rsplit>0 one bit for bit the t kernel, timed from graphs;
+     rsplit=0 dp update is half of dpm1); each also within 5e-5 of its
+     plain version in f64 on the same inputs (with the plain f32 dp1's own
+     error beside it: the cancellation of the rsplit=0 dp tendency), the t
+     rsplit=0 kernel bit for bit ``caar_packed_rsplit0`` and the row
+     rsplit>0 kernel bit for bit ``caar_t4_cuda`` on the transposed
+     problem; each timed by events and from a CUDA graph beside its bound
+     and the t pair form; at 1024 x 26, 150 and 400 the three kernels in
+     the same cases against their plain versions in f64 (5e-5; the t
+     rsplit=0 kernel also in f32), with the same bit-for-bit checks, timed
+     from graphs;
      the row tracer kernel (``euler_packed``) against its plain
      version within 5e-5 per tracer block at qsize 1 and 35 on ne30, at the
      run's dt and at a dt long enough for the divergence to carry the
@@ -142,7 +144,11 @@ NVIDIA card and check it, phase by phase:
      5e-5 scaled of ``caar_ring_plain`` and bit for bit the two launches it
      fuses (the CAAR kernel, the merge-free sweep); the ring-fused tracer
      kernel (``tracer_ring_packed_t``) at qsize 1 and 35, at the run's dt and
-     a long dt, with and without mix, likewise; the merge-free sweep at 288,
+     a long dt, with and without mix, likewise, and captured in a CUDA graph
+     with mix and replayed three times on fresh q and mix copied into its
+     inputs, each replay bit for bit the two launches; both rings at once on
+     two streams (``rings_on_two_streams``), every output bit for bit its
+     two launches; the merge-free sweep at 288,
      72 and 2,520 rows (new, mix, in place) and the patch (with and without
      mix), each bit for bit its plain version, and the split DSS bit for bit
      the merged one; each timed against its bound, its plain version, the
@@ -153,10 +159,10 @@ NVIDIA card and check it, phase by phase:
      rows the patch on contiguous lanes;
      blocks per SM and waves of the ring kernels (the CAAR ring: the
      chunked kernel's own tile and plan, ``ring_plan``, so the same bits)
-     and of the chunked CAAR and Euler kernels; the CAAR ring and the two
-     launches it fuses also from CUDA graphs (the ring's launch clears its
-     flags, so its graph replays correctly), beside the recorded times of
-     its design before (``PARENT``);
+     and of the chunked CAAR and Euler kernels; both rings and the two
+     launches each fuses also from CUDA graphs (a ring's launch clears its
+     state, so its graph replays correctly), beside the recorded times of
+     the CAAR ring's design before (``PARENT``);
  16. the ring paths at ne30 x 72, launch counts set to 0 just before and
      read just after: 10 chained ``caar_dss_ring_t4`` and 10
      ``ssprk3_ring_t4`` steps and 3 ``ssprk3_tracer_ring_t`` steps at qsize 1
@@ -277,7 +283,8 @@ Any failure raises and exits non-zero before the result line is printed.
 Run from the repository root: ``python3 chip_smoke.py``.
 
 ``kernel_times()`` times the sweep, the t-layout CAAR kernel, the fixup, the
-packed remap, the two tracer stages and the two row CAAR kernels through
+packed remap, the two tracer stages, the two row CAAR kernels, the t
+rsplit=0 kernel and both rings through
 entry points that older trees share, so the same
 measurement runs against a parent checkout: from that checkout's root,
 ``python3 -c "import importlib.util as u; s = u.spec_from_file_location(
@@ -575,7 +582,9 @@ def kernel_times() -> dict:
     state and the slab, as the prim step calls them; the row-layout CAAR
     step ``caar_packed`` and its rsplit=0 mode ``caar_packed_rsplit0``
     (hybi ramp, random eta accumulator) at 1024 x 72 and ne30 x 72 on the
-    row benches' problems and at 1024 x 400; the row assembled step at ne30
+    row benches' problems and at 1024 x 400; the t-layout rsplit=0 step
+    ``caar_packed_rsplit0_t`` on the same problems transposed; the row
+    assembled step at ne30
     (``dist.caar_dss_structured_packed``: by events, the host's time a
     call and its kernels a call by ``torch.profiler``). Run against
     another tree by importing this file with that tree first on
@@ -666,6 +675,7 @@ def kernel_times() -> dict:
         torch.cuda.empty_cache()
     from tinman_sandbox_tpu_torch.kernels.caar import (caar_packed,
                                                        caar_packed_rsplit0)
+    from tinman_sandbox_tpu_torch.kernels.caar_t import caar_packed_rsplit0_t
     out["row"] = {}
     rc, racc = bench.make_problem(1024, NLEV, dev, seed=7, layout="row")
     shapes = {"1024": (rc[:-1], racc, rc[-1])}
@@ -687,6 +697,15 @@ def kernel_times() -> dict:
         out["row"][f"rsplit0_{tag}"] = both(
             lambda: caar_packed_rsplit0(head[0], hyb, *head[1:], *acc, eta,
                                         dvv), reps)
+        # the t layout's rsplit=0 step on the transposed problem
+        th = (head[0], *(x.T.contiguous() for x in head[1:]))
+        thyb = hyb.T.contiguous()
+        tacc = [a.T.contiguous() for a in acc]
+        teta = eta.T.contiguous()
+        out["row"][f"t_rsplit0_{tag}"] = both(
+            lambda: caar_packed_rsplit0_t(th[0], thyb, *th[1:], *tacc, teta,
+                                          dvv), reps)
+        del th, thyb, tacc, teta
     # the row assembled step (the bench's ``--layout row --ne 30``): the row
     # kernel, then the structured DSS in plain PyTorch
     from tinman_sandbox_tpu_torch.dist.step_t import \
@@ -713,8 +732,11 @@ def ring_times(dev) -> dict:
     flags (a tree with ``ring_fused.ring_plan``: an older ring flagged with
     a per-call epoch, which a graph replays unchanged, so its graph would
     not wait); the two launches it fuses by events and from graphs;
-    ``tracer_ring_packed_t`` at qsize 1 and 35 by events (its flags keep
-    epochs: no graph). Returns {"ring": ..., "tracer_ring": ...}."""
+    ``tracer_ring_packed_t`` at qsize 1 and 35, without and with mix, by
+    events, and from CUDA graphs where the tree's tracer ring launch clears
+    its state (a tree with ``ring_fused.tracer_ring_plan``; before, its
+    flags kept a per-call epoch), beside the two launches it fuses by
+    events and from graphs. Returns {"ring": ..., "tracer_ring": ...}."""
     import numpy as np
     import torch
 
@@ -748,15 +770,32 @@ def ring_times(dev) -> dict:
         if safe:
             ring[mode]["graph_ms"] = graph_ms(run, 20)
     del s0, sm1, mx, acc
+    from tinman_sandbox_tpu_torch.kernels.tracer_t import tracer_euler_cuda
+
     const, ps0, _, _, _, _ = bench.make_prim_problem(NE, NLEV, dev, DYN_DT, 1)
     pmeta, pdvv = const[1], const[3]
+    tsafe = hasattr(ring_fused, "tracer_ring_plan")
+    kw = dict(wind_rows=(0, 1))
     for qsize in (1, QSIZE_TALL):
         q = bench.make_prim_problem(NE, NLEV, dev, DYN_DT, qsize)[2]
-        run = lambda: ring_fused.tracer_ring_packed_t(
-            pmeta, ps0, ps0, q, pdvv, DYN_DT, NLEV, rsp, fix,
-            wind_rows=(0, 1))
-        tracer[qsize] = dict(ms=cuda_ms(run, 20 if qsize == 1 else 5))
-        del q
+        mx = torch.rand(q.shape, generator=torch.Generator(
+            device=dev).manual_seed(5), device=dev)
+        reps = 20 if qsize == 1 else 5
+        tracer[qsize] = {}
+        for tag, mix in (("", None), ("mix_", (mx, ca, cb))):
+            run = lambda: ring_fused.tracer_ring_packed_t(
+                pmeta, ps0, ps0, q, pdvv, DYN_DT, NLEV, rsp, fix, mix=mix,
+                **kw)
+            two = lambda: dss_sweep_nomerge_cuda(tracer_euler_cuda(
+                pmeta, ps0, ps0, q, pdvv, DYN_DT, NLEV, fix=fix, **kw)[0],
+                rsp, fix, mix)
+            tracer[qsize].update({
+                f"{tag}ms": cuda_ms(run, reps),
+                f"{tag}two_launch_ms": cuda_ms(two, reps),
+                f"{tag}two_launch_graph_ms": graph_ms(two, reps)})
+            if tsafe:
+                tracer[qsize][f"{tag}graph_ms"] = graph_ms(run, reps)
+        del q, mx
         torch.cuda.empty_cache()
     return {"ring": ring, "tracer_ring": tracer}
 
@@ -2108,6 +2147,36 @@ def same_as_t(row_out, t_out) -> bool:
     return all(torch.equal(a, b) for a, b in zip(rows, t_out))
 
 
+def same_as_row_r0(t_out, targs) -> bool:
+    """Whether the t rsplit=0 outputs are ``caar_packed_rsplit0``'s (the row
+    rsplit=0 kernel, its own accumulators) on the transposed problem,
+    transposed back, bit for bit."""
+    import torch
+
+    from tinman_sandbox_tpu_torch.kernels.caar import caar_packed_rsplit0
+
+    args = row_args(targs)
+    acc = [x.clone() for x in args[-5:-1]]
+    row = caar_packed_rsplit0(*args[:-5], *acc, args[-1])
+    return all(torch.equal(a, b.T) for a, b in zip(t_out, row))
+
+
+def same_bits(name, got, targs, tag) -> str:
+    """Phase 13's bit-for-bit checks: the row rsplit>0 kernel against the t
+    pair form, the t rsplit=0 kernel against the row rsplit=0 kernel, each
+    on the transposed problem. Raises where they differ; returns the note
+    to print."""
+    if name == "caar_packed":
+        bits, other = same_as_t(got, t_pair_of(targs)), "caar_t4_cuda"
+    elif name == "caar_packed_rsplit0_t":
+        bits, other = same_as_row_r0(got, targs), "caar_packed_rsplit0"
+    else:
+        return ""
+    if not bits:
+        raise AssertionError(f"{tag}: not {other}'s bits")
+    return f"; bit for bit {other} transposed: {bits}"
+
+
 def row_modes():
     """The CAAR modes of phase 13: name -> (kernel, plain, operands of the
     rsplit=0 t arguments, output names)."""
@@ -2153,6 +2222,7 @@ def phase_row_kernels(dev, cs):
     from tinman_sandbox_tpu_torch import bench
     from tinman_sandbox_tpu_torch.kernels import _build
     from tinman_sandbox_tpu_torch.kernels.caar_t import (caar_packed_t,
+                                                         caar_plan,
                                                          caar_row_plan)
     from tinman_sandbox_tpu_torch.kernels.tracer import (
         euler_packed, euler_packed_plain)
@@ -2161,6 +2231,16 @@ def phase_row_kernels(dev, cs):
     rows = {}
     modes = row_modes()
     lib = _build.library("caar")
+    for nlev in (NLEV, *CAAR_OTHER_NLEV):
+        p = caar_plan(NE * NE * 6 * 16, nlev, r0=True)
+        occ = lib.caar_blocks_per_sm(5 if p.cap else 4, nlev, p.chunks,
+                                     int(p.stash), dev.index)
+        print(f"phase 13 t rsplit=0 plan nlev {nlev}: {p.chunks} chunks of "
+              f"{p.levels} levels, {'stash' if p.stash else 'no stash'}, "
+              f"{p.smem} B shared, {p.blocks_per_sm} blocks a SM reckoned, "
+              f"{occ} by cudaOccupancy")
+        if occ <= 0:
+            raise AssertionError(f"caar t rsplit=0 occupancy: error {-occ}")
     for r0 in (False, True):
         for nlev in (NLEV, *CAAR_OTHER_NLEV):
             p = caar_row_plan(NE * NE * 6 * 16, nlev, r0)
@@ -2200,13 +2280,7 @@ def phase_row_kernels(dev, cs):
                 e64 = {n: scaled_err(g, w)
                        for n, g, w in zip(names, got, want64)}
                 own = scaled_err(want[3], want64[3])
-                same = ""
-                if name == "caar_packed":
-                    bits = same_as_t(got, t_pair_of(targs))
-                    same = f"; bit for bit caar_t4_cuda transposed: {bits}"
-                    if not bits:
-                        raise AssertionError(f"{name} {tag} {case}: not the "
-                                             "t kernel's bits")
+                same = same_bits(name, got, targs, f"{name} {tag} {case}")
                 print(f"phase 13 {name} {tag} {case}: scaled errors "
                       + " ".join(f"{a} {b:.2e}" for a, b in errs.items())
                       + "; against plain in f64: worst "
@@ -2216,8 +2290,7 @@ def phase_row_kernels(dev, cs):
                 if max(errs.values()) > CAAR_TOL:
                     raise AssertionError(f"{name} {tag} {case}: {errs} > "
                                          f"{CAAR_TOL}")
-                if name != "caar_packed_rsplit0_t" and \
-                        max(e64.values()) > CAAR_TOL:
+                if max(e64.values()) > CAAR_TOL:
                     raise AssertionError(f"{name} {tag} {case}: against "
                                          f"plain in f64 {e64} > {CAAR_TOL}")
                 worst[name][0] = max(worst[name][0], *errs.values())
@@ -2354,22 +2427,24 @@ def phase_row_kernels(dev, cs):
 
 
 def row_other_nlev(dev, nlev: int) -> dict:
-    """Phase 13 off the main path's nlev, at 1024 x ``nlev``: the row
-    kernels (``caar_packed``, ``caar_packed_rsplit0``) in the cases of
-    ``r0_cases``, each field within 5e-5 scaled of its plain version in f64
-    on the same f32 inputs (the plain version in f32 printed beside it: at
-    400 levels its own rsplit=0 dp1 is off the f64 one by the cancellation
-    of its running sums), the rsplit>0 kernel bit for bit ``caar_t4_cuda``
-    on the transposed problem; timed from graphs beside the t pair form.
-    Returns extra keys of their kernel rows."""
+    """Phase 13 off the main path's nlev, at 1024 x ``nlev``: the t
+    rsplit=0 kernel and the row kernels (``caar_packed_rsplit0_t``,
+    ``caar_packed``, ``caar_packed_rsplit0``) in the cases of ``r0_cases``,
+    each field within 5e-5 scaled of its plain version in f64 on the same
+    f32 inputs (the plain version in f32 printed beside it: at 400 levels
+    its own rsplit=0 dp1 is off the f64 one by the cancellation of its
+    running sums), the t rsplit=0 kernel also within 5e-5 of plain f32 and
+    bit for bit ``caar_packed_rsplit0`` on the transposed problem, the
+    rsplit>0 row kernel bit for bit ``caar_t4_cuda``; timed from graphs
+    beside the t pair form. Returns extra keys of their kernel rows."""
     import torch
 
     from tinman_sandbox_tpu_torch import bench
-    from tinman_sandbox_tpu_torch.kernels.caar_t import (caar_row_plan,
+    from tinman_sandbox_tpu_torch.kernels.caar_t import (caar_plan,
+                                                         caar_row_plan,
                                                          caar_t4_cuda)
 
-    modes = {n: m for n, m in row_modes().items()
-             if n != "caar_packed_rsplit0_t"}
+    modes = row_modes()
     const, acc = bench.make_problem(1024, nlev, dev, seed=7)
     tag = f"1024x{nlev}"
     out = {name: {} for name in modes}
@@ -2386,13 +2461,7 @@ def row_other_nlev(dev, nlev: int) -> dict:
             errs = {n: scaled_err(g, w) for n, g, w in zip(names, got, want)}
             e64 = {n: scaled_err(g, w) for n, g, w in zip(names, got, want64)}
             own = scaled_err(want[3], want64[3])
-            same = ""
-            if name == "caar_packed":
-                bits = same_as_t(got, t_pair_of(targs))
-                same = f"; bit for bit caar_t4_cuda transposed: {bits}"
-                if not bits:
-                    raise AssertionError(f"{name} {tag} {case}: not the t "
-                                         "kernel's bits")
+            same = same_bits(name, got, targs, f"{name} {tag} {case}")
             print(f"phase 13 {name} {tag} {case}: against plain in f64 "
                   + " ".join(f"{a} {b:.2e}" for a, b in e64.items())
                   + f"; against plain in f32 worst {max(errs.values()):.2e}"
@@ -2400,8 +2469,14 @@ def row_other_nlev(dev, nlev: int) -> dict:
             if max(e64.values()) > CAAR_TOL:
                 raise AssertionError(f"{name} {tag} {case}: against plain in "
                                      f"f64 {e64} > {CAAR_TOL}")
+            if name == "caar_packed_rsplit0_t" and \
+                    max(errs.values()) > CAAR_TOL:
+                raise AssertionError(f"{name} {tag} {case}: against plain in "
+                                     f"f32 {errs} > {CAAR_TOL}")
             key = f"nlev{nlev}_max_scaled_err_f64"
             out[name][key] = max(out[name].get(key, 0.0), *e64.values())
+            key = f"nlev{nlev}_max_scaled_err"
+            out[name][key] = max(out[name].get(key, 0.0), *errs.values())
             del got, want, want64
     tacc = [x.clone() for x in bench_args[13:16]]
     s0, sm1 = torch.cat(bench_args[3:7]), torch.cat(bench_args[7:11])
@@ -2413,10 +2488,14 @@ def row_other_nlev(dev, nlev: int) -> dict:
         nacc = 4 if len(names) == 9 else 3
         kacc = [x.clone() for x in args[-1 - nacc:-1]]
         g_ms = graph_ms(lambda: kern(*args[:-1 - nacc], *kacc, args[-1]), 10)
-        plan = caar_row_plan(1024 * 16, nlev, name != "caar_packed")
-        print(f"phase 13 {name} {tag}: from a graph {g_ms:.4f} ms "
-              f"({'staged' if plan.stash else 'windowed'}); the t pair form "
-              f"{t_graph:.4f} ms")
+        if name == "caar_packed_rsplit0_t":
+            plan = caar_plan(1024 * 16, nlev, r0=True)
+            how = "stash" if plan.stash else "no stash"
+        else:
+            plan = caar_row_plan(1024 * 16, nlev, name != "caar_packed")
+            how = "staged" if plan.stash else "windowed"
+        print(f"phase 13 {name} {tag}: from a graph {g_ms:.4f} ms ({how}); "
+              f"the t pair form {t_graph:.4f} ms")
         out[name][f"nlev{nlev}_graph_ms"] = g_ms
     del const, acc, bench_args
     torch.cuda.empty_cache()
@@ -2576,6 +2655,116 @@ def ring_field_errs(got, want, nlev) -> dict:
     return {n: scaled_err(a, b) for n, a, b in pairs}
 
 
+def tracer_ring_replays(meta, ps0, q, mx, dvv, dt, k, rsp, fix, cacb, tag,
+                        n: int = 3) -> int:
+    """``tracer_ring_packed_t`` with mix captured in a CUDA graph and
+    replayed ``n`` times, fresh q and mix copied into the captured inputs
+    before each replay; each replay's w and slab bit for bit the two
+    launches it fuses on the same inputs. Returns n; raises where a replay
+    differs."""
+    import torch
+
+    from tinman_sandbox_tpu_torch.kernels.dss import dss_sweep_nomerge_cuda
+    from tinman_sandbox_tpu_torch.kernels.ring_fused import \
+        tracer_ring_packed_t
+    from tinman_sandbox_tpu_torch.kernels.tracer_t import tracer_euler_cuda
+
+    gq, gm = q.clone(), mx.clone()
+    kw = dict(wind_rows=(0, 1))
+    cap = lambda: tracer_ring_packed_t(meta, ps0, ps0, gq, dvv, dt, k, rsp,
+                                       fix, mix=(gm, *cacb), **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cap()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        w, slab = cap()
+    gen = torch.Generator(device=q.device).manual_seed(16)
+    for i in range(n):
+        gq.copy_(q * (0.5 + torch.rand(q.shape, generator=gen,
+                                       device=q.device)))
+        gm.copy_(torch.rand(mx.shape, generator=gen, device=q.device))
+        graph.replay()
+        e, eslab = tracer_euler_cuda(meta, ps0, ps0, gq, dvv, dt, k, fix=fix,
+                                     **kw)
+        want = dss_sweep_nomerge_cuda(e, rsp, fix, (gm, *cacb))
+        torch.cuda.synchronize()
+        if not (torch.equal(w, want) and torch.equal(slab, eslab)):
+            raise AssertionError(f"tracer_ring {tag}: graph replay {i + 1} "
+                                 "is not the two launches' bits")
+    del graph
+    return n
+
+
+def rings_on_two_streams(const, acc, ps0, q_tall, rsp, fix, k,
+                         rounds: int = 3) -> int:
+    """Both rings at once on two streams, three times: on one the CAAR ring
+    (pair form with the slab) and the tracer ring at QSIZE_TALL, on the
+    other the tracer ring at qsize 1 and the CAAR ring, each launched as the
+    other stream runs; every output bit for bit its two launches (the CAAR
+    or Euler kernel, then the merge-free sweep) on the current stream.
+    Returns the rounds; raises where an output differs."""
+    import torch
+
+    from tinman_sandbox_tpu_torch.kernels.caar_t import caar_t4_cuda
+    from tinman_sandbox_tpu_torch.kernels.dss import dss_sweep_nomerge_cuda
+    from tinman_sandbox_tpu_torch.kernels.ring_fused import (
+        caar_ring_packed_t4, tracer_ring_packed_t)
+    from tinman_sandbox_tpu_torch.kernels.tracer_t import tracer_euler_cuda
+
+    scal, meta, s0, sm1, qdp, pecnd, dvv = const
+    kw = dict(wind_rows=(0, 1))
+    q1 = q_tall[:k].contiguous()
+    cur = torch.cuda.current_stream()
+    sa, sb = torch.cuda.Stream(), torch.cuda.Stream()
+
+    def caar():
+        a = [x.clone() for x in acc]
+        return caar_ring_packed_t4(scal, meta, s0, sm1, qdp, pecnd, *a, dvv,
+                                   rsp, fix), a
+
+    def tracer(q):
+        return tracer_ring_packed_t(meta, ps0, ps0, q, dvv, DYN_DT, k, rsp,
+                                    fix, **kw)
+
+    for i in range(rounds):
+        sa.wait_stream(cur)
+        sb.wait_stream(cur)
+        with torch.cuda.stream(sa):
+            ca, ta = caar(), tracer(q_tall)
+        with torch.cuda.stream(sb):
+            tb, cb = tracer(q1), caar()
+        cur.wait_stream(sa)
+        cur.wait_stream(sb)
+        torch.cuda.synchronize()
+        tacc = [x.clone() for x in acc]
+        two = caar_t4_cuda(scal, meta, s0, sm1, qdp, pecnd, *tacc, dvv,
+                           fix=fix)
+        cw = dss_sweep_nomerge_cuda(two[0], rsp, fix)
+        for (got, a), tag in ((ca, "a"), (cb, "b")):
+            same = torch.equal(got[0], cw) and torch.equal(got[1], two[1]) \
+                and torch.equal(got[5], two[5]) and \
+                all(torch.equal(x, y) for x, y in zip(a, tacc))
+            if not same:
+                raise AssertionError(f"caar_ring on stream {tag}, round "
+                                     f"{i + 1}: not the two launches' bits")
+        for (w, slab), q, tag in ((ta, q_tall, "a"), (tb, q1, "b")):
+            e, eslab = tracer_euler_cuda(meta, ps0, ps0, q, dvv, DYN_DT, k,
+                                         fix=fix, **kw)
+            if not (torch.equal(w, dss_sweep_nomerge_cuda(e, rsp, fix))
+                    and torch.equal(slab, eslab)):
+                raise AssertionError(f"tracer_ring on stream {tag}, round "
+                                     f"{i + 1}: not the two launches' bits")
+        del ca, cb, ta, tb, two, cw
+    print(f"phase 15 rings on two streams at once: {rounds} rounds (the CAAR"
+          f" ring and the tracer ring at qsize {q_tall.shape[0] // k} on one,"
+          " the tracer ring at qsize 1 and the CAAR ring on the other), every"
+          " output bit for bit its two launches")
+    return rounds
+
+
 def phase_ring_kernels(dev, cs):
     """The four kernels of the ring path at ne30 x 72: the CAAR and tracer
     ring kernels against their plain versions (5e-5 per output block) and
@@ -2596,8 +2785,8 @@ def phase_ring_kernels(dev, cs):
         dss_structured_t_cuda_patch, dss_sweep_nomerge_cuda,
         dss_sweep_nomerge_plain, fix_tables, make_fix_tables)
     from tinman_sandbox_tpu_torch.kernels.ring_fused import (
-        caar_ring_packed_t4, caar_ring_plain, ring_geometry, ring_plan,
-        tracer_ring_packed_t, tracer_ring_plain)
+        caar_ring_packed_t4, caar_ring_plain, ring_plan, tracer_ring_packed_t,
+        tracer_ring_plain, tracer_ring_plan)
     from tinman_sandbox_tpu_torch.kernels.tracer_t import (
         TRACER_LEVELS, TRACER_TILE, tracer_euler_cuda, tracer_euler_plain)
 
@@ -2606,8 +2795,7 @@ def phase_ring_kernels(dev, cs):
     const = (scal, meta, s0, sm1, qdp, pecnd, dvv)
     fix = fix_tables(plan, dev)
     e16, n, k, nr = cs.nelem * 16, fix.nfix, NLEV, rsp.shape[0]
-    geo = ring_geometry(cs.ne)                 # the tracer ring's tiles
-    nb = -(-e16 // geo.tile)
+    tplan = tracer_ring_plan(e16, k, cs.ne)    # the tracer ring's, qsize 1
     rplan = ring_plan(e16, k, cs.ne)           # the CAAR ring's
     gen = torch.Generator(device=dev).manual_seed(15)
     rnd = lambda rows: torch.randn(rows, e16, generator=gen, device=dev)
@@ -2628,7 +2816,7 @@ def phase_ring_kernels(dev, cs):
                tr_lib.tracer_blocks_per_sm(0, dev.index),
                -(-e16 // TRACER_TILE) * -(-k // TRACER_LEVELS)),
            "tracer_ring_kernel": (tr_lib.tracer_blocks_per_sm(1, dev.index),
-                                  (nb + geo.halo) * -(-k // 8))}
+                                  tplan.tickets)}
     for name, (bps, blocks) in occ.items():
         if bps <= 0:
             raise AssertionError(f"occupancy of {name}: error {-bps}")
@@ -2790,15 +2978,26 @@ def phase_ring_kernels(dev, cs):
             worst = max(worst, err)
             worst_abs = max(worst_abs, float((got - want).abs().max()))
             del want, wslab, got, slab, e, eslab
+        replays = tracer_ring_replays(meta, ps0, q, mx, dvv, dt_long, k, rsp,
+                                      fix, (ca, cb),
+                                      f"{tag0} dt {dt_long:.4g}")
         reps = 50 if qsize == 1 else 10
-        t_ms = cuda_ms(lambda: tracer_ring_packed_t(
-            meta, ps0, ps0, q, dvv, DYN_DT, k, rsp, fix, **kw), reps)
-        tm_ms = cuda_ms(lambda: tracer_ring_packed_t(
+        run = lambda: tracer_ring_packed_t(
+            meta, ps0, ps0, q, dvv, DYN_DT, k, rsp, fix, **kw)
+        run_mix = lambda: tracer_ring_packed_t(
             meta, ps0, ps0, q, dvv, DYN_DT, k, rsp, fix, mix=(mx, ca, cb),
-            **kw), reps)
-        two_ms = cuda_ms(lambda: dss_sweep_nomerge_cuda(tracer_euler_cuda(
-            meta, ps0, ps0, q, dvv, DYN_DT, k, fix=fix, **kw)[0], rsp, fix),
-            reps)
+            **kw)
+        two = lambda: dss_sweep_nomerge_cuda(tracer_euler_cuda(
+            meta, ps0, ps0, q, dvv, DYN_DT, k, fix=fix, **kw)[0], rsp, fix)
+        two_mix = lambda: dss_sweep_nomerge_cuda(tracer_euler_cuda(
+            meta, ps0, ps0, q, dvv, DYN_DT, k, fix=fix, **kw)[0], rsp, fix,
+            (mx, ca, cb))
+        t_ms, tm_ms, two_ms = (cuda_ms(run, reps), cuda_ms(run_mix, reps),
+                               cuda_ms(two, reps))
+        # the launch clears its state, so a graph of it replays correctly
+        t_graph, tm_graph = graph_ms(run, reps), graph_ms(run_mix, reps)
+        two_graph, two_mix_graph = graph_ms(two, reps), graph_ms(two_mix,
+                                                                  reps)
         p_ms = cuda_ms(lambda: tracer_ring_plain(
             meta, ps0, ps0, q, dvv, DYN_DT, k, rsp, fix, **kw), 3)
         qk = qsize * k
@@ -2810,27 +3009,40 @@ def phase_ring_kernels(dev, cs):
         bnd, by = bound_ms(nbt(2 + 2 * qsize), ops)
         bnd_m, _ = bound_ms(nbt(2 + 3 * qsize), ops + MIX_OPS_PER_POINT * qk
                             * e16)
-        print(f"phase 15 tracer_ring {tag0}: kernel {t_ms:.4f} ms (bound "
-              f"{bnd:.4f} ms, {by}), with mix {tm_ms:.4f} ms (bound "
-              f"{bnd_m:.4f} ms); the two launches it fuses {two_ms:.4f} ms; "
-              f"plain {p_ms:.4f} ms, library none")
+        tplan = tracer_ring_plan(e16, k, cs.ne, qsize)
+        print(f"phase 15 tracer_ring {tag0}: kernel {t_ms:.4f} ms, from a "
+              f"graph {t_graph:.4f} (bound {bnd:.4f} ms, {by}), with mix "
+              f"{tm_ms:.4f} ms, graph {tm_graph:.4f} (bound {bnd_m:.4f} ms); "
+              f"the two launches it fuses {two_ms:.4f} ms, graph "
+              f"{two_graph:.4f} (with mix {two_mix_graph:.4f}); plain "
+              f"{p_ms:.4f} ms, library none; {tplan.items} items of "
+              f"{tplan.group * 8} levels x {tplan.tracers} tracers + halo "
+              f"{tplan.geo.halo} + lag {tplan.lag} = {tplan.tickets} blocks; "
+              f"{replays} graph replays on fresh inputs bit for bit the two "
+              "launches")
+        pre = "" if qsize == 1 else "tall_"
+        r = rows.setdefault("tracer_ring_packed_t", dict(
+            route="cuda", source="tinman_sandbox_tpu_torch/csrc/tracer.cu",
+            replaces="tinman_sandbox_tpu/kernels/ring_fused.py:369",
+            max_abs_err=0.0, library_ms=None,
+            blocks_per_sm=occ["tracer_ring_kernel"][0]))
+        r.update({f"{pre}max_scaled_err": worst, f"{pre}ms": t_ms,
+                  f"{pre}plain_ms": p_ms, f"{pre}bound_ms": bnd,
+                  f"{pre}mix_ms": tm_ms, f"{pre}mix_bound_ms": bnd_m,
+                  f"{pre}two_launch_ms": two_ms, f"{pre}graph_ms": t_graph,
+                  f"{pre}mix_graph_ms": tm_graph,
+                  f"{pre}two_launch_graph_ms": two_graph,
+                  f"{pre}two_launch_mix_graph_ms": two_mix_graph,
+                  f"{pre}graph_replays_bitwise": replays})
         if qsize == 1:
-            rows["tracer_ring_packed_t"] = dict(
-                route="cuda", source="tinman_sandbox_tpu_torch/csrc/tracer.cu",
-                replaces="tinman_sandbox_tpu/kernels/ring_fused.py:369",
-                max_abs_err=worst_abs, max_scaled_err=worst, ms=t_ms,
-                plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=None,
-                mix_ms=tm_ms, mix_bound_ms=bnd_m, two_launch_ms=two_ms,
-                blocks_per_sm=occ["tracer_ring_kernel"][0])
+            r["bound_by"] = by
         else:
-            r = rows["tracer_ring_packed_t"]
-            r.update(tall_qsize=qsize, tall_max_scaled_err=worst,
-                     tall_ms=t_ms, tall_mix_ms=tm_ms, tall_plain_ms=p_ms,
-                     tall_bound_ms=bnd, tall_mix_bound_ms=bnd_m,
-                     tall_two_launch_ms=two_ms)
-            r["max_abs_err"] = max(r["max_abs_err"], worst_abs)
+            r["tall_qsize"] = qsize
+        r["max_abs_err"] = max(r["max_abs_err"], worst_abs)
         del q, mx
         torch.cuda.empty_cache()
+    rows["tracer_ring_packed_t"]["two_streams_bitwise"] = rings_on_two_streams(
+        const, acc, ps0, q_tall, rsp, fix, k)
     del q_tall
 
     # -- the merge-free sweep and the patch at 288, 72 and 2,520 rows
@@ -4581,6 +4793,7 @@ def main() -> int:
                         ("dss", "dss_sweep_banded_kernel"),
                         ("caar", "caar_chunk_kernel"),
                         ("caar", "caar_ring_kernel"),
+                        ("caar", "caar_r0_kernel"),
                         ("remap", "remap_kernel"),
                         ("tracer", "tracer_kernel"),
                         ("tracer", "tracer_ring_kernel")):

@@ -7,9 +7,9 @@ not part of the port: the port keeps one plan per kernel, and this script is
 how the hypotheses about them were tested.
 
     python3 experiments/kernel_variants.py [sweep] [caar] [fixup] [remap]
-        [tracer] [row] [ring] [banded]
+        [tracer] [row] [ring] [banded] [tracer_ring] [rsplit0]
 
-from the repository root: the named groups (default all eight), in that
+from the repository root: the named groups (default all ten), in that
 order.
 
   1. the sweep: the port's kernel (``dss_sweep_cuda``: one row a thread, 40
@@ -87,7 +87,30 @@ order.
      the lane-a-thread kernel it replaced (``banded_variants.cu``), bit for
      bit on every shard, merged and merge-free, both timed from CUDA graphs
      over all the shards (one launch a shard) beside one shard alone and
-     the single-device sweep of the same sphere.
+     the single-device sweep of the same sphere;
+  9. the tracer ring kernel (``tracer_ring_packed_t``) at ne30 x 72, qsize
+     1 and 35, without and with mix: ``csrc/tracer.cu`` built as the port
+     builds it and with one or two parts of its design changed
+     (``TRACER_RING_BUILDS``: the sweep's reads through L2 alone, no
+     discard, no L2 hints, 2 rows of loads in flight a thread; the producer
+     alone, with its wait, without hints; the lane-a-thread sweep of the
+     design before), all built in parallel, some at each lag of
+     ``TRACER_RING_LAGS``, the port's also with items of each size of
+     ``TRACER_RING_ROWS`` (``ring_fused.TRACER_RING_ITEM_ROWS`` replaced
+     for the run). Each is held bit for bit against the two
+     launches it fuses (``tracer_euler_cuda`` with the slab, then
+     ``dss_sweep_nomerge_cuda``; the builds without the sweep on the slab)
+     and timed by events and from CUDA graphs, with ptxas's registers and
+     cudaOccupancy's blocks an SM; the two launches and each alone first;
+ 10. the t-layout rsplit=0 CAAR kernel (``caar_packed_rsplit0_t``) on the
+     bench case of ``chip_smoke.r0_cases`` at 1024 x 72, ne30 x 72 and 1024
+     x 400 under each plan of ``R0_PLANS`` (``caar_plan`` replaced for the
+     run): with the stash at 2 blocks an SM (128 registers) and at 3 (80,
+     the instance ``caar_plan`` takes from R0_WAVES waves), and without
+     the stash; each held per field within 5e-5 of the plain version in f64
+     and bit for bit the row rsplit=0 kernel on the transposed problem,
+     timed from CUDA graphs beside the row kernel and the t pair form, with
+     ptxas's registers of each instance.
 
 Every line is one JSON object and names the card and its power limit.
 Without a card the script raises.
@@ -255,7 +278,7 @@ def caars(dev, card, fix, assembled, raw):
     try:
         for chunks, stash in CAAR_VARIANTS:
             levels = -(-nlev // chunks)
-            caar_t.caar_plan = lambda ncol, nl: caar_t.CaarPlan(
+            caar_t.caar_plan = lambda ncol, nl, r0=False: caar_t.CaarPlan(
                 ncol, nl, caar_t.TILE, -(-nl // levels), levels, stash)
             p = caar_t.caar_plan(qdp.shape[1], nlev)
             line = dict(card=card, kernel="caar_chunk", chunks=p.chunks,
@@ -599,29 +622,31 @@ ROW_BUILDS = (("w8", []), ("inplace", ["-DCAAR_ROW_WINDOW=0"]),
 ROW_SHAPES = ((400, False), (198, False), (150, False), (150, True))
 
 
-def _caar_libraries(builds, tag, instance):
-    """Build every (name, nvcc flags) of ``builds`` from csrc/caar.cu at once
-    (one nvcc each) into build/experiments/caar_<tag>_<name>.so; returns
-    {name: (the loaded library, {instance: registers, spills})} for the
-    kernels whose names contain ``instance``."""
+def _caar_libraries(builds, tag, instance, source="caar"):
+    """Build every (name, nvcc flags) of ``builds`` from csrc/<source>.cu
+    (caar.cu by default) at once (one nvcc each) into
+    build/experiments/<source>_<tag>_<name>.so; returns {name: (the loaded
+    library, {instance: registers, spills})} for the kernels whose names
+    contain ``instance``."""
     from tinman_sandbox_tpu_torch.kernels import _build
 
     out = os.path.join(ROOT, "build", "experiments")
     os.makedirs(out, exist_ok=True)
     procs = {}
     for name, flags in builds:
-        lib = os.path.join(out, f"caar_{tag}_{name}.so")
+        lib = os.path.join(out, f"{source}_{tag}_{name}.so")
         procs[name] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build._flags("caar"), *flags, "-o", lib,
-             os.path.join(CSRC, "caar.cu")],
+            [_build._nvcc(), *_build._flags(source), *flags, "-o", lib,
+             os.path.join(CSRC, _build.SOURCES[source])],
             stderr=subprocess.PIPE, text=True))
     libs = {}
     for name, (lib, proc) in procs.items():
         report = proc.communicate()[1]
         if proc.returncode:
-            raise RuntimeError(f"caar {tag} build {name}: {report[-2000:]}")
+            raise RuntimeError(f"{source} {tag} build {name}: "
+                               f"{report[-2000:]}")
         so = ctypes.CDLL(lib)
-        for fn, argtypes in _build._SIGNATURES["caar"].items():
+        for fn, argtypes in _build._SIGNATURES[source].items():
             f = getattr(so, fn)
             f.argtypes = argtypes
             f.restype = (ctypes.c_char_p if fn.endswith("_error_string")
@@ -922,9 +947,216 @@ def banded(dev, card):
             torch.cuda.empty_cache()
 
 
+# builds of csrc/tracer.cu for the tracer ring kernel: (name, nvcc flags),
+# the port's first (float4 sweep through L1 with a row of loads in flight, s1
+# evict-last and w evict-first in L2, s1 discarded by its last reader,
+# registers capped for 5 blocks an SM); then one or two parts changed: the
+# reads through L2 alone (TRACER_RING_L1), the discard (TRACER_RING_DISCARD),
+# the hints (TRACER_RING_KEEP), the rows in flight (TRACER_RING_UNROLL), the
+# register cap (TRACER_RING_BLOCKS), the sweep (TRACER_RING_SWEEP: 0 none
+# and no wait, the producer alone; 3 the wait alone; 2 a lane a thread
+# through L2, the design before's sweep). The builds of TRACER_RING_LAGGED
+# run at each lag of TRACER_RING_LAGS, the others at the port's.
+_TPLAIN = ["-DTRACER_RING_KEEP=0", "-DTRACER_RING_DISCARD=0"]
+TRACER_RING_BUILDS = (
+    ("port", []),
+    ("l2_reads", ["-DTRACER_RING_L1=0"]),
+    ("no_discard", ["-DTRACER_RING_DISCARD=0"]),
+    ("no_discard_no_hint", _TPLAIN),
+    ("unroll2", ["-DTRACER_RING_UNROLL=2"]),
+    ("unroll4", ["-DTRACER_RING_UNROLL=4"]),
+    ("uncapped", ["-DTRACER_RING_BLOCKS=0"]),
+    ("blocks6", ["-DTRACER_RING_BLOCKS=6"]),
+    ("producer", ["-DTRACER_RING_SWEEP=0", *_TPLAIN]),
+    ("producer_hint", ["-DTRACER_RING_SWEEP=0", "-DTRACER_RING_DISCARD=0"]),
+    ("producer_wait", ["-DTRACER_RING_SWEEP=3", *_TPLAIN]),
+    ("lane_sweep", ["-DTRACER_RING_SWEEP=2", *_TPLAIN]))
+TRACER_RING_LAGS = (0, 16, 48, 128, 256)
+TRACER_RING_LAGGED = ("port", "no_discard_no_hint", "producer_wait")
+# item sizes (ring_fused.TRACER_RING_ITEM_ROWS: the rows chunks of every
+# tracer are grouped up to, the rows a chunk of every tracer is split over
+# tracer groups above) the port's build also runs at: (8, 8) a chunk of one
+# tracer; (8, 1000) a chunk of every tracer (the first design's items);
+# others between
+TRACER_RING_ROWS = ((8, 8), (8, 1000), (16, 72), (48, 72), (72, 72),
+                    (24, 48), (24, 144))
+
+
+def tracer_ring(dev, card, fix, rsp):
+    from chip_smoke import DYN_DT, QSIZE_TALL
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.kernels import _build, ring_fused
+    from tinman_sandbox_tpu_torch.kernels.dss import dss_sweep_nomerge_cuda
+    from tinman_sandbox_tpu_torch.kernels.tracer_t import tracer_euler_cuda
+
+    const, ps0, q_tall, _, _, _ = bench.make_prim_problem(
+        30, 72, dev, DYN_DT, QSIZE_TALL)
+    meta, dvv = const[1], const[3]
+    k = 72
+    ca, cb = float(np.float32(1 / 3)), float(np.float32(2 / 3))
+    kw = dict(wind_rows=(0, 1))
+    cases = {}
+    for qsize in (1, QSIZE_TALL):
+        q = q_tall[:qsize * k].contiguous()
+        mx = torch.rand(q.shape, generator=torch.Generator(
+            device=dev).manual_seed(5), device=dev)
+        reps = 30 if qsize == 1 else 5
+        for mixed in (False, True):
+            mix = (mx, ca, cb) if mixed else None
+            e, slab = tracer_euler_cuda(meta, ps0, ps0, q, dvv, DYN_DT, k,
+                                        fix=fix, **kw)
+            cases[(qsize, mixed)] = (q, mix, reps, dss_sweep_nomerge_cuda(
+                e, rsp, fix, mix), slab)
+            euler = lambda: tracer_euler_cuda(meta, ps0, ps0, q, dvv, DYN_DT,
+                                              k, fix=fix, **kw)
+            sweep = lambda: dss_sweep_nomerge_cuda(e, rsp, fix, mix)
+            two = lambda: dss_sweep_nomerge_cuda(euler()[0], rsp, fix, mix)
+            print(json.dumps(dict(
+                card=card, kernel="tracer_ring_reference", qsize=qsize,
+                mix=mixed, two_launch_graph_ms=graph_ms(two, reps),
+                two_launch_ms=cuda_ms(two, reps),
+                euler_graph_ms=graph_ms(euler, reps),
+                sweep_graph_ms=graph_ms(sweep, reps))), flush=True)
+            del e
+    libs = _caar_libraries(TRACER_RING_BUILDS, "ring", "tracer_ring_kernel",
+                           source="tracer")
+    port_library, port_plan = _build.library, ring_fused.tracer_ring_plan
+    port_rows = ring_fused.TRACER_RING_ITEM_ROWS
+    runs = [(name, lag, port_rows) for name, _ in TRACER_RING_BUILDS
+            for lag in (TRACER_RING_LAGS if name in TRACER_RING_LAGGED
+                        else (ring_fused.TRACER_RING_LAG,))]
+    runs += [("port", ring_fused.TRACER_RING_LAG, rows)
+             for rows in TRACER_RING_ROWS]
+    try:
+        for name, lag, rows in runs:
+            so, regs = libs[name]
+            _build.library = (lambda n, so=so: so if n == "tracer"
+                              else port_library(n))
+            ring_fused.tracer_ring_plan = (
+                lambda ncol, nl, ne, qs=1, g=lag: port_plan(ncol, nl, ne, qs,
+                                                            lag=g))
+            ring_fused.TRACER_RING_ITEM_ROWS = rows
+            line = dict(card=card, kernel="tracer_ring", build=name, lag=lag,
+                        item_rows=rows, registers=regs,
+                        blocks_per_sm=so.tracer_blocks_per_sm(1, dev.index))
+            swept = "producer" not in name
+            for (qsize, mixed), (q, mix, reps, w, slab) in cases.items():
+                tag = f"q{qsize}{'_mix' if mixed else ''}"
+                run = lambda: ring_fused.tracer_ring_packed_t(
+                    meta, ps0, ps0, q, dvv, DYN_DT, k, rsp, fix, mix=mix,
+                    **kw)
+                got = run()
+                torch.cuda.synchronize()
+                if not (torch.equal(got[1], slab)
+                        and (not swept or torch.equal(got[0], w))):
+                    raise AssertionError(f"tracer ring {name} lag {lag} "
+                                         f"{tag}: not the two launches' bits")
+                p = ring_fused.tracer_ring_plan(q.shape[1], k, fix.ne,
+                                                q.shape[0] // k)
+                line[f"{tag}_item"] = [p.group, p.tracers, p.items]
+                line[f"{tag}_bitwise"] = "all" if swept else "slab"
+                line[f"{tag}_graph_ms"] = graph_ms(run, reps)
+                line[f"{tag}_ms"] = cuda_ms(run, reps)
+                del got
+            print(json.dumps(line), flush=True)
+            _build.library = port_library
+            ring_fused.tracer_ring_plan = port_plan
+            ring_fused.TRACER_RING_ITEM_ROWS = port_rows
+    finally:
+        _build.library, ring_fused.tracer_ring_plan = port_library, port_plan
+        ring_fused.TRACER_RING_ITEM_ROWS = port_rows
+
+
+# the t-layout rsplit=0 kernel's plans: (stash, blocks an SM)
+R0_PLANS = ((True, 2), (True, 3), (False, 2))
+
+
+def rsplit0(dev, card):
+    import dataclasses
+    import importlib
+
+    from chip_smoke import (ptxas_report, r0_cases, row_modes, run_mode,
+                            same_as_row_r0, scaled_err)
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.kernels import _build
+    from tinman_sandbox_tpu_torch.kernels.caar_t import caar_t4_cuda
+
+    caar_t = importlib.import_module("tinman_sandbox_tpu_torch.kernels.caar_t")
+    _build.library("caar")
+    print(json.dumps(dict(card=card, kernel="caar_r0", registers=dict(
+        ptxas_report("caar", "caar_r0_kernel")))), flush=True)
+    modes = row_modes()
+    t_mode, row_mode = modes["caar_packed_rsplit0_t"], \
+        modes["caar_packed_rsplit0"]
+    port_plan = caar_t.caar_plan
+    problems = (("1024x72", lambda: bench.make_problem(1024, 72, dev,
+                                                       seed=7)),
+                ("ne30x72", lambda: _assembled_const(dev)),
+                ("1024x400", lambda: bench.make_problem(1024, 400, dev,
+                                                        seed=7)))
+    try:
+        for tag, make in problems:
+            const, acc = make()
+            targs = dict(r0_cases(const, acc))["bench"]
+            nlev, ncol = targs[3].shape
+            _, _, want64 = run_mode(t_mode, targs)
+            rargs = row_mode[2](targs)
+            racc = [x.clone() for x in rargs[-5:-1]]
+            row_ms = graph_ms(lambda: row_mode[0](*rargs[:-5], *racc,
+                                                  rargs[-1]), 10)
+            tacc = [x.clone() for x in targs[13:16]]
+            s0, sm1 = torch.cat(targs[3:7]), torch.cat(targs[7:11])
+            pair_ms = graph_ms(lambda: caar_t4_cuda(
+                targs[0], targs[2], s0, sm1, targs[11], targs[12], *tacc,
+                targs[17]), 10)
+            port = port_plan(ncol, nlev, r0=True)
+            for stash, blocks in R0_PLANS:
+                if stash and not caar_t.caar_plan(ncol, nlev).stash:
+                    continue
+                plan = dataclasses.replace(
+                    port, stash=stash,
+                    cap=caar_t.CHUNK_REGS if blocks == 3 else 0)
+                if plan.blocks_per_sm != blocks:
+                    continue        # three do not fit
+                caar_t.caar_plan = lambda ncol, nl, r0=False, p=plan: p
+                kacc = [x.clone() for x in targs[13:17]]
+                run = lambda: t_mode[0](*targs[:13], *kacc, targs[17])
+                got = run()
+                torch.cuda.synchronize()
+                e64 = max(scaled_err(g, w) for g, w in zip(got, want64))
+                if e64 > CAAR_TOL or not same_as_row_r0(got, targs):
+                    raise AssertionError(f"caar r0 {plan} {tag}: {e64} or "
+                                         "not the row kernel's bits")
+                del got
+                print(json.dumps(dict(
+                    card=card, kernel="caar_packed_rsplit0_t", shape=tag,
+                    stash=stash, blocks_per_sm=blocks,
+                    port_plan=(port.stash, port.blocks_per_sm) == (stash,
+                                                                   blocks),
+                    waves=plan.waves, max_scaled_err_f64=e64,
+                    bitwise_row_rsplit0="yes", graph_ms=graph_ms(run, 10),
+                    ms=cuda_ms(run, 10), row_rsplit0_graph_ms=row_ms,
+                    t_pair_graph_ms=pair_ms)), flush=True)
+                caar_t.caar_plan = port_plan
+            del const, acc, targs, want64, rargs, racc
+            torch.cuda.empty_cache()
+    finally:
+        caar_t.caar_plan = port_plan
+
+
+def _assembled_const(dev):
+    """The ne30 x 72 assembled bench problem in ``bench.make_problem``'s
+    form: (const, acc)."""
+    from tinman_sandbox_tpu_torch import bench
+
+    (scal, meta, qdp, pecnd, dvv), (s0, sm1), acc, _, _ = \
+        bench.make_assembled_problem(30, 72, dev)
+    return (scal, meta, s0, sm1, qdp, pecnd, dvv), acc
+
+
 def main(argv=None) -> int:
     every = ["sweep", "caar", "fixup", "remap", "tracer", "row", "ring",
-             "banded"]
+             "banded", "tracer_ring", "rsplit0"]
     groups = (argv if argv is not None else sys.argv[1:]) or every
     if set(groups) - set(every):
         raise SystemExit(f"kernel_variants: unknown group in {groups}")
@@ -957,6 +1189,10 @@ def main(argv=None) -> int:
              rsp)
     if "banded" in groups:
         banded(dev, card)
+    if "tracer_ring" in groups:
+        tracer_ring(dev, card, fix, rsp)
+    if "rsplit0" in groups:
+        rsplit0(dev, card)
     return 0
 
 

@@ -13,7 +13,10 @@ own kernels):
 
   * ``--kernels``: ``chip_smoke.kernel_times()`` of this file's tree,
     imported with the other tree first on ``sys.path``, so both trees are
-    timed by the same code through the entry points they share;
+    timed by the same code through the entry points they share (the
+    kernels the last redesigns touched, the t rsplit=0 CAAR and both rings
+    among them; a ring's graph time where that tree's launch clears its
+    state);
   * ``--benches``: the port's benches, ``python -m
     tinman_sandbox_tpu_torch.bench`` raw, ``--ne 30``, ``--ne 30 --ring``,
     ``--ne 30 --rk --hypervis-nu 1e15``, ``--ne 30 --prim --hypervis-nu

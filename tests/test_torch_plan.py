@@ -7,7 +7,10 @@ chunked CAAR kernel's summation order repeated on the CPU against the JAX
 package (Pallas in interpret mode, and caar_xla) within the on-card gate of
 5e-5 scaled per field; the row kernel's staging (a permutation into
 swizzled planes: the t order bit for bit) and its rsplit=0 order against
-the row Pallas kernels and, in f64, the port's plain step."""
+the row Pallas kernels and, in f64, the port's plain step; the t layout's
+rsplit=0 plan (``caar_plan(r0=True)``) and order: bit for bit the row
+kernel's on the transposed problem, against its Pallas kernel and, in f64,
+the port's plain step."""
 import dataclasses
 import importlib
 import os
@@ -29,6 +32,7 @@ from tinman_sandbox_tpu.kernels.caar_pallas import (
 )
 from tinman_sandbox_tpu.kernels.caar_pallas_t import (
     _scalars as j_scalars,
+    caar_pallas_packed_rsplit0_t,
     caar_pallas_packed_t4_lg,
     pack_problem_t as j_pack,
 )
@@ -39,6 +43,7 @@ from tinman_sandbox_tpu_torch.dist import (build_cubed_sphere,
                                            make_structured_plan)
 from tinman_sandbox_tpu_torch.kernels import _build, dss, ring_fused
 from tinman_sandbox_tpu.kernels.layout import pack_field as j_pack_field
+from tinman_sandbox_tpu.kernels.layout import pack_field_t as j_pack_field_t
 from tinman_sandbox_tpu_torch.kernels.caar import caar_packed_rsplit0_plain
 from tinman_sandbox_tpu_torch.kernels.dss import (
     dss_sweep_cuda, dss_sweep_nomerge_cuda, fix_tables, sweep_plan)
@@ -707,3 +712,130 @@ def test_torch_row_rsplit0_order_matches_pallas_and_plain(nlev):
             tol = 1e-12
         for g, r in zip(got, ref):
             assert _err(g, r) < tol, (dtype, _err(g, r))
+
+
+# -- the t layout's rsplit=0 kernel: its plan and order ---------------------
+
+R0_NAMES = ("u0", "v0", "t0", "dp0", "um1", "vm1", "tm1", "dpm1", "qdp",
+            "pecnd", "vn0u", "vn0v", "omg")
+
+
+@pytest.mark.parametrize("ncol,nlev", SHAPES)
+def test_torch_caar_r0_plan_is_pure_and_fits_the_card(ncol, nlev):
+    """caar_plan(r0=True), row 6's launch: pure, the chunks and tile of
+    the rsplit>0 plan and of the row rsplit=0 plan (so the row kernel's
+    order), at the rsplit=0 kernels' register cap, the stash wherever two
+    blocks an SM fit (146 levels), three blocks at the chunked kernel's cap
+    where they fit and fill R0_WAVES waves (ne30 x 72, not 1024 x 72), and
+    within the card's limits."""
+    plan = caar_t.caar_plan(ncol, nlev, r0=True)
+    caar_t.caar_plan.cache_clear()
+    assert caar_t.caar_plan(ncol, nlev, r0=True) == plan
+    t = caar_t.caar_plan(ncol, nlev)
+    row = caar_t.caar_row_plan(ncol, nlev, r0=True)
+    assert (plan.chunks, plan.levels, plan.tile) == \
+        (t.chunks, t.levels, t.tile) == (row.chunks, row.levels, row.tile)
+    assert plan.r0 and not plan.row
+    assert plan.threads == plan.tile * plan.chunks <= caar_t.CHUNK_THREADS
+    assert plan.smem <= caar_t.SMEM_MAX and plan.blocks_per_sm >= 1
+    assert plan.blocks_per_sm * (plan.smem + caar_t.SMEM_RESERVED) <= \
+        caar_t.SM_SMEM
+    assert plan.blocks_per_sm * plan.threads * plan.regs <= caar_t.SM_REGS
+    assert plan.stash == (nlev <= 146)
+    # the instance capped for three blocks an SM: with the stash, where
+    # three fit and the launch is at least R0_WAVES waves of them
+    three = dataclasses.replace(plan, cap=caar_t.CHUNK_REGS)
+    capped = plan.stash and three.blocks_per_sm == 3 and \
+        three.waves >= caar_t.R0_WAVES
+    assert plan.cap == (caar_t.CHUNK_REGS if capped else 0)
+    assert plan.regs == (caar_t.CHUNK_REGS if capped else caar_t.ROW_REGS)
+    assert plan.blocks_per_sm == (3 if capped else 2)
+    if plan.stash:
+        assert plan.smem == 4 * (6 * nlev + 3 * plan.chunks) * plan.tile
+
+
+def test_torch_caar_r0_plan_at_the_main_shapes():
+    """The t rsplit=0 plans chip_smoke.py prints: the stash at 2 blocks an
+    SM at 1024 x 72 (1.9 waves), at 3 at ne30 x 72 (6.8 waves)."""
+    raw, ne30 = caar_t.caar_plan(16384, 72, r0=True), \
+        caar_t.caar_plan(86400, 72, r0=True)
+    assert (raw.stash, raw.cap, raw.blocks_per_sm) == (True, 0, 2)
+    assert (ne30.stash, ne30.cap, ne30.blocks_per_sm) == (True, 80, 3)
+
+
+def _caar_launch_accepts(ncol: int, nlev: int) -> bool:
+    """caar_launch's conditions on the shape at the t layout (its operands
+    aside), its constants read from csrc/caar.cu, with the plan's chunks and
+    the least shared memory (no stash)."""
+    with open(os.path.join(os.path.dirname(_build.__file__), os.pardir,
+                           "csrc", "caar.cu")) as f:
+        src = f.read()
+    const = lambda pat: int(re.search(pat, src).group(1))
+    tile = const(r"constexpr int kChunkTile = (\d+);")
+    threads = const(r"constexpr int kChunkThreads = (\d+);")
+    max_nlev = const(r"constexpr int kMaxNlev = (\d+);")
+    max_smem = const(r"constexpr size_t kMaxSmem = (\d+);")
+    assert (tile, threads, max_nlev) == (caar_t.TILE, caar_t.CHUNK_THREADS,
+                                         caar_t._MAX_NLEV)
+    if ncol < 1 or ncol % 16 or nlev < 1 or nlev > max_nlev:
+        return False
+    levels = -(-nlev // caar_t.CHUNKS)
+    chunks = -(-nlev // levels)
+    return (tile * chunks <= threads
+            and (nlev + 3 * chunks) * tile * 4 <= max_smem)
+
+
+@pytest.mark.parametrize("ncol,nlev", [*SHAPES, (384, 0), (384, 401),
+                                       (24, 8), (0, 8), (16, 1), (16, 400)])
+def test_torch_caar_r0_plan_refuses_what_the_launch_refuses(ncol, nlev):
+    if _caar_launch_accepts(ncol, nlev):
+        plan = caar_t.caar_plan(ncol, nlev, r0=True)
+        assert plan.blocks * plan.tile >= ncol
+    else:
+        with pytest.raises(ValueError):
+            caar_t.caar_plan(ncol, nlev, r0=True)
+
+
+@pytest.mark.parametrize("nlev", [72, 26, 150, 400])
+def test_torch_t_rsplit0_order_is_the_row_order(nlev):
+    """The t layout's rsplit=0 kernel's order (the chunked kR0 body on
+    caar_plan(r0=True), row 6) at 8 elements, hybi ramp and 30 m/s winds:
+    bit for bit the row kernel's order (row 8) on the JAX row packing of
+    the same state, and within 5e-5 per field of
+    caar_pallas_packed_rsplit0_t in interpret mode and of the port's plain
+    step in f64 on the same f32 inputs."""
+    cfg, st, dv, geom, hv = _r0_problem(8, nlev, np.float32)
+    p = dict(j_pack(st, dv, geom, hv, cfg))
+    eta_dot = jnp.asarray(dv.eta_dot_dpdn, np.float32)[:, 1:]
+    p["etaacc"] = j_pack_field_t(eta_dot)
+    hybi = np.asarray(hv.hybi, np.float32)
+    hyb = np.stack([hybi[:nlev], hybi[1:]], axis=1)
+    scal = np.asarray(j_scalars(np.float32(0.1), np.float32(0.7), hv))
+    T = lambda x: torch.from_numpy(np.array(x, np.float32))
+    plan = caar_t.caar_plan(16 * 8, nlev, r0=True)
+    f = {n: T(p[n]) for n in (*R0_NAMES, "etaacc")}
+    s1, phi, vdp1, vdp2, omega_p, eta_hi = _chunked_physics(
+        T(scal), T(p["meta"]), T(geom.dvv),
+        torch.cat([f[n] for n in R0_NAMES[:4]]),
+        torch.cat([f[n] for n in R0_NAMES[4:8]]), f["qdp"], f["pecnd"],
+        plan, hyb=T(hyb))
+    eta = T(scal)[0, 1]
+    got = (*s1.split(nlev), phi, f["vn0u"] + eta * vdp1,
+           f["vn0v"] + eta * vdp2, f["omg"] + eta * omega_p,
+           f["etaacc"] + eta * eta_hi)
+    # the row kernel's order on the row packing of the same problem
+    pr = dict(j_row(st, dv, geom, hv, cfg))
+    pr["etaacc"] = j_pack_field(eta_dot)
+    row = _r0_chunked(pr, scal, hyb.T, geom.dvv, nlev, np.float32)
+    ref = caar_pallas_packed_rsplit0_t(
+        scal, p["dxbt"], p["dybt"], p["ainct"], p["astrt"], p["bstrt"], hyb,
+        p["meta"], *(p[n] for n in R0_NAMES), p["etaacc"], eb=8, nlev=nlev,
+        interpret=True)
+    D = lambda x: T(x).double()
+    plain64 = caar_t.caar_packed_rsplit0_t_plain(
+        D(scal), D(hyb), D(p["meta"]), *(f[n].double() for n in R0_NAMES),
+        f["etaacc"].double(), D(geom.dvv))
+    for g, r, pal, w in zip(got, row, ref, plain64):
+        assert torch.equal(g, r.T)
+        assert _err(g, pal) < CAAR_TOL, _err(g, pal)
+        assert _err(g, w) < CAAR_TOL, _err(g, w)

@@ -1,6 +1,6 @@
-"""The schedules and layouts that the ring CAAR kernel and the banded sweep
-kernel (``csrc/caar.cu``, ``csrc/ring.cuh``, ``csrc/dss.cu``) rely on, held
-on the CPU where the kernels cannot run.
+"""The schedules and layouts that the ring kernels and the banded sweep
+kernel (``csrc/caar.cu``, ``csrc/tracer.cu``, ``csrc/ring.cuh``,
+``csrc/dss.cu``) rely on, held on the CPU where the kernels cannot run.
 
   * The CAAR ring's schedule, modelled from ``ring_plan`` (the plan the
     wrapper launches): blocks start in ticket order at any residency, the
@@ -16,6 +16,18 @@ on the CPU where the kernels cannot run.
   * The plan refuses exactly the shapes the launch refuses: the launch's
     conditions restated from ``caar_ring_launch`` with its constants read
     from the source.
+  * The tracer ring's schedule, modelled from ``tracer_ring_plan``: items
+    (row block, tile) row-block-major, a row block some level chunks of
+    some tracers, the block of ticket t < items producing item t, every
+    block sweeping the item halo + lag tickets behind its own after waiting
+    on its row block's tiles, and the last reader of a tile discarding it;
+    for ne 2..32, nlev 26 at qsize 35 (16 row blocks of a chunk and 9 or 8
+    tracers), 72 and 150 at qsize 1 (row blocks of three chunks), the
+    plan's lag and none, 1, 2 and 5 resident blocks and the card's
+    residency, with the same checks; the plan refusing exactly what
+    ``tracer_ring_launch`` refuses (constants read from
+    ``csrc/tracer.cu``); and both wrappers' CUDA branches, with the launch
+    stubbed, taking a new launch state each call and passing no epoch.
   * The banded sweep's layout facts (``band_layout``) on every
     decomposition the banded tests and the card's phase 18 use, each group
     of 4 lanes in one chunk and every x_ext row 16-byte aligned; the
@@ -41,9 +53,12 @@ from tinman_sandbox_tpu_torch.kernels import dss
 from tinman_sandbox_tpu_torch.kernels.dss import (
     _banded_plain, band_layout, band_masks, band_tables,
     dss_sweep_banded_cuda, dss_sweep_banded_nomerge_cuda)
-from tinman_sandbox_tpu_torch.kernels.ring_fused import (RING_LAG,
-                                                         ring_geometry,
-                                                         ring_plan)
+from tinman_sandbox_tpu_torch import bench
+from tinman_sandbox_tpu_torch.kernels import _build, ring_fused
+from tinman_sandbox_tpu_torch.kernels.dss import fix_tables
+from tinman_sandbox_tpu_torch.kernels.ring_fused import (
+    RING_LAG, TRACER_RING_LAG, TRACER_RING_LANES, ring_geometry, ring_plan,
+    tracer_ring_plan)
 
 caar_t = importlib.import_module("tinman_sandbox_tpu_torch.kernels.caar_t")
 
@@ -63,8 +78,9 @@ def _const(src: str, pattern: str) -> int:
 
 
 def _read_span(ne: int, tile: int) -> tuple:
-    """(first, last) tile that the sweep of each tile reads: the lanes of
-    its groups, their alpha partners, their beta partners (16*ne lanes up
+    """(first, last) tile that the sweep of each tile reads (the last tile
+    ragged where e16 is not a multiple of the tile): the lanes of its
+    groups, their alpha partners, their beta partners (16*ne lanes up
     from a j = 3 lane's group, back from a j = 0 lane's) and those
     partners' alpha partners, as ring::emit4 loads them."""
     e16 = 96 * ne * ne
@@ -79,8 +95,13 @@ def _read_span(ne: int, tile: int) -> tuple:
         reads += [np.where(ok, p, l0), np.where(ok, p + da, l0)]
     reads = np.stack(reads)
     assert reads.min() >= 0 and reads.max() < e16
-    t = (reads // tile).reshape(len(reads), -1, tile // 4)
-    return t.min(axis=(0, 2)), t.max(axis=(0, 2))
+    # by the tile of each group (the last tile may be ragged)
+    t, owner = reads // tile, l0 // tile
+    nb = -(-e16 // tile)
+    first, last = np.full(nb, nb), np.full(nb, -1)
+    np.minimum.at(first, owner, t.min(axis=0))
+    np.maximum.at(last, owner, t.max(axis=0))
+    return first, last
 
 
 def _simulate(plan, resident: int, rng, first, last):
@@ -197,6 +218,217 @@ def test_torch_ring_kernel_constants_match_the_plan():
     assert (plan.caar.blocks_per_sm, plan.caar.stash, plan.geo.halo,
             plan.lag, plan.nb, plan.tickets) == (3, True, 16, RING_LAG, 2700,
                                                  2716 + RING_LAG)
+
+
+# -- the tracer ring ------------------------------------------------------
+
+def _tracer_source() -> str:
+    with open(os.path.join(CSRC, "tracer.cu")) as f:
+        return f.read()
+
+
+def _simulate_items(plan, resident: int, rng, first, last):
+    """The tracer ring's schedule with `resident` blocks at once and random
+    durations, in plain Python over items (group, tile) numbered c*nb +
+    tile; returns, per item, its flag time, its count, its reader total,
+    the time it is discarded (by the last of its counted readers to end)
+    and the end of the last sweep that reads it, and each ticket's end."""
+    nb, h, items = plan.nb, plan.geo.halo, plan.items
+    flag = [None] * items
+    count = [0] * items
+    need = [plan.readers(i % nb) for i in range(items)]
+    gone = [None] * items
+    last_read = [float("-inf")] * items
+    end, ends = [], []
+    dur = rng.uniform(1.0, 2.0, plan.tickets).tolist()
+    sweep = rng.uniform(0.2, 0.6, plan.tickets).tolist()
+    for t in range(plan.tickets):
+        now = 0.0 if t < resident else heapq.heappop(ends)
+        made = plan.produces(t)
+        if made is not None:
+            assert made == divmod(t, nb)
+            now += dur[t]
+            flag[t] = now
+        waits = plan.waits(t)
+        if waits is not None:
+            c, w = waits
+            c_, j = plan.sweeps(t)
+            assert c_ == c and w.stop - 1 == min(j + h, nb - 1)
+            lo, hi = c * nb + w.start, c * nb + w.stop - 1
+            # every tile waited on is of a lower or equal ticket, all
+            # started: a wait on a later ticket would find no flag here
+            assert hi <= t and all(flag[i] is not None
+                                   for i in range(lo, hi + 1))
+            now = max([now] + flag[lo:hi + 1])
+            # the tiles the sweep reads lie inside its wait
+            assert w.start <= first[j] and last[j] < w.stop
+            now += sweep[t]
+            for i in range(c * nb + first[j], c * nb + last[j] + 1):
+                last_read[i] = max(last_read[i], now)
+            for i in range(lo, hi + 1):
+                count[i] += 1
+                gone[i] = now if gone[i] is None else max(gone[i], now)
+        end.append(now)
+        heapq.heappush(ends, now)
+    return flag, count, need, gone, last_read, end
+
+
+# the card's residency for the tracer ring's 128-thread blocks: at the
+# SM's thread limit (16 a SM) and a quarter of it
+TRACER_RING_CARD = (caar_t.SMS * 4, caar_t.SMS * 16)
+
+
+@pytest.mark.parametrize("ne", range(2, 33))
+def test_torch_tracer_ring_schedule_never_discards_a_tile_early(ne):
+    rng = np.random.default_rng(100 + ne)
+    first, last = _read_span(ne, ring_fused.TILE)
+    e16 = 96 * ne * ne
+    for nlev, qsize in zip(NLEVS, (35, 1, 1)):
+        plan = tracer_ring_plan(e16, nlev, ne, qsize)
+        assert plan.lag == TRACER_RING_LAG
+        assert plan.geo == ring_geometry(ne, ring_fused.TILE)
+        assert plan.geo.halo * plan.geo.tile >= 16 * ne + 1
+        chunks = -(-nlev // 8)
+        assert (plan.group, plan.tracers) == (
+            (min(chunks, 3), 1) if qsize == 1 else (1, 9))
+        assert plan.items == -(-chunks // plan.group) * \
+            -(-qsize // plan.tracers) * -(-e16 // 128)
+        assert plan.tickets == plan.items + plan.geo.halo + plan.lag
+        assert plan.state == 1 + 2 * plan.items
+        # every item produced once and swept once
+        made = [plan.produces(t) for t in range(plan.tickets)]
+        swept = [plan.sweeps(t) for t in range(plan.tickets)]
+        items = [divmod(i, plan.nb) for i in range(plan.items)]
+        assert [m for m in made if m is not None] == items
+        assert [s for s in swept if s is not None] == items
+        for p in (plan, dataclasses.replace(plan, lag=0)):
+            for resident in (1, 2, 5) + TRACER_RING_CARD:
+                flag, count, need, gone, last_read, end = _simulate_items(
+                    p, resident, rng, first, last)
+                assert len(end) == p.tickets    # every block finishes
+                assert count == need and None not in gone
+                assert all(g >= r and g >= f for g, r, f in
+                           zip(gone, last_read, flag))
+
+
+@pytest.mark.parametrize("qsize", [1, 2, 3, 4, 5, 9, 10, 20, 35])
+def test_torch_tracer_ring_items_hold_the_rows(qsize):
+    """An item is the most chunks of every tracer that fit the first of
+    TRACER_RING_ITEM_ROWS (all the column's where it has fewer), or one
+    chunk of every tracer up to the second, or one chunk of the fewest
+    tracers in equal groups that keep it to the second; the row blocks
+    cover every level and tracer once."""
+    group_rows, split_rows = ring_fused.TRACER_RING_ITEM_ROWS
+    for nlev in (1, 8, 26, 72, 150):
+        plan = tracer_ring_plan(86400, nlev, 30, qsize)
+        g, n = plan.group, plan.tracers
+        if 8 * qsize <= group_rows:
+            assert n == qsize and 8 * n * g <= group_rows
+            assert 8 * n * (g + 1) > group_rows or g == plan.chunks
+        elif 8 * qsize <= split_rows:
+            assert (g, n) == (1, qsize)
+        else:
+            ngt = -(-qsize // n)
+            assert g == 1 and 8 * n <= split_rows and (ngt - 1) * n < qsize
+            # fewer groups would need more rows an item
+            assert 8 * -(-qsize // (ngt - 1)) > split_rows
+        nl = -(-plan.chunks // g)
+        assert (nl - 1) * 8 * g < nlev <= nl * 8 * g
+        assert plan.blocks == nl * -(-qsize // n)
+
+
+def _tracer_launch_accepts(ncol: int, nlev: int, ne: int, lag: int) -> bool:
+    """tracer_ring_launch's conditions on the shape (its operands aside),
+    its constants read from csrc/tracer.cu."""
+    src = _tracer_source()
+    tile = _const(src, r"constexpr int kTile = (\d+);")
+    lanes = _const(src, r"constexpr int kRingLanes = (\d+);")
+    assert (tile, lanes) == (ring_fused.TILE, TRACER_RING_LANES)
+    assert _const(src, r"constexpr int kLevels = (\d+);") == \
+        ring_fused._LEVELS
+    if nlev < 1 or ne < 1 or ncol < lanes or ncol % lanes or lag < 0:
+        return False
+    return ring_geometry(ne, tile).halo * tile >= 16 * ne + 1
+
+
+@pytest.mark.parametrize("ncol,nlev,ne,lag", [
+    *((96 * ne * ne, nlev, ne, TRACER_RING_LAG) for ne in (1, 2, 3, 7, 30)
+      for nlev in (1, *NLEVS)),
+    (86400, 72, 30, 0), (86400, 72, 30, -1), (86400, 0, 30, 128),
+    (86400, 72, 0, 128), (16016, 72, 30, 128), (16, 8, 1, 128),
+    (0, 8, 1, 128), (32, 8, 1, 0), (160, 3, 1, 5)])
+def test_torch_tracer_ring_plan_refuses_what_the_launch_refuses(ncol, nlev,
+                                                                ne, lag):
+    if _tracer_launch_accepts(ncol, nlev, ne, lag):
+        plan = tracer_ring_plan(ncol, nlev, ne, lag=lag)
+        assert plan.group >= 1
+        assert plan.nb * ring_fused.TILE >= ncol > (plan.nb - 1) * \
+            ring_fused.TILE
+    else:
+        with pytest.raises(ValueError):
+            tracer_ring_plan(ncol, nlev, ne, lag=lag)
+
+
+class _StubLibrary:
+    """Stands in for a built library: records each launch's arguments and
+    reports success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, fn):
+        def launch(*args):
+            self.calls.append((fn, args))
+            return 0
+        return launch
+
+
+def test_torch_ring_wrappers_take_a_new_state_each_call(monkeypatch):
+    """Both rings' CUDA branches (reached by checks that report a card, the
+    launch stubbed): each call allocates a new launch state of the plan's
+    size, the launch gets its pointer and length, and no argument of either
+    launch is an epoch (every argument type is in the C signature, none
+    unsigned)."""
+    NL = 6
+    const, s0, q, acc, plan, rsp = bench.make_prim_problem(2, NL, "cpu",
+                                                           0.1, 2)
+    scal, meta, pecnd, dvv = const
+    fix = fix_tables(plan, "cpu")
+    lib = _StubLibrary()
+    states = []
+
+    def new_state(ref, n):
+        states.append(ring_fused._new_state.__wrapped__(ref, n))
+        return states[-1]
+
+    new_state.__wrapped__ = ring_fused._new_state
+    cuda = types.SimpleNamespace(type="cuda", index=0)
+    monkeypatch.setattr(_build, "library", lambda name: lib)
+    monkeypatch.setattr(ring_fused, "_new_state", new_state)
+    monkeypatch.setattr(ring_fused, "_stream", lambda dev: 0)
+    monkeypatch.setattr(ring_fused, "_tracer_check", lambda *a, **kw: cuda)
+    monkeypatch.setattr(ring_fused, "_caar_check", lambda *a, **kw: cuda)
+    e16 = s0.shape[1]
+    for _ in range(2):
+        ring_fused.tracer_ring_packed_t(meta, s0, s0, q, dvv, 0.1, NL, rsp,
+                                        fix, wind_rows=(0, 1))
+        ring_fused.caar_ring_packed_t4(scal, meta, s0, s0, q[:NL], pecnd,
+                                       *acc, dvv, rsp, fix)
+    tplan = tracer_ring_plan(e16, NL, fix.ne, q.shape[0] // NL)
+    cplan = ring_plan(e16, NL, fix.ne)
+    sizes = [tplan.state, 1 + 2 * cplan.nb] * 2
+    assert [x.numel() for x in states] == sizes
+    assert len({x.data_ptr() for x in states}) == 4     # all alive: new
+    for (fn, args), st in zip(lib.calls, states):
+        sig = _build._SIGNATURES["tracer" if "tracer" in fn else "caar"][fn]
+        assert len(args) == len(sig)
+        assert _build.ctypes.c_uint not in sig
+        i = args.index(st.data_ptr())
+        assert args[i + 1] == st.numel()
+    assert [fn for fn, _ in lib.calls] == ["tracer_ring_launch",
+                                           "caar_ring_launch"] * 2
+    for name in ("_STATE", "_CAAR_STATE", "_RingState", "_caar_state"):
+        assert not hasattr(ring_fused, name)
 
 
 # (ne, m, N) that the banded tests admit (tests/test_torch_banded.py,

@@ -18,12 +18,11 @@
 // 3.35 TB/s, against ~0.2 GFLOP of FP32 work (~3 us at 67 TFLOP/s). The
 // rsplit=0 mode adds the eta accumulator, read and written: 23 fields.
 //
-// Two bodies. The t layout at rsplit>0 (pair and stage forms, the slab; the
-// bench, assembled, dynamics and prim steps and the ring) and the row
-// layout at both rsplits (below) run the level-chunked body, caar_chunked;
-// only the t layout's rsplit=0 mode keeps the column-a-thread body,
-// caar_tile. Why: the column-a-thread body it
-// replaced gave the card E16 threads in all (16,384 at 1024 x 72: 128
+// One body, the level-chunked caar_chunked, for every mode: the t layout at
+// rsplit>0 (pair and stage forms, the slab; the bench, assembled, dynamics
+// and prim steps and the ring) and at rsplit=0, and the row layout at both
+// rsplits (below). Why: the column-a-thread body it replaced gave the card
+// E16 threads in all (16,384 at 1024 x 72: 128
 // blocks of 4 warps, one a SM) and walked 72 levels three times with a
 // __syncthreads at each, so it was latency-bound at 2.5-4.8x its memory
 // bound; at ne30 its 675 blocks of 44 KB left 15 for a second wave.
@@ -34,7 +33,8 @@
 // elements) of one chunk: its loads of a level's row coalesce into whole
 // 128-byte lines and the 4-point Dvv contractions (grad, div, vort) are
 // warp shuffles inside the element, 4-term FP32 FMAs on the 4x4 Dvv in the
-// order of the column-a-thread body (no exchange row, no per-level barrier).
+// order the column-a-thread body took (no exchange row, no per-level
+// barrier).
 // The three vertical recurrences (the midpoint pressure's running dp sum,
 // the reverse strict q sum into phi, the running divdp sum that omega needs)
 // become chunk-local running sums started at the sum of the other chunks'
@@ -78,15 +78,13 @@
 // outputs back the same way: 165 KB at 400 levels, one block an SM
 // (kernels/caar_t.py::caar_row_plan). Reading and writing in place at
 // col*nlev + k instead thrashed L1 (32 lines a field a warp).
-// rsplit=0 runs only here on the chunked body (kR0); the t layout's
-// rsplit=0 mode (caar_packed_rsplit0_t) keeps the column-a-thread body
-// (caar_tile): one thread per column, 128-column blocks, the element's
-// values of a level exchanged through a shared-memory row double-buffered
-// by level parity, and three passes over the levels:
-//   1. top-down: midpoint pressure p and q = Rgas*T_v*dp/p, q kept in shared
-//      memory ([nlev][128] floats, 36 KB at nlev = 72);
-//   2. bottom-up over shared memory only: q becomes phi in place;
-//   3. top-down: everything else, with p's scan recomputed from dp.
+// The t layout's rsplit=0 mode (caar_r0_kernel, caar_packed_rsplit0_t) runs
+// the same kR0 body on the t kernel's stash: caar_plan(r0=True), the row
+// kernel's chunks, so on the transposed problem it gives the row rsplit=0
+// kernel's bits at every nlev. It replaced a column-a-thread body (one
+// thread a column in 128-column blocks, three walks over the levels with a
+// __syncthreads at each, one more in the first to sum divdp for sdot):
+// 6.1x its bound at 1024 x 72 and 2.8x at ne30 on the H100.
 // Optional fix-lane slab (replaces the sf/cq slab modes of
 // caar_pallas_packed_t4_lg :552-630 and caar_pallas_packed_t4_ext :652):
 // the thread owning a column with fix_rank[col] = r >= 0 also writes its
@@ -112,13 +110,10 @@
 // zeros are forced by the level test, not computed (hybi(nlev)*sdot - sdot
 // is not 0 in f32). hybi comes as two strided vectors (hyb_lo[k*hs] =
 // hybi(k), hyb_hi[k*hs] = hybi(k+1)), so the [nlev, 2] hyb of the t kernel
-// and the [2, nlev] of the row kernel go in without a copy. In caar_tile
-// every level's flux needs the column total first, so pass 1 also builds
-// the mass-flux exchange rows and sums divdp: one more __syncthreads per
-// level and u, v read twice; pass 3 carries a register window of u, v, T
-// at k-1, k, k+1. In the chunked body sdot is the sum of pass 2's chunk
-// totals, the advection reads the neighbouring levels from the planes, and
-// the dp tendency is formed as the (hybi(k+1) - hybi(k))*sdot it equals,
+// and the [2, nlev] of the row kernel go in without a copy. sdot is the sum
+// of pass 2's chunk totals, the advection reads the neighbouring levels
+// from the planes or the stash (else from device memory), and the dp
+// tendency is formed as the (hybi(k+1) - hybi(k))*sdot it equals,
 // without the f32 cancellation of divdp + eta_hi - eta_lo. The row mode
 // takes neither a slab nor the stage mode, and the rsplit=0 modes no slab:
 // no caller needs them.
@@ -154,9 +149,6 @@
 
 namespace {
 
-constexpr int kBlock = 128;   // 8 elements x 16 GLL points: the column-a-
-                              // thread body's block
-constexpr int kRows = 7;      // exchange rows: p, gv1, gv2, vco1, vco2, t, ephi
 // the chunked kernel's tile (a warp of columns: two elements), its largest
 // block (at most 8 chunks) and the blocks an SM holds at its register cap
 // (80)
@@ -164,6 +156,8 @@ constexpr int kChunkTile = 32;
 constexpr int kChunkThreads = 256;
 constexpr int kChunkBlocks = 3;
 constexpr size_t kMaxSmem = 232448;        // a block's shared memory (227 KB)
+constexpr size_t kSmSmem = 233472;         // an SM's (228 KB), and the 1 KB
+constexpr size_t kSmemReserved = 1024;     // the system keeps a block
 constexpr int kMaxNlev = 400;              // kernels/caar_t.py _MAX_NLEV
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -244,206 +238,6 @@ struct CaarArgs {
   int nlev, ncol, ld, moist, slab_ld, hyb_stride;
   float rgas, kappa, rv_factor, rrearth;
 };
-
-// d/dx at lane (li, lj): sum_i Dvv[i, li] * s[i, lj]
-__device__ __forceinline__ float dx(const float* dvv, const float* s, int li,
-                                    int lj) {
-  float acc = dvv[0 * 4 + li] * s[0 * 4 + lj];
-  acc = fmaf(dvv[1 * 4 + li], s[1 * 4 + lj], acc);
-  acc = fmaf(dvv[2 * 4 + li], s[2 * 4 + lj], acc);
-  return fmaf(dvv[3 * 4 + li], s[3 * 4 + lj], acc);
-}
-
-// d/dy at lane (li, lj): sum_m Dvv[m, lj] * s[li, m]
-__device__ __forceinline__ float dy(const float* dvv, const float* s, int li,
-                                    int lj) {
-  float acc = dvv[0 * 4 + lj] * s[li * 4 + 0];
-  acc = fmaf(dvv[1 * 4 + lj], s[li * 4 + 1], acc);
-  acc = fmaf(dvv[2 * 4 + lj], s[li * 4 + 2], acc);
-  return fmaf(dvv[3 * 4 + lj], s[li * 4 + 3], acc);
-}
-
-// The column-a-thread body of the rsplit=0 mode on the t layout (row 6 of
-// the kernel table): the CAAR step plus the interface flux, the vertical
-// advection and the eta accumulator. One step for the 128 columns of tile
-// `tile`, by the calling block of kBlock threads; the block's shared memory
-// comes in: col_sm [nlev][kBlock] (q, then phi), the exchange rows xch and
-// dvv. The pair form only: no stage mode, no fix-lane output, phi always
-// stored.
-__device__ __forceinline__ void caar_tile(const CaarArgs& a, int tile,
-                                          float* col_sm,
-                                          float (*xch)[kRows][kBlock],
-                                          float* dvv) {
-  const int tid = threadIdx.x;
-  const int col = tile * kBlock + tid;
-  const bool live = col < a.ncol;               // ncol % 16 == 0: whole elements
-  const int eb = tid & ~15;                     // element's first lane in block
-  const int li = (tid & 15) >> 2, lj = tid & 3; // lane = li*4 + lj
-  const size_t ld = (size_t)a.ld;
-
-  if (tid < 16) dvv[tid] = a.dvv[tid];
-  float m[13];
-#pragma unroll
-  for (int r = 0; r < 13; ++r)
-    m[r] = live ? a.meta[r * ld + col] : 1.f;
-  const float dt2 = a.scal[0], eta = a.scal[1], h = a.scal[2];
-  const float rr = a.rrearth;
-  __syncthreads();
-
-  // pass 1: p and q, top-down, and the column total of divdp
-  float s = 0.f, sdot = 0.f;
-  for (int k = 0; k < a.nlev; ++k) {
-    float q = 0.f, gv1 = 0.f, gv2 = 0.f;
-    if (live) {
-      const size_t o = static_cast<size_t>(k) * ld + col;
-      const float dp = a.dp0[o], t = a.t0[o];
-      s += dp;
-      const float p = (h + s) - 0.5f * dp;
-      const float tv = a.moist ? t * (1.f + a.rv_factor * (a.qdp[o] / dp)) : t;
-      q = a.rgas * tv * (dp / p);
-      const float vdp1 = a.u0[o] * dp, vdp2 = a.v0[o] * dp;
-      gv1 = m[kMetdet] * (m[kDinv00] * vdp1 + m[kDinv01] * vdp2);
-      gv2 = m[kMetdet] * (m[kDinv10] * vdp1 + m[kDinv11] * vdp2);
-    }
-    col_sm[k * kBlock + tid] = q;
-    float* x = &xch[k & 1][0][0];
-    x[1 * kBlock + tid] = gv1;
-    x[2 * kBlock + tid] = gv2;
-    __syncthreads();
-    sdot += (dx(dvv, x + 1 * kBlock + eb, li, lj) +
-             dy(dvv, x + 2 * kBlock + eb, li, lj)) * (m[kRmetdet] * rr);
-  }
-  // pass 3's first exchange must not overtake pass 1's last reads
-  __syncthreads();
-  // pass 2: phi = phis + sum_{l>k} q(l) + q(k)/2, bottom-up, in place
-  float rsum = 0.f;
-  for (int k = a.nlev - 1; k >= 0; --k) {
-    const float q = col_sm[k * kBlock + tid];
-    col_sm[k * kBlock + tid] = (m[kPhis] + rsum) + 0.5f * q;
-    rsum += q;
-  }
-
-  // pass 3: tendencies and apply, top-down
-  s = 0.f;
-  float cum = 0.f;                              // sum_{l<k} divdp(l)
-  // u, v, T at the next level, and at the previous one (equal to the
-  // current one at the top and the bottom, so the missing difference is 0)
-  float un = 0.f, vn = 0.f, tn = 0.f;
-  if (live) {
-    un = a.u0[col]; vn = a.v0[col]; tn = a.t0[col];
-  }
-  float up = un, vp = vn, tp = tn;
-  for (int k = 0; k < a.nlev; ++k) {
-    const size_t o = static_cast<size_t>(k) * ld + col;
-    float u = 0.f, v = 0.f, t = 0.f, dp = 1.f, qd = 0.f, pec = 0.f;
-    float um1 = 0.f, vm1 = 0.f, tm1 = 0.f, dpm1 = 0.f;
-    float an = 0.f, av = 0.f, ao = 0.f, ae = 0.f;
-    if (live) {
-      u = un; v = vn; t = tn;
-      if (k + 1 < a.nlev) {
-        const size_t o1 = static_cast<size_t>(k + 1) * ld + col;
-        un = a.u0[o1]; vn = a.v0[o1]; tn = a.t0[o1];
-      }
-      ae = a.etaacc[o];
-      dp = a.dp0[o];
-      if (a.moist) qd = a.qdp[o];
-      pec = a.pecnd[o];
-      um1 = a.um1[o]; vm1 = a.vm1[o]; tm1 = a.tm1[o]; dpm1 = a.dpm1[o];
-      an = a.vn0u[o]; av = a.vn0v[o]; ao = a.omg[o];
-    }
-    s += dp;
-    const float p = (h + s) - 0.5f * dp;
-    const float vdp1 = u * dp, vdp2 = v * dp;
-    const float phi = col_sm[k * kBlock + tid];
-    float* x = &xch[k & 1][0][0];
-    x[0 * kBlock + tid] = p;
-    x[1 * kBlock + tid] = m[kMetdet] * (m[kDinv00] * vdp1 + m[kDinv01] * vdp2);
-    x[2 * kBlock + tid] = m[kMetdet] * (m[kDinv10] * vdp1 + m[kDinv11] * vdp2);
-    x[3 * kBlock + tid] = m[kD00] * u + m[kD10] * v;
-    x[4 * kBlock + tid] = m[kD01] * u + m[kD11] * v;
-    x[5 * kBlock + tid] = t;
-    x[6 * kBlock + tid] = 0.5f * (u * u + v * v) + phi + pec;
-    __syncthreads();
-
-    const float* xp = x + 0 * kBlock + eb;
-    const float* xg1 = x + 1 * kBlock + eb;
-    const float* xg2 = x + 2 * kBlock + eb;
-    const float* xc1 = x + 3 * kBlock + eb;
-    const float* xc2 = x + 4 * kBlock + eb;
-    const float* xt = x + 5 * kBlock + eb;
-    const float* xe = x + 6 * kBlock + eb;
-
-    // grad p, v.grad p
-    float g1 = dx(dvv, xp, li, lj) * rr, g2 = dy(dvv, xp, li, lj) * rr;
-    const float gp1 = m[kDinv00] * g1 + m[kDinv10] * g2;
-    const float gp2 = m[kDinv01] * g1 + m[kDinv11] * g2;
-    const float vgrad_p = u * gp1 + v * gp2;
-    // div(v dp), vorticity
-    const float rmr = m[kRmetdet] * rr;
-    const float divdp = (dx(dvv, xg1, li, lj) + dy(dvv, xg2, li, lj)) * rmr;
-    const float vort = (dx(dvv, xc2, li, lj) - dy(dvv, xc1, li, lj)) * rmr;
-    // virtual temperature, omega/p
-    const float tv = a.moist ? t * (1.f + a.rv_factor * (qd / dp)) : t;
-    const float omega_p = (vgrad_p - cum - 0.5f * divdp) / p;
-    // interface fluxes above and below level k, vertical advection
-    float eta_lo = 0.f, eta_hi = 0.f;
-    const float cum_inc = cum + divdp;
-    if (k > 0)
-      eta_lo = a.hyb_lo[static_cast<size_t>(k) * a.hyb_stride] * sdot - cum;
-    if (k < a.nlev - 1)
-      eta_hi = a.hyb_hi[static_cast<size_t>(k) * a.hyb_stride] * sdot
-               - cum_inc;
-    const float rpdel = 1.f / dp;
-    const float facp = 0.5f * rpdel * eta_hi;
-    const float facm = 0.5f * rpdel * eta_lo;
-    const float u_vadv = facp * (un - u) + facm * (u - up);
-    const float v_vadv = facp * (vn - v) + facm * (v - vp);
-    const float t_vadv = facp * (tn - t) + facm * (t - tp);
-    up = u; vp = v; tp = t;
-    cum += divdp;
-    // grad T, grad(E + phi)
-    g1 = dx(dvv, xt, li, lj) * rr;
-    g2 = dy(dvv, xt, li, lj) * rr;
-    const float gt1 = m[kDinv00] * g1 + m[kDinv10] * g2;
-    const float gt2 = m[kDinv01] * g1 + m[kDinv11] * g2;
-    g1 = dx(dvv, xe, li, lj) * rr;
-    g2 = dy(dvv, xe, li, lj) * rr;
-    const float ge1 = m[kDinv00] * g1 + m[kDinv10] * g2;
-    const float ge2 = m[kDinv01] * g1 + m[kDinv11] * g2;
-    // tendencies
-    const float gpterm = a.rgas * (tv / p);
-    const float fcor_vort = m[kFcor] + vort;
-    const float vtens1 = -u_vadv + v * fcor_vort - ge1 - gpterm * gp1;
-    const float vtens2 = -v_vadv - (u * fcor_vort) - ge2 - gpterm * gp2;
-    const float ttens =
-        -t_vadv - (u * gt1 + v * gt2) + a.kappa * tv * omega_p;
-    const float dptens = divdp + (eta_hi - eta_lo);
-
-    if (live) {
-      const float sph = m[kSpheremp];
-      const float u1 = sph * (um1 + dt2 * vtens1);
-      const float v1 = sph * (vm1 + dt2 * vtens2);
-      const float t1 = sph * (tm1 + dt2 * ttens);
-      const float dp1 = sph * (dpm1 - dt2 * dptens);
-      a.u1[o] = u1;
-      a.v1[o] = v1;
-      a.t1[o] = t1;
-      a.dp1[o] = dp1;
-      a.phi[o] = phi;
-      a.vn0u[o] = an + eta * vdp1;
-      a.vn0v[o] = av + eta * vdp2;
-      a.omg[o] = ao + eta * omega_p;
-      a.etaacc[o] = ae + eta * eta_hi;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kBlock) caar_kernel(CaarArgs a) {
-  extern __shared__ float col_sm[];             // [nlev][kBlock]: q, then phi
-  __shared__ float xch[2][kRows][kBlock];
-  __shared__ float dvv[16];
-  caar_tile(a, blockIdx.x, col_sm, xch, dvv);
-}
 
 // d/dx at lane (li, lj) of the calling thread's element, the element's 16
 // values of s taken from its warp by shuffles: sum_i Dvv[i, li] * s(i, lj);
@@ -565,7 +359,8 @@ __device__ __forceinline__ void span_at(int i, int nlev, float rnlev,
 
 // The level-chunked body: the t layout at rsplit>0 (pair and stage forms,
 // the optional slab) and the row layout (kRow: [E16, nlev] fields, [E16, 16]
-// meta; pair form, no slab), there also at rsplit=0 (kR0). One step for the
+// meta; pair form, no slab), both also at rsplit=0 (kR0: the pair form, no
+// slab). One step for the
 // kTile columns of tile `tile_idx` by
 // a block of kTile*chunks threads. Thread (c, x) = (tid / kTile, tid %
 // kTile) takes column tile_idx*kTile + x at levels [c*levels, min(nlev,
@@ -610,10 +405,10 @@ __device__ __forceinline__ void span_at(int i, int nlev, float rnlev,
 // kR0: sdot = the sum of every chunk's divdp total, in chunk order; eta_lo
 // = hybi(k)*sdot - cum and eta_hi = hybi(k+1)*sdot - (cum + divdp), 0 at the
 // top and at the bottom by the level test; the vertical advection reads u,
-// v and T at k-1 and k+1 from the planes (without kStash from device
-// memory); dp1 = sph*(dpm1 - dt2*dptens) with dptens = divdp + eta_hi -
-// eta_lo formed as the (hybi(k+1) - hybi(k))*sdot it equals (see pass 3),
-// and etaacc += eta_ave_w*eta_hi.
+// v and T at k-1 and k+1 from the planes or the t layout's stash (without
+// them from device memory); dp1 = sph*(dpm1 - dt2*dptens) with dptens =
+// divdp + eta_hi - eta_lo formed as the (hybi(k+1) - hybi(k))*sdot it
+// equals (see pass 3), and etaacc += eta_ave_w*eta_hi.
 template <int kTile, bool kSingle, bool kPhi, bool kStash, bool kRow = false,
           bool kR0 = false, int kS1 = 0>
 __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
@@ -622,7 +417,8 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
   static_assert(kTile % 32 == 0, "a tile is whole warps of columns");
   static_assert(!kRow || (kTile == kChunkTile && !kSingle && kPhi),
                 "the row layout runs the pair form on tiles of 32 columns");
-  static_assert(kRow || !kR0, "rsplit=0 runs on the row layout only");
+  static_assert(!kR0 || (!kSingle && kPhi && kTile == kChunkTile),
+                "rsplit=0 runs the pair form on tiles of 32 columns");
   constexpr int tile = kTile;
   constexpr bool kStaged = kRow && kStash;
   constexpr bool kWin = kRow && !kStash && kRowWindow > 0;
@@ -901,11 +697,16 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
       return r;
     }
   };
-  // kR0: u, v and T of this column at level k (k inside the column)
+  // kR0: u, v and T of this column at level k (k inside the column; pass
+  // 2 has stashed every chunk's levels before the barrier)
   const auto uvt = [&](int k, float& u, float& v, float& t) {
     if constexpr (kStaged) {
       const int p = swz(k, x);
       u = P(kPU)[p]; v = P(kPV)[p]; t = P(kPT)[p];
+    } else if constexpr (kStash) {
+      u = st[plane + k * tile];
+      v = st[2 * plane + k * tile];
+      t = st[3 * plane + k * tile];
     } else {
       if constexpr (kWin) {
         if (k >= win_lo && k < win_hi) {
@@ -1178,6 +979,22 @@ caar_row_kernel(CaarArgs a, int chunks, int levels) {
       a, blockIdx.x, chunks, levels, sm);
 }
 
+// The t layout's rsplit=0 step (row 6 of the kernel table): the chunked
+// body's kR0 mode on caar_plan(r0=True)'s chunks and stash, its registers
+// capped for kBlocks blocks an SM: 2 (128 registers, as the row kernel:
+// no spills), or with the stash 3 (80, the chunked kernel's cap: pass 3's
+// neighbour reads and fluxes spill 20 bytes), which the plan takes where
+// the launch is at least R0_WAVES waves of 3 blocks an SM
+// (experiments/kernel_variants.py rsplit0: on the H100 3 blocks were 13%
+// faster at ne30 x 72 and 13% slower at 1024 x 72, 1.3 waves).
+template <bool kStash, int kBlocks>
+__global__ void __launch_bounds__(kChunkThreads, kBlocks)
+caar_r0_kernel(CaarArgs a, int chunks, int levels) {
+  extern __shared__ float sm[];
+  caar_chunked<kChunkTile, false, true, kStash, false, true>(
+      a, blockIdx.x, chunks, levels, sm);
+}
+
 // The ring-fused step (t layout, rsplit>0): tile t of the CAAR step into the
 // scratch s1 (a.u1..a.dp1 are its four row blocks), with phi, the
 // accumulators and the slab as caar_chunk_kernel writes them (the same body,
@@ -1197,14 +1014,14 @@ caar_ring_kernel(CaarArgs a, ring::Args r, int chunks, int levels, int lag) {
   if (t < r.nb) {
     caar_chunked<kRingTile, kSingle, kPhi, kStash, false, false, kRingKeep>(
         a, t, chunks, levels, sm);
-    ring::publish(r.flags + t, r.epoch);
+    ring::publish(r.flags + t);
     if constexpr (kRingSweep == 4)     // the producer discarding its own
       ring::retire<kRingTile>(r, t, t, 4 * a.nlev, a.ncol, true);
   }
   const int j = t - r.halo - lag;
   if (kRingSweep == 0 || kRingSweep == 4 || j < 0) return;
   const int lo = max(j - r.halo, 0), hi = min(j + r.halo, r.nb - 1);
-  const int after = ring::wait(r.flags, lo, hi, r.epoch);
+  const int after = ring::wait(r.flags, lo, hi);
   const int rows = 4 * a.nlev;
   if constexpr (kRingSweep == 1 || kRingSweep >= 5) {
     // 5 and 6 (experiments): the sweep's stores alone, and with the group's
@@ -1225,15 +1042,17 @@ caar_ring_kernel(CaarArgs a, ring::Args r, int chunks, int levels, int lag) {
     ring::retire<kRingTile>(r, lo, hi, rows, a.ncol);
 }
 
-cudaError_t launch_tile(const CaarArgs& a, cudaStream_t stream) {
-  auto* kernel = caar_kernel;
-  const size_t smem = static_cast<size_t>(a.nlev) * kBlock * sizeof(float);
+template <bool kStash, int kBlocks>
+cudaError_t launch_r0(const CaarArgs& a, int chunks, int levels,
+                      cudaStream_t stream) {
+  auto* kernel = caar_r0_kernel<kStash, kBlocks>;
+  const size_t smem = chunked_smem(a.nlev, kChunkTile, chunks, kStash);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int grid = (a.ncol + kBlock - 1) / kBlock;
-  kernel<<<grid, kBlock, smem, stream>>>(a);
+  const int grid = (a.ncol + kChunkTile - 1) / kChunkTile;
+  kernel<<<grid, kChunkTile * chunks, smem, stream>>>(a, chunks, levels);
   return cudaGetLastError();
 }
 
@@ -1296,10 +1115,11 @@ const char* caar_error_string(int err) {
 // in the stage mode only. A non-null etaacc selects rsplit=0 and needs
 // hyb_lo and hyb_hi; row = 1 selects the [E16, nlev] layout (ld = nlev,
 // meta [E16, 16]). The stage mode and the slab take the t layout and
-// rsplit>0 only. (chunks, levels, stash) is the plan of the chunked body,
-// which the t layout at rsplit>0 (kernels/caar_t.py::caar_plan) and the row
-// layout (caar_row_plan; stash = staged) run; the t layout's rsplit=0 mode
-// runs the column-a-thread body and ignores it.
+// rsplit>0 only. (chunks, levels, stash) is the plan of the chunked body:
+// kernels/caar_t.py::caar_plan on the t layout (caar_plan(r0=True) at
+// rsplit=0), caar_row_plan on the row layout (stash = staged); `blocks` the
+// t layout's rsplit=0 instance, 2 or 3 blocks an SM (3 with the stash
+// only, where three fit), ignored by the other modes.
 int caar_launch(const void* scal, const void* meta, const void* dvv,
                 const void* u0, const void* v0, const void* t0,
                 const void* dp0, const void* um1, const void* vm1,
@@ -1309,11 +1129,13 @@ int caar_launch(const void* scal, const void* meta, const void* dvv,
                 const void* fix_rank, void* slab, const void* hyb_lo,
                 const void* hyb_hi, void* etaacc, int nlev, int ncol,
                 int ld, int moist, int slab_ld, int hyb_stride, int row,
-                int chunks, int levels, int stash, float rgas, float kappa,
-                float rv_factor, float rrearth, void* stream, int device) {
+                int chunks, int levels, int stash, int blocks, float rgas,
+                float kappa, float rv_factor, float rrearth, void* stream,
+                int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if ((um1 == nullptr) != (vm1 == nullptr) ||
+  if (nlev > kMaxNlev || ncol < 1 || ncol % 16 ||
+      (um1 == nullptr) != (vm1 == nullptr) ||
       (um1 == nullptr) != (tm1 == nullptr) ||
       (um1 == nullptr) != (dpm1 == nullptr))
     return cudaErrorInvalidValue;
@@ -1324,8 +1146,14 @@ int caar_launch(const void* scal, const void* meta, const void* dvv,
     return cudaErrorInvalidValue;
   if ((r0 || row) && (um1 == nullptr || fix_rank != nullptr))
     return cudaErrorInvalidValue;
-  if (!r0 && !row &&
+  if (!row &&
       !plan_ok(nlev, kChunkTile, chunks, levels, stash, kChunkThreads))
+    return cudaErrorInvalidValue;
+  if (r0 && !row &&
+      !(blocks == 2 ||
+        (blocks == 3 && stash &&
+         3 * (chunked_smem(nlev, kChunkTile, chunks, true) +
+              kSmemReserved) <= kSmSmem)))
     return cudaErrorInvalidValue;
   if (row && (!plan_ok(nlev, kChunkTile, chunks, levels, false,
                        kChunkThreads) ||
@@ -1377,7 +1205,10 @@ int caar_launch(const void* scal, const void* meta, const void* dvv,
     return stash ? launch_row<false, true>(a, chunks, levels, st)
                  : launch_row<false, false>(a, chunks, levels, st);
   }
-  if (r0) return launch_tile(a, st);
+  if (r0)
+    return !stash       ? launch_r0<false, 2>(a, chunks, levels, st)
+           : blocks == 3 ? launch_r0<true, 3>(a, chunks, levels, st)
+                         : launch_r0<true, 2>(a, chunks, levels, st);
   if (stash) {
     if (um1 == nullptr)
       return phi ? launch_chunked<true, true, true>(a, chunks, levels, st)
@@ -1419,7 +1250,7 @@ int caar_ring_launch(const void* scal, const void* meta, const void* dvv,
   const int nb = ncol / kRingTile;
   if (single != (vm1 == nullptr) || single != (tm1 == nullptr) ||
       single != (dpm1 == nullptr) || (phi == nullptr && !single) ||
-      fix_rank == nullptr || tile != kRingTile || nlev > kMaxNlev ||
+      fix_rank == nullptr || tile != kRingTile || nlev > kMaxNlev || ne < 1 ||
       ncol < tile || ncol % tile || reinterpret_cast<size_t>(s1) % 128 ||
       1 + 2 * static_cast<long long>(nb) > nstate || lag < 0 ||
       !plan_ok(nlev, kRingTile, chunks, levels, stash, kRingThreads) ||
@@ -1468,7 +1299,6 @@ int caar_ring_launch(const void* scal, const void* meta, const void* dvv,
   r.counter = static_cast<int*>(state);
   r.done = r.counter + 1;
   r.flags = reinterpret_cast<unsigned*>(r.done + nb);
-  r.epoch = 1;
   r.nrsp = nrsp;
   r.ne = ne;
   r.nb = nb;
@@ -1495,15 +1325,16 @@ int caar_ring_launch(const void* scal, const void* meta, const void* dvv,
 // Blocks of the pair-form kernel (fused = 0: caar_chunk_kernel on tiles of
 // kChunkTile columns, with or without the stash; fused = 1:
 // caar_ring_kernel, tiles of kRingTile, with or without the stash; fused =
-// 2 and 3:
-// caar_row_kernel at rsplit>0 and at rsplit=0, staged where stash) that one
-// SM holds at nlev levels in `chunks` chunks, from
+// 2 and 3: caar_row_kernel at rsplit>0 and at rsplit=0, staged where
+// stash; fused = 4 and 5: caar_r0_kernel, the t layout at rsplit=0, at 2
+// and 3 blocks an SM) that one SM holds at nlev levels in `chunks` chunks,
+// from
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative: a CUDA error.
 int caar_blocks_per_sm(int fused, int nlev, int chunks, int stash,
                        int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  const bool row = fused >= 2, r0 = fused == 3;
+  const bool row = fused == 2 || fused == 3, r0 = fused == 3;
   const int tile = fused == 1 ? kRingTile : kChunkTile;
   const size_t smem = row ? row_smem(nlev, chunks, stash, r0)
                           : chunked_smem(nlev, tile, chunks, stash);
@@ -1522,6 +1353,11 @@ int caar_blocks_per_sm(int fused, int nlev, int chunks, int stash,
                       : occupancy(caar_row_kernel<true, false>))
              : (stash ? occupancy(caar_row_kernel<false, true>)
                       : occupancy(caar_row_kernel<false, false>));
+  else if (fused == 4)
+    err = stash ? occupancy(caar_r0_kernel<true, 2>)
+                : occupancy(caar_r0_kernel<false, 2>);
+  else if (fused == 5)
+    err = occupancy(caar_r0_kernel<true, 3>);
   else
     err = fused ? (stash ? occupancy(caar_ring_kernel<false, true, false,
                                                       true>)

@@ -8,33 +8,32 @@
 //   * a block takes a ticket with atomicAdd when it starts; tickets are
 //     handed out in the order blocks start, so every block holding a lower
 //     ticket is already resident;
-//   * the block with ticket t < nb produces tile t, stores it, and flags it:
-//     __syncthreads, __threadfence, then a release store of the call's epoch;
-//   * the same block then sweeps tile j = t - halo: it waits (acquire loads)
-//     until tiles j-halo .. j+halo, all <= t, hold the epoch, and reads them
-//     with __ldcg (L2; an SM's L1 is not coherent with the others');
-//   * (the CAAR ring, retire()) having swept tile j, the block counts itself
-//     as a reader of each tile j-halo .. j+halo; the block whose count
-//     completes a tile's readers (every sweep i with |i - u| <= halo, inside
-//     0 .. nb-1) discards that tile's s1 lines from L2 (discard.global.L2:
-//     no write-back), so s1 never reaches device memory while it stays in
-//     L2 from its store to its last read.
+//   * the block with a producing ticket produces its tile, stores it, and
+//     flags it: __syncthreads, __threadfence, then a release store of 1;
+//   * the same block then sweeps the tile halo + lag tickets behind its own:
+//     it waits (acquire loads) until the tiles that sweep reads, all of
+//     lower tickets, are flagged, and reads them;
+//   * having swept tile j, the block counts itself as a reader of each tile
+//     j-halo .. j+halo; the block whose count completes a tile's readers
+//     (every sweep i with |i - u| <= halo, inside 0 .. nb-1) discards that
+//     tile's s1 lines from L2 (discard.global.L2: no write-back), so s1
+//     need not reach device memory while it stays in L2 from its store to
+//     its last read.
 //
 // Why it cannot deadlock at any residency: a block waits only on flags of
-// tiles <= its own ticket, each set by the producer half of a block with a
-// lower or equal ticket, which is resident (it started first) and never
-// waits before it flags; by induction on the ticket every block finishes.
-// The discard waits on nothing: the last reader does it. Why no tile is
-// discarded early: a tile's count reaches its reader total only after every
-// sweep that may read it (each sweep reads only tiles inside its wait
-// range) has finished its loads, counted after a __syncthreads and a
-// fence; tests/test_torch_ring_schedule.py models the schedule. The tracer
-// ring's flags keep the epoch of the call that last set them, so they are
-// never cleared, and its launch resets the ticket counter with a
-// stream-ordered memset; the CAAR ring's launch clears its ticket counter,
-// reader counts and flags with one memset and flags with 1, so a CUDA graph
-// of it replays correctly. A tile that never comes is a fault: the wait
-// traps after about a second.
+// tiles of lower or equal tickets, each set by the producer half of a
+// block that is resident (it started first) and never waits before it
+// flags; by induction on the ticket every block finishes. The discard
+// waits on nothing: the last reader does it. Why no tile is discarded
+// early: a tile's count reaches its reader total only after every sweep
+// that may read it (each sweep reads only tiles inside its wait range) has
+// finished its loads, counted after a __syncthreads and a fence;
+// tests/test_torch_ring_schedule.py models both rings' schedules. The
+// state of a launch, [ticket counter | reader counts | flags], comes new
+// from the caller for each call and the launch clears it with one
+// stream-ordered memset, so a CUDA graph of the launch replays correctly
+// and two launches on two streams never share it. A tile that never comes
+// is a fault: the wait traps after about a second.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,12 +49,17 @@ struct Args {
   const float* rsp;       // rspheremp [nrsp, e16]
   const float* mx;        // the mix field [rows, e16], or null
   float* w;               // the swept output [rows, e16]
-  unsigned* flags;        // one per tile (per row chunk and tile)
+  unsigned* flags;        // one per tile, 0 at launch, 1 once produced
   int* counter;           // the ticket counter, 0 at launch
-  unsigned epoch;         // this call's flag value, never 0
   int nrsp, ne, nb, halo;
   float ca, cb;
-  int* done;              // the CAAR ring's reader count a tile, 0 at launch
+  int* done;              // the reader count a tile, 0 at launch
+};
+
+// the row of s1 (and of w and mx) that a sweep's row i is: every row of
+// the field (the CAAR ring)
+struct AllRows {
+  __device__ __forceinline__ int operator()(int i) const { return i; }
 };
 
 // whether a launch's tables hold: `ntiles` flags fit the buffer and a halo
@@ -63,12 +67,6 @@ struct Args {
 inline bool covers(int ntiles, int nflags, int ne, int halo, int tile) {
   return ntiles <= nflags &&
          static_cast<long long>(halo) * tile >= 16LL * ne + 1;
-}
-
-// covers(), and the tracer ring's rule of a halo within half a tile
-// (2*halo + 1 <= tile: its plan, kernels/ring_fused.py, keeps it)
-inline bool fits(int ntiles, int nflags, int ne, int halo, int tile) {
-  return covers(ntiles, nflags, ne, halo, tile) && 2 * halo + 1 <= tile;
 }
 
 // L2 eviction policies (createpolicy, sm_80+): lines stored under
@@ -110,12 +108,12 @@ __device__ __forceinline__ int ticket(int* counter) {
 }
 
 // flag a tile once every thread of the block has stored its part
-__device__ __forceinline__ void publish(unsigned* flag, unsigned epoch) {
+__device__ __forceinline__ void publish(unsigned* flag) {
   __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence();
     asm volatile("st.release.gpu.global.u32 [%0], %1;"
-                 :: "l"(flag), "r"(epoch) : "memory");
+                 :: "l"(flag), "r"(1u) : "memory");
   }
 }
 
@@ -126,16 +124,15 @@ __device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
   return v;
 }
 
-// wait until flags[lo..hi] hold epoch (a thread a flag, in turns of the
+// wait until flags[lo..hi] are set (a thread a flag, in turns of the
 // block's size), then let the whole block read those tiles. Returns 0 from
 // an asm that cannot move above the barrier: the tile loads add it to their
 // addresses, so no compiler can move them above the wait.
-__device__ __forceinline__ int wait(const unsigned* flags, int lo, int hi,
-                                    unsigned epoch) {
+__device__ __forceinline__ int wait(const unsigned* flags, int lo, int hi) {
   for (int t = lo + static_cast<int>(threadIdx.x); t <= hi;
        t += static_cast<int>(blockDim.x)) {
     long long polls = 0;
-    while (load_acquire(flags + t) != epoch) {
+    while (load_acquire(flags + t) == 0u) {
       if (++polls > kSpinLimit) __trap();
       __nanosleep(64);
     }
@@ -149,7 +146,9 @@ __device__ __forceinline__ int wait(const unsigned* flags, int lo, int hi,
 
 // rows row0 .. row0 + nrows - 1 of the sweep at lane l, stored to w: each the
 // swept value of s1 (with kMix ca*mx + cb*that), the sweep kernel's
-// expressions, s1 read through L2. `after` is wait()'s token.
+// expressions, s1 read through L2: the lane-a-thread sweep of both rings'
+// designs before their float4 sweeps, kept for experiments/
+// kernel_variants.py. `after` is wait()'s token.
 template <bool kMix>
 __device__ __forceinline__ void emit(const Args& r, int after, size_t row0,
                                      int nrows, int l, int e16) {
@@ -184,11 +183,13 @@ __device__ __forceinline__ void emit(const Args& r, int after, size_t row0,
 // coherent: no SM reads a tile's lines before its flag, a tile is written
 // once a launch, and the acquire of the flags (ld.acquire.gpu, a gpu-scope
 // fence) orders the block's later loads after the producer's release.
-// `after` is wait()'s token.
+// `after` is wait()'s token; row i of the sweep is row row_of(i) of s1, w
+// and mx (a tracer ring item holds some levels of some tracers).
 template <int kTile, int kU, bool kMix, bool kFirst, bool kL1,
-          int kLoads = 2>
+          int kLoads = 2, class RowOf = AllRows>
 __device__ __forceinline__ void emit4(const Args& r, int after, int j,
-                                      int rows, int e16) {
+                                      int rows, int e16,
+                                      RowOf row_of = RowOf()) {
   static_assert(kTile % 16 == 0, "a tile is whole elements");
   constexpr int G = kTile / 4;
   const int tid = threadIdx.x, g = tid % G;
@@ -220,7 +221,8 @@ __device__ __forceinline__ void emit4(const Args& r, int after, int j,
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
       const int row = row0 + u * ny;
-      const size_t o = static_cast<size_t>(row < rows ? row : 0) * e16 + l0;
+      const size_t o =
+          static_cast<size_t>(row_of(row < rows ? row : 0)) * e16 + l0;
       const float* xr = r.s1 + o + after;
       c[u] = kLoads > 0 ? ld4(xr) : hi;
       a[u] = kLoads > 1 && alpha ? ld4(xr + da) : zero4;
@@ -242,7 +244,7 @@ __device__ __forceinline__ void emit4(const Args& r, int after, int j,
         w.z = dss_sweep::mix(r.ca, m[u].z, r.cb, w.z);
         w.w = dss_sweep::mix(r.ca, m[u].w, r.cb, w.w);
       }
-      float* out = r.w + static_cast<size_t>(row) * e16 + l0;
+      float* out = r.w + static_cast<size_t>(row_of(row)) * e16 + l0;
       if constexpr (kFirst) store4(out, w, first);
       else *reinterpret_cast<float4*>(out) = w;
     }
@@ -258,18 +260,20 @@ __device__ __forceinline__ int readers(int u, int halo, int nb) {
 // After the calling block's sweep of a tile whose wait covered tiles lo ..
 // hi: count the block as a reader of each, and discard from L2 the s1 lines
 // of every tile whose count this block completes (kTile lanes of each of
-// `rows` rows, e16 lanes apart; kTile*4 bytes a whole number of 128-byte
-// lines, and e16 a multiple of kTile, so a tile's rows are whole lines of
-// its own). The __syncthreads orders every thread's s1 loads (their values
-// are stored already) before the counts. `now` (an experiment) discards
-// lo .. hi without counting.
-template <int kTile>
+// the `rows` rows row_of(0 ..), e16 lanes apart; kTile*4 bytes a whole
+// number of 128-byte lines, s1 128-byte aligned and e16 a multiple of 32,
+// so a tile's rows are whole lines of its own, the last tile's up to e16).
+// The __syncthreads orders every thread's s1 loads (their values are
+// stored already) before the counts. `now` (an experiment) discards lo ..
+// hi without counting. kThreads is the block's largest size.
+template <int kTile, int kThreads = kTile * 8, class RowOf = AllRows>
 __device__ __forceinline__ void retire(const Args& r, int lo, int hi,
                                        int rows, int e16,
-                                       bool now = false) {
+                                       bool now = false,
+                                       RowOf row_of = RowOf()) {
   static_assert(kTile % 32 == 0, "a tile's row is whole 128-byte lines");
   constexpr int kLines = kTile / 32;
-  __shared__ int last[kTile * 8];    // the block's largest size
+  __shared__ int last[kThreads];
   __shared__ int nlast;
   const int tid = threadIdx.x, nt = blockDim.x;
   for (int base = lo; base <= hi; base += nt) {
@@ -286,9 +290,14 @@ __device__ __forceinline__ void retire(const Args& r, int lo, int hi,
     }
     __syncthreads();
     for (int n = 0; n < nlast; ++n) {
-      const float* s1 = r.s1 + static_cast<size_t>(last[n]) * kTile;
+      const int l0 = last[n] * kTile;
+      const float* s1 = r.s1 + l0;
+      // the lines of the tile inside the row (fewer in a ragged last tile)
+      const int lines = min(kLines, (e16 - l0) >> 5);
       for (int p = tid; p < rows * kLines; p += nt) {
-        const float* line = s1 + static_cast<size_t>(p / kLines) * e16 +
+        if (p % kLines >= lines) continue;
+        const float* line = s1 +
+                            static_cast<size_t>(row_of(p / kLines)) * e16 +
                             (p % kLines) * 32;
         asm volatile("discard.global.L2 [%0], 128;" :: "l"(line)
                      : "memory");

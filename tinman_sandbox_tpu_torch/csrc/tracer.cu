@@ -71,14 +71,29 @@
 // Ring-fused mode (tracer_ring_kernel): replaces tracer_ring_packed_t of
 // tinman_sandbox_tpu/kernels/ring_fused.py (:369, body _tracer_ring_kernel
 // :303), the folded Euler stage and the rspheremp-scaled sweep of its output
-// in one launch, with the sweep's mix epilogue. A block produces one tile
-// of 128 lanes and one chunk of kLevels levels into a scratch through
-// stage_block (the Euler kernel's code and schedule, so the same bits),
-// flags it and sweeps the tile
-// `halo` tiles behind it in the same chunk (ring.cuh, dss_sweep.cuh). At
-// qsize 35 the stack is [2520, 86400]: 9 chunks x (675 + 4) blocks keep the
-// card busy where one chunk a block would not. The fix lanes keep their
-// in-face partial sums for the fixup and the patch (dss.cu).
+// in one launch, with the sweep's mix epilogue. The items of the launch are
+// (row block, tile) pairs, row-block-major: a tile of 128 lanes and a row
+// block of `group` chunks of kLevels levels and `tracers` tracers. The
+// block with ticket t < items produces item t into a scratch through
+// stage_block, chunk by chunk (the Euler kernel's code and schedule, so
+// the same bits), s1 stored evict-last in L2, and flags it; every block
+// then sweeps the item halo + lag tickets behind its own in float4 groups
+// with the sweep kernel's sums (ring::emit4, dss_sweep.cuh; s1 read
+// through L1, w stored evict-first), waiting on the tiles of that item's
+// row block that it reads, and discards from L2 the s1 lines of the tiles
+// whose last reader it is (ring.cuh). A sweep waits on tickets at most
+// halo above its item's, so the lag lets them finish before it asks. The
+// plan (tile, row blocks, halo, lag, the waits and the reader counts) is
+// kernels/ring_fused.py::tracer_ring_plan, which sizes the items
+// (TRACER_RING_ITEM_ROWS): at qsize 1 three chunks (3 x 675 items of 24
+// rows: a block's fixed costs, its ticket, the tile's tables and the flag,
+// paid once for 24 rows), at qsize 35 one chunk of 9 or 8 tracers (9 x 4 x
+// 675 items of 72 or 64 rows: the s1 of the items in flight, some 800 of
+// 36 KB, about fits L2, where whole chunks of 280 rows would not). On the
+// H100 the ring still takes 1.1x its two launches (PERF.md row 19): its
+// producer costs more than the Euler kernel alone and the sweep inside it
+// nearly what the sweep kernel does. The fix lanes keep their in-face
+// partial sums for the fixup and the patch (dss.cu).
 //
 // On the row layout [E16, qsize*nlev] (tracer-major on the contiguous axis,
 // column j = tracer*nlev + level) a third kernel:
@@ -108,6 +123,52 @@ namespace {
 constexpr int kTile = 128;             // lanes of a block: one warp of quads
 constexpr int kLevels = 8;             // levels a block: one slab sector
 constexpr int kRingWarps = 4;          // warps of a ring block (ring.cuh)
+constexpr int kRingLanes = 32;         // the ring's lane multiple: a row's
+                                       // tiles are whole 128-byte lines
+// The ring kernel's design, each part a constant that
+// experiments/kernel_variants.py (group tracer_ring) builds otherwise, the
+// port's value first:
+//   kRingSweep    1 the float4 sweep (ring::emit4); 0 none and no wait (the
+//                 producer alone); 2 a lane a thread (ring::emit, the design
+//                 before); 3 the wait without the sweep;
+//   kRingUnroll   1 row of loads in flight a thread, or 2;
+//   kRingL1       the sweep reads s1 through L1 (else through L2 alone);
+//   kRingKeep     s1 stored evict-last and w evict-first in L2 (else plain
+//                 stores);
+//   kRingDiscard  s1 lines discarded from L2 by their last reader;
+//   kRingBlocks   the blocks an SM the registers are capped for: 5 (102,
+//                 of which it takes 95, no spills; uncapped it took 122
+//                 and held 4), or 6, or 0 (none).
+#ifdef TRACER_RING_SWEEP
+constexpr int kRingSweep = TRACER_RING_SWEEP;
+#else
+constexpr int kRingSweep = 1;
+#endif
+#ifdef TRACER_RING_UNROLL
+constexpr int kRingUnroll = TRACER_RING_UNROLL;
+#else
+constexpr int kRingUnroll = 1;
+#endif
+#ifdef TRACER_RING_L1
+constexpr bool kRingL1 = TRACER_RING_L1;
+#else
+constexpr bool kRingL1 = true;
+#endif
+#ifdef TRACER_RING_KEEP
+constexpr bool kRingKeep = TRACER_RING_KEEP;
+#else
+constexpr bool kRingKeep = true;
+#endif
+#ifdef TRACER_RING_DISCARD
+constexpr bool kRingDiscard = TRACER_RING_DISCARD;
+#else
+constexpr bool kRingDiscard = true;
+#endif
+#ifdef TRACER_RING_BLOCKS
+constexpr int kRingBlocks = TRACER_RING_BLOCKS;
+#else
+constexpr int kRingBlocks = 5;
+#endif
 // Per stage, the warps of a block (the chunk's levels split over them), the
 // levels a warp holds at once (their wind products and rows in flight) and
 // the blocks an SM its registers are capped for, the best of
@@ -370,14 +431,16 @@ __device__ __forceinline__ V4 limit(V4 y, const V4& q, const V4& w,
 }
 
 // One row (tracer n, level k) at the thread's 4 lanes: the stage's value
-// from q (and the mix field's mv), into out at o and the slab. The Euler
+// from q (and the mix field's mv), into out at o and the slab; with kKeep
+// out is stored under the L2 policy `keep` (the ring's s1). The Euler
 // kernel and the ring kernel both run stage_row<false, false>, so both
 // write the same bits. Every thread of the warp must call it.
-template <bool kLimit, bool kMix>
+template <bool kLimit, bool kMix, bool kKeep = false>
 __device__ __forceinline__ void stage_row(const Quad& t, const Tile& tl,
                                           const Stage& s, const Wind& w,
                                           const V4& qv, const V4& mv,
-                                          size_t o, size_t row) {
+                                          size_t o, size_t row,
+                                          unsigned long long keep) {
   V4 y = advect(t, tl, w, qv, s.dt);
   if constexpr (kMix) {
 #pragma unroll
@@ -390,7 +453,11 @@ __device__ __forceinline__ void stage_row(const Quad& t, const Tile& tl,
     for (int j = 0; j < 4; ++j) y.v[j] *= sph.v[j];
   }
   if (t.live) {
-    st4(s.out, o, y);
+    if constexpr (kKeep)
+      ring::store4(s.out + o, make_float4(y.v[0], y.v[1], y.v[2], y.v[3]),
+                   keep);
+    else
+      st4(s.out, o, y);
     if (t.fix && s.slab) {
       const size_t nrows = static_cast<size_t>(s.nq) * s.nlev;
       const int4 r = *reinterpret_cast<const int4*>(s.fix_rank + t.col);
@@ -404,19 +471,21 @@ __device__ __forceinline__ void stage_row(const Quad& t, const Tile& tl,
 
 // One block's share: the kTile lanes from lane0 (a warp's quads; every warp
 // takes the same lanes) at levels k0 .. k1 - 1, warp w of kWarps the levels
-// k0 + w + i*kWarps (i < kPer), every tracer, kGroup of its levels at a
+// k0 + w + i*kWarps (i < kPer), the tracers n0 .. n1 - 1 (the stages take
+// every tracer, a ring item some), kGroup of its levels at a
 // time: the tracer loop outside the group's levels, so a tracer's levels
 // at a fix lane (a 32-byte sector of a slab row holds 8) are written by
 // the block's warps close together and the sector fills in L2 before it
 // goes to memory (on the H100 the Euler stage at qsize 35 took 0.94 ms with
 // 4 warps of one level at a time, 0.74 with two). The next tracer's loads
-// start before the current tracer's rows run. Every thread of the
-// block must call it.
-template <bool kLimit, bool kMix, int kWarps>
+// start before the current tracer's rows run. With kKeep (the ring) out is
+// stored evict-last in L2. Every thread of the block must call it.
+template <bool kLimit, bool kMix, int kWarps, bool kKeep = false>
 __device__ __forceinline__ void stage_block(const Stage& s,
                                             const float* __restrict__ dvv,
                                             int ncol, float rr, int lane0,
-                                            int k0, int k1, Tile& tl) {
+                                            int k0, int k1, int n0, int n1,
+                                            Tile& tl) {
   constexpr int kPer = kLevels / kWarps;         // levels a warp takes
   constexpr int kGroup = (kLimit ? kGroupLimit : kGroupEuler) < kPer
                              ? (kLimit ? kGroupLimit : kGroupEuler)
@@ -427,6 +496,8 @@ __device__ __forceinline__ void stage_block(const Stage& s,
                            rr);
   const int kw = k0 + static_cast<int>(threadIdx.x >> 5);
   const size_t step = static_cast<size_t>(s.nlev) * s.ld;   // a tracer
+  [[maybe_unused]] const unsigned long long keep =
+      kKeep ? ring::evict_last() : 0ull;
 #pragma unroll 1
   for (int g = 0; g < kPer; g += kGroup) {
     bool on[kGroup];          // warp-uniform: the level is in the chunk
@@ -438,20 +509,20 @@ __device__ __forceinline__ void stage_block(const Stage& s,
       const int k = kw + (g + i) * kWarps;
       on[i] = k < k1;
       w[i] = on[i] ? wind_products(t, s, k) : Wind{zero4(), zero4()};
-      o[i] = static_cast<size_t>(k) * s.ld + t.col;
+      o[i] = static_cast<size_t>(k) * s.ld + t.col + n0 * step;
       qn[i] = mn[i] = zero4();
       if (on[i] && t.live) {
         qn[i] = ld4(s.q, o[i]);
         if constexpr (kMix) mn[i] = ld4(s.mx, o[i]);
       }
     }
-    for (int n = 0; n < s.nq; ++n) {
+    for (int n = n0; n < n1; ++n) {
       V4 qv[kGroup], mv[kGroup];
 #pragma unroll
       for (int i = 0; i < kGroup; ++i) {
         qv[i] = qn[i];
         mv[i] = mn[i];
-        if (on[i] && t.live && n + 1 < s.nq) {   // the next tracer's loads
+        if (on[i] && t.live && n + 1 < n1) {     // the next tracer's loads
           qn[i] = ld4(s.q, o[i] + step);
           if constexpr (kMix) mn[i] = ld4(s.mx, o[i] + step);
         }
@@ -459,9 +530,11 @@ __device__ __forceinline__ void stage_block(const Stage& s,
 #pragma unroll
       for (int i = 0; i < kGroup; ++i) {
         if (on[i])
-          stage_row<kLimit, kMix>(t, tl, s, w[i], qv[i], mv[i], o[i],
-                                  static_cast<size_t>(n) * s.nlev + kw +
-                                      (g + i) * kWarps);
+          stage_row<kLimit, kMix, kKeep>(t, tl, s, w[i], qv[i], mv[i],
+                                         o[i],
+                                         static_cast<size_t>(n) * s.nlev +
+                                             kw + (g + i) * kWarps,
+                                         keep);
         o[i] += step;
       }
     }
@@ -477,8 +550,8 @@ tracer_kernel(Stage s, const float* __restrict__ dvv, int ncol, float rr) {
   __shared__ Tile tl;
   const int k0 = blockIdx.y * kLevels;
   stage_block<kLimit, kMix, kLimit ? kWarpsLimit : kWarpsEuler>(
-      s, dvv, ncol, rr, blockIdx.x * kTile, k0, min(k0 + kLevels, s.nlev),
-      tl);
+      s, dvv, ncol, rr, blockIdx.x * kTile, k0, min(k0 + kLevels, s.nlev), 0,
+      s.nq, tl);
 }
 
 // threads of a block of tracer_kernel<kLimit, *>
@@ -486,37 +559,83 @@ constexpr int stage_threads(bool limit) {
   return 32 * (limit ? kWarpsLimit : kWarpsEuler);
 }
 
-// The ring-fused Euler stage: per row chunk of kLevels levels (all tracers
-// of those levels), the tile schedule of ring.cuh. Ticket t is chunk
-// t / (nb + halo) and place p = t % (nb + halo) in it: p < nb produces tile
-// p of the chunk into the scratch r.s1 (and the slab), then the block
-// sweeps tile p - halo of the chunk, waiting on its own chunk's flags only.
-// nchunk * (nb + halo) blocks.
+// the scratch rows of one item's sweep: row i of the sweep is tracer n0 +
+// i / nk at level k0 + i % nk (the f32 quotient is exact: its error is
+// ~1e-7 of i / nk, the margin 0.5 / nk)
+struct ItemRows {
+  int nk, nlev, k0, n0;
+  float rnk;
+  __device__ __forceinline__ int operator()(int i) const {
+    const int n = __float2int_rz((static_cast<float>(i) + 0.5f) * rnk);
+    return (n0 + n) * nlev + k0 + (i - n * nk);
+  }
+};
+
+// The row block g of a launch whose row blocks are ngt tracer groups of
+// `tracers` tracers for each level group of `group` chunks: its levels
+// [k0, k1) and tracers [n0, n1)
+struct RowBlock {
+  int k0, k1, n0, n1;
+};
+
+__device__ __forceinline__ RowBlock row_block(const Stage& s, int g, int ngt,
+                                              int group, int tracers) {
+  const int gl = g / ngt, gt = g - gl * ngt;
+  const int k0 = gl * group * kLevels, n0 = gt * tracers;
+  return {k0, min(k0 + group * kLevels, s.nlev), n0, min(n0 + tracers, s.nq)};
+}
+
+// The ring-fused Euler stage over nrb*nb items (row block, tile), row-
+// block-major: the block with ticket t < nrb*nb produces item t into the
+// scratch r.s1 (and the slab) and flags it; the block sweeps item t - halo
+// - lag into r.w, waiting on its row block's flags only, and retires the
+// tiles it completes (r.done and r.flags by item). nrb*nb + halo + lag
+// blocks, nrb = ngl*ngt row blocks (row_block). The constants kRing* above
+// select the design (the port's: float4 sweep, hints, discard, L1 reads).
 template <bool kMix>
-__global__ void __launch_bounds__(32 * kRingWarps)
+__global__ void __launch_bounds__(32 * kRingWarps, kRingBlocks)
 tracer_ring_kernel(Stage s, const float* __restrict__ dvv, int ncol,
-                   float rr, ring::Args r) {
+                   float rr, ring::Args r, int nrb, int ngt, int group,
+                   int tracers, int lag) {
   __shared__ Tile tl;
   const int t = ring::ticket(r.counter);
-  const int per = r.nb + r.halo;
-  const int chunk = t / per, p = t % per;
-  unsigned* flags = r.flags + static_cast<size_t>(chunk) * r.nb;
-  const int k0 = chunk * kLevels;
-  const int k1 = min(k0 + kLevels, s.nlev);
-  if (p < r.nb) {
-    stage_block<false, false, kRingWarps>(s, dvv, ncol, rr, p * kTile, k0,
-                                          k1, tl);
-    ring::publish(flags + p, r.epoch);
+  const int items = nrb * r.nb;
+  if (t < items) {
+    const int g = t / r.nb, p = t - g * r.nb;
+    const RowBlock b = row_block(s, g, ngt, group, tracers);
+    for (int k0 = b.k0; k0 < b.k1; k0 += kLevels) {
+      if (k0 > b.k0) __syncthreads();          // the tile's tables reused
+      stage_block<false, false, kRingWarps, kRingKeep>(
+          s, dvv, ncol, rr, p * kTile, k0, min(k0 + kLevels, b.k1), b.n0,
+          b.n1, tl);
+    }
+    ring::publish(r.flags + t);
   }
-  const int j = p - r.halo;
-  if (j < 0) return;
-  const int after = ring::wait(flags, max(j - r.halo, 0),
-                               min(j + r.halo, r.nb - 1), r.epoch);
-  const int l = j * kTile + threadIdx.x;
-  if (l >= ncol) return;
-  for (int n = 0; n < s.nq; ++n)
-    ring::emit<kMix>(r, after, static_cast<size_t>(n) * s.nlev + k0, k1 - k0,
-                     l, ncol);
+  const int sw = t - r.halo - lag;
+  if (kRingSweep == 0 || sw < 0 || sw >= items) return;
+  const int c = sw / r.nb, j = sw - c * r.nb;
+  const RowBlock b = row_block(s, c, ngt, group, tracers);
+  const int k0 = b.k0, nk = b.k1 - b.k0;
+  ring::Args rc = r;                   // the row block's flags and counts
+  rc.flags += static_cast<size_t>(c) * r.nb;
+  rc.done += static_cast<size_t>(c) * r.nb;
+  const int lo = max(j - r.halo, 0), hi = min(j + r.halo, r.nb - 1);
+  const int after = ring::wait(rc.flags, lo, hi);
+  const ItemRows rows{nk, s.nlev, k0, b.n0, 1.f / static_cast<float>(nk)};
+  const int nrows = (b.n1 - b.n0) * nk;
+  if constexpr (kRingSweep == 1) {
+    ring::emit4<kTile, kRingUnroll, kMix, kRingKeep, kRingL1>(
+        rc, after, j, nrows, ncol, rows);
+  } else if constexpr (kRingSweep == 2) {
+    const int l = j * kTile + threadIdx.x;
+    if (l < ncol)
+      for (int n = b.n0; n < b.n1; ++n)
+        ring::emit<kMix>(rc, after, static_cast<size_t>(n) * s.nlev + k0,
+                         nk, l, ncol);
+  }
+  if constexpr (kRingDiscard && kRingSweep != 3)
+    ring::retire<kTile, 32 * kRingWarps>(rc, lo, hi, nrows, ncol, false,
+                                         rows);
 }
 
 // strong d/dx at lane (li, lj): sum_i Dvv[i, li] * s[i, lj]
@@ -683,33 +802,45 @@ int tracer_limit_launch(const void* meta, const void* dvv, const void* vu,
 }
 
 // The ring-fused Euler stage (sph folded in, with the slab) on `stream`: a
-// 4-byte memset of the ticket counter, then one kernel of
-// ceil(nlev / kLevels) * (nb + halo) blocks. s1 is the [nq*nlev, ncol]
-// scratch, w the swept output, mx null (no mix) or of w's shape; flags hold
-// nflags >= ceil(nlev / kLevels) * nb entries.
+// memset of the launch's state, then one kernel of nrb*nb + halo + lag
+// blocks, nb = ceil(ncol / kTile), nrb = ceil(nlev / (group*kLevels)) *
+// ceil(nq / tracers) row blocks of `group` chunks of kLevels levels and
+// `tracers` tracers. s1 is the
+// [nq*nlev, ncol] scratch (128-byte aligned, ncol a multiple of kRingLanes:
+// a tile's rows are whole L2 lines), w the swept output, mx null (no mix) or
+// of w's shape; state holds nstate >= 1 + 2*nrb*nb ints: the ticket
+// counter, the reader counts and the flags of every item, all cleared by
+// the memset (so a CUDA graph of the launch replays correctly; the flags
+// take the value 1). (group, tracers, halo, lag) are kernels/ring_fused.py::
+// tracer_ring_plan's.
 int tracer_ring_launch(const void* meta, const void* dvv, const void* vu,
                        const void* vv, const void* q, void* s1,
                        const void* fix_rank, void* slab, const void* rsp,
-                       const void* mx, void* w, void* flags, void* counter,
-                       unsigned epoch, int nflags, int nlev, int nq, int ncol,
-                       int wu, int wv, int nrsp, int ne, int halo, float dt,
-                       float rrearth, float ca, float cb, void* stream,
-                       int device) {
+                       const void* mx, void* w, void* state, int nstate,
+                       int nlev, int nq, int ncol, int wu, int wv, int nrsp,
+                       int ne, int halo, int group, int tracers, int lag,
+                       float dt, float rrearth, float ca, float cb,
+                       void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const int nb = (ncol + kTile - 1) / kTile;
-  const int nchunk = (nlev + kLevels - 1) / kLevels;
-  if (fix_rank == nullptr || epoch == 0 || ncol % 4 ||
-      !ring::fits(nchunk * nb, nflags, ne, halo, kTile))
+  if (group < 1 || tracers < 1) return cudaErrorInvalidValue;
+  const int ngt = (nq + tracers - 1) / tracers;
+  const int nrb = (nlev + group * kLevels - 1) / (group * kLevels) * ngt;
+  const long long items = static_cast<long long>(nrb) * nb;
+  if (fix_rank == nullptr || nlev < 1 || nq < 1 || ne < 1 ||
+      ncol < kRingLanes || ncol % kRingLanes || lag < 0 ||
+      reinterpret_cast<size_t>(s1) % 128 ||
+      1 + 2 * items > nstate || !ring::covers(nb, nb, ne, halo, kTile))
     return cudaErrorInvalidValue;
   ring::Args r = {};
   r.s1 = static_cast<const float*>(s1);
   r.rsp = static_cast<const float*>(rsp);
   r.mx = static_cast<const float*>(mx);
   r.w = static_cast<float*>(w);
-  r.flags = static_cast<unsigned*>(flags);
-  r.counter = static_cast<int*>(counter);
-  r.epoch = epoch;
+  r.counter = static_cast<int*>(state);
+  r.done = r.counter + 1;
+  r.flags = reinterpret_cast<unsigned*>(r.done + items);
   r.nrsp = nrsp;
   r.ne = ne;
   r.nb = nb;
@@ -719,11 +850,13 @@ int tracer_ring_launch(const void* meta, const void* dvv, const void* vu,
   const Stage s = make_stage(meta, vu, vv, q, nullptr, s1, fix_rank, slab,
                              nlev, nq, ncol, wu, wv, 1, 0, dt, 0.f, 0.f);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(counter, 0, sizeof(int), st);
+  err = cudaMemsetAsync(state, 0, (1 + 2 * static_cast<size_t>(items)) *
+                        sizeof(int), st);
   if (err != cudaSuccess) return err;
   auto* kernel = mx ? tracer_ring_kernel<true> : tracer_ring_kernel<false>;
-  kernel<<<nchunk * (r.nb + halo), 32 * kRingWarps, 0, st>>>(
-      s, static_cast<const float*>(dvv), ncol, rrearth, r);
+  kernel<<<static_cast<unsigned>(items + halo + lag), 32 * kRingWarps, 0,
+           st>>>(s, static_cast<const float*>(dvv), ncol, rrearth, r,
+                 nrb, ngt, group, tracers, lag);
   return cudaGetLastError();
 }
 

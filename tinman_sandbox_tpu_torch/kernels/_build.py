@@ -112,10 +112,9 @@ def build_kernels(names=None) -> dict:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_U = ctypes.c_uint
 _SIGNATURES = {
     "caar": {
-        "caar_launch": [_P] * 26 + [_I] * 10 + [_F] * 4 + [_P, _I],
+        "caar_launch": [_P] * 26 + [_I] * 11 + [_F] * 4 + [_P, _I],
         "caar_ring_launch": [_P] * 24 + [_I] * 12 + [_F] * 6
         + [_P, _I],
         "caar_blocks_per_sm": [_I] * 5,
@@ -160,8 +159,7 @@ _SIGNATURES = {
         "tracer_euler_launch": [_P] * 8 + [_I] * 7 + [_F, _F, _P, _I],
         "tracer_limit_launch": [_P] * 9 + [_I] * 7 + [_F] * 4 + [_P, _I],
         "tracer_row_launch": [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P, _I],
-        "tracer_ring_launch": [_P] * 13 + [_U] + [_I] * 9 + [_F] * 4
-        + [_P, _I],
+        "tracer_ring_launch": [_P] * 12 + [_I] * 12 + [_F] * 4 + [_P, _I],
         "tracer_blocks_per_sm": [_I, _I],
         "tracer_error_string": [_I],
     },

@@ -12,13 +12,14 @@ interface stencil and the eta_dot_dpdn accumulator (:265-290, :307, :344).
 It is bound by device-memory traffic; the source's note gives its design.
 Where the TPU kernel took 128x128 block-diagonal derivative operators and
 triangular scan matrices to feed its matrix unit, this one takes the 4x4
-``dvv`` and runs the scans as running sums. At rsplit>0 on this layout it
-splits the level axis into chunks summed chunk by chunk: ``caar_plan(ncol,
-nlev)`` (``CaarPlan``) is its launch, a pure function of the shape whose
-chunks depend on nlev alone, ``caar_ring_plan`` the ring kernel's and
-``caar_row_plan`` the row layout's (``kernels/caar.py``: the same chunks on
-tiles staged through shared memory); all refuse the shapes the kernel does
-not take (on CPU tensors the plain version takes any).
+``dvv`` and runs the scans as running sums. It splits the level axis into
+chunks summed chunk by chunk: ``caar_plan(ncol, nlev)`` (``CaarPlan``) is
+its launch, a pure function of the shape whose chunks depend on nlev alone
+(``caar_plan(ncol, nlev, r0=True)`` the rsplit=0 mode's),
+``caar_ring_plan`` the ring kernel's and ``caar_row_plan`` the row
+layout's (``kernels/caar.py``: the same chunks on tiles staged through
+shared memory); all refuse the shapes the kernel does not take (on CPU
+tensors the plain version takes any).
 
   * ``caar_t4_plain`` is the same function in plain PyTorch (cumsum and an
     einsum over ``dvv``). The CPU tests use it; on a card only the checks of
@@ -45,7 +46,11 @@ not take (on CPU tensors the plain version takes any).
     (row 6 of the kernel table), ``caar_packed_rsplit0_t_plain`` its plain
     version: ``hyb`` [nlev, 2] holds hybi(k) and hybi(k+1), ``etaacc`` the
     eta_dot_dpdn accumulator at interfaces 1..nlev, updated IN PLACE with
-    the other three. Its launches count in ``caar_packed_rsplit0_t.launches``.
+    the other three. Its kernel is the chunked body's rsplit=0 mode, which
+    forms the dp tendency as (hybi(k+1) - hybi(k))*sdot: within 5e-5 of the
+    plain version in f32 and in f64, and bit for bit the row rsplit=0
+    kernel on the transposed problem. Its launches count in
+    ``caar_packed_rsplit0_t.launches``.
   * ``caar_t`` is the full-state wrapper (``caar_pallas_t``), dispatching on
     ``cfg.rsplit``, and ``run_leapfrog_t`` the production leapfrog loop
     (``run_leapfrog_pallas_t``, rsplit>0 only, as the JAX loop): pack once,
@@ -85,8 +90,8 @@ __all__ = [
 ]
 
 _MC = {name: i for i, name in enumerate(META_COLS)}
-# the largest nlev whose phi buffer fits one block's shared memory in the
-# ring kernel (tiles of 128 columns) and the column-a-thread body
+# the most levels the kernels take (caar.cu kMaxNlev; a chunk of 50 levels
+# at 400)
 _MAX_NLEV = 400
 
 # the card and the chunked kernels the plans are for (csrc/caar.cu): the
@@ -95,7 +100,7 @@ _MAX_NLEV = 400
 # kernel's largest block and register cap (__launch_bounds__(256, 3)), the
 # ring kernel's (8 chunks of RING_TILE columns: the chunked kernel's own at
 # 32 columns; 64 registers a thread on the wider tiles of
-# experiments/kernel_variants.py)
+# experiments/kernel_variants.py); the rsplit=0 kernels' cap is ROW_REGS
 SMS = 132
 SM_THREADS = 2048
 SM_REGS = 65536
@@ -121,6 +126,10 @@ ROW_PLANES = (9, 11)
 ROW_META_PITCH = 33
 ROW_WINDOW = 8
 ROW_WINDOW_SLOTS = (13, 14)
+# the t layout's rsplit=0 kernel takes its 3-blocks-an-SM instance (80
+# registers, the stash) where the launch is at least this many waves of 3
+# blocks an SM (experiments/kernel_variants.py rsplit0)
+R0_WAVES = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,8 +141,9 @@ class CaarPlan:
     ``smem`` bytes of dynamic shared memory a block (phi [nlev][tile], the
     chunk totals [3][chunks][tile], the stash [5][nlev][tile]), the
     ``blocks_per_sm`` the plan reckons with at the register cap and the
-    ``waves`` of its ``blocks``. A ``row`` plan (``caar_row_plan``, the row
-    kernel; ``r0`` its rsplit=0 mode) reads ``stash`` as "staged": the
+    ``waves`` of its ``blocks``; ``r0`` is the rsplit=0 mode (its kernels
+    capped at ROW_REGS, or at ``cap`` registers where set). A ``row`` plan
+    (``caar_row_plan``, the row kernel) reads ``stash`` as "staged": the
     tile's fields copied through ROW_PLANES planes and the meta; unstaged,
     phi, the totals and each chunk's window slots."""
 
@@ -145,6 +155,7 @@ class CaarPlan:
     stash: bool = False
     row: bool = False
     r0: bool = False
+    cap: int = 0
 
     @property
     def threads(self) -> int:
@@ -167,7 +178,9 @@ class CaarPlan:
     @property
     def regs(self) -> int:
         """The register cap of the kernel that runs the plan."""
-        if self.row:
+        if self.cap:
+            return self.cap
+        if self.row or self.r0:
             return ROW_REGS
         return CHUNK_REGS if self.threads <= CHUNK_THREADS else RING_REGS
 
@@ -200,12 +213,18 @@ def caar_chunks(nlev: int) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def caar_plan(ncol: int, nlev: int) -> CaarPlan:
+def caar_plan(ncol: int, nlev: int, r0: bool = False) -> CaarPlan:
     """The launch plan of the chunked CAAR kernel at (ncol, nlev), a pure
     function of the shape: ``caar_chunks(nlev)``, tiles of TILE = 32
     columns (a warp of two elements a chunk), and the stash wherever it
     leaves at least two blocks an SM (nlev up to 146; above, passes 2 and 3
-    re-read their rows from L2, coalesced). The row layout's plan,
+    re-read their rows from L2, coalesced). With ``r0`` the rsplit=0 mode
+    on the t layout (row 6 of the kernel table): the same chunks and stash
+    rule at the rsplit=0 kernels' register cap (ROW_REGS: two blocks an
+    SM), so the row rsplit=0 kernel (``caar_row_plan(r0=True)``) sums in
+    its order; where the stash fits three blocks an SM and the launch is at
+    least R0_WAVES waves of them, the instance capped at CHUNK_REGS for
+    three (``cap``). The row layout's plan,
     ``caar_row_plan``, takes the same chunks; it has no such re-read (a row
     column is not coalesced), so it stages its tiles through shared memory
     wherever they fit one block (197 levels, 161 at rsplit=0) and above
@@ -214,12 +233,17 @@ def caar_plan(ncol: int, nlev: int) -> CaarPlan:
     if ncol < 1 or ncol % NPSQ:
         raise ValueError(f"caar: ncol={ncol} is not a positive multiple of "
                          f"{NPSQ}")
-    plan = CaarPlan(ncol, nlev, TILE, *caar_chunks(nlev), stash=True)
+    plan = CaarPlan(ncol, nlev, TILE, *caar_chunks(nlev), stash=True,
+                    r0=bool(r0))
     if plan.blocks_per_sm < 2:
         plan = dataclasses.replace(plan, stash=False)
     if plan.smem > SMEM_MAX:
         raise ValueError(f"caar: nlev={nlev} needs {plan.smem} bytes of "
                          f"shared memory a block, over {SMEM_MAX}")
+    if r0 and plan.stash:
+        three = dataclasses.replace(plan, cap=CHUNK_REGS)
+        if three.blocks_per_sm == 3 and three.waves >= R0_WAVES:
+            plan = three
     return plan
 
 
@@ -487,20 +511,10 @@ def _caar_step(scal, meta, dvv, s0, sm1, qdp, pecnd, acc, out, phi, moist,
         if slab is not None:
             slab.copy_(_slab_plain(torch.cat(out), fix))
         return False
-    # the kernels' refusals: the chunked kernel's plan (the t layout at
-    # rsplit>0, the row layout), else the column-a-thread body's level
-    # buffer (the t layout at rsplit=0)
-    if row:
-        p = caar_row_plan(qdp.shape[0], nlev, r0)
-        plan = (p.chunks, p.levels, int(p.stash))
-    elif r0:
-        plan = (0, 0, 0)
-        if nlev > _MAX_NLEV:
-            raise ValueError(f"caar: nlev={nlev} exceeds the kernel's "
-                             f"{_MAX_NLEV}-level shared-memory buffer")
-    else:
-        p = caar_plan(qdp.shape[1], nlev)
-        plan = (p.chunks, p.levels, int(p.stash))
+    # the kernels' refusals are their plans'
+    p = (caar_row_plan(qdp.shape[0], nlev, r0) if row
+         else caar_plan(qdp.shape[1], nlev, r0))
+    plan = (p.chunks, p.levels, int(p.stash), p.blocks_per_sm)
     ptr = lambda x: 0 if x is None else x.data_ptr()
     c = CONSTANTS
     # hybi(k) and hybi(k+1) as two strided vectors of hyb, whichever layout

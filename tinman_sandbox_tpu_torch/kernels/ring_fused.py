@@ -25,19 +25,22 @@ fixup and the patch (``kernels/dss.py``) complete the DSS.
   * ``tracer_ring_packed_t`` (``tracer_ring_kernel`` in ``csrc/tracer.cu``,
     replaces ``tracer_ring_packed_t``, :369): sph*(q - dt*div(v q)) on the
     stacked [qsize*nlev, E16] tracers, swept, with ``mix`` and the slab.
-    ``tracer_ring_plain`` is ``tracer_euler_plain(fold_sph=True, fix=)``
-    followed by the merge-free sweep.
+    Its items are (row block, tile) pairs, a row block some level chunks
+    of some tracers, on 128 lanes (``tracer_ring_plan``); its sweep runs on
+    float4 groups, and each tile's s1 lines are discarded from L2 once its
+    last reader is done, as in the CAAR ring. ``tracer_ring_plain`` is
+    ``tracer_euler_plain(fold_sph=True, fix=)`` followed by the merge-free
+    sweep.
 
 Each wrapper checks its operands, runs the plain version for CPU tensors
 (the accumulators then updated in place too) and launches its kernel for
 CUDA float32 tensors, one kernel a call with no host sync, counted in
 ``<wrapper>.launches``. The scratch s1 is a full-size field from PyTorch's
-allocator (the CAAR ring's lines live in L2 between their store and their
-discard). The flags, the ticket counter and the CAAR ring's reader counts
-are small buffers per device, so two ring calls must not run at once on two
-streams of one device. The CAAR ring's launch clears its own (a CUDA graph
-of it replays correctly); the tracer ring flags with an epoch a call (a
-graph of it would replay one epoch: not graph-safe).
+allocator (its lines live in L2 between their store and their discard), and
+so is each call's launch state, [ticket counter | reader counts | flags],
+which the launch clears with a stream-ordered memset: two calls on two
+streams never share it, and a CUDA graph of either ring replays correctly
+(the capture takes its buffers from the graph's private pool).
 
 ``ring_geometry(ne, tile)`` is the GPU analog of the JAX function: the beta
 shift db = 16*ne - 3 and the halo, the tiles one tile's sweep reads on each
@@ -68,7 +71,8 @@ from .tracer_t import _new_slab as _tracer_slab
 from .tracer_t import tracer_euler_cuda, tracer_euler_plain
 
 __all__ = ["RingGeometry", "ring_geometry", "RingPlan", "ring_plan",
-           "caar_ring_plain", "caar_ring_packed_t4", "tracer_ring_plain",
+           "TracerRingPlan", "tracer_ring_plan", "caar_ring_plain",
+           "caar_ring_packed_t4", "tracer_ring_plain",
            "tracer_ring_packed_t"]
 
 TILE = 128          # lanes a tracer ring block produces and sweeps
@@ -77,7 +81,17 @@ TILE = 128          # lanes a tracer ring block produces and sweeps
 # H100 a lag of 128 left the sweeps' waits the least to spin on, and the
 # tiles they read still in L2 (experiments/kernel_variants.py ring)
 RING_LAG = 128
-_LEVELS = 8         # levels of one tracer row chunk (csrc/tracer.cu kLevels)
+# the tracer ring's lag (experiments/kernel_variants.py tracer_ring)
+TRACER_RING_LAG = 128
+_LEVELS = 8          # levels of one tracer row chunk (csrc/tracer.cu kLevels)
+# the rows (tracers x levels) of a tracer ring item: chunks of every tracer
+# are grouped up to the first, and a chunk of every tracer with more rows
+# than the second is split into tracer groups of at most that many
+# (experiments/kernel_variants.py tracer_ring)
+TRACER_RING_ITEM_ROWS = (24, 72)
+# the lane multiple the tracer ring takes: a tile's row of s1 is whole
+# 128-byte lines, which its last reader discards from L2
+TRACER_RING_LANES = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,42 +172,118 @@ def ring_plan(ncol: int, nlev: int, ne: int, tile: int = RING_TILE,
                     geo=ring_geometry(ne, tile), lag=lag)
 
 
-class _RingState:
-    """The tracer ring's, per device: the tile flags (grown on demand, never
-    cleared: each call flags with its own epoch), the ticket counter and
-    the epoch."""
+@dataclasses.dataclass(frozen=True)
+class TracerRingPlan:
+    """The tracer ring kernel's launch at (ncol, nlev, qsize, ne) and its
+    schedule (``csrc/ring.cuh``): ``items`` = ``blocks`` x ``nb`` (row
+    block, tile) pairs, row-block-major, a row block ``group`` chunks of 8
+    levels (_LEVELS) of ``tracers`` tracers (for each level group, its
+    tracer groups in order) on TILE lanes; the sweep's geometry ``geo`` and the
+    ``lag``. The block with ticket t < ``items`` produces item t
+    (``produces``); every block with an item at t - halo - lag sweeps it
+    (``sweeps``) after waiting on ``waits(t)`` (its row block's tiles j -
+    halo .. j + halo, all of lower tickets), then counts itself a reader
+    of those tiles; the count that reaches ``readers(u)`` retires tile u of
+    the row block. ``state`` ints of launch state: the ticket counter, a
+    reader count and a flag an item."""
 
-    def __init__(self):
-        self.flags = {}
-        self.counter = {}
-        self.epoch = {}
+    ncol: int
+    nlev: int
+    geo: RingGeometry
+    lag: int = 0
+    group: int = 1
+    tracers: int = 1
+    qsize: int = 1
 
-    def take(self, dev, nflags: int):
-        key = str(dev)
-        flags = self.flags.get(key)
-        if flags is None or flags.numel() < nflags:
-            flags = torch.zeros(max(nflags, 1024), dtype=torch.int32,
-                                device=dev)
-            self.flags[key] = flags
-            self.counter[key] = torch.zeros(1, dtype=torch.int32, device=dev)
-        epoch = self.epoch.get(key, 0) % 0xFFFFFFFF + 1
-        self.epoch[key] = epoch
-        return flags, self.counter[key], epoch
+    @property
+    def nb(self) -> int:
+        return -(-self.ncol // TILE)
+
+    @property
+    def chunks(self) -> int:
+        return -(-self.nlev // _LEVELS)
+
+    @property
+    def blocks(self) -> int:
+        """Row blocks: level groups x tracer groups."""
+        return -(-self.nlev // (_LEVELS * self.group)) * \
+            -(-self.qsize // self.tracers)
+
+    @property
+    def items(self) -> int:
+        return self.blocks * self.nb
+
+    @property
+    def tickets(self) -> int:
+        """Blocks of the launch."""
+        return self.items + self.geo.halo + self.lag
+
+    @property
+    def state(self) -> int:
+        return 1 + 2 * self.items
+
+    def produces(self, t: int):
+        """(row block, tile) that the block of ticket t produces, or
+        None."""
+        return divmod(t, self.nb) if 0 <= t < self.items else None
+
+    def sweeps(self, t: int):
+        """(row block, tile) that the block of ticket t sweeps, or None."""
+        return self.produces(t - self.geo.halo - self.lag)
+
+    def waits(self, t: int):
+        """(row block, range of tiles) that the block of ticket t waits on
+        (and counts as read): the swept tile's j - halo .. j + halo inside
+        its row block; None where it sweeps nothing."""
+        item = self.sweeps(t)
+        if item is None:
+            return None
+        c, j = item
+        h = self.geo.halo
+        return c, range(max(j - h, 0), min(j + h, self.nb - 1) + 1)
+
+    def readers(self, u: int) -> int:
+        """The sweeps of tile u's row block that count tile u as read."""
+        h = self.geo.halo
+        return min(u + h, self.nb - 1) - max(u - h, 0) + 1
 
 
-_STATE = _RingState()
-# the CAAR ring's state a device, [ticket counter | nb reader counts | nb
-# flags], cleared by each launch (csrc/caar.cu caar_ring_launch)
-_CAAR_STATE = {}
+def tracer_ring_plan(ncol: int, nlev: int, ne: int, qsize: int = 1,
+                     lag: int = TRACER_RING_LAG) -> TracerRingPlan:
+    """The tracer ring kernel's plan at (ncol, nlev, qsize) on cubed-sphere
+    ne, the one the wrapper launches, a pure function of the shape: with
+    (group_rows, split_rows) = TRACER_RING_ITEM_ROWS, an item is as many
+    chunks of every tracer as fit group_rows rows (three at qsize 1), or
+    one chunk of every tracer (up to split_rows rows), or one chunk of the
+    fewest tracers in equal groups that keep it to split_rows (9 and 8 at
+    qsize 35). Raises on
+    the shapes the launch refuses: nlev or qsize < 1, a lane count that is
+    not a positive multiple of TRACER_RING_LANES (every cubed sphere's
+    96*ne^2 is one), ne < 1 and a negative lag. Its halo covers the sweep's
+    reach by construction; its wait takes any halo."""
+    if ne < 1 or lag < 0 or nlev < 1 or qsize < 1:
+        raise ValueError(f"tracer_ring: ne={ne} < 1, lag={lag} < 0, "
+                         f"nlev={nlev} < 1 or qsize={qsize} < 1")
+    if ncol < TRACER_RING_LANES or ncol % TRACER_RING_LANES:
+        raise ValueError(f"tracer_ring: ncol={ncol} is not a positive "
+                         f"multiple of {TRACER_RING_LANES}")
+    chunks = -(-nlev // _LEVELS)
+    group_rows, split_rows = TRACER_RING_ITEM_ROWS
+    group, tracers = 1, qsize
+    if _LEVELS * qsize <= group_rows:
+        group = min(chunks, group_rows // (_LEVELS * qsize))
+    elif _LEVELS * qsize > split_rows:
+        tracers = -(-qsize // -(-_LEVELS * qsize // split_rows))
+    return TracerRingPlan(ncol=ncol, nlev=nlev, geo=ring_geometry(ne),
+                          lag=lag, group=group, tracers=tracers, qsize=qsize)
 
 
-def _caar_state(dev, nb: int) -> torch.Tensor:
-    buf = _CAAR_STATE.get(str(dev))
-    if buf is None or buf.numel() < 1 + 2 * nb:
-        buf = torch.zeros(1 + 2 * max(nb, 1024), dtype=torch.int32,
-                          device=dev)
-        _CAAR_STATE[str(dev)] = buf
-    return buf
+def _new_state(ref: torch.Tensor, n: int) -> torch.Tensor:
+    """A launch's state, [ticket counter | reader counts | flags], n int32
+    on ref's device from PyTorch's allocator on the current stream (under
+    CUDA-graph capture from the graph's pool): a new buffer each call,
+    which the launch clears."""
+    return ref.new_empty(n, dtype=torch.int32)
 
 
 def _check_ring(name, x, rsp, fix: FixTables, mix):
@@ -262,16 +352,15 @@ def caar_ring_packed_t4(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg,
     for name, acc in (("vn0u", vn0u), ("vn0v", vn0v), ("omg", omg)):
         if mx is not None and _overlap(mx, acc):
             raise ValueError(f"caar_ring: the mix field overlaps {name}")
-    scratch = torch.empty_like(s0)
-    w = torch.empty_like(s0)
-    # the sweep moves 16-byte groups; the retirement whole 128-byte lines
-    for op, t, align in (("scratch", scratch, 128), ("rsp", rsp, 16),
-                         ("mix field", mx, 16), ("w", w, 16)):
-        if t is not None and t.data_ptr() % align:
-            raise ValueError(f"caar_ring: {op} must be {align}-byte aligned")
+    scratch = torch.empty_like(s0)     # the launch refuses it unless
+    w = torch.empty_like(s0)           # 128-byte aligned (whole L2 lines)
+    # the sweep moves 16-byte groups
+    for op, t in (("rsp", rsp), ("mix field", mx), ("w", w)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"caar_ring: {op} must be 16-byte aligned")
     phi = torch.empty_like(qdp) if emit_phi else None
     slab = _caar_slab(fix, qdp, k)
-    state = _caar_state(dev, plan.nb)
+    state = _new_state(s0, 1 + 2 * plan.nb)
     ptr = lambda x: 0 if x is None else x.data_ptr()
     c = CONSTANTS
     base = (None,) * 4 if single else sm1.split(k)
@@ -312,32 +401,30 @@ def tracer_ring_packed_t(meta, vu, vv, q, dvv, dt, nlev: int, rsp,
     cb*that), its fix lanes partial; slab [nfix, qsize*nlev]."""
     dev = _tracer_check("tracer_ring", meta, vu, vv, q, dvv, nlev, wind_rows)
     mx, ca, cb = _check_ring("tracer_ring", q, rsp, fix, mix)
-    if 2 * ring_geometry(fix.ne).halo + 1 > TILE:
-        raise ValueError(f"tracer_ring: ne = {fix.ne} reaches beyond "
-                         f"{TILE // 2} tiles")
     if dev.type == "cpu":
         e, slab = tracer_euler_cuda(meta, vu, vv, q, dvv, dt, nlev,
                                     fold_sph=True, wind_rows=wind_rows,
                                     fix=fix)
         return dss_sweep_nomerge_plain(e, rsp, fix, mix), slab
-    rank, slab = _tracer_slab("tracer_ring", fix, q)
-    scratch = torch.empty_like(q)
-    w = torch.empty_like(q)
     e16 = q.shape[1]
-    # the producer reads and writes float4s (csrc/tracer.cu)
-    _tracer_aligned("tracer_ring", e16, meta=meta, dvv=dvv, q=q,
-                    scratch=scratch, vu=(vu, wind_rows[0] * nlev * e16),
+    # raises where the launch refuses
+    plan = tracer_ring_plan(e16, nlev, fix.ne, q.shape[0] // nlev)
+    rank, slab = _tracer_slab("tracer_ring", fix, q)
+    scratch = torch.empty_like(q)      # the launch refuses it unless
+    w = torch.empty_like(q)            # 128-byte aligned (whole L2 lines)
+    # the producer and the sweep read and write float4s (csrc/tracer.cu)
+    _tracer_aligned("tracer_ring", e16, meta=meta, dvv=dvv, q=q, w=w,
+                    rsp=rsp, mix=mx, vu=(vu, wind_rows[0] * nlev * e16),
                     vv=(vv, wind_rows[1] * nlev * e16),
                     fix_rank=fix.fix_rank)
-    nchunk = -(-nlev // _LEVELS)
-    flags, counter, epoch = _STATE.take(dev, nchunk * -(-e16 // TILE))
+    state = _new_state(q, plan.state)
     err = _build.library("tracer").tracer_ring_launch(
         meta.data_ptr(), dvv.data_ptr(), vu.data_ptr(), vv.data_ptr(),
         q.data_ptr(), scratch.data_ptr(), rank, slab.data_ptr(),
         rsp.data_ptr(), 0 if mx is None else mx.data_ptr(), w.data_ptr(),
-        flags.data_ptr(), counter.data_ptr(), epoch, flags.numel(), nlev,
-        q.shape[0] // nlev, e16, wind_rows[0], wind_rows[1], rsp.shape[0],
-        fix.ne, ring_geometry(fix.ne).halo, float(dt), CONSTANTS.rrearth, ca,
+        state.data_ptr(), state.numel(), nlev, q.shape[0] // nlev, e16,
+        wind_rows[0], wind_rows[1], rsp.shape[0], fix.ne, plan.geo.halo,
+        plan.group, plan.tracers, plan.lag, float(dt), CONSTANTS.rrearth, ca,
         cb, _stream(dev), dev.index)
     _build.check_launch("tracer", err)
     tracer_ring_packed_t.launches += 1
