@@ -29,7 +29,8 @@ NVIDIA card and check it, phase by phase:
      to their plain versions, every alias of every dof equal after the whole
      DSS, and a field that is a function of the dof projected onto itself
      within 2e-6; the extract, fixup and sweep kernels (and the gather)
-     also replayed from CUDA graphs, the device's time alone; the sweep's
+     also replayed from CUDA graphs, the device's time alone, the
+     extract beside its sector floor (``extract_floor_ms``); the sweep's
      plan (``sweep_plan``: groups of 4 lanes a block, one row a thread, grid,
      blocks an SM reckoned and by cudaOccupancy, waves), every sweep form
      (merged, merge-free, mix, in place) bit for bit at ragged shapes (75
@@ -233,7 +234,10 @@ NVIDIA card and check it, phase by phase:
      1e-12 scaled of the plain float64 code; the remap's time by events
      and from a CUDA graph beside the dense plain code's, its plan (shared
      memory a block against ``remap_plan``, blocks an SM), its peak memory,
-     its launches a call (``torch.profiler``) and share of the cadence;
+     its launches a call (``torch.profiler``) and share of the cadence; the
+     same gates at qsize 35 (E3SM's tracers, each gated on its own) on the
+     cadence's input after rsplit steps (``cadence_input``), with the
+     kernel's time, bound, blocks an SM and registers;
      the example as a user runs it, and from one checkpoint of its start 6
      steps at once against 3 steps, a ``--checkpoint`` restart and 3 more,
      bit for bit equal; ``tools.energy_drift`` (float64, the field form:
@@ -378,9 +382,9 @@ REMAP_TOTAL_TOL = 1e-6
 # plain code's prefix differences lose ~K ulps
 REMAP_F64_TOL = 1e-12
 # f32 operations per level, column and field of the remap kernel, counted
-# from csrc/remap.cu: about two pieces a target cell (PLM: 8 each, with the
-# clips and the interface sums), a cell's slope (5), the target thickness
-# and the mean (6)
+# from csrc/remap.cu: the reconstruction's slope and limiter (~12), the
+# target pass's lower integral, sums and mean (~9) and a share of the
+# column's chains and geometry (~8)
 REMAP_OPS_PER_POINT = 30
 CONSERVE_TOL = 4e-6            # limiter: an element's mass, of its sum|w*y|
 BOUNDS_TOL = 1e-6              # limiter: outside the bounds, of max|q|
@@ -511,19 +515,34 @@ def bound_ms(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _sector_floor_ms(lanes, rows: int, e16: int, passes: int) -> float:
+    """ms at HBM_BYTES_PER_S for ``passes`` whole 32-byte sectors of a row
+    for each sector that one of ``lanes`` falls in, plus one 4-byte value a
+    lane and row, and the lane table once; rows of e16 lanes start on a
+    sector."""
+    import torch
+
+    if e16 % 8:
+        raise ValueError(f"sector floor: rows of {e16} lanes straddle "
+                         "sectors")
+    sectors = torch.unique(lanes.long() // 8).numel()
+    n = lanes.numel()
+    nbytes = rows * (sectors * 32 * passes + n * 4) + n * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def patch_floor_ms(lanes, rows: int, e16: int, mix: bool) -> float:
     """The patch's sector floor: each 32-byte sector of w that a fix lane
     falls in written whole (and with mix the same sectors of mx read), vd
     and the lane table read once; rows of e16 lanes start on a sector."""
-    import torch
+    return _sector_floor_ms(lanes, rows, e16, 2 if mix else 1)
 
-    if e16 % 8:
-        raise ValueError(f"patch_floor_ms: rows of {e16} lanes straddle "
-                         "sectors")
-    sectors = torch.unique(lanes.long() // 8).numel()
-    n = lanes.numel()
-    nbytes = rows * (sectors * 32 * (2 if mix else 1) + n * 4) + n * 4
-    return nbytes / HBM_BYTES_PER_S * 1e3
+
+def extract_floor_ms(lanes, rows: int, e16: int) -> float:
+    """The extract's sector floor: each 32-byte sector of x that a read
+    lane falls in read whole, the slab [lanes, rows] written and the lane
+    table read once; rows of e16 lanes start on a sector."""
+    return _sector_floor_ms(lanes, rows, e16, 1)
 
 
 def host_ms(fn, n: int) -> float:
@@ -575,8 +594,9 @@ def kernel_times() -> dict:
     ``caar_t4_cuda`` in the pair form at 1024 x 72, the pair form with the
     slab at ne30 x 72, and the stage mode with the slab, with and without
     phi, at ne30 x 72; ``dss_fixup_cuda`` on ne30 at 72, 288 and 2,520
-    rows; ``dist.remap_packed_t4`` (no fixer) at ne30 x 72, qsize 1, on the
-    packed cadence's start (``ms`` and ``graph_ms``); ``tracer_euler_cuda``
+    rows; ``dist.remap_packed_t4`` (no fixer) at ne30 x 72, qsize 1 and 35,
+    on phase 21's input (``cadence_input``: the cadence after rsplit steps;
+    ``ms`` and ``graph_ms`` over 20 calls); ``tracer_euler_cuda``
     and ``tracer_limit_cuda`` without and with mix at ne30 x 72, qsize 1
     and 35, on the prim bench's tracers with the winds read out of its
     state and the slab, as the prim step calls them; the row-layout CAAR
@@ -594,7 +614,6 @@ def kernel_times() -> dict:
 
     from tinman_sandbox_tpu_torch import bench
     from tinman_sandbox_tpu_torch.dist import remap_packed_t4
-    from tinman_sandbox_tpu_torch.examples import packed_cadence
     from tinman_sandbox_tpu_torch.kernels.caar_t import caar_t4_cuda
     from tinman_sandbox_tpu_torch.kernels.dss import (dss_fixup_cuda,
                                                       dss_sweep_cuda,
@@ -649,12 +668,15 @@ def kernel_times() -> dict:
         out["fixup"][rows] = both(lambda: dss_fixup_cuda(slab, fix, rsp),
                                   50 if rows < 1000 else 20)
         del slab
-    prob = packed_cadence.make_cadence_problem(NE, NLEV, 1, DYN_DT, "random",
-                                               dev)
-    remap = lambda: remap_packed_t4(prob["s"], prob["qdp"], prob["hv"],
-                                    prob["cfg"].nelem, NLEV, 1)
-    out["remap"] = dict(ms=cuda_ms(remap, 5), graph_ms=graph_ms(remap, 5))
-    del prob
+    out["remap"] = {}
+    for qsize in (1, QSIZE_TALL):
+        prob, rs, rq = cadence_input(dev, qsize)
+        remap = lambda: remap_packed_t4(rs, rq, prob["hv"],
+                                        prob["cfg"].nelem, NLEV, qsize)
+        out["remap"][qsize] = dict(ms=cuda_ms(remap, 20),
+                                   graph_ms=graph_ms(remap, 20))
+        del prob, rs, rq
+        torch.cuda.empty_cache()
     const, ps0, _, _, _, _ = bench.make_prim_problem(NE, NLEV, dev, DYN_DT, 1)
     pmeta, pdvv = const[1], const[3]
     kw = dict(wind_rows=(0, 1), fix=fix)
@@ -1108,12 +1130,17 @@ def phase_dss(dev, cs):
         "dss_fixup_cuda": "tinman_sandbox_tpu/kernels/dss_pallas.py:1306",
         "dss_sweep_cuda": "tinman_sandbox_tpu/kernels/dss_pallas.py:617",
     }
+    # the extract gathers scattered lanes: every 32-byte sector they fall
+    # in is read whole
+    floors = {"dss_extract_cuda": extract_floor_ms(t.read_lanes, k, e16)}
     out = {}
     for name, (k_ms, p_ms, l_ms) in times.items():
         out[name] = dict(route="cuda", source=src, replaces=replaces[name],
                          max_abs_err=abs_errs[name], ms=k_ms, plain_ms=p_ms,
                          bound_ms=bounds[name][0], bound_by=bounds[name][1],
                          library_ms=l_ms)
+        if name in floors:
+            out[name]["sector_floor_ms"] = floors[name]
         g_ms, gl_ms = graphs.get(name, (None, None))
         graph = ""
         if g_ms is not None:
@@ -1123,7 +1150,9 @@ def phase_dss(dev, cs):
         print(f"phase 4 {name} ne{cs.ne} [{k}, {e16}] (nfix {n}): bitwise "
               f"equal; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
               f"{'none' if l_ms is None else f'{l_ms:.4f} ms'}, bound "
-              f"{bounds[name][0]:.4f} ms ({bounds[name][1]}){graph}")
+              f"{bounds[name][0]:.4f} ms ({bounds[name][1]})"
+              + (f", sector floor {floors[name]:.4f} ms" if name in floors
+                 else "") + graph)
     print(f"phase 4 dss ne{cs.ne}: continuity error {cont:.1e}, projection "
           f"identity {proj_err:.2e} (limit {PROJECTION_TOL})")
     print(f"phase 4 dss_sweep plan [{k}, {e16}]: " + sweep_plan_line(
@@ -3750,6 +3779,24 @@ def ptxas_report(source: str, tag: str) -> list:
     return [(i, "; ".join(r)) for i, r in found.items()]
 
 
+def remap_ptxas() -> str:
+    """Registers and spills of the remap kernel's f32 plm packed instance
+    (remap_kernel<float, 1, true>), from nvcc's report of the build."""
+    from tinman_sandbox_tpu_torch.kernels import _build
+
+    found, inst = [], False
+    with open(_build.ptxas_log("remap")) as f:
+        for ln in f:
+            if "Compiling entry function" in ln:
+                inst = "remap_kernelIfLi1ELb1E" in ln
+            elif inst and ("registers" in ln or "spill" in ln):
+                found.append(ln.split(":", 1)[-1].strip())
+    if not found:
+        raise AssertionError("no ptxas report for remap_kernel<float, 1, "
+                             "true>")
+    return "; ".join(found)
+
+
 def probe_ptxas(plan) -> str:
     """Registers, spills and static shared memory of the plan's instance of
     the probe kernel, from nvcc's report of the build."""
@@ -3949,10 +3996,32 @@ def column_total_err(x_in, dp_in, x_out, dp_out, mass: bool) -> float:
     return float(((tout - tin).abs() / scale).max())
 
 
-def remap_gates(dev, prob, pre, mass0):
-    """Phase 21's gates of the remap kernel on the last remap's input
-    ``pre`` = (s, qdp), for pcm, plm and ppm; raises on a failure. Returns
-    the measurements of the kernel's row in the kernels line."""
+def cadence_input(dev, qsize: int, steps: int = 3):
+    """Phase 21's remap input at ne30 x 72 and ``qsize`` tracers: the packed
+    cadence's problem (``make_cadence_problem``) after ``steps`` (its
+    rsplit) steps of ``prim_step_packed_t4`` on the kernels with limited
+    tracers and qsplit 2, where the Lagrangian levels have moved. Returns
+    (prob, s, qdp)."""
+    from tinman_sandbox_tpu_torch.dist import prim_step_packed_t4
+    from tinman_sandbox_tpu_torch.examples import packed_cadence
+
+    prob = packed_cadence.make_cadence_problem(NE, NLEV, qsize, DYN_DT,
+                                               "random", dev)
+    s, q, acc = prob["s"], prob["qdp"], [a.clone() for a in prob["acc"]]
+    for _ in range(steps):
+        s, q, _, *acc = prim_step_packed_t4(
+            prob["scal"], prob["meta"], s, q, prob["pecnd"], *acc,
+            prob["dvv"], prob["plan"], prob["rsp"], DYN_NU, NLEV, qsplit=2,
+            limit_tracers=True, dt=DYN_DT)
+    return prob, s, q
+
+
+def remap_gates(dev, prob, pre, mass0, qsize: int = 1, f64: bool = True):
+    """Phase 21's gates of the remap kernel on a remap's input ``pre`` =
+    (s, qdp) with ``qsize`` tracers, for pcm, plm and ppm; with ``f64`` the
+    float64 instances too; raises on a failure. Returns the measurements of
+    the kernel's row in the kernels line (each tracer gated on its own, the
+    worst printed as qdp)."""
     import torch
 
     from tinman_sandbox_tpu_torch.dist import (
@@ -3966,19 +4035,23 @@ def remap_gates(dev, prob, pre, mass0):
     s, q = pre
     hv, sph = prob["hv"], prob["sph_lanes"]
     dp = s[3 * k:]
-    names = ("u", "v", "t", "qdp")
-    blocks = lambda x, y: list(x[:3 * k].split(k)) + [y]
+    names = ("u", "v", "t") + tuple(f"qdp{i}" for i in range(qsize))
+    blocks = lambda x, y: list(x[:3 * k].split(k)) + list(y.split(k))
+    shown = lambda e: {**{n: e[n] for n in names[:3]}, "qdp": max(
+        e[n] for n in names[3:])}
     worst = {}
     for scheme in ("pcm", "plm", "ppm"):
-        ks, kq = remap_packed_cuda(s, q, hv, k, 1, scheme)
-        ps, pq = remap_packed_t4_plain(s, q, hv, nelem, k, 1, scheme)
+        ks, kq = remap_packed_cuda(s, q, hv, k, qsize, scheme)
+        ps, pq = remap_packed_t4_plain(s, q, hv, nelem, k, qsize, scheme)
         rs, rq = remap_packed_t4_plain(s.double(), q.double(), hv, nelem, k,
-                                       1, scheme)
-        kf = remap_packed_t4(s, q, hv, nelem, k, 1, scheme, sph, mass0)
-        pf = remap_packed_t4_plain(s, q, hv, nelem, k, 1, scheme, sph, mass0)
+                                       qsize, scheme)
+        kf = remap_packed_t4(s, q, hv, nelem, k, qsize, scheme, sph, mass0)
+        pf = remap_packed_t4_plain(s, q, hv, nelem, k, qsize, scheme, sph,
+                                   mass0)
         torch.cuda.synchronize()
         dp_same = torch.equal(ks[3 * k:], ps[3 * k:]) \
             and torch.equal(kf[0][3 * k:], pf[0][3 * k:])
+        del kf, pf
         ref = blocks(rs, rq)
         kern = {n: scaled_err(a, b) for n, a, b in zip(names, blocks(ks, kq),
                                                        ref)}
@@ -3986,18 +4059,23 @@ def remap_gates(dev, prob, pre, mass0):
                        for a, b in zip(blocks(ks, kq), ref))
         plain = {n: scaled_err(a, b) for n, a, b in zip(names, blocks(ps, pq),
                                                         ref)}
-        tot_k = {n: column_total_err(a, dp, b, ks[3 * k:], n == "qdp")
-                 for n, a, b in zip(names, blocks(s, q), blocks(ks, kq))}
-        tot_p = {n: column_total_err(a, dp, b, ps[3 * k:], n == "qdp")
-                 for n, a, b in zip(names, blocks(s, q), blocks(ps, pq))}
+        tot_k = {n: column_total_err(a, dp, b, ks[3 * k:], i >= 3)
+                 for i, (n, a, b) in enumerate(zip(names, blocks(s, q),
+                                                   blocks(ks, kq)))}
+        tot_p = {n: column_total_err(a, dp, b, ps[3 * k:], i >= 3)
+                 for i, (n, a, b) in enumerate(zip(names, blocks(s, q),
+                                                   blocks(ps, pq)))}
         finite = bool(torch.isfinite(ks).all() and torch.isfinite(kq).all())
-        print(f"phase 21 remap kernel {scheme}: dp rows bit for bit the plain "
-              f"code's (without and with the fixer) {dp_same}; scaled errors "
-              f"against the plain float64 remap, kernel / plain float32: "
-              + " ".join(f"{n} {kern[n]:.2e} / {plain[n]:.2e}" for n in names)
+        print(f"phase 21 remap kernel qsize {qsize} {scheme}: dp rows bit for "
+              f"bit the plain code's (without and with the fixer) {dp_same}; "
+              f"scaled errors against the plain float64 remap, kernel / "
+              f"plain float32: " + " ".join(
+                  f"{n} {a:.2e} / {b:.2e}" for (n, a), b in zip(
+                      shown(kern).items(), shown(plain).values()))
               + "; column totals of sum|x|*dp, kernel / plain float32: "
-              + " ".join(f"{n} {tot_k[n]:.2e} / {tot_p[n]:.2e}"
-                         for n in names))
+              + " ".join(f"{n} {a:.2e} / {b:.2e}" for (n, a), b in zip(
+                  shown(tot_k).items(), shown(tot_p).values()))
+              + (" (qdp: the worst tracer)" if qsize > 1 else ""))
         if not dp_same or not finite:
             raise AssertionError(f"remap kernel {scheme}: dp rows differ from "
                                  f"the plain code's, or non-finite")
@@ -4009,10 +4087,13 @@ def remap_gates(dev, prob, pre, mass0):
             if tot_k[n] > REMAP_TOTAL_TOL:
                 raise AssertionError(f"remap kernel {scheme} {n}: column "
                                      f"totals {tot_k[n]} > {REMAP_TOTAL_TOL}")
-        worst[scheme] = dict(kernel=kern, kernel_abs=kern_abs,
-                             plain_f32=plain, totals=tot_k,
-                             plain_totals=tot_p)
-        del ks, kq, ps, pq, rs, rq, kf, pf
+        worst[scheme] = dict(kernel=shown(kern), kernel_abs=kern_abs,
+                             plain_f32=shown(plain), totals=shown(tot_k),
+                             plain_totals=shown(tot_p))
+        del ks, kq, ps, pq, rs, rq, ref
+        torch.cuda.empty_cache()
+    if not f64:
+        return dict(gates=worst)
     # the float64 instances against the plain float64 code
     s64, q64, hv64 = s.double(), q.double(), hv.to(dtype=torch.float64)
     ks, kq = remap_packed_t4(s64, q64, hv64, nelem, k, 1)
@@ -4223,8 +4304,9 @@ def phase_remap_cadence(dev, cs):
     plans = {scheme: (remap_plan(NLEV, 4, scheme), lib.remap_blocks_per_sm(
         0, SCHEMES.index(scheme), 1, NLEV, dev.index)) for scheme in SCHEMES}
     print(f"phase 21 remap kernel plan ne{cs.ne}x{NLEV} f32, 32 columns a "
-          f"block: " + ", ".join(f"{sch} {b} B shared, {n} blocks an SM"
-                                 for sch, (b, n) in plans.items()))
+          f"block: " + ", ".join(
+              f"{sch} {b} B shared, {n} blocks an SM"
+              for sch, (b, n) in plans.items()))
     ncol = ks_.shape[1]
     nbytes = 2 * 5 * NLEV * ncol * 4 + 2 * (NLEV + 1) * 4
     bnd, by = bound_ms(nbytes, REMAP_OPS_PER_POINT * 4 * NLEV * ncol)
@@ -4250,6 +4332,27 @@ def phase_remap_cadence(dev, cs):
         f"{t} {v['ms']:.4f} ms (graph {v['graph_ms']:.4f}, bound "
         f"{v['bound_ms']:.4f}), plain {v['plain_ms']:.3f} ms, scaled error "
         f"{v['scaled_err']:.1e}" for t, v in lv.items()))
+    # E3SM's 35 tracers: the cadence's input after rsplit steps at qsize 35,
+    # the same gates (the float64 instances above), the kernel's time, its
+    # registers and blocks an SM
+    prob35, s35, q35 = cadence_input(dev, QSIZE_TALL, rsplit)
+    mass35 = packed_air_mass(prob35["s"], prob35["sph_lanes"], NLEV)
+    with uncounted(*wrappers):
+        gates35 = remap_gates(dev, prob35, (s35, q35), mass35, QSIZE_TALL,
+                              f64=False)
+        kernel35 = lambda: remap_packed_cuda(s35, q35, prob35["hv"], NLEV,
+                                             QSIZE_TALL)
+        k35_ms, k35_graph = cuda_ms(kernel35, 20), graph_ms(kernel35, 20)
+    nbytes35 = 2 * (4 + QSIZE_TALL) * NLEV * ncol * 4 + 2 * (NLEV + 1) * 4
+    bnd35, by35 = bound_ms(nbytes35, REMAP_OPS_PER_POINT
+                           * (3 + QSIZE_TALL) * NLEV * ncol)
+    regs = remap_ptxas()
+    print(f"phase 21 remap kernel ne{cs.ne}x{NLEV} qsize {QSIZE_TALL} f32 plm "
+          f"(remap_packed_cuda, {nbytes35} B): {k35_ms:.4f} ms (graph "
+          f"{k35_graph:.4f}), bound {bnd35:.4f} ms ({by35}); "
+          f"{plans['plm'][1]} blocks an SM, ptxas {regs}")
+    del prob35, s35, q35, kernel35
+    torch.cuda.empty_cache()
     rows = {
         "remap_packed_cuda": dict(
             route="cuda", source="tinman_sandbox_tpu_torch/csrc/remap.cu",
@@ -4262,7 +4365,9 @@ def phase_remap_cadence(dev, cs):
             with_fixer_graph_ms=u_graph, with_fixer_bound_ms=bnd_user,
             with_fixer_plain_ms=up_ms, peak_mib=peaks,
             launches_a_call=launches, cadence_share=share,
-            plain_cadence_share=share_plain, plan=plans, **gates),
+            plain_cadence_share=share_plain, plan=plans, ptxas=regs,
+            qsize35=dict(ms=k35_ms, graph_ms=k35_graph, bound_ms=bnd35,
+                         bound_by=by35, **gates35), **gates),
         "remap_levels_cuda": dict(
             route="cuda", source="tinman_sandbox_tpu_torch/csrc/remap.cu",
             replaces="tinman_sandbox_tpu/ops/remap.py:68 remap_column (XLA, "

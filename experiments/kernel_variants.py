@@ -8,6 +8,7 @@ how the hypotheses about them were tested.
 
     python3 experiments/kernel_variants.py [sweep] [caar] [fixup] [remap]
         [tracer] [row] [ring] [banded] [tracer_ring] [rsplit0]
+        [remap_parent]
 
 from the repository root: the named groups (default all ten), in that
 order.
@@ -34,10 +35,19 @@ order.
      flat with the row fastest; tiles of 32 fix lanes x 32 or 64 rows), each
      checked bit for bit against ``dss_fixup_plain`` and timed from CUDA
      graphs on ne30 at 72, 288 and 2,520 rows;
-  4. the remap kernel (``csrc/remap.cu``) built with other warps a block
-     (``REMAP_WARPS``), each bit for bit the port's ``remap_packed_cuda``
-     and timed from CUDA graphs at ne30 x 72, qsize 1, for pcm, plm and
-     ppm, on the packed cadence's start with its dp rows drawn 5% off;
+  4. the remap kernel's pass breakdown (``remaps``): the port's
+     ``csrc/remap.cu`` and the kernel before its redesign
+     (``remap_parent.cu``), each built whole and cut down by
+     ``REMAP_VARIANT`` (no field passes; the chains; the chains and the
+     geometry, the parent's also as one pass of one warp; loads and stores
+     only; the port's also without the reconstruction, without the target
+     pass, and the geometry without its t sums or its walk), the port's
+     also with per-phase clocks (``REMAP_CLOCKS``) and other register caps
+     (``REMAP_MIN_BLOCKS``), all built in parallel; each timed from CUDA
+     graphs on phase 21's input (the cadence after rsplit steps) at ne30 x
+     72, f32, plm, qsize 1 and 35, every whole build held to phase 21's
+     gates and timed for pcm and ppm, in the float64 level form (ne4 x 8
+     and ne30 x 72) and on L2-resident against cold input;
   5. the tracer stages (the Euler stage, the limited stage without and with
      the Shu-Osher mix) at ne30 x 72, qsize 1 and 35: the port's quad
      layout through its wrappers (with the slab, as the main path); its
@@ -160,7 +170,9 @@ def _compile(name, source=None, flags=()):
         [nvcc, "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", *flags, "-I", CSRC,
          "-o", lib, source or os.path.join(here, f"{name}.cu")],
-        capture_output=True, text=True, check=True)
+        capture_output=True, text=True)
+    if done.returncode:
+        raise RuntimeError(f"nvcc failed for {name}:\n{done.stderr[-6000:]}")
     return lib, done.stderr
 
 
@@ -358,55 +370,261 @@ def fixups(dev, card, fix, rsp):
         print(json.dumps(line), flush=True)
 
 
-# warps a block of the remap kernel, the port's value first
-REMAP_WARPS = (8, 4, 16)
+# the remap kernel's pass breakdown: builds of the port's csrc/remap.cu and
+# of the kernel before its redesign (experiments/remap_parent.cu), each with
+# REMAP_VARIANT (value, name): what a launch does (the sources' notes)
+REMAP_VARIANTS = ((0, "full"), (1, "no_fields"), (2, "chains"),
+                  (3, "geometry"), (4, "geometry_one_pass"),
+                  (5, "loads_stores"))
+# the port's further cuts: no reconstruction, no target pass, the geometry
+# without its sums of t, without its walk
+REMAP_PORT_VARIANTS = ((6, "no_reconstruction"), (7, "no_target_pass"),
+                       (8, "geometry_no_sums"), (9, "geometry_no_walk"))
+# the flags every build of the port's kernel in the breakdown takes
+REMAP_PORT_FLAGS = []
+# other builds of the port's kernel, full: (name, nvcc flags): with its
+# per-phase clocks (REMAP_CLOCKS), its registers capped for other blocks an
+# SM (REMAP_MIN_BLOCKS, the port's 5)
+REMAP_OTHER = (("clocks", ["-DREMAP_CLOCKS"]),
+
+               ("uncapped", ["-DREMAP_MIN_BLOCKS=1"]),
+               ("min6", ["-DREMAP_MIN_BLOCKS=6"]))
+REMAP_QSIZES = (1, 35)
+# the L2 test: the first columns of phase 21's input at qsize 1 (one wave
+# of 4 blocks an SM on 132 SMs; 24.3 MB read, under the 50 MB L2), launched
+# on one copy ("hot") or on REMAP_COPIES copies in turn ("cold")
+REMAP_L2_COLS = 132 * 4 * 32
+REMAP_COPIES = 8
 
 
-def remaps(dev, card):
-    from tinman_sandbox_tpu_torch.examples import packed_cadence
+def _compile_all(builds):
+    """``_compile`` of every (name, source, flags) at once, one nvcc each;
+    returns {name: (library path, ptxas report)}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(builds)) as ex:
+        done = {name: ex.submit(_compile, name, src, flags)
+                for name, src, flags in builds}
+    return {name: f.result() for name, f in done.items()}
+
+
+def _remap_registers(report):
+    """ptxas's registers, stack frame and spill bytes of the f32 plm packed
+    instance (remap_kernel<float, 1, true>) in a build's report."""
+    name, regs = None, {}
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            regs.setdefault(name, {}).update(
+                stack=int(m.group(1)),
+                spills=int(m.group(2)) + int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs.setdefault(name, {})["registers"] = int(m.group(1))
+    hits = [v for k, v in regs.items() if "remap_kernelIfLi1ELb1E" in k]
+    return hits[0] if hits else None
+
+
+def remaps(dev, card, trees=("parent", "port")):
+    """The remap group (``remap_parent``: the parent's builds alone): the
+    pass breakdown of the port's kernel and of the kernel before its
+    redesign (suspects S1-S4 of PERF.md), on phase 21's
+    input (``chip_smoke.cadence_input``: the cadence after rsplit steps) at
+    ne30 x 72, f32, plm, qsize 1 and 35, from CUDA graphs; every full build
+    held to phase 21's gates (dp rows bit for bit the plain float32 code's,
+    fields no further off the plain float64 remap than the plain float32
+    code, column totals) and timed for pcm and ppm too, in the float64 level
+    form at the drift tool's ne4 x 8 and at ne30 x 72 (within 1e-12 of the
+    plain code), and on L2-resident input against cold input of the same
+    shape. Registers from ptxas, blocks an SM from the library, achieved
+    bandwidth = bytes read and written once over the time."""
+    from chip_smoke import (REMAP_F64_TOL, REMAP_TOTAL_TOL, cadence_input,
+                            column_total_err, scaled_err)
     from tinman_sandbox_tpu_torch.kernels import _build
     from tinman_sandbox_tpu_torch.kernels.remap import (SCHEMES,
-                                                        remap_packed_cuda)
+                                                        remap_packed_plain)
+    from tinman_sandbox_tpu_torch.ops.remap import remap_levels_plain
 
-    prob = packed_cadence.make_cadence_problem(30, 72, 1, 0.1, "random", dev)
-    s, q, hv = prob["s"].clone(), prob["qdp"], prob["hv"]
-    gen = torch.Generator(device=dev).manual_seed(0)
-    s[216:] *= 1 + 0.1 * (torch.rand(s[216:].shape, generator=gen,
-                                     device=dev) - 0.5)
-    k, ncol = 72, s.shape[1]
-    for warps in REMAP_WARPS:
-        lib, report = _compile(f"remap_w{warps}", os.path.join(CSRC,
-                                                               "remap.cu"),
-                               _build.SOURCE_FLAGS["remap"]
-                               + [f"-DREMAP_WARPS={warps}"])
-        so = ctypes.CDLL(lib)
-        so.remap_packed_launch.argtypes = _build._SIGNATURES["remap"][
-            "remap_packed_launch"]
-        regs = sorted({int(m) for m in re.findall(r"Used (\d+) registers",
-                                                  report)})
-        line = dict(card=card, kernel="remap_packed", warps=warps,
-                    registers=regs)
+    here = os.path.dirname(os.path.abspath(__file__))
+    flags = _build.SOURCE_FLAGS["remap"]
+    builds = []
+    for tree, src in (("parent", os.path.join(here, "remap_parent.cu")),
+                      ("port", os.path.join(CSRC, "remap.cu"))):
+        if tree not in trees:
+            continue
+        extra = REMAP_PORT_FLAGS if tree == "port" else []
+        more = REMAP_PORT_VARIANTS if tree == "port" else ()
+        for v, vname in REMAP_VARIANTS + more:
+            if tree == "port" and v == 4:   # its geometry is one pass a warp
+                continue
+            builds.append((f"remap_{tree}_{vname}", src,
+                           flags + extra + [f"-DREMAP_VARIANT={v}"]))
+    for name, extra in REMAP_OTHER if "port" in trees else ():
+        builds.append((f"remap_port_{name}", os.path.join(CSRC, "remap.cu"),
+                       flags + extra))
+    libs = _compile_all(builds)
+    k = 72
+    inputs = {}
+    for qsize in REMAP_QSIZES:
+        prob, s, q = cadence_input(dev, qsize)
+        hv = prob["hv"]
+        ref = {}
         for scheme in SCHEMES:
-            s_out, q_out = torch.empty_like(s), torch.empty_like(q)
+            if qsize > 1 and scheme != "plm":
+                continue
+            p32 = remap_packed_plain(s, q, hv, k, qsize, scheme)
+            p64 = remap_packed_plain(s.double(), q.double(), hv, k, qsize,
+                                     scheme)
+            ref[scheme] = (p32, p64)
+        inputs[qsize] = (s, q, hv, ref)
+        del prob
+    torch.cuda.empty_cache()
 
-            def run():
-                err = so.remap_packed_launch(
-                    0, SCHEMES.index(scheme), s.data_ptr(), q.data_ptr(),
-                    hv.hyai.data_ptr(), hv.hybi.data_ptr(), float(hv.ps0),
-                    s_out.data_ptr(), q_out.data_ptr(), k, 1, ncol,
-                    torch.cuda.current_stream(dev).cuda_stream, dev.index)
-                if err:
-                    raise RuntimeError(f"remap variant launch failed: {err}")
+    def launcher(so, s, q, hv, qsize, scheme, s_out, q_out):
+        def run():
+            err = so.remap_packed_launch(
+                0, SCHEMES.index(scheme), s.data_ptr(), q.data_ptr(),
+                hv.hyai.data_ptr(), hv.hybi.data_ptr(), float(hv.ps0),
+                s_out.data_ptr(), q_out.data_ptr(), k, qsize, s.shape[1],
+                torch.cuda.current_stream(dev).cuda_stream, dev.index)
+            if err:
+                raise RuntimeError(f"remap variant launch failed: {err}")
+        return run
 
-            run()
-            want = remap_packed_cuda(s, q, hv, k, 1, scheme)
-            torch.cuda.synchronize()
-            if not (torch.equal(s_out, want[0]) and torch.equal(q_out,
-                                                                want[1])):
-                raise AssertionError(f"remap with {warps} warps, {scheme}: "
-                                     "not bit for bit the port's")
-            line[f"graph_ms_{scheme}"] = graph_ms(run, 20)
+    def gates(tag, s, q, got, ref, qsize):
+        p32, p64 = ref
+        if not torch.equal(got[0][3 * k:], p32[0][3 * k:]):
+            raise AssertionError(f"{tag}: dp rows not the plain code's")
+        blocks = lambda x, y: list(x[:3 * k].split(k)) + list(y.split(k))
+        dp = s[3 * k:]
+        worst = {}
+        for i, (a, b, c, x) in enumerate(zip(blocks(*got), blocks(*p32),
+                                             blocks(*p64), blocks(s, q))):
+            kern, plain = scaled_err(a, c), scaled_err(b, c)
+            tot = column_total_err(x, dp, a, got[0][3 * k:], i >= 3)
+            if kern > plain or tot > REMAP_TOTAL_TOL:
+                raise AssertionError(f"{tag} block {i}: {kern} off the "
+                                     f"float64 remap (plain float32 {plain}),"
+                                     f" column totals {tot}")
+            worst[i] = kern
+        return max(worst.values())
+
+    for name, _, bflags in builds:
+        path, report = libs[name]
+        so = ctypes.CDLL(path)
+        for fn, argtypes in _build._SIGNATURES["remap"].items():
+            getattr(so, fn).argtypes = argtypes
+        full = "REMAP_VARIANT=0" in " ".join(bflags) or "VARIANT" not in \
+            " ".join(bflags)
+        line = dict(card=card, kernel="remap_packed", build=name,
+                    flags=bflags[len(flags):],
+                    registers=_remap_registers(report),
+                    blocks_per_sm=so.remap_blocks_per_sm(0, 1, 1, k,
+                                                         dev.index),
+                    smem=so.remap_smem_bytes(k, 4, 1))
+        for qsize, (s, q, hv, ref) in inputs.items():
+            for scheme in (SCHEMES if full and qsize == 1 else ("plm",)):
+                s_out, q_out = torch.empty_like(s), torch.empty_like(q)
+                run = launcher(so, s, q, hv, qsize, scheme, s_out, q_out)
+                run()
+                torch.cuda.synchronize()
+                if full:
+                    line[f"q{qsize}_{scheme}_scaled_err"] = gates(
+                        f"{name} qsize {qsize} {scheme}", s, q,
+                        (s_out, q_out), ref[scheme], qsize)
+                ms = graph_ms(run, 20)
+                line[f"q{qsize}_{scheme}_graph_ms"] = ms
+                if scheme == "plm":
+                    nbytes = 2 * (4 + qsize) * k * s.shape[1] * 4
+                    line[f"q{qsize}_gb_s"] = nbytes / ms / 1e6
+                del s_out, q_out
+        if hasattr(so, "remap_clocks"):
+            line.update(_remap_clocks(so, inputs, launcher))
+        if full:
+            line.update(_remap_levels_f64(so, dev, REMAP_F64_TOL, scaled_err,
+                                          remap_levels_plain))
+            line.update(_remap_l2(so, dev, inputs[1][:3], launcher))
         print(json.dumps(line), flush=True)
+
+
+# the per-phase clock slots of csrc/remap.cu (REMAP_CLOCKS)
+REMAP_PHASES = ("staging", "double_chain", "geometry_w0", "geometry_w1",
+                "float_chain", "field0_reconstruction", "to_fields",
+                "fields", "block")
+
+
+def _remap_clocks(so, inputs, launcher):
+    """A clocks build's cycles a block in each phase, one launch at each
+    qsize (plm)."""
+    so.remap_clocks.argtypes = [ctypes.c_void_p]
+    out = {}
+    for qsize, (s, q, hv, _) in inputs.items():
+        s_out, q_out = torch.empty_like(s), torch.empty_like(q)
+        run = launcher(so, s, q, hv, qsize, "plm", s_out, q_out)
+        run()
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * 16)()
+        so.remap_clocks(buf)
+        run()
+        torch.cuda.synchronize()
+        so.remap_clocks(buf)
+        blocks = max(buf[9], 1)
+        out[f"q{qsize}_cycles_a_block"] = {
+            n: buf[i] / blocks for i, n in enumerate(REMAP_PHASES)}
+    return out
+
+
+def _remap_levels_f64(so, dev, tol, scaled_err, remap_levels_plain):
+    """A build's float64 level form (plm, one field) at the drift tool's ne4
+    x 8 and at ne30 x 72 on phase 21's random layers, held within ``tol`` of
+    the plain code and timed from CUDA graphs."""
+    out = {}
+    for tag, ncol, nl in (("ne4x8", 96 * 16, 8), ("ne30x72", 5400 * 16, 72)):
+        gen = torch.Generator(device=dev).manual_seed(13)
+        f64 = torch.float64
+        dps = torch.rand(nl, ncol, generator=gen, device=dev, dtype=f64) + 0.5
+        w = torch.rand(nl, ncol, generator=gen, device=dev, dtype=f64) + 0.5
+        dpt = w / w.sum(0) * dps.sum(0)
+        x = torch.randn(nl, ncol, generator=gen, device=dev, dtype=f64)
+        got = torch.empty_like(x)
+
+        def run():
+            err = so.remap_levels_launch(
+                1, 1, x.data_ptr(), dps.data_ptr(), dpt.data_ptr(),
+                got.data_ptr(), nl, 1, ncol,
+                torch.cuda.current_stream(dev).cuda_stream, dev.index)
+            if err:
+                raise RuntimeError(f"remap level launch failed: {err}")
+
+        run()
+        err = scaled_err(got, remap_levels_plain(x, dps, dpt))
+        if err > tol:
+            raise AssertionError(f"remap level form {tag}: {err} > {tol}")
+        out[f"f64_levels_{tag}_graph_ms"] = graph_ms(run, 20)
+        out[f"f64_levels_{tag}_scaled_err"] = err
+    return out
+
+
+def _remap_l2(so, dev, inp, launcher):
+    """A build at qsize 1, plm, on the first REMAP_L2_COLS columns of phase
+    21's input: one copy launched again and again (its input stays in L2)
+    and REMAP_COPIES copies in turn (each read from device memory), ms a
+    launch from CUDA graphs."""
+    s, q, hv = inp
+    n = REMAP_L2_COLS
+    copies = [(s[:, :n].contiguous(), q[:, :n].contiguous())
+              for _ in range(REMAP_COPIES)]
+    outs = [(torch.empty_like(a), torch.empty_like(b)) for a, b in copies]
+    runs = [launcher(so, a, b, hv, 1, "plm", *o)
+            for (a, b), o in zip(copies, outs)]
+    hot = lambda: [runs[0]() for _ in runs]
+    cold = lambda: [r() for r in runs]
+    return dict(l2_cols=n, l2_hot_ms=graph_ms(hot, 10) / len(runs),
+                l2_cold_ms=graph_ms(cold, 10) / len(runs))
 
 
 # the tracer variants of tracer_variants.cu: (index, name, with the slab)
@@ -1157,8 +1375,9 @@ def _assembled_const(dev):
 def main(argv=None) -> int:
     every = ["sweep", "caar", "fixup", "remap", "tracer", "row", "ring",
              "banded", "tracer_ring", "rsplit0"]
+    extra = ["remap_parent"]
     groups = (argv if argv is not None else sys.argv[1:]) or every
-    if set(groups) - set(every):
+    if set(groups) - set(every) - set(extra):
         raise SystemExit(f"kernel_variants: unknown group in {groups}")
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_variants: needs a CUDA card")
@@ -1180,6 +1399,8 @@ def main(argv=None) -> int:
         fixups(dev, card, fix, rsp)
     if "remap" in groups:
         remaps(dev, card)
+    if "remap_parent" in groups:
+        remaps(dev, card, ("parent",))
     if "tracer" in groups:
         tracers(dev, card)
     if "row" in groups:

@@ -4,15 +4,18 @@ card, where ``chip_smoke.py`` phase 21 holds it to the plain code), and the
 dispatch and the refusals of the remap wrappers.
 
 Tolerances: 1e-12 scaled for the float64 walk against JAX's ``remap_column``
-(the JAX form takes differences of prefix integrals, which lose ~K ulps;
-with thin target layers the masses are compared, since a thin layer's mean
-from prefix differences loses eps * column / layer);
+and for the float64 packed emulation against JAX's packed remap (the JAX
+form takes differences of prefix integrals, which lose ~K ulps; with thin
+target layers the masses are compared, since a thin layer's mean from
+prefix differences loses eps * column / layer);
 the float32 packed emulation's dp rows bit for bit the plain code's (the
 same rounded operations in the same order); its fields within 1e-6 scaled
 of JAX's packed remap in float64 on the same inputs (measured ~2e-7: the
-remap onto the float64 target layers, f32 pieces); column totals within
-1e-6 of the column's sum |x|*dp (the pieces of a source cell partition it);
-PCM and PLM stay inside the source column's range within 1e-12 of it.
+remap onto the float64 target layers, f32 pieces), also at E3SM's 35
+tracers; column totals within 1e-6 of the column's sum |x|*dp (the pieces
+of a source cell sum to its mass); PCM and PLM stay inside the source
+column's range within 1e-12 of it; the kernel's geometry (cells and
+fractions) bit for bit the walk of the kernel's design before.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -28,8 +31,9 @@ from tinman_sandbox_tpu_torch.dist import (remap_packed_t4,
                                            remap_packed_t4_plain)
 from tinman_sandbox_tpu_torch.grid import HybridVCoord
 from tinman_sandbox_tpu_torch.kernels.remap import (
-    SCHEMES, remap_levels_cuda, remap_packed_cuda, remap_packed_emulated,
-    remap_packed_plain, remap_plan, remap_walk_emulated)
+    SCHEMES, _geometry, remap_levels_cuda, remap_packed_cuda,
+    remap_packed_emulated, remap_packed_plain, remap_plan,
+    remap_walk_emulated)
 from tinman_sandbox_tpu_torch.ops.remap import remap_levels, remap_levels_plain
 
 torch.set_num_threads(2)
@@ -212,6 +216,145 @@ def test_torch_remap_dispatch_on_cpu_is_the_plain_code():
             assert torch.equal(x, y) and torch.equal(x, z)
 
 
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_torch_remap_packed_emulated_f64_matches_jax(scheme):
+    """The float64 emulation against JAX's packed remap in float64 on the
+    same inputs (hv in float64 on both sides), every block, dp rows
+    included, at 1e-12."""
+    nlev = 12
+    s, qdp, hv = _packed(nlev=nlev)
+    s, qdp = s.astype(np.float64), qdp.astype(np.float64)
+    hv = {n: np.asarray(v, np.float64) for n, v in hv.items()}
+    js, jq = j_remap_packed(jnp.asarray(s), jnp.asarray(qdp),
+                            JHybridVCoord(**hv), nelem=4, nlev=nlev,
+                            qsize=2, scheme=scheme)
+    es, eq = remap_packed_emulated(torch.from_numpy(s), torch.from_numpy(qdp),
+                                   _thv(hv, torch.float64), nlev, 2, scheme)
+    for got, want in zip((es, eq), (js, jq)):
+        for g, w in zip(got.split(nlev), np.split(np.asarray(want),
+                                                  got.shape[0] // nlev)):
+            assert _scaled(g, w) < F64_TOL
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_torch_remap_packed_emulated_qsize35(dtype):
+    """E3SM's 35 tracers at a CPU size (ne2 x 8): the emulation against
+    JAX's packed remap in float64 (float32 at 1e-6 scaled, float64 at
+    1e-12), and every tracer's column mass kept within 1e-6."""
+    nlev, qsize, ncol = 8, 35, 24 * 16
+    s, qdp, hv = _packed(nlev=nlev, qsize=qsize, seed=8, ncol=ncol)
+    tol = F32_TOL if dtype == "float32" else F64_TOL
+    s, qdp = s.astype(dtype), qdp.astype(dtype)
+    if dtype == "float64":   # hv in float64 on both sides
+        hv = {n: np.asarray(v, np.float64) for n, v in hv.items()}
+    js, jq = j_remap_packed(jnp.asarray(s, jnp.float64),
+                            jnp.asarray(qdp, jnp.float64),
+                            JHybridVCoord(**hv), nelem=24, nlev=nlev,
+                            qsize=qsize, scheme="plm")
+    tdt = torch.float32 if dtype == "float32" else torch.float64
+    es, eq = remap_packed_emulated(torch.from_numpy(s), torch.from_numpy(qdp),
+                                   _thv(hv, tdt), nlev, qsize, "plm")
+    js, jq = np.asarray(js), np.asarray(jq)
+    for i in range(3):
+        blk = slice(i * nlev, (i + 1) * nlev)
+        assert _scaled(es[blk], js[blk]) < tol, i
+    for i in range(qsize):
+        blk = slice(i * nlev, (i + 1) * nlev)
+        assert _scaled(eq[blk], jq[blk]) < tol, i
+        x, y = torch.from_numpy(qdp[blk]).double(), eq[blk].double()
+        assert float(((y.sum(0) - x.sum(0)).abs() / x.abs().sum(0)).max()) \
+            < TOTAL_TOL, i
+
+
+def _old_walk(dp_src, dp_tgt):
+    """The geometry pass of the kernel's design before its redesign for the
+    H100, in plain Python on numpy columns [K, C]: 8 warps, each summing t
+    and walking from the column's top for its segment of the interfaces,
+    a = clip(t - s, 0, dp) rounded to dp_src's dtype at every step, a cell
+    passed where a reaches dp. Returns (c [K+1, C], a [K+1, C])."""
+    k, ncol = dp_src.shape
+    typ = dp_src.dtype.type
+    c = np.zeros((k + 1, ncol), np.int64)
+    a = np.zeros((k + 1, ncol), dp_src.dtype)
+    n = k - 1
+    for col in range(ncol):
+        for w in range(8):
+            j_lo, j_hi = 1 + w * n // 8, 1 + (w + 1) * n // 8
+            s = t = 0.0
+            cell = 0
+            for i in range(j_lo - 1):
+                t += float(dp_tgt[i, col])
+            for j in range(j_lo, j_hi):
+                t += float(dp_tgt[j - 1, col])
+                aj = typ(0)
+                while cell < k:
+                    d = dp_src[cell, col]
+                    aj = typ(min(max(t - s, 0.0), float(d)))
+                    if aj < d:
+                        break
+                    s += float(d)
+                    cell += 1
+                    aj = typ(0)
+                c[j, col], a[j, col] = cell, aj
+        c[k, col] = k
+    return c, a
+
+
+def _ulp_case(dtype, rng):
+    """Columns whose first target interface lies on, or an ulp beside, the
+    first source cell's end and, in float32, on the midpoint between that
+    end and the float below it (odd and even last bits), or beside it."""
+    k = 12
+    dp_src = rng.uniform(5.0, 15.0, (k, NCOL)).astype(dtype)
+    if dtype == np.float32:
+        bits = dp_src[0].view(np.int32)
+        bits[::2] |= 1
+        bits[1::2] &= ~1
+        below = (bits - 1).view(np.float32).astype(np.float64)
+        mid = 0.5 * (below + dp_src[0].astype(np.float64))
+    else:
+        mid = dp_src[0].astype(np.float64)
+    ends = [mid, np.nextafter(mid, -np.inf), np.nextafter(mid, np.inf),
+            dp_src[0].astype(np.float64),
+            dp_src[0].astype(np.float64) + dp_src[1].astype(np.float64),
+            np.nextafter(dp_src[0].astype(np.float64), -np.inf)]
+    first = np.choose(np.arange(NCOL) % len(ends), ends)
+    rest = rng.uniform(0.5, 1.5, (k - 1, NCOL))
+    total = dp_src.astype(np.float64).sum(0)
+    rest = rest / rest.sum(0) * (total - first)
+    return dp_src, np.concatenate([first[None], rest])
+
+
+GEOMETRY_CASES = ("random", "identical", "coincide", "below", "above",
+                  "thin", "ulp")
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", GEOMETRY_CASES)
+def test_torch_remap_geometry_is_the_old_walk(case, dtype):
+    """The kernel's geometry (thresholds, four cells a step) gives the cells
+    c_j and local coordinates a_j of the walk before its redesign bit for
+    bit, xi_j = a_j / dp_c: on thin layers, interfaces that coincide,
+    target columns a few ulps short or long, and target interfaces on a
+    source interface or on a rounding midpoint to the last ulp."""
+    rng = np.random.default_rng(31 + GEOMETRY_CASES.index(case))
+    if case == "ulp":
+        dp_src, dp_tgt = _ulp_case(dtype, rng)
+    else:
+        _, dp_src, dp_tgt = _case(case, rng)
+        dp_src = dp_src.astype(dtype)
+        if dtype == np.float32 and case in ("identical", "coincide"):
+            dp_tgt = dp_src.astype(np.float64) if case == "identical" \
+                else dp_tgt.astype(np.float32).astype(np.float64)
+    c_old, a_old = _old_walk(dp_src, dp_tgt)
+    c, xi = _geometry(torch.from_numpy(dp_src), torch.from_numpy(dp_tgt))
+    assert np.array_equal(c.numpy(), c_old)
+    k = dp_src.shape[0]
+    d = np.take_along_axis(dp_src, np.minimum(c_old, k - 1), 0)
+    want = np.where(c_old < k, a_old / d, 0).astype(dtype)
+    assert np.array_equal(xi.numpy().view(np.uint8), want.view(np.uint8))
+
+
 def _refusals():
     nlev = 6
     s, qdp, hv = _packed(nlev=nlev)
@@ -250,13 +393,16 @@ def test_torch_remap_wrappers_refuse(name):
 
 @pytest.mark.parametrize("nlev, itemsize, scheme, smem", [
     (72, 4, "plm", 42240), (72, 4, "pcm", 33024), (72, 8, "ppm", 98240),
-    (326, 4, "ppm", 232304), (509, 4, "pcm", 232296), (210, 8, "plm", 232160),
+    (326, 4, "ppm", 232304), (509, 4, "pcm", 232304), (210, 8, "plm", 232160),
     (170, 8, "ppm", 231520)])
 def test_torch_remap_plan(nlev, itemsize, scheme, smem):
     """A block's shared memory (csrc/remap.cu's remap_smem_bytes): the
-    block's 2*nlev hybrid terms, and for each of 32 columns dp_src, the a_j,
-    the field and the scheme's coefficient arrays of nlev values and the
-    nlev + 1 cell indices."""
+    block's 2*nlev hybrid terms to a 16-byte boundary (the column arrays
+    take 16-byte copies), and for each of 32 columns dp_src, the field, the
+    scheme's coefficient arrays of nlev values, the nlev + 1 interface
+    fractions and the nlev + 1 cell indices. The level limits stay those of
+    the design before: f32 plm 397, ppm 326, pcm 509; f64 plm 210, ppm
+    170."""
     assert remap_plan(nlev, itemsize, scheme) == smem <= 232448
 
 

@@ -40,17 +40,24 @@ SCHEMES = ("pcm", "plm", "ppm")
 # dynamic shared memory a block may take on the H100 (csrc/remap.cu)
 MAX_SMEM = 232448
 COLS = 32                      # columns (threads) a block of the kernel
+# the geometry's segments, one a warp of the kernel (csrc/remap.cu kWarps);
+# any number gives the same bits
+SEGMENTS = 8
 
 
 def remap_plan(nlev: int, itemsize: int, scheme: str) -> int:
     """Shared memory a block of the kernel takes (``remap_smem_bytes`` in
-    csrc/remap.cu): the block's 2*nlev hybrid terms, and for each of its 32
-    columns dp_src, the field, the scheme's coefficients (plm 1, ppm 2
-    arrays) and the target interfaces' local coordinates and cells; raises
-    where it exceeds a block's."""
+    csrc/remap.cu): the block's 2*nlev hybrid terms (to 16 bytes), and for
+    each of its 32 columns dp_src, the field, the scheme's coefficients
+    (plm 1, ppm 2 arrays) and the interfaces' fractions (nlev + 1) of
+    itemsize bytes and the nlev + 1 cell indices; raises where it exceeds a
+    block's."""
+    if scheme not in SCHEMES:
+        raise ValueError(f"unknown remap scheme {scheme!r}")
     ncoef = SCHEMES.index(scheme)
     per_col = ((3 + ncoef) * nlev + 1) * itemsize + (nlev + 1) * 2
-    smem = -(-(2 * nlev * itemsize + per_col * COLS) // 8) * 8
+    hybrid = -(-2 * nlev * itemsize // 16) * 16
+    smem = -(-(hybrid + per_col * COLS) // 8) * 8
     if nlev < 1 or smem > MAX_SMEM:
         raise ValueError(f"remap: {nlev} levels of {itemsize}-byte values "
                          f"({scheme}) do not fit the kernel's shared memory")
@@ -176,20 +183,30 @@ def _clip(x, hi):
     return torch.minimum(torch.clamp(x, min=0.0), hi)
 
 
-def _coefficients(q, dp, scheme):
-    """Each source cell's reconstruction as the kernel's coefficient pass
-    computes it, [K, C] each: pcm (q,), plm (q, m), ppm (q, aL, aR)."""
-    k = q.shape[0]
+def _coefficients(x, dp, scheme, tracer):
+    """Each source cell's mass and reconstruction coefficients as the
+    kernel's reconstruction computes them, [K, C] each: the mass (x * dp,
+    or a tracer's x itself) and pcm nothing, plm c1 = m dp^2 / 2, ppm
+    c1, c2 = dp aL, dp aR."""
+    k = x.shape[0]
+    q = x / dp if tracer else x
+    mass = x if tracer else x * dp
     if scheme == "pcm":
-        return (q,)
+        return mass, None, None
     if scheme == "plm":
-        g = (q[1:] - q[:-1]) / (0.5 * (dp[1:] + dp[:-1]))
+        # one division an interface (the kernel's float division is the
+        # card's fast one, within 2 ulps of this)
+        d0, d1 = dp[:-1], dp[1:]
+        if tracer:   # from the masses
+            g = (x[1:] * d0 - x[:-1] * d1) / ((d0 * d1) * (0.5 * (d1 + d0)))
+        else:
+            g = (x[1:] - x[:-1]) / (0.5 * (d1 + d0))
         zero = torch.zeros_like(q[:1])
         g_lo, g_hi = torch.cat([zero, g]), torch.cat([g, zero])
         m = torch.where(g_lo * g_hi > 0.0,
                         torch.copysign(torch.minimum(g_lo.abs(), g_hi.abs()),
                                        g_lo), torch.zeros_like(q))
-        return q, m
+        return mass, (0.5 * (m * dp)) * dp, None
     at = lambda i: q[torch.clamp(torch.arange(i, i + k + 1), 0, k - 1)]
     qm2, qm1, qp0, qp1 = at(-2), at(-1), at(0), at(1)   # edges 0..K
     e = (7.0 / 12.0) * (qm1 + qp0) - (1.0 / 12.0) * (qm2 + qp1)
@@ -202,90 +219,135 @@ def _coefficients(q, dp, scheme):
     dev = q - 0.5 * (a_l + a_r)
     a_l = torch.where(d * dev > d * d / 6.0, 3.0 * q - 2.0 * a_r, a_l)
     a_r = torch.where(-(d * d) / 6.0 > d * dev, 3.0 * q - 2.0 * a_l, a_r)
-    return q, a_l, a_r
+    return mass, dp * a_l, dp * a_r
 
 
-def _piece(scheme, cf, a, b, dp):
-    """Integral of the cell's reconstruction over [a, b] of [0, dp]."""
+def _lower(scheme, m, c1, c2, f):
+    """L(c, f): the integral of a cell's reconstruction over the first
+    fraction f of it, m its mass."""
     if scheme == "pcm":
-        return cf[0] * (b - a)
+        return m * f
     if scheme == "plm":
-        q, m = cf
-        return (b - a) * (q + m * (0.5 * (a + b) - 0.5 * dp))
-    q, al, ar = cf
-    da, a6 = ar - al, 6.0 * (q - 0.5 * (al + ar))
-    xa, xb = a / dp, b / dp
-    return (b - a) * (al + (da + a6) * (0.5 * (xa + xb))
-                      - a6 * (xa * xa + xa * xb + xb * xb) / 3.0)
+        return m * f + c1 * (f * (f - 1.0))
+    g = 1.0 - f
+    return m * (f * f * (3.0 - 2.0 * f)) + c1 * (f * g * g) \
+        - c2 * (f * f * g)
+
+
+def _passed_at(d):
+    """The kernel's thresholds (csrc/remap.cu passed_at): the least x =
+    t - s at which a cell of thickness d counts as passed, in float64."""
+    f64 = torch.float64
+    if d.dtype == f64:
+        th = d.clone()
+    else:
+        bits = d.view(torch.int32)
+        below = (bits - 1).view(torch.float32)
+        mid = 0.5 * (below.to(f64) + d.to(f64))
+        odd = (bits & 1) == 1
+        th = torch.where(odd, torch.nextafter(mid, torch.full_like(
+            mid, float("inf"))), mid)
+    return torch.where(d > 0, th, torch.full_like(th, float("-inf")))
 
 
 def _geometry(dp_src, dp_tgt):
     """The kernel's geometry pass on [K, C] columns: for every target
-    interface t_j (running sums in float64) the first source cell c_j whose
-    local coordinate clip(t_j - s_c, 0, dp_c) is below dp_c (K past the
-    end) and that coordinate a_j in dp_src's dtype; t_K is the column's
-    end. Returns (c [K+1, C] long, a [K+1, C])."""
+    interface t_j (running sums in float64 of dp_tgt, which may be float64)
+    the first source cell c_j not passed (K past the end), a cell passed
+    where t_j - s_c reaches its threshold (``_passed_at``), and the
+    interface's fraction of that cell xi_j = a / dp_c, a = clip(t_j - s_c,
+    0, dp_c) rounded to dp_src's dtype; t_K is the column's end. As the
+    kernel's warps do, each of SEGMENTS segments of the interfaces 1 .. K-1
+    sums its t and walks the cells from the column's top, first four cells
+    a step while t lies past the fourth's end by a margin, then cell by
+    cell. Returns (c [K+1, C] long, xi [K+1, C])."""
     k, ncol = dp_src.shape
     f64 = torch.float64
     c = torch.zeros(k + 1, ncol, dtype=torch.long, device=dp_src.device)
-    a = torch.zeros(k + 1, ncol, dtype=dp_src.dtype, device=dp_src.device)
-    s = torch.zeros(ncol, dtype=f64, device=dp_src.device)
-    t = torch.zeros_like(s)
-    cell = c[0].clone()
-    for j in range(1, k):
-        t = t + dp_tgt[j - 1].to(f64)
-        aj = torch.zeros_like(a[0])
-        active = cell < k
-        while bool(active.any()):
-            d = dp_src.gather(0, cell.clamp(max=k - 1)[None])[0]
-            x = _clip(t - s, d.to(f64)).to(a.dtype)
-            aj = torch.where(active & (x < d), x, aj)
-            adv = active & (x >= d)
-            s = torch.where(adv, s + d.to(f64), s)
-            cell = torch.where(adv, cell + 1, cell)
-            active = adv & (cell < k)
-        c[j], a[j] = cell, aj
+    xi = torch.zeros(k + 1, ncol, dtype=dp_src.dtype, device=dp_src.device)
+    th_all = _passed_at(dp_src)
+    n = k - 1
+    for w in range(SEGMENTS):
+        j_lo, j_hi = 1 + n * w // SEGMENTS, 1 + n * (w + 1) // SEGMENTS
+        t = torch.zeros(ncol, dtype=f64, device=dp_src.device)
+        for i in range(j_lo - 1):
+            t = t + dp_tgt[i].to(f64)
+        s = torch.zeros_like(t)
+        cell = torch.zeros(ncol, dtype=torch.long, device=dp_src.device)
+        take = lambda x: x.gather(0, cell.clamp(max=k - 1)[None])[0]
+        for j in range(j_lo, j_hi):
+            t = t + dp_tgt[j - 1].to(f64)
+            if j == j_lo:
+                # the segment's first walk: four cells a step while t lies
+                # past the fourth one's end by the margin
+                margin = t.abs() * 2.0 ** -40
+                quad = cell + 4 <= k
+                while bool(quad.any()):
+                    ds = [dp_src.gather(0, (cell + i).clamp(max=k - 1)
+                                        [None])[0] for i in range(4)]
+                    s4 = s
+                    for d in ds:
+                        s4 = s4 + d.to(f64)
+                    quad = quad & (t - s4 >= margin) & (
+                        torch.stack(ds).min(0).values >= 0)
+                    s = torch.where(quad, s4, s)
+                    cell = torch.where(quad, cell + 4, cell)
+                    quad = quad & (cell + 4 <= k)
+            active = (cell < k) & (t - s >= take(th_all))
+            while bool(active.any()):
+                s = torch.where(active, s + take(dp_src).to(f64), s)
+                cell = torch.where(active, cell + 1, cell)
+                active = active & (cell < k) & (t - s >= take(th_all))
+            d = take(dp_src)
+            a = _clip(t - s, d.to(f64)).to(dp_src.dtype)
+            c[j] = cell
+            xi[j] = torch.where(cell < k, a / d, torch.zeros_like(a))
     c[k] = k
-    return c, a
+    return c, xi
 
 
-def remap_walk_emulated(q: torch.Tensor, dp_src: torch.Tensor,
+def remap_walk_emulated(x: torch.Tensor, dp_src: torch.Tensor,
                         dp_tgt: torch.Tensor, scheme: str = "plm",
-                        mass: bool = False) -> torch.Tensor:
+                        tracer: bool = False) -> torch.Tensor:
     """The kernel on [K, C] columns, vectorised over columns: the geometry
-    pass, the coefficient pass, then for every target cell j the pieces of
-    its source cells c_j .. c_{j+1} top to bottom, a whole cell as q*dp;
-    the last target takes the rest of the column. dp_tgt may be float64
-    for float32 q (the packed kernel's layers). Returns each target cell's
-    mean (its mass over dp_tgt rounded to q's dtype), or with ``mass`` its
-    mass."""
+    pass, the reconstruction, then for every target cell j the lower
+    integrals L at its interfaces and the masses of the cells between, in
+    the kernel's order; the last target takes the rest of the column. x is
+    a density (returns each target cell's mean: its mass times the
+    reciprocal of dp_tgt rounded to x's dtype) or with ``tracer`` a
+    tracer's mass qdp (returns the target cells' masses). dp_tgt may be
+    float64 for float32 x (the packed kernel's layers)."""
     if scheme not in SCHEMES:
         raise ValueError(f"unknown remap scheme {scheme!r}")
-    k = q.shape[0]
-    c, a = _geometry(dp_src, dp_tgt)
-    cf = _coefficients(q, dp_src, scheme)
-    take = lambda x, i: x.gather(0, i.clamp(max=k - 1)[None])[0]
-    piece = lambda i, lo, hi: _piece(scheme, [take(x, i) for x in cf], lo,
-                                     hi, take(dp_src, i))
-    out = torch.empty_like(q)
+    k = x.shape[0]
+    c, xi = _geometry(dp_src, dp_tgt)
+    mass, c1, c2 = _coefficients(x, dp_src, scheme, tracer)
+    take = lambda a, i: a.gather(0, i.clamp(max=k - 1)[None])[0]
+    zero = torch.zeros_like(x[0])
+
+    def lower(j):
+        cell = c[j]
+        at = lambda a: None if a is None else take(a, cell)
+        val = _lower(scheme, at(mass), at(c1), at(c2), xi[j])
+        return torch.where(cell < k, val, zero)
+
+    rcp = 1.0 / dp_tgt.to(x.dtype)
+    out = torch.empty_like(x)
+    l_prev = lower(0)
     for j in range(k):
-        c0, a0, c1, a1 = c[j], a[j], c[j + 1], a[j + 1]
-        same = c1 == c0
-        acc = torch.where(same & (c0 < k) & (a1 > a0), piece(c0, a0, a1),
-                          torch.zeros_like(a0))
-        d0 = take(dp_src, c0)
-        top = torch.where(a0 == 0.0, take(q, c0) * d0, piece(c0, a0, d0))
-        acc = torch.where(same, acc, top)
+        c0, c1_ = c[j], c[j + 1]
+        l_next = lower(j + 1)
+        same = c1_ == c0
+        acc = torch.where(same, l_next - l_prev, take(mass, c0) - l_prev)
         cell = c0 + 1
-        mid = ~same & (cell < c1)
+        mid = ~same & (cell < c1_)
         while bool(mid.any()):
-            acc = torch.where(mid, acc + take(q, cell) * take(dp_src, cell),
-                              acc)
+            acc = torch.where(mid, acc + take(mass, cell), acc)
             cell = cell + 1
-            mid = mid & (cell < c1)
-        bot = ~same & (c1 < k) & (a1 > 0.0)
-        acc = torch.where(bot, acc + piece(c1, torch.zeros_like(a1), a1), acc)
-        out[j] = acc if mass else acc / dp_tgt[j].to(q.dtype)
+            mid = mid & (cell < c1_)
+        acc = torch.where(~same & (c1_ < k), acc + l_next, acc)
+        out[j] = acc if tracer else acc * rcp[j]
+        l_prev = l_next
     return out
 
 
@@ -295,7 +357,7 @@ def remap_packed_emulated(s: torch.Tensor, qdp: torch.Tensor, hv, nlev: int,
     s's dtype (the compensated totals, ps, dp_ref from the hybrid terms, the
     ratio), the same chain in float64 from the same rounded terms for the
     layers the walk remaps onto, then the walk of u, v, T as densities and
-    of every tracer (qdp / dp_src) as masses. Returns (s', qdp')."""
+    of every tracer's qdp as masses. Returns (s', qdp')."""
     k, f64 = nlev, torch.float64
     dp = s[3 * k:4 * k]
     hyai, hybi, ps0 = hv.hyai, hv.hybi, hv.ps0
@@ -309,9 +371,10 @@ def remap_packed_emulated(s: torch.Tensor, qdp: torch.Tensor, hv, nlev: int,
         return ref * (tot / comp_sum(ref, 0))
 
     dp_tgt, dp_walk = layers(dp), layers(dp.to(f64))
-    walk = lambda x, mass: remap_walk_emulated(x, dp, dp_walk, scheme, mass)
+    walk = lambda x, tracer: remap_walk_emulated(x, dp, dp_walk, scheme,
+                                                 tracer)
     s_new = torch.cat([walk(x, False) for x in s[:3 * k].split(k)]
                       + [dp_tgt])
-    q_new = torch.cat([walk(x / dp, True) for x in qdp.split(k)]) \
+    q_new = torch.cat([walk(x, True) for x in qdp.split(k)]) \
         if qsize else torch.empty_like(qdp)
     return s_new, q_new
