@@ -279,9 +279,32 @@ NVIDIA card and check it, phase by phase:
      every output within 5e-5 scaled, ``saxpby_cuda`` bit for bit. Then,
      launch counts set to 0 just before and read just after, the sweep: its
      report on one line, every entry's numbers finite and positive,
-     ``caar_packed``, ``euler_packed`` and ``saxpby_cuda`` launched.
+     ``caar_packed``, ``euler_packed`` and ``saxpby_cuda`` launched;
+ 26. the JAX suite's long-run gates at ne30 x 72, f32, seed 7, launch
+     counts set to 0 just before and read just after, each run beside its
+     plain twin (f32) and the same plain code in float64 over the same
+     steps, the kernel's distance from float64 at most 2x the plain f32
+     run's plus 1e-7 (all three printed at steps 10, 100 and the last):
+     300 projections c <- rsp*DSS(sph*c) through the DSS kernels with the
+     one-float rspheremp row and the two-float pair (the two-float drift
+     d2 < 3e-7 and < d1/5, the kernels bit for bit plain); a cosine bell
+     at every level (its radius falling from 0.5 to 0.2 rad) once round
+     the sphere by solid-body winds through ``ssprk3_tracer_packed_t``,
+     2,400 steps (tests/test_advection.py's CFL at ne30: L2 error < 0.3,
+     peak in (0.6, 1.2), relative mass drift < 1e-5 and within the 2x
+     rule), and half round with the limiter (min > -1e-3, max < 1 + 1e-3,
+     the mass rule), the twins at 9 of the levels (each level is computed
+     on its own: those rows are a full-height twin's); 100
+     ``bench.run_prim`` steps with the limiter at dt 0.1, nu 1e15 from
+     the random init (continuity 0 after every step,
+     finite, dp3d > 0, the norms under 10 x (start + 1), the rule for u, v,
+     T, dp and qdp), its step time beside the card line;
+ 27. ``tools.equiv_check --ne 30`` (every kernel path against an
+     independent form on the card, ``H100_EQUIV.json``'s keys), its report
+     written to a temporary file and printed as one line, launch counts
+     set to 0 just before and read just after; fails unless ``pass``.
 
-Phases 22-25 run after phase 21, before the lines of phase 17.
+Phases 22-27 run after phase 21, before the lines of phase 17.
 
 Any failure raises and exits non-zero before the result line is printed.
 Run from the repository root: ``python3 chip_smoke.py``.
@@ -416,6 +439,43 @@ NE120_STEPS = 20
 # phase 24: traces taken of one window at most, until one holds every CAAR
 # launch of it
 TRACE_TRIES = 3
+# phase 26: the long runs at ne30 x 72, f32, seed 7. Each kernel run is held
+# against its plain twin (f32) and the same plain code in float64 over the
+# same steps: the kernel's distance from the float64 run may be at most
+# LONG_RATIO times the plain f32 run's plus LONG_FLOOR (a long f32 chain is
+# not expected to stay bit-close to plain); the distances are printed at
+# LONG_SHOWN steps and the last
+LONG_RATIO = 2.0
+LONG_FLOOR = 1e-7
+LONG_SHOWN = (10, 100)
+SEED = 7
+# 300 projections c <- rsp*DSS(sph*c) (tests/test_conservation.py): the
+# two-float rspheremp's relative mass drift d2 under CONSERVE_DRIFT and a
+# fifth of the one-float drift d1
+PROJECTIONS = 300
+CONSERVE_DRIFT = 3e-7
+# the cosine bell once round the sphere by solid-body rotation in 12 days:
+# tests/test_advection.py's 480 steps at ne 6 keep CFL ~0.3 of its minimum
+# GLL spacing ~0.217/ne, so the steps grow with ne (2,400 at ne30); the
+# bell's radius falls over the levels (LEVEL_RADII rad), its L2 error after
+# a revolution under BELL_L2 and its peak inside BELL_PEAK; its relative
+# mass drift (f64 sums over f32 data) under BELL_MASS_TOL
+BELL_STEPS_PER_NE = 80
+BELL_PERIOD = 12.0 * 86400.0
+LEVEL_RADII = (0.5, 0.2)
+BELL_L2 = 0.3
+BELL_PEAK = (0.6, 1.2)
+BELL_MASS_TOL = 1e-5
+BELL_LIMIT_SLACK = 1e-3        # limited: min > -this, max < 1 + this
+# the bell's plain twins run every TWIN_STRIDE-th level and the last: the
+# tracer step computes every level on its own (the winds, the limiter's
+# elements and the DSS are per level), so these rows are a full-height
+# twin's, bit for bit, at an eighth of its cost (tests/test_torch_advection.py
+# checks the independence)
+TWIN_STRIDE = 9
+# the prim soak: 100 steps of bench.run_prim with the limiter, norms under
+# 10 x (their start + 1) (tests/test_soak.py)
+SOAK_STEPS = 100
 
 
 def card_line() -> str:
@@ -4840,6 +4900,319 @@ def phase_bench_all(dev) -> dict:
     return report
 
 
+def long_rule(tag: str, step: int, fields: dict) -> None:
+    """Phase 26's rule at ``step``: for each name -> (kernel, plain f32,
+    plain f64), the distances kernel - f64, plain - f64 and kernel - plain
+    (``scaled_err``, of max|f64| or max|plain|) printed; fails where the
+    kernel's distance from f64 exceeds LONG_RATIO x the plain run's plus
+    LONG_FLOOR."""
+    import torch
+
+    parts, bad = [], []
+    for name, (k, p, d) in fields.items():
+        if not bool(torch.isfinite(k).all()):
+            raise AssertionError(f"{tag}: non-finite {name} at step {step}")
+        dk, dp, dkp = scaled_err(k, d), scaled_err(p, d), scaled_err(k, p)
+        parts.append(f"{name} {dk:.3e} / {dp:.3e} / {dkp:.3e}")
+        if not dk <= LONG_RATIO * dp + LONG_FLOOR:
+            bad.append(f"{name} {dk:.3e} > {LONG_RATIO:g} x {dp:.3e} + "
+                       f"{LONG_FLOOR:g}")
+    print(f"phase 26 {tag} step {step}: kernel-f64 / plain-f64 / "
+          "kernel-plain " + ", ".join(parts))
+    if bad:
+        raise AssertionError(f"{tag} step {step}: " + "; ".join(bad))
+
+
+def _shown(i: int, last: int) -> bool:
+    return i in LONG_SHOWN or i == last
+
+
+def f64_mass(sph, x) -> float:
+    """sum(sph * x) in float64 over the [k, E16] field x (f32 or f64)."""
+    return float((sph.double() * x.double()).sum())
+
+
+def long_conservation(dev, cs, plan) -> None:
+    """Phase 26's projections: PROJECTIONS passes c <- rsp*DSS(sph*c) of a
+    positive random [NLEV, E16] field through the DSS kernels (extract,
+    fixup, sweep) with the one-float rspheremp row and with the two-float
+    pair (``rsp_lanes_2f``), each beside the same passes on the plain
+    versions in f32 and the exact projection in float64 (sph and
+    hi + lo as float64); the two-float drift d2 < CONSERVE_DRIFT and
+    < d1 / 5, the kernels bit for bit the plain f32 passes."""
+    import torch
+
+    from tinman_sandbox_tpu_torch.dist import rsp_lanes_2f
+    from tinman_sandbox_tpu_torch.kernels.dss import (
+        dss_extract_plain, dss_fixup_plain, dss_structured_t_cuda,
+        dss_sweep_plain, fix_tables)
+
+    fix = fix_tables(plan, dev)
+    sph = cs.geometry.spheremp.to(torch.float32).reshape(1, -1)
+    rsp2 = torch.from_numpy(rsp_lanes_2f(cs.geometry.spheremp, cs.gdof,
+                                         cs.ndof)).to(dev)
+    rsp1 = cs.geometry.rspheremp.to(torch.float32).reshape(1, -1)
+    rsp64 = (rsp2[0:1].double() + rsp2[1:2].double())
+
+    def plain(x, rsp):
+        return dss_sweep_plain(x, rsp, dss_fixup_plain(
+            dss_extract_plain(x, fix), fix, rsp), fix)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x0 = torch.randn(NLEV, cs.nelem * 16, generator=gen, device=dev).abs() + 1
+    d = plain(sph.double() * x0.double(), rsp64)
+    exact = {0: d}
+    for i in range(1, PROJECTIONS + 1):
+        d = plain(sph.double() * d, rsp64)
+        if _shown(i, PROJECTIONS):
+            exact[i] = d
+    drifts = {}
+    for case, rsp in (("one-float", rsp1), ("two-float", rsp2)):
+        k = dss_structured_t_cuda((sph * x0).contiguous(), plan, rsp)
+        p = plain(sph * x0, rsp)
+        m0, p0 = f64_mass(sph, k), f64_mass(sph, p)
+        t0 = time.perf_counter()
+        for i in range(1, PROJECTIONS + 1):
+            k = dss_structured_t_cuda((sph * k).contiguous(), plan, rsp)
+            p = plain(sph * p, rsp)
+            if _shown(i, PROJECTIONS):
+                long_rule(f"projection {case} rsp", i,
+                          {"c": (k, p, exact[i])})
+                if not torch.equal(k, p):
+                    raise AssertionError(f"projection {case}: the DSS "
+                                         "kernels left their plain "
+                                         f"versions' bits at pass {i}")
+        drifts[case] = abs(f64_mass(sph, k) - m0) / abs(m0)
+        d64 = f64_mass(sph, exact[PROJECTIONS]) / f64_mass(sph, exact[0])
+        print(f"phase 26 projection {case} rsp x{PROJECTIONS}: relative "
+              f"mass drift kernels {drifts[case]:.3e}, plain f32 "
+              f"{abs(f64_mass(sph, p) - p0) / abs(p0):.3e}, f64 "
+              f"{abs(d64 - 1.0):.3e} ({time.perf_counter() - t0:.1f} s with "
+              "the plain twin)")
+    d1, d2 = drifts["one-float"], drifts["two-float"]
+    if not (d2 < CONSERVE_DRIFT and d2 < d1 / 5):
+        raise AssertionError(f"projection: d2 {d2:.3e} not < "
+                             f"{CONSERVE_DRIFT:g} and d1/5 {d1 / 5:.3e}")
+
+
+def long_bell(dev, cs, plan) -> None:
+    """Phase 26's cosine bell through ``ssprk3_tracer_packed_t`` (the Euler
+    or limited tracer kernel, fixup and sweep a stage) at every one of the
+    NLEV levels, its radius falling over them, carried by solid-body zonal
+    winds in the wind rows: once round the sphere without the limiter, half
+    round with it, beside the plain f32 and float64 twins at every
+    TWIN_STRIDE-th level."""
+    import numpy as np
+    import torch
+
+    from tinman_sandbox_tpu_torch.constants import CONSTANTS
+    from tinman_sandbox_tpu_torch.dist import (
+        cosine_bell, rsp_lanes_2f, ssprk3_tracer_packed_t,
+        ssprk3_tracer_packed_t_plain)
+    from tinman_sandbox_tpu_torch.kernels.dss import dss_structured_t_cuda
+    from tinman_sandbox_tpu_torch.kernels.layout import (META_COLS,
+                                                         pack_field_t,
+                                                         pack_meta_t)
+
+    geom = cs.geometry
+    nsteps = BELL_STEPS_PER_NE * cs.ne
+    dt = BELL_PERIOD / nsteps
+    u0 = 2.0 * np.pi * CONSTANTS.rearth / BELL_PERIOD
+    radii = np.linspace(*LEVEL_RADII, NLEV)
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
+        dev, torch.float32)
+    bell = f32(np.stack([cosine_bell(cs.sphere_xyz, r) for r in radii], 1))
+    wind = np.broadcast_to((u0 * np.cos(cs.lat))[:, None],
+                           (cs.nelem, NLEV, 4, 4))
+    vu = pack_field_t(f32(wind))
+    vv = torch.zeros_like(vu)
+    meta = pack_meta_t(geom, torch.zeros_like(geom.spheremp), torch.float32)
+    dvv = geom.dvv.to(torch.float32).contiguous()
+    rsp = torch.from_numpy(rsp_lanes_2f(geom.spheremp, cs.gdof,
+                                        cs.ndof)).to(dev)
+    sph = meta[META_COLS.index("spheremp")]
+    q0 = dss_structured_t_cuda((sph * pack_field_t(bell)).contiguous(),
+                               plan, rsp)
+    lv = sorted(set(range(0, NLEV, TWIN_STRIDE)) | {NLEV - 1})
+    vu_t, vv_t = vu[lv].contiguous(), vv[lv].contiguous()
+    ops64 = [x.double() for x in (dvv, meta, vu_t, vv_t)]
+    m0, m0_t = f64_mass(sph, q0), f64_mass(sph, q0[lv])
+    print(f"phase 26 bell ne{cs.ne}x{NLEV}: radius {LEVEL_RADII[0]} -> "
+          f"{LEVEL_RADII[1]} rad over the levels, dt {dt:.3f} s, {nsteps} "
+          f"steps a revolution, u0 {u0:.3f} m/s, max {float(q0.max()):.4f}; "
+          f"the twins at levels {lv}")
+    for limit, steps in ((False, nsteps), (True, nsteps // 2)):
+        tag = f"bell {'limited, half' if limit else 'full'} revolution"
+        k, p, d = q0, q0[lv].contiguous(), q0[lv].double()
+        k_s = 0.0
+        t0 = time.perf_counter()
+        for i in range(1, steps + 1):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            k = ssprk3_tracer_packed_t(dvv, meta, vu, vv, k, plan, rsp, dt,
+                                       NLEV, limit=limit)
+            torch.cuda.synchronize()
+            k_s += time.perf_counter() - t1
+            p = ssprk3_tracer_packed_t_plain(dvv, meta, vu_t, vv_t, p, plan,
+                                             rsp, dt, len(lv), limit=limit)
+            d = ssprk3_tracer_packed_t_plain(*ops64, d, plan, rsp.double(),
+                                             dt, len(lv), limit=limit)
+            if _shown(i, steps):
+                long_rule(tag, i, {"q": (k[lv], p, d)})
+        drift = {"kernel": f64_mass(sph, k[lv]) / m0_t - 1.0,
+                 "plain": f64_mass(sph, p) / m0_t - 1.0,
+                 "f64": f64_mass(sph, d) / m0_t - 1.0}
+        whole = f64_mass(sph, k) / m0 - 1.0
+        l2 = float((k.double() - q0.double()).norm() / q0.double().norm())
+        lvl = ((k.double() - q0.double()).norm(dim=1)
+               / q0.double().norm(dim=1))
+        qmin, qmax = float(k.min()), float(k.max())
+        print(f"phase 26 {tag}: {steps} steps, kernels "
+              f"{k_s / steps * 1e3:.3f} ms a step "
+              f"({time.perf_counter() - t0:.1f} s with both twins); L2 error "
+              f"{l2:.4f} (levels "
+              f"{float(lvl.min()):.4f}-{float(lvl.max()):.4f}), min "
+              f"{qmin:.3e}, max {qmax:.4f}; relative mass drift kernels "
+              f"{whole:.3e} (all levels); at the twins' levels kernels "
+              f"{drift['kernel']:.3e}, plain f32 {drift['plain']:.3e}, f64 "
+              f"{drift['f64']:.3e}")
+        if not abs(whole) < BELL_MASS_TOL or not \
+                abs(drift["kernel"]) <= LONG_RATIO * abs(drift["plain"]) \
+                + LONG_FLOOR:
+            raise AssertionError(f"{tag}: mass drift {whole}, at the twins' "
+                                 f"levels {drift}")
+        if limit:
+            if not (qmin > -BELL_LIMIT_SLACK
+                    and qmax < 1.0 + BELL_LIMIT_SLACK):
+                raise AssertionError(f"{tag}: min {qmin}, max {qmax}")
+        elif not (l2 < BELL_L2 and BELL_PEAK[0] < qmax < BELL_PEAK[1]):
+            raise AssertionError(f"{tag}: L2 {l2}, max {qmax}")
+        del k, p, d
+        torch.cuda.empty_cache()
+
+
+def packed_norms(s, nlev: int) -> dict:
+    """tests/test_soak.py's norms of a stacked [4*nlev, E16] state in
+    float64: ||(u, v)||, ||T||, ||dp||."""
+    u, v, t, dp = (x.double() for x in s.split(nlev))
+    return {"v": float((u.square().sum() + v.square().sum()).sqrt()),
+            "T": float(t.norm()), "dp": float(dp.norm())}
+
+
+def long_soak(dev, cs) -> None:
+    """Phase 26's prim soak: SOAK_STEPS chained ``bench.run_prim`` steps
+    with the limiter at DYN_DT and DYN_NU from ``bench.make_prim_problem``'s
+    random init, beside the plain f32 and float64 twins: continuity 0 after
+    every step, finite, dp3d > 0, the norms bounded, the long-run rule for
+    u, v, T, dp and qdp."""
+    import torch
+
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.dist import (continuity_error_t,
+                                               prim_step_packed_t4_plain)
+
+    const, s0, qdp, acc, plan, rsp = bench.make_prim_problem(
+        cs.ne, NLEV, dev, DYN_DT, 1, seed=SEED)
+    f64 = lambda xs: tuple(x.double() for x in xs)
+    const64, rsp64 = f64(const), rsp.double()
+    kst = (s0, qdp, tuple(a.clone() for a in acc))
+    pst = (s0, qdp, tuple(a.clone() for a in acc))
+    dst = (s0.double(), qdp.double(), f64(acc))
+    n0 = packed_norms(s0, NLEV)
+    k_s = 0.0
+    tag = f"prim soak ne{cs.ne}x{NLEV}"
+    for i in range(1, SOAK_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        *kst, kphi = bench.run_prim(const, *kst, plan, rsp, 1, DYN_NU, DYN_DT,
+                                    1, True)
+        torch.cuda.synchronize()
+        k_s += time.perf_counter() - t0
+        for name, x in (("state", kst[0]), ("tracer", kst[1])):
+            cont = continuity_error_t(x, cs.gdof)
+            if cont != 0.0:
+                raise AssertionError(f"{tag}: {name} continuity {cont} after "
+                                     f"step {i}")
+        *pst, _ = bench.run_prim(const, *pst, plan, rsp, 1, DYN_NU, DYN_DT, 1,
+                                 True, step=prim_step_packed_t4_plain)
+        *dst, _ = bench.run_prim(const64, *dst, plan, rsp64, 1, DYN_NU,
+                                 DYN_DT, 1, True,
+                                 step=prim_step_packed_t4_plain)
+        if _shown(i, SOAK_STEPS):
+            fields = {n: (a, b, c) for n, a, b, c in zip(
+                ("u", "v", "T", "dp"), kst[0].split(NLEV),
+                pst[0].split(NLEV), dst[0].split(NLEV))}
+            fields["qdp"] = (kst[1], pst[1], dst[1])
+            long_rule(tag, i, fields)
+    ks, kq, kacc = kst
+    for x in (ks, kq, kphi, *kacc):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{tag}: non-finite output")
+    n1 = packed_norms(ks, NLEV)
+    dp_min, q_min = float(ks[3 * NLEV:].min()), float(kq.min())
+    print(f"phase 26 {tag} x{SOAK_STEPS} (limiter, dt {DYN_DT}, nu "
+          f"{DYN_NU:g}): {k_s / SOAK_STEPS * 1e3:.3f} ms a step on the "
+          f"kernels ({card_line()}); continuity 0 after every step for the "
+          f"state and the tracer; min dp {dp_min:.3f}, min qdp {q_min:.3e}; "
+          "norms start -> end " + ", ".join(
+              f"{n} {n0[n]:.6e} -> {n1[n]:.6e}" for n in n0))
+    if not dp_min > 0.0:
+        raise AssertionError(f"{tag}: min dp {dp_min}")
+    for n in n0:
+        if not n1[n] < 10.0 * (n0[n] + 1.0):
+            raise AssertionError(f"{tag}: norm {n} {n0[n]} -> {n1[n]}")
+
+
+def phase_long_runs(dev, cs) -> None:
+    """Phase 26: the JAX suite's long-run gates at ne30 x 72 through the
+    kernels (the projections, the bell with and without the limiter, the
+    prim soak)."""
+    import torch
+
+    from tinman_sandbox_tpu_torch.dist import make_structured_plan
+
+    plan = make_structured_plan(cs.gdof, cs.ne)
+    for run in (lambda: long_conservation(dev, cs, plan),
+                lambda: long_bell(dev, cs, plan),
+                lambda: long_soak(dev, cs)):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.empty_cache()
+        print(f"phase 26 part seconds: {time.perf_counter() - t0:.1f}")
+
+
+def phase_equiv(dev) -> dict:
+    """Phase 27: ``tools.equiv_check`` at ne30 (every kernel path against an
+    independent form on the card), its report written to a temporary file
+    and printed as one line; fails unless it passes. Returns the report."""
+    import tempfile
+
+    from tinman_sandbox_tpu_torch.tools import equiv_check
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "equiv.json")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = equiv_check.main(["--ne", str(NE), "--out", out])
+        with open(out) as f:
+            report = json.load(f)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+    if len(lines) != 1 or json.loads(lines[0]) != report:
+        raise AssertionError("equiv_check: the printed line is not its "
+                             "report")
+    print("phase 27 equiv_check " + lines[0])
+    print(f"phase 27 equiv_check --ne {NE}: pass {report['pass']}; worst "
+          f"single step {report['worst_relmax']:.3e} ({report['worst_key']}),"
+          f" prim {report['prim_worst_relmax']:.3e}, q35 "
+          f"{report['prim_q35_worst_relmax']:.3e}, q35 limited "
+          f"{report['prim_q35_limit_worst_relmax']:.3e} (mass drift "
+          f"{report['prim_packed_q35_limit_relmax']['mass_drift']:.3e}); "
+          f"card {report['card']}")
+    if rc != 0 or not report["pass"]:
+        raise AssertionError(f"equiv_check failed its pass rule: {report}")
+    return report
+
+
 def main() -> int:
     try:
         import torch
@@ -5027,6 +5400,18 @@ def main() -> int:
     phase_bench_all(dev)
     swept = counts()
     print(f"phase 25 seconds: {time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
+    reset()
+    t0 = time.perf_counter()
+    phase_long_runs(dev, cs)
+    longs = counts()
+    print(f"phase 26 seconds: {time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
+    reset()
+    t0 = time.perf_counter()
+    phase_equiv(dev)
+    equiv = counts()
+    print(f"phase 27 seconds: {time.perf_counter() - t0:.1f}")
     for label, res, got in (("raw", raw_res, raw), ("assembled", asm_res,
                                                      asm),
                             ("dynamics", dyn_res, dyn),
@@ -5173,6 +5558,20 @@ def main() -> int:
         if swept[name] <= 0:
             raise AssertionError(f"{name} was not launched on phase 25's "
                                  "path")
+    print(f"phase 26 long runs main-path launches: {json.dumps(longs)}")
+    for name in ("caar_t4_cuda", "vlap_cuda", "tracer_euler_cuda",
+                 "tracer_limit_cuda", "dss_extract_cuda", "dss_fixup_cuda",
+                 "dss_sweep_cuda"):
+        if longs[name] <= 0:
+            raise AssertionError(f"{name} was not launched on phase 26's "
+                                 "path")
+    print(f"phase 27 equiv_check main-path launches: {json.dumps(equiv)}")
+    for name in ("caar_packed", "caar_t4_cuda", "vlap_cuda",
+                 "tracer_euler_cuda", "tracer_limit_cuda", "dss_extract_cuda",
+                 "dss_fixup_cuda", "dss_sweep_cuda", "dss_sweep_banded_cuda"):
+        if equiv[name] <= 0:
+            raise AssertionError(f"{name} was not launched on phase 27's "
+                                 "path")
     if row_asm_res["kernel_launches"]["caar_packed"] <= 0:
         raise AssertionError("bench --layout row --ne: no row CAAR launch")
     if single_launches <= 0:
@@ -5193,7 +5592,7 @@ def main() -> int:
             "launches": raw[name] + asm[name] + dyn[name] + prim[name]
             + row[name] + ring[name] + multi[name] + probe[name]
             + cadence[name] + tiers[name] + big[name] + traced[name]
-            + swept[name],
+            + swept[name] + longs[name] + equiv[name],
             "max_abs_err": r.pop("max_abs_err"), "ms": r.pop("ms"),
             "plain_ms": r.pop("plain_ms"), "bound_ms": r.pop("bound_ms"),
             "bound_by": r.pop("bound_by"), "library_ms": r.pop("library_ms"),

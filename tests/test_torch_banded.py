@@ -12,11 +12,12 @@ Tolerances. Without mix and with the single-f32 rspheremp the banded sweeps
 and the patch compute the same f32 adds and products in the same order as
 the JAX kernels: bit for bit. With the two-float rspheremp or with mix they
 are held at 1e-6 scaled (XLA on the CPU contracts a product and a sum into
-one fused multiply-add, the port rounds both, as tests/test_torch_rk.py
-states). The assembled steps: 3e-6 scaled per field (the CAAR tendencies
-are summed in another order than the Pallas kernel's contractions, as in
-tests/test_torch_ring.py). Against the port's single-device step every
-multi-device step is bit for bit, and continuity is exactly 0."""
+one fused multiply-add where the port rounds both or contracts another
+pair, as tests/test_torch_rk.py states). The assembled steps: 3e-6 scaled
+per field (the CAAR tendencies are summed in another order than the Pallas
+kernel's contractions, as in tests/test_torch_ring.py). Against the port's
+single-device step every multi-device step is bit for bit, and continuity
+is exactly 0."""
 import dataclasses
 
 import jax

@@ -4,10 +4,10 @@ real cubed sphere, the JAX Pallas kernels in interpret mode.
 
 Tolerances: with the single-f32 rspheremp every path computes the same f32
 adds and products in the same order, so the results are equal bit for bit.
-With the two-float rspheremp the JAX package's y*hi + y*lo is contracted
-into one fused multiply-add by XLA on the CPU, while the port rounds both
-products (as the kernel on the card does): there the test allows 1e-6
-scaled max-abs, a few f32 ulps."""
+With the two-float rspheremp the port computes fmaf(y, hi, y*lo) (as the
+kernel on the card does, ``dist.dss.mul_2f``), where the JAX package's
+y*hi + y*lo is whatever fused multiply-add XLA on the CPU contracts it to:
+there the test allows 1e-6 scaled max-abs, a few f32 ulps."""
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -48,8 +48,9 @@ def test_torch_package_imports_no_jax():
                  "kernels/caar.py", "kernels/tracer.py", "kernels/ring_fused.py",
                  "kernels/probe.py", "ops/diagnostics.py",
                  "timeloop/checkpoint.py", "tools/probe_kernel.py",
-                 "tools/energy_drift.py", "examples/packed_cadence.py",
-                 "examples/simulated_day.py", "cli.py", "bench.py"):
+                 "tools/energy_drift.py", "tools/equiv_check.py",
+                 "examples/packed_cadence.py", "examples/simulated_day.py",
+                 "cli.py", "bench.py"):
         assert os.path.join("tinman_sandbox_tpu_torch", name) in held
     for path in files:
         with open(path) as f:

@@ -9,7 +9,8 @@ Tolerances. Without mix the merge-free sweep and the split DSS compute the
 same f32 adds and products in the same order as the JAX kernels: bit for bit
 with the single-f32 rspheremp, 1e-6 scaled with the two-float one and with
 mix (XLA on the CPU contracts a product and a sum into one fused
-multiply-add, the port rounds both, as tests/test_torch_rk.py states). The
+multiply-add where the port rounds both or contracts another pair, as
+tests/test_torch_rk.py states). The
 ring steps: 3e-6 scaled per field for one assembled step (the CAAR
 tendencies are summed in another order than the Pallas kernel's
 matrix-unit contractions), 2e-5 for an SSPRK3 step and a tracer step (the

@@ -49,6 +49,7 @@ import pytest
 import torch
 
 from tinman_sandbox_tpu_torch.dist.banded_t4 import _banded_tables
+from tinman_sandbox_tpu_torch.dist.dss import mul_2f
 from tinman_sandbox_tpu_torch.kernels import dss
 from tinman_sandbox_tpu_torch.kernels.dss import (
     _banded_plain, band_layout, band_masks, band_tables,
@@ -447,7 +448,8 @@ def _swept4_banded_emulated(x_ext, rsp, ne, bl, first_last):
     """The banded kernel's output from its group form in numpy f32: each
     thread's group of 4 lanes, its chunk, partner offsets and presence
     flags as dss_sweep::swept4_banded takes them, the sums and the scale in
-    dss_sweep::swept4's order."""
+    dss_sweep::swept4's order (the two-float scale fmaf(z, hi, z*lo), as
+    ``dist.dss.mul_2f``)."""
     k, nch, rl = x_ext.shape[0], len(first_last), 16 * ne
     ext = bl + 2 * rl
     lo0 = np.arange(0, nch * bl, 4)
@@ -473,7 +475,11 @@ def _swept4_banded_emulated(x_ext, rsp, ne, bl, first_last):
     cc[:, :, 0] = np.where(dn, cc[:, :, 0] + beta(pd), cc[:, :, 0])
     cc[:, :, 3] = np.where(up, cc[:, :, 3] + beta(pu), cc[:, :, 3])
     r = rsp.numpy()[:, lo0[:, None] + four]
-    out = cc * r[0] + cc * r[1] if len(r) == 2 else cc * r[0]
+    if len(r) == 2:
+        T = torch.from_numpy
+        out = mul_2f(T(cc), T(r[0]), T(r[1])).numpy()
+    else:
+        out = cc * r[0]
     assert out.dtype == np.float32
     return out.reshape(k, nch * bl)
 

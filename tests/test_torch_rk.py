@@ -8,11 +8,12 @@ Tolerances: 1e-12 for the f64 field form (same math, only the einsum and
 cumsum order differs); 3e-6 for one f32 CAAR stage (the tendencies are
 summed in another order than the Pallas kernel's matrix-unit contractions,
 as in tests/test_torch_caar.py); 1e-6 for the sweep with ``mix`` (XLA on the
-CPU contracts the two-float product and the two-product sum into fused
-multiply-adds, the port rounds each on its own, as the kernel on the card
-does); 2e-5 for the packed step and for a 3-step chain against JAX's; 2e-4
-(rtol and atol, the limit of tests/test_structured_dss.py) for the packed
-f32 step against the port's own f64-capable field form run in f32."""
+CPU contracts the two-product sum into a fused multiply-add, the port rounds
+each product on its own, as the kernel on the card does; the two-float
+scale is one fmaf in both, ``dist.dss.mul_2f``); 2e-5 for the packed step
+and for a 3-step chain against JAX's; 2e-4 (rtol and atol, the limit of
+tests/test_structured_dss.py) for the packed f32 step against the port's
+own f64-capable field form run in f32."""
 import dataclasses
 
 import jax

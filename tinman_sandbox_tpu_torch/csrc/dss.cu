@@ -32,7 +32,7 @@
 // producers of caar.cu and tracer.cu). The merged sweep takes it at every
 // lane except the 2,856 fix lanes of ne30 (cube-edge line interiors and cube
 // corners), whose value is computed from the PRE-sweep field by the fixup:
-//   v = (g[s0] + g[s1]) + (g[s2] + g[s3]),  then v*hi + v*lo,
+//   v = (g[s0] + g[s1]) + (g[s2] + g[s3]),  then fmaf(v, hi, v*lo),
 // with s0/s1 the lane and its in-face junction partner on its own line,
 // s2/s3 the same on the paired line of the neighbouring face (read in
 // reverse on a flipped edge), and for a cube corner (c0 + c1) + c2. An
@@ -44,12 +44,12 @@
 // each thread reads and writes only its own element of mx, its partner reads
 // go to x, and the grid covers x's rows only, so further rows of mx ride
 // through untouched. The output must never alias x.
-// Every add and product is rounded on its own (__fadd_rn / __fmul_rn, no FMA
-// contraction) in the order of the JAX package, so each kernel equals its
-// plain PyTorch version bit for bit and every alias of a shared dof ends
-// with the same bits. The patch's value at a fix lane is the sweep's own
-// fix-lane expression, so merge-free sweep + patch equals the merged sweep
-// bit for bit.
+// Every add and product but the two-float scale's fmaf is rounded on its own
+// (__fadd_rn / __fmul_rn, no FMA contraction) in the order of the JAX
+// package, so each kernel equals its plain PyTorch version bit for bit and
+// every alias of a shared dof ends with the same bits. The patch's value at
+// a fix lane is the sweep's own fix-lane expression, so merge-free sweep +
+// patch equals the merged sweep bit for bit.
 //
 // What bounds them on the H100: device-memory traffic. The sweep reads and
 // writes the whole field once (199 MB at ne30 x 288 rows, ~0.06 ms at

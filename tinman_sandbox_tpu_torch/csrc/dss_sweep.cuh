@@ -10,10 +10,10 @@
 //        = x(l) + x(l-4)   if i == 0 and ei > 0
 //   z(l) = y(l) + y(l+db)  if j == 3 and ej < ne-1   (beta sweep,
 //        = y(l) + y(l-db)  if j == 0 and ej > 0       db = 16*ne - 3)
-//   w(l) = z*hi + z*lo (two-float rspheremp) or z*rsp
-// Every add and product is rounded on its own (__fadd_rn / __fmul_rn, no FMA
-// contraction), in the order of the JAX package. A lane reads the row at most
-// db + 4 = 16*ne + 1 lanes away.
+//   w(l) = fmaf(z, hi, z*lo) (two-float rspheremp) or z*rsp
+// Every other add and product is rounded on its own (__fadd_rn / __fmul_rn,
+// no FMA contraction), in the order of the JAX package. A lane reads the row
+// at most db + 4 = 16*ne + 1 lanes away.
 //
 // `load(l)` returns the row's value at lane l: a plain load in the sweep
 // kernels, an L2 load (__ldcg) of another block's output in the ring kernels.
@@ -35,11 +35,13 @@ __device__ __forceinline__ float alpha_sum(const Load& load, int l, int ne) {
   return v;
 }
 
-// v * rspheremp, given the lane's rspheremp rows: v*hi + v*lo with two
-// rows (nrsp = 2), else v*hi
+// v * rspheremp, given the lane's rspheremp rows: v*(hi + lo) with two
+// rows (nrsp = 2) as v*lo, then v*hi plus that rounded once (a rounded
+// v*hi would drop lo, ~1e-8 of hi, below half an ulp nearly everywhere,
+// and with it the fix of fl(rspheremp)'s per-dof bias), else v*hi
 __device__ __forceinline__ float scale_by(float v, float hi, float lo,
                                           int nrsp) {
-  if (nrsp == 2) return __fadd_rn(__fmul_rn(v, hi), __fmul_rn(v, lo));
+  if (nrsp == 2) return __fmaf_rn(v, hi, __fmul_rn(v, lo));
   return __fmul_rn(v, hi);
 }
 

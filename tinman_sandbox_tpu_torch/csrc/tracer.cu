@@ -444,7 +444,8 @@ __device__ __forceinline__ void stage_row(const Quad& t, const Tile& tl,
   V4 y = advect(t, tl, w, qv, s.dt);
   if constexpr (kMix) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) y.v[j] = fmaf(s.ca, mv.v[j], s.cb * y.v[j]);
+    for (int j = 0; j < 4; ++j)
+      y.v[j] = __fadd_rn(__fmul_rn(s.ca, mv.v[j]), __fmul_rn(s.cb, y.v[j]));
   }
   if (kLimit || s.fold) {
     const V4 sph = lds4(tl.sph + t.qi);

@@ -30,7 +30,8 @@ from ..constants import CONSTANTS
 from ..device import from_arrays
 from ..grid import GLL_WEIGHTS_NP4, Geometry, _metinv_from_d, dvv_matrix
 
-__all__ = ["CubedSphere", "build_cubed_sphere", "GLL_NODES_NP4"]
+__all__ = ["CubedSphere", "build_cubed_sphere", "cosine_bell",
+           "GLL_NODES_NP4"]
 
 # GLL nodes on [-1, 1] for np=4
 GLL_NODES_NP4 = np.array(
@@ -189,3 +190,17 @@ def build_cubed_sphere(ne: int, dtype=torch.float64,
     return CubedSphere(ne=ne, nelem=nelem, geometry=geometry, sphere_xyz=xyz,
                        lat=lat, lon=lon, gdof=gdof, ndof=ndof,
                        multiplicity=counts)
+
+
+def cosine_bell(xyz, radius: float = 1.0 / 3.0, lon0: float = 0.0,
+                lat0: float = 0.0) -> np.ndarray:
+    """The cosine bell of the solid-body transport test (Williamson case 1):
+    q in [0, 1] at unit-sphere nodes ``xyz`` [..., 3] (a sphere's
+    ``sphere_xyz``), 0.5 * (1 + cos(pi r / radius)) within ``radius`` rad of
+    (lon0, lat0), else 0 (counterpart of ``_cosine_bell`` of the JAX
+    package's tests/test_advection.py)."""
+    x0 = np.array([np.cos(lat0) * np.cos(lon0),
+                   np.cos(lat0) * np.sin(lon0), np.sin(lat0)])
+    r = np.arccos(np.clip(np.einsum("...c,c->...", xyz, x0), -1, 1))
+    return np.where(r < radius, 0.5 * (1.0 + np.cos(np.pi * r / radius)),
+                    0.0)

@@ -16,7 +16,7 @@ import torch
 
 from ..config import NPSQ
 
-__all__ = ["dss_sum", "dss_scaled", "dss_project", "rsp_2f",
+__all__ = ["dss_sum", "dss_scaled", "dss_project", "rsp_2f", "mul_2f",
            "continuity_error_t", "dss_scaled_sharded"]
 
 
@@ -41,6 +41,29 @@ def rsp_2f(spheremp, gdof, ndof: int):
     hi = r.astype(np.float32)
     lo = (r - hi.astype(np.float64)).astype(np.float32)
     return hi.reshape(shape), lo.reshape(shape)
+
+
+def mul_2f(y: torch.Tensor, hi, lo) -> torch.Tensor:
+    """y * (hi + lo) for the two-float rspheremp (hi, lo broadcast on y).
+    In float32 it is ``fmaf(y, hi, y*lo)``, the DSS kernels' scale: y*lo
+    rounded, then y*hi + that rounded once. Two rounded products and a
+    rounded sum would lose the lo row wherever y*lo is under half an ulp of
+    y*hi (nearly everywhere: lo is ~1e-8 of hi), and with it the fix of
+    fl(rspheremp)'s per-dof bias. Emulated exactly: y*hi is exact in
+    float64, the float64 sum is rounded to odd (TwoSum's error decides the
+    last bit), and rounding that to float32 is the correctly rounded
+    result. Other dtypes: y*hi + y*lo."""
+    if y.dtype != torch.float32:
+        return y * hi + y * lo
+    p = y.double() * hi.double()
+    q = (y * lo).double()
+    s = p + q
+    b = s - p
+    err = (p - (s - b)) + (q - b)
+    bits = s.view(torch.int64)
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    odd = torch.where((err != 0) & ((bits & 1) == 0), bits + step, bits)
+    return odd.view(torch.float64).float()
 
 
 def _index(gdof, device) -> torch.Tensor:
@@ -83,12 +106,12 @@ def dss_scaled(x: torch.Tensor, gdof, ndof: int, rspheremp) -> torch.Tensor:
     """rspheremp * DSS(x): the assembly of an already spheremp-weighted
     update (routine_mod.F90:182-190 writes spheremp*(...)). ``rspheremp``
     may be a ``(hi, lo)`` two-float pair (``rsp_2f``): the product is then
-    y*hi + y*lo."""
+    ``mul_2f(y, hi, lo)``."""
     y = dss_sum(x, gdof, ndof)
     if isinstance(rspheremp, tuple):
         hi, lo = (_lift(torch.as_tensor(r, device=x.device), x.ndim)
                   for r in rspheremp)
-        return y * hi + y * lo
+        return mul_2f(y, hi, lo)
     return _lift(rspheremp, x.ndim) * y
 
 

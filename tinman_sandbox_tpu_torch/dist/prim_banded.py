@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..timeloop.rk import B_WEIGHTS
+from ..timeloop.rk import B_WEIGHTS, third_stage_weights
 from .banded_t4 import _banded_fix, banded_dss
 from .sharded_t4 import CUDA, PLAIN
 
@@ -65,7 +65,7 @@ def _ssprk3(kit, scal, meta, s0, qdp, pecnd, acc, dvv, plan, rsp, mesh, m,
     u1, _, acc = stage(s0, B_WEIGHTS[0], acc)
     u2, _, acc = stage(u1, B_WEIGHTS[1], acc, coef=(f(0.75), f(0.25)))
     u3, phi, acc = stage(u2, B_WEIGHTS[2], acc, emit_phi=True,
-                         coef=(f(1.0 / 3.0), f(2.0 / 3.0)))
+                         coef=third_stage_weights(f))
     return (u3, phi) + tuple(list(a) for a in zip(*acc))
 
 
@@ -137,7 +137,7 @@ def _tracer(kit, dvv, meta, vu, vv, qdp, plan, rsp, mesh, m, dt, nlev,
     fixes = _banded_fix(plan, m, mesh, qdp)
     f = _np_float(qdp[0].dtype)
     q = qdp
-    for coef in (None, (f(0.75), f(0.25)), (f(1.0 / 3.0), f(2.0 / 3.0))):
+    for coef in (None, (f(0.75), f(0.25)), third_stage_weights(f)):
         outs = [kit.euler(mt, u, v, x, dvv, dt, nlev, wind_rows=wind_rows,
                           fix=fix)
                 for mt, u, v, x, fix in zip(meta, vu, vv, q, fixes)]

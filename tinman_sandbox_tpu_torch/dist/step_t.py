@@ -105,7 +105,7 @@ from ..kernels.tracer_t import (
     tracer_limit_plain)
 from ..state import Derived, State
 from ..timeloop.driver import rotated
-from ..timeloop.rk import B_WEIGHTS
+from ..timeloop.rk import B_WEIGHTS, third_stage_weights
 from .structured_dss import StructuredDssPlan, dss_structured_scaled
 
 __all__ = ["caar_dss_structured_packed_t4",
@@ -282,7 +282,8 @@ def _ssprk3(produce, close, scal, meta, s0, qdp, pecnd, acc, dvv, plan, rsp,
     (fixup + sweep, or fixup + patch). The stage weight scales eta_ave_w on
     the device (a copy of scal and one in-place product with a number: no
     host sync), rounded to the state's dtype as the JAX package's
-    ``f.type(b)``. The mix coefficients are formed in the state's dtype."""
+    ``f.type(b)``. The mix coefficients are formed in the state's dtype,
+    the last pair summing to exactly 1 (``third_stage_weights``)."""
     fix = fix_tables(plan, s0.device)
     f = np.float32 if s0.dtype == torch.float32 else np.float64
 
@@ -297,7 +298,7 @@ def _ssprk3(produce, close, scal, meta, s0, qdp, pecnd, acc, dvv, plan, rsp,
     u1, _, acc = stage(s0, B_WEIGHTS[0], acc)
     u2, _, acc = stage(u1, B_WEIGHTS[1], acc, mix=(s0, f(0.75), f(0.25)))
     u3, phi, acc = stage(u2, B_WEIGHTS[2], acc, emit_phi=True,
-                         mix=(s0, f(1.0 / 3.0), f(2.0 / 3.0)))
+                         mix=(s0, *third_stage_weights(f)))
     return (u3, phi, *acc)
 
 
@@ -399,11 +400,11 @@ def _ssprk3_tracer(euler, limiter, close, dvv, meta, vu, vv, qdp, plan, rsp,
     two-launch Euler step through ``_mix_in_closer``) and its closer
     ``close(x, slab, fix, rsp, mix)``; with it the limit kernel, closed with
     no combination. The Shu-Osher coefficients are formed in the tracers'
-    dtype."""
+    dtype, the last pair summing to exactly 1 (``third_stage_weights``)."""
     fix = fix_tables(plan, qdp.device)
     f = _np_float(qdp.dtype)
     mixes = (None, (qdp, f(0.75), f(0.25)),
-             (qdp, f(1.0 / 3.0), f(2.0 / 3.0)))
+             (qdp, *third_stage_weights(f)))
     q = qdp
     for mix in mixes:
         if limit:

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..config import NP, NPSQ
+from .dss import mul_2f
 
 __all__ = ["StructuredDssPlan", "make_structured_plan", "dss_structured",
            "dss_structured_scaled", "dss_structured_t",
@@ -265,9 +266,9 @@ def dss_project_structured_field(x: torch.Tensor, plan: StructuredDssPlan,
 
 def apply_rsp_t(rsp_lanes: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """y * rspheremp on the lane axis; ``rsp_lanes`` is [1, e16] or the
-    two-float [2, e16] (hi + lo rows), then y*hi + y*lo."""
+    two-float [2, e16] (hi + lo rows), then ``dss.mul_2f``."""
     if rsp_lanes.shape[0] == 2:
-        return y * rsp_lanes[0:1] + y * rsp_lanes[1:2]
+        return mul_2f(y, rsp_lanes[0:1], rsp_lanes[1:2])
     return rsp_lanes * y
 
 

@@ -262,10 +262,12 @@ def dss_extract_plain(x: torch.Tensor, tables: FixTables) -> torch.Tensor:
 
 
 def _scale(v: torch.Tensor, rsp_rows: torch.Tensor) -> torch.Tensor:
-    """v * rspheremp with rsp_rows [nr, ...] broadcast on v: v*hi + v*lo
-    for two rows, each product and the sum rounded on its own."""
+    """v * rspheremp with rsp_rows [nr, ...] broadcast on v: for two rows
+    ``fmaf(v, hi, v*lo)`` (``dist.dss.mul_2f``, the kernels' scale)."""
     if rsp_rows.shape[0] == 2:
-        return v * rsp_rows[0] + v * rsp_rows[1]
+        from ..dist.dss import mul_2f
+
+        return mul_2f(v, rsp_rows[0], rsp_rows[1])
     return v * rsp_rows[0]
 
 

@@ -449,13 +449,14 @@ def tracer_limit_emulated(meta, vu, vv, q, dvv, dt, nlev: int, mix=None,
                           wind_rows=(0, 0), iters: int = 2, fix=None):
     """``tracer_limit_cuda`` as its kernel computes it, on float32 CPU
     tensors (``tracer_euler_emulated``, then the Shu-Osher combination
-    ``fmaf(ca, mx, cb*e)`` and the kernel's limiter). Returns (out, slab or
+    ``ca*mx + cb*e``, both products and the sum rounded, and the kernel's
+    limiter). Returns (out, slab or
     None, writes, slab writes or None)."""
     mx, ca, cb = _mix_of("tracer_limit", q, mix)
     y = _advect_emulated(meta, vu, vv, q, dvv, dt, nlev, wind_rows)
     quads = lambda x: x.reshape(q.shape[0], -1, 4, 4)
     if mx is not None:
-        y = _fma(_f32(ca), quads(mx), _f32(cb) * y)
+        y = _f32(ca) * quads(mx) + _f32(cb) * y
     w = meta[_MC["spheremp"]].view(1, -1, 4, 4)
     y = _limit_emulated(y, quads(q), w, iters)
     return _walk((w * y).reshape(q.shape), nlev, fix, TRACER_WARPS["limit"])

@@ -23,9 +23,19 @@ from ..grid import Geometry, HybridVCoord
 from ..kernels.caar_array import caar_rhs
 from ..state import Derived, State
 
-__all__ = ["ssprk3_step", "B_WEIGHTS"]
+__all__ = ["ssprk3_step", "B_WEIGHTS", "third_stage_weights"]
 
 B_WEIGHTS = (1.0 / 6.0, 1.0 / 6.0, 2.0 / 3.0)
+
+
+def third_stage_weights(f):
+    """The last stage's Shu-Osher pair (1/3, 2/3) as numbers of the scalar
+    type ``f`` (np.float32 or np.float64) that add up to exactly 1:
+    (1 - f(2/3), f(2/3)). Each rounded on its own, both float32 values lie
+    above 1/3 and 2/3 and the pair adds 2**-25 of the stage's input every
+    step, a linear drift of the tracer and air mass of ~3e-8 a step."""
+    b = f(2.0 / 3.0)
+    return f(1.0) - b, b
 
 
 def _project(fields, geom, gdof, ndof, rsp2=None):
