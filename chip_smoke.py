@@ -84,8 +84,11 @@ NVIDIA card and check it, phase by phase:
      5e-5 per tracer block without and with the Shu-Osher combination, on a
      uniform field and on a field with a tenth of its nodes pushed outside
      the bounds, with each element's mass kept to 4e-6 and the result inside
-     the bounds wherever they are feasible; each timed by events and from
-     a CUDA graph against its bound; the fixup of the 72- and 2,520-row
+     the bounds wherever they are feasible; with no clip-and-redistribute
+     pass (``iters=0``, the residual pass alone), with and without the
+     combination, within 5e-5 and the mass to 4e-6; each timed by events
+     and from a CUDA graph against its bound; the fixup of the 72- and
+     2,520-row
      stacks bit for bit
      ``dss_fixup_plain``, also from a CUDA graph;
  12. the full model step at ne30 x 72, qsize 1, its launch counts set to 0
@@ -304,7 +307,29 @@ NVIDIA card and check it, phase by phase:
      written to a temporary file and printed as one line, launch counts
      set to 0 just before and read just after; fails unless ``pass``.
 
-Phases 22-27 run after phase 21, before the lines of phase 17.
+ 28. the breakdown tools and the GSPMD axes, launch counts set to 0 just
+     before and read just after: ``bench.make_prim_problem``'s in-place
+     tracer draw bit for bit the stacked draw it replaced (ne30, qsize 3);
+     ``tools.profile_prim`` at ne30 x 72 with qsize 1 and with qsize 35
+     ``--limit``, ``tools.profile_dss`` at ne30, ``tools.profile_limiter``
+     at ne30 x 72 x 35 (the ladder nolimit, iters 0, 1, 2) and
+     ``tools.profile_dss_ne120``, each with a small ``--nexec``, every
+     line printed with the card's name and power limit; the tracer path at
+     ne120 x 72 x qsize 35 (``profile_prim --ne 120 --qsize 35 --limit
+     --gate``: the Euler and the limited kernels on the last NE120_BLOCK
+     elements' lanes against their plain versions at 5e-5 a tracer block,
+     one limited SSPRK3 step with continuity exactly 0, relative mass
+     change within 4e-6 and min qdp >= -1e-6, its time and peak memory);
+     the GSPMD axes of the JAX tests: ``dist.caar_level_sharded`` over
+     ``LocalMesh(4)`` on levels at ne30 x 72 (4 shards of 18 levels) at
+     rsplit 1 and 0 against the unsharded ``caar_array`` in f32 (1e-5
+     scaled) and f64 (1e-12), and ``euler_step_sharded`` on the (4, 2)
+     element x tracer mesh at ne30 x qsize 8 against ``euler_step`` (f64
+     1e-12, f32 1e-6; whether bit for bit is printed); every kernel the
+     tools time launched (CAAR, sweep, fixup, extract, Laplacian, Euler,
+     limited).
+
+Phases 22-28 run after phase 21, before the lines of phase 17.
 
 Any failure raises and exits non-zero before the result line is printed.
 Run from the repository root: ``python3 chip_smoke.py``.
@@ -476,6 +501,16 @@ TWIN_STRIDE = 9
 # the prim soak: 100 steps of bench.run_prim with the limiter, norms under
 # 10 x (their start + 1) (tests/test_soak.py)
 SOAK_STEPS = 100
+# phase 28: the breakdown tools' chained calls a timed run (small, to keep
+# the phase short), the GSPMD axes' meshes and their gates against the
+# unsharded forms (scaled max-abs; the level shards' scans add in another
+# order)
+TOOL_NEXEC = 5
+LEVEL_SHARDS = 4
+EQ_MESH = (4, 2)
+EQ_QSIZE = 8
+AXES_TOL = {"float64": 1e-12, "float32": 1e-5}
+EULER_TOL = {"float64": 1e-12, "float32": 1e-6}
 
 
 def card_line() -> str:
@@ -1952,18 +1987,23 @@ def phase_tracer_kernels(dev, cs):
         bump = (torch.rand(q.shape, generator=rng, device=dev) < 0.1).float() \
             * (torch.rand(q.shape, generator=rng, device=dev) < 0.5).float() \
             .mul_(2).sub_(1)
-        cases = [("free", q, None, dt_long),
-                 ("mix", q, (mx, ca, cb), DYN_DT),
-                 ("mix long", q, (mx, ca, cb), dt_long),
-                 ("uniform", torch.full_like(q, 0.5), None, dt_long),
-                 ("pushed", q, (q + bump, 1.0, 0.0), 0.0)]
+        # (case, q, mix, dt, clip-and-redistribute passes); with no pass
+        # (the JAX kernel's iters=0) only the residual pass runs: the
+        # bounds are not the gate's there, the error and the mass are
+        cases = [("free", q, None, dt_long, 2),
+                 ("mix", q, (mx, ca, cb), DYN_DT, 2),
+                 ("mix long", q, (mx, ca, cb), dt_long, 2),
+                 ("uniform", torch.full_like(q, 0.5), None, dt_long, 2),
+                 ("pushed", q, (q + bump, 1.0, 0.0), 0.0, 2),
+                 ("free iters=0", q, None, dt_long, 0),
+                 ("mix long iters=0", q, (mx, ca, cb), dt_long, 0)]
         del bump
-        worst_abs = worst = worst_cons = worst_viol = 0.0
-        for case, qc, mix, dt in cases:
+        worst_abs = worst = worst_cons = worst_viol = worst_i0 = 0.0
+        for case, qc, mix, dt, iters in cases:
             want, _ = tracer_limit_plain(meta, s0, s0, qc, dvv, dt, k,
-                                         mix=mix, **kw)
+                                         mix=mix, iters=iters, **kw)
             got, slab = tracer_limit_cuda(meta, s0, s0, qc, dvv, dt, k,
-                                          mix=mix, **kw)
+                                          mix=mix, iters=iters, **kw)
             torch.cuda.synchronize()
             if not bool(torch.isfinite(got).all()):
                 raise AssertionError(f"tracer_limit {tag} {case}: non-finite")
@@ -1980,7 +2020,8 @@ def phase_tracer_kernels(dev, cs):
             cons, viol, nfeas = limiter_properties(got, y_in, qc, w)
             clipped = float((got / w - y_in).abs().max())
             del got, y_in
-            print(f"phase 11 tracer_limit {tag} {case} dt {dt:.4g}: worst "
+            print(f"phase 11 tracer_limit {tag} {case} dt {dt:.4g} iters "
+                  f"{iters}: worst "
                   f"scaled error of a tracer block {err:.2e}; mass of an "
                   f"element kept to {cons:.2e}; outside the bounds "
                   f"{viol:.2e} over {nfeas} feasible elements; the limiter "
@@ -1991,7 +2032,9 @@ def phase_tracer_kernels(dev, cs):
             if cons > CONSERVE_TOL:
                 raise AssertionError(f"tracer_limit {tag} {case}: mass "
                                      f"{cons} > {CONSERVE_TOL}")
-            if viol > BOUNDS_TOL * float(qc.abs().max()):
+            if iters == 0:
+                worst_i0 = max(worst_i0, err)
+            elif viol > BOUNDS_TOL * float(qc.abs().max()):
                 raise AssertionError(f"tracer_limit {tag} {case}: bounds "
                                      f"{viol}")
             if case == "pushed" and not clipped > 0.5:
@@ -2029,6 +2072,7 @@ def phase_tracer_kernels(dev, cs):
                 replaces="tinman_sandbox_tpu/kernels/tracer_pallas_t.py:322",
                 max_abs_err=worst_abs, max_scaled_err=worst,
                 max_conservation_err=worst_cons, max_bounds_violation=worst_viol,
+                iters0_max_scaled_err=worst_i0,
                 ms=k_ms, plain_ms=p_ms, bound_ms=bnd, bound_by=by,
                 library_ms=None, nomix_ms=k0_ms, nomix_bound_ms=bnd0,
                 graph_ms=kg_ms, nomix_graph_ms=k0g_ms,
@@ -2038,6 +2082,7 @@ def phase_tracer_kernels(dev, cs):
         else:
             rows["tracer_limit_cuda"].update(
                 tall_qsize=qsize, tall_max_scaled_err=worst,
+                tall_iters0_max_scaled_err=worst_i0,
                 tall_max_conservation_err=worst_cons, tall_ms=k_ms,
                 tall_nomix_ms=k0_ms, tall_graph_ms=kg_ms,
                 tall_nomix_graph_ms=k0g_ms, tall_plain_ms=p_ms,
@@ -5213,6 +5258,222 @@ def phase_equiv(dev) -> dict:
     return report
 
 
+def run_tool(module, argv) -> list:
+    """``module.main(argv)`` with its printed lines captured; prints each
+    as "phase 28 <tool> <line>" and returns them."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        module.main(argv)
+    name = module.__name__.rsplit(".", 1)[-1]
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+    for ln in lines:
+        print(f"phase 28 {name} {' '.join(argv)}: {ln}")
+    return lines
+
+
+def _tool_json(lines) -> dict:
+    """The JSON lines of a tool's output merged into one dict."""
+    out = {}
+    for ln in lines:
+        if ln.startswith("{"):
+            out.update(json.loads(ln))
+    return out
+
+
+def tool_gate(name: str, report: dict, stages) -> None:
+    """Every stage a tool reported has finite positive times and the card's
+    line."""
+    for stage in stages:
+        line = report.get(stage)
+        if not isinstance(line, dict) or not line["us_per_call"] > 0 \
+                or not line["host_us_per_call"] > 0 or not line["card"] \
+                or line["clock"] != "cuda events":
+            raise AssertionError(f"{name}: stage {stage}: {line}")
+
+
+def phase_axes(dev) -> None:
+    """Phase 28's GSPMD axes: the level-sharded CAAR over
+    LocalMesh(LEVEL_SHARDS) at ne30 x 72 (rsplit 1 and 0, hybi ramp) and
+    the (e, q) mesh's Euler step at ne30 x EQ_QSIZE, each against its
+    unsharded form in f32 and f64."""
+    import dataclasses
+
+    import torch
+
+    from tinman_sandbox_tpu_torch import (
+        Config, analytic_hvcoord, random_state, zero_derived)
+    from tinman_sandbox_tpu_torch.dist import build_cubed_sphere
+    from tinman_sandbox_tpu_torch.dist.level_sharded import (
+        caar_level_sharded, euler_step_sharded, shard_levels, unshard_levels)
+    from tinman_sandbox_tpu_torch.dist.sharding import LocalMesh
+    from tinman_sandbox_tpu_torch.kernels.caar_array import caar_array
+    from tinman_sandbox_tpu_torch.timeloop.tracer import euler_step
+
+    cs64 = build_cubed_sphere(NE, dtype=torch.float64, device=dev)
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).rsplit(".", 1)[-1]
+        geom = cs64.geometry.to(dtype=dtype)
+        for rsplit in (1, 0):
+            cfg = Config(nelem=cs64.nelem, nlev=NLEV, rsplit=rsplit)
+            kw = dict(dtype=dtype, device=dev)
+            st, dv = random_state(cfg, seed=SEED, **kw), zero_derived(cfg,
+                                                                      **kw)
+            hv = analytic_hvcoord(cfg, **kw)
+            hv = dataclasses.replace(hv, hybi=torch.linspace(
+                0.0, 1.0, NLEV + 1, **kw))
+            mesh = LocalMesh(LEVEL_SHARDS, dev)
+            t0 = time.perf_counter()
+            ss, ds = shard_levels(mesh, st, dv)
+            out = caar_level_sharded(mesh, ss, ds, geom, hv, cfg, 0.1, 1.0)
+            got_s, got_d = unshard_levels(mesh, *out)
+            torch.cuda.synchronize(dev)
+            sharded_s = time.perf_counter() - t0
+            want_s, want_d = caar_array(st, dv, geom, hv, cfg, 0.1, 1.0,
+                                        device=dev)
+            errs = {name: scaled_err(getattr(got_s, name)[cfg.np1],
+                                     getattr(want_s, name)[cfg.np1])
+                    for name in ("u", "v", "t", "dp3d")}
+            errs.update({name: scaled_err(getattr(got_d, name),
+                                          getattr(want_d, name))
+                         for name in ("phi", "omega_p", "eta_dot_dpdn",
+                                      "vn0_u")})
+            per = NLEV // LEVEL_SHARDS
+            print(f"phase 28 level-sharded caar ne{NE}x{NLEV} {tag} rsplit "
+                  f"{rsplit} over LocalMesh({LEVEL_SHARDS}) ({per} levels a "
+                  f"shard; {sharded_s:.2f} s): scaled "
+                  "errors against caar_array "
+                  + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+                  + f" (gate {AXES_TOL[tag]:g})")
+            if not all(e <= AXES_TOL[tag] for e in errs.values()):
+                raise AssertionError(f"phase 28 level-sharded caar {tag} "
+                                     f"rsplit {rsplit}: {errs}")
+            del st, dv, ss, ds, out, got_s, got_d, want_s, want_d
+        cfg = Config(nelem=cs64.nelem, nlev=NLEV, qsize=EQ_QSIZE)
+        st = random_state(cfg, seed=SEED, dtype=dtype, device=dev)
+        qdp, vu, vv = st.qdp[cfg.qn0], st.u[cfg.n0], st.v[cfg.n0]
+        mesh = LocalMesh(EQ_MESH, dev, axis_names=("e", "q"))
+        for dt in (0.3, 1e4):
+            want = euler_step(qdp, vu, vv, geom, cfg, dt)
+            got = euler_step_sharded(mesh, qdp, vu, vv, geom, cfg, dt,
+                                     tracer_axis="q", elem_axis="e")
+            q_only = euler_step_sharded(LocalMesh(EQ_MESH[1], dev,
+                                                  axis_names=("q",)),
+                                        qdp, vu, vv, geom, cfg, dt)
+            err = max(scaled_err(got, want), scaled_err(q_only, want))
+            moved = scaled_err(want, qdp)
+            print(f"phase 28 euler_step ne{NE}x{NLEV} qsize {EQ_QSIZE} {tag} "
+                  f"dt {dt:g} on the {EQ_MESH} (e, q) mesh and on "
+                  f"{EQ_MESH[1]} tracer shards: scaled error {err:.2e} (gate "
+                  f"{EULER_TOL[tag]:g}), bit for bit "
+                  f"{torch.equal(got, want) and torch.equal(q_only, want)}; "
+                  f"the step moved qdp by {moved:.2e} of it")
+            if not err <= EULER_TOL[tag]:
+                raise AssertionError(f"phase 28 euler_step {tag}: {err}")
+        del st, qdp, vu, vv
+    torch.cuda.empty_cache()
+
+
+def phase_tools(dev) -> dict:
+    """Phase 28: the breakdown tools at full size, the tracer path at ne120
+    x qsize 35 with its gates (``profile_prim --gate``), and the GSPMD axes
+    (``phase_axes``). Returns the tools' reports by run."""
+    import torch
+
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.kernels.dss import dss_structured_t_cuda
+    from tinman_sandbox_tpu_torch.kernels.layout import META_COLS
+    from tinman_sandbox_tpu_torch.tools import (
+        profile_dss, profile_dss_ne120, profile_limiter, profile_prim)
+
+    # the in-place tracer draw of make_prim_problem against the stacked
+    # draw it replaced (torch.rand of the rows after the first tracer)
+    (scal, meta, q0, pecnd, dvv), s0, acc, plan, rsp = \
+        bench.make_dynamics_problem(NE, NLEV, dev, DYN_DT)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    more = torch.rand(2 * NLEV, q0.shape[1], generator=gen, device=dev)
+    sph = meta[META_COLS.index("spheremp")]
+    want = dss_structured_t_cuda(torch.cat([q0, more]) * sph, plan, rsp)
+    got = bench.make_prim_problem(NE, NLEV, dev, DYN_DT, 3)[2]
+    if not torch.equal(got, want):
+        raise AssertionError("make_prim_problem: the in-place draw is not "
+                             "the stacked draw's bits")
+    print(f"phase 28 make_prim_problem ne{NE}x{NLEV} qsize 3: the in-place "
+          "draw bit for bit the stacked torch.rand draw")
+    del scal, meta, q0, pecnd, dvv, s0, acc, more, sph, want, got
+    torch.cuda.empty_cache()
+
+    reports = {}
+    n = ["--nexec", str(TOOL_NEXEC)]
+    for label, argv in (("prim q1", ["--ne", str(NE), "--qsize", "1"]),
+                        (f"prim q{QSIZE_TALL} limit",
+                         ["--ne", str(NE), "--qsize", str(QSIZE_TALL),
+                          "--limit"])):
+        t0 = time.perf_counter()
+        rep = _tool_json(run_tool(profile_prim, argv + n))
+        q = rep["qsize"]
+        stages = ["ssprk3_dynamics", "hyperviscosity", f"tracers_q{q}",
+                  f"tracer_kernel_q{q}", f"tracer_dss_q{q}", "prim_step"]
+        tool_gate(f"profile_prim {label}", rep, stages)
+        print(f"phase 28 profile_prim {label}: sum {rep['sum_us']:.1f} us, "
+              f"composed step {rep['prim_step_us']:.1f} us (gap "
+              f"{rep['gap_us']:.1f}); graph sum {rep['sum_graph_us']}, "
+              f"composed {rep['prim_step_graph_us']}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        reports[label] = rep
+    t0 = time.perf_counter()
+    rep = _tool_json(run_tool(profile_dss, ["--ne", str(NE)] + n))
+    tool_gate("profile_dss", rep, ["kernel_t4", "full_step_t4", "full_dss",
+                                   "sweep_only", "extract+fixup",
+                                   "c_sweep_only", "c_fixup+scat"])
+    if not str(rep.get("scatter_zeros", "")).startswith("not applicable"):
+        raise AssertionError(f"profile_dss: scatter_zeros {rep}")
+    print(f"phase 28 profile_dss: {time.perf_counter() - t0:.1f} s")
+    reports["dss"] = rep
+    t0 = time.perf_counter()
+    rep = json.loads(run_tool(profile_limiter, ["--ne", str(NE)] + n)[-1])
+    if set(rep["stage_us"]) != {"nolimit", "limit_i0", "limit_i1",
+                                "limit_i2"} \
+            or not all(v > 0 for v in rep["stage_us"].values()) \
+            or not rep["card"]:
+        raise AssertionError(f"profile_limiter: {rep}")
+    print(f"phase 28 profile_limiter: {time.perf_counter() - t0:.1f} s")
+    reports["limiter"] = rep
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rep = _tool_json(run_tool(profile_dss_ne120, ["--nexec", "4"]))
+    tool_gate("profile_dss_ne120", rep, ["kernel_t4", "full_step", "c_sweep",
+                                         "c_fixup"])
+    print(f"phase 28 profile_dss_ne120: {time.perf_counter() - t0:.1f} s")
+    reports["dss ne120"] = rep
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rep = _tool_json(run_tool(profile_prim, [
+        "--ne", str(NE120), "--qsize", str(QSIZE_TALL), "--limit", "--gate",
+        "--nexec", "2"]))
+    g = rep["gates"]
+    tool_gate("profile_prim ne120", rep, [
+        "ssprk3_dynamics", "hyperviscosity", f"tracers_q{QSIZE_TALL}",
+        f"tracer_kernel_q{QSIZE_TALL}", f"tracer_limit_kernel_q{QSIZE_TALL}",
+        f"tracer_dss_q{QSIZE_TALL}", "prim_step"])
+    print(f"phase 28 tracer path ne{NE120}x{NLEV} qsize {QSIZE_TALL} limited: "
+          f"Euler kernel {g['euler_block_err']:.2e} and limited kernel "
+          f"{g['limit_block_err']:.2e} of plain on the last "
+          f"{g['gate_elems']} elements (gate 5e-05); one SSPRK3 step: "
+          f"continuity {g['continuity']:.1e}, relative mass change "
+          f"{g['mass_rel_change']:.3e} (gate 4e-06), min qdp "
+          f"{g['min_qdp']:.3e}; the step "
+          f"{rep[f'tracers_q{QSIZE_TALL}']['us_per_call']:.1f} us, the prim "
+          f"step {rep['prim_step_us']:.1f} us; peak "
+          f"{rep['peak_device_bytes'] / 2**30:.2f} GiB; card {rep['card']}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    reports["tracer path ne120"] = rep
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_axes(dev)
+    print(f"phase 28 GSPMD axes: {time.perf_counter() - t0:.1f} s")
+    return reports
+
+
 def main() -> int:
     try:
         import torch
@@ -5412,6 +5673,12 @@ def main() -> int:
     phase_equiv(dev)
     equiv = counts()
     print(f"phase 27 seconds: {time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
+    reset()
+    t0 = time.perf_counter()
+    phase_tools(dev)
+    tools = counts()
+    print(f"phase 28 seconds: {time.perf_counter() - t0:.1f}")
     for label, res, got in (("raw", raw_res, raw), ("assembled", asm_res,
                                                      asm),
                             ("dynamics", dyn_res, dyn),
@@ -5572,6 +5839,13 @@ def main() -> int:
         if equiv[name] <= 0:
             raise AssertionError(f"{name} was not launched on phase 27's "
                                  "path")
+    print(f"phase 28 tools main-path launches: {json.dumps(tools)}")
+    for name in ("caar_t4_cuda", "vlap_cuda", "tracer_euler_cuda",
+                 "tracer_limit_cuda", "dss_extract_cuda", "dss_fixup_cuda",
+                 "dss_sweep_cuda"):
+        if tools[name] <= 0:
+            raise AssertionError(f"{name} was not launched on phase 28's "
+                                 "path")
     if row_asm_res["kernel_launches"]["caar_packed"] <= 0:
         raise AssertionError("bench --layout row --ne: no row CAAR launch")
     if single_launches <= 0:
@@ -5592,7 +5866,7 @@ def main() -> int:
             "launches": raw[name] + asm[name] + dyn[name] + prim[name]
             + row[name] + ring[name] + multi[name] + probe[name]
             + cadence[name] + tiers[name] + big[name] + traced[name]
-            + swept[name] + longs[name] + equiv[name],
+            + swept[name] + longs[name] + equiv[name] + tools[name],
             "max_abs_err": r.pop("max_abs_err"), "ms": r.pop("ms"),
             "plain_ms": r.pop("plain_ms"), "bound_ms": r.pop("bound_ms"),
             "bound_by": r.pop("bound_by"), "library_ms": r.pop("library_ms"),

@@ -50,7 +50,10 @@ def test_torch_package_imports_no_jax():
                  "timeloop/checkpoint.py", "tools/probe_kernel.py",
                  "tools/energy_drift.py", "tools/equiv_check.py",
                  "examples/packed_cadence.py", "examples/simulated_day.py",
-                 "cli.py", "bench.py"):
+                 "cli.py", "bench.py", "profiling.py",
+                 "tools/profile_prim.py", "tools/profile_dss.py",
+                 "tools/profile_limiter.py", "tools/profile_dss_ne120.py",
+                 "dist/sharding.py", "dist/level_sharded.py"):
         assert os.path.join("tinman_sandbox_tpu_torch", name) in held
     for path in files:
         with open(path) as f:

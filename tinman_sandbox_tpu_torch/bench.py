@@ -303,17 +303,17 @@ def dynamics_bytes_per_step(ne: int, nlev: int, nfix: int,
 
 
 def make_dynamics_problem(ne: int, nlev: int, device, dt: float = 0.1,
-                          seed: int = 7):
+                          seed: int = 7, cs=None):
     """The dynamics bench problem at ne: ``make_assembled_problem`` with dt
     in scal's dt2 slot and the n0 state projected onto the continuous space
     (rspheremp * DSS(spheremp * s0), the whole structured DSS), which
     ``ssprk3_packed_t4`` needs. Returns (const, s0, acc, plan, rsp): const =
-    (scal, meta, qdp, pecnd, dvv)."""
+    (scal, meta, qdp, pecnd, dvv). ``cs`` as ``make_assembled_problem``."""
     from .kernels.dss import dss_structured_t_cuda
     from .kernels.layout import META_COLS
 
     (scal, meta, qdp, pecnd, dvv), (s0, _), acc, plan, rsp = \
-        make_assembled_problem(ne, nlev, device, seed)
+        make_assembled_problem(ne, nlev, device, seed, cs=cs)
     scal = scal.clone()
     scal[0, 0] = dt
     sph = meta[META_COLS.index("spheremp")]
@@ -360,26 +360,31 @@ def prim_bytes_per_step(ne: int, nlev: int, nfix: int, qsize: int = 1,
 
 
 def make_prim_problem(ne: int, nlev: int, device, dt: float = 0.1,
-                      qsize: int = 1, seed: int = 7):
+                      qsize: int = 1, seed: int = 7, cs=None):
     """The full-step bench problem at ne: ``make_dynamics_problem`` plus the
     stacked tracers [qsize*nlev, E16] in [0, 1], projected onto the
     continuous space (a weighted mean: it keeps the range) as
     ``ssprk3_tracer_packed_t`` needs. Tracer 0 is the dynamics problem's
     moisture tracer; the others are drawn on the device from ``seed``.
     Returns (const, s0, qdp, acc, plan, rsp): const = (scal, meta, pecnd,
-    dvv)."""
+    dvv). ``cs`` as ``make_assembled_problem``."""
     from .kernels.dss import dss_structured_t_cuda
     from .kernels.layout import META_COLS
 
     (scal, meta, q0, pecnd, dvv), s0, acc, plan, rsp = make_dynamics_problem(
-        ne, nlev, device, dt, seed)
+        ne, nlev, device, dt, seed, cs)
+    # one [qsize*nlev, E16] buffer, drawn and scaled in place (the draw is
+    # torch.rand's), so that the problem holds two copies at its peak, not
+    # four: at ne120 x qsize 35 a copy is 13.9 GB
+    q = torch.empty(qsize * nlev, q0.shape[1], dtype=q0.dtype,
+                    device=q0.device)
+    q[:nlev] = q0
     if qsize > 1:
         gen = torch.Generator(device=q0.device).manual_seed(seed)
-        more = torch.rand((qsize - 1) * nlev, q0.shape[1], generator=gen,
-                          dtype=q0.dtype, device=q0.device)
-        q0 = torch.cat([q0, more])
+        q[nlev:].uniform_(0.0, 1.0, generator=gen)
+    del q0
     sph = meta[META_COLS.index("spheremp")]
-    qdp = dss_structured_t_cuda(q0 * sph, plan, rsp)
+    qdp = dss_structured_t_cuda(q.mul_(sph), plan, rsp)
     return (scal, meta, pecnd, dvv), s0, qdp, acc, plan, rsp
 
 

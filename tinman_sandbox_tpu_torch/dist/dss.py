@@ -140,11 +140,14 @@ def dss_project(x: torch.Tensor, gdof, ndof: int, spheremp,
     return dss_scaled(_lift(spheremp, x.ndim) * x, gdof, ndof, rspheremp)
 
 
-def continuity_error_t(x: torch.Tensor, gdof) -> float:
+def continuity_error_t(x: torch.Tensor, gdof, rows: int = 0) -> float:
     """max |x - x at the first alias of the same dof| over a transposed
     [k, E16] field (lane e*16 + i*4 + j): 0 exactly when every alias of
-    every dof holds the same value."""
+    every dof holds the same value. ``rows`` > 0 reads x that many rows at
+    a time (its temporaries are then two such blocks, not two copies of
+    x)."""
     g = _host(gdof).reshape(-1)
     first = np.unique(g, return_index=True)[1]
     canon = torch.from_numpy(first[g].astype(np.int64)).to(x.device)
-    return float((x - x[:, canon]).abs().max())
+    blocks = x.split(rows) if rows > 0 else (x,)
+    return max(float((b - b[:, canon]).abs().max()) for b in blocks)

@@ -294,12 +294,13 @@ def tracer_limit_cuda(meta, vu, vv, q, dvv, dt, nlev: int, mix=None,
     ``tracer_limit_pallas_packed_t_ext``): e = q - dt*div(v*q); y = e, or
     ca*mx + cb*e with ``mix=(mx, ca, cb)`` (mx of q's shape, ca and cb
     numbers); y = L(y, bounds(q)) element by element; out = spheremp * y.
-    Operands as ``tracer_euler_cuda``; ``iters`` clip-and-redistribute
-    passes (1 conserves but may leave the bounds). Returns out
+    Operands as ``tracer_euler_cuda``; ``iters`` >= 0 clip-and-redistribute
+    passes (1 conserves but may leave the bounds; 0 runs only the final
+    residual pass, as the JAX kernel does). Returns out
     [qsize*nlev, E16], and with ``fix`` also the slab [nfix, qsize*nlev]."""
     mx, ca, cb = _mix_of("tracer_limit", q, mix)
-    if iters < 1:
-        raise ValueError(f"tracer_limit: iters must be >= 1, got {iters}")
+    if iters < 0:
+        raise ValueError(f"tracer_limit: iters must be >= 0, got {iters}")
     dev = _check("tracer_limit", meta, vu, vv, q, dvv, nlev, wind_rows, mx)
     if dev.type == "cpu":
         return tracer_limit_plain(meta, vu, vv, q, dvv, dt, nlev, mix,

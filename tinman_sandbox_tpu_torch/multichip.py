@@ -38,7 +38,8 @@ import torch
 from .device import resolve_device
 
 __all__ = ["dryrun_multichip", "element_sharded_problem",
-           "element_sharded_tiers", "gloo_worker", "gloo_tier_worker"]
+           "element_sharded_tiers", "gloo_worker", "gloo_tier_worker",
+           "level_problem", "gloo_level_worker"]
 
 NLEV = 8
 TIERS = (1, 2, 3, 4, 5, 6, 7, 8)
@@ -301,6 +302,67 @@ def gloo_tier_worker(rank: int, world: int, init_method: str,
             whole = unshard(mesh, states)
             out[t] = {n: getattr(whole, n)[cfg.np1]
                       for n in ("u", "v", "t", "dp3d")}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def level_problem(nelem: int, nlev: int, rsplit: int, device="cpu",
+                  dtype=torch.float64, seed: int = 15):
+    """The level-sharded CAAR's test problem: (cfg, state, derived, geom,
+    hv): random state (``seed``) and geometry (``seed + 1``), the derived
+    state zero but random accumulators (so that the in-place sums show),
+    analytic hvcoord with a hybi ramp (the analytic hybi is all zeros and
+    would hide the rsplit=0 hybi*sdot term)."""
+    import dataclasses
+
+    from . import (
+        Config, analytic_hvcoord, random_geometry, random_state, zero_derived)
+
+    cfg = Config(nelem=nelem, nlev=nlev, rsplit=rsplit)
+    kw = dict(dtype=dtype, device=device)
+    dv = zero_derived(cfg, **kw)
+    gen = torch.Generator().manual_seed(seed)
+    rand = lambda x: torch.rand(x.shape, generator=gen, dtype=dtype).to(
+        x.device)
+    dv = dataclasses.replace(dv, eta_dot_dpdn=rand(dv.eta_dot_dpdn),
+                             omega_p=rand(dv.omega_p), vn0_u=rand(dv.vn0_u))
+    hv = analytic_hvcoord(cfg, **kw)
+    hv = dataclasses.replace(hv, hybi=torch.linspace(0.0, 1.0, nlev + 1,
+                                                     **kw))
+    return (cfg, random_state(cfg, seed=seed, **kw), dv,
+            random_geometry(cfg, seed=seed + 1, **kw), hv)
+
+
+def gloo_level_worker(rank: int, world: int, init_method: str,
+                      out_dir: str, nelem: int = 4, nlev: int = 8) -> None:
+    """One rank of a CPU ``gloo`` group running the level-axis carries over
+    ``DistMesh``: ``exclusive_prefix`` forward and reverse of a rank-valued
+    tensor, and ``caar_level_sharded`` at rsplit 1 and 0 on
+    ``level_problem``; saves the prefixes and the whole steps' outputs
+    (gathered) to ``out_dir/rank<rank>.pt``."""
+    import os
+
+    import torch.distributed as dist
+
+    from .dist.level_sharded import (
+        caar_level_sharded, shard_levels, unshard_levels)
+    from .dist.sharding import DistMesh, exclusive_prefix
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init_method, rank=rank,
+                            world_size=world)
+    try:
+        mesh = DistMesh()
+        x = [torch.arange(6.0, dtype=torch.float64).reshape(2, 3)
+             + 10.0 * rank]
+        out = {"prefix": exclusive_prefix(mesh, x)[0],
+               "suffix": exclusive_prefix(mesh, x, reverse=True)[0]}
+        for rsplit in (1, 0):
+            cfg, st, dv, geom, hv = level_problem(nelem, nlev, rsplit)
+            ss, ds = shard_levels(mesh, st, dv)
+            got = caar_level_sharded(mesh, ss, ds, geom, hv, cfg, 0.1, 1.0)
+            out[rsplit] = unshard_levels(mesh, *got)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()

@@ -16,6 +16,11 @@ took to finish, not to be enqueued.
         ...
     timers.summary("Timing.dat")
 
+``stage_time(chain, n, device)`` times one stage of a step for the
+breakdown tools (``tools/profile_*.py``): ``chain(n)`` runs n chained calls,
+timed by CUDA events around the chain, replayed from a CUDA graph (the
+device alone) and by the host's time to issue it.
+
 ``trace(logdir, device)`` is a ``torch.profiler`` scope (CPU and, on the
 card, CUDA activities) that writes a Chrome trace to ``trace_path(logdir)``;
 ``busy_share(path)`` reads its device events: the busy time (the union of
@@ -40,7 +45,7 @@ import torch
 from .device import resolve_device
 
 __all__ = ["Timers", "trace", "trace_path", "busy_share", "native_library",
-           "TRACE_WINDOW"]
+           "TRACE_WINDOW", "stage_time", "GRAPH_MEMORY_SHARE", "STAGE_REPS"]
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_REPO, "native", "timing", "tinman_timing.cpp")
@@ -184,6 +189,104 @@ class Timers:
         self._stack.clear()
         self._py.clear()
         self._order.clear()
+
+
+# a chain is captured into a CUDA graph only where the memory one eager run
+# of it took beyond its inputs stays under this share of the free memory
+# (the graph's private pool holds the chain's own tensors once more)
+GRAPH_MEMORY_SHARE = 0.8
+GRAPH_REPLAYS = 2
+# timed runs of a chain, the best kept: the first run of a chain may be the
+# first to allocate its buffers (at ne120 x qsize 35 a 13.9 GB one)
+STAGE_REPS = 2
+
+
+def _graph_ms(chain, n: int, replays: int, dev: torch.device) -> float:
+    """ms a call of ``chain(n)`` captured in a CUDA graph and replayed
+    ``replays`` times, by CUDA events: the device's time without the host's
+    cost of issuing the launches."""
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        chain(n)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        chain(n)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(dev)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize(dev)
+    ms = start.elapsed_time(end) / (replays * n)
+    del graph
+    return ms
+
+
+def stage_time(chain, n: int, device="cuda") -> dict:
+    """Times of one stage. ``chain(n)`` runs ``n`` chained calls of the
+    stage (each call's output the next call's input), from the same start
+    at every run; one call of ``chain(1)`` warms up first (the kernels'
+    build included). Returns, in ms a call:
+
+      * ``ms``: the best of STAGE_REPS runs of ``chain(n)`` timed by CUDA
+        events, with a device sync at the end;
+      * ``graph_ms``: ``chain(n)`` captured in a CUDA graph and replayed
+        GRAPH_REPLAYS times (the device alone); None where the chain's own
+        memory would not fit twice (``graph_note`` says why: the graph's
+        pool holds its tensors beside the eager ones);
+      * ``host_ms``: the host's time to issue the calls of the best run
+        (``time.perf_counter`` before the sync);
+      * ``peak_bytes``: the device memory one eager run took beyond what
+        was allocated before it;
+      * ``clock``: "cuda events" on the card. On the CPU every time is
+        wall-clock (``clock`` "wall", ``ms`` = ``host_ms``, no graph)."""
+    dev = resolve_device(device)
+    if n < 1:
+        raise ValueError(f"stage_time: n must be >= 1, got {n}")
+    chain(1)
+    if dev.type != "cuda":
+        best = float("inf")
+        for _ in range(STAGE_REPS):
+            t0 = time.perf_counter()
+            chain(n)
+            best = min(best, time.perf_counter() - t0)
+        ms = best * 1e3 / n
+        return {"ms": ms, "graph_ms": None, "host_ms": ms, "peak_bytes": None,
+                "clock": "wall", "graph_note": "no CUDA graph on the CPU"}
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    best = best_host = float("inf")
+    for _ in range(STAGE_REPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        start.record()
+        chain(n)
+        end.record()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize(dev)
+        ms = start.elapsed_time(end)
+        if ms < best:
+            best, best_host = ms, host
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    out = {"ms": best / n, "graph_ms": None, "host_ms": best_host * 1e3 / n,
+           "peak_bytes": peak, "clock": "cuda events"}
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0]
+    if peak > GRAPH_MEMORY_SHARE * free:
+        out["graph_note"] = (f"not measured: the chain's {peak} B over "
+                             f"{GRAPH_MEMORY_SHARE} of the {free} B free")
+        return out
+    out["graph_ms"] = _graph_ms(chain, n, GRAPH_REPLAYS, dev)
+    torch.cuda.empty_cache()
+    return out
 
 
 def trace_path(logdir: str) -> str:
