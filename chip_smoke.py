@@ -328,8 +328,34 @@ NVIDIA card and check it, phase by phase:
      1e-12, f32 1e-6; whether bit for bit is printed); every kernel the
      tools time launched (CAAR, sweep, fixup, extract, Laplacian, Euler,
      limited).
+ 29. the CAAR kernels' bf16 storage (``storage="bf16_aux"`` / ``"bf16_ro"``,
+     ``kernels.caar_t.STORAGE``): the plans of the storage instances
+     (cudaOccupancy's blocks an SM beside the f32 instances' and the plan's,
+     nvcc's registers and spills); every CAAR entry (``caar_t4_cuda``
+     stacked, with the slab at ne30, ``caar_packed_t``, the t and row
+     rsplit=0 steps, ``caar_packed``, the ring with and without mix) in
+     each storage at 1024 x 72 and ne30 x 72 (bench and vort cases) and at
+     1024 x 26, 150 and 400 (bench case): bit for bit the same kernel in
+     f32 mode on the bf16 operands upcast, within 5e-5 scaled of its plain
+     version on the same operands, within the JAX tests' envelopes of its
+     f32 run (1e-4, 1.5e-2), the storage launch counters up by the bf16
+     calls only, and a bf16 call allocating its outputs alone (no f32 copy
+     of an operand); each mode's times by events and from CUDA graphs
+     beside its bound, and the bf16_ro chain's cast of the old n0 to the
+     bf16 nm1 slot timed alone. Then, launch counts set to 0 just before and read
+     just after, 10 chained assembled steps at ne30 a storage on the
+     stacked step, the ring and the row step, each step within 5e-5 of the
+     plain step from its own input and the chain against its plain chain
+     (1e-4 scaled in bf16_aux; 1.5e-2 in bf16_ro, whose bf16 rounding of
+     each new nm1 turns an f32 ulp between the chains into a bf16 one),
+     continuity exactly 0 after every step, the ring bit for bit the
+     stacked step, the nm1 slot still bf16 in bf16_ro;
+     ``tools.bench_assembled --ne 30 --nexec 5`` and
+     ``bench --storage`` in f32 and both storages (raw on both layouts,
+     ``--ne 30``, ``--ne 30 --ring``), each line's bytes the f32 count less
+     2 bytes an element of each bf16 field.
 
-Phases 22-28 run after phase 21, before the lines of phase 17.
+Phases 22-29 run after phase 21, before the lines of phase 17.
 
 Any failure raises and exits non-zero before the result line is printed.
 Run from the repository root: ``python3 chip_smoke.py``.
@@ -511,6 +537,18 @@ EQ_MESH = (4, 2)
 EQ_QSIZE = 8
 AXES_TOL = {"float64": 1e-12, "float32": 1e-5}
 EULER_TOL = {"float64": 1e-12, "float32": 1e-6}
+# phase 29: the bf16 storage modes of the CAAR kernels, the JAX tests'
+# envelopes of the f32 path (tests/test_caar_pallas.py:221), the chained
+# assembled steps a storage, and the wrapper whose storage_launches counts
+# each entry
+STORAGE_MODES = ("bf16_aux", "bf16_ro")
+STORAGE_ENVELOPE = {"bf16_aux": 1e-4, "bf16_ro": 1.5e-2}
+STORAGE_STEPS = 10
+STORAGE_WRAPPER = {"t4": "caar_t4_cuda", "t": "caar_t4_cuda",
+                   "t r0": "caar_packed_rsplit0_t", "row": "caar_packed",
+                   "row r0": "caar_packed_rsplit0",
+                   "ring": "caar_ring_packed_t4",
+                   "ring mix": "caar_ring_packed_t4"}
 
 
 def card_line() -> str:
@@ -1011,7 +1049,7 @@ def caar_plan_line(plan, dev) -> str:
 
     nsm = torch.cuda.get_device_properties(dev).multi_processor_count
     occ = _build.library("caar").caar_blocks_per_sm(
-        0, plan.nlev, plan.chunks, int(plan.stash), dev.index)
+        0, plan.nlev, plan.chunks, int(plan.stash), 0, dev.index)
     if occ <= 0:
         raise AssertionError(f"caar occupancy: error {-occ}")
     return (f"tile {plan.tile}, {plan.chunks} chunks of {plan.levels} levels,"
@@ -2368,7 +2406,7 @@ def phase_row_kernels(dev, cs):
     for nlev in (NLEV, *CAAR_OTHER_NLEV):
         p = caar_plan(NE * NE * 6 * 16, nlev, r0=True)
         occ = lib.caar_blocks_per_sm(5 if p.cap else 4, nlev, p.chunks,
-                                     int(p.stash), dev.index)
+                                     int(p.stash), 0, dev.index)
         print(f"phase 13 t rsplit=0 plan nlev {nlev}: {p.chunks} chunks of "
               f"{p.levels} levels, {'stash' if p.stash else 'no stash'}, "
               f"{p.smem} B shared, {p.blocks_per_sm} blocks a SM reckoned, "
@@ -2379,7 +2417,7 @@ def phase_row_kernels(dev, cs):
         for nlev in (NLEV, *CAAR_OTHER_NLEV):
             p = caar_row_plan(NE * NE * 6 * 16, nlev, r0)
             occ = lib.caar_blocks_per_sm(2 + int(r0), nlev, p.chunks,
-                                         int(p.stash), dev.index)
+                                         int(p.stash), 0, dev.index)
             print(f"phase 13 row plan {'rsplit=0' if r0 else 'rsplit>0'} "
                   f"nlev {nlev}: {p.chunks} chunks of {p.levels} levels, "
                   f"{'staged' if p.stash else 'windowed'}, {p.smem} B "
@@ -2941,10 +2979,10 @@ def phase_ring_kernels(dev, cs):
     caar_lib, tr_lib = _build.library("caar"), _build.library("tracer")
     cplan = caar_plan(e16, k)
     occ = {"caar_chunk_kernel": (caar_lib.caar_blocks_per_sm(
-               0, k, cplan.chunks, int(cplan.stash), dev.index),
+               0, k, cplan.chunks, int(cplan.stash), 0, dev.index),
                cplan.blocks),
            "caar_ring_kernel": (caar_lib.caar_blocks_per_sm(
-               1, k, rplan.caar.chunks, int(rplan.caar.stash), dev.index),
+               1, k, rplan.caar.chunks, int(rplan.caar.stash), 0, dev.index),
                rplan.tickets),
            "tracer_kernel (Euler)": (
                tr_lib.tracer_blocks_per_sm(0, dev.index),
@@ -5258,16 +5296,16 @@ def phase_equiv(dev) -> dict:
     return report
 
 
-def run_tool(module, argv) -> list:
+def run_tool(module, argv, phase: int = 28) -> list:
     """``module.main(argv)`` with its printed lines captured; prints each
-    as "phase 28 <tool> <line>" and returns them."""
+    as "phase <phase> <tool> <line>" and returns them."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         module.main(argv)
     name = module.__name__.rsplit(".", 1)[-1]
     lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
     for ln in lines:
-        print(f"phase 28 {name} {' '.join(argv)}: {ln}")
+        print(f"phase {phase} {name} {' '.join(argv)}: {ln}")
     return lines
 
 
@@ -5474,6 +5512,446 @@ def phase_tools(dev) -> dict:
     return reports
 
 
+def storage_modes(fix=None, rsp=None):
+    """Phase 29's CAAR entries on the rsplit=0 t arguments (``r0_cases``):
+    name -> (operands of the arguments, fresh accumulators each call;
+    kernel; plain version; whether the new state is one stacked output).
+    With ``fix`` and ``rsp`` (the ne30 grid) the stacked step takes the
+    slab, and the ring runs with and without mix."""
+    import torch
+
+    from tinman_sandbox_tpu_torch.kernels.caar import (
+        caar_packed, caar_packed_plain, caar_packed_rsplit0,
+        caar_packed_rsplit0_plain)
+    from tinman_sandbox_tpu_torch.kernels.caar_t import (
+        caar_packed_rsplit0_t, caar_packed_rsplit0_t_plain, caar_packed_t,
+        caar_t4_cuda, caar_t4_plain)
+    from tinman_sandbox_tpu_torch.kernels.ring_fused import (
+        caar_ring_packed_t4, caar_ring_plain)
+
+    cl = lambda xs: [x.clone() for x in xs]
+    stacked = lambda a: (a[0], a[2], torch.cat(a[3:7]), torch.cat(a[7:11]),
+                         a[11], a[12], *cl(a[13:16]), a[17])
+
+    def t_plain(*x):
+        """``caar_t4_plain`` in ``caar_packed_t``'s call and output form."""
+        kk = x[10].shape[0]
+        s1, *rest = caar_t4_plain(x[0], x[1], torch.cat(x[2:6]),
+                                  torch.cat(x[6:10]), *x[10:])
+        return (*s1.split(kk), *rest)
+
+    modes = {
+        "t4": (stacked, caar_t4_cuda, caar_t4_plain, True),
+        "t": (lambda a: (a[0], a[2], *a[3:13], *cl(a[13:16]), a[17]),
+              caar_packed_t, t_plain, False),
+        "t r0": (lambda a: (*a[:13], *cl(a[13:17]), a[17]),
+                 caar_packed_rsplit0_t, caar_packed_rsplit0_t_plain, False),
+        "row": (lambda a: row_args(a, hyb=False), caar_packed,
+                caar_packed_plain, False),
+        "row r0": (row_args, caar_packed_rsplit0, caar_packed_rsplit0_plain,
+                   False),
+    }
+    if fix is None:
+        return modes
+    modes["t4"] = (stacked, lambda *x: caar_t4_cuda(*x, fix=fix),
+                   lambda *x: caar_t4_plain(*x, fix=fix), True)
+    for name, mix in (("ring", False), ("ring mix", True)):
+        def build(a, mix=mix):
+            x = stacked(a)
+            # the mix field: a copy of s0 (never an output)
+            return (*x, rsp, fix, (x[2].clone(), 0.25, 0.75) if mix
+                    else None)
+        modes[name] = (build,
+                       lambda *x: caar_ring_packed_t4(*x[:-1], mix=x[-1]),
+                       lambda *x: caar_ring_plain(*x[:-1], mix=x[-1]), True)
+    return modes
+
+
+def storage_args(targs, storage: str):
+    """The rsplit=0 t arguments with the nm1 fields (indices 7-10), qdp and
+    pecnd (11, 12) in ``storage``'s contract (``caar_t.STORAGE``)."""
+    import torch
+
+    bf = {"f32": (), "bf16_aux": (11, 12),
+          "bf16_ro": (7, 8, 9, 10, 11, 12)}[storage]
+    return tuple(x.to(torch.bfloat16) if i in bf else x
+                 for i, x in enumerate(targs))
+
+
+def upcast(args):
+    """Every bf16 tensor of ``args`` as a new f32 tensor (the f32 mode's
+    operands for the bit-for-bit gate)."""
+    import torch
+
+    return tuple(x.float() if isinstance(x, torch.Tensor)
+                 and x.dtype == torch.bfloat16 else x for x in args)
+
+
+def flat_outputs(out):
+    """The tensors of one call's outputs, in order."""
+    import torch
+
+    return [x for x in out if isinstance(x, torch.Tensor)]
+
+
+def call_bytes(args, out) -> int:
+    """Bytes one call must move: each tensor operand read once (the fix
+    tables aside) and each output written once."""
+    import torch
+
+    ins = [x for x in args if isinstance(x, torch.Tensor)]
+    ins += [x[0] for x in args if isinstance(x, tuple)]          # mix field
+    return sum(x.numel() * x.element_size() for x in ins + flat_outputs(out))
+
+
+def storage_counts():
+    """The storage launch counters of the five CAAR wrappers."""
+    from tinman_sandbox_tpu_torch.kernels.caar import (
+        caar_packed, caar_packed_rsplit0)
+    from tinman_sandbox_tpu_torch.kernels.caar_t import (
+        caar_packed_rsplit0_t, caar_t4_cuda)
+    from tinman_sandbox_tpu_torch.kernels.ring_fused import (
+        caar_ring_packed_t4)
+
+    return {w.__name__: w.storage_launches
+            for w in (caar_t4_cuda, caar_packed_rsplit0_t, caar_packed,
+                      caar_packed_rsplit0, caar_ring_packed_t4)}
+
+
+def storage_plans(dev, ncol: int, nlev: int) -> None:
+    """The plans of the storage instances beside the f32 ones: each family's
+    blocks an SM by cudaOccupancy in f32, bf16_aux and bf16_ro against the
+    plan's reckoning (printed; a drop would show here), and nvcc's
+    registers and spills of every storage instance."""
+    from tinman_sandbox_tpu_torch.kernels import _build
+    from tinman_sandbox_tpu_torch.kernels.caar_t import (
+        STORAGE, caar_plan, caar_row_plan)
+    from tinman_sandbox_tpu_torch.kernels.ring_fused import ring_plan
+
+    lib = _build.library("caar")
+    r0 = caar_plan(ncol, nlev, r0=True)
+    fams = {"caar_chunk_kernel": (0, caar_plan(ncol, nlev)),
+            "caar_ring_kernel": (1, ring_plan(ncol, nlev, NE).caar),
+            "caar_row_kernel rsplit>0": (2, caar_row_plan(ncol, nlev)),
+            "caar_row_kernel rsplit=0": (3, caar_row_plan(ncol, nlev, True)),
+            "caar_r0_kernel": (5 if r0.cap else 4, r0)}
+    for fam, (fused, p) in fams.items():
+        occ = {s: lib.caar_blocks_per_sm(fused, nlev, p.chunks, int(p.stash),
+                                         code, dev.index)
+               for s, code in STORAGE.items()}
+        if min(occ.values()) <= 0:
+            raise AssertionError(f"{fam} occupancy: {occ}")
+        note = "" if len(set(occ.values())) == 1 else " (CHANGED by storage)"
+        print(f"phase 29 plan {fam} ncol {ncol} x {nlev}: {p.chunks} chunks, "
+              f"{'stash' if p.stash else 'no stash'}, {p.smem} B shared, "
+              f"{p.blocks_per_sm} blocks a SM reckoned; cudaOccupancy "
+              + ", ".join(f"{s} {n}" for s, n in occ.items()) + note)
+    for tag in ("caar_chunk_kernel", "caar_row_kernel", "caar_r0_kernel",
+                "caar_ring_kernel"):
+        for inst, report in ptxas_report("caar", tag):
+            if inst.endswith(("Li1EE", "Li2EE")):
+                print(f"phase 29 ptxas {tag}{inst}: {report}")
+
+
+def phase_storage_kernels(dev, cs) -> dict:
+    """Phase 29: the CAAR kernels' bf16 storage (``storage="bf16_aux"`` /
+    ``"bf16_ro"``). Every entry (the t pair step stacked and unstacked, with
+    the slab at ne30, t rsplit=0, row at both rsplits, the ring with and
+    without mix) in each storage, in the bench and vort cases at 1024 x 72
+    and ne30 x 72 and at 1024 x CAAR_OTHER_NLEV (bench case): bit for bit
+    the same kernel in f32 mode on the bf16 operands upcast, within CAAR_TOL
+    of its plain version on the same operands, and (bench case) within the
+    JAX tests' envelopes of its f32 run; the storage launch counters rise by
+    the bf16 launches only; a bf16 call allocates its outputs alone (no f32
+    copy of an operand); the times of each mode by events and from CUDA
+    graphs beside their bounds, and the bf16_ro chain's rotation cast
+    alone. Returns extra keys for the kernel rows."""
+    import torch
+
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.kernels.dss import fix_tables
+
+    problems = []
+    for nlev in (NLEV, *CAAR_OTHER_NLEV):
+        const, acc = bench.make_problem(1024, nlev, dev, seed=7)
+        problems.append((f"1024x{nlev}", const, acc, storage_modes(),
+                         nlev == NLEV))
+    (scal, meta, qdp, pecnd, dvv), (s0, sm1), acc, plan, rsp = \
+        bench.make_assembled_problem(cs.ne, NLEV, dev, cs=cs)
+    fix = fix_tables(plan, dev)
+    problems.append((f"ne{cs.ne}x{NLEV}", (scal, meta, s0, sm1, qdp, pecnd,
+                                           dvv), acc,
+                     storage_modes(fix, rsp), True))
+    storage_plans(dev, NE * NE * 6 * 16, NLEV)
+    rows = {}
+    counts0, expect = storage_counts(), {w: 0 for w in storage_counts()}
+    for tag, const, acc, modes, main in problems:
+        cases = [(n, a) for n, a in r0_cases(const, acc)
+                 if n == "bench" or (main and n == "vort")]
+        for case, targs in cases:
+            k = targs[11].shape[0]
+            for name, (build, kern, plain, stacked) in modes.items():
+                for storage in STORAGE_MODES:
+                    args = build(storage_args(targs, storage))
+                    got = flat_outputs(kern(*args))
+                    expect[STORAGE_WRAPPER[name]] += 1
+                    up = flat_outputs(kern(*upcast(build(
+                        storage_args(targs, storage)))))
+                    want = flat_outputs(plain(*build(storage_args(
+                        targs, storage))))
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(g, u) for g, u in zip(got, up))
+                    errs = [scaled_err(g, w) for g, w in zip(got, want)]
+                    if not same or len(got) != len(up) or \
+                            max(errs) > CAAR_TOL or \
+                            any(g.dtype != torch.float32 for g in got) or \
+                            not all(bool(torch.isfinite(g).all())
+                                    for g in got):
+                        raise AssertionError(
+                            f"phase 29 {name} {tag} {case} {storage}: bits "
+                            f"{same}, plain {errs}")
+                    env = ""
+                    if case == "bench":
+                        f32 = flat_outputs(kern(*build(targs)))
+                        new = (lambda o: o[0].split(k)) if stacked \
+                            else (lambda o: o[:4])
+                        envs = [scaled_err(a, b) for a, b in
+                                zip(new(got), new(f32))]
+                        if max(envs) > STORAGE_ENVELOPE[storage]:
+                            raise AssertionError(
+                                f"phase 29 {name} {tag} {storage}: "
+                                f"{envs} of f32 > "
+                                f"{STORAGE_ENVELOPE[storage]}")
+                        env = f"; of f32 {max(envs):.3e}"
+                    print(f"phase 29 {name} {tag} {case} {storage}: bit for "
+                          f"bit the f32 mode on the upcast operands; plain "
+                          f"{max(errs):.3e}{env}")
+    counts = storage_counts()
+    got = {w: counts[w] - counts0[w] for w in counts}
+    if got != expect:
+        raise AssertionError(f"phase 29 storage launches {got} != the bf16 "
+                             f"calls {expect}")
+    print(f"phase 29 storage launches (bf16 calls only): {json.dumps(got)}")
+
+    # a bf16 call allocates its outputs and nothing else: no f32 copy of an
+    # operand (6 fields would be 149 MB at ne30)
+    _, const, acc, modes, _ = problems[-1]
+    targs = dict(r0_cases(const, acc))["bench"]
+    for name in ("t4", "row", "ring"):
+        build, kern, _, _ = modes[name]
+        args = build(storage_args(targs, "bf16_ro"))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = flat_outputs(kern(*args))
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        outs = sum(x.numel() * x.element_size() for x in out
+                   if not any(x is a for a in args))
+        # the ring's scratch s1 (w's size) and launch state, and rounding
+        slack = (out[0].numel() * 4 if name == "ring" else 0) + (2 << 20)
+        if extra > outs + slack:
+            raise AssertionError(f"phase 29 {name} bf16_ro: {extra} B "
+                                 f"allocated for {outs} B of outputs")
+        print(f"phase 29 {name} ne{cs.ne} bf16_ro: {extra} B allocated in "
+              f"the call for {outs} B of new outputs (the ring's scratch s1 "
+              "and launch state beside them): no f32 copy of an operand")
+
+    # times of each mode beside its bound (bench case)
+    card = card_line()
+    for tag, const, acc, modes, main in problems:
+        if not main:
+            continue
+        targs = dict(r0_cases(const, acc))["bench"]
+        for name, (build, kern, _, _) in modes.items():
+            line = {}
+            for storage in ("f32", *STORAGE_MODES):
+                args = build(storage_args(targs, storage))
+                fn = lambda: kern(*args)
+                nbytes = call_bytes(args, fn())
+                line[storage] = dict(
+                    ms=cuda_ms(fn, 50), graph_ms=graph_ms(fn, 50),
+                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, mb=nbytes / 1e6)
+            print(f"phase 29 times {name} {tag} ({card}): " + "; ".join(
+                f"{s} {v['ms']:.4f} ms (graph {v['graph_ms']:.4f}) bound "
+                f"{v['bound_ms']:.4f} ({v['mb']:.2f} MB)"
+                for s, v in line.items()))
+            rows.setdefault(STORAGE_WRAPPER[name], {}).setdefault(
+                "storage_ms", {})[f"{name} {tag}"] = line
+    # the assembled chain's rotation in bf16_ro casts the old n0 (f32) to
+    # the bf16 nm1 slot (bench.run_assembled, the JAX bench's cast): a
+    # plain PyTorch op timed with the step, alone here
+    s0 = torch.cat(targs[3:7])
+    cast = lambda: s0.to(torch.bfloat16)
+    nbytes = s0.numel() * (4 + 2)
+    print(f"phase 29 times the bf16_ro rotation's cast of the "
+          f"[{s0.shape[0]}, {s0.shape[1]}] n0 state ({card}): "
+          f"{cuda_ms(cast, 50):.4f} ms (graph {graph_ms(cast, 50):.4f}) "
+          f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ({nbytes / 1e6:.2f} "
+          "MB)")
+    return rows
+
+
+def storage_row_plain(scal, meta, u0, v0, t0, dp0, um1, vm1, tm1, dpm1, qdp,
+                      pecnd, vn0u, vn0v, omg, dvv, plan, rsp):
+    """``dist.caar_dss_structured_packed`` from the plain row step: the row
+    CAAR step's plain version, then the same plain structured DSS of the
+    four fields stacked [E16, 4*nlev]."""
+    import torch
+
+    from tinman_sandbox_tpu_torch.dist import dss_structured_scaled
+    from tinman_sandbox_tpu_torch.kernels.caar import caar_packed_plain
+
+    o = caar_packed_plain(scal, meta, u0, v0, t0, dp0, um1, vm1, tm1, dpm1,
+                          qdp, pecnd, vn0u, vn0v, omg, dvv)
+    nlev = qdp.shape[1]
+    a = dss_structured_scaled(torch.cat(o[:4], dim=1), plan, rsp)
+    return tuple(a[:, i * nlev:(i + 1) * nlev].contiguous()
+                 for i in range(4)) + tuple(o[4:])
+
+
+def phase_storage_path(dev, cs) -> dict:
+    """Phase 29's main path in each bf16 storage, launch counts set to 0
+    just before and read just after (by ``main``): STORAGE_STEPS chained
+    assembled steps at ne30 x 72 (``bench.run_assembled``: the stacked
+    step, the ring and the row step; the nm1 slot cast back to bf16 in
+    bf16_ro), each step against the plain step from its own input
+    (CAAR_TOL) and the chain against the same chain on the plain versions
+    (LEAPFROG_TOL in bf16_aux, the bf16_ro envelope in bf16_ro: see the
+    note in the code), finite, the ring's chain bit for bit the stacked
+    step's, continuity exactly 0 after every step's DSS;
+    ``tools.bench_assembled --ne 30 --nexec 5``; and ``bench --storage``
+    (f32, bf16_aux, bf16_ro) raw at 1024 x 72 on both layouts, ``--ne 30``
+    and ``--ne 30 --ring``, each line's bytes the f32 count less 2 bytes
+    an element of each bf16 field. Returns the bench lines by run."""
+    import torch
+
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.dist import (
+        caar_dss_ring_t4, caar_dss_ring_t4_plain,
+        caar_dss_structured_packed_t4_plain, continuity_error_t)
+    from tinman_sandbox_tpu_torch.tools import bench_assembled
+
+    for storage in STORAGE_MODES:
+        # the chain against its plain chain: in bf16_aux the bf16 operands
+        # are the same every step, so the two part by f32 rounding alone
+        # (LEAPFROG_TOL); in bf16_ro each step's n0 is rounded to bf16 as
+        # the next nm1, and two n0 an f32 ulp apart can round a bf16 ulp
+        # (2^-8) apart, so the chains part by bf16 rounding: held to the
+        # JAX tests' envelope of what bf16_ro does to the state. Each step
+        # is also held at CAAR_TOL against the plain step from its own
+        # input, and the ring's chain bit for bit the stacked step's.
+        chain_tol = (LEAPFROG_TOL if storage == "bf16_aux"
+                     else STORAGE_ENVELOPE[storage])
+        finals = {}
+        for label, layout, step, plain in (
+                ("structured", "t", None,
+                 caar_dss_structured_packed_t4_plain),
+                ("ring", "t", caar_dss_ring_t4, caar_dss_ring_t4_plain),
+                ("row", "row", None, storage_row_plain)):
+            const, levels, acc, plan, rsp = bench.make_assembled_problem(
+                cs.ne, NLEV, dev, layout=layout, cs=cs, storage=storage)
+            flat = (lambda lv: (*lv[0], *lv[1])) if layout == "row" \
+                else (lambda lv: lv)
+            kl, ka = levels, [a.clone() for a in acc]
+            worst = 0.0
+            t0 = time.perf_counter()
+            for i in range(STORAGE_STEPS):
+                start = (kl, [a.clone() for a in ka])
+                kl, ka, kphi = bench.run_assembled(const, kl, ka, plan, rsp,
+                                                   1, step=step,
+                                                   layout=layout)
+                sl, sa, sphi = bench.run_assembled(const, *start, plan, rsp,
+                                                   1, step=plain,
+                                                   layout=layout)
+                worst = max([worst] + [
+                    scaled_err(a.float(), b.float()) for a, b in zip(
+                        (*flat(kl), kphi, *ka), (*flat(sl), sphi, *sa))])
+                cont = (continuity_error_t(kl[0], cs.gdof) if layout == "t"
+                        else max(continuity_error_t(x.T.contiguous(),
+                                                    cs.gdof)
+                                 for x in kl[0]))
+                if cont != 0.0 or worst > CAAR_TOL:
+                    raise AssertionError(f"phase 29 {label} {storage} step "
+                                         f"{i + 1}: continuity {cont}, "
+                                         f"vs plain {worst} (> {CAAR_TOL})")
+                del start, sl, sa, sphi
+            torch.cuda.synchronize()
+            k_s = time.perf_counter() - t0
+            pl, pa, pphi = bench.run_assembled(
+                const, levels, [a.clone() for a in acc], plan, rsp,
+                STORAGE_STEPS, step=plain, layout=layout)
+            nm1 = kl[1] if layout == "t" else kl[1][0]
+            if (nm1.dtype == torch.bfloat16) != (storage == "bf16_ro"):
+                raise AssertionError(f"phase 29 {label} {storage}: the nm1 "
+                                     f"slot is {nm1.dtype}")
+            errs = {f"lev{i}": scaled_err(a.float(), b.float())
+                    for i, (a, b) in enumerate(zip(flat(kl), flat(pl)))}
+            errs.update({n: scaled_err(a, b) for n, a, b in zip(
+                ("phi", "vn0u", "vn0v", "omg"), (kphi, *ka), (pphi, *pa))})
+            for x in (*flat(kl), kphi, *ka):
+                if not bool(torch.isfinite(x).all()):
+                    raise AssertionError(f"phase 29 {label} {storage}: "
+                                         "non-finite")
+            if max(errs.values()) > chain_tol:
+                raise AssertionError(f"phase 29 {label} {storage} chain: "
+                                     f"{errs} > {chain_tol}")
+            finals[label] = (*flat(kl), kphi, *ka)
+            same = ""
+            if label == "ring":
+                if not all(torch.equal(a, b) for a, b in
+                           zip(finals["ring"], finals["structured"])):
+                    raise AssertionError(f"phase 29 ring {storage}: not the "
+                                         "stacked step's chain bit for bit")
+                same = "; bit for bit the stacked step's chain"
+            print(f"phase 29 {label} chain ne{cs.ne}x{NLEV} {storage} "
+                  f"x{STORAGE_STEPS} (kernels {k_s:.3f} s): continuity 0 "
+                  f"after every step; each step vs plain from its input "
+                  f"{worst:.2e} (gate {CAAR_TOL}); the chain vs the plain "
+                  f"chain {max(errs.values()):.2e} (gate {chain_tol}); nm1 "
+                  f"slot {nm1.dtype}{same}")
+            del const, levels, acc, kl, ka, pl, pa
+        del finals
+    lines = run_tool(bench_assembled, ["--ne", str(cs.ne), "--nlev",
+                                       str(NLEV), "--nexec", "5"], phase=29)
+    sweep = json.loads(lines[-1])["sweep"]
+    for name in bench_assembled.VARIANTS:
+        if not sweep[name]["us_per_step"] > 0 or not sweep[name]["card"]:
+            raise AssertionError(f"bench_assembled {name}: {sweep[name]}")
+    for name in bench_assembled.NOT_APPLICABLE:
+        if not str(sweep[name]).startswith("not applicable"):
+            raise AssertionError(f"bench_assembled {name}: {sweep[name]}")
+    torch.cuda.empty_cache()
+    results = {}
+    for label, argv in (
+            ("raw", ["--nelem", "1024", "--nexec", "500"]),
+            ("raw row", ["--nelem", "1024", "--nexec", "500", "--layout",
+                         "row"]),
+            ("ne30", ["--ne", str(cs.ne), "--nexec", "300"]),
+            ("ne30 ring", ["--ne", str(cs.ne), "--nexec", "300", "--ring"])):
+        # the lanes of a field: E16
+        n = 16 * (int(argv[1]) if argv[0] == "--nelem" else 6 * cs.ne ** 2)
+        for storage in ("f32", *STORAGE_MODES):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                res = bench.main(argv + ["--nlev", str(NLEV), "--reps", "2",
+                                         "--storage", storage])
+            print(f"phase 29 bench {label} --storage {storage} "
+                  + buf.getvalue().strip())
+            f32 = results.get((label, "f32"), res)["bytes_per_step"]
+            saved = bench.BF16_FIELDS[storage] * 2 * n * NLEV
+            if res["storage"] != storage or \
+                    res["bytes_per_step"] != f32 - saved or \
+                    (res["storage_launches"] > 0) != (storage != "f32"):
+                raise AssertionError(f"bench {label} {storage}: {res}")
+            results[(label, storage)] = res
+    for label in ("raw", "raw row", "ne30", "ne30 ring"):
+        print(f"phase 29 bench {label} us/step: " + ", ".join(
+            f"{s} {results[(label, s)]['us_per_step']:.2f}"
+            for s in ("f32", *STORAGE_MODES)))
+    return results
+
+
 def main() -> int:
     try:
         import torch
@@ -5567,6 +6045,8 @@ def main() -> int:
     def reset():
         for w in wrappers.values():
             w.launches = 0
+        for name in storage_counts():
+            wrappers[name].storage_launches = 0
         remap_packed_cuda.f64_launches = remap_levels_cuda.f64_launches = 0
         caar_t4_cuda.slab_launches = 0
         caar_t4_cuda.single_launches = 0
@@ -5679,6 +6159,15 @@ def main() -> int:
     phase_tools(dev)
     tools = counts()
     print(f"phase 28 seconds: {time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for name, extra in phase_storage_kernels(dev, cs).items():
+        rows.setdefault(name, {}).update(extra)
+    torch.cuda.empty_cache()
+    reset()
+    storage_res = phase_storage_path(dev, cs)
+    stored, stored_bf16 = counts(), storage_counts()
+    print(f"phase 29 seconds: {time.perf_counter() - t0:.1f}")
     for label, res, got in (("raw", raw_res, raw), ("assembled", asm_res,
                                                      asm),
                             ("dynamics", dyn_res, dyn),
@@ -5846,6 +6335,21 @@ def main() -> int:
         if tools[name] <= 0:
             raise AssertionError(f"{name} was not launched on phase 28's "
                                  "path")
+    print(f"phase 29 storage main-path launches: {json.dumps(stored)}; in a "
+          f"bf16 storage: {json.dumps(stored_bf16)}; bench --ne {NE} "
+          "us/step f32 / bf16_aux / bf16_ro: " + " / ".join(
+              f"{storage_res[('ne30', s)]['us_per_step']:.2f}"
+              for s in ("f32", *STORAGE_MODES)))
+    for name in ("caar_t4_cuda", "caar_ring_packed_t4", "caar_packed",
+                 "dss_fixup_cuda", "dss_sweep_cuda", "dss_merge_patch_cuda"):
+        if stored[name] <= 0:
+            raise AssertionError(f"{name} was not launched on phase 29's "
+                                 "path")
+    for name in ("caar_t4_cuda", "caar_ring_packed_t4", "caar_packed"):
+        if stored_bf16[name] <= 0:
+            raise AssertionError(f"{name} was not launched in a bf16 storage "
+                                 "on phase 29's path")
+        rows[name]["storage_launches"] = stored_bf16[name]
     if row_asm_res["kernel_launches"]["caar_packed"] <= 0:
         raise AssertionError("bench --layout row --ne: no row CAAR launch")
     if single_launches <= 0:
@@ -5866,7 +6370,8 @@ def main() -> int:
             "launches": raw[name] + asm[name] + dyn[name] + prim[name]
             + row[name] + ring[name] + multi[name] + probe[name]
             + cadence[name] + tiers[name] + big[name] + traced[name]
-            + swept[name] + longs[name] + equiv[name] + tools[name],
+            + swept[name] + longs[name] + equiv[name] + tools[name]
+            + stored[name],
             "max_abs_err": r.pop("max_abs_err"), "ms": r.pop("ms"),
             "plain_ms": r.pop("plain_ms"), "bound_ms": r.pop("bound_ms"),
             "bound_by": r.pop("bound_by"), "library_ms": r.pop("library_ms"),

@@ -7,10 +7,10 @@ not part of the port: the port keeps one plan per kernel, and this script is
 how the hypotheses about them were tested.
 
     python3 experiments/kernel_variants.py [sweep] [caar] [fixup] [remap]
-        [tracer] [row] [ring] [banded] [tracer_ring] [rsplit0]
+        [tracer] [row] [ring] [banded] [tracer_ring] [rsplit0] [storage]
         [remap_parent]
 
-from the repository root: the named groups (default all ten), in that
+from the repository root: the named groups (default all eleven), in that
 order.
 
   1. the sweep: the port's kernel (``dss_sweep_cuda``: one row a thread, 40
@@ -120,7 +120,19 @@ order.
      the stash; each held per field within 5e-5 of the plain version in f64
      and bit for bit the row rsplit=0 kernel on the transposed problem,
      timed from CUDA graphs beside the row kernel and the t pair form, with
-     ptxas's registers of each instance.
+     ptxas's registers of each instance;
+ 11. the row CAAR kernel's bf16 storage (``caar_packed`` and
+     ``caar_packed_rsplit0`` with bf16 qdp and pecnd, and with bf16 nm1
+     fields too: ``kernels.caar_t.STORAGE``) at 1024 x 72 and ne30 x 72 on
+     the bench case of ``chip_smoke.r0_cases``: ``csrc/caar.cu`` built as
+     the port builds it and with ``CAAR_ROW_SYNC_AUX`` (``STORAGE_BUILDS``:
+     its f32 mode staging f32 qdp and pecnd by plain loads before pass 1,
+     as the bf16 modes stage theirs, in place of the cp.async groups that
+     overlap passes 1 and 2), built in parallel. Each build in f32,
+     bf16_aux and bf16_ro, held bit for bit against the port's build and,
+     in a bf16 mode, against the f32 mode on the operands upcast, timed
+     from CUDA graphs, with ptxas's registers of the row kernel's storage
+     instances.
 
 Every line is one JSON object and names the card and its power limit.
 Without a card the script raises.
@@ -1051,7 +1063,7 @@ def ring(dev, card, fix, assembled, rsp):
                         stash=plan.caar.stash, halo=plan.geo.halo,
                         blocks=plan.tickets,
                         blocks_per_sm=so.caar_blocks_per_sm(
-                            1, k, plan.caar.chunks, int(plan.caar.stash),
+                            1, k, plan.caar.chunks, int(plan.caar.stash), 0,
                             dev.index),
                         registers=regs)
             for mode, m in modes.items():
@@ -1362,6 +1374,70 @@ def rsplit0(dev, card):
         caar_t.caar_plan = port_plan
 
 
+# builds of csrc/caar.cu for the row kernel's bf16 staging: (name, nvcc
+# flags), the port's first
+STORAGE_BUILDS = (("port", []), ("sync_f32", ["-DCAAR_ROW_SYNC_AUX=1"]))
+
+
+def storage(dev, card):
+    from chip_smoke import (STORAGE_MODES, r0_cases, row_modes, storage_args,
+                            upcast)
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.kernels import _build
+
+    libs = _caar_libraries(STORAGE_BUILDS, "storage", "caar_row_kernel")
+    for name, (_, regs) in libs.items():
+        print(json.dumps(dict(card=card, kernel="caar_row", build=name,
+                              registers=regs)),
+              flush=True)
+    modes = {n: m for n, m in row_modes().items()
+             if n != "caar_packed_rsplit0_t"}
+    port_library = _build.library
+    problems = (("1024x72", lambda: bench.make_problem(1024, 72, dev,
+                                                       seed=7)),
+                ("ne30x72", lambda: _assembled_const(dev)))
+    try:
+        for tag, make in problems:
+            const, acc = make()
+            targs = dict(r0_cases(const, acc))["bench"]
+            for mode, (kern, _, conv, names) in modes.items():
+                nacc = 4 if len(names) == 9 else 3
+                for st in ("f32", *STORAGE_MODES):
+                    args = conv(storage_args(targs, st))
+                    first = None
+                    for name, (so, _) in libs.items():
+                        _build.library = (lambda n, so=so: so if n == "caar"
+                                          else port_library(n))
+                        run = lambda a: kern(*a[:-1 - nacc], *(
+                            x.clone() for x in a[-1 - nacc:-1]), a[-1])
+                        got = run(args)
+                        up = run(upcast(args))
+                        torch.cuda.synchronize()
+                        first = first or tuple(g.clone() for g in got)
+                        bits = all(torch.equal(g, f)
+                                   for g, f in zip(got, first))
+                        bits_up = all(torch.equal(g, u)
+                                      for g, u in zip(got, up))
+                        if not (bits and bits_up):
+                            raise AssertionError(
+                                f"storage {name} {mode} {tag} {st}: port "
+                                f"bits {bits}, upcast bits {bits_up}")
+                        kacc = [x.clone() for x in args[-1 - nacc:-1]]
+                        print(json.dumps(dict(
+                            card=card, kernel=mode, build=name, shape=tag,
+                            storage=st, bitwise_port_build=bits,
+                            bitwise_f32_on_upcast=bits_up,
+                            graph_ms=graph_ms(lambda: kern(
+                                *args[:-1 - nacc], *kacc, args[-1]), 20))),
+                            flush=True)
+                        del got, up
+                    _build.library = port_library
+            del const, acc, targs
+            torch.cuda.empty_cache()
+    finally:
+        _build.library = port_library
+
+
 def _assembled_const(dev):
     """The ne30 x 72 assembled bench problem in ``bench.make_problem``'s
     form: (const, acc)."""
@@ -1374,7 +1450,7 @@ def _assembled_const(dev):
 
 def main(argv=None) -> int:
     every = ["sweep", "caar", "fixup", "remap", "tracer", "row", "ring",
-             "banded", "tracer_ring", "rsplit0"]
+             "banded", "tracer_ring", "rsplit0", "storage"]
     extra = ["remap_parent"]
     groups = (argv if argv is not None else sys.argv[1:]) or every
     if set(groups) - set(every) - set(extra):
@@ -1414,6 +1490,8 @@ def main(argv=None) -> int:
         tracer_ring(dev, card, fix, rsp)
     if "rsplit0" in groups:
         rsplit0(dev, card)
+    if "storage" in groups:
+        storage(dev, card)
     return 0
 
 

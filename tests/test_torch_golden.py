@@ -53,7 +53,8 @@ def test_torch_package_imports_no_jax():
                  "cli.py", "bench.py", "profiling.py",
                  "tools/profile_prim.py", "tools/profile_dss.py",
                  "tools/profile_limiter.py", "tools/profile_dss_ne120.py",
-                 "dist/sharding.py", "dist/level_sharded.py"):
+                 "dist/sharding.py", "dist/level_sharded.py",
+                 "tools/bench_assembled.py"):
         assert os.path.join("tinman_sandbox_tpu_torch", name) in held
     for path in files:
         with open(path) as f:

@@ -4,6 +4,8 @@ modes of the repository's ``bench.py``).
     python -m tinman_sandbox_tpu_torch.bench [--nelem 1024] [--nlev 72]
     python -m tinman_sandbox_tpu_torch.bench --ne 30 [--nlev 72] [--ring]
     python -m tinman_sandbox_tpu_torch.bench --layout row [--ne 30]
+    python -m tinman_sandbox_tpu_torch.bench --storage bf16_ro [--ne 30] \
+        [--ring | --layout row]
     python -m tinman_sandbox_tpu_torch.bench --ne 30 --rk [--hypervis-nu 1e15]
     python -m tinman_sandbox_tpu_torch.bench --ne 30 --prim \
         [--hypervis-nu 1e15] [--qsize Q] [--limit] [--qsplit S]
@@ -71,9 +73,20 @@ problem on the card (``kernels.caar_t.random_packed_problem_t``, with the
 cubed sphere's metric rows in the assembled mode) in place of the host numpy
 state, which at ne120 would be ~2.4 GB of f64 a time-levelled field before
 packing; every JSON line says ``init`` ("device" or "host"). This direct
-path is the t layout in f32 only: ``--layout row`` there raises. ``--rk``
+path is the t layout only: ``--layout row`` there raises. ``--rk``
 and ``--prim`` start from the assembled problem, so they draw it on the card
 at those sizes too.
+
+``--storage {f32,bf16_aux,bf16_ro}`` (the root bench's flag) stores the CAAR
+kernel's read-only operands in bf16: qdp and pecnd, with "bf16_ro" also the
+four nm1 fields (``kernels.caar_t.STORAGE``; the kernel upcasts them, compute
+and outputs stay f32), in the raw and the assembled modes of both layouts
+and the ring. The direct-packed problem is drawn in f32 and cast after the
+draw, as the root bench does; in the assembled chain the old n0 (f32)
+becomes the nm1 slot cast to its storage dtype, a cast timed with the step.
+``bytes_per_step`` counts each bf16 field at 2 bytes (``BF16_FIELDS``).
+``--rk`` and ``--prim`` take f32 only (their stage kernel's bf16 operands
+are ROADMAP A6). Every JSON line says ``storage``.
 """
 from __future__ import annotations
 
@@ -89,11 +102,14 @@ __all__ = ["card_name_and_power", "bytes_per_step", "make_problem",
            "run_assembled", "ring_bytes_per_step", "dynamics_bytes_per_step",
            "make_dynamics_problem", "run_dynamics", "prim_bytes_per_step",
            "make_prim_problem", "run_prim", "main", "DIRECT_NELEM",
-           "direct_init"]
+           "direct_init", "BF16_FIELDS"]
 
 # from this element count on the raw and assembled problems are drawn on the
 # card (the JAX bench's direct-packed threshold)
 DIRECT_NELEM = 16384
+# the [nlev, E16] fields a storage mode keeps in bf16 (the root bench's
+# n_bf16, bench.py:652-662): qdp and pecnd, and the four nm1 fields
+BF16_FIELDS = {"f32": 0, "bf16_aux": 2, "bf16_ro": 6}
 
 
 def direct_init(nelem: int, layout: str = "t") -> bool:
@@ -122,10 +138,19 @@ def card_name_and_power():
     return out.strip().splitlines()[0] if out.strip() else None
 
 
-def bytes_per_step(nelem: int, nlev: int, itemsize: int = 4) -> int:
+def _bf16_saving(e16: int, nlev: int, itemsize: int, storage: str) -> int:
+    """The bytes a step saves on the fields that ``storage`` reads as bf16
+    (2 bytes an element in place of ``itemsize``)."""
+    return BF16_FIELDS[storage] * (itemsize - 2) * e16 * nlev
+
+
+def bytes_per_step(nelem: int, nlev: int, itemsize: int = 4,
+                   storage: str = "f32") -> int:
     """Minimum device-memory traffic of one step in the root bench's count:
-    21 [nlev, E16] fields (13 read, 8 written), meta ignored."""
-    return 21 * itemsize * nelem * 16 * nlev
+    21 [nlev, E16] fields (13 read, 8 written), meta ignored; the bf16
+    fields of ``storage`` at 2 bytes."""
+    return 21 * itemsize * nelem * 16 * nlev \
+        - _bf16_saving(nelem * 16, nlev, itemsize, storage)
 
 
 _N0 = ("u0", "v0", "t0", "dp0")
@@ -133,7 +158,7 @@ _NM1 = ("um1", "vm1", "tm1", "dpm1")
 
 
 def make_problem(nelem: int, nlev: int, device, seed: int = 7,
-                 layout: str = "t"):
+                 layout: str = "t", storage: str = "f32"):
     """The bench problem packed for ``caar_t4_cuda`` (``layout`` "t") or
     ``caar_packed`` ("row"): random state (``seed``), zero accumulators,
     random geometry (``seed + 1``), analytic hvcoord, dt2 = 0.1,
@@ -142,7 +167,7 @@ def make_problem(nelem: int, nlev: int, device, seed: int = 7,
     (const, acc): const = (scal, meta, s0, sm1, qdp, pecnd, dvv) with s0 and
     sm1 stacked [4*nlev, E16] on "t", and (scal, meta, u0, v0, t0, dp0,
     um1, vm1, tm1, dpm1, qdp, pecnd, dvv) of [E16, nlev] fields on
-    "row"."""
+    "row"; qdp, pecnd and the nm1 fields in ``storage``'s contract."""
     from . import (Config, analytic_hvcoord, random_geometry, random_state,
                    zero_derived)
     from .kernels.caar import pack_problem
@@ -155,7 +180,7 @@ def make_problem(nelem: int, nlev: int, device, seed: int = 7,
     scal = _scalars(0.1, 1.0, hv, torch.float32, device)
     acc_names = ("vn0u", "vn0v", "omg")
     if direct_init(nelem, layout):
-        p = random_packed_problem_t(cfg, seed, device=device)
+        p = random_packed_problem_t(cfg, seed, device=device, storage=storage)
         const = (scal, p["meta"], torch.cat([p.pop(n) for n in _N0]),
                  torch.cat([p.pop(n) for n in _NM1]), p["qdp"], p["pecnd"],
                  p["dvv"])
@@ -163,11 +188,11 @@ def make_problem(nelem: int, nlev: int, device, seed: int = 7,
     state, derived = random_state(cfg, seed=seed, **kw), zero_derived(cfg, **kw)
     geom = random_geometry(cfg, seed=seed + 1, **kw)
     if layout == "row":
-        p = pack_problem(state, derived, geom, hv, cfg)
+        p = pack_problem(state, derived, geom, hv, cfg, storage=storage)
         const = (scal, p["meta"], *(p[n] for n in _N0 + _NM1), p["qdp"],
                  p["pecnd"], p["dvv"])
         return const, tuple(p[n] for n in acc_names)
-    p = pack_problem_t(state, derived, geom, hv, cfg)
+    p = pack_problem_t(state, derived, geom, hv, cfg, storage=storage)
     s0 = torch.cat([p[n] for n in _N0])
     sm1 = torch.cat([p[n] for n in _NM1])
     const = (scal, p["meta"], s0, sm1, p["qdp"], p["pecnd"], p["dvv"])
@@ -190,31 +215,37 @@ def run_steps(const, acc, nsteps: int, layout: str = "t"):
 
 
 def assembled_bytes_per_step(ne: int, nlev: int, nfix: int,
-                             itemsize: int = 4, layout: str = "t") -> int:
+                             itemsize: int = 4, layout: str = "t",
+                             storage: str = "f32") -> int:
     """Device-memory traffic of one assembled step, meta ignored: 21 CAAR
     rows and 8 DSS rows of nlev levels over E16 lanes, and on the t layout
     2 rspheremp rows and the [nfix, 4*nlev] slab written once and read once;
-    on the row layout 1 rspheremp column and no slab."""
+    on the row layout 1 rspheremp column and no slab; the bf16 rows of
+    ``storage`` at 2 bytes."""
     e16 = 6 * ne * ne * 16
+    saving = _bf16_saving(e16, nlev, itemsize, storage)
     if layout == "row":
-        return ((21 + 8) * nlev + 1) * e16 * itemsize
-    return (((21 + 8) * nlev + 2) * e16 + 2 * nfix * 4 * nlev) * itemsize
+        return ((21 + 8) * nlev + 1) * e16 * itemsize - saving
+    return (((21 + 8) * nlev + 2) * e16 + 2 * nfix * 4 * nlev) * itemsize \
+        - saving
 
 
 def ring_bytes_per_step(ne: int, nlev: int, nfix: int,
-                        itemsize: int = 4) -> int:
+                        itemsize: int = 4, storage: str = "f32") -> int:
     """Device-memory traffic of one ring-fused assembled step, meta
     ignored, each kernel's inputs read once and outputs written once: the
     ring kernel reads the 13 CAAR rows and two rspheremp rows and writes
     the swept 4 rows, phi and the 3 accumulators (21 rows) and the
     [nfix, 4*nlev] slab, which the fixup reads; the patch reads the
-    [4*nlev, nfix] fix values and writes as many fix lanes."""
+    [4*nlev, nfix] fix values and writes as many fix lanes; the bf16 rows
+    of ``storage`` at 2 bytes."""
     e16 = 6 * ne * ne * 16
-    return ((21 * nlev + 2) * e16 + 4 * nfix * 4 * nlev) * itemsize
+    return ((21 * nlev + 2) * e16 + 4 * nfix * 4 * nlev) * itemsize \
+        - _bf16_saving(e16, nlev, itemsize, storage)
 
 
 def make_assembled_problem(ne: int, nlev: int, device, seed: int = 7,
-                           layout: str = "t", cs=None):
+                           layout: str = "t", cs=None, storage: str = "f32"):
     """The assembled bench problem at ne: random state (``seed``) and zero
     accumulators on the cubed sphere's geometry, analytic hvcoord, dt2 = 0.1,
     eta_ave_w = 1, as in the root bench's --ne mode; from ``DIRECT_NELEM``
@@ -225,7 +256,8 @@ def make_assembled_problem(ne: int, nlev: int, device, seed: int = 7,
     two-float rspheremp [2, E16]; on the row layout levels = ((u0, v0, t0,
     dp0), (um1, vm1, tm1, dpm1)) of [E16, nlev] and rsp the f32 rspheremp
     column [E16, 1] (the root bench's row mode). ``cs`` is the f32 cubed
-    sphere at ne on ``device`` where the caller has built it."""
+    sphere at ne on ``device`` where the caller has built it. qdp, pecnd
+    and the nm1 level in ``storage``'s contract."""
     from . import Config, analytic_hvcoord, random_state, zero_derived
     from .dist import build_cubed_sphere, make_structured_plan, rsp_lanes_2f
     from .kernels.caar import pack_problem
@@ -238,11 +270,11 @@ def make_assembled_problem(ne: int, nlev: int, device, seed: int = 7,
     hv = analytic_hvcoord(cfg, **kw)
     if direct_init(cs.nelem, layout):
         p = random_packed_problem_t(cfg, seed, geom=cs.geometry,
-                                    device=device)
+                                    device=device, storage=storage)
     else:
         pack = pack_problem if layout == "row" else pack_problem_t
         p = pack(random_state(cfg, seed=seed, **kw), zero_derived(cfg, **kw),
-                 cs.geometry, hv, cfg)
+                 cs.geometry, hv, cfg, storage=storage)
     const = (_scalars(0.1, 1.0, hv, torch.float32, device), p["meta"],
              p["qdp"], p["pecnd"], p["dvv"])
     if layout == "row":
@@ -262,7 +294,9 @@ def run_assembled(const, levels, acc, plan, rsp, nsteps: int, step=None,
     """``nsteps`` chained assembled steps (``step`` defaults to
     ``caar_dss_structured_packed_t4``, on the row layout to
     ``caar_dss_structured_packed``): the assembled s1 becomes n0 and the
-    old n0 becomes nm1. Returns ((n0, nm1), acc, phi) after the last."""
+    old n0 becomes nm1, cast to the nm1 slot's dtype (bf16 in "bf16_ro":
+    the root bench's rotation, bench.py:400-401). Returns ((n0, nm1), acc,
+    phi) after the last."""
     from .dist.step_t import (
         caar_dss_structured_packed, caar_dss_structured_packed_t4)
 
@@ -279,7 +313,8 @@ def run_assembled(const, levels, acc, plan, rsp, nsteps: int, step=None,
         else:
             s1, phi, *acc = step(scal, meta, s0, sm1, qdp, pecnd, *acc, dvv,
                                  plan, rsp)
-        s0, sm1 = s1, s0
+        s0, sm1 = s1, (tuple(x.to(d.dtype) for x, d in zip(s0, sm1)) if row
+                       else s0.to(sm1.dtype))
     return (s0, sm1), tuple(acc), phi
 
 
@@ -531,7 +566,7 @@ def _main_assembled(args, dev) -> dict:
 
     row = args.layout == "row"
     const, levels, acc, plan, rsp = make_assembled_problem(
-        args.ne, args.nlev, dev, layout=args.layout)
+        args.ne, args.nlev, dev, layout=args.layout, storage=args.storage)
     if row:
         wrappers = (caar_packed,)
     elif args.ring:
@@ -541,6 +576,10 @@ def _main_assembled(args, dev) -> dict:
         wrappers = (caar_t4_cuda, dss_extract_cuda, dss_fixup_cuda,
                     dss_sweep_cuda)
     launches0 = [w.launches for w in wrappers]
+    # the step's CAAR wrapper, whose launches in a bf16 storage mode the
+    # line reports
+    caar = wrappers[0]
+    storage0 = caar.storage_launches
     step = caar_dss_ring_t4 if args.ring else None
     run = lambda lv, a, n: run_assembled(const, lv, a, plan, rsp, n,
                                          step=step, layout=args.layout)
@@ -562,9 +601,11 @@ def _main_assembled(args, dev) -> dict:
     triad = saxpby_bandwidth_gbs(device=dev)
     nelem = 6 * args.ne * args.ne
     nfix = fix_tables(plan, dev).nfix
-    nbytes = (ring_bytes_per_step(args.ne, args.nlev, nfix) if args.ring
+    nbytes = (ring_bytes_per_step(args.ne, args.nlev, nfix,
+                                  storage=args.storage) if args.ring
               else assembled_bytes_per_step(args.ne, args.nlev, nfix,
-                                            layout=args.layout))
+                                            layout=args.layout,
+                                            storage=args.storage))
     gbs = nbytes * args.nexec / best / 1e9
     return {
         "metric": "caar_dss_gridpoint_updates_per_s",
@@ -572,7 +613,8 @@ def _main_assembled(args, dev) -> dict:
                   f"nexec={args.nexec} reps={args.reps} chained step="
                   + ("caar_dss_structured_packed" if row
                      else "caar_dss_ring_t4" if args.ring
-                     else "caar_dss_structured_packed_t4"),
+                     else "caar_dss_structured_packed_t4")
+                  + f" storage={args.storage}",
         "seconds": best,
         "us_per_step": best / args.nexec * 1e6,
         "gridpoints_per_s": nelem * args.nlev * 16 * args.nexec / best,
@@ -581,6 +623,7 @@ def _main_assembled(args, dev) -> dict:
         "triad_gb_per_s": triad,
         "fraction_of_triad": gbs / triad,
         "kernel_launches": launches,
+        "storage_launches": caar.storage_launches - storage0,
         "device": torch.cuda.get_device_name(dev),
         "card": card_name_and_power(),
     }
@@ -618,6 +661,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--layout", default="t", choices=("t", "row"),
                     help="packed layout: t = [nlev, E16] (default), row = "
                          "[E16, nlev] (raw and assembled modes only)")
+    ap.add_argument("--storage", default="f32",
+                    choices=("f32", "bf16_aux", "bf16_ro"),
+                    help="the CAAR kernel's read-only operands in bf16: qdp "
+                         "and pecnd (bf16_aux), also the nm1 fields "
+                         "(bf16_ro); compute stays f32 (raw and assembled "
+                         "modes only)")
     args = ap.parse_args(argv)
     if (args.rk or args.prim or args.hypervis_nu) and args.ne is None:
         ap.error("--rk, --prim and --hypervis-nu need --ne")
@@ -635,6 +684,9 @@ def main(argv=None) -> dict:
                       or args.layout == "row"):
         ap.error("--ring is a mode of the assembled step: it needs --ne and "
                  "takes neither --rk, --prim nor --layout row")
+    if args.storage != "f32" and (args.rk or args.prim):
+        ap.error("--storage with --rk or --prim: the stage kernel's bf16 "
+                 "operands are not ported yet (ROADMAP A6)")
 
     from .device import resolve_device
     from .kernels.caar import caar_packed
@@ -649,11 +701,13 @@ def main(argv=None) -> dict:
         result["init"] = "device" if direct_init(6 * args.ne ** 2,
                                                  args.layout) else "host"
         result["ring"] = args.ring
+        result["storage"] = args.storage
         print(json.dumps(result))
         return result
     kernel = caar_packed if args.layout == "row" else caar_t4_cuda
-    const, acc = make_problem(args.nelem, args.nlev, dev, layout=args.layout)
-    launches0 = kernel.launches
+    const, acc = make_problem(args.nelem, args.nlev, dev, layout=args.layout,
+                              storage=args.storage)
+    launches0, storage0 = kernel.launches, kernel.storage_launches
     # warm-up (first build), excluded
     run_steps(const, acc, 2, args.layout)
     torch.cuda.synchronize(dev)
@@ -668,12 +722,13 @@ def main(argv=None) -> dict:
         raise RuntimeError("bench: non-finite CAAR output")
     launches = kernel.launches - launches0
     triad = saxpby_bandwidth_gbs(device=dev)
-    nbytes = bytes_per_step(args.nelem, args.nlev)
+    nbytes = bytes_per_step(args.nelem, args.nlev, storage=args.storage)
     gbs = nbytes * args.nexec / best / 1e9
     result = {
         "metric": "caar_gridpoint_updates_per_s",
         "config": f"{args.nelem}x{args.nlev}x16 float32 nexec={args.nexec} "
-                  f"reps={args.reps} kernel={kernel.__name__}",
+                  f"reps={args.reps} kernel={kernel.__name__} "
+                  f"storage={args.storage}",
         "seconds": best,
         "us_per_step": best / args.nexec * 1e6,
         "gridpoints_per_s": args.nelem * args.nlev * 16 * args.nexec / best,
@@ -682,10 +737,12 @@ def main(argv=None) -> dict:
         "triad_gb_per_s": triad,
         "fraction_of_triad": gbs / triad,
         "kernel_launches": launches,
+        "storage_launches": kernel.storage_launches - storage0,
         "device": torch.cuda.get_device_name(dev),
         "card": card_name_and_power(),
         "layout": args.layout,
         "init": "device" if direct_init(args.nelem, args.layout) else "host",
+        "storage": args.storage,
     }
     print(json.dumps(result))
     return result

@@ -143,7 +143,32 @@
 // two launches it fuses.
 // The stage and phi modes carry over; the ring takes neither rsplit=0 nor
 // the row layout.
+//
+// Mixed-precision storage (kSt, the `storage` argument of both launches;
+// replaces the storage= modes of caar_pallas_t.py:903-950 and
+// caar_pallas.py:415-477): 0 every operand f32; 1 ("bf16_aux") qdp and
+// pecnd stored bf16; 2 ("bf16_ro") also um1, vm1, tm1 and dpm1. The kernel
+// reads a bf16 operand itself, 2 bytes an element, and upcasts it exactly
+// (__bfloat162float) into the f32 register, stash, plane or window slot
+// where the f32 operand would have landed; compute and every output stay
+// f32 and the arithmetic is unchanged, so each storage mode gives, bit for
+// bit, the f32 mode on the bf16 operands upcast. bf16_ro cuts the pair
+// step's 21 fields of traffic by 3 (the root bench's ~23% of the reads).
+// cp.async moves 4 bytes at least, so the bf16 operands leave the cp.async
+// groups: the row kernel's staging loads each bf16 span two elements at a
+// time (one 4-byte load; the span starts on an even element and holds a
+// whole number of elements' 16 columns, so it is even) into the f32 planes
+// after issuing the f32 groups; the
+// windowed mode fills its f32 slots with single loads, and the t layout (a
+// thread a column) and the row epilogue read their bf16 elements with
+// plain loads. The stage mode takes f32
+// only. Each storage is a template instance, made only where a launch
+// reaches it (the pair form: t with and without the stash, t rsplit=0, the
+// row kernel at both rsplits, the ring with and without mix).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "ring.cuh"
 
@@ -223,9 +248,11 @@ struct CaarArgs {
   const float* meta;   // [16, ld]
   const float* dvv;    // [4, 4] row-major, dvv[i*4+l] = Dvv[i, l]
   const float* u0; const float* v0; const float* t0; const float* dp0;
-  // the base state of the update; all four null = the evaluation state
-  const float* um1; const float* vm1; const float* tm1; const float* dpm1;
-  const float* qdp; const float* pecnd;
+  // the base state of the update; all four null = the evaluation state.
+  // These six are float, or bf16 by the instance's storage (kSt): read
+  // through ld_op
+  const void* um1; const void* vm1; const void* tm1; const void* dpm1;
+  const void* qdp; const void* pecnd;
   float* vn0u; float* vn0v; float* omg;      // accumulators, in place
   float* u1; float* v1; float* t1; float* dp1;
   float* phi;                                // null = not stored
@@ -318,6 +345,17 @@ static_assert(kRowWindow == 0 || (kRowWindow <= kChunkTile &&
               "a window is a power of two of at most 32 levels");
 constexpr int kWinLen = kRowWindow > 0 ? kRowWindow : 1;
 
+// The staged row kernel stages bf16 qdp and pecnd (kSt >= 1) by plain
+// loads before pass 1. experiments/kernel_variants.py (group storage)
+// builds with -DCAAR_ROW_SYNC_AUX=1 a kernel whose f32 mode stages f32 qdp
+// and pecnd the same way, in place of the cp.async groups that overlap
+// passes 1 and 2.
+#ifdef CAAR_ROW_SYNC_AUX
+constexpr bool kRowSyncAux = CAAR_ROW_SYNC_AUX;
+#else
+constexpr bool kRowSyncAux = false;
+#endif
+
 // The window's slots: the inputs of pass 3 in this order; a level's
 // outputs overwrite its nm1 state (u1..dp1), pecnd (phi) and the
 // accumulators
@@ -347,6 +385,39 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// element o of a storage operand: float, or with kBf bf16 upcast exactly
+template <bool kBf>
+__device__ __forceinline__ float ld_op(const void* p, size_t o) {
+  if constexpr (kBf)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[o]);
+  else
+    return static_cast<const float*>(p)[o];
+}
+
+// element o of a storage operand into the f32 shared-memory slot dst: a
+// cp.async of the float, or with kBf a bf16 load upcast and stored (the
+// caller's wait and barrier cover both)
+template <bool kBf>
+__device__ __forceinline__ void stage_op(float* dst, const void* src,
+                                         size_t o) {
+  if constexpr (kBf)
+    *dst = ld_op<true>(src, o);
+  else
+    cp_async4(dst, static_cast<const float*>(src) + o);
+}
+
+// elements o and o + 1 of a storage operand in one load (o even): with kBf
+// 4 bytes of bf16 upcast exactly, else 8 bytes of float
+template <bool kBf>
+__device__ __forceinline__ float2 ld_pair(const void* p, size_t o) {
+  if constexpr (kBf)
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+        static_cast<const __nv_bfloat16*>(p) + o));
+  else
+    return *reinterpret_cast<const float2*>(static_cast<const float*>(p) +
+                                            o);
 }
 
 // (column, level) of element i of a tile's span (i < 32 * 400): the f32
@@ -409,8 +480,10 @@ __device__ __forceinline__ void span_at(int i, int nlev, float rnlev,
 // them from device memory); dp1 = sph*(dpm1 - dt2*dptens) with dptens =
 // divdp + eta_hi - eta_lo formed as the (hybi(k+1) - hybi(k))*sdot it
 // equals (see pass 3), and etaacc += eta_ave_w*eta_hi.
+// kSt: the storage of qdp and pecnd (bf16 from 1) and of um1..dpm1 (bf16
+// at 2), each element upcast where it is read or staged (the note above).
 template <int kTile, bool kSingle, bool kPhi, bool kStash, bool kRow = false,
-          bool kR0 = false, int kS1 = 0>
+          bool kR0 = false, int kS1 = 0, int kSt = 0>
 __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
                                              int chunks, int levels,
                                              float* phi_sm) {
@@ -419,6 +492,9 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
                 "the row layout runs the pair form on tiles of 32 columns");
   static_assert(!kR0 || (!kSingle && kPhi && kTile == kChunkTile),
                 "rsplit=0 runs the pair form on tiles of 32 columns");
+  static_assert(kSt >= 0 && kSt <= 2 && (kSt == 0 || !kSingle),
+                "bf16 storage takes the pair form");
+  constexpr bool kAux = kSt >= 1, kRo = kSt == 2;
   constexpr int tile = kTile;
   constexpr bool kStaged = kRow && kStash;
   constexpr bool kWin = kRow && !kStash && kRowWindow > 0;
@@ -482,14 +558,14 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
         cp_async4(W(kWU) + p, a.u0 + o);
         cp_async4(W(kWV) + p, a.v0 + o);
         cp_async4(W(kWT) + p, a.t0 + o);
-        if (a.moist) cp_async4(W(kWQdp) + p, a.qdp + o);
+        if (a.moist) stage_op<kAux>(W(kWQdp) + p, a.qdp, o);
       }
       if (pass == 3) {
-        cp_async4(W(kWPec) + p, a.pecnd + o);
-        cp_async4(W(kWUm1) + p, a.um1 + o);
-        cp_async4(W(kWVm1) + p, a.vm1 + o);
-        cp_async4(W(kWTm1) + p, a.tm1 + o);
-        cp_async4(W(kWDpm1) + p, a.dpm1 + o);
+        stage_op<kAux>(W(kWPec) + p, a.pecnd, o);
+        stage_op<kRo>(W(kWUm1) + p, a.um1, o);
+        stage_op<kRo>(W(kWVm1) + p, a.vm1, o);
+        stage_op<kRo>(W(kWTm1) + p, a.tm1, o);
+        stage_op<kRo>(W(kWDpm1) + p, a.dpm1, o);
         cp_async4(W(kWAn) + p, a.vn0u + o);
         cp_async4(W(kWAv) + p, a.vn0v + o);
         cp_async4(W(kWAo) + p, a.omg + o);
@@ -521,6 +597,9 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
   };
   float m[13];
   if constexpr (kStaged) {
+    // qdp and pecnd staged by plain loads (bf16; or f32 in the
+    // CAAR_ROW_SYNC_AUX experiment), not by cp.async
+    constexpr bool kSyncAux = kAux || kRowSyncAux;
     const float* const mrow = a.meta + static_cast<size_t>(col0) * 16;
     for (int i = tid; i < span / a.nlev * 16; i += blockDim.x)
       cp_async4(meta_sm + (i & 15) * kMetaPitch + (i >> 4), mrow + i);
@@ -537,11 +616,37 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
       cp_async4(P(kPU) + p, a.u0 + o);
       cp_async4(P(kPV) + p, a.v0 + o);
       cp_async4(P(kPT) + p, a.t0 + o);
-      if (a.moist) cp_async4(P(kPQdp) + p, a.qdp + o);
+      if constexpr (!kSyncAux)
+        if (a.moist) cp_async4(P(kPQdp) + p, static_cast<const float*>(
+                                                  a.qdp) + o);
     });
     cp_async_commit();
-    stage([&](size_t o, int p) { cp_async4(P(kPPec) + p, a.pecnd + o); });
+    if constexpr (!kSyncAux)
+      stage([&](size_t o, int p) {
+        cp_async4(P(kPPec) + p, static_cast<const float*>(a.pecnd) + o);
+      });
     cp_async_commit();
+    if constexpr (kSyncAux) {
+      // qdp and pecnd (bf16, or f32 in the experiment), while the groups
+      // above are in flight: two elements of each a load (base and span
+      // are even), each upcast into its own place (the two of a pair may
+      // be the last level of one column and the first of the next); the
+      // barrier below publishes them
+      for (int j = tid; 2 * j < span; j += blockDim.x) {
+        const float2 q = a.moist ? ld_pair<kAux>(a.qdp, base + 2 * j)
+                                 : float2{};
+        const float2 e = ld_pair<kAux>(a.pecnd, base + 2 * j);
+        int cx, k;
+        span_at(2 * j, a.nlev, rnlev, cx, k);
+        const int p0 = swz(k, cx);
+        span_at(2 * j + 1, a.nlev, rnlev, cx, k);
+        const int p1 = swz(k, cx);
+        P(kPQdp)[p0] = q.x;
+        P(kPQdp)[p1] = q.y;
+        P(kPPec)[p0] = e.x;
+        P(kPPec)[p1] = e.y;
+      }
+    }
     cp_async_wait<2>();
     __syncthreads();
 #pragma unroll
@@ -597,7 +702,7 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
       const size_t o = off(k);
       if constexpr (!kStash) r.dp = a.dp0[o];
       r.t = a.t0[o]; r.u = a.u0[o]; r.v = a.v0[o];
-      if (a.moist) r.qd = a.qdp[o];
+      if (a.moist) r.qd = ld_op<kAux>(a.qdp, o);
     }
     return r;
   };
@@ -685,12 +790,12 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
       const size_t o = off(k);
       if constexpr (!kStash) {
         r.u = a.u0[o]; r.v = a.v0[o]; r.t = a.t0[o]; r.dp = a.dp0[o];
-        if (a.moist) r.qd = a.qdp[o];
+        if (a.moist) r.qd = ld_op<kAux>(a.qdp, o);
       }
-      r.pec = a.pecnd[o];
+      r.pec = ld_op<kAux>(a.pecnd, o);
       if constexpr (!kSingle) {
-        r.um1 = a.um1[o]; r.vm1 = a.vm1[o]; r.tm1 = a.tm1[o];
-        r.dpm1 = a.dpm1[o];
+        r.um1 = ld_op<kRo>(a.um1, o); r.vm1 = ld_op<kRo>(a.vm1, o);
+        r.tm1 = ld_op<kRo>(a.tm1, o); r.dpm1 = ld_op<kRo>(a.dpm1, o);
       }
       r.an = a.vn0u[o]; r.av = a.vn0v[o]; r.ao = a.omg[o];
       if constexpr (kR0) r.ae = a.etaacc[o];
@@ -899,8 +1004,10 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
           span_at(i, a.nlev, rnlev, cxs[j], k);
           pos[j] = swz(k, cxs[j]);
           const size_t o = base + i;
-          old[j].um1 = a.um1[o]; old[j].vm1 = a.vm1[o];
-          old[j].tm1 = a.tm1[o]; old[j].dpm1 = a.dpm1[o];
+          old[j].um1 = ld_op<kRo>(a.um1, o);
+          old[j].vm1 = ld_op<kRo>(a.vm1, o);
+          old[j].tm1 = ld_op<kRo>(a.tm1, o);
+          old[j].dpm1 = ld_op<kRo>(a.dpm1, o);
           old[j].an = a.vn0u[o]; old[j].av = a.vn0v[o]; old[j].ao = a.omg[o];
           if constexpr (kR0) old[j].ae = a.etaacc[o];
         }
@@ -960,22 +1067,22 @@ inline size_t row_smem(int nlev, int chunks, bool stage, bool r0) {
               kChunkTile + 16 * kMetaPitch) * sizeof(float);
 }
 
-template <bool kSingle, bool kPhi, bool kStash>
+template <bool kSingle, bool kPhi, bool kStash, int kSt = 0>
 __global__ void __launch_bounds__(kChunkThreads, kChunkBlocks)
 caar_chunk_kernel(CaarArgs a, int chunks, int levels) {
   extern __shared__ float sm[];
-  caar_chunked<kChunkTile, kSingle, kPhi, kStash>(a, blockIdx.x, chunks,
-                                                  levels, sm);
+  caar_chunked<kChunkTile, kSingle, kPhi, kStash, false, false, 0, kSt>(
+      a, blockIdx.x, chunks, levels, sm);
 }
 
 // The row layout's step (rows 7 and 8 of the kernel table): the chunked
 // body with kRow, staged through shared memory where kStage; two blocks an
 // SM at nlev 72 (row_smem: 86 KB, 104 KB at rsplit=0), so 128 registers.
-template <bool kR0, bool kStage>
+template <bool kR0, bool kStage, int kSt = 0>
 __global__ void __launch_bounds__(kChunkThreads, 2)
 caar_row_kernel(CaarArgs a, int chunks, int levels) {
   extern __shared__ float sm[];
-  caar_chunked<kChunkTile, false, true, kStage, true, kR0>(
+  caar_chunked<kChunkTile, false, true, kStage, true, kR0, 0, kSt>(
       a, blockIdx.x, chunks, levels, sm);
 }
 
@@ -987,11 +1094,11 @@ caar_row_kernel(CaarArgs a, int chunks, int levels) {
 // the launch is at least R0_WAVES waves of 3 blocks an SM
 // (experiments/kernel_variants.py rsplit0: on the H100 3 blocks were 13%
 // faster at ne30 x 72 and 13% slower at 1024 x 72, 1.3 waves).
-template <bool kStash, int kBlocks>
+template <bool kStash, int kBlocks, int kSt = 0>
 __global__ void __launch_bounds__(kChunkThreads, kBlocks)
 caar_r0_kernel(CaarArgs a, int chunks, int levels) {
   extern __shared__ float sm[];
-  caar_chunked<kChunkTile, false, true, kStash, false, true>(
+  caar_chunked<kChunkTile, false, true, kStash, false, true, 0, kSt>(
       a, blockIdx.x, chunks, levels, sm);
 }
 
@@ -1006,14 +1113,14 @@ caar_r0_kernel(CaarArgs a, int chunks, int levels) {
 // reads finish before it asks for them, so that its wait seldom spins.
 // The constants k* above select the design (the port's: float4 sweep,
 // hints, discard, L1 reads).
-template <bool kSingle, bool kPhi, bool kMix, bool kStash>
+template <bool kSingle, bool kPhi, bool kMix, bool kStash, int kSt = 0>
 __global__ void __launch_bounds__(kRingThreads, kRingBlocks)
 caar_ring_kernel(CaarArgs a, ring::Args r, int chunks, int levels, int lag) {
   extern __shared__ float sm[];
   const int t = ring::ticket(r.counter);
   if (t < r.nb) {
-    caar_chunked<kRingTile, kSingle, kPhi, kStash, false, false, kRingKeep>(
-        a, t, chunks, levels, sm);
+    caar_chunked<kRingTile, kSingle, kPhi, kStash, false, false, kRingKeep,
+                 kSt>(a, t, chunks, levels, sm);
     ring::publish(r.flags + t);
     if constexpr (kRingSweep == 4)     // the producer discarding its own
       ring::retire<kRingTile>(r, t, t, 4 * a.nlev, a.ncol, true);
@@ -1042,10 +1149,10 @@ caar_ring_kernel(CaarArgs a, ring::Args r, int chunks, int levels, int lag) {
     ring::retire<kRingTile>(r, lo, hi, rows, a.ncol);
 }
 
-template <bool kStash, int kBlocks>
+template <bool kStash, int kBlocks, int kSt>
 cudaError_t launch_r0(const CaarArgs& a, int chunks, int levels,
                       cudaStream_t stream) {
-  auto* kernel = caar_r0_kernel<kStash, kBlocks>;
+  auto* kernel = caar_r0_kernel<kStash, kBlocks, kSt>;
   const size_t smem = chunked_smem(a.nlev, kChunkTile, chunks, kStash);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1056,10 +1163,10 @@ cudaError_t launch_r0(const CaarArgs& a, int chunks, int levels,
   return cudaGetLastError();
 }
 
-template <bool kSingle, bool kPhi, bool kStash>
+template <bool kSingle, bool kPhi, bool kStash, int kSt = 0>
 cudaError_t launch_chunked(const CaarArgs& a, int chunks, int levels,
                            cudaStream_t stream) {
-  auto* kernel = caar_chunk_kernel<kSingle, kPhi, kStash>;
+  auto* kernel = caar_chunk_kernel<kSingle, kPhi, kStash, kSt>;
   const size_t smem = chunked_smem(a.nlev, kChunkTile, chunks, kStash);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1070,10 +1177,10 @@ cudaError_t launch_chunked(const CaarArgs& a, int chunks, int levels,
   return cudaGetLastError();
 }
 
-template <bool kR0, bool kStage>
+template <bool kR0, bool kStage, int kSt>
 cudaError_t launch_row(const CaarArgs& a, int chunks, int levels,
                        cudaStream_t stream) {
-  auto* kernel = caar_row_kernel<kR0, kStage>;
+  auto* kernel = caar_row_kernel<kR0, kStage, kSt>;
   const size_t smem = row_smem(a.nlev, chunks, kStage, kR0);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1090,15 +1197,30 @@ cudaError_t launch_row(const CaarArgs& a, int chunks, int levels,
   return cudaGetLastError();
 }
 
-// the ring kernel's instance for a launch's modes
-template <bool kStash>
+// the ring kernel's instance for a launch's modes (a bf16 storage only in
+// the pair form)
+template <bool kStash, int kSt>
 auto* ring_kernel(bool single, bool phi, const void* mx) {
-  return single ? (phi ? (mx ? caar_ring_kernel<true, true, true, kStash>
-                             : caar_ring_kernel<true, true, false, kStash>)
-                       : (mx ? caar_ring_kernel<true, false, true, kStash>
-                             : caar_ring_kernel<true, false, false, kStash>))
-                : (mx ? caar_ring_kernel<false, true, true, kStash>
-                      : caar_ring_kernel<false, true, false, kStash>);
+  if constexpr (kSt == 0)
+    return single
+               ? (phi ? (mx ? caar_ring_kernel<true, true, true, kStash>
+                            : caar_ring_kernel<true, true, false, kStash>)
+                      : (mx ? caar_ring_kernel<true, false, true, kStash>
+                            : caar_ring_kernel<true, false, false, kStash>))
+               : (mx ? caar_ring_kernel<false, true, true, kStash>
+                     : caar_ring_kernel<false, true, false, kStash>);
+  else
+    return mx ? caar_ring_kernel<false, true, true, kStash, kSt>
+              : caar_ring_kernel<false, true, false, kStash, kSt>;
+}
+
+// f(std::integral_constant<int, kSt>{}) for the run-time storage code s
+// (0 f32, 1 bf16_aux, 2 bf16_ro; checked by the caller)
+template <typename F>
+auto by_storage(int s, F&& f) {
+  return s == 2 ? f(std::integral_constant<int, 2>{})
+         : s == 1 ? f(std::integral_constant<int, 1>{})
+                  : f(std::integral_constant<int, 0>{});
 }
 
 }  // namespace
@@ -1119,7 +1241,9 @@ const char* caar_error_string(int err) {
 // kernels/caar_t.py::caar_plan on the t layout (caar_plan(r0=True) at
 // rsplit=0), caar_row_plan on the row layout (stash = staged); `blocks` the
 // t layout's rsplit=0 instance, 2 or 3 blocks an SM (3 with the stash
-// only, where three fit), ignored by the other modes.
+// only, where three fit), ignored by the other modes. storage: 0 f32, 1
+// qdp and pecnd bf16, 2 also um1..dpm1 bf16 (the pair form only; the row
+// layout's staged bf16 spans 4-byte aligned).
 int caar_launch(const void* scal, const void* meta, const void* dvv,
                 const void* u0, const void* v0, const void* t0,
                 const void* dp0, const void* um1, const void* vm1,
@@ -1129,11 +1253,16 @@ int caar_launch(const void* scal, const void* meta, const void* dvv,
                 const void* fix_rank, void* slab, const void* hyb_lo,
                 const void* hyb_hi, void* etaacc, int nlev, int ncol,
                 int ld, int moist, int slab_ld, int hyb_stride, int row,
-                int chunks, int levels, int stash, int blocks, float rgas,
-                float kappa, float rv_factor, float rrearth, void* stream,
-                int device) {
+                int chunks, int levels, int stash, int blocks, int storage,
+                float rgas, float kappa, float rv_factor, float rrearth,
+                void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  if (storage < 0 || storage > 2 || (storage && um1 == nullptr) ||
+      (storage && row && stash &&
+       (reinterpret_cast<size_t>(qdp) % 4 ||
+        reinterpret_cast<size_t>(pecnd) % 4)))
+    return cudaErrorInvalidValue;
   if (nlev > kMaxNlev || ncol < 1 || ncol % 16 ||
       (um1 == nullptr) != (vm1 == nullptr) ||
       (um1 == nullptr) != (tm1 == nullptr) ||
@@ -1167,12 +1296,12 @@ int caar_launch(const void* scal, const void* meta, const void* dvv,
   a.v0 = static_cast<const float*>(v0);
   a.t0 = static_cast<const float*>(t0);
   a.dp0 = static_cast<const float*>(dp0);
-  a.um1 = static_cast<const float*>(um1);
-  a.vm1 = static_cast<const float*>(vm1);
-  a.tm1 = static_cast<const float*>(tm1);
-  a.dpm1 = static_cast<const float*>(dpm1);
-  a.qdp = static_cast<const float*>(qdp);
-  a.pecnd = static_cast<const float*>(pecnd);
+  a.um1 = um1;
+  a.vm1 = vm1;
+  a.tm1 = tm1;
+  a.dpm1 = dpm1;
+  a.qdp = qdp;
+  a.pecnd = pecnd;
   a.vn0u = static_cast<float*>(vn0u);
   a.vn0v = static_cast<float*>(vn0v);
   a.omg = static_cast<float*>(omg);
@@ -1198,27 +1327,35 @@ int caar_launch(const void* scal, const void* meta, const void* dvv,
   a.rrearth = rrearth;
 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (row) {
+  return by_storage(storage, [&](auto kst) -> cudaError_t {
+    constexpr int kSt = decltype(kst)::value;
+    if (row) {
+      if (r0)
+        return stash ? launch_row<true, true, kSt>(a, chunks, levels, st)
+                     : launch_row<true, false, kSt>(a, chunks, levels, st);
+      return stash ? launch_row<false, true, kSt>(a, chunks, levels, st)
+                   : launch_row<false, false, kSt>(a, chunks, levels, st);
+    }
     if (r0)
-      return stash ? launch_row<true, true>(a, chunks, levels, st)
-                   : launch_row<true, false>(a, chunks, levels, st);
-    return stash ? launch_row<false, true>(a, chunks, levels, st)
-                 : launch_row<false, false>(a, chunks, levels, st);
-  }
-  if (r0)
-    return !stash       ? launch_r0<false, 2>(a, chunks, levels, st)
-           : blocks == 3 ? launch_r0<true, 3>(a, chunks, levels, st)
-                         : launch_r0<true, 2>(a, chunks, levels, st);
-  if (stash) {
-    if (um1 == nullptr)
-      return phi ? launch_chunked<true, true, true>(a, chunks, levels, st)
-                 : launch_chunked<true, false, true>(a, chunks, levels, st);
-    return launch_chunked<false, true, true>(a, chunks, levels, st);
-  }
-  if (um1 == nullptr)
-    return phi ? launch_chunked<true, true, false>(a, chunks, levels, st)
-               : launch_chunked<true, false, false>(a, chunks, levels, st);
-  return launch_chunked<false, true, false>(a, chunks, levels, st);
+      return !stash ? launch_r0<false, 2, kSt>(a, chunks, levels, st)
+             : blocks == 3 ? launch_r0<true, 3, kSt>(a, chunks, levels, st)
+                           : launch_r0<true, 2, kSt>(a, chunks, levels, st);
+    if constexpr (kSt == 0) {    // the stage mode: f32 only
+      if (um1 == nullptr) {
+        if (stash)
+          return phi ? launch_chunked<true, true, true>(a, chunks, levels, st)
+                     : launch_chunked<true, false, true>(a, chunks, levels,
+                                                          st);
+        return phi ? launch_chunked<true, true, false>(a, chunks, levels, st)
+                   : launch_chunked<true, false, false>(a, chunks, levels,
+                                                         st);
+      }
+    }
+    return stash ? launch_chunked<false, true, true, kSt>(a, chunks, levels,
+                                                          st)
+                 : launch_chunked<false, true, false, kSt>(a, chunks, levels,
+                                                           st);
+  });
 }
 
 // Enqueues one ring-fused step (t layout, rsplit>0, with the slab) on
@@ -1231,7 +1368,8 @@ int caar_launch(const void* scal, const void* meta, const void* dvv,
 // swept output, mx null (no mix) or a [4*nlev, ncol] field; um1..dpm1 all
 // null = the stage mode, phi null only there; (halo, lag, tile, chunks,
 // levels, stash) the plan of kernels/ring_fused.py::ring_plan, the tile the
-// built kRingTile. Returns the cudaError_t.
+// built kRingTile; storage as caar_launch's (the pair form only). Returns
+// the cudaError_t.
 int caar_ring_launch(const void* scal, const void* meta, const void* dvv,
                      const void* u0, const void* v0, const void* t0,
                      const void* dp0, const void* um1, const void* vm1,
@@ -1241,14 +1379,15 @@ int caar_ring_launch(const void* scal, const void* meta, const void* dvv,
                      const void* rsp, const void* mx, void* w, void* state,
                      int nstate, int nlev, int ncol, int moist, int nrsp,
                      int ne, int halo, int lag, int tile, int chunks,
-                     int levels, int stash, float rgas, float kappa,
-                     float rv_factor, float rrearth, float ca, float cb,
-                     void* stream, int device) {
+                     int levels, int stash, int storage, float rgas,
+                     float kappa, float rv_factor, float rrearth, float ca,
+                     float cb, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const bool single = um1 == nullptr;
   const int nb = ncol / kRingTile;
-  if (single != (vm1 == nullptr) || single != (tm1 == nullptr) ||
+  if (storage < 0 || storage > 2 || (storage && single) ||
+      single != (vm1 == nullptr) || single != (tm1 == nullptr) ||
       single != (dpm1 == nullptr) || (phi == nullptr && !single) ||
       fix_rank == nullptr || tile != kRingTile || nlev > kMaxNlev || ne < 1 ||
       ncol < tile || ncol % tile || reinterpret_cast<size_t>(s1) % 128 ||
@@ -1264,12 +1403,12 @@ int caar_ring_launch(const void* scal, const void* meta, const void* dvv,
   a.v0 = static_cast<const float*>(v0);
   a.t0 = static_cast<const float*>(t0);
   a.dp0 = static_cast<const float*>(dp0);
-  a.um1 = static_cast<const float*>(um1);
-  a.vm1 = static_cast<const float*>(vm1);
-  a.tm1 = static_cast<const float*>(tm1);
-  a.dpm1 = static_cast<const float*>(dpm1);
-  a.qdp = static_cast<const float*>(qdp);
-  a.pecnd = static_cast<const float*>(pecnd);
+  a.um1 = um1;
+  a.vm1 = vm1;
+  a.tm1 = tm1;
+  a.dpm1 = dpm1;
+  a.qdp = qdp;
+  a.pecnd = pecnd;
   a.vn0u = static_cast<float*>(vn0u);
   a.vn0v = static_cast<float*>(vn0v);
   a.omg = static_cast<float*>(omg);
@@ -1306,8 +1445,11 @@ int caar_ring_launch(const void* scal, const void* meta, const void* dvv,
   r.ca = ca;
   r.cb = cb;
 
-  auto* kernel = stash ? ring_kernel<true>(single, phi != nullptr, mx)
-                       : ring_kernel<false>(single, phi != nullptr, mx);
+  auto* kernel = by_storage(storage, [&](auto kst) {
+    constexpr int kSt = decltype(kst)::value;
+    return stash ? ring_kernel<true, kSt>(single, phi != nullptr, mx)
+                 : ring_kernel<false, kSt>(single, phi != nullptr, mx);
+  });
   const size_t smem = chunked_smem(nlev, kRingTile, chunks, stash);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1327,13 +1469,15 @@ int caar_ring_launch(const void* scal, const void* meta, const void* dvv,
 // caar_ring_kernel, tiles of kRingTile, with or without the stash; fused =
 // 2 and 3: caar_row_kernel at rsplit>0 and at rsplit=0, staged where
 // stash; fused = 4 and 5: caar_r0_kernel, the t layout at rsplit=0, at 2
-// and 3 blocks an SM) that one SM holds at nlev levels in `chunks` chunks,
-// from
+// and 3 blocks an SM), in the instance of `storage` (caar_launch's), that
+// one SM holds at nlev levels in `chunks` chunks, from
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative: a CUDA error.
 int caar_blocks_per_sm(int fused, int nlev, int chunks, int stash,
-                       int device) {
+                       int storage, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -static_cast<int>(err);
+  if (storage < 0 || storage > 2)
+    return -static_cast<int>(cudaErrorInvalidValue);
   const bool row = fused == 2 || fused == 3, r0 = fused == 3;
   const int tile = fused == 1 ? kRingTile : kChunkTile;
   const size_t smem = row ? row_smem(nlev, chunks, stash, r0)
@@ -1348,23 +1492,24 @@ int caar_blocks_per_sm(int fused, int nlev, int chunks, int stash,
                                                         tile * chunks, smem);
     return e;
   };
-  if (row)
-    err = r0 ? (stash ? occupancy(caar_row_kernel<true, true>)
-                      : occupancy(caar_row_kernel<true, false>))
-             : (stash ? occupancy(caar_row_kernel<false, true>)
-                      : occupancy(caar_row_kernel<false, false>));
-  else if (fused == 4)
-    err = stash ? occupancy(caar_r0_kernel<true, 2>)
-                : occupancy(caar_r0_kernel<false, 2>);
-  else if (fused == 5)
-    err = occupancy(caar_r0_kernel<true, 3>);
-  else
-    err = fused ? (stash ? occupancy(caar_ring_kernel<false, true, false,
-                                                      true>)
-                         : occupancy(caar_ring_kernel<false, true, false,
-                                                      false>))
-          : stash ? occupancy(caar_chunk_kernel<false, true, true>)
-                  : occupancy(caar_chunk_kernel<false, true, false>);
+  err = by_storage(storage, [&](auto kst) -> cudaError_t {
+    constexpr int kSt = decltype(kst)::value;
+    if (row)
+      return r0 ? (stash ? occupancy(caar_row_kernel<true, true, kSt>)
+                         : occupancy(caar_row_kernel<true, false, kSt>))
+                : (stash ? occupancy(caar_row_kernel<false, true, kSt>)
+                         : occupancy(caar_row_kernel<false, false, kSt>));
+    if (fused == 4)
+      return stash ? occupancy(caar_r0_kernel<true, 2, kSt>)
+                   : occupancy(caar_r0_kernel<false, 2, kSt>);
+    if (fused == 5) return occupancy(caar_r0_kernel<true, 3, kSt>);
+    if (fused)
+      return stash ? occupancy(caar_ring_kernel<false, true, false, true, kSt>)
+                   : occupancy(
+                         caar_ring_kernel<false, true, false, false, kSt>);
+    return stash ? occupancy(caar_chunk_kernel<false, true, true, kSt>)
+                 : occupancy(caar_chunk_kernel<false, true, false, kSt>);
+  });
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 

@@ -75,7 +75,14 @@ the assembled-step, SSPRK3 and hyperviscosity parts of
     ``_ring_tables`` maps to ``fix_tables``: no new table.
 
 The accumulators vn0u / vn0v / omg are updated IN PLACE, as by the CAAR
-kernel (the plain twins are pure and return new ones).
+kernel (the plain twins are pure and return new ones). The assembled CAAR
+steps (``caar_dss_structured_packed_t4``, ``caar_dss_ring_t4``, the row
+``caar_dss_structured_packed``, their plain twins and the unstacked
+``caar_dss_structured_packed_t``) take their qdp, pecnd and nm1 state in
+any storage contract of ``kernels.caar_t.STORAGE`` (bf16 read by the CAAR
+kernel itself, the JAX steps' mixed-precision operands); the DSS after the
+kernel sees f32 only. The SSPRK3 and prim steps take f32 (their stage
+kernel's bf16 operands are ROADMAP A6).
 """
 from __future__ import annotations
 

@@ -114,10 +114,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "caar": {
-        "caar_launch": [_P] * 26 + [_I] * 11 + [_F] * 4 + [_P, _I],
-        "caar_ring_launch": [_P] * 24 + [_I] * 12 + [_F] * 6
+        "caar_launch": [_P] * 26 + [_I] * 12 + [_F] * 4 + [_P, _I],
+        "caar_ring_launch": [_P] * 24 + [_I] * 13 + [_F] * 6
         + [_P, _I],
-        "caar_blocks_per_sm": [_I] * 5,
+        "caar_blocks_per_sm": [_I] * 6,
         "caar_error_string": [_I],
     },
     "dss": {

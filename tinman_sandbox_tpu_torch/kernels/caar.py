@@ -1,5 +1,5 @@
 """The CAAR step on the packed row layout [E16, nlev] (counterpart of
-``tinman_sandbox_tpu/kernels/caar_pallas.py``, f32 storage).
+``tinman_sandbox_tpu/kernels/caar_pallas.py``).
 
 The kernel is ``csrc/caar.cu``'s ``caar_row_kernel``: the level-chunked
 body of the [nlev, E16] layout (``kernels/caar_t.py``) on tiles of 32
@@ -28,8 +28,14 @@ divdp + eta_hi - eta_lo equals, without that sum's f32 cancellation.
     ``etaacc`` [E16, nlev] the eta_dot_dpdn accumulator at interfaces
     1..nlev, updated IN PLACE with the other three; launches in
     ``caar_packed_rsplit0.launches``.
-  * ``pack_problem`` packs a full state into the row layout; ``caar`` is the
-    full-state wrapper (``caar_pallas``), dispatching on ``cfg.rsplit``;
+  * ``pack_problem`` packs a full state into the row layout, with
+    ``storage=`` the JAX package's mixed-precision contract (qdp and pecnd,
+    with "bf16_ro" also the nm1 fields, in bf16; ``caar_t.STORAGE``), which
+    both wrappers and the kernel take (its staging loads the bf16 spans
+    two elements a 4-byte load and upcasts them into its f32 planes); a
+    launch in a bf16 mode also counts in ``<wrapper>.storage_launches``;
+    ``caar`` is the full-state wrapper (``caar_pallas``, ``storage=``
+    included), dispatching on ``cfg.rsplit``;
     ``run_leapfrog`` the production leapfrog loop (``run_leapfrog_pallas``):
     pack once, rotate the packed buffers, unpack once; rsplit>0 only, as
     the JAX loop (``_require_lagrangian``).
@@ -37,13 +43,11 @@ divdp + eta_hi - eta_lo equals, without that sum's f32 cancellation.
 The plain versions are the [nlev, E16] plain step (``caar_t``'s
 ``_physics_plain``) on transposed views, so the two layouts' plain versions
 agree bit for bit. The wrappers run them for CPU tensors and launch the
-kernel for CUDA tensors (float32).
+kernel for CUDA tensors (float32, the storage operands float32 or bf16).
 
 Options of the JAX module with no counterpart here: ``fused=``
 (``_caar_kernel_fused``, :207: the derivative and scan matmuls batched for
-the TPU's matrix unit, the same function) and ``storage="bf16_aux"`` /
-``"bf16_ro"`` (a TPU HBM-traffic mode that rounds operands to bf16), as
-for the transposed forms (ROADMAP A5, A7); the block-derivative operators
+the TPU's matrix unit, the same function); the block-derivative operators
 and scan matrices of ``pack_problem`` (the kernel contracts the 4x4 Dvv);
 ``benchmark_loop_pallas`` (``bench --layout row`` chains the step itself).
 """
@@ -56,7 +60,8 @@ import torch
 from ..config import Config
 from ..grid import Geometry, HybridVCoord
 from ..state import Derived, State
-from .caar_t import Packing, _caar_step, _on, _physics_plain, _scalars, full_step
+from .caar_t import (_BF16, Packing, _caar_step, _on, _physics_plain,
+                     _scalars, _storage_casts, full_step)
 from .layout import pack_field, pack_meta, unpack_field
 
 __all__ = ["caar_packed", "caar_packed_plain", "caar_packed_rsplit0",
@@ -111,14 +116,16 @@ def caar_packed(scal, meta, u0, v0, t0, dp0, um1, vm1, tm1, dpm1, qdp, pecnd,
     meta [E16, 16]; dvv [4, 4]. Accumulators IN PLACE. Returns (u1, v1, t1,
     dp1, phi, vn0u, vn0v, omg)."""
     out = tuple(torch.empty_like(x) for x in (u0, v0, t0, dp0))
-    phi = torch.empty_like(qdp)
+    phi = torch.empty_like(u0)
     if _caar_step(scal, meta, dvv, (u0, v0, t0, dp0), (um1, vm1, tm1, dpm1),
                   qdp, pecnd, (vn0u, vn0v, omg), out, phi, moist, row=True):
         caar_packed.launches += 1
+        caar_packed.storage_launches += qdp.dtype == _BF16
     return (*out, phi, vn0u, vn0v, omg)
 
 
 caar_packed.launches = 0
+caar_packed.storage_launches = 0
 
 
 def caar_packed_rsplit0(scal, hyb, meta, u0, v0, t0, dp0, um1, vm1, tm1,
@@ -130,33 +137,39 @@ def caar_packed_rsplit0(scal, hyb, meta, u0, v0, t0, dp0, um1, vm1, tm1,
     updated IN PLACE. Returns (u1, v1, t1, dp1, phi, vn0u, vn0v, omg,
     etaacc)."""
     out = tuple(torch.empty_like(x) for x in (u0, v0, t0, dp0))
-    phi = torch.empty_like(qdp)
+    phi = torch.empty_like(u0)
     if _caar_step(scal, meta, dvv, (u0, v0, t0, dp0), (um1, vm1, tm1, dpm1),
                   qdp, pecnd, (vn0u, vn0v, omg), out, phi, moist, hyb=hyb,
                   etaacc=etaacc, row=True):
         caar_packed_rsplit0.launches += 1
+        caar_packed_rsplit0.storage_launches += qdp.dtype == _BF16
     return (*out, phi, vn0u, vn0v, omg, etaacc)
 
 
 caar_packed_rsplit0.launches = 0
+caar_packed_rsplit0.storage_launches = 0
 
 
 def pack_problem(state: State, derived: Derived, geom: Geometry,
-                 hv: HybridVCoord, cfg: Config, dtype=torch.float32):
+                 hv: HybridVCoord, cfg: Config, dtype=torch.float32,
+                 storage: str = "f32"):
     """Pack into the row layout on the state's device: dvv, meta [E16, 16]
-    and the 13 fields [E16, nlev] of ``pack_problem_t``'s contract."""
-    f = lambda x: pack_field(x.to(dtype))
+    and the 13 fields [E16, nlev] of ``pack_problem_t``'s contract, its
+    ``storage`` included (caar_pallas.py:415)."""
+    f, aux, ro = _storage_casts(dtype, storage, "pack_problem")
     n0, nm1, qn0 = cfg.n0, cfg.nm1, cfg.qn0
+    p = lambda cast, x: pack_field(cast(x))
     return dict(
         dvv=geom.dvv.to(dtype).contiguous(),
         meta=pack_meta(geom, state.phis, dtype),
-        u0=f(state.u[n0]), v0=f(state.v[n0]),
-        t0=f(state.t[n0]), dp0=f(state.dp3d[n0]),
-        um1=f(state.u[nm1]), vm1=f(state.v[nm1]),
-        tm1=f(state.t[nm1]), dpm1=f(state.dp3d[nm1]),
-        qdp=f(state.qdp[qn0, :, 0]),
-        pecnd=f(derived.pecnd),
-        vn0u=f(derived.vn0_u), vn0v=f(derived.vn0_v), omg=f(derived.omega_p),
+        u0=p(f, state.u[n0]), v0=p(f, state.v[n0]),
+        t0=p(f, state.t[n0]), dp0=p(f, state.dp3d[n0]),
+        um1=p(ro, state.u[nm1]), vm1=p(ro, state.v[nm1]),
+        tm1=p(ro, state.t[nm1]), dpm1=p(ro, state.dp3d[nm1]),
+        qdp=p(aux, state.qdp[qn0, :, 0]),
+        pecnd=p(aux, derived.pecnd),
+        vn0u=p(f, derived.vn0_u), vn0v=p(f, derived.vn0_v),
+        omg=p(f, derived.omega_p),
     )
 
 
@@ -169,16 +182,18 @@ ROW_PACKING = Packing(problem=pack_problem, field=pack_field,
 
 
 def caar(state: State, derived: Derived, geom: Geometry, hv: HybridVCoord,
-         cfg: Config, dt2, eta_ave_w, moist: bool = True, device="cuda"):
+         cfg: Config, dt2, eta_ave_w, moist: bool = True, device="cuda",
+         storage: str = "f32"):
     """Full-state wrapper with the contract of ``caar_array`` on the row
-    layout (counterpart of ``caar_pallas``): pack, one kernel step, unpack.
+    layout (counterpart of ``caar_pallas``): pack (in ``storage``'s
+    contract), one kernel step, unpack.
     ``cfg.rsplit`` = 0 runs ``caar_packed_rsplit0`` and advances
     eta_dot_dpdn at interfaces 1..nlev (interface 0 keeps the old value);
     rsplit>0 ``caar_packed``. Returns (new_state, new_derived) on
     ``device``."""
     step = caar_packed if cfg.rsplit > 0 else caar_packed_rsplit0
     return full_step(step, ROW_PACKING, state, derived, geom, hv, cfg, dt2,
-                     eta_ave_w, moist, device)
+                     eta_ave_w, moist, device, storage)
 
 
 _LF_NAMES = ("u", "v", "t", "dp3d")

@@ -1,5 +1,5 @@
 """The CAAR step on the packed [nlev, E16] layout (counterpart of
-``tinman_sandbox_tpu/kernels/caar_pallas_t.py``, f32 storage).
+``tinman_sandbox_tpu/kernels/caar_pallas_t.py``).
 
 The kernel is ``csrc/caar.cu``. It replaces the Pallas kernels
 ``caar_pallas_packed_t4_lg`` (caar_pallas_t.py:542, the bench headline),
@@ -55,6 +55,17 @@ tensors the plain version takes any).
     ``cfg.rsplit``, and ``run_leapfrog_t`` the production leapfrog loop
     (``run_leapfrog_pallas_t``, rsplit>0 only, as the JAX loop): pack once,
     rotate packed buffers, unpack once.
+  * Mixed-precision storage (``pack_problem_t(storage=)``, ``caar_t(
+    storage=)``; ``STORAGE``): "f32" (the default), "bf16_aux" (qdp and
+    pecnd stored bf16) and "bf16_ro" (also um1, vm1, tm1 and dpm1). Every
+    pair-form entry takes such operands as they come: the n0 state, the
+    accumulators and meta stay f32 (the state's dtype on the CPU), compute
+    and every output too. The kernel reads the bf16 operands itself and
+    upcasts them exactly (``csrc/caar.cu``, kSt), so each mode is, bit for
+    bit, the f32 mode on the same operands upcast; the plain version
+    upcasts them first. Launches in a bf16 mode also count in
+    ``<wrapper>.storage_launches``. The stage mode (``single``) takes f32
+    only (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -85,6 +96,8 @@ __all__ = [
     "caar_packed_rsplit0_t_plain",
     "pack_problem_t",
     "random_packed_problem_t",
+    "STORAGE",
+    "storage_cast",
     "caar_t",
     "run_leapfrog_t",
 ]
@@ -130,6 +143,11 @@ ROW_WINDOW_SLOTS = (13, 14)
 # registers, the stash) where the launch is at least this many waves of 3
 # blocks an SM (experiments/kernel_variants.py rsplit0)
 R0_WAVES = 4
+# the storage contracts of pack_problem_t (caar_pallas_t.py:903) by the code
+# the kernels take (csrc/caar.cu kSt): "bf16_aux" stores qdp and pecnd in
+# bf16, "bf16_ro" also the four nm1 fields
+STORAGE = {"f32": 0, "bf16_aux": 1, "bf16_ro": 2}
+_BF16 = torch.bfloat16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -296,6 +314,9 @@ def _physics_plain(scal, meta, dvv, u, v, t, dp, um1, vm1, tm1, dpm1,
     it is the rsplit=0 step of ``_caar_kernel_t`` (caar_pallas_t.py:265-290)
     and eta_hi the flux at interfaces 1..k; else eta_hi is None."""
     full_precision_matmuls()
+    # the storage operands upcast exactly (bf16 storage; a no-op in f32)
+    um1, vm1, tm1, dpm1, qdp, pecnd = (
+        x.to(u.dtype) for x in (um1, vm1, tm1, dpm1, qdp, pecnd))
     c = CONSTANTS
     k, e16 = u.shape
     ne = e16 // NPSQ
@@ -403,14 +424,21 @@ def caar_t4_plain(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv,
     return out if fix is None else (*out, _slab_plain(s1, fix))
 
 
-def _check(scal, meta, dvv, fields, nlev, hyb=None, row=False, states=()):
+def _check(scal, meta, dvv, fields, nlev, hyb=None, row=False, states=(),
+           aux=(), nm1=None):
     """Validate the operands of one CAAR step on the t ([nlev, E16] fields,
     [16, E16] meta, [nlev, 2] hyb) or the row ([E16, nlev], [E16, 16],
-    [2, nlev]) layout. ``fields`` are single fields; ``states`` are states
-    of four fields (u, v, t, dp), each a 4-tuple of fields or, on the t
-    layout, one stacked [4*nlev, E16] tensor. Returns the device. One pass
-    of cheap tests; the message is made only where one fails."""
-    ref = fields[0]
+    [2, nlev]) layout. ``states`` are states of four fields (u, v, t, dp),
+    each a 4-tuple of fields or, on the t layout, one stacked [4*nlev, E16]
+    tensor, the n0 state first: its dtype is the step's, which every
+    operand holds but the storage operands. ``fields`` are single fields
+    (the accumulators, phi, etaacc); ``aux`` is (qdp, pecnd) and ``nm1``
+    the base state (None in the stage mode), each bf16 or the step's dtype
+    as one of the STORAGE contracts admits (``_storage``). Returns the
+    device. One pass of cheap tests; the message is made only where one
+    fails."""
+    first = states[0]
+    ref = first if isinstance(first, torch.Tensor) else first[0]
     dev, dtype = ref.device, ref.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"caar: needs float fields, got {dtype}")
@@ -422,27 +450,75 @@ def _check(scal, meta, dvv, fields, nlev, hyb=None, row=False, states=()):
     if e16 % NPSQ:
         raise ValueError(f"caar: E16={e16} is not a multiple of {NPSQ}")
     one = (e16, nlev) if row else (nlev, e16)
+    exact, stored = (dtype,), (dtype, _BF16)
     want = [(meta, (e16, len(META_COLS)) if row else (len(META_COLS), e16),
-             "meta"), (dvv, (4, 4), "dvv"), (scal, (1, 4), "scal")]
+             "meta", exact), (dvv, (4, 4), "dvv", exact),
+            (scal, (1, 4), "scal", exact)]
     if hyb is not None:
-        want.append((hyb, (2, nlev) if row else (nlev, 2), "hyb"))
-    for st in states:
+        want.append((hyb, (2, nlev) if row else (nlev, 2), "hyb", exact))
+
+    def add(st, name, names, dtypes):
         if isinstance(st, torch.Tensor):
-            want.append((st, (4 * nlev, e16), "a stacked state"))
+            want.append((st, (4 * nlev, e16), name, dtypes))
         else:
-            want += [(x, one, "a state's field") for x in st]
-    want += [(x, one, "a field") for x in fields]
-    for x, shape, name in want:
-        if x.shape != shape or x.dtype is not dtype or x.device != dev or \
+            want.extend((x, one, n, dtypes) for x, n in zip(st, names))
+
+    for st in states:
+        add(st, "a stacked state", ("a state's field",) * 4, exact)
+    if nm1 is not None:
+        add(nm1, "sm1", _NM1_NAMES, stored)
+    want += [(x, one, n, stored) for x, n in zip(aux, ("qdp", "pecnd"))]
+    want += [(x, one, "a field", exact) for x in fields]
+    for x, shape, name, dtypes in want:
+        if x.shape != shape or x.dtype not in dtypes or x.device != dev or \
                 not x.is_contiguous():
             if tuple(x.shape) != shape:
                 raise ValueError(f"caar: {name} has shape {tuple(x.shape)},"
                                  f" expected {shape}")
-            if x.device != dev or x.dtype != dtype:
-                raise ValueError(f"caar: {name} is {x.dtype} on {x.device}, "
-                                 f"expected {dtype} on {dev}")
+            if x.device != dev or x.dtype not in dtypes:
+                raise ValueError(
+                    f"caar: {name} is {x.dtype} on {x.device}, expected "
+                    f"{' or '.join(map(str, dtypes))} on {dev}")
             raise ValueError(f"caar: {name} must be contiguous")
+    _storage(aux, nm1)
     return dev
+
+
+_NM1_NAMES = ("um1", "vm1", "tm1", "dpm1")
+
+
+def _storage(aux, nm1) -> int:
+    """The STORAGE code of dtype-checked storage operands: ``aux`` = (qdp,
+    pecnd), ``nm1`` the base state (stacked, a 4-tuple, or None in the stage
+    mode). Raises, naming the field, on a mix that no contract holds: qdp
+    and pecnd bf16 together, the four nm1 fields bf16 together and only with
+    them, and no bf16 in the stage mode (the JAX stage kernel takes bf16
+    only from ``bench --prim --storage``: ROADMAP A6)."""
+    qdp, pecnd = aux
+    if (qdp.dtype == _BF16) != (pecnd.dtype == _BF16):
+        raise ValueError(f"caar: qdp is {qdp.dtype} but pecnd is "
+                         f"{pecnd.dtype}: bf16 storage stores qdp and pecnd "
+                         "together (bf16_aux)")
+    code = int(qdp.dtype == _BF16)
+    if nm1 is None:
+        if code:
+            raise ValueError("caar: bf16 qdp and pecnd in the stage mode "
+                             "(sm1=None), which takes float32 only (bench "
+                             "--prim --storage: ROADMAP A6)")
+        return code
+    base = (nm1,) * 4 if isinstance(nm1, torch.Tensor) else tuple(nm1)
+    bf = [x.dtype == _BF16 for x in base]
+    if any(bf) != all(bf):
+        lone = _NM1_NAMES[bf.index(True)]
+        other = _NM1_NAMES[bf.index(False)]
+        raise ValueError(f"caar: {lone} is bfloat16 but {other} is "
+                         f"{base[bf.index(False)].dtype}: bf16_ro stores the "
+                         "four nm1 fields together")
+    if bf[0] and not code:
+        raise ValueError(f"caar: {_NM1_NAMES[0]} and the other nm1 fields "
+                         "are bfloat16 but qdp and pecnd are not: bf16_ro "
+                         "stores qdp and pecnd in bf16 too")
+    return 2 if bf[0] else code
 
 
 def _new_slab(fix, ref: torch.Tensor, nlev: int):
@@ -466,9 +542,10 @@ def _blocks(state, nlev: int):
 
 
 def _addresses(state, nlev: int) -> list:
-    """The device addresses of a state's four fields (float32)."""
+    """The device addresses of a state's four fields."""
     if isinstance(state, torch.Tensor):
-        base, step = state.data_ptr(), nlev * state.shape[1] * 4
+        base = state.data_ptr()
+        step = nlev * state.shape[1] * state.element_size()
         return [base + i * step for i in range(4)]
     return [x.data_ptr() for x in state]
 
@@ -483,15 +560,16 @@ def _caar_step(scal, meta, dvv, s0, sm1, qdp, pecnd, acc, out, phi, moist,
     fix-lane rows of out. ``sm1=None`` is the Runge-Kutta stage (base state
     = s0, not fetched again); ``phi=None`` stores no geopotential. With
     ``hyb`` and ``etaacc`` it is the rsplit=0 step, etaacc updated in place.
-    Returns True where it launched the kernel (CUDA tensors), False where
-    the plain version ran (CPU tensors)."""
+    qdp, pecnd and sm1 may be bf16 (the STORAGE contracts). Returns True
+    where it launched the kernel (CUDA tensors), False where the plain
+    version ran (CPU tensors)."""
     nlev = qdp.shape[1 if row else 0]
     single = sm1 is None
     r0 = etaacc is not None
     dev = _check(scal, meta, dvv,
-                 (qdp, pecnd, *acc, *(() if phi is None else (phi,)),
+                 (*acc, *(() if phi is None else (phi,)),
                   *(() if etaacc is None else (etaacc,))), nlev, hyb, row,
-                 (s0, out) if single else (s0, sm1, out))
+                 (s0, out), (qdp, pecnd), sm1)
     if dev.type == "cpu":
         tr = (lambda x: x.T) if row else (lambda x: x)
         s0, out = _blocks(s0, nlev), _blocks(out, nlev)
@@ -515,6 +593,10 @@ def _caar_step(scal, meta, dvv, s0, sm1, qdp, pecnd, acc, out, phi, moist,
     p = (caar_row_plan(qdp.shape[0], nlev, r0) if row
          else caar_plan(qdp.shape[1], nlev, r0))
     plan = (p.chunks, p.levels, int(p.stash), p.blocks_per_sm)
+    storage = _storage((qdp, pecnd), sm1)
+    if storage and row and (qdp.data_ptr() % 4 or pecnd.data_ptr() % 4):
+        raise ValueError("caar: bf16 qdp and pecnd on the row layout must "
+                         "be 4-byte aligned (the kernel loads pairs)")
     ptr = lambda x: 0 if x is None else x.data_ptr()
     c = CONSTANTS
     # hybi(k) and hybi(k+1) as two strided vectors of hyb, whichever layout
@@ -527,18 +609,20 @@ def _caar_step(scal, meta, dvv, s0, sm1, qdp, pecnd, acc, out, phi, moist,
         ptr(hyb), 0 if hyb is None else hyb.data_ptr() + (
             nlev if row else 1) * hyb.element_size(), ptr(etaacc),
         nlev, qdp.shape[0 if row else 1], qdp.stride(0), int(bool(moist)),
-        4 * nlev, hs, int(row), *plan, c.Rgas, c.kappa, c.rgas_over_rvap_m1,
+        4 * nlev, hs, int(row), *plan, storage, c.Rgas, c.kappa,
+        c.rgas_over_rvap_m1,
         c.rrearth, torch.cuda.current_stream(dev).cuda_stream, dev.index)
     _build.check_launch("caar", err)
     return True
 
 
-def _count_t4(slab, single):
+def _count_t4(slab, single, qdp):
     caar_t4_cuda.launches += 1
     if slab is not None:
         caar_t4_cuda.slab_launches += 1
     if single:
         caar_t4_cuda.single_launches += 1
+    caar_t4_cuda.storage_launches += qdp.dtype == _BF16
 
 
 def caar_t4_cuda(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv,
@@ -566,11 +650,11 @@ def caar_t4_cuda(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv,
         raise ValueError(f"caar: s0/sm1 need {4 * k} rows, got {s0.shape[0]}"
                          + ("" if single else f"/{sm1.shape[0]}"))
     s1 = torch.empty_like(s0)
-    phi = torch.empty_like(qdp) if emit_phi else None
-    slab = _new_slab(fix, qdp, k)
+    phi = s0.new_empty(qdp.shape) if emit_phi else None
+    slab = _new_slab(fix, s0, k)
     if _caar_step(scal, meta, dvv, s0, None if single else sm1, qdp, pecnd,
                   (vn0u, vn0v, omg), s1, phi, moist, fix, slab):
-        _count_t4(slab, single)
+        _count_t4(slab, single, qdp)
     out = (s1, phi, vn0u, vn0v, omg)
     return out if fix is None else (*out, slab)
 
@@ -578,6 +662,8 @@ def caar_t4_cuda(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv,
 caar_t4_cuda.launches = 0
 caar_t4_cuda.slab_launches = 0     # the launches among them with a slab
 caar_t4_cuda.single_launches = 0   # the launches among them in stage mode
+caar_t4_cuda.storage_launches = 0  # those in a bf16 storage mode (with
+                                   # caar_packed_t's)
 
 
 def caar_packed_t(scal, meta, u0, v0, t0, dp0, um1, vm1, tm1, dpm1,
@@ -588,11 +674,11 @@ def caar_packed_t(scal, meta, u0, v0, t0, dp0, um1, vm1, tm1, dpm1,
     Returns (u1, v1, t1, dp1, phi, vn0u, vn0v, omg), and with ``fix`` the
     fix-lane slab [nfix, 4*nlev] (u/v/t/dp column blocks) last."""
     out = tuple(torch.empty_like(x) for x in (u0, v0, t0, dp0))
-    phi = torch.empty_like(qdp)
-    slab = _new_slab(fix, qdp, qdp.shape[0])
+    phi = torch.empty_like(u0)
+    slab = _new_slab(fix, u0, qdp.shape[0])
     if _caar_step(scal, meta, dvv, (u0, v0, t0, dp0), (um1, vm1, tm1, dpm1),
                   qdp, pecnd, (vn0u, vn0v, omg), out, phi, moist, fix, slab):
-        _count_t4(slab, False)
+        _count_t4(slab, False, qdp)
     res = (*out, phi, vn0u, vn0v, omg)
     return res if fix is None else (*res, slab)
 
@@ -621,38 +707,74 @@ def caar_packed_rsplit0_t(scal, hyb, meta, u0, v0, t0, dp0, um1, vm1, tm1,
     interfaces 1..nlev. The four accumulators are updated IN PLACE. Returns
     (u1, v1, t1, dp1, phi, vn0u, vn0v, omg, etaacc)."""
     out = tuple(torch.empty_like(x) for x in (u0, v0, t0, dp0))
-    phi = torch.empty_like(qdp)
+    phi = torch.empty_like(u0)
     if _caar_step(scal, meta, dvv, (u0, v0, t0, dp0), (um1, vm1, tm1, dpm1),
                   qdp, pecnd, (vn0u, vn0v, omg), out, phi, moist, hyb=hyb,
                   etaacc=etaacc):
         caar_packed_rsplit0_t.launches += 1
+        caar_packed_rsplit0_t.storage_launches += qdp.dtype == _BF16
     return (*out, phi, vn0u, vn0v, omg, etaacc)
 
 
 caar_packed_rsplit0_t.launches = 0
+caar_packed_rsplit0_t.storage_launches = 0
+
+
+def _storage_casts(dtype, storage: str, name: str):
+    """The casts of ``pack_problem_t``'s storage contract: (f, aux, ro), each
+    a field to the packed dtype, aux for qdp and pecnd, ro for the nm1
+    fields; a bf16 field is cast from the state's own dtype, as the JAX
+    package's ``jnp.asarray(x, jnp.bfloat16)``. Raises on a storage name
+    the JAX package refuses."""
+    if storage not in STORAGE:
+        raise ValueError(f"{name}: storage={storage!r}, expected one of "
+                         f"{tuple(STORAGE)}")
+    f = lambda x: x.to(dtype)
+    bf = lambda x: x.to(_BF16)
+    return (f, bf if storage != "f32" else f,
+            bf if storage == "bf16_ro" else f)
 
 
 def pack_problem_t(state: State, derived: Derived, geom: Geometry,
-                   hv: HybridVCoord, cfg: Config, dtype=torch.float32):
-    """Pack into the kernel layout on the state's device (the f32 storage
-    contract of the JAX package; on the CPU any float dtype)."""
-    f = lambda x: pack_field_t(x.to(dtype))
+                   hv: HybridVCoord, cfg: Config, dtype=torch.float32,
+                   storage: str = "f32"):
+    """Pack into the kernel layout on the state's device (on the CPU any
+    float dtype). ``storage`` is the JAX package's mixed-precision contract
+    (``STORAGE``): "f32", "bf16_aux" (qdp and pecnd in bf16) or "bf16_ro"
+    (also the four nm1 fields); every other operand is ``dtype``."""
+    f, aux, ro = _storage_casts(dtype, storage, "pack_problem_t")
     n0, nm1, qn0 = cfg.n0, cfg.nm1, cfg.qn0
+    p = lambda cast, x: pack_field_t(cast(x))
     return dict(
         dvv=geom.dvv.to(dtype).contiguous(),
         meta=pack_meta_t(geom, state.phis, dtype),
-        u0=f(state.u[n0]), v0=f(state.v[n0]),
-        t0=f(state.t[n0]), dp0=f(state.dp3d[n0]),
-        um1=f(state.u[nm1]), vm1=f(state.v[nm1]),
-        tm1=f(state.t[nm1]), dpm1=f(state.dp3d[nm1]),
-        qdp=f(state.qdp[qn0, :, 0]),
-        pecnd=f(derived.pecnd),
-        vn0u=f(derived.vn0_u), vn0v=f(derived.vn0_v), omg=f(derived.omega_p),
+        u0=p(f, state.u[n0]), v0=p(f, state.v[n0]),
+        t0=p(f, state.t[n0]), dp0=p(f, state.dp3d[n0]),
+        um1=p(ro, state.u[nm1]), vm1=p(ro, state.v[nm1]),
+        tm1=p(ro, state.t[nm1]), dpm1=p(ro, state.dp3d[nm1]),
+        qdp=p(aux, state.qdp[qn0, :, 0]),
+        pecnd=p(aux, derived.pecnd),
+        vn0u=p(f, derived.vn0_u), vn0v=p(f, derived.vn0_v),
+        omg=p(f, derived.omega_p),
     )
 
 
+def storage_cast(p: dict, storage: str) -> dict:
+    """A packed f32 problem dict put in ``storage``'s contract in place (the
+    JAX bench's post-init cast of its direct-packed problem, bench.py:
+    294-302): qdp and pecnd to bf16, with "bf16_ro" the nm1 fields too.
+    Returns ``p``."""
+    _storage_casts(torch.float32, storage, "storage_cast")
+    names = {"f32": (), "bf16_aux": ("qdp", "pecnd"),
+             "bf16_ro": ("qdp", "pecnd", *_NM1_NAMES)}[storage]
+    for name in names:
+        p[name] = p[name].to(_BF16)
+    return p
+
+
 def random_packed_problem_t(cfg: Config, seed: int = 1,
-                            geom: Geometry | None = None, device="cuda"):
+                            geom: Geometry | None = None, device="cuda",
+                            storage: str = "f32"):
     """The packed f32 problem dict of ``pack_problem_t`` drawn directly on
     the device at [nlev, E16] from a ``torch.Generator`` seeded with
     ``seed``: the unpacked [tl, nelem, nlev, 4, 4] state is never made, which
@@ -661,7 +783,9 @@ def random_packed_problem_t(cfg: Config, seed: int = 1,
     pecnd U(0, 1), zero accumulators. With ``geom`` (a real cubed sphere's
     geometry, as an assembled bench needs) meta is its packed metric rows
     (phis 0) and dvv its operator; without, the metric rows are O(1)
-    random with rmetdet = 1/metdet and zero pads, and dvv ``dvv_matrix``."""
+    random with rmetdet = 1/metdet and zero pads, and dvv ``dvv_matrix``.
+    ``storage`` casts the drawn f32 fields into its contract after the draw
+    (``storage_cast``), as the JAX bench does."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     e16, k = cfg.nelem * NPSQ, cfg.nlev
@@ -684,7 +808,7 @@ def random_packed_problem_t(cfg: Config, seed: int = 1,
         p[name] = u(lo, hi)
     for name in ("vn0u", "vn0v", "omg"):
         p[name] = torch.zeros(k, e16, dtype=torch.float32, device=dev)
-    return p
+    return storage_cast(p, storage)
 
 
 def _scalars(dt2, eta_ave_w, hv: HybridVCoord, dtype, device):
@@ -700,23 +824,26 @@ def _on(device, *objs):
 
 
 def caar_t(state: State, derived: Derived, geom: Geometry, hv: HybridVCoord,
-           cfg: Config, dt2, eta_ave_w, moist: bool = True, device="cuda"):
+           cfg: Config, dt2, eta_ave_w, moist: bool = True, device="cuda",
+           storage: str = "f32"):
     """Full-state wrapper with the contract of ``caar_array`` on the packed
-    layout (counterpart of ``caar_pallas_t``): pack, one kernel step, unpack.
+    layout (counterpart of ``caar_pallas_t``): pack (in ``storage``'s
+    contract, ``pack_problem_t``), one kernel step, unpack.
     ``cfg.rsplit`` = 0 runs ``caar_packed_rsplit0_t`` and advances
     eta_dot_dpdn at interfaces 1..nlev (interface 0 keeps the old value);
     rsplit>0 ``caar_packed_t``, eta_dot_dpdn unchanged. Returns (new_state,
-    new_derived) on ``device``."""
+    new_derived) on ``device``, in the state's dtype."""
     step = caar_packed_t if cfg.rsplit > 0 else caar_packed_rsplit0_t
     return full_step(step, T_PACKING, state, derived, geom, hv, cfg, dt2,
-                     eta_ave_w, moist, device)
+                     eta_ave_w, moist, device, storage)
 
 
 @dataclasses.dataclass(frozen=True)
 class Packing:
     """How one packed layout packs a problem: ``problem`` (the operand dict
-    of ``pack_problem_t``'s contract), ``field`` and ``unfield`` (one
-    field), ``hyb`` (hybi to the layout's [nlev, 2] or [2, nlev])."""
+    of ``pack_problem_t``'s contract, its ``storage=`` included), ``field``
+    and ``unfield`` (one field), ``hyb`` (hybi to the layout's [nlev, 2] or
+    [2, nlev])."""
 
     problem: object
     field: object
@@ -734,14 +861,15 @@ T_PACKING = Packing(problem=pack_problem_t, field=pack_field_t,
 
 def full_step(step, packing: Packing, state: State, derived: Derived,
               geom: Geometry, hv: HybridVCoord, cfg: Config, dt2, eta_ave_w,
-              moist: bool = True, device="cuda"):
+              moist: bool = True, device="cuda", storage: str = "f32"):
     """One full-state step through the packed ``step`` (a pair step, or with
-    ``cfg.rsplit`` = 0 an rsplit=0 step) on ``packing``'s layout: pack,
-    step, unpack into time level np1 and the derived state. Any step of the
-    wrapper's call form serves, its plain version included."""
+    ``cfg.rsplit`` = 0 an rsplit=0 step) on ``packing``'s layout: pack (in
+    ``storage``'s contract), step, unpack into time level np1 and the
+    derived state. Any step of the wrapper's call form serves, its plain
+    version included."""
     dev, (state, derived, geom, hv) = _on(device, state, derived, geom, hv)
     dtype = state.u.dtype
-    p = packing.problem(state, derived, geom, hv, cfg, dtype)
+    p = packing.problem(state, derived, geom, hv, cfg, dtype, storage)
     scal = _scalars(dt2, eta_ave_w, hv, dtype, dev)
     args = (p["u0"], p["v0"], p["t0"], p["dp0"], p["um1"], p["vm1"],
             p["tm1"], p["dpm1"], p["qdp"], p["pecnd"], p["vn0u"], p["vn0v"],

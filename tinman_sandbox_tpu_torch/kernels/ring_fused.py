@@ -16,8 +16,10 @@ fixup and the patch (``kernels/dss.py``) complete the DSS.
     replaces ``caar_ring_packed_t4``, ring_fused.py:189): the CAAR step on
     stacked [4*nlev, E16] states, pair or stage mode (``single``,
     ``emit_phi``), the sweep's ``mix`` epilogue, the accumulators IN PLACE
-    and the fix-lane slab [nfix, 4*nlev]. Its tiles are the chunked CAAR
-    kernel's 32 columns (``ring_plan``: the producer's plan, the halo and
+    and the fix-lane slab [nfix, 4*nlev]; in the pair form sm1, qdp and
+    pecnd may be bf16 (``caar_t.STORAGE``; the CAAR kernel's storage
+    instances, counted also in ``caar_ring_packed_t4.storage_launches``).
+    Its tiles are the chunked CAAR kernel's 32 columns (``ring_plan``: the producer's plan, the halo and
     the schedule), its sweep runs on float4 groups, and each tile's s1
     lines are discarded from L2 once its last reader is done.
     ``caar_ring_plain`` is ``caar_t4_plain(fix=)`` followed by
@@ -59,9 +61,10 @@ import torch
 from ..config import NP, NPSQ
 from ..constants import CONSTANTS
 from . import _build
-from .caar_t import RING_TILE
+from .caar_t import _BF16, RING_TILE
 from .caar_t import _check as _caar_check
 from .caar_t import _new_slab as _caar_slab
+from .caar_t import _storage as _caar_storage
 from .caar_t import CaarPlan, caar_ring_plan, caar_t4_cuda, caar_t4_plain
 from .dss import (FixTables, _check_rsp, _overlap, _stream,
                   dss_sweep_nomerge_plain)
@@ -340,8 +343,8 @@ def caar_ring_packed_t4(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg,
     if s0.shape[0] != 4 * k or (not single and sm1.shape[0] != 4 * k):
         raise ValueError(f"caar_ring: s0/sm1 need {4 * k} rows")
     mx, ca, cb = _check_ring("caar_ring", s0, rsp, fix, mix)
-    dev = _caar_check(scal, meta, dvv, (qdp, pecnd, vn0u, vn0v, omg), k,
-                      states=(s0,) if single else (s0, sm1))
+    dev = _caar_check(scal, meta, dvv, (vn0u, vn0v, omg), k, states=(s0,),
+                      aux=(qdp, pecnd), nm1=None if single else sm1)
     if dev.type == "cpu":
         s1, phi, *acc, slab = caar_t4_cuda(
             scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv,
@@ -358,8 +361,9 @@ def caar_ring_packed_t4(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg,
     for op, t in (("rsp", rsp), ("mix field", mx), ("w", w)):
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"caar_ring: {op} must be 16-byte aligned")
-    phi = torch.empty_like(qdp) if emit_phi else None
-    slab = _caar_slab(fix, qdp, k)
+    phi = s0.new_empty(qdp.shape) if emit_phi else None
+    slab = _caar_slab(fix, s0, k)
+    storage = _caar_storage((qdp, pecnd), None if single else sm1)
     state = _new_state(s0, 1 + 2 * plan.nb)
     ptr = lambda x: 0 if x is None else x.data_ptr()
     c = CONSTANTS
@@ -371,14 +375,16 @@ def caar_ring_packed_t4(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg,
         ptr(rsp), ptr(mx), ptr(w), ptr(state), state.numel(), k, s0.shape[1],
         int(bool(moist)), rsp.shape[0], fix.ne, plan.geo.halo, plan.lag,
         plan.caar.tile, plan.caar.chunks, plan.caar.levels,
-        int(plan.caar.stash), c.Rgas, c.kappa, c.rgas_over_rvap_m1,
+        int(plan.caar.stash), storage, c.Rgas, c.kappa, c.rgas_over_rvap_m1,
         c.rrearth, ca, cb, _stream(dev), dev.index)
     _build.check_launch("caar", err)
     caar_ring_packed_t4.launches += 1
+    caar_ring_packed_t4.storage_launches += qdp.dtype == _BF16
     return w, phi, vn0u, vn0v, omg, slab
 
 
 caar_ring_packed_t4.launches = 0
+caar_ring_packed_t4.storage_launches = 0
 
 
 def tracer_ring_plain(meta, vu, vv, q, dvv, dt, nlev: int, rsp,

@@ -227,18 +227,21 @@ def _graph_ms(chain, n: int, replays: int, dev: torch.device) -> float:
     return ms
 
 
-def stage_time(chain, n: int, device="cuda") -> dict:
+def stage_time(chain, n: int, device="cuda", reps: int = STAGE_REPS,
+               graph: bool = True) -> dict:
     """Times of one stage. ``chain(n)`` runs ``n`` chained calls of the
     stage (each call's output the next call's input), from the same start
     at every run; one call of ``chain(1)`` warms up first (the kernels'
     build included). Returns, in ms a call:
 
-      * ``ms``: the best of STAGE_REPS runs of ``chain(n)`` timed by CUDA
-        events, with a device sync at the end;
+      * ``ms``: the best of ``reps`` (STAGE_REPS) runs of ``chain(n)`` timed
+        by CUDA events, with a device sync at the end;
       * ``graph_ms``: ``chain(n)`` captured in a CUDA graph and replayed
-        GRAPH_REPLAYS times (the device alone); None where the chain's own
-        memory would not fit twice (``graph_note`` says why: the graph's
-        pool holds its tensors beside the eager ones);
+        GRAPH_REPLAYS times (the device alone); None without ``graph`` (a
+        chain that copies from the host each call cannot be captured) and
+        where the chain's own memory would not fit twice (``graph_note``
+        says why: the graph's pool holds its tensors beside the eager
+        ones);
       * ``host_ms``: the host's time to issue the calls of the best run
         (``time.perf_counter`` before the sync);
       * ``peak_bytes``: the device memory one eager run took beyond what
@@ -248,10 +251,12 @@ def stage_time(chain, n: int, device="cuda") -> dict:
     dev = resolve_device(device)
     if n < 1:
         raise ValueError(f"stage_time: n must be >= 1, got {n}")
+    if reps < 1:
+        raise ValueError(f"stage_time: reps must be >= 1, got {reps}")
     chain(1)
     if dev.type != "cuda":
         best = float("inf")
-        for _ in range(STAGE_REPS):
+        for _ in range(reps):
             t0 = time.perf_counter()
             chain(n)
             best = min(best, time.perf_counter() - t0)
@@ -264,7 +269,7 @@ def stage_time(chain, n: int, device="cuda") -> dict:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     best = best_host = float("inf")
-    for _ in range(STAGE_REPS):
+    for _ in range(reps):
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         start.record()
@@ -278,6 +283,9 @@ def stage_time(chain, n: int, device="cuda") -> dict:
     peak = torch.cuda.max_memory_allocated(dev) - base
     out = {"ms": best / n, "graph_ms": None, "host_ms": best_host * 1e3 / n,
            "peak_bytes": peak, "clock": "cuda events"}
+    if not graph:
+        out["graph_note"] = "not measured: the chain cannot be captured"
+        return out
     torch.cuda.empty_cache()
     free = torch.cuda.mem_get_info(dev)[0]
     if peak > GRAPH_MEMORY_SHARE * free:

@@ -11,7 +11,9 @@ stage breakdowns of the step, timed by CUDA events, from CUDA graphs and by
 the host's issue time (``profile_prim``: dynamics, hyperviscosity,
 tracers; ``profile_dss``: the CAAR kernel, the DSS and its parts;
 ``profile_limiter``: the limited tracer stage by the differences of a
-ladder; ``profile_dss_ne120``: the assembled step at ne120).
+ladder; ``profile_dss_ne120``: the assembled step at ne120), and the
+assembled-step variants on both layouts and in bf16 storage
+(``bench_assembled``).
 ``bench_ne120_kernel`` of the JAX repository has no counterpart: every
 variant it times is a TPU option, and ``bench --nelem 86400`` times the
 chunked CAAR kernel at ne120."""

@@ -317,13 +317,15 @@ def gates(const, s0, qdp, plan, rsp, dt: float, gdof,
 
 def launches_of(fn) -> dict:
     """Kernel launches of one call of ``fn``, by wrapper."""
+    from ..kernels.caar import caar_packed
     from ..kernels.caar_t import caar_t4_cuda
     from ..kernels.dss import dss_extract_cuda, dss_fixup_cuda, dss_sweep_cuda
     from ..kernels.hypervis_t import vlap_cuda
     from ..kernels.tracer_t import tracer_euler_cuda, tracer_limit_cuda
 
-    ws = (caar_t4_cuda, vlap_cuda, tracer_euler_cuda, tracer_limit_cuda,
-          dss_extract_cuda, dss_fixup_cuda, dss_sweep_cuda)
+    ws = (caar_t4_cuda, caar_packed, vlap_cuda, tracer_euler_cuda,
+          tracer_limit_cuda, dss_extract_cuda, dss_fixup_cuda,
+          dss_sweep_cuda)
     before = [w.launches for w in ws]
     fn()
     return {w.__name__: w.launches - b for w, b in zip(ws, before)
@@ -331,19 +333,21 @@ def launches_of(fn) -> dict:
 
 
 def time_stages(stage_iter, nexec: int, device, card,
-                rename=None, gridpoints=None) -> list:
+                rename=None, gridpoints=None, reps=None, graph=True) -> list:
     """One line a stage of ``stage_iter`` ({name: {...}}, in its order), each
     timed by ``profiling.stage_time`` as its stage comes (the tools' common
     line: us_per_call, graph_us_per_call or its graph_note,
     host_us_per_call, the clock, the launches of one call, the card);
     ``rename`` maps a stage's name to the name it is printed under;
-    ``gridpoints(name)`` adds the JAX tools' ggp_per_s."""
-    from ..profiling import stage_time
+    ``gridpoints(name)`` adds the JAX tools' ggp_per_s; ``reps`` the timed
+    runs (``stage_time``'s, STAGE_REPS by default); without ``graph`` no
+    stage is captured in a CUDA graph."""
+    from ..profiling import STAGE_REPS, stage_time
 
     lines = []
     for name, chain in stage_iter:
         launches = launches_of(lambda: chain(1))
-        t = stage_time(chain, nexec, device)
+        t = stage_time(chain, nexec, device, reps or STAGE_REPS, graph)
         line = {"us_per_call": t["ms"] * 1e3}
         if gridpoints is not None:
             line["ggp_per_s"] = gridpoints(name) / (t["ms"] * 1e-3) / 1e9
