@@ -354,8 +354,34 @@ NVIDIA card and check it, phase by phase:
      ``bench --storage`` in f32 and both storages (raw on both layouts,
      ``--ne 30``, ``--ne 30 --ring``), each line's bytes the f32 count less
      2 bytes an element of each bf16 field.
+ 30. the bf16 operands of ``bench --prim / --rk --storage``: the CAAR stage
+     mode with bf16 qdp and pecnd (contract a) and with an f32 qdp beside a
+     bf16 pecnd (contract b), with and without phi and the slab, in the
+     bench and vort cases at 1024 x 72 and ne30 x 72; the Euler and limited
+     tracer stages with a bf16 q and the limited stage with a bf16 mix
+     field, at qsize 1 and 35, at the run's dt and a long one; the merged
+     sweep with a bf16 mix field at 72 and 2,520 rows: each bit for bit the
+     same kernel on the upcast operands, within 5e-5 of its plain version
+     (the sweep bit for bit), the storage launch counters up by the bf16
+     calls; the new instances' blocks an SM and registers; their times from
+     CUDA graphs beside the f32 instance's, each with its bound. Then,
+     launch counts set to 0 just before and read just after, 10 chained
+     ne30 ``prim_step_packed_t4`` steps from ``make_prim_problem(storage=
+     "bf16_aux")``, unlimited at qsize 1 and limited at qsize 35, each step
+     within 5e-5 of the plain step from its input, continuity 0, the first
+     step's tracer mass within 1e-6 of its bf16 input's (the JAX package's
+     bf16 Shu-Osher pair would add 2**-9), min qdp above the bounds gate;
+     ``bench --ne 30 --prim --storage bf16_aux`` (also ``--limit --qsize
+     35`` and ``--limit-iters 1``) and ``--rk --storage bf16_ro``, their
+     bytes the f32 count less the bf16 reads of the timed steps; the
+     field-form ``ssprk3_step`` at rsplit=0 on the card against the CPU in
+     f64 at ne 4 (1e-12, eta_dot_dpdn included); a non-blocking
+     ``save_checkpoint_dir`` of the ne30 state, 10 prim steps written in
+     place, ``finish_async_checkpoints`` and a load equal to the state at
+     the call bit for bit, with the host ms the save call blocked beside
+     the blocking npz save's.
 
-Phases 22-29 run after phase 21, before the lines of phase 17.
+Phases 22-30 run after phase 21, before the lines of phase 17.
 
 Any failure raises and exits non-zero before the result line is printed.
 Run from the repository root: ``python3 chip_smoke.py``.
@@ -549,6 +575,24 @@ STORAGE_WRAPPER = {"t4": "caar_t4_cuda", "t": "caar_t4_cuda",
                    "row r0": "caar_packed_rsplit0",
                    "ring": "caar_ring_packed_t4",
                    "ring mix": "caar_ring_packed_t4"}
+
+
+# phase 30: the bf16 operands that the JAX package's full step hands its
+# stage, tracer and sweep kernels under bench --prim / --rk --storage:
+# each instance against the same kernel on the upcast
+# operands (bit for bit) and its plain version (CAAR_TOL); the chains a
+# step against the plain step from its input (CAAR_TOL); the first bf16
+# tracer step's mass against its upcast input's (PRIM_MASS_TOL: JAX's bf16
+# Shu-Osher pair would add 2**-9 of it)
+PRIM_STORAGE_STEPS = 10
+PRIM_MASS_TOL = 1e-6
+# the field-form SSPRK3 step at rsplit=0 on the card against the CPU, f64
+R0_FIELD_NE = 4
+R0_FIELD_NLEV = 8
+R0_FIELD_TOL = 1e-12
+# the directory checkpoint's scratch, under the gitignored build/
+CKPT_DIR = os.path.join("build", "chip_smoke_checkpoints")
+
 
 
 def card_line() -> str:
@@ -5605,17 +5649,22 @@ def call_bytes(args, out) -> int:
 
 
 def storage_counts():
-    """The storage launch counters of the five CAAR wrappers."""
+    """The storage launch counters of the five CAAR wrappers, the two tracer
+    stages and the sweep."""
     from tinman_sandbox_tpu_torch.kernels.caar import (
         caar_packed, caar_packed_rsplit0)
     from tinman_sandbox_tpu_torch.kernels.caar_t import (
         caar_packed_rsplit0_t, caar_t4_cuda)
+    from tinman_sandbox_tpu_torch.kernels.dss import dss_sweep_cuda
     from tinman_sandbox_tpu_torch.kernels.ring_fused import (
         caar_ring_packed_t4)
+    from tinman_sandbox_tpu_torch.kernels.tracer_t import (
+        tracer_euler_cuda, tracer_limit_cuda)
 
     return {w.__name__: w.storage_launches
             for w in (caar_t4_cuda, caar_packed_rsplit0_t, caar_packed,
-                      caar_packed_rsplit0, caar_ring_packed_t4)}
+                      caar_packed_rsplit0, caar_ring_packed_t4,
+                      tracer_euler_cuda, tracer_limit_cuda, dss_sweep_cuda)}
 
 
 def storage_plans(dev, ncol: int, nlev: int) -> None:
@@ -5952,6 +6001,527 @@ def phase_storage_path(dev, cs) -> dict:
     return results
 
 
+def held(tag: str, kern, plain, build):
+    """``kern`` on the bf16 operands ``build(False)`` against ``kern`` on the
+    same operands upcast (``build(True)``, the f32 mode), bit for bit, and
+    against ``plain`` on the bf16 operands (which upcasts them), each
+    output within CAAR_TOL scaled, all f32 and finite. ``build`` makes fresh
+    operands each call (the CAAR accumulators are updated in place).
+    Returns (worst scaled error against plain, max abs error)."""
+    import torch
+
+    got = flat_outputs(kern(*build(False)))
+    up = flat_outputs(kern(*build(True)))
+    want = flat_outputs(plain(*build(False)))
+    torch.cuda.synchronize()
+    same = len(got) == len(up) and all(torch.equal(g, u)
+                                       for g, u in zip(got, up))
+    errs = [scaled_err(g, w) for g, w in zip(got, want)]
+    if not same or len(got) != len(want) or max(errs) > CAAR_TOL or \
+            any(g.dtype != torch.float32 for g in got) or \
+            not all(bool(torch.isfinite(g).all()) for g in got):
+        raise AssertionError(f"phase 30 {tag}: bits {same}, plain {errs}")
+    return max(errs), max(float((g.double() - w.double()).abs().max())
+                          for g, w in zip(got, want))
+
+
+def upcast_bf16(x, up: bool):
+    """x upcast to f32 where ``up`` and x is bf16, else x."""
+    import torch
+
+    return x.float() if up and x.dtype == torch.bfloat16 else x
+
+
+def phase_prim_storage_kernels(dev, cs) -> dict:
+    """Phase 30's kernel instances: the CAAR stage mode (row 5) in contracts
+    (a) bf16 qdp and pecnd and (b) f32 qdp beside a bf16 pecnd, with and
+    without phi and the slab, in the bench and vort cases at 1024 x 72 and
+    ne30 x 72; the Euler and limited tracer stages (rows 11-14) with a bf16
+    q and the limited stage with a bf16 mix field, at qsize 1 and
+    QSIZE_TALL, at the run's dt and a long one; the merged sweep (rows
+    20/23) with a bf16 mix field at both heights. Each held by ``held``,
+    the storage launch counters up by the bf16 calls alone; the new
+    instances' blocks an SM and registers; their times from CUDA graphs
+    beside the f32 instance's, each with its bound (bf16 at 2 bytes).
+    Returns extra keys for the kernel rows."""
+    import numpy as np
+    import torch
+
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.kernels import _build
+    from tinman_sandbox_tpu_torch.kernels.caar_t import (
+        caar_t4_cuda, caar_t4_plain)
+    from tinman_sandbox_tpu_torch.kernels.dss import (
+        dss_fixup_cuda, dss_sweep_cuda, dss_sweep_plain, fix_tables)
+    from tinman_sandbox_tpu_torch.kernels.tracer_t import (
+        tracer_euler_cuda, tracer_euler_plain, tracer_limit_cuda,
+        tracer_limit_plain)
+
+    bf = lambda x: x.to(torch.bfloat16)
+    card = card_line()
+    counts0 = storage_counts()
+    expect = dict.fromkeys(counts0, 0)
+    times = {}
+
+    def timed(wrapper, tag, calls, before):
+        """Graph times of the f32 and bf16 forms of one call beside their
+        bounds: calls = {form: (fn, bytes)}. The launches since the counts
+        ``before`` (the forms' own calls and the timing's) are left out of
+        the storage launch check."""
+        line = {}
+        for form, (fn, nbytes) in calls.items():
+            line[form] = dict(graph_ms=graph_ms(fn, 20),
+                              bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                              mb=nbytes / 1e6)
+        for w, n in storage_counts().items():
+            expect[w] += n - before[w]
+        print(f"phase 30 times {tag} ({card}): " + "; ".join(
+            f"{f} graph {v['graph_ms']:.4f} ms bound {v['bound_ms']:.4f} "
+            f"({v['mb']:.2f} MB)" for f, v in line.items()))
+        times.setdefault(wrapper, {})[tag] = line
+
+    # the new instances' occupancy and registers
+    tr = _build.library("tracer")
+    occ = {case: tr.tracer_blocks_per_sm(kind, dev.index)
+           for case, kind in (("euler bf16 q", 4), ("limit bf16 q", 5),
+                              ("limit bf16 mx", 6), ("euler f32", 0),
+                              ("limit f32 mx", 2))}
+    sw = _build.library("dss").dss_sweep_blocks_per_sm(1, 2, dev.index)
+    print(f"phase 30 blocks an SM (cudaOccupancy): tracer_kernel "
+          f"{json.dumps(occ)}; dss_sweep_kernel bf16 mix {sw}")
+    if min(occ.values()) <= 0 or sw <= 0:
+        raise AssertionError(f"phase 30 occupancy: {occ}, sweep {sw}")
+    # the instances by their mangled template arguments: the stage mode
+    # (kSingle) in storage 1 or 3; the tracer stages and the sweep with a
+    # bf16 operand (a third or fourth bool argument true)
+    bits = lambda i: re.findall(r"L(?:b|i)(\d)E", i)
+    for source, tag, keep in (
+            ("caar", "caar_chunk_kernel",
+             lambda b: b[0] == "1" and b[-1] in ("1", "3")),
+            ("tracer", "tracer_kernel", lambda b: "1" in b[2:]),
+            ("dss", "dss_sweep_kernel", lambda b: "1" in b[2:])):
+        for inst, report in ptxas_report(source, tag):
+            if keep(bits(inst)):
+                print(f"phase 30 ptxas {tag}{inst}: {report}")
+
+    # -- row 5: the stage mode in contracts (a) and (b)
+    problems = [("1024x72", *bench.make_problem(1024, NLEV, dev, seed=7),
+                 None)]
+    (scal, meta, qdp, pecnd, dvv), (s0, sm1), acc, plan, rsp = \
+        bench.make_assembled_problem(cs.ne, NLEV, dev, cs=cs)
+    fix = fix_tables(plan, dev)
+    problems.append((f"ne{cs.ne}x{NLEV}", (scal, meta, s0, sm1, qdp, pecnd,
+                                           dvv), acc, fix))
+    worst = worst_abs = 0.0
+    for tag, const, acc, pfix in problems:
+        for case, a in caar_cases(const, acc):
+            if case == "tend":
+                continue
+            for contract in ("a", "b"):
+                q_x = bf(a[4]) if contract == "a" else a[4]
+                pec_x = bf(a[5])
+                for phi, slab in itertools.product(
+                        (True, False), (False, True) if pfix else (False,)):
+                    fx = pfix if slab else None
+                    kw = dict(single=True, emit_phi=phi, fix=fx)
+
+                    def build(up, a=a, q_x=q_x, pec_x=pec_x):
+                        return (a[0], a[1], a[2], None,
+                                upcast_bf16(q_x, up), upcast_bf16(pec_x, up),
+                                *(x.clone() for x in a[6:9]), a[9])
+
+                    err, ab = held(f"caar stage {tag} {case} ({contract}) "
+                                   f"phi {phi} slab {slab}",
+                                   lambda *x, kw=kw: caar_t4_cuda(*x, **kw),
+                                   lambda *x, kw=kw: caar_t4_plain(*x, **kw),
+                                   build)
+                    expect["caar_t4_cuda"] += 1
+                    worst, worst_abs = max(worst, err), max(worst_abs, ab)
+                    print(f"phase 30 caar stage {tag} {case} contract "
+                          f"({contract}) phi {phi} slab {slab}: bit for bit "
+                          f"the f32 mode on the upcast operands; plain "
+                          f"{err:.3e}")
+            if case != "bench":
+                continue
+            for contract in ("a", "b"):
+                forms, before = {}, storage_counts()
+                for form in ("f32", "bf16"):
+                    x = build(form == "f32", a=a,
+                              q_x=bf(a[4]) if contract == "a" else a[4],
+                              pec_x=bf(a[5]))
+                    fn = lambda x=x: caar_t4_cuda(*x, single=True, fix=pfix)
+                    forms[form] = (fn, call_bytes(x, fn()))
+                timed("caar_t4_cuda", f"stage ({contract}) {tag}", forms,
+                      before)
+    rows = {"caar_t4_cuda": dict(prim_storage_max_scaled_err=worst,
+                                 prim_storage_max_abs_err=worst_abs)}
+    del problems, s0, sm1, acc, qdp, pecnd
+
+    # -- rows 11-14 and 20/23: the tracer stages and the sweep
+    ca, cb = np.float32(1.0 / 3.0), np.float32(2.0 / 3.0)
+    e16, n, k = cs.nelem * 16, fix.nfix, NLEV
+    kw = dict(wind_rows=(0, 1), fix=fix)
+    block = lambda a, b: max(scaled_err(x, y) for x, y in zip(a.split(k),
+                                                             b.split(k)))
+    for qsize in (1, QSIZE_TALL):
+        (_, meta, _, dvv), s0, q, _, _, rsp = bench.make_prim_problem(
+            cs.ne, k, dev, DYN_DT, qsize)
+        qb = bf(q)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        mxb = bf(torch.rand(q.shape, generator=gen, device=dev))
+        div = q - tracer_euler_plain(meta, s0, s0, q, dvv, 1.0, k,
+                                     fold_sph=False, wind_rows=(0, 1))
+        dt_long = 0.5 * float(q.abs().max()) / float(div.abs().max())
+        del div
+        qtag = f"ne{cs.ne}x{k} qsize {qsize}"
+        stages = {
+            "tracer_euler bf16 q": (
+                "tracer_euler_cuda", tracer_euler_cuda, tracer_euler_plain,
+                lambda up, dt: (meta, s0, s0, upcast_bf16(qb, up), dvv, dt,
+                                k)),
+            "tracer_limit bf16 q": (
+                "tracer_limit_cuda", tracer_limit_cuda, tracer_limit_plain,
+                lambda up, dt: (meta, s0, s0, upcast_bf16(qb, up), dvv, dt,
+                                k)),
+            "tracer_limit bf16 mx": (
+                "tracer_limit_cuda", tracer_limit_cuda, tracer_limit_plain,
+                lambda up, dt: (meta, s0, s0, q, dvv, dt, k,
+                                (upcast_bf16(mxb, up), ca, cb))),
+        }
+        for name, (wname, kern, plain, args) in stages.items():
+            for dt in (DYN_DT, dt_long):
+                got = kern(*args(False, dt), **kw)
+                up = kern(*args(True, dt), **kw)
+                want = plain(*args(False, dt), **kw)
+                torch.cuda.synchronize()
+                expect[wname] += 1
+                same = all(torch.equal(g, u) for g, u in zip(got, up))
+                err = max(block(g, w) for g, w in zip(got, want))
+                f32 = got[0].dtype == torch.float32
+                if not same or err > CAAR_TOL or not f32 or \
+                        not bool(torch.isfinite(got[0]).all()):
+                    raise AssertionError(f"phase 30 {name} {qtag} dt {dt}: "
+                                         f"bits {same}, plain {err}")
+                r = rows.setdefault(wname, {})
+                r["prim_storage_max_scaled_err"] = max(
+                    err, r.get("prim_storage_max_scaled_err", 0.0))
+                print(f"phase 30 {name} {qtag} dt {dt:.4g}: bit for bit the "
+                      f"f32 instance on the upcast operand; worst scaled "
+                      f"error of a tracer block against plain {err:.2e}")
+                del got, up, want
+            forms, before = {}, storage_counts()
+            for form in ("f32", "bf16"):
+                x = args(form == "f32", DYN_DT)
+                fn = lambda x=x, kern=kern: kern(*x, **kw)
+                stored = x[3].element_size() * x[3].numel() + (
+                    x[7][0].element_size() * x[7][0].numel()
+                    if len(x) > 7 else 0)
+                # 2 wind blocks and 7 meta rows read, q (and mx) read, out
+                # and the slab written
+                nbytes = (2 * k + 7) * e16 * 4 + stored \
+                    + qsize * k * e16 * 4 + n * qsize * k * 4
+                forms[form] = (fn, nbytes)
+            timed(wname, f"{name} {qtag}", forms, before)
+        # the sweep with a bf16 mix field, on the Euler stage's output
+        e, slab = tracer_euler_cuda(meta, s0, s0, q, dvv, DYN_DT, k, **kw)
+        vd = dss_fixup_cuda(slab, fix, rsp)
+        mk = lambda up: (e, rsp, vd, fix, (upcast_bf16(qb, up), ca, cb))
+        got = dss_sweep_cuda(*mk(False)[:4], mix=mk(False)[4])
+        up = dss_sweep_cuda(*mk(True)[:4], mix=mk(True)[4])
+        want = dss_sweep_plain(*mk(False)[:4], mix=mk(False)[4])
+        torch.cuda.synchronize()
+        expect["dss_sweep_cuda"] += 1
+        if not torch.equal(got, up) or not torch.equal(got, want) or \
+                got.dtype != torch.float32:
+            raise AssertionError(f"phase 30 dss_sweep bf16 mx {qtag}: bits "
+                                 f"{torch.equal(got, up)}, plain "
+                                 f"{scaled_err(got, want)}")
+        print(f"phase 30 dss_sweep bf16 mx {qtag}: bit for bit the f32 "
+              "instance on the upcast mix field and the plain version")
+        rows.setdefault("dss_sweep_cuda", {})[
+            "prim_storage_max_scaled_err"] = 0.0
+        forms, before = {}, storage_counts()
+        for form in ("f32", "bf16"):
+            x = mk(form == "f32")
+            fn = lambda x=x: dss_sweep_cuda(*x[:4], mix=x[4])
+            mxx = x[4][0]
+            # x and vd read, the mix field read, rsp read, out written
+            nbytes = 2 * e.numel() * 4 + vd.numel() * 4 + rsp.numel() * 4 \
+                + mxx.numel() * mxx.element_size()
+            forms[form] = (fn, nbytes)
+        timed("dss_sweep_cuda", f"sweep bf16 mx {qtag}", forms, before)
+        del e, slab, vd, got, up, want, q, qb, mxb, s0
+        torch.cuda.empty_cache()
+    counts = storage_counts()
+    got = {w: counts[w] - counts0[w] for w in counts}
+    if got != expect:
+        raise AssertionError(f"phase 30 storage launches {got} != the bf16 "
+                             f"calls {expect}")
+    print(f"phase 30 storage launches (bf16 calls only): {json.dumps(got)}")
+    for wname, t in times.items():
+        rows.setdefault(wname, {})["prim_storage_ms"] = t
+    return rows
+
+
+def phase_rsplit0_field(dev) -> None:
+    """The field-form SSPRK3 step at rsplit=0 (a hybi ramp, a random
+    eta_dot_dpdn accumulator) on the card against the same step on the CPU,
+    f64 at ne R0_FIELD_NE with the DSS projection, every output at
+    R0_FIELD_TOL scaled, eta_dot_dpdn included."""
+    import dataclasses
+
+    import torch
+
+    from tinman_sandbox_tpu_torch import (Config, analytic_hvcoord,
+                                          random_state, zero_derived)
+    from tinman_sandbox_tpu_torch.dist import build_cubed_sphere
+    from tinman_sandbox_tpu_torch.timeloop import ssprk3_step
+
+    kw = dict(dtype=torch.float64, device="cpu")
+    cs4 = build_cubed_sphere(R0_FIELD_NE, **kw)
+    cfg = Config(nelem=cs4.nelem, nlev=R0_FIELD_NLEV, rsplit=0)
+    st = random_state(cfg, seed=3, **kw)
+    dv = zero_derived(cfg, **kw)
+    gen = torch.Generator().manual_seed(9)
+    dv = dataclasses.replace(dv, eta_dot_dpdn=torch.rand(
+        dv.eta_dot_dpdn.shape, generator=gen, dtype=torch.float64))
+    hv = analytic_hvcoord(cfg, **kw)
+    hv = dataclasses.replace(hv, hybi=torch.linspace(
+        0.0, 1.0, cfg.nlev + 1, dtype=torch.float64))
+    outs = {}
+    t = {}
+    for where in ("cpu", dev):
+        t0 = time.perf_counter()
+        outs[str(where)] = ssprk3_step(st, dv, cs4.geometry, hv, cfg, 0.05,
+                                       gdof=cs4.gdof, ndof=cs4.ndof,
+                                       device=where)
+        torch.cuda.synchronize()
+        t[str(where)] = time.perf_counter() - t0
+    (cs_, cd), (gs, gd) = outs["cpu"], outs[str(dev)]
+    errs = {n: scaled_err(getattr(gs, n)[cfg.np1].cpu(),
+                          getattr(cs_, n)[cfg.np1])
+            for n in ("u", "v", "t", "dp3d")}
+    errs.update({n: scaled_err(getattr(gd, n).cpu(), getattr(cd, n))
+                 for n in ("vn0_u", "vn0_v", "phi", "omega_p",
+                           "eta_dot_dpdn")})
+    moved = scaled_err(cd.eta_dot_dpdn, dv.eta_dot_dpdn)
+    if max(errs.values()) > R0_FIELD_TOL or not moved > 0.0:
+        raise AssertionError(f"phase 30 ssprk3_step rsplit=0: {errs}, "
+                             f"eta_dot_dpdn moved {moved}")
+    print(f"phase 30 ssprk3_step rsplit=0 f64 ne{R0_FIELD_NE} x "
+          f"{R0_FIELD_NLEV} on {torch.cuda.get_device_name(dev)} against the "
+          f"CPU: worst scaled error {max(errs.values()):.2e} (gate "
+          f"{R0_FIELD_TOL}; eta_dot_dpdn {errs['eta_dot_dpdn']:.2e}, moved "
+          f"{moved:.2e} of itself); {t[str(dev)]:.3f} s on the card, "
+          f"{t['cpu']:.3f} s on the CPU")
+
+
+def phase_checkpoint_dir(dev, cs) -> None:
+    """A non-blocking ``save_checkpoint_dir`` of the ne30 prim state,
+    then PRIM_STORAGE_STEPS prim steps written back IN PLACE into the saved
+    tensors, then ``finish_async_checkpoints`` and a load: the load is the
+    state at the call bit for bit (the in-place writes did not reach it),
+    and the state did move. Prints the host ms the save call blocked beside
+    the blocking npz save's."""
+    import shutil
+
+    import torch
+
+    from tinman_sandbox_tpu_torch import (Config, analytic_hvcoord,
+                                          random_state, zero_derived)
+    from tinman_sandbox_tpu_torch.dist import (
+        make_structured_plan, prim_pack_t, prim_step_packed_t4,
+        prim_unpack_t)
+    from tinman_sandbox_tpu_torch.timeloop import (
+        finish_async_checkpoints, load_checkpoint_dir, save_checkpoint,
+        save_checkpoint_dir)
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    cfg = Config(nelem=cs.nelem, nlev=NLEV, qsize=1, dt=DYN_DT)
+    kw = dict(dtype=torch.float32, device=dev)
+    state, derived = random_state(cfg, seed=7, **kw), zero_derived(cfg, **kw)
+    fields = lambda st, dv: {**{f"state.{n}": getattr(st, n) for n in
+                                ("u", "v", "t", "dp3d", "qdp", "phis",
+                                 "ps_v")},
+                             **{f"derived.{n}": getattr(dv, n) for n in
+                                ("vn0_u", "vn0_v", "phi", "omega_p",
+                                 "eta_dot_dpdn", "pecnd")}}
+    torch.cuda.synchronize()
+    snap = {n: x.clone() for n, x in fields(state, derived).items()}
+    path = os.path.join(CKPT_DIR, "prim")
+    # a first save allocates its pinned host buffers (PyTorch's host
+    # allocator caches them for the saves after it): timed on its own
+    t0 = time.perf_counter()
+    save_checkpoint_dir(path + "_first", state, derived, cfg, 9)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    finish_async_checkpoints()
+    t0 = time.perf_counter()
+    save_checkpoint_dir(path, state, derived, cfg, 10)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    # the chained steps, each written back into the saved tensors in place
+    p = prim_pack_t(state, derived, cs.geometry, analytic_hvcoord(cfg, **kw),
+                    cfg, DYN_DT)
+    plan = make_structured_plan(cs.gdof, cs.ne)
+    s1, q1, acc = p["s0"], p["qdp"], p["acc"]
+    for _ in range(PRIM_STORAGE_STEPS):
+        s1, q1, phi, *acc = prim_step_packed_t4(
+            p["scal"], p["meta"], s1, q1, p["pecnd"], *acc, p["dvv"], plan,
+            p["rsp"], DYN_NU, NLEV, dt=DYN_DT)
+        new_st, new_dv = prim_unpack_t(state, derived, cfg, s1, q1, phi, acc)
+        for n, x in fields(new_st, new_dv).items():
+            fields(state, derived)[n].copy_(x)
+    finish_async_checkpoints()
+    t0 = time.perf_counter()
+    save_checkpoint(path + ".npz", state, derived, cfg, 20)
+    npz_ms = (time.perf_counter() - t0) * 1e3
+    st2, dv2, cfg2, step = load_checkpoint_dir(path, cfg, device=dev)
+    loaded = fields(st2, dv2)
+    same = all(torch.equal(loaded[n], snap[n]) for n in snap)
+    moved = not torch.equal(state.u, snap["state.u"])
+    nbytes = sum(x.numel() * x.element_size() for x in snap.values())
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    if not same or not moved or step != 10 or (cfg2.n0, cfg2.np1) != (
+            cfg.n0, cfg.np1):
+        raise AssertionError(f"phase 30 checkpoint: the load is the snapshot "
+                             f"{same}, the state moved {moved}, step {step}")
+    print(f"phase 30 save_checkpoint_dir ne{cs.ne}x{NLEV} ({nbytes / 1e6:.1f}"
+          f" MB): the call blocked the host {save_ms:.2f} ms (the first "
+          f"call, which allocates its pinned buffers, {first_ms:.2f} ms), "
+          f"the blocking npz save {npz_ms:.2f} ms; after "
+          f"{PRIM_STORAGE_STEPS} prim steps "
+          "written in place and finish_async_checkpoints the load is the "
+          "state at the call bit for bit")
+
+
+def phase_prim_storage_path(dev, cs) -> dict:
+    """Phase 30's main path, launch counts set to 0 just before and read
+    just after (by ``main``): PRIM_STORAGE_STEPS chained ne30 x 72
+    ``prim_step_packed_t4`` steps from ``bench.make_prim_problem(storage=
+    "bf16_aux")``, unlimited at qsize 1 and limited at QSIZE_TALL, each step
+    against the plain step from its own input (CAAR_TOL per block of the
+    state, per tracer block and per derived field), continuity exactly 0,
+    the first step's tracer mass against its upcast input's
+    (PRIM_MASS_TOL), min qdp above the bounds gate with the limiter; then
+    ``bench --prim --storage bf16_aux`` (and ``--limit --qsize 35``,
+    ``--limit-iters 1``) and ``--rk --storage bf16_ro`` lines, each with
+    its storage, storage launches and byte count; the rsplit=0 field-form
+    step (``phase_rsplit0_field``) and the directory checkpoint
+    (``phase_checkpoint_dir``). Returns the bench lines by label."""
+    import torch
+
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.dist import (
+        continuity_error_t, make_structured_plan, prim_step_packed_t4_plain)
+    from tinman_sandbox_tpu_torch.kernels.dss import fix_tables
+
+    bf16 = torch.bfloat16
+    for qsize, limit in ((1, False), (QSIZE_TALL, True)):
+        tag = (f"prim chain ne{cs.ne}x{NLEV} bf16_aux qsize {qsize} limit "
+               f"{limit} x{PRIM_STORAGE_STEPS}")
+        const, s0, qdp, acc, plan, rsp = bench.make_prim_problem(
+            cs.ne, NLEV, dev, DYN_DT, qsize, cs=cs, storage="bf16_aux")
+        if qdp.dtype != bf16 or const[2].dtype != bf16 or \
+                continuity_error_t(qdp.float(), cs.gdof) != 0.0:
+            raise AssertionError(f"{tag}: the problem's qdp {qdp.dtype}, "
+                                 f"pecnd {const[2].dtype}, or not continuous")
+        sph = const[1][11]
+        kstate = (s0, qdp, tuple(a.clone() for a in acc))
+        worst, k_s, mass = 0.0, 0.0, None
+        for i in range(PRIM_STORAGE_STEPS):
+            start = (kstate[0], kstate[1],
+                     tuple(a.clone() for a in kstate[2]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            *kstate, kphi = bench.run_prim(const, *kstate, plan, rsp, 1,
+                                           DYN_NU, DYN_DT, 1, limit)
+            torch.cuda.synchronize()
+            k_s += time.perf_counter() - t0
+            ps, pq, pacc, pphi = bench.run_prim(
+                const, *start, plan, rsp, 1, DYN_NU, DYN_DT, 1, limit,
+                step=prim_step_packed_t4_plain)
+            ks, kq, kacc = kstate
+            errs = [scaled_err(a, b) for a, b in zip(ks.split(NLEV),
+                                                     ps.split(NLEV))]
+            errs += [scaled_err(a, b) for a, b in zip(kq.split(NLEV),
+                                                     pq.split(NLEV))]
+            errs += [scaled_err(a, b) for a, b in zip((kphi, *kacc),
+                                                     (pphi, *pacc))]
+            worst = max([worst] + errs)
+            conts = [continuity_error_t(x, cs.gdof) for x in (ks, kq)]
+            if max(errs) > CAAR_TOL or max(conts) != 0.0 or \
+                    kq.dtype != torch.float32 or \
+                    not all(bool(torch.isfinite(x).all())
+                            for x in (ks, kq, kphi, *kacc)):
+                raise AssertionError(f"{tag} step {i + 1}: vs plain "
+                                     f"{max(errs)} (> {CAAR_TOL}), "
+                                     f"continuity {conts}, qdp {kq.dtype}")
+            if i == 0:
+                # the bf16 input's mass, upcast exactly, against the f32
+                # output's: the port's last Shu-Osher pair sums to 1 in f32
+                m_in, m_out = f64_mass(sph, start[1]), f64_mass(sph, kq)
+                mass = m_out / m_in - 1.0
+                jax_pair = float(torch.tensor(1.0 / 3.0, dtype=bf16)) + \
+                    float(torch.tensor(2.0 / 3.0, dtype=bf16)) - 1.0
+                if abs(mass) > PRIM_MASS_TOL:
+                    raise AssertionError(f"{tag}: the first step's tracer "
+                                         f"mass moved {mass} of itself")
+            del start, ps, pq, pacc, pphi
+        q_min = float(kstate[1].min())
+        floor = -BOUNDS_TOL * max(1.0, float(kstate[1].abs().max()))
+        if limit and q_min < floor:
+            raise AssertionError(f"{tag}: min qdp {q_min} < {floor}")
+        print(f"phase 30 {tag} (kernels {k_s:.3f} s): each step vs the plain "
+              f"step from its input {worst:.2e} (gate {CAAR_TOL}); "
+              f"continuity 0 after every step; the first step's tracer mass "
+              f"{mass:+.3e} of its bf16 input's (gate {PRIM_MASS_TOL}; the "
+              f"JAX package's bf16 pair 1/3 + 2/3 sums to 1 + {jax_pair:.3e}"
+              f"); min qdp {q_min:.3e}")
+        del const, s0, qdp, acc, kstate
+        torch.cuda.empty_cache()
+
+    results = {}
+    nfix = fix_tables(make_structured_plan(cs.gdof, cs.ne), dev).nfix
+    e16 = cs.nelem * 16
+    for label, extra in (
+            ("prim", ["--prim", "--storage", "bf16_aux", "--nexec", "100"]),
+            ("prim limit q35", ["--prim", "--storage", "bf16_aux", "--limit",
+                                "--qsize", str(QSIZE_TALL), "--nexec", "10"]),
+            ("prim limit q35 iters 1",
+             ["--prim", "--storage", "bf16_aux", "--limit", "--qsize",
+              str(QSIZE_TALL), "--limit-iters", "1", "--nexec", "10"]),
+            ("rk", ["--rk", "--storage", "bf16_ro", "--nexec", "100"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = bench.main(["--ne", str(cs.ne), "--nlev", str(NLEV),
+                              "--hypervis-nu", str(DYN_NU), "--dt",
+                              str(DYN_DT), "--reps", "2"] + extra)
+        print(f"phase 30 bench {label} " + buf.getvalue().strip())
+        st = extra[extra.index("--storage") + 1]
+        # the timed steps read pecnd bf16 on 3 stages; --rk qdp too
+        if label == "rk":
+            f32 = bench.dynamics_bytes_per_step(cs.ne, NLEV, nfix, True)
+            saved = 6 * 2 * e16 * NLEV
+        else:
+            qsize = QSIZE_TALL if "--qsize" in extra else 1
+            f32 = bench.prim_bytes_per_step(cs.ne, NLEV, nfix, qsize, 1, True)
+            saved = 3 * 2 * e16 * NLEV
+        if res["bytes_per_step"] != f32 - saved:
+            raise AssertionError(f"bench {label}: {res['bytes_per_step']} B "
+                                 f"!= {f32} - {saved}")
+        if res["storage"] != st or not res["storage_launches"] > 0 or \
+                not res["min_dp3d"] > 0.0 or \
+                ("--limit" in extra and res["min_qdp"] < -BOUNDS_TOL):
+            raise AssertionError(f"bench {label}: {res}")
+        if "iters 1" in label and "limit iters=1" not in res["config"]:
+            raise AssertionError(f"bench {label}: {res['config']}")
+        results[label] = res
+        torch.cuda.empty_cache()
+    phase_rsplit0_field(dev)
+    phase_checkpoint_dir(dev, cs)
+    return results
+
+
 def main() -> int:
     try:
         import torch
@@ -6168,6 +6738,15 @@ def main() -> int:
     storage_res = phase_storage_path(dev, cs)
     stored, stored_bf16 = counts(), storage_counts()
     print(f"phase 29 seconds: {time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for name, extra in phase_prim_storage_kernels(dev, cs).items():
+        rows.setdefault(name, {}).update(extra)
+    torch.cuda.empty_cache()
+    reset()
+    prim_storage_res = phase_prim_storage_path(dev, cs)
+    prim_stored, prim_stored_bf16 = counts(), storage_counts()
+    print(f"phase 30 seconds: {time.perf_counter() - t0:.1f}")
     for label, res, got in (("raw", raw_res, raw), ("assembled", asm_res,
                                                      asm),
                             ("dynamics", dyn_res, dyn),
@@ -6350,6 +6929,25 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched in a bf16 storage "
                                  "on phase 29's path")
         rows[name]["storage_launches"] = stored_bf16[name]
+    print(f"phase 30 prim storage main-path launches: "
+          f"{json.dumps(prim_stored)}; in a bf16 storage: "
+          f"{json.dumps(prim_stored_bf16)}; bench us/step " + ", ".join(
+              f"{label} {res['us_per_step']:.2f}"
+              for label, res in prim_storage_res.items())
+          + f" (f32 in phases 10 and 12: rk {dyn_res['us_per_step']:.2f}, "
+          f"prim {prim_res['us_per_step']:.2f}, prim limit q{QSIZE_TALL} "
+          f"{tall_lim_res['us_per_step']:.2f})")
+    for name in ("caar_t4_cuda", "tracer_euler_cuda", "tracer_limit_cuda",
+                 "dss_fixup_cuda", "dss_sweep_cuda", "vlap_cuda"):
+        if prim_stored[name] <= 0:
+            raise AssertionError(f"{name} was not launched on phase 30's "
+                                 "path")
+    for name in ("caar_t4_cuda", "tracer_euler_cuda", "tracer_limit_cuda",
+                 "dss_sweep_cuda"):
+        if prim_stored_bf16[name] <= 0:
+            raise AssertionError(f"{name} was not launched with a bf16 "
+                                 "operand on phase 30's path")
+        rows[name]["prim_storage_launches"] = prim_stored_bf16[name]
     if row_asm_res["kernel_launches"]["caar_packed"] <= 0:
         raise AssertionError("bench --layout row --ne: no row CAAR launch")
     if single_launches <= 0:
@@ -6371,7 +6969,7 @@ def main() -> int:
             + row[name] + ring[name] + multi[name] + probe[name]
             + cadence[name] + tiers[name] + big[name] + traced[name]
             + swept[name] + longs[name] + equiv[name] + tools[name]
-            + stored[name],
+            + stored[name] + prim_stored[name],
             "max_abs_err": r.pop("max_abs_err"), "ms": r.pop("ms"),
             "plain_ms": r.pop("plain_ms"), "bound_ms": r.pop("bound_ms"),
             "bound_by": r.pop("bound_by"), "library_ms": r.pop("library_ms"),

@@ -772,13 +772,13 @@ def tracers(dev, card):
                         meta.data_ptr(), dvv.data_ptr(), s0.data_ptr(),
                         s0.data_ptr(), q.data_ptr(),
                         mx.data_ptr() if mixed else None, out.data_ptr(),
-                        *sl, k, qsize, e16, e16, 0, 1, 2, dt, ca, cb,
+                        *sl, k, qsize, e16, e16, 0, 1, 2, 0, dt, ca, cb,
                         CONSTANTS.rrearth, stream(), dev.index)
                 else:
                     err = pso.tracer_euler_launch(
                         meta.data_ptr(), dvv.data_ptr(), s0.data_ptr(),
                         s0.data_ptr(), q.data_ptr(), out.data_ptr(), *sl, k,
-                        qsize, e16, e16, 0, 1, 1, dt, CONSTANTS.rrearth,
+                        qsize, e16, e16, 0, 1, 1, 0, dt, CONSTANTS.rrearth,
                         stream(), dev.index)
                 if err:
                     raise RuntimeError(f"tracer {name}: error {err}")

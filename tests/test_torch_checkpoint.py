@@ -1,7 +1,9 @@
-"""The port's npz checkpoints (``timeloop.checkpoint``): round trips that
+"""The port's checkpoints (``timeloop.checkpoint``): npz round trips that
 restore bit for bit, a resumed run equal to an uninterrupted one (as
-tests/test_timeloop.py holds the JAX package's), the shape checks, and
-files written by either package loaded by the other.
+tests/test_timeloop.py holds the JAX package's), the shape checks, files
+written by either package loaded by the other, and the non-blocking
+directory checkpoint (the counterpart of the JAX package's orbax one): its
+round trip, its snapshot taken at the call, and its writer's errors.
 """
 import dataclasses
 import os
@@ -29,10 +31,13 @@ from tinman_sandbox_tpu_torch import (
 )
 from tinman_sandbox_tpu_torch.timeloop import (
     checkpoint_meta,
+    finish_async_checkpoints,
     load_checkpoint,
+    load_checkpoint_dir,
     load_packed_checkpoint,
     run_leapfrog,
     save_checkpoint,
+    save_checkpoint_dir,
     save_packed_checkpoint,
 )
 
@@ -186,3 +191,68 @@ def test_torch_packed_checkpoint_across_packages(tmp_path):
     assert jstep == 12 and np.array_equal(js, s.numpy())
     assert np.array_equal(jq, qdp.numpy())
     assert all(np.array_equal(a, b.numpy()) for a, b in zip(jacc, acc))
+
+
+# -- the non-blocking directory checkpoint ------------------------------------
+
+def test_torch_dir_checkpoint_roundtrip(tmp_path):
+    """As the JAX package's orbax test (tests/test_timeloop.py:155-183):
+    save without blocking, wait, restore; the state bit for bit, the time
+    levels and the step kept; another nelem raises. The published
+    directory holds the arrays and the meta, with no scratch left."""
+    cfg = dataclasses.replace(Config(nelem=4, nlev=6), n0=2, np1=0, nm1=1,
+                              qn0=1)
+    st = random_state(cfg, seed=3, device="cpu")
+    dv = zero_derived(cfg, device="cpu")
+    dv = dataclasses.replace(dv, omega_p=torch.rand(dv.omega_p.shape,
+                                                    dtype=dv.omega_p.dtype))
+    path = str(tmp_path / "ck_dir")
+    save_checkpoint_dir(path, st, dv, cfg, step=17)
+    finish_async_checkpoints()
+    assert sorted(os.listdir(tmp_path)) == ["ck_dir"]
+    assert "meta.json" in os.listdir(path)
+    st2, dv2, cfg2, step = load_checkpoint_dir(path, Config(nelem=4, nlev=6),
+                                               device="cpu")
+    assert step == 17
+    assert (cfg2.n0, cfg2.np1, cfg2.nm1, cfg2.qn0) == (2, 0, 1, 1)
+    assert _equal(st2, st, STATE) and _equal(dv2, dv, DERIVED)
+    assert st2.t.dtype == st.t.dtype
+    with pytest.raises(ValueError, match="nelem"):
+        load_checkpoint_dir(path, Config(nelem=5, nlev=6), device="cpu")
+    # a second save replaces the directory whole
+    save_checkpoint_dir(path, st2, dv2, cfg2, step=18, wait=True)
+    assert load_checkpoint_dir(path, Config(nelem=4, nlev=6),
+                               device="cpu")[3] == 18
+    assert sorted(os.listdir(tmp_path)) == ["ck_dir"]
+
+
+def test_torch_dir_checkpoint_is_the_state_at_the_call(tmp_path):
+    """A save followed at once by in-place writes to the saved tensors
+    (the next steps of a time loop) still stores the values at the call."""
+    cfg, st, dv, _, _ = _setup()
+    keep_u, keep_phi = st.u.clone(), dv.phi.clone()
+    path = str(tmp_path / "ck")
+    save_checkpoint_dir(path, st, dv, cfg, step=3)
+    st.u.mul_(2.0).add_(1.0)
+    dv.phi.fill_(7.0)
+    finish_async_checkpoints()
+    st2, dv2, _, step = load_checkpoint_dir(path, cfg, device="cpu")
+    assert step == 3
+    assert torch.equal(st2.u, keep_u) and torch.equal(dv2.phi, keep_phi)
+    assert not torch.equal(st.u, keep_u)
+
+
+def test_torch_dir_checkpoint_writer_error_surfaces(tmp_path):
+    """An error of the background writer is re-raised by
+    ``finish_async_checkpoints`` (and by ``wait=True``), never swallowed;
+    the queue is empty after it."""
+    cfg, st, dv, _, _ = _setup()
+    blocker = tmp_path / "file"
+    blocker.write_text("not a directory")
+    bad = str(blocker / "ck")                 # a parent that is a file
+    save_checkpoint_dir(bad, st, dv, cfg, step=1)
+    with pytest.raises(OSError):
+        finish_async_checkpoints()
+    finish_async_checkpoints()                # nothing left in flight
+    with pytest.raises(OSError):
+        save_checkpoint_dir(bad, st, dv, cfg, step=1, wait=True)

@@ -48,13 +48,11 @@ def test_torch_cli_leapfrog_random_dump(capsys, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv,msg", [
     (["--rk"], "--rk requires --ne"),
-    (["--ne", "4", "--restore", "ckdir"], "orbax directory checkpoints"),
     (["--prim"], "--prim requires --ne"),
     (["--ne", "2", "--prim", "--leapfrog"],
      "--prim manages its own time-level cadence; drop --leapfrog"),
     (["--ne", "2", "--prim", "--qsize", "0"], "--qsize must be at least 1"),
     (["--hypervis-nu", "1e15"], "--hypervis-nu requires --ne"),
-    (["--ne", "2", "--checkpoint", "x"], "orbax directory checkpoints"),
     (["--kernel", "plain"], "only with --device cpu"),
     (["--dtype", "float64"], "float32 only"),
     (["--dss"], "requires --ne"),
@@ -64,15 +62,51 @@ def test_torch_cli_rejects_unported_and_invalid(capsys, argv, msg):
     assert msg in capsys.readouterr().err
 
 
-def test_torch_cli_module_entry_reports_unported_dss():
-    """The module entry reports a path that has no counterpart (every flag
-    is ported now; an orbax directory checkpoint, a path not ending in
-    .npz, is not)."""
-    r = subprocess.run([sys.executable, "-m", "tinman_sandbox_tpu_torch",
-                        "--ne", "2", "--checkpoint", "x"],
+def test_torch_cli_module_entry_reports_unported_dss(tmp_path):
+    """The module entry runs a directory checkpoint (a path not ending in
+    .npz, the JAX CLI's orbax form) end to end: --checkpoint <dir> writes
+    the directory, --restore <dir> resumes from it."""
+    ck = str(tmp_path / "ckdir")
+    base = [sys.executable, "-m", "tinman_sandbox_tpu_torch", "--device",
+            "cpu", "--ne", "2", "--dss", "--nlev", "4"]
+    r = subprocess.run(base + ["--num-exec", "2", "--checkpoint", ck],
                        capture_output=True, text=True, cwd=ROOT, timeout=120)
-    assert r.returncode == 2
-    assert "orbax directory checkpoints have no counterpart" in r.stderr
+    assert r.returncode == 0, r.stderr
+    assert f"checkpoint written to {ck}" in r.stdout
+    assert "meta.json" in os.listdir(ck)
+    r = subprocess.run(base + ["--num-exec", "1", "--restore", ck],
+                       capture_output=True, text=True, cwd=ROOT, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert f"restored step 2 from {ck}" in r.stdout
+
+
+@pytest.mark.parametrize("mode", ["leapfrog", "prim"])
+def test_torch_cli_dir_checkpoint_roundtrip(tmp_path, capsys, mode):
+    """As the JAX CLI's orbax test (tests/test_cli.py:63-70): --checkpoint
+    <dir> after 2 steps, then --restore <dir> prints "restored step 2";
+    the directory and the npz form of the same run hold the same arrays
+    bit for bit, and 1 restored step from either lands on the same bits."""
+    base = ["--device", "cpu"] + _RESUME[mode]
+    ck, npz = str(tmp_path / "ck_dir"), str(tmp_path / "ck.npz")
+    assert main(base + ["--num-exec", "2", "--checkpoint", ck]) == 0
+    assert main(base + ["--num-exec", "2", "--checkpoint", npz]) == 0
+    with open(os.path.join(ck, "meta.json")) as f:
+        meta = json.load(f)
+    z = np.load(npz)
+    assert meta == json.loads(bytes(z["meta"]).decode())
+    for key in z.files:
+        if key != "meta":
+            assert np.array_equal(np.load(os.path.join(ck, key + ".npy")),
+                                  z[key]), key
+    capsys.readouterr()
+    out_a, out_b = (str(tmp_path / n) for n in ("a.npz", "b.npz"))
+    assert main(base + ["--num-exec", "1", "--restore", ck, "--checkpoint",
+                        out_a]) == 0
+    assert "restored step 2" in capsys.readouterr().out
+    assert main(base + ["--num-exec", "1", "--restore", npz, "--checkpoint",
+                        out_b]) == 0
+    za, zb = np.load(out_a), np.load(out_b)
+    assert all(np.array_equal(za[key], zb[key]) for key in za.files)
 
 
 @pytest.mark.parametrize("leapfrog", [False, True])

@@ -201,6 +201,43 @@ def test_torch_prim_run_step_remap_not_ported():
             assert abs(m / tt - 1.0) < F64_TOL
 
 
+@pytest.mark.parametrize("remap", [False, True])
+def test_torch_prim_run_step_rsplit0_f64_matches_jax(remap):
+    """prim_run_step at rsplit=0 in f64 against JAX's, on physically
+    monotone eta levels with a hybi ramp, with hyperviscosity, the limiter
+    and without and with the vertical remap (which JAX's step runs whenever
+    asked, at any rsplit): every level, the tracers and the derived state,
+    the eta_dot_dpdn accumulator included."""
+    from tinman_sandbox_tpu.grid import HybridVCoord as JHybridVCoord
+    from tinman_sandbox_tpu_torch.device import from_arrays
+    from tinman_sandbox_tpu_torch.grid import HybridVCoord
+
+    jcs, cfg, st, dv, g, _ = _problem(20.0, np.float64, continuous=False)
+    cfg = dataclasses.replace(cfg, rsplit=0)
+    eta = np.linspace(0.0, 1.0, NLEV + 1)
+    hva = dict(ps0=1000.0, hyai=0.1 * (1 - eta), hybi=eta,
+               hyam=0.05 * ((1 - eta[:-1]) + (1 - eta[1:])),
+               hybm=0.5 * (eta[:-1] + eta[1:]))
+    hv = JHybridVCoord(**hva)
+    ts, td, tg, _, tcfg = _torch_side(cfg, st, dv, g, hv)
+    tcfg = dataclasses.replace(tcfg, rsplit=0)
+    th = from_arrays(HybridVCoord, hva, device="cpu")
+    js, jd, jcfg = j_prim_run_step(st, dv, g, hv, cfg, jnp.asarray(jcs.gdof),
+                                   jcs.ndof, nu=NU, limit_tracers=True,
+                                   remap=remap)
+    s, d, c = prim_run_step(ts, td, tg, th, tcfg, jcs.gdof, jcs.ndof, nu=NU,
+                            limit_tracers=True, remap=remap, device="cpu")
+    assert (c.n0, c.np1, c.nm1, c.qn0) == (jcfg.n0, jcfg.np1, jcfg.nm1,
+                                           jcfg.qn0)
+    for name in ("u", "v", "t", "dp3d", "qdp"):
+        e = _err(getattr(s, name), getattr(js, name))
+        assert e < F64_TOL, (name, e)
+    for name in ("vn0_u", "vn0_v", "phi", "omega_p", "eta_dot_dpdn"):
+        e = _err(getattr(d, name), getattr(jd, name))
+        assert e < F64_TOL, (name, e)
+    assert float(np.max(np.abs(np.asarray(jd.eta_dot_dpdn)))) > 0.0
+
+
 # -- the packed step ----------------------------------------------------------
 
 def _packed(dt, qsize=2):

@@ -167,6 +167,72 @@ def test_torch_ssprk3_step_f64_matches_jax(mode):
         assert e < F64_TOL, (name, e)
 
 
+def _ramp(cfg, hv, rsplit):
+    """cfg at ``rsplit`` and hv with a hybi ramp (the analytic hvcoord's
+    hybi is all zeros, which would hide the hybi * sdot term of rsplit=0)."""
+    return (dataclasses.replace(cfg, rsplit=rsplit),
+            dataclasses.replace(hv, hybi=np.linspace(0.0, 1.0, cfg.nlev + 1)))
+
+
+@pytest.mark.parametrize("mode", ["local", "projected"])
+def test_torch_ssprk3_step_rsplit0_f64_matches_jax(mode):
+    """timeloop.ssprk3_step at rsplit=0 in f64 against JAX's, without and
+    with the DSS projection per stage: every field at np1 and the derived
+    state, the eta_dot_dpdn accumulator (advanced by the b-weighted stage
+    fluxes) included, from a random nonzero accumulator."""
+    jcs, cfg, st, dv, g, hv = _problem(2, 5, seed=3, dtype=np.float64,
+                                       continuous=False)
+    cfg, hv = _ramp(cfg, hv, 0)
+    rng = np.random.default_rng(9)
+    dv = dataclasses.replace(dv, eta_dot_dpdn=rng.uniform(
+        -1, 1, dv.eta_dot_dpdn.shape))
+    kw, tkw = {}, {}
+    if mode == "projected":
+        kw = dict(gdof=jnp.asarray(jcs.gdof), ndof=jcs.ndof)
+        tkw = dict(gdof=jcs.gdof, ndof=jcs.ndof)
+    js, jd = j_ssprk3_step(st, dv, g, hv, cfg, 0.05, **kw)
+    ts, td, tg, th = from_numpy(_np(st), _np(dv), _np(g), _np(hv),
+                                device="cpu")
+    tcfg = Config(nelem=cfg.nelem, nlev=cfg.nlev, rsplit=0)
+    s, d = ssprk3_step(ts, td, tg, th, tcfg, 0.05, device="cpu", **tkw)
+    for name in ("u", "v", "t", "dp3d"):
+        e = _err(getattr(s, name)[cfg.np1], np.asarray(getattr(js, name))[
+            cfg.np1])
+        assert e < F64_TOL, (name, e)
+    for name in ("vn0_u", "vn0_v", "phi", "omega_p", "eta_dot_dpdn"):
+        e = _err(getattr(d, name), getattr(jd, name))
+        assert e < F64_TOL, (name, e)
+    # the flux is real: the accumulator moved
+    inc = np.asarray(jd.eta_dot_dpdn) - np.asarray(dv.eta_dot_dpdn)
+    assert np.max(np.abs(inc)) > 1e-6
+    assert _err(d.eta_dot_dpdn - td.eta_dot_dpdn, inc) < 1e-9
+
+
+def test_torch_ssprk3_step_rsplit1_keeps_eta_dot_dpdn():
+    """At rsplit>0 the stage fluxes are zero: the step leaves a nonzero
+    eta_dot_dpdn accumulator bit for bit as it was, whatever hybi holds,
+    and its other outputs do not depend on hybi (bit for bit)."""
+    jcs, cfg, st, dv, g, hv = _problem(2, 5, seed=3, dtype=np.float64,
+                                       continuous=False)
+    rng = np.random.default_rng(9)
+    dv = dataclasses.replace(dv, eta_dot_dpdn=rng.uniform(
+        -1, 1, dv.eta_dot_dpdn.shape))
+    tcfg = Config(nelem=cfg.nelem, nlev=cfg.nlev)
+    outs = []
+    for h in (hv, _ramp(cfg, hv, 1)[1]):
+        ts, td, tg, th = from_numpy(_np(st), _np(dv), _np(g), _np(h),
+                                    device="cpu")
+        s, d = ssprk3_step(ts, td, tg, th, tcfg, 0.05, gdof=jcs.gdof,
+                           ndof=jcs.ndof, device="cpu")
+        assert torch.equal(d.eta_dot_dpdn, td.eta_dot_dpdn)
+        outs.append((s, d))
+    (s0, d0), (s1, d1) = outs
+    for name in ("u", "v", "t", "dp3d"):
+        assert torch.equal(getattr(s0, name), getattr(s1, name))
+    for name in ("vn0_u", "vn0_v", "phi", "omega_p"):
+        assert torch.equal(getattr(d0, name), getattr(d1, name))
+
+
 @pytest.mark.parametrize("emit_phi,slab", [(True, False), (False, False),
                                            (True, True), (False, True)])
 def test_torch_caar_single_matches_pallas_rk(emit_phi, slab):

@@ -380,10 +380,11 @@ def test_torch_wrappers_admit_the_storage_contracts(storage):
     ("ring_stage", ValueError, "stage mode"),
 ])
 def test_torch_wrappers_refuse_other_mixes(case, error, match):
-    """Every mix outside the three contracts is refused, naming the field:
-    a lone bf16 qdp or pecnd, f16, bf16 nm1 fields without bf16 qdp and
-    pecnd, a lone bf16 nm1 field, bf16 in the stage mode (ROADMAP A6), bf16
-    meta, accumulators or n0 state."""
+    """Every mix outside the contracts is refused, naming the field: a lone
+    bf16 qdp or pecnd in the pair form, f16, bf16 nm1 fields without bf16
+    qdp and pecnd, a lone bf16 nm1 field, a bf16 qdp beside an f32 pecnd in
+    the stage mode, bf16 meta, accumulators or n0 state, and bf16 in the
+    ring's stage mode."""
     p, acc, dvv = _t_operands("bf16_ro")
     f = _t_operands("f32")[0]
     k = f["qdp"].shape[0]
@@ -409,7 +410,7 @@ def test_torch_wrappers_refuse_other_mixes(case, error, match):
         "lone_um1": lambda: unstacked([bf(fields[0])] + fields[1:]),
         "lone_dpm1": lambda: unstacked(fields[:3] + [bf(fields[3])]),
         "stage_mode": lambda: stacked(sm1=None, single=True,
-                                      qdp=p["qdp"], pecnd=p["pecnd"]),
+                                      qdp=p["qdp"]),
         "bf16_meta": lambda: stacked(meta=bf(f["meta"])),
         "bf16_acc": lambda: caar_t4_cuda(
             f["scal"], f["meta"], f["s0"], f["sm1"], f["qdp"], f["pecnd"],
@@ -548,13 +549,30 @@ def test_torch_bench_chain_keeps_the_nm1_slot_bf16(layout):
 
 
 @pytest.mark.parametrize("mode", ["--rk", "--prim"])
-def test_torch_bench_stage_modes_refuse_bf16(mode, capsys):
-    """``--rk`` / ``--prim`` with a bf16 storage exit 2 naming ROADMAP A6,
-    before any device is touched."""
+def test_torch_bench_stage_modes_refuse_bf16(cpu_card, mode, capsys):
+    """``--rk`` / ``--prim`` take a bf16 storage: one JSON line naming it,
+    whose bytes are the f32 count less 2 bytes an element of each bf16
+    read of the timed steps (qdp and pecnd on each ``--rk`` stage; pecnd
+    alone on each ``--prim`` dynamics stage: its qdp is bf16 on the first,
+    warm-up step only), bf16_ro equal to bf16_aux there; a storage the
+    root bench refuses exits 2."""
+    argv = ["--ne", "2", "--nlev", "4", mode, "--nexec", "2", "--reps", "1"]
+    lines = {}
+    for storage in ("f32", *BF16):
+        bench.main(argv + ["--storage", storage])
+        out = capsys.readouterr().out.strip().splitlines()
+        assert len(out) == 1
+        lines[storage] = json.loads(out[0])
+        assert lines[storage]["storage"] == storage
+        assert f"storage={storage}" in lines[storage]["config"]
+        assert lines[storage]["storage_launches"] == 0      # no card
+    rows = 6 if mode == "--rk" else 3
+    for storage in BF16:
+        assert lines[storage]["bytes_per_step"] == \
+            lines["f32"]["bytes_per_step"] - rows * 2 * 24 * 16 * 4
     with pytest.raises(SystemExit) as e:
-        bench.main(["--ne", "2", mode, "--storage", "bf16_ro"])
+        bench.main(argv + ["--storage", "bf16"])
     assert e.value.code == 2
-    assert "A6" in capsys.readouterr().err
 
 
 def test_torch_bench_assembled_tool_variants():

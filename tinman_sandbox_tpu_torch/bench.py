@@ -8,7 +8,9 @@ modes of the repository's ``bench.py``).
         [--ring | --layout row]
     python -m tinman_sandbox_tpu_torch.bench --ne 30 --rk [--hypervis-nu 1e15]
     python -m tinman_sandbox_tpu_torch.bench --ne 30 --prim \
-        [--hypervis-nu 1e15] [--qsize Q] [--limit] [--qsplit S]
+        [--hypervis-nu 1e15] [--qsize Q] [--limit [--limit-iters N]] \
+        [--qsplit S] [--storage bf16_aux]
+    python -m tinman_sandbox_tpu_torch.bench --ne 30 --rk --storage bf16_ro
 
 The reference's methodology (kokkos_init.cpp:108-134): random init from a
 numpy seed, f32, fixed time levels, one kernel launch per step with the
@@ -65,7 +67,9 @@ stage, each with a fixup and a sweep). It starts from the projected state
 and projected tracers in [0, 1] and CHAINS: s_np1 becomes s0, qdp' becomes
 qdp, the accumulators run on. ``bytes_per_step`` is ``prim_bytes_per_step``;
 ``min_qdp`` is the least tracer value at the end (with ``--limit`` it stays
->= 0 up to the rounding of the projection).
+>= 0 up to the rounding of the projection). ``--limit-iters N`` (with
+``--limit``; default 2, the root bench's flag) sets the limiter's
+clip-and-redistribute passes; the config names it where N != 2.
 
 From ``DIRECT_NELEM`` = 16,384 elements on (the ne120 class: ``--nelem
 86400``, ``--ne 120``) the raw and the assembled modes draw their packed
@@ -85,8 +89,14 @@ and the ring. The direct-packed problem is drawn in f32 and cast after the
 draw, as the root bench does; in the assembled chain the old n0 (f32)
 becomes the nm1 slot cast to its storage dtype, a cast timed with the step.
 ``bytes_per_step`` counts each bf16 field at 2 bytes (``BF16_FIELDS``).
-``--rk`` and ``--prim`` take f32 only (their stage kernel's bf16 operands
-are ROADMAP A6). Every JSON line says ``storage``.
+With ``--rk`` and ``--prim`` the bf16 fields are qdp and pecnd alone (the
+SSPRK3 stages read no nm1 state, so "bf16_ro" is "bf16_aux" there), cast
+after the init and its projection, as the root bench casts its problem:
+``--rk`` reads them bf16 on every stage; in ``--prim`` pecnd stays bf16 and
+qdp is bf16 on the first step only (the tracer stages write f32), so the
+timed steps, after the two warm-up steps, read an f32 qdp beside a bf16
+pecnd. Every JSON line says ``storage`` and ``storage_launches`` (the
+launches of the timed runs that read a bf16 operand).
 """
 from __future__ import annotations
 
@@ -136,6 +146,12 @@ def card_name_and_power():
     except (OSError, subprocess.SubprocessError):
         return None
     return out.strip().splitlines()[0] if out.strip() else None
+
+
+def _storage_check(storage: str) -> None:
+    if storage not in BF16_FIELDS:
+        raise ValueError(f"storage={storage!r}, expected one of "
+                         f"{tuple(BF16_FIELDS)}")
 
 
 def _bf16_saving(e16: int, nlev: int, itemsize: int, storage: str) -> int:
@@ -319,7 +335,9 @@ def run_assembled(const, levels, acc, plan, rsp, nsteps: int, step=None,
 
 
 def dynamics_bytes_per_step(ne: int, nlev: int, nfix: int,
-                            hypervis: bool = False, itemsize: int = 4) -> int:
+                            hypervis: bool = False, itemsize: int = 4,
+                            storage: str = "f32",
+                            bf16_qdp: bool = True) -> int:
     """Device-memory traffic of one dynamics step, meta ignored, each
     kernel's inputs read once and its outputs written once. SSPRK3: per
     stage the CAAR kernel reads 9 [nlev, E16] rows (state, qdp, pecnd, three
@@ -329,31 +347,45 @@ def dynamics_bytes_per_step(ne: int, nlev: int, nfix: int,
     per stage. One hyperviscosity subcycle: two Laplacians (3 read, 3
     written), a sweep (3 + 3) and the mixing sweep (3 + 3 + 3): 27 rows,
     four rspheremp rows and the [nfix, 3*nlev] slab twice written and
-    read."""
+    read. In a bf16 ``storage`` each stage reads pecnd at 2 bytes an
+    element, and qdp too where ``bf16_qdp`` (as ``--rk`` reads it). The root bench subtracts its 2 or 6
+    bf16 fields once a step whatever the mode (bench.py:652); this counts
+    the reads the stages make."""
     e16 = 6 * ne * ne * 16
     n = (81 * nlev + 6) * e16 + 3 * 2 * nfix * 4 * nlev
     if hypervis:
         n += (27 * nlev + 4) * e16 + 2 * 2 * nfix * 3 * nlev
-    return n * itemsize
+    _storage_check(storage)
+    bf_rows = 0 if storage == "f32" else 3 * (1 + bool(bf16_qdp))
+    return n * itemsize - bf_rows * (itemsize - 2) * e16 * nlev
 
 
 def make_dynamics_problem(ne: int, nlev: int, device, dt: float = 0.1,
-                          seed: int = 7, cs=None):
+                          seed: int = 7, cs=None, storage: str = "f32"):
     """The dynamics bench problem at ne: ``make_assembled_problem`` with dt
     in scal's dt2 slot and the n0 state projected onto the continuous space
     (rspheremp * DSS(spheremp * s0), the whole structured DSS), which
     ``ssprk3_packed_t4`` needs. Returns (const, s0, acc, plan, rsp): const =
-    (scal, meta, qdp, pecnd, dvv). ``cs`` as ``make_assembled_problem``."""
+    (scal, meta, qdp, pecnd, dvv). ``cs`` as ``make_assembled_problem``. In
+    a bf16 ``storage`` ("bf16_aux" and "bf16_ro" alike: the stages read no
+    nm1 state) qdp and pecnd are cast to bf16 after the init."""
     from .kernels.dss import dss_structured_t_cuda
     from .kernels.layout import META_COLS
 
+    _storage_check(storage)
     (scal, meta, qdp, pecnd, dvv), (s0, _), acc, plan, rsp = \
         make_assembled_problem(ne, nlev, device, seed, cs=cs)
     scal = scal.clone()
     scal[0, 0] = dt
     sph = meta[META_COLS.index("spheremp")]
     s0 = dss_structured_t_cuda((sph * s0).contiguous(), plan, rsp)
+    qdp, pecnd = _stored(qdp, storage), _stored(pecnd, storage)
     return (scal, meta, qdp, pecnd, dvv), s0, acc, plan, rsp
+
+
+def _stored(x: torch.Tensor, storage: str) -> torch.Tensor:
+    """x in a stage mode's storage: bf16 unless "f32"."""
+    return x if storage == "f32" else x.to(torch.bfloat16)
 
 
 def run_dynamics(const, s0, acc, plan, rsp, nsteps: int, nu: float = 0.0,
@@ -378,7 +410,7 @@ def run_dynamics(const, s0, acc, plan, rsp, nsteps: int, nu: float = 0.0,
 
 def prim_bytes_per_step(ne: int, nlev: int, nfix: int, qsize: int = 1,
                         qsplit: int = 1, hypervis: bool = False,
-                        itemsize: int = 4) -> int:
+                        itemsize: int = 4, storage: str = "f32") -> int:
     """Device-memory traffic of one full model step, each kernel's inputs
     read once and its outputs written once: ``dynamics_bytes_per_step`` plus,
     per tracer stage (3 a substep), the tracer kernel's 2 wind blocks and
@@ -386,26 +418,34 @@ def prim_bytes_per_step(ne: int, nlev: int, nfix: int, qsize: int = 1,
     the [nfix, qsize*nlev] slab written and read, and the sweep's qsize
     blocks read and written with its two rspheremp rows; stages 2 and 3
     also read the qsize blocks of the substep's input for the Shu-Osher
-    combination (in the sweep, or with the limiter in the kernel)."""
+    combination (in the sweep, or with the limiter in the kernel). In a
+    bf16 ``storage`` the timed steps read pecnd at 2 bytes on every
+    dynamics stage and qdp as f32: it is bf16 on a chain's first step
+    alone, which the warm-up takes."""
     e16 = 6 * ne * ne * 16
     blocks = 3 * (2 + 4 * qsize) + 2 * qsize
     n = (blocks * nlev + 3 * (7 + 2)) * e16 + 3 * 2 * nfix * qsize * nlev
-    return dynamics_bytes_per_step(ne, nlev, nfix, hypervis, itemsize) \
+    return dynamics_bytes_per_step(ne, nlev, nfix, hypervis, itemsize,
+                                   storage, bf16_qdp=False) \
         + max(qsplit, 1) * n * itemsize
 
 
 def make_prim_problem(ne: int, nlev: int, device, dt: float = 0.1,
-                      qsize: int = 1, seed: int = 7, cs=None):
+                      qsize: int = 1, seed: int = 7, cs=None,
+                      storage: str = "f32"):
     """The full-step bench problem at ne: ``make_dynamics_problem`` plus the
     stacked tracers [qsize*nlev, E16] in [0, 1], projected onto the
     continuous space (a weighted mean: it keeps the range) as
     ``ssprk3_tracer_packed_t`` needs. Tracer 0 is the dynamics problem's
     moisture tracer; the others are drawn on the device from ``seed``.
     Returns (const, s0, qdp, acc, plan, rsp): const = (scal, meta, pecnd,
-    dvv). ``cs`` as ``make_assembled_problem``."""
+    dvv). ``cs`` as ``make_assembled_problem``. In a bf16 ``storage`` the
+    projected tracers and pecnd are cast to bf16 (as
+    ``make_dynamics_problem``)."""
     from .kernels.dss import dss_structured_t_cuda
     from .kernels.layout import META_COLS
 
+    _storage_check(storage)
     (scal, meta, q0, pecnd, dvv), s0, acc, plan, rsp = make_dynamics_problem(
         ne, nlev, device, dt, seed, cs)
     # one [qsize*nlev, E16] buffer, drawn and scaled in place (the draw is
@@ -419,17 +459,17 @@ def make_prim_problem(ne: int, nlev: int, device, dt: float = 0.1,
         q[nlev:].uniform_(0.0, 1.0, generator=gen)
     del q0
     sph = meta[META_COLS.index("spheremp")]
-    qdp = dss_structured_t_cuda(q.mul_(sph), plan, rsp)
-    return (scal, meta, pecnd, dvv), s0, qdp, acc, plan, rsp
+    qdp = _stored(dss_structured_t_cuda(q.mul_(sph), plan, rsp), storage)
+    return (scal, meta, _stored(pecnd, storage), dvv), s0, qdp, acc, plan, rsp
 
 
 def run_prim(const, s0, qdp, acc, plan, rsp, nsteps: int, nu: float = 0.0,
              dt: float = 0.1, qsplit: int = 1, limit: bool = False,
-             step=None):
+             step=None, limit_iters: int = 2):
     """``nsteps`` chained full model steps (``step`` defaults to
-    ``prim_step_packed_t4``): s_np1 becomes the next s0 and qdp' the next
-    qdp, the accumulators run on. Returns (s0, qdp, acc, phi) after the
-    last."""
+    ``prim_step_packed_t4``; ``limit_iters`` its limiter's passes): s_np1
+    becomes the next s0 and qdp' the next qdp, the accumulators run on.
+    Returns (s0, qdp, acc, phi) after the last."""
     from .dist.step_t import prim_step_packed_t4
 
     step = step or prim_step_packed_t4
@@ -439,8 +479,14 @@ def run_prim(const, s0, qdp, acc, plan, rsp, nsteps: int, nu: float = 0.0,
     for _ in range(nsteps):
         s0, qdp, phi, *acc = step(scal, meta, s0, qdp, pecnd, *acc, dvv, plan,
                                   rsp, nu, nlev, qsplit=qsplit,
-                                  limit_tracers=limit, dt=dt)
+                                  limit_tracers=limit,
+                                  limit_iters=limit_iters, dt=dt)
     return s0, qdp, tuple(acc), phi
+
+
+def _storage_launches(wrappers) -> int:
+    """The launches so far of ``wrappers`` that read a bf16 operand."""
+    return sum(getattr(w, "storage_launches", 0) for w in wrappers)
 
 
 def _main_prim(args, dev) -> dict:
@@ -451,16 +497,17 @@ def _main_prim(args, dev) -> dict:
     from .kernels.tracer_t import tracer_euler_cuda, tracer_limit_cuda
 
     const, s0, qdp, acc, plan, rsp = make_prim_problem(
-        args.ne, args.nlev, dev, args.dt, args.qsize)
+        args.ne, args.nlev, dev, args.dt, args.qsize, storage=args.storage)
     wrappers = (caar_t4_cuda, vlap_cuda, tracer_euler_cuda, tracer_limit_cuda,
                 dss_fixup_cuda, dss_sweep_cuda)
     run = lambda s, q, a, n: run_prim(const, s, q, a, plan, rsp, n,
                                       args.hypervis_nu, args.dt, args.qsplit,
-                                      args.limit)
+                                      args.limit, limit_iters=args.limit_iters)
     # warm-up (first build), excluded; the chain runs on from it
     s0, qdp, acc, _ = run(s0, qdp, acc, 2)
     torch.cuda.synchronize(dev)
     launches0 = [w.launches for w in wrappers]
+    stored0 = _storage_launches(wrappers)
     best = float("inf")
     for _ in range(args.reps):
         torch.cuda.synchronize(dev)
@@ -472,19 +519,25 @@ def _main_prim(args, dev) -> dict:
         raise RuntimeError("bench: non-finite model state")
     per_step = {w.__name__: (w.launches - n0) / (args.reps * args.nexec)
                 for w, n0 in zip(wrappers, launches0)}
+    stored = _storage_launches(wrappers) - stored0
     triad = saxpby_bandwidth_gbs(device=dev)
     nelem = 6 * args.ne * args.ne
     nbytes = prim_bytes_per_step(args.ne, args.nlev,
                                  fix_tables(plan, dev).nfix, args.qsize,
-                                 args.qsplit, bool(args.hypervis_nu))
+                                 args.qsplit, bool(args.hypervis_nu),
+                                 storage=args.storage)
     gbs = nbytes * args.nexec / best / 1e9
     return {
         "metric": "prim_gridpoint_updates_per_s",
         "config": f"ne{args.ne} ({nelem} elements) x{args.nlev}x16 float32 "
                   f"qsize={args.qsize} qsplit={args.qsplit} "
-                  f"limit={'yes' if args.limit else 'no'} nexec={args.nexec} "
+                  f"limit={'yes' if args.limit else 'no'}"
+                  + (f" limit iters={args.limit_iters}"
+                     if args.limit and args.limit_iters != 2 else "")
+                  + f" nexec={args.nexec} "
                   f"reps={args.reps} chained step=prim_step_packed_t4 "
-                  f"dt={args.dt} nu={args.hypervis_nu}",
+                  f"dt={args.dt} nu={args.hypervis_nu} "
+                  f"storage={args.storage}",
         "seconds": best,
         "us_per_step": best / args.nexec * 1e6,
         "gridpoints_per_s": nelem * args.nlev * 16 * args.nexec / best,
@@ -493,6 +546,7 @@ def _main_prim(args, dev) -> dict:
         "triad_gb_per_s": triad,
         "fraction_of_triad": gbs / triad,
         "kernel_launches_per_step": per_step,
+        "storage_launches": stored,
         "min_dp3d": float(s0[3 * args.nlev:].min()),
         "min_qdp": float(qdp.min()),
         "device": torch.cuda.get_device_name(dev),
@@ -507,7 +561,7 @@ def _main_dynamics(args, dev) -> dict:
     from .kernels.saxpby import saxpby_bandwidth_gbs
 
     const, s0, acc, plan, rsp = make_dynamics_problem(
-        args.ne, args.nlev, dev, args.dt)
+        args.ne, args.nlev, dev, args.dt, storage=args.storage)
     wrappers = (caar_t4_cuda, vlap_cuda, dss_fixup_cuda, dss_sweep_cuda)
     run = lambda s, a, n: run_dynamics(const, s, a, plan, rsp, n,
                                        args.hypervis_nu, args.dt)
@@ -515,6 +569,7 @@ def _main_dynamics(args, dev) -> dict:
     s0, acc, _ = run(s0, acc, 2)
     torch.cuda.synchronize(dev)
     launches0 = [w.launches for w in wrappers]
+    stored0 = _storage_launches(wrappers)
     best = float("inf")
     for _ in range(args.reps):
         torch.cuda.synchronize(dev)
@@ -527,11 +582,13 @@ def _main_dynamics(args, dev) -> dict:
     dp_min = float(s0[3 * args.nlev:].min())
     per_step = {w.__name__: (w.launches - n0) / (args.reps * args.nexec)
                 for w, n0 in zip(wrappers, launches0)}
+    stored = _storage_launches(wrappers) - stored0
     triad = saxpby_bandwidth_gbs(device=dev)
     nelem = 6 * args.ne * args.ne
     nbytes = dynamics_bytes_per_step(args.ne, args.nlev,
                                      fix_tables(plan, dev).nfix,
-                                     bool(args.hypervis_nu))
+                                     bool(args.hypervis_nu),
+                                     storage=args.storage)
     gbs = nbytes * args.nexec / best / 1e9
     return {
         "metric": "dynamics_gridpoint_updates_per_s",
@@ -539,7 +596,8 @@ def _main_dynamics(args, dev) -> dict:
                   f"nexec={args.nexec} reps={args.reps} chained "
                   f"step=ssprk3_packed_t4 dt={args.dt}"
                   + (f" + apply_hypervis_packed_t nu={args.hypervis_nu}"
-                     if args.hypervis_nu else ""),
+                     if args.hypervis_nu else "")
+                  + f" storage={args.storage}",
         "seconds": best,
         "us_per_step": best / args.nexec * 1e6,
         "gridpoints_per_s": nelem * args.nlev * 16 * args.nexec / best,
@@ -548,6 +606,7 @@ def _main_dynamics(args, dev) -> dict:
         "triad_gb_per_s": triad,
         "fraction_of_triad": gbs / triad,
         "kernel_launches_per_step": per_step,
+        "storage_launches": stored,
         "min_dp3d": dp_min,
         "device": torch.cuda.get_device_name(dev),
         "card": card_name_and_power(),
@@ -655,6 +714,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--limit", action="store_true",
                     help="with --prim: the monotone limiter in every tracer "
                          "stage")
+    ap.add_argument("--limit-iters", type=int, default=None,
+                    help="with --limit: the limiter's clip-and-redistribute "
+                         "passes before its residual pass (default 2)")
     ap.add_argument("--ring", action="store_true",
                     help="with --ne: the assembled step on the ring-fused "
                          "path (one ring launch, fixup, patch)")
@@ -665,8 +727,11 @@ def main(argv=None) -> dict:
                     choices=("f32", "bf16_aux", "bf16_ro"),
                     help="the CAAR kernel's read-only operands in bf16: qdp "
                          "and pecnd (bf16_aux), also the nm1 fields "
-                         "(bf16_ro); compute stays f32 (raw and assembled "
-                         "modes only)")
+                         "(bf16_ro); compute stays f32. With --rk and "
+                         "--prim qdp and pecnd alone (their stages read no "
+                         "nm1 state: bf16_ro is bf16_aux there); --prim's "
+                         "tracers write f32, so qdp is bf16 on the first "
+                         "step only")
     args = ap.parse_args(argv)
     if (args.rk or args.prim or args.hypervis_nu) and args.ne is None:
         ap.error("--rk, --prim and --hypervis-nu need --ne")
@@ -684,9 +749,12 @@ def main(argv=None) -> dict:
                       or args.layout == "row"):
         ap.error("--ring is a mode of the assembled step: it needs --ne and "
                  "takes neither --rk, --prim nor --layout row")
-    if args.storage != "f32" and (args.rk or args.prim):
-        ap.error("--storage with --rk or --prim: the stage kernel's bf16 "
-                 "operands are not ported yet (ROADMAP A6)")
+    if args.limit_iters is not None and not args.limit:
+        ap.error("--limit-iters needs --limit")
+    if args.limit_iters is None:
+        args.limit_iters = 2
+    elif args.limit_iters < 0:
+        ap.error("--limit-iters must be at least 0")
 
     from .device import resolve_device
     from .kernels.caar import caar_packed

@@ -58,8 +58,11 @@ bit for bit. The saved time levels are those the NEXT step needs: with
 ``--prim`` the rotated levels (the JAX CLI saves the last step's own, from
 which a resumed ``--prim`` run would start over at the stale level). A
 restored state is not projected again (a step's output is continuous, and
-the projection is not exact in f32). The JAX CLI's orbax directory
-checkpoints have no counterpart: any path not ending in ``.npz`` exits 2.
+the projection is not exact in f32). A path not ending in ``.npz`` is a
+directory checkpoint, as in the JAX CLI (its orbax directories): saved by
+``timeloop.save_checkpoint_dir(wait=True)`` and restored by
+``timeloop.load_checkpoint_dir``, the same arrays and meta as the npz
+form.
 The CUDA kernel is float32 only; ``--dtype`` defaults to float32 on the card
 and float64 (the oracle path) on the CPU.
 """
@@ -121,9 +124,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--diag", action="store_true",
                     help="print global energy/mass diagnostics")
     ap.add_argument("--checkpoint", default=None,
-                    help="write a checkpoint here at the end (*.npz)")
+                    help="write a checkpoint here at the end (*.npz = npz "
+                         "file; any other path = a directory)")
     ap.add_argument("--restore", default=None,
-                    help="resume from this checkpoint (*.npz)")
+                    help="resume from this checkpoint (.npz or directory)")
     return ap
 
 
@@ -134,13 +138,6 @@ def _usage_error(msg: str) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag in ("checkpoint", "restore"):
-        path = getattr(args, flag)
-        if path is not None and not path.endswith(".npz"):
-            return _usage_error(
-                f"--{flag} {path}: only .npz checkpoints are ported; the "
-                f"JAX CLI's orbax directory checkpoints have no counterpart "
-                f"in tinman_sandbox_tpu_torch")
     for flag, on in (("--dss", args.dss), ("--rk", args.rk),
                      ("--hypervis-nu", args.hypervis_nu),
                      ("--prim", args.prim)):
@@ -203,10 +200,11 @@ def main(argv=None) -> int:
 
     steps_done = 0
     if args.restore:
-        from .timeloop import load_checkpoint
+        from .timeloop import load_checkpoint, load_checkpoint_dir
 
-        state, derived, cfg, steps_done = load_checkpoint(args.restore, cfg,
-                                                          device=dev)
+        load = (load_checkpoint if args.restore.endswith(".npz")
+                else load_checkpoint_dir)
+        state, derived, cfg, steps_done = load(args.restore, cfg, device=dev)
         state, derived = state.to(dtype=dtype), derived.to(dtype=dtype)
         print(f" --- restored step {steps_done} from {args.restore}")
 
@@ -424,13 +422,18 @@ def main(argv=None) -> int:
         for p in dump_results(state, c):
             print(f" --- dumped {p}")
     if args.checkpoint:
-        from .timeloop import save_checkpoint
+        from .timeloop import save_checkpoint, save_checkpoint_dir
 
         # the levels the next step reads: --prim's last step wrote np1 and
         # tracer level 1 - qn0
         c_next = dataclasses.replace(rotated(c), qn0=1 - c.qn0) \
             if args.prim else c
-        save_checkpoint(args.checkpoint, state, derived, c_next, steps_done)
+        if args.checkpoint.endswith(".npz"):
+            save_checkpoint(args.checkpoint, state, derived, c_next,
+                            steps_done)
+        else:
+            save_checkpoint_dir(args.checkpoint, state, derived, c_next,
+                                steps_done, wait=True)
         print(f" --- checkpoint written to {args.checkpoint}")
     if args.timing_file:
         timers.summary(args.timing_file)

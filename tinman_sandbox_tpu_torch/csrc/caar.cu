@@ -147,7 +147,8 @@
 // Mixed-precision storage (kSt, the `storage` argument of both launches;
 // replaces the storage= modes of caar_pallas_t.py:903-950 and
 // caar_pallas.py:415-477): 0 every operand f32; 1 ("bf16_aux") qdp and
-// pecnd stored bf16; 2 ("bf16_ro") also um1, vm1, tm1 and dpm1. The kernel
+// pecnd stored bf16; 2 ("bf16_ro") also um1, vm1, tm1 and dpm1; 3 pecnd
+// alone bf16 (the stage mode only). The kernel
 // reads a bf16 operand itself, 2 bytes an element, and upcasts it exactly
 // (__bfloat162float) into the f32 register, stash, plane or window slot
 // where the f32 operand would have landed; compute and every output stay
@@ -161,10 +162,15 @@
 // after issuing the f32 groups; the
 // windowed mode fills its f32 slots with single loads, and the t layout (a
 // thread a column) and the row epilogue read their bf16 elements with
-// plain loads. The stage mode takes f32
-// only. Each storage is a template instance, made only where a launch
-// reaches it (the pair form: t with and without the stash, t rsplit=0, the
-// row kernel at both rsplits, the ring with and without mix).
+// plain loads. The stage mode (t layout, with or without phi, the stash
+// and the slab) takes the two mixes that the JAX package's full step hands
+// its stage kernel under `bench --prim --storage` (bench.py:340-352):
+// bf16 qdp and pecnd (1: the first step, and every step of `--rk`), and an
+// f32 qdp beside a bf16 pecnd (3: the tracers write f32, the rotation keeps
+// pecnd). The ring kernel's stage mode takes f32 only. Each storage is a
+// template instance, made only where a launch reaches it (the pair form: t
+// with and without the stash, t rsplit=0, the row kernel at both rsplits,
+// the ring with and without mix; the stage mode: 1 and 3).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -480,8 +486,9 @@ __device__ __forceinline__ void span_at(int i, int nlev, float rnlev,
 // them from device memory); dp1 = sph*(dpm1 - dt2*dptens) with dptens =
 // divdp + eta_hi - eta_lo formed as the (hybi(k+1) - hybi(k))*sdot it
 // equals (see pass 3), and etaacc += eta_ave_w*eta_hi.
-// kSt: the storage of qdp and pecnd (bf16 from 1) and of um1..dpm1 (bf16
-// at 2), each element upcast where it is read or staged (the note above).
+// kSt: the storage of qdp (bf16 at 1 and 2), pecnd (bf16 from 1) and
+// um1..dpm1 (bf16 at 2), each element upcast where it is read or staged
+// (the note above).
 template <int kTile, bool kSingle, bool kPhi, bool kStash, bool kRow = false,
           bool kR0 = false, int kS1 = 0, int kSt = 0>
 __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
@@ -492,9 +499,14 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
                 "the row layout runs the pair form on tiles of 32 columns");
   static_assert(!kR0 || (!kSingle && kPhi && kTile == kChunkTile),
                 "rsplit=0 runs the pair form on tiles of 32 columns");
-  static_assert(kSt >= 0 && kSt <= 2 && (kSt == 0 || !kSingle),
-                "bf16 storage takes the pair form");
-  constexpr bool kAux = kSt >= 1, kRo = kSt == 2;
+  static_assert(kSt >= 0 && kSt <= 3 && (kSingle ? kSt != 2 : kSt != 3),
+                "the stage mode stores no nm1 state; a lone bf16 pecnd is "
+                "the stage mode's");
+  static_assert(!kRow || kSt != 3, "the row layout has no stage mode");
+  // qdp and pecnd bf16 together (as the row kernel's staging moves them),
+  // and each of qdp, pecnd and the nm1 fields on its own
+  constexpr bool kAux = kSt == 1 || kSt == 2, kQdpBf = kAux;
+  constexpr bool kPecBf = kSt >= 1, kRo = kSt == 2;
   constexpr int tile = kTile;
   constexpr bool kStaged = kRow && kStash;
   constexpr bool kWin = kRow && !kStash && kRowWindow > 0;
@@ -558,10 +570,10 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
         cp_async4(W(kWU) + p, a.u0 + o);
         cp_async4(W(kWV) + p, a.v0 + o);
         cp_async4(W(kWT) + p, a.t0 + o);
-        if (a.moist) stage_op<kAux>(W(kWQdp) + p, a.qdp, o);
+        if (a.moist) stage_op<kQdpBf>(W(kWQdp) + p, a.qdp, o);
       }
       if (pass == 3) {
-        stage_op<kAux>(W(kWPec) + p, a.pecnd, o);
+        stage_op<kPecBf>(W(kWPec) + p, a.pecnd, o);
         stage_op<kRo>(W(kWUm1) + p, a.um1, o);
         stage_op<kRo>(W(kWVm1) + p, a.vm1, o);
         stage_op<kRo>(W(kWTm1) + p, a.tm1, o);
@@ -702,7 +714,7 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
       const size_t o = off(k);
       if constexpr (!kStash) r.dp = a.dp0[o];
       r.t = a.t0[o]; r.u = a.u0[o]; r.v = a.v0[o];
-      if (a.moist) r.qd = ld_op<kAux>(a.qdp, o);
+      if (a.moist) r.qd = ld_op<kQdpBf>(a.qdp, o);
     }
     return r;
   };
@@ -790,9 +802,9 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
       const size_t o = off(k);
       if constexpr (!kStash) {
         r.u = a.u0[o]; r.v = a.v0[o]; r.t = a.t0[o]; r.dp = a.dp0[o];
-        if (a.moist) r.qd = ld_op<kAux>(a.qdp, o);
+        if (a.moist) r.qd = ld_op<kQdpBf>(a.qdp, o);
       }
-      r.pec = ld_op<kAux>(a.pecnd, o);
+      r.pec = ld_op<kPecBf>(a.pecnd, o);
       if constexpr (!kSingle) {
         r.um1 = ld_op<kRo>(a.um1, o); r.vm1 = ld_op<kRo>(a.vm1, o);
         r.tm1 = ld_op<kRo>(a.tm1, o); r.dpm1 = ld_op<kRo>(a.dpm1, o);
@@ -1215,9 +1227,12 @@ auto* ring_kernel(bool single, bool phi, const void* mx) {
 }
 
 // f(std::integral_constant<int, kSt>{}) for the run-time storage code s
-// (0 f32, 1 bf16_aux, 2 bf16_ro; checked by the caller)
-template <typename F>
+// (0 f32, 1 bf16_aux, 2 bf16_ro, 3 a lone bf16 pecnd; checked by the
+// caller), the codes above kMax left out
+template <int kMax = 2, typename F>
 auto by_storage(int s, F&& f) {
+  if constexpr (kMax >= 3)
+    if (s == 3) return f(std::integral_constant<int, 3>{});
   return s == 2 ? f(std::integral_constant<int, 2>{})
          : s == 1 ? f(std::integral_constant<int, 1>{})
                   : f(std::integral_constant<int, 0>{});
@@ -1242,8 +1257,9 @@ const char* caar_error_string(int err) {
 // rsplit=0), caar_row_plan on the row layout (stash = staged); `blocks` the
 // t layout's rsplit=0 instance, 2 or 3 blocks an SM (3 with the stash
 // only, where three fit), ignored by the other modes. storage: 0 f32, 1
-// qdp and pecnd bf16, 2 also um1..dpm1 bf16 (the pair form only; the row
-// layout's staged bf16 spans 4-byte aligned).
+// qdp and pecnd bf16, 2 also um1..dpm1 bf16 (the pair form only), 3 pecnd
+// alone bf16 (the stage mode only); the row layout's staged bf16 spans
+// 4-byte aligned.
 int caar_launch(const void* scal, const void* meta, const void* dvv,
                 const void* u0, const void* v0, const void* t0,
                 const void* dp0, const void* um1, const void* vm1,
@@ -1258,7 +1274,9 @@ int caar_launch(const void* scal, const void* meta, const void* dvv,
                 void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (storage < 0 || storage > 2 || (storage && um1 == nullptr) ||
+  // the stage mode (um1 null) takes 0, 1 and 3, the pair form 0, 1 and 2
+  if (storage < 0 || storage > 3 ||
+      storage == (um1 == nullptr ? 2 : 3) ||
       (storage && row && stash &&
        (reinterpret_cast<size_t>(qdp) % 4 ||
         reinterpret_cast<size_t>(pecnd) % 4)))
@@ -1327,34 +1345,40 @@ int caar_launch(const void* scal, const void* meta, const void* dvv,
   a.rrearth = rrearth;
 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return by_storage(storage, [&](auto kst) -> cudaError_t {
+  return by_storage<3>(storage, [&](auto kst) -> cudaError_t {
     constexpr int kSt = decltype(kst)::value;
-    if (row) {
-      if (r0)
-        return stash ? launch_row<true, true, kSt>(a, chunks, levels, st)
-                     : launch_row<true, false, kSt>(a, chunks, levels, st);
-      return stash ? launch_row<false, true, kSt>(a, chunks, levels, st)
-                   : launch_row<false, false, kSt>(a, chunks, levels, st);
-    }
-    if (r0)
-      return !stash ? launch_r0<false, 2, kSt>(a, chunks, levels, st)
-             : blocks == 3 ? launch_r0<true, 3, kSt>(a, chunks, levels, st)
-                           : launch_r0<true, 2, kSt>(a, chunks, levels, st);
-    if constexpr (kSt == 0) {    // the stage mode: f32 only
+    if constexpr (kSt != 2) {    // the stage mode: storage 0, 1 or 3
       if (um1 == nullptr) {
         if (stash)
-          return phi ? launch_chunked<true, true, true>(a, chunks, levels, st)
-                     : launch_chunked<true, false, true>(a, chunks, levels,
-                                                          st);
-        return phi ? launch_chunked<true, true, false>(a, chunks, levels, st)
-                   : launch_chunked<true, false, false>(a, chunks, levels,
-                                                         st);
+          return phi ? launch_chunked<true, true, true, kSt>(a, chunks,
+                                                             levels, st)
+                     : launch_chunked<true, false, true, kSt>(a, chunks,
+                                                              levels, st);
+        return phi ? launch_chunked<true, true, false, kSt>(a, chunks, levels,
+                                                            st)
+                   : launch_chunked<true, false, false, kSt>(a, chunks,
+                                                             levels, st);
       }
     }
-    return stash ? launch_chunked<false, true, true, kSt>(a, chunks, levels,
-                                                          st)
-                 : launch_chunked<false, true, false, kSt>(a, chunks, levels,
-                                                           st);
+    if constexpr (kSt == 3) {
+      return cudaErrorInvalidValue;        // refused above
+    } else {
+      if (row) {
+        if (r0)
+          return stash ? launch_row<true, true, kSt>(a, chunks, levels, st)
+                       : launch_row<true, false, kSt>(a, chunks, levels, st);
+        return stash ? launch_row<false, true, kSt>(a, chunks, levels, st)
+                     : launch_row<false, false, kSt>(a, chunks, levels, st);
+      }
+      if (r0)
+        return !stash ? launch_r0<false, 2, kSt>(a, chunks, levels, st)
+               : blocks == 3 ? launch_r0<true, 3, kSt>(a, chunks, levels, st)
+                             : launch_r0<true, 2, kSt>(a, chunks, levels, st);
+      return stash ? launch_chunked<false, true, true, kSt>(a, chunks, levels,
+                                                            st)
+                   : launch_chunked<false, true, false, kSt>(a, chunks,
+                                                             levels, st);
+    }
   });
 }
 

@@ -44,6 +44,12 @@
 // each thread reads and writes only its own element of mx, its partner reads
 // go to x, and the grid covers x's rows only, so further rows of mx ride
 // through untouched. The output must never alias x.
+// mx may be bf16 (kMxBf, the `mx_bf16` argument of the sweep's launch; the
+// merged sweep with mix only): the JAX package's full step under `bench
+// --prim --storage` hands the unlimited tracer stages 2 and 3 of its first
+// step a bf16 qdp as the mix field (dss_sweeps_pallas_ct, :1227). The kernel
+// reads its 4 lanes as 8 bytes and upcasts them exactly, so the instance is
+// bit for bit the f32 sweep on mx upcast; the output is f32 and never mx.
 // Every add and product but the two-float scale's fmaf is rounded on its own
 // (__fadd_rn / __fmul_rn, no FMA contraction) in the order of the JAX
 // package, so each kernel equals its plain PyTorch version bit for bit and
@@ -94,6 +100,7 @@
 // tens of instructions each). On the H100 ascending lanes and one row a
 // thread measured faster than vals-column order and than several rows a
 // thread. Offsets are size_t: 4*nlev*E16 exceeds 2^31 from ne ~ 160 on.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "dss_sweep.cuh"
@@ -112,18 +119,20 @@ constexpr int kTile = 32;       // the extraction's and the fixup's tiles:
 constexpr int kTileRows = 8;    // kTile x kTile, kTileRows thread rows
 
 // out[row, l]: the swept, scaled value, or with kMerge at a fix lane the fix
-// value vd[row, fix_col[l]]; with kMix ca*mx[row, l] + cb*that. out may be
-// mx, never x. Without kMerge vd and fix_col are not read.
+// value vd[row, fix_col[l]]; with kMix ca*mx[row, l] + cb*that, mx bf16
+// with kMxBf. out may be mx (f32), never x. Without kMerge vd and fix_col
+// are not read.
 // Thread g owns the aligned lane group l0 = 4g (j = 0..3 of one i-row of an
 // element) in row blockIdx.y: it decodes the group's partner offsets, reads
 // its rspheremp and fix_col, issues all its loads, then sums and stores
 // (dss_sweep::swept4).
-template <bool kMix, bool kMerge>
+template <bool kMix, bool kMerge, bool kMxBf = false>
 __global__ void __launch_bounds__(kSweepThreads, kSweepBlocks)
 dss_sweep_kernel(const float* __restrict__ x, const float* __restrict__ rsp,
                  int nrsp, const float* __restrict__ vd, int nfix,
-                 const int* __restrict__ fix_col, const float* mx, float ca,
+                 const int* __restrict__ fix_col, const void* mx, float ca,
                  float cb, float* out, int e16, int ne) {
+  static_assert(kMix || !kMxBf, "a bf16 mix field needs the mix");
   const int g = blockIdx.x * kSweepThreads + threadIdx.x;
   const int l0 = 4 * g;
   if (l0 >= e16) return;
@@ -155,7 +164,18 @@ dss_sweep_kernel(const float* __restrict__ x, const float* __restrict__ rsp,
     if (alpha) bda = xr[3 - rl + da];
   }
   float4 m = zero4;
-  if constexpr (kMix) m = *reinterpret_cast<const float4*>(mx + o);
+  if constexpr (kMxBf) {
+    // 4 bf16 lanes in one 8-byte load, upcast exactly
+    const uint2 p = *reinterpret_cast<const uint2*>(
+        static_cast<const __nv_bfloat16*>(mx) + o);
+    const float2 m01 = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&p.x));
+    const float2 m23 = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&p.y));
+    m = make_float4(m01.x, m01.y, m23.x, m23.y);
+  } else if constexpr (kMix) {
+    m = *reinterpret_cast<const float4*>(static_cast<const float*>(mx) + o);
+  }
   float4 w = dss_sweep::swept4(c, a, alpha, bu, bua, up, bd, bda, dn, hi, lo,
                                nrsp);
   if constexpr (kMerge) {
@@ -326,41 +346,46 @@ const char* dss_error_string(int err) {
 // the launch. Pointers are device pointers of contiguous float32 / int32
 // tensors; rsp holds nrsp (1 or 2) rows of e16 lanes. The sweep's mx is
 // null (no mix) or a field of at least k rows; out may be mx; a null vd is
-// the merge-free sweep (fix_col not read). The patch's lanes are the nfix
-// fix lanes ascending, cols the vd column of each, and its mx null or a
-// field of at least k rows of e16 lanes that w does not overlap.
+// the merge-free sweep (fix_col not read); mx_bf16 = 1: mx is a bf16 field
+// of k rows, 8-byte aligned (the merged sweep only), never out. The
+// patch's lanes are the nfix fix lanes ascending, cols the vd column of
+// each, and its mx null or a field of at least k rows of e16 lanes that w
+// does not overlap.
 
 int dss_sweep_launch(const void* x, const void* rsp, int nrsp, const void* vd,
-                     int nfix, const void* fix_col, const void* mx, float ca,
-                     float cb, void* out, int k, int e16, int ne, void* stream,
-                     int device) {
+                     int nfix, const void* fix_col, const void* mx,
+                     int mx_bf16, float ca, float cb, void* out, int k,
+                     int e16, int ne, void* stream, int device) {
   cudaError_t err = prepare(device);
   if (err != cudaSuccess) return err;
   // float4 access needs whole groups and 16-byte aligned rows
-  if (e16 % 16 || k < 1 || k > kMaxGridY) return cudaErrorInvalidValue;
+  if (e16 % 16 || k < 1 || k > kMaxGridY ||
+      (mx_bf16 && (!mx || !vd || mx == out)))
+    return cudaErrorInvalidValue;
   const dim3 grid((e16 / 4 + kSweepThreads - 1) / kSweepThreads, k);
-  auto* kernel = vd ? (mx ? dss_sweep_kernel<true, true>
-                          : dss_sweep_kernel<false, true>)
-                    : (mx ? dss_sweep_kernel<true, false>
-                          : dss_sweep_kernel<false, false>);
+  auto* kernel = mx_bf16 ? dss_sweep_kernel<true, true, true>
+                 : vd    ? (mx ? dss_sweep_kernel<true, true>
+                               : dss_sweep_kernel<false, true>)
+                         : (mx ? dss_sweep_kernel<true, false>
+                               : dss_sweep_kernel<false, false>);
   kernel<<<grid, kSweepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(rsp), nrsp,
       static_cast<const float*>(vd), nfix, static_cast<const int*>(fix_col),
-      static_cast<const float*>(mx), ca, cb, static_cast<float*>(out), e16,
-      ne);
+      mx, ca, cb, static_cast<float*>(out), e16, ne);
   return cudaGetLastError();
 }
 
-// Blocks of the sweep kernel (merged or not, with or without mix) that one
-// SM holds, from cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative: a
-// CUDA error.
+// Blocks of the sweep kernel (merged or not, with or without mix; mix = 2
+// the merged sweep with a bf16 mix field) that one SM holds, from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative: a CUDA error.
 int dss_sweep_blocks_per_sm(int merge, int mix, int device) {
   cudaError_t err = prepare(device);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  auto* kernel = merge ? (mix ? dss_sweep_kernel<true, true>
-                              : dss_sweep_kernel<false, true>)
-                       : (mix ? dss_sweep_kernel<true, false>
-                              : dss_sweep_kernel<false, false>);
+  auto* kernel = mix == 2 ? dss_sweep_kernel<true, true, true>
+                 : merge  ? (mix ? dss_sweep_kernel<true, true>
+                                 : dss_sweep_kernel<false, true>)
+                          : (mix ? dss_sweep_kernel<true, false>
+                                 : dss_sweep_kernel<false, false>);
   int n = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel,
                                                       kSweepThreads, 0);

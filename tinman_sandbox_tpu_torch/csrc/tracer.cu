@@ -62,6 +62,16 @@
 // 0 / FLT_MIN = 0, no NaN. Every FMA is an explicit fmaf and the source is
 // built with -fmad=false (kernels/_build.py), so the bits of a row do not
 // depend on which kernel inlines its body.
+// bf16 storage (kQBf, kMxBf; the `bf16` argument of both stage launches):
+// the JAX package's full step under `bench --prim --storage` (bench.py:
+// 340-352) hands the first step's tracer stages a bf16 qdp: stage 1 reads it
+// as q, and the limited stages 2 and 3 as the mix field mx (the unlimited
+// stages mix in the sweep). The kernel reads such an operand itself, 4
+// lanes as 8 bytes, and upcasts it exactly (__bfloat1622float2) into the
+// registers where the float4 would have landed; compute, out and the slab
+// stay f32, so each such instance is, bit for bit, the f32 instance on the
+// operand upcast. The instances: the Euler stage with a bf16 q, the limited
+// stage with a bf16 q and no mix, and with an f32 q and a bf16 mx.
 // The winds are read out of taller tensors (the [4*nlev] prognostic state)
 // by row-block offset, with no slice copy. Every tensor a thread reads or
 // writes by float4 must be 16-byte aligned with ld % 4 == 0 (the wrappers
@@ -114,6 +124,7 @@
 // level j mod nlev broadcast over the tracers (neighbouring columns of one
 // tracer read neighbouring wind addresses; other tracers hit the cache).
 #include <cfloat>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "ring.cuh"
@@ -210,6 +221,23 @@ __device__ __forceinline__ V4 zero4() { return V4{{0.f, 0.f, 0.f, 0.f}}; }
 __device__ __forceinline__ V4 ld4(const float* __restrict__ p, size_t o) {
   const float4 f = *reinterpret_cast<const float4*>(p + o);
   return V4{{f.x, f.y, f.z, f.w}};
+}
+
+// four lanes of a tracer operand from element o: float, or with kBf bf16
+// (8 bytes, o a multiple of 4) upcast exactly
+template <bool kBf>
+__device__ __forceinline__ V4 ld4op(const void* __restrict__ p, size_t o) {
+  if constexpr (kBf) {
+    const uint2 w = *reinterpret_cast<const uint2*>(
+        static_cast<const __nv_bfloat16*>(p) + o);
+    const float2 a = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w.x));
+    const float2 b = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w.y));
+    return V4{{a.x, a.y, b.x, b.y}};
+  } else {
+    return ld4(static_cast<const float*>(p), o);
+  }
 }
 
 __device__ __forceinline__ void st4(float* __restrict__ p, size_t o,
@@ -319,8 +347,8 @@ struct Stage {
   const float* __restrict__ meta;
   const float* __restrict__ vu;      // the nlev wind rows
   const float* __restrict__ vv;
-  const float* __restrict__ q;
-  const float* __restrict__ mx;      // the mix field, or null
+  const void* __restrict__ q;        // float, or bf16 by the instance
+  const void* __restrict__ mx;       // the mix field, or null; likewise
   float* __restrict__ out;
   const int* __restrict__ fix_rank;  // null: no slab
   float* __restrict__ slab;
@@ -480,8 +508,10 @@ __device__ __forceinline__ void stage_row(const Quad& t, const Tile& tl,
 // goes to memory (on the H100 the Euler stage at qsize 35 took 0.94 ms with
 // 4 warps of one level at a time, 0.74 with two). The next tracer's loads
 // start before the current tracer's rows run. With kKeep (the ring) out is
-// stored evict-last in L2. Every thread of the block must call it.
-template <bool kLimit, bool kMix, int kWarps, bool kKeep = false>
+// stored evict-last in L2; with kQBf (kMxBf) q (mx) is bf16. Every thread
+// of the block must call it.
+template <bool kLimit, bool kMix, int kWarps, bool kKeep = false,
+          bool kQBf = false, bool kMxBf = false>
 __device__ __forceinline__ void stage_block(const Stage& s,
                                             const float* __restrict__ dvv,
                                             int ncol, float rr, int lane0,
@@ -513,8 +543,8 @@ __device__ __forceinline__ void stage_block(const Stage& s,
       o[i] = static_cast<size_t>(k) * s.ld + t.col + n0 * step;
       qn[i] = mn[i] = zero4();
       if (on[i] && t.live) {
-        qn[i] = ld4(s.q, o[i]);
-        if constexpr (kMix) mn[i] = ld4(s.mx, o[i]);
+        qn[i] = ld4op<kQBf>(s.q, o[i]);
+        if constexpr (kMix) mn[i] = ld4op<kMxBf>(s.mx, o[i]);
       }
     }
     for (int n = n0; n < n1; ++n) {
@@ -524,8 +554,8 @@ __device__ __forceinline__ void stage_block(const Stage& s,
         qv[i] = qn[i];
         mv[i] = mn[i];
         if (on[i] && t.live && n + 1 < n1) {     // the next tracer's loads
-          qn[i] = ld4(s.q, o[i] + step);
-          if constexpr (kMix) mn[i] = ld4(s.mx, o[i] + step);
+          qn[i] = ld4op<kQBf>(s.q, o[i] + step);
+          if constexpr (kMix) mn[i] = ld4op<kMxBf>(s.mx, o[i] + step);
         }
       }
 #pragma unroll
@@ -543,16 +573,18 @@ __device__ __forceinline__ void stage_block(const Stage& s,
 }
 
 // The Euler (kLimit false) and limited stages: block (x, y) takes lanes
-// x*kTile .. +kTile and levels y*kLevels .. +kLevels, every tracer.
-template <bool kLimit, bool kMix>
+// x*kTile .. +kTile and levels y*kLevels .. +kLevels, every tracer; q (mx)
+// bf16 with kQBf (kMxBf).
+template <bool kLimit, bool kMix, bool kQBf = false, bool kMxBf = false>
 __global__ void __launch_bounds__(32 * (kLimit ? kWarpsLimit : kWarpsEuler),
                                   kLimit ? kMinLimit : kMinEuler)
 tracer_kernel(Stage s, const float* __restrict__ dvv, int ncol, float rr) {
+  static_assert(kMix || !kMxBf, "a bf16 mix field needs the mix");
   __shared__ Tile tl;
   const int k0 = blockIdx.y * kLevels;
-  stage_block<kLimit, kMix, kLimit ? kWarpsLimit : kWarpsEuler>(
-      s, dvv, ncol, rr, blockIdx.x * kTile, k0, min(k0 + kLevels, s.nlev), 0,
-      s.nq, tl);
+  stage_block<kLimit, kMix, kLimit ? kWarpsLimit : kWarpsEuler, false, kQBf,
+              kMxBf>(s, dvv, ncol, rr, blockIdx.x * kTile, k0,
+                     min(k0 + kLevels, s.nlev), 0, s.nq, tl);
 }
 
 // threads of a block of tracer_kernel<kLimit, *>
@@ -713,8 +745,8 @@ Stage make_stage(const void* meta, const void* vu, const void* vv,
   s.meta = static_cast<const float*>(meta);
   s.vu = static_cast<const float*>(vu) + wu * blk;
   s.vv = static_cast<const float*>(vv) + wv * blk;
-  s.q = static_cast<const float*>(q);
-  s.mx = static_cast<const float*>(mx);
+  s.q = q;
+  s.mx = mx;
   s.out = static_cast<float*>(out);
   s.fix_rank = static_cast<const int*>(fix_rank);
   s.slab = fix_rank ? static_cast<float*>(slab) : nullptr;
@@ -747,20 +779,26 @@ const char* tracer_error_string(int err) {
 // are the nlev rows of vu from row wu*nlev and of vv from row wv*nlev.
 // fix_rank and slab may be null (no slab output); mx may be null (no
 // combination: y = e). The Euler and limited stages and the ring read and
-// write float4s: every field 16-byte aligned and ld % 4 == 0.
+// write float4s: every field 16-byte aligned and ld % 4 == 0 (a bf16 field
+// 8-byte aligned). bf16 (the stages only): bit 0 q is bf16, bit 1 mx is
+// bf16; the Euler stage takes 0 and 1, the limited stage 0, 1 (no mx) and 2
+// (with mx).
 
 int tracer_euler_launch(const void* meta, const void* dvv, const void* vu,
                         const void* vv, const void* q, void* out,
                         const void* fix_rank, void* slab, int nlev, int nq,
                         int ncol, int ld, int wu, int wv, int fold_sph,
-                        float dt, float rrearth, void* stream, int device) {
+                        int bf16, float dt, float rrearth, void* stream,
+                        int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (ld % 4) return cudaErrorInvalidValue;
+  if (ld % 4 || (bf16 != 0 && bf16 != 1)) return cudaErrorInvalidValue;
   const Stage s = make_stage(meta, vu, vv, q, nullptr, out, fix_rank, slab,
                              nlev, nq, ld, wu, wv, fold_sph, 0, dt, 0.f, 0.f);
-  tracer_kernel<false, false><<<stage_grid(ncol, nlev), stage_threads(false),
-                                0, static_cast<cudaStream_t>(stream)>>>(
+  auto* kernel = bf16 ? tracer_kernel<false, false, true>
+                      : tracer_kernel<false, false>;
+  kernel<<<stage_grid(ncol, nlev), stage_threads(false), 0,
+           static_cast<cudaStream_t>(stream)>>>(
       s, static_cast<const float*>(dvv), ncol, rrearth);
   return cudaGetLastError();
 }
@@ -788,14 +826,19 @@ int tracer_limit_launch(const void* meta, const void* dvv, const void* vu,
                         const void* vv, const void* q, const void* mx,
                         void* out, const void* fix_rank, void* slab, int nlev,
                         int nq, int ncol, int ld, int wu, int wv, int iters,
-                        float dt, float ca, float cb, float rrearth,
-                        void* stream, int device) {
+                        int bf16, float dt, float ca, float cb,
+                        float rrearth, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (ld % 4) return cudaErrorInvalidValue;
+  if (ld % 4 || bf16 < 0 || bf16 > 2 || (bf16 == 1 && mx) ||
+      (bf16 == 2 && !mx))
+    return cudaErrorInvalidValue;
   const Stage s = make_stage(meta, vu, vv, q, mx, out, fix_rank, slab, nlev,
                              nq, ld, wu, wv, 1, iters, dt, ca, cb);
-  auto* kernel = mx ? tracer_kernel<true, true> : tracer_kernel<true, false>;
+  auto* kernel = bf16 == 1   ? tracer_kernel<true, false, true>
+                 : bf16 == 2 ? tracer_kernel<true, true, false, true>
+                 : mx        ? tracer_kernel<true, true>
+                             : tracer_kernel<true, false>;
   kernel<<<stage_grid(ncol, nlev), stage_threads(true), 0,
            static_cast<cudaStream_t>(stream)>>>(
       s, static_cast<const float*>(dvv), ncol, rrearth);
@@ -864,7 +907,9 @@ int tracer_ring_launch(const void* meta, const void* dvv, const void* vu,
 // Blocks that one SM holds, from
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor, of kernel `kind`: 0 the
 // Euler stage, 1 the ring kernel without mix, 2 the limited stage with mix,
-// 3 the limited stage without mix; negative: a CUDA error.
+// 3 the limited stage without mix; their bf16 instances: 4 the Euler stage
+// with a bf16 q, 5 the limited stage with a bf16 q, 6 with a bf16 mx;
+// negative: a CUDA error.
 int tracer_blocks_per_sm(int kind, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -static_cast<int>(err);
@@ -885,6 +930,18 @@ int tracer_blocks_per_sm(int kind, int device) {
     case 3:
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &n, tracer_kernel<true, false>, stage_threads(true), 0);
+      break;
+    case 4:
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, tracer_kernel<false, false, true>, stage_threads(false), 0);
+      break;
+    case 5:
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, tracer_kernel<true, false, true>, stage_threads(true), 0);
+      break;
+    case 6:
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, tracer_kernel<true, true, false, true>, stage_threads(true), 0);
       break;
     default:
       return -static_cast<int>(cudaErrorInvalidValue);

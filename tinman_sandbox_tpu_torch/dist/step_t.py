@@ -406,10 +406,11 @@ def _ssprk3_tracer(euler, limiter, close, dvv, meta, vu, vv, qdp, plan, rsp,
     ``euler`` in the call form of ``tracer_ring_packed_t`` (the ring, or a
     two-launch Euler step through ``_mix_in_closer``) and its closer
     ``close(x, slab, fix, rsp, mix)``; with it the limit kernel, closed with
-    no combination. The Shu-Osher coefficients are formed in the tracers'
-    dtype, the last pair summing to exactly 1 (``third_stage_weights``)."""
+    no combination. The Shu-Osher coefficients are formed in the compute
+    dtype (the winds'; a bf16 qdp is a stored input, read upcast), the last
+    pair summing to exactly 1 (``third_stage_weights``)."""
     fix = fix_tables(plan, qdp.device)
-    f = _np_float(qdp.dtype)
+    f = _np_float(vu.dtype)
     mixes = (None, (qdp, f(0.75), f(0.25)),
              (qdp, *third_stage_weights(f)))
     q = qdp

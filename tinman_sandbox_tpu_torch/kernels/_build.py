@@ -121,8 +121,8 @@ _SIGNATURES = {
         "caar_error_string": [_I],
     },
     "dss": {
-        "dss_sweep_launch": [_P, _P, _I, _P, _I, _P, _P, _F, _F, _P, _I, _I,
-                             _I, _P, _I],
+        "dss_sweep_launch": [_P, _P, _I, _P, _I, _P, _P, _I, _F, _F, _P, _I,
+                             _I, _I, _P, _I],
         "dss_sweep_blocks_per_sm": [_I, _I, _I],
         "dss_sweep_banded_launch": [_P, _P, _I, _P, _I, _P, _P, _P, _F, _F,
                                     _P, _I, _I, _I, _I, _I, _P, _I],
@@ -156,8 +156,8 @@ _SIGNATURES = {
         "saxpby_error_string": [_I],
     },
     "tracer": {
-        "tracer_euler_launch": [_P] * 8 + [_I] * 7 + [_F, _F, _P, _I],
-        "tracer_limit_launch": [_P] * 9 + [_I] * 7 + [_F] * 4 + [_P, _I],
+        "tracer_euler_launch": [_P] * 8 + [_I] * 8 + [_F, _F, _P, _I],
+        "tracer_limit_launch": [_P] * 9 + [_I] * 8 + [_F] * 4 + [_P, _I],
         "tracer_row_launch": [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P, _I],
         "tracer_ring_launch": [_P] * 12 + [_I] * 12 + [_F] * 4 + [_P, _I],
         "tracer_blocks_per_sm": [_I, _I],

@@ -64,8 +64,11 @@ tensors the plain version takes any).
     upcasts them exactly (``csrc/caar.cu``, kSt), so each mode is, bit for
     bit, the f32 mode on the same operands upcast; the plain version
     upcasts them first. Launches in a bf16 mode also count in
-    ``<wrapper>.storage_launches``. The stage mode (``single``) takes f32
-    only (ROADMAP A6).
+    ``<wrapper>.storage_launches``. The stage mode (``single``) takes the
+    two mixes the JAX package's full step hands its stage kernel under
+    ``bench --prim --storage``: bf16 qdp and pecnd (its first step, and
+    every ``--rk`` step), and an f32 qdp beside a bf16 pecnd (later steps:
+    the tracers write f32, pecnd stays bf16).
 """
 from __future__ import annotations
 
@@ -147,6 +150,9 @@ R0_WAVES = 4
 # the kernels take (csrc/caar.cu kSt): "bf16_aux" stores qdp and pecnd in
 # bf16, "bf16_ro" also the four nm1 fields
 STORAGE = {"f32": 0, "bf16_aux": 1, "bf16_ro": 2}
+# the stage mode's code for an f32 qdp beside a bf16 pecnd (what the JAX
+# package's full step hands its stage kernel after the first bf16 step)
+STAGE_PECND = 3
 _BF16 = torch.bfloat16
 
 
@@ -488,24 +494,27 @@ _NM1_NAMES = ("um1", "vm1", "tm1", "dpm1")
 
 
 def _storage(aux, nm1) -> int:
-    """The STORAGE code of dtype-checked storage operands: ``aux`` = (qdp,
-    pecnd), ``nm1`` the base state (stacked, a 4-tuple, or None in the stage
-    mode). Raises, naming the field, on a mix that no contract holds: qdp
-    and pecnd bf16 together, the four nm1 fields bf16 together and only with
-    them, and no bf16 in the stage mode (the JAX stage kernel takes bf16
-    only from ``bench --prim --storage``: ROADMAP A6)."""
+    """The kernel's storage code (csrc/caar.cu kSt) of dtype-checked storage
+    operands: ``aux`` = (qdp, pecnd), ``nm1`` the base state (stacked, a
+    4-tuple, or None in the stage mode). The pair form takes the STORAGE
+    contracts: qdp and pecnd bf16 together, the four nm1 fields bf16
+    together and only with them. The stage mode takes what the JAX
+    package's full step hands its stage kernel under ``bench --prim
+    --storage``: bf16 qdp and pecnd (1), or an f32 qdp beside a bf16 pecnd
+    (``STAGE_PECND``, 3). Raises, naming the field, on any other mix."""
     qdp, pecnd = aux
-    if (qdp.dtype == _BF16) != (pecnd.dtype == _BF16):
+    qbf, pbf = qdp.dtype == _BF16, pecnd.dtype == _BF16
+    if nm1 is None:
+        if qbf and not pbf:
+            raise ValueError(f"caar: qdp is {qdp.dtype} but pecnd is "
+                             f"{pecnd.dtype}: the stage mode (sm1=None) "
+                             "takes a bf16 qdp beside a bf16 pecnd only")
+        return 1 if qbf else STAGE_PECND if pbf else 0
+    if qbf != pbf:
         raise ValueError(f"caar: qdp is {qdp.dtype} but pecnd is "
                          f"{pecnd.dtype}: bf16 storage stores qdp and pecnd "
                          "together (bf16_aux)")
-    code = int(qdp.dtype == _BF16)
-    if nm1 is None:
-        if code:
-            raise ValueError("caar: bf16 qdp and pecnd in the stage mode "
-                             "(sm1=None), which takes float32 only (bench "
-                             "--prim --storage: ROADMAP A6)")
-        return code
+    code = int(qbf)
     base = (nm1,) * 4 if isinstance(nm1, torch.Tensor) else tuple(nm1)
     bf = [x.dtype == _BF16 for x in base]
     if any(bf) != all(bf):
@@ -616,13 +625,13 @@ def _caar_step(scal, meta, dvv, s0, sm1, qdp, pecnd, acc, out, phi, moist,
     return True
 
 
-def _count_t4(slab, single, qdp):
+def _count_t4(slab, single, pecnd):
     caar_t4_cuda.launches += 1
     if slab is not None:
         caar_t4_cuda.slab_launches += 1
     if single:
         caar_t4_cuda.single_launches += 1
-    caar_t4_cuda.storage_launches += qdp.dtype == _BF16
+    caar_t4_cuda.storage_launches += pecnd.dtype == _BF16
 
 
 def caar_t4_cuda(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv,
@@ -654,7 +663,7 @@ def caar_t4_cuda(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv,
     slab = _new_slab(fix, s0, k)
     if _caar_step(scal, meta, dvv, s0, None if single else sm1, qdp, pecnd,
                   (vn0u, vn0v, omg), s1, phi, moist, fix, slab):
-        _count_t4(slab, single, qdp)
+        _count_t4(slab, single, pecnd)
     out = (s1, phi, vn0u, vn0v, omg)
     return out if fix is None else (*out, slab)
 
@@ -678,7 +687,7 @@ def caar_packed_t(scal, meta, u0, v0, t0, dp0, um1, vm1, tm1, dpm1,
     slab = _new_slab(fix, u0, qdp.shape[0])
     if _caar_step(scal, meta, dvv, (u0, v0, t0, dp0), (um1, vm1, tm1, dpm1),
                   qdp, pecnd, (vn0u, vn0v, omg), out, phi, moist, fix, slab):
-        _count_t4(slab, False, qdp)
+        _count_t4(slab, False, pecnd)
     res = (*out, phi, vn0u, vn0v, omg)
     return res if fix is None else (*res, slab)
 

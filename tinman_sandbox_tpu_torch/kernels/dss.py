@@ -357,10 +357,12 @@ def _swept_plain(x: torch.Tensor, rsp: torch.Tensor, ne: int):
 
 
 def _mix_plain(name, x, w, mix):
-    """ca*mx + cb*w for the first rows of mx, its further rows unchanged."""
+    """ca*mx + cb*w for the first rows of mx, its further rows unchanged;
+    a bf16 mx upcast exactly to w's dtype first."""
     if mix is None:
         return w
     mx, ca, cb = _check_mix(name, x, mix)
+    mx = mx.to(w.dtype)
     k = x.shape[0]
     return torch.cat([ca * mx[:k] + cb * w, mx[k:]])
 
@@ -498,7 +500,20 @@ def _sweep(name, x, rsp, vd, tables, mix):
     if vd is not None:
         ops.update({"vd": (vd, (k, n)), "fix_col": (tables.fix_col, (e16,))})
     mx, ca, cb = (None, 0.0, 0.0) if mix is None else _check_mix(name, x, mix)
-    if mx is not None:
+    bf_mix = mx is not None and mx.dtype == torch.bfloat16
+    if bf_mix:
+        # the stored qdp of a first bf16 tracer step (bench --prim
+        # --storage): the merged sweep reads it and writes a new field
+        if vd is None:
+            raise ValueError(f"{name}: a bfloat16 mix field takes the merged "
+                             "sweep only")
+        if tuple(mx.shape) != (k, e16) or mx.device != x.device or \
+                not mx.is_contiguous():
+            raise ValueError(f"{name}: a bfloat16 mix field must be a "
+                             f"contiguous [{k}, {e16}] tensor on {x.device} "
+                             "(the output is a new tensor of x's dtype), got "
+                             f"{tuple(mx.shape)} on {mx.device}")
+    elif mx is not None:
         ops["mix field"] = (mx, tuple(mx.shape))
     dev = _check(name, ops, dtype=x.dtype)
     in_place = mx is not None and mx.shape[0] > k
@@ -522,8 +537,8 @@ def _sweep(name, x, rsp, vd, tables, mix):
     ptr = lambda t: 0 if t is None else t.data_ptr()
     err = _build.library("dss").dss_sweep_launch(
         x.data_ptr(), rsp.data_ptr(), rsp.shape[0], ptr(vd), n,
-        0 if vd is None else tables.fix_col.data_ptr(), ptr(mx), ca, cb,
-        out.data_ptr(), k, e16, tables.ne, _stream(dev), dev.index)
+        0 if vd is None else tables.fix_col.data_ptr(), ptr(mx), int(bf_mix),
+        ca, cb, out.data_ptr(), k, e16, tables.ne, _stream(dev), dev.index)
     _build.check_launch("dss", err)
     return out, True
 
@@ -535,13 +550,20 @@ def dss_sweep_cuda(x: torch.Tensor, rsp: torch.Tensor, vd: torch.Tensor,
     x, so the output never aliases x: it is a new tensor, also with
     ``mix=(mx, ca, cb)`` (ca*mx + cb*assembled) when mx has x's height. A
     TALLER mx (the [4*nlev] state around a [3*nlev] x) is updated IN PLACE
-    in its first k rows and returned; it must not overlap x."""
+    in its first k rows and returned; it must not overlap x. mx may be
+    bf16 (x's shape only; read upcast exactly, the output a new tensor of
+    x's dtype), as the JAX package's full step hands its sweep the stored
+    qdp under ``bench --prim --storage``: such launches also count in
+    ``dss_sweep_cuda.storage_launches``."""
     out, launched = _sweep("dss_sweep", x, rsp, vd, tables, mix)
     dss_sweep_cuda.launches += launched
+    dss_sweep_cuda.storage_launches += launched and mix is not None and \
+        mix[0].dtype == torch.bfloat16
     return out
 
 
 dss_sweep_cuda.launches = 0
+dss_sweep_cuda.storage_launches = 0   # those with a bf16 mix field
 
 
 def dss_sweep_nomerge_cuda(x: torch.Tensor, rsp: torch.Tensor,

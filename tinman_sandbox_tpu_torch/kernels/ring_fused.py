@@ -18,7 +18,9 @@ fixup and the patch (``kernels/dss.py``) complete the DSS.
     ``emit_phi``), the sweep's ``mix`` epilogue, the accumulators IN PLACE
     and the fix-lane slab [nfix, 4*nlev]; in the pair form sm1, qdp and
     pecnd may be bf16 (``caar_t.STORAGE``; the CAAR kernel's storage
-    instances, counted also in ``caar_ring_packed_t4.storage_launches``).
+    instances, counted also in ``caar_ring_packed_t4.storage_launches``);
+    its stage mode takes float32 only, as does ``tracer_ring_packed_t``:
+    no entry point of the JAX package hands its ring forms bf16.
     Its tiles are the chunked CAAR kernel's 32 columns (``ring_plan``: the producer's plan, the halo and
     the schedule), its sweep runs on float4 groups, and each tile's s1
     lines are discarded from L2 once its last reader is done.
@@ -345,6 +347,11 @@ def caar_ring_packed_t4(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg,
     mx, ca, cb = _check_ring("caar_ring", s0, rsp, fix, mix)
     dev = _caar_check(scal, meta, dvv, (vn0u, vn0v, omg), k, states=(s0,),
                       aux=(qdp, pecnd), nm1=None if single else sm1)
+    if single and _BF16 in (qdp.dtype, pecnd.dtype):
+        raise ValueError(f"caar_ring: qdp is {qdp.dtype} and pecnd "
+                         f"{pecnd.dtype} in the stage mode (sm1=None), which "
+                         "the ring takes in float32 only (no JAX entry point "
+                         "hands its ring stage bf16)")
     if dev.type == "cpu":
         s1, phi, *acc, slab = caar_t4_cuda(
             scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv,
@@ -415,7 +422,7 @@ def tracer_ring_packed_t(meta, vu, vv, q, dvv, dt, nlev: int, rsp,
     e16 = q.shape[1]
     # raises where the launch refuses
     plan = tracer_ring_plan(e16, nlev, fix.ne, q.shape[0] // nlev)
-    rank, slab = _tracer_slab("tracer_ring", fix, q)
+    rank, slab = _tracer_slab("tracer_ring", fix, q, q.dtype)
     scratch = torch.empty_like(q)      # the launch refuses it unless
     w = torch.empty_like(q)            # 128-byte aligned (whole L2 lines)
     # the producer and the sweep read and write float4s (csrc/tracer.cu)

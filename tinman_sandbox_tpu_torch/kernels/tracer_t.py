@@ -35,9 +35,18 @@ Each has a plain PyTorch version (``tracer_euler_plain``,
 ``tracer_limit_plain``). The wrappers check their operands, run the plain
 version for CPU tensors (any float dtype) and launch the kernel for CUDA
 tensors (float32), counted in ``<wrapper>.launches`` (and those with a slab
-output also in ``<wrapper>.slab_launches``). The kernels read and write
-float4s: on the card every field must be 16-byte aligned (a misaligned
-view raises ValueError; nothing falls back).
+output also in ``<wrapper>.slab_launches``). The compute dtype is the
+winds'; every operand holds it, but that the stages take a bf16 stage
+input, as the JAX package's full step hands them its bf16 qdp under
+``bench --prim --storage``: ``q`` in the Euler stage and in the limited
+stage without a mix field, and the mix field ``mx`` (beside a q of the
+compute dtype) in the limited stage with one. The kernels upcast it
+exactly, so each such launch is bit for bit the launch on the upcast
+operand, and the plain versions upcast first; out and the slab are of the
+compute dtype. Such launches also count in
+``<wrapper>.storage_launches``. The kernels read and write float4s: on
+the card every field must be 16-byte aligned (a misaligned view raises
+ValueError; nothing falls back).
 
 ``tracer_euler_emulated`` and ``tracer_limit_emulated`` repeat on the CPU
 what the kernels compute and in which order (the quad layout of
@@ -82,8 +91,10 @@ TRACER_WARPS = {"euler": 4, "limit": 8}
 
 
 def _advect_plain(meta, vu, vv, q, dvv, dt, nlev, wind_rows):
-    """e = q - dt*div(v*q) on [qsize*nlev, E16] rows, and spheremp [E16]."""
+    """e = q - dt*div(v*q) on [qsize*nlev, E16] rows, and spheremp [E16];
+    a bf16 q upcast exactly to the winds' dtype first."""
     full_precision_matmuls()
+    q = q.to(vu.dtype)
     dt = float(dt)                    # a numpy scalar would take over the op
     k = nlev
     qk, e16 = q.shape
@@ -180,17 +191,22 @@ def tracer_limit_plain(meta, vu, vv, q, dvv, dt, nlev: int, mix=None,
     mx, ca, cb = _mix_of("tracer_limit", q, mix)
     y, sph = _advect_plain(meta, vu, vv, q, dvv, dt, nlev, wind_rows)
     if mx is not None:
-        y = ca * mx + cb * y
-    return _with_slab(sph * _limit_lanes_plain(y, q, sph, iters), fix)
+        y = ca * mx.to(y.dtype) + cb * y
+    return _with_slab(sph * _limit_lanes_plain(y, q.to(y.dtype), sph, iters),
+                      fix)
 
 
-def _check(name, meta, vu, vv, q, dvv, nlev, wind_rows, mx=None):
-    """Validate the operands of one tracer launch; returns the device."""
-    dev, dtype = q.device, q.dtype
+def _check(name, meta, vu, vv, q, dvv, nlev, wind_rows, mx=None, bf16=()):
+    """Validate the operands of one tracer launch; returns the device. The
+    compute dtype is q's (vu's where q is bf16), which every operand holds
+    but those named in ``bf16`` ("q", "mix field"), which may be bf16 too."""
+    dev = q.device
+    ref, dtype = ("vu", vu.dtype) if q.dtype == torch.bfloat16 else \
+        ("q", q.dtype)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"{name}: unsupported device {dev}")
     if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{name}: needs float fields, got {dtype}")
+        raise TypeError(f"{name}: needs float fields, got {dtype} ({ref})")
     if dev.type == "cuda" and dtype != torch.float32:
         raise TypeError(f"{name}: the CUDA kernel takes float32 only")
     if q.ndim != 2 or nlev < 1 or q.shape[0] < nlev or q.shape[0] % nlev \
@@ -214,9 +230,11 @@ def _check(name, meta, vu, vv, q, dvv, nlev, wind_rows, mx=None):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: {op} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
-        if t.device != dev or t.dtype != dtype:
+        ok = (dtype, torch.bfloat16) if op in bf16 else (dtype,)
+        if t.device != dev or t.dtype not in ok:
             raise ValueError(f"{name}: {op} is {t.dtype} on {t.device}, "
-                             f"expected {dtype} on {dev}")
+                             f"expected {' or '.join(map(str, ok))} on "
+                             f"{dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {op} must be contiguous")
     return dev
@@ -235,8 +253,9 @@ def _check_aligned(name, ld: int, **ops):
             raise ValueError(f"{name}: {op} must be 16-byte aligned")
 
 
-def _new_slab(name, fix, q):
-    """(fix_rank pointer, slab) for ``fix``, the slab [nfix, rows of q]."""
+def _new_slab(name, fix, q, dtype):
+    """(fix_rank pointer, slab) for ``fix``, the slab [nfix, rows of q] in
+    ``dtype``."""
     if fix is None:
         return 0, None
     rank = fix.fix_rank
@@ -245,7 +264,7 @@ def _new_slab(name, fix, q):
         raise ValueError(f"{name}: fix_rank must be int32 [{q.shape[1]}] on "
                          f"{q.device}, got {rank.dtype} {tuple(rank.shape)} "
                          f"on {rank.device}")
-    return rank.data_ptr(), torch.empty(fix.nfix, q.shape[0], dtype=q.dtype,
+    return rank.data_ptr(), torch.empty(fix.nfix, q.shape[0], dtype=dtype,
                                         device=q.device)
 
 
@@ -255,15 +274,18 @@ def tracer_euler_cuda(meta, vu, vv, q, dvv, dt, nlev: int,
     block (counterpart of ``tracer_euler_pallas_packed_t`` and, with
     ``fix``, of its slab-emitting forms ``_lg`` and ``_ext``). meta
     [16, E16]; vu, vv [>= (block+1)*nlev, E16] holding the winds at the row
-    blocks ``wind_rows``; dvv [4, 4]; ``dt`` a number. ``fold_sph=False``
-    returns the plain advected value. Returns out [qsize*nlev, E16], and
-    with ``fix`` also the fix-lane slab [nfix, qsize*nlev]."""
-    dev = _check("tracer_euler", meta, vu, vv, q, dvv, nlev, wind_rows)
+    blocks ``wind_rows``; dvv [4, 4]; ``dt`` a number; q may be bf16.
+    ``fold_sph=False`` returns the plain advected value. Returns out
+    [qsize*nlev, E16] in the winds' dtype, and with ``fix`` also the
+    fix-lane slab [nfix, qsize*nlev]."""
+    dev = _check("tracer_euler", meta, vu, vv, q, dvv, nlev, wind_rows,
+                 bf16=("q",))
     if dev.type == "cpu":
         return tracer_euler_plain(meta, vu, vv, q, dvv, dt, nlev, fold_sph,
                                   wind_rows, fix)
-    rank, slab = _new_slab("tracer_euler", fix, q)
-    out = torch.empty_like(q)
+    rank, slab = _new_slab("tracer_euler", fix, q, vu.dtype)
+    out = torch.empty_like(q, dtype=vu.dtype)
+    bf16 = int(q.dtype == torch.bfloat16)
     e16 = q.shape[1]
     _check_aligned("tracer_euler", e16, meta=meta, dvv=dvv, q=q, out=out,
                    vu=(vu, wind_rows[0] * nlev * e16),
@@ -273,11 +295,12 @@ def tracer_euler_cuda(meta, vu, vv, q, dvv, dt, nlev: int,
         meta.data_ptr(), dvv.data_ptr(), vu.data_ptr(), vv.data_ptr(),
         q.data_ptr(), out.data_ptr(), rank,
         0 if slab is None else slab.data_ptr(), nlev, q.shape[0] // nlev,
-        e16, e16, wind_rows[0], wind_rows[1], int(bool(fold_sph)), float(dt),
-        CONSTANTS.rrearth, torch.cuda.current_stream(dev).cuda_stream,
-        dev.index)
+        e16, e16, wind_rows[0], wind_rows[1], int(bool(fold_sph)), bf16,
+        float(dt), CONSTANTS.rrearth,
+        torch.cuda.current_stream(dev).cuda_stream, dev.index)
     _build.check_launch("tracer", err)
     tracer_euler_cuda.launches += 1
+    tracer_euler_cuda.storage_launches += bf16
     if slab is None:
         return out
     tracer_euler_cuda.slab_launches += 1
@@ -286,6 +309,7 @@ def tracer_euler_cuda(meta, vu, vv, q, dvv, dt, nlev: int,
 
 tracer_euler_cuda.launches = 0
 tracer_euler_cuda.slab_launches = 0   # the launches among them with a slab
+tracer_euler_cuda.storage_launches = 0   # and those with a bf16 q
 
 
 def tracer_limit_cuda(meta, vu, vv, q, dvv, dt, nlev: int, mix=None,
@@ -294,19 +318,23 @@ def tracer_limit_cuda(meta, vu, vv, q, dvv, dt, nlev: int, mix=None,
     ``tracer_limit_pallas_packed_t_ext``): e = q - dt*div(v*q); y = e, or
     ca*mx + cb*e with ``mix=(mx, ca, cb)`` (mx of q's shape, ca and cb
     numbers); y = L(y, bounds(q)) element by element; out = spheremp * y.
-    Operands as ``tracer_euler_cuda``; ``iters`` >= 0 clip-and-redistribute
-    passes (1 conserves but may leave the bounds; 0 runs only the final
-    residual pass, as the JAX kernel does). Returns out
+    Operands as ``tracer_euler_cuda``, but that q may be bf16 only without
+    ``mix``, and mx bf16 beside a q of the winds' dtype; ``iters`` >= 0
+    clip-and-redistribute passes (1 conserves but may leave the bounds; 0
+    runs only the final residual pass, as the JAX kernel does). Returns out
     [qsize*nlev, E16], and with ``fix`` also the slab [nfix, qsize*nlev]."""
     mx, ca, cb = _mix_of("tracer_limit", q, mix)
     if iters < 0:
         raise ValueError(f"tracer_limit: iters must be >= 0, got {iters}")
-    dev = _check("tracer_limit", meta, vu, vv, q, dvv, nlev, wind_rows, mx)
+    dev = _check("tracer_limit", meta, vu, vv, q, dvv, nlev, wind_rows, mx,
+                 bf16=("q",) if mx is None else ("mix field",))
     if dev.type == "cpu":
         return tracer_limit_plain(meta, vu, vv, q, dvv, dt, nlev, mix,
                                   wind_rows, iters, fix)
-    rank, slab = _new_slab("tracer_limit", fix, q)
-    out = torch.empty_like(q)
+    rank, slab = _new_slab("tracer_limit", fix, q, vu.dtype)
+    out = torch.empty_like(q, dtype=vu.dtype)
+    bf16 = (2 if mx is not None and mx.dtype == torch.bfloat16
+            else int(q.dtype == torch.bfloat16))
     e16 = q.shape[1]
     _check_aligned("tracer_limit", e16, meta=meta, dvv=dvv, q=q, out=out,
                    mx=mx, vu=(vu, wind_rows[0] * nlev * e16),
@@ -317,10 +345,11 @@ def tracer_limit_cuda(meta, vu, vv, q, dvv, dt, nlev: int, mix=None,
         q.data_ptr(), 0 if mx is None else mx.data_ptr(), out.data_ptr(),
         rank, 0 if slab is None else slab.data_ptr(), nlev,
         q.shape[0] // nlev, e16, e16, wind_rows[0], wind_rows[1], int(iters),
-        float(dt), ca, cb, CONSTANTS.rrearth,
+        bf16, float(dt), ca, cb, CONSTANTS.rrearth,
         torch.cuda.current_stream(dev).cuda_stream, dev.index)
     _build.check_launch("tracer", err)
     tracer_limit_cuda.launches += 1
+    tracer_limit_cuda.storage_launches += bf16 > 0
     if slab is None:
         return out
     tracer_limit_cuda.slab_launches += 1
@@ -329,6 +358,7 @@ def tracer_limit_cuda(meta, vu, vv, q, dvv, dt, nlev: int, mix=None,
 
 tracer_limit_cuda.launches = 0
 tracer_limit_cuda.slab_launches = 0   # the launches among them with a slab
+tracer_limit_cuda.storage_launches = 0   # and those with a bf16 q or mx
 
 
 # -- the kernels' walk and arithmetic on the CPU ------------------------------

@@ -55,10 +55,10 @@ def ssprk3_step(state: State, derived: Derived, geom: Geometry,
 
     Tracers (qdp) are held fixed. ``rsp2`` is an optional two-float
     (hi, lo) rspheremp pair (``dist.dss.rsp_2f``) for bias-free projection.
-    phi is the last stage's. Returns (state, derived) on ``device``; the
+    phi is the last stage's; eta_dot_dpdn advances by the b-weighted
+    interface fluxes of the stages (zero at rsplit>0, where the step is
+    vertically Lagrangian). Returns (state, derived) on ``device``; the
     inputs are not modified."""
-    if cfg.rsplit <= 0:
-        raise NotImplementedError("ssprk3_step ports the rsplit>0 path only")
     dev = resolve_device(device)
     state, derived = state.to(dev), derived.to(dev)
     geom, hv = geom.to(dev), hv.to(dev)
@@ -74,7 +74,7 @@ def ssprk3_step(state: State, derived: Derived, geom: Geometry,
     def axpy(a, x, b, y):
         return tuple(a * xi + b * yi for xi, yi in zip(x, y))
 
-    acc = {"vdp1": 0.0, "vdp2": 0.0, "omega_p": 0.0}
+    acc = {"vdp1": 0.0, "vdp2": 0.0, "omega_p": 0.0, "eta_dot_dpdn": 0.0}
 
     def accumulate(diags, w):
         for name in acc:
@@ -103,12 +103,13 @@ def ssprk3_step(state: State, derived: Derived, geom: Geometry,
     new_state = dataclasses.replace(
         state, u=put(state.u, u3[0]), v=put(state.v, u3[1]),
         t=put(state.t, u3[2]), dp3d=put(state.dp3d, u3[3]))
-    # rsplit>0 is vertically Lagrangian: eta_dot_dpdn gets no increment
+    # at rsplit>0 the interface flux is zero (vertically Lagrangian), and
+    # adding it leaves eta_dot_dpdn's values as they were
     new_derived = dataclasses.replace(
         derived,
         vn0_u=derived.vn0_u + acc["vdp1"],
         vn0_v=derived.vn0_v + acc["vdp2"],
         omega_p=derived.omega_p + acc["omega_p"],
-        eta_dot_dpdn=derived.eta_dot_dpdn.clone(),
+        eta_dot_dpdn=derived.eta_dot_dpdn + acc["eta_dot_dpdn"],
         phi=t3[4]["phi"])
     return new_state, new_derived
