@@ -8,9 +8,9 @@ how the hypotheses about them were tested.
 
     python3 experiments/kernel_variants.py [sweep] [caar] [fixup] [remap]
         [tracer] [row] [ring] [banded] [tracer_ring] [rsplit0] [storage]
-        [remap_parent]
+        [tracer_bf16] [remap_parent]
 
-from the repository root: the named groups (default all eleven), in that
+from the repository root: the named groups (default all twelve), in that
 order.
 
   1. the sweep: the port's kernel (``dss_sweep_cuda``: one row a thread, 40
@@ -133,6 +133,17 @@ order.
      in a bf16 mode, against the f32 mode on the operands upcast, timed
      from CUDA graphs, with ptxas's registers of the row kernel's storage
      instances.
+ 12. the tracer stages' bf16 q (the tracer group's bf16 case): the limited
+     stage with an f32 q and a bf16 q and the Euler stage with both, at
+     ne30 x 72, qsize 1 and 35, through the port's wrappers on builds of
+     ``csrc/tracer.cu`` (``TRACER_BF16_BUILDS``): the port's at iters 0, 1
+     and 2, the loads and stores alone (``TRACER_CUT=1``) and the body
+     without the limiter (``TRACER_CUT=2``), built in parallel. Each bf16
+     instance bit for bit its f32 instance on the upcast q, each cut build
+     bit for bit what it computes; timed from CUDA graphs, then split by
+     differences into the loads, the advection, the bounds with the mass
+     and the residual pass, and each limiter pass, beside ptxas's
+     registers and spills and cudaOccupancy's blocks an SM.
 
 Every line is one JSON object and names the card and its power limit.
 Without a card the script raises.
@@ -841,6 +852,131 @@ def tracers(dev, card):
         print(json.dumps(line), flush=True)
 
 
+# builds of csrc/tracer.cu for the stages' parts (group tracer_bf16): (name,
+# nvcc flags), the port's first
+TRACER_BF16_BUILDS = (("port", []), ("loads", ["-DTRACER_CUT=1"]),
+                      ("advect", ["-DTRACER_CUT=2"]))
+# its instances: (name, limited, q in bf16, tracer_blocks_per_sm kind)
+TRACER_BF16_CASES = (("limit_f32", True, False, 3),
+                     ("limit_bf16", True, True, 5),
+                     ("euler_f32", False, False, 0),
+                     ("euler_bf16", False, True, 4))
+TRACER_BF16_ITERS = (0, 1, 2)
+
+
+def _short_regs(regs, tag):
+    """{mangled template arguments: registers and spills} of ``regs``
+    (``_caar_libraries``' {kernel name: ...}) for the kernel ``tag``."""
+    out = {}
+    for name, r in regs.items():
+        m = re.match(r"I(?:L[^E]+E)+E", name.split(tag, 1)[-1])
+        out[m.group(0) if m else name] = r
+    return out
+
+
+def tracer_bf16(dev, card):
+    """The tracer stages' bf16 q case: the limited stage with an f32 q and a
+    bf16 q and the Euler stage with both, at ne30 x 72, qsize 1 and 35, on
+    the prim bench's tracers with the slab, through the port's wrappers on
+    builds of csrc/tracer.cu (TRACER_BF16_BUILDS, all at once): the port's
+    at iters 0, 1 and 2 (the limited stage), the loads and stores alone
+    (TRACER_CUT=1) and the body without the limiter (TRACER_CUT=2). Each
+    bf16 instance held bit for bit against its f32 instance on the upcast
+    q, the cut builds against what they compute (sph*q; the Euler stage's
+    output), timed from CUDA graphs at the run's dt; then, by differences,
+    the loads, the advection, the bounds with the mass and the residual
+    pass, and each limiter pass, beside ptxas's registers and spills and
+    cudaOccupancy's blocks an SM of each instance."""
+    from chip_smoke import DYN_DT
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.kernels import _build
+    from tinman_sandbox_tpu_torch.kernels.dss import fix_tables
+    from tinman_sandbox_tpu_torch.kernels.layout import META_COLS
+    from tinman_sandbox_tpu_torch.kernels.tracer_t import (tracer_euler_cuda,
+                                                           tracer_limit_cuda)
+
+    libs = _caar_libraries(TRACER_BF16_BUILDS, "bf16", "tracer_kernel",
+                           source="tracer")
+    for name, (so, regs) in libs.items():
+        print(json.dumps(dict(
+            card=card, kernel="tracer_bf16", build=name,
+            flags=dict(TRACER_BF16_BUILDS)[name],
+            registers=_short_regs(regs, "tracer_kernel"),
+            blocks_per_sm={case: so.tracer_blocks_per_sm(kind, dev.index)
+                           for case, _, _, kind in TRACER_BF16_CASES})),
+              flush=True)
+    const, s0, _, _, plan, _ = bench.make_prim_problem(30, 72, dev, DYN_DT, 1)
+    meta, dvv = const[1], const[3]
+    sph = meta[META_COLS.index("spheremp")]
+    fix = fix_tables(plan, dev)
+    k = 72
+    kw = dict(wind_rows=(0, 1), fix=fix)
+    port_library = _build.library
+    try:
+        for qsize in (1, 35):
+            q = bench.make_prim_problem(30, k, dev, DYN_DT, qsize)[2]
+            qb = q.to(torch.bfloat16)
+            reps = 30 if qsize == 1 else 10
+            times = {}
+            for name, (so, _) in libs.items():
+                _build.library = (lambda n, so=so: so if n == "tracer"
+                                  else port_library(n))
+                for case, limited, bf, _ in TRACER_BF16_CASES:
+                    iters = TRACER_BF16_ITERS if limited and name == "port" \
+                        else (2,)
+                    for it in iters:
+                        def run(x, it=it, limited=limited):
+                            if limited:
+                                return tracer_limit_cuda(
+                                    meta, s0, s0, x, dvv, DYN_DT, k,
+                                    iters=it, **kw)[0]
+                            return tracer_euler_cuda(meta, s0, s0, x, dvv,
+                                                     DYN_DT, k, **kw)[0]
+                        got = run(qb if bf else q)
+                        qx = qb.float() if bf else q
+                        if name == "loads":
+                            want = qx * sph
+                        elif name == "advect" and limited:
+                            _build.library = port_library
+                            want = tracer_euler_cuda(meta, s0, s0, qx, dvv,
+                                                     DYN_DT, k, **kw)[0]
+                            _build.library = (lambda n, so=so: so if n ==
+                                              "tracer" else port_library(n))
+                        else:
+                            want = run(qx)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"tracer_bf16 {name} {case} qsize {qsize} "
+                                f"iters {it}: not the bits it computes")
+                        ms = graph_ms(lambda: run(qb if bf else q), reps)
+                        times[(name, case, it)] = ms
+                        print(json.dumps(dict(
+                            card=card, kernel="tracer_bf16", build=name,
+                            case=case, qsize=qsize, iters=it, graph_ms=ms,
+                            bits="held")), flush=True)
+                        del got, want
+            for case, limited, bf, _ in TRACER_BF16_CASES:
+                t = lambda name, it=2: times[(name, case, it)]
+                split = dict(loads=t("loads"))
+                if limited:
+                    split.update(
+                        advection=t("advect") - t("loads"),
+                        bounds_and_residual=t("port", 0) - t("advect"),
+                        pass_1=t("port", 1) - t("port", 0),
+                        pass_2=t("port", 2) - t("port", 1))
+                else:
+                    split.update(body=t("port") - t("loads"))
+                split["whole"] = t("port")
+                print(json.dumps(dict(card=card, kernel="tracer_bf16",
+                                      split=case, qsize=qsize,
+                                      graph_ms=split)), flush=True)
+            del q, qb
+            torch.cuda.empty_cache()
+    finally:
+        _build.library = port_library
+
+
 # builds of csrc/caar.cu for the row kernel beyond its planes: (name, nvcc
 # flags), the port's first
 ROW_BUILDS = (("w8", []), ("inplace", ["-DCAAR_ROW_WINDOW=0"]),
@@ -1450,7 +1586,7 @@ def _assembled_const(dev):
 
 def main(argv=None) -> int:
     every = ["sweep", "caar", "fixup", "remap", "tracer", "row", "ring",
-             "banded", "tracer_ring", "rsplit0", "storage"]
+             "banded", "tracer_ring", "rsplit0", "storage", "tracer_bf16"]
     extra = ["remap_parent"]
     groups = (argv if argv is not None else sys.argv[1:]) or every
     if set(groups) - set(every) - set(extra):
@@ -1492,6 +1628,8 @@ def main(argv=None) -> int:
         rsplit0(dev, card)
     if "storage" in groups:
         storage(dev, card)
+    if "tracer_bf16" in groups:
+        tracer_bf16(dev, card)
     return 0
 
 

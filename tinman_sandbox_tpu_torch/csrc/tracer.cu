@@ -203,6 +203,16 @@ constexpr int kMinEuler = TRACER_MIN_BLOCKS, kMinLimit = TRACER_MIN_BLOCKS;
 #else
 constexpr int kMinEuler = 1, kMinLimit = 4;
 #endif
+// The stages' body cut down, for experiments/kernel_variants.py (group
+// tracer_bf16), which builds with TRACER_CUT: 0 (the port) the whole body;
+// 1 the loads and stores alone (y = q, or its mix, with the wind products
+// kept live); 2 without the limiter (the advection, the mix and sph). The
+// limiter's parts follow from the port's build at iters 0, 1 and 2.
+#ifdef TRACER_CUT
+constexpr int kCut = TRACER_CUT;
+#else
+constexpr int kCut = 0;
+#endif
 constexpr unsigned kFull = 0xffffffffu;
 
 // META_COLS row indices (kernels/layout.py)
@@ -469,7 +479,14 @@ __device__ __forceinline__ void stage_row(const Quad& t, const Tile& tl,
                                           const V4& qv, const V4& mv,
                                           size_t o, size_t row,
                                           unsigned long long keep) {
-  V4 y = advect(t, tl, w, qv, s.dt);
+  V4 y;
+  if constexpr (kCut == 1) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      y.v[j] = fmaf(0.f, w.c1.v[j] + w.c2.v[j], qv.v[j]);
+  } else {
+    y = advect(t, tl, w, qv, s.dt);
+  }
   if constexpr (kMix) {
 #pragma unroll
     for (int j = 0; j < 4; ++j)
@@ -477,7 +494,7 @@ __device__ __forceinline__ void stage_row(const Quad& t, const Tile& tl,
   }
   if (kLimit || s.fold) {
     const V4 sph = lds4(tl.sph + t.qi);
-    if constexpr (kLimit) y = limit(y, qv, sph, t.wsum, s.iters);
+    if constexpr (kLimit && kCut == 0) y = limit(y, qv, sph, t.wsum, s.iters);
 #pragma unroll
     for (int j = 0; j < 4; ++j) y.v[j] *= sph.v[j];
   }
