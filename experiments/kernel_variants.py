@@ -125,10 +125,12 @@ order.
      ``caar_packed_rsplit0`` with bf16 qdp and pecnd, and with bf16 nm1
      fields too: ``kernels.caar_t.STORAGE``) at 1024 x 72 and ne30 x 72 on
      the bench case of ``chip_smoke.r0_cases``: ``csrc/caar.cu`` built as
-     the port builds it and with ``CAAR_ROW_SYNC_AUX`` (``STORAGE_BUILDS``:
-     its f32 mode staging f32 qdp and pecnd by plain loads before pass 1,
-     as the bf16 modes stage theirs, in place of the cp.async groups that
-     overlap passes 1 and 2), built in parallel. Each build in f32,
+     the port builds it (qdp and pecnd in the cp.async groups that overlap
+     passes 1 and 2: f32, or bf16 as raw pairs upcast after their group's
+     wait) and with ``CAAR_ROW_SYNC_AUX`` (``STORAGE_BUILDS``: qdp and
+     pecnd staged by plain loads before pass 1 in every mode, the bf16
+     staging before the raw pairs and, in f32, the control that shows what
+     the overlap is worth), built in parallel. Each build in f32,
      bf16_aux and bf16_ro, held bit for bit against the port's build and,
      in a bf16 mode, against the f32 mode on the operands upcast, timed
      from CUDA graphs, with ptxas's registers of the row kernel's storage
@@ -137,10 +139,13 @@ order.
      stage with an f32 q and a bf16 q and the Euler stage with both, at
      ne30 x 72, qsize 1 and 35, through the port's wrappers on builds of
      ``csrc/tracer.cu`` (``TRACER_BF16_BUILDS``): the port's at iters 0, 1
-     and 2, the loads and stores alone (``TRACER_CUT=1``) and the body
-     without the limiter (``TRACER_CUT=2``), built in parallel. Each bf16
-     instance bit for bit its f32 instance on the upcast q, each cut build
-     bit for bit what it computes; timed from CUDA graphs, then split by
+     and 2, the loads and stores alone (``TRACER_CUT=1``), the body
+     without the limiter (``TRACER_CUT=2``) and the limited stage's bf16 q
+     prefetched as before (``TRACER_BF_AHEAD``), built in parallel; each
+     case also on the f32 instance with the bf16 q upcast (its data
+     through the f32 code). Each bf16 instance bit for bit its f32
+     instance on the upcast q, each cut build bit for bit what it
+     computes; timed from CUDA graphs, then split by
      differences into the loads, the advection, the bounds with the mass
      and the residual pass, and each limiter pass, beside ptxas's
      registers and spills and cudaOccupancy's blocks an SM.
@@ -855,12 +860,17 @@ def tracers(dev, card):
 # builds of csrc/tracer.cu for the stages' parts (group tracer_bf16): (name,
 # nvcc flags), the port's first
 TRACER_BF16_BUILDS = (("port", []), ("loads", ["-DTRACER_CUT=1"]),
-                      ("advect", ["-DTRACER_CUT=2"]))
-# its instances: (name, limited, q in bf16, tracer_blocks_per_sm kind)
-TRACER_BF16_CASES = (("limit_f32", True, False, 3),
-                     ("limit_bf16", True, True, 5),
-                     ("euler_f32", False, False, 0),
-                     ("euler_bf16", False, True, 4))
+                      ("advect", ["-DTRACER_CUT=2"]),
+                      ("ahead0", ["-DTRACER_BF_AHEAD=0"]),
+                      ("ahead1", ["-DTRACER_BF_AHEAD=1"]))
+# its cases: (name, limited, q: "f32", "bf16" or "up" (the f32 instance on
+# the bf16 q upcast: the bf16 case's data through the f32 code),
+# tracer_blocks_per_sm kind)
+TRACER_BF16_CASES = (("limit_f32", True, "f32", 3),
+                     ("limit_bf16", True, "bf16", 5),
+                     ("limit_up", True, "up", 3),
+                     ("euler_f32", False, "f32", 0),
+                     ("euler_bf16", False, "bf16", 4))
 TRACER_BF16_ITERS = (0, 1, 2)
 
 
@@ -875,17 +885,20 @@ def _short_regs(regs, tag):
 
 
 def tracer_bf16(dev, card):
-    """The tracer stages' bf16 q case: the limited stage with an f32 q and a
-    bf16 q and the Euler stage with both, at ne30 x 72, qsize 1 and 35, on
-    the prim bench's tracers with the slab, through the port's wrappers on
-    builds of csrc/tracer.cu (TRACER_BF16_BUILDS, all at once): the port's
-    at iters 0, 1 and 2 (the limited stage), the loads and stores alone
-    (TRACER_CUT=1) and the body without the limiter (TRACER_CUT=2). Each
-    bf16 instance held bit for bit against its f32 instance on the upcast
-    q, the cut builds against what they compute (sph*q; the Euler stage's
-    output), timed from CUDA graphs at the run's dt; then, by differences,
-    the loads, the advection, the bounds with the mass and the residual
-    pass, and each limiter pass, beside ptxas's registers and spills and
+    """The tracer stages' bf16 q case: the limited stage with an f32 q, a
+    bf16 q and the f32 q upcast from it, and the Euler stage with an f32
+    and a bf16 q, at ne30 x 72, qsize 1 and 35, on the prim bench's
+    tracers with the slab, through the port's wrappers on builds of
+    csrc/tracer.cu (TRACER_BF16_BUILDS, all at once): the port's at iters
+    0, 1 and 2 (the limited stage), the loads and stores alone
+    (TRACER_CUT=1), the body without the limiter (TRACER_CUT=2) and the
+    limited stage's bf16 q prefetched otherwise (TRACER_BF_AHEAD 0: one
+    tracer ahead, upcast as loaded; 1: one ahead, raw). Each bf16 instance
+    held bit for bit against its f32 instance on the upcast q, the cut
+    builds against what they compute (sph*q; the Euler stage's output),
+    timed from CUDA graphs at the run's dt; then, by differences, the
+    loads, the advection, the bounds with the mass and the residual pass,
+    and each limiter pass, beside ptxas's registers and spills and
     cudaOccupancy's blocks an SM of each instance."""
     from chip_smoke import DYN_DT
     from tinman_sandbox_tpu_torch import bench
@@ -912,16 +925,19 @@ def tracer_bf16(dev, card):
     k = 72
     kw = dict(wind_rows=(0, 1), fix=fix)
     port_library = _build.library
+    use = lambda so: (lambda n: so if n == "tracer" else port_library(n))
     try:
         for qsize in (1, 35):
             q = bench.make_prim_problem(30, k, dev, DYN_DT, qsize)[2]
             qb = q.to(torch.bfloat16)
+            ops = {"f32": q, "bf16": qb, "up": qb.float()}
             reps = 30 if qsize == 1 else 10
             times = {}
             for name, (so, _) in libs.items():
-                _build.library = (lambda n, so=so: so if n == "tracer"
-                                  else port_library(n))
-                for case, limited, bf, _ in TRACER_BF16_CASES:
+                _build.library = use(so)
+                for case, limited, qk, _ in TRACER_BF16_CASES:
+                    if name.startswith("ahead") and qk != "bf16":
+                        continue        # the builds differ in the bf16 q only
                     iters = TRACER_BF16_ITERS if limited and name == "port" \
                         else (2,)
                     for it in iters:
@@ -932,31 +948,31 @@ def tracer_bf16(dev, card):
                                     iters=it, **kw)[0]
                             return tracer_euler_cuda(meta, s0, s0, x, dvv,
                                                      DYN_DT, k, **kw)[0]
-                        got = run(qb if bf else q)
-                        qx = qb.float() if bf else q
+                        x = ops[qk]
+                        got = run(x)
+                        xf = x.float()
                         if name == "loads":
-                            want = qx * sph
+                            want = xf * sph
                         elif name == "advect" and limited:
                             _build.library = port_library
-                            want = tracer_euler_cuda(meta, s0, s0, qx, dvv,
+                            want = tracer_euler_cuda(meta, s0, s0, xf, dvv,
                                                      DYN_DT, k, **kw)[0]
-                            _build.library = (lambda n, so=so: so if n ==
-                                              "tracer" else port_library(n))
+                            _build.library = use(so)
                         else:
-                            want = run(qx)
+                            want = run(xf)
                         torch.cuda.synchronize()
                         if not torch.equal(got, want):
                             raise AssertionError(
                                 f"tracer_bf16 {name} {case} qsize {qsize} "
                                 f"iters {it}: not the bits it computes")
-                        ms = graph_ms(lambda: run(qb if bf else q), reps)
+                        ms = graph_ms(lambda: run(x), reps)
                         times[(name, case, it)] = ms
                         print(json.dumps(dict(
                             card=card, kernel="tracer_bf16", build=name,
                             case=case, qsize=qsize, iters=it, graph_ms=ms,
                             bits="held")), flush=True)
-                        del got, want
-            for case, limited, bf, _ in TRACER_BF16_CASES:
+                        del got, want, xf
+            for case, limited, _, _ in TRACER_BF16_CASES:
                 t = lambda name, it=2: times[(name, case, it)]
                 split = dict(loads=t("loads"))
                 if limited:
@@ -971,7 +987,7 @@ def tracer_bf16(dev, card):
                 print(json.dumps(dict(card=card, kernel="tracer_bf16",
                                       split=case, qsize=qsize,
                                       graph_ms=split)), flush=True)
-            del q, qb
+            del q, qb, ops
             torch.cuda.empty_cache()
     finally:
         _build.library = port_library
@@ -1512,7 +1528,7 @@ def rsplit0(dev, card):
 
 # builds of csrc/caar.cu for the row kernel's bf16 staging: (name, nvcc
 # flags), the port's first
-STORAGE_BUILDS = (("port", []), ("sync_f32", ["-DCAAR_ROW_SYNC_AUX=1"]))
+STORAGE_BUILDS = (("port", []), ("sync", ["-DCAAR_ROW_SYNC_AUX=1"]))
 
 
 def storage(dev, card):
