@@ -130,7 +130,9 @@ order.
      wait) and with ``CAAR_ROW_SYNC_AUX`` (``STORAGE_BUILDS``: qdp and
      pecnd staged by plain loads before pass 1 in every mode, the bf16
      staging before the raw pairs and, in f32, the control that shows what
-     the overlap is worth), built in parallel. Each build in f32,
+     the overlap is worth) and with ``CAAR_ROW_EPI_RAW=0`` (the epilogue's
+     bf16 nm1 fields upcast as loaded, not at their use), built in
+     parallel. Each build in f32,
      bf16_aux and bf16_ro, held bit for bit against the port's build and,
      in a bf16 mode, against the f32 mode on the operands upcast, timed
      from CUDA graphs, with ptxas's registers of the row kernel's storage
@@ -141,7 +143,9 @@ order.
      ``csrc/tracer.cu`` (``TRACER_BF16_BUILDS``): the port's at iters 0, 1
      and 2, the loads and stores alone (``TRACER_CUT=1``), the body
      without the limiter (``TRACER_CUT=2``) and the limited stage's bf16 q
-     prefetched as before (``TRACER_BF_AHEAD``), built in parallel; each
+     prefetched as before (``TRACER_BF_AHEAD``) and the limiter's empty
+     passes skipped by no limited instance or by all (``TRACER_SKIP``),
+     built in parallel; each
      case also on the f32 instance with the bf16 q upcast (its data
      through the f32 code). Each bf16 instance bit for bit its f32
      instance on the upcast q, each cut build bit for bit what it
@@ -862,7 +866,9 @@ def tracers(dev, card):
 TRACER_BF16_BUILDS = (("port", []), ("loads", ["-DTRACER_CUT=1"]),
                       ("advect", ["-DTRACER_CUT=2"]),
                       ("ahead0", ["-DTRACER_BF_AHEAD=0"]),
-                      ("ahead1", ["-DTRACER_BF_AHEAD=1"]))
+                      ("ahead1", ["-DTRACER_BF_AHEAD=1"]),
+                      ("skip0", ["-DTRACER_SKIP=0"]),
+                      ("skip_all", ["-DTRACER_SKIP=2"]))
 # its cases: (name, limited, q: "f32", "bf16" or "up" (the f32 instance on
 # the bf16 q upcast: the bf16 case's data through the f32 code),
 # tracer_blocks_per_sm kind)
@@ -893,7 +899,9 @@ def tracer_bf16(dev, card):
     0, 1 and 2 (the limited stage), the loads and stores alone
     (TRACER_CUT=1), the body without the limiter (TRACER_CUT=2) and the
     limited stage's bf16 q prefetched otherwise (TRACER_BF_AHEAD 0: one
-    tracer ahead, upcast as loaded; 1: one ahead, raw). Each bf16 instance
+    tracer ahead, upcast as loaded; 1: one ahead, raw) and its empty
+    limiter passes skipped by no instance or by every limited instance
+    (TRACER_SKIP 0 and 2; the port's 1: the bf16 q's). Each bf16 instance
     held bit for bit against its f32 instance on the upcast q, the cut
     builds against what they compute (sph*q; the Euler stage's output),
     timed from CUDA graphs at the run's dt; then, by differences, the
@@ -936,8 +944,9 @@ def tracer_bf16(dev, card):
             for name, (so, _) in libs.items():
                 _build.library = use(so)
                 for case, limited, qk, _ in TRACER_BF16_CASES:
-                    if name.startswith("ahead") and qk != "bf16":
-                        continue        # the builds differ in the bf16 q only
+                    if name.startswith("ahead") and qk != "bf16" or \
+                            name.startswith("skip") and not limited:
+                        continue        # the builds differ there only
                     iters = TRACER_BF16_ITERS if limited and name == "port" \
                         else (2,)
                     for it in iters:
@@ -1528,7 +1537,8 @@ def rsplit0(dev, card):
 
 # builds of csrc/caar.cu for the row kernel's bf16 staging: (name, nvcc
 # flags), the port's first
-STORAGE_BUILDS = (("port", []), ("sync", ["-DCAAR_ROW_SYNC_AUX=1"]))
+STORAGE_BUILDS = (("port", []), ("sync", ["-DCAAR_ROW_SYNC_AUX=1"]),
+                  ("epi_load", ["-DCAAR_ROW_EPI_RAW=0"]))
 
 
 def storage(dev, card):
