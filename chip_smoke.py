@@ -920,7 +920,104 @@ def kernel_times() -> dict:
     torch.cuda.empty_cache()
     out.update(ring_times(dev))
     out["banded"] = banded_times(dev)
+    out["storage"] = storage_times(dev)
     print(json.dumps(out))
+    return out
+
+
+def storage_times(dev=None) -> dict:
+    """The bf16 instances beside their f32 instances, from CUDA graphs with
+    each call's bound, through entry points every tree since the bf16
+    tracer operands has: the row CAAR step ``caar_packed`` and its rsplit=0
+    mode ``caar_packed_rsplit0`` (hybi ramp, random eta accumulator) in
+    f32, bf16_aux and bf16_ro at 1024 x 72 and ne30 x 72 (the row benches'
+    problems); the limited tracer stage with an f32 q, a bf16 q, and an f32
+    q with an f32 or a bf16 mix field, and the Euler stage with an f32 and
+    a bf16 q, at ne30 x 72, qsize 1 and QSIZE_TALL (the prim bench's
+    tracers, the slab, as the prim step calls them). ``kernel_times()``
+    takes it; alone (``experiments/parent_turns.py --storage``) it prints
+    and returns one JSON object."""
+    import numpy as np
+    import torch
+
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.kernels.caar import (caar_packed,
+                                                       caar_packed_rsplit0)
+    from tinman_sandbox_tpu_torch.kernels.dss import fix_tables
+    from tinman_sandbox_tpu_torch.kernels.tracer_t import (tracer_euler_cuda,
+                                                           tracer_limit_cuda)
+
+    alone = dev is None
+    dev = dev or torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    bf = lambda x: x.to(torch.bfloat16)
+    timed = lambda fn, nbytes, reps: dict(
+        graph_ms=graph_ms(fn, reps), bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    out = {"card": card_line(), "row": {}, "tracer": {}}
+    # the row head (scal, meta, u0..dp0, um1..dpm1, qdp, pecnd): the bf16
+    # fields of each storage contract
+    cast = {"f32": (), "bf16_aux": (10, 11), "bf16_ro": (6, 7, 8, 9, 10, 11)}
+    rc, racc = bench.make_problem(1024, NLEV, dev, seed=7, layout="row")
+    shapes = {"1024": (rc[:-1], racc, rc[-1])}
+    (scal, meta, qdp, pecnd, dvv), (s0, sm1), acc, _, _ = \
+        bench.make_assembled_problem(NE, NLEV, dev, layout="row")
+    shapes["ne30"] = ((scal, meta, *s0, *sm1, qdp, pecnd), acc, dvv)
+    for tag, (head, acc, dvv) in shapes.items():
+        nlev = head[-1].shape[1]
+        hybi = torch.linspace(0.0, 1.0, nlev + 1, device=dev)
+        hyb = torch.stack([hybi[:nlev], hybi[1:]]).contiguous()
+        acc = [a.clone() for a in acc]
+        eta = torch.rand(acc[0].shape, generator=gen, device=dev)
+        reps = 50 if tag == "1024" else 20
+        for storage, idx in cast.items():
+            h = tuple(bf(x) if i in idx else x for i, x in enumerate(head))
+            pair = lambda h=h: caar_packed(*h, *acc, dvv)
+            r0 = lambda h=h: caar_packed_rsplit0(h[0], hyb, *h[1:], *acc,
+                                                 eta, dvv)
+            for mode, fn, extra in (("pair", pair, ()),
+                                    ("rsplit0", r0, (hyb, eta))):
+                nbytes = call_bytes((*h, *acc, dvv, *extra), fn())
+                out["row"][f"{mode}_{tag}_{storage}"] = timed(fn, nbytes,
+                                                              reps)
+        del h
+    del shapes, acc
+    const, ps0, _, _, plan, _ = bench.make_prim_problem(NE, NLEV, dev, DYN_DT,
+                                                        1)
+    pmeta, pdvv = const[1], const[3]
+    fix = fix_tables(plan, dev)
+    kw = dict(wind_rows=(0, 1), fix=fix)
+    ca, cb = float(np.float32(1.0 / 3.0)), float(np.float32(2.0 / 3.0))
+    e16 = pmeta.shape[1]
+    for qsize in (1, QSIZE_TALL):
+        q = bench.make_prim_problem(NE, NLEV, dev, DYN_DT, qsize)[2]
+        qb = bf(q)
+        mx = torch.rand(q.shape, generator=gen, device=dev)
+        mxb = bf(mx)
+        reps = 50 if qsize == 1 else 10
+        calls = {
+            "limit_f32": (q, None, tracer_limit_cuda),
+            "limit_bf16_q": (qb, None, tracer_limit_cuda),
+            "limit_mix_f32": (q, mx, tracer_limit_cuda),
+            "limit_mix_bf16_mx": (q, mxb, tracer_limit_cuda),
+            "euler_f32": (q, None, tracer_euler_cuda),
+            "euler_bf16_q": (qb, None, tracer_euler_cuda),
+        }
+        out["tracer"][qsize] = {}
+        for name, (x, m, kern) in calls.items():
+            mix = {} if m is None else dict(mix=(m, ca, cb))
+            fn = lambda x=x, kern=kern, mix=mix: kern(
+                pmeta, ps0, ps0, x, pdvv, DYN_DT, NLEV, **mix, **kw)
+            # 2 wind blocks and 7 meta rows read, q (and mx) read, out and
+            # the slab written
+            stored = sum(t.numel() * t.element_size() for t in (x, m)
+                         if t is not None)
+            nbytes = (2 * NLEV + 7) * e16 * 4 + stored + \
+                qsize * NLEV * e16 * 4 + fix.nfix * qsize * NLEV * 4
+            out["tracer"][qsize][name] = timed(fn, nbytes, reps)
+        del q, qb, mx, mxb
+        torch.cuda.empty_cache()
+    if alone:
+        print(json.dumps(out))
     return out
 
 
@@ -5695,10 +5792,13 @@ def storage_plans(dev, ncol: int, nlev: int) -> None:
               f"{'stash' if p.stash else 'no stash'}, {p.smem} B shared, "
               f"{p.blocks_per_sm} blocks a SM reckoned; cudaOccupancy "
               + ", ".join(f"{s} {n}" for s, n in occ.items()) + note)
+    # every storage instance, and the row kernel's f32 instances beside its
+    # bf16 ones (the staging the storage slices redesigned)
     for tag in ("caar_chunk_kernel", "caar_row_kernel", "caar_r0_kernel",
                 "caar_ring_kernel"):
         for inst, report in ptxas_report("caar", tag):
-            if inst.endswith(("Li1EE", "Li2EE")):
+            if inst.endswith(("Li1EE", "Li2EE")) or (
+                    tag == "caar_row_kernel" and inst.endswith("Li0EE")):
                 print(f"phase 29 ptxas {tag}{inst}: {report}")
 
 
@@ -5825,6 +5925,16 @@ def phase_storage_kernels(dev, cs) -> dict:
                 f"{s} {v['ms']:.4f} ms (graph {v['graph_ms']:.4f}) bound "
                 f"{v['bound_ms']:.4f} ({v['mb']:.2f} MB)"
                 for s, v in line.items()))
+            if name in ("row", "row r0"):
+                # the staged row kernel's bf16 instances (rows 7 and 8)
+                # against its f32 instance of this call
+                f32 = line["f32"]["graph_ms"]
+                print(f"phase 29 row staging {name} {tag} ({card}): "
+                      + "; ".join(
+                          f"{s} graph {v['graph_ms']:.4f} ms, "
+                          f"{v['graph_ms'] / f32:.3f} of f32, "
+                          f"{v['bound_ms'] / v['graph_ms']:.3f} of its "
+                          "bound" for s, v in line.items()))
             rows.setdefault(STORAGE_WRAPPER[name], {}).setdefault(
                 "storage_ms", {})[f"{name} {tag}"] = line
     # the assembled chain's rotation in bf16_ro casts the old n0 (f32) to
@@ -6075,9 +6185,12 @@ def phase_prim_storage_kernels(dev, cs) -> dict:
                               mb=nbytes / 1e6)
         for w, n in storage_counts().items():
             expect[w] += n - before[w]
+        f32 = line["f32"]["graph_ms"]
         print(f"phase 30 times {tag} ({card}): " + "; ".join(
             f"{f} graph {v['graph_ms']:.4f} ms bound {v['bound_ms']:.4f} "
-            f"({v['mb']:.2f} MB)" for f, v in line.items()))
+            f"({v['mb']:.2f} MB; {v['graph_ms'] / f32:.3f} of f32, "
+            f"{v['bound_ms'] / v['graph_ms']:.3f} of its bound)"
+            for f, v in line.items()))
         times.setdefault(wrapper, {})[tag] = line
 
     # the new instances' occupancy and registers
@@ -6085,20 +6198,21 @@ def phase_prim_storage_kernels(dev, cs) -> dict:
     occ = {case: tr.tracer_blocks_per_sm(kind, dev.index)
            for case, kind in (("euler bf16 q", 4), ("limit bf16 q", 5),
                               ("limit bf16 mx", 6), ("euler f32", 0),
-                              ("limit f32 mx", 2))}
+                              ("limit f32", 3), ("limit f32 mx", 2))}
     sw = _build.library("dss").dss_sweep_blocks_per_sm(1, 2, dev.index)
     print(f"phase 30 blocks an SM (cudaOccupancy): tracer_kernel "
           f"{json.dumps(occ)}; dss_sweep_kernel bf16 mix {sw}")
     if min(occ.values()) <= 0 or sw <= 0:
         raise AssertionError(f"phase 30 occupancy: {occ}, sweep {sw}")
     # the instances by their mangled template arguments: the stage mode
-    # (kSingle) in storage 1 or 3; the tracer stages and the sweep with a
-    # bf16 operand (a third or fourth bool argument true)
+    # (kSingle) in storage 1 or 3; the tracer stages (f32 and bf16: the
+    # limited stage's bf16 q was redesigned beside its f32 instances) and
+    # the sweep with a bf16 operand (a third or fourth bool argument true)
     bits = lambda i: re.findall(r"L(?:b|i)(\d)E", i)
     for source, tag, keep in (
             ("caar", "caar_chunk_kernel",
              lambda b: b[0] == "1" and b[-1] in ("1", "3")),
-            ("tracer", "tracer_kernel", lambda b: "1" in b[2:]),
+            ("tracer", "tracer_kernel", lambda b: True),
             ("dss", "dss_sweep_kernel", lambda b: "1" in b[2:])):
         for inst, report in ptxas_report(source, tag):
             if keep(bits(inst)):

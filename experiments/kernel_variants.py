@@ -130,9 +130,10 @@ order.
      wait) and with ``CAAR_ROW_SYNC_AUX`` (``STORAGE_BUILDS``: qdp and
      pecnd staged by plain loads before pass 1 in every mode, the bf16
      staging before the raw pairs and, in f32, the control that shows what
-     the overlap is worth) and with ``CAAR_ROW_EPI_RAW=0`` (the epilogue's
-     bf16 nm1 fields upcast as loaded, not at their use), built in
-     parallel. Each build in f32,
+     the overlap is worth), with ``CAAR_ROW_EPI_RAW=0`` (the epilogue's
+     bf16 nm1 fields upcast as loaded, not at their use) and with
+     ``CAAR_ROW_QDP_GROUP=1`` (a bf16 qdp's raw pairs sent with dp, not
+     with u, v and T, and upcast before pass 1), built in parallel. Each build in f32,
      bf16_aux and bf16_ro, held bit for bit against the port's build and,
      in a bf16 mode, against the f32 mode on the operands upcast, timed
      from CUDA graphs, with ptxas's registers of the row kernel's storage
@@ -1538,7 +1539,9 @@ def rsplit0(dev, card):
 # builds of csrc/caar.cu for the row kernel's bf16 staging: (name, nvcc
 # flags), the port's first
 STORAGE_BUILDS = (("port", []), ("sync", ["-DCAAR_ROW_SYNC_AUX=1"]),
-                  ("epi_load", ["-DCAAR_ROW_EPI_RAW=0"]))
+                  ("epi_load", ["-DCAAR_ROW_EPI_RAW=0"]),
+                  ("qdp_dp", ["-DCAAR_ROW_RAW_EARLY=1"]),
+                  ("raw_dp", ["-DCAAR_ROW_RAW_EARLY=2"]))
 
 
 def storage(dev, card):

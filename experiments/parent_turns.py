@@ -3,11 +3,12 @@
 with ``git archive``) on one card, in turns: other, this, this, other. An
 experiment, not part of the port.
 
-    python3 experiments/parent_turns.py OTHER_DIR [--kernels] [--benches]
-        [--bench NAME ...] [--rounds N]
+    python3 experiments/parent_turns.py OTHER_DIR [--kernels] [--storage]
+        [--benches] [--bench NAME ...] [--rounds N]
 
-from the repository root (default both groups; ``--bench`` keeps the named
-benches only; ``--rounds`` repeats the four turns). Each turn runs, from that
+from the repository root (default ``--kernels`` and ``--benches``;
+``--bench`` keeps the named benches only; ``--rounds`` repeats the four
+turns). Each turn runs, from that
 tree's root and in a process of its own (so each tree builds and loads its
 own kernels):
 
@@ -16,7 +17,10 @@ own kernels):
     timed by the same code through the entry points they share (the
     kernels the last redesigns touched, the t rsplit=0 CAAR and both rings
     among them; a ring's graph time where that tree's launch clears its
-    state);
+    state; ``chip_smoke.storage_times()`` among them);
+  * ``--storage``: ``chip_smoke.storage_times()`` alone, the same way (the
+    bf16 instances of the row CAAR step and the tracer stages beside their
+    f32 instances);
   * ``--benches``: the port's benches, ``python -m
     tinman_sandbox_tpu_torch.bench`` raw, ``--ne 30``, ``--ne 30 --ring``,
     ``--ne 30 --rk --hypervis-nu 1e15``, ``--ne 30 --prim --hypervis-nu
@@ -48,7 +52,8 @@ BENCHES = {
 KERNEL_TIMES = (
     "import importlib.util as u, sys; sys.path.insert(0, '.'); "
     "s = u.spec_from_file_location('cs', {path!r}); "
-    "m = u.module_from_spec(s); s.loader.exec_module(m); m.kernel_times()")
+    "m = u.module_from_spec(s); s.loader.exec_module(m); m.{fn}()")
+TIMES = {"kernels": "kernel_times", "storage": "storage_times"}
 
 
 def _last_json(out: str):
@@ -71,6 +76,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("other", help="root of the other tree")
     ap.add_argument("--kernels", action="store_true")
+    ap.add_argument("--storage", action="store_true")
     ap.add_argument("--benches", action="store_true")
     ap.add_argument("--bench", action="append", choices=sorted(BENCHES),
                     help="run only these benches (repeatable)")
@@ -79,8 +85,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     benches = {k: v for k, v in BENCHES.items()
                if not args.bench or k in args.bench}
-    groups = [g for g in ("kernels", "benches") if getattr(args, g)] or [
-        "kernels", "benches"]
+    groups = [g for g in ("kernels", "storage", "benches")
+              if getattr(args, g)] or ["kernels", "benches"]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -91,12 +97,13 @@ def main(argv=None) -> int:
     trees *= args.rounds
     smoke = os.path.join(HERE, "chip_smoke.py")
     for turn, (label, root) in enumerate(trees):
-        if "kernels" in groups:
+        for group, fn in TIMES.items():
+            if group not in groups:
+                continue
             res = _run(root, [sys.executable, "-c",
-                              KERNEL_TIMES.format(path=smoke)])
-            print(json.dumps({"tree": label, "turn": turn,
-                              "what": "kernel_times", "result": res}),
-                  flush=True)
+                              KERNEL_TIMES.format(path=smoke, fn=fn)])
+            print(json.dumps({"tree": label, "turn": turn, "what": fn,
+                              "result": res}), flush=True)
         if "benches" in groups:
             for name, extra in benches.items():
                 res = _run(root, [sys.executable, "-m",

@@ -463,6 +463,104 @@ def test_torch_cuda_branch_passes_the_storage_code(monkeypatch):
         assert caar_t4_cuda.storage_launches == s + (code > 0)
 
 
+# the staged row kernel's planes that take a bf16 qdp and pecnd as raw pairs
+# before pass 3 writes them (csrc/caar.cu RowPlane: kPVt2, kPDpt)
+ROW_RAW_PLANES = (7, 8)
+
+
+def _row_call(monkeypatch, storage, nlev, r0, misalign=False):
+    """One row-wrapper call (``caar_packed``, or ``caar_packed_rsplit0``
+    with ``r0``) on a card that a stand-in library plays: returns the
+    arguments it handed ``caar_launch``. With ``misalign`` qdp starts one
+    element (2 bytes in bf16) past an aligned address."""
+    from tinman_sandbox_tpu_torch.kernels import _build
+
+    calls = []
+
+    class Lib:
+        def caar_launch(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(ct, "_check", lambda *a, **kw: torch.device("cuda",
+                                                                     0))
+    monkeypatch.setattr(_build, "library", lambda name: Lib())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {"cuda_stream": 0}))
+    p, acc, dvv = _t_operands(storage, nelem=4, nlev=nlev)
+    T = lambda x: x.T.contiguous()
+    qdp = T(p["qdp"])
+    if misalign:
+        flat = torch.empty(qdp.numel() + 1, dtype=qdp.dtype)
+        flat[1:] = qdp.reshape(-1)
+        qdp = flat[1:].view(qdp.shape)
+    head = (T(p["meta"]), *map(T, p["s0"].split(nlev)),
+            *map(T, p["sm1"].split(nlev)), qdp, T(p["pecnd"]),
+            *(T(a) for a in acc))
+    if r0:
+        hyb = torch.zeros(2, nlev)
+        caar_packed_rsplit0(p["scal"], hyb, *head, T(acc[0]), dvv)
+    else:
+        caar_packed(p["scal"], *head, dvv)
+    return calls.pop()
+
+
+@pytest.mark.parametrize("storage", ["f32", *BF16])
+@pytest.mark.parametrize("nlev,r0", [(72, False), (72, True), (197, False),
+                                     (161, True)],
+                         ids=["72", "72_r0", "197", "161_r0"])
+def test_torch_row_plan_keeps_its_planes_in_every_storage(monkeypatch,
+                                                          storage, nlev, r0):
+    """At nlev 72 and at the last staged nlev of each rsplit mode (197, and
+    161 at rsplit=0) the row kernel is staged in ROW_PLANES planes, its
+    shared memory the planes, the chunk totals and the meta within one
+    block's, the next level windowed; a bf16 qdp and pecnd ride as raw
+    pairs in half of two planes that both layouts have, so every storage
+    hands the kernel the same plan, with its own storage code."""
+    plan = ct.caar_row_plan(64, nlev, r0)
+    last = nlev == (161 if r0 else 197)
+    assert plan.stash and ct.caar_row_plan(64, nlev + 1, r0).stash != last
+    assert plan.smem == 4 * ((ct.ROW_PLANES[r0] * nlev + 3 * plan.chunks)
+                             * ct.TILE + 16 * ct.ROW_META_PITCH)
+    assert plan.smem <= ct.SMEM_MAX
+    assert max(ROW_RAW_PLANES) < min(ct.ROW_PLANES)
+    # a tile's bf16 span (TILE columns of nlev levels, 2 bytes each) is
+    # half of a plane of f32
+    assert ct.TILE * nlev * 2 * 2 == ct.TILE * nlev * 4
+    args = _row_call(monkeypatch, storage, nlev, r0)
+    assert args[32] == 1                            # the row layout
+    assert args[33:37] == (plan.chunks, plan.levels, 1, plan.blocks_per_sm)
+    assert args[37] == STORAGE[storage]
+
+
+@pytest.mark.parametrize("storage", ["f32", *BF16])
+@pytest.mark.parametrize("r0", [False, True], ids=["rsplit1", "rsplit0"])
+def test_torch_row_bf16_operands_must_be_4_byte_aligned(monkeypatch, storage,
+                                                        r0):
+    """The row kernel copies a bf16 qdp and pecnd as 4-byte pairs: a bf16
+    qdp 2 bytes off a 4-byte boundary is refused before any launch, an f32
+    one (copied 4 bytes an element) is not."""
+    if storage == "f32":
+        args = _row_call(monkeypatch, storage, 6, r0, misalign=True)
+        assert args[37] == 0 and args[11] % 4 == 0
+        return
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        _row_call(monkeypatch, storage, 6, r0, misalign=True)
+
+
+@pytest.mark.parametrize("nlev", [1, 6, 7, 72, 197])
+def test_torch_row_tiles_start_and_span_even(nlev):
+    """What the row kernel's raw pairs rest on: every tile of every column
+    count the wrappers admit (whole elements of 16 columns) starts on an
+    even element of a field and spans an even number of them, so each pair
+    lies inside one tile's span and on a 4-byte boundary of an aligned
+    field, whatever nlev's parity."""
+    for ncol in range(16, 16 * 9, 16):
+        for col0 in range(0, ncol, ct.TILE):
+            span = min(ct.TILE, ncol - col0) * nlev
+            assert (col0 * nlev) % 2 == 0 and span % 2 == 0
+
+
 def test_torch_random_problem_storage_cast():
     """``random_packed_problem_t(storage=)`` is the f32 draw with the
     bench's post-init cast (qdp, pecnd; bf16_ro also the nm1 fields), bit

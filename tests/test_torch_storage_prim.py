@@ -575,6 +575,101 @@ def test_torch_cuda_branches_pass_the_bf16_codes(fake_card):
                      "dss_sweep_cuda": (1, 1)}, delta
 
 
+def _shifted(x, elements):
+    """x's values in a new tensor whose data starts ``elements`` elements
+    past an aligned address."""
+    flat = torch.empty(x.numel() + elements, dtype=x.dtype)
+    flat[elements:] = x.reshape(-1)
+    return flat[elements:].view(x.shape)
+
+
+# (stage, q, mix field or None, the launch's bf16 code)
+TRACER_CODES = {
+    "euler f32 q": ("euler", "f32", None, 0),
+    "euler bf16 q": ("euler", "bf16", None, 1),
+    "limit f32 q": ("limit", "f32", None, 0),
+    "limit bf16 q": ("limit", "bf16", None, 1),
+    "limit f32 q f32 mx": ("limit", "f32", "f32", 0),
+    "limit f32 q bf16 mx": ("limit", "f32", "bf16", 2),
+}
+
+
+def _tracer_call(q, mx, stage):
+    p, meta, s0, _, _, dvv = _tracer_operands()
+    kw = dict(wind_rows=(0, 1), fix=fix_tables(p["plan"], "cpu"))
+    if stage == "euler":
+        return tracer_euler_cuda(meta, s0, s0, q, dvv, 0.1, NLEV, **kw)
+    mix = None if mx is None else (mx, 0.5, 0.5)
+    return tracer_limit_cuda(meta, s0, s0, q, dvv, 0.1, NLEV, mix=mix, **kw)
+
+
+@pytest.mark.parametrize("case", list(TRACER_CODES))
+def test_torch_tracer_stage_hands_its_bf16_code(fake_card, case):
+    """Each operand mix the tracer stages take reaches its launch with its
+    bf16 code (0 every operand f32, 1 a bf16 q, 2 a bf16 mix field: the
+    instance that prefetches a bf16 q raw or the one that upcasts a bf16 mx
+    as loaded), q's and mx's own addresses (no f32 copy), an f32 output
+    and slab, and counts in ``storage_launches`` exactly when it is not 0."""
+    stage, qk, mk, code = TRACER_CODES[case]
+    _, _, _, q, mx, _ = _tracer_operands()
+    qx = q.to(BF) if qk == "bf16" else q
+    mxx = None if mk is None else (mx.to(BF) if mk == "bf16" else mx)
+    wrapper = tracer_euler_cuda if stage == "euler" else tracer_limit_cuda
+    n, s = wrapper.launches, wrapper.storage_launches
+    out, slab = _tracer_call(qx, mxx, stage)
+    name = f"tracer_{stage}_launch"
+    args = fake_card[name].pop()
+    assert args[4] == qx.data_ptr()
+    if stage == "euler":
+        assert args[15] == code
+    else:
+        assert args[16] == code
+        assert args[5] == (0 if mxx is None else mxx.data_ptr())
+    assert out.dtype == slab.dtype == torch.float32
+    assert wrapper.launches == n + 1
+    assert wrapper.storage_launches == s + (code > 0)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("euler bf16 q 8 bytes off", "q must be 16-byte aligned"),
+    ("limit bf16 q 8 bytes off", "q must be 16-byte aligned"),
+    ("limit bf16 mx 8 bytes off", "mx must be 16-byte aligned"),
+    ("limit bf16 q beside f32 mx", "q is torch.bfloat16"),
+    ("limit bf16 q beside bf16 mx", "q is torch.bfloat16"),
+    ("limit f16 mx", "mix field is torch.float16"),
+])
+def test_torch_tracer_stage_refuses_other_bf16_contracts(monkeypatch, case,
+                                                         match):
+    """The stages refuse, before any launch, a bf16 q or mix field off a
+    16-byte boundary (the kernel moves 4 lanes at once: 8 bytes of bf16 on
+    the f32 fields' 16-byte grid; checked on the card's branch, which a
+    stand-in library plays), a bf16 q beside a mix field and an f16 mix
+    field (checked on any device)."""
+    _, _, _, q, mx, _ = _tracer_operands()
+    calls = {
+        "euler bf16 q 8 bytes off": (_shifted(q.to(BF), 4), None, "euler"),
+        "limit bf16 q 8 bytes off": (_shifted(q.to(BF), 4), None, "limit"),
+        "limit bf16 mx 8 bytes off": (q, _shifted(mx.to(BF), 4), "limit"),
+        "limit bf16 q beside f32 mx": (q.to(BF), mx, "limit"),
+        "limit bf16 q beside bf16 mx": (q.to(BF), mx.to(BF), "limit"),
+        "limit f16 mx": (q, mx.half(), "limit"),
+    }
+    launches = []
+    if "bytes off" in case:
+        from tinman_sandbox_tpu_torch.kernels import _build
+
+        class Lib:
+            def __getattr__(self, name):
+                return lambda *args: launches.append(name) or 0
+
+        monkeypatch.setattr(kt, "_check", lambda *a, **kw: torch.device(
+            "cuda", 0))
+        monkeypatch.setattr(_build, "library", lambda name: Lib())
+    with pytest.raises(ValueError, match=match):
+        _tracer_call(*calls[case])
+    assert not launches
+
+
 # -- the bench ----------------------------------------------------------------
 
 @pytest.mark.parametrize("storage", ["bf16_aux", "bf16_ro"])

@@ -155,11 +155,12 @@
 // f32 and the arithmetic is unchanged, so each storage mode gives, bit for
 // bit, the f32 mode on the bf16 operands upcast. bf16_ro cuts the pair
 // step's 21 fields of traffic by 3 (the root bench's ~23% of the reads).
-// cp.async moves 4 bytes at least, so the bf16 operands leave the cp.async
-// groups: the row kernel's staging loads each bf16 span two elements at a
-// time (one 4-byte load; the span starts on an even element and holds a
-// whole number of elements' 16 columns, so it is even) into the f32 planes
-// after issuing the f32 groups; the
+// cp.async moves 4 bytes at least: the staged row kernel copies each bf16
+// span as raw pairs (4 bytes, two elements; the span starts on an even
+// element and holds a whole number of elements' 16 columns, so it is even)
+// in the cp.async group the f32 field would take, into a plane that pass 3
+// alone writes, and upcasts it into its own plane after the group's wait
+// (the row staging's note below); the
 // windowed mode fills its f32 slots with single loads, and the t layout (a
 // thread a column) and the row epilogue read their bf16 elements with
 // plain loads. The stage mode (t layout, with or without phi, the stash
@@ -351,15 +352,37 @@ static_assert(kRowWindow == 0 || (kRowWindow <= kChunkTile &&
               "a window is a power of two of at most 32 levels");
 constexpr int kWinLen = kRowWindow > 0 ? kRowWindow : 1;
 
-// The staged row kernel stages bf16 qdp and pecnd (kSt >= 1) by plain
-// loads before pass 1. experiments/kernel_variants.py (group storage)
-// builds with -DCAAR_ROW_SYNC_AUX=1 a kernel whose f32 mode stages f32 qdp
-// and pecnd the same way, in place of the cp.async groups that overlap
-// passes 1 and 2.
+// The staged row kernel copies qdp and pecnd in the cp.async groups that
+// overlap passes 1 and 2, in f32 and in bf16 (kSt >= 1: the raw pairs).
+// experiments/kernel_variants.py (group storage) builds with
+// -DCAAR_ROW_SYNC_AUX=1 a kernel that stages both, in every storage, by
+// plain loads before pass 1 instead (the bf16 staging before the raw pairs;
+// in f32, the control that shows what the overlap is worth).
 #ifdef CAAR_ROW_SYNC_AUX
 constexpr bool kRowSyncAux = CAAR_ROW_SYNC_AUX;
 #else
 constexpr bool kRowSyncAux = false;
+#endif
+// The staged row kernel sends a bf16 qdp's raw pairs in the cp.async group
+// of u, v and T and pecnd's in the last, as the f32 fields;
+// experiments/kernel_variants.py (group storage) builds with
+// -DCAAR_ROW_RAW_EARLY=1 a kernel that sends qdp's with dp instead, and
+// with 2 pecnd's too, upcasting them before pass 1 while u, v and T are in
+// flight.
+#ifdef CAAR_ROW_RAW_EARLY
+constexpr int kRowRawEarly = CAAR_ROW_RAW_EARLY;
+#else
+constexpr int kRowRawEarly = 0;
+#endif
+// The staged row kernel's epilogue keeps bf16 nm1 fields (kSt 2) raw from
+// their loads to their use, where it upcasts them, so that a thread's
+// loads are all in flight before the first of them is waited for;
+// experiments/kernel_variants.py (group storage) builds with
+// -DCAAR_ROW_EPI_RAW=0 the epilogue before (each upcast as it was loaded).
+#ifdef CAAR_ROW_EPI_RAW
+constexpr bool kRowEpiRaw = CAAR_ROW_EPI_RAW;
+#else
+constexpr bool kRowEpiRaw = true;
 #endif
 
 // The window's slots: the inputs of pass 3 in this order; a level's
@@ -378,7 +401,7 @@ __device__ __forceinline__ int wsw(int w, int x) {
   return w * kChunkTile + (x ^ (w * (kChunkTile / kWinLen)));
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(src) : "memory");
@@ -412,6 +435,19 @@ __device__ __forceinline__ void stage_op(float* dst, const void* src,
     *dst = ld_op<true>(src, o);
   else
     cp_async4(dst, static_cast<const float*>(src) + o);
+}
+
+// element o of a storage operand as stored: float, or with kBf the bf16
+// itself (raw); f32() upcasts either exactly
+template <bool kBf>
+using OpT = std::conditional_t<kBf, __nv_bfloat16, float>;
+template <bool kBf>
+__device__ __forceinline__ OpT<kBf> ld_raw(const void* p, size_t o) {
+  return static_cast<const OpT<kBf>*>(p)[o];
+}
+__device__ __forceinline__ float f32(float x) { return x; }
+__device__ __forceinline__ float f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
 
 // elements o and o + 1 of a storage operand in one load (o even): with kBf
@@ -607,11 +643,51 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
       if constexpr (kR0) a.etaacc[o] = W(kWAe)[p];
     }
   };
+  // the staged bf16 qdp and pecnd (kRaw): the span's raw pairs copied by
+  // cp.async (raw_stage; thread tid takes pairs tid, tid + blockDim.x, ...)
+  // into the first half of the vtens2 and dptens planes, which pass 3
+  // alone writes, then, after the copying group's wait and before the
+  // barrier that publishes the field, upcast exactly into its swizzled
+  // plane (raw_upcast). Each thread reads back only the pairs it copied
+  // (its own wait made them visible to it); a warp's 32 pairs are 64
+  // elements, and lane l writes elements l and l + 32 of them, taken from
+  // lanes l / 2 and 16 + l / 2 by shuffles: one level of consecutive
+  // columns (or two), so the writes through swz are free of bank
+  // conflicts, where writing a pair's two elements would conflict 2-way.
+  constexpr bool kRaw = kStaged && kAux && !kRowSyncAux;
+  const auto raw_stage = [&](int dst, const void* src) {
+    const auto* const s = static_cast<const __nv_bfloat16*>(src) + base;
+    float* const d = P(dst);
+    for (int j = tid; 2 * j < span; j += blockDim.x)
+      cp_async4(d + j, s + 2 * j);
+  };
+  const auto raw_upcast = [&](int dst, int src) {
+    const unsigned* const r = reinterpret_cast<const unsigned*>(P(src));
+    for (int j = tid; 2 * (j - lane) < span; j += blockDim.x) {
+      const unsigned w = 2 * j < span ? r[j] : 0u;
+      const unsigned lo = __shfl_sync(kFull, w, lane >> 1);
+      const unsigned hi = __shfl_sync(kFull, w, 16 + (lane >> 1));
+      // a bf16 is the top half of its f32: the even element of a pair is
+      // the word's low half
+      const auto up = [&](unsigned v) {
+        return __uint_as_float(lane & 1 ? v & 0xffff0000u : v << 16);
+      };
+      const int e = 2 * (j - lane) + lane;
+      int cx, k;
+      if (e < span) {
+        span_at(e, a.nlev, rnlev, cx, k);
+        P(dst)[swz(k, cx)] = up(lo);
+      }
+      if (e + 32 < span) {
+        span_at(e + 32, a.nlev, rnlev, cx, k);
+        P(dst)[swz(k, cx)] = up(hi);
+      }
+    }
+  };
   float m[13];
   if constexpr (kStaged) {
-    // qdp and pecnd staged by plain loads (bf16; or f32 in the
-    // CAAR_ROW_SYNC_AUX experiment), not by cp.async
-    constexpr bool kSyncAux = kAux || kRowSyncAux;
+    // qdp and pecnd by plain loads in the CAAR_ROW_SYNC_AUX experiment
+    constexpr bool kSyncAux = kRowSyncAux;
     const float* const mrow = a.meta + static_cast<size_t>(col0) * 16;
     for (int i = tid; i < span / a.nlev * 16; i += blockDim.x)
       cp_async4(meta_sm + (i & 15) * kMetaPitch + (i >> 4), mrow + i);
@@ -623,27 +699,35 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
       }
     };
     stage([&](size_t o, int p) { cp_async4(P(kPDp) + p, a.dp0 + o); });
+    if constexpr (kRaw && kRowRawEarly >= 1)
+      if (a.moist) raw_stage(kPVt2, a.qdp);
+    if constexpr (kRaw && kRowRawEarly == 2) raw_stage(kPDpt, a.pecnd);
     cp_async_commit();
     stage([&](size_t o, int p) {
       cp_async4(P(kPU) + p, a.u0 + o);
       cp_async4(P(kPV) + p, a.v0 + o);
       cp_async4(P(kPT) + p, a.t0 + o);
-      if constexpr (!kSyncAux)
+      if constexpr (!kSyncAux && !kAux)
         if (a.moist) cp_async4(P(kPQdp) + p, static_cast<const float*>(
                                                   a.qdp) + o);
     });
+    if constexpr (kRaw && kRowRawEarly == 0)
+      if (a.moist) raw_stage(kPVt2, a.qdp);
     cp_async_commit();
-    if constexpr (!kSyncAux)
+    if constexpr (kRaw) {
+      if constexpr (kRowRawEarly < 2) raw_stage(kPDpt, a.pecnd);
+    }
+    else if constexpr (!kSyncAux)
       stage([&](size_t o, int p) {
         cp_async4(P(kPPec) + p, static_cast<const float*>(a.pecnd) + o);
       });
     cp_async_commit();
     if constexpr (kSyncAux) {
-      // qdp and pecnd (bf16, or f32 in the experiment), while the groups
-      // above are in flight: two elements of each a load (base and span
-      // are even), each upcast into its own place (the two of a pair may
-      // be the last level of one column and the first of the next); the
-      // barrier below publishes them
+      // qdp and pecnd (f32 or bf16), while the groups above are in
+      // flight: two elements of each a load (base and span are even), each
+      // upcast into its own place (the two of a pair may be the last level
+      // of one column and the first of the next); the barrier below
+      // publishes them
       for (int j = tid; 2 * j < span; j += blockDim.x) {
         const float2 q = a.moist ? ld_pair<kAux>(a.qdp, base + 2 * j)
                                  : float2{};
@@ -660,6 +744,9 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
       }
     }
     cp_async_wait<2>();
+    if constexpr (kRaw && kRowRawEarly >= 1)
+      if (a.moist) raw_upcast(kPQdp, kPVt2);
+    if constexpr (kRaw && kRowRawEarly == 2) raw_upcast(kPPec, kPDpt);
     __syncthreads();
 #pragma unroll
     for (int r = 0; r < 13; ++r)
@@ -692,6 +779,8 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
   }
   tot_s[c * stride] = sum;
   if constexpr (kStaged) cp_async_wait<1>();
+  if constexpr (kRaw && kRowRawEarly == 0)
+    if (a.moist) raw_upcast(kPQdp, kPVt2);
   __syncthreads();
   float s0 = 0.f;
   for (int cc = 0; cc < c; ++cc) s0 += tot_s[cc * stride];
@@ -749,6 +838,9 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
   tot_s[(chunks + c) * stride] = qsum;
   tot_s[(2 * chunks + c) * stride] = dsum;
   if constexpr (kStaged) cp_async_wait<0>();
+  // pecnd upcast before the barrier, so before pass 3 writes dptens over
+  // its raw pairs
+  if constexpr (kRaw && kRowRawEarly < 2) raw_upcast(kPPec, kPDpt);
   __syncthreads();
   float rsum = 0.f, cum = 0.f;
   for (int cc = chunks - 1; cc > c; --cc)
@@ -1005,7 +1097,12 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
     __syncthreads();
     const float* const sphv = meta_sm + kSpheremp * kMetaPitch;
     for (int i0 = tid; i0 < span; i0 += kEpi * blockDim.x) {
-      struct Old { float um1, vm1, tm1, dpm1, an, av, ao, ae; };
+      // the nm1 fields as stored (kRo: bf16, upcast at their use)
+      constexpr bool kRaw1 = kRo && kRowEpiRaw;
+      struct Old {
+        OpT<kRaw1> um1, vm1, tm1, dpm1;
+        float an, av, ao, ae;
+      };
       Old old[kEpi];
       int pos[kEpi], cxs[kEpi];
 #pragma unroll
@@ -1016,10 +1113,17 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
           span_at(i, a.nlev, rnlev, cxs[j], k);
           pos[j] = swz(k, cxs[j]);
           const size_t o = base + i;
-          old[j].um1 = ld_op<kRo>(a.um1, o);
-          old[j].vm1 = ld_op<kRo>(a.vm1, o);
-          old[j].tm1 = ld_op<kRo>(a.tm1, o);
-          old[j].dpm1 = ld_op<kRo>(a.dpm1, o);
+          if constexpr (kRaw1) {
+            old[j].um1 = ld_raw<true>(a.um1, o);
+            old[j].vm1 = ld_raw<true>(a.vm1, o);
+            old[j].tm1 = ld_raw<true>(a.tm1, o);
+            old[j].dpm1 = ld_raw<true>(a.dpm1, o);
+          } else {
+            old[j].um1 = ld_op<kRo>(a.um1, o);
+            old[j].vm1 = ld_op<kRo>(a.vm1, o);
+            old[j].tm1 = ld_op<kRo>(a.tm1, o);
+            old[j].dpm1 = ld_op<kRo>(a.dpm1, o);
+          }
           old[j].an = a.vn0u[o]; old[j].av = a.vn0v[o]; old[j].ao = a.omg[o];
           if constexpr (kR0) old[j].ae = a.etaacc[o];
         }
@@ -1033,10 +1137,10 @@ __device__ __forceinline__ void caar_chunked(const CaarArgs& a, int tile_idx,
           const float sph = sphv[cxs[j]];
           const float dp = P(kPDp)[q];
           const float vdp1 = P(kPU)[q] * dp, vdp2 = P(kPV)[q] * dp;
-          a.u1[o] = sph * (old[j].um1 + dt2 * P(kPPec)[q]);
-          a.v1[o] = sph * (old[j].vm1 + dt2 * P(kPVt2)[q]);
-          a.t1[o] = sph * (old[j].tm1 + dt2 * P(kR0 ? kPTt : kPT)[q]);
-          a.dp1[o] = sph * (old[j].dpm1 - dt2 * P(kPDpt)[q]);
+          a.u1[o] = sph * (f32(old[j].um1) + dt2 * P(kPPec)[q]);
+          a.v1[o] = sph * (f32(old[j].vm1) + dt2 * P(kPVt2)[q]);
+          a.t1[o] = sph * (f32(old[j].tm1) + dt2 * P(kR0 ? kPTt : kPT)[q]);
+          a.dp1[o] = sph * (f32(old[j].dpm1) - dt2 * P(kPDpt)[q]);
           a.phi[o] = P(kPPhi)[q];
           a.vn0u[o] = old[j].an + eta * vdp1;
           a.vn0v[o] = old[j].av + eta * vdp2;

@@ -213,6 +213,28 @@ constexpr int kCut = TRACER_CUT;
 #else
 constexpr int kCut = 0;
 #endif
+// The limited stage with a bf16 q keeps the tracers it prefetches raw (a
+// uint2 of 4 bf16 lanes, 2 registers where the upcast V4 takes 4) and
+// upcasts each at its use, kBfAhead tracers ahead at each level: in the
+// registers of the f32 instance's one float4 ahead, twice its tracers in
+// flight. experiments/kernel_variants.py (group tracer_bf16) builds with
+// TRACER_BF_AHEAD=0 the design before (one tracer ahead, upcast as it was
+// loaded) and 1 (one raw tracer ahead).
+#ifdef TRACER_BF_AHEAD
+constexpr int kBfAhead = TRACER_BF_AHEAD;
+#else
+constexpr int kBfAhead = 2;
+#endif
+// With that q the stage is bound by the limiter's instructions more than by
+// its bytes, so its passes skip the room, the give and the division for a
+// warp whose elements all have nothing to give (limit, kSkip).
+// experiments/kernel_variants.py builds with TRACER_SKIP 0 (no instance
+// skips) and 2 (every limited instance does), the port's being 1.
+#ifdef TRACER_SKIP
+constexpr int kSkipLimit = TRACER_SKIP;
+#else
+constexpr int kSkipLimit = 1;
+#endif
 constexpr unsigned kFull = 0xffffffffu;
 
 // META_COLS row indices (kernels/layout.py)
@@ -233,21 +255,30 @@ __device__ __forceinline__ V4 ld4(const float* __restrict__ p, size_t o) {
   return V4{{f.x, f.y, f.z, f.w}};
 }
 
+// four bf16 lanes from element o (8 bytes, o a multiple of 4), raw
+__device__ __forceinline__ uint2 ld4raw(const void* __restrict__ p,
+                                        size_t o) {
+  return *reinterpret_cast<const uint2*>(
+      static_cast<const __nv_bfloat16*>(p) + o);
+}
+
+// four raw bf16 lanes upcast exactly
+__device__ __forceinline__ V4 up4(uint2 w) {
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&w.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&w.y));
+  return V4{{a.x, a.y, b.x, b.y}};
+}
+
 // four lanes of a tracer operand from element o: float, or with kBf bf16
-// (8 bytes, o a multiple of 4) upcast exactly
+// upcast exactly
 template <bool kBf>
 __device__ __forceinline__ V4 ld4op(const void* __restrict__ p, size_t o) {
-  if constexpr (kBf) {
-    const uint2 w = *reinterpret_cast<const uint2*>(
-        static_cast<const __nv_bfloat16*>(p) + o);
-    const float2 a = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&w.x));
-    const float2 b = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&w.y));
-    return V4{{a.x, a.y, b.x, b.y}};
-  } else {
+  if constexpr (kBf)
+    return up4(ld4raw(p, o));
+  else
     return ld4(static_cast<const float*>(p), o);
-  }
 }
 
 __device__ __forceinline__ void st4(float* __restrict__ p, size_t o,
@@ -428,8 +459,13 @@ __device__ __forceinline__ V4 advect(const Quad& t, const Tile& tl,
 
 // The limiter on the thread's 4 lanes: bounds from the stage input q,
 // weights w = sph, `iters` clip-and-redistribute passes with the carry,
-// then the residual spread uniformly by weight. Every thread of the warp
-// must call it.
+// then the residual spread uniformly by weight. With kSkip a pass in which
+// no element of the warp has a deficit (d = 0) keeps the clipped values:
+// the whole pass would give 0 too (pos is false, give = +-0, c = |+-0 /
+// tot| = +0), so y = fmaf(0, lo - yc, yc) is its result bit for bit, and
+// the carry's zero sign never reaches y. Every thread of the warp must
+// call it.
+template <bool kSkip>
 __device__ __forceinline__ V4 limit(V4 y, const V4& q, const V4& w,
                                     float wsum, int iters) {
   const float lo = qmin(q), hi = qmax(q);
@@ -447,6 +483,14 @@ __device__ __forceinline__ V4 limit(V4 y, const V4& q, const V4& w,
     }
     // the deficit from the clipped-off amounts: no cancellation
     const float d = qsum(a) + carry;
+    if constexpr (kSkip) {
+      if (__all_sync(kFull, d == 0.f)) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) y.v[j] = fmaf(0.f, lo - yc.v[j], yc.v[j]);
+        carry = 0.f;
+        continue;
+      }
+    }
     const bool pos = d > 0.f;
     const float bsel = pos ? hi : lo;
 #pragma unroll
@@ -473,7 +517,7 @@ __device__ __forceinline__ V4 limit(V4 y, const V4& q, const V4& w,
 // out is stored under the L2 policy `keep` (the ring's s1). The Euler
 // kernel and the ring kernel both run stage_row<false, false>, so both
 // write the same bits. Every thread of the warp must call it.
-template <bool kLimit, bool kMix, bool kKeep = false>
+template <bool kLimit, bool kMix, bool kKeep = false, bool kSkip = false>
 __device__ __forceinline__ void stage_row(const Quad& t, const Tile& tl,
                                           const Stage& s, const Wind& w,
                                           const V4& qv, const V4& mv,
@@ -494,7 +538,8 @@ __device__ __forceinline__ void stage_row(const Quad& t, const Tile& tl,
   }
   if (kLimit || s.fold) {
     const V4 sph = lds4(tl.sph + t.qi);
-    if constexpr (kLimit && kCut == 0) y = limit(y, qv, sph, t.wsum, s.iters);
+    if constexpr (kLimit && kCut == 0)
+      y = limit<kSkip>(y, qv, sph, t.wsum, s.iters);
 #pragma unroll
     for (int j = 0; j < 4; ++j) y.v[j] *= sph.v[j];
   }
@@ -524,9 +569,10 @@ __device__ __forceinline__ void stage_row(const Quad& t, const Tile& tl,
 // the block's warps close together and the sector fills in L2 before it
 // goes to memory (on the H100 the Euler stage at qsize 35 took 0.94 ms with
 // 4 warps of one level at a time, 0.74 with two). The next tracer's loads
-// start before the current tracer's rows run. With kKeep (the ring) out is
-// stored evict-last in L2; with kQBf (kMxBf) q (mx) is bf16. Every thread
-// of the block must call it.
+// start before the current tracer's rows run (with kRawQ, the limited
+// stage's bf16 q, the next kBfAhead tracers' q, kept raw). With kKeep (the
+// ring) out is stored evict-last in L2; with kQBf (kMxBf) q (mx) is bf16.
+// Every thread of the block must call it.
 template <bool kLimit, bool kMix, int kWarps, bool kKeep = false,
           bool kQBf = false, bool kMxBf = false>
 __device__ __forceinline__ void stage_block(const Stage& s,
@@ -540,6 +586,11 @@ __device__ __forceinline__ void stage_block(const Stage& s,
                              : kPer;
   static_assert(kLevels % kWarps == 0 && kPer % kGroup == 0,
                 "a chunk's levels split over the warps, a warp's in groups");
+  constexpr bool kRawQ = kLimit && kQBf && kBfAhead > 0;
+  constexpr int kAhead = kRawQ ? kBfAhead : 1;
+  static_assert(!kRawQ || !kMix, "the limited stage takes a bf16 q unmixed");
+  constexpr bool kSkip =
+      kLimit && (kSkipLimit == 2 || (kSkipLimit == 1 && kQBf));
   const Quad t = load_tile(tl, s.meta, dvv, s.fix_rank, s.ld, ncol, lane0,
                            rr);
   const int kw = k0 + static_cast<int>(threadIdx.x >> 5);
@@ -552,6 +603,7 @@ __device__ __forceinline__ void stage_block(const Stage& s,
     Wind w[kGroup];
     size_t o[kGroup];
     V4 qn[kGroup], mn[kGroup];
+    uint2 qr[kGroup][kAhead];   // kRawQ: tracers n .. n + kAhead - 1, raw
 #pragma unroll
     for (int i = 0; i < kGroup; ++i) {
       const int k = kw + (g + i) * kWarps;
@@ -559,8 +611,16 @@ __device__ __forceinline__ void stage_block(const Stage& s,
       w[i] = on[i] ? wind_products(t, s, k) : Wind{zero4(), zero4()};
       o[i] = static_cast<size_t>(k) * s.ld + t.col + n0 * step;
       qn[i] = mn[i] = zero4();
+#pragma unroll
+      for (int j = 0; j < kAhead; ++j) qr[i][j] = make_uint2(0u, 0u);
       if (on[i] && t.live) {
-        qn[i] = ld4op<kQBf>(s.q, o[i]);
+        if constexpr (kRawQ) {
+#pragma unroll
+          for (int j = 0; j < kAhead; ++j)
+            if (n0 + j < n1) qr[i][j] = ld4raw(s.q, o[i] + j * step);
+        } else {
+          qn[i] = ld4op<kQBf>(s.q, o[i]);
+        }
         if constexpr (kMix) mn[i] = ld4op<kMxBf>(s.mx, o[i]);
       }
     }
@@ -568,21 +628,27 @@ __device__ __forceinline__ void stage_block(const Stage& s,
       V4 qv[kGroup], mv[kGroup];
 #pragma unroll
       for (int i = 0; i < kGroup; ++i) {
-        qv[i] = qn[i];
         mv[i] = mn[i];
-        if (on[i] && t.live && n + 1 < n1) {     // the next tracer's loads
-          qn[i] = ld4op<kQBf>(s.q, o[i] + step);
-          if constexpr (kMix) mn[i] = ld4op<kMxBf>(s.mx, o[i] + step);
+        if constexpr (kRawQ) {
+          qv[i] = up4(qr[i][0]);                 // upcast at its use
+#pragma unroll
+          for (int j = 0; j + 1 < kAhead; ++j) qr[i][j] = qr[i][j + 1];
+          if (on[i] && t.live && n + kAhead < n1)
+            qr[i][kAhead - 1] = ld4raw(s.q, o[i] + kAhead * step);
+        } else {
+          qv[i] = qn[i];
+          if (on[i] && t.live && n + 1 < n1) {   // the next tracer's loads
+            qn[i] = ld4op<kQBf>(s.q, o[i] + step);
+            if constexpr (kMix) mn[i] = ld4op<kMxBf>(s.mx, o[i] + step);
+          }
         }
       }
 #pragma unroll
       for (int i = 0; i < kGroup; ++i) {
         if (on[i])
-          stage_row<kLimit, kMix, kKeep>(t, tl, s, w[i], qv[i], mv[i],
-                                         o[i],
-                                         static_cast<size_t>(n) * s.nlev +
-                                             kw + (g + i) * kWarps,
-                                         keep);
+          stage_row<kLimit, kMix, kKeep, kSkip>(
+              t, tl, s, w[i], qv[i], mv[i], o[i],
+              static_cast<size_t>(n) * s.nlev + kw + (g + i) * kWarps, keep);
         o[i] += step;
       }
     }
