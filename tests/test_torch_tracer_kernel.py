@@ -48,6 +48,8 @@ from tinman_sandbox_tpu_torch.kernels.tracer_t import (
     TRACER_TILE,
     TRACER_WARPS,
     _check_aligned,
+    _qsum,
+    _warp_all,
     tracer_euler_emulated,
     tracer_euler_plain,
     tracer_limit_emulated,
@@ -289,6 +291,45 @@ def test_torch_tracer_limit_emulated_conserves_and_bounds(case):
             BOUNDS_TOL * float(q.abs().max())
     if case == "pushed":
         assert float((y_in.double() - y).abs().max()) > 0.5
+
+
+@pytest.mark.parametrize("case,iters", [("free", 2), ("pushed", 2),
+                                        ("pushed", 1), ("calm", 2)])
+def test_torch_tracer_limit_skip_keeps_every_bit(case, iters):
+    """The limited stage's instance for a bf16 q skips a limiter pass in
+    which no element of the warp (8 elements of a row) has a deficit: such
+    a pass gives the clipped values bit for bit (pos false, give +-0, c
+    +0), so the stage emulated with the skip equals it without. In the
+    first pass every warp has a deficit (free), some do (pushed) or none
+    (calm: y = q)."""
+    nlev, qsize = 26, 3
+    _, (meta, vu, vv, q, dvv), _, fix = _packed(2, nlev, qsize, seed=41)
+    dt, tmix = 0.0, None
+    if case == "free":
+        q, _ = _squeezed(q, 42)
+        dt = _long_dt(meta, vu, vv, q, dvv, nlev)
+    elif case == "pushed":
+        rng = np.random.default_rng(43)
+        bump = _T((rng.random(tuple(q.shape)) < 0.01).astype(np.float32))
+        tmix = (q + bump, 1.0, 0.0)
+        dt = 0.0
+    y = tracer_euler_plain(meta, vu, vv, q, dvv, dt, nlev, fold_sph=False)
+    if tmix is not None:
+        y = tmix[0]
+    quads = lambda x: x.reshape(x.shape[0], -1, 4, 4)
+    lo = quads(q).amin((2, 3), keepdim=True)
+    hi = quads(q).amax((2, 3), keepdim=True)
+    yq = quads(y)
+    d = _qsum(meta[11].view(1, -1, 4, 4) * (yq - yq.clamp(lo, hi)))
+    empty = _warp_all(d == 0)[:, ::8]
+    assert (bool(empty.any()), bool((~empty).any())) == {
+        "free": (False, True), "pushed": (True, True),
+        "calm": (True, False)}[case]
+    runs = [tracer_limit_emulated(meta, vu, vv, q, dvv, dt, nlev, mix=tmix,
+                                  iters=iters, fix=fix, skip=skip)[:2]
+            for skip in (False, True)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 # -- what the wrappers and the build promise the kernels ----------------------

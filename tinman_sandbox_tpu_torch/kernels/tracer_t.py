@@ -410,8 +410,22 @@ def _advect_emulated(meta, vu, vv, q, dvv, dt, nlev, wind_rows):
     return _fma(-_f32(dt), (ax + ay) * rmr, quads(q))
 
 
-def _limit_emulated(y, q, w, iters):
-    """The kernels' limiter on [rows, nel, 4, 4]; w [1, nel, 4, 4]."""
+def _warp_all(m):
+    """m [rows, nel, 1, 1] reduced as ``__all_sync`` over a limited-stage
+    warp (8 elements of a row: the 128 lanes of its tile; the last tile's
+    dead threads agree), spread back to [rows, nel, 1, 1]."""
+    rows, nel = m.shape[:2]
+    g = torch.ones(rows, -(-nel // 8) * 8, dtype=torch.bool)
+    g[:, :nel] = m.reshape(rows, nel)
+    return g.view(rows, -1, 8).all(2).repeat_interleave(8, 1)[:, :nel].view(
+        rows, nel, 1, 1)
+
+
+def _limit_emulated(y, q, w, iters, skip=False):
+    """The kernels' limiter on [rows, nel, 4, 4]; w [1, nel, 4, 4]. With
+    ``skip`` (the instance for a bf16 q) a pass in which no element of the
+    warp has a deficit keeps the clipped values, fmaf(0, lo - yc, yc), and
+    a zero carry."""
     lo, hi = q.amin((2, 3), keepdim=True), q.amax((2, 3), keepdim=True)
     tiny = torch.finfo(torch.float32).tiny
     mass = _qsum(w * y)
@@ -425,6 +439,10 @@ def _limit_emulated(y, q, w, iters):
         carry = d - give
         c = (give / tot.clamp(min=tiny)).abs()      # once a thread
         y = _fma(c, torch.where(pos, hi, lo) - yc, yc)
+        if skip:
+            empty = _warp_all(d == 0)
+            y = torch.where(empty, _fma(0.0, lo - yc, yc), y)
+            carry = torch.where(empty, 0.0, carry)
     return y + (mass - _qsum(w * y)) / _qsum(w)
 
 
@@ -477,17 +495,19 @@ def tracer_euler_emulated(meta, vu, vv, q, dvv, dt, nlev: int,
 
 
 def tracer_limit_emulated(meta, vu, vv, q, dvv, dt, nlev: int, mix=None,
-                          wind_rows=(0, 0), iters: int = 2, fix=None):
+                          wind_rows=(0, 0), iters: int = 2, fix=None,
+                          skip: bool = False):
     """``tracer_limit_cuda`` as its kernel computes it, on float32 CPU
     tensors (``tracer_euler_emulated``, then the Shu-Osher combination
     ``ca*mx + cb*e``, both products and the sum rounded, and the kernel's
-    limiter). Returns (out, slab or
-    None, writes, slab writes or None)."""
+    limiter; with ``skip`` the limiter of the bf16 q instance, which skips
+    the passes in which no element of a warp has a deficit). Returns (out,
+    slab or None, writes, slab writes or None)."""
     mx, ca, cb = _mix_of("tracer_limit", q, mix)
     y = _advect_emulated(meta, vu, vv, q, dvv, dt, nlev, wind_rows)
     quads = lambda x: x.reshape(q.shape[0], -1, 4, 4)
     if mx is not None:
         y = _f32(ca) * quads(mx) + _f32(cb) * y
     w = meta[_MC["spheremp"]].view(1, -1, 4, 4)
-    y = _limit_emulated(y, quads(q), w, iters)
+    y = _limit_emulated(y, quads(q), w, iters, skip)
     return _walk((w * y).reshape(q.shape), nlev, fix, TRACER_WARPS["limit"])
