@@ -30,7 +30,10 @@ NVIDIA card and check it, phase by phase:
      DSS, and a field that is a function of the dof projected onto itself
      within 2e-6; the extract, fixup and sweep kernels (and the gather)
      also replayed from CUDA graphs, the device's time alone, the
-     extract beside its sector floor (``extract_floor_ms``); the sweep's
+     extract beside its sector floor (``extract_floor_ms``), and the
+     extract at 72, 288 and 2,520 rows (``EXTRACT_ROWS``), each bit for bit
+     its plain version, from a graph beside its byte bound and sector
+     floor (``extract_sizes``); the sweep's
      plan (``sweep_plan``: groups of 4 lanes a block, one row a thread, grid,
      blocks an SM reckoned and by cudaOccupancy, waves), every sweep form
      (merged, merge-free, mix, in place) bit for bit at ragged shapes (75
@@ -63,7 +66,8 @@ NVIDIA card and check it, phase by phase:
      fixup of the [3*nlev] and [4*nlev] slabs bit for bit
      ``dss_fixup_plain``, also from CUDA graphs; the weak-Laplacian
      kernel against ``vlap_plain`` at 5e-5 per output block, its slab bit
-     for bit the output at the fix lanes; each timed against its bound;
+     for bit the output at the fix lanes, also from a CUDA graph; each
+     timed against its bound;
  10. the dynamics main path at ne30 x 72, its launch counts set to 0 just
      before it and read just after: 10 chained SSPRK3 + hyperviscosity steps
      from a continuous random state on the kernels against the same chain on
@@ -129,8 +133,13 @@ NVIDIA card and check it, phase by phase:
      the row tracer kernel (``euler_packed``) against its plain
      version within 5e-5 per tracer block at qsize 1 and 35 on ne30, at the
      run's dt and at a dt long enough for the divergence to carry the
-     output; each timed against its bound, its plain version and the t form
-     at the same shape;
+     output, and bit for bit the t form (``tracer_euler_cuda`` without
+     spheremp) on the transposed problem, with its plan
+     (``row_tracer_plan``), cudaOccupancy's blocks an SM and ptxas's
+     registers; each timed by events and from a CUDA graph against its
+     bound, its plain version and the t form at the same shape; its
+     scalar columns (nlev 26 and 27, on 1024 elements) likewise
+     (``row_tracer_narrow``);
  14. the rsplit=0 and row-layout main paths, their launch counts set to 0
      just before and read just after: the CLI ``--layout row`` at 1024
      elements x 100 steps (golden-checked) and ``--layout row --ne 30 --dss
@@ -387,8 +396,9 @@ Any failure raises and exits non-zero before the result line is printed.
 Run from the repository root: ``python3 chip_smoke.py``.
 
 ``kernel_times()`` times the sweep, the t-layout CAAR kernel, the fixup, the
-packed remap, the two tracer stages, the two row CAAR kernels, the t
-rsplit=0 kernel and both rings through
+extract, the Laplacian, the packed remap, the two tracer stages and the row
+tracer kernel, the two row CAAR kernels, the t rsplit=0 kernel and both
+rings through
 entry points that older trees share, so the same
 measurement runs against a parent checkout: from that checkout's root,
 ``python3 -c "import importlib.util as u; s = u.spec_from_file_location(
@@ -446,6 +456,12 @@ RSPLIT0_OPS_PER_POINT = 250
 # the row tracer kernel: two flux products, the metric products and two
 # contractions of 7 per point and tracer (csrc/tracer.cu)
 TRACER_ROW_OPS_PER_POINT = 32
+# the row tracer kernel's scalar columns (nlev % 4 != 0), checked in phase
+# 13 at these nlev on QSIZE_NARROW tracers; tracer_blocks_per_sm's kind of
+# each column width
+ROW_NARROW_NLEV = (26, 27)
+QSIZE_NARROW = 5
+ROW_TRACER_KIND = {4: 7, 1: 8}
 # the merge-free sweep: per output element up to 3 adds and the two-float
 # scale (2 products, 1 add), and with mix 3 more (dss_sweep.cuh)
 SWEEP_OPS_PER_POINT = 6
@@ -489,6 +505,9 @@ REMAP_OPS_PER_POINT = 30
 CONSERVE_TOL = 4e-6            # limiter: an element's mass, of its sum|w*y|
 BOUNDS_TOL = 1e-6              # limiter: outside the bounds, of max|q|
 QSIZE_TALL = 35                # E3SM's tracer count: the [2520, E16] stack
+# the rows the extract is checked and timed at in phase 4 and kernel_times:
+# a field, the prognostic state, the qsize-35 tracer stack
+EXTRACT_ROWS = (72, 288, 2520)
 LEAPFROG_TOL = 1e-4
 # 10 dynamics steps, kernels against plain: the chain moves the state by a
 # few 1e-4 of its size, so the looser leapfrog limit would pass a chain that
@@ -770,13 +789,16 @@ def kernel_times() -> dict:
     with mix in place into a 288-row field (the dynamics step's form);
     ``caar_t4_cuda`` in the pair form at 1024 x 72, the pair form with the
     slab at ne30 x 72, and the stage mode with the slab, with and without
-    phi, at ne30 x 72; ``dss_fixup_cuda`` on ne30 at 72, 288 and 2,520
-    rows; ``dist.remap_packed_t4`` (no fixer) at ne30 x 72, qsize 1 and 35,
+    phi, at ne30 x 72; ``dss_fixup_cuda`` and ``dss_extract_cuda`` on ne30
+    at 72, 288 and 2,520 rows; ``vlap_cuda`` with the slab at ne30 x 72;
+    ``dist.remap_packed_t4`` (no fixer) at ne30 x 72, qsize 1 and 35,
     on phase 21's input (``cadence_input``: the cadence after rsplit steps;
     ``ms`` and ``graph_ms`` over 20 calls); ``tracer_euler_cuda``
     and ``tracer_limit_cuda`` without and with mix at ne30 x 72, qsize 1
     and 35, on the prim bench's tracers with the winds read out of its
-    state and the slab, as the prim step calls them; the row-layout CAAR
+    state and the slab, as the prim step calls them, and the row tracer
+    kernel ``euler_packed`` on the same tracers and winds transposed; the
+    row-layout CAAR
     step ``caar_packed`` and its rsplit=0 mode ``caar_packed_rsplit0``
     (hybi ramp, random eta accumulator) at 1024 x 72 and ne30 x 72 on the
     row benches' problems and at 1024 x 400; the t-layout rsplit=0 step
@@ -792,9 +814,12 @@ def kernel_times() -> dict:
     from tinman_sandbox_tpu_torch import bench
     from tinman_sandbox_tpu_torch.dist import remap_packed_t4
     from tinman_sandbox_tpu_torch.kernels.caar_t import caar_t4_cuda
-    from tinman_sandbox_tpu_torch.kernels.dss import (dss_fixup_cuda,
+    from tinman_sandbox_tpu_torch.kernels.dss import (dss_extract_cuda,
+                                                      dss_fixup_cuda,
                                                       dss_sweep_cuda,
                                                       fix_tables)
+    from tinman_sandbox_tpu_torch.kernels.hypervis_t import vlap_cuda
+    from tinman_sandbox_tpu_torch.kernels.tracer import euler_packed
     from tinman_sandbox_tpu_torch.kernels.tracer_t import (tracer_euler_cuda,
                                                            tracer_limit_cuda)
 
@@ -804,7 +829,8 @@ def kernel_times() -> dict:
     fix = fix_tables(plan, dev)
     gen = torch.Generator(device=dev).manual_seed(9)
     ca, cb = float(np.float32(1.0 / 3.0)), float(np.float32(2.0 / 3.0))
-    out = {"card": card_line(), "sweep": {}, "caar": {}, "fixup": {}}
+    out = {"card": card_line(), "sweep": {}, "caar": {}, "fixup": {},
+           "extract": {}}
 
     def both(fn, reps):
         return dict(ms=cuda_ms(fn, reps), graph_ms=graph_ms(fn, reps),
@@ -845,6 +871,13 @@ def kernel_times() -> dict:
         out["fixup"][rows] = both(lambda: dss_fixup_cuda(slab, fix, rsp),
                                   50 if rows < 1000 else 20)
         del slab
+    for rows in EXTRACT_ROWS:
+        x = torch.randn(rows, fix.e16, generator=gen, device=dev)
+        out["extract"][rows] = both(lambda: dss_extract_cuda(x, fix),
+                                    100 if rows < 1000 else 30)
+        del x
+    out["vlap"] = both(lambda: vlap_cuda(meta, s0, dvv, NLEV, 1.0, fix=fix),
+                       50)
     out["remap"] = {}
     for qsize in (1, QSIZE_TALL):
         prob, rs, rq = cadence_input(dev, qsize)
@@ -870,7 +903,14 @@ def kernel_times() -> dict:
             limit_mix=both(lambda: tracer_limit_cuda(
                 pmeta, ps0, ps0, q, pdvv, DYN_DT, NLEV, mix=(mx, ca, cb),
                 **kw), reps))
-        del q, mx
+        # the row tracer kernel on the same tracers and winds, transposed
+        del mx
+        rq, rmeta = q.T.contiguous(), pmeta.T.contiguous()
+        ru, rv = ps0[:NLEV].T.contiguous(), ps0[NLEV:2 * NLEV].T.contiguous()
+        del q
+        out["tracer"][qsize]["euler_packed"] = both(lambda: euler_packed(
+            rmeta, ru, rv, rq, pdvv, DYN_DT, NLEV), reps)
+        del rq, rmeta, ru, rv
         torch.cuda.empty_cache()
     from tinman_sandbox_tpu_torch.kernels.caar import (caar_packed,
                                                        caar_packed_rsplit0)
@@ -1427,12 +1467,46 @@ def phase_dss(dev, cs):
               f"{bounds[name][0]:.4f} ms ({bounds[name][1]})"
               + (f", sector floor {floors[name]:.4f} ms" if name in floors
                  else "") + graph)
+    out["dss_extract_cuda"]["sizes"] = extract_sizes(dev, x, t)
     print(f"phase 4 dss ne{cs.ne}: continuity error {cont:.1e}, projection "
           f"identity {proj_err:.2e} (limit {PROJECTION_TOL})")
     print(f"phase 4 dss_sweep plan [{k}, {e16}]: " + sweep_plan_line(
         sweep_plan(k, e16), dev))
     sweep_edges(dev, x, rsp, t)
     return out
+
+
+def extract_sizes(dev, x, t) -> dict:
+    """The extract at EXTRACT_ROWS rows of ne30 (x where it has that many),
+    each bit for bit its plain version and timed from a CUDA graph beside
+    the byte bound and the sector floor. Returns {rows: times}."""
+    import numpy as np
+    import torch
+
+    from tinman_sandbox_tpu_torch.kernels.dss import (dss_extract_cuda,
+                                                      dss_extract_plain)
+
+    rng = np.random.default_rng(12)
+    n, e16 = t.nfix, t.e16
+    sizes = {}
+    for rows in EXTRACT_ROWS:
+        xr = x if rows == x.shape[0] else torch.from_numpy(
+            rng.standard_normal((rows, e16)).astype(np.float32)).to(dev)
+        got = dss_extract_cuda(xr, t)
+        torch.cuda.synchronize()
+        if not torch.equal(got, dss_extract_plain(xr, t)):
+            raise AssertionError(f"dss_extract_cuda at {rows} rows differs "
+                                 "from its plain version")
+        g_ms = graph_ms(lambda: dss_extract_cuda(xr, t),
+                        100 if rows < 1000 else 30)
+        bnd = bound_ms(2 * n * rows * 4 + n * 4, 0)[0]
+        floor = extract_floor_ms(t.read_lanes, rows, e16)
+        print(f"phase 4 dss_extract_cuda {rows} rows: bitwise equal; from a "
+              f"graph {g_ms:.4f} ms, bound {bnd:.4f} ms ({bnd / g_ms:.3f} of "
+              f"it), sector floor {floor:.4f} ms ({g_ms / floor:.2f}x)")
+        sizes[rows] = dict(graph_ms=g_ms, bound_ms=bnd, sector_floor_ms=floor)
+        del xr, got
+    return sizes
 
 
 def sweep_plan_line(plan, dev) -> str:
@@ -1897,19 +1971,21 @@ def phase_dynamics_kernels(dev, cs):
         if not torch.equal(got, vlap_cuda(meta, x, dvv, k, nu_ratio)):
             raise AssertionError("vlap: the slab changes the output")
         max_abs = max(max_abs, float((got - want).abs().max()))
-    k_ms = cuda_ms(lambda: vlap_cuda(meta, s0, dvv, k, 1.0, fix=fix), 50)
+    run = lambda: vlap_cuda(meta, s0, dvv, k, 1.0, fix=fix)
+    k_ms, g_ms = cuda_ms(run, 50), graph_ms(run, 50)
     p_ms = cuda_ms(lambda: vlap_plain(meta, s0, dvv, k, 1.0, fix=fix), 5)
     # 3 row blocks read, 3 written, 12 meta rows, dvv, fix_rank, the slab
     nbytes = (6 * k + 12) * e16 * 4 + 16 * 4 + e16 * 4 + n * 3 * k * 4
     bnd, by = bound_ms(nbytes, VLAP_OPS_PER_POINT * e16 * k)
     print(f"phase 9 vlap ne{cs.ne}x{k}: slab bitwise the output at the {n} "
-          f"fix lanes; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+          f"fix lanes; kernel {k_ms:.4f} ms (graph {g_ms:.4f} ms, "
+          f"{bnd / g_ms:.3f} of the bound), plain {p_ms:.4f} ms, bound "
           f"{bnd:.4f} ms ({by}, {nbytes} B)")
     out["vlap_cuda"] = dict(
         route="cuda", source="tinman_sandbox_tpu_torch/csrc/hypervis.cu",
         replaces="tinman_sandbox_tpu/kernels/hypervis_pallas_t.py:144",
-        max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms, bound_ms=bnd,
-        bound_by=by, library_ms=None)
+        max_abs_err=max_abs, ms=k_ms, graph_ms=g_ms, plain_ms=p_ms,
+        bound_ms=bnd, bound_by=by, library_ms=None)
     return out
 
 
@@ -2538,7 +2614,7 @@ def phase_row_kernels(dev, cs):
                                                          caar_plan,
                                                          caar_row_plan)
     from tinman_sandbox_tpu_torch.kernels.tracer import (
-        euler_packed, euler_packed_plain)
+        euler_packed, euler_packed_plain, row_tracer_plan)
     from tinman_sandbox_tpu_torch.kernels.tracer_t import tracer_euler_cuda
 
     rows = {}
@@ -2682,10 +2758,19 @@ def phase_row_kernels(dev, cs):
     k, e16 = NLEV, cs.nelem * 16
     meta = meta_t.T.contiguous()
     vu, vv = s0[:k].T.contiguous(), s0[k:2 * k].T.contiguous()
+    lib = _build.library("tracer")
+    regs = "; ".join(f"{i or '<>'} {r}" for i, r in ptxas_report(
+        "tracer", "tracer_row_kernel"))
     for qsize in (1, QSIZE_TALL):
         tag = f"ne{cs.ne}x{k} qsize {qsize}"
         qt = bench.make_prim_problem(cs.ne, k, dev, DYN_DT, qsize)[2]
         q = qt.T.contiguous()                       # [E16, qsize*nlev]
+        plan = row_tracer_plan(k, qsize, e16)
+        occ = lib.tracer_blocks_per_sm(ROW_TRACER_KIND[plan.vec], dev.index)
+        print(f"phase 13 euler_packed plan {tag}: {plan.vec} levels a "
+              f"thread, {plan.tracers} tracers a block x {plan.chunks} "
+              f"chunks, {plan.threads} threads, {plan.blocks} blocks, "
+              f"{occ} blocks an SM (cudaOccupancy); ptxas {regs}")
         div = q - euler_packed_plain(meta, vu, vv, q, dvv, 1.0, k)
         dt_long = 0.5 * float(q.abs().max()) / float(div.abs().max())
         del div
@@ -2693,50 +2778,115 @@ def phase_row_kernels(dev, cs):
         for dt in (DYN_DT, dt_long):
             want = euler_packed_plain(meta, vu, vv, q, dvv, dt, k)
             got = euler_packed(meta, vu, vv, q, dvv, dt, k)
+            t_out = tracer_euler_cuda(meta_t, s0, s0, qt, dvv, dt, k,
+                                      fold_sph=False, wind_rows=(0, 1))
             torch.cuda.synchronize()
             if not bool(torch.isfinite(got).all()):
                 raise AssertionError(f"euler_packed {tag}: non-finite")
             err = max(scaled_err(a, b) for a, b in zip(got.split(k, 1),
                                                        want.split(k, 1)))
+            same = bool(torch.equal(got, t_out.T))
             print(f"phase 13 euler_packed {tag} dt {dt:.4g}: worst scaled "
-                  f"error of a tracer block {err:.2e}")
+                  f"error of a tracer block {err:.2e}; bit for bit the t "
+                  f"form on the transposed problem: {same}")
             if err > CAAR_TOL:
                 raise AssertionError(f"euler_packed {tag}: {err} > {CAAR_TOL}")
+            if not same:
+                raise AssertionError(f"euler_packed {tag}: not bit for bit "
+                                     "tracer_euler_cuda(fold_sph=False)")
             worst = max(worst, err)
             worst_abs = max(worst_abs, float((got - want).abs().max()))
-            del want, got
+            del want, got, t_out
         reps = 50 if qsize == 1 else 10
-        k_ms = cuda_ms(lambda: euler_packed(meta, vu, vv, q, dvv, DYN_DT, k),
-                       reps)
+        run = lambda: euler_packed(meta, vu, vv, q, dvv, DYN_DT, k)
+        k_ms, g_ms = cuda_ms(run, reps), graph_ms(run, reps)
         p_ms = cuda_ms(lambda: euler_packed_plain(meta, vu, vv, q, dvv,
                                                   DYN_DT, k), 3)
         # the t form at the same shape: no spheremp, no slab
-        t_ms = cuda_ms(lambda: tracer_euler_cuda(meta_t, s0, s0, qt, dvv,
-                                                 DYN_DT, k, fold_sph=False,
-                                                 wind_rows=(0, 1)), reps)
+        t_run = lambda: tracer_euler_cuda(meta_t, s0, s0, qt, dvv, DYN_DT, k,
+                                          fold_sph=False, wind_rows=(0, 1))
+        t_ms, tg_ms = cuda_ms(t_run, reps), graph_ms(t_run, reps)
         # q read, out written, the two wind blocks, 6 meta values, dvv
         nbytes = (2 * qsize * k + 2 * k + 6) * e16 * 4 + 16 * 4
         bnd, by = bound_ms(nbytes, TRACER_ROW_OPS_PER_POINT * qsize * k * e16)
-        print(f"phase 13 euler_packed {tag}: kernel {k_ms:.4f} ms, plain "
+        print(f"phase 13 euler_packed {tag}: kernel {k_ms:.4f} ms (graph "
+              f"{g_ms:.4f} ms, {bnd / g_ms:.3f} of the bound), plain "
               f"{p_ms:.4f} ms, library none, bound {bnd:.4f} ms ({by}, "
               f"{nbytes} B); the t form tracer_euler_cuda {t_ms:.4f} ms "
-              f"(row / t {k_ms / t_ms:.2f})")
+              f"(graph {tg_ms:.4f} ms; row / t {g_ms / tg_ms:.2f} from "
+              "graphs)")
         if qsize == 1:
             rows["euler_packed"] = dict(
                 route="cuda", source="tinman_sandbox_tpu_torch/csrc/tracer.cu",
                 replaces="tinman_sandbox_tpu/kernels/tracer_pallas.py:61",
                 max_abs_err=worst_abs, max_scaled_err=worst, ms=k_ms,
-                plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=None,
-                t_form_ms=t_ms)
+                graph_ms=g_ms, plain_ms=p_ms, bound_ms=bnd, bound_by=by,
+                library_ms=None, t_form_ms=t_ms, t_form_graph_ms=tg_ms,
+                blocks_per_sm=occ)
         else:
             rows["euler_packed"].update(
                 tall_qsize=qsize, tall_max_scaled_err=worst, tall_ms=k_ms,
-                tall_plain_ms=p_ms, tall_bound_ms=bnd, tall_t_form_ms=t_ms)
+                tall_graph_ms=g_ms, tall_plain_ms=p_ms, tall_bound_ms=bnd,
+                tall_t_form_ms=t_ms, tall_t_form_graph_ms=tg_ms)
             rows["euler_packed"]["max_abs_err"] = max(
                 rows["euler_packed"]["max_abs_err"], worst_abs)
         del q, qt
         torch.cuda.empty_cache()
+    rows["euler_packed"]["narrow"] = row_tracer_narrow(dev, meta_t, dvv)
     return rows
+
+
+def row_tracer_narrow(dev, meta_t, dvv) -> dict:
+    """The row tracer kernel's scalar columns (``row_tracer_plan`` at nlev %
+    4 != 0) at ROW_NARROW_NLEV on
+    the first 1024 elements of the ne30 metric, QSIZE_NARROW random tracers
+    and winds: within 5e-5 per tracer block of the plain version at the
+    run's dt and a long one, bit for bit the t form on the transposed
+    problem; timed from a graph. Returns {nlev: times and errors}."""
+    import torch
+
+    from tinman_sandbox_tpu_torch.kernels.tracer import (
+        euler_packed, euler_packed_plain, row_tracer_plan)
+    from tinman_sandbox_tpu_torch.kernels.tracer_t import tracer_euler_cuda
+
+    ncol = 1024 * 16
+    mt = meta_t[:, :ncol].contiguous()
+    meta = mt.T.contiguous()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for nlev in ROW_NARROW_NLEV:
+        vel = lambda: WIND * (2 * torch.rand(ncol, nlev, generator=gen,
+                                             device=dev) - 1)
+        vu, vv = vel(), vel()
+        q = torch.rand(ncol, QSIZE_NARROW * nlev, generator=gen, device=dev)
+        wt = torch.cat([vu.T, vv.T]).contiguous()
+        qt = q.T.contiguous()
+        plan = row_tracer_plan(nlev, QSIZE_NARROW, ncol)
+        div = q - euler_packed_plain(meta, vu, vv, q, dvv, 1.0, nlev)
+        dt_long = 0.5 * float(q.abs().max()) / float(div.abs().max())
+        worst = 0.0
+        for dt in (DYN_DT, dt_long):
+            got = euler_packed(meta, vu, vv, q, dvv, dt, nlev)
+            want = euler_packed_plain(meta, vu, vv, q, dvv, dt, nlev)
+            t_out = tracer_euler_cuda(mt, wt, wt, qt, dvv, dt, nlev,
+                                      fold_sph=False, wind_rows=(0, 1))
+            torch.cuda.synchronize()
+            err = max(scaled_err(a, b) for a, b in zip(
+                got.split(nlev, 1), want.split(nlev, 1)))
+            if not err <= CAAR_TOL:
+                raise AssertionError(f"euler_packed nlev {nlev}: {err} > "
+                                     f"{CAAR_TOL}")
+            if not torch.equal(got, t_out.T):
+                raise AssertionError(f"euler_packed nlev {nlev}: not bit for "
+                                     "bit the t form")
+            worst = max(worst, err)
+        g_ms = graph_ms(lambda: euler_packed(meta, vu, vv, q, dvv, DYN_DT,
+                                             nlev), 30)
+        print(f"phase 13 euler_packed 1024 x {nlev} qsize {QSIZE_NARROW} "
+              f"({plan.vec} levels a thread): worst scaled error {worst:.2e},"
+              f" bit for bit the t form; graph {g_ms:.4f} ms")
+        out[nlev] = dict(vec=plan.vec, max_scaled_err=worst, graph_ms=g_ms)
+    return out
 
 
 def row_other_nlev(dev, nlev: int) -> dict:

@@ -8,9 +8,9 @@ how the hypotheses about them were tested.
 
     python3 experiments/kernel_variants.py [sweep] [caar] [fixup] [remap]
         [tracer] [row] [ring] [banded] [tracer_ring] [rsplit0] [storage]
-        [tracer_bf16] [remap_parent]
+        [tracer_bf16] [row_tracer] [extract] [remap_parent]
 
-from the repository root: the named groups (default all twelve), in that
+from the repository root: the named groups (default all fourteen), in that
 order.
 
   1. the sweep: the port's kernel (``dss_sweep_cuda``: one row a thread, 40
@@ -154,6 +154,24 @@ order.
      differences into the loads, the advection, the bounds with the mass
      and the residual pass, and each limiter pass, beside ptxas's
      registers and spills and cudaOccupancy's blocks an SM.
+ 13. the row-layout tracer Euler kernel (``euler_packed``) at ne30 x 72,
+     qsize 1 and 35, and ne30 x 26 (scalar columns) at qsize 35: the port
+     through its wrapper; ``csrc/tracer.cu`` built as the port builds it
+     and with ``ROW_TRACER_BUILDS``' flags (registers uncapped or capped
+     for 5 blocks an SM, the next tracer loaded after the store, other
+     quads a block), each at every tracers-a-block of
+     ``ROW_TRACER_CHUNKS``, with scalar columns at nlev 26; the
+     kernel before its redesign (``row_tracer_variants.cu``, the control);
+     the t form on the transposed problem. Each within 5e-5 per tracer
+     block of ``euler_packed_plain`` at a long dt, whether it is bit for
+     bit the t form printed, timed from CUDA graphs beside its bound, with
+     ptxas's registers and cudaOccupancy's blocks an SM;
+ 14. the DSS extract (``dss_extract_cuda``) on ne30 at 72, 288 and 2,520
+     rows and on ne120 at 288: the port, the variants of
+     ``extract_variants.cu`` (the kernel before its redesign the control;
+     more rows of loads a thread, L2-only loads, a grid of one wave) and
+     the library call, each bit for bit ``dss_extract_plain``, timed from
+     CUDA graphs beside the byte bound and the sector floor.
 
 Every line is one JSON object and names the card and its power limit.
 Without a card the script raises.
@@ -161,6 +179,7 @@ Without a card the script raises.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import json
 import os
 import re
@@ -1603,6 +1622,230 @@ def storage(dev, card):
         _build.library = port_library
 
 
+# builds of csrc/tracer.cu for the row kernel (group row_tracer): (name, nvcc
+# flags), the port's first (float4 columns in blocks of 32 quads capped at
+# 128 registers for 4 blocks an SM, narrower columns in blocks of 64, the
+# next tracer's q loaded before this one's arithmetic): uncapped
+# (TRACER_ROW_MIN_BLOCKS=1; 158 registers, 3 blocks an SM), capped for 5
+# (96 registers and spills), the next q loaded after the store
+# (TRACER_ROW_AHEAD=0), 64 quads a block with float4 columns and 32 with
+# scalar ones (TRACER_ROW_QUADS, _NARROW)
+ROW_TRACER_BUILDS = (("port", []), ("uncapped", ["-DTRACER_ROW_MIN_BLOCKS=1"]),
+                     ("min5", ["-DTRACER_ROW_MIN_BLOCKS=5"]),
+                     ("ahead0", ["-DTRACER_ROW_AHEAD=0"]),
+                     ("quads64", ["-DTRACER_ROW_QUADS=64"]),
+                     ("narrow32", ["-DTRACER_ROW_QUADS_NARROW=32"]))
+# the tracers a block walks at qsize 35 (the port's plan: 4)
+ROW_TRACER_CHUNKS = (35, 9, 7, 5, 4, 1)
+# (nlev, qsize) of the cases at ne30; nlev 26 runs scalar columns
+ROW_TRACER_CASES = ((72, 1), (72, 35), (26, 35))
+# cudaOccupancy's kind (tracer_blocks_per_sm) of each column width
+ROW_TRACER_KIND = {4: 7, 1: 8}
+
+
+def row_tracer(dev, card):
+    """The row-layout tracer Euler kernel (``euler_packed``) at ne30 x 72,
+    qsize 1 and 35, and at ne30 x 26 (scalar columns), qsize 35: the
+    port
+    through its wrapper as the main path calls it; ``csrc/tracer.cu`` built
+    as the port builds it and with ROW_TRACER_BUILDS' flags, each with every
+    tracers-a-block of ROW_TRACER_CHUNKS (launched directly); the kernel
+    before the redesign (``row_tracer_variants.cu``, the control); the t
+    form (``tracer_euler_cuda`` without spheremp) on the transposed problem.
+    Each held per tracer block within 5e-5 of ``euler_packed_plain`` at a
+    long dt, whether it is bit for bit the t form printed; timed from CUDA
+    graphs at the run's dt with the bound (inputs once, outputs once),
+    ptxas's registers and cudaOccupancy's blocks an SM."""
+    from chip_smoke import (DYN_DT, TRACER_ROW_OPS_PER_POINT, bound_ms,
+                            scaled_err)
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.constants import CONSTANTS
+    from tinman_sandbox_tpu_torch.kernels.tracer import (
+        euler_packed, euler_packed_plain, row_tracer_plan)
+    from tinman_sandbox_tpu_torch.kernels.tracer_t import tracer_euler_cuda
+
+    lib, report = _compile("row_tracer_variants")
+    old = ctypes.CDLL(lib)
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    old.row_tracer_old_launch.argtypes = [P] * 6 + [I] * 3 + [F, F, P]
+    old_regs = _tracer_regs(report, "tracer_row_kernel_old")
+    libs = _caar_libraries(ROW_TRACER_BUILDS, "row_tracer",
+                           "tracer_row_kernel", source="tracer")
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream
+    for nlev, qsize in ROW_TRACER_CASES:
+        (scal, meta_t, _, dvv), s0, _, _, _, _ = bench.make_prim_problem(
+            30, nlev, dev, DYN_DT, 1)
+        meta = meta_t.T.contiguous()
+        vu, vv = s0[:nlev].T.contiguous(), s0[nlev:2 * nlev].T.contiguous()
+        qt = bench.make_prim_problem(30, nlev, dev, DYN_DT, qsize)[2]
+        q = qt.T.contiguous()
+        ncol = q.shape[0]
+        div = q - euler_packed_plain(meta, vu, vv, q, dvv, 1.0, nlev)
+        dt_long = 0.5 * float(q.abs().max()) / float(div.abs().max())
+        del div
+        want = euler_packed_plain(meta, vu, vv, q, dvv, dt_long, nlev)
+        t_of = lambda dt: tracer_euler_cuda(meta_t, s0, s0, qt, dvv, dt,
+                                            nlev, fold_sph=False,
+                                            wind_rows=(0, 1))
+        t_long = t_of(dt_long).T.contiguous()
+        nbytes = (2 * qsize * nlev + 2 * nlev + 6) * ncol * 4 + 16 * 4
+        bnd, by = bound_ms(nbytes, TRACER_ROW_OPS_PER_POINT * qsize * nlev
+                           * ncol)
+        out = torch.empty_like(q)
+        plan = row_tracer_plan(nlev, qsize, ncol)
+        reps = 30 if qsize == 1 else 5
+        case = f"ne30x{nlev}_q{qsize}"
+
+        def check(name, got):
+            torch.cuda.synchronize()
+            err = max(scaled_err(a, b) for a, b in zip(got.split(nlev, 1),
+                                                       want.split(nlev, 1)))
+            if not err <= 5e-5:
+                raise AssertionError(f"row_tracer {name} {case}: {err} > "
+                                     "5e-5")
+            return err, bool(torch.equal(got, t_long))
+
+        def emit(kind, err, same, ms, **info):
+            print(json.dumps(dict(
+                card=card, kernel="tracer_row", kind=kind, case=case,
+                max_scaled_err=err, bitwise_t_form=same, graph_ms=ms,
+                bound_ms=bnd, bound_by=by, bound_share=bnd / ms, **info)),
+                flush=True)
+
+        got = euler_packed(meta, vu, vv, q, dvv, dt_long, nlev)
+        err, same = check("port", got)
+        emit("port_wrapper", err, same, graph_ms(
+            lambda: euler_packed(meta, vu, vv, q, dvv, DYN_DT, nlev), reps),
+            plan=plan._asdict())
+        err, same = check("t_form", t_long)
+        emit("t_form", err, same, graph_ms(lambda: t_of(DYN_DT), reps))
+
+        def run_old(dt):
+            e = old.row_tracer_old_launch(
+                meta.data_ptr(), dvv.data_ptr(), vu.data_ptr(),
+                vv.data_ptr(), q.data_ptr(), out.data_ptr(), nlev,
+                q.shape[1], ncol, dt, CONSTANTS.rrearth, stream())
+            if e:
+                raise RuntimeError(f"row tracer old: error {e}")
+            return out
+        err, same = check("old", run_old(dt_long).clone())
+        emit("old", err, same, graph_ms(lambda: run_old(DYN_DT), reps),
+             registers=old_regs,
+             blocks_per_sm=old.row_tracer_old_blocks_per_sm())
+        chunks = (1,) if qsize == 1 else ROW_TRACER_CHUNKS
+        for (name, (so, regs)), tracers in itertools.product(libs.items(),
+                                                             chunks):
+            def run(dt):
+                e = so.tracer_row_launch(
+                    meta.data_ptr(), dvv.data_ptr(), vu.data_ptr(),
+                    vv.data_ptr(), q.data_ptr(), out.data_ptr(), nlev, qsize,
+                    ncol, plan.vec, tracers, dt, CONSTANTS.rrearth, stream(),
+                    dev.index)
+                if e:
+                    raise RuntimeError(f"row tracer {name}: error {e}")
+                return out
+            err, same = check(name, run(dt_long).clone())
+            emit(name, err, same, graph_ms(lambda: run(DYN_DT), reps),
+                 vec=plan.vec, tracers=tracers,
+                 registers=_short_regs(regs, "tracer_row_kernel"),
+                 blocks_per_sm=so.tracer_blocks_per_sm(
+                     ROW_TRACER_KIND[plan.vec], dev.index))
+        del q, qt, out, want, t_long, s0, meta, meta_t, vu, vv
+        torch.cuda.empty_cache()
+
+
+# the extract's variants in extract_variants.cu: (index, name)
+EXTRACT_VARIANTS = ((0, "old_32x32"), (7, "fixed_32x32"), (1, "rows64"),
+                    (2, "threads128"), (3, "l2_only"), (4, "one_wave"),
+                    (5, "rows128"), (6, "one_wave_rows64"))
+EXTRACT_ROWS = (72, 288, 2520)
+# L2 fetch granularities (bytes) the port and the kernel before are timed
+# under, after the context's default
+EXTRACT_FETCH = (32, 64, 128)
+
+
+def extracts(dev, card, fix):
+    """The DSS extract (``dss_extract_cuda``) on ne30 at 72, 288 and 2,520
+    rows and on ne120 at 288: the port through its wrapper, the variants of
+    ``extract_variants.cu`` (the kernel before its redesign the control) and
+    the library call ``x[:, lanes].T.contiguous()``, each bit for bit
+    ``dss_extract_plain`` and timed from CUDA graphs beside the byte bound
+    and the sector floor (``chip_smoke.extract_floor_ms``) and the same
+    floor counted in 64-byte granules. Then the port and the kernel before
+    under each L2 fetch granularity of EXTRACT_FETCH (the context's
+    ``cudaLimitMaxL2FetchGranularity``, set for the run and put back)."""
+    from chip_smoke import HBM_BYTES_PER_S, bound_ms, extract_floor_ms
+    from tinman_sandbox_tpu_torch.dist import (build_cubed_sphere,
+                                               make_structured_plan)
+    from tinman_sandbox_tpu_torch.kernels.dss import (dss_extract_cuda,
+                                                      dss_extract_plain,
+                                                      fix_tables)
+
+    lib, _ = _compile("extract_variants")
+    so = ctypes.CDLL(lib)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    so.extract_variant_launch.argtypes = [I, P, P, P, I, I, I, P]
+    so.extract_l2_fetch.argtypes = [I]
+    cs120 = build_cubed_sphere(120, dtype=torch.float32, device=dev)
+    fix120 = fix_tables(make_structured_plan(cs120.gdof, 120), dev)
+    del cs120
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cases = [(f"ne30_{rows}", fix, rows) for rows in EXTRACT_ROWS]
+    cases.append(("ne120_288", fix120, 288))
+    for case, t, rows in cases:
+        x = torch.randn(rows, t.e16, generator=gen, device=dev)
+        n = t.nfix
+        slab = torch.empty(n, rows, device=dev)
+        want = dss_extract_plain(x, t)
+        lanes = t.read_lanes.long()
+        bnd = bound_ms(2 * n * rows * 4 + n * 4, 0)[0]
+        floor = extract_floor_ms(t.read_lanes, rows, t.e16)
+        granules = torch.unique(lanes // 16).numel()
+        floor64 = (rows * (granules * 64 + n * 4) + n * 4) / HBM_BYTES_PER_S \
+            * 1e3
+        reps = 100 if rows < 1000 else 30
+
+        def launcher(v):
+            def run():
+                e = so.extract_variant_launch(
+                    v, x.data_ptr(), t.read_lanes.data_ptr(),
+                    slab.data_ptr(), n, rows, t.e16,
+                    torch.cuda.current_stream(dev).cuda_stream)
+                if e:
+                    raise RuntimeError(f"extract variant {v}: error {e}")
+                return slab
+            return run
+
+        runs = [("port", lambda: dss_extract_cuda(x, t)),
+                ("library", lambda: x[:, lanes].T.contiguous())]
+        runs += [(name, launcher(v)) for v, name in EXTRACT_VARIANTS]
+        default = so.extract_l2_fetch(0)
+        fetches = [(None, runs)] + [(b, runs[:1] + runs[2:3])
+                                    for b in EXTRACT_FETCH]
+        try:
+            for fetch, group in fetches:
+                got_fetch = default if fetch is None else \
+                    so.extract_l2_fetch(fetch)
+                for name, run in group:
+                    got = run()
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"extract {name} {case}: not "
+                                             "bit for bit")
+                    ms = graph_ms(run, reps)
+                    print(json.dumps(dict(
+                        card=card, kernel="dss_extract", kind=name,
+                        case=case, nfix=n, rows=rows, l2_fetch=got_fetch,
+                        bitwise=True, graph_ms=ms, bound_ms=bnd,
+                        sector_floor_ms=floor, floor64_ms=floor64,
+                        bound_share=bnd / ms, floor_share=floor / ms,
+                        floor64_share=floor64 / ms)), flush=True)
+        finally:
+            so.extract_l2_fetch(default)
+        del x, slab, want
+        torch.cuda.empty_cache()
+
+
 def _assembled_const(dev):
     """The ne30 x 72 assembled bench problem in ``bench.make_problem``'s
     form: (const, acc)."""
@@ -1615,7 +1858,8 @@ def _assembled_const(dev):
 
 def main(argv=None) -> int:
     every = ["sweep", "caar", "fixup", "remap", "tracer", "row", "ring",
-             "banded", "tracer_ring", "rsplit0", "storage", "tracer_bf16"]
+             "banded", "tracer_ring", "rsplit0", "storage", "tracer_bf16",
+             "row_tracer", "extract"]
     extra = ["remap_parent"]
     groups = (argv if argv is not None else sys.argv[1:]) or every
     if set(groups) - set(every) - set(extra):
@@ -1659,6 +1903,10 @@ def main(argv=None) -> int:
         storage(dev, card)
     if "tracer_bf16" in groups:
         tracer_bf16(dev, card)
+    if "row_tracer" in groups:
+        row_tracer(dev, card)
+    if "extract" in groups:
+        extracts(dev, card, fix)
     return 0
 
 

@@ -37,6 +37,7 @@ from tinman_sandbox_tpu_torch.dist import (
 )
 from tinman_sandbox_tpu_torch.kernels.dss import (
     dss_extract_cuda,
+    dss_extract_emulated,
     dss_extract_plain,
     dss_fixup_cuda,
     dss_fixup_plain,
@@ -153,6 +154,32 @@ def test_torch_dss_compact_slab_matches_jax(two_float):
     ref = dss_structured_t_pallas_cpre(jnp.asarray(x), xs, jp,
                                        jnp.asarray(rsp), interpret=True)
     _compare(dss_structured_t_cuda_pre(X, slab, p, R), ref, two_float)
+
+
+@pytest.mark.parametrize("ne,rows", [(2, 37), (2, 1), (3, 5), (3, 70)])
+def test_torch_dss_extract_walk_matches_jax(ne, rows):
+    """The extract kernel's tile walk (``dss_extract_emulated``: 32 slab
+    rows x 32 rows of x a block, 8 thread rows, the bounds tests) at slab
+    row (fix lane) and row counts that are not multiples of 32: every slab
+    entry written once, bit for bit ``dss_extract_plain`` and the wrapper,
+    and its rows, mapped through _compact_arrays, bit for bit JAX's
+    extract_tiles_ct."""
+    jcs, jp, p = _grid(ne)
+    x = _field(jcs, rows, seed=40 + rows)
+    t = fix_tables(p, "cpu")
+    assert t.nfix % 32 and rows % 32
+    X = torch.from_numpy(x)
+    slab, writes = dss_extract_emulated(X, t)
+    assert torch.equal(writes, torch.ones_like(writes))
+    assert torch.equal(slab, dss_extract_plain(X, t))
+    assert torch.equal(slab, dss_extract_cuda(X, t))
+    cm = _compact_arrays(jp)
+    xs = extract_tiles_ct(jnp.asarray(x), _fixup_arrays_t(jp)[0],
+                          jnp.asarray(np.asarray(cm[1], np.float32)), cm[0],
+                          interpret=True)
+    rank = t.fix_rank[t.fix_lanes.long()].long().numpy()
+    np.testing.assert_array_equal(slab.numpy()[rank],
+                                  np.asarray(xs)[np.asarray(cm[8])])
 
 
 @pytest.mark.parametrize("ne", [2, 3])

@@ -115,14 +115,31 @@
 // block-diagonal operators fed the matrix unit with a qsize-times wider
 // right-hand side. Bound by bytes as the others: q read, out written, the
 // two [E16, nlev] wind blocks and 6 metric values a point, against ~30 FP32
-// operations a point. Design: a block holds ONE element and a chunk of the
-// q*nlev columns, one thread per column, so each of the element's 16 rows
-// is read and written by neighbouring threads at neighbouring addresses
-// (coalesced). The Dvv exchange is per element and a thread holds all 16
-// GLL points of its column, so the contractions run in registers with no
-// shared-memory exchange and no barrier after the metric load. The winds at
-// level j mod nlev broadcast over the tracers (neighbouring columns of one
-// tracer read neighbouring wind addresses; other tracers hit the cache).
+// operations a point (at ne30 x 72, qsize 35: 1.79 GB, 0.535 ms at 3.35
+// TB/s). The design as ported (a block of one element and 128 columns, a
+// column a thread, scalar loads, the metric values staged behind a barrier
+// in each of an element's 20 column blocks, the winds re-read and gv formed
+// from v*q for every tracer) spent ~18 load, store and shared-memory
+// instructions a point and took 1.94x its bound
+// (experiments/row_tracer_variants.cu keeps it as the control). Design
+// (the quad layout of the t-layout kernel turned onto rows): a thread owns
+// one row li of an element's 4x4 GLL points (points li*4 .. li*4+3, four
+// rows of q) and kVec = 4 contiguous columns, four levels of one tracer, as
+// one float4 a point; four neighbouring threads (a quad) make the element.
+// A warp's 8 quads hold 8 neighbouring level groups, so each of its loads
+// and stores is 4 rows x 128 contiguous bytes. The thread forms the
+// wind-metric products c1 = metdet*(dinv00*u + dinv01*v), c2 alike, of its
+// 16 (point, level) pairs and its points' rmetdet*rrearth once, in
+// registers, from float4 loads of the meta and wind rows (no shared memory,
+// no barrier), and walks its block's chunk of tracers with stride nlev in
+// the column index, the next tracer's q loaded before this one's
+// arithmetic. Per level, gv1 = c1*q and gv2 = c2*q; D_y contracts the
+// thread's own points, D_x takes the quad's other rows of gv1 by xor
+// shuffles, in the t-layout kernel's order (advect), so the output is bit
+// for bit tracer_euler_cuda's without spheremp on the transposed problem.
+// Where nlev % 4 != 0 the same kernel runs with kVec = 1 (scalar columns,
+// a level a quad) in blocks of 64 quads (kernels/tracer.py::row_tracer_plan
+// picks it; float2 columns at an even nlev were no faster on the H100).
 #include <cfloat>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -754,67 +771,192 @@ tracer_ring_kernel(Stage s, const float* __restrict__ dvv, int ncol,
                                          rows);
 }
 
-// strong d/dx at lane (li, lj): sum_i Dvv[i, li] * s[i, lj]
-__device__ __forceinline__ float dx(const float* dvv, const float* s, int li,
-                                    int lj) {
-  float acc = dvv[0 * 4 + li] * s[0 * 4 + lj];
-  acc = fmaf(dvv[1 * 4 + li], s[1 * 4 + lj], acc);
-  acc = fmaf(dvv[2 * 4 + li], s[2 * 4 + lj], acc);
-  return fmaf(dvv[3 * 4 + li], s[3 * 4 + lj], acc);
+// The row kernel's design, each part a constant that
+// experiments/kernel_variants.py (group row_tracer) builds otherwise, the
+// port's value first:
+//   kRowQuads      quads (4-thread groups) a block with float4 columns: 32
+//                  (128 threads);
+//   kRowQuadsNarrow  the same with scalar columns: 64;
+//   kRowAhead      the next tracer's q loaded before this one's arithmetic
+//                  (1), or after its store (0);
+//   kRowMinBlocks  the blocks an SM the float4 instance's registers are
+//                  capped for: 4 (128 registers, no spills; on the H100
+//                  at ne30 x 72, qsize 35, 0.6356 ms against 0.6459-
+//                  0.6510 uncapped at 158 registers and 3 blocks, and
+//                  0.68 capped for 5 at 96 with spills).
+#ifdef TRACER_ROW_QUADS
+constexpr int kRowQuads = TRACER_ROW_QUADS;
+#else
+constexpr int kRowQuads = 32;
+#endif
+#ifdef TRACER_ROW_QUADS_NARROW
+constexpr int kRowQuadsNarrow = TRACER_ROW_QUADS_NARROW;
+#else
+constexpr int kRowQuadsNarrow = 64;
+#endif
+#ifdef TRACER_ROW_AHEAD
+constexpr int kRowAhead = TRACER_ROW_AHEAD;
+#else
+constexpr int kRowAhead = 1;
+#endif
+#ifdef TRACER_ROW_MIN_BLOCKS
+constexpr int kRowMinBlocks = TRACER_ROW_MIN_BLOCKS;
+#else
+constexpr int kRowMinBlocks = 4;
+#endif
+template <int kVec>
+constexpr int kRowQuadsOf = kVec == 4 ? kRowQuads : kRowQuadsNarrow;
+template <int kVec>
+constexpr int kRowMinOf = kVec == 4 ? kRowMinBlocks : 1;
+
+// kVec contiguous columns of one row: a float4 or a float
+template <int kVec>
+struct Cols {
+  float v[kVec];
+};
+
+template <int kVec>
+__device__ __forceinline__ Cols<kVec> ldc(const float* __restrict__ p,
+                                          size_t o) {
+  Cols<kVec> c;
+  if constexpr (kVec == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p + o);
+    c.v[0] = f.x;
+    c.v[1] = f.y;
+    c.v[2] = f.z;
+    c.v[3] = f.w;
+  } else {
+    static_assert(kVec == 1, "kVec is 4 or 1");
+    c.v[0] = p[o];
+  }
+  return c;
 }
 
-// strong d/dy at lane (li, lj): sum_m Dvv[m, lj] * s[li, m]
-__device__ __forceinline__ float dy(const float* dvv, const float* s, int li,
-                                    int lj) {
-  float acc = dvv[0 * 4 + lj] * s[li * 4 + 0];
-  acc = fmaf(dvv[1 * 4 + lj], s[li * 4 + 1], acc);
-  acc = fmaf(dvv[2 * 4 + lj], s[li * 4 + 2], acc);
-  return fmaf(dvv[3 * 4 + lj], s[li * 4 + 3], acc);
+template <int kVec>
+__device__ __forceinline__ void stc(float* __restrict__ p, size_t o,
+                                    const Cols<kVec>& c) {
+  if constexpr (kVec == 4)
+    *reinterpret_cast<float4*>(p + o) =
+        make_float4(c.v[0], c.v[1], c.v[2], c.v[3]);
+  else
+    p[o] = c.v[0];
 }
 
-constexpr int kRowThreads = 128;   // most columns a row-kernel block holds
+// The operands of one row-kernel launch.
+struct RowArgs {
+  const float* __restrict__ meta;    // [ncol, 16], META_COLS columns
+  const float* __restrict__ dvv;     // [4, 4]
+  const float* __restrict__ vu;      // [ncol, nlev]
+  const float* __restrict__ vv;
+  const float* __restrict__ q;       // [ncol, nq*nlev]
+  float* __restrict__ out;
+  int nlev, nq;
+  int groups;                        // level groups of kVec: nlev / kVec
+  int nquads;                        // (ncol / 16) * groups
+  int tracers, chunks;               // tracers a block; chunks of them
+  float dt, rr;
+};
 
-__global__ void __launch_bounds__(kRowThreads)
-tracer_row_kernel(const float* __restrict__ meta,
-                  const float* __restrict__ dvv_g,
-                  const float* __restrict__ vu, const float* __restrict__ vv,
-                  const float* __restrict__ q, float* __restrict__ out,
-                  int nlev, int qk, float dt, float rr) {
-  // the element's metric values by GLL point: dinv00, dinv01, dinv10,
-  // dinv11, metdet, rmetdet*rrearth
-  __shared__ float mt[6][16];
-  __shared__ float dvv[16];
-  const int tid = threadIdx.x;
-  const size_t base = static_cast<size_t>(blockIdx.x) * 16;  // element row
-  if (tid < 16) {
-    const float* mrow = meta + (base + tid) * 16;
-    dvv[tid] = dvv_g[tid];
-    mt[0][tid] = mrow[kDinv00];
-    mt[1][tid] = mrow[kDinv01];
-    mt[2][tid] = mrow[kDinv10];
-    mt[3][tid] = mrow[kDinv11];
-    mt[4][tid] = mrow[kMetdet];
-    mt[5][tid] = mrow[kRmetdet] * rr;
-  }
-  __syncthreads();
-  const int j = blockIdx.y * blockDim.x + tid;
-  if (j >= qk) return;
-  const int k = j % nlev;
-  float qv[16], g1[16], g2[16];
+// the q of tracer n at the thread's 4 points and kVec levels
+template <int kVec>
+__device__ __forceinline__ void row_load(Cols<kVec> (&c)[4],
+                                         const RowArgs& a, size_t row0,
+                                         size_t qk, int col) {
 #pragma unroll
-  for (int p = 0; p < 16; ++p) {
-    const size_t r = base + p;
-    const float x = q[r * qk + j];
-    const float vq1 = vu[r * nlev + k] * x, vq2 = vv[r * nlev + k] * x;
-    qv[p] = x;
-    g1[p] = mt[4][p] * fmaf(mt[0][p], vq1, mt[1][p] * vq2);
-    g2[p] = mt[4][p] * fmaf(mt[2][p], vq1, mt[3][p] * vq2);
-  }
+  for (int lj = 0; lj < 4; ++lj) c[lj] = ldc<kVec>(a.q, (row0 + lj) * qk + col);
+}
+
+template <int kVec>
+__global__ void __launch_bounds__(4 * kRowQuadsOf<kVec>, kRowMinOf<kVec>)
+tracer_row_kernel(const RowArgs a) {
+  const int li = threadIdx.x & 3;
+  const int chunk = blockIdx.x % a.chunks;
+  const int quad =
+      blockIdx.x / a.chunks * kRowQuadsOf<kVec> + (threadIdx.x >> 2);
+  // a quad is live or dead whole; a dead one joins the shuffles alone
+  const bool live = quad < a.nquads;
+  const int e = live ? quad / a.groups : 0;
+  const int k0 = (live ? quad - e * a.groups : 0) * kVec;
+  const size_t row0 = static_cast<size_t>(e) * 16 + li * 4;
+  const size_t qk = static_cast<size_t>(a.nq) * a.nlev;
+  // D_x weights Dvv[li ^ m, li]; D_y weights Dvv[m, 0..3]
+  float wx[4];
+  V4 wy[4];
 #pragma unroll
-  for (int p = 0; p < 16; ++p) {
-    const float div =
-        (dx(dvv, g1, p >> 2, p & 3) + dy(dvv, g2, p >> 2, p & 3)) * mt[5][p];
-    out[(base + p) * qk + j] = fmaf(-dt, div, qv[p]);
+  for (int m = 0; m < 4; ++m) {
+    wx[m] = a.dvv[(m ^ li) * 4 + li];
+    wy[m] = ld4(a.dvv, 4 * m);
+  }
+  // c1, c2 of each (level, point) and rmetdet*rrearth of each point
+  V4 c1[kVec], c2[kVec], rmr;
+#pragma unroll
+  for (int lv = 0; lv < kVec; ++lv) c1[lv] = c2[lv] = zero4();
+  rmr = zero4();
+  if (live) {
+#pragma unroll
+    for (int lj = 0; lj < 4; ++lj) {
+      const float* m = a.meta + (row0 + lj) * 16;
+      const float4 d = *reinterpret_cast<const float4*>(m + kDinv00);
+      const float4 g = *reinterpret_cast<const float4*>(m + kMetdet);
+      rmr.v[lj] = g.y * a.rr;
+      const Cols<kVec> u = ldc<kVec>(a.vu, (row0 + lj) * a.nlev + k0);
+      const Cols<kVec> v = ldc<kVec>(a.vv, (row0 + lj) * a.nlev + k0);
+#pragma unroll
+      for (int lv = 0; lv < kVec; ++lv) {
+        c1[lv].v[lj] = g.x * fmaf(d.x, u.v[lv], d.y * v.v[lv]);
+        c2[lv].v[lj] = g.x * fmaf(d.z, u.v[lv], d.w * v.v[lv]);
+      }
+    }
+  }
+  const int n0 = chunk * a.tracers;
+  const int n1 = min(n0 + a.tracers, a.nq);
+  Cols<kVec> cur[4] = {};
+  if (kRowAhead && live) row_load(cur, a, row0, qk, n0 * a.nlev + k0);
+  for (int n = n0; n < n1; ++n) {
+    const int col = n * a.nlev + k0;
+    Cols<kVec> nxt[4] = {};
+    if (live) {
+      if (!kRowAhead)
+        row_load(cur, a, row0, qk, col);
+      else if (n + 1 < n1)
+        row_load(nxt, a, row0, qk, col + a.nlev);
+    }
+    Cols<kVec> y[4];
+#pragma unroll
+    for (int lv = 0; lv < kVec; ++lv) {
+      V4 q, g1, g2;
+#pragma unroll
+      for (int lj = 0; lj < 4; ++lj) {
+        q.v[lj] = cur[lj].v[lv];
+        g1.v[lj] = c1[lv].v[lj] * q.v[lj];
+        g2.v[lj] = c2[lv].v[lj] * q.v[lj];
+      }
+      // rows li ^ 1, li ^ 2, li ^ 3 of gv1
+      const V4 r1 = shfl_xor4(g1, 1), r2 = shfl_xor4(g1, 2),
+               r3 = shfl_xor4(g1, 3);
+#pragma unroll
+      for (int lj = 0; lj < 4; ++lj) {
+        // strong d/dx at (li, lj): sum_i Dvv[i, li] * gv1[i, lj], i = li ^ m
+        float ax = wx[0] * g1.v[lj];
+        ax = fmaf(wx[1], r1.v[lj], ax);
+        ax = fmaf(wx[2], r2.v[lj], ax);
+        ax = fmaf(wx[3], r3.v[lj], ax);
+        // strong d/dy at (li, lj): sum_m Dvv[m, lj] * gv2[li, m]
+        float ay = wy[0].v[lj] * g2.v[0];
+        ay = fmaf(wy[1].v[lj], g2.v[1], ay);
+        ay = fmaf(wy[2].v[lj], g2.v[2], ay);
+        ay = fmaf(wy[3].v[lj], g2.v[3], ay);
+        y[lj].v[lv] = fmaf(-a.dt, (ax + ay) * rmr.v[lj], q.v[lj]);
+      }
+    }
+    if (live) {
+#pragma unroll
+      for (int lj = 0; lj < 4; ++lj) stc(a.out, (row0 + lj) * qk + col, y[lj]);
+    }
+    if (kRowAhead) {
+#pragma unroll
+      for (int lj = 0; lj < 4; ++lj) cur[lj] = nxt[lj];
+    }
   }
 }
 
@@ -887,21 +1029,45 @@ int tracer_euler_launch(const void* meta, const void* dvv, const void* vu,
 }
 
 // The row kernel: meta [ncol, 16], vu and vv [ncol, nlev], q and out
-// [ncol, qk] with qk = nq*nlev, all contiguous.
+// [ncol, nq*nlev], all contiguous, ncol a multiple of 16; vec 4 (nlev % 4
+// == 0, and q, out, vu and vv 16-byte aligned) or 1; `tracers` a block
+// (kernels/tracer.py::row_tracer_plan). meta and dvv 16-byte aligned.
 int tracer_row_launch(const void* meta, const void* dvv, const void* vu,
                       const void* vv, const void* q, void* out, int nlev,
-                      int qk, int ncol, float dt, float rrearth, void* stream,
-                      int device) {
+                      int nq, int ncol, int vec, int tracers, float dt,
+                      float rrearth, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int warps32 = (qk + 31) / 32 * 32;
-  const int threads = warps32 < kRowThreads ? warps32 : kRowThreads;
-  const dim3 grid(ncol / 16, (qk + threads - 1) / threads);
-  tracer_row_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(meta), static_cast<const float*>(dvv),
-      static_cast<const float*>(vu), static_cast<const float*>(vv),
-      static_cast<const float*>(q), static_cast<float*>(out), nlev, qk, dt,
-      rrearth);
+  auto off = [](const void* p, int bytes) {
+    return reinterpret_cast<size_t>(p) % bytes != 0;
+  };
+  if (nlev < 1 || nq < 1 || ncol < 16 || ncol % 16 || tracers < 1 ||
+      (vec != 1 && vec != 4) || nlev % vec || off(meta, 16) ||
+      off(dvv, 16) || off(vu, 4 * vec) || off(vv, 4 * vec) ||
+      off(q, 4 * vec) || off(out, 4 * vec))
+    return cudaErrorInvalidValue;
+  RowArgs a;
+  a.meta = static_cast<const float*>(meta);
+  a.dvv = static_cast<const float*>(dvv);
+  a.vu = static_cast<const float*>(vu);
+  a.vv = static_cast<const float*>(vv);
+  a.q = static_cast<const float*>(q);
+  a.out = static_cast<float*>(out);
+  a.nlev = nlev;
+  a.nq = nq;
+  a.groups = nlev / vec;
+  a.nquads = ncol / 16 * a.groups;
+  a.tracers = tracers;
+  a.chunks = (nq + tracers - 1) / tracers;
+  a.dt = dt;
+  a.rr = rrearth;
+  const int quads = vec == 4 ? kRowQuads : kRowQuadsNarrow;
+  const long long blocks =
+      static_cast<long long>((a.nquads + quads - 1) / quads) * a.chunks;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto* kernel = vec == 4 ? tracer_row_kernel<4> : tracer_row_kernel<1>;
+  kernel<<<static_cast<unsigned>(blocks), 4 * quads, 0,
+           static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
 }
 
@@ -991,8 +1157,9 @@ int tracer_ring_launch(const void* meta, const void* dvv, const void* vu,
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor, of kernel `kind`: 0 the
 // Euler stage, 1 the ring kernel without mix, 2 the limited stage with mix,
 // 3 the limited stage without mix; their bf16 instances: 4 the Euler stage
-// with a bf16 q, 5 the limited stage with a bf16 q, 6 with a bf16 mx;
-// negative: a CUDA error.
+// with a bf16 q, 5 the limited stage with a bf16 q, 6 with a bf16 mx; the
+// row kernel: 7 with float4 columns, 8 with scalar columns; negative: a
+// CUDA error.
 int tracer_blocks_per_sm(int kind, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -static_cast<int>(err);
@@ -1025,6 +1192,14 @@ int tracer_blocks_per_sm(int kind, int device) {
     case 6:
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &n, tracer_kernel<true, true, false, true>, stage_threads(true), 0);
+      break;
+    case 7:
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, tracer_row_kernel<4>, 4 * kRowQuads, 0);
+      break;
+    case 8:
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, tracer_row_kernel<1>, 4 * kRowQuadsNarrow, 0);
       break;
     default:
       return -static_cast<int>(cudaErrorInvalidValue);

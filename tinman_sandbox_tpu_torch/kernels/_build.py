@@ -158,7 +158,7 @@ _SIGNATURES = {
     "tracer": {
         "tracer_euler_launch": [_P] * 8 + [_I] * 8 + [_F, _F, _P, _I],
         "tracer_limit_launch": [_P] * 9 + [_I] * 8 + [_F] * 4 + [_P, _I],
-        "tracer_row_launch": [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P, _I],
+        "tracer_row_launch": [_P] * 6 + [_I] * 5 + [_F] * 2 + [_P, _I],
         "tracer_ring_launch": [_P] * 12 + [_I] * 12 + [_F] * 4 + [_P, _I],
         "tracer_blocks_per_sm": [_I, _I],
         "tracer_error_string": [_I],

@@ -327,6 +327,40 @@ def dss_fixup_emulated(slab: torch.Tensor, tables: FixTables,
     return vd, writes
 
 
+def dss_extract_emulated(x: torch.Tensor, tables: FixTables):
+    """csrc/dss.cu's extract kernel in torch, for the tests: each block (bx,
+    by) of the grid, each thread (tx, ty) of its 32 x 8, in its loading pass
+    (slab row bx*32 + tx, row by*32 + ty + 8*i of x at its read lane, into
+    tile[dy][tx]) and its storing pass (slab[bx*32 + ty + 8*i, by*32 + tx]
+    = tile[tx][dy]), with the kernel's bounds tests. Returns (slab, writes),
+    writes[r, row] the stores that element of the slab took."""
+    tile_n, rows_a = 32, 8
+    n, k = tables.nfix, x.shape[0]
+    gx, gy = -(-n // tile_n), -(-k // tile_n)
+    grid = torch.meshgrid(torch.arange(gx), torch.arange(gy),
+                          torch.arange(rows_a), torch.arange(tile_n),
+                          torch.arange(tile_n // rows_a), indexing="ij")
+    bx, by, ty, tx, it = (v.reshape(-1) for v in grid)
+    tile = torch.full((gx, gy, tile_n, tile_n + 1), float("nan"),
+                      dtype=x.dtype)
+    # loading pass: a warp (fixed ty, it) reads 32 slab rows' lanes of a row
+    r, dy = bx * tile_n + tx, ty + rows_a * it
+    row = by * tile_n + dy
+    ok = (r < n) & (row < k)
+    lanes = tables.read_lanes.long()[r[ok]]
+    tile[bx[ok], by[ok], dy[ok], tx[ok]] = x[row[ok], lanes]
+    # storing pass: a warp (fixed ty, it) stores 32 rows of one slab row
+    r, row = bx * tile_n + ty + rows_a * it, by * tile_n + tx
+    ok = (r < n) & (row < k)
+    slab = torch.full((n, k), float("nan"), dtype=x.dtype)
+    writes = torch.zeros((n, k), dtype=torch.long)
+    slab[r[ok], row[ok]] = tile[bx[ok], by[ok], tx[ok],
+                                (ty + rows_a * it)[ok]]
+    writes.index_put_((r[ok], row[ok]), torch.ones_like(r[ok]),
+                      accumulate=True)
+    return slab, writes
+
+
 def _sweep_masks(ne: int, e16: int, device):
     lane = torch.arange(e16, device=device)
     i, j = (lane // NP) % NP, lane % NP
