@@ -1,0 +1,7 @@
+"""The dss layer's share of its roofline: the bound of its frozen work
+(``work/dss.py``) on the published peaks over its device time a step,
+in percent."""
+
+
+def read(ctx):
+    return ctx.roofline("dss")
