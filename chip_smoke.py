@@ -389,6 +389,17 @@ NVIDIA card and check it, phase by phase:
      place, ``finish_async_checkpoints`` and a load equal to the state at
      the call bit for bit, with the host ms the save call blocked beside
      the blocking npz save's.
+ 31. the limited tracer stage's counting twin (``profiling.record_spans(
+     counters=True)``) at ne30 x 72, qsize 1 and QSIZE_TALL, in each
+     instance (f32 q with and without the mix field, a bf16 q, a bf16 mix
+     field) on a stage at the run's dt and one whose y is pushed out of its
+     bounds: its output and slab bit for bit those of the instance the
+     cadence runs; the warp-passes computed in full and skipped adding up to
+     every warp's passes, none skipped but by the bf16 q instance; in the
+     f32 instances its element-passes with a deficit within
+     LIMITER_COUNT_TOL of ``tracer_limit_plain``'s count (the sums run in
+     another order, so a deficit of an ulp's size may fall on either side
+     of 0)
 
 Phases 22-30 run after phase 21, before the lines of phase 17.
 
@@ -505,6 +516,7 @@ REMAP_OPS_PER_POINT = 30
 CONSERVE_TOL = 4e-6            # limiter: an element's mass, of its sum|w*y|
 BOUNDS_TOL = 1e-6              # limiter: outside the bounds, of max|q|
 QSIZE_TALL = 35                # E3SM's tracer count: the [2520, E16] stack
+LIMITER_COUNT_TOL = 1e-3       # counting twin against plain, of the count
 # the rows the extract is checked and timed at in phase 4 and kernel_times:
 # a field, the prognostic state, the qsize-35 tracer stack
 EXTRACT_ROWS = (72, 288, 2520)
@@ -6786,6 +6798,80 @@ def phase_prim_storage_path(dev, cs) -> dict:
     return results
 
 
+def phase_limiter_counts(dev, cs) -> None:
+    """Phase 31: the limited stage's counting twin against the instance the
+    cadence runs and against the plain version's counts."""
+    import numpy as np
+    import torch
+
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.kernels.dss import fix_tables
+    from tinman_sandbox_tpu_torch.kernels.tracer_t import (
+        TRACER_TILE, tracer_limit_cuda, tracer_limit_plain)
+    from tinman_sandbox_tpu_torch.profiling import record_spans
+
+    (scal, meta, pecnd, dvv), s0, _, _, plan, rsp = bench.make_prim_problem(
+        cs.ne, NLEV, dev, DYN_DT, 1)
+    fix = fix_tables(plan, dev)
+    kw = dict(wind_rows=(0, 1), fix=fix)
+    ca, cb = np.float32(0.75), np.float32(0.25)
+    bf = torch.bfloat16
+    tiles = -(-cs.nelem * 16 // TRACER_TILE)
+    for qsize in (1, QSIZE_TALL):
+        q = bench.make_prim_problem(cs.ne, NLEV, dev, DYN_DT, qsize)[2]
+        gen = torch.Generator(device=dev).manual_seed(31)
+        mx = torch.rand(q.shape, generator=gen, device=dev)
+        bump = (torch.rand(q.shape, generator=gen, device=dev) < 0.1) \
+            .float() * (torch.rand(q.shape, generator=gen, device=dev)
+                        < 0.5).float().mul_(2).sub_(1)
+        cases = [("f32 q", q, None, DYN_DT), ("f32 mix", q, (mx, ca, cb),
+                                              DYN_DT),
+                 ("f32 pushed", q, (q + bump, 1.0, 0.0), 0.0),
+                 ("bf16 q", q.to(bf), None, DYN_DT),
+                 ("bf16 mix", q, (mx.to(bf), ca, cb), DYN_DT)]
+        del bump
+        for case, qc, mix, dt in cases:
+            tag = f"ne{cs.ne}x{NLEV} qsize {qsize} {case}"
+            want, wslab = tracer_limit_cuda(meta, s0, s0, qc, dvv, dt, NLEV,
+                                            mix=mix, **kw)
+            twins = tracer_limit_cuda.count_launches
+            with record_spans(counters=True) as rec:
+                got, gslab = tracer_limit_cuda(meta, s0, s0, qc, dvv, dt,
+                                               NLEV, mix=mix, **kw)
+                n = rec.limiter()
+            if tracer_limit_cuda.count_launches != twins + 1:
+                raise AssertionError(f"counting twin {tag}: not launched")
+            if not (torch.equal(got, want) and torch.equal(gslab, wslab)):
+                raise AssertionError(f"counting twin {tag}: not bit for bit "
+                                     "the cadence's instance")
+            del got, gslab, want, wslab
+            total = qsize * NLEV * tiles * 2
+            line = (f"phase 31 counting twin {tag}: bit for bit; "
+                    + ", ".join(f"{k} {v}" for k, v in n.items())
+                    + f" of {total} warp-passes")
+            if n["warp_passes"] + n["warp_passes_skipped"] != total \
+                    or n["warp_passes_with_deficit"] > n["warp_passes"]:
+                raise AssertionError(f"{line}: the passes do not add up")
+            if n["warp_passes_skipped"] and case != "bf16 q":
+                raise AssertionError(f"{line}: a pass skipped")
+            if case.startswith("f32"):
+                with record_spans(counters=True) as rp:
+                    tracer_limit_plain(meta, s0, s0, qc, dvv, dt, NLEV,
+                                       mix=mix, **kw)
+                    p = rp.limiter()
+                gap = abs(n["element_passes_with_deficit"]
+                          - p["element_passes_with_deficit"])
+                line += (f"; plain {p['element_passes_with_deficit']} "
+                         f"element-passes with a deficit, "
+                         f"{p['warp_passes_with_deficit']} warp-passes")
+                if gap > LIMITER_COUNT_TOL * p["element_passes_with_deficit"]:
+                    raise AssertionError(f"{line}: {gap} from the plain "
+                                         "count")
+            print(line)
+        del q, mx, cases
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -6847,6 +6933,7 @@ def main() -> int:
                         ("caar", "caar_r0_kernel"),
                         ("remap", "remap_kernel"),
                         ("tracer", "tracer_kernel"),
+                        ("tracer", "tracer_count_kernel"),
                         ("tracer", "tracer_ring_kernel")):
         for inst, report in ptxas_report(source, tag):
             print(f"phase 1 ptxas {tag}{inst}: {report}")
@@ -7011,6 +7098,9 @@ def main() -> int:
     prim_storage_res = phase_prim_storage_path(dev, cs)
     prim_stored, prim_stored_bf16 = counts(), storage_counts()
     print(f"phase 30 seconds: {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    phase_limiter_counts(dev, cs)
+    print(f"phase 31 seconds: {time.perf_counter() - t0:.1f}")
     for label, res, got in (("raw", raw_res, raw), ("assembled", asm_res,
                                                      asm),
                             ("dynamics", dyn_res, dyn),

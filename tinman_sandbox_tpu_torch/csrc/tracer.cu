@@ -474,17 +474,28 @@ __device__ __forceinline__ V4 advect(const Quad& t, const Tile& tl,
   return e;
 }
 
+// A warp's limiter counts in the counting twin (tracer_count_kernel), the
+// same in every lane: the passes computed in full, those among them in
+// which some element of the warp had a deficit, the passes skipped (kSkip),
+// and the lanes with a deficit over the passes (4 an element: a quad's
+// threads hold the same d).
+struct Count {
+  unsigned full = 0, deficit = 0, skipped = 0, lanes = 0;
+};
+
 // The limiter on the thread's 4 lanes: bounds from the stage input q,
 // weights w = sph, `iters` clip-and-redistribute passes with the carry,
 // then the residual spread uniformly by weight. With kSkip a pass in which
 // no element of the warp has a deficit (d = 0) keeps the clipped values:
 // the whole pass would give 0 too (pos is false, give = +-0, c = |+-0 /
 // tot| = +0), so y = fmaf(0, lo - yc, yc) is its result bit for bit, and
-// the carry's zero sign never reaches y. Every thread of the warp must
+// the carry's zero sign never reaches y. With kCount each pass is counted
+// into cnt (the arithmetic is untouched). Every thread of the warp must
 // call it.
-template <bool kSkip>
+template <bool kSkip, bool kCount = false>
 __device__ __forceinline__ V4 limit(V4 y, const V4& q, const V4& w,
-                                    float wsum, int iters) {
+                                    float wsum, int iters,
+                                    Count* cnt = nullptr) {
   const float lo = qmin(q), hi = qmax(q);
   V4 a;
 #pragma unroll
@@ -500,6 +511,16 @@ __device__ __forceinline__ V4 limit(V4 y, const V4& q, const V4& w,
     }
     // the deficit from the clipped-off amounts: no cancellation
     const float d = qsum(a) + carry;
+    if constexpr (kCount) {
+      const unsigned has = __ballot_sync(kFull, d != 0.f);
+      cnt->lanes += __popc(has);
+      if (kSkip && has == 0u) {
+        ++cnt->skipped;
+      } else {
+        ++cnt->full;
+        cnt->deficit += has != 0u;
+      }
+    }
     if constexpr (kSkip) {
       if (__all_sync(kFull, d == 0.f)) {
 #pragma unroll
@@ -533,13 +554,16 @@ __device__ __forceinline__ V4 limit(V4 y, const V4& q, const V4& w,
 // from q (and the mix field's mv), into out at o and the slab; with kKeep
 // out is stored under the L2 policy `keep` (the ring's s1). The Euler
 // kernel and the ring kernel both run stage_row<false, false>, so both
-// write the same bits. Every thread of the warp must call it.
-template <bool kLimit, bool kMix, bool kKeep = false, bool kSkip = false>
+// write the same bits; with kCount the limiter counts its passes into
+// cnt. Every thread of the warp must call it.
+template <bool kLimit, bool kMix, bool kKeep = false, bool kSkip = false,
+          bool kCount = false>
 __device__ __forceinline__ void stage_row(const Quad& t, const Tile& tl,
                                           const Stage& s, const Wind& w,
                                           const V4& qv, const V4& mv,
                                           size_t o, size_t row,
-                                          unsigned long long keep) {
+                                          unsigned long long keep,
+                                          Count* cnt = nullptr) {
   V4 y;
   if constexpr (kCut == 1) {
 #pragma unroll
@@ -556,7 +580,7 @@ __device__ __forceinline__ void stage_row(const Quad& t, const Tile& tl,
   if (kLimit || s.fold) {
     const V4 sph = lds4(tl.sph + t.qi);
     if constexpr (kLimit && kCut == 0)
-      y = limit<kSkip>(y, qv, sph, t.wsum, s.iters);
+      y = limit<kSkip, kCount>(y, qv, sph, t.wsum, s.iters, cnt);
 #pragma unroll
     for (int j = 0; j < 4; ++j) y.v[j] *= sph.v[j];
   }
@@ -589,14 +613,15 @@ __device__ __forceinline__ void stage_row(const Quad& t, const Tile& tl,
 // start before the current tracer's rows run (with kRawQ, the limited
 // stage's bf16 q, the next kBfAhead tracers' q, kept raw). With kKeep (the
 // ring) out is stored evict-last in L2; with kQBf (kMxBf) q (mx) is bf16.
-// Every thread of the block must call it.
+// With kCount (the counting twin) each warp adds its limiter counts into
+// counts[4] at its end, one atomic a count (profiling.LIMITER_COUNTS's
+// order). Every thread of the block must call it.
 template <bool kLimit, bool kMix, int kWarps, bool kKeep = false,
-          bool kQBf = false, bool kMxBf = false>
-__device__ __forceinline__ void stage_block(const Stage& s,
-                                            const float* __restrict__ dvv,
-                                            int ncol, float rr, int lane0,
-                                            int k0, int k1, int n0, int n1,
-                                            Tile& tl) {
+          bool kQBf = false, bool kMxBf = false, bool kCount = false>
+__device__ __forceinline__ void stage_block(
+    const Stage& s, const float* __restrict__ dvv, int ncol, float rr,
+    int lane0, int k0, int k1, int n0, int n1, Tile& tl,
+    unsigned long long* __restrict__ counts = nullptr) {
   constexpr int kPer = kLevels / kWarps;         // levels a warp takes
   constexpr int kGroup = (kLimit ? kGroupLimit : kGroupEuler) < kPer
                              ? (kLimit ? kGroupLimit : kGroupEuler)
@@ -614,6 +639,7 @@ __device__ __forceinline__ void stage_block(const Stage& s,
   const size_t step = static_cast<size_t>(s.nlev) * s.ld;   // a tracer
   [[maybe_unused]] const unsigned long long keep =
       kKeep ? ring::evict_last() : 0ull;
+  [[maybe_unused]] Count cnt;
 #pragma unroll 1
   for (int g = 0; g < kPer; g += kGroup) {
     bool on[kGroup];          // warp-uniform: the level is in the chunk
@@ -663,11 +689,20 @@ __device__ __forceinline__ void stage_block(const Stage& s,
 #pragma unroll
       for (int i = 0; i < kGroup; ++i) {
         if (on[i])
-          stage_row<kLimit, kMix, kKeep, kSkip>(
+          stage_row<kLimit, kMix, kKeep, kSkip, kCount>(
               t, tl, s, w[i], qv[i], mv[i], o[i],
-              static_cast<size_t>(n) * s.nlev + kw + (g + i) * kWarps, keep);
+              static_cast<size_t>(n) * s.nlev + kw + (g + i) * kWarps, keep,
+              &cnt);
         o[i] += step;
       }
+    }
+  }
+  if constexpr (kCount) {
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(counts, static_cast<unsigned long long>(cnt.full));
+      atomicAdd(counts + 1, static_cast<unsigned long long>(cnt.deficit));
+      atomicAdd(counts + 2, static_cast<unsigned long long>(cnt.skipped));
+      atomicAdd(counts + 3, static_cast<unsigned long long>(cnt.lanes / 4));
     }
   }
 }
@@ -685,6 +720,22 @@ tracer_kernel(Stage s, const float* __restrict__ dvv, int ncol, float rr) {
   stage_block<kLimit, kMix, kLimit ? kWarpsLimit : kWarpsEuler, false, kQBf,
               kMxBf>(s, dvv, ncol, rr, blockIdx.x * kTile, k0,
                      min(k0 + kLevels, s.nlev), 0, s.nq, tl);
+}
+
+// The counting twin of the limited stage tracer_kernel<true, kMix, kQBf,
+// kMxBf>: the same body, so the same bits, with each warp's limiter counts
+// added into counts[4] (stage_block). A separate instance, so that the one
+// the cadence runs is not touched; the wrapper launches it only while the
+// profiling counters are on.
+template <bool kMix, bool kQBf = false, bool kMxBf = false>
+__global__ void __launch_bounds__(32 * kWarpsLimit, kMinLimit)
+tracer_count_kernel(Stage s, const float* __restrict__ dvv, int ncol,
+                    float rr, unsigned long long* __restrict__ counts) {
+  __shared__ Tile tl;
+  const int k0 = blockIdx.y * kLevels;
+  stage_block<true, kMix, kWarpsLimit, false, kQBf, kMxBf, true>(
+      s, dvv, ncol, rr, blockIdx.x * kTile, k0, min(k0 + kLevels, s.nlev), 0,
+      s.nq, tl, counts);
 }
 
 // threads of a block of tracer_kernel<kLimit, *>
@@ -990,6 +1041,41 @@ dim3 stage_grid(int ncol, int nlev) {
   return dim3((ncol + kTile - 1) / kTile, (nlev + kLevels - 1) / kLevels);
 }
 
+// The limited stage's launch (tracer_limit_launch), or with counts its
+// counting twin's (tracer_limit_count_launch).
+int limit_launch(const void* meta, const void* dvv, const void* vu,
+                 const void* vv, const void* q, const void* mx, void* out,
+                 const void* fix_rank, void* slab, int nlev, int nq,
+                 int ncol, int ld, int wu, int wv, int iters, int bf16,
+                 float dt, float ca, float cb, float rrearth, void* stream,
+                 int device, void* counts) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (ld % 4 || bf16 < 0 || bf16 > 2 || (bf16 == 1 && mx) ||
+      (bf16 == 2 && !mx))
+    return cudaErrorInvalidValue;
+  const Stage s = make_stage(meta, vu, vv, q, mx, out, fix_rank, slab, nlev,
+                             nq, ld, wu, wv, 1, iters, dt, ca, cb);
+  const dim3 grid = stage_grid(ncol, nlev);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* d = static_cast<const float*>(dvv);
+  if (counts) {
+    auto* kernel = bf16 == 1   ? tracer_count_kernel<false, true>
+                   : bf16 == 2 ? tracer_count_kernel<true, false, true>
+                   : mx        ? tracer_count_kernel<true>
+                               : tracer_count_kernel<false>;
+    kernel<<<grid, stage_threads(true), 0, st>>>(
+        s, d, ncol, rrearth, static_cast<unsigned long long*>(counts));
+  } else {
+    auto* kernel = bf16 == 1   ? tracer_kernel<true, false, true>
+                   : bf16 == 2 ? tracer_kernel<true, true, false, true>
+                   : mx        ? tracer_kernel<true, true>
+                               : tracer_kernel<true, false>;
+    kernel<<<grid, stage_threads(true), 0, st>>>(s, d, ncol, rrearth);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1077,21 +1163,26 @@ int tracer_limit_launch(const void* meta, const void* dvv, const void* vu,
                         int nq, int ncol, int ld, int wu, int wv, int iters,
                         int bf16, float dt, float ca, float cb,
                         float rrearth, void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (ld % 4 || bf16 < 0 || bf16 > 2 || (bf16 == 1 && mx) ||
-      (bf16 == 2 && !mx))
-    return cudaErrorInvalidValue;
-  const Stage s = make_stage(meta, vu, vv, q, mx, out, fix_rank, slab, nlev,
-                             nq, ld, wu, wv, 1, iters, dt, ca, cb);
-  auto* kernel = bf16 == 1   ? tracer_kernel<true, false, true>
-                 : bf16 == 2 ? tracer_kernel<true, true, false, true>
-                 : mx        ? tracer_kernel<true, true>
-                             : tracer_kernel<true, false>;
-  kernel<<<stage_grid(ncol, nlev), stage_threads(true), 0,
-           static_cast<cudaStream_t>(stream)>>>(
-      s, static_cast<const float*>(dvv), ncol, rrearth);
-  return cudaGetLastError();
+  return limit_launch(meta, dvv, vu, vv, q, mx, out, fix_rank, slab, nlev,
+                      nq, ncol, ld, wu, wv, iters, bf16, dt, ca, cb, rrearth,
+                      stream, device, nullptr);
+}
+
+// tracer_limit_launch's counting twin: the same arguments and bits, and the
+// limiter's counts added into counts, four int64 on the device
+// (profiling.LIMITER_COUNTS: the warp-passes computed in full, those with a
+// deficit, the warp-passes skipped, the element-passes with a deficit).
+int tracer_limit_count_launch(const void* meta, const void* dvv,
+                              const void* vu, const void* vv, const void* q,
+                              const void* mx, void* out, const void* fix_rank,
+                              void* slab, int nlev, int nq, int ncol, int ld,
+                              int wu, int wv, int iters, int bf16, float dt,
+                              float ca, float cb, float rrearth, void* stream,
+                              int device, void* counts) {
+  if (counts == nullptr) return cudaErrorInvalidValue;
+  return limit_launch(meta, dvv, vu, vv, q, mx, out, fix_rank, slab, nlev,
+                      nq, ncol, ld, wu, wv, iters, bf16, dt, ca, cb, rrearth,
+                      stream, device, counts);
 }
 
 // The ring-fused Euler stage (sph folded in, with the slab) on `stream`: a

@@ -110,6 +110,7 @@ from ..kernels.ring_fused import (
 from ..kernels.tracer_t import (
     tracer_euler_cuda, tracer_euler_plain, tracer_limit_cuda,
     tracer_limit_plain)
+from ..profiling import span
 from ..state import Derived, State
 from ..timeloop.driver import rotated
 from ..timeloop.rk import B_WEIGHTS, third_stage_weights
@@ -295,17 +296,20 @@ def _ssprk3(produce, close, scal, meta, s0, qdp, pecnd, acc, dvv, plan, rsp,
     f = np.float32 if s0.dtype == torch.float32 else np.float64
 
     def stage(u, b, acc, emit_phi=False, mix=None):
-        sc = scal.clone()
-        sc[0, 1].mul_(b)
-        x, phi, *acc, slab = produce(
-            sc, meta, u, None, qdp, pecnd, *acc, dvv, rsp=rsp, fix=fix,
-            moist=moist, single=True, emit_phi=emit_phi, mix=mix)
-        return close(x, slab, fix, rsp, mix), phi, acc
+        with span("prim.dynamics.stage"):
+            sc = scal.clone()
+            sc[0, 1].mul_(b)
+            x, phi, *acc, slab = produce(
+                sc, meta, u, None, qdp, pecnd, *acc, dvv, rsp=rsp, fix=fix,
+                moist=moist, single=True, emit_phi=emit_phi, mix=mix)
+            return close(x, slab, fix, rsp, mix), phi, acc
 
-    u1, _, acc = stage(s0, B_WEIGHTS[0], acc)
-    u2, _, acc = stage(u1, B_WEIGHTS[1], acc, mix=(s0, f(0.75), f(0.25)))
-    u3, phi, acc = stage(u2, B_WEIGHTS[2], acc, emit_phi=True,
-                         mix=(s0, *third_stage_weights(f)))
+    with span("prim.dynamics"):
+        u1, _, acc = stage(s0, B_WEIGHTS[0], acc)
+        u2, _, acc = stage(u1, B_WEIGHTS[1], acc,
+                           mix=(s0, f(0.75), f(0.25)))
+        u3, phi, acc = stage(u2, B_WEIGHTS[2], acc, emit_phi=True,
+                             mix=(s0, *third_stage_weights(f)))
     return (u3, phi, *acc)
 
 
@@ -356,12 +360,14 @@ def _hypervis(vlap, dss_pre, dvv, meta, uvt, plan, rsp, nu, dt, nlev,
     step = f(dt) / f(subcycle) * f(nu)
 
     def lap_dss(x, mix=None):
-        lap, slab = vlap(meta, x, dvv, nlev, nu_ratio, fix=fix)
-        return dss_pre(lap, slab, fix, rsp, mix)
+        with span("prim.hypervis.pass"):
+            lap, slab = vlap(meta, x, dvv, nlev, nu_ratio, fix=fix)
+            return dss_pre(lap, slab, fix, rsp, mix)
 
     x = uvt
-    for _ in range(subcycle):
-        x = lap_dss(lap_dss(x), mix=(x, f(1.0), -step))
+    with span("prim.hypervis"):
+        for _ in range(subcycle):
+            x = lap_dss(lap_dss(x), mix=(x, f(1.0), -step))
     return x
 
 
@@ -414,21 +420,27 @@ def _ssprk3_tracer(euler, limiter, close, dvv, meta, vu, vv, qdp, plan, rsp,
     mixes = (None, (qdp, f(0.75), f(0.25)),
              (qdp, *third_stage_weights(f)))
     q = qdp
-    for mix in mixes:
-        if limit:
-            # the limiter is nonlinear: P(L(combination, bounds(q))), the
-            # combination inside the kernel and none in the sweep
-            e, slab = limiter(meta, vu, vv, q, dvv, dt, nlev, mix=mix,
-                              wind_rows=wind_rows, iters=limit_iters, fix=fix)
-        else:
-            # P is linear and P(qdp) = qdp: the combination rides the sweep
-            e, slab = euler(meta, vu, vv, q, dvv, dt, nlev, rsp=rsp, fix=fix,
-                            wind_rows=wind_rows, mix=mix)
-        # the stage input is read: let it go before the closer allocates,
-        # and the stage output after (a copy is 13.9 GB at ne120 x qsize 35)
-        del q
-        q = close(e, slab, fix, rsp, None if limit else mix)
-        del e, slab
+    with span("prim.tracers"):
+        for mix in mixes:
+            with span("prim.tracers.stage"):
+                if limit:
+                    # the limiter is nonlinear: P(L(combination,
+                    # bounds(q))), the combination inside the kernel and
+                    # none in the sweep
+                    e, slab = limiter(meta, vu, vv, q, dvv, dt, nlev,
+                                      mix=mix, wind_rows=wind_rows,
+                                      iters=limit_iters, fix=fix)
+                else:
+                    # P is linear and P(qdp) = qdp: the combination rides
+                    # the sweep
+                    e, slab = euler(meta, vu, vv, q, dvv, dt, nlev, rsp=rsp,
+                                    fix=fix, wind_rows=wind_rows, mix=mix)
+                # the stage input is read: let it go before the closer
+                # allocates, and the stage output after (a copy is 13.9 GB
+                # at ne120 x qsize 35)
+                del q
+                q = close(e, slab, fix, rsp, None if limit else mix)
+                del e, slab
     return q
 
 
@@ -540,23 +552,25 @@ def _prim_step(dynamics, hypervis, tracers, scal, meta, s0, qdp, pecnd, acc,
         raise ValueError(f"prim step: s0 needs {4 * nlev} rows and qdp a "
                          f"multiple of {nlev}, got {s0.shape[0]} and "
                          f"{qdp.shape[0]}")
-    if dt is None:
-        dt = float(scal[0, 0])                   # waits for the device
-    # the dynamics reads the moisture tracer: the first nlev rows, a view
-    s1, phi, *acc = dynamics(scal, meta, s0, qdp[:nlev], pecnd, *acc, dvv,
-                             plan, rsp, moist=moist)
-    if nu:
-        # the whole [4*nlev] buffer: the update lands in its (u, v, T) rows
-        s1 = hypervis(dvv, meta, s1, plan, rsp, nu, dt, nlev,
-                      nu_ratio=nu_ratio, subcycle=subcycle)
-    # the tracers ride the new winds, row blocks 0 (u) and 1 (v) of s1
-    nsub = max(qsplit, 1)
-    f = _np_float(s0.dtype)
-    dt_q = f(dt) / f(nsub)
-    for _ in range(nsub):
-        qdp = tracers(dvv, meta, s1, s1, qdp, plan, rsp, dt_q, nlev,
-                      limit=limit_tracers, wind_rows=(0, 1),
-                      limit_iters=limit_iters)
+    with span("prim.step"):
+        if dt is None:
+            dt = float(scal[0, 0])                   # waits for the device
+        # the dynamics reads the moisture tracer: the first nlev rows, a view
+        s1, phi, *acc = dynamics(scal, meta, s0, qdp[:nlev], pecnd, *acc,
+                                 dvv, plan, rsp, moist=moist)
+        if nu:
+            # the whole [4*nlev] buffer: the update lands in its (u, v, T)
+            # rows
+            s1 = hypervis(dvv, meta, s1, plan, rsp, nu, dt, nlev,
+                          nu_ratio=nu_ratio, subcycle=subcycle)
+        # the tracers ride the new winds, row blocks 0 (u) and 1 (v) of s1
+        nsub = max(qsplit, 1)
+        f = _np_float(s0.dtype)
+        dt_q = f(dt) / f(nsub)
+        for _ in range(nsub):
+            qdp = tracers(dvv, meta, s1, s1, qdp, plan, rsp, dt_q, nlev,
+                          limit=limit_tracers, wind_rows=(0, 1),
+                          limit_iters=limit_iters)
     return (s1, qdp, phi, *acc)
 
 
@@ -627,10 +641,20 @@ def _check_remap(s, qdp, nelem: int, nlev: int, qsize: int):
 def _fix_mass(s_new, q_new, nlev: int, sph_lanes, mass_target):
     """The global dry-mass fixer, in place on a remap's outputs."""
     if sph_lanes is not None and mass_target is not None:
-        r = mass_target / packed_air_mass(s_new, sph_lanes, nlev)
-        s_new[3 * nlev:] *= r
-        q_new *= r
+        with span("remap.fixer"):
+            r = mass_target / packed_air_mass(s_new, sph_lanes, nlev)
+            s_new[3 * nlev:] *= r
+            q_new *= r
     return s_new, q_new
+
+
+def _remap(remap, s, qdp, hv, nlev, qsize, scheme, sph_lanes, mass_target):
+    """``remap`` (the kernel's wrapper or the plain remap), then the
+    fixer."""
+    with span("remap"):
+        with span("remap.kernel"):
+            s, qdp = remap(s, qdp, hv, nlev, qsize, scheme)
+        return _fix_mass(s, qdp, nlev, sph_lanes, mass_target)
 
 
 def remap_packed_t4(s: torch.Tensor, qdp: torch.Tensor, hv: HybridVCoord,
@@ -653,8 +677,8 @@ def remap_packed_t4(s: torch.Tensor, qdp: torch.Tensor, hv: HybridVCoord,
     if s.device.type == "cpu":
         return remap_packed_t4_plain(s, qdp, hv, nelem, nlev, qsize, scheme,
                                      sph_lanes, mass_target)
-    return _fix_mass(*remap_packed_cuda(s, qdp, hv, nlev, qsize, scheme),
-                     nlev, sph_lanes, mass_target)
+    return _remap(remap_packed_cuda, s, qdp, hv, nlev, qsize, scheme,
+                  sph_lanes, mass_target)
 
 
 def remap_packed_t4_plain(s: torch.Tensor, qdp: torch.Tensor,
@@ -664,8 +688,8 @@ def remap_packed_t4_plain(s: torch.Tensor, qdp: torch.Tensor,
     """``remap_packed_t4`` by the dense plain remap on any device (hv may
     have another dtype than s); the fixer as there."""
     _check_remap(s, qdp, nelem, nlev, qsize)
-    return _fix_mass(*remap_packed_plain(s, qdp, hv, nlev, qsize, scheme),
-                     nlev, sph_lanes, mass_target)
+    return _remap(remap_packed_plain, s, qdp, hv, nlev, qsize, scheme,
+                  sph_lanes, mass_target)
 
 
 def _rsp_row(geom: Geometry, dtype) -> torch.Tensor:

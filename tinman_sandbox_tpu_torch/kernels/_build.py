@@ -158,6 +158,8 @@ _SIGNATURES = {
     "tracer": {
         "tracer_euler_launch": [_P] * 8 + [_I] * 8 + [_F, _F, _P, _I],
         "tracer_limit_launch": [_P] * 9 + [_I] * 8 + [_F] * 4 + [_P, _I],
+        "tracer_limit_count_launch": [_P] * 9 + [_I] * 8 + [_F] * 4
+        + [_P, _I, _P],
         "tracer_row_launch": [_P] * 6 + [_I] * 5 + [_F] * 2 + [_P, _I],
         "tracer_ring_launch": [_P] * 12 + [_I] * 12 + [_F] * 4 + [_P, _I],
         "tracer_blocks_per_sm": [_I, _I],

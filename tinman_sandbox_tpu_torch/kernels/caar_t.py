@@ -82,6 +82,7 @@ from ..constants import CONSTANTS
 from ..device import resolve_device
 from ..grid import Geometry, HybridVCoord, dvv_matrix
 from ..ops.sphere import full_precision_matmuls
+from ..profiling import launch_span
 from ..state import Derived, State, uniform
 from . import _build
 from .layout import META_COLS, pack_field_t, pack_meta_t, unpack_field_t
@@ -634,6 +635,7 @@ def _count_t4(slab, single, pecnd):
     caar_t4_cuda.storage_launches += pecnd.dtype == _BF16
 
 
+@launch_span
 def caar_t4_cuda(scal, meta, s0, sm1, qdp, pecnd, vn0u, vn0v, omg, dvv,
                  moist: bool = True, fix=None, single: bool = False,
                  emit_phi: bool = True):

@@ -91,6 +91,7 @@ import numpy as np
 import torch
 
 from ..config import NP, NPSQ
+from ..profiling import launch_span
 from . import _build
 
 __all__ = ["FixTables", "fix_tables", "make_fix_tables", "dss_extract_plain",
@@ -490,6 +491,7 @@ def dss_extract_cuda(x: torch.Tensor, tables: FixTables) -> torch.Tensor:
 dss_extract_cuda.launches = 0
 
 
+@launch_span
 def dss_fixup_cuda(slab: torch.Tensor, tables: FixTables,
                    rsp: torch.Tensor) -> torch.Tensor:
     """vd [k, nfix] from slab [nsrc, k] (kernel ``dss_fixup``): the
@@ -577,6 +579,7 @@ def _sweep(name, x, rsp, vd, tables, mix):
     return out, True
 
 
+@launch_span
 def dss_sweep_cuda(x: torch.Tensor, rsp: torch.Tensor, vd: torch.Tensor,
                    tables: FixTables, mix=None) -> torch.Tensor:
     """The assembled field [k, E16] from x, rsp and the vals buffer vd

@@ -32,6 +32,7 @@ import torch
 from ..config import NPSQ
 from ..constants import CONSTANTS
 from ..ops.sphere import full_precision_matmuls
+from ..profiling import launch_span
 from . import _build
 from .layout import META_COLS
 
@@ -138,6 +139,7 @@ def _check(meta, x, dvv, nlev):
     return dev
 
 
+@launch_span
 def vlap_cuda(meta, x, dvv, nlev: int, nu_ratio=1.0, fix=None):
     """Weak (vlaplace_u, vlaplace_v, laplace_T) of the (u, v, T) rows of the
     stacked field x [>= 3*nlev, E16] (counterpart of

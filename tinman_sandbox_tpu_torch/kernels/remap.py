@@ -30,6 +30,7 @@ import torch
 
 from ..ops.remap import (
     _match_column_total, comp_sum, reference_dp, remap_levels_plain)
+from ..profiling import launch_span
 from . import _build
 
 __all__ = ["SCHEMES", "remap_plan", "remap_packed_plain",
@@ -116,6 +117,7 @@ def _count(wrapper, dtype):
         wrapper.f64_launches += 1
 
 
+@launch_span
 def remap_packed_cuda(s: torch.Tensor, qdp: torch.Tensor, hv, nlev: int,
                       qsize: int, scheme: str = "plm"):
     """The packed remap (no fixer) of s [4*nlev, C] and qdp [qsize*nlev, C]

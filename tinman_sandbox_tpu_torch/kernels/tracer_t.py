@@ -73,6 +73,7 @@ import torch
 from ..config import NPSQ
 from ..constants import CONSTANTS
 from ..ops.sphere import full_precision_matmuls
+from ..profiling import launch_span, limiter_counts
 from . import _build
 from .layout import META_COLS
 
@@ -137,12 +138,27 @@ def tracer_euler_plain(meta, vu, vv, q, dvv, dt, nlev: int,
     return _with_slab(sph * adv if fold_sph else adv, fix)
 
 
+def _count_passes(counts, d):
+    """Add one limiter pass's ``profiling.LIMITER_COUNTS`` into ``counts``
+    from its deficits d [rows, nel], as the kernel without skips counts
+    them: a warp takes the 8 elements of a row in a 128-lane tile."""
+    has = d != 0
+    warps = torch.nn.functional.pad(has, (0, -has.shape[1] % 8)).view(
+        has.shape[0], -1, 8).any(2)
+    counts[0] += warps.numel()
+    counts[1] += warps.sum()
+    counts[3] += has.sum()
+
+
 def _limit_lanes_plain(y, q_in, w, iters: int):
     """``_limit_lanes`` of the JAX package as its interpret mode computes
-    it: y, q_in [rows, E16]; w [E16]. Group = the 16 lanes of an element."""
+    it: y, q_in [rows, E16]; w [E16]. Group = the 16 lanes of an element.
+    While counters are on (``profiling.limiter_counts``) each pass's counts
+    are added in."""
     rows, e16 = y.shape
     nel = e16 // NPSQ
     tiny = torch.finfo(y.dtype).tiny
+    counts = limiter_counts(y.device)
 
     def gsum(x):
         return x.reshape(-1, nel, NPSQ).sum(2)
@@ -158,6 +174,8 @@ def _limit_lanes_plain(y, q_in, w, iters: int):
     for _ in range(iters):
         yc = torch.minimum(torch.maximum(y, qminb), qmaxb)
         d = gsum(w * (y - yc)) + carry
+        if counts is not None:
+            _count_passes(counts, d)
         pos = d > 0
         posb = lanes(pos)
         room = torch.where(posb, qmaxb - yc, yc - qminb)
@@ -268,6 +286,7 @@ def _new_slab(name, fix, q, dtype):
                                         device=q.device)
 
 
+@launch_span
 def tracer_euler_cuda(meta, vu, vv, q, dvv, dt, nlev: int,
                       fold_sph: bool = True, wind_rows=(0, 0), fix=None):
     """spheremp * (q - dt*div(v*q)) for the stacked [qsize*nlev, E16] tracer
@@ -312,6 +331,7 @@ tracer_euler_cuda.slab_launches = 0   # the launches among them with a slab
 tracer_euler_cuda.storage_launches = 0   # and those with a bf16 q
 
 
+@launch_span
 def tracer_limit_cuda(meta, vu, vv, q, dvv, dt, nlev: int, mix=None,
                       wind_rows=(0, 0), iters: int = 2, fix=None):
     """One fused LIMITED tracer stage (counterpart of
@@ -321,7 +341,9 @@ def tracer_limit_cuda(meta, vu, vv, q, dvv, dt, nlev: int, mix=None,
     Operands as ``tracer_euler_cuda``, but that q may be bf16 only without
     ``mix``, and mx bf16 beside a q of the winds' dtype; ``iters`` >= 0
     clip-and-redistribute passes (1 conserves but may leave the bounds; 0
-    runs only the final residual pass, as the JAX kernel does). Returns out
+    runs only the final residual pass, as the JAX kernel does). While
+    counters are on (``profiling.limiter_counts``) the kernel's counting
+    twin runs in its place and adds the limiter's counts in. Returns out
     [qsize*nlev, E16], and with ``fix`` also the slab [nfix, qsize*nlev]."""
     mx, ca, cb = _mix_of("tracer_limit", q, mix)
     if iters < 0:
@@ -340,13 +362,20 @@ def tracer_limit_cuda(meta, vu, vv, q, dvv, dt, nlev: int, mix=None,
                    mx=mx, vu=(vu, wind_rows[0] * nlev * e16),
                    vv=(vv, wind_rows[1] * nlev * e16),
                    fix_rank=None if fix is None else fix.fix_rank)
-    err = _build.library("tracer").tracer_limit_launch(
-        meta.data_ptr(), dvv.data_ptr(), vu.data_ptr(), vv.data_ptr(),
-        q.data_ptr(), 0 if mx is None else mx.data_ptr(), out.data_ptr(),
-        rank, 0 if slab is None else slab.data_ptr(), nlev,
-        q.shape[0] // nlev, e16, e16, wind_rows[0], wind_rows[1], int(iters),
-        bf16, float(dt), ca, cb, CONSTANTS.rrearth,
-        torch.cuda.current_stream(dev).cuda_stream, dev.index)
+    args = (meta.data_ptr(), dvv.data_ptr(), vu.data_ptr(), vv.data_ptr(),
+            q.data_ptr(), 0 if mx is None else mx.data_ptr(), out.data_ptr(),
+            rank, 0 if slab is None else slab.data_ptr(), nlev,
+            q.shape[0] // nlev, e16, e16, wind_rows[0], wind_rows[1],
+            int(iters), bf16, float(dt), ca, cb, CONSTANTS.rrearth,
+            torch.cuda.current_stream(dev).cuda_stream, dev.index)
+    lib = _build.library("tracer")
+    counts = limiter_counts(dev)
+    if counts is None:
+        err = lib.tracer_limit_launch(*args)
+    else:
+        # the counting twin of the same instance: the same bits
+        err = lib.tracer_limit_count_launch(*args, counts.data_ptr())
+        tracer_limit_cuda.count_launches += 1
     _build.check_launch("tracer", err)
     tracer_limit_cuda.launches += 1
     tracer_limit_cuda.storage_launches += bf16 > 0
@@ -359,6 +388,7 @@ def tracer_limit_cuda(meta, vu, vv, q, dvv, dt, nlev: int, mix=None,
 tracer_limit_cuda.launches = 0
 tracer_limit_cuda.slab_launches = 0   # the launches among them with a slab
 tracer_limit_cuda.storage_launches = 0   # and those with a bf16 q or mx
+tracer_limit_cuda.count_launches = 0   # and those of the counting twin
 
 
 # -- the kernels' walk and arithmetic on the CPU ------------------------------

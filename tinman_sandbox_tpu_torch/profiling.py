@@ -27,11 +27,30 @@ card, CUDA activities) that writes a Chrome trace to ``trace_path(logdir)``;
 the kernel, memcpy and memset intervals), the window (the start of the
 scope's body to the end of its final synchronisation), their ratio and the
 longest device operations.
+
+Spans and counters on the cadence path. ``span(name)`` marks a layer
+boundary of the packed cadence (``dist/step_t.py``'s phases and stages,
+``launch.<wrapper>`` around each kernel wrapper's host work, see
+``launch_span``). Off, the default, it costs one test of a module-level
+flag and returns one shared no-op context. ``record_spans`` turns them on
+and yields a ``SpanRecorder``: each span's name, parent, step id and start
+and end on ``time.perf_counter_ns``, and by name the calls, total and self
+time (the duration less what child spans cover). With ``profiler=True``
+each span also opens ``torch.profiler.record_function(name)``, so that it
+sits in a profiler's Chrome trace beside the device operations it
+launched; with ``counters=True`` the limited tracer stage counts its
+limiter passes (``limiter_counts``):
+
+    with record_spans() as rec:
+        s, qdp, phi, *acc = prim_step_packed_t4(...)
+    for name, (calls, total_ns, self_ns) in rec.stats().items(): ...
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
+import functools
 import hashlib
 import json
 import os
@@ -45,7 +64,9 @@ import torch
 from .device import resolve_device
 
 __all__ = ["Timers", "trace", "trace_path", "busy_share", "native_library",
-           "TRACE_WINDOW", "stage_time", "GRAPH_MEMORY_SHARE", "STAGE_REPS"]
+           "TRACE_WINDOW", "stage_time", "GRAPH_MEMORY_SHARE", "STAGE_REPS",
+           "span", "launch_span", "record_spans", "SpanRecorder",
+           "SpanRecord", "STEP_SPAN", "limiter_counts", "LIMITER_COUNTS"]
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_REPO, "native", "timing", "tinman_timing.cpp")
@@ -409,3 +430,176 @@ def busy_share(path: str, top: int = 5) -> dict:
             "busy_share": busy / window if window > 0 else 0.0,
             "kernels": {n: r[1] for n, r in by_name.items()},
             "top": [[n, r[0] * 1e-6, r[1]] for n, r in ranked]}
+
+
+# -- spans and counters on the cadence path ----------------------------------
+
+# the span that opens a model step: spans take the id of the last step opened
+STEP_SPAN = "prim.step"
+# the limited tracer stage's counts, in the order of its device buffer: the
+# limiter passes a warp computed in full (a warp takes the 8 elements of one
+# row that make a 128-lane tile), those among them in which some element of
+# the warp had a deficit (d != 0: mass clipped off, or carried from the pass
+# before), the passes a warp skipped because none of its elements had one
+# (the bf16 q instance), and the element passes with a deficit
+LIMITER_COUNTS = ("warp_passes", "warp_passes_with_deficit",
+                  "warp_passes_skipped", "element_passes_with_deficit")
+
+SpanRecord = collections.namedtuple("SpanRecord",
+                                    "name parent step start_ns end_ns")
+SpanRecord.__doc__ = """One span: ``parent`` the index of the enclosing
+span's record (None at the top), ``step`` the id of the last ``STEP_SPAN``
+opened (-1 before the first), times on ``time.perf_counter_ns`` (``end_ns``
+None while the span is open)."""
+
+
+class _Off:
+    """The one context every span returns while spans are off."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+# the recorder of the open ``record_spans`` scope; None: spans are off
+_recorder = None
+
+
+class SpanRecorder:
+    """What a ``record_spans`` scope keeps: ``records`` (``SpanRecord``, in
+    the order the spans opened), ``stats()`` by span name, and with
+    ``counters`` the limited tracer stage's counts (``limiter()``)."""
+
+    def __init__(self, profiler: bool, counters: bool):
+        self.profiler, self.counters = profiler, counters
+        self._recs = []          # [name, parent, step, start_ns, end_ns]
+        self._stack = []         # indices of the open spans
+        self._step = -1
+        self._counts = {}        # device -> int64 [len(LIMITER_COUNTS)]
+        if profiler:
+            from torch.profiler import record_function
+            self._record_function = record_function
+
+    @property
+    def records(self) -> list:
+        return [SpanRecord(*r) for r in self._recs]
+
+    def stats(self) -> dict:
+        """{name: (calls, total_ns, self_ns)} over the closed spans, names in
+        the order they first opened; self time is the duration less the
+        part of it that the span's children cover."""
+        covered = [0] * len(self._recs)
+        for _, parent, _, t0, t1 in self._recs:
+            if parent is not None and t1 is not None:
+                covered[parent] += t1 - t0
+        out = {}
+        for (name, _, _, t0, t1), child in zip(self._recs, covered):
+            if t1 is not None:
+                calls, total, own = out.get(name, (0, 0, 0))
+                out[name] = (calls + 1, total + t1 - t0,
+                             own + t1 - t0 - child)
+        return out
+
+    def limiter(self) -> dict:
+        """The counts of ``LIMITER_COUNTS`` summed over the devices; reads
+        each device's buffer (waits for the device)."""
+        tot = [0] * len(LIMITER_COUNTS)
+        for buf in self._counts.values():
+            tot = [a + b for a, b in zip(tot, buf.tolist())]
+        return dict(zip(LIMITER_COUNTS, tot))
+
+
+class _Span:
+    """A span while spans are on: a record opened at enter and closed at
+    exit, inside ``record_function(name)`` with the recorder's
+    ``profiler``."""
+    __slots__ = ("_rec", "_name", "_index", "_fn")
+
+    def __init__(self, rec: SpanRecorder, name: str):
+        self._rec, self._name, self._fn = rec, name, None
+
+    def __enter__(self):
+        rec = self._rec
+        if rec.profiler:
+            self._fn = rec._record_function(self._name)
+            self._fn.__enter__()
+        if self._name == STEP_SPAN:
+            rec._step += 1
+        stack = rec._stack
+        self._index = len(rec._recs)
+        rec._recs.append([self._name, stack[-1] if stack else None,
+                          rec._step, time.perf_counter_ns(), None])
+        stack.append(self._index)
+        return None
+
+    def __exit__(self, *exc):
+        t = time.perf_counter_ns()
+        rec = self._rec
+        rec._recs[self._index][4] = t
+        rec._stack.pop()
+        if self._fn is not None:
+            self._fn.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """The span ``name`` (a fixed string: a stage's order is in its record)
+    as a context manager: a record while ``record_spans`` is open, else the
+    shared no-op context."""
+    if _recorder is None:
+        return _OFF
+    return _Span(_recorder, name)
+
+
+def launch_span(fn):
+    """Decorate a kernel wrapper: its calls run inside the span
+    ``launch.<name>`` while spans are on (the host's work of one launch:
+    checks, allocations, the launch)."""
+    name = "launch." + fn.__name__
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if _recorder is None:
+            return fn(*args, **kwargs)
+        with _Span(_recorder, name):
+            return fn(*args, **kwargs)
+
+    return wrapper
+
+
+@contextlib.contextmanager
+def record_spans(profiler: bool = False, counters: bool = False):
+    """Turn the spans on for the scope and yield its ``SpanRecorder``. With
+    ``profiler`` each span also opens ``torch.profiler.record_function``
+    (for a profiler's trace); with ``counters`` the limited tracer stage
+    adds its ``LIMITER_COUNTS`` into the recorder (``limiter_counts``: on
+    the card a counting twin of the stage's kernel, the same bits). One
+    scope at a time."""
+    global _recorder
+    if _recorder is not None:
+        raise RuntimeError("record_spans: spans are already being recorded")
+    rec = SpanRecorder(profiler, counters)
+    _recorder = rec
+    try:
+        yield rec
+    finally:
+        _recorder = None
+
+
+def limiter_counts(device) -> Optional[torch.Tensor]:
+    """While ``record_spans(counters=True)`` is open, the int64 buffer of
+    ``LIMITER_COUNTS`` on ``device`` (zero when first asked for) into which
+    a limited tracer stage adds its counts; else None."""
+    rec = _recorder
+    if rec is None or not rec.counters:
+        return None
+    dev = torch.device(device)
+    buf = rec._counts.get(dev)
+    if buf is None:
+        buf = rec._counts[dev] = torch.zeros(
+            len(LIMITER_COUNTS), dtype=torch.int64, device=dev)
+    return buf
