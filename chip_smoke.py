@@ -243,20 +243,28 @@ NVIDIA card and check it, phase by phase:
      the plain float32 code (both printed), every column's totals of x*dp
      and of qdp within 1e-6 of its sum |x|*dp (the plain code's figure
      beside it), and the float64 instances (packed and level form) within
-     1e-12 scaled of the plain float64 code; the remap's time by events
-     and from a CUDA graph beside the dense plain code's, its plan (shared
-     memory a block against ``remap_plan``, blocks an SM), its peak memory,
-     its launches a call (``torch.profiler``) and share of the cadence; the
-     same gates at qsize 35 (E3SM's tracers, each gated on its own) on the
-     cadence's input after rsplit steps (``cadence_input``), with the
-     kernel's time, bound, blocks an SM and registers;
+     1e-12 scaled of the plain float64 code; the fixer folded into the
+     kernel (``remap_packed_t4`` with the fixer) bit for bit the kernel
+     without it followed by ``_fix_mass``, in float32 and float64, pcm,
+     plm and ppm (``fixer_fold_bits``); the remap's time by events and
+     from a CUDA graph beside the dense plain code's, with the fixer
+     folded beside the kernel then ``_fix_mass``, its plan (shared memory
+     a block against ``remap_plan``, blocks an SM), its peak memory, its
+     launches a call (``torch.profiler``; exactly 1 without the fixer, 4
+     with it folded, 6 for the kernel then ``_fix_mass``) and share of the
+     cadence; the same gates and the fold at qsize 35 (E3SM's tracers,
+     each gated on its own) on the cadence's input after rsplit steps
+     (``cadence_input``), with the kernel's time alone and with the fixer
+     both ways, bound, blocks an SM and the registers of the three f32
+     instances on the cadence's path;
      the example as a user runs it, and from one checkpoint of its start 6
      steps at once against 3 steps, a ``--checkpoint`` restart and 3 more,
      bit for bit equal; ``tools.energy_drift`` (float64, the field form:
      the level-form remap kernel); the CLI ``--ne 30 --prim --diag`` from
      one checkpoint run 3 steps at once and as 2 steps, ``--checkpoint``,
      ``--restore`` and 1 step, bit for bit equal; the remap kernel launched
-     in float32 and in float64 on the path;
+     in float32 and in float64 on the path, with the fixer folded
+     (``remap_packed_cuda.fixer_launches``);
  22. the element-sharded tiers at ne30 x 72, f32, over LocalMesh(8) (675
      elements a shard), launch counts set to 0 just before and read just
      after: from one projected random start the psum halo, ppermute,
@@ -4225,22 +4233,34 @@ def ptxas_report(source: str, tag: str) -> list:
     return [(i, "; ".join(r)) for i, r in found.items()]
 
 
+# the remap kernel's f32 instances on the cadence's path, by their mangled
+# names: plm packed without the fixer, the fixer's dp rows (the pcm
+# instance), plm packed scaled by the fixer's ratio
+REMAP_INSTANCES = {
+    "remap_kernel<float, 1, true, 0>": "remap_kernelIfLi1ELb1ELi0E",
+    "remap_kernel<float, 0, true, 1>": "remap_kernelIfLi0ELb1ELi1E",
+    "remap_kernel<float, 1, true, 2>": "remap_kernelIfLi1ELb1ELi2E"}
+
+
 def remap_ptxas() -> str:
-    """Registers and spills of the remap kernel's f32 plm packed instance
-    (remap_kernel<float, 1, true>), from nvcc's report of the build."""
+    """Registers and spills of the remap kernel's f32 instances on the
+    cadence's path (``REMAP_INSTANCES``), from nvcc's report of the
+    build."""
     from tinman_sandbox_tpu_torch.kernels import _build
 
-    found, inst = [], False
+    found, inst = {}, None
     with open(_build.ptxas_log("remap")) as f:
         for ln in f:
             if "Compiling entry function" in ln:
-                inst = "remap_kernelIfLi1ELb1E" in ln
+                inst = next((n for n, m in REMAP_INSTANCES.items()
+                             if m in ln), None)
             elif inst and ("registers" in ln or "spill" in ln):
-                found.append(ln.split(":", 1)[-1].strip())
-    if not found:
-        raise AssertionError("no ptxas report for remap_kernel<float, 1, "
-                             "true>")
-    return "; ".join(found)
+                found.setdefault(inst, []).append(
+                    ln.split(":", 1)[-1].strip())
+    if set(found) != set(REMAP_INSTANCES):
+        raise AssertionError(f"no ptxas report for "
+                             f"{sorted(set(REMAP_INSTANCES) - set(found))}")
+    return "; ".join(f"{n}: {', '.join(r)}" for n, r in found.items())
 
 
 def probe_ptxas(plan) -> str:
@@ -4397,12 +4417,15 @@ def phase_probe_path(dev):
 def uncounted(*wrappers):
     """Launches of ``wrappers`` inside the block are not counted: a kernel
     held against its plain version or timed is not the main path's run."""
-    saved = [(w.launches, w.f64_launches) for w in wrappers]
+    saved = [(w.launches, w.f64_launches, getattr(w, "fixer_launches", 0))
+             for w in wrappers]
     try:
         yield
     finally:
-        for w, (n, n64) in zip(wrappers, saved):
+        for w, (n, n64, nfix) in zip(wrappers, saved):
             w.launches, w.f64_launches = n, n64
+            if hasattr(w, "fixer_launches"):
+                w.fixer_launches = nfix
 
 
 def kernel_launches(fn):
@@ -4564,6 +4587,50 @@ def remap_gates(dev, prob, pre, mass0, qsize: int = 1, f64: bool = True):
                 f64_levels_scaled_err=f64_levels)
 
 
+def fixer_fold_bits(prob, pre, mass0, qsize: int) -> dict:
+    """Phase 21's check of the dry-mass fixer folded into the remap
+    kernel: ``remap_packed_t4`` with the fixer (the dp-only launch, the air
+    mass, the scaled launch) bit for bit the parent's path, written out
+    here as ``remap_packed_cuda`` without the fixer and then ``_fix_mass``,
+    on a remap's input ``pre`` with ``qsize`` tracers, in float32 and
+    float64 for pcm, plm and ppm; raises on any differing bit. Returns the
+    values compared, by dtype."""
+    import torch
+
+    from tinman_sandbox_tpu_torch.dist import remap_packed_t4
+    from tinman_sandbox_tpu_torch.dist.step_t import _fix_mass
+    from tinman_sandbox_tpu_torch.kernels.remap import remap_packed_cuda
+
+    k, nelem = NLEV, prob["cfg"].nelem
+    bits = lambda x: x.view(torch.int64 if x.dtype == torch.float64
+                            else torch.int32)
+    compared = {}
+    for dtype in (torch.float32, torch.float64):
+        s, q = (x.to(dtype) for x in pre)
+        hv = prob["hv"].to(dtype=dtype)
+        sph, target = prob["sph_lanes"].to(dtype), mass0.to(dtype)
+        for scheme in ("pcm", "plm", "ppm"):
+            want = _fix_mass(*remap_packed_cuda(s, q, hv, k, qsize, scheme),
+                             k, sph, target)
+            got = remap_packed_t4(s, q, hv, nelem, k, qsize, scheme, sph,
+                                  target)
+            diff = [int((bits(a) != bits(b)).sum())
+                    for a, b in zip(got, want)]
+            print(f"phase 21 fixer fold qsize {qsize} {dtype} {scheme}: "
+                  f"values that differ from the kernel then _fix_mass: "
+                  f"state {diff[0]}, tracers {diff[1]} (of "
+                  f"{got[0].numel()}, {got[1].numel()})")
+            if any(diff):
+                raise AssertionError(f"fixer fold qsize {qsize} {dtype} "
+                                     f"{scheme}: {diff} values differ")
+            compared[str(dtype)] = compared.get(str(dtype), 0) \
+                + got[0].numel() + got[1].numel()
+            del want, got
+        del s, q
+        torch.cuda.empty_cache()
+    return compared
+
+
 def phase_remap_cadence(dev, cs):
     """Phase 21: the packed remap cadence at ne30 x 72, qsize 1 (the
     ``examples.packed_cadence`` problem and loop), kernels against plain,
@@ -4581,6 +4648,7 @@ def phase_remap_cadence(dev, cs):
     from tinman_sandbox_tpu_torch.dist import (
         continuity_error_t, packed_air_mass, prim_step_packed_t4,
         prim_step_packed_t4_plain, remap_packed_t4, remap_packed_t4_plain)
+    from tinman_sandbox_tpu_torch.dist.step_t import _fix_mass
     from tinman_sandbox_tpu_torch.examples import packed_cadence
     from tinman_sandbox_tpu_torch.kernels import _build
     from tinman_sandbox_tpu_torch.kernels.remap import (
@@ -4685,15 +4753,19 @@ def phase_remap_cadence(dev, cs):
     wrappers = (remap_packed_cuda, remap_levels_cuda)
     with uncounted(*wrappers):
         gates = remap_gates(dev, prob, pre, mass0)
+        fold = {1: fixer_fold_bits(prob, pre, mass0, 1)}
         ks_, kq_ = pre
         hv, nelem, k = prob["hv"], cfg.nelem, NLEV
         kernel = lambda: remap_packed_cuda(ks_, kq_, hv, k, 1)
         plain = lambda: remap_packed_plain(ks_, kq_, hv, k, 1)
         user = lambda: remap(ks_, kq_)
+        # the fixer as a pass after the kernel (the path before the fold)
+        unfolded = lambda: _fix_mass(*kernel(), k, sph, mass0)
         user_plain = lambda: remap_packed_t4_plain(
             ks_, kq_, hv, nelem, k, 1, sph_lanes=sph, mass_target=mass0)
         k_ms, k_graph = cuda_ms(kernel, 50), graph_ms(kernel, 50)
         u_ms, u_graph = cuda_ms(user, 50), graph_ms(user, 50)
+        uf_ms, uf_graph = cuda_ms(unfolded, 50), graph_ms(unfolded, 50)
         p_ms, up_ms = cuda_ms(plain, 3), cuda_ms(user_plain, 3)
         peaks = {}
         for name, fn in (("remap_packed_t4", user),
@@ -4707,7 +4779,17 @@ def phase_remap_cadence(dev, cs):
             peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
         launches = {name: kernel_launches(fn) for name, fn in (
             ("remap_packed_cuda", kernel), ("remap_packed_t4", user),
+            ("remap_packed_cuda then _fix_mass", unfolded),
             ("remap_packed_t4_plain", user_plain))}
+        # exact: one launch without the fixer; with it the dp-only launch,
+        # the air mass's product and sum, the scaled launch (the fixer as a
+        # pass after the kernel took 6: its product, sum, division and two
+        # scales)
+        want = {"remap_packed_cuda": 1, "remap_packed_t4": 4,
+                "remap_packed_cuda then _fix_mass": 6}
+        if any(launches[n] != v for n, v in want.items()):
+            raise AssertionError(f"remap launches a call {launches}, "
+                                 f"expected {want}")
         acc = tuple(a.clone() for a in kacc)
         step_ms = cuda_ms(lambda: step(prim_step_packed_t4, ks, kq, acc), 10)
         share = u_ms / (rsplit * step_ms + u_ms)
@@ -4756,17 +4838,18 @@ def phase_remap_cadence(dev, cs):
     ncol = ks_.shape[1]
     nbytes = 2 * 5 * NLEV * ncol * 4 + 2 * (NLEV + 1) * 4
     bnd, by = bound_ms(nbytes, REMAP_OPS_PER_POINT * 4 * NLEV * ncol)
-    # the fixer: packed_air_mass reads the dp rows and spheremp, the two
-    # scales read and write the dp and tracer rows
-    fix_bytes = (NLEV + 1) * ncol * 4 + 2 * 2 * NLEV * ncol * 4
+    # the fixer folded: the dp-only launch reads and writes the dp rows,
+    # packed_air_mass reads them and spheremp
+    fix_bytes = 2 * NLEV * ncol * 4 + (NLEV + 1) * ncol * 4
     bnd_user = bnd + fix_bytes / HBM_BYTES_PER_S * 1e3
     print(f"phase 21 remap kernel ne{cs.ne}x{NLEV} qsize 1 f32 plm "
           f"(remap_packed_cuda, {nbytes} B): {k_ms:.4f} ms (graph "
           f"{k_graph:.4f}), bound {bnd:.4f} ms ({by}); dense plain "
           f"(remap_packed_plain) {p_ms:.3f} ms, {p_ms / k_ms:.0f}x; "
-          f"remap_packed_t4 with the fixer {u_ms:.4f} ms (graph "
-          f"{u_graph:.4f}; bound {bnd_user:.4f}) against the plain "
-          f"{up_ms:.3f} ms; peak above the inputs "
+          f"remap_packed_t4 with the fixer folded {u_ms:.4f} ms (graph "
+          f"{u_graph:.4f}; bound {bnd_user:.4f}), the kernel then "
+          f"_fix_mass {uf_ms:.4f} ms (graph {uf_graph:.4f}), against the "
+          f"plain {up_ms:.3f} ms; peak above the inputs "
           + ", ".join(f"{n} {v:.1f} MiB" for n, v in peaks.items())
           + "; launches a call " + ", ".join(
               f"{n} {'not measured' if v is None else v}"
@@ -4786,18 +4869,35 @@ def phase_remap_cadence(dev, cs):
     with uncounted(*wrappers):
         gates35 = remap_gates(dev, prob35, (s35, q35), mass35, QSIZE_TALL,
                               f64=False)
-        kernel35 = lambda: remap_packed_cuda(s35, q35, prob35["hv"], NLEV,
+        fold[QSIZE_TALL] = fixer_fold_bits(prob35, (s35, q35), mass35,
+                                           QSIZE_TALL)
+        hv35, sph35 = prob35["hv"], prob35["sph_lanes"]
+        kernel35 = lambda: remap_packed_cuda(s35, q35, hv35, NLEV,
                                              QSIZE_TALL)
+        user35 = lambda: remap_packed_t4(
+            s35, q35, hv35, prob35["cfg"].nelem, NLEV, QSIZE_TALL,
+            sph_lanes=sph35,
+            mass_target=mass35)
+        unfolded35 = lambda: _fix_mass(*kernel35(), NLEV, sph35, mass35)
         k35_ms, k35_graph = cuda_ms(kernel35, 20), graph_ms(kernel35, 20)
+        u35_ms, u35_graph = cuda_ms(user35, 20), graph_ms(user35, 20)
+        uf35_ms, uf35_graph = (cuda_ms(unfolded35, 20),
+                               graph_ms(unfolded35, 20))
     nbytes35 = 2 * (4 + QSIZE_TALL) * NLEV * ncol * 4 + 2 * (NLEV + 1) * 4
     bnd35, by35 = bound_ms(nbytes35, REMAP_OPS_PER_POINT
                            * (3 + QSIZE_TALL) * NLEV * ncol)
+    bnd35_user = bnd35 + fix_bytes / HBM_BYTES_PER_S * 1e3
     regs = remap_ptxas()
     print(f"phase 21 remap kernel ne{cs.ne}x{NLEV} qsize {QSIZE_TALL} f32 plm "
           f"(remap_packed_cuda, {nbytes35} B): {k35_ms:.4f} ms (graph "
-          f"{k35_graph:.4f}), bound {bnd35:.4f} ms ({by35}); "
+          f"{k35_graph:.4f}), bound {bnd35:.4f} ms ({by35}); with the fixer "
+          f"folded (remap_packed_t4) {u35_ms:.4f} ms (graph "
+          f"{u35_graph:.4f}; bound {bnd35_user:.4f}), the kernel then "
+          f"_fix_mass {uf35_ms:.4f} ms (graph {uf35_graph:.4f}); "
           f"{plans['plm'][1]} blocks an SM, ptxas {regs}")
-    del prob35, s35, q35, kernel35
+    print(f"phase 21 fixer fold bit for bit the kernel then _fix_mass "
+          f"(pcm, plm, ppm), values compared: {json.dumps(fold)}")
+    del prob35, s35, q35, kernel35, user35, unfolded35
     torch.cuda.empty_cache()
     rows = {
         "remap_packed_cuda": dict(
@@ -4809,11 +4909,17 @@ def phase_remap_cadence(dev, cs):
             ms=k_ms, graph_ms=k_graph, plain_ms=p_ms, bound_ms=bnd,
             bound_by=by, library_ms=None, with_fixer_ms=u_ms,
             with_fixer_graph_ms=u_graph, with_fixer_bound_ms=bnd_user,
+            unfolded_ms=uf_ms, unfolded_graph_ms=uf_graph,
             with_fixer_plain_ms=up_ms, peak_mib=peaks,
             launches_a_call=launches, cadence_share=share,
             plain_cadence_share=share_plain, plan=plans, ptxas=regs,
             qsize35=dict(ms=k35_ms, graph_ms=k35_graph, bound_ms=bnd35,
-                         bound_by=by35, **gates35), **gates),
+                         bound_by=by35, with_fixer_ms=u35_ms,
+                         with_fixer_graph_ms=u35_graph,
+                         with_fixer_bound_ms=bnd35_user,
+                         unfolded_ms=uf35_ms, unfolded_graph_ms=uf35_graph,
+                         **gates35),
+            fixer_fold_values=fold, **gates),
         "remap_levels_cuda": dict(
             route="cuda", source="tinman_sandbox_tpu_torch/csrc/remap.cu",
             replaces="tinman_sandbox_tpu/ops/remap.py:68 remap_column (XLA, "
@@ -6969,6 +7075,7 @@ def main() -> int:
         for name in storage_counts():
             wrappers[name].storage_launches = 0
         remap_packed_cuda.f64_launches = remap_levels_cuda.f64_launches = 0
+        remap_packed_cuda.fixer_launches = 0
         caar_t4_cuda.slab_launches = 0
         caar_t4_cuda.single_launches = 0
         tracer_euler_cuda.slab_launches = 0
@@ -7037,6 +7144,7 @@ def main() -> int:
     cadence = counts()
     cadence_f64 = {w.__name__: w.f64_launches
                    for w in (remap_packed_cuda, remap_levels_cuda)}
+    cadence_fixer = remap_packed_cuda.fixer_launches
     rows.update(remap_rows)
     print(f"phase 21 seconds: {time.perf_counter() - t0:.1f}")
     reset()
@@ -7204,7 +7312,8 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on the probe "
                                  "tool's path")
     print(f"phase 21 remap cadence main-path launches: {json.dumps(cadence)}"
-          f" (float64: {json.dumps(cadence_f64)}); remap "
+          f" (float64: {json.dumps(cadence_f64)}; calls that folded the "
+          f"fixer, remap_packed_cuda.fixer_launches: {cadence_fixer}); remap "
           f"{remap_times['remap_ms']:.4f} ms a call, "
           f"{remap_times['remap_share']:.4f} of the cadence")
     for name in ("caar_t4_cuda", "vlap_cuda", "tracer_limit_cuda",
@@ -7214,10 +7323,11 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on the remap "
                                  "cadence's path")
     if cadence["remap_packed_cuda"] - cadence_f64["remap_packed_cuda"] <= 0 \
-            or cadence_f64["remap_levels_cuda"] <= 0:
+            or cadence_f64["remap_levels_cuda"] <= 0 or cadence_fixer <= 0:
         raise AssertionError("the remap kernel was not launched in float32 "
-                             "and in float64 on the remap cadence's path: "
-                             f"{cadence}, float64 {cadence_f64}")
+                             "and in float64, and with the fixer folded, on "
+                             f"the remap cadence's path: {cadence}, float64 "
+                             f"{cadence_f64}, fixer {cadence_fixer}")
     print(f"phase 22 element-sharded tiers and dry run main-path launches: "
           f"{json.dumps(tiers)}")
     for name in ("caar_t4_cuda", "dss_fixup_cuda", "dss_sweep_banded_cuda",

@@ -462,7 +462,9 @@ def _compile_all(builds):
 
 def _remap_registers(report):
     """ptxas's registers, stack frame and spill bytes of the f32 plm packed
-    instance (remap_kernel<float, 1, true>) in a build's report."""
+    instance without the fixer (remap_kernel<float, 1, true>, and
+    <float, 1, true, 0> where the kernel has the fixer's modes) in a
+    build's report."""
     name, regs = None, {}
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -477,7 +479,8 @@ def _remap_registers(report):
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             regs.setdefault(name, {})["registers"] = int(m.group(1))
-    hits = [v for k, v in regs.items() if "remap_kernelIfLi1ELb1E" in k]
+    hits = [v for k, v in regs.items()
+            if re.search(r"remap_kernelIfLi1ELb1E(Li0E)?E", k)]
     return hits[0] if hits else None
 
 
@@ -569,7 +572,8 @@ def remaps(dev, card, trees=("parent", "port")):
         path, report = libs[name]
         so = ctypes.CDLL(path)
         for fn, argtypes in _build._SIGNATURES["remap"].items():
-            getattr(so, fn).argtypes = argtypes
+            if hasattr(so, fn):     # the parent's kernel has no fixer mode
+                getattr(so, fn).argtypes = argtypes
         full = "REMAP_VARIANT=0" in " ".join(bflags) or "VARIANT" not in \
             " ".join(bflags)
         line = dict(card=card, kernel="remap_packed", build=name,

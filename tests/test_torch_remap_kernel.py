@@ -15,8 +15,13 @@ remap onto the float64 target layers, f32 pieces), also at E3SM's 35
 tracers; column totals within 1e-6 of the column's sum |x|*dp (the pieces
 of a source cell sum to its mass); PCM and PLM stay inside the source
 column's range within 1e-12 of it; the kernel's geometry (cells and
-fractions) bit for bit the walk of the kernel's design before.
+fractions) bit for bit the walk of the kernel's design before. The fixer's
+fold (its two launches emulated, and the wrapper's sequence of launches
+with the library stubbed) bit for bit the kernel followed by the plain
+fixer: the same rounded values, each scaled by one rounded product.
 """
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,13 +32,16 @@ from tinman_sandbox_tpu.dist.step_pallas import (
 from tinman_sandbox_tpu.grid import HybridVCoord as JHybridVCoord
 from tinman_sandbox_tpu.ops.remap import remap_column as j_remap_column
 from tinman_sandbox_tpu_torch.device import from_arrays
-from tinman_sandbox_tpu_torch.dist import (remap_packed_t4,
+from tinman_sandbox_tpu_torch.dist import (packed_air_mass, remap_packed_t4,
                                            remap_packed_t4_plain)
+from tinman_sandbox_tpu_torch.dist.step_t import _fix_mass
 from tinman_sandbox_tpu_torch.grid import HybridVCoord
+from tinman_sandbox_tpu_torch.kernels import _build, remap
 from tinman_sandbox_tpu_torch.kernels.remap import (
-    SCHEMES, _geometry, remap_levels_cuda, remap_packed_cuda,
-    remap_packed_emulated, remap_packed_plain, remap_plan,
+    FIX_DP, FIX_SCALE, SCHEMES, _geometry, remap_levels_cuda,
+    remap_packed_cuda, remap_packed_emulated, remap_packed_plain, remap_plan,
     remap_walk_emulated)
+from tinman_sandbox_tpu_torch.profiling import record_spans
 from tinman_sandbox_tpu_torch.ops.remap import remap_levels, remap_levels_plain
 
 torch.set_num_threads(2)
@@ -216,6 +224,136 @@ def test_torch_remap_dispatch_on_cpu_is_the_plain_code():
             assert torch.equal(x, y) and torch.equal(x, z)
 
 
+def _fixer_operands(s, nlev, seed=4):
+    """The fixer's spheremp lanes [1, C] (positive) and a target 0.1% above
+    the air mass of s, in s's dtype."""
+    rng = np.random.default_rng(seed)
+    sph = torch.from_numpy(rng.uniform(0.5, 1.5, (1, s.shape[1]))).to(s.dtype)
+    return sph, packed_air_mass(s, sph, nlev) * 1.001
+
+
+def _bits(x):
+    return x.view(torch.int64 if x.dtype == torch.float64 else torch.int32)
+
+
+@pytest.mark.parametrize("qsize", [1, 2])
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_torch_remap_packed_emulated_fixer_is_kernel_then_fix_mass(
+        dtype, scheme, qsize):
+    """The fixer's fold, emulated: the dp-only launch gives the packed
+    kernel's dp rows bit for bit; their air mass, then the scaled launch
+    (r = target / mass, every dp row and tracer value times r), gives the
+    kernel's outputs followed by ``_fix_mass`` bit for bit, u, v, T
+    untouched."""
+    nlev = 12
+    s, qdp, hv = _packed(nlev=nlev, qsize=qsize, seed=6)
+    s, qdp = torch.from_numpy(s).to(dtype), torch.from_numpy(qdp).to(dtype)
+    thv = _thv({n: np.asarray(v, np.float64 if dtype == torch.float64
+                              else np.float32) for n, v in hv.items()},
+               dtype)
+    sph, target = _fixer_operands(s, nlev)
+    base = remap_packed_emulated(s, qdp, thv, nlev, qsize, scheme)
+    dp = remap_packed_emulated(s, qdp, thv, nlev, qsize, scheme,
+                               dp_only=True)
+    assert torch.equal(_bits(dp), _bits(base[0][3 * nlev:]))
+    s_a = torch.zeros_like(s)       # launch (a) writes only the dp rows
+    s_a[3 * nlev:] = dp
+    mass = packed_air_mass(s_a, sph, nlev)
+    got = remap_packed_emulated(s, qdp, thv, nlev, qsize, scheme, mass=mass,
+                                target=target)
+    want = _fix_mass(base[0].clone(), base[1].clone(), nlev, sph, target)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+    assert torch.equal(got[0][:3 * nlev], base[0][:3 * nlev])
+    assert not torch.equal(got[1], base[1])     # the fixer did scale
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_torch_remap_fixer_dispatch_on_cpu_is_plain_then_fix_mass(scheme):
+    """CPU tensors with the fixer's operands: the wrapper runs the plain
+    remap and then the plain fixer, the bits of ``remap_packed_t4_plain``
+    (and of ``remap_packed_t4``) with the fixer."""
+    nlev = 6
+    s, qdp, hv = _packed(nlev=nlev)
+    s, qdp = torch.from_numpy(s), torch.from_numpy(qdp)
+    sph, target = _fixer_operands(s, nlev)
+    got = remap_packed_cuda(s, qdp, _thv(hv), nlev, 2, scheme, sph, target)
+    plain = remap_packed_t4_plain(s, qdp, _thv(hv), 4, nlev, 2, scheme, sph,
+                                  target)
+    user = remap_packed_t4(s, qdp, _thv(hv), 4, nlev, 2, scheme, sph, target)
+    free = remap_packed_plain(s, qdp, _thv(hv), nlev, 2, scheme)
+    for g, p, u, f in zip(got, plain, user, free):
+        assert torch.equal(g, p) and torch.equal(g, u)
+        assert not torch.equal(g[-nlev:], f[-nlev:])
+
+
+class _StubLibrary:
+    """The remap library with its launches recorded, not run."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, fn):
+        return lambda *args: self.calls.append((fn, args)) or 0
+
+
+@pytest.mark.parametrize("case", ["f32", "f64", "f32 fixer", "f64 fixer"])
+def test_torch_remap_cuda_branch_launches(case, monkeypatch):
+    """The wrapper's CUDA branch (reached by checks that report a card, the
+    library stubbed): without the fixer one launch of the packed kernel;
+    with it the dp-only launch, the air mass of its output inside the
+    ``remap.fixer`` span, then the scaled launch with that mass's and the
+    target's pointers, on the same outputs; the counters follow."""
+    nlev, qsize = 6, 2
+    dtype = torch.float64 if "f64" in case else torch.float32
+    s, qdp, hv = _packed(nlev=nlev, qsize=qsize)
+    s, qdp = torch.from_numpy(s).to(dtype), torch.from_numpy(qdp).to(dtype)
+    thv = _thv(hv, dtype)
+    fixer = _fixer_operands(s, nlev) if "fixer" in case else (None, None)
+    lib = _StubLibrary()
+    masses = []
+    air_mass = remap.packed_air_mass
+    monkeypatch.setattr(_build, "library", lambda name: lib)
+    monkeypatch.setattr(_build, "check_launch", lambda name, err: None)
+    monkeypatch.setattr(remap, "_check", lambda *a, **kw: torch.device(
+        "cuda", 0))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: (
+        types.SimpleNamespace(cuda_stream=7)))
+    monkeypatch.setattr(remap, "packed_air_mass", lambda *a: masses.append(
+        air_mass(*a)) or masses[-1])
+    before = (remap_packed_cuda.launches, remap_packed_cuda.f64_launches,
+              remap_packed_cuda.fixer_launches)
+    with record_spans() as rec:
+        s_out, q_out = remap_packed_cuda(s, qdp, thv, nlev, qsize, "ppm",
+                                         *fixer)
+    n = 2 if "fixer" in case else 1
+    assert (remap_packed_cuda.launches - before[0],
+            remap_packed_cuda.f64_launches - before[1],
+            remap_packed_cuda.fixer_launches - before[2]) == (
+        n, n if dtype == torch.float64 else 0, n - 1)
+    common = (int(dtype == torch.float64), SCHEMES.index("ppm"))
+    ptrs = (s.data_ptr(), qdp.data_ptr(), thv.hyai.data_ptr(),
+            thv.hybi.data_ptr(), float(thv.ps0), s_out.data_ptr(),
+            q_out.data_ptr())
+    tail = (nlev, qsize, s.shape[1], 7, 0)
+    names = [r.name for r in rec.records]
+    if n == 1:
+        assert lib.calls == [("remap_packed_launch", common + ptrs + tail)]
+        assert "remap.fixer" not in names and not masses
+        return
+    assert lib.calls == [
+        ("remap_fixer_launch", common + (FIX_DP,) + ptrs + (None, None)
+         + tail),
+        ("remap_fixer_launch", common + (FIX_SCALE,) + ptrs
+         + (masses[0].data_ptr(), fixer[1].data_ptr()) + tail)]
+    # the air mass of launch (a)'s output, inside the wrapper's span
+    fixer_span = names.index("remap.fixer")
+    assert rec.records[rec.records[fixer_span].parent].name == \
+        "launch.remap_packed_cuda"
+    assert len(masses) == 1 and masses[0].shape == ()
+
+
 @pytest.mark.parametrize("scheme", SCHEMES)
 def test_torch_remap_packed_emulated_f64_matches_jax(scheme):
     """The float64 emulation against JAX's packed remap in float64 on the
@@ -361,6 +499,7 @@ def _refusals():
     s, qdp = torch.from_numpy(s), torch.from_numpy(qdp)
     dp = s[3 * nlev:]
     t = _thv(hv)
+    sph, target = _fixer_operands(s, nlev)
     return {
         "levels q rows": lambda: remap_levels_cuda(s[:nlev + 1], dp, dp),
         "levels dp_tgt shape": lambda: remap_levels_cuda(s[:nlev], dp,
@@ -380,6 +519,25 @@ def _refusals():
         "packed qdp dtype": lambda: remap_packed_cuda(s, qdp.double(), t,
                                                       nlev, 2),
         "packed t4 shape": lambda: remap_packed_t4(s, qdp, t, 5, nlev, 2),
+        "fixer sph_lanes alone": lambda: remap_packed_cuda(
+            s, qdp, t, nlev, 2, sph_lanes=sph),
+        "fixer mass_target alone": lambda: remap_packed_cuda(
+            s, qdp, t, nlev, 2, mass_target=target),
+        "fixer host target": lambda: remap_packed_cuda(
+            s, qdp, t, nlev, 2, sph_lanes=sph, mass_target=float(target)),
+        "fixer target shape": lambda: remap_packed_cuda(
+            s, qdp, t, nlev, 2, sph_lanes=sph, mass_target=target[None]),
+        "fixer target dtype": lambda: remap_packed_cuda(
+            s, qdp, t, nlev, 2, sph_lanes=sph, mass_target=target.double()),
+        "fixer target device": lambda: remap_packed_cuda(
+            s, qdp, t, nlev, 2, sph_lanes=sph,
+            mass_target=target.to("meta")),
+        "fixer sph_lanes shape": lambda: remap_packed_cuda(
+            s, qdp, t, nlev, 2, sph_lanes=sph[0], mass_target=target),
+        "fixer sph_lanes dtype": lambda: remap_packed_cuda(
+            s, qdp, t, nlev, 2, sph_lanes=sph.double(), mass_target=target),
+        "fixer sph_lanes device": lambda: remap_packed_cuda(
+            s, qdp, t, nlev, 2, sph_lanes=sph.to("meta"), mass_target=target),
     }
 
 

@@ -27,6 +27,28 @@
 //     (densities: out = mass / dp_tgt) and every tracer (its mass qdp;
 //     out = the target cell's mass);
 //   * the level form: dp_tgt is given; every field is a density.
+//
+// The dry-mass fixer folded into the packed form (kFix). The fixer scales
+// the new dp rows and every tracer value by r = target / m, m the air mass
+// of the new dp rows (dist/step_t.py::packed_air_mass: a torch product and
+// sum in a fixed order, whose f32 bias cancels against the target's, which
+// was measured the same way). r needs the dp rows of every column before
+// any tracer value is stored, and no block can wait for the others, so it
+// takes two launches with the air mass between them, all on the stream
+// with no sync on the host:
+//   * kFixDp: the float chain alone, a column a thread, storing the dp rows
+//     of s_out: the bits of the packed form's dp rows (25 MB read, 25 MB
+//     written at ne30 x 72 in f32);
+//   * then m from those rows, by the same torch expression as before;
+//   * kFixScale: the whole packed form, with r = __fdiv_rn(*target, *m)
+//     (__ddiv_rn in double: torch's division of the two 0-d tensors), every
+//     tracer value stored as __fmul_rn(v, r) and every dp row as
+//     __fmul_rn(dp, r), dp the float chain's value; u, v and T unscaled.
+//     It recomputes its chains from s and never reads s_out, so it writes
+//     over the first launch's rows. Each store is the rounded product that
+//     the fixer's `x *= r` made of the same value, so the outputs are the
+//     bits of the kernel followed by the fixer, with one pass over the
+//     tracers (0.87 GB read and written at qsize 35) fewer.
 // The reconstruction in each source cell is pcm, plm (minmod slopes) or ppm
 // (4th-order edges, Colella-Woodward monotonisation), the formulas of
 // ops/remap.py::_remap_chunk. The last target interface covers the whole
@@ -87,6 +109,8 @@
 namespace {
 
 constexpr int kPcm = 0, kPlm = 1, kPpm = 2;
+// the packed form's fixer modes: none, the dp rows alone, scaled by r
+constexpr int kFixNone = 0, kFixDp = 1, kFixScale = 2;
 constexpr int kCols = 32;          // columns a block, one a lane
 // warps a block (a build flag only for experiments/kernel_variants.py,
 // which times other values)
@@ -207,6 +231,47 @@ __device__ __forceinline__ float quotient(float a, float b) {
 }
 __device__ __forceinline__ double quotient(double a, double b) {
   return a / b;
+}
+
+// the fixer's IEEE division and product, rounded to nearest (torch's on
+// CUDA tensors)
+__device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+
+// The float chain of one column, the plain code's operations in its order:
+// the compensated total of dp_src (dp_at(l)), ps = ptop + that total, the
+// reference layers da_l + db_l * ps and their compensated total, and the dp
+// rows dp_ref_l * (tot_src / tot_ref), stored to dp_out[l * ncol]; with
+// kScale each row times fix (the fixer's product)
+template <typename T, bool kScale, typename Dp>
+__device__ __forceinline__ void dp_rows(Dp dp_at, const T* da, const T* db,
+                                        T ptop, int k, T* __restrict__ dp_out,
+                                        int ncol, T fix) {
+  CompSum<T> src_t, tgt_t;
+#pragma unroll 8
+  for (int l = 0; l < k; ++l) src_t.add(dp_at(l));
+  const T ps = ptop + src_t.total();
+  const auto ref = [&](int l) -> T {   // reference_dp: da*ps0 + db*ps
+    return da[l] + db[l] * ps;
+  };
+#pragma unroll 8
+  for (int l = 0; l < k; ++l) tgt_t.add(ref(l));
+  const T r = src_t.total() / tgt_t.total();
+#pragma unroll 8
+  for (int l = 0; l < k; ++l) {
+    const T dp = ref(l) * r;
+    dp_out[static_cast<size_t>(l) * ncol] = kScale ? mul_rn(dp, fix) : dp;
+  }
 }
 
 // The scheme's coefficient arrays a field needs beside its masses
@@ -436,10 +501,10 @@ struct Column {
   }
 
   // The target pass of one field for target cells [j0, j1): out[j * ncol],
-  // target cell j's mass (a tracer), or its mass times the reciprocal of
-  // its layer, rcp(j)
-  template <bool kTracer, typename Rcp>
-  __device__ __forceinline__ void remap(int j0, int j1, Rcp rcp_of,
+  // target cell j's mass (a tracer; with kScale times fix), or its mass
+  // times the reciprocal of its layer, rcp(j)
+  template <bool kTracer, bool kScale, typename Rcp>
+  __device__ __forceinline__ void remap(int j0, int j1, Rcp rcp_of, T fix,
                                         T* __restrict__ out, int ncol) const {
     if (j0 >= j1) return;
     // the cell at the target's top interface, its mass and L there
@@ -465,7 +530,10 @@ struct Column {
         for (int l = cell + 1; l < next; ++l) acc += mass<kTracer>(l);
       }
       acc += l_next;
-      *out_at = kTracer ? acc : acc * rcp_of(j);
+      if constexpr (!kTracer)
+        *out_at = acc * rcp_of(j);
+      else
+        *out_at = kScale ? mul_rn(acc, fix) : acc;
       l_prev = l_next;
       m_c = m_n;
       cell = next;
@@ -503,26 +571,60 @@ size_t smem_bytes(int k, int itemsize, int scheme) {
 // [K+1]. Level form: src = q [nq*K, ncol] (densities), dp_src and dp_tgt
 // [K, ncol], out = q' [nq*K, ncol]; qdp, hyai, hybi, s_out unused. vec:
 // every operand 16-byte aligned and ncol a multiple of 16 / sizeof(T).
-template <typename T, int kScheme, bool kPacked>
+// kFix (packed form only): kFixDp writes only s'[3K:4K], a column a thread
+// (kCols * kWarps columns a block); kFixScale scales the dp rows and the
+// tracers by *target / *mass (device scalars); else mass, target unused.
+template <typename T, int kScheme, bool kPacked, int kFix = kFixNone>
 __global__ void __launch_bounds__(kCols * kWarps, REMAP_MIN_BLOCKS)
 remap_kernel(const T* __restrict__ src, const T* __restrict__ qdp,
              const T* __restrict__ dp_src, const T* __restrict__ dp_tgt,
              const T* __restrict__ hyai, const T* __restrict__ hybi, T ps0,
              T* __restrict__ s_out, T* __restrict__ q_out, int k, int nq,
-             int ncol, int vec_ok) {
+             int ncol, int vec_ok, const T* __restrict__ mass,
+             const T* __restrict__ target) {
+  static_assert(kPacked || kFix == kFixNone, "the fixer is the packed form's");
   extern __shared__ __align__(16) double smem_raw[];
   __shared__ double col_ps[kCols], col_r[kCols];   // the double chain's ps, r
+  __shared__ T fix_r;                              // the fixer's ratio
   const int x = threadIdx.x, w = threadIdx.y;
-  const int col0 = blockIdx.x * kCols, col = col0 + x;
-  const bool live = col < ncol;
-  const bool vec = vec_ok && col0 + kCols <= ncol;
-  constexpr int kCoef = coefficients(kScheme);
-  REMAP_CLOCK_START(t_start);
   // the block's hybrid terms da_l = (hyai[l+1] - hyai[l])*ps0 and db_l =
   // hybi[l+1] - hybi[l] (packed form), then the columns' arrays, each
   // [level][kCols] from a block-wide base
   T* da = reinterpret_cast<T*>(smem_raw);
   T* db = da + k;
+  const auto hybrid_terms = [&] {
+    for (int l = w * kCols + x; l < k; l += kCols * kWarps) {
+      da[l] = (hyai[l + 1] - hyai[l]) * ps0;
+      db[l] = hybi[l + 1] - hybi[l];
+    }
+  };
+  if constexpr (kFix == kFixDp) {
+    // the dp rows alone, from dp_src in device memory
+    hybrid_terms();
+    __syncthreads();
+    const int c = (blockIdx.x * kWarps + w) * kCols + x;
+    if (c < ncol) {
+      const size_t kc = static_cast<size_t>(k);
+      const T* dp_col = src + 3 * kc * ncol + c;
+      dp_rows<T, false>(
+          [&](int l) { return dp_col[static_cast<size_t>(l) * ncol]; }, da,
+          db, hyai[0] * ps0, k, s_out + 3 * kc * ncol + c, ncol, T(1));
+    }
+    return;
+  }
+  const int col0 = blockIdx.x * kCols, col = col0 + x;
+  const bool live = col < ncol;
+  const bool vec = vec_ok && col0 + kCols <= ncol;
+  constexpr int kCoef = coefficients(kScheme);
+  constexpr bool kScale = kFix == kFixScale;
+  // the fixer's ratio, once it is in shared memory (1 without the fixer)
+  const auto fix = [&]() -> T {
+    if constexpr (kScale)
+      return fix_r;
+    else
+      return T(1);
+  };
+  REMAP_CLOCK_START(t_start);
   const int kk = k * kCols;
   T* dp_b = reinterpret_cast<T*>(reinterpret_cast<char*>(smem_raw) +
                                  hybrid_bytes(k, sizeof(T)));
@@ -562,11 +664,9 @@ remap_kernel(const T* __restrict__ src, const T* __restrict__ qdp,
   if (nfield > 0 && kStaged && w >= kField)
     stage_rows(x_b, field_src(0), 0, w - kField, kWarps - kField);
   commit();
-  if constexpr (kPacked)
-    for (int l = w * kCols + x; l < k; l += kCols * kWarps) {
-      da[l] = (hyai[l + 1] - hyai[l]) * ps0;
-      db[l] = hybi[l + 1] - hybi[l];
-    }
+  if constexpr (kPacked) hybrid_terms();
+  if constexpr (kScale)
+    if (x == 0 && w == 0) fix_r = div_rn(*target, *mass);
   wait_copies<1>();
   __syncthreads();
   if (w == 0) REMAP_CLOCK(0, t_start);
@@ -609,21 +709,8 @@ remap_kernel(const T* __restrict__ src, const T* __restrict__ qdp,
           dp_out[static_cast<size_t>(l) * ncol] = cl.at(cl.dp, l);
       } else {
         // the float chain: the dp rows, the plain code's operations
-        const T ptop = hyai[0] * ps0;
-        T ps = 0;
-        const auto ref = [&](int l) -> T {   // reference_dp: da*ps0 + db*ps
-          return da[l] + db[l] * ps;
-        };
-        CompSum<T> src_t, tgt_t;
-#pragma unroll 8
-        for (int l = 0; l < k; ++l) src_t.add(cl.at(cl.dp, l));
-        ps = ptop + src_t.total();
-#pragma unroll 8
-        for (int l = 0; l < k; ++l) tgt_t.add(ref(l));
-        const T r = src_t.total() / tgt_t.total();
-#pragma unroll 8
-        for (int l = 0; l < k; ++l)
-          dp_out[static_cast<size_t>(l) * ncol] = ref(l) * r;
+        dp_rows<T, kScale>([&](int l) { return cl.at(cl.dp, l); }, da, db,
+                           hyai[0] * ps0, k, dp_out, ncol, fix());
       }
     }
     REMAP_CLOCK(4, t_phase);
@@ -686,9 +773,9 @@ remap_kernel(const T* __restrict__ src, const T* __restrict__ qdp,
       if (j0 < j1) out[static_cast<size_t>(j0) * ncol] = cl.at(cl.c1, j0);
     } else if constexpr (kTarget) {
       if (tracer)
-        cl.template remap<true>(j0, j1, rcp_of, out, ncol);
+        cl.template remap<true, kScale>(j0, j1, rcp_of, fix(), out, ncol);
       else
-        cl.template remap<false>(j0, j1, rcp_of, out, ncol);
+        cl.template remap<false, false>(j0, j1, rcp_of, T(1), out, ncol);
     }
   }
   if (w == 0) {
@@ -698,15 +785,20 @@ remap_kernel(const T* __restrict__ src, const T* __restrict__ qdp,
   }
 }
 
-template <typename T, bool kPacked>
+template <typename T>
 using Kernel = void (*)(const T*, const T*, const T*, const T*, const T*,
-                        const T*, T, T*, T*, int, int, int, int);
+                        const T*, T, T*, T*, int, int, int, int, const T*,
+                        const T*);
 
-template <typename T, bool kPacked>
-Kernel<T, kPacked> pick(int scheme) {
-  return scheme == kPcm   ? remap_kernel<T, kPcm, kPacked>
-         : scheme == kPlm ? remap_kernel<T, kPlm, kPacked>
-                          : remap_kernel<T, kPpm, kPacked>;
+// the instance of the scheme; the dp rows alone (kFixDp) take no scheme
+template <typename T, bool kPacked, int kFix>
+Kernel<T> pick(int scheme) {
+  if constexpr (kFix == kFixDp)
+    return remap_kernel<T, kPcm, true, kFixDp>;
+  else
+    return scheme == kPcm   ? remap_kernel<T, kPcm, kPacked, kFix>
+           : scheme == kPlm ? remap_kernel<T, kPlm, kPacked, kFix>
+                            : remap_kernel<T, kPpm, kPacked, kFix>;
 }
 
 // A block's dynamic shared memory, and the SM's carveout at its most shared
@@ -722,19 +814,26 @@ cudaError_t configure(Kern* kernel, size_t smem) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-template <typename T, bool kPacked>
+template <typename T, bool kPacked, int kFix = kFixNone>
 cudaError_t launch(int scheme, const void* src, const void* qdp,
                    const void* dp_src, const void* dp_tgt, const void* hyai,
                    const void* hybi, double ps0, void* s_out, void* q_out,
-                   int k, int nq, int ncol, void* stream) {
+                   const void* mass, const void* target, int k, int nq,
+                   int ncol, void* stream) {
   const size_t smem = smem_bytes(k, sizeof(T), scheme);
   if (scheme < kPcm || scheme > kPpm || k < 1 || k > 65535 || nq < 0 ||
       ncol < 1 || smem > kMaxSmem)
     return cudaErrorInvalidValue;
-  auto* kernel = pick<T, kPacked>(scheme);
-  cudaError_t err = configure(kernel, smem);
+  if (kFix == kFixScale && (mass == nullptr || target == nullptr))
+    return cudaErrorInvalidValue;
+  auto* kernel = pick<T, kPacked, kFix>(scheme);
+  // the dp rows alone: the hybrid terms, a column a thread
+  const size_t block_smem = kFix == kFixDp ? hybrid_bytes(k, sizeof(T)) : smem;
+  const int per_block = kFix == kFixDp ? kCols * kWarps : kCols;
+  cudaError_t err = configure(kernel, block_smem);
   if (err != cudaSuccess) return err;
-  const unsigned grid = static_cast<unsigned>((ncol + kCols - 1) / kCols);
+  const unsigned grid =
+      static_cast<unsigned>((ncol + per_block - 1) / per_block);
   // 16-byte copies: every operand aligned, rows a whole number of copies
   const auto aligned = [](const void* p) {
     return p == nullptr || reinterpret_cast<size_t>(p) % 16 == 0;
@@ -742,13 +841,14 @@ cudaError_t launch(int scheme, const void* src, const void* qdp,
   const int vec_ok = ncol % (16 / static_cast<int>(sizeof(T))) == 0 &&
                      aligned(src) && aligned(qdp) && aligned(dp_src) &&
                      aligned(dp_tgt);
-  kernel<<<grid, dim3(kCols, kWarps), smem,
+  kernel<<<grid, dim3(kCols, kWarps), block_smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(src), static_cast<const T*>(qdp),
       static_cast<const T*>(dp_src), static_cast<const T*>(dp_tgt),
       static_cast<const T*>(hyai), static_cast<const T*>(hybi),
       static_cast<T>(ps0), static_cast<T*>(s_out), static_cast<T*>(q_out), k,
-      nq, ncol, vec_ok);
+      nq, ncol, vec_ok, static_cast<const T*>(mass),
+      static_cast<const T*>(target));
   return cudaGetLastError();
 }
 
@@ -794,10 +894,10 @@ int remap_blocks_per_sm(int f64, int scheme, int packed, int k, int device) {
                                   &n, kernel, kCols * kWarps, smem)
                             : e;
   };
-  err = f64 ? (packed ? blocks(pick<double, true>(scheme))
-                      : blocks(pick<double, false>(scheme)))
-            : (packed ? blocks(pick<float, true>(scheme))
-                      : blocks(pick<float, false>(scheme)));
+  err = f64 ? (packed ? blocks(pick<double, true, kFixNone>(scheme))
+                      : blocks(pick<double, false, kFixNone>(scheme)))
+            : (packed ? blocks(pick<float, true, kFixNone>(scheme))
+                      : blocks(pick<float, false, kFixNone>(scheme)));
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
@@ -811,11 +911,37 @@ int remap_packed_launch(int f64, int scheme, const void* s, const void* qdp,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   return f64 ? launch<double, true>(scheme, s, qdp, nullptr, nullptr, hyai,
-                                    hybi, ps0, s_out, q_out, k, nq, ncol,
-                                    stream)
+                                    hybi, ps0, s_out, q_out, nullptr,
+                                    nullptr, k, nq, ncol, stream)
              : launch<float, true>(scheme, s, qdp, nullptr, nullptr, hyai,
-                                   hybi, ps0, s_out, q_out, k, nq, ncol,
-                                   stream);
+                                   hybi, ps0, s_out, q_out, nullptr, nullptr,
+                                   k, nq, ncol, stream);
+}
+
+// The packed remap with the dry-mass fixer folded in (the note at the top),
+// the operands of remap_packed_launch and two device scalars of the dtype,
+// mass and target: fix 1 writes only the dp rows of s_out (qdp, q_out,
+// mass, target unused); fix 2 the whole remap with the dp rows and every
+// tracer value times *target / *mass. One launch.
+int remap_fixer_launch(int f64, int scheme, int fix, const void* s,
+                       const void* qdp, const void* hyai, const void* hybi,
+                       double ps0, void* s_out, void* q_out, const void* mass,
+                       const void* target, int k, int nq, int ncol,
+                       void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (fix != kFixDp && fix != kFixScale) return cudaErrorInvalidValue;
+  const auto go = [&](auto zero) {
+    using T = decltype(zero);
+    return fix == kFixDp
+               ? launch<T, true, kFixDp>(scheme, s, qdp, nullptr, nullptr,
+                                         hyai, hybi, ps0, s_out, q_out, mass,
+                                         target, k, nq, ncol, stream)
+               : launch<T, true, kFixScale>(scheme, s, qdp, nullptr, nullptr,
+                                            hyai, hybi, ps0, s_out, q_out,
+                                            mass, target, k, nq, ncol, stream);
+  };
+  return f64 ? go(0.0) : go(0.0f);
 }
 
 // The level form: q [nq*k, ncol] (nq fields of k levels), dp_src and dp_tgt
@@ -826,11 +952,11 @@ int remap_levels_launch(int f64, int scheme, const void* q,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   return f64 ? launch<double, false>(scheme, q, nullptr, dp_src, dp_tgt,
-                                     nullptr, nullptr, 0.0, nullptr, out, k,
-                                     nq, ncol, stream)
+                                     nullptr, nullptr, 0.0, nullptr, out,
+                                     nullptr, nullptr, k, nq, ncol, stream)
              : launch<float, false>(scheme, q, nullptr, dp_src, dp_tgt,
-                                    nullptr, nullptr, 0.0, nullptr, out, k,
-                                    nq, ncol, stream);
+                                    nullptr, nullptr, 0.0, nullptr, out,
+                                    nullptr, nullptr, k, nq, ncol, stream);
 }
 
 }  // extern "C"

@@ -59,8 +59,9 @@ the assembled-step, SSPRK3 and hyperviscosity parts of
     state and tracers back to the reference hybrid levels, with the global
     dry-mass fixer (``packed_air_mass``), run every rsplit-th step of the
     packed cadence. Array code in the JAX package (no Pallas kernel); here
-    one launch of the remap kernel (``kernels/remap.py``) on the packed
-    rows for CUDA tensors, and ``remap_packed_t4_plain``, plain PyTorch
+    the remap kernel (``kernels/remap.py``) on the packed rows for CUDA
+    tensors, one launch, or two with the fixer folded into its stores, and
+    ``remap_packed_t4_plain``, plain PyTorch
     with levels on axis 0 in place of JAX's unpack / repack (the same
     columns, the same arithmetic), for CPU tensors.
 
@@ -103,7 +104,8 @@ from ..kernels.dss import (
 from ..kernels.hypervis_t import vlap_cuda, vlap_plain
 from ..kernels.layout import (
     pack_field_t, pack_meta_t, unpack_field, unpack_field_t)
-from ..kernels.remap import remap_packed_cuda, remap_packed_plain
+from ..kernels.remap import (
+    fix_mass_plain, packed_air_mass, remap_packed_cuda, remap_packed_plain)
 from ..kernels.ring_fused import (
     caar_ring_packed_t4, caar_ring_plain, tracer_ring_packed_t,
     tracer_ring_plain)
@@ -621,14 +623,6 @@ def prim_step_packed_t4_plain(scal, meta, s0, qdp, pecnd, vn0u, vn0v, omg,
                       limit_iters, dt)
 
 
-def packed_air_mass(s: torch.Tensor, sph_lanes: torch.Tensor, nlev: int):
-    """spheremp-weighted air mass of the stacked state's dp rows, in the
-    state's dtype and a fixed summation order: the mass fixer's functional
-    (measure the target and the current mass with it, so its bias cancels in
-    the ratio). ``sph_lanes`` is [1, E16]."""
-    return (sph_lanes * s[3 * nlev:4 * nlev]).sum()
-
-
 def _check_remap(s, qdp, nelem: int, nlev: int, qsize: int):
     k = nlev
     if s.shape[0] != 4 * k or qdp.shape[0] != qsize * k \
@@ -642,19 +636,8 @@ def _fix_mass(s_new, q_new, nlev: int, sph_lanes, mass_target):
     """The global dry-mass fixer, in place on a remap's outputs."""
     if sph_lanes is not None and mass_target is not None:
         with span("remap.fixer"):
-            r = mass_target / packed_air_mass(s_new, sph_lanes, nlev)
-            s_new[3 * nlev:] *= r
-            q_new *= r
+            fix_mass_plain(s_new, q_new, nlev, sph_lanes, mass_target)
     return s_new, q_new
-
-
-def _remap(remap, s, qdp, hv, nlev, qsize, scheme, sph_lanes, mass_target):
-    """``remap`` (the kernel's wrapper or the plain remap), then the
-    fixer."""
-    with span("remap"):
-        with span("remap.kernel"):
-            s, qdp = remap(s, qdp, hv, nlev, qsize, scheme)
-        return _fix_mass(s, qdp, nlev, sph_lanes, mass_target)
 
 
 def remap_packed_t4(s: torch.Tensor, qdp: torch.Tensor, hv: HybridVCoord,
@@ -664,21 +647,26 @@ def remap_packed_t4(s: torch.Tensor, qdp: torch.Tensor, hv: HybridVCoord,
     tracers qdp [qsize*nlev, E16] from the Lagrangian dp rows back to the
     reference hybrid levels (``ops.remap.vertical_remap`` on the packed
     layout; call it every rsplit-th step). Returns new (s', qdp'). CUDA
-    tensors take the remap kernel (``kernels.remap.remap_packed_cuda``, one
-    launch; hv in s's dtype, every operand contiguous), CPU tensors
+    tensors take the remap kernel (``kernels.remap.remap_packed_cuda``; hv
+    in s's dtype, every operand contiguous), CPU tensors
     ``remap_packed_t4_plain``.
 
     With ``sph_lanes`` [1, E16] and ``mass_target`` the global dry-mass
     fixer runs last: dp and qdp are rescaled by mass_target / the air mass
     of s', both measured by ``packed_air_mass`` so the f32 measurement bias
     cancels in the ratio (the f32 flux-form dynamics otherwise leaks about
-    2e-8 of the relative mass a step)."""
+    2e-8 of the relative mass a step). On CUDA tensors the kernel folds it
+    into its stores (two launches with the air mass between them; one
+    without the fixer), with the bits of the kernel followed by the plain
+    fixer; there ``mass_target`` is a 0-d tensor in s's dtype on s's
+    device, and both or neither of the fixer's operands are given."""
     _check_remap(s, qdp, nelem, nlev, qsize)
     if s.device.type == "cpu":
         return remap_packed_t4_plain(s, qdp, hv, nelem, nlev, qsize, scheme,
                                      sph_lanes, mass_target)
-    return _remap(remap_packed_cuda, s, qdp, hv, nlev, qsize, scheme,
-                  sph_lanes, mass_target)
+    with span("remap"), span("remap.kernel"):
+        return remap_packed_cuda(s, qdp, hv, nlev, qsize, scheme, sph_lanes,
+                                 mass_target)
 
 
 def remap_packed_t4_plain(s: torch.Tensor, qdp: torch.Tensor,
@@ -688,8 +676,10 @@ def remap_packed_t4_plain(s: torch.Tensor, qdp: torch.Tensor,
     """``remap_packed_t4`` by the dense plain remap on any device (hv may
     have another dtype than s); the fixer as there."""
     _check_remap(s, qdp, nelem, nlev, qsize)
-    return _remap(remap_packed_plain, s, qdp, hv, nlev, qsize, scheme,
-                  sph_lanes, mass_target)
+    with span("remap"):
+        with span("remap.kernel"):
+            s, qdp = remap_packed_plain(s, qdp, hv, nlev, qsize, scheme)
+        return _fix_mass(s, qdp, nlev, sph_lanes, mass_target)
 
 
 def _rsp_row(geom: Geometry, dtype) -> torch.Tensor:

@@ -144,6 +144,8 @@ _SIGNATURES = {
     "remap": {
         "remap_packed_launch": [_I, _I, _P, _P, _P, _P, ctypes.c_double, _P,
                                 _P, _I, _I, _I, _P, _I],
+        "remap_fixer_launch": [_I, _I, _I, _P, _P, _P, _P, ctypes.c_double,
+                               _P, _P, _P, _P, _I, _I, _I, _P, _I],
         "remap_levels_launch": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I],
         "remap_smem_bytes": [_I, _I, _I],
         "remap_blocks_per_sm": [_I] * 5,

@@ -7,8 +7,19 @@ JAX package's array code ``dist/step_pallas.py:693 remap_packed_t4`` over
     E16] and tracers qdp [qsize*nlev, E16] in one launch: the target layers
     dp_tgt from the hybrid coordinate and the column totals (bit for bit
     the plain code's dp rows), u, v and T remapped as densities and every
-    tracer as qdp / dp_src, its output the target cell's mass. No mass
-    fixer: ``dist.remap_packed_t4`` runs it after the kernel.
+    tracer as qdp / dp_src, its output the target cell's mass. With the
+    dry-mass fixer's operands (``sph_lanes`` and ``mass_target``) it folds
+    the fixer into the kernel's stores, in two launches: the fixer's ratio
+    r = mass_target / ``packed_air_mass`` of the new dp rows needs every
+    column's dp rows before any tracer value is stored, so launch (a) writes
+    the dp rows alone, torch measures their air mass, and launch (b) remaps
+    everything again with the dp rows and every tracer value stored as
+    ``__fmul_rn(x, r)`` (r formed on the card by the IEEE division of the
+    two device scalars; u, v, T unscaled). Launch (b) recomputes its chains
+    and never reads (a)'s rows. Each stored value is the rounded product
+    the fixer's ``x *= r`` made of the same value: the bits of the kernel
+    followed by ``fix_mass_plain``, without the fixer's pass over the
+    tracers. Counted in ``remap_packed_cuda.fixer_launches`` (calls).
   * ``remap_levels_cuda``: fields q [F*nlev, C] (densities) from dp_src to
     a given dp_tgt [nlev, C], one launch for all F.
 
@@ -18,6 +29,10 @@ cast) and be contiguous. CPU tensors take the plain versions
 (``remap_packed_plain``, ``ops.remap.remap_levels_plain`` a field at a
 time); CUDA tensors launch the kernel, counted in ``<wrapper>.launches``
 (and the float64 launches in ``<wrapper>.f64_launches``).
+
+``packed_air_mass`` is the fixer's functional and ``fix_mass_plain`` the
+fixer in plain PyTorch (``dist.remap_packed_t4`` runs it after the plain
+remap; the kernel's fold is held to it).
 
 ``remap_walk_emulated`` and ``remap_packed_emulated`` compute what the
 kernel computes, in its order of operations, with torch on any device: the
@@ -30,12 +45,12 @@ import torch
 
 from ..ops.remap import (
     _match_column_total, comp_sum, reference_dp, remap_levels_plain)
-from ..profiling import launch_span
+from ..profiling import launch_span, span
 from . import _build
 
 __all__ = ["SCHEMES", "remap_plan", "remap_packed_plain",
-           "remap_packed_cuda", "remap_levels_cuda", "remap_walk_emulated",
-           "remap_packed_emulated"]
+           "remap_packed_cuda", "remap_levels_cuda", "packed_air_mass",
+           "fix_mass_plain", "remap_walk_emulated", "remap_packed_emulated"]
 
 SCHEMES = ("pcm", "plm", "ppm")
 # dynamic shared memory a block may take on the H100 (csrc/remap.cu)
@@ -44,6 +59,8 @@ COLS = 32                      # columns (threads) a block of the kernel
 # the geometry's segments, one a warp of the kernel (csrc/remap.cu kWarps);
 # any number gives the same bits
 SEGMENTS = 8
+# csrc/remap.cu's fixer modes: the dp rows alone, the remap scaled by r
+FIX_DP, FIX_SCALE = 1, 2
 
 
 def remap_plan(nlev: int, itemsize: int, scheme: str) -> int:
@@ -89,6 +106,24 @@ def remap_packed_plain(s: torch.Tensor, qdp: torch.Tensor, hv, nlev: int,
     return s_new, q_new
 
 
+def packed_air_mass(s: torch.Tensor, sph_lanes: torch.Tensor, nlev: int):
+    """spheremp-weighted air mass of the stacked state's dp rows, in the
+    state's dtype and a fixed summation order: the mass fixer's functional
+    (measure the target and the current mass with it, so its bias cancels in
+    the ratio). ``sph_lanes`` is [1, E16]."""
+    return (sph_lanes * s[3 * nlev:4 * nlev]).sum()
+
+
+def fix_mass_plain(s_new, q_new, nlev: int, sph_lanes, mass_target):
+    """The global dry-mass fixer in plain PyTorch, in place on a remap's
+    outputs: the dp rows and every tracer times mass_target / the air mass
+    of s_new. Returns (s_new, q_new)."""
+    r = mass_target / packed_air_mass(s_new, sph_lanes, nlev)
+    s_new[3 * nlev:] *= r
+    q_new *= r
+    return s_new, q_new
+
+
 def _check(name, scheme, dtype, ops: dict):
     """The wrappers' operand checks; ``ops`` maps names to (tensor, shape).
     Returns the device."""
@@ -98,6 +133,9 @@ def _check(name, scheme, dtype, ops: dict):
         raise TypeError(f"{name}: needs float32 or float64, got {dtype}")
     dev = next(iter(ops.values()))[0].device
     for op, (t, shape) in ops.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: {op} must be a tensor, got "
+                            f"{type(t).__name__}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: {op} has shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")
@@ -111,39 +149,71 @@ def _check(name, scheme, dtype, ops: dict):
     return dev
 
 
-def _count(wrapper, dtype):
-    wrapper.launches += 1
+def _count(wrapper, dtype, n: int = 1):
+    wrapper.launches += n
     if dtype == torch.float64:
-        wrapper.f64_launches += 1
+        wrapper.f64_launches += n
 
 
 @launch_span
 def remap_packed_cuda(s: torch.Tensor, qdp: torch.Tensor, hv, nlev: int,
-                      qsize: int, scheme: str = "plm"):
-    """The packed remap (no fixer) of s [4*nlev, C] and qdp [qsize*nlev, C]
-    in one launch of the kernel; hv's hyai and hybi in s's dtype. Returns
-    new (s', qdp')."""
+                      qsize: int, scheme: str = "plm", sph_lanes=None,
+                      mass_target=None):
+    """The packed remap of s [4*nlev, C] and qdp [qsize*nlev, C] in one
+    launch of the kernel; hv's hyai and hybi in s's dtype. With
+    ``sph_lanes`` [1, C] and ``mass_target`` (a 0-d tensor; both in s's
+    dtype, on s's device) the dry-mass fixer too, folded into the kernel's
+    stores in two launches (the module's note); one without the other
+    raises. Returns new (s', qdp')."""
     k, ncol = nlev, s.shape[-1]
     hv = hv.to(s.device)
-    dev = _check("remap_packed", scheme, s.dtype, {
-        "s": (s, (4 * k, ncol)), "qdp": (qdp, (qsize * k, ncol)),
-        "hyai": (hv.hyai, (k + 1,)), "hybi": (hv.hybi, (k + 1,))})
+    ops = {"s": (s, (4 * k, ncol)), "qdp": (qdp, (qsize * k, ncol)),
+           "hyai": (hv.hyai, (k + 1,)), "hybi": (hv.hybi, (k + 1,))}
+    fixer = sph_lanes is not None or mass_target is not None
+    if fixer:
+        if sph_lanes is None or mass_target is None:
+            raise ValueError("remap_packed: the fixer needs both sph_lanes "
+                             "and mass_target")
+        ops.update(sph_lanes=(sph_lanes, (1, ncol)),
+                   mass_target=(mass_target, ()))
+    dev = _check("remap_packed", scheme, s.dtype, ops)
     if dev.type == "cpu":
-        return remap_packed_plain(s, qdp, hv, nlev, qsize, scheme)
+        s_new, q_new = remap_packed_plain(s, qdp, hv, nlev, qsize, scheme)
+        if fixer:
+            fix_mass_plain(s_new, q_new, k, sph_lanes, mass_target)
+        return s_new, q_new
     remap_plan(k, s.element_size(), scheme)
     s_out, q_out = torch.empty_like(s), torch.empty_like(qdp)
-    err = _build.library("remap").remap_packed_launch(
-        int(s.dtype == torch.float64), SCHEMES.index(scheme), s.data_ptr(),
-        qdp.data_ptr(), hv.hyai.data_ptr(), hv.hybi.data_ptr(),
-        float(hv.ps0), s_out.data_ptr(), q_out.data_ptr(), k, qsize, ncol,
-        torch.cuda.current_stream(dev).cuda_stream, dev.index)
+    lib = _build.library("remap")
+    f64, sch = int(s.dtype == torch.float64), SCHEMES.index(scheme)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (s.data_ptr(), qdp.data_ptr(), hv.hyai.data_ptr(),
+            hv.hybi.data_ptr(), float(hv.ps0), s_out.data_ptr(),
+            q_out.data_ptr())
+    if not fixer:
+        err = lib.remap_packed_launch(f64, sch, *args, k, qsize, ncol, stream,
+                                      dev.index)
+        _build.check_launch("remap", err)
+        _count(remap_packed_cuda, s.dtype)
+        return s_out, q_out
+    # (a) the dp rows; their air mass; (b) the remap scaled by the ratio
+    err = lib.remap_fixer_launch(f64, sch, FIX_DP, *args, None, None, k,
+                                 qsize, ncol, stream, dev.index)
     _build.check_launch("remap", err)
-    _count(remap_packed_cuda, s.dtype)
+    with span("remap.fixer"):
+        mass = packed_air_mass(s_out, sph_lanes, k)
+    err = lib.remap_fixer_launch(f64, sch, FIX_SCALE, *args, mass.data_ptr(),
+                                 mass_target.data_ptr(), k, qsize, ncol,
+                                 stream, dev.index)
+    _build.check_launch("remap", err)
+    _count(remap_packed_cuda, s.dtype, 2)
+    remap_packed_cuda.fixer_launches += 1
     return s_out, q_out
 
 
 remap_packed_cuda.launches = 0
 remap_packed_cuda.f64_launches = 0
+remap_packed_cuda.fixer_launches = 0
 
 
 def remap_levels_cuda(q: torch.Tensor, dp_src: torch.Tensor,
@@ -354,12 +424,17 @@ def remap_walk_emulated(x: torch.Tensor, dp_src: torch.Tensor,
 
 
 def remap_packed_emulated(s: torch.Tensor, qdp: torch.Tensor, hv, nlev: int,
-                          qsize: int, scheme: str = "plm"):
+                          qsize: int, scheme: str = "plm",
+                          dp_only: bool = False, mass=None, target=None):
     """The packed kernel in torch: the dp rows by the kernel's operations in
     s's dtype (the compensated totals, ps, dp_ref from the hybrid terms, the
     ratio), the same chain in float64 from the same rounded terms for the
     layers the walk remaps onto, then the walk of u, v, T as densities and
-    of every tracer's qdp as masses. Returns (s', qdp')."""
+    of every tracer's qdp as masses. Returns (s', qdp'). The fixer's two
+    launches: with ``dp_only`` the first, which returns the dp rows [nlev,
+    C] alone; with ``mass`` and ``target`` (0-d tensors) the second, whose
+    dp rows and tracer values are each stored times r = target / mass (one
+    rounded division, one rounded product a value; u, v, T unscaled)."""
     k, f64 = nlev, torch.float64
     dp = s[3 * k:4 * k]
     hyai, hybi, ps0 = hv.hyai, hv.hybi, hv.ps0
@@ -372,11 +447,16 @@ def remap_packed_emulated(s: torch.Tensor, qdp: torch.Tensor, hv, nlev: int,
         ref = da.to(x.dtype) + db.to(x.dtype)[:, None] * ps
         return ref * (tot / comp_sum(ref, 0))
 
-    dp_tgt, dp_walk = layers(dp), layers(dp.to(f64))
+    dp_tgt = layers(dp)
+    if dp_only:
+        return dp_tgt
+    r = None if mass is None else target / mass
+    store = (lambda x: x) if r is None else (lambda x: x * r)
+    dp_walk = layers(dp.to(f64))
     walk = lambda x, tracer: remap_walk_emulated(x, dp, dp_walk, scheme,
                                                  tracer)
     s_new = torch.cat([walk(x, False) for x in s[:3 * k].split(k)]
-                      + [dp_tgt])
-    q_new = torch.cat([walk(x, True) for x in qdp.split(k)]) \
+                      + [store(dp_tgt)])
+    q_new = torch.cat([store(walk(x, True)) for x in qdp.split(k)]) \
         if qsize else torch.empty_like(qdp)
     return s_new, q_new
