@@ -1,8 +1,9 @@
 """What a per-layer metric's reader (``metrics/<name>.py``) is handed: the
-traced slice, the cell's shapes, the window's step times, the frozen work
-counts and the published peaks. A reader returns a number, or None where
-its layer ran nothing in the slice; a share of a roofline or of a peak is
-never returned as 0.
+traced slice, the cell's shapes, the window's mean step time, its step
+times and its whole cadence periods' times a step (``run.periods_ms``),
+the frozen work counts and the published peaks. A reader returns a
+number, or None where its layer ran nothing in the slice; a share of a
+roofline or of a peak is never returned as 0.
 """
 from __future__ import annotations
 
@@ -21,9 +22,11 @@ PEAK_FLOPS_PER_S = 67e12
 
 class Context:
     def __init__(self, trace, shape: dict, step_ms: float,
-                 step_times_ms: list, base: str, metric: str):
+                 step_times_ms: list, periods_ms: list, base: str,
+                 metric: str):
         self.trace, self.shape = trace, shape
         self.step_ms, self.step_times_ms = step_ms, step_times_ms
+        self.periods_ms = periods_ms
         self.base, self.metric = base, metric
         self.kmap = spec.kernel_map(metric, base)
 

@@ -21,6 +21,8 @@ the SphereOperators of HOMME, as listed beside each function.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 REARTH = 6.376e6
@@ -194,11 +196,12 @@ def caar_rhs(S: Sphere, hv: dict, u, v, t, dp, qdp_moist, phis, pecnd):
                                         vn0v=vdp2)
 
 
-def dynamics(S: Sphere, hv: dict, st: dict, consts: dict, dt: float):
-    """SSPRK3 of (u, v, T, dp) with a projection per stage. Returns the new
-    (u, v, T, dp), phi of the last stage and the accumulators."""
+def dynamics(S: Sphere, hv: dict, st: dict, moist, consts: dict,
+             dt: float):
+    """SSPRK3 of (u, v, T, dp) with a projection per stage, T_v from the
+    moisture tracer ``moist``. Returns the new (u, v, T, dp), phi of the
+    last stage and the accumulators."""
     x0 = tuple(st[k] for k in ("u", "v", "T", "dp"))
-    moist = st["q"][:, 0]
     acc = {k: st[k] for k in ("vn0u", "vn0v", "omg")}
 
     def stage(x, w):
@@ -319,10 +322,11 @@ def remap_column(x, dp_src, dp_tgt):
     return (integral[:, 1:] - integral[:, :-1]) / dp_tgt
 
 
-def remap(hv: dict, st: dict) -> dict:
-    """u, v, T and the tracers' mixing ratios remapped from the Lagrangian
-    dp to the hybrid reference levels of the same column mass."""
-    dp_src = _levels_last(st["dp"])
+def remap_layers(hv: dict, dp) -> tuple:
+    """The remap's source and target layers [columns, K] for a state with
+    layers dp: the Lagrangian dp to the hybrid reference levels of the same
+    column mass."""
+    dp_src = _levels_last(dp)
     ps = float(hv["hyai"][0]) * float(hv["ps0"]) + dp_src.sum(1, keepdim=True)
     hyai = torch.as_tensor(hv["hyai"], dtype=ps.dtype, device=ps.device)
     hybi = torch.as_tensor(hv["hybi"], dtype=ps.dtype, device=ps.device)
@@ -330,23 +334,84 @@ def remap(hv: dict, st: dict) -> dict:
         + torch.diff(hybi)[None] * ps
     dp_tgt = dp_ref * (dp_src.sum(1, keepdim=True)
                        / dp_ref.sum(1, keepdim=True))
+    return dp_src, dp_tgt
 
-    def rmp(x):
-        return _levels_back(remap_column(_levels_last(x), dp_src, dp_tgt), x)
 
-    out = dict(st)
-    for k in ("u", "v", "T"):
-        out[k] = rmp(st[k])
-    out["dp"] = _levels_back(dp_tgt, st["dp"])
-    ratio = st["q"] / st["dp"].unsqueeze(1)
-    out["q"] = torch.stack([rmp(ratio[:, i]) for i in range(ratio.shape[1])],
-                           1) * out["dp"].unsqueeze(1)
-    return out
+def remap_field(x, layers: tuple):
+    """A field's cell averages remapped between ``remap_layers``' layers."""
+    return _levels_back(remap_column(_levels_last(x), *layers), x)
 
 
 def air_mass(S: Sphere, dp) -> torch.Tensor:
     """The spheremp-weighted air mass of dp."""
     return (lift(S.spheremp, dp.dim()) * dp).sum()
+
+
+@dataclasses.dataclass
+class AirStep:
+    """One step of everything but the tracers, and what the tracers' part
+    of the same step (``tracer_step``) takes from it."""
+    out: dict               # u, v, T, dp and the accumulators after the step
+    phi: torch.Tensor
+    u: torch.Tensor         # the winds the tracers ride: after
+    v: torch.Tensor         # hyperviscosity, before the remap
+    dp: torch.Tensor        # dp before the remap
+    dp_remapped: torch.Tensor | None     # after the remap, before the fixer
+    layers: tuple | None    # the remap's layers; None off a remap step
+    ratio: torch.Tensor | None           # the fixer's factor; None without
+    dt: float
+    nsub: int
+    iters: int | None
+
+
+def air_step(S: Sphere, hv: dict, st: dict, moist, consts: dict, cfg: dict,
+             remap_step: bool, mass_target=None) -> AirStep:
+    """The dynamics, hyperviscosity and, on a remap step, the remap of u,
+    v, T and dp with the fixer's factor, from the state ``st`` (u, v, T,
+    dp, vn0u, vn0v, omg) and its moisture tracer ``moist`` [nelem, nlev,
+    4, 4]. ``cfg`` as ``model_step`` reads it."""
+    if cfg["remap"] != "plm":
+        raise ValueError(f"reference: remap scheme {cfg['remap']!r}; "
+                         f"it carries out plm")
+    dt = float(cfg["dt"])
+    (u, v, t, dp), phi, acc = dynamics(S, hv, st, moist, consts, dt)
+    if cfg["nu"]:
+        u, v, t = hyperviscosity(S, u, v, t, float(cfg["nu"]), dt,
+                                 int(cfg["hypervis_subcycle"]))
+    out = dict(u=u, v=v, T=t, dp=dp, **acc)
+    dp_remapped = layers = ratio = None
+    if remap_step:
+        layers = remap_layers(hv, dp)
+        for k in ("u", "v", "T"):
+            out[k] = remap_field(out[k], layers)
+        dp_remapped = _levels_back(layers[1], dp)
+        out["dp"] = dp_remapped
+        if cfg["mass_fixer"]:
+            ratio = mass_target / air_mass(S, dp_remapped)
+            out["dp"] = dp_remapped * ratio
+    return AirStep(out=out, phi=phi, u=u, v=v, dp=dp,
+                   dp_remapped=dp_remapped, layers=layers, ratio=ratio,
+                   dt=dt, nsub=max(int(cfg["qsplit"]), 1),
+                   iters=int(cfg["limiter_iters"]) if cfg["limiter"]
+                   else None)
+
+
+def tracer_step(S: Sphere, a: AirStep, q):
+    """The same step for a block of tracer masses q [nelem, n, nlev, 4,
+    4]: qsplit SSPRK3 substeps on ``a``'s winds, each stage limited where
+    the configuration says so; on a remap step the mixing ratios remapped
+    to ``a``'s layers and, with the fixer, scaled by its factor. Tracers
+    do not mix, so any blocking of them gives the same values."""
+    for _ in range(a.nsub):
+        q = tracers(S, q, a.u, a.v, a.dt / a.nsub, a.iters)
+    if a.layers is not None:
+        ratio = q / a.dp.unsqueeze(1)
+        q = torch.stack([remap_field(ratio[:, i], a.layers)
+                         for i in range(ratio.shape[1])], 1) \
+            * a.dp_remapped.unsqueeze(1)
+        if a.ratio is not None:
+            q = q * a.ratio
+    return q
 
 
 def model_step(S: Sphere, hv: dict, st: dict, consts: dict, cfg: dict,
@@ -358,30 +423,10 @@ def model_step(S: Sphere, hv: dict, st: dict, consts: dict, cfg: dict,
     ``mass_target``). The tracers advance ``tracer_block`` at a time (all
     at once by default), which bounds the memory the substep holds.
     Returns (new state, phi)."""
-    if cfg["remap"] != "plm":
-        raise ValueError(f"reference: remap scheme {cfg['remap']!r}; "
-                         f"it carries out plm")
-    dt = float(cfg["dt"])
-    (u, v, t, dp), phi, acc = dynamics(S, hv, st, consts, dt)
-    if cfg["nu"]:
-        u, v, t = hyperviscosity(S, u, v, t, float(cfg["nu"]), dt,
-                                 int(cfg["hypervis_subcycle"]))
-    nsub = max(int(cfg["qsplit"]), 1)
-    iters = int(cfg["limiter_iters"]) if cfg["limiter"] else None
-    blocks = []
+    a = air_step(S, hv, st, st["q"][:, 0], consts, cfg, remap_step,
+                 mass_target)
     nq = st["q"].shape[1]
-    for b in range(0, nq, tracer_block or nq):
-        q = st["q"][:, b:b + (tracer_block or nq)]
-        for _ in range(nsub):
-            q = tracers(S, q, u, v, dt / nsub, iters)
-        blocks.append(q)
+    blocks = [tracer_step(S, a, st["q"][:, b:b + (tracer_block or nq)])
+              for b in range(0, nq, tracer_block or nq)]
     q = blocks[0] if len(blocks) == 1 else torch.cat(blocks, 1)
-    del blocks
-    out = dict(u=u, v=v, T=t, dp=dp, q=q, **acc)
-    if remap_step:
-        out = remap(hv, out)
-        if cfg["mass_fixer"]:
-            r = mass_target / air_mass(S, out["dp"])
-            out["dp"] = out["dp"] * r
-            out["q"] = out["q"] * r
-    return out, phi
+    return dict(a.out, q=q), a.phi

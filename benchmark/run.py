@@ -7,10 +7,12 @@ A run makes its inputs from ``--seed``, sets the program up, warms up the
 cell's shapes (``warmup_steps`` steps of the cadence, a remap among them),
 then runs the cadence for ``--seconds`` of wall time: eager dispatch, one
 device synchronisation at each end of the window, a CUDA event after every
-step. With ``--trace 1`` the ``trace_steps`` steps after the window run
-under the profiler and the per-layer metrics are read from that trace.
-Then the program's state is freed and the reference judges what the timed
-path produced (``check.py``). The last line of standard output is one JSON
+step. The window pauses once, around the period the check reads, whose
+two steps and host copies count in no time (``run_window``). With
+``--trace 1`` the ``trace_steps`` steps after the window run under the
+profiler and the per-layer metrics are read from that trace. Then the
+program's state is freed and the reference judges what the timed path
+produced (``check.py``). The last line of standard output is one JSON
 object; the numbers compared, each beside its limit, are the last lines of
 standard error and the result's last key.
 
@@ -29,6 +31,7 @@ import gc  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import random  # noqa: E402
+import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 
@@ -74,32 +77,102 @@ def sample(seed: int, traffic: dict, rsplit: int) -> int:
 
 
 class Clock:
-    """A mark after every step: CUDA events on the card, the host clock
-    on the CPU (tests). ``times_ms`` reads the gaps once the window has
-    closed."""
+    """The window's clocks: the host's wall clock, sync to sync, and a mark
+    after every step, a CUDA event on the card (the host clock on the CPU,
+    in tests). The window can close and open again: what runs while it is
+    closed counts in neither clock. ``step_times`` reads the gaps, each
+    with its step's number, once the window has closed."""
 
     def __init__(self, device):
+        self.device = device
         self.cuda = device.type == "cuda"
-        self.marks = []
+        self.wall = 0.0
+        self.stretches = []         # [(step number, mark)] of each opening
+        self._opened = None
 
-    def mark(self):
+    def _now(self):
         if self.cuda:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
-            self.marks.append(ev)
-        else:
-            self.marks.append(time.perf_counter())
+            return ev
+        return time.perf_counter()
 
-    def times_ms(self) -> list:
-        m = self.marks
-        if self.cuda:
-            return [a.elapsed_time(b) for a, b in zip(m, m[1:])]
-        return [(b - a) * 1e3 for a, b in zip(m, m[1:])]
+    def open(self, n: int) -> None:
+        """Open after step ``n``."""
+        sync(self.device)
+        self._opened = time.perf_counter()
+        self.stretches.append([(n, self._now())])
+
+    def mark(self, n: int) -> None:
+        """Step ``n`` has been issued."""
+        self.stretches[-1].append((n, self._now()))
+
+    def close(self) -> None:
+        sync(self.device)
+        self.wall += time.perf_counter() - self._opened
+        self._opened = None
+
+    def timed_s(self) -> float:
+        """Seconds the window has been open."""
+        return self.wall + (time.perf_counter() - self._opened
+                            if self._opened is not None else 0.0)
+
+    def step_times(self) -> list:
+        """(step number, ms) of every timed step."""
+        out = []
+        for marks in self.stretches:
+            for (_, a), (n, b) in zip(marks, marks[1:]):
+                out.append((n, a.elapsed_time(b) if self.cuda
+                            else (b - a) * 1e3))
+        return out
+
+
+def periods_ms(step_times: list, rsplit: int) -> list:
+    """Each whole cadence period's time over ``rsplit``: a period is
+    ``rsplit`` consecutive timed steps that end with a remap step (its
+    number a multiple of ``rsplit``), so each holds its remap."""
+    ms = dict(step_times)
+    return [sum(ms[n - i] for i in range(rsplit)) / rsplit
+            for n in sorted(ms) if n % rsplit == 0
+            and all(n - i in ms for i in range(rsplit))]
 
 
 def sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def run_window(step, prog, state: list, n: int, j: int, rsplit: int,
+               seconds: float, clock: Clock, caps) -> int:
+    """The timed window from ``state`` [s, qdp, acc, phi] after step ``n``,
+    advanced in place (so that no older state stays referenced): step
+    after step, a mark after each, until ``seconds`` of open window have
+    passed beyond the checked period. At step ``j`` the window closes, the
+    check's copies of the state before step j and after steps j and j + 1
+    are taken around those two steps, and the window opens again: those
+    two steps count in neither clock. Returns the last step's number."""
+    def advance(n):
+        state[:] = step(prog, *state[:3], n % rsplit == 0)
+
+    clock.open(n)
+    while True:
+        n += 1
+        if n == j:
+            clock.close()
+            caps.take("in", capture.state_arrays(*state[:3], None))
+            advance(j)
+            caps.take("out", capture.state_arrays(*state))
+            advance(j + 1)
+            caps.take("out2", capture.state_arrays(*state))
+            n = j + 1
+            clock.open(n)
+            continue
+        advance(n)
+        clock.mark(n)
+        if n > j + 1 and clock.timed_s() >= seconds:
+            break
+    clock.close()
+    return n
 
 
 def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
@@ -124,10 +197,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         torch.cuda.init()
         torch.cuda.reset_peak_memory_stats(device)
     mark("cuda init")
-    # the check's copies first, so that the peak is theirs plus the
-    # program's
-    caps = capture.Captures(device, capture.layout(nlev, qsize), nelem * 16)
-    mark("capture buffers")
+    caps = capture.Captures(capture.layout(nlev, qsize), nelem * 16, device)
     grid = G.build(ne)
     levels = G.eta_levels(nlev)
     mark("sphere")
@@ -141,6 +211,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     del raw
     j = sample(seed, traffic, rsplit)
     caps.take("start", capture.state_arrays(s, qdp, acc, None))
+    mark("the check's copy of start")
     n = 0
     for _ in range(warm):
         n += 1
@@ -149,36 +220,32 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
             caps.take("first", capture.state_arrays(s, qdp, acc, phi))
     sync(device)
     mark("warm-up")
+    caps.wait()
+    mark("the check's mapping of its set-up buffers")
     setup_s = time.perf_counter() - t0
     print("set-up: " + ", ".join(
         f"{name} {b - a:.3f} s" for (_, a), (name, b) in
-        zip([("start", t0)] + marks, marks)), file=sys.stderr)
+        zip([("start", t0)] + marks, marks))
+        + f" (of which the check's copy of first "
+          f"{caps.seconds['first']:.3f} s); the check's host buffers "
+          f"{caps.nbytes / 1e9:.3f} GB", file=sys.stderr)
 
-    # the window
     clock = Clock(device)
-    t_open = time.perf_counter()
-    clock.mark()
-    while True:
-        n += 1
-        if n == j:
-            caps.take("in", capture.state_arrays(s, qdp, acc, None))
-        s, qdp, acc, phi = step(prog, s, qdp, acc, n % rsplit == 0)
-        clock.mark()
-        if n == j:
-            caps.take("out", capture.state_arrays(s, qdp, acc, phi))
-        elif n == j + 1:
-            caps.take("out2", capture.state_arrays(s, qdp, acc, phi))
-        if n > j + 1 and time.perf_counter() - t_open >= seconds:
-            break
-    sync(device)
-    wall = time.perf_counter() - t_open
-    steps = n - warm
-    times = clock.times_ms()
-    step_ms = wall * 1e3 / steps
+    t_window = time.perf_counter()
+    state = [s, qdp, acc, phi]
+    del s, qdp, acc, phi
+    n = run_window(step, prog, state, n, j, rsplit, seconds, clock, caps)
+    s, qdp, acc, phi = state
+    del state
+    paused = time.perf_counter() - t_window - clock.wall
+    times = clock.step_times()
+    steps = len(times)
+    step_ms = clock.wall * 1e3 / steps
+    gaps = [ms for _, ms in times]
+    periods = periods_ms(times, rsplit)
+    # the program's own peak: nothing of the check is on the card
     peak = torch.cuda.max_memory_allocated(device) \
         if device.type == "cuda" else 0
-    # the program's own peak: the check's buffers lived through all of it
-    program_peak = peak - caps.nbytes
 
     # the chain the window left: every value finite (one reduction, after
     # the window's close)
@@ -196,18 +263,31 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         k = int(traffic["trace_steps"])
         traced = tracing.read(tracing.run_slice(run_steps, k, device), k)
         del state
-    taken = caps.taken_buffers()
-    del s, qdp, acc, phi, prog, caps
+    del s, qdp, acc, phi, prog
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    raw = inputs.draw(seed, nelem, nlev, qsize, levels, device)
-    nums = check.readings(grid, levels, cfg, rsplit, raw, taken, device)
+    t_check = time.perf_counter()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+    def draw():
+        return inputs.draw(seed, nelem, nlev, qsize, levels, device)
+
+    nums = check.readings(grid, levels, cfg, rsplit, draw, caps.buffers,
+                          device)
     if control:
-        cnums = check.readings(grid, levels, cfg, rsplit, raw, taken,
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        cnums = check.readings(grid, levels, cfg, rsplit, draw, caps.buffers,
                                device, control=True)
-    del raw, taken
+    check_peak = torch.cuda.max_memory_allocated(device) \
+        if device.type == "cuda" else 0
+    print(f"check: {time.perf_counter() - t_check:.3f} s, device peak "
+          f"{check_peak / GIB:.3f} GiB, {check.block_size(nelem, nlev)} "
+          f"tracers a block", file=sys.stderr)
     correct = check.verdict(nums, cell.limits) and finite
     failed = sum(1 for part in ("start", "first", "step", "remap")
                  if any(v > cell.limits.get(k, -1.0)
@@ -226,8 +306,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
                      if float(cfg["nu"]) else 0)
         metrics = {}
         for m in cell.per_layer:
-            ctx = readers.Context(traced, shape, step_ms, times, cell.base,
-                                  m["name"])
+            ctx = readers.Context(traced, shape, step_ms, gaps, periods,
+                                  cell.base, m["name"])
             value = spec.reader(m["name"], cell.base)(ctx)
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
@@ -242,8 +322,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         # reports its step time as step_ms.dispatch, under a bound of its
         # own
         e2e = {"step_ms": step_ms,
-               "step_p95_ms": float(np.percentile(times, 95)),
-               "peak_mem_gib": program_peak / GIB, "setup_s": setup_s}
+               "step_p95_ms": float(np.percentile(gaps, 95)),
+               "peak_mem_gib": peak / GIB, "setup_s": setup_s}
         result["metrics"] = {
             m["name"]: {"value": e2e[m["name"].split(".")[0]],
                         "unit": m["unit"]} for m in cell.end_to_end}
@@ -251,8 +331,13 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     if control:
         result["control"] = cnums
     result["check"] = {k: [v, cell.limits.get(k)] for k, v in nums.items()}
-    print(f"window: {steps} steps in {wall:.6f} s, the checked period "
-          f"steps {j} and {j + 1}, every tracer; the last state "
+    print(f"window: {steps} steps in {clock.wall:.6f} s, "
+          f"{len(periods)} whole cadence periods, period median "
+          f"{statistics.median(periods) if periods else float('nan'):.6f} "
+          f"ms a step; the checked period "
+          f"steps {j} and {j + 1}, paused {paused:.3f} s (the check's copies "
+          f"in {caps.seconds['in']:.3f} s, out {caps.seconds['out']:.3f} s, "
+          f"out2 {caps.seconds['out2']:.3f} s), every tracer; the last state "
           f"{'finite' if finite else 'NOT finite'}", file=sys.stderr)
     lines = [f"check {k}: {v:.6e} limit {cell.limits.get(k)}"
              for k, v in nums.items()]

@@ -120,10 +120,11 @@ def test_every_metric_of_the_benchmark_has_its_reader_and_map():
         assert sorted(cell.limits) == sorted(tiny.NAMES)
 
 
-@pytest.mark.parametrize("name", ["ne30_e3sm_q35", "ne30_tinman_q1"])
+@pytest.mark.parametrize("name", ["ne30_e3sm_q35", "ne30_tinman_q1",
+                                  "ne120_e3sm_q35"])
 @pytest.mark.parametrize("trace", [0, 1])
 def test_the_result_line(trace, name):
-    cell = tiny.cell(name, qsize=3 if name == "ne30_e3sm_q35" else 1)
+    cell = tiny.cell(name, qsize=1 if name == "ne30_tinman_q1" else 3)
     res, lines = run.run_cell(cell, 2 ** 33 + 5, 0.0, bool(trace), CPU)
     json.dumps(res)
     assert list(res)[:5] == ["correct", "attempted", "failed", "metrics",

@@ -17,7 +17,7 @@ from benchmark.tests import tiny
 
 CPU = torch.device("cpu")
 SEED = 2 ** 31 + 77
-CELLS = ("ne30_e3sm_q35", "ne30_tinman_q1")
+CELLS = ("ne30_e3sm_q35", "ne30_tinman_q1", "ne120_e3sm_q35")
 
 
 def test_grid_matches_the_port():
@@ -98,7 +98,7 @@ def _limits(name):
 
 @pytest.mark.parametrize("name", CELLS)
 def test_a_sound_run_passes_and_the_control_fails(name):
-    cell = tiny.cell(name, qsize=3 if name == CELLS[0] else 1)
+    cell = tiny.cell(name, qsize=1 if name == "ne30_tinman_q1" else 3)
     res, lines = run.run_cell(cell, SEED, 0.0, False, CPU, control=True)
     assert res["correct"], res["check"]
     assert not check.verdict(res["control"], cell.limits), res["control"]
@@ -174,7 +174,8 @@ def test_the_control_fails_on_the_card(name):
     passes, the reference in TF32 in its place does not."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    cell = tiny.cell(name, ne=4, nlev=72, qsize=4 if name == CELLS[0] else 1)
+    cell = tiny.cell(name, ne=4, nlev=72,
+                     qsize=1 if name == "ne30_tinman_q1" else 4)
     res, _ = run.run_cell(cell, SEED, 0.0, False, torch.device("cuda", 0),
                           control=True)
     assert res["correct"], res["check"]
