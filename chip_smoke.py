@@ -80,7 +80,8 @@ NVIDIA card and check it, phase by phase:
      [2520, 86400]), winds read out of the [4*nlev] state, with the slab;
      first the design (4 lanes a thread, the warps, lanes and levels of a
      block, cudaOccupancy's blocks an SM and ptxas's registers of the Euler
-     and the two limited instances); then
+     and the two limited instances; the limited ones held to 64 registers,
+     4 blocks an SM and at most 32 bytes of spill stores); then
      ``tracer_euler_cuda`` against ``tracer_euler_plain`` within 5e-5 per
      tracer block, at the run's dt and at a dt long enough for the
      divergence to carry the output, the slab bit for bit the output at the
@@ -403,11 +404,16 @@ NVIDIA card and check it, phase by phase:
      field) on a stage at the run's dt and one whose y is pushed out of its
      bounds: its output and slab bit for bit those of the instance the
      cadence runs; the warp-passes computed in full and skipped adding up to
-     every warp's passes, none skipped but by the bf16 q instance; in the
-     f32 instances its element-passes with a deficit within
-     LIMITER_COUNT_TOL of ``tracer_limit_plain``'s count (the sums run in
-     another order, so a deficit of an ulp's size may fall on either side
-     of 0)
+     every warp's passes, every instance skipping each pass whose warp has
+     no deficit (the share skipped printed); in the f32 instances its
+     element-passes with a deficit within LIMITER_COUNT_TOL of
+     ``tracer_limit_plain``'s count (the sums run in another order, so a
+     deficit of an ulp's size may fall on either side of 0); then every
+     limited instance, output and slab, bit for bit ``csrc/tracer.cu``
+     built with SKIP_OFF_FLAGS (no pass skipped), at qsize 1 and
+     QSIZE_TALL, without and with the cadence's Shu-Osher pairs, at the
+     run's dt and a long one, with ptxas's registers and spills of each
+     limited instance in both builds (``limiter_skip_bits``)
 
 Phases 22-30 run after phase 21, before the lines of phase 17.
 
@@ -525,6 +531,12 @@ CONSERVE_TOL = 4e-6            # limiter: an element's mass, of its sum|w*y|
 BOUNDS_TOL = 1e-6              # limiter: outside the bounds, of max|q|
 QSIZE_TALL = 35                # E3SM's tracer count: the [2520, E16] stack
 LIMITER_COUNT_TOL = 1e-3       # counting twin against plain, of the count
+# the limited stage's f32 instances (phase 11): registers capped at 64 for 4
+# blocks an SM, and spill stores of at most the mix instance's 32 bytes
+LIMIT_REGISTERS, LIMIT_BLOCKS, LIMIT_MIX_SPILL = 64, 4, 32
+# phase 31: csrc/tracer.cu built with no limiter pass skipped, the control
+# that every limited instance keeps its bits with the skip
+SKIP_OFF_FLAGS = ("-DTRACER_SKIP=0",)
 # the rows the extract is checked and timed at in phase 4 and kernel_times:
 # a field, the prognostic state, the qsize-35 tracer stack
 EXTRACT_ROWS = (72, 288, 2520)
@@ -2139,8 +2151,7 @@ def phase_tracer_kernels(dev, cs):
     tr_lib = _build.library("tracer")
     occ = {case: tr_lib.tracer_blocks_per_sm(kind, dev.index)
            for case, kind in (("euler", 0), ("limit_mix", 2), ("limit", 3))}
-    regs = {{"ILb0ELb0EE": "euler", "ILb1ELb1EE": "limit_mix",
-             "ILb1ELb0EE": "limit"}.get(inst, inst): rep
+    regs = {tracer_instance(inst): rep
             for inst, rep in ptxas_report("tracer", "tracer_kernel")}
     nblocks = -(-e16 // TRACER_TILE) * -(-k // TRACER_LEVELS)
     nsm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -2154,6 +2165,13 @@ def phase_tracer_kernels(dev, cs):
         if bps <= 0:
             raise AssertionError(f"occupancy of tracer_kernel {case}: error "
                                  f"{-bps}")
+        if case != "euler":
+            used, spill = ptxas_numbers(regs[case])
+            if used > LIMIT_REGISTERS or bps < LIMIT_BLOCKS or \
+                    spill > LIMIT_MIX_SPILL:
+                raise AssertionError(f"tracer_kernel {case}: {used} "
+                                     f"registers, {spill} bytes spilled, "
+                                     f"{bps} blocks an SM")
 
     def block_errs(got, want):
         return max(scaled_err(a, b) for a, b in zip(got.split(k),
@@ -4210,14 +4228,17 @@ def phase_multidevice_path(dev, cs):
     return times
 
 
-def ptxas_report(source: str, tag: str) -> list:
+def ptxas_report(source: str, tag: str, report: str = None) -> list:
     """[(template arguments, registers and spills)] of each instance of the
-    kernel ``tag`` in nvcc's report of the build of ``source``; the
-    arguments as mangled (ILb1ELb0EE = <true, false>)."""
+    kernel ``tag`` in nvcc's report of the port's build of ``source`` (or
+    in ``report``); the arguments as mangled (ILb1ELb0EE = <true,
+    false>)."""
     from tinman_sandbox_tpu_torch.kernels import _build
 
-    with open(_build.ptxas_log(source)) as f:
-        lines = f.read().splitlines()
+    if report is None:
+        with open(_build.ptxas_log(source)) as f:
+            report = f.read()
+    lines = report.splitlines()
     found, inst = {}, None
     for ln in lines:
         if "Compiling entry function" in ln:
@@ -4231,6 +4252,53 @@ def ptxas_report(source: str, tag: str) -> list:
     if not found:
         raise AssertionError(f"no ptxas report for {tag}")
     return [(i, "; ".join(r)) for i, r in found.items()]
+
+
+def ptxas_numbers(report: str) -> tuple:
+    """(registers, bytes of spill stores) of one ``ptxas_report`` entry."""
+    used = re.search(r"Used (\d+) registers", report)
+    spill = re.search(r"(\d+) bytes spill stores", report)
+    return int(used.group(1)), int(spill.group(1)) if spill else 0
+
+
+# tracer_kernel's template arguments <kLimit, kMix, kQBf, kMxBf> -> the
+# instance's name in phases 11 and 31
+TRACER_INSTANCES = {
+    (False, False, False, False): "euler", (True, True, False, False):
+    "limit_mix", (True, False, False, False): "limit",
+    (False, False, True, False): "euler_bf16_q",
+    (True, False, True, False): "limit_bf16_q",
+    (True, True, False, True): "limit_mix_bf16_mx"}
+
+
+def tracer_instance(mangled: str) -> str:
+    """The name of a tracer_kernel instance from its mangled template
+    arguments (ILb1ELb0ELb0ELb0EE = <true, false, false, false>)."""
+    args = [a == "1" for a in re.findall(r"Lb([01])E", mangled)]
+    return TRACER_INSTANCES.get(tuple(args + [False] * (4 - len(args))),
+                                mangled)
+
+
+def variant_library(source: str, flags, tag: str):
+    """``source`` (a key of ``_build.SOURCES``) built with the port's nvcc
+    flags and ``flags`` into build/chip_smoke/<source>_<tag>.so. Returns
+    (the library, loaded with the port's signatures; nvcc's report)."""
+    import subprocess
+
+    from tinman_sandbox_tpu_torch.kernels import _build
+
+    out = os.path.join(os.path.dirname(_build.BUILD_DIR), "chip_smoke")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, f"{source}_{tag}.so")
+    proc = subprocess.run(
+        [_build._nvcc(), *_build._flags(source), *flags, "-o", path,
+         os.path.join(os.path.dirname(_build.__file__), "..", "csrc",
+                      _build.SOURCES[source])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"{source} {tag}: nvcc failed\n"
+                           f"{proc.stdout[-4000:]}")
+    return _build._load(path, source), proc.stdout
 
 
 # the remap kernel's f32 instances on the cadence's path, by their mangled
@@ -6955,11 +7023,13 @@ def phase_limiter_counts(dev, cs) -> None:
             line = (f"phase 31 counting twin {tag}: bit for bit; "
                     + ", ".join(f"{k} {v}" for k, v in n.items())
                     + f" of {total} warp-passes")
-            if n["warp_passes"] + n["warp_passes_skipped"] != total \
-                    or n["warp_passes_with_deficit"] > n["warp_passes"]:
+            line += (f"; {100.0 * n['warp_passes_skipped'] / total:.2f}% "
+                     "skipped")
+            if n["warp_passes"] + n["warp_passes_skipped"] != total:
                 raise AssertionError(f"{line}: the passes do not add up")
-            if n["warp_passes_skipped"] and case != "bf16 q":
-                raise AssertionError(f"{line}: a pass skipped")
+            if n["warp_passes_with_deficit"] != n["warp_passes"]:
+                raise AssertionError(f"{line}: a pass without a deficit was "
+                                     "not skipped")
             if case.startswith("f32"):
                 with record_spans(counters=True) as rp:
                     tracer_limit_plain(meta, s0, s0, qc, dvv, dt, NLEV,
@@ -6969,12 +7039,87 @@ def phase_limiter_counts(dev, cs) -> None:
                           - p["element_passes_with_deficit"])
                 line += (f"; plain {p['element_passes_with_deficit']} "
                          f"element-passes with a deficit, "
-                         f"{p['warp_passes_with_deficit']} warp-passes")
+                         f"{p['warp_passes_with_deficit']} warp-passes, "
+                         f"{p['warp_passes_skipped']} skipped")
                 if gap > LIMITER_COUNT_TOL * p["element_passes_with_deficit"]:
                     raise AssertionError(f"{line}: {gap} from the plain "
                                          "count")
             print(line)
         del q, mx, cases
+        torch.cuda.empty_cache()
+    limiter_skip_bits(dev, cs)
+
+
+def limiter_skip_bits(dev, cs) -> None:
+    """Phase 31: every limited instance of the port (each skips a limiter
+    pass with no deficit in the warp) bit for bit, output and slab, the
+    same source built with SKIP_OFF_FLAGS (no pass skipped), at ne30 x 72,
+    qsize 1 and QSIZE_TALL: f32 q without the combination and with the
+    cadence's Shu-Osher pairs (3/4, 1/4 and 1/3, 2/3; mx the substep's
+    input, q its first stage's output), at the run's dt and at a dt long
+    enough for the divergence to carry the output; a bf16 q and a bf16 mx
+    at the run's dt. Prints ptxas's registers and spills of each limited
+    instance in both builds."""
+    import numpy as np
+    import torch
+
+    from tinman_sandbox_tpu_torch import bench
+    from tinman_sandbox_tpu_torch.kernels import _build
+    from tinman_sandbox_tpu_torch.kernels.dss import fix_tables
+    from tinman_sandbox_tpu_torch.kernels.tracer_t import (
+        tracer_euler_cuda, tracer_euler_plain, tracer_limit_cuda)
+    from tinman_sandbox_tpu_torch.timeloop.rk import third_stage_weights
+
+    off, report = variant_library("tracer", SKIP_OFF_FLAGS, "skip0")
+    regs = lambda rep: {tracer_instance(i): r for i, r in
+                        ptxas_report("tracer", "tracer_kernel", rep)}
+    port, off_regs = regs(None), regs(report)
+    for inst in ("limit", "limit_mix", "limit_bf16_q", "limit_mix_bf16_mx"):
+        print(f"phase 31 ptxas tracer_kernel {inst}: skipping "
+              f"{port.get(inst)}; skipping nothing {off_regs.get(inst)}")
+    (_, meta, _, dvv), s0, _, _, plan, _ = bench.make_prim_problem(
+        cs.ne, NLEV, dev, DYN_DT, 1)
+    kw = dict(wind_rows=(0, 1), fix=fix_tables(plan, dev))
+    f = np.float32
+    pairs = {"mix 3/4": (f(0.75), f(0.25)),
+             "mix 1/3": third_stage_weights(f)}
+    port_library = _build.library
+    for qsize in (1, QSIZE_TALL):
+        qn = bench.make_prim_problem(cs.ne, NLEV, dev, DYN_DT, qsize)[2]
+        div = qn - tracer_euler_plain(meta, s0, s0, qn, dvv, 1.0, NLEV,
+                                      fold_sph=False, wind_rows=(0, 1))
+        dt_long = 0.5 * float(qn.abs().max()) / float(div.abs().max())
+        del div
+        for dt in (DYN_DT, dt_long):
+            # the substep's first stage, unlimited: the next stages' q
+            q1 = tracer_euler_cuda(meta, s0, s0, qn, dvv, dt, NLEV,
+                                   fold_sph=False, wind_rows=(0, 1))
+            cases = [("q", qn, None)] + [(name, q1, (qn, *ab))
+                                        for name, ab in pairs.items()]
+            if dt == DYN_DT:
+                cases += [("bf16 q", qn.to(torch.bfloat16), None),
+                          ("bf16 mx", q1, (qn.to(torch.bfloat16),
+                                           *pairs["mix 3/4"]))]
+            for case, q, mix in cases:
+                tag = f"ne{cs.ne}x{NLEV} qsize {qsize} {case} dt {dt:.4g}"
+                got = tracer_limit_cuda(meta, s0, s0, q, dvv, dt, NLEV,
+                                        mix=mix, **kw)
+                _build.library = lambda n: off if n == "tracer" \
+                    else port_library(n)
+                try:
+                    want = tracer_limit_cuda(meta, s0, s0, q, dvv, dt, NLEV,
+                                             mix=mix, **kw)
+                finally:
+                    _build.library = port_library
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"skip bits {tag}: the port's "
+                                         "output or slab differs from the "
+                                         "build that skips nothing")
+                print(f"phase 31 skip bits {tag}: output and slab bit for "
+                      "bit the build that skips nothing")
+                del got, want
+            del q1, cases
+        del qn
         torch.cuda.empty_cache()
 
 

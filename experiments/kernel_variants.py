@@ -145,8 +145,8 @@ order.
      and 2, the loads and stores alone (``TRACER_CUT=1``), the body
      without the limiter (``TRACER_CUT=2``) and the limited stage's bf16 q
      prefetched as before (``TRACER_BF_AHEAD``) and the limiter's empty
-     passes skipped by no limited instance or by all (``TRACER_SKIP``),
-     built in parallel; each
+     passes skipped by no limited instance (``TRACER_SKIP=0``; the port's
+     build skips them in every one), built in parallel; each
      case also on the f32 instance with the bf16 q upcast (its data
      through the f32 code). Each bf16 instance bit for bit its f32
      instance on the upcast q, each cut build bit for bit what it
@@ -891,8 +891,7 @@ TRACER_BF16_BUILDS = (("port", []), ("loads", ["-DTRACER_CUT=1"]),
                       ("advect", ["-DTRACER_CUT=2"]),
                       ("ahead0", ["-DTRACER_BF_AHEAD=0"]),
                       ("ahead1", ["-DTRACER_BF_AHEAD=1"]),
-                      ("skip0", ["-DTRACER_SKIP=0"]),
-                      ("skip_all", ["-DTRACER_SKIP=2"]))
+                      ("skip0", ["-DTRACER_SKIP=0"]))
 # its cases: (name, limited, q: "f32", "bf16" or "up" (the f32 instance on
 # the bf16 q upcast: the bf16 case's data through the f32 code),
 # tracer_blocks_per_sm kind)
@@ -924,8 +923,8 @@ def tracer_bf16(dev, card):
     (TRACER_CUT=1), the body without the limiter (TRACER_CUT=2) and the
     limited stage's bf16 q prefetched otherwise (TRACER_BF_AHEAD 0: one
     tracer ahead, upcast as loaded; 1: one ahead, raw) and its empty
-    limiter passes skipped by no instance or by every limited instance
-    (TRACER_SKIP 0 and 2; the port's 1: the bf16 q's). Each bf16 instance
+    limiter passes skipped by no instance (TRACER_SKIP=0; the port's build
+    skips them in every limited instance). Each bf16 instance
     held bit for bit against its f32 instance on the upcast q, the cut
     builds against what they compute (sph*q; the Euler stage's output),
     timed from CUDA graphs at the run's dt; then, by differences, the

@@ -17,6 +17,7 @@ another summation order (the limit of tests/test_tracer_pallas.py and
 tests/test_torch_tracer.py); 4e-6 of sum|w*y| for an element's mass and
 1e-6 of max|q| for the bounds (chip_smoke.py's CONSERVE_TOL, BOUNDS_TOL).
 """
+import inspect
 import os
 import re
 
@@ -42,9 +43,11 @@ from tinman_sandbox_tpu.kernels.tracer_pallas_t import (
 )
 from tinman_sandbox_tpu_torch.convert import plan_from_fields
 from tinman_sandbox_tpu_torch.kernels import _build, ring_fused
+from tinman_sandbox_tpu_torch.kernels.layout import META_COLS
 from tinman_sandbox_tpu_torch.kernels.dss import fix_tables
 from tinman_sandbox_tpu_torch.kernels.tracer_t import (
     TRACER_LEVELS,
+    TRACER_SKIP,
     TRACER_TILE,
     TRACER_WARPS,
     _check_aligned,
@@ -55,6 +58,8 @@ from tinman_sandbox_tpu_torch.kernels.tracer_t import (
     tracer_limit_emulated,
     tracer_limit_plain,
 )
+from tinman_sandbox_tpu_torch.profiling import record_spans
+from tinman_sandbox_tpu_torch.timeloop.rk import third_stage_weights
 
 torch.set_num_threads(2)
 KERNEL_TOL = 3e-6
@@ -293,15 +298,28 @@ def test_torch_tracer_limit_emulated_conserves_and_bounds(case):
         assert float((y_in.double() - y).abs().max()) > 0.5
 
 
-@pytest.mark.parametrize("case,iters", [("free", 2), ("pushed", 2),
-                                        ("pushed", 1), ("calm", 2)])
+def _plain_counts(meta, vu, vv, q, dvv, dt, nlev, mix, iters):
+    """``profiling.LIMITER_COUNTS`` of the plain limited stage."""
+    with record_spans(counters=True) as rec:
+        tracer_limit_plain(meta, vu, vv, q, dvv, dt, nlev, mix=mix,
+                           iters=iters)
+    return rec.limiter()
+
+
+@pytest.mark.parametrize("case,iters", [
+    ("free", 2), ("pushed", 2), ("pushed", 1), ("calm", 2), ("mix 3/4", 2),
+    ("mix 3/4", 1), ("mix 1/3", 2)])
 def test_torch_tracer_limit_skip_keeps_every_bit(case, iters):
-    """The limited stage's instance for a bf16 q skips a limiter pass in
-    which no element of the warp (8 elements of a row) has a deficit: such
-    a pass gives the clipped values bit for bit (pos false, give +-0, c
-    +0), so the stage emulated with the skip equals it without. In the
-    first pass every warp has a deficit (free), some do (pushed) or none
-    (calm: y = q)."""
+    """Every limited instance skips a limiter pass in which no element of
+    the warp (8 elements of a row) has a deficit: such a pass gives the
+    clipped values bit for bit (pos false, give +-0, c +0), so the stage
+    emulated with the skip equals it without, in the stage without mx and
+    in the Shu-Osher stages with it (y = ca*mx + cb*e, (ca, cb) = (3/4,
+    1/4) and (1/3, 2/3), mx the substep's input and q its first stage's
+    output). In the first pass every warp has a deficit (free, mix 1/3),
+    some do (pushed, mix 3/4) or none (calm: y = q). The plain limiter
+    counts the passes as the kernels do: each warp's pass is computed, with
+    a deficit, or skipped."""
     nlev, qsize = 26, 3
     _, (meta, vu, vv, q, dvv), _, fix = _packed(2, nlev, qsize, seed=41)
     dt, tmix = 0.0, None
@@ -313,9 +331,17 @@ def test_torch_tracer_limit_skip_keeps_every_bit(case, iters):
         bump = _T((rng.random(tuple(q.shape)) < 0.01).astype(np.float32))
         tmix = (q + bump, 1.0, 0.0)
         dt = 0.0
+    elif case.startswith("mix"):
+        qn, _ = _squeezed(q, 44)
+        dt = _long_dt(meta, vu, vv, qn, dvv, nlev)
+        q = tracer_euler_plain(meta, vu, vv, qn, dvv, dt, nlev,
+                               fold_sph=False)
+        ab = (np.float32(0.75), np.float32(0.25)) if case == "mix 3/4" \
+            else third_stage_weights(np.float32)
+        tmix = (qn, *ab)
     y = tracer_euler_plain(meta, vu, vv, q, dvv, dt, nlev, fold_sph=False)
     if tmix is not None:
-        y = tmix[0]
+        y = float(tmix[1]) * tmix[0] + float(tmix[2]) * y
     quads = lambda x: x.reshape(x.shape[0], -1, 4, 4)
     lo = quads(q).amin((2, 3), keepdim=True)
     hi = quads(q).amax((2, 3), keepdim=True)
@@ -323,13 +349,51 @@ def test_torch_tracer_limit_skip_keeps_every_bit(case, iters):
     d = _qsum(meta[11].view(1, -1, 4, 4) * (yq - yq.clamp(lo, hi)))
     empty = _warp_all(d == 0)[:, ::8]
     assert (bool(empty.any()), bool((~empty).any())) == {
-        "free": (False, True), "pushed": (True, True),
-        "calm": (True, False)}[case]
+        "free": (False, True), "pushed": (True, True), "calm": (True, False),
+        "mix 3/4": (True, True), "mix 1/3": (False, True)}[case]
     runs = [tracer_limit_emulated(meta, vu, vv, q, dvv, dt, nlev, mix=tmix,
                                   iters=iters, fix=fix, skip=skip)[:2]
             for skip in (False, True)]
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+    n = _plain_counts(meta, vu, vv, q, dvv, dt, nlev, tmix, iters)
+    assert n["warp_passes"] + n["warp_passes_skipped"] == empty.numel() * iters
+    assert n["warp_passes_with_deficit"] == n["warp_passes"]
+    first = int(empty.sum())
+    if iters == 1:
+        assert n["warp_passes_skipped"] == first
+    else:
+        # a second pass finds a deficit only where the first left a carry
+        assert n["warp_passes_skipped"] > first
+    if case == "calm":
+        assert n["warp_passes"] == 0
+
+
+def test_torch_tracer_skip_setting_mirrors_the_source():
+    """The port's skip setting is one: ``TRACER_SKIP`` is csrc/tracer.cu's
+    default (every limited instance skips), the emulation's default, and
+    what the plain limiter's counts follow (the crafted pass below has a
+    deficit in one warp of two)."""
+    src = open(os.path.join(os.path.dirname(_build.__file__), "..", "csrc",
+                            "tracer.cu")).read()
+    default = re.search(r"#else\nconstexpr bool kSkipLimit = (true|false);"
+                        r"\n#endif", src)
+    assert default.group(1) == "true" and TRACER_SKIP is True
+    assert "constexpr bool kSkip = kLimit && kSkipLimit;" in src
+    sig = inspect.signature(tracer_limit_emulated)
+    assert sig.parameters["skip"].default is TRACER_SKIP
+    nel = 16
+    meta = torch.zeros(len(META_COLS), nel * 16)
+    meta[META_COLS.index("spheremp")] = 1.0
+    q = torch.zeros(1, nel, 16)
+    q[..., 5] = 1.0
+    mx = q.clone()
+    mx[0, 2, 9] = 1.5                  # element 2, in the first warp
+    wind = torch.zeros(1, nel * 16)
+    n = _plain_counts(meta, wind, wind, q.reshape(1, -1),
+                      torch.eye(4), 0.0, 1, (mx.reshape(1, -1), 1.0, 0.0), 1)
+    assert n == {"warp_passes": 1, "warp_passes_with_deficit": 1,
+                 "warp_passes_skipped": 1, "element_passes_with_deficit": 1}
 
 
 # -- what the wrappers and the build promise the kernels ----------------------

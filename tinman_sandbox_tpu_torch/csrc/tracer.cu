@@ -242,15 +242,17 @@ constexpr int kBfAhead = TRACER_BF_AHEAD;
 #else
 constexpr int kBfAhead = 2;
 #endif
-// With that q the stage is bound by the limiter's instructions more than by
-// its bytes, so its passes skip the room, the give and the division for a
-// warp whose elements all have nothing to give (limit, kSkip).
-// experiments/kernel_variants.py builds with TRACER_SKIP 0 (no instance
-// skips) and 2 (every limited instance does), the port's being 1.
+// Every limited instance (f32 or bf16 q, with or without mx) skips the
+// room, the give and the division of a limiter pass for a warp whose
+// elements all have nothing to give (limit, kSkip): in E3SM's ne30 step
+// with 35 tracers half of the warp-passes, nearly all second passes, have
+// none. The Euler and ring instances run no limiter.
+// experiments/kernel_variants.py builds with TRACER_SKIP=0 (no instance
+// skips), the control that the skip keeps every bit.
 #ifdef TRACER_SKIP
-constexpr int kSkipLimit = TRACER_SKIP;
+constexpr bool kSkipLimit = TRACER_SKIP != 0;
 #else
-constexpr int kSkipLimit = 1;
+constexpr bool kSkipLimit = true;
 #endif
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -486,12 +488,15 @@ struct Count {
 // The limiter on the thread's 4 lanes: bounds from the stage input q,
 // weights w = sph, `iters` clip-and-redistribute passes with the carry,
 // then the residual spread uniformly by weight. With kSkip a pass in which
-// no element of the warp has a deficit (d = 0) keeps the clipped values:
-// the whole pass would give 0 too (pos is false, give = +-0, c = |+-0 /
-// tot| = +0), so y = fmaf(0, lo - yc, yc) is its result bit for bit, and
-// the carry's zero sign never reaches y. With kCount each pass is counted
-// into cnt (the arithmetic is untouched). Every thread of the warp must
-// call it.
+// no element of the warp has a deficit (d = 0) skips the room, the give and
+// the division: c = +0 and give = d, which the whole pass gives too (pos
+// is false, give = +-0, c = |+-0 / tot| = +0), so the update fmaf(c, lo -
+// yc, yc) is its result bit for bit, and the carry's zero sign never
+// reaches y. Both take the one update, and the pass loop is not unrolled:
+// so the mix instance spills no more at its 64 registers than without the
+// skip (32 bytes on the H100; unrolled, with the update in each branch,
+// 40). With kCount each pass is counted into cnt (the arithmetic is
+// untouched). Every thread of the warp must call it.
 template <bool kSkip, bool kCount = false>
 __device__ __forceinline__ V4 limit(V4 y, const V4& q, const V4& w,
                                     float wsum, int iters,
@@ -502,6 +507,7 @@ __device__ __forceinline__ V4 limit(V4 y, const V4& q, const V4& w,
   for (int j = 0; j < 4; ++j) a.v[j] = w.v[j] * y.v[j];
   const float mass = qsum(a);
   float carry = 0.f;
+#pragma unroll 1
   for (int i = 0; i < iters; ++i) {
     V4 yc;
 #pragma unroll
@@ -521,23 +527,18 @@ __device__ __forceinline__ V4 limit(V4 y, const V4& q, const V4& w,
         cnt->deficit += has != 0u;
       }
     }
-    if constexpr (kSkip) {
-      if (__all_sync(kFull, d == 0.f)) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) y.v[j] = fmaf(0.f, lo - yc.v[j], yc.v[j]);
-        carry = 0.f;
-        continue;
-      }
-    }
     const bool pos = d > 0.f;
     const float bsel = pos ? hi : lo;
+    float c = 0.f, give = d;
+    if (!kSkip || !__all_sync(kFull, d == 0.f)) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      a.v[j] = w.v[j] * (pos ? hi - yc.v[j] : yc.v[j] - lo);
-    const float tot = qsum(a);
-    const float give = pos ? fminf(d, tot) : fmaxf(d, -tot);
+      for (int j = 0; j < 4; ++j)
+        a.v[j] = w.v[j] * (pos ? hi - yc.v[j] : yc.v[j] - lo);
+      const float tot = qsum(a);
+      give = pos ? fminf(d, tot) : fmaxf(d, -tot);
+      c = fabsf(__fdiv_rn(give, fmaxf(tot, FLT_MIN)));
+    }
     carry = d - give;
-    const float c = fabsf(__fdiv_rn(give, fmaxf(tot, FLT_MIN)));
 #pragma unroll
     for (int j = 0; j < 4; ++j) y.v[j] = fmaf(c, bsel - yc.v[j], yc.v[j]);
   }
@@ -631,8 +632,7 @@ __device__ __forceinline__ void stage_block(
   constexpr bool kRawQ = kLimit && kQBf && kBfAhead > 0;
   constexpr int kAhead = kRawQ ? kBfAhead : 1;
   static_assert(!kRawQ || !kMix, "the limited stage takes a bf16 q unmixed");
-  constexpr bool kSkip =
-      kLimit && (kSkipLimit == 2 || (kSkipLimit == 1 && kQBf));
+  constexpr bool kSkip = kLimit && kSkipLimit;
   const Quad t = load_tile(tl, s.meta, dvv, s.fix_rank, s.ld, ncol, lane0,
                            rr);
   const int kw = k0 + static_cast<int>(threadIdx.x >> 5);

@@ -170,15 +170,20 @@ _SIGNATURES = {
 }
 
 
-@functools.lru_cache(maxsize=None)
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``name``, built first if needed."""
-    lib = ctypes.CDLL(build_kernels([name])[name])
+def _load(path: str, name: str) -> ctypes.CDLL:
+    """The library at ``path`` with the C signatures of source ``name``."""
+    lib = ctypes.CDLL(path)
     for fn, argtypes in _SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_char_p if fn.endswith("_error_string") else _I
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``name``, built first if needed."""
+    return _load(build_kernels([name])[name], name)
 
 
 def check_launch(name: str, err: int) -> None:

@@ -77,7 +77,7 @@ from ..profiling import launch_span, limiter_counts
 from . import _build
 from .layout import META_COLS
 
-__all__ = ["TRACER_LEVELS", "TRACER_TILE", "TRACER_WARPS",
+__all__ = ["TRACER_LEVELS", "TRACER_TILE", "TRACER_WARPS", "TRACER_SKIP",
            "tracer_euler_plain", "tracer_euler_cuda", "tracer_euler_emulated",
            "tracer_limit_plain", "tracer_limit_cuda", "tracer_limit_emulated"]
 
@@ -89,6 +89,10 @@ _MC = {name: i for i, name in enumerate(META_COLS)}
 TRACER_LEVELS = 8
 TRACER_TILE = 128
 TRACER_WARPS = {"euler": 4, "limit": 8}
+# every limited instance of csrc/tracer.cu (kSkipLimit) skips a limiter pass
+# in which no element of the warp has a deficit: the pass would keep the
+# clipped values bit for bit, so only the limiter's counts show it
+TRACER_SKIP = True
 
 
 def _advect_plain(meta, vu, vv, q, dvv, dt, nlev, wind_rows):
@@ -140,13 +144,16 @@ def tracer_euler_plain(meta, vu, vv, q, dvv, dt, nlev: int,
 
 def _count_passes(counts, d):
     """Add one limiter pass's ``profiling.LIMITER_COUNTS`` into ``counts``
-    from its deficits d [rows, nel], as the kernel without skips counts
-    them: a warp takes the 8 elements of a row in a 128-lane tile."""
+    from its deficits d [rows, nel], as the kernel counts them: a warp
+    takes the 8 elements of a row in a 128-lane tile and computes the pass
+    where one of them has a deficit, else skips it (``TRACER_SKIP``)."""
     has = d != 0
     warps = torch.nn.functional.pad(has, (0, -has.shape[1] % 8)).view(
         has.shape[0], -1, 8).any(2)
-    counts[0] += warps.numel()
-    counts[1] += warps.sum()
+    with_deficit = warps.sum()
+    counts[0] += with_deficit
+    counts[1] += with_deficit
+    counts[2] += warps.numel() - with_deficit
     counts[3] += has.sum()
 
 
@@ -451,11 +458,11 @@ def _warp_all(m):
         rows, nel, 1, 1)
 
 
-def _limit_emulated(y, q, w, iters, skip=False):
+def _limit_emulated(y, q, w, iters, skip=TRACER_SKIP):
     """The kernels' limiter on [rows, nel, 4, 4]; w [1, nel, 4, 4]. With
-    ``skip`` (the instance for a bf16 q) a pass in which no element of the
-    warp has a deficit keeps the clipped values, fmaf(0, lo - yc, yc), and
-    a zero carry."""
+    ``skip`` (every limited instance, ``TRACER_SKIP``) a pass in which no
+    element of the warp has a deficit keeps the clipped values, fmaf(0, lo
+    - yc, yc), and a zero carry."""
     lo, hi = q.amin((2, 3), keepdim=True), q.amax((2, 3), keepdim=True)
     tiny = torch.finfo(torch.float32).tiny
     mass = _qsum(w * y)
@@ -526,12 +533,12 @@ def tracer_euler_emulated(meta, vu, vv, q, dvv, dt, nlev: int,
 
 def tracer_limit_emulated(meta, vu, vv, q, dvv, dt, nlev: int, mix=None,
                           wind_rows=(0, 0), iters: int = 2, fix=None,
-                          skip: bool = False):
+                          skip: bool = TRACER_SKIP):
     """``tracer_limit_cuda`` as its kernel computes it, on float32 CPU
     tensors (``tracer_euler_emulated``, then the Shu-Osher combination
     ``ca*mx + cb*e``, both products and the sum rounded, and the kernel's
-    limiter; with ``skip`` the limiter of the bf16 q instance, which skips
-    the passes in which no element of a warp has a deficit). Returns (out,
+    limiter; with ``skip``, as every limited instance does, the passes in
+    which no element of a warp has a deficit skipped). Returns (out,
     slab or None, writes, slab writes or None)."""
     mx, ca, cb = _mix_of("tracer_limit", q, mix)
     y = _advect_emulated(meta, vu, vv, q, dvv, dt, nlev, wind_rows)

@@ -441,7 +441,8 @@ STEP_SPAN = "prim.step"
 # row that make a 128-lane tile), those among them in which some element of
 # the warp had a deficit (d != 0: mass clipped off, or carried from the pass
 # before), the passes a warp skipped because none of its elements had one
-# (the bf16 q instance), and the element passes with a deficit
+# (every limited instance skips them, so the first two are equal), and the
+# element passes with a deficit
 LIMITER_COUNTS = ("warp_passes", "warp_passes_with_deficit",
                   "warp_passes_skipped", "element_passes_with_deficit")
 
